@@ -1,0 +1,206 @@
+"""The fused cohort step, normalize -> kNN -> dipCN -> phasing (twin of
+``grid_tpu/models/cohort.py``), on its d2-resident branch:
+
+    raw depth matrix [N, R] + read counts [N] (+ hap neighbors [2N, K])
+        -> normalize (masked column stats: Triton kernel)       ~ O(N R)
+        -> region selection + variance filter  (masking, not gathering)
+        -> d2 = |a|^2 + |b|^2 - 2 G, G from the fused z-prep Gram
+           (CUDA kernel)                                        ~ O(N^2 R)
+        -> sorted k nearest neighbors (stable sort of each d2 row)
+        -> threshold dipCN (CUDA kernel, one block per row)     ~ O(N^2)
+        -> phasing (Jacobi sweeps)                              ~ O(iters N K)
+
+De-selected regions are zeroed rather than dropped: a zero column adds
+nothing to any distance, so every shape stays fixed.
+
+The step runs on the device its inputs lie on: the hand kernels on a CUDA
+device, their plain PyTorch versions on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu
+from grid_tpu_torch.ops.knn import d2_matrix, region_filter_mask, sorted_smallest_k
+from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
+from grid_tpu_torch.ops.phasing import PhasingResult, compute_imputed, phase_haplotypes
+
+
+class CohortParams(NamedTuple):
+    """Hyperparameters of the fused cohort step; the same fields and
+    defaults as ``grid_tpu.models.cohort.CohortParams``."""
+
+    top_frac: float = 0.1  # normalize: high-variance selection (quirk Q2)
+    zmax: float = 2.0  # neighbors: z clip
+    sigma2_max: float = 1000.0  # neighbors: variance-ratio upper bound
+    frac_r: float = 1.0  # neighbors: hidden lower-bound knob
+    num_neighbors: int = 5  # neighbors per sample (C++ default 500)
+    n_nbr: int = 300  # dipCN: neighbors averaged
+    min_nbr: int = 1  # phasing: per-hap neighbor floor
+    n_iters: int = 100  # phasing sweeps
+    quantize: bool = True  # mimic %.2f file round-trip of scales/z
+    row_block: int = 512  # kNN panel rows (panel branch, not ported yet)
+    dipcn_lists: bool = False  # dipCN from the sorted lists (not ported yet)
+    use_pallas: bool = False  # JAX package's Pallas kNN branch (not ported)
+    # the [N, N] distance matrix stays resident while N*N*itemsize fits
+    # this budget; beyond it the JAX package streams row panels
+    d2_budget_bytes: int = 2 << 30
+
+
+class CohortOutputs(NamedTuple):
+    """Everything the file pipeline writes, as tensors."""
+
+    z: torch.Tensor  # [N, R] normalized z-scores (0 where ~z_mask)
+    z_mask: torch.Tensor  # [N, R]
+    col_means: torch.Tensor  # [R]
+    col_vars: torch.Tensor  # [R]
+    var_ratio: torch.Tensor  # [R]
+    region_selected: torch.Tensor  # [R] bool — high-variance selection
+    region_used: torch.Tensor  # [R] bool — selected AND variance-filtered
+    r_use: torch.Tensor  # 0-d — |region_used|
+    scales: torch.Tensor  # [N] per-sample scale (quantized if requested)
+    nbr_idx: torch.Tensor  # [N, k] int32
+    nbr_sq_dists: torch.Tensor  # [N, k] squared distances, ascending
+    dipcn: torch.Tensor  # [N]
+    dipcn_valid: torch.Tensor  # [N]
+    hap_irrs: torch.Tensor  # [2N]
+    hap_imp: torch.Tensor  # [2N]
+    phased: torch.Tensor  # [N]
+    mean_irrs: torch.Tensor  # 0-d
+
+
+def _q2(x):
+    """Quantize to 2 decimals (round-half-even), matching %.2f file writes."""
+    return torch.round(x * 100) / 100
+
+
+def _check_branch(params: CohortParams, n: int, itemsize: int) -> None:
+    """Raise for the branches of the JAX cohort step not ported yet."""
+    if params.use_pallas:
+        raise NotImplementedError(
+            "use_pallas=True is the JAX package's Pallas kNN branch; the port runs its"
+            " hand kernels on the d2-resident branch instead"
+        )
+    if params.dipcn_lists:
+        raise NotImplementedError("dipcn_lists=True is not ported yet (ROADMAP.md queue 1)")
+    if params.d2_budget_bytes <= 0 or n * n * itemsize > params.d2_budget_bytes:
+        raise NotImplementedError(
+            f"N={n}: the {n * n * itemsize}-byte distance matrix exceeds d2_budget_bytes="
+            f"{params.d2_budget_bytes}; the row-panel branch is not ported yet"
+            " (ROADMAP.md queue 1)"
+        )
+    if params.num_neighbors > n - 1:
+        raise ValueError(f"k={params.num_neighbors} must be <= N-1={n - 1}")
+
+
+def cohort_step(
+    values,
+    mask,
+    reads,
+    reads_valid,
+    hap_nbr_idx,
+    hap_nbr_w,
+    hap_nbr_valid,
+    params: CohortParams = CohortParams(),
+    row_valid=None,
+) -> CohortOutputs:
+    """Run normalize -> kNN -> dipCN -> phasing on the inputs' device.
+
+    Args:
+        values: [N, R] raw binned depths.
+        mask: [N, R] bool validity of each depth cell.
+        reads: [N] VNTR-window read counts (junk where ~reads_valid).
+        reads_valid: [N] bool.
+        hap_nbr_idx/w/valid: [2N, K] padded haplotype neighbors
+            (see grid_tpu_torch.io.hap_neighbors.pad_hap_neighbors).
+        params: hyperparameters.
+        row_valid: optional [N] bool marking padding rows; invalid rows are
+            excluded from all statistics.
+    """
+    n = values.shape[0]
+    _check_branch(params, n, values.element_size())
+    n_rows = None
+    if row_valid is not None:
+        mask = mask & row_valid[:, None]
+        n_rows = row_valid.sum()  # padding must not inflate the N-1 denom
+
+    # ---- step 4: normalize + select ------------------------------------
+    norm = normalize_cohort(values, mask, n_rows=n_rows)
+    selected = select_high_variance_mask(norm.var_ratio, params.top_frac)
+
+    scales = norm.row_means_raw
+    z = norm.z
+    if params.quantize:
+        scales = _q2(scales)
+        z = torch.where(norm.mask, _q2(z), z)
+
+    # ---- step 5: region variance filter + kNN --------------------------
+    # The neighbors step recomputes ratios from the WRITTEN (selected)
+    # columns only: unselected regions are fed as NaN, and the rank base is
+    # the written-column count.
+    ratios_seen = torch.where(selected, norm.var_ratio, torch.nan)
+    vfilter = region_filter_mask(
+        ratios_seen, params.frac_r, params.sigma2_max, n_written=selected.sum()
+    )
+    region_used = selected & vfilter
+    r_use = region_used.sum()
+
+    # Rows with no surviving cells are never in the written matrix: they
+    # are neither selectable neighbors nor contributors to dipCN means.
+    sample_ok = norm.mask.any(dim=1)
+    if row_valid is not None:
+        sample_ok = sample_ok & row_valid
+    d2 = d2_matrix(z, norm.mask, region_used, params.zmax, row_valid=sample_ok)
+    sq_dists, nbr_idx = sorted_smallest_k(d2, params.num_neighbors)
+
+    # ---- step 6: threshold dipCN on the resident d2 --------------------
+    reads_valid = reads_valid & sample_ok
+    w = reads / scales
+    dipcn, dipcn_valid = dipcn_from_distances_gpu(
+        d2, w, w, reads_valid, reads_valid, k=params.num_neighbors, n_nbr=params.n_nbr
+    )
+
+    # ---- step 7: phasing ----------------------------------------------
+    # Samples without a dipCN estimate never enter phasing; NaN marks them.
+    irrs = torch.where(dipcn_valid, dipcn, torch.nan)
+    phasing: PhasingResult = phase_haplotypes(
+        irrs, hap_nbr_idx, hap_nbr_w, hap_nbr_valid, params.min_nbr, params.n_iters
+    )
+    imp = compute_imputed(
+        phasing.hap_irrs, hap_nbr_idx, hap_nbr_w, hap_nbr_valid, phasing.mean_irrs
+    )
+
+    return CohortOutputs(
+        z=z,
+        z_mask=norm.mask,
+        col_means=norm.col_means,
+        col_vars=norm.col_vars,
+        var_ratio=norm.var_ratio,
+        region_selected=selected,
+        region_used=region_used,
+        r_use=r_use,
+        scales=scales,
+        nbr_idx=nbr_idx,
+        nbr_sq_dists=sq_dists,
+        dipcn=dipcn,
+        dipcn_valid=dipcn_valid,
+        hap_irrs=phasing.hap_irrs,
+        hap_imp=imp,
+        phased=phasing.phased,
+        mean_irrs=phasing.mean_irrs,
+    )
+
+
+def make_cohort_step(params: CohortParams):
+    """Bind params; returns fn(values, mask, reads, reads_valid, hap_nbr_idx,
+    hap_nbr_w, hap_nbr_valid) -> CohortOutputs."""
+
+    def step(values, mask, reads, reads_valid, hap_nbr_idx, hap_nbr_w, hap_nbr_valid):
+        return cohort_step(
+            values, mask, reads, reads_valid, hap_nbr_idx, hap_nbr_w, hap_nbr_valid, params
+        )
+
+    return step

@@ -1,0 +1,123 @@
+"""Build, load and launch the port's CUDA C++ kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface (``build/grid_tpu_torch/lib<name>-<key>.so``
+at the repository root) and loaded with ``ctypes``. The key is a hash of the
+source text and the nvcc flags, so a library is never reused for another
+source or other flags, whatever the files' times. Nothing is built when a
+module is imported: the first launch builds, and a failed build raises with
+nvcc's own messages. nvcc's report (registers, spills) is kept beside the
+library as ``lib<name>-<key>.log``.
+
+Every exported launch function takes device pointers and the CUDA stream as
+``void*``, launches without synchronising and returns the ``cudaError_t`` of
+the launch; :func:`check_launch` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "grid_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # per-kernel registers / shared memory / spills, kept in the .log
+)
+KERNELS = ("zprep_gram", "dipcn_select")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` at its current text and
+    ``NVCC_FLAGS`` lives (built or not)."""
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    key.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; return the
+    library's path. Raises RuntimeError with nvcc's stderr on failure."""
+    src = CSRC / f"{name}.cu"
+    lib = library_path(name)
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")  # concurrent builds never share a file
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed building {src.name}:\n{' '.join(cmd)}\n{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library; the error-string
+    function ``<name>_error_string`` is declared here, the launch function
+    by its wrapper."""
+    lib = ctypes.CDLL(str(build(name)))
+    err_fn = getattr(lib, f"{name}_error_string")
+    err_fn.argtypes = [ctypes.c_int]
+    err_fn.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        msg = getattr(load(name), f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")
+
+
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as an integer handle."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """Route of a wrapper: False for CPU tensors (plain version), True for
+    CUDA tensors (kernel). Mixed or other devices raise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return False
+    if device.type == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    """Raise unless ``t`` has the dtype and shape a kernel takes and is
+    contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -1,0 +1,181 @@
+"""Hopper kernels for the cohort step's normalize statistics and Gram matrix.
+
+- :func:`masked_column_stats` — Triton. Replaces
+  ``grid_tpu/ops/pallas_kernels.py:masked_column_stats`` (``pallas_call`` at
+  line 168). Per column: count, sum and centered sum of squares of
+  x = values * inv_row_mean under the mask. It is bound by device memory: it
+  reads the [N, R] values (4 B) and mask (1 B) once and does a few flops per
+  element. Each program owns one column tile and walks down the rows in a
+  loop, which takes the place of the Pallas grid's sequential row axis: every
+  column's sums stay inside one program, so no cross-block reduction or
+  atomics are needed and the sums are deterministic. Consecutive columns
+  keep each row's loads coalesced.
+- :func:`zprep_gram` — CUDA C++ in ``csrc/zprep_gram.cu``. Replaces
+  ``pallas_kernels.py:zprep_gram`` (``pallas_call`` at line 93). See the
+  source for its design.
+
+Each wrapper runs its kernel for CUDA tensors and its plain PyTorch version
+for CPU tensors only; it counts its kernel launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from grid_tpu_torch import native
+
+_COLSTATS_BLOCK_M = 64  # rows per step of a program's row loop
+_COLSTATS_BLOCK_C = 32  # columns per program (one 128-byte line of f32)
+
+
+# ---------------------------------------------------------------------------
+# masked_column_stats (Triton)
+# ---------------------------------------------------------------------------
+
+
+def masked_column_stats_plain(values, mask, inv_row_means, col_means=None):
+    """Plain PyTorch version of :func:`masked_column_stats`, in the input's
+    dtype (the kernel is float32 only)."""
+    x = torch.where(mask, values * inv_row_means[:, None], 0)
+    mu = 0 if col_means is None else col_means[None, :]
+    centered = torch.where(mask, x - mu, 0)
+    return mask.sum(dim=0).to(values.dtype), x.sum(dim=0), (centered * centered).sum(dim=0)
+
+
+@functools.cache
+def _colstats_kernel():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def colstats(v_ptr, m_ptr, irm_ptr, mu_ptr, cnt_ptr, sum_ptr, sq_ptr, n_rows, n_cols,
+                 HAS_MU: tl.constexpr, BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr):
+        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+        col_in = cols < n_cols
+        if HAS_MU:
+            mu = tl.load(mu_ptr + cols, mask=col_in, other=0.0)
+        else:
+            mu = tl.zeros((BLOCK_C,), tl.float32)
+        acc_cnt = tl.zeros((BLOCK_M, BLOCK_C), tl.float32)
+        acc_sum = tl.zeros((BLOCK_M, BLOCK_C), tl.float32)
+        acc_sq = tl.zeros((BLOCK_M, BLOCK_C), tl.float32)
+        for r0 in range(0, n_rows, BLOCK_M):
+            rows = r0 + tl.arange(0, BLOCK_M)
+            row_in = rows < n_rows
+            inb = row_in[:, None] & col_in[None, :]
+            offs = rows[:, None].to(tl.int64) * n_cols + cols[None, :]
+            v = tl.load(v_ptr + offs, mask=inb, other=0.0)
+            m = tl.load(m_ptr + offs, mask=inb, other=0) != 0
+            irm = tl.load(irm_ptr + rows, mask=row_in, other=0.0)
+            x = tl.where(m, v * irm[:, None], 0.0)
+            c = tl.where(m, x - mu[None, :], 0.0)
+            acc_cnt += m.to(tl.float32)
+            acc_sum += x
+            acc_sq += c * c
+        tl.store(cnt_ptr + cols, tl.sum(acc_cnt, axis=0), mask=col_in)
+        tl.store(sum_ptr + cols, tl.sum(acc_sum, axis=0), mask=col_in)
+        tl.store(sq_ptr + cols, tl.sum(acc_sq, axis=0), mask=col_in)
+
+    return triton, colstats
+
+
+def masked_column_stats(values, mask, inv_row_means, col_means=None):
+    """Per-column (count, sum, sqdev_sum) of x = values * inv_row_means under
+    ``mask``, in one pass over the matrix.
+
+    Same contract as the Pallas kernel (whose tile sizes and ``interpret``
+    flag are TPU knobs with no counterpart here).
+
+    Args:
+        values: [N, R] raw depths.
+        mask: [N, R] bool validity; counted as given, so pass it with bad
+            rows already cleared.
+        inv_row_means: [N] 1/row_mean (0 for invalid rows).
+        col_means: optional [R]; sqdev is centered on it (zeros when None).
+
+    Returns (cnt [R], sum [R], sqdev [R]): float32 from the kernel, the
+    input dtype from the plain version.
+    """
+    tensors = (values, mask, inv_row_means) + (() if col_means is None else (col_means,))
+    if not native.on_cuda(*tensors):
+        return masked_column_stats_plain(values, mask, inv_row_means, col_means)
+    n, r = values.shape
+    native.check(values, "values", torch.float32, (n, r))
+    native.check(mask, "mask", torch.bool, (n, r))
+    native.check(inv_row_means, "inv_row_means", torch.float32, (n,))
+    if col_means is not None:
+        native.check(col_means, "col_means", torch.float32, (r,))
+    cnt, s, sq = (torch.empty(r, dtype=torch.float32, device=values.device) for _ in range(3))
+    triton, kernel = _colstats_kernel()
+    grid = (triton.cdiv(r, _COLSTATS_BLOCK_C),)
+    with torch.cuda.device(values.device):
+        # Triton launches on PyTorch's current stream and raises itself when
+        # CUDA refuses a launch.
+        kernel[grid](
+            values, mask.view(torch.uint8), inv_row_means,
+            values if col_means is None else col_means,  # unread when HAS_MU is False
+            cnt, s, sq, n, r,
+            HAS_MU=col_means is not None,
+            BLOCK_M=_COLSTATS_BLOCK_M, BLOCK_C=_COLSTATS_BLOCK_C, num_warps=4,
+        )
+    masked_column_stats.launches += 1
+    return cnt, s, sq
+
+
+masked_column_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# zprep_gram (CUDA C++, csrc/zprep_gram.cu)
+# ---------------------------------------------------------------------------
+
+
+def zprep_gram_plain(z, mask, region_mask, zmax: float):
+    """Plain PyTorch version of :func:`zprep_gram`: prepare, then P @ P^T."""
+    p = torch.where(mask, z.clamp(-zmax, zmax), 0) * region_mask[None, :].to(z.dtype)
+    return p @ p.T
+
+
+@functools.cache
+def _zprep_lib():
+    lib = native.load("zprep_gram")
+    fn = lib.zprep_gram_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def zprep_gram(z, mask, region_mask, zmax: float):
+    """G = P P^T with P = where(mask, clip(z, ±zmax), 0) * region_mask; the
+    prepared P is never written to device memory.
+
+    Args:
+        z: [N, R] float32 z matrix.
+        mask: [N, R] bool validity.
+        region_mask: [R] bool selected regions.
+        zmax: clip bound.
+
+    Returns [N, N] Gram matrix (float32 from the kernel; the input dtype
+    from the plain version).
+    """
+    if not native.on_cuda(z, mask, region_mask):
+        return zprep_gram_plain(z, mask, region_mask, zmax)
+    n, r = z.shape
+    native.check(z, "z", torch.float32, (n, r))
+    native.check(mask, "mask", torch.bool, (n, r))
+    native.check(region_mask, "region_mask", torch.bool, (r,))
+    g = torch.empty((n, n), dtype=torch.float32, device=z.device)
+    launch = _zprep_lib()
+    with torch.cuda.device(z.device):
+        err = launch(z.data_ptr(), mask.data_ptr(), region_mask.data_ptr(), float(zmax),
+                     n, r, g.data_ptr(), native.stream_ptr(z.device))
+    native.check_launch("zprep_gram", err)
+    zprep_gram.launches += 1
+    return g
+
+
+zprep_gram.launches = 0

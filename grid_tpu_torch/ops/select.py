@@ -1,0 +1,123 @@
+"""Exact threshold selection and gather-free dipCN (twin of
+``grid_tpu/ops/select.py``, binary form only).
+
+Non-negative floats bitcast to signed integers of the same width keep their
+order, so the k-th smallest distance of a row is found by bisection on the
+integer key space: each round is one compare-and-count pass. Ties at the
+threshold go to the lower column (stable-argsort parity) through a second
+bisection on the column index.
+
+:func:`dipcn_from_distances` is the plain version of the CUDA kernel in
+:mod:`grid_tpu_torch.ops.gpu_select`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# order-preserving integer key type per float dtype (values are >= 0, so the
+# raw bit pattern as a SIGNED int of the same width is monotone)
+_KEY_TYPES = {
+    torch.float32: torch.int32,
+    torch.float64: torch.int64,
+}
+
+
+def _key_type(dtype):
+    key_type = _KEY_TYPES.get(dtype)
+    if key_type is None:
+        raise ValueError(f"unsupported dtype {dtype}")
+    return key_type
+
+
+def _per_row(k, n, device):
+    """``k`` (an int or an [N] tensor) as an [N] int64 tensor."""
+    return torch.as_tensor(k, dtype=torch.int64, device=device).expand(n)
+
+
+def _kth_smallest_key(u, k):
+    """Exact k-th smallest integer key per row of ``u`` [N, W] (keys are
+    non-negative). ``k`` is an int or an [N] tensor, 1 <= k <= W; rows with
+    k <= 0 return a value the caller must mask."""
+    n = u.shape[0]
+    bits = 8 * u.element_size()
+    k_arr = _per_row(k, n, u.device)
+    lo = torch.zeros(n, dtype=u.dtype, device=u.device)
+    hi = torch.full((n,), (1 << (bits - 1)) - 1, dtype=u.dtype, device=u.device)
+    for _ in range(bits - 1):
+        mid = lo + (hi - lo) // 2
+        ge = (u <= mid[:, None]).sum(dim=1) >= k_arr
+        hi = torch.where(ge, mid, hi)
+        lo = torch.where(ge, lo, mid + 1)
+    return hi
+
+
+def _tie_cut_column(tie_mask, need):
+    """Smallest column c with ``count(tie & col <= c) >= need`` per row, by
+    bisection on the column index; -1 where need <= 0 (no ties taken)."""
+    n, w = tie_mask.shape
+    cols = torch.arange(w, device=tie_mask.device)
+    lo = torch.zeros(n, dtype=torch.int64, device=tie_mask.device)
+    hi = torch.full((n,), w - 1, dtype=torch.int64, device=tie_mask.device)
+    for _ in range(max(int(w - 1).bit_length(), 1)):
+        mid = lo + (hi - lo) // 2
+        ge = (tie_mask & (cols[None, :] <= mid[:, None])).sum(dim=1) >= need
+        hi = torch.where(ge, mid, hi)
+        lo = torch.where(ge, lo, mid + 1)
+    return torch.where(need > 0, hi, -1)
+
+
+def _take_smallest(u, k):
+    """Membership of the k smallest keys per row, ties to the lower column."""
+    t = _kth_smallest_key(u, k)
+    below = u < t[:, None]
+    at = u == t[:, None]
+    need = _per_row(k, u.shape[0], u.device) - below.sum(dim=1)
+    cut = _tie_cut_column(at, need)
+    cols = torch.arange(u.shape[1], device=u.device)
+    return below | (at & (cols[None, :] <= cut[:, None]))
+
+
+def smallest_k_mask(d2, k):
+    """Exact membership mask of the k smallest values per row (ties broken
+    by ascending column) — [N, W] bool with exactly ``min(k, W)`` True per
+    row. ``k`` is an int or an [N] tensor; rows with k <= 0 get empty
+    masks."""
+    u = d2.view(_key_type(d2.dtype))
+    mask = _take_smallest(u, k)
+    return mask & (_per_row(k, u.shape[0], u.device) > 0)[:, None]
+
+
+def dipcn_from_distances(d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int):
+    """dipCN straight from the distance matrix, with no neighbor lists and
+    no gathers.
+
+    Equivalent to gathering the k nearest neighbors (ascending, stable ties)
+    and averaging ``nbr_w`` over the first n_nbr usable ones: the usable
+    prefix is a second thresholding restricted to usable members of the
+    k-set, and the mean is one masked row sum.
+
+    Args:
+        d2: [N, W] squared distances with self and invalid-row columns
+            already set to a large FINITE value.
+        rnorm: [N] reads_i / scale_i.
+        nbr_w: [W] reads_j / scale_j contribution of each column.
+        col_usable: [W] bool — column j may be averaged.
+        sample_valid: [N] bool.
+        k / n_nbr: neighbor-list length and averaging depth.
+
+    Returns (dipcn [N], out_valid [N]).
+    """
+    key_type = _key_type(d2.dtype)
+    big = torch.iinfo(key_type).max
+    u = d2.view(key_type)
+    in_sk = smallest_k_mask(d2, k)
+    uu = torch.where(in_sk & col_usable[None, :], u, big)
+
+    m_eff = (uu < big).sum(dim=1).clamp_max(n_nbr)
+    take = _take_smallest(uu, m_eff) & (m_eff > 0)[:, None]
+
+    tot = torch.where(take, nbr_w.to(d2.dtype)[None, :], 0).sum(dim=1)
+    nbr_mean = tot / m_eff.clamp_min(1)
+    dipcn = rnorm.to(d2.dtype) / nbr_mean
+    return dipcn, sample_valid & (m_eff > 0)

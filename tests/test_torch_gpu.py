@@ -1,0 +1,126 @@
+"""The port's hand kernels against their plain versions on a CUDA card.
+
+Every test here needs the card: it carries the ``cuda`` marker and skips
+without one. This file imports no JAX, so on a machine without JAX run it
+without the suite's conftest (which sets JAX up):
+
+    python -m pytest tests/test_torch_gpu.py -m cuda --noconftest -q
+
+Bounds as in chip_smoke.py: counts and ``ok`` exact; column sums at rtol
+1e-5; the Gram matrix within 1e-5 of its largest entry (another summation
+order over R); dipCN at rtol 1e-6 (the same take-set summed in another
+order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
+from grid_tpu_torch.io.hap_neighbors import pad_hap_neighbors
+from grid_tpu_torch.models.cohort import CohortParams, cohort_step
+from grid_tpu_torch.ops.gpu_kernels import (
+    masked_column_stats,
+    masked_column_stats_plain,
+    zprep_gram,
+    zprep_gram_plain,
+)
+from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu
+from grid_tpu_torch.ops.knn import d2_matrix
+from grid_tpu_torch.ops.select import dipcn_from_distances
+from torch_parity import assert_close_to_max, dipcn_sets_differ, neighbor_rows_differing
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n,r", [(1, 1), (97, 70), (300, 257)])
+def test_masked_column_stats_kernel(cuda, n, r):
+    rng = np.random.default_rng(n)
+    values = torch.tensor(rng.uniform(10, 60, (n, r)), dtype=torch.float32, device=cuda)
+    mask = torch.tensor(rng.random((n, r)) > 0.15, device=cuda)
+    inv = torch.tensor(rng.uniform(0.01, 0.1, n), dtype=torch.float32, device=cuda)
+    mu = torch.tensor(rng.uniform(0.5, 2.0, r), dtype=torch.float32, device=cuda)
+    for col_means in (None, mu):
+        before = masked_column_stats.launches
+        got = masked_column_stats(values, mask, inv, col_means)
+        assert masked_column_stats.launches == before + 1
+        want = masked_column_stats_plain(values, mask, inv, col_means)
+        assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n,r", [(1, 3), (97, 70), (300, 257)])
+def test_zprep_gram_kernel(cuda, n, r):
+    rng = np.random.default_rng(n)
+    z = torch.tensor(rng.normal(size=(n, r)) * 3, dtype=torch.float32, device=cuda)
+    mask = torch.tensor(rng.random((n, r)) > 0.1, device=cuda)
+    region = torch.tensor(rng.random(r) > 0.2, device=cuda)
+    before = zprep_gram.launches
+    got = zprep_gram(z, mask, region, 2.0)
+    assert zprep_gram.launches == before + 1
+    want = zprep_gram_plain(z, mask, region, 2.0)
+    assert_close_to_max(got.cpu(), want.cpu(), 1e-5)
+
+
+@pytest.mark.parametrize("n,r,k,n_nbr", [(97, 16, 20, 7), (300, 40, 60, 50), (200, 8, 199, 300)])
+def test_dipcn_kernel_on_ties(cuda, n, r, k, n_nbr):
+    rng = np.random.default_rng(k)
+    zp = torch.tensor(np.round(rng.normal(size=(n, r)) * 4) / 4, dtype=torch.float32,
+                      device=cuda)
+    ones = torch.ones_like(zp, dtype=torch.bool)
+    valid = torch.tensor(rng.random(n) > 0.1, device=cuda)
+    d2 = d2_matrix(zp, ones, ones[0], 1e30, row_valid=valid)
+    rnorm = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32, device=cuda)
+    usable = torch.tensor(rng.random(n) > 0.2, device=cuda)
+    args = (d2, rnorm, rnorm, usable, valid)
+    got, gok = dipcn_from_distances_gpu(*args, k=k, n_nbr=n_nbr)
+    want, wok = dipcn_from_distances(*args, k=k, n_nbr=n_nbr)
+    assert torch.equal(gok, wok)
+    torch.testing.assert_close(got[gok], want[gok], rtol=1e-6, atol=0)
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    z = torch.zeros((8, 4), dtype=torch.float64, device=cuda)
+    mask = torch.ones((8, 4), dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        zprep_gram(z, mask, mask[0], 2.0)
+    with pytest.raises(ValueError):
+        zprep_gram(z.float().t(), mask.t(), mask[:, 0], 2.0)  # not contiguous
+    with pytest.raises(ValueError):
+        masked_column_stats(z.float(), mask, torch.ones(8, device="cpu"))  # mixed devices
+    d2 = torch.zeros((8, 8), device=cuda)
+    v = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError):
+        dipcn_from_distances_gpu(d2, v, v, v > 0, v > 0, k=9, n_nbr=3)
+
+
+def test_cohort_step_on_card_matches_plain_route(cuda):
+    rng = np.random.default_rng(0)
+    n, r = 256, 192
+    values = rng.uniform(20, 40, (n, r)) * rng.normal(1, 0.1, (n, r)).clip(0.5, None)
+    mask = rng.random((n, r)) > 0.02
+    reads = rng.integers(500, 3000, n).astype(np.float64)
+    reads_valid = rng.random(n) > 0.05
+    ring = [[((h + 2) % (2 * n), 1.0), ((h - 2) % (2 * n), 0.5)] for h in range(2 * n)]
+    hap = pad_hap_neighbors(ring, 2)
+    params = CohortParams(num_neighbors=50, n_nbr=30, n_iters=10, quantize=False)
+    args = (values, mask, reads, reads_valid, *hap)
+    got = outputs_to_numpy(cohort_step(*inputs_to_torch(*args, cuda, torch.float32), params))
+    want = outputs_to_numpy(cohort_step(*inputs_to_torch(*args, "cpu", torch.float32), params))
+    assert_close_to_max(got.z, want.z, 1e-5)
+    neighbor_rows_differing(got.nbr_idx, got.nbr_sq_dists, want.nbr_idx, want.nbr_sq_dists,
+                            tol=1e-5 * want.nbr_sq_dists[:, -1])
+    np.testing.assert_array_equal(got.dipcn_valid, want.dipcn_valid)
+    same = got.dipcn_valid & ~dipcn_sets_differ(got.nbr_idx, want.nbr_idx,
+                                                reads_valid & want.z_mask.any(axis=1), 30)
+    np.testing.assert_allclose(got.dipcn[same], want.dipcn[same], rtol=1e-5)

@@ -1,0 +1,100 @@
+"""grid_tpu_torch stands alone: it imports neither jax nor grid_tpu (the
+machines with the card have no JAX), loads no kernel on import, and never
+puts a CUDA request on the CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from grid_tpu_torch import native
+from grid_tpu_torch.utils.device import get_device, resolve_dtype
+
+REPO = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+
+REFUSED = ("jax", "jaxlib", "grid_tpu")
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError(f"grid_tpu_torch must not import {name}")
+        return None
+
+for name in [m for m in sys.modules if m.split(".")[0] in REFUSED]:
+    del sys.modules[name]
+sys.meta_path.insert(0, Refuse())
+
+import grid_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(grid_tpu_torch.__path__, "grid_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+assert "triton" not in sys.modules, "triton is imported at launch time only"
+print("\n".join(names))
+"""
+
+
+def test_every_module_imports_without_jax_or_grid_tpu():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    imported = set(proc.stdout.split())
+    for name in ("grid_tpu_torch.models.cohort", "grid_tpu_torch.ops.gpu_kernels",
+                 "grid_tpu_torch.ops.gpu_select", "grid_tpu_torch.convert",
+                 "grid_tpu_torch.io.hap_neighbors", "grid_tpu_torch.utils.device"):
+        assert name in imported
+
+
+def test_kernel_library_is_keyed_by_source_and_flags(monkeypatch, tmp_path):
+    """A built library is reused only for the same source text and nvcc
+    flags, whatever the files' times."""
+    for name in native.KERNELS:
+        assert native.library_path(name) == native.library_path(name)
+        assert native.library_path(name).parent == native.BUILD_DIR
+    first = native.library_path("zprep_gram")
+    monkeypatch.setattr(native, "NVCC_FLAGS", native.NVCC_FLAGS + ("-lineinfo",))
+    assert native.library_path("zprep_gram") != first
+    monkeypatch.undo()
+    src = tmp_path / "zprep_gram.cu"
+    src.write_text((native.CSRC / "zprep_gram.cu").read_text())
+    monkeypatch.setattr(native, "CSRC", tmp_path)
+    assert native.library_path("zprep_gram") == first
+    src.write_text(src.read_text() + "// edited\n")
+    assert native.library_path("zprep_gram") != first
+
+
+def test_get_device_never_substitutes_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_device("cuda")
+    with pytest.raises(RuntimeError):
+        get_device("cuda:0")
+    assert get_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        get_device("meta")
+
+
+def test_resolve_dtype():
+    assert resolve_dtype(None) is None
+    assert resolve_dtype({"device": {"dtype": "auto"}}) is None
+    assert resolve_dtype({"device": {"dtype": "f32"}}) is torch.float32
+    assert resolve_dtype({"device": {"dtype": "float64"}}) is torch.float64
+    assert resolve_dtype({"device": {"dtype": "bf16"}}) is torch.bfloat16
+    with pytest.raises(ValueError):
+        resolve_dtype({"device": {"dtype": "int8"}})
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
