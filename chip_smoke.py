@@ -10,16 +10,20 @@ before the last line):
 
 1. device  — requires CUDA; prints the card's name and power limit.
 2. build   — compiles the CUDA kernels (nvcc, sm_90a) into
-             build/grid_tpu_torch/ and JIT-compiles the Triton kernel.
+             build/grid_tpu_torch/, prints ptxas' registers and spills and
+             the Gram kernel's launch shape, and JIT-compiles the Triton
+             kernel.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the cohort step gives it at 1000G scale (N=2504,
-             R=2048) and at a ragged shape, plus a forced-tie dipCN input.
+             R=2048) and at a ragged shape, plus a forced-tie dipCN input;
+             the Gram matrix must also be exactly symmetric and within 2x
+             the plain version's error against a float64 Gram.
 4. slice   — cohort_step at N=2504, R=2048, k=500, n_nbr=300, 100 phasing
              sweeps on the card; checks every kernel launched during it and
              that its outputs match the same call on CPU tensors (the plain
              route).
 5. times   — CUDA-event medians of 20 runs: the slice, and each kernel
-             beside its plain version.
+             beside its plain version (the Gram product also in TFLOP/s).
 6. profile — the slice's device time per step under torch.profiler, by
              kernel, and its share of the step time of phase 5.
 
@@ -107,7 +111,8 @@ def main() -> int:
     from grid_tpu_torch.io.hap_neighbors import pad_hap_neighbors
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step
     from grid_tpu_torch.ops.gpu_kernels import (
-        masked_column_stats, masked_column_stats_plain, zprep_gram, zprep_gram_plain,
+        masked_column_stats, masked_column_stats_plain, zprep_gram, zprep_gram_info,
+        zprep_gram_plain,
     )
     from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu
     from grid_tpu_torch.ops.knn import d2_matrix, region_filter_mask
@@ -132,6 +137,13 @@ def main() -> int:
         for line in native.build(name).with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   ptxas: {line.strip()}")
+    info = zprep_gram_info(N, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[build] zprep_gram at N={N}: {info['blocks']} blocks (upper-triangle tiles of "
+          f"{info['tile']}x{info['tile']}) on {sms} SMs at {info['blocks_per_sm']} block(s) "
+          f"per SM; {info['threads']} threads and "
+          f"{info['smem_bytes']} B of dynamic shared memory per block, a {info['stages']}-stage "
+          f"ring of {info['k_tile']}-column stages", flush=True)
     t0 = time.perf_counter()
     tiny = torch.ones((4, 3), device=dev)
     masked_column_stats(tiny, tiny > 0, torch.ones(4, device=dev))
@@ -186,8 +198,18 @@ def main() -> int:
         g, pg = zprep_gram(*args), zprep_gram_plain(*args)
         err = assert_close_to_max(g.cpu(), pg.cpu(), 1e-5)
         errs.setdefault("zprep_gram", err)
-        print(f"[kernels] zprep_gram {label} {tuple(args[0].shape)}: within 1e-5 of max|G|, "
-              f"max abs err {err:.3e}", flush=True)
+        check(torch.equal(g, g.T), f"zprep_gram {label}: G is not exactly symmetric")
+        # both routes against a float64 Gram of the same P, on the card
+        z, msk, reg, zmax = args
+        p64 = torch.where(msk, z.double().clamp(-zmax, zmax), 0) * reg[None, :].double()
+        g64 = p64 @ p64.T
+        err64, plain_err64 = max_abs(g, g64), max_abs(pg, g64)
+        check(err64 <= 2 * plain_err64, f"zprep_gram {label}: error vs float64 {err64:.3e} > 2x "
+                                        f"the plain version's {plain_err64:.3e}")
+        ratio = err64 / plain_err64 if plain_err64 else float("inf")
+        print(f"[kernels] zprep_gram {label} {tuple(z.shape)}: within 1e-5 of max|G|, max abs "
+              f"err {err:.3e}; exactly symmetric; vs a float64 Gram: kernel {err64:.3e}, plain "
+              f"{plain_err64:.3e} ({ratio:.3f}x, gate 2x)", flush=True)
 
     def dipcn_case(zp, k, n_nbr):
         n = zp.shape[0]
@@ -300,8 +322,13 @@ def main() -> int:
         # plain, kernel, kernel, plain: neither side gets the warmer card
         p1, k1, k2, p2 = (median_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
         kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+        rate = ""
+        if name == "zprep_gram":
+            flop = 2 * N * N * R
+            rate = (f"; {flop / kernel_ms / 1e9:.1f} vs {flop / plain_ms / 1e9:.1f} TFLOP/s "
+                    f"as 2*N^2*R")
         print(f"[times] {name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(medians of {REPS}, better of two rounds; {card})", flush=True)
+              f"(medians of {REPS}, better of two rounds{rate}; {card})", flush=True)
         route, source, replaces = meta[name]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": errs[name],
@@ -327,6 +354,13 @@ def main() -> int:
         for e in sorted(ops, key=device_us, reverse=True)[:12]:
             print(f"[profile]   {device_us(e) / 1e3 / PROFILE_STEPS:8.4f} ms/step "
                   f"{e.count / PROFILE_STEPS:6.1f} calls/step  {e.key[:80]}")
+        # the hand kernels' own device time (the Gram product is two kernels:
+        # the split pass and the Gram kernel)
+        own = ("split_kernel", "gram_kernel", "dipcn_select_kernel", "colstats")
+        for e in ops:
+            if any(name in e.key for name in own):
+                print(f"[profile]   hand kernel {device_us(e) / 1e3 / PROFILE_STEPS:.4f} ms/step "
+                      f"{e.count / PROFILE_STEPS:.1f} calls/step  {e.key[:80]}")
     else:
         print("[profile] torch.profiler saw no device activity: device time not measured")
 

@@ -6,113 +6,402 @@
 // _gram_kernel; pallas_call at line 93).
 //
 // What bounds it on the H100: 2*N*N*R flops (25.7 GFLOP at N=2504,
-// R=2048) against only N*R*5 bytes of input, so it is compute-bound. The
-// neighbor lists must be identical to the float32 reference, so the
-// product runs in plain float32 FMA on the CUDA cores (no TF32 tensor
-// cores, which keep ~10 mantissa bits), whose peak is ~67 TFLOP/s.
+// R=2048) against N*R*5 bytes of input, so it is compute-bound. The
+// neighbor lists must agree with a float32 Gram product up to ties, and
+// plain TF32 (10 mantissa bits) misses that by far, while the float32 FMA
+// units peak at ~67 TFLOP/s against the TF32 tensor cores' 495.
 //
-// What the design does about it: a classic register-blocked SGEMM. Each
-// block of 256 threads owns a 128x128 tile of G; each thread accumulates an
-// 8x8 sub-tile in registers, so every shared-memory value it reads feeds 8
-// FMAs. The clip, mask and region multiply happen as each z tile is loaded
-// into shared memory, so P is never written to device memory. The loop over
-// R inside the block takes the place of the Pallas grid's sequential r
-// axis. Ragged edges (N, R not multiples of the tile) are masked in the
-// loads and the stores; nothing is padded. Symmetry of G, wgmma and TMA are
-// left for later work.
+// What the design does about it: split precision on the tensor cores
+// ("3xTF32"). A split pass writes P_big = tf32(P) and P_small =
+// tf32(P - P_big) (round to nearest); G = big*small + small*big + big*big
+// then carries ~21 bits of every product, as float32 does, in three TF32
+// wgmma products. The tensor cores' own float32 accumulation truncates, so
+// a long sum kept there drifts (50x the float32 error at R=2048, measured
+// on the H100): each K-stage of 32 columns is summed into a fresh
+// accumulator, the stage sums into `mid`, and every 8 of those into `acc`,
+// with round-to-nearest float32 adds. At N=2504, R=2048 that lands at
+// 0.56-0.77x the error of a cuBLAS float32 product against a float64 Gram.
+//
+// - Split pass: one block per row reads z, mask and region once and writes
+//   both halves as float32 [N, R_pad], R_pad a multiple of the K-stage with
+//   zero padding, so every TMA row stride is 16-byte aligned and the
+//   padding adds exactly 0. The Pallas kernel's "P never reaches HBM" was a
+//   TPU-side choice: writing P (~40 MB) is what lets TMA and wgmma take the
+//   tiles unchanged.
+// - Gram kernel: one block per 128x128 tile of the upper triangle (i <= j),
+//   mapped from the linear block index, so half of G's tiles are computed.
+//   A producer warpgroup (one issuing thread, registers given up with
+//   setmaxnreg) keeps a 3-stage ring of shared memory full by TMA (128-byte
+//   swizzle, mbarrier completion, zero fill past row N); two consumer
+//   warpgroups each run m64n128k8 TF32 wgmma on 64 rows of the tile. A
+//   diagonal tile loads its rows once and uses them as both operands. The
+//   epilogue stages the tile in shared memory and writes G[i,j] and
+//   G[j,i] = G[i,j]^T with coalesced rows, so G is exactly symmetric.
+// - Bounds of this design: at N=2504 there are 210 upper tiles for 132 SMs
+//   at one block per SM (192 KB of ring), i.e. two waves, the second 59%
+//   full; each stage moves 64 KB from L2 for 3.1 MFLOP, and each consumer
+//   waits for its stage's wgmma before adding the stage sum, so the
+//   tensor cores idle while both warpgroups add or wait for data.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
-constexpr int kTile = 128;    // rows and columns of G per block
-constexpr int kDepth = 8;     // R columns per shared-memory stage
-constexpr int kThreads = 256;
+constexpr int kTile = 128;        // rows and columns of G per block
+constexpr int kTileK = 32;        // R columns per stage: one 128-byte swizzle row
+constexpr int kStages = 3;        // depth of the shared-memory ring
+constexpr int kMidStages = 8;     // stage sums added into acc in groups of this many
+constexpr int kConsumers = 256;   // two warpgroups of wgmma
+constexpr int kThreads = kConsumers + 128;  // + one producer warpgroup
+constexpr int kOperandBytes = kTile * kTileK * 4;         // one 128 x 32 float32 tile
+constexpr int kStageBytes = 4 * kOperandBytes;            // A big, A small, B big, B small
+constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + slack to align to 1024
+constexpr int kSplitThreads = 256;
+constexpr int kEncodeError = 10000;  // + CUresult of a failed cuTensorMapEncodeTiled
 
-__device__ __forceinline__ float prep(const float* __restrict__ z, const uint8_t* __restrict__ mask,
-                                      const uint8_t* __restrict__ region, int n, int r, int row,
-                                      int col, float zmax) {
-  if (row >= n || col >= r) return 0.f;
-  const size_t off = static_cast<size_t>(row) * r + col;
-  if (!mask[off] || !region[col]) return 0.f;
-  return fminf(fmaxf(z[off], -zmax), zmax);
+static_assert(kTile * (kTile + 1) * 4 <= kStages * kStageBytes, "epilogue tile must fit the ring");
+
+// nearest TF32 value, ties away from zero (cvt.rna.tf32.f32): the low 13
+// mantissa bits are zero, so the tensor cores read it exactly
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
 }
 
-__global__ void __launch_bounds__(kThreads)
-zprep_gram_kernel(const float* __restrict__ z, const uint8_t* __restrict__ mask,
-                  const uint8_t* __restrict__ region, float zmax, int n, int r,
-                  float* __restrict__ g) {
-  // stored k-major so a thread's 4 consecutive rows are one float4 read
-  __shared__ __align__(16) float a_tile[kDepth][kTile];
-  __shared__ __align__(16) float b_tile[kDepth][kTile];
+__global__ void __launch_bounds__(kSplitThreads)
+split_kernel(const float* __restrict__ z, const uint8_t* __restrict__ mask,
+             const uint8_t* __restrict__ region, float zmax, int r, int r_pad,
+             float* __restrict__ big, float* __restrict__ small) {
+  const size_t in = static_cast<size_t>(blockIdx.x) * r;
+  const size_t out = static_cast<size_t>(blockIdx.x) * r_pad;
+  for (int c = threadIdx.x; c < r_pad; c += kSplitThreads) {
+    float p = 0.f;
+    if (c < r) {
+      // the plain version's where(mask, clamp(z), 0) * region, NaN included
+      const float v = z[in + c];
+      const float clipped = isnan(v) ? v : fminf(fmaxf(v, -zmax), zmax);
+      p = (mask[in + c] ? clipped : 0.f) * (region[c] ? 1.f : 0.f);
+    }
+    const float b = tf32_round(p);
+    big[out + c] = b;
+    small[out + c] = tf32_round(p - b);  // p - b is exact
+  }
+}
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// returns once the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); LBO is unused
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (+)= A[64 x 8] * B[128 x 8]^T in TF32, float32 accumulators; d is
+// overwritten when scale_d is 0
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The two consumer warpgroups: the mainloop and the epilogue.
+__device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* smem_raw,
+                                        uint64_t* full, uint64_t* empty, bool diag, int k_tiles,
+                                        int row0, int col0, int n, float* __restrict__ g) {
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // this thread's columns: tx*4..+3 and 64+tx*4..+3
-  const int ty = tid / 16;  // this thread's rows:    ty*4..+3 and 64+ty*4..+3
-  const int row0 = blockIdx.y * kTile;
-  const int col0 = blockIdx.x * kTile;
-  const int load_row = tid / 2;        // each thread loads 4 depth values
-  const int load_k = (tid % 2) * 4;    // of one row of each tile
+  const int wg = tid / 128;  // this warpgroup's rows: wg*64 .. wg*64+63 of the tile
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  float acc[64], mid[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = mid[i] = part[i] = 0.f;
 
-  float acc[8][8];
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(smem_addr(&full[s]), (kt / kStages) & 1);
+    const uint32_t stage = ring + s * kStageBytes;
+    const uint32_t b_big = diag ? stage : stage + 2 * kOperandBytes;
+    const uint64_t a_big_d = sw128_desc(stage + wg * 64 * kTileK * 4);
+    const uint64_t a_small_d = sw128_desc(stage + kOperandBytes + wg * 64 * kTileK * 4);
+    const uint64_t b_big_d = sw128_desc(b_big);
+    const uint64_t b_small_d = sw128_desc(b_big + kOperandBytes);
+    fence_operands(part);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    // small terms first; each k-step of 8 columns is 32 bytes further along
+    // the swizzled row, i.e. +2 in the descriptor's 16-byte address units
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < kTileK / 8; ++j) wgmma_tf32(part, a_big_d + 2 * j, b_small_d + 2 * j, j);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < r; k0 += kDepth) {
+    for (int j = 0; j < kTileK / 8; ++j) wgmma_tf32(part, a_small_d + 2 * j, b_big_d + 2 * j, 1);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = k0 + load_k + q;
-      a_tile[load_k + q][load_row] = prep(z, mask, region, n, r, row0 + load_row, col, zmax);
-      b_tile[load_k + q][load_row] = prep(z, mask, region, n, r, col0 + load_row, col, zmax);
-    }
-    __syncthreads();
+    for (int j = 0; j < kTileK / 8; ++j) wgmma_tf32(part, a_big_d + 2 * j, b_big_d + 2 * j, 1);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_operands(part);
+    if (lane == 0) mbar_arrive(smem_addr(&empty[s]));  // the stage may be refilled
 #pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      const float4 a_lo = *reinterpret_cast<const float4*>(&a_tile[kk][ty * 4]);
-      const float4 a_hi = *reinterpret_cast<const float4*>(&a_tile[kk][64 + ty * 4]);
-      const float4 b_lo = *reinterpret_cast<const float4*>(&b_tile[kk][tx * 4]);
-      const float4 b_hi = *reinterpret_cast<const float4*>(&b_tile[kk][64 + tx * 4]);
-      const float a[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float b[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w, b_hi.x, b_hi.y, b_hi.z, b_hi.w};
+    for (int i = 0; i < 64; ++i) mid[i] += part[i];
+    if ((kt + 1) % kMidStages == 0 || kt + 1 == k_tiles) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (col < n) g[static_cast<size_t>(row) * n + col] = acc[i][j];
+      for (int i = 0; i < 64; ++i) {
+        acc[i] += mid[i];
+        mid[i] = 0.f;
+      }
     }
   }
+
+  // Epilogue: both warpgroups are past their last wgmma and every copy has
+  // landed, so the ring is free to stage the tile as [kTile][kTile + 1]
+  // (the +1 keeps row and column reads free of bank conflicts).
+  float* tile = reinterpret_cast<float*>(smem_raw + (ring - raw));
+  constexpr int kLd = kTile + 1;
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    // wgmma's accumulator layout: warp w holds rows 16w..16w+15 of the 64
+    const int row = wg * 64 + warp * 16 + lane / 4 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    tile[row * kLd + col] = acc[i];
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  for (int idx = tid; idx < kTile * kTile; idx += kConsumers) {
+    const int r = idx / kTile, c = idx % kTile;
+    // a diagonal tile takes its lower half from its upper half: the two
+    // cross terms meet in another order there
+    const float v = diag && r > c ? tile[c * kLd + r] : tile[r * kLd + c];
+    if (row0 + r < n && col0 + c < n) g[static_cast<size_t>(row0 + r) * n + col0 + c] = v;
+  }
+  if (!diag) {  // G[j,i] = G[i,j]^T: the tile's columns become rows of G
+    for (int idx = tid; idx < kTile * kTile; idx += kConsumers) {
+      const int c = idx / kTile, r = idx % kTile;
+      const float v = tile[r * kLd + c];
+      if (row0 + r < n && col0 + c < n) g[static_cast<size_t>(col0 + c) * n + row0 + r] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gram_kernel(const __grid_constant__ CUtensorMap big_map,
+            const __grid_constant__ CUtensorMap small_map, int n, int k_tiles, int tiles,
+            float* __restrict__ g) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages];   // TMA bytes of a stage have landed
+  __shared__ __align__(8) uint64_t empty[kStages];  // every consumer warp is done with it
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // swizzle atoms are 1024-byte aligned
+
+  // upper-triangle tile (ti, tj), ti <= tj, in row-major order
+  int ti = 0, rem = blockIdx.x;
+  while (rem >= tiles - ti) {
+    rem -= tiles - ti;
+    ++ti;
+  }
+  const int tj = ti + rem;
+  const bool diag = ti == tj;
+  const int row0 = ti * kTile, col0 = tj * kTile;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);
+      mbar_init(smem_addr(&empty[s]), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer warpgroup; one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (tid == kConsumers) {
+      const uint32_t bytes = (diag ? 2 : 4) * kOperandBytes;
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % kStages, round = kt / kStages;
+        if (round > 0) mbar_wait(smem_addr(&empty[s]), (round - 1) & 1);
+        const uint32_t stage = ring + s * kStageBytes, bar = smem_addr(&full[s]);
+        mbar_expect_tx(bar, bytes);
+        tma_load(stage, &big_map, bar, kt * kTileK, row0);
+        tma_load(stage + kOperandBytes, &small_map, bar, kt * kTileK, row0);
+        if (!diag) {
+          tma_load(stage + 2 * kOperandBytes, &big_map, bar, kt * kTileK, col0);
+          tma_load(stage + 3 * kOperandBytes, &small_map, bar, kt * kTileK, col0);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    consume(ring, raw, smem_raw, full, empty, diag, k_tiles, row0, col0, n, g);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime so that
+// nothing links against libcuda
+int encode_tiled(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// [n, r_pad] float32 rows, read as 128 x 32 boxes with 128-byte swizzle;
+// rows past n read as zeros
+int make_map(CUtensorMap* map, float* base, int n, int r_pad) {
+  EncodeTiled encode;
+  const int err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(r_pad), static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(r_pad) * sizeof(float)};
+  const cuuint32_t box[2] = {kTileK, kTile};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box,
+                              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : kEncodeError + static_cast<int>(res);
+}
+
+long long upper_tiles(int n) {
+  const long long t = (n + kTile - 1) / kTile;
+  return t * (t + 1) / 2;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream` without synchronising; returns the launch's cudaError_t.
+// Launch the split pass and the Gram kernel on `stream` without
+// synchronising. `split` is scratch of 2 * n * r_pad float32 (r_pad >= r, a
+// multiple of 32); returns a cudaError_t, or 10000 + the CUresult of a
+// failed tensor-map encoding.
 int zprep_gram_launch(const void* z, const void* mask, const void* region, float zmax, int n,
-                      int r, void* g, void* stream) {
+                      int r, int r_pad, void* split, void* g, void* stream) {
   if (n <= 0) return cudaSuccess;
-  const int tiles = (n + kTile - 1) / kTile;
-  zprep_gram_kernel<<<dim3(tiles, tiles), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(z), static_cast<const uint8_t*>(mask),
-      static_cast<const uint8_t*>(region), zmax, n, r, static_cast<float*>(g));
+  if (r_pad < r || r_pad <= 0 || r_pad % kTileK != 0 || upper_tiles(n) > INT_MAX)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* big = static_cast<float*>(split);
+  float* small = big + static_cast<size_t>(n) * r_pad;
+  split_kernel<<<n, kSplitThreads, 0, s>>>(static_cast<const float*>(z),
+                                            static_cast<const uint8_t*>(mask),
+                                            static_cast<const uint8_t*>(region), zmax, r, r_pad,
+                                            big, small);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return err;
+  CUtensorMap big_map, small_map;
+  if ((err = make_map(&big_map, big, n, r_pad)) != cudaSuccess) return err;
+  if ((err = make_map(&small_map, small, n, r_pad)) != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  gram_kernel<<<static_cast<int>(upper_tiles(n)), kThreads, kSmemBytes, s>>>(
+      big_map, small_map, n, r_pad / kTileK, (n + kTile - 1) / kTile, static_cast<float*>(g));
   return static_cast<int>(cudaGetLastError());
 }
 
+// The Gram kernel's launch shape for n rows, for reports: out = {tile,
+// k_tile, stages, threads per block, dynamic shared memory per block,
+// blocks (upper tiles), resident blocks per SM}. Returns a cudaError_t.
+int zprep_gram_info(int n, int* out) {
+  int err = cudaFuncSetAttribute(gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemBytes);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_kernel, kThreads, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int info[7] = {kTile, kTileK, kStages, kThreads, kSmemBytes,
+                       static_cast<int>(upper_tiles(n)), per_sm};
+  for (int i = 0; i < 7; ++i) out[i] = info[i];
+  return cudaSuccess;
+}
+
 const char* zprep_gram_error_string(int err) {
+  if (err >= kEncodeError) {
+    static thread_local char msg[64];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed, CUresult %d", err - kEncodeError);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

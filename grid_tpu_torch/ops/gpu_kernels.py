@@ -139,19 +139,49 @@ def zprep_gram_plain(z, mask, region_mask, zmax: float):
     return p @ p.T
 
 
+_GRAM_K_TILE = 32  # R columns per stage of csrc/zprep_gram.cu (kTileK); R is padded to it
+_GRAM_INFO_KEYS = ("tile", "k_tile", "stages", "threads", "smem_bytes", "blocks",
+                   "blocks_per_sm")
+
+
 @functools.cache
 def _zprep_lib():
     lib = native.load("zprep_gram")
-    fn = lib.zprep_gram_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.zprep_gram_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.zprep_gram_launch.restype = ctypes.c_int
+    lib.zprep_gram_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.zprep_gram_info.restype = ctypes.c_int
+    return lib
+
+
+def _require_hopper(device: torch.device) -> None:
+    cap = torch.cuda.get_device_capability(device)
+    if cap != (9, 0):
+        raise RuntimeError(f"zprep_gram is built for sm_90a (Hopper); {device} has compute "
+                           f"capability {cap[0]}.{cap[1]}")
+
+
+def zprep_gram_info(n: int, device: torch.device) -> dict:
+    """The Gram kernel's launch shape for ``n`` rows: tile, k_tile, stages,
+    threads and dynamic shared memory per block, blocks (upper-triangle
+    tiles) and resident blocks per SM on the CUDA ``device``."""
+    _require_hopper(device)
+    out = (ctypes.c_int * len(_GRAM_INFO_KEYS))()
+    with torch.cuda.device(device):
+        native.check_launch("zprep_gram", _zprep_lib().zprep_gram_info(n, out))
+    return dict(zip(_GRAM_INFO_KEYS, out))
 
 
 def zprep_gram(z, mask, region_mask, zmax: float):
-    """G = P P^T with P = where(mask, clip(z, ±zmax), 0) * region_mask; the
-    prepared P is never written to device memory.
+    """G = P P^T with P = where(mask, clip(z, ±zmax), 0) * region_mask.
+
+    On the card: a split pass writes P's TF32 halves (scratch of 2·N·R_pad
+    float32, R_pad = R rounded up to 32), then the upper-triangle tiles of G
+    run as three TF32 tensor-core products (big·small + small·big + big·big)
+    at float32 accuracy; G comes out exactly symmetric. Needs compute
+    capability 9.0.
 
     Args:
         z: [N, R] float32 z matrix.
@@ -168,11 +198,14 @@ def zprep_gram(z, mask, region_mask, zmax: float):
     native.check(z, "z", torch.float32, (n, r))
     native.check(mask, "mask", torch.bool, (n, r))
     native.check(region_mask, "region_mask", torch.bool, (r,))
+    _require_hopper(z.device)
+    r_pad = max(1, -(-r // _GRAM_K_TILE)) * _GRAM_K_TILE
+    split = torch.empty((2, n, r_pad), dtype=torch.float32, device=z.device)
     g = torch.empty((n, n), dtype=torch.float32, device=z.device)
-    launch = _zprep_lib()
+    launch = _zprep_lib().zprep_gram_launch
     with torch.cuda.device(z.device):
-        err = launch(z.data_ptr(), mask.data_ptr(), region_mask.data_ptr(), float(zmax),
-                     n, r, g.data_ptr(), native.stream_ptr(z.device))
+        err = launch(z.data_ptr(), mask.data_ptr(), region_mask.data_ptr(), float(zmax), n, r,
+                     r_pad, split.data_ptr(), g.data_ptr(), native.stream_ptr(z.device))
     native.check_launch("zprep_gram", err)
     zprep_gram.launches += 1
     return g

@@ -8,8 +8,9 @@ without the suite's conftest (which sets JAX up):
 
 Bounds as in chip_smoke.py: counts and ``ok`` exact; column sums at rtol
 1e-5; the Gram matrix within 1e-5 of its largest entry (another summation
-order over R); dipCN at rtol 1e-6 (the same take-set summed in another
-order).
+order over R), exactly symmetric, and at most twice the plain version's
+error against a float64 Gram; dipCN at rtol 1e-6 (the same take-set
+summed in another order).
 """
 
 import numpy as np
@@ -59,7 +60,7 @@ def test_masked_column_stats_kernel(cuda, n, r):
         torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("n,r", [(1, 3), (97, 70), (300, 257)])
+@pytest.mark.parametrize("n,r", [(1, 3), (97, 70), (300, 257), (515, 130)])
 def test_zprep_gram_kernel(cuda, n, r):
     rng = np.random.default_rng(n)
     z = torch.tensor(rng.normal(size=(n, r)) * 3, dtype=torch.float32, device=cuda)
@@ -70,6 +71,15 @@ def test_zprep_gram_kernel(cuda, n, r):
     assert zprep_gram.launches == before + 1
     want = zprep_gram_plain(z, mask, region, 2.0)
     assert_close_to_max(got.cpu(), want.cpu(), 1e-5)
+    assert torch.equal(got, got.T)
+    # against a float64 Gram of the same P, the kernel's 3xTF32 product is
+    # held to twice the float32 product's error (plus one float32 spacing of
+    # max|G|, for shapes where the float32 product happens to be exact)
+    p64 = torch.where(mask, z.double().clamp(-2.0, 2.0), 0) * region[None, :].double()
+    g64 = p64 @ p64.T
+    err, plain_err = ((g.double() - g64).abs().max().item() for g in (got, want))
+    spacing = np.spacing(np.float32(g64.abs().max().item()))
+    assert err <= 2 * plain_err + spacing, (err, plain_err)
 
 
 @pytest.mark.parametrize("n,r,k,n_nbr", [(97, 16, 20, 7), (300, 40, 60, 50), (200, 8, 199, 300)])

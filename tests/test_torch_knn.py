@@ -65,6 +65,59 @@ def test_zprep_gram_plain_matches_pallas(rng, n, r, tile_m, tile_r):
     assert zprep_gram.launches == before
 
 
+def _tf32(x):
+    """Nearest TF32 value of each float32 entry, ties away from zero, as the
+    kernel's split pass rounds: add half of the dropped range, then mask the
+    low 13 mantissa bits."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _gram_tf32(p, products: int):
+    """Emulation of csrc/zprep_gram.cu's split-precision Gram product in
+    float32 matmuls: 3 products (big·small + small·big, then big·big) as the
+    kernel runs them, or 1 (big·big, plain TF32)."""
+    big = _tf32(p)
+    if products == 1:
+        return big @ big.T
+    small = _tf32(p - big)
+    return (big @ small.T + small @ big.T) + big @ big.T
+
+
+def _d2_from_gram(g):
+    """d2_matrix's epilogue, diagonal excluded."""
+    sq = torch.diagonal(g)
+    d2 = (sq[:, None] + sq[None, :] - 2 * g).clamp_min(0)
+    return d2.fill_diagonal_(torch.finfo(d2.dtype).max)
+
+
+@pytest.mark.parametrize("n,r,check_neighbors", [(97, 70, False), (300, 257, False),
+                                                 (512, 512, True)])
+def test_split_tf32_gram_arithmetic(n, r, check_neighbors):
+    """The Gram kernel's 3xTF32 arithmetic keeps float32 accuracy: within
+    1e-5 of max|G| of the Pallas kernel, and at N=R=512 the same neighbor
+    lists up to ties within 1e-5 of each row's k-th distance, a rule that
+    plain TF32 breaks."""
+    rng = np.random.default_rng(n + r)
+    z = (rng.normal(size=(n, r)) * 1.2).astype(np.float32)
+    mask = rng.random((n, r)) > 0.02
+    region = rng.random(r) > 0.1
+    want = np.array(j_zprep_gram(jnp.asarray(z), jnp.asarray(mask), jnp.asarray(region), 2.0,
+                                 interpret=True))
+    p = prepare_z(torch.from_numpy(z), torch.from_numpy(mask), 2.0, torch.from_numpy(region))
+    got = _gram_tf32(p, 3)
+    assert_close_to_max(got.numpy(), want, 1e-5)
+    if not check_neighbors:
+        return
+    k = 50
+    want_d, want_i = sorted_smallest_k(_d2_from_gram(torch.from_numpy(want)), k)
+    tol = 1e-5 * want_d[:, -1].double().numpy()
+    got_d, got_i = sorted_smallest_k(_d2_from_gram(got), k)
+    neighbor_rows_differing(got_i, got_d, want_i, want_d, tol)
+    one_d, one_i = sorted_smallest_k(_d2_from_gram(_gram_tf32(p, 1)), k)
+    with pytest.raises(AssertionError, match="differ"):
+        neighbor_rows_differing(one_i, one_d, want_i, want_d, tol)
+
+
 @pytest.mark.parametrize("dt,rtol", [(np.float64, 1e-9), (np.float32, 1e-5)])
 def test_d2_matrix(dt, rtol):
     rng = np.random.default_rng(5)
