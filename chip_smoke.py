@@ -9,21 +9,30 @@ Phases (each prints its lines; any failure raises and exits non-zero
 before the last line):
 
 1. device  — requires CUDA; prints the card's name and power limit.
-2. build   — compiles the CUDA kernels (nvcc, sm_90a) into
-             build/grid_tpu_torch/, prints ptxas' registers and spills and
-             the Gram kernel's launch shape, and JIT-compiles the Triton
-             kernel.
+2. build   — compiles the CUDA kernels (nvcc, sm_90a, one process per
+             source, all started together) into build/grid_tpu_torch/,
+             prints ptxas' registers and spills and the launch shapes of
+             the Gram and dipCN kernels and the column-statistics grid, and
+             JIT-compiles the Triton kernels.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the cohort step gives it at 1000G scale (N=2504,
-             R=2048) and at a ragged shape, plus a forced-tie dipCN input;
-             the Gram matrix must also be exactly symmetric and within 2x
-             the plain version's error against a float64 Gram.
+             R=2048) and at a ragged shape; dipCN also on forced ties, on
+             all-equal distances and on a wide [64, 23170] row block; the
+             column statistics must be bitwise equal on two calls; the Gram
+             matrix must be exactly symmetric and within 2x the plain
+             version's error against a float64 Gram.
 4. slice   — cohort_step at N=2504, R=2048, k=500, n_nbr=300, 100 phasing
              sweeps on the card; checks every kernel launched during it and
              that its outputs match the same call on CPU tensors (the plain
              route).
 5. times   — CUDA-event medians of 20 runs: the slice, and each kernel
-             beside its plain version (the Gram product also in TFLOP/s).
+             beside its plain version (the Gram product also in TFLOP/s and
+             beside torch.mm as its library call); each kernel also as 20
+             back-to-back launches between two events, so the host's launch
+             cost stops hiding a short kernel, with its bound (the larger of
+             bytes over 3.35 TB/s and operations over the peak) and its
+             share of that bound; the column statistics also at the
+             genome-wide 100 x 3,000,000.
 6. profile — the slice's device time per step under torch.profiler, by
              kernel, and its share of the step time of phase 5.
 
@@ -38,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -48,6 +58,10 @@ RAGGED = (97, 70)
 REPS = 20
 PROFILE_STEPS = 5
 ZMAX = 2.0
+WIDE = (64, 23170)  # the widest rows the default 2 GB d2 budget admits
+GENOME = (100, 3_000_000)  # the genome-wide normalize shape
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+TF32_FLOP_PER_S = 495e12  # dense TF32 tensor-core peak, the same sheet
 # two float32 Gram routes may swap neighbors this close (of the row's k-th
 # distance): see the slice phase
 TIE_RTOL = 1e-5
@@ -81,6 +95,27 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def back_to_back_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
+    """Device time per call of ``reps`` calls issued back to back between
+    two CUDA events: the host's launch cost overlaps the device's work."""
+    for _ in range(warmup):
+        fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound_ms(n_bytes: float, flop: float = 0.0, flop_per_s: float = TF32_FLOP_PER_S):
+    """(least time in ms, "bytes" or "operations"): the larger of the bytes
+    over the HBM rate and the operations over the peak."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flop / flop_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
@@ -111,11 +146,11 @@ def main() -> int:
     from grid_tpu_torch.io.hap_neighbors import pad_hap_neighbors
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step
     from grid_tpu_torch.ops.gpu_kernels import (
-        masked_column_stats, masked_column_stats_plain, zprep_gram, zprep_gram_info,
+        colstats_plan, masked_column_stats, masked_column_stats_plain, zprep_gram, zprep_gram_info,
         zprep_gram_plain,
     )
-    from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu
-    from grid_tpu_torch.ops.knn import d2_matrix, region_filter_mask
+    from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu, dipcn_select_info
+    from grid_tpu_torch.ops.knn import d2_matrix, prepare_z, region_filter_mask
     from grid_tpu_torch.ops.masked import masked_mean
     from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
     from grid_tpu_torch.ops.select import dipcn_from_distances
@@ -130,10 +165,13 @@ def main() -> int:
     }
 
     # ---- 2. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(native.KERNELS)) as pool:  # one nvcc per source, together
+        list(pool.map(native.build, native.KERNELS))
+    print(f"[build] nvcc of {', '.join(native.KERNELS)} in parallel: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in native.KERNELS:
-        t0 = time.perf_counter()
         native.load(name)
-        print(f"[build] {name}: nvcc + load {time.perf_counter() - t0:.1f} s", flush=True)
         for line in native.build(name).with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   ptxas: {line.strip()}")
@@ -144,6 +182,20 @@ def main() -> int:
           f"per SM; {info['threads']} threads and "
           f"{info['smem_bytes']} B of dynamic shared memory per block, a {info['stages']}-stage "
           f"ring of {info['k_tile']}-column stages", flush=True)
+    dinfo = dipcn_select_info(N, K, dev)
+    print(f"[build] dipcn_select at W={N}, k={K}: one block of {dinfo['threads']} threads per "
+          f"row, {dinfo['smem_bytes']} B dynamic + {dinfo['static_smem_bytes']} B static shared "
+          f"memory per block, {dinfo['blocks_per_sm']} blocks per SM "
+          f"({min(N, dinfo['blocks_per_sm'] * sms)} of {N} rows in flight); "
+          f"{dinfo['registers']} registers and {dinfo['spill_bytes']} B of local memory a thread",
+          flush=True)
+    check(dinfo["spill_bytes"] == 0, "dipcn_select spills to local memory")
+    col_tiles, chunks, rows_per_chunk = colstats_plan(N, R, sms)
+    col_programs = col_tiles * chunks
+    print(f"[build] masked_column_stats at {N}x{R}: {chunks} row chunks of {rows_per_chunk} "
+          f"rows, {col_programs} programs in the main pass ({col_programs / sms:.2f} per SM), "
+          f"then one merge in chunk order", flush=True)
+    check(col_programs >= 4 * sms, "masked_column_stats: fewer than 4 programs per SM")
     t0 = time.perf_counter()
     tiny = torch.ones((4, 3), device=dev)
     masked_column_stats(tiny, tiny > 0, torch.ones(4, device=dev))
@@ -185,10 +237,14 @@ def main() -> int:
         check(torch.equal(cnt, pcnt), f"masked_column_stats {label}: counts differ")
         check(torch.allclose(s, ps, rtol=1e-5, atol=0), f"masked_column_stats {label}: sums")
         check(torch.allclose(sq, psq, rtol=1e-5, atol=0), f"masked_column_stats {label}: sqdev")
+        once, twice = (masked_column_stats(vals, msk, inv, mu) for _ in range(2))
+        check(all(torch.equal(a, b) for a, b in zip(once, twice)),
+              f"masked_column_stats {label}: two calls differ")
         err = max(max_abs(s, ps), max_abs(sq, psq))
         errs.setdefault("masked_column_stats", err)
         print(f"[kernels] masked_column_stats {label} {tuple(vals.shape)}: counts exact, "
-              f"sum/sqdev within rtol 1e-5, max abs err {err:.3e}", flush=True)
+              f"sum/sqdev within rtol 1e-5, max abs err {err:.3e}; two calls bitwise equal",
+              flush=True)
 
     rz = torch.tensor(rng.normal(size=RAGGED) * 3, dtype=torch.float32, device=dev)
     rmask = torch.tensor(rng.random(RAGGED) > 0.1, device=dev)
@@ -222,10 +278,18 @@ def main() -> int:
 
     ties = torch.tensor(np.round(rng.normal(size=(97, 16)) * 4) / 4, dtype=torch.float32,
                         device=dev)
+    # quantized random distances, with the finfo.max of self / invalid columns
+    wide_d2 = torch.tensor(rng.integers(0, 400, WIDE) * 0.25, dtype=torch.float32, device=dev)
+    wide_d2[:, rng.random(WIDE[1]) < 0.05] = torch.finfo(torch.float32).max
+    wide_w = torch.tensor(rng.uniform(0.5, 2.0, WIDE[1]), dtype=torch.float32, device=dev)
+    wide_rnorm = torch.tensor(rng.uniform(0.5, 2.0, WIDE[0]), dtype=torch.float32, device=dev)
+    wide_usable = torch.tensor(rng.random(WIDE[1]) > 0.2, device=dev)
     cases = [
         ("main", (d2, w_main, w_main, sample_ok, sample_ok), K, N_NBR),
         ("ragged", *dipcn_case(rz, 20, 7)),
         ("forced-tie", *dipcn_case(ties, 20, 7)),
+        ("all-equal", *dipcn_case(torch.zeros((N, 16), device=dev), K, N_NBR)),
+        ("wide", (wide_d2, wide_rnorm, wide_w, wide_usable, wide_rnorm > 0.6), K, N_NBR),
     ]
     for label, args, k, n_nbr in cases:
         dip, ok = dipcn_from_distances_gpu(*args, k=k, n_nbr=n_nbr)
@@ -317,22 +381,70 @@ def main() -> int:
         "dipcn_from_distances_gpu": ("cuda", "grid_tpu_torch/csrc/dipcn_select.cu",
                                      "grid_tpu/ops/pallas_select.py:130"),
     }
+    p_main = prepare_z(norm.z, norm.mask, ZMAX, region)
+    library = {"zprep_gram": lambda: torch.mm(p_main, p_main.T)}  # a yardstick the port never calls
+    four = N * R * 4
+    bounds = {
+        # values, mask, 1/row mean, column means in; three [R] sums out
+        "masked_column_stats": bound_ms(four + N * R + 4 * N + 4 * R + 12 * R),
+        # z, mask, region in, G out; 2·N²·R operations at the TF32 peak
+        "zprep_gram": bound_ms(four + N * R + R + 4 * N * N, 2 * N * N * R),
+        # d2, rnorm, nbr_w, usable, valid in; dipcn, ok out
+        "dipcn_from_distances_gpu": bound_ms(4 * N * N + 4 * N + 4 * N + N + N + 4 * N + N),
+    }
     kernels = []
     for name, (kernel_fn, plain_fn) in timed.items():
         # plain, kernel, kernel, plain: neither side gets the warmer card
         p1, k1, k2, p2 = (median_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
         kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+        b2b_ms = min(back_to_back_ms(kernel_fn), back_to_back_ms(kernel_fn))
+        lib_ms = None
+        if name in library:
+            lib_ms = min(median_ms(library[name]), median_ms(library[name]))
+        least, bound_by = bounds[name]
         rate = ""
         if name == "zprep_gram":
             flop = 2 * N * N * R
             rate = (f"; {flop / kernel_ms / 1e9:.1f} vs {flop / plain_ms / 1e9:.1f} TFLOP/s "
-                    f"as 2*N^2*R")
+                    f"as 2*N^2*R; torch.mm of the prepared P {lib_ms:.4f} ms")
         print(f"[times] {name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(medians of {REPS}, better of two rounds{rate}; {card})", flush=True)
+              f"(medians of {REPS}, better of two rounds{rate}); {REPS} back to back "
+              f"{b2b_ms:.4f} ms per call; bound {least:.4f} ms by {bound_by}, "
+              f"{100 * least / b2b_ms:.1f}% of it back to back; {card}", flush=True)
         route, source, replaces = meta[name]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": errs[name],
-                        "ms": kernel_ms, "plain_ms": plain_ms})
+                        "ms": kernel_ms, "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
+                        "bound_ms": least, "bound_by": bound_by,
+                        "bound_share": least / b2b_ms, "library_ms": lib_ms})
+
+    # the genome-wide normalize's column statistics, made on the card
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g_vals = torch.rand(GENOME, device=dev, generator=gen) * 50 + 10
+    g_mask = torch.rand(GENOME, device=dev, generator=gen) > 0.15
+    g_inv = 1 / g_vals.mean(dim=1)
+    g_mu = torch.rand(GENOME[1], device=dev, generator=gen) + 0.5
+    g_cnt, g_sum, g_sq = masked_column_stats(g_vals, g_mask, g_inv, g_mu)
+    g_want = masked_column_stats_plain(g_vals, g_mask, g_inv, g_mu)
+    check(torch.equal(g_cnt, g_want[0]), "masked_column_stats genome-wide: counts differ")
+    check(torch.allclose(g_sum, g_want[1], rtol=1e-5, atol=0)
+          and torch.allclose(g_sq, g_want[2], rtol=1e-5, atol=0),
+          "masked_column_stats genome-wide: sums")
+    del g_want
+    g_kernel = lambda: masked_column_stats(g_vals, g_mask, g_inv, g_mu)  # noqa: E731
+    g_plain = lambda: masked_column_stats_plain(g_vals, g_mask, g_inv, g_mu)  # noqa: E731
+    gp1, gk1, gk2, gp2 = (back_to_back_ms(f, reps=5)
+                          for f in (g_plain, g_kernel, g_kernel, g_plain))
+    g_n, g_r = GENOME
+    g_least, g_by = bound_ms(g_n * g_r * 5 + 4 * g_n + 4 * g_r + 12 * g_r)
+    _, g_chunks, _ = colstats_plan(g_n, g_r, sms)
+    print(f"[times] masked_column_stats genome-wide {g_n}x{g_r} ({g_chunks} row chunk(s)): "
+          f"kernel {min(gk1, gk2):.4f} ms, plain {min(gp1, gp2):.4f} ms (5 back to back, better "
+          f"of two rounds); bound {g_least:.4f} ms by {g_by}, "
+          f"{100 * g_least / min(gk1, gk2):.1f}% of it; counts exact, sums within rtol 1e-5; "
+          f"{card}", flush=True)
+    del g_vals, g_mask
+    torch.cuda.empty_cache()
 
     # ---- 6. profile ------------------------------------------------------
     from torch.autograd import DeviceType
@@ -354,8 +466,9 @@ def main() -> int:
         for e in sorted(ops, key=device_us, reverse=True)[:12]:
             print(f"[profile]   {device_us(e) / 1e3 / PROFILE_STEPS:8.4f} ms/step "
                   f"{e.count / PROFILE_STEPS:6.1f} calls/step  {e.key[:80]}")
-        # the hand kernels' own device time (the Gram product is two kernels:
-        # the split pass and the Gram kernel)
+        # the hand kernels' own device time (the Gram product is two kernels,
+        # the split pass and the Gram kernel; the column statistics are the
+        # row-chunk kernel and its merge)
         own = ("split_kernel", "gram_kernel", "dipcn_select_kernel", "colstats")
         for e in ops:
             if any(name in e.key for name in own):

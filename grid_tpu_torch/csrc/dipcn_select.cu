@@ -1,27 +1,69 @@
-// Threshold-bisection dipCN straight from the [N, W] squared-distance
-// matrix: for each row, the k nearest columns (ties to the lower column),
-// then the first n_nbr usable columns among them, then
-// dipcn = rnorm / mean(nbr_w over those), ok = valid & (m_eff > 0).
+// Threshold dipCN straight from the [N, W] squared-distance matrix: for each
+// row, the k nearest columns (ties to the lower column), then the first
+// n_nbr usable columns among them, then dipcn = rnorm / mean(nbr_w over
+// those), ok = valid & (m_eff > 0). It selects exactly the set of
+// grid_tpu_torch/ops/select.py:dipcn_from_distances (the same int32 key
+// order, ties to the lower column).
 //
 // Replaces grid_tpu/ops/pallas_select.py:dipcn_from_distances_pallas
-// (_dipcn_kernel; pallas_call at line 130), and follows its per-row
-// structure (pallas_select.py:40-107) step for step.
+// (line 111; _dipcn_kernel, pallas_call at line 130).
 //
-// What bounds it on the H100: each row needs two 31-round bisections on the
-// int32 key space and two column tie-cut bisections (12 rounds at N=2504),
-// each round a compare-and-count over the whole row: ~86 passes over d2.
-// Run as separate tensor passes that is 86 reads of the 25 MB matrix from
-// device memory, and a reduction plus a launch per pass.
+// Bound on the H100: d2 read once, 25.1 MB at N=2504 (4·N² bytes plus the
+// N- and W-long vectors), 7.5 µs at 3.35 TB/s; the selection's arithmetic is
+// far below the card's integer rate.
 //
-// What the design does about it: one thread block per row. The row's keys
-// are copied once into dynamic shared memory, so d2 crosses device memory
-// exactly once and every round reads shared memory only. A round ends in
-// one block-wide count (warp shuffles, then one shared word per warp), so
-// all threads hold the same bisection bounds and leave a search together as
-// soon as its interval closes. The usable mask and the w vector are read
-// from global memory, where the W-long rows shared by all blocks stay in
-// L2. Rows up to the opt-in shared-memory size fit (57,000+ f32 columns
-// on an H100; the default 2 GB d2 budget admits N <= 23,170, 92.7 KB).
+// What held the first kernel back: one 256-thread block per row ran ~90
+// serial block-wide rounds, each a compare-and-count over the whole row
+// ending in two barriers: two 31-round bisections over the whole int32 key
+// range, two 12-round column tie-cut bisections (run even when one key sat
+// at the threshold) and four counting passes. That is ~180 barriers and
+// ~0.5 G shared-memory reads per call, in ~3 waves of blocks.
+//
+// What this design does about it (one 128-thread block per row):
+//
+// 1. Load. The row's keys come into shared memory once (16-byte loads when
+//    the row is 16-byte aligned, else 4-byte ones), with the usable mask as
+//    ballot bits. The same pass takes the block min, max and count of the
+//    "body" keys: those below finfo(float32).max, which self and invalid-row
+//    columns carry and which would otherwise stretch the key range to 31
+//    bits. One round.
+// 2. k-th key by histogram from the row's own range. A radix select on
+//    key - min over [min, max of the body] (on this cohort ~22 bits, where
+//    the top byte of the raw key puts ~2,501 of 2,504 keys in one bin) in
+//    8-bit digits: each round counts the keys still in play into a 256-bin
+//    shared histogram and one block scan over the bins finds the digit and
+//    the count below it. A warp whose keys in play all share one digit (a
+//    hot bin) adds them with one atomic; otherwise each key adds its own
+//    (warp-aggregating every increment with __match_any_sync was slower:
+//    here a warp's digits are mostly distinct). After the first round the few keys left in play
+//    (~20 here) are gathered into the list buffer, so the later rounds walk
+//    only them. When k reaches past the body, the same select runs over
+//    [finfo.max key, INT_MAX]. Yields t and count(keys < t) with no extra
+//    pass: 3 histogram rounds and one gather here.
+// 3. Tie cut and compaction in one scan. Each thread owns a contiguous
+//    chunk of columns (an odd stride, so the chunk walks are free of bank
+//    conflicts). One block exclusive scan of (keys == t, usable & < t,
+//    usable & == t) per chunk gives every column its tie rank and its
+//    place: the usable members below t, then the usable ties of rank <=
+//    need, go in column order into a uint16 list of at most k columns. The
+//    thread that holds the need-th tie publishes the list length. One round.
+// 4. Second selection on the list only (<= k entries instead of W): the
+//    m_eff-th key over [row min, t] by the same histogram rounds (3 here),
+//    skipped when m_eff is the whole list. Ties at t2 all come from one of
+//    the list's two column-ordered halves, so list order is column order
+//    among them.
+// 5. One scan of the ties at t2 over list chunks, then one block sum of
+//    nbr_w over the take-set in a fixed order (deterministic). Two rounds.
+//
+// Serial block-wide rounds per row at N=2504, k=500, n_nbr=300: 1 + (3 + 1)
+// + 1 + 3 + 2 = 11 (a histogram round is a counting pass and a bin scan,
+// three barriers), down from ~90. Shared memory per block: 4·W (keys) + W/8
+// (usable bits) + 2·min(k, W) (list) + 2 KB (two histograms, one cleared
+// while the other counts): 13.5 KB at N=2504. 40 registers a thread give 12
+// blocks per SM (1,584 rows in flight of 2,504); a 32-register bound gives
+// 16 but ran no faster in a trial, so its instructions and barriers bound
+// it, not its waves. dipcn_select_info reports the count the card grants.
+// Rows up to ~37,000 columns fit at any k.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -29,119 +71,369 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kExcluded = INT_MAX;  // key of a column outside the usable k-set
+constexpr int kMinBlocks = 12;           // launch bounds: <= 40 registers a thread
+constexpr int kDigitBits = 8;
+constexpr int kBins = 1 << kDigitBits;   // == 2 * kThreads: two bins per thread in the scan
+constexpr int kBigKey = 0x7F7FFFFF;      // finfo(float32).max, the self and invalid-row columns
+constexpr int kField = 21;               // bit width of one count in the packed k-set scan
+constexpr unsigned long long kFieldMask = (1ull << kField) - 1;
+constexpr unsigned kFull = 0xffffffffu;
 
+static_assert(kBins == 2 * kThreads, "the bin scan gives each thread two bins");
+
+struct Shared {
+  int hist[2][kBins];  // one histogram counts while the other is cleared
+  int wtot[kWarps];    // int scan scratch
+  unsigned long long wtot_l[kWarps];  // packed-count scan scratch
+  int rmin[kWarps], rmax[kWarps], rcnt[kWarps];
+  float fsum[kWarps];
+  int bin, bin_below, bin_count;  // the select round's digit, keys below it and in it
+  int n_cand;
+  int list_len;
+};
+
+// Exclusive prefix of v over the block in thread order; `total` gets the
+// block's sum. One barrier: the caller guarantees a barrier between the
+// last read of `warp_tot` by an earlier scan and this call.
 template <typename T>
-__device__ __forceinline__ T block_sum(T v, T* red) {
+__device__ __forceinline__ T block_exclusive_scan(T v, T* warp_tot, T& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T x = v;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // earlier readers of red are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const T y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_tot[warp] = x;
   __syncthreads();
-  T s = 0;
+  T before = 0;
+  total = 0;
 #pragma unroll
-  for (int i = 0; i < kWarps; ++i) s += red[i];
-  return s;
-}
-
-// Smallest key t with count(keys <= t) >= k (the k-th smallest); 0 when
-// k <= 0, which the caller masks.
-__device__ int kth_smallest(const int* keys, int w, int k, int* red) {
-  int lo = 0, hi = INT_MAX;
-  while (lo < hi) {
-    const int mid = lo + (hi - lo) / 2;
-    int c = 0;
-    for (int j = threadIdx.x; j < w; j += kThreads) c += keys[j] <= mid;
-    if (block_sum(c, red) >= k) hi = mid; else lo = mid + 1;
+  for (int i = 0; i < kWarps; ++i) {
+    const T s = warp_tot[i];
+    if (i < warp) before += s;
+    total += s;
   }
-  return hi;
+  return before + x - v;
 }
 
-__device__ int count_below(const int* keys, int w, int t, int* red) {
-  int c = 0;
-  for (int j = threadIdx.x; j < w; j += kThreads) c += keys[j] < t;
-  return block_sum(c, red);
-}
+struct Found {
+  int t;      // the rank-th smallest key in range
+  int below;  // keys in range that are < t
+};
 
-// Smallest column c with count(keys[j] == t for j <= c) >= need; -1 when
-// need <= 0 (no ties taken).
-__device__ int tie_cut(const int* keys, int w, int t, int need, int* red) {
-  if (need <= 0) return -1;
-  int lo = 0, hi = w - 1;
-  while (lo < hi) {
-    const int mid = lo + (hi - lo) / 2;
-    int c = 0;
-    for (int j = threadIdx.x; j <= mid; j += kThreads) c += keys[j] == t;
-    if (block_sum(c, red) >= need) hi = mid; else lo = mid + 1;
+// The rank-th smallest (1 <= rank <= keys in range) of the keys in
+// [lo, lo + span], by radix select on key - lo in 8-bit digits from the
+// top of span. The keys are keys[list[i]], i < n, or keys[i] when list is
+// null; then, once a round leaves at most `cap` keys in play, they are
+// gathered into `spare` and the later rounds walk only them. hist[parity]
+// is all zero on entry and on return.
+__device__ Found select_rank(const int* keys, const uint16_t* list, int n, int lo, unsigned span,
+                             int rank, Shared& sh, int& parity, uint16_t* spare, int cap) {
+  const int lane = threadIdx.x & 31;
+  int bits = span ? 32 - __clz(span) : 0;
+  unsigned base = 0;  // key - lo of the bin chosen so far
+  int below = 0;
+  while (bits > 0) {
+    const int d = min(kDigitBits, bits);
+    const int shift = bits - d;
+    int* h = sh.hist[parity];
+    // the other histogram was last read by the previous round's scan,
+    // which a barrier has closed; clear it for the next round
+    int* other = sh.hist[parity ^ 1];
+    for (int b = threadIdx.x; b < kBins; b += kThreads) other[b] = 0;
+    if (threadIdx.x == 0) sh.n_cand = 0;
+    for (int i0 = 0; i0 < n; i0 += kThreads) {  // uniform trip count: whole warps in the votes
+      const int i = i0 + threadIdx.x;
+      bool in = i < n;
+      const int key = in ? (list ? keys[list[i]] : keys[i]) : 0;
+      const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
+      const unsigned digit = (v - base) >> shift;  // huge when v < base
+      in = in && key >= lo && v <= span && digit < (1u << d);
+      // a warp whose keys in play share one digit (a hot bin) adds them
+      // in one atomic; otherwise each key adds its own
+      const unsigned play = __ballot_sync(kFull, in);
+      if (play == 0) continue;
+      const int leader = __ffs(play) - 1;
+      const unsigned lead_digit = __shfl_sync(kFull, digit, leader);
+      if (__all_sync(kFull, !in || digit == lead_digit)) {
+        if (lane == leader) atomicAdd(&h[digit], __popc(play));
+      } else if (in) {
+        atomicAdd(&h[digit], 1);
+      }
+    }
+    __syncthreads();
+    const int c0 = h[2 * threadIdx.x], c1 = h[2 * threadIdx.x + 1];
+    int total;
+    const int excl = block_exclusive_scan(c0 + c1, sh.wtot, total);
+    const int r = rank - below;
+    if (excl < r && r <= excl + c0 + c1) {
+      const bool first = r <= excl + c0;
+      sh.bin = 2 * threadIdx.x + (first ? 0 : 1);
+      sh.bin_below = first ? excl : excl + c0;
+      sh.bin_count = first ? c0 : c1;
+    }
+    __syncthreads();
+    base += static_cast<unsigned>(sh.bin) << shift;
+    below += sh.bin_below;
+    bits = shift;
+    parity ^= 1;
+    if (list == nullptr && bits > 0 && sh.bin_count <= cap) {
+      // gather the keys still in play; the later rounds walk only them
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        const int key = keys[i];
+        const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
+        if (key >= lo && v <= span && ((v - base) >> bits) == 0) {
+          spare[atomicAdd(&sh.n_cand, 1)] = static_cast<uint16_t>(i);
+        }
+      }
+      n = sh.bin_count;
+      list = spare;
+      __syncthreads();
+    }
   }
-  return hi;
+  return {static_cast<int>(static_cast<unsigned>(lo) + base), below};
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ bool usable_at(const unsigned* ubits, int j) {
+  return (ubits[j >> 5] >> (j & 31)) & 1u;
+}
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Dynamic shared memory of one block: keys, usable bits, column list.
+__host__ __device__ inline size_t dyn_smem_bytes(int w, int k) {
+  return static_cast<size_t>(round_up(w, 4)) * 4 + static_cast<size_t>((w + 31) / 32) * 4 +
+         static_cast<size_t>(round_up(k < w ? k : w, 8)) * 2;
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnorm,
                     const float* __restrict__ nbr_w, const uint8_t* __restrict__ usable,
                     const uint8_t* __restrict__ valid, int w, int k, int n_nbr,
                     float* __restrict__ dipcn, uint8_t* __restrict__ ok) {
-  extern __shared__ int keys[];  // [w] — the row's keys, then its usable-k-set keys
-  __shared__ int red_i[kWarps];
-  __shared__ float red_f[kWarps];
+  extern __shared__ int4 dyn[];
+  int* keys = reinterpret_cast<int*>(dyn);                            // [round_up(w, 4)]
+  unsigned* ubits = reinterpret_cast<unsigned*>(keys + round_up(w, 4));  // [ceil(w / 32)]
+  uint16_t* list = reinterpret_cast<uint16_t*>(ubits + (w + 31) / 32);    // [min(k, w)]
+  __shared__ Shared sh;
 
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row = blockIdx.x;
+
+  // ---- 1. load the row's keys and usable bits; body min / max / count ----
+  for (int b = tid; b < 2 * kBins; b += kThreads) (&sh.hist[0][0])[b] = 0;
+  if (tid == 0) sh.list_len = 0;
   // d2 >= 0, so its float32 bit pattern read as int32 keeps the order
   const int* src = reinterpret_cast<const int*>(d2) + static_cast<size_t>(row) * w;
-  for (int j = threadIdx.x; j < w; j += kThreads) keys[j] = src[j];
-  __syncthreads();
-
-  // --- k-set membership: below t, or at t up to the tie-cut column -------
-  const int t = kth_smallest(keys, w, k, red_i);
-  const int cut = tie_cut(keys, w, t, k - count_below(keys, w, t, red_i), red_i);
-
-  // --- usable members of the k-set keep their key, the rest are excluded -
-  int c = 0;
-  for (int j = threadIdx.x; j < w; j += kThreads) {
-    const int u = keys[j];
-    const bool in_k = u < t || (u == t && j <= cut);
-    const int uu = (in_k && usable[j]) ? u : kExcluded;
-    keys[j] = uu;
-    c += uu < kExcluded;
-  }
-  const int m_eff = min(block_sum(c, red_i), n_nbr);  // block_sum's barrier publishes keys
-
-  // --- the m_eff nearest usable members, same rule ----------------------
-  const int t2 = kth_smallest(keys, w, m_eff, red_i);
-  const int cut2 = tie_cut(keys, w, t2, m_eff - count_below(keys, w, t2, red_i), red_i);
-
-  float s = 0.f;
-  if (m_eff > 0) {
-    for (int j = threadIdx.x; j < w; j += kThreads) {
-      const int u = keys[j];
-      if (u < t2 || (u == t2 && j <= cut2)) s += nbr_w[j];
+  int mn = INT_MAX, mx = INT_MIN;
+  unsigned nb = 0;
+  auto see = [&](int key) {
+    if (key < kBigKey) {
+      mn = min(mn, key);
+      mx = max(mx, key);
+      ++nb;
+    }
+  };
+  if ((w & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* k4 = reinterpret_cast<int4*>(keys);
+#pragma unroll 4
+    for (int q = tid; q < w / 4; q += kThreads) {
+      const int4 v = __ldcs(s4 + q);  // streamed: each row is read by one block, once
+      k4[q] = v;
+      see(v.x);
+      see(v.y);
+      see(v.z);
+      see(v.w);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = tid; j < w; j += kThreads) {
+      const int v = __ldcs(src + j);
+      keys[j] = v;
+      see(v);
     }
   }
-  const float tot = block_sum(s, red_f);
-  if (threadIdx.x == 0) {
-    const float nbr_mean = tot / static_cast<float>(max(m_eff, 1));
+  for (int i0 = 0; i0 < w; i0 += kThreads) {
+    const int j = i0 + tid;
+    const unsigned bal = __ballot_sync(kFull, j < w && usable[j]);
+    if (lane == 0 && j < w) ubits[j >> 5] = bal;
+  }
+  mn = __reduce_min_sync(kFull, mn);
+  mx = __reduce_max_sync(kFull, mx);
+  nb = __reduce_add_sync(kFull, nb);
+  if (lane == 0) {
+    sh.rmin[warp] = mn;
+    sh.rmax[warp] = mx;
+    sh.rcnt[warp] = static_cast<int>(nb);
+  }
+  __syncthreads();
+  int body_lo = INT_MAX, body_hi = INT_MIN, n_body = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    body_lo = min(body_lo, sh.rmin[i]);
+    body_hi = max(body_hi, sh.rmax[i]);
+    n_body += sh.rcnt[i];
+  }
+  int parity = 0;
+  const int cap = min(k, w);  // the list's length, free until step 3
+
+  // ---- 2. t = the k-th smallest key, and count(keys < t) -----------------
+  Found f;
+  if (k <= n_body) {
+    f = select_rank(keys, nullptr, w, body_lo,
+                    static_cast<unsigned>(body_hi) - static_cast<unsigned>(body_lo), k, sh, parity,
+                    list, cap);
+  } else {  // k reaches past the body into the finfo.max (or larger) keys
+    f = select_rank(keys, nullptr, w, kBigKey,
+                    static_cast<unsigned>(INT_MAX) - static_cast<unsigned>(kBigKey), k - n_body,
+                    sh, parity, list, cap);
+    f.below += n_body;
+  }
+  const int t = f.t;
+  const int need = k - f.below;  // ties at t to take, lowest columns first: 1 <= need
+
+  // ---- 3. tie cut and compaction of the usable k-set, one scan ----------
+  const int chunk = ((w + kThreads - 1) / kThreads) | 1;  // odd: conflict-free chunk walks
+  const int c0 = min(tid * chunk, w), c1 = min(c0 + chunk, w);
+  unsigned long long cnt = 0;  // ties | usable below t << 21 | usable ties << 42
+  for (int j = c0; j < c1; ++j) {
+    const int key = keys[j];
+    const unsigned long long u = usable_at(ubits, j);
+    cnt += key == t ? 1ull + (u << (2 * kField)) : (key < t ? u << kField : 0ull);
+  }
+  unsigned long long tot;
+  const unsigned long long pre = block_exclusive_scan(cnt, sh.wtot_l, tot);
+  const int n_below_usable = static_cast<int>((tot >> kField) & kFieldMask);
+  int ties = static_cast<int>(pre & kFieldMask);
+  int pos_below = static_cast<int>((pre >> kField) & kFieldMask);
+  int pos_tie = n_below_usable + static_cast<int>((pre >> (2 * kField)) & kFieldMask);
+  for (int j = c0; j < c1; ++j) {
+    const int key = keys[j];
+    if (key < t) {
+      if (usable_at(ubits, j)) list[pos_below++] = static_cast<uint16_t>(j);
+    } else if (key == t && ++ties <= need) {
+      if (usable_at(ubits, j)) list[pos_tie++] = static_cast<uint16_t>(j);
+      if (ties == need) sh.list_len = pos_tie;
+    }
+  }
+  __syncthreads();
+  const int len = sh.list_len;
+  const int m_eff = min(len, n_nbr);
+
+  // ---- 4. the m_eff nearest usable members, on the list only ------------
+  const bool take_all = m_eff == len;  // also m_eff == 0
+  int t2 = t, need2 = 0;
+  if (!take_all) {
+    const int lo2 = n_body > 0 ? body_lo : kBigKey;  // the row's min key
+    const Found f2 = select_rank(keys, list, len, lo2,
+                                 static_cast<unsigned>(t) - static_cast<unsigned>(lo2), m_eff, sh,
+                                 parity, nullptr, 0);
+    t2 = f2.t;
+    need2 = m_eff - f2.below;
+  }
+
+  // ---- 5. sum nbr_w over the take-set ------------------------------------
+  const int chunk2 = ((len + kThreads - 1) / kThreads) | 1;
+  const int l0 = min(tid * chunk2, len), l1 = min(l0 + chunk2, len);
+  int ties2 = 0;
+  if (!take_all) {
+    int c = 0;
+    for (int i = l0; i < l1; ++i) c += keys[list[i]] == t2;
+    int unused;
+    ties2 = block_exclusive_scan(c, sh.wtot, unused);
+  }
+  float s = 0.f;
+  for (int i = l0; i < l1; ++i) {
+    const int col = list[i];
+    bool take = take_all;
+    if (!take) {
+      const int key = keys[col];
+      take = key < t2 || (key == t2 && ++ties2 <= need2);
+    }
+    if (take) s += nbr_w[col];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  if (lane == 0) sh.fsum[warp] = s;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) total += sh.fsum[i];
+    const float nbr_mean = total / static_cast<float>(max(m_eff, 1));
     dipcn[row] = rnorm[row] / nbr_mean;
     ok[row] = valid[row] && m_eff > 0;
   }
+}
+
+size_t static_smem_bytes() {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, dipcn_select_kernel) != cudaSuccess) return 0;
+  return attr.sharedSizeBytes;
+}
+
+cudaError_t configure(size_t smem) {
+  static bool carveout_set = false;
+  if (!carveout_set) {
+    // shared memory before L1: the blocks per SM are bound by shared memory
+    const cudaError_t err = cudaFuncSetAttribute(
+        dipcn_select_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    carveout_set = true;
+  }
+  if (smem > 48 * 1024) {
+    return cudaFuncSetAttribute(dipcn_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Widest row (in float32 columns) one block can hold on `device`; -1 on a
-// CUDA error.
+// Widest row (in float32 columns) one block can hold on `device` for any k
+// (list of k = W columns); -1 on a CUDA error.
 int dipcn_select_max_cols(int device) {
   int optin = 0;
-  cudaFuncAttributes attr;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, dipcn_select_kernel) != cudaSuccess) {
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess) {
     return -1;
   }
-  return static_cast<int>((static_cast<size_t>(optin) - attr.sharedSizeBytes) / sizeof(int));
+  const size_t stat = static_smem_bytes();
+  if (stat == 0) return -1;
+  const size_t avail = static_cast<size_t>(optin) - stat;
+  int w = static_cast<int>(avail / 6);  // ~6.1 bytes a column
+  while (w > 0 && dyn_smem_bytes(w, w) > avail) --w;
+  return w < 65536 ? w : 65536;  // list entries are uint16 columns
+}
+
+// Launch shape for rows of w columns at this k: threads, dynamic and static
+// shared memory per block, resident blocks per SM, registers a thread and
+// local (spill) bytes a thread. Returns the first cudaError_t.
+int dipcn_select_info(int w, int k, int* out) {
+  const size_t smem = dyn_smem_bytes(w, k);
+  cudaError_t err = configure(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, dipcn_select_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dipcn_select_kernel, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = kThreads;
+  out[1] = static_cast<int>(smem);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = blocks;
+  out[4] = attr.numRegs;
+  out[5] = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
 }
 
 // Launch on `stream` without synchronising; returns the first cudaError_t.
@@ -149,12 +441,9 @@ int dipcn_select_launch(const void* d2, const void* rnorm, const void* nbr_w, co
                         const void* valid, int n, int w, int k, int n_nbr, void* dipcn, void* ok,
                         void* stream) {
   if (n <= 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(w) * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dipcn_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const size_t smem = dyn_smem_bytes(w, k);
+  const cudaError_t err = configure(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dipcn_select_kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(d2), static_cast<const float*>(rnorm),
       static_cast<const float*>(nbr_w), static_cast<const uint8_t*>(usable),

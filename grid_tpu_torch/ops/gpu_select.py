@@ -1,9 +1,11 @@
-"""Threshold-bisection dipCN as one CUDA kernel (``csrc/dipcn_select.cu``).
+"""Threshold dipCN as one CUDA kernel (``csrc/dipcn_select.cu``).
 
 Replaces ``grid_tpu/ops/pallas_select.py:dipcn_from_distances_pallas``
 (``pallas_call`` at line 130). Its plain version is
 :func:`grid_tpu_torch.ops.select.dipcn_from_distances`; the wrapper runs it
-for CPU tensors only.
+for CPU tensors only. The kernel selects the same sets by another algorithm
+(a histogram radix select from each row's own key range, a one-scan tie
+cut, and a second select on the compacted usable k-set); see its source.
 """
 
 from __future__ import annotations
@@ -26,7 +28,26 @@ def _lib():
     max_cols = lib.dipcn_select_max_cols
     max_cols.argtypes = [ctypes.c_int]
     max_cols.restype = ctypes.c_int
+    lib.dipcn_select_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.dipcn_select_info.restype = ctypes.c_int
     return launch, max_cols
+
+
+_INFO_KEYS = ("threads", "smem_bytes", "static_smem_bytes", "blocks_per_sm", "registers",
+              "spill_bytes")
+
+
+def dipcn_select_info(w: int, k: int, device: torch.device) -> dict:
+    """The kernel's launch shape for rows of ``w`` columns at this ``k`` on
+    the CUDA ``device``: threads, dynamic and static shared memory per
+    block, resident blocks per SM, registers and local (spill) bytes per
+    thread."""
+    _lib()  # declares the argument types
+    info = native.load("dipcn_select").dipcn_select_info
+    out = (ctypes.c_int * len(_INFO_KEYS))()
+    with torch.cuda.device(device):
+        native.check_launch("dipcn_select", info(w, k, out))
+    return dict(zip(_INFO_KEYS, out))
 
 
 def dipcn_from_distances_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int):
@@ -34,10 +55,11 @@ def dipcn_from_distances_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k: int,
     :func:`grid_tpu_torch.ops.select.dipcn_from_distances` and as the Pallas
     kernel (float32 only on the card).
 
-    One thread block per row holds the row's keys in shared memory, so the
-    distance matrix crosses device memory once. A row must fit in the
-    block's shared memory (about 57,000 float32 columns on an H100, far past
-    the 23,170 the default 2 GB d2 budget admits); a wider one raises.
+    One thread block per row holds the row's keys, its usable bits and its
+    compacted usable k-set in shared memory, so the distance matrix crosses
+    device memory once. A row must fit in the block's shared memory (about
+    37,000 float32 columns on an H100 at any k, past the 23,170 the default
+    2 GB d2 budget admits); a wider one raises.
 
     Returns (dipcn [N] float32, out_valid [N] bool).
     """

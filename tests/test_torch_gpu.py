@@ -7,7 +7,8 @@ without the suite's conftest (which sets JAX up):
     python -m pytest tests/test_torch_gpu.py -m cuda --noconftest -q
 
 Bounds as in chip_smoke.py: counts and ``ok`` exact; column sums at rtol
-1e-5; the Gram matrix within 1e-5 of its largest entry (another summation
+1e-5, and two calls bitwise equal; the Gram matrix within 1e-5 of its
+largest entry (another summation
 order over R), exactly symmetric, and at most twice the plain version's
 error against a float64 Gram; dipCN at rtol 1e-6 (the same take-set
 summed in another order).
@@ -43,7 +44,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,r", [(1, 1), (97, 70), (300, 257)])
+@pytest.mark.parametrize("n,r", [(1, 1), (97, 70), (300, 257), (2504, 2048), (1000, 130)])
 def test_masked_column_stats_kernel(cuda, n, r):
     rng = np.random.default_rng(n)
     values = torch.tensor(rng.uniform(10, 60, (n, r)), dtype=torch.float32, device=cuda)
@@ -58,6 +59,8 @@ def test_masked_column_stats_kernel(cuda, n, r):
         assert torch.equal(got[0], want[0])
         torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
         torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+        again = masked_column_stats(values, mask, inv, col_means)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bitwise equal
 
 
 @pytest.mark.parametrize("n,r", [(1, 3), (97, 70), (300, 257), (515, 130)])
@@ -82,21 +85,67 @@ def test_zprep_gram_kernel(cuda, n, r):
     assert err <= 2 * plain_err + spacing, (err, plain_err)
 
 
-@pytest.mark.parametrize("n,r,k,n_nbr", [(97, 16, 20, 7), (300, 40, 60, 50), (200, 8, 199, 300)])
-def test_dipcn_kernel_on_ties(cuda, n, r, k, n_nbr):
-    rng = np.random.default_rng(k)
-    zp = torch.tensor(np.round(rng.normal(size=(n, r)) * 4) / 4, dtype=torch.float32,
-                      device=cuda)
+def _tie_d2(rng, cuda, n, r, valid):
+    """Distances of z rounded to 1/4, so many tie exactly."""
+    zp = torch.tensor(np.round(rng.normal(size=(n, r)) * 4) / 4, dtype=torch.float32, device=cuda)
     ones = torch.ones_like(zp, dtype=torch.bool)
+    return d2_matrix(zp, ones, ones[0], 1e30, row_valid=valid)
+
+
+def _dipcn_case(case, cuda):
+    """(d2, rnorm, nbr_w, usable, valid), k, n_nbr of one named case."""
+    rng = np.random.default_rng(sorted(_DIPCN_CASES).index(case))
+    n, w, r, k, n_nbr = _DIPCN_CASES[case]
     valid = torch.tensor(rng.random(n) > 0.1, device=cuda)
-    d2 = d2_matrix(zp, ones, ones[0], 1e30, row_valid=valid)
+    usable = torch.tensor(rng.random(w) > 0.2, device=cuda)
+    big = torch.finfo(torch.float32).max
+    if case == "all-equal":  # z all zero: every off-diagonal distance is 0
+        ones = torch.ones((n, r), dtype=torch.bool, device=cuda)
+        d2 = d2_matrix(torch.zeros((n, r), device=cuda), ones, ones[0], 1e30, row_valid=valid)
+    elif case == "narrow-band":  # keys differ only in their low ~22 bits, as in the slice
+        d2 = torch.tensor(rng.uniform(3830, 5185, (n, w)), dtype=torch.float32, device=cuda)
+        d2[:, 7] = d2[:, 3]
+        d2.masked_fill_(~valid[None, :], big).fill_diagonal_(big)
+    elif case == "wide":  # quantized random distances, non-square
+        d2 = torch.tensor(rng.integers(0, 400, (n, w)) * 0.25, dtype=torch.float32, device=cuda)
+        d2[:, rng.random(w) < 0.05] = big
+    elif case == "no-usable-row":  # row 0's k nearest are all unusable
+        usable[: w // 2] = False
+        d2 = torch.tensor(rng.uniform(1, 2, (n, w)), dtype=torch.float32, device=cuda)
+        d2[0, usable] += 10
+        d2.fill_diagonal_(big)
+    else:
+        d2 = _tie_d2(rng, cuda, n, r, valid)
     rnorm = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32, device=cuda)
-    usable = torch.tensor(rng.random(n) > 0.2, device=cuda)
-    args = (d2, rnorm, rnorm, usable, valid)
+    nbr_w = torch.tensor(rng.uniform(0.5, 2.0, w), dtype=torch.float32, device=cuda)
+    return (d2, rnorm, nbr_w, usable, valid), k, n_nbr
+
+
+# case: (n, w, r, k, n_nbr); r is z's width where the case makes d2 from z
+_DIPCN_CASES = {
+    "ties-97": (97, 97, 16, 20, 7),
+    "ties-300": (300, 300, 40, 60, 50),
+    "ties-k199": (200, 200, 8, 199, 300),
+    "all-equal": (300, 300, 16, 60, 50),
+    "k-equals-w": (97, 97, 16, 97, 40),
+    "n_nbr-beyond-usable": (200, 200, 16, 30, 500),
+    "no-usable-row": (128, 128, 0, 20, 7),
+    "narrow-band": (512, 512, 0, 100, 60),
+    "wide": (64, 23170, 0, 500, 300),
+}
+
+
+@pytest.mark.parametrize("case", list(_DIPCN_CASES))
+def test_dipcn_kernel_on_ties(cuda, case):
+    args, k, n_nbr = _dipcn_case(case, cuda)
+    before = dipcn_from_distances_gpu.launches
     got, gok = dipcn_from_distances_gpu(*args, k=k, n_nbr=n_nbr)
+    assert dipcn_from_distances_gpu.launches == before + 1
     want, wok = dipcn_from_distances(*args, k=k, n_nbr=n_nbr)
     assert torch.equal(gok, wok)
     torch.testing.assert_close(got[gok], want[gok], rtol=1e-6, atol=0)
+    if case == "no-usable-row":
+        assert not gok[0]
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -15,7 +15,13 @@ from grid_tpu.ops.normalize import normalize_cohort as j_normalize
 from grid_tpu.ops.normalize import select_high_variance_mask as j_select
 from grid_tpu.ops.pallas_kernels import masked_column_stats as j_colstats
 from grid_tpu_torch.ops import masked as tmasked
-from grid_tpu_torch.ops.gpu_kernels import masked_column_stats, masked_column_stats_plain
+from grid_tpu_torch.ops.gpu_kernels import (
+    _COLSTATS_BLOCK_C,
+    _COLSTATS_BLOCK_M,
+    colstats_plan,
+    masked_column_stats,
+    masked_column_stats_plain,
+)
 from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
 from torch_parity import assert_close_to_max
 
@@ -129,3 +135,68 @@ def test_masked_column_stats_cpu_tensors_take_plain_route(rng):
     assert masked_column_stats.launches == before  # no kernel ran
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _emulate_colstats_chunks(values, mask, inv_rm, mu, n_sm):
+    """The two Triton kernels' arithmetic in plain PyTorch: each row chunk
+    of the plan accumulates [BLOCK_M, R] sums over its row steps and
+    reduces them to a partial; the partials are added in chunk order."""
+    n, r = values.shape
+    _, chunks, rows_per_chunk = colstats_plan(n, r, n_sm)
+    block_m = _COLSTATS_BLOCK_M
+    x = torch.where(mask, values * inv_rm[:, None], 0)
+    c = torch.where(mask, x - (0 if mu is None else mu[None, :]), 0)
+    part = torch.zeros((chunks, 3, r), dtype=torch.float32)
+    for s in range(chunks):
+        acc = torch.zeros((3, block_m, r), dtype=torch.float32)
+        for r0 in range(s * rows_per_chunk, (s + 1) * rows_per_chunk, block_m):
+            step = [t[r0:r0 + block_m] for t in (mask.float(), x, c * c)]
+            for a, t in zip(acc, step):
+                a[:t.shape[0]] += t
+        part[s] = acc.sum(dim=1)
+    out = torch.zeros((3, r), dtype=torch.float32)
+    for s in range(chunks):
+        out += part[s]
+    return chunks, out
+
+
+@pytest.mark.parametrize("n,r", [(97, 70), (300, 257)])
+@pytest.mark.parametrize("centered", [False, True])
+def test_colstats_row_chunks_match_pallas(n, r, centered):
+    """The row-split grid's partial statistics, merged in chunk order,
+    against grid_tpu's kernel in interpret mode."""
+    rng = np.random.default_rng(n + r)
+    values = rng.uniform(10, 60, size=(n, r)).astype(np.float32)
+    mask = rng.random((n, r)) > 0.15
+    rm = np.nanmean(np.where(mask, values, np.nan), axis=1)
+    inv_rm = np.where(np.isfinite(rm) & (rm != 0), 1.0 / rm, 0.0).astype(np.float32)
+    mu = None
+    if centered:
+        x = np.where(mask, values * inv_rm[:, None], 0.0)
+        mu = (x.sum(0) / np.maximum(mask.sum(0), 1)).astype(np.float32)
+    want = j_colstats(jnp.asarray(values), jnp.asarray(mask), jnp.asarray(inv_rm),
+                      col_means=None if mu is None else jnp.asarray(mu),
+                      tile_m=16, tile_c=128, interpret=True)
+    args = (torch.from_numpy(values), torch.from_numpy(mask), torch.from_numpy(inv_rm),
+            None if mu is None else torch.from_numpy(mu))
+    chunks, got = _emulate_colstats_chunks(*args, n_sm=132)
+    assert chunks > 1  # the merge runs
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))  # counts: exact
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-6)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-5)
+    # chunk-order merges are deterministic
+    assert torch.equal(got, _emulate_colstats_chunks(*args, n_sm=132)[1])
+
+
+@pytest.mark.parametrize("n,r,n_sm,chunks", [(2504, 2048, 132, 10), (100, 3_000_000, 132, 1),
+                                             (97, 70, 132, 7), (300, 257, 4, 3)])
+def test_colstats_plan(n, r, n_sm, chunks):
+    """Row chunks partition the rows in whole steps, and the main pass
+    holds at least 4 programs per SM wherever the rows allow it."""
+    col_tiles, s, rows_per_chunk = colstats_plan(n, r, n_sm)
+    assert s == chunks
+    assert rows_per_chunk % _COLSTATS_BLOCK_M == 0
+    assert (s - 1) * rows_per_chunk < n <= s * rows_per_chunk
+    assert (col_tiles - 1) * _COLSTATS_BLOCK_C < r <= col_tiles * _COLSTATS_BLOCK_C
+    programs = col_tiles * s
+    assert programs >= 4 * n_sm or rows_per_chunk == _COLSTATS_BLOCK_M

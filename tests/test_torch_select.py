@@ -81,3 +81,176 @@ def test_dipcn_no_usable_neighbor_is_not_ok():
     usable[:] = False
     _, ok = dipcn_from_distances(*_torch(d2, rnorm, rnorm, usable, valid), k=20, n_nbr=7)
     assert not ok.any()
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of csrc/dipcn_select.cu, emulated row by row in numpy. The
+# kernel runs only on the card; this is where its algorithm meets the
+# reference on the CPU. The emulation ships on no path.
+# ---------------------------------------------------------------------------
+
+_THREADS = 128  # kThreads
+_DIGIT_BITS = 8  # kDigitBits
+_BIG_KEY = 0x7F7FFFFF  # finfo(float32).max as int32
+_INT_MAX = 2**31 - 1
+
+
+def _radix_select(keys, lo, span, rank, cap=0):
+    """The kernel's select_rank: the rank-th smallest key in [lo, lo+span]
+    by 8-bit digits of key - lo from the top of span; once a round leaves
+    at most ``cap`` keys in play, later rounds see only those. Returns (t,
+    count of in-range keys < t, histogram rounds)."""
+    bits, base, below, rounds = int(span).bit_length(), 0, 0, 0
+    while bits > 0:
+        d = min(_DIGIT_BITS, bits)
+        shift = bits - d
+        v = keys - lo
+        rel = v - base
+        play = (keys >= lo) & (v <= span) & (rel >= 0) & ((rel >> shift) < (1 << d))
+        hist = np.bincount((rel[play] >> shift).astype(np.int64), minlength=1 << _DIGIT_BITS)
+        cum = np.cumsum(hist)
+        b = int(np.searchsorted(cum, rank - below))  # first bin whose prefix reaches the rank
+        below += int(cum[b] - hist[b])
+        base += b << shift
+        bits, rounds = shift, rounds + 1
+        if bits > 0 and hist[b] <= cap:  # the gather: the keys still in play
+            keys = keys[play & ((rel >> shift) == b)]
+            assert keys.size == hist[b]
+            cap = 0
+    return lo + base, below, rounds
+
+
+def _chunks(n, threads):
+    """Each thread's contiguous [c0, c1) of n entries (odd chunk length)."""
+    chunk = -(-n // threads) | 1
+    return [(min(t * chunk, n), min(t * chunk + chunk, n)) for t in range(threads)]
+
+
+def _emulate_dipcn_kernel(d2, rnorm, nbr_w, usable, valid, k, n_nbr):
+    """(dipcn, ok, k-set mask, histogram rounds per row) as the kernel
+    computes them."""
+    n, w = d2.shape
+    keys_all = d2.view(np.int32).astype(np.int64)
+    dip = np.zeros(n, np.float32)
+    ok = np.zeros(n, bool)
+    in_k = np.zeros((n, w), bool)
+    rounds = np.zeros(n, int)
+    for row in range(n):
+        keys = keys_all[row]
+        body = keys < _BIG_KEY
+        n_body = int(body.sum())
+        lo = int(keys[body].min()) if n_body else _BIG_KEY
+        cap = min(k, w)  # the list buffer, free during the first select
+        if k <= n_body:
+            t, below, r1 = _radix_select(keys, lo, int(keys[body].max()) - lo, k, cap)
+        else:
+            t, below, r1 = _radix_select(keys, _BIG_KEY, _INT_MAX - _BIG_KEY, k - n_body, cap)
+            below += n_body
+        need = k - below
+        assert 1 <= need
+        # one exclusive scan of (ties, usable below, usable ties) per chunk
+        chunks = _chunks(w, _THREADS)
+        counts = np.array([[int((keys[a:b] == t).sum()),
+                            int(((keys[a:b] < t) & usable[a:b]).sum()),
+                            int(((keys[a:b] == t) & usable[a:b]).sum())] for a, b in chunks])
+        pre = np.cumsum(counts, axis=0) - counts
+        n_below_usable = int(counts[:, 1].sum())
+        lst = np.full(min(k, w), -1)
+        list_len = None
+        for (a, b), (ties, pos_below, pos_tie) in zip(chunks, pre):
+            pos_tie += n_below_usable
+            for j in range(a, b):
+                if keys[j] < t:
+                    in_k[row, j] = True
+                    if usable[j]:
+                        lst[pos_below] = j
+                        pos_below += 1
+                elif keys[j] == t:
+                    ties += 1
+                    if ties <= need:
+                        in_k[row, j] = True
+                        if usable[j]:
+                            lst[pos_tie] = j
+                            pos_tie += 1
+                        if ties == need:
+                            list_len = pos_tie
+        lst = lst[:list_len]
+        assert (lst >= 0).all() and (np.diff(lst[:n_below_usable]) > 0).all()
+        m_eff = min(list_len, n_nbr)
+        r2 = 0
+        if m_eff == list_len:  # take the whole list
+            take = np.ones(list_len, bool)
+        else:
+            lk = keys[lst]
+            t2, below2, r2 = _radix_select(lk, lo, t - lo, m_eff)
+            need2 = m_eff - below2
+            # the ties at t2 by tie rank in list order, through a chunk scan
+            take = np.zeros(list_len, bool)
+            c2 = _chunks(list_len, _THREADS)
+            tie_pre = np.cumsum([int((lk[a:b] == t2).sum()) for a, b in c2])
+            for (a, b), ties2 in zip(c2, np.concatenate([[0], tie_pre[:-1]])):
+                for i in range(a, b):
+                    if lk[i] < t2:
+                        take[i] = True
+                    elif lk[i] == t2:
+                        ties2 += 1
+                        take[i] = ties2 <= need2
+        total = np.float32(nbr_w[lst[take]].sum(dtype=np.float32))
+        dip[row] = np.float32(rnorm[row]) / (total / np.float32(max(m_eff, 1)))
+        ok[row] = valid[row] and m_eff > 0
+        rounds[row] = r1 + r2
+    return dip, ok, in_k, rounds
+
+
+def _narrow_band_inputs(seed=3, n=97):
+    """Distances in a narrow band, as in the 1000G-scale cohort (every
+    off-diagonal distance in 3,830-5,185, so the keys differ only in their
+    low ~22 bits), with some exact ties and the finfo.max of self and of
+    invalid rows."""
+    rng = np.random.default_rng(seed)
+    d2 = rng.uniform(3830, 5185, (n, n)).astype(np.float32)
+    d2[:, 7] = d2[:, 3]  # exact ties between two columns
+    valid = rng.random(n) > 0.1
+    d2[:, ~valid] = np.finfo(np.float32).max
+    np.fill_diagonal(d2, np.finfo(np.float32).max)
+    rnorm = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    return d2, rnorm, rng.random(n) > 0.2, valid
+
+
+def _all_equal_inputs(seed=4, n=97):
+    """z all zero: every off-diagonal distance is 0."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random(n) > 0.1
+    d2 = np.array(j_d2_matrix(jnp.zeros((n, 16), jnp.float32), row_valid=jnp.asarray(valid)))
+    return d2, rng.uniform(0.5, 2.0, n).astype(np.float32), rng.random(n) > 0.2, valid
+
+
+_KERNEL_INPUTS = {
+    "forced-tie": lambda: _tie_inputs(np.float32),
+    "narrow-band": _narrow_band_inputs,
+    "all-equal": _all_equal_inputs,
+}
+
+
+@pytest.mark.parametrize("case", sorted(_KERNEL_INPUTS))
+@pytest.mark.parametrize("k,n_nbr", [(20, 7), (60, 50), (96, 300), (97, 40)])
+def test_dipcn_kernel_arithmetic(case, k, n_nbr):
+    """Histogram select from the row's own range, one-scan tie cut and the
+    second select on the compacted list, against the Pallas kernel
+    (interpret mode) and grid_tpu's smallest_k_mask."""
+    d2, rnorm, usable, valid = _KERNEL_INPUTS[case]()
+    got, gok, in_k, rounds = _emulate_dipcn_kernel(d2, rnorm, rnorm, usable, valid, k, n_nbr)
+    np.testing.assert_array_equal(in_k, np.asarray(j_smallest_k_mask(jnp.asarray(d2), k)))
+    want, wok = j_dipcn_pallas(jnp.asarray(d2), jnp.asarray(rnorm), jnp.asarray(rnorm),
+                               jnp.asarray(usable), jnp.asarray(valid), k=k, n_nbr=n_nbr,
+                               interpret=True)
+    wok = np.asarray(wok)
+    np.testing.assert_array_equal(gok, wok)
+    np.testing.assert_allclose(got[wok], np.asarray(want)[wok], rtol=1e-6)
+    # where the k-th key lies in a narrow band (~21 bits), each select takes
+    # 3 histogram rounds (the header's count), not 31 bisection rounds; at
+    # most 4 each over a full 32-bit span
+    assert rounds.max() <= 8
+    if case == "narrow-band":
+        in_band = (d2 < np.finfo(np.float32).max).sum(axis=1) >= k
+        assert rounds[in_band].max(initial=0) <= 6
