@@ -31,13 +31,30 @@ before the last line):
              back-to-back launches between two events, so the host's launch
              cost stops hiding a short kernel, with its bound (the larger of
              bytes over 3.35 TB/s and operations over the peak) and its
-             share of that bound; the column statistics also at the
+             share of that bound; dipCN's resident and wide modes on the
+             same rows (the slice's d2, and square distances of widths up
+             to 23,170), which must agree bitwise; the column statistics also at the
              genome-wide 100 x 3,000,000.
 6. profile — the slice's device time per step under torch.profiler, by
              kernel, and its share of the step time of phase 5.
+7. panels  — the row-panel branch: cohort_step at N=65,536, R=1024, k=500,
+             n_nbr=300, 100 sweeps with the default 2 GiB d2 budget (128
+             panels of 512 rows). Checks that it launched the split, the
+             panel Gram, the wide-row dipCN and the column statistics, and
+             prints its peak device memory; holds each kernel against its
+             plain version on the card at the panel shapes, one panel's
+             two-stage selection against a flat stable sort, and the step
+             against the plain route on the card (torch.mm with TF32 off,
+             stable sorts, plain dipCN per panel; normalize on the CPU);
+             times the step, each kernel per panel and the stable
+             selection, and profiles the step's device time by kernel.
+8. branches — the resident and the panel branch on the same N=16,384
+             cohort (the panel run with d2_budget_bytes lowered): they must
+             agree, and both step times are printed.
 
-The last three lines are the kernels' JSON object, the card's name and
-power limit, and {"ok": true, "device": {...}}.
+The last three lines are the kernels' JSON object (the panel-mode numbers
+at N=65,536; each entry's "slice_2504" holds phase 5's), the card's name
+and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -60,6 +77,9 @@ PROFILE_STEPS = 5
 ZMAX = 2.0
 WIDE = (64, 23170)  # the widest rows the default 2 GB d2 budget admits
 GENOME = (100, 3_000_000)  # the genome-wide normalize shape
+PANEL_N, PANEL_R = 65536, 1024  # a biobank cohort, past the 2 GiB d2 budget
+PANEL_REPS = 3
+BRANCH_N = 16384  # both branches run: N*N*4 = 1 GiB
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 TF32_FLOP_PER_S = 495e12  # dense TF32 tensor-core peak, the same sheet
 # two float32 Gram routes may swap neighbors this close (of the row's k-th
@@ -127,6 +147,329 @@ def device_us(evt) -> float:
     return evt.self_cuda_time_total if us is None else us
 
 
+def ring_neighbors(n: int):
+    """Two haplotype neighbors per haplotype on a ring, padded."""
+    from grid_tpu_torch.io.hap_neighbors import pad_hap_neighbors
+
+    ring = [[((h + 2) % (2 * n), 1.0), ((h - 2) % (2 * n), 0.5)] for h in range(2 * n)]
+    return pad_hap_neighbors(ring, 2)
+
+
+def check_against(got, want, usable, n_nbr: int, label: str) -> str:
+    """Hold a cohort step's neighbor lists and dipCN to another route's
+    under the rule of tests/torch_parity.py; returns a summary."""
+    from torch_parity import dipcn_sets_differ, neighbor_rows_differing
+
+    tol = TIE_RTOL * want.nbr_sq_dists[:, -1].astype(np.float64)
+    row_err = np.max(np.abs(got.nbr_sq_dists.astype(np.float64) - want.nbr_sq_dists), axis=1)
+    ratio = float(np.max(row_err / tol))
+    check(ratio <= 1, f"{label}: neighbor distances, worst row at {ratio:.3f} of its tolerance")
+    differ = neighbor_rows_differing(got.nbr_idx, got.nbr_sq_dists, want.nbr_idx,
+                                     want.nbr_sq_dists, tol=tol)
+    sets_differ = dipcn_sets_differ(got.nbr_idx, want.nbr_idx, usable, n_nbr)
+    check(np.array_equal(got.dipcn_valid, want.dipcn_valid), f"{label}: dipcn_valid differs")
+    same = got.dipcn_valid & ~sets_differ
+    check(np.allclose(got.dipcn[same], want.dipcn[same], rtol=1e-5, atol=0),
+          f"{label}: dipCN differs beyond rtol 1e-5")
+    n = got.nbr_idx.shape[0]
+    return (f"neighbor distances: max |diff| {float(row_err.max()):.3e}, worst row at "
+            f"{ratio:.3f} of its tolerance; nbr_idx identical on {n - differ.size} of {n} rows, "
+            f"the others differ only by ties within tol; {int(sets_differ.sum())} rows change a "
+            f"dipCN input set; dipcn_valid exact; dipCN within rtol 1e-5 on {int(same.sum())} "
+            f"rows")
+
+
+def plain_panel_route(values_np, mask_np, reads_np, reads_valid_np, params, dev):
+    """The panel step's kNN and dipCN by the plain route: normalize by the
+    plain versions (CPU tensors), then on the card per row panel torch.mm of
+    the prepared rows (TF32 off), the epilogue, stable two-stage sorts and
+    the plain dipcn_from_distances. Returns the outputs it computes, as
+    numpy arrays in a dict."""
+    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel_plain, zprep_split_plain
+    from grid_tpu_torch.ops.knn import (
+        panel_d2, prepare_z, region_filter_mask, smallest_k_two_stage, two_stage_width,
+    )
+    from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
+    from grid_tpu_torch.ops.select import dipcn_from_distances
+
+    values = torch.tensor(values_np, dtype=torch.float32)
+    mask = torch.tensor(mask_np)
+    norm = normalize_cohort(values, mask)
+    selected = select_high_variance_mask(norm.var_ratio, params.top_frac)
+    ratios_seen = torch.where(selected, norm.var_ratio, torch.nan)
+    region = selected & region_filter_mask(ratios_seen, params.frac_r, params.sigma2_max,
+                                           n_written=selected.sum())
+    sample_ok = norm.mask.any(dim=1)
+    reads_valid = torch.tensor(reads_valid_np) & sample_ok
+    w = torch.tensor(reads_np, dtype=torch.float32) / norm.row_means_raw
+    zp = prepare_z(norm.z.to(dev), norm.mask.to(dev), params.zmax, region.to(dev))
+    split = zprep_split_plain(zp, None, None, float("inf"))
+    sample_ok, reads_valid, w = sample_ok.to(dev), reads_valid.to(dev), w.to(dev)
+    n, k = zp.shape[0], params.num_neighbors
+    col_block = two_stage_width(n, k, None)
+    found = []
+    for i0 in range(0, n, params.row_block):
+        rows = min(params.row_block, n - i0)
+        d2 = panel_d2(zprep_gram_panel_plain(split, i0, rows), split.norms, i0, sample_ok)
+        vals, idx = smallest_k_two_stage(d2, k, col_block)
+        dip, ok = dipcn_from_distances(d2, w[i0:i0 + rows], w, reads_valid,
+                                       reads_valid[i0:i0 + rows], k=k, n_nbr=params.n_nbr)
+        found.append((vals, idx, dip, ok))
+    cat = [torch.cat(parts).cpu().numpy() for parts in zip(*found)]
+    return {"z": norm.z.numpy(), "z_mask": norm.mask.numpy(), "region_used": region.numpy(),
+            "nbr_sq_dists": cat[0], "nbr_idx": cat[1], "dipcn": cat[2], "dipcn_valid": cat[3]}
+
+
+def panel_phase(dev, card: str, wrappers: dict) -> dict:
+    """Phase 7: the row-panel branch at N=65,536. Returns, per kernel, its
+    JSON fields at the panel shapes."""
+    from types import SimpleNamespace
+
+    from bench import make_matrix
+    from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
+    from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
+    from grid_tpu_torch.ops.gpu_kernels import (
+        masked_column_stats, masked_column_stats_plain, zprep_gram_panel,
+        zprep_gram_panel_plain, zprep_split, zprep_split_plain,
+    )
+    from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu, dipcn_select_info
+    from grid_tpu_torch.ops.knn import (
+        panel_d2, smallest_k_two_stage, sorted_smallest_k, two_stage_width,
+    )
+    from grid_tpu_torch.ops.masked import masked_mean
+    from grid_tpu_torch.ops.select import dipcn_from_distances
+    from torch_parity import assert_close_to_max
+
+    n, r = PANEL_N, PANEL_R
+    params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
+    check(not d2_resident(params, n, 4), "N=65,536 must take the panel branch")
+    b = params.row_block
+    n_panels = -(-n // b)
+    t0 = time.perf_counter()
+    values_np, mask_np, reads_np = make_matrix(n, r)
+    reads_valid_np = np.ones(n, bool)
+    hap = ring_neighbors(n)
+    inputs = inputs_to_torch(values_np, mask_np, reads_np, reads_valid_np, *hap, dev,
+                             torch.float32)
+    print(f"[panels] set-up: {n}x{r} cohort made and copied to the card in "
+          f"{time.perf_counter() - t0:.1f} s (host clock)", flush=True)
+
+    # ---- the step, with its launches and its peak memory -----------------
+    counted = {**wrappers, "zprep_split": zprep_split, "zprep_gram_panel": zprep_gram_panel}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = cohort_step(*inputs, params)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[panels] cohort_step N={n} R={r} k={K} on {torch.cuda.get_device_name(0)}: first "
+          f"call {first_s:.2f} s; kernel launches {launches}", flush=True)
+    want_launches = {"masked_column_stats": 2, "zprep_gram": 0, "dipcn_from_distances_gpu":
+                     n_panels, "zprep_split": 1, "zprep_gram_panel": n_panels}
+    check(launches == want_launches, f"panel-branch launches {launches} != {want_launches}")
+    panel_bytes = b * n * 4
+    print(f"[panels] peak device memory {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB of "
+          f"inputs ({peak / panel_bytes:.1f}x one {b}x{n} float32 panel of "
+          f"{panel_bytes / 2**20:.0f} MiB; an [N, N] float32 matrix would be "
+          f"{n * n * 4 / 2**30:.0f} GiB)", flush=True)
+    check(peak < 32 * panel_bytes, "the panel branch's peak memory is not O(row_block * N)")
+    got = outputs_to_numpy(out)
+    check(got.nbr_idx.shape == (n, K) and got.nbr_idx.dtype == np.int32, "nbr_idx shape, dtype")
+    check(np.isfinite(got.dipcn[got.dipcn_valid]).all(), "non-finite dipCN on a valid row")
+    check(np.isfinite(got.hap_irrs[np.repeat(got.phased, 2)]).all(), "non-finite phased hap")
+
+    # ---- the plain route on the card ------------------------------------
+    t0 = time.perf_counter()
+    want = SimpleNamespace(**plain_panel_route(values_np, mask_np, reads_np, reads_valid_np,
+                                               params, dev))
+    plain_s = time.perf_counter() - t0
+    check(np.array_equal(got.region_used, want.region_used), "panel step: region_used differs")
+    z_err = assert_close_to_max(got.z, want.z, 1e-5)
+    usable = reads_valid_np & want.z_mask.any(axis=1)
+    summary = check_against(got, want, usable, N_NBR, "panel step vs plain route")
+    print(f"[panels] vs the plain route on the card ({plain_s:.1f} s): z within 1e-5 of max|z| "
+          f"(max abs err {z_err:.3e}); {summary}; {int(got.phased.sum())} phased", flush=True)
+    del want
+
+    # ---- each kernel at the panel shapes, against its plain version ------
+    z, zmask, region = out.z, out.z_mask, out.region_used
+    sample_ok = zmask.any(dim=1)
+    reads_valid = inputs[3] & sample_ok
+    w = inputs[2] / out.scales
+    rm = masked_mean(inputs[0], inputs[1], axis=1)
+    good = torch.isfinite(rm) & (rm != 0)
+    cs = (inputs[0], inputs[1] & good[:, None], torch.where(good, 1 / torch.where(good, rm, 1), 0))
+    mu = out.col_means.nan_to_num()
+    cnt, s_, sq = masked_column_stats(*cs, mu)
+    pcnt, ps, psq = masked_column_stats_plain(*cs, mu)
+    check(torch.equal(cnt, pcnt), "masked_column_stats panel shape: counts differ")
+    check(torch.allclose(s_, ps, rtol=1e-5, atol=0) and torch.allclose(sq, psq, rtol=1e-5, atol=0),
+          "masked_column_stats panel shape: sums")
+    errs = {"masked_column_stats": max(max_abs(s_, ps), max_abs(sq, psq))}
+
+    split = zprep_split(z, zmask, region, ZMAX)
+    plain_split = zprep_split_plain(z, zmask, region, ZMAX)
+    norm_err = assert_close_to_max(split.norms.cpu(), plain_split.norms.cpu(), 1e-5)
+    p64 = plain_split.p.double()
+    last = n - (n - 1) % b - 1
+    gram_err = 0.0
+    for i0 in (0, last):
+        rows = min(b, n - i0)
+        g, pg = zprep_gram_panel(split, i0, rows), zprep_gram_panel_plain(plain_split, i0, rows)
+        gram_err = max(gram_err, assert_close_to_max(g.cpu(), pg.cpu(), 1e-5))
+        g64 = p64[i0:i0 + rows] @ p64.T
+        err64, plain64 = max_abs(g, g64), max_abs(pg, g64)
+        check(err64 <= 2 * plain64, f"zprep_gram panel {i0}: error vs float64 {err64:.3e} > 2x "
+                                    f"the plain version's {plain64:.3e}")
+        print(f"[panels] zprep_gram panel rows [{i0}, {i0 + rows}): within 1e-5 of max|G|, vs a "
+              f"float64 Gram: kernel {err64:.3e}, plain {plain64:.3e} ({err64 / plain64:.3f}x, "
+              f"gate 2x); norms within 1e-5 of max (max abs err {norm_err:.3e})", flush=True)
+    del p64, g64
+    errs["zprep_gram"] = max(gram_err, norm_err)
+    g0 = zprep_gram_panel(split, 0, b)
+    d2 = panel_d2(g0, split.norms, 0, sample_ok)
+    dip_args = (d2, w[:b].contiguous(), w, reads_valid, reads_valid[:b].contiguous())
+    dip, ok = dipcn_from_distances_gpu(*dip_args, k=K, n_nbr=N_NBR)
+    pdip, pok = dipcn_from_distances(*dip_args, k=K, n_nbr=N_NBR)
+    check(torch.equal(ok, pok), "dipcn wide panel: ok differs")
+    check(torch.allclose(dip[ok], pdip[ok], rtol=1e-6, atol=0), "dipcn wide panel: values")
+    errs["dipcn_from_distances_gpu"] = max_abs(dip[ok], pdip[ok])
+    dinfo = dipcn_select_info(n, K, dev)
+    print(f"[panels] dipcn_select [{b}, {n}] in its {dinfo['mode']} mode: ok exact "
+          f"({int(ok.sum())} rows), within rtol 1e-6 (max abs err "
+          f"{errs['dipcn_from_distances_gpu']:.3e}); {dinfo['smem_bytes']} B dynamic + "
+          f"{dinfo['static_smem_bytes']} B static shared memory, {dinfo['blocks_per_sm']} blocks "
+          f"per SM, {dinfo['registers']} registers, {dinfo['spill_bytes']} B spilled", flush=True)
+    check(dinfo["mode"] == "wide" and dinfo["spill_bytes"] == 0, "dipcn_select wide mode shape")
+    # the two-stage block selection against one flat stable sort of the panel
+    col_block = two_stage_width(n, K, None)
+    check(col_block is not None, f"N={n} must take the two-stage selection")
+    vals2, idx2 = smallest_k_two_stage(d2, K, col_block)
+    vals1, idx1 = sorted_smallest_k(d2, K)
+    check(torch.equal(vals2, vals1) and torch.equal(idx2, idx1),
+          "two-stage selection differs from a flat stable sort")
+    print(f"[panels] smallest_k_two_stage [{b}, {n}] (blocks of {col_block}): values and indices "
+          f"equal to a flat stable sort's; {card}", flush=True)
+    del vals1, idx1, vals2, idx2
+
+    # ---- times ------------------------------------------------------------
+    step_ms = [median_ms(lambda: cohort_step(*inputs, params), reps=PANEL_REPS, warmup=1)
+               for _ in range(2)]
+    print(f"[times] panel cohort_step N={n} R={r} k={K} n_iters={N_ITERS}: "
+          f"{min(step_ms):.1f} ms (better of two medians of {PANEL_REPS}: "
+          f"{step_ms[0]:.1f}, {step_ms[1]:.1f}); {card}", flush=True)
+    p_panel = plain_split.p[:b]
+    timed = {
+        "masked_column_stats": (lambda: masked_column_stats(*cs, mu),
+                                lambda: masked_column_stats_plain(*cs, mu), None),
+        "zprep_gram": (lambda: zprep_gram_panel(split, 0, b),
+                       lambda: zprep_gram_panel_plain(plain_split, 0, b),
+                       lambda: torch.mm(p_panel, plain_split.p.T)),
+        "dipcn_from_distances_gpu": (
+            lambda: dipcn_from_distances_gpu(*dip_args, k=K, n_nbr=N_NBR),
+            lambda: dipcn_from_distances(*dip_args, k=K, n_nbr=N_NBR), None),
+    }
+    r_pad = split.p.shape[2]
+    bounds = {
+        "masked_column_stats": bound_ms(n * r * 5 + 4 * n + 4 * r + 12 * r),
+        # P [N, R] in, read once, the panel out; 2*B*N*R operations at the
+        # TF32 peak (the kernel's split halves are its design, not the work's)
+        "zprep_gram": bound_ms(n * r * 4 + b * n * 4, 2 * b * n * r),
+        # one panel of d2 read once, the vectors, dipcn and ok out
+        "dipcn_from_distances_gpu": bound_ms(b * n * 4 + 4 * b + 4 * n + n + b + 4 * b + b),
+    }
+    shapes = {"masked_column_stats": f"[{n}, {r}], 2 calls per step",
+              "zprep_gram": f"split [{n}, {r}] once per step, then panels [{b}, {n}]",
+              "dipcn_from_distances_gpu": f"wide mode, panels [{b}, {n}]"}
+    rows = {}
+    for name, (kernel_fn, plain_fn, lib_fn) in timed.items():
+        p1, k1, k2, p2 = (back_to_back_ms(f, reps=5, warmup=1)
+                          for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+        kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+        lib_ms = None if lib_fn is None else min(back_to_back_ms(lib_fn, reps=5, warmup=1)
+                                                 for _ in range(2))
+        least, by = bounds[name]
+        calls = launches[name] if name != "zprep_gram" else launches["zprep_gram_panel"]
+        lib = "" if lib_ms is None else f", torch.mm of the panel {lib_ms:.4f} ms"
+        print(f"[times] {name} at {shapes[name]}: kernel {kernel_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms{lib} per call (5 back to back, better of two); bound "
+              f"{least:.4f} ms by {by}, {100 * least / kernel_ms:.1f}% of it; {calls} calls per "
+              f"step: {calls * kernel_ms:.1f} ms; {card}", flush=True)
+        rows[name] = {"launches": calls, "max_abs_err": errs[name], "ms": kernel_ms,
+                      "plain_ms": plain_ms, "bound_ms": least, "bound_by": by,
+                      "library_ms": lib_ms, "shape": shapes[name]}
+    split_ms = min(back_to_back_ms(lambda: zprep_split(z, zmask, region, ZMAX), reps=5, warmup=1)
+                   for _ in range(2))
+    split_bound, split_by = bound_ms(n * r * 5 + r + 2 * n * r_pad * 4 + 4 * n, 2 * n * 128 * r)
+    rows["zprep_gram"].update(split_launches=launches["zprep_split"], split_ms=split_ms)
+    sel_ms = min(back_to_back_ms(lambda: smallest_k_two_stage(d2, K, col_block), reps=5,
+                                 warmup=1) for _ in range(2))
+    epi_ms = min(back_to_back_ms(lambda: panel_d2(g0, split.norms, 0, sample_ok), reps=5,
+                                 warmup=1) for _ in range(2))
+    print(f"[times] zprep_split once per step (split + diagonal tiles): {split_ms:.4f} ms, bound "
+          f"{split_bound:.4f} ms by {split_by}; per panel: the epilogue (norms, -2G, clamp, self "
+          f"and invalid columns) {epi_ms:.4f} ms, the stable two-stage selection (blocks of "
+          f"{col_block}) {sel_ms:.4f} ms, i.e. {n_panels * sel_ms:.1f} ms of selection and "
+          f"{n_panels * epi_ms:.1f} ms of epilogue per step; {card}", flush=True)
+    del d2, g0
+
+    # ---- profile -------------------------------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cohort_step(*inputs, params)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if ops:
+        dev_ms = sum(device_us(e) for e in ops) / 1e3
+        print(f"[profile] panel cohort_step: device time {dev_ms:.1f} ms in one step "
+              f"({100 * dev_ms / min(step_ms):.1f}% of the {min(step_ms):.1f} ms step), "
+              f"{sum(e.count for e in ops)} device ops; {card}", flush=True)
+        for e in sorted(ops, key=device_us, reverse=True)[:14]:
+            print(f"[profile]   {device_us(e) / 1e3:9.3f} ms/step {e.count:6d} calls/step  "
+                  f"{e.key[:80]}")
+    else:
+        print("[profile] torch.profiler saw no device activity: device time not measured")
+    del out, split, plain_split, inputs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def branch_phase(dev, card: str) -> None:
+    """Phase 8: the resident and the panel branch on one N=16,384 cohort."""
+    from bench import make_matrix
+    from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
+    from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
+
+    n, r = BRANCH_N, PANEL_R
+    resident = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
+    panels = resident._replace(d2_budget_bytes=n * n * 4 - 1)
+    check(d2_resident(resident, n, 4) and not d2_resident(panels, n, 4), "branch choice")
+    values_np, mask_np, reads_np = make_matrix(n, r, seed=1)
+    reads_valid_np = np.ones(n, bool)
+    inputs = inputs_to_torch(values_np, mask_np, reads_np, reads_valid_np, *ring_neighbors(n), dev,
+                             torch.float32)
+    outs = {name: outputs_to_numpy(cohort_step(*inputs, p))
+            for name, p in (("resident", resident), ("panels", panels))}
+    usable = reads_valid_np & outs["resident"].z_mask.any(axis=1)
+    summary = check_against(outs["panels"], outs["resident"], usable, N_NBR, "branches")
+    # resident, panels, panels, resident: neither gets the warmer card
+    t = [median_ms(lambda p=p: cohort_step(*inputs, p), reps=PANEL_REPS, warmup=1)
+         for p in (resident, panels, panels, resident)]
+    print(f"[branches] N={n} R={r} k={K}: panel branch vs resident branch: {summary}", flush=True)
+    print(f"[branches] step time at N={n}: resident {min(t[0], t[3]):.1f} ms, panels "
+          f"{min(t[1], t[2]):.1f} ms (better of two medians of {PANEL_REPS}; rounds "
+          f"{', '.join(f'{x:.1f}' for x in t)}); {card}", flush=True)
+    del inputs
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -143,7 +486,6 @@ def main() -> int:
     from bench import make_matrix  # numpy only at import
     from grid_tpu_torch import native
     from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
-    from grid_tpu_torch.io.hap_neighbors import pad_hap_neighbors
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step
     from grid_tpu_torch.ops.gpu_kernels import (
         colstats_plan, masked_column_stats, masked_column_stats_plain, zprep_gram, zprep_gram_info,
@@ -304,8 +646,7 @@ def main() -> int:
 
     # ---- 4. the slice ----------------------------------------------------
     reads_valid_np = np.ones(N, bool)
-    ring = [[((h + 2) % (2 * N), 1.0), ((h - 2) % (2 * N), 0.5)] for h in range(2 * N)]
-    hi, hw, hv = pad_hap_neighbors(ring, 2)
+    hi, hw, hv = ring_neighbors(N)
     # bench.py's setting: unquantized z, so the two routes' z differ by
     # rounding only, never by a %.2f flip
     params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
@@ -418,6 +759,45 @@ def main() -> int:
                         "bound_ms": least, "bound_by": bound_by,
                         "bound_share": least / b2b_ms, "library_ms": lib_ms})
 
+    # dipcn_select's wide mode on the same rows, where the resident mode also
+    # fits: the two must agree bitwise, and their times say whether the
+    # resident mode earns its place (resident, wide, wide, resident)
+    from grid_tpu_torch.ops.gpu_select import _launch, dipcn_select_mode
+
+    # on the slice's own d2 (N=2504: 25 MB, it stays in the 50 MB L2), then
+    # on square [W, W] distances of resident-branch cohorts up to the widest
+    # (23,170: 2 GiB), where the wide mode's re-reads come from device memory
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def square_case(width):
+        sq = torch.randint(0, 400, (width, width), device=dev, generator=gen) * 0.25
+        sq[:, torch.rand(width, device=dev, generator=gen) < 0.05] = torch.finfo(torch.float32).max
+        vec = torch.rand(width, device=dev, generator=gen) + 0.5
+        usable_sq = torch.rand(width, device=dev, generator=gen) > 0.2
+        return sq, vec, vec, usable_sq, usable_sq
+
+    mode_ms = {}
+    for width in (N, 4096, 8192, 12288, 16384, WIDE[1]):
+        args = dip_args if width == N else square_case(width)
+        sinfo = dipcn_select_info(width, K, dev)
+        check(sinfo["mode"] == "resident", f"W={width} must take the resident mode")
+        by_mode = {mode: (lambda mode=mode, args=args: _launch(mode, *args, K, N_NBR))
+                   for mode in ("resident", "wide")}
+        check(all(torch.equal(a, b) for a, b in zip(by_mode["resident"](), by_mode["wide"]())),
+              f"dipcn_select W={width}: the wide mode differs from the resident mode")
+        rounds = [(mode, back_to_back_ms(by_mode[mode], reps=10))
+                  for mode in ("resident", "wide", "wide", "resident")]
+        mode_ms[width] = {mode: min(t for m, t in rounds if m == mode) for mode in by_mode}
+        print(f"[times] dipcn_select modes at [{width}, {width}], k={K}: resident "
+              f"{mode_ms[width]['resident']:.4f} ms ({sinfo['blocks_per_sm']} blocks per SM), "
+              f"wide {mode_ms[width]['wide']:.4f} ms per call (10 back to back, better of two; "
+              f"rounds {', '.join(f'{m} {t:.4f}' for m, t in rounds)}); outputs bitwise equal; "
+              f"{card}", flush=True)
+        del args, by_mode
+    next(row for row in kernels if row["name"] == "dipcn_from_distances_gpu").update(
+        mode_ms_back_to_back=mode_ms)
+    torch.cuda.empty_cache()
+
     # the genome-wide normalize's column statistics, made on the card
     gen = torch.Generator(device=dev).manual_seed(0)
     g_vals = torch.rand(GENOME, device=dev, generator=gen) * 50 + 10
@@ -477,7 +857,17 @@ def main() -> int:
     else:
         print("[profile] torch.profiler saw no device activity: device time not measured")
 
-    print(json.dumps({"kernels": kernels}))
+    # ---- 7. panels and 8. branches ---------------------------------------
+    panel = panel_phase(dev, card, wrappers)
+    branch_phase(dev, card)
+
+    rows = []
+    for row in kernels:
+        earlier = {key: row[key] for key in row if key not in ("name", "route", "source",
+                                                                "replaces")}
+        rows.append({**{key: row[key] for key in ("name", "route", "source", "replaces")},
+                     **panel[row["name"]], "slice_2504": earlier})
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -63,11 +63,43 @@
 // blocks per SM (1,584 rows in flight of 2,504); a 32-register bound gives
 // 16 but ran no faster in a trial, so its instructions and barriers bound
 // it, not its waves. dipcn_select_info reports the count the card grants.
-// Rows up to ~37,000 columns fit at any k.
+//
+// Two modes, one kernel template; dipcn_select_mode picks one from W, k
+// and the card's shared memory:
+//
+// - resident (above): the row's keys in shared memory, a uint16 list. It
+//   runs whenever dyn_smem_bytes(W, k) fits and W <= 65,536: up to
+//   ~37,000 columns at k = W, ~55,000 at k = 500.
+// - wide: for the row panels of the large-N branch (65,536 columns at
+//   N=65,536) and up to ~1.7 M columns. The keys stay in device memory and
+//   every walk re-reads the row; shared memory holds the usable bits (W/8
+//   bytes), the int32 list (column indices past 65,535) and the gather
+//   buffer (at least kWideGather entries, so a first digit that leaves up
+//   to 2,048 keys in play is gathered). Step 3 becomes two walks by warps:
+//   each warp owns a contiguous quarter of the row and steps through it 32
+//   columns at a time (coalesced), counting first, then placing each
+//   column by ballot ranks. The sets, their tie order and the fixed-order
+//   sum of steps 4-5 are those of the resident mode.
+//
+//   What bounds the wide mode: the row is read once by the load (step 1),
+//   once per histogram round until the keys in play fit the gather buffer
+//   (at least one), once by the gather, and twice by step 3: at least 5
+//   walks of 4*W bytes. A 512 x 65,536 panel is 128 MB, more than the 50
+//   MB L2, so every walk comes from device memory: >= 640 MB per panel
+//   against the 128 MB the one-read bound counts, i.e. >= 24.5 ms per step
+//   of 128 panels at 3.35 TB/s against 5.1 ms. 512 rows are one wave (11
+//   blocks per SM hold 1,452), so the walks of all rows stream together
+//   and none finds its row in L2. Measured on an H100 80GB HBM3 at 700 W
+//   (chip_smoke.py, phase 7): 0.61 ms per panel, about 1 TB/s if the walks
+//   move 640 MB, so they are bound by the loads a block keeps in flight,
+//   not by the memory's rate: 512 blocks of 4 warps are ~16 warps per SM,
+//   and each walk step waits on its loads.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -80,6 +112,19 @@ constexpr int kBigKey = 0x7F7FFFFF;      // finfo(float32).max, the self and inv
 constexpr int kField = 21;               // bit width of one count in the packed k-set scan
 constexpr unsigned long long kFieldMask = (1ull << kField) - 1;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kResidentMaxCols = 65536;  // uint16 list entries
+constexpr int kWideGather = 2048;        // least gather capacity of the wide mode
+constexpr int kWideMaxCols = 1 << kField;  // packed counts hold up to 2^21 - 1
+
+// the row's keys: shared memory (resident mode) or device memory (wide)
+template <bool kWide>
+__device__ __forceinline__ int key_at(const int* keys, int j) {
+  if constexpr (kWide) {
+    return __ldg(keys + j);
+  } else {
+    return keys[j];
+  }
+}
 
 static_assert(kBins == 2 * kThreads, "the bin scan gives each thread two bins");
 
@@ -130,8 +175,9 @@ struct Found {
 // null; then, once a round leaves at most `cap` keys in play, they are
 // gathered into `spare` and the later rounds walk only them. hist[parity]
 // is all zero on entry and on return.
-__device__ Found select_rank(const int* keys, const uint16_t* list, int n, int lo, unsigned span,
-                             int rank, Shared& sh, int& parity, uint16_t* spare, int cap) {
+template <bool kWide, typename ListT>
+__device__ Found select_rank(const int* keys, const ListT* list, int n, int lo, unsigned span,
+                             int rank, Shared& sh, int& parity, ListT* spare, int cap) {
   const int lane = threadIdx.x & 31;
   int bits = span ? 32 - __clz(span) : 0;
   unsigned base = 0;  // key - lo of the bin chosen so far
@@ -145,23 +191,54 @@ __device__ Found select_rank(const int* keys, const uint16_t* list, int n, int l
     int* other = sh.hist[parity ^ 1];
     for (int b = threadIdx.x; b < kBins; b += kThreads) other[b] = 0;
     if (threadIdx.x == 0) sh.n_cand = 0;
-    for (int i0 = 0; i0 < n; i0 += kThreads) {  // uniform trip count: whole warps in the votes
-      const int i = i0 + threadIdx.x;
-      bool in = i < n;
-      const int key = in ? (list ? keys[list[i]] : keys[i]) : 0;
-      const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
-      const unsigned digit = (v - base) >> shift;  // huge when v < base
-      in = in && key >= lo && v <= span && digit < (1u << d);
-      // a warp whose keys in play share one digit (a hot bin) adds them
-      // in one atomic; otherwise each key adds its own
-      const unsigned play = __ballot_sync(kFull, in);
-      if (play == 0) continue;
-      const int leader = __ffs(play) - 1;
-      const unsigned lead_digit = __shfl_sync(kFull, digit, leader);
-      if (__all_sync(kFull, !in || digit == lead_digit)) {
-        if (lane == leader) atomicAdd(&h[digit], __popc(play));
-      } else if (in) {
-        atomicAdd(&h[digit], 1);
+    if constexpr (kWide) {
+      auto count = [&](int key, bool in) {  // the resident loop's body, below
+        const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
+        const unsigned digit = (v - base) >> shift;
+        in = in && key >= lo && v <= span && digit < (1u << d);
+        const unsigned play = __ballot_sync(kFull, in);
+        if (play == 0) return;
+        const int leader = __ffs(play) - 1;
+        const unsigned lead_digit = __shfl_sync(kFull, digit, leader);
+        if (__all_sync(kFull, !in || digit == lead_digit)) {
+          if (lane == leader) atomicAdd(&h[digit], __popc(play));
+        } else if (in) {
+          atomicAdd(&h[digit], 1);
+        }
+      };
+      // keys from device memory: four loads in flight before the votes
+      constexpr int kAhead = 4;
+      for (int i0 = 0; i0 < n; i0 += kAhead * kThreads) {  // uniform trip count
+        int ks[kAhead];
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a) {
+          const int i = i0 + a * kThreads + threadIdx.x;
+          ks[a] = i < n ? key_at<kWide>(keys, list ? list[i] : i) : 0;
+        }
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a) count(ks[a], i0 + a * kThreads + threadIdx.x < n);
+      }
+    } else {
+      // kept apart from the wide mode's loop: the lambda form of this loop
+      // ran ~4% slower in the resident mode on the H100
+      for (int i0 = 0; i0 < n; i0 += kThreads) {  // uniform trip count: whole warps in the votes
+        const int i = i0 + threadIdx.x;
+        bool in = i < n;
+        const int key = in ? (list ? keys[list[i]] : keys[i]) : 0;
+        const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
+        const unsigned digit = (v - base) >> shift;  // huge when v < base
+        in = in && key >= lo && v <= span && digit < (1u << d);
+        // a warp whose keys in play share one digit (a hot bin) adds them
+        // in one atomic; otherwise each key adds its own
+        const unsigned play = __ballot_sync(kFull, in);
+        if (play == 0) continue;
+        const int leader = __ffs(play) - 1;
+        const unsigned lead_digit = __shfl_sync(kFull, digit, leader);
+        if (__all_sync(kFull, !in || digit == lead_digit)) {
+          if (lane == leader) atomicAdd(&h[digit], __popc(play));
+        } else if (in) {
+          atomicAdd(&h[digit], 1);
+        }
       }
     }
     __syncthreads();
@@ -183,10 +260,10 @@ __device__ Found select_rank(const int* keys, const uint16_t* list, int n, int l
     if (list == nullptr && bits > 0 && sh.bin_count <= cap) {
       // gather the keys still in play; the later rounds walk only them
       for (int i = threadIdx.x; i < n; i += kThreads) {
-        const int key = keys[i];
+        const int key = key_at<kWide>(keys, i);
         const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
         if (key >= lo && v <= span && ((v - base) >> bits) == 0) {
-          spare[atomicAdd(&sh.n_cand, 1)] = static_cast<uint16_t>(i);
+          spare[atomicAdd(&sh.n_cand, 1)] = static_cast<ListT>(i);
         }
       }
       n = sh.bin_count;
@@ -203,31 +280,106 @@ __device__ __forceinline__ bool usable_at(const unsigned* ubits, int j) {
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Dynamic shared memory of one block: keys, usable bits, column list.
+// Step 3 of the wide mode (see the resident mode's in the kernel): the tie
+// cut and the compaction of the usable k-set in column order, as two walks
+// of the row by warps. Warp w owns columns [w*q, (w+1)*q), q a multiple of
+// 32, and steps through them 32 at a time: the first walk counts (ties,
+// usable below t, usable ties) per warp; the second places each column at
+// its warp's prefix plus its ballot rank among the step's lanes.
+__device__ void tie_cut_walks(const int* keys, const unsigned* ubits, int w, int t, int need,
+                              int* list, Shared& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = round_up((w + kWarps - 1) / kWarps, 32);
+  const int j0 = min(warp * q, w), j1 = min(j0 + q, w);
+  unsigned long long cnt = 0;  // ties | usable below t << 21 | usable ties << 42
+#pragma unroll 4
+  for (int j = j0 + lane; j < j1; j += 32) {
+    const int key = __ldg(keys + j);
+    const unsigned long long u = usable_at(ubits, j);
+    cnt += key == t ? 1ull + (u << (2 * kField)) : (key < t ? u << kField : 0ull);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(kFull, cnt, o);
+  if (lane == 0) sh.wtot_l[warp] = cnt;
+  __syncthreads();
+  unsigned long long pre = 0, tot = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    const unsigned long long c = sh.wtot_l[i];
+    if (i < warp) pre += c;
+    tot += c;
+  }
+  const int n_below_usable = static_cast<int>((tot >> kField) & kFieldMask);
+  int ties = static_cast<int>(pre & kFieldMask);
+  int pos_below = static_cast<int>((pre >> kField) & kFieldMask);
+  int pos_tie = n_below_usable + static_cast<int>((pre >> (2 * kField)) & kFieldMask);
+  const unsigned before = (1u << lane) - 1;  // the lanes below this one
+#pragma unroll 4
+  for (int jb = j0; jb < j1; jb += 32) {  // uniform trip count: whole warps in the votes
+    const int j = jb + lane;
+    const bool in = j < j1;
+    const int key = in ? __ldg(keys + j) : 0;
+    const bool u = in && usable_at(ubits, j);
+    const bool tie = in && key == t;
+    const unsigned b_tie = __ballot_sync(kFull, tie);
+    const int rank = ties + __popc(b_tie & before) + 1;  // among all ties, in column order
+    const bool take_tie = tie && rank <= need;
+    const bool below_u = in && key < t && u;
+    const unsigned b_below = __ballot_sync(kFull, below_u);
+    const unsigned b_take = __ballot_sync(kFull, take_tie && u);
+    if (below_u) list[pos_below + __popc(b_below & before)] = j;
+    const int at = pos_tie + __popc(b_take & before);
+    if (take_tie && u) list[at] = j;
+    if (take_tie && rank == need) sh.list_len = at + (u ? 1 : 0);
+    ties += __popc(b_tie);
+    pos_below += __popc(b_below);
+    pos_tie += __popc(b_take);
+  }
+}
+
+// Dynamic shared memory of one resident-mode block: keys, usable bits,
+// column list.
 __host__ __device__ inline size_t dyn_smem_bytes(int w, int k) {
   return static_cast<size_t>(round_up(w, 4)) * 4 + static_cast<size_t>((w + 31) / 32) * 4 +
          static_cast<size_t>(round_up(k < w ? k : w, 8)) * 2;
 }
 
+// Entries of the wide mode's int32 list: the k-set's usable columns (at
+// most min(k, w)), and before them the gather buffer.
+__host__ __device__ inline int wide_list_len(int w, int k) {
+  const int list = k < w ? k : w;
+  const int gather = kWideGather < w ? kWideGather : w;
+  return list > gather ? list : gather;
+}
+
+// Dynamic shared memory of one wide-mode block: usable bits, int32 list.
+__host__ __device__ inline size_t wide_smem_bytes(int w, int k) {
+  return static_cast<size_t>((w + 31) / 32) * 4 + static_cast<size_t>(wide_list_len(w, k)) * 4;
+}
+
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnorm,
                     const float* __restrict__ nbr_w, const uint8_t* __restrict__ usable,
                     const uint8_t* __restrict__ valid, int w, int k, int n_nbr,
                     float* __restrict__ dipcn, uint8_t* __restrict__ ok) {
+  using ListT = typename std::conditional<kWide, int, uint16_t>::type;
   extern __shared__ int4 dyn[];
-  int* keys = reinterpret_cast<int*>(dyn);                            // [round_up(w, 4)]
-  unsigned* ubits = reinterpret_cast<unsigned*>(keys + round_up(w, 4));  // [ceil(w / 32)]
-  uint16_t* list = reinterpret_cast<uint16_t*>(ubits + (w + 31) / 32);    // [min(k, w)]
+  // d2 >= 0, so its float32 bit pattern read as int32 keeps the order
+  const int* src = reinterpret_cast<const int*>(d2) + static_cast<size_t>(blockIdx.x) * w;
+  const int key_words = kWide ? 0 : round_up(w, 4);
+  const int* keys = kWide ? src : reinterpret_cast<const int*>(dyn);        // [w]
+  unsigned* ubits = reinterpret_cast<unsigned*>(dyn) + key_words;           // [ceil(w / 32)]
+  ListT* list = reinterpret_cast<ListT*>(ubits + (w + 31) / 32);            // see *_smem_bytes
   __shared__ Shared sh;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row = blockIdx.x;
 
   // ---- 1. load the row's keys and usable bits; body min / max / count ----
+  // (the wide mode leaves the keys in device memory)
   for (int b = tid; b < 2 * kBins; b += kThreads) (&sh.hist[0][0])[b] = 0;
   if (tid == 0) sh.list_len = 0;
-  // d2 >= 0, so its float32 bit pattern read as int32 keeps the order
-  const int* src = reinterpret_cast<const int*>(d2) + static_cast<size_t>(row) * w;
   int mn = INT_MAX, mx = INT_MIN;
   unsigned nb = 0;
   auto see = [&](int key) {
@@ -239,21 +391,24 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
   };
   if ((w & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
     const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* k4 = reinterpret_cast<int4*>(keys);
+    int4* k4 = reinterpret_cast<int4*>(dyn);
 #pragma unroll 4
     for (int q = tid; q < w / 4; q += kThreads) {
-      const int4 v = __ldcs(s4 + q);  // streamed: each row is read by one block, once
-      k4[q] = v;
+      // resident: streamed, each row is read by one block, once; wide: the
+      // later walks read the row again
+      const int4 v = kWide ? __ldg(s4 + q) : __ldcs(s4 + q);
+      if (!kWide) k4[q] = v;
       see(v.x);
       see(v.y);
       see(v.z);
       see(v.w);
     }
   } else {
+    int* ks = reinterpret_cast<int*>(dyn);
 #pragma unroll 4
     for (int j = tid; j < w; j += kThreads) {
-      const int v = __ldcs(src + j);
-      keys[j] = v;
+      const int v = kWide ? __ldg(src + j) : __ldcs(src + j);
+      if (!kWide) ks[j] = v;
       see(v);
     }
   }
@@ -279,16 +434,17 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
     n_body += sh.rcnt[i];
   }
   int parity = 0;
-  const int cap = min(k, w);  // the list's length, free until step 3
+  // the list's length, free until step 3 for the gather
+  const int cap = kWide ? wide_list_len(w, k) : min(k, w);
 
   // ---- 2. t = the k-th smallest key, and count(keys < t) -----------------
   Found f;
   if (k <= n_body) {
-    f = select_rank(keys, nullptr, w, body_lo,
+    f = select_rank<kWide, ListT>(keys, nullptr, w, body_lo,
                     static_cast<unsigned>(body_hi) - static_cast<unsigned>(body_lo), k, sh, parity,
                     list, cap);
   } else {  // k reaches past the body into the finfo.max (or larger) keys
-    f = select_rank(keys, nullptr, w, kBigKey,
+    f = select_rank<kWide, ListT>(keys, nullptr, w, kBigKey,
                     static_cast<unsigned>(INT_MAX) - static_cast<unsigned>(kBigKey), k - n_body,
                     sh, parity, list, cap);
     f.below += n_body;
@@ -297,27 +453,31 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
   const int need = k - f.below;  // ties at t to take, lowest columns first: 1 <= need
 
   // ---- 3. tie cut and compaction of the usable k-set, one scan ----------
-  const int chunk = ((w + kThreads - 1) / kThreads) | 1;  // odd: conflict-free chunk walks
-  const int c0 = min(tid * chunk, w), c1 = min(c0 + chunk, w);
-  unsigned long long cnt = 0;  // ties | usable below t << 21 | usable ties << 42
-  for (int j = c0; j < c1; ++j) {
-    const int key = keys[j];
-    const unsigned long long u = usable_at(ubits, j);
-    cnt += key == t ? 1ull + (u << (2 * kField)) : (key < t ? u << kField : 0ull);
-  }
-  unsigned long long tot;
-  const unsigned long long pre = block_exclusive_scan(cnt, sh.wtot_l, tot);
-  const int n_below_usable = static_cast<int>((tot >> kField) & kFieldMask);
-  int ties = static_cast<int>(pre & kFieldMask);
-  int pos_below = static_cast<int>((pre >> kField) & kFieldMask);
-  int pos_tie = n_below_usable + static_cast<int>((pre >> (2 * kField)) & kFieldMask);
-  for (int j = c0; j < c1; ++j) {
-    const int key = keys[j];
-    if (key < t) {
-      if (usable_at(ubits, j)) list[pos_below++] = static_cast<uint16_t>(j);
-    } else if (key == t && ++ties <= need) {
-      if (usable_at(ubits, j)) list[pos_tie++] = static_cast<uint16_t>(j);
-      if (ties == need) sh.list_len = pos_tie;
+  if constexpr (kWide) {
+    tie_cut_walks(keys, ubits, w, t, need, list, sh);
+  } else {
+    const int chunk = ((w + kThreads - 1) / kThreads) | 1;  // odd: conflict-free chunk walks
+    const int c0 = min(tid * chunk, w), c1 = min(c0 + chunk, w);
+    unsigned long long cnt = 0;  // ties | usable below t << 21 | usable ties << 42
+    for (int j = c0; j < c1; ++j) {
+      const int key = keys[j];
+      const unsigned long long u = usable_at(ubits, j);
+      cnt += key == t ? 1ull + (u << (2 * kField)) : (key < t ? u << kField : 0ull);
+    }
+    unsigned long long tot;
+    const unsigned long long pre = block_exclusive_scan(cnt, sh.wtot_l, tot);
+    const int n_below_usable = static_cast<int>((tot >> kField) & kFieldMask);
+    int ties = static_cast<int>(pre & kFieldMask);
+    int pos_below = static_cast<int>((pre >> kField) & kFieldMask);
+    int pos_tie = n_below_usable + static_cast<int>((pre >> (2 * kField)) & kFieldMask);
+    for (int j = c0; j < c1; ++j) {
+      const int key = keys[j];
+      if (key < t) {
+        if (usable_at(ubits, j)) list[pos_below++] = static_cast<uint16_t>(j);
+      } else if (key == t && ++ties <= need) {
+        if (usable_at(ubits, j)) list[pos_tie++] = static_cast<uint16_t>(j);
+        if (ties == need) sh.list_len = pos_tie;
+      }
     }
   }
   __syncthreads();
@@ -329,9 +489,9 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
   int t2 = t, need2 = 0;
   if (!take_all) {
     const int lo2 = n_body > 0 ? body_lo : kBigKey;  // the row's min key
-    const Found f2 = select_rank(keys, list, len, lo2,
+    const Found f2 = select_rank<kWide, ListT>(keys, list, len, lo2,
                                  static_cast<unsigned>(t) - static_cast<unsigned>(lo2), m_eff, sh,
-                                 parity, nullptr, 0);
+                                 parity, static_cast<ListT*>(nullptr), 0);
     t2 = f2.t;
     need2 = m_eff - f2.below;
   }
@@ -342,7 +502,7 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
   int ties2 = 0;
   if (!take_all) {
     int c = 0;
-    for (int i = l0; i < l1; ++i) c += keys[list[i]] == t2;
+    for (int i = l0; i < l1; ++i) c += key_at<kWide>(keys, list[i]) == t2;
     int unused;
     ties2 = block_exclusive_scan(c, sh.wtot, unused);
   }
@@ -351,7 +511,7 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
     const int col = list[i];
     bool take = take_all;
     if (!take) {
-      const int key = keys[col];
+      const int key = key_at<kWide>(keys, col);
       take = key < t2 || (key == t2 && ++ties2 <= need2);
     }
     if (take) s += nbr_w[col];
@@ -370,62 +530,48 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
   }
 }
 
-size_t static_smem_bytes() {
+template <bool kWide>
+cudaError_t static_smem_bytes(size_t* bytes) {
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, dipcn_select_kernel) != cudaSuccess) return 0;
-  return attr.sharedSizeBytes;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, dipcn_select_kernel<kWide>);
+  *bytes = attr.sharedSizeBytes;
+  return err;
 }
 
+template <bool kWide>
 cudaError_t configure(size_t smem) {
   static bool carveout_set = false;
   if (!carveout_set) {
     // shared memory before L1: the blocks per SM are bound by shared memory
     const cudaError_t err = cudaFuncSetAttribute(
-        dipcn_select_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        dipcn_select_kernel<kWide>, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     carveout_set = true;
   }
   if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(dipcn_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    return cudaFuncSetAttribute(dipcn_select_kernel<kWide>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem));
   }
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Widest row (in float32 columns) one block can hold on `device` for any k
-// (list of k = W columns); -1 on a CUDA error.
-int dipcn_select_max_cols(int device) {
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-      cudaSuccess) {
-    return -1;
-  }
-  const size_t stat = static_smem_bytes();
-  if (stat == 0) return -1;
-  const size_t avail = static_cast<size_t>(optin) - stat;
-  int w = static_cast<int>(avail / 6);  // ~6.1 bytes a column
-  while (w > 0 && dyn_smem_bytes(w, w) > avail) --w;
-  return w < 65536 ? w : 65536;  // list entries are uint16 columns
+size_t mode_smem_bytes(int mode, int w, int k) {
+  return mode == 0 ? dyn_smem_bytes(w, k) : wide_smem_bytes(w, k);
 }
 
-// Launch shape for rows of w columns at this k: threads, dynamic and static
-// shared memory per block, resident blocks per SM, registers a thread and
-// local (spill) bytes a thread. Returns the first cudaError_t.
-int dipcn_select_info(int w, int k, int* out) {
-  const size_t smem = dyn_smem_bytes(w, k);
-  cudaError_t err = configure(smem);
+template <bool kWide>
+int info(int w, int k, int* out) {
+  const size_t smem = mode_smem_bytes(kWide, w, k);
+  cudaError_t err = configure<kWide>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, dipcn_select_kernel);
+  err = cudaFuncGetAttributes(&attr, dipcn_select_kernel<kWide>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dipcn_select_kernel, kThreads,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dipcn_select_kernel<kWide>,
+                                                      kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = kThreads;
   out[1] = static_cast<int>(smem);
@@ -436,20 +582,68 @@ int dipcn_select_info(int w, int k, int* out) {
   return cudaSuccess;
 }
 
-// Launch on `stream` without synchronising; returns the first cudaError_t.
-int dipcn_select_launch(const void* d2, const void* rnorm, const void* nbr_w, const void* usable,
-                        const void* valid, int n, int w, int k, int n_nbr, void* dipcn, void* ok,
-                        void* stream) {
-  if (n <= 0) return cudaSuccess;
-  const size_t smem = dyn_smem_bytes(w, k);
-  const cudaError_t err = configure(smem);
+template <bool kWide>
+int launch(const void* d2, const void* rnorm, const void* nbr_w, const void* usable,
+           const void* valid, int n, int w, int k, int n_nbr, void* dipcn, void* ok,
+           cudaStream_t stream) {
+  const size_t smem = mode_smem_bytes(kWide, w, k);
+  const cudaError_t err = configure<kWide>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dipcn_select_kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  dipcn_select_kernel<kWide><<<n, kThreads, smem, stream>>>(
       static_cast<const float*>(d2), static_cast<const float*>(rnorm),
       static_cast<const float*>(nbr_w), static_cast<const uint8_t*>(usable),
       static_cast<const uint8_t*>(valid), w, k, n_nbr, static_cast<float*>(dipcn),
       static_cast<uint8_t*>(ok));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// The mode that takes rows of w columns at this k on `device`: 0 (the
+// row's keys in shared memory) whenever its shared memory fits and w <=
+// 65,536, else 1 (wide: the keys stay in device memory) where that fits,
+// else -1. Returns the first cudaError_t.
+int dipcn_select_mode(int device, int w, int k, int* mode) {
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  size_t stat_resident = 0, stat_wide = 0;
+  if ((err = static_smem_bytes<false>(&stat_resident)) != cudaSuccess) return err;
+  if ((err = static_smem_bytes<true>(&stat_wide)) != cudaSuccess) return err;
+  const size_t avail = static_cast<size_t>(optin);
+  if (w <= kResidentMaxCols && dyn_smem_bytes(w, k) + stat_resident <= avail) {
+    *mode = 0;
+  } else if (w < kWideMaxCols && wide_smem_bytes(w, k) + stat_wide <= avail) {
+    *mode = 1;
+  } else {
+    *mode = -1;
+  }
+  return cudaSuccess;
+}
+
+// Launch shape of `mode` for rows of w columns at this k: threads, dynamic
+// and static shared memory per block, resident blocks per SM, registers a
+// thread and local (spill) bytes a thread. Returns the first cudaError_t.
+int dipcn_select_info(int mode, int w, int k, int* out) {
+  if (mode != 0 && mode != 1) return cudaErrorInvalidValue;
+  return mode == 0 ? info<false>(w, k, out) : info<true>(w, k, out);
+}
+
+// Launch `mode` (from dipcn_select_mode) on `stream` without synchronising;
+// returns the first cudaError_t.
+int dipcn_select_launch(const void* d2, const void* rnorm, const void* nbr_w, const void* usable,
+                        const void* valid, int n, int w, int k, int n_nbr, int mode, void* dipcn,
+                        void* ok, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  if (w <= 0 || k < 1 || k > w || (mode == 0 && w > kResidentMaxCols) ||
+      (mode == 1 && w >= kWideMaxCols) || (mode != 0 && mode != 1)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return mode == 0 ? launch<false>(d2, rnorm, nbr_w, usable, valid, n, w, k, n_nbr, dipcn, ok, s)
+                   : launch<true>(d2, rnorm, nbr_w, usable, valid, n, w, k, n_nbr, dipcn, ok, s);
 }
 
 const char* dipcn_select_error_string(int err) {

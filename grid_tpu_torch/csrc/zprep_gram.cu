@@ -42,6 +42,29 @@
 //   full; each stage moves 64 KB from L2 for 3.1 MFLOP, and each consumer
 //   waits for its stage's wgmma before adding the stage sum, so the
 //   tensor cores idle while both warpgroups add or wait for data.
+//
+// Three modes share the split pass and the tile code; each has one C entry
+// point that returns its cudaError_t:
+//
+// - triangle (zprep_gram_launch): the split, then G [N, N] as above.
+// - split (zprep_split_launch): the split once per step of the row-panel
+//   branch, then the diagonal tiles only, of which the kernel stores the
+//   diagonal: the squared norms |P_i|^2 [N] from the same 3xTF32 product,
+//   bitwise equal to the diagonal the triangle mode writes. d2 = |a|^2 +
+//   |b|^2 - 2 G then cancels errors of one arithmetic, and two identical
+//   rows are at distance exactly 0, as in the resident branch.
+// - panel (zprep_gram_panel_launch): G[i0:i0+B, 0:N] [B, N] from the split
+//   halves, one block per (row tile of the panel) x (column tile), with no
+//   triangle mapping and no mirror store. The four row tiles of a 512-row
+//   panel that share a column tile are neighbours in the launch order, so
+//   the column tile is read from device memory about once per panel: each
+//   panel streams the 2*N*R_pad float32 halves once (512 MB at N=65,536,
+//   R=1024), against 3 * 2*B*N*R TF32 operations, 384 per byte at B=512
+//   (the card's TF32 ridge is ~148), so the panels stay compute-bound: a
+//   step's 128 panels do 2*N^2*R = 8.8 TFLOP of float32-accurate product,
+//   17.8 ms at the 495 TFLOP/s peak. Measured on an H100 80GB HBM3 at
+//   700 W (chip_smoke.py, phase 7): 0.56 ms per 512-row panel, 123 TFLOP/s
+//   as 2*B*N*R (370 of TF32 work), 72 ms per step.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -63,6 +86,17 @@ constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + slack to align to
 constexpr int kSplitThreads = 256;
 constexpr int kEncodeError = 10000;  // + CUresult of a failed cuTensorMapEncodeTiled
 
+enum Mode { kTriangle = 0, kPanel = 1, kDiagonal = 2 };
+
+// Where a block's tile goes: G [n, n] (kTriangle), the panel G[i0:i0+rows]
+// as [rows, n] (kPanel), or the diagonal [n] (kDiagonal).
+struct Out {
+  int mode;
+  int n;
+  int i0, rows;  // the panel's first row and its row count (kPanel)
+  float* g;
+};
+
 static_assert(kTile * (kTile + 1) * 4 <= kStages * kStageBytes, "epilogue tile must fit the ring");
 
 // nearest TF32 value, ties away from zero (cvt.rna.tf32.f32): the low 13
@@ -75,6 +109,7 @@ __global__ void __launch_bounds__(kSplitThreads)
 split_kernel(const float* __restrict__ z, const uint8_t* __restrict__ mask,
              const uint8_t* __restrict__ region, float zmax, int r, int r_pad,
              float* __restrict__ big, float* __restrict__ small) {
+  // a null mask or region keeps every entry: z is then prepared already
   const size_t in = static_cast<size_t>(blockIdx.x) * r;
   const size_t out = static_cast<size_t>(blockIdx.x) * r_pad;
   for (int c = threadIdx.x; c < r_pad; c += kSplitThreads) {
@@ -83,7 +118,7 @@ split_kernel(const float* __restrict__ z, const uint8_t* __restrict__ mask,
       // the plain version's where(mask, clamp(z), 0) * region, NaN included
       const float v = z[in + c];
       const float clipped = isnan(v) ? v : fminf(fmaxf(v, -zmax), zmax);
-      p = (mask[in + c] ? clipped : 0.f) * (region[c] ? 1.f : 0.f);
+      p = (!mask || mask[in + c] ? clipped : 0.f) * (!region || region[c] ? 1.f : 0.f);
     }
     const float b = tf32_round(p);
     big[out + c] = b;
@@ -174,7 +209,7 @@ __device__ __forceinline__ void fence_operands(float (&d)[64]) {
 // The two consumer warpgroups: the mainloop and the epilogue.
 __device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* smem_raw,
                                         uint64_t* full, uint64_t* empty, bool diag, int k_tiles,
-                                        int row0, int col0, int n, float* __restrict__ g) {
+                                        int row0, int col0, const Out out) {
   const int tid = threadIdx.x;
   const int wg = tid / 128;  // this warpgroup's rows: wg*64 .. wg*64+63 of the tile
   const int warp = (tid % 128) / 32, lane = tid % 32;
@@ -230,14 +265,27 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* sm
     tile[row * kLd + col] = acc[i];
   }
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  const int n = out.n;
+  float* __restrict__ g = out.g;
+  if (out.mode == kDiagonal) {
+    for (int r = tid; r < kTile; r += kConsumers) {
+      if (row0 + r < n) g[row0 + r] = tile[r * kLd + r];
+    }
+    return;
+  }
+  // the panel stores its rows i0 .. i0+rows-1 as rows 0 .. rows-1
+  const int row_end = out.mode == kPanel ? out.i0 + out.rows : n;
+  const int row_off = out.mode == kPanel ? out.i0 : 0;
   for (int idx = tid; idx < kTile * kTile; idx += kConsumers) {
     const int r = idx / kTile, c = idx % kTile;
     // a diagonal tile takes its lower half from its upper half: the two
     // cross terms meet in another order there
     const float v = diag && r > c ? tile[c * kLd + r] : tile[r * kLd + c];
-    if (row0 + r < n && col0 + c < n) g[static_cast<size_t>(row0 + r) * n + col0 + c] = v;
+    if (row0 + r < row_end && col0 + c < n) {
+      g[static_cast<size_t>(row0 + r - row_off) * n + col0 + c] = v;
+    }
   }
-  if (!diag) {  // G[j,i] = G[i,j]^T: the tile's columns become rows of G
+  if (out.mode == kTriangle && !diag) {  // G[j,i] = G[i,j]^T: the tile's columns become rows of G
     for (int idx = tid; idx < kTile * kTile; idx += kConsumers) {
       const int c = idx / kTile, r = idx % kTile;
       const float v = tile[r * kLd + c];
@@ -248,23 +296,33 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* sm
 
 __global__ void __launch_bounds__(kThreads, 1)
 gram_kernel(const __grid_constant__ CUtensorMap big_map,
-            const __grid_constant__ CUtensorMap small_map, int n, int k_tiles, int tiles,
-            float* __restrict__ g) {
+            const __grid_constant__ CUtensorMap small_map, int k_tiles, int tiles,
+            int panel_row_tiles, const Out out) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];   // TMA bytes of a stage have landed
   __shared__ __align__(8) uint64_t empty[kStages];  // every consumer warp is done with it
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023) & ~1023u;  // swizzle atoms are 1024-byte aligned
 
-  // upper-triangle tile (ti, tj), ti <= tj, in row-major order
-  int ti = 0, rem = blockIdx.x;
-  while (rem >= tiles - ti) {
-    rem -= tiles - ti;
-    ++ti;
+  int row0, col0;
+  if (out.mode == kTriangle) {
+    // upper-triangle tile (ti, tj), ti <= tj, in row-major order
+    int ti = 0, rem = blockIdx.x;
+    while (rem >= tiles - ti) {
+      rem -= tiles - ti;
+      ++ti;
+    }
+    row0 = ti * kTile;
+    col0 = (ti + rem) * kTile;
+  } else if (out.mode == kPanel) {
+    // the panel's row tiles of one column tile are neighbours in the launch
+    // order, so they share that column tile's loads through L2
+    row0 = out.i0 + (blockIdx.x % panel_row_tiles) * kTile;
+    col0 = (blockIdx.x / panel_row_tiles) * kTile;
+  } else {
+    row0 = col0 = blockIdx.x * kTile;
   }
-  const int tj = ti + rem;
-  const bool diag = ti == tj;
-  const int row0 = ti * kTile, col0 = tj * kTile;
+  const bool diag = row0 == col0;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -295,7 +353,7 @@ gram_kernel(const __grid_constant__ CUtensorMap big_map,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    consume(ring, raw, smem_raw, full, empty, diag, k_tiles, row0, col0, n, g);
+    consume(ring, raw, smem_raw, full, empty, diag, k_tiles, row0, col0, out);
   }
 }
 
@@ -348,36 +406,84 @@ long long upper_tiles(int n) {
   return t * (t + 1) / 2;
 }
 
+int split(const void* z, const void* mask, const void* region, float zmax, int n, int r,
+          int r_pad, float* big, float* small, cudaStream_t s) {
+  split_kernel<<<n, kSplitThreads, 0, s>>>(static_cast<const float*>(z),
+                                            static_cast<const uint8_t*>(mask),
+                                            static_cast<const uint8_t*>(region), zmax, r, r_pad,
+                                            big, small);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Gram kernel over `blocks` tiles of `n` rows of the split halves.
+int gram(float* big, float* small, int n, int r_pad, int blocks, int panel_row_tiles,
+         const Out& out, cudaStream_t s) {
+  CUtensorMap big_map, small_map;
+  int err;
+  if ((err = make_map(&big_map, big, n, r_pad)) != cudaSuccess) return err;
+  if ((err = make_map(&small_map, small, n, r_pad)) != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  gram_kernel<<<blocks, kThreads, kSmemBytes, s>>>(big_map, small_map, r_pad / kTileK,
+                                                   (n + kTile - 1) / kTile, panel_row_tiles, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int n, int r, int r_pad) {
+  return r_pad < r || r_pad <= 0 || r_pad % kTileK != 0 || upper_tiles(n) > INT_MAX;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch the split pass and the Gram kernel on `stream` without
-// synchronising. `split` is scratch of 2 * n * r_pad float32 (r_pad >= r, a
-// multiple of 32); returns a cudaError_t, or 10000 + the CUresult of a
+// synchronising. `split_buf` is scratch of 2 * n * r_pad float32 (r_pad >=
+// r, a multiple of 32); returns a cudaError_t, or 10000 + the CUresult of a
 // failed tensor-map encoding.
 int zprep_gram_launch(const void* z, const void* mask, const void* region, float zmax, int n,
-                      int r, int r_pad, void* split, void* g, void* stream) {
+                      int r, int r_pad, void* split_buf, void* g, void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (r_pad < r || r_pad <= 0 || r_pad % kTileK != 0 || upper_tiles(n) > INT_MAX)
-    return cudaErrorInvalidValue;
+  if (bad_shape(n, r, r_pad)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* big = static_cast<float*>(split);
+  float* big = static_cast<float*>(split_buf);
   float* small = big + static_cast<size_t>(n) * r_pad;
-  split_kernel<<<n, kSplitThreads, 0, s>>>(static_cast<const float*>(z),
-                                            static_cast<const uint8_t*>(mask),
-                                            static_cast<const uint8_t*>(region), zmax, r, r_pad,
-                                            big, small);
-  int err = static_cast<int>(cudaGetLastError());
+  int err = split(z, mask, region, zmax, n, r, r_pad, big, small, s);
   if (err != cudaSuccess) return err;
-  CUtensorMap big_map, small_map;
-  if ((err = make_map(&big_map, big, n, r_pad)) != cudaSuccess) return err;
-  if ((err = make_map(&small_map, small, n, r_pad)) != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  const Out out{kTriangle, n, 0, n, static_cast<float*>(g)};
+  return gram(big, small, n, r_pad, static_cast<int>(upper_tiles(n)), 1, out, s);
+}
+
+// The row-panel branch's pass once per step: the split into `split_buf`
+// (as above; a null mask or region keeps every entry), then the squared
+// norms of P's rows, norms [n], as the diagonal of the 3xTF32 Gram product.
+int zprep_split_launch(const void* z, const void* mask, const void* region, float zmax, int n,
+                       int r, int r_pad, void* split_buf, void* norms, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  if (bad_shape(n, r, r_pad)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* big = static_cast<float*>(split_buf);
+  float* small = big + static_cast<size_t>(n) * r_pad;
+  int err = split(z, mask, region, zmax, n, r, r_pad, big, small, s);
   if (err != cudaSuccess) return err;
-  gram_kernel<<<static_cast<int>(upper_tiles(n)), kThreads, kSmemBytes, s>>>(
-      big_map, small_map, n, r_pad / kTileK, (n + kTile - 1) / kTile, static_cast<float*>(g));
-  return static_cast<int>(cudaGetLastError());
+  const Out out{kDiagonal, n, 0, n, static_cast<float*>(norms)};
+  return gram(big, small, n, r_pad, (n + kTile - 1) / kTile, 1, out, s);
+}
+
+// One row panel, G[i0:i0+rows, 0:n] into g [rows, n], from the halves that
+// zprep_split_launch wrote into `split_buf`.
+int zprep_gram_panel_launch(void* split_buf, int n, int r_pad, int i0, int rows, void* g,
+                            void* stream) {
+  if (rows <= 0) return cudaSuccess;
+  if (bad_shape(n, 0, r_pad) || i0 < 0 || rows > n - i0) return cudaErrorInvalidValue;
+  float* big = static_cast<float*>(split_buf);
+  float* small = big + static_cast<size_t>(n) * r_pad;
+  const long long row_tiles = (rows + kTile - 1) / kTile;
+  const long long blocks = row_tiles * ((n + kTile - 1) / kTile);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const Out out{kPanel, n, i0, rows, static_cast<float*>(g)};
+  return gram(big, small, n, r_pad, static_cast<int>(blocks), static_cast<int>(row_tiles), out,
+              static_cast<cudaStream_t>(stream));
 }
 
 // The Gram kernel's launch shape for n rows, for reports: out = {tile,

@@ -1,5 +1,5 @@
 """The fused cohort step, normalize -> kNN -> dipCN -> phasing (twin of
-``grid_tpu/models/cohort.py``), on its d2-resident branch:
+``grid_tpu/models/cohort.py``):
 
     raw depth matrix [N, R] + read counts [N] (+ hap neighbors [2N, K])
         -> normalize (masked column stats: Triton kernel)       ~ O(N R)
@@ -9,6 +9,13 @@
         -> sorted k nearest neighbors (stable sort of each d2 row)
         -> threshold dipCN (CUDA kernel, one block per row)     ~ O(N^2)
         -> phasing (Jacobi sweeps)                              ~ O(iters N K)
+
+While the [N, N] distance matrix fits ``d2_budget_bytes`` it is resident;
+beyond that the step streams row panels of ``row_block`` rows: P's split
+once per step, then per panel one Gram panel [B, N] whose distances feed
+both the neighbor selection and dipCN. The JAX package computes each
+panel's Gram product twice there (``knn_squared`` and
+``dipcn_from_distances_panels``); the outputs are the same either way.
 
 De-selected regions are zeroed rather than dropped: a zero column adds
 nothing to any distance, so every shape stays fixed.
@@ -23,8 +30,16 @@ from typing import NamedTuple
 
 import torch
 
+from grid_tpu_torch.ops.gpu_kernels import zprep_split
 from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu
-from grid_tpu_torch.ops.knn import d2_matrix, region_filter_mask, sorted_smallest_k
+from grid_tpu_torch.ops.knn import (
+    d2_matrix,
+    d2_panels,
+    region_filter_mask,
+    smallest_k_two_stage,
+    sorted_smallest_k,
+    two_stage_width,
+)
 from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
 from grid_tpu_torch.ops.phasing import PhasingResult, compute_imputed, phase_haplotypes
 
@@ -42,11 +57,11 @@ class CohortParams(NamedTuple):
     min_nbr: int = 1  # phasing: per-hap neighbor floor
     n_iters: int = 100  # phasing sweeps
     quantize: bool = True  # mimic %.2f file round-trip of scales/z
-    row_block: int = 512  # kNN panel rows (panel branch, not ported yet)
+    row_block: int = 512  # kNN panel rows (panel branch)
     dipcn_lists: bool = False  # dipCN from the sorted lists (not ported yet)
     use_pallas: bool = False  # JAX package's Pallas kNN branch (not ported)
     # the [N, N] distance matrix stays resident while N*N*itemsize fits
-    # this budget; beyond it the JAX package streams row panels
+    # this budget; beyond it the step streams row panels (0: always panels)
     d2_budget_bytes: int = 2 << 30
 
 
@@ -77,23 +92,44 @@ def _q2(x):
     return torch.round(x * 100) / 100
 
 
-def _check_branch(params: CohortParams, n: int, itemsize: int) -> None:
+def _check_branch(params: CohortParams, n: int) -> None:
     """Raise for the branches of the JAX cohort step not ported yet."""
     if params.use_pallas:
         raise NotImplementedError(
             "use_pallas=True is the JAX package's Pallas kNN branch; the port runs its"
-            " hand kernels on the d2-resident branch instead"
+            " hand kernels on the d2-resident and row-panel branches instead"
         )
     if params.dipcn_lists:
         raise NotImplementedError("dipcn_lists=True is not ported yet (ROADMAP.md queue 1)")
-    if params.d2_budget_bytes <= 0 or n * n * itemsize > params.d2_budget_bytes:
-        raise NotImplementedError(
-            f"N={n}: the {n * n * itemsize}-byte distance matrix exceeds d2_budget_bytes="
-            f"{params.d2_budget_bytes}; the row-panel branch is not ported yet"
-            " (ROADMAP.md queue 1)"
-        )
     if params.num_neighbors > n - 1:
         raise ValueError(f"k={params.num_neighbors} must be <= N-1={n - 1}")
+
+
+def d2_resident(params: CohortParams, n: int, itemsize: int) -> bool:
+    """Whether the step keeps the [N, N] distance matrix resident (the JAX
+    step's rule): the budget is positive and N * N * itemsize fits it."""
+    return 0 < params.d2_budget_bytes and n * n * itemsize <= params.d2_budget_bytes
+
+
+def _panel_knn_dipcn(z, z_mask, region_used, sample_ok, w, reads_valid, params: CohortParams):
+    """kNN and threshold dipCN by row panels: P's split once, then per
+    panel one Gram panel and its distances, read by the stable selection
+    and by the dipCN kernel. Never holds an [N, N] tensor."""
+    n, k = z.shape[0], params.num_neighbors
+    split = zprep_split(z, z_mask, region_used, params.zmax)
+    col_block = two_stage_width(n, k, None)
+    sq, idx, dips, oks = [], [], [], []
+    for i0, d2 in d2_panels(split, params.row_block, sample_ok):
+        rows = slice(i0, i0 + d2.shape[0])
+        vals, nbr = smallest_k_two_stage(d2, k, col_block)
+        dip, ok = dipcn_from_distances_gpu(d2, w[rows], w, reads_valid, reads_valid[rows],
+                                           k=k, n_nbr=params.n_nbr)
+        del d2
+        sq.append(vals)
+        idx.append(nbr)
+        dips.append(dip)
+        oks.append(ok)
+    return torch.cat(sq), torch.cat(idx), torch.cat(dips), torch.cat(oks)
 
 
 def cohort_step(
@@ -121,7 +157,7 @@ def cohort_step(
             excluded from all statistics.
     """
     n = values.shape[0]
-    _check_branch(params, n, values.element_size())
+    _check_branch(params, n)
     n_rows = None
     if row_valid is not None:
         mask = mask & row_valid[:, None]
@@ -153,15 +189,22 @@ def cohort_step(
     sample_ok = norm.mask.any(dim=1)
     if row_valid is not None:
         sample_ok = sample_ok & row_valid
-    d2 = d2_matrix(z, norm.mask, region_used, params.zmax, row_valid=sample_ok)
-    sq_dists, nbr_idx = sorted_smallest_k(d2, params.num_neighbors)
-
-    # ---- step 6: threshold dipCN on the resident d2 --------------------
+    # ---- step 6: threshold dipCN on the same distances -----------------
+    # A sample without a read count still fills k-slots (the geometry is
+    # sample_ok) but adds nothing to a mean (usable is reads_valid).
     reads_valid = reads_valid & sample_ok
     w = reads / scales
-    dipcn, dipcn_valid = dipcn_from_distances_gpu(
-        d2, w, w, reads_valid, reads_valid, k=params.num_neighbors, n_nbr=params.n_nbr
-    )
+    if d2_resident(params, n, values.element_size()):
+        d2 = d2_matrix(z, norm.mask, region_used, params.zmax, row_valid=sample_ok)
+        sq_dists, nbr_idx = sorted_smallest_k(d2, params.num_neighbors)
+        dipcn, dipcn_valid = dipcn_from_distances_gpu(
+            d2, w, w, reads_valid, reads_valid, k=params.num_neighbors, n_nbr=params.n_nbr
+        )
+        del d2
+    else:
+        sq_dists, nbr_idx, dipcn, dipcn_valid = _panel_knn_dipcn(
+            z, norm.mask, region_used, sample_ok, w, reads_valid, params
+        )
 
     # ---- step 7: phasing ----------------------------------------------
     # Samples without a dipCN estimate never enter phasing; NaN marks them.

@@ -18,7 +18,9 @@
   second kernel is not launched.
 - :func:`zprep_gram` — CUDA C++ in ``csrc/zprep_gram.cu``. Replaces
   ``pallas_kernels.py:zprep_gram`` (``pallas_call`` at line 93). See the
-  source for its design.
+  source for its design. The row-panel branch runs the same kernel in two
+  more modes: :func:`zprep_split` once per step (P's TF32 halves and the
+  squared row norms), then :func:`zprep_gram_panel` once per row panel.
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch version
 for CPU tensors only; it counts its calls that reached the card in
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -184,9 +187,20 @@ masked_column_stats.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _prepare(z, mask, region_mask, zmax: float):
+    """P = where(mask, clip(z, ±zmax), 0) * region; a None mask or region
+    keeps every entry."""
+    p = z.clamp(-zmax, zmax)
+    if mask is not None:
+        p = torch.where(mask, p, 0)
+    if region_mask is not None:
+        p = p * region_mask[None, :].to(z.dtype)
+    return p
+
+
 def zprep_gram_plain(z, mask, region_mask, zmax: float):
     """Plain PyTorch version of :func:`zprep_gram`: prepare, then P @ P^T."""
-    p = torch.where(mask, z.clamp(-zmax, zmax), 0) * region_mask[None, :].to(z.dtype)
+    p = _prepare(z, mask, region_mask, zmax)
     return p @ p.T
 
 
@@ -202,6 +216,12 @@ def _zprep_lib():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.zprep_gram_launch.restype = ctypes.c_int
+    lib.zprep_split_launch.argtypes = lib.zprep_gram_launch.argtypes
+    lib.zprep_split_launch.restype = ctypes.c_int
+    lib.zprep_gram_panel_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.zprep_gram_panel_launch.restype = ctypes.c_int
     lib.zprep_gram_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.zprep_gram_info.restype = ctypes.c_int
     return lib
@@ -263,3 +283,91 @@ def zprep_gram(z, mask, region_mask, zmax: float):
 
 
 zprep_gram.launches = 0
+
+
+class SplitZ(NamedTuple):
+    """P = where(mask, clip(z, ±zmax), 0) * region, prepared once per step
+    for the Gram row panels (:func:`zprep_split`)."""
+
+    p: torch.Tensor  # [2, N, R_pad] TF32 halves of P on the card; P [N, R] itself on the CPU
+    norms: torch.Tensor  # [N] squared norms of P's rows
+
+
+def zprep_split_plain(z, mask, region_mask, zmax: float) -> SplitZ:
+    """Plain PyTorch version of :func:`zprep_split`: P itself and
+    sum(P * P) per row."""
+    p = _prepare(z, mask, region_mask, zmax)
+    return SplitZ(p, (p * p).sum(dim=1))
+
+
+def zprep_split(z, mask, region_mask, zmax: float) -> SplitZ:
+    """The once-per-step pass of the row-panel branch.
+
+    On the card: the split pass writes P's TF32 halves (2·N·R_pad float32,
+    512 MB at N=65,536, R=1024) and the Gram kernel's diagonal tiles give
+    the squared row norms as the diagonal of the same 3×TF32 product that
+    :func:`zprep_gram` and :func:`zprep_gram_panel` compute, bitwise equal
+    to the diagonal of :func:`zprep_gram`'s G. Needs compute capability 9.0.
+
+    Args:
+        z: [N, R] float32 z matrix.
+        mask: [N, R] bool validity, or None for z prepared already.
+        region_mask: [R] bool selected regions, or None for all.
+        zmax: clip bound (``math.inf`` for z prepared already).
+    """
+    tensors = [t for t in (z, mask, region_mask) if t is not None]
+    if not native.on_cuda(*tensors):
+        return zprep_split_plain(z, mask, region_mask, zmax)
+    n, r = z.shape
+    native.check(z, "z", torch.float32, (n, r))
+    if mask is not None:
+        native.check(mask, "mask", torch.bool, (n, r))
+    if region_mask is not None:
+        native.check(region_mask, "region_mask", torch.bool, (r,))
+    _require_hopper(z.device)
+    r_pad = max(1, -(-r // _GRAM_K_TILE)) * _GRAM_K_TILE
+    split = torch.empty((2, n, r_pad), dtype=torch.float32, device=z.device)
+    norms = torch.empty(n, dtype=torch.float32, device=z.device)
+    with torch.cuda.device(z.device):
+        err = _zprep_lib().zprep_split_launch(
+            z.data_ptr(), 0 if mask is None else mask.data_ptr(),
+            0 if region_mask is None else region_mask.data_ptr(), float(zmax), n, r, r_pad,
+            split.data_ptr(), norms.data_ptr(), native.stream_ptr(z.device))
+    native.check_launch("zprep_gram", err)
+    zprep_split.launches += 1
+    return SplitZ(split, norms)
+
+
+zprep_split.launches = 0
+
+
+def zprep_gram_panel_plain(split: SplitZ, i0: int, rows: int):
+    """Plain PyTorch version of :func:`zprep_gram_panel`:
+    ``P[i0:i0+rows] @ P.T``."""
+    p = split.p
+    return p[i0:i0 + rows] @ p.T
+
+
+def zprep_gram_panel(split: SplitZ, i0: int, rows: int):
+    """G[i0:i0+rows, :] = P[i0:i0+rows] P^T, one row panel [rows, N].
+
+    On the card the Gram kernel runs over (the panel's row tiles) × (all
+    column tiles) of the halves in ``split``, with the 3×TF32 arithmetic of
+    :func:`zprep_gram`, and stores the panel once (no triangle, no mirror).
+    """
+    if not native.on_cuda(split.p, split.norms):
+        return zprep_gram_panel_plain(split, i0, rows)
+    _, n, r_pad = split.p.shape
+    native.check(split.p, "split", torch.float32, (2, n, r_pad))
+    if not (0 <= i0 and 0 < rows <= n - i0):
+        raise ValueError(f"panel rows [{i0}, {i0 + rows}) outside [0, {n})")
+    g = torch.empty((rows, n), dtype=torch.float32, device=split.p.device)
+    with torch.cuda.device(g.device):
+        err = _zprep_lib().zprep_gram_panel_launch(split.p.data_ptr(), n, r_pad, i0, rows,
+                                                   g.data_ptr(), native.stream_ptr(g.device))
+    native.check_launch("zprep_gram", err)
+    zprep_gram_panel.launches += 1
+    return g
+
+
+zprep_gram_panel.launches = 0

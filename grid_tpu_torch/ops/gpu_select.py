@@ -6,6 +6,8 @@ Replaces ``grid_tpu/ops/pallas_select.py:dipcn_from_distances_pallas``
 for CPU tensors only. The kernel selects the same sets by another algorithm
 (a histogram radix select from each row's own key range, a one-scan tie
 cut, and a second select on the compacted usable k-set); see its source.
+It has two modes: the row's keys in shared memory, or, for rows wider than
+that holds (the row panels of the large-N branch), in device memory.
 """
 
 from __future__ import annotations
@@ -19,35 +21,55 @@ from grid_tpu_torch import native
 from grid_tpu_torch.ops.select import dipcn_from_distances
 
 
+MODES = ("resident", "wide")  # the kernel's modes, by the number it takes
+
+
 @functools.cache
 def _lib():
     lib = native.load("dipcn_select")
-    launch = lib.dipcn_select_launch
-    launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-    launch.restype = ctypes.c_int
-    max_cols = lib.dipcn_select_max_cols
-    max_cols.argtypes = [ctypes.c_int]
-    max_cols.restype = ctypes.c_int
-    lib.dipcn_select_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.dipcn_select_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+    lib.dipcn_select_launch.restype = ctypes.c_int
+    lib.dipcn_select_mode.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.dipcn_select_mode.restype = ctypes.c_int
+    lib.dipcn_select_info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.dipcn_select_info.restype = ctypes.c_int
-    return launch, max_cols
+    return lib
 
 
 _INFO_KEYS = ("threads", "smem_bytes", "static_smem_bytes", "blocks_per_sm", "registers",
               "spill_bytes")
 
 
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def dipcn_select_mode(w: int, k: int, device: torch.device) -> str | None:
+    """The mode the kernel takes rows of ``w`` columns in at this ``k`` on
+    the CUDA ``device``: "resident" (the row's keys in shared memory)
+    whenever that fits, else "wide" (the keys stay in device memory), or
+    None where neither fits."""
+    mode = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _lib().dipcn_select_mode(_device_index(device), w, k, ctypes.byref(mode))
+    native.check_launch("dipcn_select", err)
+    return MODES[mode.value] if mode.value >= 0 else None
+
+
 def dipcn_select_info(w: int, k: int, device: torch.device) -> dict:
     """The kernel's launch shape for rows of ``w`` columns at this ``k`` on
-    the CUDA ``device``: threads, dynamic and static shared memory per
-    block, resident blocks per SM, registers and local (spill) bytes per
-    thread."""
-    _lib()  # declares the argument types
-    info = native.load("dipcn_select").dipcn_select_info
+    the CUDA ``device``: its mode, threads, dynamic and static shared memory
+    per block, resident blocks per SM, registers and local (spill) bytes
+    per thread."""
+    mode = dipcn_select_mode(w, k, device)
+    if mode is None:
+        raise ValueError(f"no mode of dipcn_select takes rows of {w} columns at k={k}")
     out = (ctypes.c_int * len(_INFO_KEYS))()
     with torch.cuda.device(device):
-        native.check_launch("dipcn_select", info(w, k, out))
-    return dict(zip(_INFO_KEYS, out))
+        native.check_launch("dipcn_select",
+                            _lib().dipcn_select_info(MODES.index(mode), w, k, out))
+    return {"mode": mode, **dict(zip(_INFO_KEYS, out))}
 
 
 def dipcn_from_distances_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int):
@@ -55,11 +77,13 @@ def dipcn_from_distances_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k: int,
     :func:`grid_tpu_torch.ops.select.dipcn_from_distances` and as the Pallas
     kernel (float32 only on the card).
 
-    One thread block per row holds the row's keys, its usable bits and its
-    compacted usable k-set in shared memory, so the distance matrix crosses
-    device memory once. A row must fit in the block's shared memory (about
-    37,000 float32 columns on an H100 at any k, past the 23,170 the default
-    2 GB d2 budget admits); a wider one raises.
+    One thread block per row. Where the row's keys, its usable bits and its
+    compacted usable k-set fit in the block's shared memory (up to ~55,000
+    float32 columns at k=500 on an H100, ~37,000 at k = W), the distance
+    matrix crosses device memory once; wider rows (the 65,536-column panels
+    of the large-N branch, up to ~1.7 M columns at k=500) keep their keys
+    in device memory and re-read them (:func:`dipcn_select_mode`). Raises
+    where neither mode fits.
 
     Returns (dipcn [N] float32, out_valid [N] bool).
     """
@@ -75,17 +99,23 @@ def dipcn_from_distances_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k: int,
         raise ValueError(f"k={k} must be in [1, {w}]")
     if n_nbr < 1:
         raise ValueError(f"n_nbr={n_nbr} must be >= 1")
-    launch, max_cols = _lib()
-    device_index = d2.device.index if d2.device.index is not None else torch.cuda.current_device()
-    limit = max_cols(device_index)
-    if w > limit:
-        raise ValueError(f"d2 rows of {w} columns exceed the kernel's shared-memory limit of {limit}")
+    mode = dipcn_select_mode(w, k, d2.device)
+    if mode is None:
+        raise ValueError(f"d2 rows of {w} columns at k={k} fit no mode of the kernel")
+    return _launch(mode, d2, rnorm, nbr_w, col_usable, sample_valid, k, n_nbr)
+
+
+def _launch(mode: str, d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int):
+    """Launch the kernel in ``mode`` on checked inputs. The wrapper picks
+    the mode; the card tests also run the wide mode where both fit."""
+    n, w = d2.shape
     dipcn = torch.empty(n, dtype=torch.float32, device=d2.device)
     ok = torch.empty(n, dtype=torch.bool, device=d2.device)
     with torch.cuda.device(d2.device):
-        err = launch(d2.data_ptr(), rnorm.data_ptr(), nbr_w.data_ptr(), col_usable.data_ptr(),
-                     sample_valid.data_ptr(), n, w, k, n_nbr, dipcn.data_ptr(), ok.data_ptr(),
-                     native.stream_ptr(d2.device))
+        err = _lib().dipcn_select_launch(
+            d2.data_ptr(), rnorm.data_ptr(), nbr_w.data_ptr(), col_usable.data_ptr(),
+            sample_valid.data_ptr(), n, w, k, n_nbr, MODES.index(mode), dipcn.data_ptr(),
+            ok.data_ptr(), native.stream_ptr(d2.device))
     native.check_launch("dipcn_select", err)
     dipcn_from_distances_gpu.launches += 1
     return dipcn, ok

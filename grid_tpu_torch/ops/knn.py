@@ -1,17 +1,25 @@
-"""Depth-matched nearest neighbors on the resident distance matrix (twin of
-``grid_tpu/ops/knn.py``).
+"""Depth-matched nearest neighbors (twin of ``grid_tpu/ops/knn.py``).
 
 Squared Euclidean distances come from a Gram product,
 ``d2(a, b) = |a|^2 + |b|^2 - 2 a.b``; self is excluded and invalid rows are
-never selectable. Only the d2-resident form of the fused cohort step is
-ported here; the row-panel scan (``knn_squared``) waits on ROADMAP queue 1.
+never selectable. Two forms, as in the JAX package: the resident [N, N]
+matrix (:func:`d2_matrix`), and row panels [B, N] that never hold more
+than O(B N) (:func:`d2_panels`, :func:`knn_squared`), for cohorts whose
+[N, N] matrix exceeds the d2 budget.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from grid_tpu_torch.ops.gpu_kernels import zprep_gram
+from grid_tpu_torch.ops.gpu_kernels import SplitZ, zprep_gram, zprep_gram_panel, zprep_split
+
+# knn_squared's auto rule: two-stage selection in blocks of this many
+# columns once a row is wider than FLAT_MAX_COLS (ops/knn.py:139-142)
+AUTO_COL_BLOCK = 8192
+FLAT_MAX_COLS = 16384
 
 
 def region_filter_mask(sigma2ratios, frac_r: float = 1.0, sigma2_max: float = 1000.0,
@@ -87,3 +95,95 @@ def sorted_smallest_k(d2, k: int):
     """
     vals, idx = torch.sort(d2, dim=1, stable=True)
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
+
+
+def panel_d2(g, norms, i0: int, col_valid=None):
+    """The row panel's distances from its Gram rows: d2 = max(|a|^2 + |b|^2 -
+    2 G, 0) for G = ``g`` [B, N] (rows i0 .. i0+B-1 against all N), with
+    self (global column i0 + r) and the columns of invalid rows set to
+    finfo.max; the rows stay as they are. The arithmetic is
+    :func:`d2_matrix`'s, element by element."""
+    rows = g.shape[0]
+    d2 = (norms[i0:i0 + rows, None] + norms[None, :]).sub_(g, alpha=2).clamp_min_(0)
+    big = torch.finfo(d2.dtype).max
+    d2.diagonal(offset=i0).fill_(big)
+    if col_valid is not None:
+        d2.masked_fill_(~col_valid[None, :], big)
+    return d2
+
+
+def d2_panels(split: SplitZ, row_block: int, col_valid=None):
+    """Yield (i0, d2 [B, N]) for the row panels i0 = 0, B, 2B, ... of the
+    prepared rows in ``split`` (:func:`panel_d2` of each Gram panel; the last
+    panel has the rows that are left)."""
+    if row_block < 1:
+        raise ValueError(f"row_block={row_block} must be >= 1")
+    n = split.norms.shape[0]
+    for i0 in range(0, n, row_block):
+        rows = min(row_block, n - i0)
+        yield i0, panel_d2(zprep_gram_panel(split, i0, rows), split.norms, i0, col_valid)
+
+
+def two_stage_width(n: int, k: int, col_block: int | None) -> int | None:
+    """knn_squared's column-block rule: ``col_block`` or, when None, 8192
+    above 16,384 columns; None (flat selection) when blocks have nothing
+    to gain (``col_block >= n`` or ``col_block <= k``)."""
+    if col_block is None and n > FLAT_MAX_COLS:
+        col_block = AUTO_COL_BLOCK
+    if col_block is not None and (col_block >= n or col_block <= k):
+        return None
+    return col_block
+
+
+def smallest_k_two_stage(d2, k: int, col_block: int | None):
+    """:func:`sorted_smallest_k` of each row, in two stages when
+    ``col_block`` is set: a stable sort of each block of ``col_block``
+    columns (the tail block padded with finfo.max) keeps its k smallest,
+    then a stable sort of the candidates, laid out block by block, keeps k.
+    Stable sorts in block-major order keep the contract: ascending, ties
+    to the lower column.
+
+    Returns (vals [B, k], idx [B, k] int32)."""
+    if col_block is None:
+        return sorted_smallest_k(d2, k)
+    b, n = d2.shape
+    blocks = -(-n // col_block)
+    pad = blocks * col_block - n
+    if pad:
+        d2 = torch.nn.functional.pad(d2, (0, pad), value=torch.finfo(d2.dtype).max)
+    vals, idx = torch.sort(d2.view(b, blocks, col_block), dim=2, stable=True)
+    base = torch.arange(0, blocks * col_block, col_block, device=d2.device)
+    cand_d = vals[:, :, :k].reshape(b, blocks * k)
+    cand_i = (idx[:, :, :k] + base[None, :, None]).reshape(b, blocks * k)
+    vals, pos = torch.sort(cand_d, dim=1, stable=True)
+    return vals[:, :k].contiguous(), cand_i.gather(1, pos[:, :k]).to(torch.int32)
+
+
+def knn_squared(z, k: int, row_valid=None, row_block: int = 512, col_block: int | None = None):
+    """Exact k nearest neighbors by row panels of the Gram product; the
+    twin of ``grid_tpu.ops.knn.knn_squared``.
+
+    The JAX function's ``selector`` and ``recall_target`` are left out:
+    each of its selectors gives the same exact lists (recall 1.0), and the
+    port has one selection, the stable two-stage sort above.
+
+    Args:
+        z: [N, R] prepared z (clipped, zero-filled; :func:`prepare_z`).
+        k: neighbors per row (self excluded), <= N - 1.
+        row_valid: optional [N] bool; invalid rows are never returned as
+            neighbors, and their own results are junk.
+        row_block: rows per distance panel; a panel holds row_block * N
+            distances.
+        col_block: two-stage selection width (:func:`two_stage_width`).
+
+    Returns (sq_dists [N, k] ascending, idx [N, k] int32).
+    """
+    n = z.shape[0]
+    if k > n - 1:
+        raise ValueError(f"k={k} must be <= N-1={n - 1}")
+    col_block = two_stage_width(n, k, col_block)
+    split = zprep_split(z, None, None, math.inf)
+    col_valid = None if row_valid is None else row_valid.to(torch.bool)
+    found = [smallest_k_two_stage(d2, k, col_block)
+             for _, d2 in d2_panels(split, row_block, col_valid)]
+    return torch.cat([v for v, _ in found]), torch.cat([i for _, i in found])

@@ -1,5 +1,6 @@
 """Exact threshold selection and gather-free dipCN (twin of
-``grid_tpu/ops/select.py``, binary form only).
+``grid_tpu/ops/select.py``, binary form only), on the resident distance
+matrix or on its row panels.
 
 Non-negative floats bitcast to signed integers of the same width keep their
 order, so the k-th smallest distance of a row is found by bisection on the
@@ -13,7 +14,12 @@ bisection on the column index.
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel_plain, zprep_split_plain
+from grid_tpu_torch.ops.knn import panel_d2
 
 # order-preserving integer key type per float dtype (values are >= 0, so the
 # raw bit pattern as a SIGNED int of the same width is monotone)
@@ -121,3 +127,49 @@ def dipcn_from_distances(d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_n
     nbr_mean = tot / m_eff.clamp_min(1)
     dipcn = rnorm.to(d2.dtype) / nbr_mean
     return dipcn, sample_valid & (m_eff > 0)
+
+
+def dipcn_from_distances_panels(zp, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int,
+                                row_block: int = 512, row_valid=None):
+    """:func:`dipcn_from_distances` without the resident [N, N] matrix: one
+    [row_block, N] distance panel at a time, from a plain Gram product of
+    the prepared rows, each run through the resident core. A panel holds
+    its rows' whole distance vectors, so every row's sets are exact. The
+    plain twin of ``grid_tpu.ops.select.dipcn_from_distances_panels`` (its
+    binary form; the cohort step's panel branch runs the hand kernels on
+    the same panels).
+
+    Args:
+        zp: [N, R] prepared z (``ops.knn.prepare_z``).
+        rnorm: [N] reads_i / scale_i. The multi-locus form ([N, L]) is not
+            ported yet and raises NotImplementedError.
+        nbr_w: [N] neighbor contribution per column.
+        col_usable: [N] bool — column may be averaged.
+        sample_valid: [N] bool — output validity per row.
+        k / n_nbr: neighbor-list length and averaging depth.
+        row_block: panel height.
+        row_valid: [N] bool — rows that exist in the distance geometry
+            (their columns are not set to finfo.max); defaults to
+            sample_valid. A sample without a read count is row_valid but
+            not col_usable: it can fill a k-slot but adds nothing to the
+            mean, so the two must not be collapsed.
+
+    Returns (dipcn [N], out_valid [N]).
+    """
+    if rnorm.dim() == 2:
+        raise NotImplementedError("the multi-locus form (2-D rnorm) is not ported yet "
+                                  "(ROADMAP.md queue 1)")
+    if row_block < 1:
+        raise ValueError(f"row_block={row_block} must be >= 1")
+    n = zp.shape[0]
+    geom = sample_valid if row_valid is None else row_valid
+    split = zprep_split_plain(zp, None, None, math.inf)
+    dips, oks = [], []
+    for i0 in range(0, n, row_block):
+        rows = min(row_block, n - i0)
+        d2 = panel_d2(zprep_gram_panel_plain(split, i0, rows), split.norms, i0, geom.to(torch.bool))
+        dip, ok = dipcn_from_distances(d2, rnorm[i0:i0 + rows], nbr_w, col_usable,
+                                       sample_valid[i0:i0 + rows], k=k, n_nbr=n_nbr)
+        dips.append(dip)
+        oks.append(ok)
+    return torch.cat(dips), torch.cat(oks)

@@ -161,9 +161,8 @@ def test_params_match_grid_tpu_defaults():
 @pytest.mark.parametrize("change,exc", [
     (dict(use_pallas=True), NotImplementedError),
     (dict(dipcn_lists=True), NotImplementedError),
-    (dict(d2_budget_bytes=0), NotImplementedError),
-    (dict(d2_budget_bytes=N * N * 8 - 1), NotImplementedError),
     (dict(num_neighbors=N), ValueError),
+    (dict(num_neighbors=N, d2_budget_bytes=0), ValueError),
 ])
 def test_unported_branches_raise(cohort, change, exc):
     values, mask, reads, reads_valid, hi, hw, hv = cohort

@@ -11,7 +11,10 @@ Bounds as in chip_smoke.py: counts and ``ok`` exact; column sums at rtol
 largest entry (another summation
 order over R), exactly symmetric, and at most twice the plain version's
 error against a float64 Gram; dipCN at rtol 1e-6 (the same take-set
-summed in another order).
+summed in another order). The Gram row panels and their norms are held to
+the same bounds; the norms must equal the diagonal of the kernel's own G
+bitwise. The wide dipCN mode is held to the plain version as the resident
+mode is, past column 65,535 too.
 """
 
 import numpy as np
@@ -25,9 +28,13 @@ from grid_tpu_torch.ops.gpu_kernels import (
     masked_column_stats,
     masked_column_stats_plain,
     zprep_gram,
+    zprep_gram_panel,
+    zprep_gram_panel_plain,
     zprep_gram_plain,
+    zprep_split,
+    zprep_split_plain,
 )
-from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu
+from grid_tpu_torch.ops.gpu_select import _launch, dipcn_from_distances_gpu, dipcn_select_mode
 from grid_tpu_torch.ops.knn import d2_matrix
 from grid_tpu_torch.ops.select import dipcn_from_distances
 from torch_parity import assert_close_to_max, dipcn_sets_differ, neighbor_rows_differing
@@ -146,6 +153,9 @@ def test_dipcn_kernel_on_ties(cuda, case):
     torch.testing.assert_close(got[gok], want[gok], rtol=1e-6, atol=0)
     if case == "no-usable-row":
         assert not gok[0]
+    # the wide mode lists and sums the same columns in the same order
+    wide, wide_ok = _launch("wide", *args, k, n_nbr)
+    assert torch.equal(wide_ok, gok) and torch.equal(wide, got)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -183,3 +193,147 @@ def test_cohort_step_on_card_matches_plain_route(cuda):
     same = got.dipcn_valid & ~dipcn_sets_differ(got.nbr_idx, want.nbr_idx,
                                                 reads_valid & want.z_mask.any(axis=1), 30)
     np.testing.assert_allclose(got.dipcn[same], want.dipcn[same], rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,r", [(300, 257), (515, 130), (1000, 70)])
+def test_zprep_gram_panel_kernel(cuda, n, r):
+    rng = np.random.default_rng(n)
+    z = torch.tensor(rng.normal(size=(n, r)) * 3, dtype=torch.float32, device=cuda)
+    mask = torch.tensor(rng.random((n, r)) > 0.1, device=cuda)
+    region = torch.tensor(rng.random(r) > 0.2, device=cuda)
+    before = zprep_split.launches, zprep_gram_panel.launches
+    split = zprep_split(z, mask, region, 2.0)
+    plain = zprep_split_plain(z, mask, region, 2.0)
+    # the norms are the diagonal of the same 3xTF32 product as G's
+    assert torch.equal(split.norms, torch.diagonal(zprep_gram(z, mask, region, 2.0)))
+    assert_close_to_max(split.norms.cpu(), plain.norms.cpu(), 1e-5)
+    p64 = torch.where(mask, z.double().clamp(-2.0, 2.0), 0) * region[None, :].double()
+    # aligned, unaligned and ragged-last panels, and a panel of one row
+    panels = [(0, min(512, n)), (128, 100), (77, 200), (n - n % 97 - 1, n % 97 + 1), (n - 1, 1)]
+    for i0, rows in panels:
+        got = zprep_gram_panel(split, i0, rows)
+        want = zprep_gram_panel_plain(plain, i0, rows)
+        assert got.shape == (rows, n)
+        assert_close_to_max(got.cpu(), want.cpu(), 1e-5)
+        g64 = p64[i0:i0 + rows] @ p64.T
+        err, plain_err = ((g.double() - g64).abs().max().item() for g in (got, want))
+        spacing = np.spacing(np.float32(g64.abs().max().item()))
+        assert err <= 2 * plain_err + spacing, (i0, rows, err, plain_err)
+    assert (zprep_split.launches, zprep_gram_panel.launches) == (before[0] + 1,
+                                                                 before[1] + len(panels))
+    with pytest.raises(ValueError):
+        zprep_gram_panel(split, n - 3, 4)
+    # z prepared already: no mask, no region, no clip
+    p = plain.p.contiguous()
+    bare = zprep_split(p, None, None, float("inf"))
+    assert_close_to_max(zprep_gram_panel(bare, 5, 50).cpu(), (p[5:55] @ p.T).cpu(), 1e-5)
+
+
+# case: (n, w, k, n_nbr)
+_WIDE_CASES = {
+    "w40000-ties": (48, 40000, 500, 300),
+    "w40000-k-equals-w": (16, 40000, 40000, 300),
+    "w65536-ties": (64, 65536, 500, 300),
+    "w65600-past-uint16": (40, 65600, 500, 300),
+    "w65600-k-beyond-body": (8, 65600, 50000, 70000),
+    "w65536-no-usable-row": (16, 65536, 500, 300),
+    "w131072": (8, 131072, 500, 300),
+}
+
+
+@pytest.mark.parametrize("case", list(_WIDE_CASES))
+def test_dipcn_kernel_wide_rows(cuda, case):
+    n, w, k, n_nbr = _WIDE_CASES[case]
+    rng = np.random.default_rng(w + k)
+    big = torch.finfo(torch.float32).max
+    # quantized distances: each value repeats ~w/400 times across the row,
+    # so the k-th distance sits in a tie group that spans the whole row
+    d2 = torch.tensor(rng.integers(0, 400, (n, w)) * 0.25, dtype=torch.float32, device=cuda)
+    # self / invalid-row columns; past the body (keys < finfo.max) when k is
+    d2[:, rng.random(w) < (0.3 if "beyond-body" in case else 0.05)] = big
+    usable = torch.tensor(rng.random(w) > 0.2, device=cuda)
+    if w > 65536:  # the nearest columns and a tie group lie past column 65,535
+        d2[:, 65540:] = 0.0
+        d2[:, 65536:65540] = 0.25
+    if case == "w65536-no-usable-row":
+        usable[: w // 2] = False
+        d2[0, usable] += 200.0  # row 0's k nearest are all unusable
+    rnorm = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32, device=cuda)
+    nbr_w = torch.tensor(rng.uniform(0.5, 2.0, w), dtype=torch.float32, device=cuda)
+    valid = rnorm > 0.6
+    args = (d2, rnorm, nbr_w, usable, valid)
+    mode = dipcn_select_mode(w, k, cuda)
+    assert mode == ("resident" if case == "w40000-ties" else "wide")
+    before = dipcn_from_distances_gpu.launches
+    got, gok = dipcn_from_distances_gpu(*args, k=k, n_nbr=n_nbr)
+    assert dipcn_from_distances_gpu.launches == before + 1
+    want, wok = dipcn_from_distances(*args, k=k, n_nbr=n_nbr)
+    assert torch.equal(gok, wok)
+    torch.testing.assert_close(got[gok], want[gok], rtol=1e-6, atol=0)
+    if case == "w65536-no-usable-row":
+        assert not gok[0]
+    if mode == "resident":  # the wide mode lists and sums the same columns in the same order
+        wide, wide_ok = _launch("wide", *args, k, n_nbr)
+        assert torch.equal(wide_ok, gok) and torch.equal(wide, got)
+
+
+def test_dipcn_kernel_refuses_rows_no_mode_takes(cuda):
+    w = 65600  # at k = W the int32 list alone needs 262,400 bytes
+    assert dipcn_select_mode(w, w, cuda) is None
+    d2 = torch.zeros((2, w), device=cuda)
+    v = torch.ones(w, device=cuda)
+    with pytest.raises(ValueError):
+        dipcn_from_distances_gpu(d2, v[:2], v, v > 0, v[:2] > 0, k=w, n_nbr=3)
+
+
+@pytest.mark.parametrize("k", [500, 4000])
+def test_dipcn_mode_switch_at_the_shared_memory_edge(cuda, k):
+    lo, hi = k, 65536  # the widest resident row lies in [lo, hi]
+    assert dipcn_select_mode(lo, k, cuda) == "resident"
+    assert dipcn_select_mode(hi, k, cuda) == "wide"
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if dipcn_select_mode(mid, k, cuda) == "resident" else (lo, mid)
+    rng = np.random.default_rng(k)
+    for w, mode in ((lo, "resident"), (hi, "wide")):
+        assert dipcn_select_mode(w, k, cuda) == mode
+        d2 = torch.tensor(rng.integers(0, 300, (24, w)) * 0.5, dtype=torch.float32, device=cuda)
+        usable = torch.tensor(rng.random(w) > 0.3, device=cuda)
+        nbr_w = torch.tensor(rng.uniform(0.5, 2.0, w), dtype=torch.float32, device=cuda)
+        rnorm = torch.ones(24, device=cuda)
+        args = (d2, rnorm, nbr_w, usable, rnorm > 0)
+        got, gok = dipcn_from_distances_gpu(*args, k=k, n_nbr=300)
+        want, wok = dipcn_from_distances(*args, k=k, n_nbr=300)
+        assert torch.equal(gok, wok)
+        torch.testing.assert_close(got[gok], want[gok], rtol=1e-6, atol=0)
+        if mode == "resident":
+            wide, wide_ok = _launch("wide", *args, k, 300)
+            assert torch.equal(wide_ok, gok) and torch.equal(wide, got)
+
+
+def test_cohort_panel_branch_on_card_matches_plain_route_and_resident(cuda):
+    rng = np.random.default_rng(1)
+    n, r = 700, 160
+    values = rng.uniform(20, 40, (n, r)) * rng.normal(1, 0.1, (n, r)).clip(0.5, None)
+    mask = rng.random((n, r)) > 0.02
+    reads = rng.integers(500, 3000, n).astype(np.float64)
+    reads_valid = rng.random(n) > 0.05
+    ring = [[((h + 2) % (2 * n), 1.0), ((h - 2) % (2 * n), 0.5)] for h in range(2 * n)]
+    args = (values, mask, reads, reads_valid, *pad_hap_neighbors(ring, 2))
+    panel = CohortParams(num_neighbors=60, n_nbr=30, n_iters=10, quantize=False, row_block=256,
+                         d2_budget_bytes=0)
+    before = zprep_split.launches, zprep_gram_panel.launches, dipcn_from_distances_gpu.launches
+    got = outputs_to_numpy(cohort_step(*inputs_to_torch(*args, cuda, torch.float32), panel))
+    assert (zprep_split.launches - before[0], zprep_gram_panel.launches - before[1],
+            dipcn_from_distances_gpu.launches - before[2]) == (1, 3, 3)
+    resident = panel._replace(d2_budget_bytes=2 << 30)
+    for want_params, device in ((panel, "cpu"), (resident, cuda)):
+        want = outputs_to_numpy(cohort_step(*inputs_to_torch(*args, device, torch.float32),
+                                            want_params))
+        assert_close_to_max(got.z, want.z, 1e-5)
+        neighbor_rows_differing(got.nbr_idx, got.nbr_sq_dists, want.nbr_idx, want.nbr_sq_dists,
+                                tol=1e-5 * want.nbr_sq_dists[:, -1])
+        np.testing.assert_array_equal(got.dipcn_valid, want.dipcn_valid)
+        usable = reads_valid & want.z_mask.any(axis=1)
+        same = got.dipcn_valid & ~dipcn_sets_differ(got.nbr_idx, want.nbr_idx, usable, 30)
+        np.testing.assert_allclose(got.dipcn[same], want.dipcn[same], rtol=1e-5)
