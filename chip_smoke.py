@@ -52,17 +52,48 @@ before the last line):
              cohort (the panel run with d2_budget_bytes lowered): they must
              agree, and both step times are printed.
 
+9. pipeline — the fused WGS pipeline from files, at the full width of the 1000
+             Genomes cohort: a synthetic cohort on disk in a temporary
+             directory (2504 samples x 2049 bins of 1 kb, 2% of the lines
+             missing, read counts, IBS neighbors; ``make_synthetic_cohort``),
+             then ``run_wgs_pipeline`` on a config dict that names no
+             platform (k=500, n_nbr=300, 10 haplotype neighbors, 100
+             sweeps, ``device: {fused: true}``). Checks that the call
+             launched the column statistics twice and the Gram and dipCN
+             kernels once, that the four artifacts and step_timings.json
+             exist, and prints the four spans (stage, device, phase, write),
+             a second card run's, and the host's share of fused_steps_4_7.
+             The fused steps quantize z to 0.01 (``quantize=True``), and two
+             float32 routes to z put a cell that lies on a rounding boundary
+             one quantum apart, so the card's files cannot be held to a CPU
+             run's under phase 4's rule. Instead: (a) step 4 on its own terms
+             against a third run with ``device.platform: cpu`` (float64):
+             the same samples and NA cells, every z and scale within one
+             quantum, and the cells that differ counted and bounded (at most
+             1 in 500 z cells, 1 in 100 scales); (b) steps 5-7 rebuilt on
+             the CPU by the plain route FROM THE CARD'S OWN written z, scales
+             and dipCN: each row of the card's neighbor file, with its
+             columns' distances taken from the rebuilt d2, must equal the
+             rebuilt list except ties within 1e-5 of the row's k-th distance,
+             its written distances must be those at %.2f, dipCN must agree
+             within rtol 1e-5 on rows whose input sets agree, and the haploid
+             table within one quantum of 100 plain sweeps over the card's
+             dipCN. A shuffled row, a wrong column or a wrong distance fails.
+
 The last three lines are the kernels' JSON object (the panel-mode numbers
-at N=65,536; each entry's "slice_2504" holds phase 5's), the card's name
-and power limit, and {"ok": true, "device": {...}}.
+at N=65,536; each entry's "slice_2504" holds phase 5's and "pipeline_2504"
+the launches of phase 9's pipeline call), the card's name and power limit,
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -85,6 +116,11 @@ TF32_FLOP_PER_S = 495e12  # dense TF32 tensor-core peak, the same sheet
 # two float32 Gram routes may swap neighbors this close (of the row's k-th
 # distance): see the slice phase
 TIE_RTOL = 1e-5
+# phase 9: the 1000 Genomes cohort on disk, 43 window bins + 2 x 1003 flank
+# bins = 2049 bins of 1 kb, and what one pipeline call must launch
+PIPELINE_N, PIPELINE_FLANK, PIPELINE_SEED = 2504, 1003, 2504
+PIPELINE_LAUNCHES = {"masked_column_stats": 2, "zprep_gram": 1, "dipcn_from_distances_gpu": 1}
+QUANTUM = 0.01001  # one %.2f step, with room for the last digit of a float
 
 
 def check(ok, msg: str) -> None:
@@ -468,6 +504,186 @@ def branch_phase(dev, card: str) -> None:
           f"{', '.join(f'{x:.1f}' for x in t)}); {card}", flush=True)
     del inputs
     torch.cuda.empty_cache()
+
+
+def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = PIPELINE_FLANK,
+                 k: int = K, n_nbr: int = N_NBR) -> dict:
+    """Phase 9: the fused WGS pipeline from files (see the module docstring).
+    Returns the kernels' launches during the pipeline call. main() passes no
+    size: the size arguments let the phase be rehearsed small."""
+    from grid_tpu_torch.io.formats import (
+        read_counts_tsv, read_dipcn, read_neighbors, read_normalized_data,
+    )
+    from grid_tpu_torch.io.hap_neighbors import load_ibs_neighbors, pad_hap_neighbors
+    from grid_tpu_torch.ops.knn import d2_matrix, region_filter_mask, sorted_smallest_k
+    from grid_tpu_torch.ops.phasing import compute_imputed, phase_haplotypes
+    from grid_tpu_torch.ops.select import dipcn_from_distances
+    from grid_tpu_torch.pipeline import run_wgs_pipeline
+    from grid_tpu_torch.synth import make_synthetic_cohort
+    from torch_parity import dipcn_sets_differ, neighbor_rows_differing
+
+    names = {"normalized": "mosdepth_results_normalized.tsv.gz",
+             "neighbors": f"neighbor_coverage.zMax{ZMAX:.1f}.tsv.gz",
+             "dipcn": "diploid_genotypes.tsv", "haploid": "haploid_genotypes.tsv"}
+    spans = ("fused.stage", "fused.device", "fused.phase", "fused.write")
+
+    with tempfile.TemporaryDirectory(prefix="grid_tpu_torch_smoke_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        cohort = make_synthetic_cohort(tmp / "cohort", n_samples=n, flank_bins=flank,
+                                       missing_frac=0.02, seed=PIPELINE_SEED)
+        base = cohort["config"]
+        base["mosdepth"]["neighbors"]["num_neighbors"] = k
+        base["compute_diploid_genotypes"]["n_nbr"] = n_nbr
+        base["compute_haploid_genotypes"].update(max_neighbors=10, n_iters=N_ITERS)
+        n_bins = (base["end_bp"] - base["start_bp"]) // base["mosdepth"]["bin_size"]
+        print(f"[pipeline] cohort on disk: {n} samples x {n_bins} bins of 1 kb, made in "
+              f"{time.perf_counter() - t0:.1f} s (host clock)", flush=True)
+
+        def run(label: str, device: dict):
+            cfg = copy.deepcopy(base)
+            out = tmp / label
+            out.mkdir()
+            cfg["output_dir"] = str(out)
+            cfg["device"] = device
+            (out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
+            for fn in wrappers.values():
+                fn.launches = 0
+            timings = run_wgs_pipeline(config=cfg)
+            launches = {name: fn.launches for name, fn in wrappers.items()}
+            for name in (*names.values(), "step_timings.json"):
+                check((out / name).exists(), f"pipeline {label}: {name} was not written")
+            check(json.loads((out / "step_timings.json").read_text()) == timings,
+                  f"pipeline {label}: step_timings.json differs from the returned timings")
+            check("fused_steps_4_7" in timings and all(s in timings for s in spans),
+                  f"pipeline {label}: timings {sorted(timings)}")
+            return out, timings, launches
+
+        def report(label: str, t: dict) -> None:
+            total = t["fused_steps_4_7"]
+            host = 1 - (t["fused.device"] + t["fused.phase"]) / total
+            print(f"[pipeline] {label}: fused.stage {t['fused.stage']:.3f} s, fused.device "
+                  f"{t['fused.device']:.3f} s, fused.phase {t['fused.phase']:.3f} s, fused.write "
+                  f"{t['fused.write']:.3f} s, their sum {sum(t[s] for s in spans):.3f} s of "
+                  f"fused_steps_4_7 {total:.3f} s (host clock); host share of fused_steps_4_7 "
+                  f"(all but device and phase) {100 * host:.2f}%; {card}", flush=True)
+
+        # ---- the card runs: no platform named ----------------------------
+        card_out, card_t, launches = run("card", {"fused": True})
+        print(f"[pipeline] run_wgs_pipeline with no platform named: kernel launches {launches}",
+              flush=True)
+        check(launches == PIPELINE_LAUNCHES, f"pipeline launches {launches} != {PIPELINE_LAUNCHES}")
+        report("card run 1 (its fused.device holds the kernels' first launches at these shapes)",
+               card_t)
+        _, again_t, again = run("card2", {"fused": True})
+        check(again == PIPELINE_LAUNCHES, f"pipeline launches, second run: {again}")
+        report("card run 2", again_t)
+
+        # ---- (a) step 4 against a CPU run, on its own terms --------------
+        cpu_out, cpu_t, cpu_launches = run("cpu", {"fused": True, "platform": "cpu"})
+        check(not any(cpu_launches.values()), "the CPU run launched a kernel")
+        report("CPU run (device.platform: cpu, float64, the plain versions)", cpu_t)
+        ids, ratios, z_card, scales = read_normalized_data(card_out / names["normalized"])
+        cpu_ids, cpu_ratios, z_cpu, cpu_scales = read_normalized_data(cpu_out / names["normalized"])
+        check(ids == cpu_ids and len(ids) == n, "pipeline step 4: sample IDs differ")
+        check(z_card.shape == z_cpu.shape, f"pipeline step 4: shapes {z_card.shape}, {z_cpu.shape}")
+        check(np.array_equal(np.isnan(z_card), np.isnan(z_cpu)), "pipeline step 4: NA cells differ")
+        check(np.allclose(ratios, cpu_ratios, rtol=1e-4, atol=2e-3, equal_nan=True),
+              "pipeline step 4: variance ratios differ")
+        z_diff = np.nan_to_num(np.abs(z_card - z_cpu))
+        s_card = np.array([scales[s] for s in ids])
+        s_diff = np.abs(s_card - np.array([cpu_scales[s] for s in ids]))
+        check(z_diff.max() <= QUANTUM, f"pipeline step 4: z differs by {z_diff.max()}")
+        check(s_diff.max() <= QUANTUM, f"pipeline step 4: a scale differs by {s_diff.max()}")
+        cells = int((~np.isnan(z_card)).sum())
+        z_apart, s_apart = int((z_diff > 1e-9).sum()), int((s_diff > 1e-9).sum())
+        print(f"[pipeline] step 4, card vs CPU run: {len(ids)} samples x {z_card.shape[1]} written "
+              f"bins, the same NA cells; {z_apart} of {cells} z cells one quantum apart (bound "
+              f"{cells // 500}), {s_apart} of {n} scales (bound {n // 100}), none further",
+              flush=True)
+        check(z_apart <= cells // 500 and s_apart <= n // 100,
+              "pipeline step 4: too many cells one quantum apart")
+        del z_cpu, z_diff
+
+        # ---- (b) steps 5-6 rebuilt from the card's own written z ---------
+        t0 = time.perf_counter()
+        zt = torch.tensor(np.nan_to_num(z_card), dtype=torch.float32)
+        zmask = torch.tensor(~np.isnan(z_card))
+        region = region_filter_mask(torch.tensor(ratios, dtype=torch.float32), 1.0, 1000.0,
+                                    n_written=len(ratios))
+        r_use = max(int(region.sum()), 1)
+        sample_ok = zmask.any(dim=1)
+        d2 = d2_matrix(zt, zmask, region, ZMAX, row_valid=sample_ok)
+        want_d, want_idx = (t.numpy() for t in sorted_smallest_k(d2, k))
+        row_of = {sid: i for i, sid in enumerate(ids)}
+        nbrs, own_scales = read_neighbors(card_out / names["neighbors"])
+        check(list(nbrs) == ids and all(len(nbrs[s]) == k for s in ids),
+              "pipeline step 5: the neighbor file's rows or widths")
+        check(own_scales == scales, "pipeline step 5: scales differ from the normalized file's")
+        got_idx = np.array([[row_of[nid] for nid, _, _ in nbrs[s]] for s in ids])
+        written = np.array([[dist for _, _, dist in nbrs[s]] for s in ids])
+        nbr_scale_ok = all(ns == scales[nid] for s in ids for nid, ns, _ in nbrs[s])
+        check(nbr_scale_ok, "pipeline step 5: a neighbor's scale is not that neighbor's")
+        got_d = d2.numpy()[np.arange(n)[:, None], got_idx]
+        tol = TIE_RTOL * want_d[:, -1].astype(np.float64)
+        differ = neighbor_rows_differing(got_idx, got_d, want_idx, want_d, tol=tol)
+        dist_err = np.abs(written - want_d.astype(np.float64) / (2 * r_use))
+        dist_tol = 0.005 + 1e-6 + tol[:, None] / (2 * r_use)
+        check((dist_err <= dist_tol).all(), f"pipeline step 5: a written distance is off by "
+                                            f"{float((dist_err - dist_tol).max()):.3e} beyond %.2f")
+        print(f"[pipeline] step 5, the card's neighbor file vs the plain route on the card's own "
+              f"written z (r_use {r_use}): {n} rows compared, {n - differ.size} identical, "
+              f"{differ.size} differ only by ties within {TIE_RTOL:g} of the row's k-th distance; "
+              f"written distances equal d2/(2 r_use) at %.2f (max off {float(dist_err.max()):.4f})",
+              flush=True)
+
+        reads_map = read_counts_tsv(card_out / "read_counts.tsv")
+        reads = torch.tensor([reads_map.get(s, float("nan")) for s in ids], dtype=torch.float32)
+        usable = torch.tensor([s in reads_map for s in ids]) & sample_ok
+        w = reads / torch.tensor(s_card, dtype=torch.float32)
+        want_dip, want_ok = (t.numpy() for t in dipcn_from_distances(d2, w, w, usable, usable,
+                                                                     k=k, n_nbr=n_nbr))
+        del d2
+        dip_ids, dip_vals, _ = read_dipcn(card_out / names["dipcn"])
+        check(dip_ids == [s for s, ok in zip(ids, want_ok) if ok], "pipeline step 6: dipCN rows")
+        sets_differ = dipcn_sets_differ(got_idx, want_idx, usable.numpy(), n_nbr)[want_ok]
+        dip_vals = np.asarray(dip_vals)
+        check(np.isfinite(dip_vals).all(), "pipeline step 6: non-finite dipCN")
+        check(np.allclose(dip_vals[~sets_differ], want_dip[want_ok][~sets_differ], rtol=1e-5, atol=0),
+              "pipeline step 6: dipCN differs beyond rtol 1e-5")
+        print(f"[pipeline] step 6: {len(dip_ids)} dipCN rows, the plain route's valid rows; within "
+              f"rtol 1e-5 on the {int((~sets_differ).sum())} rows whose input sets agree "
+              f"({int(sets_differ.sum())} rows change a set by ties)", flush=True)
+
+        # ---- step 7 rebuilt from the card's own dipCN --------------------
+        hap_nbrs = load_ibs_neighbors(cohort["ibs_file"], {s: i for i, s in enumerate(dip_ids)}, 10)
+        hi, hw, hv = (torch.tensor(a) for a in pad_hap_neighbors(hap_nbrs, 10))
+        res = phase_haplotypes(torch.tensor(dip_vals, dtype=torch.float32), hi, hw, hv, 1, N_ITERS)
+        imp = compute_imputed(res.hap_irrs, hi, hw, hv, res.mean_irrs).numpy()
+        hap = res.hap_irrs.numpy()
+        want_hap = np.stack([dip_vals, hap[0::2], hap[1::2], imp[0::2], imp[1::2]], axis=1)
+        lines = (card_out / names["haploid"]).read_text().splitlines()
+        check(lines[0].split("\t")[0] == "ID" and [ln.split("\t")[0] for ln in lines[1:]] == dip_ids,
+              "pipeline step 7: haploid rows")
+        got_hap = np.array([[float(v) for v in ln.split("\t")[1:]] for ln in lines[1:]])
+        check(np.array_equal(np.isnan(got_hap), np.isnan(want_hap)), "pipeline step 7: NaN cells")
+        hap_err = np.nan_to_num(np.abs(got_hap - want_hap))
+        check(hap_err.max() <= QUANTUM / 2 + 1e-4, f"pipeline step 7: off by {hap_err.max()}")
+        print(f"[pipeline] step 7: {len(dip_ids)} haploid rows, {int(res.phased.sum())} phased; every "
+              f"value within %.2f rounding of {N_ITERS} plain sweeps over the card's dipCN (max off "
+              f"{float(hap_err.max()):.4f}); comparisons took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        cpu_ids6, cpu_vals, _ = read_dipcn(cpu_out / names["dipcn"])
+        check(cpu_ids6 == dip_ids, "pipeline: the CPU run's dipCN rows differ")
+        rel = np.abs(dip_vals - np.asarray(cpu_vals)) / np.asarray(cpu_vals)
+        print(f"[pipeline] for the record, card vs CPU run dipCN (other z cells, so other neighbor "
+              f"sets): median relative difference {float(np.median(rel)):.2e}, max "
+              f"{float(rel.max()):.2e}", flush=True)
+        print(f"[pipeline] second card run: fused.device {again_t['fused.device']:.3f} s vs "
+              f"{card_t['fused.device']:.3f} s in the first; {card}", flush=True)
+    check(not tmp.exists(), "the temporary directory was not removed")
+    return launches
 
 
 def main() -> int:
@@ -861,12 +1077,16 @@ def main() -> int:
     panel = panel_phase(dev, card, wrappers)
     branch_phase(dev, card)
 
+    # ---- 9. the pipeline, from files -------------------------------------
+    pipeline_launches = pipeline_phase(card, wrappers)
+
     rows = []
     for row in kernels:
         earlier = {key: row[key] for key in row if key not in ("name", "route", "source",
                                                                 "replaces")}
         rows.append({**{key: row[key] for key in ("name", "route", "source", "replaces")},
-                     **panel[row["name"]], "slice_2504": earlier})
+                     **panel[row["name"]], "slice_2504": earlier,
+                     "pipeline_2504": {"launches": pipeline_launches[row["name"]]}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,1 +1,1 @@
-"""Host-side input helpers (numpy only)."""
+"""Host-side readers, writers and staging (numpy only; twin of ``grid_tpu.io``)."""

@@ -1,0 +1,221 @@
+"""WGS pipeline orchestrator (twin of ``grid_tpu/pipeline.py``).
+
+The config is validated and its defaults resolved once, per-step wall-clock
+is recorded and dumped next to the artifacts (``step_timings.json``), and a
+step whose outputs exist and whose config and inputs are unchanged is
+skipped with ``resume: true`` (content-addressed,
+``<output_dir>/.grid_tpu_state.json``).
+
+What the port runs so far is the fused form of steps 4-7
+(``device: {fused: true}``, :mod:`grid_tpu_torch.steps.fused`), on the card
+unless ``device.platform: cpu``. Everything else the JAX package does on
+this path raises ``NotImplementedError`` naming its ROADMAP item, and
+nothing else runs in its place:
+
+- ``index``, ``count_reads``, ``mosdepth`` or ``compute_ibs`` with
+  ``run: true`` (the port reads no alignments yet);
+- steps 4-7 enabled without the fused path (file mode);
+- ``device.mesh_shape`` (the sharded layer; raised by the fused step).
+
+Two differences from the JAX orchestrator follow from that. It catches a
+failure of the fused step and falls back to the sequential steps; there are
+none here, so a failure of the fused step propagates. And it keeps resume
+state for the sequential steps only; here the fused step records its four
+artifacts under the four classic step names and is skipped when all four
+are up to date, so either form can resume the other's outputs.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import zlib
+from pathlib import Path
+
+from grid_tpu_torch.config import apply_defaults, error_check_config, load_config
+from grid_tpu_torch.steps.fused import fused_steps_enabled, run_fused_steps
+from grid_tpu_torch.utils.logging import log
+from grid_tpu_torch.utils.timing import StepTimer, step_timer
+
+# the four steps the fused path replaces, in the order of its returned paths
+FUSED_STEP_NAMES = ("normalize", "neighbors", "compute_diploid_genotypes",
+                    "compute_haploid_genotypes")
+
+
+def _file_stat(path) -> tuple:
+    """(size, crc32(head), crc32(tail)) of a file, or ("missing",).
+
+    Content-based (64 KiB head + tail), NOT mtime-based: a regenerated but
+    identical upstream file stays valid, and an rsync/git-checkout that
+    preserves mtimes but changes bytes invalidates."""
+    try:
+        p = Path(path)
+        size = p.stat().st_size
+        chunk = 65536
+        with open(p, "rb") as f:
+            head = zlib.crc32(f.read(chunk))
+            if size > chunk:
+                f.seek(max(size - chunk, 0))
+                tail = zlib.crc32(f.read(chunk))
+            else:
+                tail = head
+        return (size, head, tail)
+    except OSError:
+        return ("missing",)
+
+
+def _step_inputs(name: str, config: dict) -> list:
+    """The on-disk inputs whose change must invalidate a cached step."""
+    out_dir = Path(config.get("output_dir", "."))
+    ft = config.get("output_file_type", "tsv")
+    m = config.get("mosdepth", {})
+
+    def prefix(section, key="output_file_prefix"):
+        return section.get(key) if isinstance(section, dict) else None
+
+    if name == "normalize":
+        work = m.get("work_dir")
+        if work and Path(work).is_dir():
+            return sorted(str(p) for p in Path(work).glob("*.regions.bed.gz"))
+        return []
+    if name == "neighbors":
+        return [out_dir / f"{prefix(m.get('normalize', {}))}.{ft}.gz"]
+    if name == "compute_diploid_genotypes":
+        zmax = m.get("neighbors", {}).get("zmax", 2.0)
+        return [
+            out_dir / f"{prefix(config.get('count_reads', {}))}.{ft}",
+            out_dir / f"{prefix(m.get('neighbors', {}))}.zMax{zmax:.1f}.{ft}.gz",
+        ]
+    if name == "compute_haploid_genotypes":
+        h = config.get("compute_haploid_genotypes", {})
+        inputs = [out_dir / f"{prefix(config.get('compute_diploid_genotypes', {}))}.{ft}"]
+        for key in ("ibs_output", "ibd_output"):
+            if h.get(key):
+                inputs.append(h[key])
+        return inputs
+    return []
+
+
+def _step_fingerprint(name: str, config: dict) -> str:
+    """Hash of the step-relevant config AND the stat signature of the step's
+    input files, so regenerated upstream artifacts (or parameter changes in
+    upstream sections that determine input filenames) invalidate the skip."""
+    relevant = {
+        "global": {
+            k: config.get(k)
+            for k in ("samples_file", "chrom", "start_bp", "end_bp", "output_dir", "min_mapq")
+        },
+        "step": config.get(name, {}),
+        "mosdepth": config.get("mosdepth", {})
+        if name in ("normalize", "neighbors", "compute_diploid_genotypes")
+        else None,
+        "inputs": [(str(p), _file_stat(p)) for p in _step_inputs(name, config)],
+    }
+    return hashlib.sha256(json.dumps(relevant, sort_keys=True, default=str).encode()).hexdigest()
+
+
+class _Resume:
+    """Step-level resume bookkeeping (``<output_dir>/.grid_tpu_state.json``)."""
+
+    def __init__(self, config):
+        self.enabled = bool(config.get("resume", False))
+        self.path = Path(config.get("output_dir", ".")) / ".grid_tpu_state.json"
+        self.state = {}
+        if self.path.exists():
+            try:
+                self.state = json.loads(self.path.read_text())
+            except (OSError, ValueError):
+                self.state = {}  # an unreadable state file only costs a re-run
+
+    def should_skip(self, name, config) -> bool:
+        if not self.enabled:
+            return False
+        rec = self.state.get(name)
+        return bool(rec) and rec.get("fingerprint") == _step_fingerprint(name, config) and all(
+            Path(p).exists() for p in rec.get("outputs", [])
+        )
+
+    def mark(self, name, config, outputs):
+        # always record (cheap), so the FIRST `resume: true` run benefits
+        # from state written by earlier non-resume runs
+        self.state[name] = {
+            "fingerprint": _step_fingerprint(name, config),
+            "outputs": [str(p) for p in outputs if p],
+        }
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.path.write_text(json.dumps(self.state, indent=2))
+
+
+def _refuse_unported(config: dict) -> None:
+    """Raise for what the JAX pipeline would run here and the port cannot."""
+    for name in ("index", "count_reads", "mosdepth", "compute_ibs"):
+        if config.get(name, {}).get("run") is True:
+            raise NotImplementedError(
+                f"{name}.run: true — the port does not read alignments yet (ROADMAP.md queue 1, "
+                "'Host steps 1-3 and compute_ibs'); produce those files with grid_tpu, or set "
+                f"{name}.run: false"
+            )
+    if fused_steps_enabled(config):
+        return
+    m = config.get("mosdepth", {})
+    wanted = [
+        name for name, section in (
+            ("mosdepth.normalize", m.get("normalize", {})),
+            ("mosdepth.neighbors", m.get("neighbors", {})),
+            ("compute_diploid_genotypes", config.get("compute_diploid_genotypes", {})),
+            ("compute_haploid_genotypes", config.get("compute_haploid_genotypes", {})),
+        ) if section.get("run") is True
+    ]
+    if wanted:
+        raise NotImplementedError(
+            f"{', '.join(wanted)} without the fused path — the file-mode steps 4-7 are not "
+            "ported yet (ROADMAP.md queue 1, 'File-mode steps 4-7'); enable all four with "
+            "device.fused: true and device.exact_phasing unset"
+        )
+
+
+def run_wgs_pipeline(console=None, config=None, validate: bool = True):
+    """Run the WGS pipeline from a YAML config path or dict; returns the
+    step timings (also written to ``<output_dir>/step_timings.json``).
+
+    It runs on the card unless ``device.platform: cpu`` asks for the host,
+    and raises without a card otherwise."""
+    if not config:
+        raise ValueError("Config file is required for running the WGS pipeline.")
+
+    if isinstance(config, (str, Path)):
+        try:
+            config_data = load_config(config)
+        except Exception as e:
+            raise ValueError(f"Failed to read the config file: {e}") from e
+    else:
+        config_data = config
+
+    if validate:
+        error_check_config(config_data, console)
+    config_data = apply_defaults(config_data)
+    _refuse_unported(config_data)
+
+    Path(config_data.get("output_dir", ".")).mkdir(parents=True, exist_ok=True)
+
+    timer = StepTimer()
+    resume = _Resume(config_data)
+
+    # Step 1 (ref: pipeline.py:24-43): index.run false means "check the
+    # alignment indexes" there; the port reads no alignments.
+    if config_data.get("index", {}).get("run") is False:
+        log(console, "[check_index] skipped: the port does not read alignment indexes",
+            style="info")
+
+    if fused_steps_enabled(config_data):
+        # steps 4-7 as one staged ingest + one fused device step
+        if all(resume.should_skip(name, config_data) for name in FUSED_STEP_NAMES):
+            log(console, "[fused_steps_4_7] up-to-date, skipped (resume)", style="info")
+        else:
+            with step_timer("fused_steps_4_7", timer, console):
+                outputs = run_fused_steps(config_data, console, timer)
+            for name, path in zip(FUSED_STEP_NAMES, outputs):
+                resume.mark(name, config_data, [path])
+
+    timer.dump(Path(config_data.get("output_dir", ".")) / "step_timings.json")
+    return timer.report()

@@ -1,0 +1,240 @@
+"""Synthetic cohort generator (twin of ``grid_tpu/synth.py``'s
+``make_synthetic_cohort``).
+
+Generates per-sample ``regions.bed.gz`` binned depths with planted CN
+structure, a counts TSV consistent with the planted copy numbers, a repeat
+mask, IBS/IBD haplotype-neighbor files, and a ready-to-run config (as a dict,
+and as ``config.yaml`` where ``pyyaml`` is installed). Ground-truth haplotype
+CNs are returned (and written) so concordance can be scored end-to-end.
+
+Not ported: the BAM/CRAM variant and the phased-panel generator.
+"""
+
+from __future__ import annotations
+
+import gzip
+from pathlib import Path
+
+import numpy as np
+
+
+def make_synthetic_cohort(
+    out_dir,
+    n_samples: int = 12,
+    chrom: str = "chr6",
+    window_start: int = 160_605_000,
+    window_end: int = 160_648_000,
+    flank_bins: int = 40,
+    bin_size: int = 1000,
+    mean_depth: float = 30.0,
+    depth_sd: float = 1.5,
+    reads_per_copy: float = 500.0,
+    seed: int = 0,
+    missing_frac: float = 0.0,
+):
+    """Build a synthetic cohort on disk.
+
+    Depth model: each sample s has a base autosomal depth D_s ~ N(mean, sd).
+    Bins inside the VNTR window get depth D_s * (CN_s / 2) where CN_s =
+    hap1_s + hap2_s (haplotype copy numbers drawn near 1.0 with variation),
+    so normalization must recover the CN signal. Window read counts are
+    CN_s/2 * coverage-proportional, making dipCN ≈ CN_s / mean(CN_nbrs).
+
+    Returns a dict with ids, truth arrays and all file paths.
+    """
+    return _make_cohort(
+        out_dir, n_samples, chrom, window_start, window_end, flank_bins, bin_size,
+        mean_depth, depth_sd, reads_per_copy, seed, missing_frac,
+    )
+
+
+def _make_cohort(
+    out_dir, n_samples, chrom, window_start, window_end, flank_bins, bin_size,
+    mean_depth, depth_sd, reads_per_copy, seed, missing_frac,
+):
+    """The cohort of :func:`make_synthetic_cohort`: the JAX package's
+    generator without its BAM/CRAM branch, with every draw made from the same
+    generator in the same order, so one seed gives the same files."""
+    out = Path(out_dir)
+    work = out / "mosdepth_workdir"
+    work.mkdir(parents=True, exist_ok=True)
+    results = out / "results"
+    results.mkdir(parents=True, exist_ok=True)
+
+    rng = np.random.default_rng(seed)
+    ids = [f"SYN{i:05d}" for i in range(n_samples)]
+
+    # haplotype copy numbers (in units of "1.0 = reference haplotype dose")
+    hap_cn = rng.normal(1.0, 0.18, size=(n_samples, 2)).clip(0.4, 2.0)
+    dip_cn = hap_cn.sum(axis=1)
+
+    base_depth = rng.normal(mean_depth, depth_sd, size=n_samples).clip(10, None)
+
+    # genome bins: a window of VNTR bins plus flanking normal bins each side
+    w_bins = [(window_start + i * bin_size, min(window_start + (i + 1) * bin_size, window_end))
+              for i in range((window_end - window_start + bin_size - 1) // bin_size)]
+    left = [(window_start - (flank_bins - i) * bin_size, window_start - (flank_bins - i - 1) * bin_size)
+            for i in range(flank_bins)]
+    right_start = w_bins[-1][1]
+    right = [(right_start + i * bin_size, right_start + (i + 1) * bin_size) for i in range(flank_bins)]
+    all_bins = left + w_bins + right
+
+    samples_file = out / "samples.txt"
+    samples_file.write_text("".join(f"{s}\n" for s in ids))
+
+    for i, sid in enumerate(ids):
+        bed = work / f"{sid}_SYN.regions.bed.gz"
+        with gzip.open(bed, "wt") as f:
+            for (bs, be) in all_bins:
+                in_window = bs >= window_start and be <= window_end
+                dose = dip_cn[i] / 2 if in_window else 1.0
+                noise = rng.normal(1.0, 0.02)
+                depth = max(base_depth[i] * dose * noise, 0.01)
+                if missing_frac and rng.random() < missing_frac:
+                    continue
+                f.write(f"{chrom}\t{bs}\t{be}\t{depth:.2f}\n")
+
+    # read counts: proportional to depth * CN dose over the window
+    counts_file = results / "read_counts.tsv"
+    with open(counts_file, "w") as f:
+        f.write(f"Sample\t{chrom}:{window_start}-{window_end}\n")
+        for i, sid in enumerate(ids):
+            lam = reads_per_copy * dip_cn[i] * base_depth[i] / mean_depth
+            f.write(f"{sid}\t{int(rng.poisson(lam))}\n")
+
+    # repeat mask: a region far away (exercises the path without masking bins)
+    mask_file = out / "repeat_mask.bed"
+    mask_file.write_text(f"{chrom}\t1000000\t1002000\n")
+
+    # IBS neighbors: each haplotype is matched to the haplotypes (of OTHER
+    # samples) with the closest true copy number — the structure real IBS
+    # sharing implies (shared haplotype => shared repeat allele). This makes
+    # end-to-end haploid-CN recovery a measurable property of the cohort.
+    flat_cn = hap_cn.reshape(-1)  # index h = 2*i + hap0
+    ibs_file = out / "ibs_neighbors.tsv.gz"
+    with gzip.open(ibs_file, "wt") as f:
+        f.write("ID\thap\tnbrInd\tcMlen\tcMedge\tIDnbr\thapNbr\n")
+        for i, sid in enumerate(ids):
+            for hap0 in (0, 1):
+                h = 2 * i + hap0
+                order = np.argsort(np.abs(flat_cn - flat_cn[h]))
+                picked = 0
+                for g in order:
+                    if g // 2 == i:
+                        continue  # never own haplotypes
+                    j, nbr_hap0 = int(g // 2), int(g % 2)
+                    f.write(
+                        f"{sid}\t{hap0 + 1}\t{j}\t2.5\t0.1\t{ids[j]}\t{nbr_hap0 + 1}\n"
+                    )
+                    picked += 1
+                    if picked == 3:
+                        break
+
+    # iLASH-format IBD segments between consecutive samples
+    ibd_file = out / "ibd_segments.tsv"
+    with open(ibd_file, "w") as f:
+        for i in range(n_samples):
+            j = (i + 1) % n_samples
+            f.write(
+                f"{ids[i]}\t{ids[i]}_0\t{ids[j]}\t{ids[j]}_1\t{chrom.lstrip('chr')}\t"
+                f"{window_start - 50_000}\t{window_end + 50_000}\t0\t0\t3.2\t0.95\n"
+            )
+
+    truth_file = results / "truth_hap_cn.tsv"
+    with open(truth_file, "w") as f:
+        f.write("ID\thap1\thap2\tdip\n")
+        for i, sid in enumerate(ids):
+            f.write(f"{sid}\t{hap_cn[i,0]:.4f}\t{hap_cn[i,1]:.4f}\t{dip_cn[i]:.4f}\n")
+
+    # The config window spans the WHOLE covered region (window + flanks):
+    # normalization must see bins beyond the VNTR so the per-sample scale
+    # reflects baseline depth, not the CN signal itself (the genome-wide
+    # normalization design; a window-only matrix makes scale ∝ CN and the
+    # dipCN signal cancels).
+    span_start = all_bins[0][0]
+    span_end = all_bins[-1][1]
+    config = {
+        "samples_file": str(samples_file),
+        "directory_loc": str(out / "alignments"),
+        "reference_genome": str(samples_file),  # placeholder existing file
+        "output_dir": str(results),
+        "threads": 2,
+        "file_type": "bam",
+        "chrom": chrom,
+        "start_bp": span_start,
+        "end_bp": span_end,
+        "output_file_type": "tsv",
+        "index": {"run": False, "output_file_prefix": "index_file_results"},
+        "count_reads": {
+            "run": False,
+            "output_file_prefix": "read_counts",
+            "flags": [83, 147, 81, 145],
+        },
+        "mosdepth": {
+            "run": False,
+            "output_file_prefix": "mosdepth_results",
+            "bin_size": bin_size,
+            "mode": "fast",
+            "region_name": "SYN",
+            "work_dir": str(work),
+            "remove_intermediate": False,
+            "normalize": {
+                "run": True,
+                "min_depth": 10,
+                "max_depth": 100,
+                "top_frac": 0.1,
+                "output_file_prefix": "mosdepth_results_normalized",
+                "repeat_mask_file": str(mask_file),
+            },
+            # num_neighbors = N-1: with small synthetic cohorts the neighbor
+            # mean must approximate the cohort mean, otherwise depth-profile
+            # matching pairs samples of similar CN and divides the signal out
+            # (the real pipeline relies on zmax clipping + k=500 for this).
+            "neighbors": {
+                "run": True,
+                "output_file_prefix": "neighbor_coverage",
+                "num_neighbors": n_samples - 1,
+                "zmax": 2.0,
+                "sigma2_max": 1000,
+            },
+        },
+        "compute_diploid_genotypes": {
+            "run": True,
+            "output_file_prefix": "diploid_genotypes",
+            "n_nbr": min(300, n_samples - 1),
+        },
+        "compute_haploid_genotypes": {
+            "run": True,
+            "output_file_prefix": "haploid_genotypes",
+            "method": "ibs",
+            "ibs_output": str(ibs_file),
+            "min_neighbors": 1,
+            "max_neighbors": 10,
+            "n_iters": 100,
+        },
+    }
+    # config.yaml needs pyyaml; without it the returned dict carries the config
+    try:
+        import yaml
+    except ImportError:
+        config_file = None
+    else:
+        config_file = out / "config.yaml"
+        with open(config_file, "w") as f:
+            yaml.safe_dump(config, f, sort_keys=False)
+
+    return {
+        "ids": ids,
+        "hap_cn": hap_cn,
+        "dip_cn": dip_cn,
+        "base_depth": base_depth,
+        "config": config,
+        "config_file": config_file,
+        "samples_file": samples_file,
+        "counts_file": counts_file,
+        "work_dir": work,
+        "results_dir": results,
+        "ibs_file": ibs_file,
+        "ibd_file": ibd_file,
+        "mask_file": mask_file,
+    }

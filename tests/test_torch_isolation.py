@@ -47,8 +47,68 @@ def test_every_module_imports_without_jax_or_grid_tpu():
     imported = set(proc.stdout.split())
     for name in ("grid_tpu_torch.models.cohort", "grid_tpu_torch.ops.gpu_kernels",
                  "grid_tpu_torch.ops.gpu_select", "grid_tpu_torch.convert",
-                 "grid_tpu_torch.io.hap_neighbors", "grid_tpu_torch.utils.device"):
+                 "grid_tpu_torch.io.hap_neighbors", "grid_tpu_torch.utils.device",
+                 "grid_tpu_torch.pipeline", "grid_tpu_torch.steps.fused", "grid_tpu_torch.config",
+                 "grid_tpu_torch.synth", "grid_tpu_torch.cli", "grid_tpu_torch.io.staging",
+                 "grid_tpu_torch.io.formats", "grid_tpu_torch.io.bed"):
         assert name in imported
+
+
+_PIPELINE_WITHOUT_EXTRAS = r"""
+import sys
+for name in ("yaml", "click", "rich", "jax", "jaxlib", "grid_tpu"):
+    for loaded in [m for m in sys.modules if m.split(".")[0] == name]:
+        del sys.modules[loaded]
+    sys.modules[name] = None  # any import of it now raises ImportError
+
+import grid_tpu_torch.config, grid_tpu_torch.pipeline, grid_tpu_torch.steps.fused
+from grid_tpu_torch.synth import make_synthetic_cohort
+from grid_tpu_torch.utils.logging import make_console
+
+assert make_console() is None
+out = sys.argv[1]
+cohort = make_synthetic_cohort(out, n_samples=8, seed=3)
+assert cohort["config_file"] is None  # no yaml: the dict carries the config
+config = cohort["config"]
+config["device"] = {"fused": True, "platform": "cpu"}
+timings = grid_tpu_torch.pipeline.run_wgs_pipeline(config=config)
+assert "fused_steps_4_7" in timings, timings
+try:
+    grid_tpu_torch.pipeline.run_wgs_pipeline(config=out + "/config.yaml")
+except ValueError as e:
+    assert "Failed to read the config file" in str(e), e
+else:
+    raise AssertionError("a config path needs yaml")
+print("pipeline ran")
+"""
+
+
+def test_pipeline_runs_without_yaml_click_rich(tmp_path):
+    """The machine with the card has none of the three: the pipeline, the
+    fused step, the config module and the cohort generator import and run
+    from a dict without them."""
+    proc = subprocess.run([sys.executable, "-c", _PIPELINE_WITHOUT_EXTRAS, str(tmp_path)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("pipeline ran")
+    assert (tmp_path / "results" / "haploid_genotypes.tsv").exists()
+
+
+@pytest.mark.parametrize("device", [{"fused": True}, {"fused": True, "platform": "auto"}],
+                         ids=["absent", "auto"])
+def test_pipeline_without_a_platform_wants_the_card(tmp_path, device):
+    """No platform named means the card: on a machine without one the
+    pipeline raises get_device's error and never runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    from grid_tpu_torch.pipeline import run_wgs_pipeline
+    from grid_tpu_torch.synth import make_synthetic_cohort
+
+    config = make_synthetic_cohort(tmp_path, n_samples=6, seed=1)["config"]
+    config["device"] = device
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_wgs_pipeline(config=config)
+    assert not (tmp_path / "results" / "diploid_genotypes.tsv").exists()
 
 
 def test_kernel_library_is_keyed_by_source_and_flags(monkeypatch, tmp_path):
