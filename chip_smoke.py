@@ -10,10 +10,14 @@ before the last line):
 
 1. device  — requires CUDA; prints the card's name and power limit.
 2. build   — compiles the CUDA kernels (nvcc, sm_90a, one process per
-             source, all started together) into build/grid_tpu_torch/,
-             prints ptxas' registers and spills and the launch shapes of
-             the Gram and dipCN kernels and the column-statistics grid, and
-             JIT-compiles the Triton kernels.
+             source) and the host library of the bed.gz reader and text
+             writers (g++), all started together, into
+             build/grid_tpu_torch/; prints the host library's path, build
+             time and compiler, whether the machine has zlib's headers and
+             libdeflate, and fails unless the port takes the native host
+             route; prints ptxas' registers and spills and the launch shapes
+             of the Gram and dipCN kernels and the column-statistics grid,
+             and JIT-compiles the Triton kernels.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the cohort step gives it at 1000G scale (N=2504,
              R=2048) and at a ragged shape; dipCN also on forced ties, on
@@ -58,11 +62,13 @@ before the last line):
              missing, read counts, IBS neighbors; ``make_synthetic_cohort``),
              then ``run_wgs_pipeline`` on a config dict that names no
              platform (k=500, n_nbr=300, 10 haplotype neighbors, 100
-             sweeps, ``device: {fused: true}``). Checks that the call
-             launched the column statistics twice and the Gram and dipCN
-             kernels once, that the four artifacts and step_timings.json
-             exist, and prints the four spans (stage, device, phase, write),
-             a second card run's, and the host's share of fused_steps_4_7.
+             sweeps, ``device: {fused: true}``), on the native host route
+             (the C++ reader and writers) with no file falling back to the
+             Python reader. Checks that the call launched the column
+             statistics twice and the Gram and dipCN kernels once, that the
+             four artifacts and step_timings.json exist, and prints for
+             every run the four spans (stage, device, phase, write),
+             fused_steps_4_7 and the host's share of it.
              The fused steps quantize z to 0.01 (``quantize=True``), and two
              float32 routes to z put a cell that lies on a rounding boundary
              one quantum apart, so the card's files cannot be held to a CPU
@@ -79,6 +85,19 @@ before the last line):
              within rtol 1e-5 on rows whose input sets agree, and the haploid
              table within one quantum of 100 plain sweeps over the card's
              dipCN. A shuffled row, a wrong column or a wrong distance fails.
+             (c) a card run on the Python host route (the host library
+             hidden from the port by a patch of its module attribute): its
+             staged arrays must equal the native route's bitwise, and its
+             four artifacts the native run's after decompression where the
+             card step is bitwise repeatable (card runs 1 and 2 agree);
+             where it is not, the native run's outputs rewritten by the
+             Python writers must equal its native files instead. (d) a card
+             run of the row-panel branch (d2_budget_bytes lowered below the
+             [N, N] float32 matrix by a patch of the fused step's
+             CohortParams): launches 2 column statistics, 1 split, 5 panel
+             Grams and 5 dipCN calls; its step 4 file must equal the
+             resident run's, and its neighbor and dipCN files the resident
+             run's under the tie rule (distances from the rebuilt d2).
 
 The last three lines are the kernels' JSON object (the panel-mode numbers
 at N=65,536; each entry's "slice_2504" holds phase 5's and "pipeline_2504"
@@ -89,13 +108,17 @@ and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import ctypes
+import gzip
 import json
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -174,6 +197,57 @@ def bound_ms(n_bytes: float, flop: float = 0.0, flop_per_s: float = TF32_FLOP_PE
 
 def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def content(path) -> bytes:
+    """A file's bytes, decompressed where it is gzipped."""
+    return gzip.open(path).read() if str(path).endswith(".gz") else Path(path).read_bytes()
+
+
+@contextmanager
+def patched(module, attrs: dict):
+    """Set ``module``'s attributes to ``attrs`` for the ``with`` block only."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
+
+
+def host_phase(build_s: float) -> None:
+    """The host library of the port's bed.gz reader and text writers, built
+    by g++ beside the kernels: its path, build time and compiler, and what
+    the machine has of zlib's headers and libdeflate. Fails unless the port
+    takes the native host route."""
+    from grid_tpu_torch import native_host
+
+    route = native_host.route()
+    check(route == "native", f"the host library did not load: {route}")
+    path = native_host.library_path()
+    gxx = subprocess.run([native_host.CXX, "--version"], capture_output=True, text=True)
+    zlib_h = subprocess.run([native_host.CXX, "-x", "c++", "-fsyntax-only", "-"],
+                            input="#include <zlib.h>\n", capture_output=True, text=True)
+    deflate = None
+    for name in ("libdeflate.so.0", "libdeflate.so"):  # what bedwrite.h opens, in its order
+        try:
+            ctypes.CDLL(name)
+        except OSError:
+            continue
+        deflate = name
+        break
+    compiler_out = path.with_suffix(".log").read_text().strip()
+    print(f"[host] route {route}: {path} built in {build_s:.1f} s by "
+          f"{gxx.stdout.splitlines()[0]} ({native_host.CXX} {' '.join(native_host.CXX_FLAGS)} "
+          f"... {' '.join(native_host.LD_FLAGS)}); compiler warnings: "
+          f"{compiler_out.count(chr(10)) + 1 if compiler_out else 0} lines", flush=True)
+    print(f"[host] zlib.h {'found' if zlib_h.returncode == 0 else 'NOT found'}; libdeflate "
+          f"{'found as ' + deflate if deflate else 'not found (zlib inflates and deflates)'}",
+          flush=True)
+    if compiler_out:
+        print(f"[host] the compiler said:\n{compiler_out}", flush=True)
 
 
 def device_us(evt) -> float:
@@ -509,12 +583,20 @@ def branch_phase(dev, card: str) -> None:
 def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = PIPELINE_FLANK,
                  k: int = K, n_nbr: int = N_NBR) -> dict:
     """Phase 9: the fused WGS pipeline from files (see the module docstring).
-    Returns the kernels' launches during the pipeline call. main() passes no
-    size: the size arguments let the phase be rehearsed small."""
+    Returns the kernels' launches during the first pipeline call. main()
+    passes no size: the size arguments let the phase be rehearsed small."""
+    import grid_tpu_torch.io.bed as port_bed
+    import grid_tpu_torch.steps.fused as fused
+    from grid_tpu_torch import native_host
+    from grid_tpu_torch.io.bed import load_repeat_mask, map_bed_gz_to_samples
     from grid_tpu_torch.io.formats import (
-        read_counts_tsv, read_dipcn, read_neighbors, read_normalized_data,
+        read_counts_tsv, read_dipcn, read_neighbors, read_normalized_data, read_samples,
     )
     from grid_tpu_torch.io.hap_neighbors import load_ibs_neighbors, pad_hap_neighbors
+    from grid_tpu_torch.io.staging import scan_cohort_regions
+    from grid_tpu_torch.models.cohort import CohortParams
+    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel, zprep_split
+    from grid_tpu_torch.ops.gpu_select import dipcn_select_info
     from grid_tpu_torch.ops.knn import d2_matrix, region_filter_mask, sorted_smallest_k
     from grid_tpu_torch.ops.phasing import compute_imputed, phase_haplotypes
     from grid_tpu_torch.ops.select import dipcn_from_distances
@@ -526,6 +608,16 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
              "neighbors": f"neighbor_coverage.zMax{ZMAX:.1f}.tsv.gz",
              "dipcn": "diploid_genotypes.tsv", "haploid": "haploid_genotypes.tsv"}
     spans = ("fused.stage", "fused.device", "fused.phase", "fused.write")
+    # the panel entry points are counted too: zero on the resident branch
+    counted = {**wrappers, "zprep_split": zprep_split, "zprep_gram_panel": zprep_gram_panel}
+    resident_launches = {**PIPELINE_LAUNCHES, "zprep_split": 0, "zprep_gram_panel": 0}
+    n_panels = -(-n // CohortParams().row_block)
+    panel_launches = {"masked_column_stats": 2, "zprep_gram": 0,
+                      "dipcn_from_distances_gpu": n_panels, "zprep_split": 1,
+                      "zprep_gram_panel": n_panels}
+    panel_budget = n * n * 4 - 1  # one byte short of the float32 [N, N] distance matrix
+    real_stage = fused._stage
+    seen_writes = {}
 
     with tempfile.TemporaryDirectory(prefix="grid_tpu_torch_smoke_") as tmp:
         tmp = Path(tmp)
@@ -540,24 +632,56 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
         print(f"[pipeline] cohort on disk: {n} samples x {n_bins} bins of 1 kb, made in "
               f"{time.perf_counter() - t0:.1f} s (host clock)", flush=True)
 
-        def run(label: str, device: dict):
+        def run(label: str, device: dict, python_host: bool = False, panels: bool = False):
+            """One run_wgs_pipeline call. ``python_host`` hides the host
+            library from the port (its Python reader and writers run),
+            ``panels`` lowers the d2 budget below the [N, N] matrix, each by
+            a patch of the port's module attributes for this call only.
+            Returns the output directory, the timings, the launches and the
+            staged cohort."""
             cfg = copy.deepcopy(base)
             out = tmp / label
             out.mkdir()
             cfg["output_dir"] = str(out)
             cfg["device"] = device
             (out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
-            for fn in wrappers.values():
+            seen = {}
+
+            def keep_stage(*args, **kwargs):
+                seen["stage"] = real_stage(*args, **kwargs)
+                return seen["stage"]
+
+            def keep_write(name):
+                writer = getattr(fused, name)
+
+                def write(*args, **kwargs):
+                    seen_writes.setdefault(label, {})[name] = (args, kwargs)
+                    return writer(*args, **kwargs)
+                return write
+
+            fused_patch = {"_stage": keep_stage}
+            for name in ("write_normalized_output", "write_neighbors_dense"):
+                fused_patch[name] = keep_write(name)
+            if panels:
+                fused_patch["CohortParams"] = (
+                    lambda **kw: CohortParams(**kw)._replace(d2_budget_bytes=panel_budget))
+            host_patch = {"lib": lambda: None} if python_host else {}
+            for fn in counted.values():
                 fn.launches = 0
-            timings = run_wgs_pipeline(config=cfg)
-            launches = {name: fn.launches for name, fn in wrappers.items()}
+            port_bed.native_fallbacks = 0
+            with patched(fused, fused_patch), patched(native_host, host_patch):
+                timings = run_wgs_pipeline(config=cfg)
+            launches = {name: fn.launches for name, fn in counted.items()}
+            if not python_host:
+                check(port_bed.native_fallbacks == 0, f"pipeline {label}: "
+                      f"{port_bed.native_fallbacks} bed.gz files fell back to the Python reader")
             for name in (*names.values(), "step_timings.json"):
                 check((out / name).exists(), f"pipeline {label}: {name} was not written")
             check(json.loads((out / "step_timings.json").read_text()) == timings,
                   f"pipeline {label}: step_timings.json differs from the returned timings")
             check("fused_steps_4_7" in timings and all(s in timings for s in spans),
                   f"pipeline {label}: timings {sorted(timings)}")
-            return out, timings, launches
+            return out, timings, launches, seen["stage"]
 
         def report(label: str, t: dict) -> None:
             total = t["fused_steps_4_7"]
@@ -568,21 +692,58 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
                   f"fused_steps_4_7 {total:.3f} s (host clock); host share of fused_steps_4_7 "
                   f"(all but device and phase) {100 * host:.2f}%; {card}", flush=True)
 
-        # ---- the card runs: no platform named ----------------------------
-        card_out, card_t, launches = run("card", {"fused": True})
-        print(f"[pipeline] run_wgs_pipeline with no platform named: kernel launches {launches}",
-              flush=True)
-        check(launches == PIPELINE_LAUNCHES, f"pipeline launches {launches} != {PIPELINE_LAUNCHES}")
-        report("card run 1 (its fused.device holds the kernels' first launches at these shapes)",
-               card_t)
-        _, again_t, again = run("card2", {"fused": True})
-        check(again == PIPELINE_LAUNCHES, f"pipeline launches, second run: {again}")
-        report("card run 2", again_t)
+        # ---- the card runs: no platform named, the native host route -----
+        card_out, card_t, launches, card_stage = run("card", {"fused": True})
+        print(f"[pipeline] run_wgs_pipeline with no platform named, native host route: kernel "
+              f"launches {launches}; 0 bed.gz files fell back to the Python reader", flush=True)
+        check(launches == resident_launches, f"pipeline launches {launches} != {resident_launches}")
+        report("card run 1, native host route (its fused.device holds the kernels' first launches "
+               "at these shapes)", card_t)
+        card2_out, again_t, again, _ = run("card2", {"fused": True})
+        check(again == resident_launches, f"pipeline launches, second run: {again}")
+        report("card run 2, native host route", again_t)
+
+        # ---- where the native route's stage and write go ----------------
+        excluded = load_repeat_mask(base["mosdepth"]["normalize"]["repeat_mask_file"])
+        beds = map_bed_gz_to_samples(base["mosdepth"]["work_dir"],
+                                     read_samples(base["samples_file"]))
+        t0 = time.perf_counter()
+        raw = [Path(path).read_bytes() for path in beds.values()]
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        text_mb = sum(len(zlib.decompress(blob, wbits=47)) for blob in raw) / 1e6
+        inflate_s = time.perf_counter() - t0
+        raw_mb = sum(map(len, raw)) / 1e6
+        del raw
+        scan_s = {}
+        for threads in sorted({1, base["threads"], 4}):
+            t0 = time.perf_counter()
+            scan_cohort_regions(beds, base["chrom"], base["start_bp"], base["end_bp"], excluded,
+                                threads)
+            scan_s[threads] = time.perf_counter() - t0
+        write_s, sizes = {}, {}
+        for name, (args, kwargs) in seen_writes["card2"].items():
+            again_path = tmp / f"timed_{Path(args[0]).name}"
+            t0 = time.perf_counter()
+            getattr(fused, name)(again_path, *args[1:], **kwargs)
+            write_s[name] = time.perf_counter() - t0
+            sizes[name] = (again_path.stat().st_size / 1e6, len(content(again_path)) / 1e6)
+        scans = ", ".join(f"{sec:.3f} s on {t} thread(s)" for t, sec in scan_s.items())
+        print(f"[pipeline] native host route in parts (host clock, one call each after card run "
+              f"2): reading the {len(beds)} bed.gz files' bytes {read_s:.3f} s ({raw_mb:.1f} MB), "
+              f"inflating them in one thread (Python's zlib) {inflate_s:.3f} s ({text_mb:.1f} MB "
+              f"of text); scanning them {scans} of fused.stage "
+              f"{again_t['fused.stage']:.3f} s (the rest: the region universe, "
+              f"the dense fill, the read counts); "
+              + "; ".join(f"{name} {write_s[name]:.3f} s ({sizes[name][1]:.1f} MB of text, "
+                          f"{sizes[name][0]:.1f} MB written)" for name in write_s)
+              + f" of fused.write {again_t['fused.write']:.3f} s; {card}", flush=True)
 
         # ---- (a) step 4 against a CPU run, on its own terms --------------
-        cpu_out, cpu_t, cpu_launches = run("cpu", {"fused": True, "platform": "cpu"})
+        cpu_out, cpu_t, cpu_launches, _ = run("cpu", {"fused": True, "platform": "cpu"})
         check(not any(cpu_launches.values()), "the CPU run launched a kernel")
-        report("CPU run (device.platform: cpu, float64, the plain versions)", cpu_t)
+        report("CPU run (device.platform: cpu, float64, the plain versions; native host route)",
+               cpu_t)
         ids, ratios, z_card, scales = read_normalized_data(card_out / names["normalized"])
         cpu_ids, cpu_ratios, z_cpu, cpu_scales = read_normalized_data(cpu_out / names["normalized"])
         check(ids == cpu_ids and len(ids) == n, "pipeline step 4: sample IDs differ")
@@ -624,7 +785,8 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
         written = np.array([[dist for _, _, dist in nbrs[s]] for s in ids])
         nbr_scale_ok = all(ns == scales[nid] for s in ids for nid, ns, _ in nbrs[s])
         check(nbr_scale_ok, "pipeline step 5: a neighbor's scale is not that neighbor's")
-        got_d = d2.numpy()[np.arange(n)[:, None], got_idx]
+        d2_np = d2.numpy()  # kept for the panel branch's check below
+        got_d = d2_np[np.arange(n)[:, None], got_idx]
         tol = TIE_RTOL * want_d[:, -1].astype(np.float64)
         differ = neighbor_rows_differing(got_idx, got_d, want_idx, want_d, tol=tol)
         dist_err = np.abs(written - want_d.astype(np.float64) / (2 * r_use))
@@ -682,8 +844,79 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
               f"{float(rel.max()):.2e}", flush=True)
         print(f"[pipeline] second card run: fused.device {again_t['fused.device']:.3f} s vs "
               f"{card_t['fused.device']:.3f} s in the first; {card}", flush=True)
+
+        # ---- (c) the Python host route on the card -----------------------
+        py_out, py_t, py_launches, py_stage = run("card_python_host", {"fused": True},
+                                                  python_host=True)
+        check(py_launches == resident_launches, f"pipeline launches, Python host route: "
+                                                f"{py_launches}")
+        report("card run 3, Python host route (the port's Python reader and writers)", py_t)
+        check(py_stage.sample_ids == card_stage.sample_ids, "staged sample IDs differ by route")
+        for field in ("regions", "values", "mask"):
+            a, b = getattr(card_stage, field), getattr(py_stage, field)
+            check(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
+                  f"staged {field} differ between the native and the Python host route")
+        print(f"[pipeline] _stage's arrays from the two host routes: bitwise equal (regions "
+              f"{card_stage.regions.shape}, values and mask {card_stage.values.shape})", flush=True)
+        repeat_differs = [a for a, name in names.items()
+                          if content(card_out / name) != content(card2_out / name)]
+        if not repeat_differs:
+            for artifact, name in names.items():
+                check(content(py_out / name) == content(card_out / name),
+                      f"the {artifact} artifact differs between the host routes (decompressed)")
+            print("[pipeline] the card step is bitwise repeatable (card runs 1 and 2 wrote the "
+                  "same four artifacts, decompressed); the Python host route's four artifacts "
+                  "equal the native route's after decompression", flush=True)
+        else:
+            # the step is not repeatable: hold the native writers to the
+            # Python writers on one run's outputs instead
+            for name in ("write_normalized_output", "write_neighbors_dense"):
+                args, kwargs = seen_writes["card"][name]
+                again_path = tmp / f"rewritten_{Path(args[0]).name}"
+                with patched(native_host, {"lib": lambda: None}):
+                    getattr(fused, name)(again_path, *args[1:], **kwargs)
+                check(content(again_path) == content(args[0]),
+                      f"{name}: the Python writer's bytes differ from the native writer's")
+            print(f"[pipeline] the card step is NOT bitwise repeatable "
+                  f"({', '.join(repeat_differs)} differ between card runs 1 and 2), so the host "
+                  f"routes' artifacts are not compared; instead card run 1's outputs rewritten "
+                  f"by the Python writers equal "
+                  f"its native writers' files after decompression (the dipCN and haploid tables "
+                  f"have Python writers only)", flush=True)
+
+        # ---- (d) the row-panel branch from files -------------------------
+        pan_out, pan_t, pan_launches, _ = run("card_panels", {"fused": True}, panels=True)
+        dinfo = dipcn_select_info(n, k, torch.device("cuda"))
+        print(f"[pipeline] panel branch from files (d2_budget_bytes {panel_budget} < {n}^2*4): "
+              f"kernel launches {pan_launches}, expected {panel_launches} ({n_panels} panels of "
+              f"at most {CohortParams().row_block} rows; dipcn_select in its {dinfo['mode']} mode "
+              f"for {n} columns)", flush=True)
+        check(pan_launches == panel_launches, f"panel launches {pan_launches} != {panel_launches}")
+        report("card run 4, panel branch, native host route", pan_t)
+        check(content(pan_out / names["normalized"]) == content(card_out / names["normalized"]),
+              "panel branch: step 4 differs from the resident run's")
+        pan_nbrs, pan_scales = read_neighbors(pan_out / names["neighbors"])
+        check(list(pan_nbrs) == ids and pan_scales == scales, "panel branch: neighbor file rows")
+        pan_idx = np.array([[row_of[nid] for nid, _, _ in pan_nbrs[s]] for s in ids])
+        pan_written = np.array([[dist for _, _, dist in pan_nbrs[s]] for s in ids])
+        pan_d = d2_np[np.arange(n)[:, None], pan_idx]
+        res_tol = TIE_RTOL * got_d[:, -1].astype(np.float64)
+        pan_differ = neighbor_rows_differing(pan_idx, pan_d, got_idx, got_d, tol=res_tol)
+        written_off = float(np.abs(pan_written - written).max())
+        check(written_off <= QUANTUM, f"panel branch: a written distance is {written_off} off")
+        pan_dip_ids, pan_dip, _ = read_dipcn(pan_out / names["dipcn"])
+        check(pan_dip_ids == dip_ids, "panel branch: dipCN rows differ from the resident run's")
+        pan_sets = dipcn_sets_differ(pan_idx, got_idx, usable.numpy(), n_nbr)[want_ok]
+        pan_dip = np.asarray(pan_dip)
+        check(np.allclose(pan_dip[~pan_sets], dip_vals[~pan_sets], rtol=1e-5, atol=0),
+              "panel branch: dipCN differs from the resident run's beyond rtol 1e-5")
+        print(f"[pipeline] panel branch vs the resident run's files: step 4 identical; neighbor "
+              f"rows identical on {n - pan_differ.size} of {n}, the others differ only by ties "
+              f"within {TIE_RTOL:g} of the k-th distance; written distances within "
+              f"{written_off:.2f}; {len(pan_dip_ids)} dipCN rows, within rtol 1e-5 on the "
+              f"{int((~pan_sets).sum())} rows whose input sets agree; {card}", flush=True)
     check(not tmp.exists(), "the temporary directory was not removed")
-    return launches
+    return {name: launches[name] for name in wrappers}
 
 
 def main() -> int:
@@ -700,7 +933,7 @@ def main() -> int:
     print(f"[device] {card}  (torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
     from bench import make_matrix  # numpy only at import
-    from grid_tpu_torch import native
+    from grid_tpu_torch import native, native_host
     from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step
     from grid_tpu_torch.ops.gpu_kernels import (
@@ -724,10 +957,20 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(native.KERNELS)) as pool:  # one nvcc per source, together
+
+    def build_host() -> float:
+        start = time.perf_counter()
+        native_host.build()
+        return time.perf_counter() - start
+
+    # one nvcc per source and the host library's g++, all started together
+    with ThreadPoolExecutor(len(native.KERNELS) + 1) as pool:
+        host_build = pool.submit(build_host)
         list(pool.map(native.build, native.KERNELS))
-    print(f"[build] nvcc of {', '.join(native.KERNELS)} in parallel: "
+        host_build_s = host_build.result()
+    print(f"[build] nvcc of {', '.join(native.KERNELS)} and g++ of the host library in parallel: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    host_phase(host_build_s)
     for name in native.KERNELS:
         native.load(name)
         for line in native.build(name).with_suffix(".log").read_text().splitlines():

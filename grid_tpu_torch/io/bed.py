@@ -5,17 +5,37 @@ Consumes format §2.3.4 (mosdepth per-bin depth: ``chrom start end meandepth``,
 ref consumer grid/utils/normalize_mosdepth.py:262-285) and §2.3.5 (repeat
 mask BED -> kb-bin exclusion sets, ref grid/utils/normalize_mosdepth.py:177-207).
 
-The reader is the JAX package's pure-Python one; its native C++ reader is
-not ported.
+Both readers take the native route first: the host library's C++ reader
+(:mod:`grid_tpu_torch.native_host`, a copy of the JAX package's), as in
+``grid_tpu/io/bed.py``. Where the library is not loaded (warned once, with
+the compiler's error) they use their Python versions, which are kept here as
+the plain versions. A file the native reader returns a non-zero code for (a
+corrupt or truncated file) is read again by the Python version, which then
+raises as the reference does; :data:`native_fallbacks` counts those files.
 """
 
 from __future__ import annotations
 
 import gzip
+import threading
 from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
+
+from grid_tpu_torch import native_host
+from grid_tpu_torch.native_host import bedgz as native_bedgz
+
+#: files the native reader returned a non-zero code for and the Python
+#: reader read again, since the process started (a test or a run may reset it)
+native_fallbacks = 0
+_FALLBACK_LOCK = threading.Lock()
+
+
+def _count_fallback() -> None:
+    global native_fallbacks
+    with _FALLBACK_LOCK:
+        native_fallbacks += 1
 
 
 def norm_chrom(chrom: str) -> str:
@@ -78,6 +98,17 @@ def read_regions_bed_gz(
 
     Returns three np.ndarrays: (starts int64, ends int64, depths float64).
     """
+    if native_host.lib() is not None:
+        try:
+            return native_bedgz.read_regions_bed_gz(path, chromosome, start, end, excluded)
+        except native_bedgz.NativeReadError:
+            _count_fallback()
+    return _read_regions_bed_gz_python(path, chromosome, start, end, excluded)
+
+
+def _read_regions_bed_gz_python(path, chromosome=None, start=None, end=None, excluded=None):
+    """The plain version of :func:`read_regions_bed_gz`: gzip and a Python
+    line loop."""
     chrom_to_match = norm_chrom(chromosome) if chromosome else None
     starts: list[int] = []
     ends: list[int] = []
@@ -112,6 +143,63 @@ def read_regions_bed_gz(
         np.asarray(ends, dtype=np.int64),
         np.asarray(depths, dtype=np.float64),
     )
+
+
+def read_regions_bed_gz_grouped(path, excluded=None):
+    """Multi-chromosome variant of :func:`read_regions_bed_gz`: same filter
+    semantics (depth > 0, repeat-mask exclusion), NO window restriction, and
+    the chromosome is preserved.
+
+    Returns a list of ``(chrom, starts, ends, depths)`` segments in file
+    order — mosdepth output is grouped by chromosome, so typically one
+    segment per chromosome.
+    """
+    if native_host.lib() is not None:
+        try:
+            return native_bedgz.read_regions_bed_gz_grouped(path, excluded)
+        except native_bedgz.NativeReadError:
+            _count_fallback()
+    return _read_regions_bed_gz_grouped_python(path, excluded)
+
+
+def _read_regions_bed_gz_grouped_python(path, excluded=None):
+    """The plain version of :func:`read_regions_bed_gz_grouped`."""
+    excluded = excluded or {}
+    segments: list[tuple[str, np.ndarray, np.ndarray, np.ndarray]] = []
+    cur = None
+    starts: list[int] = []
+    ends: list[int] = []
+    depths: list[float] = []
+
+    def _emit():
+        if cur is not None and starts:
+            segments.append(
+                (cur, np.asarray(starts, np.int64), np.asarray(ends, np.int64),
+                 np.asarray(depths, np.float64))
+            )
+
+    with gzip.open(path, "rt") as f:
+        for line in f:
+            fields = line.strip().split("\t")
+            if len(fields) < 4:
+                continue
+            chrom_f = norm_chrom(fields[0])
+            try:
+                reg_start = int(fields[1])
+                reg_end = int(fields[2])
+                depth = float(fields[3])
+            except ValueError:
+                continue
+            if depth <= 0 or region_overlaps_mask(chrom_f, reg_start, reg_end, excluded):
+                continue
+            if chrom_f != cur:
+                _emit()
+                cur, starts, ends, depths = chrom_f, [], [], []
+            starts.append(reg_start)
+            ends.append(reg_end)
+            depths.append(depth)
+    _emit()
+    return segments
 
 
 def find_bed_gz_for_sample(sample_id: str, mosdepth_dir) -> Path:

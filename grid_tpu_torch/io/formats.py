@@ -15,17 +15,26 @@ it is exchange-compatible with:
 (4/5 bed.gz + repeat mask live in :mod:`grid_tpu_torch.io.bed`; 9/10 IBS/IBD
 inputs in :mod:`grid_tpu_torch.io.hap_neighbors`.)
 
-The writers are the JAX package's Python writers: the decompressed bytes
-are identical to its output. Its native (C++) fast paths are not ported.
+The two large writers, the normalized matrix and the neighbors file, take
+the native route first, as in ``grid_tpu/io/formats.py``: the host
+library's C++ writers (:mod:`grid_tpu_torch.native_host`, copies of the
+JAX package's) format the cells and write level-1 BGZF blocks. They are
+skipped for ``GRID_TPU_NATIVE_WRITERS=0``, for ``GRID_TPU_GZ_LEVEL`` other
+than 1 and where the library is not loaded (warned once); then the Python
+writers below run. A native writer that fails raises. Every route gives the
+decompressed bytes of the JAX package's Python writers.
 """
 
 from __future__ import annotations
 
+import ctypes
 import gzip
 import os
 from pathlib import Path
 
 import numpy as np
+
+from grid_tpu_torch import native_host
 
 
 def _gz_level() -> int:
@@ -127,6 +136,10 @@ def write_normalized_output(
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
 
+    if _native_write_normalized(path, sample_ids, sample_scales, z_sel, m_sel, sel_means,
+                                sel_ratios):
+        return
+
     def _fmt_row(vals, valid, fmt):
         # vectorized %-formatting (np.char.mod uses the same C printf as
         # f-strings, so output is byte-identical to a per-cell loop)
@@ -207,6 +220,10 @@ def write_neighbors_dense(path, sample_ids, scales, nbr_idx, nbr_norm_dists) -> 
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
 
+    # k=0 lines are the IDs and scales alone: the Python writer's, as in grid_tpu
+    if k and _native_write_neighbors(path, sample_ids, scales, nbr_idx, nbr_norm_dists):
+        return
+
     own = np.char.mod("%.2f", scales.astype(float))
     cells = np.empty((n, 2 + 3 * k), dtype=object)
     cells[:, 0] = ids
@@ -219,6 +236,83 @@ def write_neighbors_dense(path, sample_ids, scales, nbr_idx, nbr_norm_dists) -> 
         for row in cells:
             out.write("\t".join(row))
             out.write("\n")
+
+
+# ------------------------------------------------------ native writers ---
+
+# what grid_write_normalized / grid_write_neighbors return (textgz.cpp)
+_WRITE_ERRORS = {-1: "the file did not open", -2: "a write or the close failed",
+                 -3: "a neighbor index is out of range"}
+
+
+def _native_writer_lib():
+    """The host library when the native writers apply, else None."""
+    if os.environ.get("GRID_TPU_NATIVE_WRITERS", "1") == "0":
+        return None
+    if os.environ.get("GRID_TPU_GZ_LEVEL", "1") != "1":
+        return None  # the native sink writes level 1 only
+    return native_host.lib()
+
+
+def _ids_buffer(sample_ids) -> bytes:
+    """The IDs as the C writers take them: UTF-8, each ended by a NUL."""
+    return b"".join(str(s).encode() + b"\0" for s in sample_ids)
+
+
+def _f64(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a, dtype=np.float64))
+
+
+def _check_write(function: str, path, rc: int) -> None:
+    if rc != 0:
+        raise OSError(f"{function}({path}) failed with code {rc}: "
+                      f"{_WRITE_ERRORS.get(rc, 'unknown code')}")
+
+
+def _native_write_normalized(path, sample_ids, scales, z_sel, m_sel, sel_means, sel_ratios) -> bool:
+    """grid_write_normalized; False when the native writers do not apply."""
+    lib = _native_writer_lib()
+    if lib is None:
+        return False
+    pd = ctypes.POINTER(ctypes.c_double)
+    n = len(sample_ids)
+    r = z_sel.shape[1]
+    z64, s64, mu64, ra64 = _f64(z_sel), _f64(scales), _f64(sel_means), _f64(sel_ratios)
+    if z64.shape != (n, r) or m_sel.shape != (n, r) or s64.shape != (n,) or mu64.shape != (r,) \
+            or ra64.shape != (r,):
+        raise ValueError(f"write_normalized_output: shapes z {z64.shape}, mask {m_sel.shape}, "
+                         f"scales {s64.shape}, means {mu64.shape}, ratios {ra64.shape} for "
+                         f"{n} samples")
+    m8 = np.ascontiguousarray(np.asarray(m_sel, dtype=np.uint8))
+    rc = lib.grid_write_normalized(
+        str(path).encode(), _ids_buffer(sample_ids), n, r,
+        s64.ctypes.data_as(pd), z64.ctypes.data_as(pd),
+        m8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        mu64.ctypes.data_as(pd), ra64.ctypes.data_as(pd),
+    )
+    _check_write("grid_write_normalized", path, rc)
+    return True
+
+
+def _native_write_neighbors(path, sample_ids, scales, nbr_idx, dists) -> bool:
+    """grid_write_neighbors; False when the native writers do not apply."""
+    lib = _native_writer_lib()
+    if lib is None:
+        return False
+    pd = ctypes.POINTER(ctypes.c_double)
+    s64 = _f64(scales)
+    idx64 = np.ascontiguousarray(np.asarray(nbr_idx, dtype=np.int64))
+    d64 = _f64(dists)
+    n, k = idx64.shape
+    if len(sample_ids) != n or s64.shape != (n,) or d64.shape != (n, k):
+        raise ValueError(f"write_neighbors_dense: {len(sample_ids)} IDs, scales {s64.shape}, "
+                         f"indices {idx64.shape}, distances {d64.shape}")
+    rc = lib.grid_write_neighbors(
+        str(path).encode(), _ids_buffer(sample_ids), n, k, s64.ctypes.data_as(pd),
+        idx64.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), d64.ctypes.data_as(pd),
+    )
+    _check_write("grid_write_neighbors", path, rc)
+    return True
 
 
 def read_neighbors(path):

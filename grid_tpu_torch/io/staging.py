@@ -13,15 +13,21 @@ data — half the ingestion IO with bit-identical semantics.
   ``np.unique`` / ``np.searchsorted`` instead of hash lookups;
 - duplicate regions within one file follow the reference's dict semantics
   (later lines overwrite earlier ones);
-- parallel scanning uses a thread pool (zlib releases the GIL).
+- parallel scanning uses a thread pool (the native reader releases the
+  GIL for the whole file; zlib releases it in the Python reader);
+- before a cohort scan, glibc's trim and mmap thresholds are raised once
+  per process (:func:`_bulk_alloc_mode`), so the reader's per-file scratch
+  is reused instead of faulted in again for every file.
 
 Ported: the in-memory stager and the bounded-memory streaming stager. Not
 ported: the sharded stager of the JAX package (it belongs to the sharded
-layer), its native bed.gz reader and its allocator tuning for that reader.
+layer).
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
@@ -47,6 +53,33 @@ class CohortStage(NamedTuple):
     regions: np.ndarray
     values: np.ndarray
     mask: np.ndarray
+
+
+_BULK_ALLOC_DONE = False
+
+
+def _bulk_alloc_mode():
+    """Raise glibc's trim and mmap thresholds to 128 MB, once per process,
+    before a cohort scan (``grid_tpu/io/staging.py``). The reader's per-file
+    scratch is ~100 MB of short-lived buffers; at the default thresholds
+    glibc maps them and hands the pages back on free, so every file faults
+    them in again. The cost: freed scratch stays resident up to the heap's
+    high-water mark (one file's scratch). ``GRID_TPU_NO_MALLOPT=1`` opts
+    out; a no-op off glibc."""
+    global _BULK_ALLOC_DONE
+    if _BULK_ALLOC_DONE:
+        return
+    _BULK_ALLOC_DONE = True
+    if os.environ.get("GRID_TPU_NO_MALLOPT") == "1":
+        return
+    try:
+        libc = ctypes.CDLL("libc.so.6")
+    except OSError:  # not glibc
+        return
+    m_trim_threshold, m_mmap_threshold = -1, -3
+    libc.mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
+    libc.mallopt(m_trim_threshold, 128 << 20)
+    libc.mallopt(m_mmap_threshold, 128 << 20)
 
 
 def _dedupe_last_wins(starts, ends, depths):
@@ -97,7 +130,7 @@ def scan_cohort_regions(
     (reference behavior: per-sample failure leaves the cohort running,
     grid/utils/normalize_mosdepth.py:353-355).
     """
-
+    _bulk_alloc_mode()
     empty = (np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.float64))
 
     def _scan(item):
@@ -374,7 +407,7 @@ def stage_cohort_streaming(
             mosdepth_dir, samples, chromosome, start, end, excluded,
             min_depth, max_depth, threads, console,
         )
-
+    _bulk_alloc_mode()
 
     def _scan(item):
         sid, path = item

@@ -59,7 +59,7 @@ class CohortParams(NamedTuple):
     quantize: bool = True  # mimic %.2f file round-trip of scales/z
     row_block: int = 512  # kNN panel rows (panel branch)
     dipcn_lists: bool = False  # dipCN from the sorted lists (not ported yet)
-    use_pallas: bool = False  # JAX package's Pallas kNN branch (not ported)
+    use_pallas: bool = False  # accepted, no effect: the hand kernels are the path on the card
     # the [N, N] distance matrix stays resident while N*N*itemsize fits
     # this budget; beyond it the step streams row panels (0: always panels)
     d2_budget_bytes: int = 2 << 30
@@ -94,11 +94,6 @@ def _q2(x):
 
 def _check_branch(params: CohortParams, n: int) -> None:
     """Raise for the branches of the JAX cohort step not ported yet."""
-    if params.use_pallas:
-        raise NotImplementedError(
-            "use_pallas=True is the JAX package's Pallas kNN branch; the port runs its"
-            " hand kernels on the d2-resident and row-panel branches instead"
-        )
     if params.dipcn_lists:
         raise NotImplementedError("dipcn_lists=True is not ported yet (ROADMAP.md queue 1)")
     if params.num_neighbors > n - 1:
@@ -147,19 +142,22 @@ def cohort_step(
 
     Args:
         values: [N, R] raw binned depths.
-        mask: [N, R] bool validity of each depth cell.
+        mask: [N, R] validity of each depth cell (any dtype: non-zero is valid).
         reads: [N] VNTR-window read counts (junk where ~reads_valid).
-        reads_valid: [N] bool.
+        reads_valid: [N] validity of each read count (non-zero is valid).
         hap_nbr_idx/w/valid: [2N, K] padded haplotype neighbors
             (see grid_tpu_torch.io.hap_neighbors.pad_hap_neighbors).
         params: hyperparameters.
-        row_valid: optional [N] bool marking padding rows; invalid rows are
-            excluded from all statistics.
+        row_valid: optional [N] marking padding rows (non-zero is valid);
+            invalid rows are excluded from all statistics.
     """
     n = values.shape[0]
     _check_branch(params, n)
+    # the masks as bool whatever their dtype, as grid_tpu's step does
+    mask, reads_valid = mask.bool(), reads_valid.bool()
     n_rows = None
     if row_valid is not None:
+        row_valid = row_valid.bool()
         mask = mask & row_valid[:, None]
         n_rows = row_valid.sum()  # padding must not inflate the N-1 denom
 

@@ -207,6 +207,10 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
         log(console, "[check_index] skipped: the port does not read alignment indexes",
             style="info")
 
+    if config_data.get("device", {}).get("use_pallas"):
+        log(console, "device.use_pallas has no effect: the hand kernels are always the path on "
+            "the card", style="info")
+
     if fused_steps_enabled(config_data):
         # steps 4-7 as one staged ingest + one fused device step
         if all(resume.should_skip(name, config_data) for name in FUSED_STEP_NAMES):
@@ -217,5 +221,10 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
             for name, path in zip(FUSED_STEP_NAMES, outputs):
                 resume.mark(name, config_data, [path])
 
-    timer.dump(Path(config_data.get("output_dir", ".")) / "step_timings.json")
+    # the artifacts are written: a timings file that cannot be written
+    # costs a warning, not the run (as in grid_tpu/pipeline.py)
+    try:
+        timer.dump(Path(config_data.get("output_dir", ".")) / "step_timings.json")
+    except OSError as e:
+        log(console, f"step_timings.json was not written: {e}", style="warning")
     return timer.report()

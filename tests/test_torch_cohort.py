@@ -159,7 +159,7 @@ def test_params_match_grid_tpu_defaults():
 
 
 @pytest.mark.parametrize("change,exc", [
-    (dict(use_pallas=True), NotImplementedError),
+    (dict(dipcn_lists=True, d2_budget_bytes=0), NotImplementedError),
     (dict(dipcn_lists=True), NotImplementedError),
     (dict(num_neighbors=N), ValueError),
     (dict(num_neighbors=N, d2_budget_bytes=0), ValueError),
@@ -169,3 +169,38 @@ def test_unported_branches_raise(cohort, change, exc):
     inputs = inputs_to_torch(values, mask, reads, reads_valid, hi, hw, hv, "cpu", torch.float64)
     with pytest.raises(exc):
         cohort_step(*inputs, CohortParams(**change))
+
+
+def test_use_pallas_is_accepted_and_has_no_effect(cohort):
+    """``use_pallas`` names the JAX package's Pallas branch; the port's hand
+    kernels are always its path, so the field is accepted and changes
+    nothing (as ``device.use_pallas`` in the pipeline)."""
+    values, mask, reads, reads_valid, hi, hw, hv = cohort
+    inputs = inputs_to_torch(values, mask, reads, reads_valid, hi, hw, hv, "cpu", torch.float64)
+    for branch in ({}, {"d2_budget_bytes": 0}):
+        params = CohortParams(num_neighbors=10, n_nbr=5, n_iters=2, **branch)
+        want = cohort_step(*inputs, params)
+        got = cohort_step(*inputs, params._replace(use_pallas=True))
+        for f, x, y in zip(want._fields, got, want):
+            assert torch.equal(x.nan_to_num(), y.nan_to_num()), f
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32], ids=["uint8", "float"])
+def test_masks_of_other_dtypes_are_coerced_to_bool(cohort, dtype):
+    """``mask``, ``reads_valid`` and ``row_valid`` are taken as bool whatever
+    their dtype, as grid_tpu's cohort_step does: the outputs equal the bool
+    call's."""
+    values, mask, reads, reads_valid, hi, hw, hv = cohort
+    row_valid = np.ones(N, bool)
+    row_valid[-3:] = False
+    params = CohortParams(num_neighbors=10, n_nbr=5, n_iters=2, quantize=False)
+    inputs = inputs_to_torch(values, mask, reads, reads_valid, hi, hw, hv, "cpu", torch.float64)
+    want = cohort_step(*inputs, params, row_valid=torch.from_numpy(row_valid))
+    other = list(inputs)
+    # a float mask holds values other than 1 where it is valid
+    scale = 0.5 if dtype.is_floating_point else 3
+    other[1] = inputs[1].to(dtype) * scale
+    other[3] = inputs[3].to(dtype) * scale
+    got = cohort_step(*other, params, row_valid=torch.from_numpy(row_valid).to(dtype) * scale)
+    for f, x, y in zip(want._fields, got, want):
+        assert x.dtype == y.dtype and torch.equal(x.nan_to_num(), y.nan_to_num()), f

@@ -363,3 +363,44 @@ def test_cli_synth_validate_wgs_devices(tmp_path):
     assert runner.invoke(cli, ["validate", str(config_file)]).exit_code != 0
     res = runner.invoke(cli, ["devices"])
     assert res.exit_code == 0 and "backend: torch" in res.output
+
+
+class Recorder:
+    """A console that keeps what the pipeline logs."""
+
+    def __init__(self):
+        self.lines = []
+
+    def print(self, msg, style=None):
+        self.lines.append((msg, style))
+
+
+def test_timings_file_that_cannot_be_written(cohort, tmp_path, monkeypatch):
+    """A step_timings.json that cannot be written costs a warning, not the
+    run, as in grid_tpu: the artifacts stay and the timings are returned."""
+    from grid_tpu_torch.utils.timing import StepTimer
+
+    def refuse(self, path):
+        raise PermissionError(f"{path}: read-only")
+
+    monkeypatch.setattr(StepTimer, "dump", refuse)
+    cfg = run_config(cohort, tmp_path, {"fused": True, "platform": "cpu"})
+    console = Recorder()
+    timings = run_wgs_pipeline(console=console, config=cfg)
+    assert set(timings) == set(SPANS)
+    assert all((tmp_path / name).exists() for name in ARTIFACTS.values())
+    assert not (tmp_path / "step_timings.json").exists()
+    warned = [(msg, style) for msg, style in console.lines if "step_timings.json" in msg]
+    assert len(warned) == 1 and warned[0][1] == "warning"
+    assert warned[0][0].startswith("step_timings.json was not written")
+    assert "read-only" in warned[0][0]
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_use_pallas_logs_that_it_has_no_effect(cohort, tmp_path, use_pallas):
+    cfg = run_config(cohort, tmp_path, {"fused": True, "platform": "cpu", "use_pallas": use_pallas})
+    console = Recorder()
+    run_wgs_pipeline(console=console, config=cfg)
+    said = [msg for msg, _ in console.lines if "device.use_pallas" in msg]
+    assert said == (["device.use_pallas has no effect: the hand kernels are always the path on "
+                     "the card"] if use_pallas else [])

@@ -36,6 +36,8 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 assert "triton" not in sys.modules, "triton is imported at launch time only"
+from grid_tpu_torch import native_host
+assert not native_host._LOADED, "the host library is built and loaded at first use only"
 print("\n".join(names))
 """
 
@@ -50,7 +52,8 @@ def test_every_module_imports_without_jax_or_grid_tpu():
                  "grid_tpu_torch.io.hap_neighbors", "grid_tpu_torch.utils.device",
                  "grid_tpu_torch.pipeline", "grid_tpu_torch.steps.fused", "grid_tpu_torch.config",
                  "grid_tpu_torch.synth", "grid_tpu_torch.cli", "grid_tpu_torch.io.staging",
-                 "grid_tpu_torch.io.formats", "grid_tpu_torch.io.bed"):
+                 "grid_tpu_torch.io.formats", "grid_tpu_torch.io.bed",
+                 "grid_tpu_torch.native_host", "grid_tpu_torch.native_host.bedgz"):
         assert name in imported
 
 
