@@ -99,10 +99,33 @@ before the last line):
              resident run's, and its neighbor and dipCN files the resident
              run's under the tie rule (distances from the rebuilt d2).
 
+10. files — the pipeline in file mode on phase 9's cohort: ``run_wgs_pipeline``
+             on the repo's default config (``device.fused`` unset, no platform
+             named, defaults applied), native host route, with a console that
+             keeps every line. Steps 4-7 run one after another on the card,
+             each reading the previous step's file. Fails on any line logged
+             at danger or warning, on a bed.gz file that falls back, unless
+             step_timings.json holds the four steps and no fused step, and
+             unless the call launched the column statistics twice, the split
+             once, the panel Gram once per 512 rows (5), the resident Gram and
+             dipCN kernels never. Step 4's file must equal the fused card run's
+             after decompression or differ in counted cells one quantum apart
+             (reported); steps 5-7 are held to the plain route rebuilt from
+             this run's own files, as in phase 9, and steps 5-6 to the fused
+             run's files under the tie rule (a row's tolerance grows by twice
+             the most its distances moved between the two runs' z; dipCN on
+             rows whose input sets and scales agree). A second call, with
+             ``exact_phasing`` and 20 bootstrap replicates and ``resume: true``
+             (steps 4-6 skipped, no kernel launched), writes both haploid
+             files; its rows are finite where the Jacobi run's are. Prints each
+             step's seconds, each span, the reference's Python readers' share
+             and the host share beside the fused run's.
+
 The last three lines are the kernels' JSON object (the panel-mode numbers
-at N=65,536; each entry's "slice_2504" holds phase 5's and "pipeline_2504"
-the launches of phase 9's pipeline call), the card's name and power limit,
-and {"ok": true, "device": {...}}.
+at N=65,536; each entry's "slice_2504" holds phase 5's, "pipeline_2504"
+the launches of phase 9's pipeline call and "pipeline_files_2504" those of
+phase 10's), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -144,6 +167,13 @@ TIE_RTOL = 1e-5
 PIPELINE_N, PIPELINE_FLANK, PIPELINE_SEED = 2504, 1003, 2504
 PIPELINE_LAUNCHES = {"masked_column_stats": 2, "zprep_gram": 1, "dipcn_from_distances_gpu": 1}
 QUANTUM = 0.01001  # one %.2f step, with room for the last digit of a float
+# phase 10: the file-mode steps, their spans, and the split's and panels'
+# launches beside the three wrappers'
+FILE_STEPS = ("normalize", "neighbors", "compute_diploid_genotypes", "compute_haploid_genotypes")
+FILE_SPANS = ("normalize.stage", "normalize.device", "neighbors.read", "neighbors.device",
+              "dipcn.read", "dipcn.stage", "dipcn.device", "haploid.phase")
+FILE_DEVICE_SPANS = ("normalize.device", "neighbors.device", "dipcn.device", "haploid.phase")
+BOOT_REPLICATES = 20
 
 
 def check(ok, msg: str) -> None:
@@ -215,6 +245,19 @@ def patched(module, attrs: dict):
     finally:
         for name, value in saved.items():
             setattr(module, name, value)
+
+
+class Recorder:
+    """A console that keeps every line the pipeline logs, with its style."""
+
+    def __init__(self):
+        self.lines = []
+
+    def print(self, msg, style=None):
+        self.lines.append((str(msg), style))
+
+    def failures(self) -> list:
+        return [(msg, style) for msg, style in self.lines if style in ("danger", "warning")]
 
 
 def host_phase(build_s: float) -> None:
@@ -335,7 +378,7 @@ def panel_phase(dev, card: str, wrappers: dict) -> dict:
     JSON fields at the panel shapes."""
     from types import SimpleNamespace
 
-    from bench import make_matrix
+    from grid_tpu_torch.synth import make_matrix
     from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
     from grid_tpu_torch.ops.gpu_kernels import (
@@ -553,7 +596,7 @@ def panel_phase(dev, card: str, wrappers: dict) -> dict:
 
 def branch_phase(dev, card: str) -> None:
     """Phase 8: the resident and the panel branch on one N=16,384 cohort."""
-    from bench import make_matrix
+    from grid_tpu_torch.synth import make_matrix
     from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
 
@@ -580,26 +623,275 @@ def branch_phase(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def rebuild_from_files(tag: str, out, names: dict, ids, ratios, z, scales: dict, ibs_file, k: int,
+                       n_nbr: int, fused: bool):
+    """Steps 5-7 rebuilt on the CPU by the plain route from one run's own
+    written files (its normalized matrix: ``ids``, ``ratios``, ``z``,
+    ``scales``; its read counts; its dipCN table), and that run's neighbor,
+    dipCN and haploid files held to them: each neighbor row, with its
+    columns' distances taken from the rebuilt d2, equals the rebuilt list
+    except ties within TIE_RTOL of the row's k-th distance; the written
+    distances are those at %.2f; dipCN within rtol 1e-5 on rows whose input
+    sets agree, the dipCN rows exactly the valid ones; the haploid table
+    within %.2f rounding of N_ITERS plain sweeps over the written dipCN.
+    ``fused`` names the step that wrote the lists: the fused step keeps rows
+    without a valid cell out of every list and their reads out of every
+    mean; the file-mode step (``steps/neighbors.py``) sees every written row.
+    Returns the rebuilt and the read arrays in a namespace."""
+    from types import SimpleNamespace
+
+    from grid_tpu_torch.io.formats import read_counts_tsv, read_dipcn, read_neighbors
+    from grid_tpu_torch.io.hap_neighbors import load_ibs_neighbors, pad_hap_neighbors
+    from grid_tpu_torch.ops.knn import d2_matrix, region_filter_mask, sorted_smallest_k
+    from grid_tpu_torch.ops.phasing import compute_imputed, phase_haplotypes
+    from grid_tpu_torch.ops.select import dipcn_from_distances
+    from torch_parity import dipcn_sets_differ, neighbor_rows_differing
+
+    n = len(ids)
+    t0 = time.perf_counter()
+    zt = torch.tensor(np.nan_to_num(z), dtype=torch.float32)
+    zmask = torch.tensor(~np.isnan(z))
+    region = region_filter_mask(torch.tensor(ratios, dtype=torch.float32), 1.0, 1000.0,
+                                n_written=len(ratios))
+    r_use = max(int(region.sum()), 1)
+    sample_ok = zmask.any(dim=1)
+    d2 = d2_matrix(zt, zmask, region, ZMAX, row_valid=sample_ok if fused else None)
+    want_d, want_idx = (t.numpy() for t in sorted_smallest_k(d2, k))
+    row_of = {sid: i for i, sid in enumerate(ids)}
+    nbrs, own_scales = read_neighbors(out / names["neighbors"])
+    check(list(nbrs) == ids and all(len(nbrs[s]) == k for s in ids),
+          f"{tag} step 5: the neighbor file's rows or widths")
+    check(own_scales == scales, f"{tag} step 5: scales differ from the normalized file's")
+    got_idx = np.array([[row_of[nid] for nid, _, _ in nbrs[s]] for s in ids])
+    written = np.array([[dist for _, _, dist in nbrs[s]] for s in ids])
+    nbr_scale_ok = all(ns == scales[nid] for s in ids for nid, ns, _ in nbrs[s])
+    check(nbr_scale_ok, f"{tag} step 5: a neighbor's scale is not that neighbor's")
+    d2_np = d2.numpy()  # returned for the checks that follow
+    got_d = d2_np[np.arange(n)[:, None], got_idx]
+    tol = TIE_RTOL * want_d[:, -1].astype(np.float64)
+    differ = neighbor_rows_differing(got_idx, got_d, want_idx, want_d, tol=tol)
+    dist_err = np.abs(written - want_d.astype(np.float64) / (2 * r_use))
+    dist_tol = 0.005 + 1e-6 + tol[:, None] / (2 * r_use)
+    check((dist_err <= dist_tol).all(), f"{tag} step 5: a written distance is off by "
+                                        f"{float((dist_err - dist_tol).max()):.3e} beyond %.2f")
+    print(f"[{tag}] step 5, the card's neighbor file vs the plain route on the card's own "
+          f"written z (r_use {r_use}): {n} rows compared, {n - differ.size} identical, "
+          f"{differ.size} differ only by ties within {TIE_RTOL:g} of the row's k-th distance; "
+          f"written distances equal d2/(2 r_use) at %.2f (max off {float(dist_err.max()):.4f})",
+          flush=True)
+
+    reads_map = read_counts_tsv(out / "read_counts.tsv")
+    reads = torch.tensor([reads_map.get(s, float("nan")) for s in ids], dtype=torch.float32)
+    usable = torch.tensor([s in reads_map for s in ids])
+    if fused:
+        usable &= sample_ok
+    w = reads / torch.tensor([scales[s] for s in ids], dtype=torch.float32)
+    want_dip, want_ok = (t.numpy() for t in dipcn_from_distances(d2, w, w, usable, usable,
+                                                                 k=k, n_nbr=n_nbr))
+    del d2
+    dip_ids, dip_vals, _ = read_dipcn(out / names["dipcn"])
+    check(dip_ids == [s for s, ok in zip(ids, want_ok) if ok], f"{tag} step 6: dipCN rows")
+    sets_differ = dipcn_sets_differ(got_idx, want_idx, usable.numpy(), n_nbr)[want_ok]
+    dip_vals = np.asarray(dip_vals)
+    check(np.isfinite(dip_vals).all(), f"{tag} step 6: non-finite dipCN")
+    check(np.allclose(dip_vals[~sets_differ], want_dip[want_ok][~sets_differ], rtol=1e-5, atol=0),
+          f"{tag} step 6: dipCN differs beyond rtol 1e-5")
+    print(f"[{tag}] step 6: {len(dip_ids)} dipCN rows, the plain route's valid rows; within "
+          f"rtol 1e-5 on the {int((~sets_differ).sum())} rows whose input sets agree "
+          f"({int(sets_differ.sum())} rows change a set by ties)", flush=True)
+
+    # ---- step 7 rebuilt from the card's own dipCN --------------------
+    hap_nbrs = load_ibs_neighbors(ibs_file, {s: i for i, s in enumerate(dip_ids)}, 10)
+    hi, hw, hv = (torch.tensor(a) for a in pad_hap_neighbors(hap_nbrs, 10))
+    res = phase_haplotypes(torch.tensor(dip_vals, dtype=torch.float32), hi, hw, hv, 1, N_ITERS)
+    imp = compute_imputed(res.hap_irrs, hi, hw, hv, res.mean_irrs).numpy()
+    hap = res.hap_irrs.numpy()
+    want_hap = np.stack([dip_vals, hap[0::2], hap[1::2], imp[0::2], imp[1::2]], axis=1)
+    lines = (out / names["haploid"]).read_text().splitlines()
+    check(lines[0].split("\t")[0] == "ID" and [ln.split("\t")[0] for ln in lines[1:]] == dip_ids,
+          f"{tag} step 7: haploid rows")
+    got_hap = np.array([[float(v) for v in ln.split("\t")[1:]] for ln in lines[1:]])
+    check(np.array_equal(np.isnan(got_hap), np.isnan(want_hap)), f"{tag} step 7: NaN cells")
+    hap_err = np.nan_to_num(np.abs(got_hap - want_hap))
+    check(hap_err.max() <= QUANTUM / 2 + 1e-4, f"{tag} step 7: off by {hap_err.max()}")
+    print(f"[{tag}] step 7: {len(dip_ids)} haploid rows, {int(res.phased.sum())} phased; every "
+          f"value within %.2f rounding of {N_ITERS} plain sweeps over the card's dipCN (max off "
+          f"{float(hap_err.max()):.4f}); comparisons took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return SimpleNamespace(row_of=row_of, idx=got_idx, d=got_d, written=written, d2=d2_np,
+                           usable=usable.numpy(), ok=want_ok, dip_ids=dip_ids, dip_vals=dip_vals,
+                           d2_kth=want_d[:, -1])
+
+
+def files_phase(card: str, counted: dict, tmp: Path, cohort: dict, base: dict, names: dict,
+                fused, k: int, n_nbr: int) -> dict:
+    """Phase 10: the pipeline in file mode on phase 9's cohort (see the
+    module docstring). ``fused`` holds phase 9's resident card run: its
+    output directory, warm timings, sample IDs, scales and the plain route
+    rebuilt from its files. Returns the launches of the file-mode call."""
+    import grid_tpu_torch.io.bed as port_bed
+    from grid_tpu_torch.config import apply_defaults
+    from grid_tpu_torch.models.cohort import CohortParams
+    from grid_tpu_torch.pipeline import run_wgs_pipeline
+    from grid_tpu_torch.io.formats import read_normalized_data
+    from torch_parity import dipcn_sets_differ, neighbor_rows_differing
+
+    n = len(fused.ids)
+    out = tmp / "files"
+    out.mkdir()
+    (out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
+    cfg = copy.deepcopy(base)
+    cfg.pop("device", None)  # the repo's default: no fused path, no platform named
+    cfg["output_dir"] = str(out)
+    cfg = apply_defaults(cfg)  # every key set: validation has nothing to warn of
+
+    def run(config, label):
+        console = Recorder()
+        for fn in counted.values():
+            fn.launches = 0
+        port_bed.native_fallbacks = 0
+        timings = run_wgs_pipeline(console=console, config=config)
+        launches = {name: fn.launches for name, fn in counted.items()}
+        check(not console.failures(), f"files, {label}: logged {console.failures()[:3]}")
+        check(port_bed.native_fallbacks == 0,
+              f"files, {label}: {port_bed.native_fallbacks} bed.gz files fell back to Python")
+        check(json.loads((out / "step_timings.json").read_text()) == timings,
+              f"files, {label}: step_timings.json differs from the returned timings")
+        check("fused_steps_4_7" not in timings, f"files, {label}: the fused step ran")
+        return timings, launches, console
+
+    t, launches, _ = run(cfg, "run 1")
+    want = {"masked_column_stats": 2, "zprep_gram": 0, "dipcn_from_distances_gpu": 0,
+            "zprep_split": 1, "zprep_gram_panel": -(-n // CohortParams().row_block)}
+    print(f"[files] run_wgs_pipeline with the default config (device.fused unset, no platform "
+          f"named), native host route: kernel launches {launches}, expected {want}; no line "
+          f"logged at danger or warning; 0 bed.gz files fell back", flush=True)
+    check(launches == want, f"file-mode launches {launches} != {want}")
+    check(set(t) == set(FILE_STEPS) | set(FILE_SPANS), f"file-mode timings {sorted(t)}")
+    total = sum(t[name] for name in FILE_STEPS)
+    device_s = sum(t[name] for name in FILE_DEVICE_SPANS)
+    print(f"[files] steps (host clock): " + ", ".join(f"{name} {t[name]:.3f} s" for name in FILE_STEPS)
+          + f", {total:.3f} s in all; spans: " + ", ".join(f"{name} {t[name]:.3f} s"
+                                                         for name in FILE_SPANS)
+          + f"; host share (all but {', '.join(FILE_DEVICE_SPANS)}) {100 * (1 - device_s / total):.2f}%"
+          f" vs the fused run's {100 * fused.host_share:.2f}% of fused_steps_4_7 "
+          f"{fused.t['fused_steps_4_7']:.3f} s (card run 2); {card}", flush=True)
+    host_readers = t["neighbors.read"] + t["dipcn.read"] + t["dipcn.stage"]
+    print(f"[files] the reference's Python readers: read_normalized_data {t['neighbors.read']:.3f} "
+          f"s, read_counts_tsv + read_neighbors {t['dipcn.read']:.3f} s, step 6's N*k dict "
+          f"lookups {t['dipcn.stage']:.3f} s: {host_readers:.3f} s, "
+          f"{100 * host_readers / total:.1f}% of steps 4-7; {card}", flush=True)
+
+    # ---- step 4 against phase 9's fused card run ---------------------------
+    ids, ratios, z, scales = read_normalized_data(out / names["normalized"])
+    if content(out / names["normalized"]) == content(fused.out / names["normalized"]):
+        print("[files] step 4: the normalized file equals the fused card run's after "
+              "decompression", flush=True)
+    else:
+        check(ids == fused.ids, "files step 4: sample IDs differ from the fused run's")
+        check(z.shape == fused.z.shape and np.array_equal(np.isnan(z), np.isnan(fused.z)),
+              "files step 4: shape or NA cells differ from the fused run's")
+        check(np.array_equal(ratios, fused.ratios, equal_nan=True),
+              "files step 4: variance ratios differ from the fused run's")
+        z_diff = np.nan_to_num(np.abs(z - fused.z))
+        s_diff = np.abs(np.array([scales[s] - fused.scales[s] for s in ids]))
+        check(max(z_diff.max(), s_diff.max()) <= QUANTUM,
+              f"files step 4: a cell differs from the fused run's by {max(z_diff.max(), s_diff.max())}")
+        cells = int((~np.isnan(z)).sum())
+        z_apart, s_apart = int((z_diff > 1e-9).sum()), int((s_diff > 1e-9).sum())
+        check(z_apart <= cells // 500 and s_apart <= n // 100,
+              "files step 4: too many cells one quantum from the fused run's")
+        print(f"[files] step 4: the normalized file differs from the fused card run's in "
+              f"{z_apart} of {cells} z cells and {s_apart} of {n} scales, each one %.2f quantum "
+              f"apart (the fused step rounds z to 0.01 in float32 before writing), the same NA "
+              f"cells and variance ratios", flush=True)
+
+    # ---- steps 5-7 against the plain route from the run's own files --------
+    own = rebuild_from_files("files", out, names, ids, ratios, z, scales, cohort["ibs_file"], k,
+                             n_nbr, fused=False)
+
+    # ---- steps 5-6 against the fused run ------------------------------------
+    # both lists' distances from this run's rebuilt d2; a row's tolerance
+    # grows by twice the most its distances moved between the two runs' z
+    big = np.finfo(np.float32).max
+    both = (own.d2 < big) & (fused.own.d2 < big)
+    moved = np.where(both, np.abs(own.d2.astype(np.float64) - fused.own.d2), 0).max(axis=1)
+    tol = TIE_RTOL * own.d2_kth.astype(np.float64) + 2 * moved
+    rows = np.arange(n)[:, None]
+    differ = neighbor_rows_differing(own.idx, own.d, fused.own.idx, own.d2[rows, fused.own.idx],
+                                     tol=tol)
+    check(own.dip_ids == fused.own.dip_ids, "files step 6: dipCN rows differ from the fused run's")
+    same_scale = np.array([scales[s] == fused.scales[s] for s in ids])
+    u = own.usable[own.idx]
+    prefix = u & (np.cumsum(u, axis=1) <= n_nbr)
+    comparable = (~dipcn_sets_differ(own.idx, fused.own.idx, own.usable, n_nbr) & same_scale
+                  & (same_scale[own.idx] | ~prefix).all(axis=1))[own.ok]
+    check(np.allclose(own.dip_vals[comparable], fused.own.dip_vals[comparable], rtol=1e-5, atol=0),
+          "files step 6: dipCN differs from the fused run's beyond rtol 1e-5")
+    print(f"[files] vs the fused card run: neighbor rows identical on {n - differ.size} of {n}, the "
+          f"others differ only by ties (within {TIE_RTOL:g} of the k-th distance plus twice the "
+          f"row's largest distance change between the two runs' z, at most "
+          f"{float(moved.max()):.3e}); {len(own.dip_ids)} dipCN rows, the same; within rtol 1e-5 "
+          f"on the {int(comparable.sum())} rows whose input sets and scales agree; {card}",
+          flush=True)
+
+    # ---- the second run: exact phasing and the bootstrap, steps 4-6 resumed -
+    jacobi = (out / names["haploid"]).read_text().splitlines()
+    cfg2 = copy.deepcopy(cfg)
+    cfg2["resume"] = True
+    cfg2["device"]["exact_phasing"] = True
+    cfg2["compute_haploid_genotypes"]["bootstrap_replicates"] = BOOT_REPLICATES
+    t2, launches2, console2 = run(cfg2, "run 2")
+    skipped = [msg for msg, _ in console2.lines if msg.endswith("skipped (resume)")]
+    check(skipped == [f"[{name}] up-to-date, skipped (resume)" for name in FILE_STEPS[:3]],
+          f"files run 2: resumed {skipped}")
+    check(not any(launches2.values()), f"files run 2 launched a kernel: {launches2}")
+    exact = (out / names["haploid"]).read_text().splitlines()
+    check(exact[0] == jacobi[0] and [ln.split("\t")[0] for ln in exact] ==
+          [ln.split("\t")[0] for ln in jacobi], "files run 2: haploid rows differ from run 1's")
+    ex = np.array([[float(v) for v in ln.split("\t")[1:]] for ln in exact[1:]])
+    jac = np.array([[float(v) for v in ln.split("\t")[1:]] for ln in jacobi[1:]])
+    check(np.array_equal(np.isfinite(ex), np.isfinite(jac)),
+          "files run 2: the exact run's finite cells are not the Jacobi run's")
+    boot_path = out / names["haploid"].replace(".tsv", "_bootstrap.tsv")
+    boot = boot_path.read_text().splitlines()
+    check(boot[0] == "ID\thap1_mean\thap1_sd\thap2_mean\thap2_sd"
+          and [ln.split("\t")[0] for ln in boot[1:]] == [ln.split("\t")[0] for ln in exact[1:]],
+          "files run 2: bootstrap table rows")
+    bv = np.array([[float(v) for v in ln.split("\t")[1:]] for ln in boot[1:]])
+    phased = np.isfinite(jac[:, 1])
+    check(np.isfinite(bv[phased]).all() and (bv[phased][:, [1, 3]] >= 0).all(),
+          "files run 2: bootstrap means or deviations not finite on phased rows")
+    fin = np.isfinite(ex)
+    print(f"[files] run 2 (exact_phasing, {BOOT_REPLICATES} bootstrap replicates, resume: steps "
+          f"4-6 skipped, no kernel launched): haploid.phase (host Gauss-Seidel) "
+          f"{t2['haploid.phase']:.3f} s, haploid.bootstrap {t2['haploid.bootstrap']:.3f} s, "
+          f"compute_haploid_genotypes {t2['compute_haploid_genotypes']:.3f} s (host clock); "
+          f"{len(exact) - 1} rows, finite where the Jacobi run's are, the exact and Jacobi tables "
+          f"at most {float(np.abs(ex[fin] - jac[fin]).max()):.2f} apart; bootstrap table "
+          f"{len(boot) - 1} rows, median sd {float(np.median(bv[phased][:, [1, 3]])):.3f}; {card}",
+          flush=True)
+    return launches
+
+
 def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = PIPELINE_FLANK,
                  k: int = K, n_nbr: int = N_NBR) -> dict:
     """Phase 9: the fused WGS pipeline from files (see the module docstring).
     Returns the kernels' launches during the first pipeline call. main()
     passes no size: the size arguments let the phase be rehearsed small."""
+    from types import SimpleNamespace
+
     import grid_tpu_torch.io.bed as port_bed
     import grid_tpu_torch.steps.fused as fused
     from grid_tpu_torch import native_host
     from grid_tpu_torch.io.bed import load_repeat_mask, map_bed_gz_to_samples
     from grid_tpu_torch.io.formats import (
-        read_counts_tsv, read_dipcn, read_neighbors, read_normalized_data, read_samples,
+        read_dipcn, read_neighbors, read_normalized_data, read_samples,
     )
-    from grid_tpu_torch.io.hap_neighbors import load_ibs_neighbors, pad_hap_neighbors
     from grid_tpu_torch.io.staging import scan_cohort_regions
     from grid_tpu_torch.models.cohort import CohortParams
     from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel, zprep_split
     from grid_tpu_torch.ops.gpu_select import dipcn_select_info
-    from grid_tpu_torch.ops.knn import d2_matrix, region_filter_mask, sorted_smallest_k
-    from grid_tpu_torch.ops.phasing import compute_imputed, phase_haplotypes
-    from grid_tpu_torch.ops.select import dipcn_from_distances
     from grid_tpu_torch.pipeline import run_wgs_pipeline
     from grid_tpu_torch.synth import make_synthetic_cohort
     from torch_parity import dipcn_sets_differ, neighbor_rows_differing
@@ -766,75 +1058,11 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
               "pipeline step 4: too many cells one quantum apart")
         del z_cpu, z_diff
 
-        # ---- (b) steps 5-6 rebuilt from the card's own written z ---------
-        t0 = time.perf_counter()
-        zt = torch.tensor(np.nan_to_num(z_card), dtype=torch.float32)
-        zmask = torch.tensor(~np.isnan(z_card))
-        region = region_filter_mask(torch.tensor(ratios, dtype=torch.float32), 1.0, 1000.0,
-                                    n_written=len(ratios))
-        r_use = max(int(region.sum()), 1)
-        sample_ok = zmask.any(dim=1)
-        d2 = d2_matrix(zt, zmask, region, ZMAX, row_valid=sample_ok)
-        want_d, want_idx = (t.numpy() for t in sorted_smallest_k(d2, k))
-        row_of = {sid: i for i, sid in enumerate(ids)}
-        nbrs, own_scales = read_neighbors(card_out / names["neighbors"])
-        check(list(nbrs) == ids and all(len(nbrs[s]) == k for s in ids),
-              "pipeline step 5: the neighbor file's rows or widths")
-        check(own_scales == scales, "pipeline step 5: scales differ from the normalized file's")
-        got_idx = np.array([[row_of[nid] for nid, _, _ in nbrs[s]] for s in ids])
-        written = np.array([[dist for _, _, dist in nbrs[s]] for s in ids])
-        nbr_scale_ok = all(ns == scales[nid] for s in ids for nid, ns, _ in nbrs[s])
-        check(nbr_scale_ok, "pipeline step 5: a neighbor's scale is not that neighbor's")
-        d2_np = d2.numpy()  # kept for the panel branch's check below
-        got_d = d2_np[np.arange(n)[:, None], got_idx]
-        tol = TIE_RTOL * want_d[:, -1].astype(np.float64)
-        differ = neighbor_rows_differing(got_idx, got_d, want_idx, want_d, tol=tol)
-        dist_err = np.abs(written - want_d.astype(np.float64) / (2 * r_use))
-        dist_tol = 0.005 + 1e-6 + tol[:, None] / (2 * r_use)
-        check((dist_err <= dist_tol).all(), f"pipeline step 5: a written distance is off by "
-                                            f"{float((dist_err - dist_tol).max()):.3e} beyond %.2f")
-        print(f"[pipeline] step 5, the card's neighbor file vs the plain route on the card's own "
-              f"written z (r_use {r_use}): {n} rows compared, {n - differ.size} identical, "
-              f"{differ.size} differ only by ties within {TIE_RTOL:g} of the row's k-th distance; "
-              f"written distances equal d2/(2 r_use) at %.2f (max off {float(dist_err.max()):.4f})",
-              flush=True)
-
-        reads_map = read_counts_tsv(card_out / "read_counts.tsv")
-        reads = torch.tensor([reads_map.get(s, float("nan")) for s in ids], dtype=torch.float32)
-        usable = torch.tensor([s in reads_map for s in ids]) & sample_ok
-        w = reads / torch.tensor(s_card, dtype=torch.float32)
-        want_dip, want_ok = (t.numpy() for t in dipcn_from_distances(d2, w, w, usable, usable,
-                                                                     k=k, n_nbr=n_nbr))
-        del d2
-        dip_ids, dip_vals, _ = read_dipcn(card_out / names["dipcn"])
-        check(dip_ids == [s for s, ok in zip(ids, want_ok) if ok], "pipeline step 6: dipCN rows")
-        sets_differ = dipcn_sets_differ(got_idx, want_idx, usable.numpy(), n_nbr)[want_ok]
-        dip_vals = np.asarray(dip_vals)
-        check(np.isfinite(dip_vals).all(), "pipeline step 6: non-finite dipCN")
-        check(np.allclose(dip_vals[~sets_differ], want_dip[want_ok][~sets_differ], rtol=1e-5, atol=0),
-              "pipeline step 6: dipCN differs beyond rtol 1e-5")
-        print(f"[pipeline] step 6: {len(dip_ids)} dipCN rows, the plain route's valid rows; within "
-              f"rtol 1e-5 on the {int((~sets_differ).sum())} rows whose input sets agree "
-              f"({int(sets_differ.sum())} rows change a set by ties)", flush=True)
-
-        # ---- step 7 rebuilt from the card's own dipCN --------------------
-        hap_nbrs = load_ibs_neighbors(cohort["ibs_file"], {s: i for i, s in enumerate(dip_ids)}, 10)
-        hi, hw, hv = (torch.tensor(a) for a in pad_hap_neighbors(hap_nbrs, 10))
-        res = phase_haplotypes(torch.tensor(dip_vals, dtype=torch.float32), hi, hw, hv, 1, N_ITERS)
-        imp = compute_imputed(res.hap_irrs, hi, hw, hv, res.mean_irrs).numpy()
-        hap = res.hap_irrs.numpy()
-        want_hap = np.stack([dip_vals, hap[0::2], hap[1::2], imp[0::2], imp[1::2]], axis=1)
-        lines = (card_out / names["haploid"]).read_text().splitlines()
-        check(lines[0].split("\t")[0] == "ID" and [ln.split("\t")[0] for ln in lines[1:]] == dip_ids,
-              "pipeline step 7: haploid rows")
-        got_hap = np.array([[float(v) for v in ln.split("\t")[1:]] for ln in lines[1:]])
-        check(np.array_equal(np.isnan(got_hap), np.isnan(want_hap)), "pipeline step 7: NaN cells")
-        hap_err = np.nan_to_num(np.abs(got_hap - want_hap))
-        check(hap_err.max() <= QUANTUM / 2 + 1e-4, f"pipeline step 7: off by {hap_err.max()}")
-        print(f"[pipeline] step 7: {len(dip_ids)} haploid rows, {int(res.phased.sum())} phased; every "
-              f"value within %.2f rounding of {N_ITERS} plain sweeps over the card's dipCN (max off "
-              f"{float(hap_err.max()):.4f}); comparisons took {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        # ---- (b) steps 5-7 rebuilt from the card's own written files -----
+        own = rebuild_from_files("pipeline", card_out, names, ids, ratios, z_card, scales,
+                                 cohort["ibs_file"], k, n_nbr, fused=True)
+        row_of, got_idx, got_d, written, d2_np = own.row_of, own.idx, own.d, own.written, own.d2
+        usable, want_ok, dip_ids, dip_vals = own.usable, own.ok, own.dip_ids, own.dip_vals
 
         cpu_ids6, cpu_vals, _ = read_dipcn(cpu_out / names["dipcn"])
         check(cpu_ids6 == dip_ids, "pipeline: the CPU run's dipCN rows differ")
@@ -906,7 +1134,7 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
         check(written_off <= QUANTUM, f"panel branch: a written distance is {written_off} off")
         pan_dip_ids, pan_dip, _ = read_dipcn(pan_out / names["dipcn"])
         check(pan_dip_ids == dip_ids, "panel branch: dipCN rows differ from the resident run's")
-        pan_sets = dipcn_sets_differ(pan_idx, got_idx, usable.numpy(), n_nbr)[want_ok]
+        pan_sets = dipcn_sets_differ(pan_idx, got_idx, usable, n_nbr)[want_ok]
         pan_dip = np.asarray(pan_dip)
         check(np.allclose(pan_dip[~pan_sets], dip_vals[~pan_sets], rtol=1e-5, atol=0),
               "panel branch: dipCN differs from the resident run's beyond rtol 1e-5")
@@ -915,8 +1143,15 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
               f"within {TIE_RTOL:g} of the k-th distance; written distances within "
               f"{written_off:.2f}; {len(pan_dip_ids)} dipCN rows, within rtol 1e-5 on the "
               f"{int((~pan_sets).sum())} rows whose input sets agree; {card}", flush=True)
+
+        # ---- phase 10: the pipeline in file mode, on the same cohort ------
+        total = again_t["fused_steps_4_7"]
+        fused_run = SimpleNamespace(
+            out=card_out, t=again_t, ids=ids, ratios=ratios, z=z_card, scales=scales, own=own,
+            host_share=1 - (again_t["fused.device"] + again_t["fused.phase"]) / total)
+        files_launches = files_phase(card, counted, tmp, cohort, base, names, fused_run, k, n_nbr)
     check(not tmp.exists(), "the temporary directory was not removed")
-    return {name: launches[name] for name in wrappers}
+    return {name: launches[name] for name in wrappers}, files_launches
 
 
 def main() -> int:
@@ -932,7 +1167,7 @@ def main() -> int:
     card = card_line()
     print(f"[device] {card}  (torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
-    from bench import make_matrix  # numpy only at import
+    from grid_tpu_torch.synth import make_matrix
     from grid_tpu_torch import native, native_host
     from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step
@@ -1320,8 +1555,14 @@ def main() -> int:
     panel = panel_phase(dev, card, wrappers)
     branch_phase(dev, card)
 
-    # ---- 9. the pipeline, from files -------------------------------------
-    pipeline_launches = pipeline_phase(card, wrappers)
+    # ---- 9. the pipeline, from files, and 10. in file mode -----------------
+    pipeline_launches, files_launches = pipeline_phase(card, wrappers)
+    files_json = {"masked_column_stats": {"launches": files_launches["masked_column_stats"]},
+                  "zprep_gram": {"launches": files_launches["zprep_gram"],
+                                 "zprep_split": files_launches["zprep_split"],
+                                 "zprep_gram_panel": files_launches["zprep_gram_panel"]},
+                  "dipcn_from_distances_gpu": {
+                      "launches": files_launches["dipcn_from_distances_gpu"]}}
 
     rows = []
     for row in kernels:
@@ -1329,7 +1570,8 @@ def main() -> int:
                                                                 "replaces")}
         rows.append({**{key: row[key] for key in ("name", "route", "source", "replaces")},
                      **panel[row["name"]], "slice_2504": earlier,
-                     "pipeline_2504": {"launches": pipeline_launches[row["name"]]}})
+                     "pipeline_2504": {"launches": pipeline_launches[row["name"]]},
+                     "pipeline_files_2504": files_json[row["name"]]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,12 @@
 """grid_tpu_torch command-line interface (twin of ``grid_tpu/cli.py``).
 
-Run as ``python -m grid_tpu_torch.cli ...``. Ported so far: ``wgs`` (the
-fused steps 4-7; on the card unless the config says ``device.platform:
-cpu``), ``validate``, ``synth`` and ``devices``. The per-step subcommands,
-``wes``, ``multi-locus``, the alignment tools and ``wgs --locus`` wait for
-the modules behind them.
+Run as ``python -m grid_tpu_torch.cli ...``. Ported so far: ``wgs`` (steps
+4-7, fused or in file mode; on the card unless the config says
+``device.platform: cpu``), the per-step commands of steps 4-7
+(``normalize``, ``find-neighbors``, ``compute-dipcn``, ``hi-inference``),
+``report``, ``validate``, ``synth`` and ``devices``. The commands of steps
+1-3, ``wes``, ``multi-locus``, the alignment tools and ``wgs --locus`` wait
+for the modules behind them.
 
 ``click`` is needed by this module only.
 """
@@ -47,6 +49,87 @@ def wgs(config, no_validate):
     from grid_tpu_torch.pipeline import run_wgs_pipeline
 
     run_wgs_pipeline(console, config, validate=not no_validate)
+
+
+def _step_command(name, help_text, import_path):
+    """Register a command that runs one pipeline step from CONFIG (defaults
+    applied, not validated), as grid_tpu's CLI does."""
+
+    @cli.command(name=name, help=help_text)
+    @click.argument("config", type=click.Path(exists=True))
+    def _cmd(config):
+        import importlib
+
+        from grid_tpu_torch.config import apply_defaults, load_config
+
+        module_name, fn_name = import_path
+        fn = getattr(importlib.import_module(module_name), fn_name)
+        fn(apply_defaults(load_config(config)), make_console())
+
+    _cmd.__name__ = name.replace("-", "_")
+    return _cmd
+
+
+_step_command("normalize", "Normalize the cohort coverage matrix.",
+              ("grid_tpu_torch.steps.normalize", "normalize_mosdepth"))
+_step_command("find-neighbors", "Find depth-matched nearest neighbors.",
+              ("grid_tpu_torch.steps.neighbors", "find_neighbors"))
+_step_command("compute-dipcn", "Compute neighbor-normalized diploid CN.",
+              ("grid_tpu_torch.steps.dipcn", "compute_diploid_genotypes"))
+_step_command("hi-inference", "Infer haplotype copy numbers (IBS/IBD).",
+              ("grid_tpu_torch.steps.haploid", "hi_inference"))
+
+
+@cli.command()
+@click.argument("results_dir", type=click.Path(exists=True))
+@click.option("--dipcn-prefix", default="diploid_genotypes", show_default=True)
+@click.option("--haploid-prefix", default="haploid_genotypes", show_default=True)
+def report(results_dir, dipcn_prefix, haploid_prefix):
+    """Summarize a finished run: cohort size, dipCN distribution, phasing
+    coverage."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from grid_tpu_torch.io.formats import read_dipcn
+
+    console = make_console()
+    results = Path(results_dir)
+    dip_file = results / f"{dipcn_prefix}.tsv"
+    if dip_file.exists():
+        ids, vals, _ = read_dipcn(dip_file)
+        v = np.asarray(vals)
+        log(console, f"dipCN: n={len(ids)}  mean={v.mean():.3f}  sd={v.std():.3f}  "
+                     f"min={v.min():.3f}  max={v.max():.3f}")
+    else:
+        log(console, f"no dipCN file at {dip_file}", style="warning")
+
+    hap_file = results / f"{haploid_prefix}.tsv"
+    if hap_file.exists():
+        lines = hap_file.read_text().splitlines()[1:]
+        n = len(lines)
+        phased = imp_only = 0
+        h1s, h2s = [], []
+        for line in lines:
+            p = line.split("\t")
+            h1, h2 = float(p[2]), float(p[3])
+            if np.isnan(h1) or np.isnan(h2):
+                imp_only += 1
+            else:
+                phased += 1
+                h1s.append(h1)
+                h2s.append(h2)
+        log(console, f"haploid: n={n}  phased={phased} ({100 * phased / max(n, 1):.1f}%)  "
+                     f"imputation-only={imp_only}")
+        if h1s:
+            alloc = np.asarray(h1s) / (np.asarray(h1s) + np.asarray(h2s)).clip(1e-9)
+            log(console, f"hap1 allocation: mean={alloc.mean():.3f}  sd={alloc.std():.3f}")
+    else:
+        log(console, f"no haploid file at {hap_file}", style="warning")
+
+    timings = results / "step_timings.json"
+    if timings.exists():
+        log(console, f"timings: {timings.read_text().strip()}")
 
 
 @cli.command()

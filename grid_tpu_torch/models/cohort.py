@@ -42,6 +42,7 @@ from grid_tpu_torch.ops.knn import (
 )
 from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
 from grid_tpu_torch.ops.phasing import PhasingResult, compute_imputed, phase_haplotypes
+from grid_tpu_torch.ops.select import dipcn_from_lists
 
 
 class CohortParams(NamedTuple):
@@ -58,7 +59,7 @@ class CohortParams(NamedTuple):
     n_iters: int = 100  # phasing sweeps
     quantize: bool = True  # mimic %.2f file round-trip of scales/z
     row_block: int = 512  # kNN panel rows (panel branch)
-    dipcn_lists: bool = False  # dipCN from the sorted lists (not ported yet)
+    dipcn_lists: bool = False  # resident branch: dipCN from the sorted lists, CPU only
     use_pallas: bool = False  # accepted, no effect: the hand kernels are the path on the card
     # the [N, N] distance matrix stays resident while N*N*itemsize fits
     # this budget; beyond it the step streams row panels (0: always panels)
@@ -93,9 +94,7 @@ def _q2(x):
 
 
 def _check_branch(params: CohortParams, n: int) -> None:
-    """Raise for the branches of the JAX cohort step not ported yet."""
-    if params.dipcn_lists:
-        raise NotImplementedError("dipcn_lists=True is not ported yet (ROADMAP.md queue 1)")
+    """Raise for a neighbor count the cohort cannot give."""
     if params.num_neighbors > n - 1:
         raise ValueError(f"k={params.num_neighbors} must be <= N-1={n - 1}")
 
@@ -195,9 +194,15 @@ def cohort_step(
     if d2_resident(params, n, values.element_size()):
         d2 = d2_matrix(z, norm.mask, region_used, params.zmax, row_valid=sample_ok)
         sq_dists, nbr_idx = sorted_smallest_k(d2, params.num_neighbors)
-        dipcn, dipcn_valid = dipcn_from_distances_gpu(
-            d2, w, w, reads_valid, reads_valid, k=params.num_neighbors, n_nbr=params.n_nbr
-        )
+        if params.dipcn_lists:  # the JAX step's opt-in form, plain PyTorch: CPU only
+            dipcn, dipcn_valid = dipcn_from_lists(
+                d2, sq_dists, nbr_idx, w, w, reads_valid, reads_valid,
+                k=params.num_neighbors, n_nbr=params.n_nbr,
+            )
+        else:
+            dipcn, dipcn_valid = dipcn_from_distances_gpu(
+                d2, w, w, reads_valid, reads_valid, k=params.num_neighbors, n_nbr=params.n_nbr
+            )
         del d2
     else:
         sq_dists, nbr_idx, dipcn, dipcn_valid = _panel_knn_dipcn(

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from grid_tpu_torch.ops.gpu_kernels import SplitZ, zprep_gram, zprep_gram_panel, zprep_split
@@ -22,14 +23,47 @@ AUTO_COL_BLOCK = 8192
 FLAT_MAX_COLS = 16384
 
 
+def _region_mask_at_rank(sigma2ratios, rank, sigma2_max: float):
+    """The rule of both region filters (ref: grid/utils/find_neighbors.py:128-175):
+    keep the finite ratios in [sigma2_min, sigma2_max], sigma2_min being the
+    value at ``rank`` (clamped into them) of the ascending finite ratios;
+    with no finite ratio every region is kept. R >= 1."""
+    finite = torch.isfinite(sigma2ratios)
+    n_finite = finite.sum()
+    sorted_vals = torch.sort(torch.where(finite, sigma2ratios, torch.inf)).values
+    lower_idx = torch.minimum(torch.as_tensor(rank, device=sigma2ratios.device),
+                              (n_finite - 1).clamp_min(0))
+    sigma2_min = sorted_vals[lower_idx]
+    mask = finite & (sigma2ratios >= sigma2_min) & (sigma2ratios <= sigma2_max)
+    return torch.where(n_finite > 0, mask, torch.ones_like(mask))
+
+
+def filter_regions_by_variance(sigma2ratios, frac_r: float = 1.0, sigma2_max: float = 1000.0):
+    """The region filter of the file-mode step 5, on a host array.
+
+    Its rank is ``int(R * (1 - frac_r))`` in float64 against the TOTAL
+    region count R (the reference's quirk). :func:`region_filter_mask`
+    takes the rank in float32, as the JAX package's fused step does, so the
+    two forms may keep one region more or less where R * (1 - frac_r) is
+    within rounding of an integer (R=1000, frac_r=0.9: rank 99 here, 100
+    there); each matches its twin in ``grid_tpu``.
+
+    Returns (valid_indices ascending, R_use).
+    """
+    sigma2ratios = np.asarray(sigma2ratios)
+    r = len(sigma2ratios)
+    if r == 0:
+        return np.arange(0), 0
+    keep = _region_mask_at_rank(torch.as_tensor(sigma2ratios), int(r * (1.0 - frac_r)),
+                                sigma2_max)
+    valid_indices = np.flatnonzero(keep.numpy())
+    return valid_indices, len(valid_indices)
+
+
 def region_filter_mask(sigma2ratios, frac_r: float = 1.0, sigma2_max: float = 1000.0,
                        n_written=None):
-    """Boolean [R] region mask keeping finite ratios in
-    [sigma2_min, sigma2_max] (ref: grid/utils/find_neighbors.py:128-175).
-
-    sigma2_min is the value at rank ``int(n_written * (1 - frac_r))`` of the
-    ascending finite ratios, clamped into them; with no finite ratio every
-    region is kept.
+    """Boolean [R] region mask of the fused step: the rule of
+    :func:`_region_mask_at_rank` at rank ``int(n_written * (1 - frac_r))``.
 
     Args:
         n_written: the column count the rank is computed against (the
@@ -37,19 +71,13 @@ def region_filter_mask(sigma2ratios, frac_r: float = 1.0, sigma2_max: float = 10
             0-d tensor. Defaults to the array length.
     """
     r = sigma2ratios.shape[0] if n_written is None else n_written
-    finite = torch.isfinite(sigma2ratios)
-    n_finite = finite.sum()
-    sorted_vals = torch.sort(torch.where(finite, sigma2ratios, torch.inf)).values
-    # int() truncation of r * (1 - frac_r), in float32 like the reference;
+    # int() truncation of r * (1 - frac_r), in float32 like the JAX step;
     # the epsilon guards float error flipping e.g. 90.0 to 89.999996
     f32 = dict(dtype=torch.float32, device=sigma2ratios.device)
     rank = torch.floor(
         torch.as_tensor(r, **f32) * torch.tensor(1.0 - frac_r, **f32) + torch.tensor(1e-4, **f32)
     ).long()
-    lower_idx = torch.minimum(rank, (n_finite - 1).clamp_min(0))
-    sigma2_min = sorted_vals[lower_idx]
-    mask = finite & (sigma2ratios >= sigma2_min) & (sigma2ratios <= sigma2_max)
-    return torch.where(n_finite > 0, mask, torch.ones_like(mask))
+    return _region_mask_at_rank(sigma2ratios, rank, sigma2_max)
 
 
 def prepare_z(z, mask, zmax: float, region_mask=None):

@@ -24,6 +24,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from grid_tpu_torch.ops.gpu_kernels import masked_column_stats
@@ -113,6 +114,15 @@ def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None) -> No
         row_means_raw=row_means_raw,
         scale=scale,
     )
+
+
+def select_high_variance_indices(var_ratio, top_frac: float = 0.1) -> np.ndarray:
+    """The file-mode step 4's form of :func:`select_high_variance_mask`:
+    ascending int indices of the regions it keeps, from a host array."""
+    var_ratio = np.asarray(var_ratio)
+    if var_ratio.size == 0:
+        return np.array([], dtype=int)
+    return np.flatnonzero(select_high_variance_mask(torch.as_tensor(var_ratio), top_frac).numpy())
 
 
 def select_high_variance_mask(var_ratio, top_frac: float = 0.1):

@@ -1,6 +1,7 @@
 """Exact threshold selection and gather-free dipCN (twin of
 ``grid_tpu/ops/select.py``, binary form only), on the resident distance
-matrix or on its row panels.
+matrix or on its row panels, and from the sorted neighbor lists
+(:func:`dipcn_from_lists`).
 
 Non-negative floats bitcast to signed integers of the same width keep their
 order, so the k-th smallest distance of a row is found by bisection on the
@@ -126,6 +127,63 @@ def dipcn_from_distances(d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_n
     tot = torch.where(take, nbr_w.to(d2.dtype)[None, :], 0).sum(dim=1)
     nbr_mean = tot / m_eff.clamp_min(1)
     dipcn = rnorm.to(d2.dtype) / nbr_mean
+    return dipcn, sample_valid & (m_eff > 0)
+
+
+def dipcn_from_lists(d2, sq_dists, nbr_idx, rnorm, nbr_w, col_usable, sample_valid, k: int,
+                     n_nbr: int):
+    """Threshold dipCN reusing the sorted k-nearest lists of the same d2
+    (``CohortParams.dipcn_lists``; plain PyTorch, as in the JAX package,
+    which has no Pallas kernel for it). It runs on the CPU only and raises
+    for tensors elsewhere: on the card the dipCN is ``dipcn_select``'s.
+
+    It selects the same neighbor prefix as :func:`dipcn_from_distances`:
+    the k-set threshold is ``(sq_dists[:, k-1], nbr_idx[:, k-1])`` in
+    (value, column) order, and the n_nbr-th usable neighbor is the list
+    position where the usable count reaches ``min(usable in k-set, n_nbr)``,
+    found by bisection over list positions, each probe one compare-and-count
+    pass over d2.
+
+    PRECONDITION: the lists are the exact k smallest of each row of d2,
+    ascending, ties to the lower column (:func:`ops.knn.sorted_smallest_k`).
+
+    Args: as :func:`dipcn_from_distances`, plus the [N, k] lists.
+    Returns (dipcn [N], out_valid [N]).
+    """
+    if d2.device.type != "cpu":
+        raise ValueError(f"dipcn_from_lists runs on the CPU only, not on {d2.device}: on the "
+                         "card leave CohortParams.dipcn_lists False (the dipcn_select kernel)")
+    key_type = _key_type(d2.dtype)
+    n = d2.shape[0]
+    u = d2.view(key_type)
+    ul = sq_dists.to(d2.dtype).contiguous().view(key_type)
+    idx = nbr_idx.long()
+    cols = torch.arange(d2.shape[1], device=d2.device)
+
+    def lex_le(t, c):
+        """[N, W] mask of the entries with (key, column) <= (t, c) per row."""
+        return (u < t[:, None]) | ((u == t[:, None]) & (cols[None, :] <= c[:, None]))
+
+    usable = lex_le(ul[:, k - 1], idx[:, k - 1]) & col_usable[None, :]
+    m_eff = usable.sum(dim=1).clamp_max(n_nbr)
+    need = m_eff.clamp_min(1)  # rows with m_eff == 0 are masked at the end
+
+    # smallest list position p with count(usable & lex <= list[p]) >= m_eff
+    lo = torch.zeros(n, dtype=torch.int64, device=d2.device)
+    hi = torch.full((n,), k - 1, dtype=torch.int64, device=d2.device)
+    for _ in range(max(int(k - 1).bit_length(), 1)):
+        mid = lo + (hi - lo) // 2
+        t_p = ul.gather(1, mid[:, None])[:, 0]
+        c_p = idx.gather(1, mid[:, None])[:, 0]
+        ge = (usable & lex_le(t_p, c_p)).sum(dim=1) >= need
+        hi = torch.where(ge, mid, hi)
+        lo = torch.where(ge, lo, mid + 1)
+    t_m = ul.gather(1, hi[:, None])[:, 0]
+    c_m = idx.gather(1, hi[:, None])[:, 0]
+
+    take = usable & lex_le(t_m, c_m) & (m_eff > 0)[:, None]
+    tot = torch.where(take, nbr_w.to(d2.dtype)[None, :], 0).sum(dim=1)
+    dipcn = rnorm.to(d2.dtype) / (tot / m_eff.clamp_min(1))
     return dipcn, sample_valid & (m_eff > 0)
 
 

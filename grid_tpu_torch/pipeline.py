@@ -6,23 +6,26 @@ step whose outputs exist and whose config and inputs are unchanged is
 skipped with ``resume: true`` (content-addressed,
 ``<output_dir>/.grid_tpu_state.json``).
 
-What the port runs so far is the fused form of steps 4-7
-(``device: {fused: true}``, :mod:`grid_tpu_torch.steps.fused`), on the card
-unless ``device.platform: cpu``. Everything else the JAX package does on
-this path raises ``NotImplementedError`` naming its ROADMAP item, and
-nothing else runs in its place:
+Steps 4-7 run as in the JAX package, on the card unless
+``device.platform: cpu``: with ``device: {fused: true}`` as one fused step
+(:mod:`grid_tpu_torch.steps.fused`), otherwise (the default) in file mode,
+each step gated by its section's ``run: true`` and reading the previous
+step's file. A failure of the fused step is logged and the file-mode steps
+run in its place, on the same device (the reference's semantics); on the
+card only a failure to read its inputs does so, and a kernel or device
+failure propagates. A failing file-mode step is logged and the next one
+runs. What the port lacks
+raises ``NotImplementedError`` naming its ROADMAP item before anything
+runs:
 
 - ``index``, ``count_reads``, ``mosdepth`` or ``compute_ibs`` with
   ``run: true`` (the port reads no alignments yet);
-- steps 4-7 enabled without the fused path (file mode);
-- ``device.mesh_shape`` (the sharded layer; raised by the fused step).
+- ``device.mesh_shape`` with the fused path (the sharded layer).
 
-Two differences from the JAX orchestrator follow from that. It catches a
-failure of the fused step and falls back to the sequential steps; there are
-none here, so a failure of the fused step propagates. And it keeps resume
-state for the sequential steps only; here the fused step records its four
-artifacts under the four classic step names and is skipped when all four
-are up to date, so either form can resume the other's outputs.
+One addition: the JAX orchestrator keeps resume state for the sequential
+steps only; here the fused step records its four artifacts under the four
+classic step names, and is skipped when all four are up to date, so either
+form can resume the other's outputs.
 """
 
 from __future__ import annotations
@@ -33,7 +36,12 @@ import zlib
 from pathlib import Path
 
 from grid_tpu_torch.config import apply_defaults, error_check_config, load_config
-from grid_tpu_torch.steps.fused import fused_steps_enabled, run_fused_steps
+from grid_tpu_torch.steps.dipcn import compute_diploid_genotypes
+from grid_tpu_torch.steps.fused import FusedInputError, fused_steps_enabled, run_fused_steps
+from grid_tpu_torch.steps.haploid import hi_inference
+from grid_tpu_torch.steps.neighbors import find_neighbors
+from grid_tpu_torch.steps.normalize import normalize_mosdepth
+from grid_tpu_torch.utils.device import compute_dtype, config_device
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import StepTimer, step_timer
 
@@ -155,23 +163,23 @@ def _refuse_unported(config: dict) -> None:
                 "'Host steps 1-3 and compute_ibs'); produce those files with grid_tpu, or set "
                 f"{name}.run: false"
             )
-    if fused_steps_enabled(config):
-        return
-    m = config.get("mosdepth", {})
-    wanted = [
-        name for name, section in (
-            ("mosdepth.normalize", m.get("normalize", {})),
-            ("mosdepth.neighbors", m.get("neighbors", {})),
-            ("compute_diploid_genotypes", config.get("compute_diploid_genotypes", {})),
-            ("compute_haploid_genotypes", config.get("compute_haploid_genotypes", {})),
-        ) if section.get("run") is True
-    ]
-    if wanted:
+    if config.get("device", {}).get("mesh_shape") and fused_steps_enabled(config):
         raise NotImplementedError(
-            f"{', '.join(wanted)} without the fused path — the file-mode steps 4-7 are not "
-            "ported yet (ROADMAP.md queue 1, 'File-mode steps 4-7'); enable all four with "
-            "device.fused: true and device.exact_phasing unset"
+            "device.mesh_shape: the sharded layer is not ported yet (ROADMAP.md queue 1, "
+            "'Sharded layer'); unset it to run on one card"
         )
+
+
+def _steps_4_7(config: dict) -> list:
+    """(section, step name, step function) of file-mode steps 4-7, in order."""
+    m = config.get("mosdepth", {})
+    return [
+        (m.get("normalize", {}), "normalize", normalize_mosdepth),
+        (m.get("neighbors", {}), "neighbors", find_neighbors),
+        (config.get("compute_diploid_genotypes", {}), "compute_diploid_genotypes",
+         compute_diploid_genotypes),
+        (config.get("compute_haploid_genotypes", {}), "compute_haploid_genotypes", hi_inference),
+    ]
 
 
 def run_wgs_pipeline(console=None, config=None, validate: bool = True):
@@ -195,6 +203,12 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
         error_check_config(config_data, console)
     config_data = apply_defaults(config_data)
     _refuse_unported(config_data)
+    device = None
+    if any(section.get("run") is True for section, _, _ in _steps_4_7(config_data)):
+        # the device and dtype are resolved before any step runs: a missing
+        # card raises here, not inside a step whose failure is only logged
+        device = config_device(config_data)
+        compute_dtype(config_data, device)
 
     Path(config_data.get("output_dir", ".")).mkdir(parents=True, exist_ok=True)
 
@@ -211,15 +225,43 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
         log(console, "device.use_pallas has no effect: the hand kernels are always the path on "
             "the card", style="info")
 
+    def gated(section, name, fn):
+        """Run one step with the reference's failure semantics (log and go on)."""
+        if section.get("run") is not True:
+            return
+        if resume.should_skip(name, config_data):
+            log(console, f"[{name}] up-to-date, skipped (resume)", style="info")
+            return
+        try:
+            with step_timer(name, timer, console):
+                out = fn(config_data, console, timer)
+            resume.mark(name, config_data, [out])
+        except Exception as e:
+            log(console, f"Failed to run {name}: {e}", style="danger")
+
+    fused_done = False
     if fused_steps_enabled(config_data):
         # steps 4-7 as one staged ingest + one fused device step
         if all(resume.should_skip(name, config_data) for name in FUSED_STEP_NAMES):
             log(console, "[fused_steps_4_7] up-to-date, skipped (resume)", style="info")
+            fused_done = True
         else:
-            with step_timer("fused_steps_4_7", timer, console):
-                outputs = run_fused_steps(config_data, console, timer)
-            for name, path in zip(FUSED_STEP_NAMES, outputs):
-                resume.mark(name, config_data, [path])
+            try:
+                with step_timer("fused_steps_4_7", timer, console):
+                    outputs = run_fused_steps(config_data, console, timer)
+                for name, path in zip(FUSED_STEP_NAMES, outputs):
+                    resume.mark(name, config_data, [path])
+                fused_done = True
+            except Exception as e:
+                # on the card only an unreadable input falls back: a kernel or
+                # device failure is not handed to the file-mode steps
+                if device.type == "cuda" and not isinstance(e, FusedInputError):
+                    raise
+                log(console, f"Fused steps 4-7 failed ({e}); falling back to sequential steps",
+                    style="warning")
+    if not fused_done:
+        for section, name, fn in _steps_4_7(config_data):
+            gated(section, name, fn)
 
     # the artifacts are written: a timings file that cannot be written
     # costs a warning, not the run (as in grid_tpu/pipeline.py)

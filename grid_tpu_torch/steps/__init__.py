@@ -1,3 +1,7 @@
 """Pipeline steps: config-driven wrappers around ops + io (twin of
-``grid_tpu.steps``). Ported so far: the fused steps 4-7 (``fused.py``) and
-the staging choice they share with step 4 (``normalize.py``)."""
+``grid_tpu.steps``). Each file-mode step has the reference signature
+``step(config, console=None)`` (plus an optional ``timer`` for its spans)
+and reads and writes the reference's files: ``normalize.py`` (step 4, and
+the staging choice it shares with the fused steps), ``neighbors.py`` (5),
+``dipcn.py`` (6), ``haploid.py`` (7). ``fused.py`` runs steps 4-7 as one
+device step. Steps 1-3 are not ported yet."""

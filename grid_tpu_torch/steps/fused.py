@@ -19,11 +19,15 @@ the card (the hand kernels' type) and the staged float64 on the CPU; reads,
 haplotype weights and the dipCN values fed to phasing follow it.
 
 Not ported, and raised for: ``device.mesh_shape`` (the sharded layer).
-``device.use_pallas`` is accepted and has no effect.
+``device.use_pallas`` is accepted and has no effect. ``device.exact_phasing``
+or a run of fewer than all four steps takes the file-mode steps instead
+(:func:`fused_steps_enabled`), and so does a failure to read this step's
+inputs (:class:`FusedInputError`, ``pipeline.py``).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -51,6 +55,21 @@ from grid_tpu_torch.steps.normalize import _stage
 from grid_tpu_torch.utils.device import compute_dtype, config_device
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import step_timer
+
+
+class FusedInputError(Exception):
+    """A host input of the fused step could not be read (samples, coverage,
+    read counts, haplotype neighbors). The pipeline answers it by running the
+    file-mode steps; on the card it lets any other failure propagate."""
+
+
+@contextmanager
+def _host_inputs():
+    """Raise a failure inside as a :class:`FusedInputError`."""
+    try:
+        yield
+    except Exception as e:
+        raise FusedInputError(str(e)) from e
 
 
 def fused_steps_enabled(config: dict) -> bool:
@@ -101,7 +120,7 @@ def run_fused_steps(config, console=None, timer=None):
     dcfg = config["compute_diploid_genotypes"]
     hcfg = config["compute_haploid_genotypes"]
 
-    with step_timer("fused.stage", timer, None):
+    with _host_inputs(), step_timer("fused.stage", timer, None):
         samples = read_samples(config["samples_file"])
         excluded = load_repeat_mask(ncfg.get("repeat_mask_file")) if ncfg.get("repeat_mask_file") else {}
         stage = _stage(
@@ -144,17 +163,18 @@ def run_fused_steps(config, console=None, timer=None):
     valid_ids = [stage.sample_ids[i] for i in vidx]
     irrs_v = np.asarray([float(out.dipcn[i]) for i in vidx])
     id_to_ind = {sid: i for i, sid in enumerate(valid_ids)}
-    if method == "ibs":
-        hap_nbrs = load_ibs_neighbors(hcfg["ibs_output"], id_to_ind, max_nbr)
-    else:
-        hap_nbrs = load_ibd_neighbors(
-            hcfg["ibd_output"], id_to_ind, max_nbr, start, end,
-            min_length=hcfg.get("min_length", 0.5),
-            min_match=hcfg.get("min_match", 0.70),
-            weighted=hcfg.get("weighted", False),
-            weight_scale=hcfg.get("weight_scale", 1_000_000),
-        )
-    hvi, hvw, hvv = pad_hap_neighbors(hap_nbrs, max_nbr, dtype=np.float64)
+    with _host_inputs():
+        if method == "ibs":
+            hap_nbrs = load_ibs_neighbors(hcfg["ibs_output"], id_to_ind, max_nbr)
+        else:
+            hap_nbrs = load_ibd_neighbors(
+                hcfg["ibd_output"], id_to_ind, max_nbr, start, end,
+                min_length=hcfg.get("min_length", 0.5),
+                min_match=hcfg.get("min_match", 0.70),
+                weighted=hcfg.get("weighted", False),
+                weight_scale=hcfg.get("weight_scale", 1_000_000),
+            )
+        hvi, hvw, hvv = pad_hap_neighbors(hap_nbrs, max_nbr, dtype=np.float64)
 
     with step_timer("fused.phase", timer, None):
         irrs_t = torch.as_tensor(irrs_v, dtype=dtype, device=device)

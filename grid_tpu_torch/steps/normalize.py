@@ -1,11 +1,62 @@
-"""Step 4's staging choice (twin of the staging half of
-``grid_tpu/steps/normalize.py``). The file-mode step itself,
-``normalize_mosdepth``, is not ported yet."""
+"""Step 4: normalize binned coverage across the cohort (twin of
+``grid_tpu/steps/normalize.py``; reference
+``grid/utils/normalize_mosdepth.py:23``).
+
+One host scan per sample (:func:`_stage`, the choice of stager that the
+fused steps share), then the normalize transform on the device
+(:func:`grid_tpu_torch.ops.normalize.normalize_cohort`: two launches of the
+``masked_column_stats`` kernel on the card), one transfer back, the
+reference's region selection on the host and the normalized matrix file.
+Spans ``normalize.stage`` and ``normalize.device``.
+"""
 
 from __future__ import annotations
 
-from grid_tpu_torch.io.formats import read_samples
+from pathlib import Path
+
+import torch
+
+from grid_tpu_torch.io.bed import load_repeat_mask
+from grid_tpu_torch.io.formats import read_samples, write_normalized_output
 from grid_tpu_torch.io.staging import stage_cohort, stage_cohort_streaming
+from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_indices
+from grid_tpu_torch.utils.device import compute_dtype, config_device
+from grid_tpu_torch.utils.logging import log
+from grid_tpu_torch.utils.timing import step_timer
+
+
+def normalize_mosdepth(config, console=None, timer=None):
+    """Normalize the cohort's mosdepth coverage and write the normalized
+    matrix (``<output_dir>/<prefix>.<type>.gz``); returns its path. On the
+    card unless ``device.platform: cpu``, in ``compute_dtype``."""
+    device = config_device(config)
+    samples = read_samples(config["samples_file"])
+    ncfg = config.get("mosdepth", {}).get("normalize", {})
+    output_path = (Path(config.get("output_dir", "."))
+                   / f"{ncfg.get('output_file_prefix')}.{config.get('output_file_type', 'tsv')}.gz")
+    repeat_mask = ncfg.get("repeat_mask_file")
+    excluded = load_repeat_mask(repeat_mask) if repeat_mask else {}
+
+    with step_timer("normalize.stage", timer, None):
+        stage = _stage(
+            config, samples, config.get("chrom"), config.get("start_bp"), config.get("end_bp"),
+            excluded, ncfg.get("min_depth", 20), ncfg.get("max_depth", 100),
+            config.get("threads", 1), console,
+        )
+
+    with step_timer("normalize.device", timer, None):
+        values = torch.as_tensor(stage.values, dtype=compute_dtype(config, device), device=device)
+        res = normalize_cohort(values, torch.as_tensor(stage.mask, device=device))
+        res = type(res)(*(t.cpu().numpy() for t in res))  # waits for the device
+        selected = select_high_variance_indices(res.var_ratio, ncfg.get("top_frac", 0.1))
+
+    write_normalized_output(
+        output_path, stage.sample_ids, res.row_means_raw, res.z, res.mask, res.col_means,
+        res.col_vars, selected,
+    )
+    log(console, f"Mosdepth normalization complete. Results written to {output_path}",
+        style="success")
+    return output_path
 
 
 def stage_would_stream(config) -> bool:

@@ -7,6 +7,9 @@ mask, IBS/IBD haplotype-neighbor files, and a ready-to-run config (as a dict,
 and as ``config.yaml`` where ``pyyaml`` is installed). Ground-truth haplotype
 CNs are returned (and written) so concordance can be scored end-to-end.
 
+:func:`make_matrix` is the dense synthetic depth matrix of the JAX
+package's ``bench.py``, for driving the cohort step without files.
+
 Not ported: the BAM/CRAM variant and the phased-panel generator.
 """
 
@@ -16,6 +19,21 @@ import gzip
 from pathlib import Path
 
 import numpy as np
+
+
+def make_matrix(n, r, seed=0):
+    """A synthetic [n, r] depth matrix (a copy of ``bench.py``'s, numpy
+    only): per-sample base depths of 25-35x, dosage noise on the first r/8
+    bins, 3% multiplicative noise, 2% of the cells masked to 0. Returns
+    (values [n, r] float64, mask [n, r] bool, reads [n] float64)."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(25.0, 35.0, size=(n, 1))
+    dose = np.ones((n, r))
+    dose[:, : r // 8] = rng.normal(1.0, 0.15, size=(n, r // 8)).clip(0.3, 2.0)
+    values = (base * dose * rng.normal(1.0, 0.03, size=(n, r))).clip(0.5, None)
+    mask = rng.random((n, r)) > 0.02
+    reads = rng.integers(500, 3000, size=n).astype(np.float64)
+    return values * mask, mask, reads
 
 
 def make_synthetic_cohort(

@@ -159,12 +159,12 @@ def test_params_match_grid_tpu_defaults():
 
 
 @pytest.mark.parametrize("change,exc", [
-    (dict(dipcn_lists=True, d2_budget_bytes=0), NotImplementedError),
-    (dict(dipcn_lists=True), NotImplementedError),
     (dict(num_neighbors=N), ValueError),
     (dict(num_neighbors=N, d2_budget_bytes=0), ValueError),
 ])
 def test_unported_branches_raise(cohort, change, exc):
+    """k > N - 1 raises on both branches (every branch of grid_tpu's step is
+    ported now; ``dipcn_lists`` is held to it in test_torch_filemode.py)."""
     values, mask, reads, reads_valid, hi, hw, hv = cohort
     inputs = inputs_to_torch(values, mask, reads, reads_valid, hi, hw, hv, "cpu", torch.float64)
     with pytest.raises(exc):

@@ -200,13 +200,23 @@ def test_device_keys_that_change_no_artifact(cohort, f64_runs, tmp_path, device)
 
 
 def test_fused_failure_raises(cohort, tmp_path):
-    """No counts file: grid_tpu logs the fused step's failure and falls back
-    to its sequential steps; the port has none, so the failure propagates
-    and nothing is written."""
+    """No counts file: the fused step raises inside the pipeline, which logs
+    it at ``warning`` and falls back to the file-mode steps, as grid_tpu
+    does; steps 4-5 write their files, steps 6-7 fail and are logged at
+    ``danger``, and nothing is written in the fused form."""
     cfg = run_config(cohort, tmp_path, {"fused": True, "platform": "cpu"}, counts=False)
-    with pytest.raises(FileNotFoundError, match="read_counts.tsv"):
-        run_wgs_pipeline(console=None, config=cfg)
-    assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
+    console = Recorder()
+    timings = run_wgs_pipeline(console=console, config=cfg)
+    warned = [msg for msg, style in console.lines if style == "warning"
+              and msg.startswith("Fused steps 4-7 failed")]
+    assert len(warned) == 1 and "read_counts.tsv" in warned[0]
+    assert warned[0].endswith("falling back to sequential steps")
+    failed = [msg.split(":")[0] for msg, style in console.lines if style == "danger"]
+    assert failed == ["Failed to run compute_diploid_genotypes",
+                      "Failed to run compute_haploid_genotypes"]
+    assert "fused.device" not in timings and "normalize" in timings and "neighbors" in timings
+    assert [name for name in ARTIFACTS.values() if (tmp_path / name).exists()] == [
+        ARTIFACTS["normalized"], ARTIFACTS["neighbors"]]
 
 
 UNPORTED = {
@@ -214,10 +224,6 @@ UNPORTED = {
     "count_reads": ({"count_reads": {"run": True}}, {}, "Host steps 1-3"),
     "mosdepth": ({"mosdepth": {"run": True}}, {}, "Host steps 1-3"),
     "compute_ibs": ({}, {"compute_ibs": {"run": True, "focal_bp": 160_600_000}}, "Host steps 1-3"),
-    "file_mode": ({}, {"device": {"platform": "cpu"}}, "File-mode steps 4-7"),
-    "exact_phasing": ({}, {"device": {"fused": True, "exact_phasing": True, "platform": "cpu"}},
-                      "File-mode steps 4-7"),
-    "one_step_off": ({"compute_haploid_genotypes": {"run": False}}, {}, "File-mode steps 4-7"),
     "mesh_shape": ({}, {"device": {"fused": True, "mesh_shape": [4], "platform": "cpu"}},
                    "Sharded layer"),
 }
@@ -233,6 +239,43 @@ def test_unported_paths_raise_naming_their_roadmap_item(cohort, tmp_path, case):
     assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
     roadmap = (Path(__file__).parent.parent / "ROADMAP.md").read_text()
     assert item in roadmap
+
+
+FILE_MODE = {  # configs that raised before the file-mode steps were ported
+    "file_mode": ({}, {"platform": "cpu"}),
+    "exact_phasing": ({}, {"fused": True, "exact_phasing": True, "platform": "cpu"}),
+    "one_step_off": ({"compute_haploid_genotypes": {"run": False}},
+                     {"fused": True, "platform": "cpu"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FILE_MODE))
+def test_file_mode_configs_run_and_match_grid_tpu(cohort, tmp_path, case):
+    """Without the fused path (no ``fused``, ``exact_phasing``, or a step
+    switched off) the file-mode steps run, as in grid_tpu, and write its
+    normalized file and dipCN table (dipCN to 1e-9) and, where step 7 runs,
+    its haploid table (byte-identical in the exact mode)."""
+    updates, device = FILE_MODE[case]
+    outs = {}
+    for name, run in (("jax", jax_pipeline.run_wgs_pipeline), ("torch", run_wgs_pipeline)):
+        dev = dict(device) if name == "torch" else {k: v for k, v in device.items()
+                                                     if k != "platform"}
+        timings = run(console=None, config=run_config(cohort, tmp_path / name, dev, **updates))
+        assert "fused_steps_4_7" not in timings and "compute_diploid_genotypes" in timings
+        outs[name] = tmp_path / name
+    assert (content(outs["torch"] / ARTIFACTS["normalized"])
+            == content(outs["jax"] / ARTIFACTS["normalized"]))
+    j_ids, j_vals, _ = read_dipcn(outs["jax"] / ARTIFACTS["dipcn"])
+    t_ids, t_vals, _ = read_dipcn(outs["torch"] / ARTIFACTS["dipcn"])
+    assert t_ids == j_ids and len(t_ids) == 15
+    np.testing.assert_allclose(t_vals, j_vals, rtol=1e-9, atol=0)
+    hap = [(outs[name] / ARTIFACTS["haploid"]) for name in ("torch", "jax")]
+    if case == "one_step_off":
+        assert not any(path.exists() for path in hap)
+    elif case == "exact_phasing":
+        assert content(hap[0]) == content(hap[1])
+    else:
+        assert hap[0].read_text().splitlines()[0] == hap[1].read_text().splitlines()[0]
 
 
 def test_resume_skips_an_up_to_date_run(cohort, tmp_path):

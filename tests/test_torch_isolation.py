@@ -53,7 +53,10 @@ def test_every_module_imports_without_jax_or_grid_tpu():
                  "grid_tpu_torch.pipeline", "grid_tpu_torch.steps.fused", "grid_tpu_torch.config",
                  "grid_tpu_torch.synth", "grid_tpu_torch.cli", "grid_tpu_torch.io.staging",
                  "grid_tpu_torch.io.formats", "grid_tpu_torch.io.bed",
-                 "grid_tpu_torch.native_host", "grid_tpu_torch.native_host.bedgz"):
+                 "grid_tpu_torch.native_host", "grid_tpu_torch.native_host.bedgz",
+                 "grid_tpu_torch.steps.normalize", "grid_tpu_torch.steps.neighbors",
+                 "grid_tpu_torch.steps.dipcn", "grid_tpu_torch.steps.haploid",
+                 "grid_tpu_torch.ops.dipcn"):
         assert name in imported
 
 
@@ -97,8 +100,8 @@ def test_pipeline_runs_without_yaml_click_rich(tmp_path):
     assert (tmp_path / "results" / "haploid_genotypes.tsv").exists()
 
 
-@pytest.mark.parametrize("device", [{"fused": True}, {"fused": True, "platform": "auto"}],
-                         ids=["absent", "auto"])
+@pytest.mark.parametrize("device", [{"fused": True}, {"fused": True, "platform": "auto"}, {}],
+                         ids=["absent", "auto", "file_mode"])
 def test_pipeline_without_a_platform_wants_the_card(tmp_path, device):
     """No platform named means the card: on a machine without one the
     pipeline raises get_device's error and never runs on the CPU."""
