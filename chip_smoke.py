@@ -121,11 +121,47 @@ before the last line):
              step's seconds, each span, the reference's Python readers' share
              and the host share beside the fused run's.
 
+11. multilocus — the multi-locus sweep from files on phase 9's cohort:
+             one counts file for each of the 492 distinct genes of the
+             bundled VNTR catalog (the cohort's counts times a per-locus
+             factor in [0.5, 1.5]; half the loci lack the same 2% of the
+             samples, so the loci fall in two usability groups; 3 pairs of
+             genes share their first GENE member and so one artifact name,
+             as in grid_tpu), then ``steps.multilocus.run_multi_locus`` over
+             all 492 in file mode with no platform named and step 7 off.
+             Fails on any logged failure and unless the call launched the
+             column statistics twice, the split once, 5 panel Grams (the
+             shared steps 4-5), one resident Gram and one multi-weight
+             dipcn_select per group, and no binary dipcn_select. Holds the
+             multi kernel on the sweep's own d2 to the plain multi form on
+             the card (ok equal, rtol 1e-5), every written .GENE dipCN table
+             to it at its written precision, and for 8 loci (the first, the
+             last, 6 drawn from the seed) to the binary kernel per locus and
+             to the float64 plain route on the CPU from the run's own
+             normalized file under the tie rule (rows whose input sets
+             differ counted and left out). A second call takes 3 loci with
+             step 7 on and resume (steps 4-5 skipped): their dipCN tables
+             must stay bitwise as they were, a haploid table is written for
+             each. The batched step again on the panel branch
+             (D2_BUDGET_BYTES one byte short of N^2*4; 2 splits, 10 panel
+             Grams, 10 multi launches) must agree with the resident run
+             under the tie rule. Times the multi kernel at N=2504 for L = 1,
+             32 and 492 (device and back-to-back time, bound and share, the
+             plain form, and torch.mm of the [N, N] float32 take mask by W
+             with TF32 off as the sum part alone). Then, at N=65,536 on
+             phase 7's prepared z with 492 seeded loci and 2% unusable
+             columns, the sweep's panel route (1 split, 128 Gram panels, 128
+             wide-mode multi launches) against the binary wide panel route
+             for loci 0, 246 and 491: its time, time per panel, the kernel
+             alone per panel and the peak memory above the inputs, which
+             must stay O(512 N + N L).
+
 The last three lines are the kernels' JSON object (the panel-mode numbers
 at N=65,536; each entry's "slice_2504" holds phase 5's, "pipeline_2504"
-the launches of phase 9's pipeline call and "pipeline_files_2504" those of
-phase 10's), the card's name and power limit, and
-{"ok": true, "device": {...}}.
+the launches of phase 9's pipeline call, "pipeline_files_2504" those of
+phase 10's and "multilocus_2504" those of phase 11's sweep; the multi-weight
+form's row has the sweep's launches and its times at L=492), the card's
+name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -174,6 +210,12 @@ FILE_SPANS = ("normalize.stage", "normalize.device", "neighbors.read", "neighbor
               "dipcn.read", "dipcn.stage", "dipcn.device", "haploid.phase")
 FILE_DEVICE_SPANS = ("normalize.device", "neighbors.device", "dipcn.device", "haploid.phase")
 BOOT_REPLICATES = 20
+# phase 11: the multi-locus sweep's seed, its loci at N=65,536, the L its
+# kernel is timed at, and the float32 peak outside the tensor cores
+MULTI_SEED = 11
+MULTI_L = 492  # the bundled catalog's distinct genes
+MULTI_TIMED_L = (1, 32, MULTI_L)
+FP32_FLOP_PER_S = 67e12  # NVIDIA's data sheet, H100 SXM
 
 
 def check(ok, msg: str) -> None:
@@ -387,7 +429,7 @@ def panel_phase(dev, card: str, wrappers: dict) -> dict:
     )
     from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu, dipcn_select_info
     from grid_tpu_torch.ops.knn import (
-        panel_d2, smallest_k_two_stage, sorted_smallest_k, two_stage_width,
+        panel_d2, prepare_z, smallest_k_two_stage, sorted_smallest_k, two_stage_width,
     )
     from grid_tpu_torch.ops.masked import masked_mean
     from grid_tpu_torch.ops.select import dipcn_from_distances
@@ -589,9 +631,10 @@ def panel_phase(dev, card: str, wrappers: dict) -> dict:
                   f"{e.key[:80]}")
     else:
         print("[profile] torch.profiler saw no device activity: device time not measured")
-    del out, split, plain_split, inputs
+    zp = prepare_z(z, zmask, ZMAX, region)  # phase 11's geometry at this N
+    del out, split, plain_split, inputs, z, zmask
     torch.cuda.empty_cache()
-    return rows
+    return rows, zp
 
 
 def branch_phase(dev, card: str) -> None:
@@ -874,6 +917,403 @@ def files_phase(card: str, counted: dict, tmp: Path, cohort: dict, base: dict, n
     return launches
 
 
+def multi_inputs(w, usable, dev, dtype=torch.float32):
+    """(rnorm, nbr_w, col_usable, sample_valid) of the multi-weight dipCN,
+    as the sweep passes them: the weights in ``dtype`` for both, and each
+    row valid where its sample has a count."""
+    w_t = torch.tensor(w, dtype=dtype, device=dev)
+    u_t = torch.tensor(usable, device=dev)
+    return w_t, w_t, u_t, u_t[:, None].expand(w_t.shape).contiguous()
+
+
+def multilocus_phase(card: str, counted: dict, tmp: Path, cohort: dict, base: dict, k: int,
+                     n_nbr: int) -> dict:
+    """Phase 11: the multi-locus sweep from files on phase 9's cohort (see
+    the module docstring). Returns its launches, the multi kernel's checks
+    and its times at N, for the kernels' JSON line."""
+    import math
+
+    from grid_tpu_torch.config import apply_defaults
+    from grid_tpu_torch.data.loci import load_vntr_catalog, resolve_locus
+    from grid_tpu_torch.io.formats import read_counts_tsv, read_dipcn
+    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel, zprep_split
+    from grid_tpu_torch.ops.gpu_select import (
+        dipcn_from_distances_gpu, dipcn_from_distances_multi_gpu, dipcn_select_info,
+    )
+    from grid_tpu_torch.ops.knn import d2_matrix, panel_d2, sorted_smallest_k
+    from grid_tpu_torch.ops.select import _take_set, dipcn_from_distances_multi
+    from grid_tpu_torch.steps import multilocus
+    from grid_tpu_torch.steps.neighbors import load_neighbor_geometry
+    from grid_tpu_torch.utils.timing import StepTimer
+    from torch_parity import dipcn_sets_differ, neighbor_rows_differing
+
+    counted = {**counted, "dipcn_from_distances_multi_gpu": dipcn_from_distances_multi_gpu}
+    genes = list(dict.fromkeys(locus.gene for locus in load_vntr_catalog()))
+    tag = {g: g.split(",")[0] for g in genes}  # the artifacts' suffix, as locus_config names it
+    tags = list(dict.fromkeys(tag.values()))
+    out = tmp / "multilocus"
+    out.mkdir()
+    # ---- per-locus counts: the cohort's, times a factor per locus; half
+    # the loci lack the same 2% of the samples (two usability groups)
+    rng = np.random.default_rng(MULTI_SEED)
+    lines = cohort["counts_file"].read_text().splitlines()
+    ids = [ln.split("\t")[0] for ln in lines[1:]]
+    counts = np.array([float(ln.split("\t")[1]) for ln in lines[1:]])
+    factor = rng.uniform(0.5, 1.5, len(tags))
+    lacking = rng.permutation(len(tags)) < len(tags) // 2
+    dropped = set(rng.choice(len(ids), size=len(ids) // 50, replace=False).tolist())
+    t0 = time.perf_counter()
+    for t, f, lack in zip(tags, factor, lacking):
+        body = [f"{sid}\t{int(round(c * f))}" for i, (sid, c) in enumerate(zip(ids, counts))
+                if not (lack and i in dropped)]
+        (out / f"read_counts.{t}.tsv").write_text(lines[0] + "\n" + "\n".join(body) + "\n")
+    print(f"[multilocus] {len(genes)} catalog loci ({len(tags)} artifact names: "
+          f"{len(genes) - len(tags)} pairs of GENE entries share their first member, as in "
+          f"grid_tpu), one counts file each written in {time.perf_counter() - t0:.1f} s; "
+          f"{int(lacking.sum())} lack {len(dropped)} of {len(ids)} samples", flush=True)
+
+    cfg = copy.deepcopy(base)
+    cfg.pop("device", None)  # file mode, no platform named
+    cfg["output_dir"] = str(out)
+    cfg = apply_defaults(cfg)
+    cfg["compute_haploid_genotypes"]["run"] = False
+
+    # ---- the sweep over the whole catalog ---------------------------------
+    console, timer = Recorder(), StepTimer()
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    multilocus.run_multi_locus(cfg, genes, console, timer=timer)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    failed = [msg for msg, style in console.lines if style == "danger" or "Failed to run" in msg]
+    check(not failed, f"multilocus: logged {failed[:3]}")
+    want = {"masked_column_stats": 2, "zprep_gram": 2, "dipcn_from_distances_gpu": 0,
+            "zprep_split": 1, "zprep_gram_panel": -(-len(ids) // 512),
+            "dipcn_from_distances_multi_gpu": 2}
+    print(f"[multilocus] run_multi_locus over {len(genes)} loci (file mode, no platform named): "
+          f"kernel launches {launches}, expected {want}; no failure logged", flush=True)
+    check(launches == want, f"multilocus launches {launches} != {want}")
+    batched = [msg for msg, _ in console.lines if msg.startswith("Batched dipCN")]
+    check(batched == [f"Batched dipCN: {len(genes)} loci in 2 device call(s) (N={len(ids)}, "
+                      f"k={k}, resident d2)"], f"multilocus: {batched}")
+    t = timer.report()
+    steps = json.loads((out / "step_timings.json").read_text())
+    device_s = (t["batched.device"] + steps["normalize.device"] + steps["neighbors.device"])
+    spans = ("multi_locus.shared", "batched_dipcn", "neighbors.read", "batched.read",
+             "batched.device", "batched.write", "multi_locus.per_locus")
+    print(f"[multilocus] {wall:.3f} s (host clock): "
+          + ", ".join(f"{s} {t[s]:.3f} s" for s in spans)
+          + f"; the shared steps normalize {steps['normalize']:.3f} s, neighbors "
+          f"{steps['neighbors']:.3f} s; host share (all but normalize.device, neighbors.device, "
+          f"batched.device) {100 * (1 - device_s / wall):.2f}%; {card}", flush=True)
+
+    # ---- the same geometry and groups, again, beside the run ---------------
+    sample_ids, zp, scales, _, k_geom = load_neighbor_geometry(cfg)
+    dev = zp.device
+    n = len(sample_ids)
+    check(k_geom == k and n == len(ids), "multilocus: the geometry's k or N")
+    reads = {t: read_counts_tsv(out / f"read_counts.{t}.tsv") for t in tags}
+    groups = multilocus.usability_groups(sample_ids, scales, {g: reads[tag[g]] for g in genes})
+    check(len(groups) == 2, f"multilocus: {len(groups)} usability groups")
+    zp = zp.contiguous()
+    ones = torch.ones(zp.shape, dtype=torch.bool, device=dev)
+    d2 = d2_matrix(zp, ones, ones[0], math.inf)
+    results, err = {}, 0.0
+    for usable, names, w in groups:
+        args = multi_inputs(w, usable, dev, zp.dtype)
+        dip, ok = dipcn_from_distances_multi_gpu(d2, *args, k=k, n_nbr=n_nbr)
+        pdip, pok = dipcn_from_distances_multi(d2, *args, k=k, n_nbr=n_nbr)
+        check(torch.equal(ok, pok),
+              "multilocus: the multi kernel's ok differs from the plain form's")
+        check(torch.allclose(dip[ok], pdip[ok], rtol=1e-5, atol=0),
+              "multilocus: the multi kernel differs from the plain form beyond rtol 1e-5")
+        err = max(err, max_abs(dip[ok], pdip[ok]))
+        for j, g in enumerate(names):
+            results[g] = (dip[:, j].cpu().numpy(), ok[:, j].cpu().numpy(), args, j)
+    # every written table is the in-memory result at its written precision
+    for g in genes:
+        dip, ok, _, _ = results[g]
+        got_ids, got_vals, _ = read_dipcn(out / f"diploid_genotypes.{tag[g]}.tsv")
+        check(got_ids == [s for s, o in zip(sample_ids, ok) if o] and
+              np.array_equal(np.asarray(got_vals), dip[ok].astype(np.float64)),
+              f"multilocus: diploid_genotypes.{tag[g]}.tsv is not the kernel's result")
+    # the checked loci: the first, the last and 6 drawn from the seed
+    picked = [0, len(genes) - 1, *sorted(rng.choice(np.arange(1, len(genes) - 1), 6,
+                                                    replace=False).tolist())]
+    checked = [genes[i] for i in picked]
+    bin_err = 0.0
+    for g in checked:
+        dip, ok, (w_t, _, u_t, v_t), j = results[g]
+        col = w_t[:, j].contiguous()
+        bdip, bok = dipcn_from_distances_gpu(d2, col, col, u_t, v_t[:, j].contiguous(), k=k,
+                                             n_nbr=n_nbr)
+        bdip, bok = bdip.cpu().numpy(), bok.cpu().numpy()
+        check(np.array_equal(bok, ok), f"multilocus {g}: ok differs from the binary kernel's")
+        check(np.allclose(dip[ok], bdip[ok], rtol=1e-5, atol=0),
+              f"multilocus {g}: the multi kernel differs from the binary kernel beyond rtol 1e-5")
+        bin_err = max(bin_err, float(np.abs(dip[ok] - bdip[ok]).max()))
+    print(f"[multilocus] the multi kernel on the sweep's d2 ({len(groups)} groups of "
+          f"{', '.join(str(len(names)) for _, names, _ in groups)} loci): ok equal to the plain "
+          f"multi form's on the card, values within rtol 1e-5 (max abs err {err:.3e}); every one "
+          f"of the {len(tags)} written dipCN tables equal to it at its written precision; loci "
+          f"{', '.join(checked)}: ok equal to the binary kernel's per locus, within rtol 1e-5 "
+          f"(max abs err {bin_err:.3e})", flush=True)
+
+    # ---- the float64 plain route on the CPU, from the run's own file -------
+    t0 = time.perf_counter()
+    ids64, zp64, _, _, _ = load_neighbor_geometry({**cfg, "device": {"platform": "cpu"}})
+    check(ids64 == sample_ids and zp64.dtype == torch.float64, "multilocus: the CPU geometry")
+    ones64 = torch.ones(zp64.shape, dtype=torch.bool)
+    d2_64 = d2_matrix(zp64, ones64, ones64[0], math.inf)
+    want_d, want_i = (x.numpy() for x in sorted_smallest_k(d2_64, k))
+    got_d, got_i = (x.cpu().numpy() for x in sorted_smallest_k(d2, k))
+    tol = TIE_RTOL * want_d[:, -1]
+    differ = neighbor_rows_differing(got_i, got_d, want_i, want_d, tol=tol)
+    sets_total, compared = 0, 0
+    for usable, names, w in groups:
+        mine = [g for g in checked if g in names]
+        if not mine:
+            continue
+        cols = [names.index(g) for g in mine]
+        w64 = torch.tensor(w[:, cols], dtype=torch.float64)
+        u64 = torch.tensor(usable)
+        v64 = u64[:, None].expand(w64.shape).contiguous()
+        pdip, pok = (x.numpy() for x in dipcn_from_distances_multi(d2_64, w64, w64, u64, v64,
+                                                                 k=k, n_nbr=n_nbr))
+        sets = dipcn_sets_differ(got_i, want_i, usable, n_nbr)
+        sets_total += int(sets.sum())
+        for c, g in enumerate(mine):
+            dip, ok, _, _ = results[g]
+            check(np.array_equal(ok, pok[:, c]),
+                  f"multilocus {g}: ok differs from the float64 route")
+            same = ok & ~sets
+            check(np.allclose(dip[same], pdip[same, c], rtol=1e-5, atol=0),
+                  f"multilocus {g}: dipCN differs from the float64 route beyond rtol 1e-5")
+            compared += int(same.sum())
+    print(f"[multilocus] vs the float64 plain route on the CPU from the run's own normalized file "
+          f"({time.perf_counter() - t0:.1f} s): neighbor lists identical on {n - differ.size} of "
+          f"{n} rows, the others differ only by ties within {TIE_RTOL:g} of the k-th distance; "
+          f"{sets_total} rows (summed over the groups) change a dipCN input set; the "
+          f"{len(checked)} "
+          f"checked loci: ok exact, within rtol 1e-5 on {compared} (row, locus) pairs whose sets "
+          f"agree", flush=True)
+    del d2_64, zp64
+
+    # ---- a second call: 3 loci with step 7, the shared steps resumed ----
+    three = [genes[0], genes[len(genes) // 2], genes[-1]]
+    before = {g: (out / f"diploid_genotypes.{tag[g]}.tsv").read_bytes() for g in three}
+    cfg2 = copy.deepcopy(cfg)
+    cfg2["resume"] = True
+    cfg2["compute_haploid_genotypes"]["run"] = True
+    console2 = Recorder()
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    multilocus.run_multi_locus(cfg2, three, console2)
+    wall2 = time.perf_counter() - t0
+    launches2 = {name: fn.launches for name, fn in counted.items()}
+    failed = [msg for msg, style in console2.lines if style == "danger" or "Failed to run" in msg]
+    check(not failed, f"multilocus call 2: logged {failed[:3]}")
+    skipped = [msg for msg, _ in console2.lines if msg.endswith("skipped (resume)")]
+    check(skipped == ["[normalize] up-to-date, skipped (resume)",
+                      "[neighbors] up-to-date, skipped (resume)"], f"multilocus call 2: {skipped}")
+    n_groups2 = len({results[g][1].tobytes() for g in three})
+    check(launches2["dipcn_from_distances_multi_gpu"] == n_groups2 == launches2["zprep_gram"]
+          and not any(launches2[name] for name in ("masked_column_stats", "zprep_split",
+                                                   "zprep_gram_panel", "dipcn_from_distances_gpu")),
+          f"multilocus call 2 launches {launches2}")
+    for g in three:
+        # a locus's sums in the kernel do not depend on the other loci
+        check((out / f"diploid_genotypes.{tag[g]}.tsv").read_bytes() == before[g],
+              f"multilocus call 2: {g}'s dipCN table changed")
+        hap = (out / f"haploid_genotypes.{tag[g]}.tsv").read_text().splitlines()
+        dip, ok, _, _ = results[g]
+        check([ln.split("\t")[0] for ln in hap[1:]] == [s for s, o in zip(sample_ids, ok) if o],
+              f"multilocus call 2: {g}'s haploid rows")
+        vals = np.array([[float(v) for v in ln.split("\t")[1:]] for ln in hap[1:]])
+        check(np.isfinite(vals[:, 0]).all(), f"multilocus call 2: {g}'s haploid dipCN column")
+    print(f"[multilocus] call 2 ({', '.join(three)}; step 7 on, resume): steps 4-5 skipped, "
+          f"launches {launches2}; the three dipCN tables unchanged and a haploid table beside "
+          f"each, its rows the dipCN rows; {wall2:.3f} s (host clock)", flush=True)
+
+    # ---- the panel branch of the batched step, from the same files --------
+    pcfg = copy.deepcopy(cfg)
+    pcfg["compute_diploid_genotypes"]["output_file_prefix"] = "panel_diploid_genotypes"
+    pcfgs = {g: multilocus.locus_config(pcfg, resolve_locus(g)) for g in genes}
+    console3 = Recorder()
+    for fn in counted.values():
+        fn.launches = 0
+    n_panels = -(-n // 512)
+    with patched(multilocus, {"D2_BUDGET_BYTES": n * n * 4 - 1}):
+        multilocus.run_batched_dipcn(cfg, pcfgs, console3)
+    launches3 = {name: fn.launches for name, fn in counted.items()}
+    want3 = {"masked_column_stats": 0, "zprep_gram": 0, "dipcn_from_distances_gpu": 0,
+             "zprep_split": 2, "zprep_gram_panel": 2 * n_panels,
+             "dipcn_from_distances_multi_gpu": 2 * n_panels}
+    check(launches3 == want3, f"multilocus panel branch launches {launches3} != {want3}")
+    split = zprep_split(zp, None, None, math.inf)
+    pd2 = torch.cat([panel_d2(zprep_gram_panel(split, i0, min(512, n - i0)), split.norms, i0)
+                     for i0 in range(0, n, 512)])
+    pan_d, pan_i = (x.cpu().numpy() for x in sorted_smallest_k(pd2, k))
+    pan_differ = neighbor_rows_differing(pan_i, pan_d, got_i, got_d, tol=TIE_RTOL * got_d[:, -1])
+    pan_sets, pan_compared = 0, 0
+    for usable, names, _ in groups:
+        sets = dipcn_sets_differ(pan_i, got_i, usable, n_nbr)
+        pan_sets += int(sets.sum())
+        for g in names:
+            dip, ok, _, _ = results[g]
+            p_ids, p_vals, _ = read_dipcn(out / f"panel_diploid_genotypes.{tag[g]}.tsv")
+            check(p_ids == [s for s, o in zip(sample_ids, ok) if o],
+                  f"multilocus panel branch {g}: dipCN rows differ from the resident run's")
+            same = ~sets[ok]
+            check(np.allclose(np.asarray(p_vals)[same], dip[ok][same], rtol=1e-5, atol=0),
+                  f"multilocus panel branch {g}: dipCN differs beyond rtol 1e-5")
+            pan_compared += int(same.sum())
+    print(f"[multilocus] the batched step on the panel branch (D2_BUDGET_BYTES {n * n * 4 - 1}): "
+          f"launches {launches3}; neighbor lists of its d2 identical to the resident d2's on "
+          f"{n - pan_differ.size} of {n} rows, the others ties; {pan_sets} rows change a set; "
+          f"every table's rows the resident run's, within rtol 1e-5 on {pan_compared} (row, locus) "
+          f"pairs whose sets agree; {card}", flush=True)
+    del pd2, split
+
+    # ---- times at N for L in MULTI_TIMED_L ---------------------------------
+    info = dipcn_select_info(n, k, dev, multi=True)
+    print(f"[multilocus] the multi form at W={n}, k={k}: {info['mode']} mode, "
+          f"{info['smem_bytes']} B dynamic + {info['static_smem_bytes']} B static shared memory, "
+          f"{info['blocks_per_sm']} blocks per SM, {info['registers']} registers, "
+          f"{info['spill_bytes']} B spilled", flush=True)
+    check(info["spill_bytes"] == 0, "the multi form spills to local memory")
+    # all loci's weights on the larger group's usable columns
+    usable_all = max((u for u, _, _ in groups), key=lambda u: int(u.sum()))
+    w_all = np.concatenate([w for _, _, w in groups], axis=1)
+    take, m_eff = _take_set(d2, torch.tensor(usable_all, device=dev), k, n_nbr)
+    take_f = take.to(d2.dtype)  # float32 on the card
+    timed = {}
+    for n_loci in MULTI_TIMED_L:
+        args = multi_inputs(w_all[:, :n_loci], usable_all, dev, d2.dtype)
+
+        def kern(args=args):
+            return dipcn_from_distances_multi_gpu(d2, *args, k=k, n_nbr=n_nbr)
+
+        def plain(args=args):
+            return dipcn_from_distances_multi(d2, *args, k=k, n_nbr=n_nbr)
+
+        def lib(args=args):  # the sum part alone, a yardstick the port never calls
+            return torch.mm(take_f, args[1])
+
+        p1, k1, k2, p2 = (median_ms(f) for f in (plain, kern, kern, plain))
+        b2b = min(back_to_back_ms(kern), back_to_back_ms(kern))
+        lib_ms = min(median_ms(lib), median_ms(lib))
+        n_bytes = 4 * n * n + n + n_loci * n * (4 + 4 + 1 + 4 + 1)
+        adds = float(m_eff.sum()) * n_loci
+        least, by = bound_ms(n_bytes, adds, FP32_FLOP_PER_S)
+        timed[n_loci] = {"ms": min(k1, k2), "ms_back_to_back": b2b, "plain_ms": min(p1, p2),
+                         "bound_ms": least, "bound_by": by, "bound_share": least / b2b,
+                         "library_ms": lib_ms}
+        print(f"[times] multi dipcn_select at N={n}, L={n_loci}: kernel {min(k1, k2):.4f} ms "
+              f"(median of {REPS}), {REPS} back to back {b2b:.4f} ms per call, plain "
+              f"{min(p1, p2):.4f} ms; bound {least:.4f} ms by {by} ({n_bytes / 1e6:.1f} MB at "
+              f"3.35 TB/s against {adds / 1e6:.1f} M adds at the 67 TFLOP/s FP32 peak outside the "
+              f"tensor cores; the kernel adds in FP64), {100 * least / b2b:.1f}% of it back to "
+              f"back; the sum part alone as torch.mm of the [N, N] float32 take mask by W (TF32 "
+              f"off) {lib_ms:.4f} ms; {card}", flush=True)
+    del take, take_f, d2, zp
+    torch.cuda.empty_cache()
+    return {"launches": launches, "launches_call2": launches2, "launches_panels": launches3,
+            "max_abs_err": err, "max_abs_err_binary": bin_err, "timed": timed,
+            "seconds": wall, "spans": {s: t[s] for s in spans}}
+
+
+def multilocus_wide_phase(card: str, zp, n_nbr: int = N_NBR, k: int = K) -> dict:
+    """Phase 11 at N=65,536 on phase 7's prepared z: the panel route of the
+    sweep's batched step with MULTI_L seeded loci (2% unusable columns),
+    128 wide-mode multi launches, against the binary wide panel route for
+    loci 0, L/2 and L-1; its time, time per panel and peak memory."""
+    import math
+
+    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel, zprep_split
+    from grid_tpu_torch.ops.gpu_select import (
+        dipcn_from_distances_gpu, dipcn_from_distances_multi_gpu, dipcn_multi_panels_gpu,
+        dipcn_select_info,
+    )
+    from grid_tpu_torch.ops.knn import panel_d2
+    from grid_tpu_torch.ops.select import _take_set
+
+    n, dev, b = zp.shape[0], zp.device, 512
+    n_panels = -(-n // b)
+    rng = np.random.default_rng(MULTI_SEED)
+    usable = rng.random(n) > 0.02
+    w = np.where(usable[:, None], rng.uniform(0.5, 2.0, (n, MULTI_L)), 0.0)
+    args = multi_inputs(w, usable, dev, zp.dtype)
+    row_valid = torch.ones(n, dtype=torch.bool, device=dev)
+    def route():
+        return dipcn_multi_panels_gpu(zp, *args, k=k, n_nbr=n_nbr, row_valid=row_valid)
+
+    counted = (zprep_split, zprep_gram_panel, dipcn_from_distances_multi_gpu)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dip, ok = route()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = tuple(fn.launches for fn in counted)
+    check(launches == (1, n_panels, n_panels), f"multilocus N={n}: launches {launches}")
+    bound = 32 * b * n * 4 + 8 * n * MULTI_L * 4
+    check(peak < bound, f"multilocus N={n}: peak {peak} B is not O(512*N + N*L)")
+    info = dipcn_select_info(n, k, dev, multi=True)
+    check(info["mode"] == "wide" and info["spill_bytes"] == 0, f"multi form shape {info}")
+    # the binary wide panel route for three loci, on the same panels
+    three = (0, MULTI_L // 2, MULTI_L - 1)
+    split = zprep_split(zp, None, None, math.inf)
+    w_t, _, u_t, v_t = args
+    err = 0.0
+    for i0 in range(0, n, b):
+        rows = slice(i0, min(i0 + b, n))
+        d2 = panel_d2(zprep_gram_panel(split, i0, rows.stop - i0), split.norms, i0, row_valid)
+        for j in three:
+            col = w_t[:, j].contiguous()
+            bdip, bok = dipcn_from_distances_gpu(d2, col[rows].contiguous(), col, u_t,
+                                                 v_t[rows, j].contiguous(), k=k, n_nbr=n_nbr)
+            check(torch.equal(bok, ok[rows, j]), f"multilocus N={n}: ok of locus {j} differs")
+            check(torch.allclose(dip[rows, j][bok], bdip[bok], rtol=1e-5, atol=0),
+                  f"multilocus N={n}: locus {j} differs from the binary route beyond rtol 1e-5")
+            err = max(err, max_abs(dip[rows, j][bok], bdip[bok]))
+    d2 = panel_d2(zprep_gram_panel(split, 0, b), split.norms, 0, row_valid)
+    one = (d2, args[0][:b].contiguous(), args[1], u_t, v_t[:b].contiguous())
+    del split, dip, ok
+    # the first panel's bound: its d2, W, rnorm, valid and usable read once,
+    # dipcn and ok written once, against the adds its take-sets need
+    _, m_eff = _take_set(d2, u_t, k, n_nbr)
+    least, by = bound_ms(4 * b * n + 4 * n * MULTI_L + n + b * MULTI_L * (4 + 1 + 4 + 1),
+                         float(m_eff.sum()) * MULTI_L, FP32_FLOP_PER_S)
+    step_ms = [median_ms(route, reps=3, warmup=1) for _ in range(2)]
+    col0 = w_t[:, 0].contiguous()
+    kern_ms = min(back_to_back_ms(lambda: dipcn_from_distances_multi_gpu(*one, k=k, n_nbr=n_nbr),
+                                  reps=5, warmup=1) for _ in range(2))
+    bin_ms = min(back_to_back_ms(lambda: dipcn_from_distances_gpu(
+        d2, col0[:b].contiguous(), col0, u_t, v_t[:b, 0].contiguous(), k=k, n_nbr=n_nbr),
+        reps=5, warmup=1) for _ in range(2))
+    print(f"[multilocus] N={n}, R={zp.shape[1]}, L={MULTI_L}: the panel route (1 split, "
+          f"{n_panels} Gram panels, {n_panels} multi launches in the {info['mode']} mode) "
+          f"{min(step_ms):.1f} ms by CUDA events (better of two medians of 3: "
+          f"{step_ms[0]:.1f}, {step_ms[1]:.1f}), {min(step_ms) / n_panels:.3f} ms per panel; "
+          f"the multi kernel alone {kern_ms:.4f} ms per [{b}, {n}] panel (bound {least:.4f} ms "
+          f"by {by}, {100 * least / kern_ms:.1f}% of it), the binary kernel "
+          f"{bin_ms:.4f} ms; loci {', '.join(map(str, three))} against the binary wide route: ok "
+          f"equal, within rtol 1e-5 (max abs err {err:.3e}); peak memory "
+          f"{peak / 2**30:.3f} GiB above the inputs (gate {bound / 2**30:.2f} GiB: 32 panels + "
+          f"8 [N, L] float32 arrays); {card}", flush=True)
+    del d2, one
+    torch.cuda.empty_cache()
+    return {"launches": n_panels, "step_ms": min(step_ms), "panel_ms": min(step_ms) / n_panels,
+            "kernel_ms_per_panel": kern_ms, "binary_ms_per_panel": bin_ms,
+            "bound_ms_per_panel": least, "bound_by": by,
+            "peak_gib": peak / 2**30, "max_abs_err_binary": err}
+
+
 def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = PIPELINE_FLANK,
                  k: int = K, n_nbr: int = N_NBR) -> dict:
     """Phase 9: the fused WGS pipeline from files (see the module docstring).
@@ -1150,8 +1590,11 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
             out=card_out, t=again_t, ids=ids, ratios=ratios, z=z_card, scales=scales, own=own,
             host_share=1 - (again_t["fused.device"] + again_t["fused.phase"]) / total)
         files_launches = files_phase(card, counted, tmp, cohort, base, names, fused_run, k, n_nbr)
+
+        # ---- phase 11: the multi-locus sweep, on the same cohort ----------
+        multi = multilocus_phase(card, counted, tmp, cohort, base, k, n_nbr)
     check(not tmp.exists(), "the temporary directory was not removed")
-    return {name: launches[name] for name in wrappers}, files_launches
+    return {name: launches[name] for name in wrappers}, files_launches, multi
 
 
 def main() -> int:
@@ -1552,11 +1995,14 @@ def main() -> int:
         print("[profile] torch.profiler saw no device activity: device time not measured")
 
     # ---- 7. panels and 8. branches ---------------------------------------
-    panel = panel_phase(dev, card, wrappers)
+    panel, panel_zp = panel_phase(dev, card, wrappers)
     branch_phase(dev, card)
 
-    # ---- 9. the pipeline, from files, and 10. in file mode -----------------
-    pipeline_launches, files_launches = pipeline_phase(card, wrappers)
+    # ---- 9. the pipeline, from files, 10. in file mode, 11. multi-locus ----
+    pipeline_launches, files_launches, multi = pipeline_phase(card, wrappers)
+    multi_wide = multilocus_wide_phase(card, panel_zp)
+    del panel_zp
+    torch.cuda.empty_cache()
     files_json = {"masked_column_stats": {"launches": files_launches["masked_column_stats"]},
                   "zprep_gram": {"launches": files_launches["zprep_gram"],
                                  "zprep_split": files_launches["zprep_split"],
@@ -1564,6 +2010,13 @@ def main() -> int:
                   "dipcn_from_distances_gpu": {
                       "launches": files_launches["dipcn_from_distances_gpu"]}}
 
+    multi_launches = multi["launches"]
+    multi_json = {"masked_column_stats": {"launches": multi_launches["masked_column_stats"]},
+                  "zprep_gram": {"launches": multi_launches["zprep_gram"],
+                                 "zprep_split": multi_launches["zprep_split"],
+                                 "zprep_gram_panel": multi_launches["zprep_gram_panel"]},
+                  "dipcn_from_distances_gpu": {
+                      "launches": multi_launches["dipcn_from_distances_gpu"]}}
     rows = []
     for row in kernels:
         earlier = {key: row[key] for key in row if key not in ("name", "route", "source",
@@ -1571,7 +2024,27 @@ def main() -> int:
         rows.append({**{key: row[key] for key in ("name", "route", "source", "replaces")},
                      **panel[row["name"]], "slice_2504": earlier,
                      "pipeline_2504": {"launches": pipeline_launches[row["name"]]},
-                     "pipeline_files_2504": files_json[row["name"]]})
+                     "pipeline_files_2504": files_json[row["name"]],
+                     "multilocus_2504": multi_json[row["name"]]})
+    # the multi-weight form: the sweep over the catalog at N=2504 is its
+    # main path, its numbers those at L=492 there
+    at_l = multi["timed"][MULTI_L]
+    rows.append({"name": "dipcn_from_distances_multi_gpu", "route": "cuda",
+                 "source": "grid_tpu_torch/csrc/dipcn_select.cu",
+                 "replaces": "grid_tpu/ops/pallas_select.py:130",
+                 "launches": multi_launches["dipcn_from_distances_multi_gpu"],
+                 "max_abs_err": multi["max_abs_err"], "ms": at_l["ms"],
+                 "plain_ms": at_l["plain_ms"], "bound_ms": at_l["bound_ms"],
+                 "bound_by": at_l["bound_by"], "library_ms": at_l["library_ms"],
+                 "library": "torch.mm of the [N, N] float32 take mask by W, TF32 off: the sum "
+                            "part alone",
+                 "shape": f"resident mode, d2 [{N}, {N}], L={MULTI_L}",
+                 "by_l_2504": {str(l): v for l, v in multi["timed"].items()},
+                 "max_abs_err_vs_binary": multi["max_abs_err_binary"],
+                 "launches_second_call": multi["launches_call2"]["dipcn_from_distances_multi_gpu"],
+                 "launches_panel_branch": multi["launches_panels"][
+                     "dipcn_from_distances_multi_gpu"],
+                 "panels_65536": multi_wide})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,11 +2,12 @@
 
 Run as ``python -m grid_tpu_torch.cli ...``. Ported so far: ``wgs`` (steps
 4-7, fused or in file mode; on the card unless the config says
-``device.platform: cpu``), the per-step commands of steps 4-7
-(``normalize``, ``find-neighbors``, ``compute-dipcn``, ``hi-inference``),
-``report``, ``validate``, ``synth`` and ``devices``. The commands of steps
-1-3, ``wes``, ``multi-locus``, the alignment tools and ``wgs --locus`` wait
-for the modules behind them.
+``device.platform: cpu``; ``--locus GENE`` takes the window from the VNTR
+catalog), ``multi-locus`` (the sweep over catalog genes), ``loci`` (the
+catalog), the per-step commands of steps 4-7 (``normalize``,
+``find-neighbors``, ``compute-dipcn``, ``hi-inference``), ``report``,
+``validate``, ``synth`` and ``devices``. The commands of steps 1-3,
+``wes`` and the alignment tools wait for the modules behind them.
 
 ``click`` is needed by this module only.
 """
@@ -41,14 +42,66 @@ def cli():
 @cli.command()
 @click.argument("config", type=click.Path(exists=True))
 @click.option("--no-validate", is_flag=True, help="Skip config validation (reference parity).")
-def wgs(config, no_validate):
+@click.option("--locus", default=None, metavar="GENE",
+              help="Take the VNTR window from the bundled 734-region catalog "
+                   "(overrides chrom/start_bp/end_bp), e.g. LPA.")
+@click.option("--catalog", default=None, type=click.Path(exists=True),
+              help="Another VNTR catalog table for --locus.")
+def wgs(config, no_validate, locus, catalog):
     """Run the WGS pipeline from a YAML CONFIG."""
     console = make_console()
     if console:
         console.print(BANNER, style="info")
+    from grid_tpu_torch.config import load_config
     from grid_tpu_torch.pipeline import run_wgs_pipeline
 
-    run_wgs_pipeline(console, config, validate=not no_validate)
+    cfg = load_config(config)
+    if locus:
+        from grid_tpu_torch.data.loci import resolve_locus
+
+        try:
+            hit = resolve_locus(locus, catalog)
+        except KeyError as e:
+            raise click.ClickException(str(e))
+        cfg["chrom"], cfg["start_bp"], cfg["end_bp"] = hit.chrom, hit.start, hit.end
+        log(console, f"Locus {locus}: {hit.chrom}:{hit.start:,}-{hit.end:,} "
+                     f"(catalog gene {hit.gene})", style="info")
+    run_wgs_pipeline(console, cfg, validate=not no_validate)
+
+
+@cli.command(name="multi-locus")
+@click.argument("config", type=click.Path(exists=True))
+@click.option("--locus", "loci", multiple=True, required=True, metavar="GENE",
+              help="Catalog gene to sweep (repeatable).")
+@click.option("--catalog", default=None, type=click.Path(exists=True),
+              help="Another VNTR catalog table.")
+def multi_locus(config, loci, catalog):
+    """Sweep many VNTR loci in one run: the locus-independent cohort steps
+    (normalize, kNN) run once; dipCN (one batched device call) and phasing
+    repeat per locus with .GENE-suffixed artifacts."""
+    console = make_console()
+    if console:
+        console.print(BANNER, style="info")
+    from grid_tpu_torch.steps.multilocus import run_multi_locus
+
+    run_multi_locus(config, list(loci), console, catalog)
+
+
+@cli.command(name="loci")
+@click.option("--gene", default=None, help="Filter by (sub)string match.")
+@click.option("--catalog", default=None, type=click.Path(exists=True))
+@click.option("--limit", default=20, show_default=True, type=int)
+def loci_cmd(gene, catalog, limit):
+    """List or search the bundled 734-region VNTR catalog (Mukamel 2021)."""
+    from grid_tpu_torch.data.loci import load_vntr_catalog
+
+    table = load_vntr_catalog(catalog)
+    if gene:
+        table = [locus for locus in table if gene.lower() in locus.gene.lower()]
+    for locus in table[:limit]:
+        click.echo(f"{locus.gene}\t{locus.chrom}:{locus.start}-{locus.end}")
+    if len(table) > limit:
+        click.echo(f"... {len(table) - limit} more (raise --limit)")
 
 
 def _step_command(name, help_text, import_path):

@@ -94,6 +94,31 @@
 //   move 640 MB, so they are bound by the loads a block keeps in flight,
 //   not by the memory's rate: 512 blocks of 4 warps are ~16 warps per SM,
 //   and each walk step waits on its loads.
+//
+// The multi-weight form (kMulti; dipcn_select_multi_launch) takes L loci's
+// weights on the same distances, as the multi-locus sweep needs: rnorm and
+// valid [N, L], nbr_w [W, L], dipcn and ok [N, L]. Steps 1-4 are those of
+// the binary form: the take-set is locus-independent. Step 5 becomes:
+//
+// 5m. Compaction: rounds of 128 list entries; one block scan per round of
+//    (key == t2, key < t2) gives every entry its tie rank and the count of
+//    taken entries before it, and each taken entry moves to that place in
+//    the same list. An entry never moves up (its place is at most its
+//    index) and a round's reads finish at the scan's barrier, so the list
+//    compacts in place and keeps its order. Then threads stride over the L
+//    loci and sum nbr_w[col * L + l] over the m_eff listed columns in list
+//    order: a fixed order (deterministic), and each read of W's row col is
+//    one coalesced line across the block's threads. Each thread's sum is
+//    serial, so it adds in float64 (its error then stays far below one
+//    float32 rounding; the FP64 adds cost nothing beside the loads), where
+//    the binary form adds in float32 along a tree. dipcn = rnorm / (sum /
+//    max(m_eff, 1)) and ok = valid & (m_eff > 0), per (row, l).
+//
+//    The sums read at most n_nbr rows of W per sample (N * n_nbr * L * 4
+//    bytes, 1.48 GB at N=2504, n_nbr=300, L=492, mostly from L2) instead of
+//    the [N, N] @ [N, L] product of the take mask (2 N^2 L operations, in
+//    FP32 because the weights need float32 accuracy). The binary form's
+//    code is not shared, so its outputs stay bitwise as they were.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -357,11 +382,13 @@ __host__ __device__ inline size_t wide_smem_bytes(int w, int k) {
   return static_cast<size_t>((w + 31) / 32) * 4 + static_cast<size_t>(wide_list_len(w, k)) * 4;
 }
 
-template <bool kWide>
+// kMulti: n_loci weights per column (see 5m above); the binary form
+// ignores n_loci
+template <bool kWide, bool kMulti>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnorm,
                     const float* __restrict__ nbr_w, const uint8_t* __restrict__ usable,
-                    const uint8_t* __restrict__ valid, int w, int k, int n_nbr,
+                    const uint8_t* __restrict__ valid, int w, int n_loci, int k, int n_nbr,
                     float* __restrict__ dipcn, uint8_t* __restrict__ ok) {
   using ListT = typename std::conditional<kWide, int, uint16_t>::type;
   extern __shared__ int4 dyn[];
@@ -496,6 +523,44 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
     need2 = m_eff - f2.below;
   }
 
+  if constexpr (kMulti) {
+    // ---- 5m. compact the take-set in place, then one sum per locus ------
+    if (!take_all) {
+      int ties_before = 0, below_before = 0;  // in the rounds before this one
+      for (int i0 = 0; i0 < len; i0 += kThreads) {  // uniform trip count: whole block in the scan
+        const int i = i0 + tid;
+        int col = 0, key = 0;
+        if (i < len) {
+          col = list[i];
+          key = key_at<kWide>(keys, col);
+        }
+        const bool tie = i < len && key == t2, below = i < len && key < t2;
+        int round_tot;  // ties in the low 16 bits, below t2 in the high: <= 128 each
+        const int pre = block_exclusive_scan((tie ? 1 : 0) | (below ? 1 << 16 : 0), sh.wtot,
+                                             round_tot);
+        const int tie_rank = ties_before + (pre & 0xffff);  // ties before this entry
+        if (below || (tie && tie_rank < need2)) {
+          // taken entries before this one: all below t2, the first need2 ties
+          list[below_before + (pre >> 16) + min(tie_rank, need2)] = static_cast<ListT>(col);
+        }
+        ties_before += round_tot & 0xffff;
+        below_before += round_tot >> 16;
+        __syncthreads();  // this round's places are written and its scan scratch is free
+      }
+    }
+    const float denom = static_cast<float>(max(m_eff, 1));
+    for (int l = tid; l < n_loci; l += kThreads) {
+      const float* wl = nbr_w + l;
+      double s = 0.0;  // a serial sum of up to n_nbr terms, in float64 (see 5m)
+#pragma unroll 4
+      for (int i = 0; i < m_eff; ++i) s += wl[static_cast<size_t>(list[i]) * n_loci];
+      const size_t o = static_cast<size_t>(row) * n_loci + l;
+      dipcn[o] = rnorm[o] / (static_cast<float>(s) / denom);
+      ok[o] = valid[o] && m_eff > 0;
+    }
+    return;
+  }
+
   // ---- 5. sum nbr_w over the take-set ------------------------------------
   const int chunk2 = ((len + kThreads - 1) / kThreads) | 1;
   const int l0 = min(tid * chunk2, len), l1 = min(l0 + chunk2, len);
@@ -530,27 +595,31 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
   }
 }
 
+// The larger static shared memory of the mode's binary and multi forms.
 template <bool kWide>
 cudaError_t static_smem_bytes(size_t* bytes) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, dipcn_select_kernel<kWide>);
-  *bytes = attr.sharedSizeBytes;
-  return err;
+  cudaFuncAttributes binary, multi;
+  cudaError_t err = cudaFuncGetAttributes(&binary, dipcn_select_kernel<kWide, false>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&multi, dipcn_select_kernel<kWide, true>);
+  if (err != cudaSuccess) return err;
+  *bytes = binary.sharedSizeBytes > multi.sharedSizeBytes ? binary.sharedSizeBytes
+                                                          : multi.sharedSizeBytes;
+  return cudaSuccess;
 }
 
-template <bool kWide>
+template <bool kWide, bool kMulti>
 cudaError_t configure(size_t smem) {
   static bool carveout_set = false;
   if (!carveout_set) {
     // shared memory before L1: the blocks per SM are bound by shared memory
     const cudaError_t err = cudaFuncSetAttribute(
-        dipcn_select_kernel<kWide>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        dipcn_select_kernel<kWide, kMulti>, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     carveout_set = true;
   }
   if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(dipcn_select_kernel<kWide>,
+    return cudaFuncSetAttribute(dipcn_select_kernel<kWide, kMulti>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem));
   }
@@ -561,16 +630,16 @@ size_t mode_smem_bytes(int mode, int w, int k) {
   return mode == 0 ? dyn_smem_bytes(w, k) : wide_smem_bytes(w, k);
 }
 
-template <bool kWide>
+template <bool kWide, bool kMulti>
 int info(int w, int k, int* out) {
   const size_t smem = mode_smem_bytes(kWide, w, k);
-  cudaError_t err = configure<kWide>(smem);
+  cudaError_t err = configure<kWide, kMulti>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, dipcn_select_kernel<kWide>);
+  err = cudaFuncGetAttributes(&attr, dipcn_select_kernel<kWide, kMulti>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dipcn_select_kernel<kWide>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dipcn_select_kernel<kWide, kMulti>,
                                                       kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = kThreads;
@@ -582,29 +651,35 @@ int info(int w, int k, int* out) {
   return cudaSuccess;
 }
 
-template <bool kWide>
+template <bool kWide, bool kMulti>
 int launch(const void* d2, const void* rnorm, const void* nbr_w, const void* usable,
-           const void* valid, int n, int w, int k, int n_nbr, void* dipcn, void* ok,
+           const void* valid, int n, int w, int n_loci, int k, int n_nbr, void* dipcn, void* ok,
            cudaStream_t stream) {
   const size_t smem = mode_smem_bytes(kWide, w, k);
-  const cudaError_t err = configure<kWide>(smem);
+  const cudaError_t err = configure<kWide, kMulti>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dipcn_select_kernel<kWide><<<n, kThreads, smem, stream>>>(
+  dipcn_select_kernel<kWide, kMulti><<<n, kThreads, smem, stream>>>(
       static_cast<const float*>(d2), static_cast<const float*>(rnorm),
       static_cast<const float*>(nbr_w), static_cast<const uint8_t*>(usable),
-      static_cast<const uint8_t*>(valid), w, k, n_nbr, static_cast<float*>(dipcn),
+      static_cast<const uint8_t*>(valid), w, n_loci, k, n_nbr, static_cast<float*>(dipcn),
       static_cast<uint8_t*>(ok));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The arguments every launch checks: a mode that takes rows of w columns.
+bool valid_shape(int w, int k, int mode) {
+  return w > 0 && k >= 1 && k <= w && (mode == 0 || mode == 1) &&
+         !(mode == 0 && w > kResidentMaxCols) && !(mode == 1 && w >= kWideMaxCols);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The mode that takes rows of w columns at this k on `device`: 0 (the
-// row's keys in shared memory) whenever its shared memory fits and w <=
-// 65,536, else 1 (wide: the keys stay in device memory) where that fits,
-// else -1. Returns the first cudaError_t.
+// The mode that takes rows of w columns at this k on `device`, in either
+// form: 0 (the row's keys in shared memory) whenever its shared memory fits
+// and w <= 65,536, else 1 (wide: the keys stay in device memory) where
+// that fits, else -1. Returns the first cudaError_t.
 int dipcn_select_mode(int device, int w, int k, int* mode) {
   int optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -623,27 +698,43 @@ int dipcn_select_mode(int device, int w, int k, int* mode) {
   return cudaSuccess;
 }
 
-// Launch shape of `mode` for rows of w columns at this k: threads, dynamic
-// and static shared memory per block, resident blocks per SM, registers a
-// thread and local (spill) bytes a thread. Returns the first cudaError_t.
-int dipcn_select_info(int mode, int w, int k, int* out) {
+// Launch shape of `mode` (of the multi-weight form when `multi` is
+// non-zero) for rows of w columns at this k: threads, dynamic and static
+// shared memory per block, resident blocks per SM, registers a thread and
+// local (spill) bytes a thread. Returns the first cudaError_t.
+int dipcn_select_info(int mode, int multi, int w, int k, int* out) {
   if (mode != 0 && mode != 1) return cudaErrorInvalidValue;
-  return mode == 0 ? info<false>(w, k, out) : info<true>(w, k, out);
+  if (multi) return mode == 0 ? info<false, true>(w, k, out) : info<true, true>(w, k, out);
+  return mode == 0 ? info<false, false>(w, k, out) : info<true, false>(w, k, out);
 }
 
-// Launch `mode` (from dipcn_select_mode) on `stream` without synchronising;
-// returns the first cudaError_t.
+// Launch the binary form in `mode` (from dipcn_select_mode) on `stream`
+// without synchronising; returns the first cudaError_t.
 int dipcn_select_launch(const void* d2, const void* rnorm, const void* nbr_w, const void* usable,
                         const void* valid, int n, int w, int k, int n_nbr, int mode, void* dipcn,
                         void* ok, void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (w <= 0 || k < 1 || k > w || (mode == 0 && w > kResidentMaxCols) ||
-      (mode == 1 && w >= kWideMaxCols) || (mode != 0 && mode != 1)) {
-    return cudaErrorInvalidValue;
-  }
+  if (!valid_shape(w, k, mode)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mode == 0 ? launch<false>(d2, rnorm, nbr_w, usable, valid, n, w, k, n_nbr, dipcn, ok, s)
-                   : launch<true>(d2, rnorm, nbr_w, usable, valid, n, w, k, n_nbr, dipcn, ok, s);
+  return mode == 0 ? launch<false, false>(d2, rnorm, nbr_w, usable, valid, n, w, 1, k, n_nbr,
+                                          dipcn, ok, s)
+                   : launch<true, false>(d2, rnorm, nbr_w, usable, valid, n, w, 1, k, n_nbr,
+                                         dipcn, ok, s);
+}
+
+// Launch the multi-weight form in `mode`: rnorm and valid [n, n_loci],
+// nbr_w [w, n_loci], dipcn and ok [n, n_loci], all row-major. Returns the
+// first cudaError_t.
+int dipcn_select_multi_launch(const void* d2, const void* rnorm, const void* nbr_w,
+                              const void* usable, const void* valid, int n, int w, int n_loci,
+                              int k, int n_nbr, int mode, void* dipcn, void* ok, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  if (n_loci < 1 || !valid_shape(w, k, mode)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return mode == 0 ? launch<false, true>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k, n_nbr,
+                                         dipcn, ok, s)
+                   : launch<true, true>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k, n_nbr,
+                                        dipcn, ok, s);
 }
 
 const char* dipcn_select_error_string(int err) {

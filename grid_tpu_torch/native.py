@@ -12,6 +12,9 @@ library as ``lib<name>-<key>.log``.
 Every exported launch function takes device pointers and the CUDA stream as
 ``void*``, launches without synchronising and returns the ``cudaError_t`` of
 the launch; :func:`check_launch` turns a non-zero code into an exception.
+
+A kernel that fails to build or launch raises :class:`KernelError`; the
+pipeline never logs one away as a failed step (:func:`is_device_failure`).
 """
 
 from __future__ import annotations
@@ -36,6 +39,23 @@ NVCC_FLAGS = (
 KERNELS = ("zprep_gram", "dipcn_select")
 
 
+class KernelError(RuntimeError):
+    """A hand kernel failed to build, compile or launch."""
+
+
+# what CUDA itself raises through PyTorch (a fault, an out-of-memory)
+_DEVICE_ERRORS = tuple(
+    cls for cls in (getattr(torch, "AcceleratorError", None),
+                    getattr(torch.cuda, "CudaError", None), torch.cuda.OutOfMemoryError)
+    if cls is not None)
+
+
+def is_device_failure(exc: BaseException) -> bool:
+    """Whether ``exc`` is a kernel's or the card's own failure, which the
+    pipeline re-raises where it logs other step failures and goes on."""
+    return isinstance(exc, (KernelError, *_DEVICE_ERRORS))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -44,7 +64,7 @@ def _nvcc() -> str:
     candidate = Path(cuda_home) / "bin" / "nvcc"
     if candidate.exists():
         return str(candidate)
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
+    raise KernelError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
 
 
 def library_path(name: str) -> Path:
@@ -57,7 +77,7 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library exists; return the
-    library's path. Raises RuntimeError with nvcc's stderr on failure."""
+    library's path. Raises KernelError with nvcc's stderr on failure."""
     src = CSRC / f"{name}.cu"
     lib = library_path(name)
     if lib.exists():
@@ -68,7 +88,7 @@ def build(name: str) -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {src.name}:\n{' '.join(cmd)}\n{proc.stderr}")
+        raise KernelError(f"nvcc failed building {src.name}:\n{' '.join(cmd)}\n{proc.stderr}")
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
@@ -79,7 +99,11 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library; the error-string
     function ``<name>_error_string`` is declared here, the launch function
     by its wrapper."""
-    lib = ctypes.CDLL(str(build(name)))
+    path = build(name)
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelError(f"cannot load {path}: {e}") from e
     err_fn = getattr(lib, f"{name}_error_string")
     err_fn.argtypes = [ctypes.c_int]
     err_fn.restype = ctypes.c_char_p
@@ -87,10 +111,10 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check_launch(name: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error code."""
+    """Raise KernelError if a launch returned a CUDA error code."""
     if err != 0:
         msg = getattr(load(name), f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")
+        raise KernelError(f"{name} kernel launch failed: cudaError {err} ({msg})")
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -161,20 +161,24 @@ def masked_column_stats(values, mask, inv_row_means, col_means=None):
     part = torch.empty((chunks, 3, r), dtype=torch.float32, device=values.device)
     out = part[0] if chunks == 1 else torch.empty((3, r), dtype=torch.float32,
                                                   device=values.device)
-    triton, kernel, merge = _colstats_kernels()
-    with torch.cuda.device(values.device):
-        # Triton launches on PyTorch's current stream and raises itself when
-        # CUDA refuses a launch.
-        kernel[(col_tiles, chunks)](
-            values, mask.view(torch.uint8), inv_row_means,
-            values if col_means is None else col_means,  # unread when HAS_MU is False
-            part, n, r, rows_per_chunk,
-            HAS_MU=col_means is not None,
-            BLOCK_M=_COLSTATS_BLOCK_M, BLOCK_C=_COLSTATS_BLOCK_C, num_warps=_COLSTATS_WARPS,
-        )
-        if chunks > 1:
-            merge[(triton.cdiv(3 * r, _COLSTATS_MERGE_BLOCK),)](
-                part, out, 3 * r, N_CHUNKS=chunks, BLOCK=_COLSTATS_MERGE_BLOCK, num_warps=4)
+    try:
+        triton, kernel, merge = _colstats_kernels()
+        with torch.cuda.device(values.device):
+            # Triton launches on PyTorch's current stream and raises itself
+            # when it cannot compile a kernel or CUDA refuses a launch.
+            kernel[(col_tiles, chunks)](
+                values, mask.view(torch.uint8), inv_row_means,
+                values if col_means is None else col_means,  # unread when HAS_MU is False
+                part, n, r, rows_per_chunk,
+                HAS_MU=col_means is not None,
+                BLOCK_M=_COLSTATS_BLOCK_M, BLOCK_C=_COLSTATS_BLOCK_C, num_warps=_COLSTATS_WARPS,
+            )
+            if chunks > 1:
+                merge[(triton.cdiv(3 * r, _COLSTATS_MERGE_BLOCK),)](
+                    part, out, 3 * r, N_CHUNKS=chunks, BLOCK=_COLSTATS_MERGE_BLOCK, num_warps=4)
+    except Exception as e:
+        raise native.KernelError(f"masked_column_stats: the Triton kernels did not compile or "
+                                 f"launch: {e}") from e
     masked_column_stats.launches += 1
     return out[0], out[1], out[2]
 
@@ -230,7 +234,7 @@ def _zprep_lib():
 def _require_hopper(device: torch.device) -> None:
     cap = torch.cuda.get_device_capability(device)
     if cap != (9, 0):
-        raise RuntimeError(f"zprep_gram is built for sm_90a (Hopper); {device} has compute "
+        raise native.KernelError(f"zprep_gram is built for sm_90a (Hopper); {device} has compute "
                            f"capability {cap[0]}.{cap[1]}")
 
 

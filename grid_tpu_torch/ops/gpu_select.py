@@ -8,17 +8,27 @@ for CPU tensors only. The kernel selects the same sets by another algorithm
 cut, and a second select on the compacted usable k-set); see its source.
 It has two modes: the row's keys in shared memory, or, for rows wider than
 that holds (the row panels of the large-N branch), in device memory.
+
+:func:`dipcn_from_distances_multi_gpu` launches the kernel's multi-weight
+form for the multi-locus sweep: one take-set per row, L loci's sums over
+it. Its plain version is
+:func:`grid_tpu_torch.ops.select.dipcn_from_distances_multi`.
+:func:`dipcn_multi_panels_gpu` runs it on the row panels of the
+prepared z, beside the Gram panel kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from grid_tpu_torch import native
-from grid_tpu_torch.ops.select import dipcn_from_distances
+from grid_tpu_torch.ops.gpu_kernels import zprep_split
+from grid_tpu_torch.ops.knn import d2_panels
+from grid_tpu_torch.ops.select import dipcn_from_distances, dipcn_from_distances_multi
 
 
 MODES = ("resident", "wide")  # the kernel's modes, by the number it takes
@@ -30,9 +40,12 @@ def _lib():
     lib.dipcn_select_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
     lib.dipcn_select_launch.restype = ctypes.c_int
+    lib.dipcn_select_multi_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+    lib.dipcn_select_multi_launch.restype = ctypes.c_int
     lib.dipcn_select_mode.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.dipcn_select_mode.restype = ctypes.c_int
-    lib.dipcn_select_info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.dipcn_select_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.dipcn_select_info.restype = ctypes.c_int
     return lib
 
@@ -46,10 +59,10 @@ def _device_index(device: torch.device) -> int:
 
 
 def dipcn_select_mode(w: int, k: int, device: torch.device) -> str | None:
-    """The mode the kernel takes rows of ``w`` columns in at this ``k`` on
-    the CUDA ``device``: "resident" (the row's keys in shared memory)
-    whenever that fits, else "wide" (the keys stay in device memory), or
-    None where neither fits."""
+    """The mode the kernel (either form) takes rows of ``w`` columns in at
+    this ``k`` on the CUDA ``device``: "resident" (the row's keys in shared
+    memory) whenever that fits, else "wide" (the keys stay in device
+    memory), or None where neither fits."""
     mode = ctypes.c_int()
     with torch.cuda.device(device):
         err = _lib().dipcn_select_mode(_device_index(device), w, k, ctypes.byref(mode))
@@ -57,18 +70,18 @@ def dipcn_select_mode(w: int, k: int, device: torch.device) -> str | None:
     return MODES[mode.value] if mode.value >= 0 else None
 
 
-def dipcn_select_info(w: int, k: int, device: torch.device) -> dict:
-    """The kernel's launch shape for rows of ``w`` columns at this ``k`` on
-    the CUDA ``device``: its mode, threads, dynamic and static shared memory
-    per block, resident blocks per SM, registers and local (spill) bytes
-    per thread."""
+def dipcn_select_info(w: int, k: int, device: torch.device, multi: bool = False) -> dict:
+    """The kernel's launch shape (of its multi-weight form when ``multi``)
+    for rows of ``w`` columns at this ``k`` on the CUDA ``device``: its
+    mode, threads, dynamic and static shared memory per block, resident
+    blocks per SM, registers and local (spill) bytes per thread."""
     mode = dipcn_select_mode(w, k, device)
     if mode is None:
         raise ValueError(f"no mode of dipcn_select takes rows of {w} columns at k={k}")
     out = (ctypes.c_int * len(_INFO_KEYS))()
     with torch.cuda.device(device):
         native.check_launch("dipcn_select",
-                            _lib().dipcn_select_info(MODES.index(mode), w, k, out))
+                            _lib().dipcn_select_info(MODES.index(mode), int(multi), w, k, out))
     return {"mode": mode, **dict(zip(_INFO_KEYS, out))}
 
 
@@ -122,3 +135,86 @@ def _launch(mode: str, d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr
 
 
 dipcn_from_distances_gpu.launches = 0
+
+
+def dipcn_from_distances_multi_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k: int,
+                                   n_nbr: int):
+    """dipCN of L loci from one [N, W] distance matrix; same contract as
+    :func:`grid_tpu_torch.ops.select.dipcn_from_distances_multi` (float32
+    only on the card).
+
+    The kernel's multi-weight form: each row's take-set is found once, as
+    in :func:`dipcn_from_distances_gpu` and in the same mode, then its
+    threads stride over the L loci and sum ``nbr_w`` [W, L] over the
+    take-set's columns in a fixed order.
+
+    Args:
+        d2: [N, W] float32 distances; rnorm, sample_valid: [N, L];
+        nbr_w: [W, L]; col_usable: [W], shared by the L loci.
+
+    Returns (dipcn [N, L] float32, out_valid [N, L] bool).
+    """
+    if not native.on_cuda(d2, rnorm, nbr_w, col_usable, sample_valid):
+        return dipcn_from_distances_multi(d2, rnorm, nbr_w, col_usable, sample_valid, k=k,
+                                          n_nbr=n_nbr)
+    n, w = d2.shape
+    if rnorm.dim() != 2 or rnorm.shape[1] < 1:
+        raise ValueError(f"rnorm: expected [N, L] with L >= 1, got {tuple(rnorm.shape)}")
+    n_loci = rnorm.shape[1]
+    native.check(d2, "d2", torch.float32, (n, w))
+    native.check(rnorm, "rnorm", torch.float32, (n, n_loci))
+    native.check(nbr_w, "nbr_w", torch.float32, (w, n_loci))
+    native.check(col_usable, "col_usable", torch.bool, (w,))
+    native.check(sample_valid, "sample_valid", torch.bool, (n, n_loci))
+    if not 1 <= k <= w:
+        raise ValueError(f"k={k} must be in [1, {w}]")
+    if n_nbr < 1:
+        raise ValueError(f"n_nbr={n_nbr} must be >= 1")
+    mode = dipcn_select_mode(w, k, d2.device)
+    if mode is None:
+        raise ValueError(f"d2 rows of {w} columns at k={k} fit no mode of the kernel")
+    return _launch_multi(mode, d2, rnorm, nbr_w, col_usable, sample_valid, k, n_nbr)
+
+
+def _launch_multi(mode: str, d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int):
+    """Launch the multi-weight form in ``mode`` on checked inputs."""
+    (n, w), n_loci = d2.shape, rnorm.shape[1]
+    dipcn = torch.empty((n, n_loci), dtype=torch.float32, device=d2.device)
+    ok = torch.empty((n, n_loci), dtype=torch.bool, device=d2.device)
+    with torch.cuda.device(d2.device):
+        err = _lib().dipcn_select_multi_launch(
+            d2.data_ptr(), rnorm.data_ptr(), nbr_w.data_ptr(), col_usable.data_ptr(),
+            sample_valid.data_ptr(), n, w, n_loci, k, n_nbr, MODES.index(mode),
+            dipcn.data_ptr(), ok.data_ptr(), native.stream_ptr(d2.device))
+    native.check_launch("dipcn_select", err)
+    dipcn_from_distances_multi_gpu.launches += 1
+    return dipcn, ok
+
+
+dipcn_from_distances_multi_gpu.launches = 0
+
+
+def dipcn_multi_panels_gpu(zp, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int,
+                           row_block: int = 512, row_valid=None):
+    """The multi-locus form of
+    :func:`grid_tpu_torch.ops.select.dipcn_from_distances_panels` through
+    the kernels: one ``zprep_split`` of the prepared z (no mask, no clip),
+    then per row panel ``zprep_gram_panel`` and its distances
+    (``ops.knn.d2_panels``) and one :func:`dipcn_from_distances_multi_gpu`.
+    Never holds an [N, N] tensor: O(row_block * N + N * L) memory. The
+    arguments are the plain form's; CPU tensors take the wrappers' plain
+    versions.
+
+    Returns (dipcn [N, L], out_valid [N, L]).
+    """
+    geom = (sample_valid.any(dim=1) if row_valid is None else row_valid).to(torch.bool)
+    split = zprep_split(zp, None, None, math.inf)
+    dips, oks = [], []
+    for i0, d2 in d2_panels(split, row_block, geom):
+        rows = slice(i0, i0 + d2.shape[0])
+        dip, ok = dipcn_from_distances_multi_gpu(d2, rnorm[rows], nbr_w, col_usable,
+                                                 sample_valid[rows], k=k, n_nbr=n_nbr)
+        del d2
+        dips.append(dip)
+        oks.append(ok)
+    return torch.cat(dips), torch.cat(oks)

@@ -1,6 +1,7 @@
 """Exact threshold selection and gather-free dipCN (twin of
-``grid_tpu/ops/select.py``, binary form only), on the resident distance
-matrix or on its row panels, and from the sorted neighbor lists
+``grid_tpu/ops/select.py``), on the resident distance matrix or on its row
+panels, for one locus or for L loci's weights on the same distances
+(:func:`dipcn_from_distances_multi`), and from the sorted neighbor lists
 (:func:`dipcn_from_lists`).
 
 Non-negative floats bitcast to signed integers of the same width keep their
@@ -9,7 +10,8 @@ integer key space: each round is one compare-and-count pass. Ties at the
 threshold go to the lower column (stable-argsort parity) through a second
 bisection on the column index.
 
-:func:`dipcn_from_distances` is the plain version of the CUDA kernel in
+:func:`dipcn_from_distances` and :func:`dipcn_from_distances_multi` are the
+plain versions of the CUDA kernel's two forms in
 :mod:`grid_tpu_torch.ops.gpu_select`.
 """
 
@@ -95,6 +97,20 @@ def smallest_k_mask(d2, k):
     return mask & (_per_row(k, u.shape[0], u.device) > 0)[:, None]
 
 
+def _take_set(d2, col_usable, k: int, n_nbr: int):
+    """(take [N, W] bool, m_eff [N]): each row's first ``m_eff = min(n_nbr,
+    usable members of its k-set)`` usable columns among its k nearest, ties
+    to the lower column; no column where m_eff is 0."""
+    key_type = _key_type(d2.dtype)
+    big = torch.iinfo(key_type).max
+    u = d2.view(key_type)
+    in_sk = smallest_k_mask(d2, k)
+    uu = torch.where(in_sk & col_usable[None, :], u, big)
+
+    m_eff = (uu < big).sum(dim=1).clamp_max(n_nbr)
+    return _take_smallest(uu, m_eff) & (m_eff > 0)[:, None], m_eff
+
+
 def dipcn_from_distances(d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int):
     """dipCN straight from the distance matrix, with no neighbor lists and
     no gathers.
@@ -115,19 +131,38 @@ def dipcn_from_distances(d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_n
 
     Returns (dipcn [N], out_valid [N]).
     """
-    key_type = _key_type(d2.dtype)
-    big = torch.iinfo(key_type).max
-    u = d2.view(key_type)
-    in_sk = smallest_k_mask(d2, k)
-    uu = torch.where(in_sk & col_usable[None, :], u, big)
-
-    m_eff = (uu < big).sum(dim=1).clamp_max(n_nbr)
-    take = _take_smallest(uu, m_eff) & (m_eff > 0)[:, None]
-
+    take, m_eff = _take_set(d2, col_usable, k, n_nbr)
     tot = torch.where(take, nbr_w.to(d2.dtype)[None, :], 0).sum(dim=1)
     nbr_mean = tot / m_eff.clamp_min(1)
     dipcn = rnorm.to(d2.dtype) / nbr_mean
     return dipcn, sample_valid & (m_eff > 0)
+
+
+def dipcn_from_distances_multi(d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int):
+    """:func:`dipcn_from_distances` for L loci's weights on one distance
+    geometry (the multi-locus sweep; twin of
+    ``grid_tpu.ops.select.dipcn_from_distances_multi``). The take-set
+    depends only on d2 and the shared ``col_usable``, so the L masked sums
+    are one [N, W] @ [W, L] product of the take mask. Per locus it equals
+    :func:`dipcn_from_distances` up to summation order.
+
+    Args:
+        d2: [N, W] squared distances (self and invalid-row columns set to a
+            large FINITE value).
+        rnorm: [N, L] reads_i / scale_i per locus.
+        nbr_w: [W, L] contribution of each column per locus.
+        col_usable: [W] bool, shared by the L loci (call once per group of
+            loci with one usability pattern).
+        sample_valid: [N, L] bool.
+        k / n_nbr: neighbor-list length and averaging depth.
+
+    Returns (dipcn [N, L], out_valid [N, L]).
+    """
+    take, m_eff = _take_set(d2, col_usable, k, n_nbr)
+    tot = take.to(d2.dtype) @ nbr_w.to(d2.dtype)
+    nbr_mean = tot / m_eff.clamp_min(1)[:, None]
+    dipcn = rnorm.to(d2.dtype) / nbr_mean
+    return dipcn, sample_valid & (m_eff > 0)[:, None]
 
 
 def dipcn_from_lists(d2, sq_dists, nbr_idx, rnorm, nbr_w, col_usable, sample_valid, k: int,
@@ -195,12 +230,14 @@ def dipcn_from_distances_panels(zp, rnorm, nbr_w, col_usable, sample_valid, k: i
     its rows' whole distance vectors, so every row's sets are exact. The
     plain twin of ``grid_tpu.ops.select.dipcn_from_distances_panels`` (its
     binary form; the cohort step's panel branch runs the hand kernels on
-    the same panels).
+    the same panels; ``ops.gpu_select.dipcn_multi_panels_gpu`` is the card
+    route of the multi-locus form).
 
     Args:
         zp: [N, R] prepared z (``ops.knn.prepare_z``).
-        rnorm: [N] reads_i / scale_i. The multi-locus form ([N, L]) is not
-            ported yet and raises NotImplementedError.
+        rnorm: [N] reads_i / scale_i, or [N, L] for the multi-locus form
+            (:func:`dipcn_from_distances_multi`; nbr_w and sample_valid are
+            then [N, L] too, and the outputs gain the L axis).
         nbr_w: [N] neighbor contribution per column.
         col_usable: [N] bool — column may be averaged.
         sample_valid: [N] bool — output validity per row.
@@ -208,26 +245,29 @@ def dipcn_from_distances_panels(zp, rnorm, nbr_w, col_usable, sample_valid, k: i
         row_block: panel height.
         row_valid: [N] bool — rows that exist in the distance geometry
             (their columns are not set to finfo.max); defaults to
-            sample_valid. A sample without a read count is row_valid but
-            not col_usable: it can fill a k-slot but adds nothing to the
-            mean, so the two must not be collapsed.
+            sample_valid (in the multi-locus form, the rows valid for any
+            locus). A sample without a read count is row_valid but not
+            col_usable: it can fill a k-slot but adds nothing to the mean,
+            so the two must not be collapsed.
 
-    Returns (dipcn [N], out_valid [N]).
+    Returns (dipcn [N], out_valid [N]), or [N, L] each.
     """
-    if rnorm.dim() == 2:
-        raise NotImplementedError("the multi-locus form (2-D rnorm) is not ported yet "
-                                  "(ROADMAP.md queue 1)")
     if row_block < 1:
         raise ValueError(f"row_block={row_block} must be >= 1")
     n = zp.shape[0]
-    geom = sample_valid if row_valid is None else row_valid
+    multi = rnorm.dim() == 2
+    if row_valid is not None:
+        geom = row_valid
+    else:
+        geom = sample_valid.any(dim=1) if multi else sample_valid
+    core = dipcn_from_distances_multi if multi else dipcn_from_distances
     split = zprep_split_plain(zp, None, None, math.inf)
     dips, oks = [], []
     for i0 in range(0, n, row_block):
         rows = min(row_block, n - i0)
         d2 = panel_d2(zprep_gram_panel_plain(split, i0, rows), split.norms, i0, geom.to(torch.bool))
-        dip, ok = dipcn_from_distances(d2, rnorm[i0:i0 + rows], nbr_w, col_usable,
-                                       sample_valid[i0:i0 + rows], k=k, n_nbr=n_nbr)
+        dip, ok = core(d2, rnorm[i0:i0 + rows], nbr_w, col_usable, sample_valid[i0:i0 + rows],
+                       k=k, n_nbr=n_nbr)
         dips.append(dip)
         oks.append(ok)
     return torch.cat(dips), torch.cat(oks)

@@ -14,7 +14,8 @@ step's file. A failure of the fused step is logged and the file-mode steps
 run in its place, on the same device (the reference's semantics); on the
 card only a failure to read its inputs does so, and a kernel or device
 failure propagates. A failing file-mode step is logged and the next one
-runs. What the port lacks
+runs, unless a kernel or the card failed (``native.KernelError``, CUDA's
+own errors): that propagates on every device. What the port lacks
 raises ``NotImplementedError`` naming its ROADMAP item before anything
 runs:
 
@@ -36,6 +37,7 @@ import zlib
 from pathlib import Path
 
 from grid_tpu_torch.config import apply_defaults, error_check_config, load_config
+from grid_tpu_torch.native import is_device_failure
 from grid_tpu_torch.steps.dipcn import compute_diploid_genotypes
 from grid_tpu_torch.steps.fused import FusedInputError, fused_steps_enabled, run_fused_steps
 from grid_tpu_torch.steps.haploid import hi_inference
@@ -226,7 +228,8 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
             "the card", style="info")
 
     def gated(section, name, fn):
-        """Run one step with the reference's failure semantics (log and go on)."""
+        """Run one step with the reference's failure semantics (log and go
+        on), but for a kernel or device failure, which propagates."""
         if section.get("run") is not True:
             return
         if resume.should_skip(name, config_data):
@@ -237,6 +240,10 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
                 out = fn(config_data, console, timer)
             resume.mark(name, config_data, [out])
         except Exception as e:
+            # a kernel's or the card's own failure is never logged away: the
+            # later steps would run on without the work it did not do
+            if is_device_failure(e):
+                raise
             log(console, f"Failed to run {name}: {e}", style="danger")
 
     fused_done = False

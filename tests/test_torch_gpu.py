@@ -14,7 +14,11 @@ error against a float64 Gram; dipCN at rtol 1e-6 (the same take-set
 summed in another order). The Gram row panels and their norms are held to
 the same bounds; the norms must equal the diagonal of the kernel's own G
 bitwise. The wide dipCN mode is held to the plain version as the resident
-mode is, past column 65,535 too.
+mode is, past column 65,535 too. The multi-weight dipCN form is held to its
+plain version at rtol 1e-5 (the plain form's [N, W] @ [W, L] product sums
+in another order), to the binary kernel per locus at rtol 1e-6 (it sums in
+float64, the binary kernel in float32), and its wide mode to its resident
+mode bitwise.
 """
 
 import numpy as np
@@ -34,9 +38,21 @@ from grid_tpu_torch.ops.gpu_kernels import (
     zprep_split,
     zprep_split_plain,
 )
-from grid_tpu_torch.ops.gpu_select import _launch, dipcn_from_distances_gpu, dipcn_select_mode
+from grid_tpu_torch.ops.gpu_select import (
+    _launch,
+    _launch_multi,
+    dipcn_from_distances_gpu,
+    dipcn_from_distances_multi_gpu,
+    dipcn_multi_panels_gpu,
+    dipcn_select_info,
+    dipcn_select_mode,
+)
 from grid_tpu_torch.ops.knn import d2_matrix
-from grid_tpu_torch.ops.select import dipcn_from_distances
+from grid_tpu_torch.ops.select import (
+    dipcn_from_distances,
+    dipcn_from_distances_multi,
+    dipcn_from_distances_panels,
+)
 from torch_parity import assert_close_to_max, dipcn_sets_differ, neighbor_rows_differing
 
 pytestmark = pytest.mark.cuda
@@ -337,3 +353,112 @@ def test_cohort_panel_branch_on_card_matches_plain_route_and_resident(cuda):
         usable = reads_valid & want.z_mask.any(axis=1)
         same = got.dipcn_valid & ~dipcn_sets_differ(got.nbr_idx, want.nbr_idx, usable, 30)
         np.testing.assert_allclose(got.dipcn[same], want.dipcn[same], rtol=1e-5)
+
+
+def _multi_weights(rng, cuda, n, w, n_loci):
+    """rnorm [N, L], nbr_w [W, L] and sample_valid [N, L] for L loci."""
+    rnorm = torch.tensor(rng.uniform(0.5, 2.0, (n, n_loci)), dtype=torch.float32, device=cuda)
+    nbr_w = torch.tensor(rng.uniform(0.5, 2.0, (w, n_loci)), dtype=torch.float32, device=cuda)
+    valid = torch.tensor(rng.random((n, n_loci)) > 0.1, device=cuda)
+    return rnorm, nbr_w, valid
+
+
+# the binary cases' distances with L loci's weights: several passes over
+# the loci (L > 128 threads), and the wide mode past column 65,535
+_MULTI_CASES = {"ties-97": 5, "ties-300": 130, "ties-k199": 3, "all-equal": 7,
+                "k-equals-w": 2, "n_nbr-beyond-usable": 4, "no-usable-row": 3,
+                "narrow-band": 33, "wide": 9}
+
+
+@pytest.mark.parametrize("case", list(_MULTI_CASES))
+def test_dipcn_multi_kernel_against_its_plain_version(cuda, case):
+    (d2, _, _, usable, _), k, n_nbr = _dipcn_case(case, cuda)
+    n, w = d2.shape
+    rnorm, nbr_w, valid = _multi_weights(np.random.default_rng(w), cuda, n, w,
+                                         _MULTI_CASES[case])
+    args = (d2, rnorm, nbr_w, usable, valid)
+    before = dipcn_from_distances_multi_gpu.launches
+    got, gok = dipcn_from_distances_multi_gpu(*args, k=k, n_nbr=n_nbr)
+    assert dipcn_from_distances_multi_gpu.launches == before + 1
+    want, wok = dipcn_from_distances_multi(*args, k=k, n_nbr=n_nbr)
+    assert torch.equal(gok, wok)
+    torch.testing.assert_close(got[gok], want[gok], rtol=1e-5, atol=0)
+    if case == "no-usable-row":
+        assert not gok[0].any()
+    # the wide mode compacts and sums the same columns in the same order
+    wide, wide_ok = _launch_multi("wide", *args, k, n_nbr)
+    assert torch.equal(wide_ok, gok) and torch.equal(wide, got)
+    info = dipcn_select_info(w, k, cuda, multi=True)
+    assert info["spill_bytes"] == 0 and info["mode"] == dipcn_select_mode(w, k, cuda)
+
+
+@pytest.mark.parametrize("case", ["ties-300", "all-equal", "narrow-band", "wide"])
+def test_dipcn_multi_kernel_per_locus_equals_the_binary_kernel(cuda, case):
+    """L=1, and each column of L=6, against the binary kernel on the same
+    weights: the same sets (``ok`` equal), values within rtol 1e-6."""
+    (d2, _, _, usable, _), k, n_nbr = _dipcn_case(case, cuda)
+    n, w = d2.shape
+    rnorm, nbr_w, valid = _multi_weights(np.random.default_rng(n + w), cuda, n, w, 6)
+    for loci in (slice(0, 1), slice(0, 6)):
+        got, gok = dipcn_from_distances_multi_gpu(
+            d2, rnorm[:, loci].contiguous(), nbr_w[:, loci].contiguous(), usable,
+            valid[:, loci].contiguous(), k=k, n_nbr=n_nbr)
+        for j in range(got.shape[1]):
+            want, wok = dipcn_from_distances_gpu(
+                d2, rnorm[:, j].contiguous(), nbr_w[:, j].contiguous(), usable,
+                valid[:, j].contiguous(), k=k, n_nbr=n_nbr)
+            assert torch.equal(gok[:, j], wok)
+            torch.testing.assert_close(got[wok, j], want[wok], rtol=1e-6, atol=0)
+
+
+def test_dipcn_multi_kernel_wide_rows_past_uint16(cuda):
+    """Rows of 65,600 columns (the wide mode's int32 lists), 40 loci."""
+    n, w, k, n_nbr = 24, 65600, 500, 300
+    rng = np.random.default_rng(w)
+    d2 = torch.tensor(rng.integers(0, 400, (n, w)) * 0.25, dtype=torch.float32, device=cuda)
+    d2[:, rng.random(w) < 0.05] = torch.finfo(torch.float32).max
+    d2[:, 65540:] = 0.0  # the nearest columns and a tie group past column 65,535
+    d2[:, 65536:65540] = 0.25
+    usable = torch.tensor(rng.random(w) > 0.2, device=cuda)
+    rnorm, nbr_w, valid = _multi_weights(rng, cuda, n, w, 40)
+    assert dipcn_select_mode(w, k, cuda) == "wide"
+    got, gok = dipcn_from_distances_multi_gpu(d2, rnorm, nbr_w, usable, valid, k=k, n_nbr=n_nbr)
+    want, wok = dipcn_from_distances_multi(d2, rnorm, nbr_w, usable, valid, k=k, n_nbr=n_nbr)
+    assert torch.equal(gok, wok)
+    torch.testing.assert_close(got[gok], want[gok], rtol=1e-5, atol=0)
+
+
+def test_dipcn_multi_kernel_refuses_what_it_does_not_take(cuda):
+    d2 = torch.zeros((8, 8), device=cuda)
+    w2 = torch.ones((8, 3), device=cuda)
+    usable = torch.ones(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        dipcn_from_distances_multi_gpu(d2, w2, w2, usable, w2 > 0, k=9, n_nbr=3)
+    with pytest.raises(ValueError):  # 1-D weights: the binary form's
+        dipcn_from_distances_multi_gpu(d2, w2[:, 0], w2[:, 0], usable, usable, k=4, n_nbr=3)
+    with pytest.raises(ValueError):  # nbr_w of another locus count
+        dipcn_from_distances_multi_gpu(d2, w2, w2[:, :2].contiguous(), usable, w2 > 0, k=4,
+                                       n_nbr=3)
+
+
+def test_dipcn_multi_panels_on_card_match_the_plain_panels(cuda):
+    """The panel route of the sweep (split, Gram panels, multi kernel) on a
+    ragged last panel, against the plain panel form on the card."""
+    rng = np.random.default_rng(5)
+    n, r, n_loci = 1100, 40, 12
+    zp = torch.tensor(np.round(rng.normal(size=(n, r)) * 4) / 4, dtype=torch.float32, device=cuda)
+    usable = torch.tensor(rng.random(n) > 0.2, device=cuda)
+    rnorm, nbr_w, _ = _multi_weights(rng, cuda, n, n, n_loci)
+    valid = usable[:, None].expand(n, n_loci).contiguous()
+    row_valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    before = (zprep_split.launches, zprep_gram_panel.launches,
+              dipcn_from_distances_multi_gpu.launches)
+    got, gok = dipcn_multi_panels_gpu(zp, rnorm, nbr_w, usable, valid, k=60, n_nbr=30,
+                                      row_block=512, row_valid=row_valid)
+    assert (zprep_split.launches, zprep_gram_panel.launches,
+            dipcn_from_distances_multi_gpu.launches) == (before[0] + 1, before[1] + 3,
+                                                         before[2] + 3)
+    want, wok = dipcn_from_distances_panels(zp, rnorm, nbr_w, usable, valid, k=60, n_nbr=30,
+                                            row_block=512, row_valid=row_valid)
+    assert torch.equal(gok, wok)
+    torch.testing.assert_close(got[gok], want[gok], rtol=1e-5, atol=0)

@@ -56,7 +56,8 @@ def test_every_module_imports_without_jax_or_grid_tpu():
                  "grid_tpu_torch.native_host", "grid_tpu_torch.native_host.bedgz",
                  "grid_tpu_torch.steps.normalize", "grid_tpu_torch.steps.neighbors",
                  "grid_tpu_torch.steps.dipcn", "grid_tpu_torch.steps.haploid",
-                 "grid_tpu_torch.ops.dipcn"):
+                 "grid_tpu_torch.ops.dipcn", "grid_tpu_torch.data.loci",
+                 "grid_tpu_torch.steps.multilocus"):
         assert name in imported
 
 

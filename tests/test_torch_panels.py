@@ -251,13 +251,6 @@ def test_dipcn_panels_equal_the_resident_core():
     assert not torch.allclose(collapsed[ok], want[ok])
 
 
-def test_dipcn_panels_multi_locus_not_ported():
-    zp = torch.zeros((6, 3))
-    w = torch.ones((6, 2))
-    with pytest.raises(NotImplementedError):
-        dipcn_from_distances_panels(zp, w, w, w[:, 0] > 0, w > 0, k=2, n_nbr=1)
-
-
 # ---------------------------------------------------------------------------
 # cohort_step: the panel branch
 # ---------------------------------------------------------------------------

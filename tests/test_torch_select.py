@@ -14,6 +14,7 @@ import torch
 from grid_tpu.ops.knn import d2_matrix as j_d2_matrix
 from grid_tpu.ops.pallas_select import dipcn_from_distances_pallas as j_dipcn_pallas
 from grid_tpu.ops.select import dipcn_from_distances as j_dipcn
+from grid_tpu.ops.select import dipcn_from_distances_multi as j_dipcn_multi
 from grid_tpu.ops.select import smallest_k_mask as j_smallest_k_mask
 from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu
 from grid_tpu_torch.ops.select import dipcn_from_distances, smallest_k_mask
@@ -126,13 +127,38 @@ def _chunks(n, threads):
     return [(min(t * chunk, n), min(t * chunk + chunk, n)) for t in range(threads)]
 
 
+def _emulate_compaction(lst, lk, t2, need2):
+    """Step 5m of the multi-weight form: rounds of _THREADS list entries,
+    one exclusive scan of (tie, below) per round, each taken entry moved to
+    its place in the same list. Returns the list's first entries, the
+    take-set in list order."""
+    lst = lst.copy()
+    ties_before = below_before = 0
+    for i0 in range(0, len(lst), _THREADS):
+        idx = np.arange(i0, min(i0 + _THREADS, len(lst)))
+        tie, below = lk[idx] == t2, lk[idx] < t2
+        pre_tie, pre_below = np.cumsum(tie) - tie, np.cumsum(below) - below
+        cols = lst[idx].copy()  # the round's reads end at the scan's barrier
+        for a, i in enumerate(idx):
+            rank = ties_before + pre_tie[a]
+            if below[a] or (tie[a] and rank < need2):
+                place = below_before + pre_below[a] + min(rank, need2)
+                assert place <= i  # an entry never moves up
+                lst[place] = cols[a]
+        ties_before += int(tie.sum())
+        below_before += int(below.sum())
+    return lst[:below_before + min(ties_before, need2)]
+
+
 def _emulate_dipcn_kernel(d2, rnorm, nbr_w, usable, valid, k, n_nbr):
     """(dipcn, ok, k-set mask, histogram rounds per row) as the kernel
-    computes them."""
+    computes them; with [W, L] ``nbr_w`` (rnorm and valid [N, L]) as its
+    multi-weight form does, from the same take-set."""
     n, w = d2.shape
     keys_all = d2.view(np.int32).astype(np.int64)
-    dip = np.zeros(n, np.float32)
-    ok = np.zeros(n, bool)
+    multi = nbr_w.ndim == 2
+    dip = np.zeros(rnorm.shape, np.float32)
+    ok = np.zeros(rnorm.shape, bool)
     in_k = np.zeros((n, w), bool)
     rounds = np.zeros(n, int)
     for row in range(n):
@@ -180,6 +206,7 @@ def _emulate_dipcn_kernel(d2, rnorm, nbr_w, usable, valid, k, n_nbr):
         r2 = 0
         if m_eff == list_len:  # take the whole list
             take = np.ones(list_len, bool)
+            taken = lst
         else:
             lk = keys[lst]
             t2, below2, r2 = _radix_select(lk, lo, t - lo, m_eff)
@@ -195,10 +222,17 @@ def _emulate_dipcn_kernel(d2, rnorm, nbr_w, usable, valid, k, n_nbr):
                     elif lk[i] == t2:
                         ties2 += 1
                         take[i] = ties2 <= need2
+            taken = _emulate_compaction(lst, lk, t2, need2)
+        np.testing.assert_array_equal(taken, lst[take])  # compacted in list order
+        rounds[row] = r1 + r2
+        if multi:  # one float64 sum per locus over the compacted list, in its order
+            total = nbr_w[taken].astype(np.float64).sum(axis=0).astype(np.float32)
+            dip[row] = rnorm[row].astype(np.float32) / (total / np.float32(max(m_eff, 1)))
+            ok[row] = valid[row] & (m_eff > 0)
+            continue
         total = np.float32(nbr_w[lst[take]].sum(dtype=np.float32))
         dip[row] = np.float32(rnorm[row]) / (total / np.float32(max(m_eff, 1)))
         ok[row] = valid[row] and m_eff > 0
-        rounds[row] = r1 + r2
     return dip, ok, in_k, rounds
 
 
@@ -254,3 +288,23 @@ def test_dipcn_kernel_arithmetic(case, k, n_nbr):
     if case == "narrow-band":
         in_band = (d2 < np.finfo(np.float32).max).sum(axis=1) >= k
         assert rounds[in_band].max(initial=0) <= 6
+
+
+@pytest.mark.parametrize("case", sorted(_KERNEL_INPUTS))
+@pytest.mark.parametrize("k,n_nbr", [(20, 7), (60, 50), (97, 40)])
+def test_dipcn_multi_kernel_arithmetic(case, k, n_nbr):
+    """The multi-weight form's in-place compaction of the take-set and its
+    per-locus sums, against grid_tpu's dipcn_from_distances_multi (float32)
+    on 6 loci."""
+    d2, _, usable, _ = _KERNEL_INPUTS[case]()
+    n, w = d2.shape
+    rng = np.random.default_rng(n + k)
+    rnorm = rng.uniform(0.5, 2.0, (n, 6)).astype(np.float32)
+    nbr_w = rng.uniform(0.5, 2.0, (w, 6)).astype(np.float32)
+    valid = rng.random((n, 6)) > 0.1
+    got, gok, _, _ = _emulate_dipcn_kernel(d2, rnorm, nbr_w, usable, valid, k, n_nbr)
+    want, wok = j_dipcn_multi(jnp.asarray(d2), jnp.asarray(rnorm), jnp.asarray(nbr_w),
+                              jnp.asarray(usable), jnp.asarray(valid), k=k, n_nbr=n_nbr)
+    wok = np.asarray(wok)
+    np.testing.assert_array_equal(gok, wok)
+    np.testing.assert_allclose(got[wok], np.asarray(want)[wok], rtol=1e-6)
