@@ -156,10 +156,47 @@ before the last line):
              alone per panel and the peak memory above the inputs, which
              must stay O(512 N + N L).
 
+12. alignments — host steps 1-3 from BAM/CRAM in front of steps 4-7
+             (``alignment_phase``). (a) A 1000 Genomes-shaped BAM cohort
+             from the port's ``make_synthetic_cohort_with_alignments`` in the
+             shape of scripts/bench_e2e_1000g.py (N=2504, seed 9, mean_depth
+             4.0, 100 bp reads, the window chr6:160,605,000-160,615,000 and
+             10 flank bins of 1 kb each side; ~3,000 reads a sample), its
+             fabrication timed apart (it stands in for the download); k=500,
+             n_nbr=300, ``threads`` = the machine's cores, no platform named.
+             Run 1 creates the .bai files (``index.run: true``, steps 2-7
+             off); run 2 is the whole ``wgs`` with the index check and
+             ``device: {fused: true}``: the one-pass ingest (batch route)
+             feeds the fused step on the card (launches 2 / 1 / 1); run 3 the
+             same in file mode (2 column statistics, 1 split, 5 panel Grams);
+             run 4 the sequential steps 2-3 (``fused_ingest: false``, steps
+             4-7 off) on the first ALIGN_SEQ_N samples (their step 3 parses
+             each genome-wide bed.gz in Python: the whole cohort would not
+             fit the time limit). Fails unless: the counts and coverage TSVs
+             of runs 2 and 3 are byte-identical and equal run 4's on its
+             samples (rows compared sorted: they come in completion order),
+             run 4's bed.gz files equal run 2's after decompression, the
+             staged bins handed to step 4 equal the bed.gz files read back
+             (per sample, and as the staged matrix) bitwise, steps 4-7 from
+             run 2's written files with steps 1-3 off equal run 2's
+             artifacts (or, where not bitwise, under phase 9's rules), the
+             read counts correlate with the fabricated dip_cn x base_depth
+             (r >= 0.9), the host library is native, every one-pass run took
+             the batch route, and nothing fell back or logged a failure.
+             Prints every run's step times, spans and host share and the
+             one-pass ingest alone on 1 thread and on all cores (samples/s,
+             reads/s). (b) The CRAM route at N=256 (indel_frac 0.1),
+             fabricated as BAM and as CRAM from one seed: counts, coverage
+             and bed.gz files from the native CRAM reader, from cramlite
+             (the plain version, in spawned processes) and from the BAMs
+             must be equal; the native and cramlite routes are timed.
+
 The last three lines are the kernels' JSON object (the panel-mode numbers
 at N=65,536; each entry's "slice_2504" holds phase 5's, "pipeline_2504"
 the launches of phase 9's pipeline call, "pipeline_files_2504" those of
-phase 10's and "multilocus_2504" those of phase 11's sweep; the multi-weight
+phase 10's, "multilocus_2504" those of phase 11's sweep and "alignments_2504"
+those of phase 12's fused call from BAMs and, under "files", its file-mode
+call; the multi-weight
 form's row has the sweep's launches and its times at L=492), the card's
 name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -216,6 +253,15 @@ MULTI_SEED = 11
 MULTI_L = 492  # the bundled catalog's distinct genes
 MULTI_TIMED_L = (1, 32, MULTI_L)
 FP32_FLOP_PER_S = 67e12  # NVIDIA's data sheet, H100 SXM
+# phase 12: the alignment cohorts (the shape of scripts/bench_e2e_1000g.py)
+# and the least correlation of read counts with the fabricated truth
+ALIGN_N, ALIGN_SEED, ALIGN_DEPTH, ALIGN_CRAM_N = 2504, 9, 4.0, 256
+ALIGN_MIN_CORR = 0.9
+# the samples the sequential steps 2-3 run on: their step 3 parses each
+# genome-wide bed.gz (160,625 lines here) in Python, 0.36 s a file on the
+# card's host (45.968 s for 128 files on 8 threads), so the whole cohort
+# (~900 s) would not fit the time limit
+ALIGN_SEQ_N = 64
 
 
 def check(ok, msg: str) -> None:
@@ -300,6 +346,9 @@ class Recorder:
 
     def failures(self) -> list:
         return [(msg, style) for msg, style in self.lines if style in ("danger", "warning")]
+
+    def styled(self, *styles) -> list:
+        return [msg for msg, style in self.lines if style in styles]
 
 
 def host_phase(build_s: float) -> None:
@@ -666,6 +715,386 @@ def branch_phase(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def fabricated_reads(cohort: dict, cfg: dict, read_len: int = 100) -> int:
+    """The reads the fabrication wrote, from its own depth model (as
+    ``synth._make_cohort`` draws them)."""
+    bin_size, w0, w1 = cfg["mosdepth"]["bin_size"], 160_605_000, 160_615_000
+    total = 0
+    for dip, base in zip(cohort["dip_cn"], cohort["base_depth"]):
+        for bs in range(cfg["start_bp"], cfg["end_bp"], bin_size):
+            be = bs + bin_size
+            depth = base * (dip / 2 if bs >= w0 and be <= w1 else 1.0)
+            total += max(int(round(depth * bin_size / read_len)), 0)
+    return total
+
+
+def tsv_rows(path) -> tuple:
+    """(header, sorted rows) of a counts or coverage TSV: rows are appended
+    as samples finish."""
+    lines = Path(path).read_text().splitlines()
+    return lines[0], sorted(lines[1:])
+
+
+def cramlite_route(path: str, chrom: str, start: int, end: int, flags, min_mapq: int,
+                   bed: str, bin_size: int) -> tuple:
+    """One CRAM through cramlite (the plain version of the native reader):
+    its window count, then its binned depth and window coverage integer.
+    Module level, so a spawned worker can run it."""
+    from grid_tpu_torch.io import cramlite
+    from grid_tpu_torch.steps.coverage import compute_region_coverage
+
+    count = cramlite.count_reads_region(path, None, chrom, start, end, set(flags), min_mapq)
+    cramlite.binned_depth(path, bed, bin_size)
+    return count, compute_region_coverage(bed, chrom, start, end)
+
+
+def same_steps_4_7(tag: str, a: Path, b: Path, names: dict, n: int, n_nbr: int) -> str:
+    """Hold run ``b``'s four artifacts to run ``a``'s: equal after
+    decompression, or under phase 9's rules (z and scales within one
+    quantum, the cells apart counted and bounded; neighbor lists equal but
+    for ties within one quantum of the written distances; dipCN within
+    rtol 1e-5 where the input sets agree; haploid values within one
+    quantum). Returns what it found."""
+    from grid_tpu_torch.io.formats import read_dipcn, read_neighbors, read_normalized_data
+    from torch_parity import dipcn_sets_differ, neighbor_rows_differing
+
+    differ = [key for key, name in names.items() if content(a / name) != content(b / name)]
+    if not differ:
+        return "the four artifacts identical after decompression"
+    ids, ratios, z, scales = read_normalized_data(a / names["normalized"])
+    ids_b, ratios_b, z_b, scales_b = read_normalized_data(b / names["normalized"])
+    check(ids == ids_b and z.shape == z_b.shape, f"{tag}: step 4 rows or shape differ")
+    check(np.array_equal(np.isnan(z), np.isnan(z_b)), f"{tag}: step 4 NA cells differ")
+    z_diff = np.nan_to_num(np.abs(z - z_b))
+    s_diff = np.array([abs(scales[s] - scales_b[s]) for s in ids])
+    check(z_diff.max() <= QUANTUM and s_diff.max() <= QUANTUM, f"{tag}: step 4 beyond a quantum")
+    cells = int((~np.isnan(z)).sum())
+    z_apart = int((z_diff > 1e-9).sum())
+    check(z_apart <= cells // 500 and int((s_diff > 1e-9).sum()) <= n // 100,
+          f"{tag}: too many step 4 cells one quantum apart")
+    nbrs, _ = read_neighbors(a / names["neighbors"])
+    nbrs_b, _ = read_neighbors(b / names["neighbors"])
+    row = {s: i for i, s in enumerate(ids)}
+    idx, idx_b = (np.array([[row[m] for m, _, _ in lists[s]] for s in ids])
+                  for lists in (nbrs, nbrs_b))
+    d, d_b = (np.array([[dist for _, _, dist in lists[s]] for s in ids])
+              for lists in (nbrs, nbrs_b))
+    rows_apart = neighbor_rows_differing(idx_b, d_b, idx, d, tol=QUANTUM)
+    dip_ids, dip, _ = read_dipcn(a / names["dipcn"])
+    dip_ids_b, dip_b, _ = read_dipcn(b / names["dipcn"])
+    check(dip_ids == dip_ids_b, f"{tag}: dipCN rows differ")
+    usable = np.array([s in set(dip_ids) for s in ids])
+    sets = dipcn_sets_differ(idx_b, idx, usable, n_nbr)[[row[s] for s in dip_ids]]
+    check(np.allclose(np.asarray(dip_b)[~sets], np.asarray(dip)[~sets], rtol=1e-5, atol=0),
+          f"{tag}: dipCN beyond rtol 1e-5 where the input sets agree")
+    return (f"{', '.join(differ)} differ: {z_apart} of {cells} z cells one quantum apart, "
+            f"{rows_apart.size} neighbor rows differ only by ties within a quantum, dipCN "
+            f"within rtol 1e-5 on {int((~sets).sum())} rows whose input sets agree")
+
+
+def alignment_phase(card: str, wrappers: dict, n: int = ALIGN_N, cram_n: int = ALIGN_CRAM_N,
+                    seq_n: int = ALIGN_SEQ_N, k: int = K, n_nbr: int = N_NBR) -> dict:
+    """Phase 12: host steps 1-3 from BAM/CRAM files in front of steps 4-7
+    (see the module docstring). Returns the kernels' launches of the fused
+    and the file-mode call fed from the BAMs. main() passes no size: the
+    size arguments let the phase be rehearsed small."""
+    import os
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+
+    import grid_tpu_torch.pipeline as pipeline
+    import grid_tpu_torch.steps.fused as fused
+    import grid_tpu_torch.steps.ingest as ingest
+    from grid_tpu_torch import native_host
+    from grid_tpu_torch.io.bed import load_repeat_mask, read_regions_bed_gz
+    from grid_tpu_torch.io.formats import read_samples
+    from grid_tpu_torch.io.staging import stage_cohort
+    from grid_tpu_torch.models.cohort import CohortParams
+    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel, zprep_split
+    from grid_tpu_torch.pipeline import run_wgs_pipeline
+    from grid_tpu_torch.steps.count_reads import count_reads
+    from grid_tpu_torch.steps.coverage import compute_mosdepth, mosdepth_available
+    from grid_tpu_torch.synth import make_synthetic_cohort_with_alignments
+
+    check(native_host.route() == "native", f"the host library did not load: {native_host.route()}")
+    names = {"normalized": "mosdepth_results_normalized.tsv.gz",
+             "neighbors": f"neighbor_coverage.zMax{ZMAX:.1f}.tsv.gz",
+             "dipcn": "diploid_genotypes.tsv", "haploid": "haploid_genotypes.tsv"}
+    counted = {**wrappers, "zprep_split": zprep_split, "zprep_gram_panel": zprep_gram_panel}
+    n_panels = -(-n // CohortParams().row_block)
+    fused_launches = {**PIPELINE_LAUNCHES, "zprep_split": 0, "zprep_gram_panel": 0}
+    file_launches = {"masked_column_stats": 2, "zprep_gram": 0, "dipcn_from_distances_gpu": 0,
+                     "zprep_split": 1, "zprep_gram_panel": n_panels}
+    spans = ("fused.stage", "fused.device", "fused.phase", "fused.write")
+    threads = os.cpu_count() or 1
+    step_files = ("read_counts.tsv", "mosdepth_results.tsv")
+
+    with tempfile.TemporaryDirectory(prefix="grid_tpu_torch_align_") as tmp:
+        tmp = Path(tmp)
+        # ---- (a) the 1000G-shaped cohort from BAM -----------------------
+        t0 = time.perf_counter()
+        cohort = make_synthetic_cohort_with_alignments(
+            tmp / "bam", n_samples=n, seed=ALIGN_SEED, mean_depth=ALIGN_DEPTH)
+        fab_s = time.perf_counter() - t0
+        base = copy.deepcopy(cohort["config"])
+        base["threads"] = threads
+        base["mosdepth"]["neighbors"]["num_neighbors"] = k
+        base["compute_diploid_genotypes"]["n_nbr"] = n_nbr
+        base["compute_haploid_genotypes"].update(max_neighbors=10, n_iters=N_ITERS)
+        n_reads = fabricated_reads(cohort, base)
+        n_bins = (base["end_bp"] - base["start_bp"]) // base["mosdepth"]["bin_size"]
+        print(f"[align] BAM cohort: {n} samples, {n_reads} reads ({n_reads / n:.0f} per sample, "
+              f"100 bp, {n_bins} bins of 1 kb, seed {ALIGN_SEED}, mean_depth {ALIGN_DEPTH} "
+              f"clipped to the fabrication's floor of 10), fabricated in {fab_s:.1f} s by up to "
+              f"{threads} processes (host clock; stands in for the download); mosdepth on PATH: "
+              f"{mosdepth_available()}; {threads} threads", flush=True)
+
+        batch_calls = []
+        real_batch, real_ingest_step = ingest.ingest_batch, pipeline.run_fused_ingest
+        seen = {}
+
+        def counting_batch(*args, **kwargs):
+            batch_calls.append(kwargs.get("threads"))
+            return real_batch(*args, **kwargs)
+
+        def keep_staged(*args, **kwargs):
+            seen["ingest"] = real_ingest_step(*args, **kwargs)
+            return seen["ingest"]
+
+        def keep_stage(*args, **kwargs):
+            seen["stage"] = real_stage(*args, **kwargs)
+            return seen["stage"]
+
+        real_stage = fused._stage
+
+        def run(label: str, device: dict, index_run, fallbacks_allowed: bool = False, **cfg_edits):
+            """One run_wgs_pipeline call in its own output and work
+            directories; returns (output dir, timings, launches, wall s)."""
+            cfg = copy.deepcopy({**base, **cfg_edits})
+            out = tmp / label
+            cfg["output_dir"] = str(out)
+            cfg["mosdepth"]["work_dir"] = str(out / "work")
+            cfg["device"] = device
+            cfg["index"]["run"] = index_run
+            console = Recorder()
+            for fn in counted.values():
+                fn.launches = 0
+            native_host.fallbacks.clear()
+            batch_calls.clear()
+            seen.clear()
+            t0 = time.perf_counter()
+            with patched(ingest, {"ingest_batch": counting_batch}), \
+                    patched(pipeline, {"run_fused_ingest": keep_staged}), \
+                    patched(fused, {"_stage": keep_stage}):
+                timings = run_wgs_pipeline(console=console, config=cfg)
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counted.items()}
+            check(not console.styled("danger"), f"align {label}: {console.styled('danger')[:3]}")
+            check(not [m for m in console.styled("warning") if "failed" in m or "loop" in m],
+                  f"align {label}: {console.styled('warning')}")
+            if not fallbacks_allowed:
+                check(not native_host.fallbacks,
+                      f"align {label}: fallbacks {dict(native_host.fallbacks)}")
+            return out, timings, launches, wall
+
+        # run 1: index.run true builds the .bai files (steps 2-7 off)
+        off = {"run": False}
+        mos_off = {**base["mosdepth"], "run": False,
+                   "normalize": {**base["mosdepth"]["normalize"], "run": False},
+                   "neighbors": {**base["mosdepth"]["neighbors"], "run": False}}
+        _, t1, l1, _ = run("index", {}, True, count_reads={**base["count_reads"], "run": False},
+                           mosdepth=mos_off,
+                           compute_diploid_genotypes={**base["compute_diploid_genotypes"], **off},
+                           compute_haploid_genotypes={**base["compute_haploid_genotypes"], **off})
+        bais = sorted(Path(base["directory_loc"]).glob("*.bam.bai"))
+        check(len(bais) == n and set(t1) == {"create_index"} and not any(l1.values()),
+              f"align run 1: {len(bais)} .bai files, timings {sorted(t1)}")
+        # run 2: the full wgs, the index check, the one-pass ingest, fused
+        out2, t2, l2, wall2 = run("fused", {"fused": True}, False)
+        staged = seen["ingest"][2]
+        stage2 = seen["stage"]
+        check(l2 == fused_launches, f"align run 2 launches {l2} != {fused_launches}")
+        check(batch_calls == [threads], f"align run 2: no batch route ({batch_calls})")
+        check("check_index" in t2 and "fused_ingest_2_3" in t2 and "fused_steps_4_7" in t2
+              and "count_reads" not in t2, f"align run 2 timings {sorted(t2)}")
+        status = (out2 / "index_file_results.tsv").read_text()
+        check(status.count("\tHas index\n") == n, "align run 2: the check found an index missing")
+        # run 3: file mode; run 4: the sequential steps 2-3, fused steps 4-7
+        out3, t3, l3, wall3 = run("files", {}, False)
+        check(l3 == file_launches, f"align run 3 launches {l3} != {file_launches}")
+        check(batch_calls == [threads], f"align run 3: no batch route ({batch_calls})")
+        # run 4: the sequential steps 2-3 (steps 4-7 off) on the first
+        # seq_n samples
+        seq_ids = cohort["ids"][:seq_n]
+        (tmp / "seq_samples.txt").write_text("".join(f"{s}\n" for s in seq_ids))
+        mos_23 = {**mos_off, "run": True}
+        out4, t4, l4, wall4 = run(
+            "sequential", {"fused_ingest": False}, False, samples_file=str(tmp / "seq_samples.txt"),
+            mosdepth=mos_23,
+            compute_diploid_genotypes={**base["compute_diploid_genotypes"], **off},
+            compute_haploid_genotypes={**base["compute_haploid_genotypes"], **off})
+        check(not any(l4.values()), f"align run 4 launched {l4}")
+        check(set(t4) == {"check_index", "count_reads", "mosdepth"},
+              f"align run 4 timings {sorted(t4)}")
+
+        # ---- checks ----------------------------------------------------------
+        in_seq = set(seq_ids)
+        for name in step_files:
+            header, rows2 = tsv_rows(out2 / name)
+            check(len(rows2) == n and "Error" not in (out2 / name).read_text(),
+                  f"align: {name} lacks rows")
+            rows_seq = [r for r in rows2 if r.split("\t")[0] in in_seq]
+            check(tsv_rows(out4 / name) == (header, rows_seq),
+                  f"align: {name} differs between the one-pass and the sequential steps")
+            check((out2 / name).read_bytes() == (out3 / name).read_bytes(),
+                  f"align: {name} differs between two one-pass runs")
+        beds = sorted(p.name for p in (out2 / "work").iterdir())
+        seq_beds = sorted(p.name for p in (out4 / "work").iterdir())
+        check(len(beds) == n and seq_beds == [b for b in beds if b.split("_")[0] in in_seq],
+              "align: the bed.gz files differ in name or number")
+        for bed in seq_beds:
+            check(content(out2 / "work" / bed) == content(out4 / "work" / bed),
+                  f"align: {bed} differs between the one-pass and the sequential steps")
+        excluded = load_repeat_mask(base["mosdepth"]["normalize"]["repeat_mask_file"])
+        chrom, start, end = base["chrom"], base["start_bp"], base["end_bp"]
+        for sample, arrays in staged.items():
+            again = read_regions_bed_gz(out2 / "work" / f"{sample}_SYN.regions.bed.gz", chrom,
+                                        start, end, excluded)
+            check(all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                      for a, b in zip(arrays, again)), f"align: {sample}'s staged bins differ")
+        ncfg = base["mosdepth"]["normalize"]
+        reread = stage_cohort(out2 / "work", read_samples(base["samples_file"]), chrom, start,
+                              end, excluded, ncfg["min_depth"], ncfg["max_depth"], threads, None)
+        for field in ("regions", "values", "mask"):
+            a, b = getattr(stage2, field), getattr(reread, field)
+            check(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                  f"align: the staged {field} differ from the bed.gz files' re-read")
+        check(list(stage2.sample_ids) == list(reread.sample_ids), "align: staged sample order")
+        # run 5: steps 4-7 from run 2's written files (steps 1-3 off)
+        files_in = copy.deepcopy(base)
+        out5 = tmp / "from_files"
+        out5.mkdir()
+        shutil.copy(out2 / "read_counts.tsv", out5 / "read_counts.tsv")
+        files_in.update(output_dir=str(out5), device={"fused": True})
+        files_in["index"]["run"] = None
+        files_in["count_reads"]["run"] = False
+        files_in["mosdepth"]["run"] = False
+        files_in["mosdepth"]["work_dir"] = str(out2 / "work")
+        for fn in counted.values():
+            fn.launches = 0
+        t5 = run_wgs_pipeline(console=None, config=files_in)
+        check({name: fn.launches for name, fn in counted.items()} == fused_launches,
+              "align run 5 launches")
+        found = same_steps_4_7("align run 5 vs 2", out2, out5, names, n, n_nbr)
+        print(f"[align] checks: counts and coverage TSVs byte-identical between the two one-pass "
+              f"runs (2, 3), and on the first {seq_n} samples equal to the sequential steps' (run "
+              f"4; rows in completion order, compared sorted); those {len(seq_beds)} bed.gz files "
+              f"equal after decompression; the staged bins of "
+              f"{len(staged)} samples and _stage's regions, values and mask bitwise equal to the "
+              f"bed.gz files' re-read; steps 4-7 from those files (steps 1-3 off) vs run 2: "
+              f"{found}", flush=True)
+
+        # the read counts follow the fabricated truth
+        counts = {s: float(c) for s, c in (line.split("\t") for line in tsv_rows(
+            out2 / "read_counts.tsv")[1])}
+        truth = {s: d * b for s, d, b in zip(cohort["ids"], cohort["dip_cn"], cohort["base_depth"])}
+        corr = float(np.corrcoef([counts[s] for s in cohort["ids"]],
+                                 [truth[s] for s in cohort["ids"]])[0, 1])
+        check(corr >= ALIGN_MIN_CORR, f"align: read counts vs dip_cn x base_depth r={corr:.4f}")
+        dips = np.asarray([float(line.split("\t")[1]) for line in
+                           (out2 / names["dipcn"]).read_text().splitlines()[1:]])
+        print(f"[align] read counts vs the fabricated dip_cn x base_depth: Pearson r = {corr:.4f} "
+              f"(bound {ALIGN_MIN_CORR}); written dipCN median {np.median(dips):.3f}, range "
+              f"{dips.min():.3f}-{dips.max():.3f} (this cohort's dipCN sits near 1 by design)",
+              flush=True)
+
+        # ---- times ---------------------------------------------------------
+        for label, t, wall, launch in (("run 2, fused, one pass", t2, wall2, l2),
+                                       ("run 3, file mode, one pass", t3, wall3, l3),
+                                       (f"run 4, sequential steps 2-3 alone, {seq_n} samples",
+                                        t4, wall4, l4)):
+            device_s = t.get("fused.device", 0) + t.get("fused.phase", 0) + sum(
+                t.get(s, 0) for s in FILE_DEVICE_SPANS)
+            parts = ", ".join(f"{key} {value:.3f} s" for key, value in t.items())
+            print(f"[align] {label}: {parts}; whole run_wgs_pipeline {wall:.3f} s (host clock); "
+                  f"host share (all but the device spans) {100 * (1 - device_s / wall):.2f}%; "
+                  f"launches {launch}; {card}", flush=True)
+        print(f"[align] run 1 create_index {t1['create_index']:.3f} s for {n} .bai files; "
+              f"{card}", flush=True)
+        rates = {}
+        for n_threads in sorted({1, threads}):
+            cfg = copy.deepcopy(base)
+            cfg.update(threads=n_threads, output_dir=str(tmp / f"rate{n_threads}"))
+            cfg["mosdepth"]["work_dir"] = str(tmp / f"rate{n_threads}" / "work")
+            native_host.fallbacks.clear()
+            t0 = time.perf_counter()
+            ingest.run_fused_ingest(cfg, None)
+            rates[n_threads] = time.perf_counter() - t0
+            check(not native_host.fallbacks, f"align rate run: {dict(native_host.fallbacks)}")
+        print("[align] one-pass ingest alone (run_fused_ingest, batch route, host clock): "
+              + "; ".join(f"{t} thread(s) {s:.3f} s = {n / s:.0f} samples/s, {n_reads / s:.0f} "
+                          f"reads/s" for t, s in rates.items()) + f"; {card}", flush=True)
+
+        # ---- (b) the CRAM route at N=cram_n --------------------------------
+        crams = {}
+        for ft in ("bam", "cram"):
+            t0 = time.perf_counter()
+            crams[ft] = make_synthetic_cohort_with_alignments(
+                tmp / f"c_{ft}", n_samples=cram_n, seed=ALIGN_SEED, mean_depth=ALIGN_DEPTH,
+                file_type=ft, indel_frac=0.1)
+            print(f"[align] {cram_n}-sample {ft.upper()} cohort (indel_frac 0.1) fabricated in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        routes = {}
+        for label, ft in (("bam", "bam"), ("native_cram", "cram")):
+            cfg = copy.deepcopy(crams[ft]["config"])
+            cfg.update(threads=threads, output_dir=str(tmp / f"r_{label}"))
+            cfg["mosdepth"]["work_dir"] = str(tmp / f"r_{label}" / "work")
+            native_host.fallbacks.clear()
+            batch_calls.clear()
+            t0 = time.perf_counter()
+            with patched(ingest, {"ingest_batch": counting_batch}):
+                counts_path, coverage_path, _ = ingest.run_fused_ingest(cfg, None)
+            t_route = time.perf_counter() - t0
+            check(not native_host.fallbacks and batch_calls == [threads],
+                  f"align {label}: fallbacks {dict(native_host.fallbacks)}, batch {batch_calls}")
+            work = sorted((tmp / f"r_{label}" / "work").iterdir())
+            routes[label] = (tsv_rows(counts_path), tsv_rows(coverage_path),
+                             {p.name: content(p) for p in work}, t_route)
+        # cramlite, the plain version: the same count and coverage per file,
+        # in spawned processes (pure Python: the interpreter lock would
+        # serialise threads)
+        cfg = crams["cram"]["config"]
+        paths = sorted(Path(cfg["directory_loc"]).glob("*.cram"))
+        (tmp / "r_cramlite").mkdir()
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(threads, mp_context=multiprocessing.get_context("spawn")) as pool:
+            futures = [pool.submit(cramlite_route, str(p), cfg["chrom"], cfg["start_bp"],
+                                   cfg["end_bp"], cfg["count_reads"]["flags"], 1,
+                                   str(tmp / "r_cramlite" / f"{p.stem}_SYN.regions.bed.gz"), 1000)
+                       for p in paths]
+            lite = [f.result() for f in futures]
+        t_lite = time.perf_counter() - t0
+        header = routes["native_cram"][0][0]
+        lite_counts = (header, sorted(f"{p.stem}\t{c}" for p, (c, _) in zip(paths, lite)))
+        lite_cov = (header, sorted(f"{p.stem}\t{v}" for p, (_, v) in zip(paths, lite)))
+        lite_beds = {p.name: content(p) for p in sorted((tmp / "r_cramlite").iterdir())}
+        for label in ("bam", "native_cram"):
+            check(routes[label][0] == lite_counts, f"align CRAM: {label} counts != cramlite's")
+            check(routes[label][1] == lite_cov, f"align CRAM: {label} coverage != cramlite's")
+        check(routes["native_cram"][2] == lite_beds == routes["bam"][2],
+              "align CRAM: the bed.gz files differ between the routes")
+        print(f"[align] CRAM route, {cram_n} samples: counts, coverage and {len(lite_beds)} bed.gz "
+              f"files equal between the native CRAM reader, cramlite (forced) and the BAMs; the "
+              f"one-pass ingest on {threads} threads: native CRAM "
+              f"{routes['native_cram'][3]:.3f} s, "
+              f"BAM {routes['bam'][3]:.3f} s; cramlite count + binned depth + coverage "
+              f"{t_lite:.3f} s in {threads} processes (host clock); {card}", flush=True)
+    check(not tmp.exists(), "the temporary directory was not removed")
+    return {"fused": {name: l2[name] for name in counted},
+            "files": {name: l3[name] for name in counted}}
+
+
 def rebuild_from_files(tag: str, out, names: dict, ids, ratios, z, scales: dict, ibs_file, k: int,
                        n_nbr: int, fused: bool):
     """Steps 5-7 rebuilt on the CPU by the plain route from one run's own
@@ -810,7 +1239,10 @@ def files_phase(card: str, counted: dict, tmp: Path, cohort: dict, base: dict, n
           f"named), native host route: kernel launches {launches}, expected {want}; no line "
           f"logged at danger or warning; 0 bed.gz files fell back", flush=True)
     check(launches == want, f"file-mode launches {launches} != {want}")
-    check(set(t) == set(FILE_STEPS) | set(FILE_SPANS), f"file-mode timings {sorted(t)}")
+    # the cohort's config has index.run: false, so step 1 checks the (absent)
+    # alignment indexes first, as grid_tpu does
+    check(set(t) == set(FILE_STEPS) | set(FILE_SPANS) | {"check_index"},
+          f"file-mode timings {sorted(t)}")
     total = sum(t[name] for name in FILE_STEPS)
     device_s = sum(t[name] for name in FILE_DEVICE_SPANS)
     print(f"[files] steps (host clock): " + ", ".join(f"{name} {t[name]:.3f} s" for name in FILE_STEPS)
@@ -2003,6 +2435,14 @@ def main() -> int:
     multi_wide = multilocus_wide_phase(card, panel_zp)
     del panel_zp
     torch.cuda.empty_cache()
+
+    # ---- 12. steps 1-3 from alignments in front of steps 4-7 --------------
+    align = alignment_phase(card, wrappers)
+    align_json = {name: {"launches": align["fused"][name], "files": align["files"][name]}
+                  for name in wrappers}
+    for name in ("zprep_split", "zprep_gram_panel"):
+        align_json["zprep_gram"][name] = {"fused": align["fused"][name],
+                                          "files": align["files"][name]}
     files_json = {"masked_column_stats": {"launches": files_launches["masked_column_stats"]},
                   "zprep_gram": {"launches": files_launches["zprep_gram"],
                                  "zprep_split": files_launches["zprep_split"],
@@ -2025,7 +2465,8 @@ def main() -> int:
                      **panel[row["name"]], "slice_2504": earlier,
                      "pipeline_2504": {"launches": pipeline_launches[row["name"]]},
                      "pipeline_files_2504": files_json[row["name"]],
-                     "multilocus_2504": multi_json[row["name"]]})
+                     "multilocus_2504": multi_json[row["name"]],
+                     "alignments_2504": align_json[row["name"]]})
     # the multi-weight form: the sweep over the catalog at N=2504 is its
     # main path, its numbers those at L=492 there
     at_l = multi["timed"][MULTI_L]

@@ -1,13 +1,14 @@
 """grid_tpu_torch command-line interface (twin of ``grid_tpu/cli.py``).
 
 Run as ``python -m grid_tpu_torch.cli ...``. Ported so far: ``wgs`` (steps
-4-7, fused or in file mode; on the card unless the config says
-``device.platform: cpu``; ``--locus GENE`` takes the window from the VNTR
-catalog), ``multi-locus`` (the sweep over catalog genes), ``loci`` (the
-catalog), the per-step commands of steps 4-7 (``normalize``,
+1-3 on the host from BAM/CRAM files, steps 4-7 fused or in file mode, on
+the card unless the config says ``device.platform: cpu``; ``--locus GENE``
+takes the window from the VNTR catalog), ``multi-locus`` (the sweep over
+catalog genes), ``loci`` (the catalog), the per-step commands of steps 1-7
+(``check-index``, ``crai``, ``count-reads``, ``mosdepth``, ``normalize``,
 ``find-neighbors``, ``compute-dipcn``, ``hi-inference``), ``report``,
-``validate``, ``synth`` and ``devices``. The commands of steps 1-3,
-``wes`` and the alignment tools wait for the modules behind them.
+``validate``, ``synth`` and ``devices``. ``wes``, ``ibs`` and the alignment
+tools wait for the modules behind them.
 
 ``click`` is needed by this module only.
 """
@@ -123,6 +124,14 @@ def _step_command(name, help_text, import_path):
     return _cmd
 
 
+_step_command("check-index", "Check CRAI/BAI indexes for all samples.",
+              ("grid_tpu_torch.steps.index", "check_index"))
+_step_command("crai", "Create missing CRAI/BAI indexes.",
+              ("grid_tpu_torch.steps.index", "create_index"))
+_step_command("count-reads", "Count VNTR-window reads per sample.",
+              ("grid_tpu_torch.steps.count_reads", "count_reads"))
+_step_command("mosdepth", "Compute genome-binned coverage per sample.",
+              ("grid_tpu_torch.steps.coverage", "compute_mosdepth"))
 _step_command("normalize", "Normalize the cohort coverage matrix.",
               ("grid_tpu_torch.steps.normalize", "normalize_mosdepth"))
 _step_command("find-neighbors", "Find depth-matched nearest neighbors.",

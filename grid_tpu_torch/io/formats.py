@@ -69,6 +69,16 @@ def write_samples(samples_file, sample_ids) -> None:
 # ------------------------------------------------- per-sample value TSVs ---
 
 
+def setup_output_file(output_file, chrom, start, end) -> Path:
+    """Create a TSV with header ``Sample\\t{chrom}:{start}-{end}``
+    (ref: grid/utils/utils.py:92-111)."""
+    output_path = Path(output_file).expanduser()
+    output_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(output_path, "w") as f:
+        f.write(f"Sample\t{chrom}:{start}-{end}\n")
+    return output_path
+
+
 def read_counts_tsv(path) -> dict[str, float]:
     """Read a counts/coverage TSV into {sample: value}, skipping the header
     and non-numeric rows (matches pandas + to_numeric/dropna semantics of

@@ -25,13 +25,6 @@ class NativeReadError(OSError):
         self.code = code
 
 
-def _lib() -> ctypes.CDLL:
-    lib = native_host.lib()
-    if lib is None:
-        raise RuntimeError(f"the host library is not loaded: {native_host.route()}")
-    return lib
-
-
 def _array(ptr, n: int, dtype) -> np.ndarray:
     return np.ctypeslib.as_array(ptr, shape=(n,)).copy() if n else np.empty(0, dtype)
 
@@ -57,7 +50,7 @@ def _mask_args(excluded):
 def read_regions_bed_gz(path, chromosome=None, start=None, end=None, excluded=None):
     """Native twin of :func:`grid_tpu_torch.io.bed.read_regions_bed_gz`.
     Returns (starts int64, ends int64, depths float64) numpy arrays."""
-    lib = _lib()
+    lib = native_host.require()
     c = ctypes
     chrom_filter = None
     if chromosome:
@@ -91,7 +84,7 @@ def read_regions_bed_gz_grouped(path, excluded=None):
     every chromosome, no window, depth > 0, the repeat mask on the
     normalised name. Returns ``(chrom, starts, ends, depths)`` segments in
     file order."""
-    lib = _lib()
+    lib = native_host.require()
     c = ctypes
     names, n_mask, offsets_arr, kb_arr = _mask_args(excluded)
     p_starts = c.POINTER(c.c_int64)()

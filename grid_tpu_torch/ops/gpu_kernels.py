@@ -51,11 +51,18 @@ _COLSTATS_MERGE_BLOCK = 256  # partial entries per program of the merge kernel
 
 def masked_column_stats_plain(values, mask, inv_row_means, col_means=None):
     """Plain PyTorch version of :func:`masked_column_stats`, in the input's
-    dtype (the kernel is float32 only)."""
+    dtype (the kernel is float32 only).
+
+    The sums run along contiguous rows of the transposed matrix: summed
+    across the rows in place, a column's sum depended on its position (the
+    CPU reduction takes the last columns of a row by another order), so two
+    equal columns could differ in the last bit, and the high-variance
+    selection's strict ``>`` then split columns that tie exactly."""
     x = torch.where(mask, values * inv_row_means[:, None], 0)
     mu = 0 if col_means is None else col_means[None, :]
     centered = torch.where(mask, x - mu, 0)
-    return mask.sum(dim=0).to(values.dtype), x.sum(dim=0), (centered * centered).sum(dim=0)
+    return (mask.sum(dim=0).to(values.dtype), x.t().contiguous().sum(dim=1),
+            (centered * centered).t().contiguous().sum(dim=1))
 
 
 def colstats_plan(n: int, r: int, n_sm: int) -> tuple[int, int, int]:

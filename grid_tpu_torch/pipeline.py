@@ -6,6 +6,16 @@ step whose outputs exist and whose config and inputs are unchanged is
 skipped with ``resume: true`` (content-addressed,
 ``<output_dir>/.grid_tpu_state.json``).
 
+Steps 1-3 run on the host as in the JAX package: the index check
+(``index.run: false``) or the creation of missing indexes (``run: true``),
+then steps 2-3 as one native pass per alignment file
+(:mod:`grid_tpu_torch.steps.ingest`), whose staged window bins go to steps
+4-7 in the process under the private ``_ingest_staged`` key, or, where that
+pass is off or fails (a warning, and one in
+``native_host.fallbacks["sequential_steps"]``), ``count_reads`` and
+``mosdepth`` one after the other. A config with only steps 1-3 on needs no
+card.
+
 Steps 4-7 run as in the JAX package, on the card unless
 ``device.platform: cpu``: with ``device: {fused: true}`` as one fused step
 (:mod:`grid_tpu_torch.steps.fused`), otherwise (the default) in file mode,
@@ -19,8 +29,7 @@ own errors): that propagates on every device. What the port lacks
 raises ``NotImplementedError`` naming its ROADMAP item before anything
 runs:
 
-- ``index``, ``count_reads``, ``mosdepth`` or ``compute_ibs`` with
-  ``run: true`` (the port reads no alignments yet);
+- ``compute_ibs`` with ``run: true``;
 - ``device.mesh_shape`` with the fused path (the sharded layer).
 
 One addition: the JAX orchestrator keeps resume state for the sequential
@@ -36,13 +45,18 @@ import json
 import zlib
 from pathlib import Path
 
+from grid_tpu_torch import native_host
 from grid_tpu_torch.config import apply_defaults, error_check_config, load_config
 from grid_tpu_torch.native import is_device_failure
+from grid_tpu_torch.steps.count_reads import count_reads
+from grid_tpu_torch.steps.coverage import compute_mosdepth
 from grid_tpu_torch.steps.dipcn import compute_diploid_genotypes
 from grid_tpu_torch.steps.fused import FusedInputError, fused_steps_enabled, run_fused_steps
 from grid_tpu_torch.steps.haploid import hi_inference
+from grid_tpu_torch.steps.index import check_index, create_index
+from grid_tpu_torch.steps.ingest import fused_ingest_enabled, run_fused_ingest
 from grid_tpu_torch.steps.neighbors import find_neighbors
-from grid_tpu_torch.steps.normalize import normalize_mosdepth
+from grid_tpu_torch.steps.normalize import normalize_mosdepth, stage_would_stream
 from grid_tpu_torch.utils.device import compute_dtype, config_device
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import StepTimer, step_timer
@@ -158,13 +172,12 @@ class _Resume:
 
 def _refuse_unported(config: dict) -> None:
     """Raise for what the JAX pipeline would run here and the port cannot."""
-    for name in ("index", "count_reads", "mosdepth", "compute_ibs"):
-        if config.get(name, {}).get("run") is True:
-            raise NotImplementedError(
-                f"{name}.run: true — the port does not read alignments yet (ROADMAP.md queue 1, "
-                "'Host steps 1-3 and compute_ibs'); produce those files with grid_tpu, or set "
-                f"{name}.run: false"
-            )
+    if config.get("compute_ibs", {}).get("run") is True:
+        raise NotImplementedError(
+            "compute_ibs.run: true — the native IBS step is not ported yet (ROADMAP.md queue 1, "
+            "'compute_ibs and tools'); produce the IBS neighbors file with grid_tpu and name it "
+            "in compute_haploid_genotypes.ibs_output, or set compute_ibs.run: false"
+        )
     if config.get("device", {}).get("mesh_shape") and fused_steps_enabled(config):
         raise NotImplementedError(
             "device.mesh_shape: the sharded layer is not ported yet (ROADMAP.md queue 1, "
@@ -182,6 +195,46 @@ def _steps_4_7(config: dict) -> list:
          compute_diploid_genotypes),
         (config.get("compute_haploid_genotypes", {}), "compute_haploid_genotypes", hi_inference),
     ]
+
+
+def _steps_2_3(config_data, console, timer, resume, gated) -> None:
+    """Steps 2-3 as one native pass per file where it is on, with resume
+    marks under ``count_reads`` and ``mosdepth`` (either form resumes the
+    other's files) and its staged bins under ``_ingest_staged``; else, or
+    where it fails, the two steps one after the other."""
+    if fused_ingest_enabled(config_data):
+        cr_on = config_data.get("count_reads", {}).get("run") is True
+        skip_cr = (not cr_on) or resume.should_skip("count_reads", config_data)
+        skip_md = resume.should_skip("mosdepth", config_data)
+        if skip_cr and skip_md:
+            log(console, "[count_reads+mosdepth] up-to-date, skipped (resume)" if cr_on
+                else "[mosdepth] up-to-date, skipped (resume)", style="info")
+            return
+        if cr_on and (skip_cr or skip_md):
+            # exactly one step is up to date: the one pass would rewrite
+            # (and on a crash truncate) its valid file; the sequential
+            # steps keep the finer resume
+            log(console, "one of steps 2/3 is up-to-date; running them sequentially to "
+                "preserve resume state", style="info")
+        else:
+            try:
+                # a streaming normalize stage holds no per-sample arrays
+                collect = not stage_would_stream(config_data)
+                with step_timer("fused_ingest_2_3", timer, console):
+                    counts_path, coverage_path, staged = run_fused_ingest(
+                        config_data, console, collect_staged=collect)
+                if staged is not None:
+                    config_data["_ingest_staged"] = staged
+                if counts_path is not None:
+                    resume.mark("count_reads", config_data, [counts_path])
+                resume.mark("mosdepth", config_data, [coverage_path])
+                return
+            except Exception as e:
+                native_host.count_fallback("sequential_steps")
+                log(console, f"One-pass ingest failed ({e}); falling back to sequential steps "
+                    "2-3", style="warning")
+    gated(config_data.get("count_reads", {}), "count_reads", count_reads)
+    gated(config_data.get("mosdepth", {}), "mosdepth", compute_mosdepth)
 
 
 def run_wgs_pipeline(console=None, config=None, validate: bool = True):
@@ -217,12 +270,6 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
     timer = StepTimer()
     resume = _Resume(config_data)
 
-    # Step 1 (ref: pipeline.py:24-43): index.run false means "check the
-    # alignment indexes" there; the port reads no alignments.
-    if config_data.get("index", {}).get("run") is False:
-        log(console, "[check_index] skipped: the port does not read alignment indexes",
-            style="info")
-
     if config_data.get("device", {}).get("use_pallas"):
         log(console, "device.use_pallas has no effect: the hand kernels are always the path on "
             "the card", style="info")
@@ -245,6 +292,19 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
             if is_device_failure(e):
                 raise
             log(console, f"Failed to run {name}: {e}", style="danger")
+
+    # Step 1 (ref: pipeline.py:24-43): check the indexes when run is false,
+    # create the missing ones when it is true
+    index_run = config_data.get("index", {}).get("run")
+    if index_run is True or index_run is False:
+        name, fn = ("create_index", create_index) if index_run else ("check_index", check_index)
+        try:
+            with step_timer(name, timer, console):
+                fn(config_data, console)
+        except Exception as e:
+            log(console, f"Failed to {name.replace('_', ' ')}: {e}", style="danger")
+
+    _steps_2_3(config_data, console, timer, resume, gated)
 
     fused_done = False
     if fused_steps_enabled(config_data):

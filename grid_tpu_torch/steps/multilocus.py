@@ -15,11 +15,14 @@ form on the resident [N, N] distances (one ``zprep_gram``), or, past
 :data:`D2_BUDGET_BYTES`, one ``zprep_split`` and one Gram panel and one
 multi-weight launch per 512 rows. On the card only the kernels run.
 
-What the port cannot do yet raises before anything is written: counting
-reads (``count_reads.run: true``; the sweep reads each locus's counts file
-``<output_dir>/<prefix>.<GENE>.<type>`` instead) and ``compute_ibs.run:
-true`` (ROADMAP.md, 'Host steps 1-3'). The device is the config's
-(``device.platform``), whatever the cohort's size.
+With ``count_reads.run: true`` each locus's reads are counted into
+``<output_dir>/<prefix>.<GENE>.<type>``: inside the shared one-pass ingest
+(every locus window a count-only window of the same scan,
+``_extra_count_windows``) where that pass runs, else per locus through the
+``count_reads`` step; with it off the sweep reads those files as they are.
+``compute_ibs.run: true`` raises before anything is written (ROADMAP.md,
+'compute_ibs and tools'). The device is the config's (``device.platform``),
+whatever the cohort's size.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from grid_tpu_torch.io.formats import read_counts_tsv, write_dipcn
 from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_multi_gpu, dipcn_multi_panels_gpu
 from grid_tpu_torch.ops.knn import d2_matrix
 from grid_tpu_torch.pipeline import _refuse_unported, run_wgs_pipeline
+from grid_tpu_torch.steps.ingest import fused_ingest_enabled
 from grid_tpu_torch.steps.neighbors import load_neighbor_geometry
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import step_timer
@@ -181,14 +185,27 @@ def run_batched_dipcn(shared_config, locus_cfgs, console=None, timer=None):
     return written
 
 
+def _shared_steps_off(cfg: dict) -> None:
+    """Turn the locus-independent steps 3-5 and the fused form off in a
+    per-locus config."""
+    for path in (("mosdepth",), ("mosdepth", "normalize"), ("mosdepth", "neighbors")):
+        sec = cfg
+        for key in path:
+            sec = sec.setdefault(key, {})
+        sec["run"] = False
+    cfg.setdefault("device", {})["fused"] = False
+
+
 def run_multi_locus(config, genes, console=None, catalog=None, batched="auto", timer=None):
     """Run the WGS pipeline across many catalog loci, sharing the
     locus-independent steps.
 
-    Phase 1 (once): steps 4-5 of the base config (normalize, neighbors).
-    Batched step 6 (once): dipCN of all loci, one device call per
-    usability group (:func:`run_batched_dipcn`). Phase 2 (per locus): what
-    remains, dipCN when batching is off and phasing, through
+    Phase 1 (once): steps 1-5 of the base config (index, coverage, with
+    every locus's read count in the same one-pass scan where it runs,
+    normalize, neighbors). Per-locus counting where that scan did not count
+    (once per locus). Batched step 6 (once): dipCN of all loci, one device
+    call per usability group (:func:`run_batched_dipcn`). Phase 2 (per
+    locus): what remains, dipCN when batching is off and phasing, through
     ``run_wgs_pipeline`` with the shared steps off.
 
     Args:
@@ -199,6 +216,7 @@ def run_multi_locus(config, genes, console=None, catalog=None, batched="auto", t
         batched: True/False/"auto" — batch step 6 across loci ("auto":
             whenever dipCN is on and there is more than one locus).
         timer: optional ``StepTimer`` for the spans ``multi_locus.shared``,
+            ``multi_locus.count_reads`` (where loci are counted one by one),
             ``batched_dipcn`` (with :func:`run_batched_dipcn`'s spans) and
             ``multi_locus.per_locus``.
 
@@ -208,11 +226,12 @@ def run_multi_locus(config, genes, console=None, catalog=None, batched="auto", t
         config = load_config(config)
     error_check_config(config, console)
     config = apply_defaults(config)
-    _refuse_unported(config)  # counting reads and compute_ibs: before any file is written
+    _refuse_unported(config)  # compute_ibs: before any file is written
 
     loci = {g: resolve_locus(g, catalog) for g in genes}
     cfgs = {g: locus_config(config, locus) for g, locus in loci.items()}
 
+    counts_on = config.get("count_reads", {}).get("run") is True
     dipcn_on = config.get("compute_diploid_genotypes", {}).get("run") is True
     if batched == "auto":
         batched = dipcn_on and len(loci) > 1
@@ -222,10 +241,34 @@ def run_multi_locus(config, genes, console=None, catalog=None, batched="auto", t
     for section in _PER_LOCUS_STEPS:
         shared.setdefault(section, {})["run"] = False
     shared.setdefault("device", {})["fused"] = False  # the fused step needs all of 4-7
+    if counts_on and fused_ingest_enabled(shared):
+        # every locus window counted inside the one scan
+        shared["_extra_count_windows"] = [
+            {"chrom": loci[g].chrom, "start": loci[g].start, "end": loci[g].end,
+             "counts_path": _counts_file(cfgs[g])}
+            for g in loci
+        ]
     log(console, f"Multi-locus sweep: shared steps (coverage/normalize/kNN) "
                  f"for {len(loci)} loci", style="info")
     with step_timer("multi_locus.shared", timer):
         run_wgs_pipeline(console, shared, validate=False)
+    counted = "_extra_count_windows" in shared
+    counts_done = {g: counted and _counts_file(cfgs[g]).exists() for g in loci}
+
+    # ---- per-locus counting, where the shared scan did not count ---------
+    for gene, locus in loci.items():
+        if not counts_on or counts_done[gene]:
+            continue
+        log(console, f"[{gene}] count_reads {locus.chrom}:{locus.start:,}-{locus.end:,}",
+            style="info")
+        cfg = copy.deepcopy(cfgs[gene])
+        cfg.setdefault("index", {})["run"] = None
+        for section in _PER_LOCUS_STEPS[1:]:
+            cfg.setdefault(section, {})["run"] = False
+        _shared_steps_off(cfg)
+        with step_timer("multi_locus.count_reads", timer):
+            run_wgs_pipeline(console, cfg, validate=False)
+        counts_done[gene] = True
 
     # ---- batched step 6 --------------------------------------------------
     dipcn_done = set()
@@ -239,12 +282,9 @@ def run_multi_locus(config, genes, console=None, catalog=None, batched="auto", t
             cfg = cfgs[gene]
             # the shared steps are done; off in the per-locus pass
             cfg.setdefault("index", {})["run"] = None
-            for path in (("mosdepth",), ("mosdepth", "normalize"), ("mosdepth", "neighbors")):
-                sec = cfg
-                for key in path:
-                    sec = sec.setdefault(key, {})
-                sec["run"] = False
-            cfg.setdefault("device", {})["fused"] = False
+            _shared_steps_off(cfg)
+            if counts_done[gene]:
+                cfg.setdefault("count_reads", {})["run"] = False
             if gene in dipcn_done:
                 cfg.setdefault("compute_diploid_genotypes", {})["run"] = False
             remaining = [s for s in _PER_LOCUS_STEPS if cfg.get(s, {}).get("run") is True]

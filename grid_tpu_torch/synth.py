@@ -1,5 +1,5 @@
 """Synthetic cohort generator (twin of ``grid_tpu/synth.py``'s
-``make_synthetic_cohort``).
+``make_synthetic_cohort`` and ``make_synthetic_cohort_with_alignments``).
 
 Generates per-sample ``regions.bed.gz`` binned depths with planted CN
 structure, a counts TSV consistent with the planted copy numbers, a repeat
@@ -10,15 +10,28 @@ CNs are returned (and written) so concordance can be scored end-to-end.
 :func:`make_matrix` is the dense synthetic depth matrix of the JAX
 package's ``bench.py``, for driving the cohort step without files.
 
-Not ported: the BAM/CRAM variant and the phased-panel generator.
+:func:`make_synthetic_cohort_with_alignments` also writes a BAM or CRAM per
+sample (the port's :mod:`~grid_tpu_torch.io.bamlite` and
+:mod:`~grid_tpu_torch.io.cramlite` writers), so steps 1-3 run end to end on
+the built-in readers; one seed gives the JAX package's bytes.
+
+Not ported: the phased-panel generator.
 """
 
 from __future__ import annotations
 
 import gzip
+import multiprocessing
+import os
+from concurrent.futures import ProcessPoolExecutor
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
+
+# alignment files a writer process takes (encoding ~3,000 reads in Python
+# costs ~0.1 s a file; a spawned process ~1 s to start)
+SAMPLES_PER_WRITER = 64
 
 
 def make_matrix(n, r, seed=0):
@@ -63,15 +76,100 @@ def make_synthetic_cohort(
     return _make_cohort(
         out_dir, n_samples, chrom, window_start, window_end, flank_bins, bin_size,
         mean_depth, depth_sd, reads_per_copy, seed, missing_frac,
+        make_alignments=False, read_len=100,
     )
+
+
+def make_synthetic_cohort_with_alignments(
+    out_dir,
+    n_samples: int = 6,
+    chrom: str = "chr6",
+    window_start: int = 160_605_000,
+    window_end: int = 160_615_000,
+    flank_bins: int = 10,
+    bin_size: int = 1000,
+    mean_depth: float = 8.0,
+    depth_sd: float = 0.8,
+    reads_per_copy: float = 200.0,
+    seed: int = 0,
+    read_len: int = 100,
+    file_type: str = "bam",
+    indel_frac: float = 0.0,
+):
+    """Variant producing real alignment files so the index / count_reads /
+    coverage steps run end-to-end on the built-in ingestion paths — no
+    pysam, htslib or mosdepth binary required. ``file_type`` selects BAM
+    (grid_tpu_torch.io.bamlite) or CRAM (grid_tpu_torch.io.cramlite).
+
+    ``indel_frac``: fraction of reads carrying a non-trivial CIGAR
+    (soft-clips, insertions, deletions, a splice) instead of all-M. The
+    indel CIGARs keep the read length at ``read_len`` but change the
+    reference span, so the fast-mode binners' CIGAR-derived ref-span
+    accounting is exercised identically across BAM and CRAM (same rng
+    stream => bit-identical alignments modulo container format).
+
+    A cohort of at least 2 × ``SAMPLES_PER_WRITER`` samples is encoded and
+    written by one spawned process per ``SAMPLES_PER_WRITER`` samples, up
+    to the machine's cores; the draws stay in the calling process, so the
+    files are the same bytes as from one process."""
+    return _make_cohort(
+        out_dir, n_samples, chrom, window_start, window_end, flank_bins, bin_size,
+        mean_depth, depth_sd, reads_per_copy, seed, 0.0,
+        make_alignments=True, read_len=read_len, file_type=file_type,
+        indel_frac=indel_frac,
+    )
+
+
+def _indel_cigars(read_len):
+    """Non-trivial CIGARs, all with read length == read_len ([(op, n)])."""
+    l = read_len
+    return [
+        [("M", l - 10), ("D", 4), ("M", 10)],           # deletion
+        [("S", 4), ("M", l - 8), ("S", 4)],             # soft clips
+        [("M", l // 2), ("I", 5), ("M", l - l // 2 - 5)],  # insertion
+        [("M", l // 3), ("N", 60), ("M", l - l // 3)],  # splice gap
+    ]
+
+
+def _write_alignments(aln_dir, file_type, chrom, chrom_len, sid, positions, cigs, read_len):
+    """Encode one sample's reads and write its BAM or CRAM (no index)."""
+    if file_type == "cram":
+        from grid_tpu_torch.io.cramlite import CramRecord, write_cram
+
+        recs = [
+            CramRecord(
+                name=f"{sid}r{j}", flag=83 if j % 2 == 0 else 147,
+                ref_id=0, pos=pos, mapq=60, rl=read_len,
+                seq="A" * read_len, qual=b"I" * read_len,
+                mate_ref_id=0, mate_pos=pos + 150, tlen=250,
+                cigar=cig,
+            )
+            for j, (pos, cig) in enumerate(zip(positions, cigs))
+        ]
+        # no .crai: the pipeline's index step exercises build_crai
+        write_cram(aln_dir / f"{sid}.cram", [(chrom, chrom_len)], recs,
+                   build_index=False)
+    else:
+        from grid_tpu_torch.io.bamlite import encode_record, write_bam
+
+        recs = [
+            encode_record(
+                0, pos, 83 if j % 2 == 0 else 147, mapq=60,
+                read_name=f"{sid}r{j}", seq_len=read_len,
+                cigar=[(int(n), op) for op, n in cig] if cig else None,
+                next_pos=pos + 150,
+            )
+            for j, (pos, cig) in enumerate(zip(positions, cigs))
+        ]
+        write_bam(aln_dir / f"{sid}.bam", [(chrom, chrom_len)], recs)
 
 
 def _make_cohort(
     out_dir, n_samples, chrom, window_start, window_end, flank_bins, bin_size,
     mean_depth, depth_sd, reads_per_copy, seed, missing_frac,
+    make_alignments, read_len, file_type="bam", indel_frac=0.0,
 ):
-    """The cohort of :func:`make_synthetic_cohort`: the JAX package's
-    generator without its BAM/CRAM branch, with every draw made from the same
+    """The JAX package's generator, with every draw made from the same
     generator in the same order, so one seed gives the same files."""
     out = Path(out_dir)
     work = out / "mosdepth_workdir"
@@ -119,6 +217,45 @@ def _make_cohort(
         for i, sid in enumerate(ids):
             lam = reads_per_copy * dip_cn[i] * base_depth[i] / mean_depth
             f.write(f"{sid}\t{int(rng.poisson(lam))}\n")
+
+    # optional: real BAM/CRAM alignments matching the depth model
+    aln_dir = out / "alignments"
+    if make_alignments:
+        aln_dir.mkdir(parents=True, exist_ok=True)
+        chrom_len = all_bins[-1][1] + 10_000
+        # the draws stay in this process, in the JAX package's order; only
+        # the encoding and writing of each file goes to the workers
+        workers = min(os.cpu_count() or 1, n_samples // SAMPLES_PER_WRITER)
+        spawn = multiprocessing.get_context("spawn")
+        written = []
+        with (ProcessPoolExecutor(workers, mp_context=spawn) if workers > 1
+              else nullcontext()) as pool:
+            for i, sid in enumerate(ids):
+                positions = []
+                for (bs, be) in all_bins:
+                    in_window = bs >= window_start and be <= window_end
+                    dose = dip_cn[i] / 2 if in_window else 1.0
+                    depth = base_depth[i] * dose
+                    n_reads = max(int(round(depth * (be - bs) / read_len)), 0)
+                    positions.extend(
+                        int(p) for p in rng.integers(bs, max(be - read_len, bs + 1), size=n_reads)
+                    )
+                positions.sort()
+                # cigar choices drawn AFTER sorting so the rng stream (and the
+                # resulting alignments) are identical across file types
+                cigs = [None] * len(positions)
+                if indel_frac:
+                    cig_set = _indel_cigars(read_len)
+                    take = rng.random(size=len(positions)) < indel_frac
+                    pick = rng.integers(0, len(cig_set), size=len(positions))
+                    cigs = [cig_set[k] if t else None for t, k in zip(take, pick)]
+                args = (aln_dir, file_type, chrom, chrom_len, sid, positions, cigs, read_len)
+                if pool is None:
+                    _write_alignments(*args)
+                else:
+                    written.append(pool.submit(_write_alignments, *args))
+            for done in written:
+                done.result()
 
     # repeat mask: a region far away (exercises the path without masking bins)
     mask_file = out / "repeat_mask.bed"
@@ -173,23 +310,23 @@ def _make_cohort(
     span_end = all_bins[-1][1]
     config = {
         "samples_file": str(samples_file),
-        "directory_loc": str(out / "alignments"),
+        "directory_loc": str(aln_dir),
         "reference_genome": str(samples_file),  # placeholder existing file
         "output_dir": str(results),
         "threads": 2,
-        "file_type": "bam",
+        "file_type": file_type,
         "chrom": chrom,
         "start_bp": span_start,
         "end_bp": span_end,
         "output_file_type": "tsv",
-        "index": {"run": False, "output_file_prefix": "index_file_results"},
+        "index": {"run": make_alignments, "output_file_prefix": "index_file_results"},
         "count_reads": {
-            "run": False,
+            "run": make_alignments,
             "output_file_prefix": "read_counts",
             "flags": [83, 147, 81, 145],
         },
         "mosdepth": {
-            "run": False,
+            "run": make_alignments,
             "output_file_prefix": "mosdepth_results",
             "bin_size": bin_size,
             "mode": "fast",
@@ -198,7 +335,7 @@ def _make_cohort(
             "remove_intermediate": False,
             "normalize": {
                 "run": True,
-                "min_depth": 10,
+                "min_depth": 10 if not make_alignments else 2,
                 "max_depth": 100,
                 "top_frac": 0.1,
                 "output_file_prefix": "mosdepth_results_normalized",

@@ -82,7 +82,8 @@ def test_fused_spans_and_timings_file(f64_runs):
     _, torch_out, t_jax, t_torch = f64_runs
     for span in SPANS:
         assert span in t_jax and span in t_torch, span
-    assert set(t_torch) == set(SPANS)
+    # index.run: false checks the (absent) alignment indexes, as grid_tpu does
+    assert set(t_torch) == set(SPANS) | {"check_index"} and "check_index" in t_jax
     assert json.loads((torch_out / "step_timings.json").read_text()) == t_torch
 
 
@@ -220,10 +221,8 @@ def test_fused_failure_raises(cohort, tmp_path):
 
 
 UNPORTED = {
-    "index": ({"index": {"run": True}}, {}, "Host steps 1-3"),
-    "count_reads": ({"count_reads": {"run": True}}, {}, "Host steps 1-3"),
-    "mosdepth": ({"mosdepth": {"run": True}}, {}, "Host steps 1-3"),
-    "compute_ibs": ({}, {"compute_ibs": {"run": True, "focal_bp": 160_600_000}}, "Host steps 1-3"),
+    "compute_ibs": ({}, {"compute_ibs": {"run": True, "focal_bp": 160_600_000}},
+                    "compute_ibs and tools"),
     "mesh_shape": ({}, {"device": {"fused": True, "mesh_shape": [4], "platform": "cpu"}},
                    "Sharded layer"),
 }
@@ -284,7 +283,8 @@ def test_resume_skips_an_up_to_date_run(cohort, tmp_path):
     assert "fused_steps_4_7" in first
     stamps = {name: (tmp_path / name).stat().st_mtime_ns for name in ARTIFACTS.values()}
     cfg["resume"] = True
-    assert run_wgs_pipeline(console=None, config=cfg) == {}
+    # only step 1's index check runs again (it keeps no resume state)
+    assert set(run_wgs_pipeline(console=None, config=cfg)) == {"check_index"}
     assert stamps == {name: (tmp_path / name).stat().st_mtime_ns for name in ARTIFACTS.values()}
     # a changed input invalidates the skip
     counts = tmp_path / "read_counts.tsv"
@@ -430,7 +430,7 @@ def test_timings_file_that_cannot_be_written(cohort, tmp_path, monkeypatch):
     cfg = run_config(cohort, tmp_path, {"fused": True, "platform": "cpu"})
     console = Recorder()
     timings = run_wgs_pipeline(console=console, config=cfg)
-    assert set(timings) == set(SPANS)
+    assert set(timings) == set(SPANS) | {"check_index"}
     assert all((tmp_path / name).exists() for name in ARTIFACTS.values())
     assert not (tmp_path / "step_timings.json").exists()
     warned = [(msg, style) for msg, style in console.lines if "step_timings.json" in msg]

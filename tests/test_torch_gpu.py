@@ -462,3 +462,76 @@ def test_dipcn_multi_panels_on_card_match_the_plain_panels(cuda):
                                             row_block=512, row_valid=row_valid)
     assert torch.equal(gok, wok)
     torch.testing.assert_close(got[gok], want[gok], rtol=1e-5, atol=0)
+
+
+# ------------------------------------------ the pipeline from alignments ---
+
+QUANTUM = 0.01001  # one %.2f step, with room for the last digit of a float
+
+
+def _wgs_from_bam(tmp_path, cohort, name, device):
+    """One ``run_wgs_pipeline`` of steps 1-7 from the cohort's BAMs (its
+    own output and work directories); returns (output dir, launches)."""
+    import copy
+
+    from grid_tpu_torch.pipeline import run_wgs_pipeline
+
+    counted = (masked_column_stats, zprep_gram, dipcn_from_distances_gpu, zprep_split,
+               zprep_gram_panel)
+    cfg = copy.deepcopy(cohort["config"])
+    cfg["output_dir"] = str(tmp_path / name)
+    cfg["mosdepth"]["work_dir"] = str(tmp_path / name / "work")
+    cfg["device"] = device
+    for fn in counted:
+        fn.launches = 0
+    run_wgs_pipeline(console=None, config=cfg)
+    return tmp_path / name, {fn.__name__: fn.launches for fn in counted}
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "files"])
+def test_wgs_from_bam_on_card_matches_the_cpu_run(cuda, tmp_path, fused):
+    """A small BAM cohort through steps 1-7 on the card (no platform named)
+    and with ``platform: cpu``, both float32: steps 1-3 identical, z within
+    one %.2f quantum, neighbors under the tie rule, dipCN at rtol 1e-5 on
+    rows whose input sets agree; the kernels launched as the form says."""
+    import gzip
+
+    from grid_tpu_torch.io.formats import read_dipcn, read_neighbors, read_normalized_data
+    from grid_tpu_torch.synth import make_synthetic_cohort_with_alignments
+
+    n = 64
+    cohort = make_synthetic_cohort_with_alignments(tmp_path / "cohort", n_samples=n, seed=3,
+                                                   indel_frac=0.1)
+    card, launches = _wgs_from_bam(tmp_path, cohort, "card", {"fused": fused})
+    cpu, cpu_launches = _wgs_from_bam(tmp_path, cohort, "cpu",
+                                      {"fused": fused, "platform": "cpu", "dtype": "float32"})
+    assert not any(cpu_launches.values())
+    want = ({"masked_column_stats": 2, "zprep_gram": 1, "dipcn_from_distances_gpu": 1,
+             "zprep_split": 0, "zprep_gram_panel": 0} if fused else
+            {"masked_column_stats": 2, "zprep_gram": 0, "dipcn_from_distances_gpu": 0,
+             "zprep_split": 1, "zprep_gram_panel": 1})
+    assert launches == want
+    for name in ("read_counts.tsv", "mosdepth_results.tsv"):
+        got, ref = ((out / name).read_text().splitlines() for out in (card, cpu))
+        assert got[0] == ref[0] and sorted(got[1:]) == sorted(ref[1:]) and len(got) == n + 1
+    for bed in sorted((cpu / "work").iterdir()):
+        assert gzip.open(card / "work" / bed.name).read() == gzip.open(bed).read()
+    ids, _, z, scales = read_normalized_data(card / "mosdepth_results_normalized.tsv.gz")
+    c_ids, _, c_z, c_scales = read_normalized_data(cpu / "mosdepth_results_normalized.tsv.gz")
+    assert ids == c_ids and z.shape == c_z.shape
+    np.testing.assert_array_equal(np.isnan(z), np.isnan(c_z))
+    assert np.nanmax(np.abs(z - c_z)) <= QUANTUM
+    nbrs, _ = read_neighbors(card / "neighbor_coverage.zMax2.0.tsv.gz")
+    c_nbrs, _ = read_neighbors(cpu / "neighbor_coverage.zMax2.0.tsv.gz")
+    row = {s: i for i, s in enumerate(ids)}
+    idx, c_idx = (np.array([[row[m] for m, _, _ in lists[s]] for s in ids])
+                  for lists in (nbrs, c_nbrs))
+    d, c_d = (np.array([[dist for _, _, dist in lists[s]] for s in ids])
+              for lists in (nbrs, c_nbrs))
+    # written distances are rounded to %.2f: ties are within that quantum
+    neighbor_rows_differing(idx, d, c_idx, c_d, tol=QUANTUM)
+    d_ids, dip, _ = read_dipcn(card / "diploid_genotypes.tsv")
+    c_ids6, c_dip, _ = read_dipcn(cpu / "diploid_genotypes.tsv")
+    assert d_ids == c_ids6
+    same = ~dipcn_sets_differ(idx, c_idx, np.ones(n, bool), n - 1)
+    np.testing.assert_allclose(np.asarray(dip)[same], np.asarray(c_dip)[same], rtol=1e-5)

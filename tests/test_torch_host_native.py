@@ -95,8 +95,23 @@ def test_library_builds_and_loads_native():
     assert path.name.startswith("libgridhost-")
     lib = native_host.lib()
     for fn in ("grid_bed_read", "grid_bed_read_grouped", "grid_bed_free", "grid_bed_free_grouped",
-               "grid_write_neighbors", "grid_write_normalized"):
+               "grid_write_neighbors", "grid_write_normalized", "grid_bam_count",
+               "grid_cram_count", "grid_bam_binned_depth", "grid_cram_binned_depth",
+               "grid_bam_ingest_multi", "grid_cram_ingest_multi", "grid_ingest_batch",
+               "grid_bam_build_bai", "grid_bam_refs", "grid_cram_refs", "grid_cram_dump",
+               "grid_bam_fetch", "grid_bam_fetch_free"):
         assert getattr(lib, fn).argtypes, fn
+
+
+def test_the_library_holds_the_alignment_readers_and_not_the_writers():
+    """bgzf, bam, cram and batch are built beside the bed.gz reader and the
+    text writers; ibs.cpp and cram_write.cpp (compute_ibs, the tools) are
+    not, and nothing the library links needs them."""
+    assert set(native_host.FILES) == {"bedwrite.h", "bgzf.h", "windows.h", "bedgz.cpp",
+                                      "textgz.cpp", "bgzf.cpp", "bam.cpp", "cram.cpp", "batch.cpp"}
+    assert sorted(p.name for p in native_host.CSRC.iterdir()) == sorted(native_host.FILES)
+    lib = native_host.lib()
+    assert not hasattr(lib, "grid_ibs_neighbors") and not hasattr(lib, "grid_cram_write")
 
 
 def test_library_is_keyed_by_sources_and_flags(monkeypatch, tmp_path):

@@ -57,7 +57,12 @@ def test_every_module_imports_without_jax_or_grid_tpu():
                  "grid_tpu_torch.steps.normalize", "grid_tpu_torch.steps.neighbors",
                  "grid_tpu_torch.steps.dipcn", "grid_tpu_torch.steps.haploid",
                  "grid_tpu_torch.ops.dipcn", "grid_tpu_torch.data.loci",
-                 "grid_tpu_torch.steps.multilocus"):
+                 "grid_tpu_torch.steps.multilocus", "grid_tpu_torch.native_host.bam",
+                 "grid_tpu_torch.native_host.cram", "grid_tpu_torch.native_host._ingest",
+                 "grid_tpu_torch.io.bamlite", "grid_tpu_torch.io.cramlite",
+                 "grid_tpu_torch.ingest.alignments", "grid_tpu_torch.steps.index",
+                 "grid_tpu_torch.steps.count_reads", "grid_tpu_torch.steps.coverage",
+                 "grid_tpu_torch.steps.ingest"):
         assert name in imported
 
 

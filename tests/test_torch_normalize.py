@@ -200,3 +200,29 @@ def test_colstats_plan(n, r, n_sm, chunks):
     assert (col_tiles - 1) * _COLSTATS_BLOCK_C < r <= col_tiles * _COLSTATS_BLOCK_C
     programs = col_tiles * s
     assert programs >= 4 * n_sm or rows_per_chunk == _COLSTATS_BLOCK_M
+
+
+@pytest.mark.parametrize("n,r", [(6, 30), (37, 203)])
+@pytest.mark.parametrize("dt,tdt,rtol", DTYPES)
+def test_equal_columns_get_equal_statistics_and_selection(rng, n, r, dt, tdt, rtol):
+    """Columns with equal values and masks, wherever they sit in the row,
+    get bitwise equal statistics, so the selection's strict ``>`` keeps or
+    drops all of them, as grid_tpu's does (a fabricated cohort without
+    indels has such columns: its flank bins tie exactly)."""
+    values, mask = _matrix(rng, n, r, dt)
+    # the first and last ten columns equal (a cohort's two flanks), and
+    # five in the middle
+    groups = ([*range(10), *range(r - 10, r)], list(range(r // 2 - 3, r // 2 + 2)))
+    for group in groups:
+        values[:, group] = values[:, group[:1]]
+        mask[:, group] = mask[:, group[:1]]
+    res = normalize_cohort(torch.as_tensor(values, dtype=tdt), torch.as_tensor(mask))
+    for group in groups:
+        for field in ("col_means", "col_vars", "var_ratio"):
+            got = getattr(res, field).numpy()[group]
+            assert len(set(got.tobytes()[i:i + got.itemsize]
+                           for i in range(0, got.nbytes, got.itemsize))) == 1, field
+    want = j_normalize(jnp.asarray(values), jnp.asarray(mask))
+    for top_frac in (0.1, 0.4):
+        got = select_high_variance_mask(res.var_ratio, top_frac).numpy()
+        np.testing.assert_array_equal(got, np.asarray(j_select(want.var_ratio, top_frac)))
