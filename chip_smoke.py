@@ -190,6 +190,31 @@ before the last line):
              and bed.gz files from the native CRAM reader, from cramlite
              (the plain version, in spawned processes) and from the BAMs
              must be equal; the native and cramlite routes are timed.
+13. wes    — the exome path (``sw_kernel_phase``, ``wes_phase``). (a) The
+             Smith-Waterman kernel against its plain scan on the card, int32
+             equal, on tests/torch_sw_cases.py's cases (8,192 reads of 150
+             on exons of 160/182/182; Q=1 and Lq=1; all-pad reads and reads
+             with N; Lr of 45 and 97; Lr=700, the shared-memory mode; Lq >
+             Lr; scores (3, -2, -3) and gap 0; two identical references),
+             and ACGT reads against sw_score_host; its launch shapes, which
+             must not spill. (b) Its times at Q = 8,192 and 32,768 (CUDA
+             events: median and 20 back to back), the plain scan's, cell
+             updates per second and the bound: 6 instructions a cell (the
+             recurrence's 9 integer operations in Hopper's fused DPX forms)
+             at the SMs' issue limit, 4 warp instructions a clock, at
+             nvidia-smi's maximum SM clock.
+             (c) A WES-shaped cohort of 256 BAMs (a cut forced by the time
+             limit) of ~8,000 reads of 150 bases in the KIV-2 window, drawn
+             from the three exons at seeded per-sample proportions beside
+             random background reads, an exon FASTA and 200 neighbors a
+             sample; ``python -m grid_tpu_torch.cli wes`` on it in this
+             process (all cores as threads, no platform named). Fails unless
+             the kernel launched once per sample, the counts equal the
+             fabrication's truth (every background read unclassified, every
+             exon read to its label), the counts of 64 samples equal the
+             plain scan's on the card byte for byte, and all three later
+             artifacts are written; prints the spans, the host share and one
+             sample's time by part.
 
 The last three lines are the kernels' JSON object (the panel-mode numbers
 at N=65,536; each entry's "slice_2504" holds phase 5's, "pipeline_2504"
@@ -197,8 +222,9 @@ the launches of phase 9's pipeline call, "pipeline_files_2504" those of
 phase 10's, "multilocus_2504" those of phase 11's sweep and "alignments_2504"
 those of phase 12's fused call from BAMs and, under "files", its file-mode
 call; the multi-weight
-form's row has the sweep's launches and its times at L=492), the card's
-name and power limit, and {"ok": true, "device": {...}}.
+form's row has the sweep's launches and its times at L=492; the
+Smith-Waterman row phase 13's, its launches those of the ``wes`` call), the
+card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -207,6 +233,7 @@ import copy
 import ctypes
 import gzip
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -262,6 +289,26 @@ ALIGN_MIN_CORR = 0.9
 # card's host (45.968 s for 128 files on 8 threads), so the whole cohort
 # (~900 s) would not fit the time limit
 ALIGN_SEQ_N = 64
+# phase 13: the WES path. The kernel's bound: a cell of the recurrence is 9
+# integer operations (the substitution's compare and select, three adds,
+# three maxes with the zero clamp, the running best); Hopper's DPX forms do
+# up + gap, the max with diag + sub and the clamp in one instruction and
+# left + gap with its max in another, so 6 instructions a cell, at the SM's
+# issue limit of 4 warp instructions a clock (integer work can reach it
+# split between the ALU and the FMA pipe). The cohort is the KIV-2 window
+# at ~30x (~8,000 reads of 150 bases a sample), 256 samples (a cut forced
+# by the time limit), 64 of them again on the plain scan
+SW_OPS_PER_CELL = 6
+SW_LANES_PER_SM = 4 * 32
+SW_SEED = 10
+SW_TIMED_Q = (8192, 32768)
+WES_N, WES_PLAIN_N, WES_READS, WES_SEED = 256, 64, 8000, 13
+WES_READ_LEN = 150
+WES_WINDOW = ("chr6", 160_605_062, 160_647_661)
+WES_CHROM_LEN = 170_805_979
+WES_NEIGHBORS = 200
+WES_BREAKDOWN_N = 16
+WES_MIN_SCORE = 180  # 60% of a perfect 150-base read; random reads must stay below
 
 
 def check(ok, msg: str) -> None:
@@ -2029,6 +2076,363 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
     return {name: launches[name] for name in wrappers}, files_launches, multi
 
 
+def sm_clocks_mhz() -> tuple:
+    """(current, maximum) SM clock in MHz, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True, check=True)
+    now, top = (int(v) for v in out.stdout.strip().split(","))
+    return now, top
+
+
+def sw_bound_ms(cells: int, sms: int, clock_mhz: int) -> float:
+    """The least time of ``cells`` Smith-Waterman cell updates: SW_OPS_PER_CELL
+    instructions each over sms x SW_LANES_PER_SM lanes at the SM clock."""
+    return SW_OPS_PER_CELL * cells / (sms * SW_LANES_PER_SM * clock_mhz * 1e6) * 1e3
+
+
+def sw_kernel_phase(dev, card: str) -> dict:
+    """Phase 13 (a) and (b): the kernel against its plain version on the
+    card, exactly, on tests/torch_sw_cases.py's cases and the host oracle;
+    then its times at Q = 8,192 and 32,768 beside its bound. Returns the
+    kernels-line fields."""
+    from grid_tpu_torch.ops.align import encode_seqs, sw_score_host, sw_scores_plain
+    from grid_tpu_torch.ops.gpu_align import sw_scores_gpu, sw_scores_info
+    from torch_sw_cases import acgt_pairs, exon_refs, reads_from, sw_cases
+
+    for lr in (182, 700):
+        info = sw_scores_info(lr, dev)
+        print(f"[sw] launch shape at Lr={lr}: {info['mode']} mode, {info['columns_per_lane']} "
+              f"columns a lane, {info['warps_per_block']} pairs (warps) a block, "
+              f"{info['smem_bytes']} B of dynamic shared memory, {info['registers']} registers "
+              f"and {info['spill_bytes']} B of local memory a thread", flush=True)
+        check(info["spill_bytes"] == 0, f"sw_scores spills to local memory at Lr={lr}")
+    # ---- (a) exact equality with the plain scan on the card ----
+    err = 0.0
+    for label, q_np, r_np, (match, mismatch, gap) in sw_cases():
+        q, r = torch.as_tensor(q_np, device=dev), torch.as_tensor(r_np, device=dev)
+        got = sw_scores_gpu(q, r, match=match, mismatch=mismatch, gap=gap)
+        want = sw_scores_plain(q, r, match=match, mismatch=mismatch, gap=gap)
+        torch.cuda.synchronize()
+        err = max(err, max_abs(got, want))
+        check(torch.equal(got, want), f"sw_scores {label}: the kernel differs from the plain "
+                                      f"version on {int((got != want).sum())} pairs")
+        print(f"[sw] {label}: Q={q.shape[0]} Lq={q.shape[1]} T={r.shape[0]} Lr={r.shape[1]} "
+              f"scores ({match}, {mismatch}, {gap}): kernel == plain exactly (int32; max score "
+              f"{int(want.max())})", flush=True)
+    for read, ref in acgt_pairs():
+        got = int(sw_scores_gpu(torch.as_tensor(encode_seqs([read]), device=dev),
+                                torch.as_tensor(encode_seqs([ref]), device=dev))[0, 0])
+        check(got == sw_score_host(read, ref), "sw_scores: the kernel differs from the host "
+                                               "oracle on an ACGT read")
+    print(f"[sw] {len(acgt_pairs())} ACGT reads equal sw_score_host", flush=True)
+
+    # ---- (b) times at the main path's shape ----
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_now, clock_max = sm_clocks_mhz()
+    rng = np.random.default_rng(SW_SEED)
+    exons = exon_refs(rng)
+    refs = torch.as_tensor(encode_seqs(exons), device=dev)
+    timed = {}
+    for n_q in SW_TIMED_Q:
+        q = torch.as_tensor(encode_seqs(reads_from(rng, exons, n_q, WES_READ_LEN,
+                                                   n_frac=0.002)), device=dev)
+        kernel = lambda q=q: sw_scores_gpu(q, refs)  # noqa: E731
+        plain = lambda q=q: sw_scores_plain(q, refs)  # noqa: E731
+        reps = 5 if n_q > SW_TIMED_Q[0] else 10
+        p1, k1, k2, p2 = (median_ms(f, reps=r) for f, r in ((plain, reps), (kernel, REPS),
+                                                           (kernel, REPS), (plain, reps)))
+        b2b = min(back_to_back_ms(kernel), back_to_back_ms(kernel))
+        cells = n_q * refs.shape[0] * WES_READ_LEN * refs.shape[1]
+        least = sw_bound_ms(cells, sms, clock_max)
+        timed[n_q] = {"ms": min(k1, k2), "ms_back_to_back": b2b, "plain_ms": min(p1, p2),
+                      "bound_ms": least, "bound_share": least / b2b,
+                      "cells": cells, "gcups": cells / b2b / 1e6}
+        print(f"[sw] times at Q={n_q} Lq={WES_READ_LEN} T={refs.shape[0]} Lr={refs.shape[1]} "
+              f"({cells / 1e9:.3f} G cells): kernel {min(k1, k2):.4f} ms (median of {REPS}), "
+              f"{REPS} back to back {b2b:.4f} ms per call ({cells / b2b / 1e6:.1f} G cell "
+              f"updates/s); plain {min(p1, p2):.3f} ms (median of {reps}, better of two "
+              f"rounds); bound {least:.4f} ms by operations ({SW_OPS_PER_CELL} DPX-fused "
+              f"instructions a cell over {sms} SMs x {SW_LANES_PER_SM} issue lanes at the "
+              f"{clock_max} MHz maximum SM clock; {clock_now} MHz now), "
+              f"{100 * least / b2b:.1f}% of it back to back; library: none; {card}", flush=True)
+    return {"max_abs_err": err, "timed": timed, "clock_mhz": (clock_now, clock_max)}
+
+
+_BAM_FIXED = np.dtype([("block", "<i4"), ("refid", "<i4"), ("pos", "<i4"), ("l_name", "u1"),
+                       ("mapq", "u1"), ("bin", "<u2"), ("n_cigar", "<u2"), ("flag", "<u2"),
+                       ("l_seq", "<i4"), ("next_refid", "<i4"), ("next_pos", "<i4"),
+                       ("tlen", "<i4")])
+_NIBBLE = np.full(256, 15, dtype=np.uint8)
+_NIBBLE[np.frombuffer(b"=ACMGRSVTWYHKDBN", np.uint8)] = np.arange(16, dtype=np.uint8)
+
+
+def _reg2bin(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
+    """io/bamlite.py's _reg2bin over arrays."""
+    end = end - 1
+    out = np.zeros(beg.shape, np.int64)
+    done = np.zeros(beg.shape, bool)
+    for shift, first in ((14, 4681), (17, 585), (20, 73), (23, 9), (26, 1)):
+        hit = ~done & (beg >> shift == end >> shift)
+        out[hit] = first + (beg[hit] >> shift)
+        done |= hit
+    return out
+
+
+def bam_records(sid: str, pos: np.ndarray, seqs: np.ndarray, flag: int = 99) -> bytes:
+    """The records io/bamlite.py:encode_record writes one at a time (flag
+    99, MAPQ 60, one M of the read's length, reads named f"{sid}r{j:07d}"),
+    for equal-length reads [n, L] of ASCII bases, all at once."""
+    n, length = seqs.shape
+    names = np.frombuffer("".join(f"{sid}r{j:07d}\0" for j in range(n)).encode(),
+                          np.uint8).reshape(n, -1)
+    fixed = np.zeros(n, _BAM_FIXED)
+    packed = (length + 1) // 2
+    fixed["block"] = _BAM_FIXED.itemsize - 4 + names.shape[1] + 4 + packed + length
+    fixed["pos"] = fixed["next_pos"] = pos
+    fixed["l_name"], fixed["mapq"], fixed["n_cigar"] = names.shape[1], 60, 1
+    fixed["bin"] = _reg2bin(pos.astype(np.int64), pos.astype(np.int64) + length)
+    fixed["flag"], fixed["l_seq"] = flag, length
+    nib = _NIBBLE[seqs]
+    if length % 2:
+        nib = np.concatenate([nib, np.zeros((n, 1), np.uint8)], axis=1)
+    cigar = np.full((n, 1), length << 4, "<u4").view(np.uint8)
+    return np.concatenate([fixed.view(np.uint8).reshape(n, -1), names, cigar,
+                           (nib[:, 0::2] << 4) | nib[:, 1::2],
+                           np.full((n, length), 0xFF, np.uint8)], axis=1).tobytes()
+
+
+def fabricate_wes(root: Path, n: int, reads: int = WES_READS, seed: int = WES_SEED):
+    """A WES-shaped cohort: ``n`` BAMs of ~``reads`` reads of 150 bases in the
+    KIV-2 window, drawn from three exons at seeded per-sample proportions
+    (1A, and the two 1B variants, which differ only in bases 165-175: a 1B
+    read starting at 0-10 never reaches them and ties, one starting at 25-32
+    covers them and is decisive), plus background reads of random bases that
+    must stay unclassified; an exon FASTA; a neighbors file of 200 neighbors
+    a sample. Returns (config, truth counts by sample, total reads)."""
+    from grid_tpu_torch.io.bamlite import encode_record, write_bam
+
+    chrom, start, end = WES_WINDOW
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    one_a = bases[rng.integers(0, 4, 160)]
+    kiv3 = bases[rng.integers(0, 4, 182)]
+    kiv2 = kiv3.copy()
+    kiv2[165:175] = bases[(np.searchsorted(bases, kiv3[165:175]) + 2) % 4]  # every base differs
+    exons = {"1A": one_a, "1B_KIV3": kiv3, "1B_KIV2": kiv2}
+    (root / "aln").mkdir(parents=True)
+    fasta = root / "exons.fa"
+    fasta.write_text("".join(f">{k}\n{v.tobytes().decode()}\n" for k, v in exons.items()))
+    ids = [f"WES{i:04d}" for i in range(n)]
+    (root / "samples.txt").write_text("".join(f"{s}\n" for s in ids))
+    truth, payloads = {}, []
+    n_total = 0
+    for sid in ids:
+        n_reads = int(rng.integers(int(reads * 0.95), int(reads * 1.05)))
+        exon_share, a_share, kiv3_share = rng.uniform(0.3, 0.6), rng.uniform(0.1, 0.3), \
+            rng.uniform(0.3, 0.7)
+        kind = rng.random(n_reads)
+        src = np.where(kind >= exon_share, -1,  # background
+                       np.where(kind < exon_share * a_share, 0,
+                                np.where(rng.random(n_reads) < kiv3_share, 1, 2)))
+        offsets = np.where(src == 0, rng.integers(0, 11, n_reads),
+                           np.where(rng.random(n_reads) < 0.5, rng.integers(0, 11, n_reads),
+                                    rng.integers(25, 33, n_reads)))
+        seqs = bases[rng.integers(0, 4, (n_reads, WES_READ_LEN))]
+        for code, exon in enumerate(exons.values()):
+            rows = np.nonzero(src == code)[0]
+            seqs[rows] = exon[offsets[rows, None] + np.arange(WES_READ_LEN)]
+        errs = (rng.random(seqs.shape) < 0.005) & (src >= 0)[:, None]
+        seqs[errs] = bases[rng.integers(0, 4, int(errs.sum()))]
+        seqs[rng.random(seqs.shape) < 0.002] = ord("N")
+        pos = np.sort(rng.integers(start, end - WES_READ_LEN, n_reads))
+        b = src >= 1
+        tied = b & (offsets <= 10)
+        truth[sid] = (int((src == 1)[~tied].sum()), int((src == 2)[~tied].sum()),
+                      int(tied.sum()), int((src == 0).sum()))
+        payloads.append((sid, pos, seqs))
+        n_total += n_reads
+    # the vectorised records are bamlite's, byte for byte, on a whole sample;
+    # bamlite's encoder, one record at a time in Python, is what its time
+    # here would cost the whole cohort
+    sid, pos, seqs = payloads[0]
+    t0 = time.perf_counter()
+    want = b"".join(encode_record(0, int(p), 99, read_name=f"{sid}r{j:07d}",
+                                  seq=seqs[j].tobytes().decode())
+                    for j, p in enumerate(pos))
+    t1 = time.perf_counter()
+    check(bam_records(sid, pos, seqs) == want, "the vectorised BAM records differ from "
+                                               "io/bamlite.py's")
+    t2 = time.perf_counter()
+    print(f"[wes] one sample's {len(pos)} BAM records: io/bamlite.py's encode_record "
+          f"{t1 - t0:.3f} s (x {n} samples: {(t1 - t0) * n:.1f} s on one core), the vectorised "
+          f"copy {t2 - t1:.4f} s, byte-equal (host clock)", flush=True)
+
+    def write(item):
+        sid, pos, seqs = item
+        write_bam(root / "aln" / f"{sid}.bam", [(chrom, WES_CHROM_LEN)],
+                  [bam_records(sid, pos, seqs)])
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:  # zlib runs outside the GIL
+        list(pool.map(write, payloads))
+    nbrs = root / "neighbors.tsv"
+    with open(nbrs, "w") as f:
+        for i, sid in enumerate(ids):
+            others = rng.choice(n - 1, size=min(WES_NEIGHBORS, n - 1), replace=False)
+            row = [sid, f"{rng.uniform(0.9, 1.1):.4f}"]
+            for o in others:
+                other = ids[o + (o >= i)]
+                row += [other, f"{rng.uniform(0.9, 1.1):.4f}", f"{rng.uniform(0.01, 1):.4f}"]
+            f.write("\t".join(row) + "\n")
+    config = {
+        "samples_file": str(root / "samples.txt"), "directory_loc": str(root / "aln"),
+        "reference_genome": str(fasta), "output_dir": str(root / "results"),
+        "threads": os.cpu_count() or 1, "file_type": "bam", "chrom": chrom,
+        "start_bp": start, "end_bp": end, "output_file_type": "tsv",
+        "index": {"run": False},
+        "realign": {"run": True, "exon_fasta": str(fasta), "min_score": WES_MIN_SCORE,
+                    "margin": 3, "output_file_prefix": "exon_counts"},
+        "exon_dipcn": {"run": True, "neighbors_file": str(nbrs), "n_neighbors": WES_NEIGHBORS,
+                       "output_file_prefix": "exon_dipcn"},
+        "estimate_kiv": {"run": True, "output_file_prefix": "kiv2_estimates"},
+    }
+    return config, truth, n_total
+
+
+def wes_phase(card: str, n: int = WES_N, plain_n: int = WES_PLAIN_N,
+              reads: int = WES_READS) -> int:
+    """Phase 13 (c): the WES pipeline on a fabricated cohort on the card,
+    held to the fabrication's truth and, on ``plain_n`` samples, to the
+    plain scan on the card. Returns the kernel's launches in the run. main()
+    passes no size: the size arguments let the phase be rehearsed small."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import grid_tpu_torch.ops.align as align
+    from grid_tpu_torch.config import WES_SCHEMA, apply_defaults
+    from grid_tpu_torch.ingest.alignments import fetch_reads_region
+    from grid_tpu_torch.models.realign import classify_window_reads, read_fasta, run_realignment
+    from grid_tpu_torch.ops.align import encode_seqs, sw_scores_plain
+    from grid_tpu_torch.utils.device import get_device
+    from grid_tpu_torch.ops.gpu_align import sw_scores_gpu
+    import yaml
+
+    import grid_tpu_torch.cli as cli
+
+    with tempfile.TemporaryDirectory(prefix="grid_tpu_torch_wes_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        config, truth, n_total = fabricate_wes(root, n, reads)
+        fab_s = time.perf_counter() - t0
+        print(f"[wes] cohort: {n} BAMs, {n_total} reads of {WES_READ_LEN} bases "
+              f"({n_total / n:.0f} a sample) in {WES_WINDOW[0]}:{WES_WINDOW[1]:,}-"
+              f"{WES_WINDOW[2]:,}, exons of 160/182/182, {WES_NEIGHBORS} neighbors a sample, "
+              f"fabricated in {fab_s:.1f} s (host clock); {config['threads']} threads; "
+              f"{n} samples is a cut forced by the time limit", flush=True)
+        config = apply_defaults(config, schema=WES_SCHEMA)  # so validation warns of nothing
+        config_file = root / "wes.yaml"
+        config_file.write_text(yaml.safe_dump(config, sort_keys=False))
+        # `python -m grid_tpu_torch.cli wes CONFIG`, in this process so its
+        # launches are counted, its console a recorder; no platform named:
+        # the card. The profiler gives the run's own device time: every
+        # worker thread uses the one default stream, so its copies and
+        # kernels do not overlap and their times add up
+        console = Recorder()
+        sw_scores_gpu.launches = 0
+        with patched(cli, {"make_console": lambda: console}), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cli.cli.main(args=["wes", str(config_file)], standalone_mode=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = sw_scores_gpu.launches
+        check(not console.failures(), f"the WES run logged failures: {console.failures()}")
+        check(launches == n, f"sw_scores launched {launches} times for {n} samples with reads")
+        out = Path(config["output_dir"])
+        rows = {line.split("\t")[0]: tuple(int(v) for v in line.split("\t")[1:])
+                for line in (out / "exon_counts.tsv").read_text().splitlines()}
+        wrong = sorted(s for s in truth if rows.get(s) != truth[s])
+        check(not wrong, f"exon counts differ from the fabrication on {len(wrong)} samples, "
+                         f"e.g. {wrong[:1]}: {[rows.get(s) for s in wrong[:1]]} vs "
+                         f"{[truth[s] for s in wrong[:1]]}")
+        classified = sum(sum(v) for v in rows.values())
+        for name in ("exon_dipcn.1A.tsv", "exon_dipcn.1B.tsv", "kiv2_estimates.tsv"):
+            lines = (out / name).read_text().splitlines()
+            values = np.array([[float(v) for v in line.split("\t")[1:]] for line in lines[1:]])
+            check(len(lines) == n + 1 and np.isfinite(values).all(),
+                  f"{name}: {len(lines) - 1} rows for {n} samples, or non-finite values")
+        spans = json.loads((out / "step_timings.json").read_text())
+        ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if ops:
+            device_s = sum(device_us(e) for e in ops) / 1e6
+            own = [e for e in ops if "sw_" in e.key and "kernel" in e.key]
+            share = (f"device time {device_s:.4f} s in {sum(e.count for e in ops)} device ops "
+                     f"(torch.profiler over the run: the kernel {sum(e.count for e in own)} "
+                     f"launches, {sum(device_us(e) for e in own) / 1e6:.4f} s; copies and fills "
+                     f"the rest), host share {100 * (1 - device_s / wall):.2f}%")
+        else:
+            share = "torch.profiler saw no device activity: device time and host share not measured"
+        print(f"[wes] `grid_tpu_torch.cli wes` on the card: {wall:.3f} s under the profiler; "
+              f"step_timings.json "
+              f"{', '.join(f'{k} {v:.3f} s' for k, v in sorted(spans.items()))}; sw_scores "
+              f"launches {launches} (one a sample); {share}; {card}", flush=True)
+        print(f"[wes] counts equal the fabrication's truth on all {n} samples: {classified} of "
+              f"{n_total} reads classified, every background read unclassified, every decisive "
+              f"1B read to its variant and every tied one to 1B_tied; both exon dipCN files and "
+              f"the KIV-2 estimates written, finite, one row a sample", flush=True)
+
+        # the same call on plain_n samples with the scores sent to the plain
+        # scan on the card: the counts must be the same bytes
+        sub = root / "aln_plain"
+        sub.mkdir()
+        for sid in sorted(truth)[:plain_n]:
+            (sub / f"{sid}.bam").symlink_to(root / "aln" / f"{sid}.bam")
+        plain_file = root / "plain_counts.tsv"
+        sw_scores_gpu.launches = 0
+        t0 = time.perf_counter()
+        console = Recorder()
+        with patched(align, {"sw_scores": sw_scores_plain}):
+            run_realignment(sub, config["realign"]["exon_fasta"], config["chrom"],
+                            config["start_bp"], config["end_bp"], plain_file,
+                            min_score=WES_MIN_SCORE, margin=3, threads=config["threads"],
+                            console=console, device="cuda")
+        plain_s = time.perf_counter() - t0
+        check(not console.failures(), f"the plain route logged failures: {console.failures()}")
+        check(sw_scores_gpu.launches == 0, "the plain route launched the kernel")
+        want = "".join(line + "\n" for line in (out / "exon_counts.tsv").read_text()
+                       .splitlines() if line.split("\t")[0] in set(sorted(truth)[:plain_n]))
+        check(plain_file.read_text() == want, "the plain route's counts differ from the "
+                                              "kernel's")
+        print(f"[wes] the plain scan on the card on {plain_n} of the samples: counts "
+              f"byte-equal to the kernel run's rows; realignment {plain_s:.3f} s (host clock)",
+              flush=True)
+
+        # where a sample's time goes, on one thread (host clock)
+        dev = get_device("cuda")
+        exons = read_fasta(config["realign"]["exon_fasta"])
+        refs = torch.as_tensor(encode_seqs(list(exons.values())), device=dev)
+        parts = dict.fromkeys(("fetch", "encode", "scores", "classify"), 0.0)
+        sampled = sorted(truth)[:WES_BREAKDOWN_N]
+        for sid in sampled:
+            t0 = time.perf_counter()
+            seqs = fetch_reads_region(root / "aln" / f"{sid}.bam", None, *WES_WINDOW)[3]
+            t1 = time.perf_counter()
+            queries = encode_seqs(seqs)
+            t2 = time.perf_counter()
+            align.sw_scores(torch.as_tensor(queries, device=dev), refs).cpu()
+            t3 = time.perf_counter()
+            classify_window_reads(seqs, exons, WES_MIN_SCORE, 3, device=dev)
+            t4 = time.perf_counter()
+            parts["fetch"] += t1 - t0
+            parts["encode"] += t2 - t1
+            parts["scores"] += t3 - t2
+            parts["classify"] += (t4 - t3) - (t3 - t1)  # its Python loops alone
+        print(f"[wes] one sample on one thread (mean of {len(sampled)}, host clock): "
+              f"{', '.join(f'{k} {v / len(sampled) * 1e3:.2f} ms' for k, v in parts.items())} "
+              f"(scores: the kernel, its launch and the copy back; classify: "
+              f"classify_reads' and classify_window_reads' Python loops); {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2486,6 +2890,20 @@ def main() -> int:
                  "launches_panel_branch": multi["launches_panels"][
                      "dipcn_from_distances_multi_gpu"],
                  "panels_65536": multi_wide})
+    # ---- 13. the WES path: the Smith-Waterman kernel and the pipeline ------
+    sw = sw_kernel_phase(dev, card)
+    at_q = sw["timed"][SW_TIMED_Q[0]]
+    sw_launches = wes_phase(card)
+    rows.append({"name": "sw_scores_gpu", "route": "cuda",
+                 "source": "grid_tpu_torch/csrc/sw_scores.cu",
+                 "replaces": "grid_tpu/ops/align.py:42 (lax.scan, no pallas_call)",
+                 "launches": sw_launches, "max_abs_err": sw["max_abs_err"], "ms": at_q["ms"],
+                 "ms_back_to_back": at_q["ms_back_to_back"], "plain_ms": at_q["plain_ms"],
+                 "bound_ms": at_q["bound_ms"], "bound_by": "operations",
+                 "bound_share": at_q["bound_share"], "library_ms": None,
+                 "shape": f"Q={SW_TIMED_Q[0]}, Lq={WES_READ_LEN}, T=3, Lr=182",
+                 "sm_clock_mhz_now_max": sw["clock_mhz"],
+                 "by_q": {str(q): v for q, v in sw["timed"].items()}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,9 +6,12 @@ the card unless the config says ``device.platform: cpu``; ``--locus GENE``
 takes the window from the VNTR catalog), ``multi-locus`` (the sweep over
 catalog genes), ``loci`` (the catalog), the per-step commands of steps 1-7
 (``check-index``, ``crai``, ``count-reads``, ``mosdepth``, ``normalize``,
-``find-neighbors``, ``compute-dipcn``, ``hi-inference``), ``report``,
-``validate``, ``synth`` and ``devices``. ``wes``, ``ibs`` and the alignment
-tools wait for the modules behind them.
+``find-neighbors``, ``compute-dipcn``, ``hi-inference``), the exome path
+(``wes``, on the card unless ``device.platform: cpu``; ``realign``, on the
+card unless ``--device cpu``; ``exon-dipcn``, ``estimate-kiv``,
+``extract-reference``), ``report``, ``validate``, ``synth`` and
+``devices``. ``ibs`` and the alignment tools wait for the modules behind
+them.
 
 ``click`` is needed by this module only.
 """
@@ -105,6 +108,21 @@ def loci_cmd(gene, catalog, limit):
         click.echo(f"... {len(table) - limit} more (raise --limit)")
 
 
+@cli.command()
+@click.argument("config", type=click.Path(exists=True))
+@click.option("--no-validate", is_flag=True, help="Skip config validation.")
+def wes(config, no_validate):
+    """Run the exome (WES) KIV-2 pipeline from a YAML CONFIG: exon
+    realignment -> per-exon dipCN -> KIV-2 estimates (on the card unless
+    the config says device.platform: cpu)."""
+    console = make_console()
+    if console:
+        console.print(BANNER, style="info")
+    from grid_tpu_torch.pipeline import run_wes_pipeline
+
+    run_wes_pipeline(console, config, validate=not no_validate)
+
+
 def _step_command(name, help_text, import_path):
     """Register a command that runs one pipeline step from CONFIG (defaults
     applied, not validated), as grid_tpu's CLI does."""
@@ -140,6 +158,93 @@ _step_command("compute-dipcn", "Compute neighbor-normalized diploid CN.",
               ("grid_tpu_torch.steps.dipcn", "compute_diploid_genotypes"))
 _step_command("hi-inference", "Infer haplotype copy numbers (IBS/IBD).",
               ("grid_tpu_torch.steps.haploid", "hi_inference"))
+
+
+@cli.command()
+@click.option("--exon1a", required=True, type=click.Path(exists=True), help="exon1A dipCN TSV")
+@click.option("--exon1b", required=True, type=click.Path(exists=True), help="exon1B dipCN TSV")
+@click.option("-o", "--output", required=True, type=click.Path(), help="output TSV")
+def estimate_kiv(exon1a, exon1b, output):
+    """KIV2 CN estimates from exon dipCNs: 34.9*exon1A + 5.2*exon1B - 1."""
+    from grid_tpu_torch.models.kiv import estimate_kiv_files
+
+    try:
+        n = estimate_kiv_files(exon1a, exon1b, output)
+    except ValueError as e:
+        raise click.ClickException(str(e))
+    log(make_console(), f"KIV2 estimates for {n} samples → {output}", style="success")
+
+
+@cli.command(name="extract-reference")
+@click.option("-r", "--reference-fa", required=True, type=click.Path(exists=True),
+              help="Reference genome FASTA (e.g. hs37d5.fa; .fai used if present)")
+@click.option("-b", "--bed-file", required=True, type=click.Path(exists=True),
+              help="BED of regions to extract (4th column names the records)")
+@click.option("-o", "--output-dir", required=True, type=click.Path())
+@click.option("-f", "--output-prefix", default="ref_lpa", show_default=True)
+def extract_reference_cmd(reference_fa, bed_file, output_dir, output_prefix):
+    """Cut BED regions out of a reference genome into a small FASTA: the
+    exon-reference prep for ``realign``/``wes`` (a BED whose names are
+    1A/1B_KIV2/1B_KIV3 yields a realign-ready exon FASTA)."""
+    from grid_tpu_torch.io.fasta import extract_reference
+
+    console = make_console()
+    try:
+        extract_reference(reference_fa, bed_file, output_dir, output_prefix, console=console)
+    except Exception as e:
+        log(console, f"✗ Reference extraction failed: {e}", style="danger")
+        sys.exit(1)
+
+
+@cli.command()
+@click.option("-C", "--aln-dir", required=True, type=click.Path(exists=True))
+@click.option("--exon-fasta", required=True, type=click.Path(exists=True),
+              help="FASTA of exon references (headers: 1A, 1B_KIV3, 1B_KIV2)")
+@click.option("-c", "--chrom", required=True)
+@click.option("-s", "--start", required=True, type=int)
+@click.option("-e", "--end", required=True, type=int)
+@click.option("-o", "--output", required=True, type=click.Path())
+@click.option("--min-score", default=30, show_default=True, type=int)
+@click.option("--margin", default=3, show_default=True, type=int)
+@click.option("-t", "--threads", default=1, type=int)
+@click.option("--device", default="cuda", show_default=True, type=click.Choice(["cuda", "cpu"]),
+              help="Where the Smith-Waterman scores run.")
+def realign(aln_dir, exon_fasta, chrom, start, end, output, min_score, margin, threads, device):
+    """Re-score window reads against exon references (Smith-Waterman, the
+    hand kernel on the card); writes the 5-column exon counts file."""
+    from grid_tpu_torch.models.realign import run_realignment
+
+    run_realignment(aln_dir, exon_fasta, chrom, start, end, output,
+                    min_score, margin, threads, make_console(), device=device)
+
+
+@cli.command(name="exon-dipcn")
+@click.option("--counts", required=True, type=click.Path(exists=True), help="5-col exon counts")
+@click.option("--neighbors", "neighbors_file", required=True, type=click.Path(exists=True))
+@click.option("--exon-type", required=True,
+              type=click.Choice(["1B_KIV3", "1B_notKIV3", "1B", "1A"]))
+@click.option("-o", "--output", required=True, type=click.Path())
+@click.option("--n-neighbors", default=200, show_default=True, type=int)
+def exon_dipcn(counts, neighbors_file, exon_type, output, n_neighbors):
+    """Per-exon diploid CN from realignment counts + neighbor file (the
+    legacy exon path feeding estimate-kiv)."""
+    from grid_tpu_torch.models.kiv import compute_dipcn_for_exon
+    from grid_tpu_torch.models.kiv_io import (
+        load_count_results,
+        load_neighbor_results,
+        validate_sample_overlap,
+        write_dipcn_output,
+    )
+
+    console = make_console()
+    cnts = load_count_results(counts)
+    nbrs = load_neighbor_results(neighbors_file)
+    n_overlap, _ = validate_sample_overlap(cnts, nbrs, console)
+    if n_overlap == 0:
+        raise click.ClickException("No overlapping samples between counts and neighbors")
+    res = compute_dipcn_for_exon(cnts, nbrs, exon_type, n_neighbors)
+    write_dipcn_output(res, output)
+    log(console, f"{exon_type} dipCN for {len(res)} samples → {output}", style="success")
 
 
 @cli.command()

@@ -159,8 +159,9 @@ DEVICE_SCHEMA = [
 # WES (exome) pipeline schema — the reference's commented-out `WES(config)`
 # stub (grid/cli.py:94-113) names a run_wes_pipeline that never existed;
 # grid_tpu implements it over the working exon-realignment path
-# (realign -> per-exon dipCN -> KIV-2 estimate). The schema is kept so both
-# packages validate the same files; the port has no WES pipeline yet.
+# (realign -> per-exon dipCN -> KIV-2 estimate). Both packages validate the
+# same files with it; the port's run_wes_pipeline reads device.platform
+# outside it.
 WES_SCHEMA = [
     {"path": ("index", "output_file_prefix"), "default": "index_file_results"},
     {"path": ("realign", "exon_fasta"), "gate": ("realign",), "required": True, "is_file": True},

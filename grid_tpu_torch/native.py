@@ -15,16 +15,21 @@ the launch; :func:`check_launch` turns a non-zero code into an exception.
 
 A kernel that fails to build or launch raises :class:`KernelError`; the
 pipeline never logs one away as a failed step (:func:`is_device_failure`).
+
+Wrappers are called from several threads at once (the realignment's
+per-sample workers): a kernel's library is built and loaded once under a
+lock of its own, so two kernels still build in parallel, and launch counts
+are added under a lock (:func:`count_launch`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -36,7 +41,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers / shared memory / spills, kept in the .log
 )
-KERNELS = ("zprep_gram", "dipcn_select")
+KERNELS = ("zprep_gram", "dipcn_select", "sw_scores")
 
 
 class KernelError(RuntimeError):
@@ -75,39 +80,68 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
+_LOCKS_GUARD = threading.Lock()
+_LOCKS: dict[str, threading.RLock] = {}
+_LOADED: dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def _lock(name: str) -> threading.RLock:
+    """The lock of one kernel's build and load."""
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(name, threading.RLock())
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library exists; return the
     library's path. Raises KernelError with nvcc's stderr on failure."""
-    src = CSRC / f"{name}.cu"
-    lib = library_path(name)
-    if lib.exists():
+    with _lock(name):
+        src = CSRC / f"{name}.cu"
+        lib = library_path(name)
+        if lib.exists():
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # neither two processes nor two threads ever share a temporary file
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelError(f"nvcc failed building {src.name}:\n{' '.join(cmd)}\n{proc.stderr}")
+        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")  # concurrent builds never share a file
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelError(f"nvcc failed building {src.name}:\n{' '.join(cmd)}\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
 
 
-@functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library; the error-string
-    function ``<name>_error_string`` is declared here, the launch function
-    by its wrapper."""
-    path = build(name)
-    try:
-        lib = ctypes.CDLL(str(path))
-    except OSError as e:
-        raise KernelError(f"cannot load {path}: {e}") from e
-    err_fn = getattr(lib, f"{name}_error_string")
-    err_fn.argtypes = [ctypes.c_int]
-    err_fn.restype = ctypes.c_char_p
-    return lib
+    """Build (if needed) and load one kernel library, once per process
+    whatever the number of threads asking; the error-string function
+    ``<name>_error_string`` is declared here, the launch function by its
+    wrapper."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    with _lock(name):
+        lib = _LOADED.get(name)
+        if lib is not None:
+            return lib
+        path = build(name)
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelError(f"cannot load {path}: {e}") from e
+        err_fn = getattr(lib, f"{name}_error_string")
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+        _LOADED[name] = lib
+        return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under a lock: workers launch from
+    several threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check_launch(name: str, err: int) -> None:

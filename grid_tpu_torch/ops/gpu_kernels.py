@@ -186,7 +186,7 @@ def masked_column_stats(values, mask, inv_row_means, col_means=None):
     except Exception as e:
         raise native.KernelError(f"masked_column_stats: the Triton kernels did not compile or "
                                  f"launch: {e}") from e
-    masked_column_stats.launches += 1
+    native.count_launch(masked_column_stats)
     return out[0], out[1], out[2]
 
 
@@ -289,7 +289,7 @@ def zprep_gram(z, mask, region_mask, zmax: float):
         err = launch(z.data_ptr(), mask.data_ptr(), region_mask.data_ptr(), float(zmax), n, r,
                      r_pad, split.data_ptr(), g.data_ptr(), native.stream_ptr(z.device))
     native.check_launch("zprep_gram", err)
-    zprep_gram.launches += 1
+    native.count_launch(zprep_gram)
     return g
 
 
@@ -345,7 +345,7 @@ def zprep_split(z, mask, region_mask, zmax: float) -> SplitZ:
             0 if region_mask is None else region_mask.data_ptr(), float(zmax), n, r, r_pad,
             split.data_ptr(), norms.data_ptr(), native.stream_ptr(z.device))
     native.check_launch("zprep_gram", err)
-    zprep_split.launches += 1
+    native.count_launch(zprep_split)
     return SplitZ(split, norms)
 
 
@@ -377,7 +377,7 @@ def zprep_gram_panel(split: SplitZ, i0: int, rows: int):
         err = _zprep_lib().zprep_gram_panel_launch(split.p.data_ptr(), n, r_pad, i0, rows,
                                                    g.data_ptr(), native.stream_ptr(g.device))
     native.check_launch("zprep_gram", err)
-    zprep_gram_panel.launches += 1
+    native.count_launch(zprep_gram_panel)
     return g
 
 

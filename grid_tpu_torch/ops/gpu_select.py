@@ -130,7 +130,7 @@ def _launch(mode: str, d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr
             sample_valid.data_ptr(), n, w, k, n_nbr, MODES.index(mode), dipcn.data_ptr(),
             ok.data_ptr(), native.stream_ptr(d2.device))
     native.check_launch("dipcn_select", err)
-    dipcn_from_distances_gpu.launches += 1
+    native.count_launch(dipcn_from_distances_gpu)
     return dipcn, ok
 
 
@@ -187,7 +187,7 @@ def _launch_multi(mode: str, d2, rnorm, nbr_w, col_usable, sample_valid, k: int,
             sample_valid.data_ptr(), n, w, n_loci, k, n_nbr, MODES.index(mode),
             dipcn.data_ptr(), ok.data_ptr(), native.stream_ptr(d2.device))
     native.check_launch("dipcn_select", err)
-    dipcn_from_distances_multi_gpu.launches += 1
+    native.count_launch(dipcn_from_distances_multi_gpu)
     return dipcn, ok
 
 

@@ -32,6 +32,12 @@ runs:
 - ``compute_ibs`` with ``run: true``;
 - ``device.mesh_shape`` with the fused path (the sharded layer).
 
+:func:`run_wes_pipeline`, the exome path (realign → per-exon dipCN →
+KIV-2 estimate), has the JAX package's gating and log-and-continue
+semantics too; its Smith-Waterman scores run on the card unless
+``device.platform: cpu``, and a kernel or card failure propagates there as
+well.
+
 One addition: the JAX orchestrator keeps resume state for the sequential
 steps only; here the fused step records its four artifacts under the four
 classic step names, and is skipped when all four are up to date, so either
@@ -46,7 +52,7 @@ import zlib
 from pathlib import Path
 
 from grid_tpu_torch import native_host
-from grid_tpu_torch.config import apply_defaults, error_check_config, load_config
+from grid_tpu_torch.config import WES_SCHEMA, apply_defaults, error_check_config, load_config
 from grid_tpu_torch.native import is_device_failure
 from grid_tpu_torch.steps.count_reads import count_reads
 from grid_tpu_torch.steps.coverage import compute_mosdepth
@@ -334,6 +340,124 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
     # costs a warning, not the run (as in grid_tpu/pipeline.py)
     try:
         timer.dump(Path(config_data.get("output_dir", ".")) / "step_timings.json")
+    except OSError as e:
+        log(console, f"step_timings.json was not written: {e}", style="warning")
+    return timer.report()
+
+
+def run_wes_pipeline(console=None, config=None, validate: bool = True):
+    """Run the exome (WES) pipeline: realign -> per-exon dipCN -> KIV-2
+    estimate (twin of ``grid_tpu/pipeline.py:run_wes_pipeline``).
+
+    Smith-Waterman realignment of window reads against the exon references
+    (models/realign.py), the legacy per-exon dipCN semantics (models/kiv.py)
+    and the KIV-2 linear estimate. Steps are gated by ``run: true`` and a
+    failing step is logged and the next runs, as in the WGS orchestrator,
+    but for a kernel's or the card's own failure, which propagates. The
+    realignment runs on the card unless ``device.platform: cpu`` (read
+    outside ``WES_SCHEMA``, which stays the JAX package's); the device is
+    resolved before any step, so without a card it raises first.
+    """
+    if not config:
+        raise ValueError("Config file is required for running the WES pipeline.")
+    if isinstance(config, (str, Path)):
+        try:
+            config_data = load_config(config)
+        except Exception as e:
+            raise ValueError(f"Failed to read the config file: {e}") from e
+    else:
+        config_data = config
+
+    if validate:
+        error_check_config(config_data, console, schema=WES_SCHEMA)
+    config_data = apply_defaults(config_data, schema=WES_SCHEMA)
+    device = None
+    if config_data.get("realign", {}).get("run") is True:
+        device = config_device(config_data)
+    out_dir = Path(config_data.get("output_dir", "."))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ft = config_data.get("output_file_type", "tsv")
+    timer = StepTimer()
+
+    def gated(name, fn):
+        section = config_data.get(name, {})
+        if section.get("run") is not True:
+            return
+        try:
+            with step_timer(name, timer, console):
+                fn(section)
+        except Exception as e:
+            if is_device_failure(e):
+                raise
+            log(console, f"Failed to run {name}: {e}", style="danger")
+
+    if config_data.get("index", {}).get("run") is True:
+        try:
+            with step_timer("create_index", timer, console):
+                create_index(config_data, console)
+        except Exception as e:
+            log(console, f"Failed to create index: {e}", style="danger")
+
+    counts_prefix = config_data.get("realign", {}).get("output_file_prefix", "exon_counts")
+    counts_file = out_dir / f"{counts_prefix}.{ft}"
+
+    def _realign(section):
+        from grid_tpu_torch.models.realign import run_realignment
+
+        run_realignment(
+            config_data["directory_loc"],
+            section["exon_fasta"],
+            config_data["chrom"],
+            config_data["start_bp"],
+            config_data["end_bp"],
+            counts_file,
+            min_score=section.get("min_score", 30),
+            margin=section.get("margin", 3),
+            threads=config_data.get("threads", 1),
+            console=console,
+            device=device,
+        )
+
+    dipcn_prefix = out_dir / config_data.get("exon_dipcn", {}).get("output_file_prefix",
+                                                                  "exon_dipcn")
+
+    def _exon_dipcn(section):
+        from grid_tpu_torch.models.kiv import compute_dipcn_for_exon
+        from grid_tpu_torch.models.kiv_io import (
+            load_count_results,
+            load_neighbor_results,
+            validate_sample_overlap,
+            write_dipcn_output,
+        )
+
+        counts = load_count_results(counts_file)
+        nbrs = load_neighbor_results(section["neighbors_file"])
+        n_overlap, _ = validate_sample_overlap(counts, nbrs, console)
+        if n_overlap == 0:
+            raise ValueError("No overlapping samples between exon counts and neighbors")
+        for exon_type in section.get("exon_types", ["1A", "1B"]):
+            res = compute_dipcn_for_exon(
+                counts, nbrs, exon_type, section.get("n_neighbors", 200)
+            )
+            out = Path(f"{dipcn_prefix}.{exon_type}.{ft}")
+            write_dipcn_output(res, out)
+            log(console, f"{exon_type} dipCN for {len(res)} samples → {out}", style="success")
+
+    def _estimate(section):
+        from grid_tpu_torch.models.kiv import estimate_kiv_files
+
+        out = out_dir / f"{section.get('output_file_prefix', 'kiv2_estimates')}.{ft}"
+        n = estimate_kiv_files(
+            Path(f"{dipcn_prefix}.1A.{ft}"), Path(f"{dipcn_prefix}.1B.{ft}"), out
+        )
+        log(console, f"KIV2 estimates for {n} samples → {out}", style="success")
+
+    gated("realign", _realign)
+    gated("exon_dipcn", _exon_dipcn)
+    gated("estimate_kiv", _estimate)
+
+    try:
+        timer.dump(out_dir / "step_timings.json")
     except OSError as e:
         log(console, f"step_timings.json was not written: {e}", style="warning")
     return timer.report()

@@ -18,7 +18,9 @@ mode is, past column 65,535 too. The multi-weight dipCN form is held to its
 plain version at rtol 1e-5 (the plain form's [N, W] @ [W, L] product sums
 in another order), to the binary kernel per locus at rtol 1e-6 (it sums in
 float64, the binary kernel in float32), and its wide mode to its resident
-mode bitwise.
+mode bitwise. The Smith-Waterman kernel equals its plain scan exactly
+(int32) in both its modes, and the WES pipeline on the card writes the CPU
+run's files byte for byte.
 """
 
 import numpy as np
@@ -535,3 +537,117 @@ def test_wgs_from_bam_on_card_matches_the_cpu_run(cuda, tmp_path, fused):
     assert d_ids == c_ids6
     same = ~dipcn_sets_differ(idx, c_idx, np.ones(n, bool), n - 1)
     np.testing.assert_allclose(np.asarray(dip)[same], np.asarray(c_dip)[same], rtol=1e-5)
+
+
+# ---- the Smith-Waterman kernel (csrc/sw_scores.cu) --------------------------
+
+def _sw_case(label):
+    from torch_sw_cases import sw_cases
+
+    return next(case for case in sw_cases(main_q=2048) if case[0] == label)
+
+
+@pytest.mark.parametrize("label", ["main", "q1-lq1", "pad-and-n", "lr-45-97", "lr-700-shared",
+                                   "lq-gt-lr", "scores-3-2-3", "gap-0", "forced-ties"])
+def test_sw_scores_kernel_against_its_plain_version(cuda, label):
+    """Exact int32 equality with the plain scan on the card, in both
+    modes, for int8 and uint8 inputs; one launch a call."""
+    from grid_tpu_torch.ops.align import sw_scores_plain
+    from grid_tpu_torch.ops.gpu_align import sw_scores_gpu
+
+    _, q_np, r_np, (match, mismatch, gap) = _sw_case(label)
+    q, r = torch.as_tensor(q_np, device=cuda), torch.as_tensor(r_np, device=cuda)
+    before = sw_scores_gpu.launches
+    got = sw_scores_gpu(q, r, match=match, mismatch=mismatch, gap=gap)
+    assert sw_scores_gpu.launches == before + 1
+    want = sw_scores_plain(q, r, match=match, mismatch=mismatch, gap=gap)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    as_u8 = sw_scores_gpu(q.view(torch.uint8), r.view(torch.uint8), match=match,
+                          mismatch=mismatch, gap=gap)
+    assert torch.equal(as_u8, want)
+
+
+def test_sw_scores_kernel_equals_the_host_oracle_on_acgt(cuda):
+    from torch_sw_cases import acgt_pairs
+
+    from grid_tpu_torch.ops.align import encode_seqs, sw_score_host
+    from grid_tpu_torch.ops.gpu_align import sw_scores_gpu
+
+    for read, ref in acgt_pairs():
+        got = sw_scores_gpu(torch.as_tensor(encode_seqs([read]), device=cuda),
+                            torch.as_tensor(encode_seqs([ref]), device=cuda))
+        assert int(got[0, 0]) == sw_score_host(read, ref)
+
+
+def test_sw_scores_kernel_refuses_what_it_does_not_take(cuda):
+    from grid_tpu_torch import native
+    from grid_tpu_torch.ops.gpu_align import sw_scores_gpu, sw_scores_max_lr
+
+    q = torch.zeros((8, 30), dtype=torch.int8, device=cuda)
+    r = torch.zeros((3, 40), dtype=torch.int8, device=cuda)
+    before = sw_scores_gpu.launches
+    with pytest.raises(ValueError, match="several devices"):
+        sw_scores_gpu(q, r.cpu())
+    with pytest.raises(native.KernelError, match="int8 or uint8"):
+        sw_scores_gpu(q.to(torch.int32), r)
+    with pytest.raises(native.KernelError, match="contiguous"):
+        sw_scores_gpu(torch.zeros((30, 8), dtype=torch.int8, device=cuda).T, r)
+    with pytest.raises(native.KernelError, match="int32"):
+        sw_scores_gpu(q, r, match=2**27)
+    long_ref = torch.zeros((1, sw_scores_max_lr(cuda) + 1), dtype=torch.int8, device=cuda)
+    with pytest.raises(native.KernelError, match="at most"):
+        sw_scores_gpu(q, long_ref)
+    assert sw_scores_gpu.launches == before
+    empty = sw_scores_gpu(q[:0], r)
+    assert tuple(empty.shape) == (0, 3) and sw_scores_gpu.launches == before
+
+
+def test_wes_on_card_matches_the_cpu_run(cuda, tmp_path):
+    """The WES pipeline on a small BAM world on the card (no platform
+    named) and with ``platform: cpu``: the counts, both exon dipCN files
+    and the KIV-2 estimates byte-identical; one launch per sample."""
+    import copy
+
+    from torch_sw_cases import exon_refs, reads_from
+
+    from grid_tpu_torch.io.bamlite import encode_record, write_bam
+    from grid_tpu_torch.ops.gpu_align import sw_scores_gpu
+    from grid_tpu_torch.pipeline import run_wes_pipeline
+
+    rng = np.random.default_rng(21)
+    exons = dict(zip(("1A", "1B_KIV3", "1B_KIV2"), exon_refs(rng, (120, 120, 120))))
+    fasta = tmp_path / "exons.fa"
+    fasta.write_text("".join(f">{name}\n{seq}\n" for name, seq in exons.items()))
+    aln = tmp_path / "aln"
+    ids = [f"S{i}" for i in range(5)]
+    for i, sid in enumerate(ids):
+        reads = reads_from(rng, list(exons.values()), 30 + 10 * i, 50, n_frac=0.01)
+        recs = [encode_record(0, 1000 + j, 99, read_name=f"{sid}r{j}", seq=s)
+                for j, s in enumerate(reads)]
+        write_bam(aln / f"{sid}.bam", [("chr6", 10_000)], recs)
+    nbrs = tmp_path / "nbrs.tsv"
+    nbrs.write_text("".join("\t".join([sid, "1.00"] + [x for o in ids if o != sid
+                                                       for x in (o, "1.00", "0.10")]) + "\n"
+                            for sid in ids))
+    (tmp_path / "samples.txt").write_text("".join(f"{s}\n" for s in ids))
+    base = {"samples_file": str(tmp_path / "samples.txt"), "directory_loc": str(aln),
+            "reference_genome": str(fasta), "threads": 2, "file_type": "bam",
+            "chrom": "chr6", "start_bp": 0, "end_bp": 10_000, "output_file_type": "tsv",
+            "index": {"run": False},
+            "realign": {"run": True, "exon_fasta": str(fasta), "min_score": 60},
+            "exon_dipcn": {"run": True, "neighbors_file": str(nbrs), "n_neighbors": 4},
+            "estimate_kiv": {"run": True}}
+    outs = {}
+    for name, device in (("card", None), ("cpu", {"platform": "cpu"})):
+        cfg = copy.deepcopy(base)
+        cfg["output_dir"] = str(tmp_path / name)
+        if device:
+            cfg["device"] = device
+        before = sw_scores_gpu.launches
+        run_wes_pipeline(config=cfg)
+        outs[name] = (tmp_path / name, sw_scores_gpu.launches - before)
+    assert outs["card"][1] == len(ids) and outs["cpu"][1] == 0
+    for artifact in ("exon_counts.tsv", "exon_dipcn.1A.tsv", "exon_dipcn.1B.tsv",
+                     "kiv2_estimates.tsv"):
+        assert (outs["card"][0] / artifact).read_bytes() == \
+            (outs["cpu"][0] / artifact).read_bytes()

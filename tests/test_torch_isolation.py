@@ -2,9 +2,14 @@
 machines with the card have no JAX), loads no kernel on import, and never
 puts a CUDA request on the CPU."""
 
+import ctypes
+import os
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -62,7 +67,10 @@ def test_every_module_imports_without_jax_or_grid_tpu():
                  "grid_tpu_torch.io.bamlite", "grid_tpu_torch.io.cramlite",
                  "grid_tpu_torch.ingest.alignments", "grid_tpu_torch.steps.index",
                  "grid_tpu_torch.steps.count_reads", "grid_tpu_torch.steps.coverage",
-                 "grid_tpu_torch.steps.ingest"):
+                 "grid_tpu_torch.steps.ingest", "grid_tpu_torch.ops.align",
+                 "grid_tpu_torch.ops.gpu_align", "grid_tpu_torch.models.kiv",
+                 "grid_tpu_torch.models.kiv_io", "grid_tpu_torch.models.realign",
+                 "grid_tpu_torch.io.fasta"):
         assert name in imported
 
 
@@ -139,6 +147,65 @@ def test_kernel_library_is_keyed_by_source_and_flags(monkeypatch, tmp_path):
     assert native.library_path("zprep_gram") == first
     src.write_text(src.read_text() + "// edited\n")
     assert native.library_path("zprep_gram") != first
+
+
+def test_a_kernel_library_is_built_and_loaded_once_from_many_threads(monkeypatch, tmp_path):
+    """The realignment's workers reach their first launch together: eight
+    threads asking for one library build it once and load it once, and
+    all get the same handle."""
+    builds, loads = [], []
+    start = threading.Barrier(8)
+
+    def counting_build(name):
+        builds.append(name)
+        time.sleep(0.05)  # long enough for every other thread to arrive
+        return tmp_path / f"lib{name}.so"
+
+    def fake_cdll(path):
+        loads.append(path)
+        return SimpleNamespace(fake_kernel_error_string=SimpleNamespace())
+
+    monkeypatch.setattr(native, "build", counting_build)
+    monkeypatch.setattr(native, "ctypes", SimpleNamespace(
+        CDLL=fake_cdll, c_int=ctypes.c_int, c_char_p=ctypes.c_char_p))
+    monkeypatch.setattr(native, "_LOADED", {})
+    got = [None] * 8
+
+    def worker(i):
+        start.wait()
+        got[i] = native.load("fake_kernel")
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert builds == ["fake_kernel"] and len(loads) == 1
+    assert all(lib is got[0] for lib in got)
+
+
+def test_launch_counts_from_many_threads_add_up():
+    """More threads than cores, switching as often as the interpreter
+    allows: no count is lost."""
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    n = 4 * max(os.cpu_count() or 1, 4)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [native.count_launch(wrapper)
+                                                    for _ in range(2000)]) for _ in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert wrapper.launches == 2000 * n
 
 
 def test_get_device_never_substitutes_the_cpu():
