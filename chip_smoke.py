@@ -311,6 +311,19 @@ WES_BREAKDOWN_N = 16
 WES_MIN_SCORE = 180  # 60% of a perfect 150-base read; random reads must stay below
 
 
+# phase 14: compute_ibs and the tools. The engine's shape is the JAX
+# package's own engine record (2,504 samples, 20,000 sites, k=200: a cut of a
+# whole chromosome); the cut the numpy engine finishes in seconds; the panel
+# of scripts/bench_e2e_1000g.py (400 sites, 20 neighbors, haplotypes grouped
+# by quartiles of the true haplotype CN); tests/test_ibs.py's criterion; and
+# the tools' cohorts, cut from phase 12's
+IBS_ENGINE = (2504, 20_000, 200)
+IBS_CHECK = (512, 2_000, 20)
+IBS_SEED, IBS_PANEL_SITES, IBS_K, IBS_MIN_RHO = 14, 400, 20, 0.5
+TOOLS_BAM_N, TOOLS_CRAM_N = 64, 16
+TOOLS_WINDOW = ("chr6", 160_605_000, 160_615_000)  # the alignment cohorts' VNTR window
+
+
 def check(ok, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {msg}")
@@ -1796,8 +1809,10 @@ def multilocus_wide_phase(card: str, zp, n_nbr: int = N_NBR, k: int = K) -> dict
 def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = PIPELINE_FLANK,
                  k: int = K, n_nbr: int = N_NBR) -> dict:
     """Phase 9: the fused WGS pipeline from files (see the module docstring).
-    Returns the kernels' launches during the first pipeline call. main()
-    passes no size: the size arguments let the phase be rehearsed small."""
+    Returns the kernels' launches during the first pipeline call, phase
+    10's, phase 11's results and phase 14's launches (its pipeline part runs
+    on this cohort). main() passes no size: the size arguments let the phase
+    be rehearsed small."""
     from types import SimpleNamespace
 
     import grid_tpu_torch.io.bed as port_bed
@@ -2072,8 +2087,13 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
 
         # ---- phase 11: the multi-locus sweep, on the same cohort ----------
         multi = multilocus_phase(card, counted, tmp, cohort, base, k, n_nbr)
+
+        # ---- phase 14 (b, c): compute_ibs in front of the fused steps -----
+        ibs_launches = ibs_pipeline_phase(card, counted, tmp, cohort, base, names,
+                                          resident_launches, k, n_nbr)
     check(not tmp.exists(), "the temporary directory was not removed")
-    return {name: launches[name] for name in wrappers}, files_launches, multi
+    return ({name: launches[name] for name in wrappers}, files_launches, multi,
+            {name: ibs_launches[name] for name in wrappers})
 
 
 def sm_clocks_mhz() -> tuple:
@@ -2431,6 +2451,317 @@ def wes_phase(card: str, n: int = WES_N, plain_n: int = WES_PLAIN_N,
               f"(scores: the kernel, its launch and the copy back; classify: "
               f"classify_reads' and classify_window_reads' Python loops); {card}", flush=True)
     return launches
+
+
+def panel_haplotypes(n_samples: int, n_sites: int, seed: int, n_founders: int = 8,
+                     switch_rate: float = 0.01, mutation_rate: float = 0.002) -> np.ndarray:
+    """H [2 n_samples, n_sites] uint8 of ``make_synthetic_phased_panel``'s
+    model (mosaics of founder haplotypes with rare mutations), made in numpy
+    without writing a VCF: at this size the VCF writer alone would take
+    minutes."""
+    rng = np.random.default_rng(seed)
+    n_hap = 2 * n_samples
+    founders = rng.integers(0, 2, size=(n_founders, n_sites), dtype=np.uint8)
+    source = np.empty((n_hap, n_sites), dtype=np.int64)
+    source[:, 0] = rng.integers(0, n_founders, size=n_hap)
+    switches = rng.random(size=(n_hap, n_sites)) < switch_rate
+    for j in range(1, n_sites):
+        source[:, j] = np.where(switches[:, j], rng.integers(0, n_founders, size=n_hap),
+                                source[:, j - 1])
+    H = founders[source, np.arange(n_sites)]
+    H ^= (rng.random(size=H.shape) < mutation_rate).astype(np.uint8)
+    return H
+
+
+def panel_map(n_sites: int, seed: int) -> np.ndarray:
+    """cM positions of sites 1 kb apart at 0.5-2 cM/Mb (the synthetic panel's
+    genetic map)."""
+    rates = np.random.default_rng(seed).uniform(0.5, 2.0, size=n_sites)
+    return np.concatenate([[0.0], np.cumsum(rates[1:] * 1e-3)])
+
+
+def ibs_engine_phase(card: str, engine: tuple = IBS_ENGINE, exact: tuple = IBS_CHECK) -> None:
+    """Phase 14 (a): the host library's PBWT engine at the JAX package's
+    engine shape on 1 thread and on all cores (the two results identical),
+    and against the numpy engine, its plain version, on a cut the numpy
+    engine finishes in seconds (identical ``idx``, ``cmlen``, ``cmedge``,
+    ``count``). main() passes no size: the sizes let it be rehearsed small."""
+    from grid_tpu_torch import native_host
+    from grid_tpu_torch.native_host.ibs import pbwt_ibs_neighbors as native_engine
+    from grid_tpu_torch.ops.pbwt import pbwt_ibs_neighbors as numpy_engine
+
+    check(native_host.route() == "native", f"the host library did not load: {native_host.route()}")
+    threads = os.cpu_count() or 1
+    n, sites, k = engine
+    t0 = time.perf_counter()
+    H = panel_haplotypes(n, sites, IBS_SEED)
+    cm = panel_map(sites, IBS_SEED)
+    f = sites // 2
+    focal_cm = float((cm[f - 1] + cm[f]) / 2)
+    made_s = time.perf_counter() - t0
+    runs = {}
+    for t in sorted({1, threads}):
+        t0 = time.perf_counter()
+        out = native_engine(H, cm, f, focal_cm, k, threads=t)
+        runs[t] = (time.perf_counter() - t0, out)
+    one = runs[1][1]
+    for t, (_, out) in runs.items():
+        check(all(np.array_equal(a, b) for a, b in zip(out, one)),
+              f"the native engine on {t} threads differs from 1 thread")
+    check(bool((one[3] == k).all()), "the native engine found fewer than k neighbors")
+    print(f"[ibs] native PBWT engine, {2 * n} haplotypes x {sites} sites (made in numpy in "
+          f"{made_s:.1f} s; the sites a cut of a chromosome), k={k}: "
+          + "; ".join(f"{t} thread(s) {sec:.3f} s ({2 * n / sec:.0f} haplotypes/s)"
+                      for t, (sec, _) in runs.items())
+          + f"; the results identical on every thread count (host clock); {card}", flush=True)
+
+    n, sites, k = exact
+    H = panel_haplotypes(n, sites, IBS_SEED + 1)
+    cm = panel_map(sites, IBS_SEED + 1)
+    f = sites // 2
+    focal_cm = float((cm[f - 1] + cm[f]) / 2)
+    t0 = time.perf_counter()
+    want = numpy_engine(H, cm, f, focal_cm, k)
+    numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = native_engine(H, cm, f, focal_cm, k, threads=threads)
+    native_s = time.perf_counter() - t0
+    for name, a, b in zip(("idx", "cmlen", "cmedge", "count"), got, want):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"the native engine's {name} differs from the numpy engine's")
+    print(f"[ibs] native vs numpy engine, {2 * n} haplotypes x {sites} sites, k={k}: idx, cmlen, "
+          f"cmedge and count identical; numpy {numpy_s:.3f} s, native {native_s:.4f} s on "
+          f"{threads} thread(s) (host clock)", flush=True)
+
+
+def ibs_pipeline_phase(card: str, counted: dict, tmp: Path, cohort: dict, base: dict,
+                       names: dict, resident_launches: dict, k: int, n_nbr: int) -> dict:
+    """Phase 14 (b) and (c), on phase 9's cohort: the ``ibs`` command on a
+    grouped panel's VCF and BGEN (the two files equal), then
+    ``run_wgs_pipeline`` with ``compute_ibs.run: true`` and no platform named
+    (the fused steps on the card, the IBS file equal to the command's, the
+    haploid table equal to the plain route rebuilt from the run's own files,
+    the haplotype allocation correlated with the truth). Returns the kernels'
+    launches during the pipeline call."""
+    from grid_tpu_torch import native_host
+    from grid_tpu_torch.config import apply_defaults
+    from grid_tpu_torch.io.formats import read_normalized_data
+    from grid_tpu_torch.io.phased import write_phased_bgen
+    from grid_tpu_torch.pipeline import run_wgs_pipeline
+    from grid_tpu_torch.synth import make_synthetic_phased_panel
+
+    import grid_tpu_torch.cli as cli
+
+    n = len(cohort["ids"])
+    threads = os.cpu_count() or 1
+    focal_bp = (base["start_bp"] + base["end_bp"]) // 2
+    hap_cn = cohort["hap_cn"].reshape(-1)
+    groups = np.searchsorted(np.quantile(hap_cn, [0.25, 0.5, 0.75]), hap_cn)
+    t0 = time.perf_counter()
+    # the panel's middle site is the VNTR window's midpoint
+    panel = make_synthetic_phased_panel(
+        tmp / "panel", n_samples=n, n_sites=IBS_PANEL_SITES, chrom=base["chrom"],
+        start_bp=focal_bp - 1000 * (IBS_PANEL_SITES // 2) + 500, seed=IBS_SEED,
+        hap_groups=groups)
+    check(panel["focal_bp"] == focal_bp, f"the panel's focus {panel['focal_bp']} != {focal_bp}")
+    bgen = write_phased_bgen(tmp / "panel.bgen", panel["ids"], panel["H"], panel["positions"],
+                             chrom=panel["chrom"])
+    print(f"[ibs] grouped panel of phase 9's cohort: {n} samples x {IBS_PANEL_SITES} sites (VCF "
+          f"and BGEN), haplotypes in 4 groups by quartiles of the true haplotype CN, made in "
+          f"{time.perf_counter() - t0:.1f} s (host clock)", flush=True)
+
+    # ---- (b) the command, on the VCF and on the BGEN ----------------------
+    files, cmd_s = {}, {}
+    for kind, path in (("vcf", panel["vcf"]), ("bgen", bgen)):
+        files[kind] = tmp / f"ibs_cli_{kind}.tsv.gz"
+        console = Recorder()
+        args = ["ibs", f"--{kind}", str(path), "--genetic-map", str(panel["genetic_map"]),
+                "--focal-bp", str(focal_bp), "-k", str(IBS_K), "-t", str(threads),
+                "-o", str(files[kind])]
+        native_host.fallbacks.clear()
+        t0 = time.perf_counter()
+        with patched(cli, {"make_console": lambda: console}):
+            cli.cli.main(args=args, standalone_mode=False)
+        cmd_s[kind] = time.perf_counter() - t0
+        check(not console.failures(), f"ibs --{kind} logged failures: {console.failures()}")
+        check(not native_host.fallbacks, f"ibs --{kind}: fallbacks {dict(native_host.fallbacks)}")
+    check(content(files["vcf"]) == content(files["bgen"]),
+          "the ibs command's files from the VCF and the BGEN differ")
+    rows = content(files["vcf"]).count(b"\n") - 1
+    check(rows == 2 * n * IBS_K, f"the neighbor file has {rows} rows, not {2 * n * IBS_K}")
+    print(f"[ibs] `grid_tpu_torch.cli ibs` in this process, k={IBS_K}, {threads} threads: VCF "
+          f"{cmd_s['vcf']:.3f} s, BGEN {cmd_s['bgen']:.3f} s (host clock, reading the panel "
+          f"included); the two neighbor files equal after decompression ({rows} rows)",
+          flush=True)
+
+    # ---- (c) the pipeline: compute_ibs in front of the fused steps --------
+    out = tmp / "ibs_run"
+    out.mkdir()
+    cfg = copy.deepcopy(base)
+    cfg["output_dir"] = str(out)
+    cfg["device"] = {"fused": True}
+    cfg["compute_ibs"] = {"run": True, "vcf": str(panel["vcf"]), "focal_bp": focal_bp,
+                          "genetic_map": str(panel["genetic_map"]), "num_neighbors": IBS_K}
+    cfg["compute_haploid_genotypes"]["ibs_output"] = None
+    cfg = apply_defaults(cfg)  # so validation warns of nothing
+    (out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
+    for fn in counted.values():
+        fn.launches = 0
+    native_host.fallbacks.clear()
+    console = Recorder()
+    t0 = time.perf_counter()
+    t = run_wgs_pipeline(console, config=cfg)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    check(not console.failures(), f"the compute_ibs run logged failures: {console.failures()}")
+    check(not native_host.fallbacks, f"the compute_ibs run: fallbacks "
+                                     f"{dict(native_host.fallbacks)}")
+    check(launches == resident_launches, f"compute_ibs run launches {launches} != "
+                                         f"{resident_launches}")
+    check("compute_ibs" in t and "fused_steps_4_7" in t, f"compute_ibs run timings {sorted(t)}")
+    ibs_file = out / "ibs_neighbors.tsv.gz"
+    check(content(ibs_file) == content(files["vcf"]),
+          "the pipeline's IBS file differs from the ibs command's")
+    ids, ratios, z, scales = read_normalized_data(out / names["normalized"])
+    own = rebuild_from_files("ibs", out, names, ids, ratios, z, scales, ibs_file, k, n_nbr,
+                             fused=True)
+    lines = (out / names["haploid"]).read_text().splitlines()[1:]
+    est = {ln.split("\t")[0]: (float(ln.split("\t")[2]), float(ln.split("\t")[3]))
+           for ln in lines}
+    row = {sid: i for i, sid in enumerate(cohort["ids"])}
+    e, truth = [], []
+    for sid, (h1, h2) in est.items():
+        if np.isfinite(h1 + h2) and h1 + h2 > 0:
+            t1, t2 = cohort["hap_cn"][row[sid]]
+            e.append(h1 / (h1 + h2))
+            truth.append(t1 / (t1 + t2))
+    rho = float(np.corrcoef(e, truth)[0, 1])
+    check(rho > IBS_MIN_RHO, f"haplotype allocation vs the truth: rho {rho:.3f} <= {IBS_MIN_RHO}")
+    spans = ("fused.stage", "fused.device", "fused.phase", "fused.write")
+    host = 1 - (t["fused.device"] + t["fused.phase"]) / wall
+    print(f"[ibs] run_wgs_pipeline with compute_ibs, no platform named: kernel launches "
+          f"{launches}; no fallback counted; the IBS file equals the command's; haploid "
+          f"allocation vs the truth rho {rho:.3f} over {len(e)} samples "
+          f"({len(own.dip_ids)} dipCN rows)", flush=True)
+    print(f"[ibs] spans: compute_ibs {t['compute_ibs']:.3f} s, "
+          + ", ".join(f"{s} {t[s]:.3f} s" for s in spans)
+          + f", fused_steps_4_7 {t['fused_steps_4_7']:.3f} s; the whole call {wall:.3f} s "
+          f"(host clock); host share of the call (all but fused.device and fused.phase) "
+          f"{100 * host:.2f}%; {card}", flush=True)
+    return {name: launches[name] for name in counted}
+
+
+def tools_phase(card: str, bam_n: int = TOOLS_BAM_N, cram_n: int = TOOLS_CRAM_N) -> None:
+    """Phase 14 (d): ``batch-crai`` and ``batch-subset`` to the VNTR window
+    on fabricated BAMs and CRAMs; the subsets' records equal the native
+    reader's records of the same region in the source files, a CRAM subset
+    (the host library's verbatim writer) decodes through cramlite to the
+    source's records, and no fallback is counted."""
+    from grid_tpu_torch import native_host
+    from grid_tpu_torch.io import cramlite
+    from grid_tpu_torch.native_host import bam as native_bam
+    from grid_tpu_torch.native_host import cram as native_cram
+    from grid_tpu_torch.synth import make_synthetic_cohort_with_alignments
+
+    import grid_tpu_torch.cli as cli
+
+    check(native_host.route() == "native", f"the host library did not load: {native_host.route()}")
+    threads = os.cpu_count() or 1
+    chrom, start, end = TOOLS_WINDOW
+    with tempfile.TemporaryDirectory(prefix="grid_tpu_torch_tools_") as tmp:
+        root = Path(tmp)
+        dirs, times = {}, {}
+        for kind, n in (("bam", bam_n), ("cram", cram_n)):
+            t0 = time.perf_counter()
+            cohort = make_synthetic_cohort_with_alignments(
+                root / kind, n_samples=n, seed=ALIGN_SEED, mean_depth=ALIGN_DEPTH,
+                window_start=start, window_end=end, file_type=kind,
+                indel_frac=0.1 if kind == "cram" else 0.0)
+            fab_s = time.perf_counter() - t0
+            dirs[kind] = Path(cohort["config"]["directory_loc"])
+            native_host.fallbacks.clear()
+            for command, args in (
+                    ("batch-crai", ["-C", str(dirs[kind]), "-t", str(threads)]),
+                    ("batch-subset", ["-C", str(dirs[kind]), "-c", chrom, "-s", str(start),
+                                      "-e", str(end), "-o", str(root / f"{kind}_subsets"),
+                                      "-t", str(threads)])):
+                console = Recorder()
+                t0 = time.perf_counter()
+                with patched(cli, {"make_console": lambda: console}):
+                    cli.cli.main(args=[command, *args], standalone_mode=False)
+                times[kind, command] = time.perf_counter() - t0
+                check(not console.failures(), f"{command} on {kind}: {console.failures()}")
+                done = console.styled("success")
+                check(done and done[-1].split()[1].startswith(f"{n}/{n}"),
+                      f"{command} on {kind}: {done}")
+            check(not native_host.fallbacks, f"the tools on {kind}: fallbacks "
+                                             f"{dict(native_host.fallbacks)}")
+            print(f"[tools] {n} {kind.upper()}s of phase 12's shape, fabricated in {fab_s:.1f} s: "
+                  f"batch-crai {times[kind, 'batch-crai']:.3f} s, batch-subset to "
+                  f"{chrom}:{start:,}-{end:,} {times[kind, 'batch-subset']:.3f} s on {threads} "
+                  f"thread(s) (host clock, in this process); {card}", flush=True)
+
+        records = 0
+        for src in sorted(dirs["bam"].glob("*.bam")):
+            sub = root / "bam_subsets" / f"{src.stem}_subset.bam"
+            got = native_bam.fetch_reads(sub, chrom, 0, 1 << 40, exclude_flags=0)
+            # every read is 100 bases with no indel: those overlapping the
+            # window start at most 99 bases before it
+            want = native_bam.fetch_reads(src, chrom, start - 99, end, exclude_flags=0)
+            check(all(np.array_equal(a, b) for a, b in zip(got[:3], want[:3]))
+                  and got[3] == want[3], f"{sub.name}: records differ from the source's window")
+            records += len(got[0])
+        cram_records = 0
+        for i, src in enumerate(sorted(dirs["cram"].glob("*.cram"))):
+            sub = root / "cram_subsets" / f"{src.stem}_subset.cram"
+            got = native_cram.dump_records(sub)
+            every = native_cram.dump_records(src)
+            want = every[(every[:, 0] == 0) & (every[:, 1] < end)
+                         & (every[:, 1] + np.maximum(every[:, 5], 1) > start)]
+            check(np.array_equal(got, want), f"{sub.name}: records differ from the source's "
+                                             f"window")
+            cram_records += len(got)
+            if i == 0:
+                with cramlite.CramReader(sub) as rd:
+                    decoded = [(r.name, r.flag, r.pos, r.seq, r.cigar) for r in rd.iter_records()]
+                with cramlite.CramReader(src) as rd:
+                    source = [(r.name, r.flag, r.pos, r.seq, r.cigar)
+                              for r in rd.iter_records(chrom, start, end)]
+                check(decoded == source, f"{sub.name} does not decode through cramlite to the "
+                                         "source's records")
+        print(f"[tools] subsets equal the native reader's records of the window in the sources: "
+              f"{records} BAM records in {bam_n} files, {cram_records} CRAM records in {cram_n} "
+              f"(the native verbatim writer); one CRAM subset decodes through cramlite to the "
+              f"source's records with their CIGARs; no fallback counted", flush=True)
+
+
+def ibs_phase(card: str, wrappers: dict) -> dict:
+    """Phase 14 alone: phase 9's cohort fabricated again (as
+    ``pipeline_phase`` does), (b) and (c) on it, then (a) and (d). Returns
+    the kernels' launches of (c). main() runs (b) and (c) inside
+    ``pipeline_phase`` instead, on the cohort it already has."""
+    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel, zprep_split
+    from grid_tpu_torch.synth import make_synthetic_cohort
+
+    counted = {**wrappers, "zprep_split": zprep_split, "zprep_gram_panel": zprep_gram_panel}
+    names = {"normalized": "mosdepth_results_normalized.tsv.gz",
+             "neighbors": f"neighbor_coverage.zMax{ZMAX:.1f}.tsv.gz",
+             "dipcn": "diploid_genotypes.tsv", "haploid": "haploid_genotypes.tsv"}
+    with tempfile.TemporaryDirectory(prefix="grid_tpu_torch_ibs_") as tmp:
+        tmp = Path(tmp)
+        cohort = make_synthetic_cohort(tmp / "cohort", n_samples=PIPELINE_N,
+                                       flank_bins=PIPELINE_FLANK, missing_frac=0.02,
+                                       seed=PIPELINE_SEED)
+        base = cohort["config"]
+        base["mosdepth"]["neighbors"]["num_neighbors"] = K
+        base["compute_diploid_genotypes"]["n_nbr"] = N_NBR
+        base["compute_haploid_genotypes"].update(max_neighbors=10, n_iters=N_ITERS)
+        launches = ibs_pipeline_phase(card, counted, tmp, cohort, base, names,
+                                      {**PIPELINE_LAUNCHES, "zprep_split": 0,
+                                       "zprep_gram_panel": 0}, K, N_NBR)
+    ibs_engine_phase(card)
+    tools_phase(card)
+    return {name: launches[name] for name in wrappers}
 
 
 def main() -> int:
@@ -2835,7 +3166,7 @@ def main() -> int:
     branch_phase(dev, card)
 
     # ---- 9. the pipeline, from files, 10. in file mode, 11. multi-locus ----
-    pipeline_launches, files_launches, multi = pipeline_phase(card, wrappers)
+    pipeline_launches, files_launches, multi, ibs_launches = pipeline_phase(card, wrappers)
     multi_wide = multilocus_wide_phase(card, panel_zp)
     del panel_zp
     torch.cuda.empty_cache()
@@ -2870,7 +3201,8 @@ def main() -> int:
                      "pipeline_2504": {"launches": pipeline_launches[row["name"]]},
                      "pipeline_files_2504": files_json[row["name"]],
                      "multilocus_2504": multi_json[row["name"]],
-                     "alignments_2504": align_json[row["name"]]})
+                     "alignments_2504": align_json[row["name"]],
+                     "ibs_2504": {"launches": ibs_launches[row["name"]]}})
     # the multi-weight form: the sweep over the catalog at N=2504 is its
     # main path, its numbers those at L=492 there
     at_l = multi["timed"][MULTI_L]
@@ -2894,6 +3226,10 @@ def main() -> int:
     sw = sw_kernel_phase(dev, card)
     at_q = sw["timed"][SW_TIMED_Q[0]]
     sw_launches = wes_phase(card)
+    # ---- 14. compute_ibs: the engine (a) and the tools (d); (b, c) ran on
+    # phase 9's cohort ------------------------------------------------------
+    ibs_engine_phase(card)
+    tools_phase(card)
     rows.append({"name": "sw_scores_gpu", "route": "cuda",
                  "source": "grid_tpu_torch/csrc/sw_scores.cu",
                  "replaces": "grid_tpu/ops/align.py:42 (lax.scan, no pallas_call)",

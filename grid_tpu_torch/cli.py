@@ -9,9 +9,10 @@ catalog genes), ``loci`` (the catalog), the per-step commands of steps 1-7
 ``find-neighbors``, ``compute-dipcn``, ``hi-inference``), the exome path
 (``wes``, on the card unless ``device.platform: cpu``; ``realign``, on the
 card unless ``--device cpu``; ``exon-dipcn``, ``estimate-kiv``,
-``extract-reference``), ``report``, ``validate``, ``synth`` and
-``devices``. ``ibs`` and the alignment tools wait for the modules behind
-them.
+``extract-reference``), ``ibs`` (IBS haplotype neighbors from a phased
+panel, on the host), the alignment tools (``subset``, ``batch-subset``,
+``batch-crai``, ``add-gen-map``), ``report``, ``validate``, ``synth`` and
+``devices``.
 
 ``click`` is needed by this module only.
 """
@@ -326,6 +327,103 @@ def synth(out, n_samples, seed, missing_frac):
     console = make_console()
     log(console, f"Synthetic cohort of {n_samples} samples → {out}", style="success")
     log(console, f"Config: {res['config_file']}", style="info")
+
+
+@cli.command()
+@click.option("-a", "--aln", required=True, type=click.Path(exists=True), help="BAM/CRAM file")
+@click.option("-c", "--chrom", required=True)
+@click.option("-s", "--start", required=True, type=int)
+@click.option("-e", "--end", required=True, type=int)
+@click.option("-o", "--output", required=True, type=click.Path())
+@click.option("-R", "--reference", type=click.Path(exists=True), help="FASTA (CRAM only)")
+@click.option("--embed-reference", is_flag=True,
+              help="CRAM output: store each slice's reference window in the "
+                   "file so it decodes without the FASTA")
+def subset(aln, chrom, start, end, output, reference, embed_reference):
+    """Extract the reads of a region into a new BAM/CRAM."""
+    from grid_tpu_torch.tools import subset_alignment
+
+    console = make_console()
+    n = subset_alignment(aln, chrom, start, end, output, reference,
+                         embed_reference=embed_reference, console=console)
+    log(console, f"Wrote {n} records → {output}", style="success")
+
+
+@cli.command(name="batch-subset")
+@click.option("-C", "--aln-dir", required=True, type=click.Path(exists=True))
+@click.option("-c", "--chrom", required=True)
+@click.option("-s", "--start", required=True, type=int)
+@click.option("-e", "--end", required=True, type=int)
+@click.option("-o", "--output-dir", required=True, type=click.Path())
+@click.option("-R", "--reference", type=click.Path(exists=True))
+@click.option("-t", "--threads", default=1, type=int)
+def batch_subset_cmd(aln_dir, chrom, start, end, output_dir, reference, threads):
+    """Subset every alignment file in a directory to a region."""
+    from grid_tpu_torch.tools import batch_subset
+
+    console = make_console()
+    res = batch_subset(aln_dir, chrom, start, end, output_dir, reference, threads, console)
+    ok = sum(1 for v in res.values() if v is not None)
+    log(console, f"Subset {ok}/{len(res)} files → {output_dir}", style="success")
+
+
+@cli.command(name="batch-crai")
+@click.option("-C", "--aln-dir", required=True, type=click.Path(exists=True))
+@click.option("-R", "--reference", type=click.Path(exists=True))
+@click.option("-t", "--threads", default=1, type=int)
+def batch_crai(aln_dir, reference, threads):
+    """Create missing BAI/CRAI indexes for every file in a directory."""
+    from grid_tpu_torch.tools import batch_ensure_index
+
+    console = make_console()
+    res = batch_ensure_index(aln_dir, reference, threads, console)
+    log(console, f"Indexed {sum(res.values())}/{len(res)} files", style="success")
+
+
+@cli.command(name="add-gen-map")
+@click.option("--map", "map_file", required=True, type=click.Path(exists=True), help="PLINK MAP")
+@click.option("--genetic-map", required=True, type=click.Path(exists=True), help="Eagle genetic map")
+@click.option("--out", required=True, help="output prefix")
+def add_gen_map(map_file, genetic_map, out):
+    """Interpolate cM onto a PLINK MAP (computeIBSpbwt input prep)."""
+    from grid_tpu_torch.tools import add_genetic_map
+
+    log(make_console(), f"Wrote {add_genetic_map(map_file, genetic_map, out)}", style="success")
+
+
+@cli.command()
+@click.option("--vcf", type=click.Path(exists=True), help="phased VCF(.gz) panel")
+@click.option("--bgen", type=click.Path(exists=True), help="phased BGEN v1.2 panel")
+@click.option("--sample", "sample_file", type=click.Path(exists=True),
+              help="Oxford .sample file (BGEN without embedded IDs)")
+@click.option("-c", "--chrom", help="restrict the panel to one chromosome")
+@click.option("--focal-bp", required=True, type=int, help="focal position (bp)")
+@click.option("--genetic-map", type=click.Path(exists=True),
+              help="Eagle genetic map (else uniform 1 cM/Mb)")
+@click.option("-k", "--num-neighbors", default=200, show_default=True, type=int)
+@click.option("-t", "--threads", default=1, show_default=True, type=int)
+@click.option("-o", "--output", required=True, type=click.Path(),
+              help="neighbors file (.gz => gzip)")
+@click.option("--backend", default="auto", show_default=True,
+              type=click.Choice(["auto", "native", "numpy"]))
+@click.option("--max-scan", default=None, type=int,
+              help="per-side PBWT expansion cap (default max(4k, k+64)); "
+                   "raise if the engine logs that the cap was hit")
+def ibs(vcf, bgen, sample_file, chrom, focal_bp, genetic_map, num_neighbors,
+        threads, output, backend, max_scan):
+    """IBS haplotype neighbors from a phased panel (native PBWT engine on
+    the host; replaces the reference's external computeIBSpbwt tool, same
+    output format, read directly by hi-inference)."""
+    from grid_tpu_torch.steps.ibs import compute_ibs_neighbors
+
+    if (vcf is None) == (bgen is None):
+        raise click.ClickException("pass exactly one of --vcf / --bgen")
+    compute_ibs_neighbors(
+        output=output, focal_bp=focal_bp, vcf=vcf, bgen=bgen,
+        sample_file=sample_file, chrom=chrom, genetic_map=genetic_map,
+        num_neighbors=num_neighbors, threads=threads, max_scan=max_scan,
+        backend=backend, console=make_console(),
+    )
 
 
 @cli.command()

@@ -1,7 +1,8 @@
 """Build and load the port's host C++ library: the regions.bed.gz reader,
-the BGZF text writers, and the BAM and CRAM readers of the JAX package's
-native layer (index, count, binned depth, the one-pass ingest and its batch
-driver).
+the BGZF text writers, the BAM and CRAM readers of the JAX package's native
+layer (index, count, binned depth, the one-pass ingest and its batch
+form, the BAM region subsetter), the CRAM writer and the PBWT IBS
+neighbor engine: the whole of ``grid_tpu/native/src/``.
 
 Every file under ``csrc/host/`` is a byte-for-byte copy of
 ``grid_tpu/native/src/``'s file of the same name. ``g++`` compiles the
@@ -28,13 +29,16 @@ Exported, with the ``argtypes`` declared here (those of
   (:mod:`grid_tpu_torch.native_host.bedgz`);
 - ``grid_write_normalized`` and ``grid_write_neighbors``
   (:mod:`grid_tpu_torch.io.formats`);
-- ``grid_bam_*`` and ``grid_cram_*`` (:mod:`.bam`, :mod:`.cram`) and
-  ``grid_ingest_batch`` (:mod:`._ingest`).
+- ``grid_bam_*`` and ``grid_cram_*`` (:mod:`.bam`, :mod:`.cram`, the
+  writer ``grid_cram_write`` among them) and ``grid_ingest_batch``
+  (:mod:`._ingest`);
+- ``grid_ibs_neighbors`` (:mod:`.ibs`).
 
-:data:`fallbacks` counts, per kind, the times a caller of the alignment
-readers took a slower route than the native one (the one-pass ingest's
-sequential steps, a file's per-sample or Python reader): the routes stay as
-the JAX package has them, and the count says that one was taken.
+:data:`fallbacks` counts, per kind, the times a caller of the host library
+took a slower route than the native one (the one-pass ingest's sequential
+steps, a file's per-sample or Python reader, the numpy IBS engine, the
+Python CRAM writer): the routes stay as the JAX package has them, and the
+count says that one was taken.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc" / "host"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "grid_tpu_torch"
-SOURCES = ("bedgz.cpp", "textgz.cpp", "bgzf.cpp", "bam.cpp", "cram.cpp", "batch.cpp")
+SOURCES = ("bedgz.cpp", "textgz.cpp", "bgzf.cpp", "bam.cpp", "cram.cpp", "batch.cpp",
+           "ibs.cpp", "cram_write.cpp")
 FILES = ("bedwrite.h", "bgzf.h", "windows.h", *SOURCES)  # what the key hashes
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra")
@@ -149,6 +154,16 @@ def _declare(cdll: ctypes.CDLL) -> None:
     c = ctypes
     i64, p64, pd = c.c_int64, c.POINTER(c.c_int64), c.POINTER(c.c_double)
     i32, p32, s = c.c_int32, c.POINTER(c.c_int32), c.c_char_p
+    p8 = c.POINTER(c.c_uint8)
+    cdll.grid_ibs_neighbors.restype = c.c_int
+    cdll.grid_ibs_neighbors.argtypes = [p8, i32, i32, pd, i32, c.c_double, i32, i32, i32,
+                                        p32, pd, pd, p32]
+    cdll.grid_cram_write.restype = c.c_int
+    cdll.grid_cram_write.argtypes = [s, p8, i64, i64, p32, p32, p64, p32, p32, p32, p64, p32,
+                                     p8, p64, p8, p64, p8, p64, c.POINTER(c.c_uint32), p64,
+                                     i32, s]
+    cdll.grid_bam_subset.restype = i64
+    cdll.grid_bam_subset.argtypes = [s, s, i64, i64, s]
     for name in ("grid_bam_count", "grid_cram_count"):
         getattr(cdll, name).restype = i64
         getattr(cdll, name).argtypes = [s, s, i64, i64, p32, i32, i32]
@@ -205,7 +220,8 @@ def _load() -> dict:
     except (RuntimeError, OSError, AttributeError) as e:
         warnings.warn(
             "grid_tpu_torch: the host library did not build or load, so the bed.gz reader, "
-            f"the text writers and the alignment readers take their other routes: {e}",
+            "the text writers, the alignment readers and writers and the IBS engine take "
+            f"their other routes: {e}",
             RuntimeWarning, stacklevel=4)
         return {"lib": None, "route": str(e)}
     return {"lib": cdll, "route": "native"}

@@ -1,7 +1,8 @@
 """ctypes wrappers of the host library's BAM reader (port of
 ``grid_tpu/native/bam.py``): region read counts (BAI-indexed where the index
 exists), mosdepth-fast-mode binned depth, BAI construction, the header's
-references, the reads of a region, and the one-pass ingest. Each raises
+references, the reads of a region, the region subset written as a new BAM,
+and the one-pass ingest. Each raises
 ``IOError`` on a negative return code, and RuntimeError when the host
 library is not loaded."""
 
@@ -68,6 +69,19 @@ def references(path, max_refs=1024):
     if n < 0:
         raise IOError(f"grid_bam_refs({path}) failed with code {n}")
     return [(name, int(lens[i])) for i, name in enumerate(_names(names_buf.raw, n))]
+
+
+def subset_region(path, chrom, start, end, out_path) -> int:
+    """Write the records overlapping [start, end) to a new BAM (the native
+    BGZF writer, the header kept verbatim). Returns the number of records
+    written."""
+    rc = require().grid_bam_subset(str(path).encode(), str(chrom).encode(), int(start), int(end),
+                                   str(out_path).encode())
+    if rc == -4:
+        raise ValueError(f"chromosome {chrom!r} not found in {path}")
+    if rc < 0:
+        raise IOError(f"grid_bam_subset({path}) failed with code {rc}")
+    return int(rc)
 
 
 def fetch_reads(path, chrom, start, end, exclude_flags=1796, min_mapq=0):

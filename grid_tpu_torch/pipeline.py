@@ -25,12 +25,21 @@ run in its place, on the same device (the reference's semantics); on the
 card only a failure to read its inputs does so, and a kernel or device
 failure propagates. A failing file-mode step is logged and the next one
 runs, unless a kernel or the card failed (``native.KernelError``, CUDA's
-own errors): that propagates on every device. What the port lacks
-raises ``NotImplementedError`` naming its ROADMAP item before anything
-runs:
+own errors): that propagates on every device.
 
-- ``compute_ibs`` with ``run: true``;
-- ``device.mesh_shape`` with the fused path (the sharded layer).
+Between steps 1-3 and 4-7, ``compute_ibs`` (the JAX package's addition)
+makes step 7's IBS neighbor file from a phased panel on the host
+(:mod:`grid_tpu_torch.steps.ibs`); ``compute_haploid_genotypes.ibs_output``
+is pointed at that file before the step runs, so a resume-skipped step
+still feeds step 7.
+
+``device.mesh_shape`` with the fused path asks the dispatch policy
+(:mod:`grid_tpu_torch.parallel.policy`): where it chooses the single-device
+step, that step runs on one card; where it would choose the sharded ring
+(``dispatch: ring`` on more than one device, or a sample list at or above
+the crossover under ``auto``), the pipeline raises ``NotImplementedError``
+naming its ROADMAP item before anything runs, and a one-device mesh with
+``dispatch: ring`` raises the policy's ``ValueError``.
 
 :func:`run_wes_pipeline`, the exome path (realign → per-exon dipCN →
 KIV-2 estimate), has the JAX package's gating and log-and-continue
@@ -48,17 +57,26 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import zlib
 from pathlib import Path
 
 from grid_tpu_torch import native_host
 from grid_tpu_torch.config import WES_SCHEMA, apply_defaults, error_check_config, load_config
+from grid_tpu_torch.io.formats import read_samples
 from grid_tpu_torch.native import is_device_failure
+from grid_tpu_torch.parallel.policy import choose_cohort_execution
 from grid_tpu_torch.steps.count_reads import count_reads
 from grid_tpu_torch.steps.coverage import compute_mosdepth
 from grid_tpu_torch.steps.dipcn import compute_diploid_genotypes
-from grid_tpu_torch.steps.fused import FusedInputError, fused_steps_enabled, run_fused_steps
+from grid_tpu_torch.steps.fused import (
+    FusedInputError,
+    fused_steps_enabled,
+    ring_refusal,
+    run_fused_steps,
+)
 from grid_tpu_torch.steps.haploid import hi_inference
+from grid_tpu_torch.steps.ibs import compute_ibs, default_ibs_output
 from grid_tpu_torch.steps.index import check_index, create_index
 from grid_tpu_torch.steps.ingest import fused_ingest_enabled, run_fused_ingest
 from grid_tpu_torch.steps.neighbors import find_neighbors
@@ -177,18 +195,21 @@ class _Resume:
 
 
 def _refuse_unported(config: dict) -> None:
-    """Raise for what the JAX pipeline would run here and the port cannot."""
-    if config.get("compute_ibs", {}).get("run") is True:
-        raise NotImplementedError(
-            "compute_ibs.run: true — the native IBS step is not ported yet (ROADMAP.md queue 1, "
-            "'compute_ibs and tools'); produce the IBS neighbors file with grid_tpu and name it "
-            "in compute_haploid_genotypes.ibs_output, or set compute_ibs.run: false"
-        )
-    if config.get("device", {}).get("mesh_shape") and fused_steps_enabled(config):
-        raise NotImplementedError(
-            "device.mesh_shape: the sharded layer is not ported yet (ROADMAP.md queue 1, "
-            "'Sharded layer'); unset it to run on one card"
-        )
+    """Raise, before any step runs, where the JAX pipeline's fused step would
+    take the sharded ring: ``dispatch: ring`` on more than one device, or,
+    under ``auto``, a sample list already at or above the crossover. The
+    policy's own ``ValueError`` (``ring`` on one device, an unknown
+    ``dispatch``) is raised here too."""
+    mesh_shape = config.get("device", {}).get("mesh_shape")
+    if not mesh_shape or not fused_steps_enabled(config):
+        return
+    dispatch = str(config.get("device", {}).get("dispatch", "auto"))
+    try:
+        n = len(read_samples(config["samples_file"]))
+    except (KeyError, OSError):
+        n = 0  # the fused step asks the policy again with the staged N
+    if choose_cohort_execution(n, int(math.prod(mesh_shape)), dispatch) == "ring":
+        raise NotImplementedError(ring_refusal(n, mesh_shape))
 
 
 def _steps_4_7(config: dict) -> list:
@@ -311,6 +332,17 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
             log(console, f"Failed to {name.replace('_', ' ')}: {e}", style="danger")
 
     _steps_2_3(config_data, console, timer, resume, gated)
+
+    # the JAX package's addition: step 7's IBS neighbor file from a phased
+    # panel, made before steps 4-7 (fused or in file mode) read it
+    if config_data.get("compute_ibs", {}).get("run") is True:
+        # ibs_output is derived before the gated call: a resume-skipped
+        # compute_ibs must still point step 7 at the existing file
+        hap_cfg = config_data.setdefault("compute_haploid_genotypes", {})
+        if not hap_cfg.get("ibs_output"):
+            hap_cfg["ibs_output"] = str(default_ibs_output(config_data))
+        gated(config_data["compute_ibs"], "compute_ibs",
+              lambda cfg, con, _timer: compute_ibs(cfg, con))
 
     fused_done = False
     if fused_steps_enabled(config_data):

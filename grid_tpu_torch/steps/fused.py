@@ -18,7 +18,12 @@ brings the outputs back for the writers. ``device.dtype: auto`` is float32 on
 the card (the hand kernels' type) and the staged float64 on the CPU; reads,
 haplotype weights and the dipCN values fed to phasing follow it.
 
-Not ported, and raised for: ``device.mesh_shape`` (the sharded layer).
+``device.mesh_shape`` asks the dispatch policy
+(:func:`grid_tpu_torch.parallel.policy.choose_cohort_execution`) as the JAX
+package does: where it chooses the single-device step (a one-device mesh, or
+N below the ring crossover under ``dispatch: auto``) this step runs on one
+card and logs so; where it chooses the ring, it raises
+``NotImplementedError`` (the sharded layer is not ported).
 ``device.use_pallas`` is accepted and has no effect. ``device.exact_phasing``
 or a run of fewer than all four steps takes the file-mode steps instead
 (:func:`fused_steps_enabled`), and so does a failure to read this step's
@@ -51,10 +56,18 @@ from grid_tpu_torch.io.hap_neighbors import (
 )
 from grid_tpu_torch.models.cohort import CohortParams, cohort_step
 from grid_tpu_torch.ops.phasing import compute_imputed, phase_haplotypes
+from grid_tpu_torch.parallel.policy import choose_cohort_execution
 from grid_tpu_torch.steps.normalize import _stage
 from grid_tpu_torch.utils.device import compute_dtype, config_device
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import step_timer
+
+
+def ring_refusal(n: int, mesh_shape) -> str:
+    """The message of the refusal where the policy chooses the ring."""
+    return (f"device.mesh_shape={mesh_shape}: the dispatch policy chooses the sharded ring step "
+            f"for N={n}, and the sharded layer is not ported yet (ROADMAP.md queue 1, "
+            "'Sharded layer'); set device.dispatch: flat or unset mesh_shape to run on one card")
 
 
 class FusedInputError(Exception):
@@ -100,11 +113,6 @@ def _finish(device: torch.device) -> None:
 def run_fused_steps(config, console=None, timer=None):
     """Stage once, run the fused cohort step, write all four artifacts.
     Returns their paths: normalized, neighbors, dipCN, haploid."""
-    if config.get("device", {}).get("mesh_shape"):
-        raise NotImplementedError(
-            "device.mesh_shape: the sharded layer is not ported yet (ROADMAP.md queue 1, "
-            "'Sharded layer'); unset it to run on one card"
-        )
     device = config_device(config)
 
     chrom = config.get("chrom")
@@ -148,6 +156,19 @@ def run_fused_steps(config, console=None, timer=None):
         quantize=True,
     )
     dtype = compute_dtype(config, device)
+
+    mesh_shape = config.get("device", {}).get("mesh_shape")
+    if mesh_shape:
+        # the ring loses 2x to the flat op below the measured crossover
+        # (parallel/policy.py): a configured mesh is a capability, not a
+        # commitment
+        dispatch = str(config.get("device", {}).get("dispatch", "auto"))
+        if choose_cohort_execution(n, int(np.prod(mesh_shape)), dispatch) == "ring":
+            raise NotImplementedError(ring_refusal(n, mesh_shape))
+        log(console,
+            f"dispatch policy: N={n} below ring crossover — running the"
+            f" single-device step despite mesh_shape={mesh_shape}",
+            style="info")
 
     with step_timer("fused.device", timer, None):
         # phasing neighbors are loaded AFTER dipCN validity is known (below);

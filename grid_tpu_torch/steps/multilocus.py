@@ -20,9 +20,10 @@ With ``count_reads.run: true`` each locus's reads are counted into
 (every locus window a count-only window of the same scan,
 ``_extra_count_windows``) where that pass runs, else per locus through the
 ``count_reads`` step; with it off the sweep reads those files as they are.
-``compute_ibs.run: true`` raises before anything is written (ROADMAP.md,
-'compute_ibs and tools'). The device is the config's (``device.platform``),
-whatever the cohort's size.
+With ``compute_ibs.run: true`` each locus makes its own IBS neighbor file
+in its per-locus pass, from the panel around the window's midpoint
+(:func:`locus_config`), as in the JAX package. The device is the config's
+(``device.platform``), whatever the cohort's size.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from grid_tpu_torch.data.loci import Locus, resolve_locus
 from grid_tpu_torch.io.formats import read_counts_tsv, write_dipcn
 from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_multi_gpu, dipcn_multi_panels_gpu
 from grid_tpu_torch.ops.knn import d2_matrix
-from grid_tpu_torch.pipeline import _refuse_unported, run_wgs_pipeline
+from grid_tpu_torch.pipeline import run_wgs_pipeline
 from grid_tpu_torch.steps.ingest import fused_ingest_enabled
 from grid_tpu_torch.steps.neighbors import load_neighbor_geometry
 from grid_tpu_torch.utils.logging import log
@@ -226,7 +227,6 @@ def run_multi_locus(config, genes, console=None, catalog=None, batched="auto", t
         config = load_config(config)
     error_check_config(config, console)
     config = apply_defaults(config)
-    _refuse_unported(config)  # compute_ibs: before any file is written
 
     loci = {g: resolve_locus(g, catalog) for g in genes}
     cfgs = {g: locus_config(config, locus) for g, locus in loci.items()}

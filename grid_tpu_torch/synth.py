@@ -15,7 +15,9 @@ sample (the port's :mod:`~grid_tpu_torch.io.bamlite` and
 :mod:`~grid_tpu_torch.io.cramlite` writers), so steps 1-3 run end to end on
 the built-in readers; one seed gives the JAX package's bytes.
 
-Not ported: the phased-panel generator.
+:func:`make_synthetic_phased_panel` writes a phased haplotype panel (VCF,
+Oxford .sample file, Eagle genetic map) for the IBS step; one seed gives
+the JAX package's panel.
 """
 
 from __future__ import annotations
@@ -118,6 +120,130 @@ def make_synthetic_cohort_with_alignments(
         make_alignments=True, read_len=read_len, file_type=file_type,
         indel_frac=indel_frac,
     )
+
+
+def make_synthetic_phased_panel(
+    out_dir,
+    n_samples: int = 24,
+    n_sites: int = 400,
+    chrom: str = "6",
+    start_bp: int = 160_000_000,
+    site_spacing: int = 1_000,
+    n_founders: int = 8,
+    switch_rate: float = 0.01,
+    mutation_rate: float = 0.002,
+    n_clone_pairs: int = 3,
+    clone_span_sites: int = 200,
+    seed: int = 0,
+    hap_groups=None,
+):
+    """Fabricate a phased haplotype panel with realistic IBS structure for
+    the native IBS engine (tests, examples, and the ``ibs`` CLI).
+
+    Model: a pool of founder haplotypes; each cohort haplotype is a mosaic
+    of founders (switches at rate ``switch_rate`` per site) with rare
+    mutations, so haplotypes copying the same founder locally share long
+    IBS segments. ``n_clone_pairs`` haplotype pairs (across different
+    samples) additionally copy each other exactly over ``clone_span_sites``
+    sites centred on the panel midpoint — planted mutual best matches.
+
+    ``hap_groups`` (optional int array ``[2*n_samples]``, hap index
+    ``2*i + h``): haplotypes in the same group copy a shared group founder
+    over the focal window — the biological premise of the pipeline (shared
+    haplotype around the VNTR => shared repeat allele). Pass a quantile
+    binning of the true haplotype CNs to make IBS-based phasing
+    informative end-to-end. Disables the clone-pair planting.
+
+    Writes ``panel.vcf.gz``, ``panel.sample``, ``genetic_map.txt`` and
+    returns ids, the haplotype matrix, positions, the focal bp (panel
+    midpoint) and the planted clone pairs (haplotype-index tuples).
+    """
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ids = [f"SYN{i:05d}" for i in range(n_samples)]
+    n_hap = 2 * n_samples
+
+    founders = rng.integers(0, 2, size=(n_founders, n_sites), dtype=np.uint8)
+    source = np.empty((n_hap, n_sites), dtype=np.int64)
+    source[:, 0] = rng.integers(0, n_founders, size=n_hap)
+    switches = rng.random(size=(n_hap, n_sites)) < switch_rate
+    for j in range(1, n_sites):
+        new = rng.integers(0, n_founders, size=n_hap)
+        source[:, j] = np.where(switches[:, j], new, source[:, j - 1])
+    H = founders[source, np.arange(n_sites)]
+    H ^= (rng.random(size=H.shape) < mutation_rate).astype(np.uint8)
+
+    mid = n_sites // 2
+    lo = max(0, mid - clone_span_sites // 2)
+    hi = min(n_sites, mid + clone_span_sites // 2)
+    clone_pairs = []
+    if hap_groups is not None:
+        hap_groups = np.asarray(hap_groups)
+        if hap_groups.shape != (n_hap,):
+            raise ValueError(f"hap_groups must have shape ({n_hap},)")
+        for g in np.unique(hap_groups):
+            members = np.flatnonzero(hap_groups == g)
+            founder = rng.integers(0, 2, size=hi - lo, dtype=np.uint8)
+            for h in members:
+                H[h, lo:hi] = founder
+        # rare mutations so matches have realistic ragged ends
+        window = H[:, lo:hi]
+        window ^= (rng.random(size=window.shape) < mutation_rate).astype(np.uint8)
+    else:
+        used: set[int] = set()
+        for _ in range(n_clone_pairs):
+            while True:
+                x, y = rng.choice(n_hap, size=2, replace=False)
+                if x // 2 != y // 2 and x not in used and y not in used:
+                    break
+            H[y, lo:hi] = H[x, lo:hi]
+            used.update((int(x), int(y)))
+            clone_pairs.append((int(x), int(y)))
+
+    positions = start_bp + np.arange(n_sites, dtype=np.int64) * site_spacing
+    focal_bp = int(positions[mid]) - site_spacing // 2
+
+    vcf_path = out / "panel.vcf.gz"
+    with gzip.open(vcf_path, "wt") as f:
+        f.write("##fileformat=VCFv4.2\n")
+        f.write(f"##contig=<ID={chrom}>\n")
+        f.write('##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n')
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t")
+        f.write("\t".join(ids) + "\n")
+        for j in range(n_sites):
+            gts = "\t".join(
+                f"{H[2 * i, j]}|{H[2 * i + 1, j]}" for i in range(n_samples)
+            )
+            f.write(
+                f"{chrom}\t{positions[j]}\tvar{j + 1}\tA\tG\t.\tPASS\t.\tGT\t{gts}\n"
+            )
+
+    from grid_tpu_torch.io.phased import write_sample_file
+
+    sample_path = write_sample_file(out / "panel.sample", ids)
+
+    # Eagle-format genetic map with mildly varying recombination rate.
+    rates = rng.uniform(0.5, 2.0, size=n_sites)  # cM/Mb
+    cm = np.concatenate([[0.0], np.cumsum(rates[1:] * np.diff(positions) * 1e-6)])
+    map_path = out / "genetic_map.txt"
+    with open(map_path, "w") as f:
+        f.write("chr position COMBINED_rate Genetic_Map(cM)\n")
+        for j in range(n_sites):
+            f.write(f"{chrom} {positions[j]} {rates[j]:.4f} {cm[j]:.6f}\n")
+
+    return {
+        "ids": ids,
+        "H": H,
+        "positions": positions,
+        "cm": cm,
+        "focal_bp": focal_bp,
+        "clone_pairs": clone_pairs,
+        "vcf": vcf_path,
+        "sample_file": sample_path,
+        "genetic_map": map_path,
+        "chrom": chrom,
+    }
 
 
 def _indel_cigars(read_len):

@@ -221,9 +221,8 @@ def test_fused_failure_raises(cohort, tmp_path):
 
 
 UNPORTED = {
-    "compute_ibs": ({}, {"compute_ibs": {"run": True, "focal_bp": 160_600_000}},
-                    "compute_ibs and tools"),
-    "mesh_shape": ({}, {"device": {"fused": True, "mesh_shape": [4], "platform": "cpu"}},
+    "mesh_shape": ({}, {"device": {"fused": True, "mesh_shape": [4], "dispatch": "ring",
+                                   "platform": "cpu"}},
                    "Sharded layer"),
 }
 
@@ -238,6 +237,96 @@ def test_unported_paths_raise_naming_their_roadmap_item(cohort, tmp_path, case):
     assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
     roadmap = (Path(__file__).parent.parent / "ROADMAP.md").read_text()
     assert item in roadmap
+
+
+POLICY_CASES = [  # tests/test_parallel.py's TestDispatchPolicy cases
+    ((8_192, 8), "flat"), ((32_768, 8), "ring"), ((1_000_000, 1), "flat"),
+    ((100, 8, "ring"), "ring"), ((100_000, 8, "flat"), "flat"),
+    ((100, 8, "fastest"), ValueError), ((100, 1, "ring"), ValueError),
+    ((16_383, 8), "flat"), ((16_384, 8), "ring"),
+]
+
+
+@pytest.mark.parametrize("args,want", POLICY_CASES)
+def test_dispatch_policy_equals_grid_tpu_s(args, want):
+    from grid_tpu.parallel.policy import RING_CROSSOVER_N as JAX_CROSSOVER
+    from grid_tpu.parallel.policy import choose_cohort_execution as jax_choose
+    from grid_tpu_torch.parallel.policy import RING_CROSSOVER_N, choose_cohort_execution
+
+    assert RING_CROSSOVER_N == JAX_CROSSOVER
+    if want is ValueError:
+        with pytest.raises(ValueError) as jax_err:
+            jax_choose(*args)
+        with pytest.raises(ValueError) as torch_err:
+            choose_cohort_execution(*args)
+        assert str(torch_err.value) == str(jax_err.value)
+    else:
+        assert choose_cohort_execution(*args) == jax_choose(*args) == want
+
+
+@pytest.mark.parametrize("mesh_shape", [[1], [8]])
+def test_mesh_below_the_crossover_runs_flat_as_grid_tpu(cohort, f64_runs, tmp_path, mesh_shape):
+    """A configured mesh with N below the crossover (or a one-device mesh)
+    runs the single-card step under ``dispatch: auto``, logs grid_tpu's
+    line word for word, and writes grid_tpu's artifacts."""
+    jax_out, _, _, _ = f64_runs
+    consoles = {"jax": Recorder(), "torch": Recorder()}
+    for name, run in (("jax", jax_pipeline.run_wgs_pipeline), ("torch", run_wgs_pipeline)):
+        device = {"fused": True, "mesh_shape": mesh_shape}
+        if name == "torch":
+            device["platform"] = "cpu"
+        timings = run(console=consoles[name],
+                      config=run_config(cohort, tmp_path / name, device))
+        assert "fused_steps_4_7" in timings and "fused.device" in timings
+    said = {name: [msg for msg, style in c.lines if msg.startswith("dispatch policy:")]
+            for name, c in consoles.items()}
+    assert said["torch"] == said["jax"] == [
+        f"dispatch policy: N=15 below ring crossover — running the single-device step despite "
+        f"mesh_shape={mesh_shape}"]
+    for artifact in ("normalized", "neighbors", "haploid"):
+        name = ARTIFACTS[artifact]
+        assert content(tmp_path / "torch" / name) == content(tmp_path / "jax" / name), artifact
+        assert content(tmp_path / "torch" / name) == content(jax_out / name), artifact
+
+
+def test_one_device_mesh_with_ring_raises_grid_tpu_s_value_error(cohort, tmp_path):
+    from grid_tpu.parallel.policy import choose_cohort_execution as jax_choose
+
+    with pytest.raises(ValueError) as want:
+        jax_choose(15, 1, "ring")
+    cfg = run_config(cohort, tmp_path, {"fused": True, "mesh_shape": [1], "dispatch": "ring",
+                                        "platform": "cpu"})
+    with pytest.raises(ValueError, match=str(want.value)):
+        run_wgs_pipeline(console=None, config=cfg)
+    assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
+
+
+def test_auto_at_the_crossover_is_refused_before_any_step(cohort, tmp_path, monkeypatch):
+    """Under ``auto`` a sample list at or above the crossover would take the
+    ring in grid_tpu: the port refuses before step 1 writes anything; the
+    fused step asks the policy again with the staged N."""
+    import grid_tpu_torch.parallel.policy as policy
+    import grid_tpu_torch.pipeline as pipeline
+    import grid_tpu_torch.steps.fused as fused
+
+    def crossover_15(n, n_devices, dispatch="auto"):
+        return "ring" if n_devices > 1 and dispatch != "flat" and n >= 15 else "flat"
+
+    for module in (pipeline, fused):
+        monkeypatch.setattr(module, "choose_cohort_execution", crossover_15)
+    cfg = run_config(cohort, tmp_path, {"fused": True, "mesh_shape": [2], "platform": "cpu"})
+    with pytest.raises(NotImplementedError, match="Sharded layer"):
+        run_wgs_pipeline(console=None, config=cfg)
+    assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
+    with pytest.raises(NotImplementedError, match="N=15"):
+        fused.run_fused_steps(apply_defaults_port(cfg))
+    assert policy.choose_cohort_execution(15, 2) == "flat"
+
+
+def apply_defaults_port(cfg):
+    from grid_tpu_torch.config import apply_defaults
+
+    return apply_defaults(copy.deepcopy(cfg))
 
 
 FILE_MODE = {  # configs that raised before the file-mode steps were ported

@@ -1,5 +1,5 @@
 """The port's host library (grid_tpu_torch.native_host) against the JAX
-package on the CPU: the three copied C++ files equal grid_tpu's, the native
+package on the CPU: the copied C++ files equal grid_tpu's, the native
 bed.gz readers equal grid_tpu's Python and native readers, the stager stages
 the same arrays on any number of threads, and the native writers give the
 decompressed bytes of grid_tpu's Python writers. Gzipped files are compared
@@ -103,15 +103,18 @@ def test_library_builds_and_loads_native():
         assert getattr(lib, fn).argtypes, fn
 
 
-def test_the_library_holds_the_alignment_readers_and_not_the_writers():
+def test_the_library_holds_the_whole_native_layer():
     """bgzf, bam, cram and batch are built beside the bed.gz reader and the
-    text writers; ibs.cpp and cram_write.cpp (compute_ibs, the tools) are
-    not, and nothing the library links needs them."""
-    assert set(native_host.FILES) == {"bedwrite.h", "bgzf.h", "windows.h", "bedgz.cpp",
-                                      "textgz.cpp", "bgzf.cpp", "bam.cpp", "cram.cpp", "batch.cpp"}
+    text writers, and so are ibs.cpp (compute_ibs) and cram_write.cpp (the
+    tools' CRAM writer): every source of grid_tpu/native/src/, each typed."""
+    jax_src = REPO / "grid_tpu" / "native" / "src"
+    assert set(native_host.FILES) == {p.name for p in jax_src.iterdir()
+                                      if p.suffix in (".cpp", ".h")}
+    assert {"ibs.cpp", "cram_write.cpp"} <= set(native_host.SOURCES)
     assert sorted(p.name for p in native_host.CSRC.iterdir()) == sorted(native_host.FILES)
     lib = native_host.lib()
-    assert not hasattr(lib, "grid_ibs_neighbors") and not hasattr(lib, "grid_cram_write")
+    for fn in ("grid_ibs_neighbors", "grid_cram_write", "grid_bam_subset"):
+        assert getattr(lib, fn).argtypes and getattr(lib, fn).restype is not None, fn
 
 
 def test_library_is_keyed_by_sources_and_flags(monkeypatch, tmp_path):

@@ -363,18 +363,6 @@ def test_sweep_variants_equal_the_batched_resident_run(cohort, sweeps, tmp_path,
                                    haploid_values(torch_out / name)[2], rtol=0, atol=1e-9)
 
 
-@pytest.mark.parametrize("section", ["compute_ibs"])
-def test_sweep_refuses_what_the_port_cannot_do(cohort, tmp_path, section):
-    _, catalog = cohort
-    cfg = sweep_config(cohort, tmp_path / "out", {"platform": "cpu"})
-    cfg.setdefault(section, {})["run"] = True
-    cfg[section]["focal_bp"] = 160_610_000
-    before = sorted(p.name for p in (tmp_path / "out").iterdir())
-    with pytest.raises(NotImplementedError, match="compute_ibs and tools"):
-        run_multi_locus(cfg, list(GENES), None, catalog)
-    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == before
-
-
 # ----------------------------------------- a kernel failure propagates ---
 
 
