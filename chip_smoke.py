@@ -192,17 +192,33 @@ before the last line):
              must be equal; the native and cramlite routes are timed.
 13. wes    — the exome path (``sw_kernel_phase``, ``wes_phase``). (a) The
              Smith-Waterman kernel against its plain scan on the card, int32
-             equal, on tests/torch_sw_cases.py's cases (8,192 reads of 150
-             on exons of 160/182/182; Q=1 and Lq=1; all-pad reads and reads
-             with N; Lr of 45 and 97; Lr=700, the shared-memory mode; Lq >
-             Lr; scores (3, -2, -3) and gap 0; two identical references),
-             and ACGT reads against sw_score_host; its launch shapes, which
-             must not spill. (b) Its times at Q = 8,192 and 32,768 (CUDA
-             events: median and 20 back to back), the plain scan's, cell
-             updates per second and the bound: 6 instructions a cell (the
-             recurrence's 9 integer operations in Hopper's fused DPX forms)
-             at the SMs' issue limit, 4 warp instructions a clock, at
-             nvidia-smi's maximum SM clock.
+             equal, on tests/torch_sw_cases.py's cases
+             (8,192 reads of 150 on exons of 160/182/182; Q=1 and Lq=1;
+             all-pad reads and reads with N; Lr of 45 and 97; Lr=700, the
+             shared-memory mode; Lq > Lr; scores (3, -2, -3) and gap 0; two
+             identical references; Lr = G*S - 1, G*S, G*S + 1 at each edge
+             of the lane-group chooser; Lr below G; a ragged unit count; a
+             positive gap; scores past a byte; reads with codes past 4), on
+             int8, uint8 and int8 reads against uint8 references; the main,
+             positive-gap and codes-past-4 cases again at each G the chooser
+             may take at Lr=182, in each form the scores allow (int32, and
+             the packed 16x2 form where ops/gpu_align.py:packed_fits holds),
+             and ACGT reads against sw_score_host; the launch shapes of every
+             instance of the register mode's table in both forms, none of
+             which may spill, the waves at Q = 8,192 and 32,768, and the
+             instructions a cell of the wavefront loops in the library's
+             SASS (cuobjdump). (b) Its times at Q = 8,192 and 32,768 at the
+             chooser's shape and form (packed, G=8) and at G = 8 and 16 in
+             both forms (CUDA events: median and 20 back to back, two rounds
+             in turns), the plain scan's, cell updates per second and the
+             bound of the form launched, at the SMs' issue limit, 4 warp
+             instructions a clock, at nvidia-smi's maximum SM clock: the
+             packed form's 2.25 instructions a cell (two cells a register:
+             their substitutions' prmt, three 16x2 DPX max-adds and half a
+             three-way max), the int32 form's 6 (the recurrence's 9 integer
+             operations in Hopper's fused DPX forms), also stated for the
+             packed form; and at Q = 1,024 the packed form at G = 8, 16
+             and 32.
              (c) A WES-shaped cohort of 256 BAMs (a cut forced by the time
              limit) of ~8,000 reads of 150 bases in the KIV-2 window, drawn
              from the three exons at seeded per-sample proportions beside
@@ -234,12 +250,15 @@ import ctypes
 import gzip
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 import zlib
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
@@ -299,9 +318,15 @@ ALIGN_SEQ_N = 64
 # at ~30x (~8,000 reads of 150 bases a sample), 256 samples (a cut forced
 # by the time limit), 64 of them again on the plain scan
 SW_OPS_PER_CELL = 6
+# the packed form's least: a register holds two cells, which take the
+# prmt of their substitutions from the column's profile, the 16x2 max-adds
+# of up + gap (with the clamp), diag + sub and left + gap, and half a
+# three-way max into the best: 4.5 instructions for two cells
+SW_PACKED_OPS_PER_CELL = 4.5 / 2
 SW_LANES_PER_SM = 4 * 32
 SW_SEED = 10
 SW_TIMED_Q = (8192, 32768)
+SW_SMALL_Q = 1024  # a few reads: the chooser takes more lanes a unit
 WES_N, WES_PLAIN_N, WES_READS, WES_SEED = 256, 64, 8000, 13
 WES_READ_LEN = 150
 WES_WINDOW = ("chr6", 160_605_062, 160_647_661)
@@ -2105,41 +2130,150 @@ def sm_clocks_mhz() -> tuple:
     return now, top
 
 
-def sw_bound_ms(cells: int, sms: int, clock_mhz: int) -> float:
-    """The least time of ``cells`` Smith-Waterman cell updates: SW_OPS_PER_CELL
+def sw_bound_ms(cells: int, sms: int, clock_mhz: int, per_cell: float = SW_OPS_PER_CELL) -> float:
+    """The least time of ``cells`` Smith-Waterman cell updates: ``per_cell``
     instructions each over sms x SW_LANES_PER_SM lanes at the SM clock."""
-    return SW_OPS_PER_CELL * cells / (sms * SW_LANES_PER_SM * clock_mhz * 1e6) * 1e3
+    return per_cell * cells / (sms * SW_LANES_PER_SM * clock_mhz * 1e6) * 1e3
+
+
+def cuobjdump_sass(lib: Path) -> str | None:
+    """``cuobjdump -sass`` of a library, or None where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                             "bin", "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def sass_loops(sass: str, function: str) -> list:
+    """The loops of the one kernel whose mangled name holds ``function`` in
+    a library's SASS (none where no kernel does): for each backward branch,
+    the instructions from its target to it, the shuffles up among them (one
+    a wavefront step) and their opcodes."""
+    body = next((part for part in sass.split("Function : ")[1:]
+                 if function in part.split("\n", 1)[0]), "")
+    code = [(int(addr, 16), text.strip()) for addr, text in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loops = []
+    for addr, text in code:
+        target = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if target and int(target.group(1), 16) <= addr:
+            inside = [t for a, t in code if int(target.group(1), 16) <= a <= addr]
+            ops = Counter(re.sub(r"^@!?U?P[T0-9]+\s+", "", t).split()[0] for t in inside)
+            loops.append({"instructions": len(inside), "shuffles": ops.get("SHFL.UP", 0),
+                          "ops": dict(ops.most_common())})
+    return loops
 
 
 def sw_kernel_phase(dev, card: str) -> dict:
     """Phase 13 (a) and (b): the kernel against its plain version on the
-    card, exactly, on tests/torch_sw_cases.py's cases and the host oracle;
-    then its times at Q = 8,192 and 32,768 beside its bound. Returns the
-    kernels-line fields."""
+    card, exactly, on tests/torch_sw_cases.py's cases (int8, uint8, and
+    int8 reads against uint8 references) and the host oracle, at every lane
+    count its chooser takes on the main path's references in both forms;
+    the launch shapes, which must not spill, and the instructions a cell of
+    the wavefront loops in the SASS; then its times at Q = 8,192 and 32,768
+    beside its bounds, at the chosen shape and form and the others. Returns
+    the kernels-line fields."""
+    from grid_tpu_torch import native
+    from grid_tpu_torch.ops import gpu_align
     from grid_tpu_torch.ops.align import encode_seqs, sw_score_host, sw_scores_plain
     from grid_tpu_torch.ops.gpu_align import sw_scores_gpu, sw_scores_info
     from torch_sw_cases import acgt_pairs, exon_refs, reads_from, sw_cases
 
-    for lr in (182, 700):
-        info = sw_scores_info(lr, dev)
-        print(f"[sw] launch shape at Lr={lr}: {info['mode']} mode, {info['columns_per_lane']} "
-              f"columns a lane, {info['warps_per_block']} pairs (warps) a block, "
-              f"{info['smem_bytes']} B of dynamic shared memory, {info['registers']} registers "
-              f"and {info['spill_bytes']} B of local memory a thread", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    step = gpu_align.STRIP_STEP
+    for g, top in gpu_align.MAX_STRIP.items():  # every instance of the register mode's table
+        for packed in (False, True):
+            infos = {s: gpu_align._info(g * s, g, s, packed, dev)
+                     for s in range(step, top + 1, step)}
+            by_s = " ".join("{}:{}/{}/{}".format(s, i["registers"], i["blocks_per_sm"],
+                                                 i["spill_bytes"]) for s, i in infos.items())
+            print(f"[sw] register mode, {gpu_align.FORMS[packed]} form, G={g}: registers / "
+                  f"blocks an SM / spill bytes by S: {by_s}", flush=True)
+            check(all(i["spill_bytes"] == 0 for i in infos.values()),
+                  f"sw_scores spills to local memory at G={g} ({gpu_align.FORMS[packed]})")
+    lr_main = 182
+    shapes = {}
+    for n_q, lq, lr in ((SW_TIMED_Q[0], WES_READ_LEN, lr_main),
+                        (SW_TIMED_Q[1], WES_READ_LEN, lr_main), (128, WES_READ_LEN, 700)):
+        info = sw_scores_info(n_q, lq, 3, lr, dev)
+        packed = info["form"] == "packed"
+        n_units = gpu_align.units(n_q, 3, packed)
+        blocks = -(-n_units // (info["pairs_per_block"] // (2 if packed else 1)))
+        waves = blocks / (info["blocks_per_sm"] * sms)
+        shapes[n_q] = (info["group_lanes"], info["columns_per_lane"])
+        print(f"[sw] launch shape at Q={n_q}, Lq={lq}, T=3, Lr={lr}: {info['mode']} mode, "
+              f"{info['form']} form, G={info['group_lanes']} lanes a unit ({n_units} units), "
+              f"S={info['columns_per_lane']} columns a lane, {info['pairs_per_block']} pairs a "
+              f"block, {info['smem_bytes']} B of dynamic shared memory, {info['registers']} "
+              f"registers and {info['spill_bytes']} B of local memory a thread, "
+              f"{info['blocks_per_sm']} blocks an SM: {blocks} blocks, {waves:.2f} waves on "
+              f"{sms} SMs", flush=True)
         check(info["spill_bytes"] == 0, f"sw_scores spills to local memory at Lr={lr}")
+    # the instructions a cell: the wavefront loops of the main path's shape in the SASS
+    g_main, s_main = shapes[SW_TIMED_Q[0]]
+    sass = cuobjdump_sass(native.build("sw_scores"))
+    loops = []
+    for g in (8, 16, 32) if sass else ():
+        s = gpu_align.strip(lr_main, g)
+        for kernel, form in (("sw_duo_kernel", "packed"), ("sw_group_kernel", "int32")):
+            for loop in sass_loops(sass, f"{kernel}ILi{g}ELi{s}EE"):
+                if not loop["shuffles"]:
+                    continue  # a wavefront loop has one shuffle a step
+                # the duo kernel's int32 loops score a warp's reads with codes past 4
+                cells = 2 * s if form == "packed" and "PRMT" in loop["ops"] else s
+                per_cell = loop["instructions"] / (cells * loop["shuffles"])
+                kind = "packed" if cells > s else "int32"
+                loops.append({"kernel": kernel, "form": kind, "g": g, "s": s, **loop,
+                              "per_cell": per_cell})
+                print(f"[sw] SASS of {kernel}<{g}, {s}>, its {kind} loop: {loop['instructions']} "
+                      f"instructions, {loop['shuffles']} step(s) of {cells} cells: "
+                      f"{per_cell:.2f} instructions a cell; {loop['ops']}", flush=True)
+    if sass is None:
+        print("[sw] no cuobjdump: the instructions a cell are not measured", flush=True)
+    else:
+        check(any((lp["g"], lp["s"], lp["form"]) == (g_main, s_main, "packed") for lp in loops),
+              f"sw_scores: no packed wavefront loop of G={g_main}, S={s_main} in the SASS")
     # ---- (a) exact equality with the plain scan on the card ----
     err = 0.0
-    for label, q_np, r_np, (match, mismatch, gap) in sw_cases():
+    cases = sw_cases()
+    for label, q_np, r_np, (match, mismatch, gap) in cases:
         q, r = torch.as_tensor(q_np, device=dev), torch.as_tensor(r_np, device=dev)
-        got = sw_scores_gpu(q, r, match=match, mismatch=mismatch, gap=gap)
-        want = sw_scores_plain(q, r, match=match, mismatch=mismatch, gap=gap)
-        torch.cuda.synchronize()
-        err = max(err, max_abs(got, want))
-        check(torch.equal(got, want), f"sw_scores {label}: the kernel differs from the plain "
-                                      f"version on {int((got != want).sum())} pairs")
+        for qt, rt in ((q, r), (q.view(torch.uint8), r.view(torch.uint8)),
+                       (q, r.view(torch.uint8))):
+            want = sw_scores_plain(qt, rt, match=match, mismatch=mismatch, gap=gap)
+            got = sw_scores_gpu(qt, rt, match=match, mismatch=mismatch, gap=gap)
+            torch.cuda.synchronize()
+            err = max(err, max_abs(got, want))
+            check(torch.equal(got, want), f"sw_scores {label} ({qt.dtype} reads, {rt.dtype} "
+                                          f"references): the kernel differs from the plain "
+                                          f"version on {int((got != want).sum())} pairs")
+        g, s, packed = gpu_align._choice(*q.shape, *r.shape, match, mismatch, gap)
+        shape = (f"{gpu_align.FORMS[packed]} form, G={g}, S={s}" if g else "shared mode")
         print(f"[sw] {label}: Q={q.shape[0]} Lq={q.shape[1]} T={r.shape[0]} Lr={r.shape[1]} "
-              f"scores ({match}, {mismatch}, {gap}): kernel == plain exactly (int32; max score "
-              f"{int(want.max())})", flush=True)
+              f"scores ({match}, {mismatch}, {gap}), {shape}: kernel == plain exactly on int8, "
+              f"uint8 and int8 against uint8 (int32; max score {int(want.max())})", flush=True)
+    # every G the chooser may take at Lr=182, in every form the scores allow
+    for label, q_np, r_np, (match, mismatch, gap) in cases:
+        if label not in ("main", "gap+1", "codes-past-4"):
+            continue
+        q, r = torch.as_tensor(q_np, device=dev), torch.as_tensor(r_np, device=dev)
+        want = sw_scores_plain(q, r, match=match, mismatch=mismatch, gap=gap)
+        forms = (False, True) if gpu_align.packed_fits(q.shape[1], match, mismatch, gap) \
+            else (False,)
+        for g in (8, 16, 32):
+            for packed in forms:
+                got = gpu_align._launch(q, r, match, mismatch, gap, g,
+                                        gpu_align.strip(r.shape[1], g), packed)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"sw_scores {label} at G={g} "
+                                              f"({gpu_align.FORMS[packed]}): the kernel differs "
+                                              f"from the plain version")
+        print(f"[sw] {label} at G = 8, 16, 32 (forced), "
+              f"{' and '.join(gpu_align.FORMS[f] for f in forms)}: kernel == plain exactly",
+              flush=True)
     for read, ref in acgt_pairs():
         got = int(sw_scores_gpu(torch.as_tensor(encode_seqs([read]), device=dev),
                                 torch.as_tensor(encode_seqs([ref]), device=dev))[0, 0])
@@ -2147,36 +2281,82 @@ def sw_kernel_phase(dev, card: str) -> dict:
                                                "oracle on an ACGT read")
     print(f"[sw] {len(acgt_pairs())} ACGT reads equal sw_score_host", flush=True)
 
-    # ---- (b) times at the main path's shape ----
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # ---- (b) times at the main path's shape: the chooser's and the others ----
     clock_now, clock_max = sm_clocks_mhz()
     rng = np.random.default_rng(SW_SEED)
     exons = exon_refs(rng)
     refs = torch.as_tensor(encode_seqs(exons), device=dev)
+    lr = refs.shape[1]
     timed = {}
     for n_q in SW_TIMED_Q:
         q = torch.as_tensor(encode_seqs(reads_from(rng, exons, n_q, WES_READ_LEN,
                                                    n_frac=0.002)), device=dev)
-        kernel = lambda q=q: sw_scores_gpu(q, refs)  # noqa: E731
+        chosen = gpu_align._choice(n_q, WES_READ_LEN, 3, lr, 2, -1, -2)
+        want = sw_scores_plain(q, refs)
+        kernels = {chosen: lambda q=q: sw_scores_gpu(q, refs)}
+        for g in (8, 16):
+            for packed in (True, False):
+                shape = (g, gpu_align.strip(lr, g), packed)
+                if shape != chosen:
+                    kernels[shape] = lambda q=q, shape=shape: gpu_align._launch(
+                        q, refs, 2, -1, -2, *shape)
+        for shape, fn in kernels.items():
+            check(torch.equal(fn(), want), f"sw_scores at Q={n_q}, {shape}: differs")
         plain = lambda q=q: sw_scores_plain(q, refs)  # noqa: E731
         reps = 5 if n_q > SW_TIMED_Q[0] else 10
-        p1, k1, k2, p2 = (median_ms(f, reps=r) for f, r in ((plain, reps), (kernel, REPS),
-                                                           (kernel, REPS), (plain, reps)))
-        b2b = min(back_to_back_ms(kernel), back_to_back_ms(kernel))
-        cells = n_q * refs.shape[0] * WES_READ_LEN * refs.shape[1]
-        least = sw_bound_ms(cells, sms, clock_max)
-        timed[n_q] = {"ms": min(k1, k2), "ms_back_to_back": b2b, "plain_ms": min(p1, p2),
-                      "bound_ms": least, "bound_share": least / b2b,
-                      "cells": cells, "gcups": cells / b2b / 1e6}
-        print(f"[sw] times at Q={n_q} Lq={WES_READ_LEN} T={refs.shape[0]} Lr={refs.shape[1]} "
-              f"({cells / 1e9:.3f} G cells): kernel {min(k1, k2):.4f} ms (median of {REPS}), "
-              f"{REPS} back to back {b2b:.4f} ms per call ({cells / b2b / 1e6:.1f} G cell "
-              f"updates/s); plain {min(p1, p2):.3f} ms (median of {reps}, better of two "
-              f"rounds); bound {least:.4f} ms by operations ({SW_OPS_PER_CELL} DPX-fused "
-              f"instructions a cell over {sms} SMs x {SW_LANES_PER_SM} issue lanes at the "
-              f"{clock_max} MHz maximum SM clock; {clock_now} MHz now), "
-              f"{100 * least / b2b:.1f}% of it back to back; library: none; {card}", flush=True)
-    return {"max_abs_err": err, "timed": timed, "clock_mhz": (clock_now, clock_max)}
+        p1 = median_ms(plain, reps=reps)
+        first = {k: (median_ms(fn), back_to_back_ms(fn)) for k, fn in kernels.items()}
+        second = {k: (median_ms(fn), back_to_back_ms(fn)) for k, fn in reversed(kernels.items())}
+        p2 = median_ms(plain, reps=reps)
+        cells = n_q * refs.shape[0] * WES_READ_LEN * lr
+        least_int32 = sw_bound_ms(cells, sms, clock_max)
+        least_packed = sw_bound_ms(cells, sms, clock_max, SW_PACKED_OPS_PER_CELL)
+        by_shape = {}
+        for shape in kernels:
+            g, s, packed = shape
+            ms = min(first[shape][0], second[shape][0])
+            b2b = min(first[shape][1], second[shape][1])
+            least = least_packed if packed else least_int32
+            name = f"{gpu_align.FORMS[packed]}-G{g}xS{s}"
+            by_shape[name] = {"ms": ms, "ms_back_to_back": b2b, "bound_ms": least,
+                              "bound_share": least / b2b, "int32_bound_share": least_int32 / b2b}
+            print(f"[sw] times at Q={n_q} Lq={WES_READ_LEN} T={refs.shape[0]} Lr={lr} "
+                  f"({cells / 1e9:.3f} G cells), {gpu_align.FORMS[packed]} form, G={g}, S={s}"
+                  f"{' (the chooser)' if shape == chosen else ''}: kernel {ms:.4f} ms (median of "
+                  f"{REPS}), {REPS} back to back {b2b:.4f} ms per call "
+                  f"({cells / b2b / 1e6:.1f} G cell updates/s), {100 * least / b2b:.1f}% of its "
+                  f"form's bound" + (f", {100 * least_int32 / b2b:.1f}% of the int32 bound"
+                                     if packed else "") + f"; better of two rounds; {card}",
+                  flush=True)
+        top = by_shape[f"{gpu_align.FORMS[chosen[2]]}-G{chosen[0]}xS{chosen[1]}"]
+        timed[n_q] = {"ms": top["ms"], "ms_back_to_back": top["ms_back_to_back"],
+                      "plain_ms": min(p1, p2), "bound_ms": top["bound_ms"],
+                      "bound_share": top["bound_share"], "int32_bound_ms": least_int32,
+                      "int32_bound_share": top["int32_bound_share"], "cells": cells,
+                      "gcups": cells / top["ms_back_to_back"] / 1e6,
+                      "shape": {"form": gpu_align.FORMS[chosen[2]], "G": chosen[0],
+                                "S": chosen[1]}, "by_shape": by_shape}
+        print(f"[sw] Q={n_q}: plain {min(p1, p2):.3f} ms (median of {reps}, better of two "
+              f"rounds); bounds by operations over {sms} SMs x {SW_LANES_PER_SM} issue lanes at "
+              f"the {clock_max} MHz maximum SM clock ({clock_now} MHz now): the packed form's "
+              f"{least_packed:.4f} ms ({SW_PACKED_OPS_PER_CELL} instructions a cell), the int32 "
+              f"form's {least_int32:.4f} ms ({SW_OPS_PER_CELL} a cell); library: none; {card}",
+              flush=True)
+    # a small launch: where the chooser spreads few units over more lanes
+    q = torch.as_tensor(encode_seqs(reads_from(rng, exons, SW_SMALL_Q, WES_READ_LEN,
+                                               n_frac=0.002)), device=dev)
+    chosen = gpu_align._choice(SW_SMALL_Q, WES_READ_LEN, 3, lr, 2, -1, -2)
+    small = {}
+    for g in (8, 16, 32):
+        shape = (g, gpu_align.strip(lr, g), True)
+        fn = lambda q=q, shape=shape: gpu_align._launch(q, refs, 2, -1, -2, *shape)  # noqa: E731
+        small[f"packed-G{g}xS{shape[1]}"] = min(back_to_back_ms(fn), back_to_back_ms(fn))
+        print(f"[sw] times at Q={SW_SMALL_Q} ({gpu_align.units(SW_SMALL_Q, 3, True)} units), "
+              f"packed form, G={g}, S={shape[1]}{' (the chooser)' if shape == chosen else ''}: "
+              f"{REPS} back to back {small[f'packed-G{g}xS{shape[1]}']:.4f} ms per call; {card}",
+              flush=True)
+    return {"max_abs_err": err, "timed": timed, "clock_mhz": (clock_now, clock_max),
+            "sass": loops, "small_q": small}
 
 
 _BAM_FIXED = np.dtype([("block", "<i4"), ("refid", "<i4"), ("pos", "<i4"), ("l_name", "u1"),
@@ -2818,9 +2998,16 @@ def main() -> int:
     host_phase(host_build_s)
     for name in native.KERNELS:
         native.load(name)
-        for line in native.build(name).with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   ptxas: {line.strip()}")
+        lines = [line.strip() for line in
+                 native.build(name).with_suffix(".log").read_text().splitlines()
+                 if "registers" in line or "spill" in line]
+        if name == "sw_scores":  # one function per instance of its table: phase 13 lists them
+            regs = [int(m) for m in re.findall(r"Used (\d+) registers", "\n".join(lines))]
+            spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", "\n".join(lines)))
+            lines = [f"sw_scores: {len(regs)} functions, {min(regs)}-{max(regs)} registers, "
+                     f"{spills} bytes of spill stores and loads in all"]
+        for line in lines:
+            print(f"[build]   ptxas: {line}")
     info = zprep_gram_info(N, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"[build] zprep_gram at N={N}: {info['blocks']} blocks (upper-triangle tiles of "
@@ -3237,9 +3424,17 @@ def main() -> int:
                  "ms_back_to_back": at_q["ms_back_to_back"], "plain_ms": at_q["plain_ms"],
                  "bound_ms": at_q["bound_ms"], "bound_by": "operations",
                  "bound_share": at_q["bound_share"], "library_ms": None,
-                 "shape": f"Q={SW_TIMED_Q[0]}, Lq={WES_READ_LEN}, T=3, Lr=182",
+                 "int32_bound_ms": at_q["int32_bound_ms"],
+                 "int32_bound_share": at_q["int32_bound_share"],
+                 "shape": f"Q={SW_TIMED_Q[0]}, Lq={WES_READ_LEN}, T=3, Lr=182, "
+                          f"{at_q['shape']['form']} form, G={at_q['shape']['G']}, "
+                          f"S={at_q['shape']['S']}",
                  "sm_clock_mhz_now_max": sw["clock_mhz"],
-                 "by_q": {str(q): v for q, v in sw["timed"].items()}})
+                 "sass_instructions_per_cell": [
+                     {k: lp[k] for k in ("kernel", "form", "g", "s", "instructions", "shuffles")}
+                     | {"per_cell": round(lp["per_cell"], 3)} for lp in sw["sass"]],
+                 "by_q": {str(q): v for q, v in sw["timed"].items()},
+                 f"by_shape_q{SW_SMALL_Q}": sw["small_q"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,10 @@ import torch
 
 from grid_tpu.ops import align as jax_align
 from grid_tpu_torch.ops import align
-from grid_tpu_torch.ops.gpu_align import overflow_free, sw_scores_gpu
+from grid_tpu_torch.ops.gpu_align import (
+    GROUP_LANES, MAX_STRIP, REGISTER_MAX_LR, STRIP_STEP, overflow_free, packed_fits, strip,
+    sw_scores_gpu, sw_shape,
+    units)
 
 SCORES = [(2, -1, -2), (3, -2, -3), (2, -1, 0)]
 
@@ -218,53 +221,147 @@ def _scan_max(u, lane):
     return u
 
 
-def _ref_codes(refs_p, j, lr):
-    """Each pair's reference codes at the lanes' columns ``j`` [1, 32]."""
+def _ref_codes(refs_p, j, lr, mixed=False):
+    """Each unit's raw reference codes at the lanes' columns ``j`` [1,
+    lanes]: the byte, or _NEVER past Lr, for a 4, and (int8 against uint8)
+    for a byte of 128 or more."""
     j = j[0]
     c = np.where(j < lr, refs_p[:, np.minimum(j, lr - 1)], _NEVER)
-    return np.where(c == 4, _NEVER, c)
+    return np.where((c == 4) | (mixed & (c >= 128) & (c != _NEVER)), _NEVER, c)
 
 
-def _emulate_registers(q, r, match, mismatch, gap):
-    """The register mode: one warp per pair (axis 0), lane strips of W
-    columns, the DPX forms, the shuffle-scan carry, the best masked at the
-    end."""
+def _emulate_groups(q, r, match, mismatch, gap, g_lanes, mixed=False):
+    """The register mode's int32 form: G lanes a pair (axis 0 pairs, axis
+    1 lanes), lane g holding the strip of S = strip(Lr, G) columns from g*S;
+    at step t lane g computes row t - g, its left edge the one shuffle from
+    lane g-1 and its diagonal edge that value held a step; code-4 rows and
+    steps outside the read skip the cells; the bases right to left in
+    place, then the left chain, in the DPX forms; columns past Lr kept out
+    of the best only where the scores let them exceed it. ``q`` and ``r``
+    hold raw bytes."""
     n_p, lq = q.shape
     lr = r.shape[1]
-    w = -(-lr // 32)
-    lane = np.arange(32)[None, :]
-    j0 = lane * w
-    rc = [_ref_codes(r, j0 + s, lr) for s in range(w)]
-    h = [np.zeros((n_p, 32), np.int64) for _ in range(w)]
-    colbest = [np.zeros((n_p, 32), np.int64) for _ in range(w)]
-    for i in range(lq):
-        qc = q[:, i:i + 1]
-        diag = _shfl_up(h[w - 1], 1)
-        diag[:, 0] = 0
-        base = [_addmax_relu(h[0], gap, diag + np.where(rc[0] == qc, match, mismatch))]
-        for s in range(1, w):
-            base.append(_addmax_relu(h[s], gap, h[s - 1] + np.where(rc[s] == qc, match,
-                                                                     mismatch)))
-        run = base[0]
-        for s in range(1, w):
-            run = _addmax(run, gap, base[s])
-        u = _scan_max(run - (j0 + w - 1) * gap, lane)
-        left = _shfl_up(u, 1) + (j0 - 1) * gap
-        new = [np.where(lane > 0, _addmax(left, gap, base[0]), base[0])]
-        for s in range(1, w):
-            new.append(_addmax(new[-1], gap, base[s]))
-        keep = qc == 4  # the warp skips the row
-        h = [np.where(keep, old, nh) for old, nh in zip(h, new)]
-        colbest = [np.maximum(cb, hs) for cb, hs in zip(colbest, h)]
-    best = np.zeros((n_p, 32), np.int64)
-    for s in range(w):
-        best = np.maximum(best, np.where(j0 + s < lr, colbest[s], 0))
+    s_cols = strip(lr, g_lanes)
+    assert s_cols <= MAX_STRIP[g_lanes]
+    lane = np.arange(g_lanes)[None, :]
+    j0 = lane * s_cols
+    rc = [_ref_codes(r, j0 + s, lr, mixed) for s in range(s_cols)]
+    valid = np.clip(lr - j0, 0, s_cols) if gap > 0 or mismatch > 0 else s_cols
+    h = [np.zeros((n_p, g_lanes), np.int64) for _ in range(s_cols)]
+    best = np.zeros((n_p, g_lanes), np.int64)
+    last = np.zeros((n_p, g_lanes), np.int64)
+    held = np.zeros((n_p, g_lanes), np.int64)
+    for t in range(lq + g_lanes - 1):
+        i = t - lane
+        qc = np.where((i >= 0) & (i < lq), q[:, np.clip(i, 0, lq - 1)[0]], 4)
+        left = _shfl_up(last, 1)
+        left[:, 0] = 0
+        diag, held = held, left
+        new = list(h)
+        for s in range(s_cols - 1, -1, -1):
+            edge = new[s - 1] if s else diag
+            new[s] = _addmax_relu(new[s], gap, edge + np.where(rc[s] == qc, match, mismatch))
+        for s in range(s_cols):
+            left = _addmax(left, gap, new[s])
+            new[s] = left
+        live = qc != 4
+        h = [np.where(live, nh, old) for old, nh in zip(h, new)]
+        for s in range(s_cols):
+            best = np.where(live & (s < valid), np.maximum(best, h[s]), best)
+        last = h[-1]
     return best.max(axis=1)
 
 
-def _emulate_shared(q, r, match, mismatch, gap):
+_INT16 = 2**15
+
+
+def _in_int16(*xs):
+    for x in xs:
+        assert -_INT16 <= x.min() and x.max() < _INT16, "a packed value left int16"
+    return xs[0] if len(xs) == 1 else xs
+
+
+def _half_sub(profile, qc):
+    """One half of the prmt: byte qc (0-3) of the profile, sign-extended,
+    or -32768 (bytes 0x00 and 0x80 of 0x8000) where the read has a 4."""
+    byte = (profile >> (8 * np.clip(qc, 0, 3))) & 0xFF
+    return np.where(qc == 4, -_INT16, np.where(byte >= 128, byte - 256, byte))
+
+
+def _emulate_packed(q, r, match, mismatch, gap, g_lanes, mixed=False):
+    """The packed form: a unit is reads 2k and 2k+1 (an odd Q's last read
+    twice) against one reference, one in each 16-bit half; each column's
+    profile holds its substitution for read codes 0-3 a byte each; a half
+    whose read has a 4 takes -32768 as its substitution and 0 as its up
+    gap, and must come out unchanged (its left chain keeps the usual gap:
+    every row has H[j] >= H[j-1] + gap); every value
+    stays inside int16 (asserted); the best counts the padded columns. A
+    warp (32/G units) with a read code past 4 scores its reads in the int32
+    form. ``q`` [Q, Lq] and ``r`` [T, Lr] hold raw bytes; returns [Q, T]."""
+    n_q, lq = q.shape
+    n_t, lr = r.shape
+    duo = np.arange(units(n_q, n_t, True))
+    qa, qb, ti = 2 * (duo // n_t), np.minimum(2 * (duo // n_t) + 1, n_q - 1), duo % n_t
+    warp = duo // (32 // g_lanes)
+    past4 = (q[qa] > 4).any(axis=1) | (q[qb] > 4).any(axis=1)
+    generic = np.isin(warp, warp[past4])
+    s_cols = strip(lr, g_lanes)
+    lane = np.arange(g_lanes)[None, :]
+    j0 = lane * s_cols
+    profile = []
+    for s in range(s_cols):
+        rc = _ref_codes(r[ti], j0 + s, lr, mixed)
+        profile.append(sum((np.where(rc == c, match, mismatch) & 0xFF) << (8 * c)
+                           for c in range(4)))
+    halves = {"a": qa, "b": qb}
+    h = {x: [np.zeros((len(duo), g_lanes), np.int64) for _ in range(s_cols)] for x in halves}
+    best = {x: np.zeros((len(duo), g_lanes), np.int64) for x in halves}
+    last = {x: np.zeros((len(duo), g_lanes), np.int64) for x in halves}
+    held = {x: np.zeros((len(duo), g_lanes), np.int64) for x in halves}
+    for t in range(lq + g_lanes - 1):
+        i = t - lane
+        inside = (i >= 0) & (i < lq)
+        code = {x: np.where(inside, q[rows][:, np.clip(i, 0, lq - 1)[0]], 4)
+                for x, rows in halves.items()}
+        moves = (code["a"] != 4) | (code["b"] != 4)
+        for x in halves:
+            qc = code[x]
+            left = _shfl_up(last[x], 1)
+            left[:, 0] = 0
+            diag, held[x] = held[x], left
+            gap_up = np.where(qc == 4, 0, gap)
+            new = list(h[x])
+            for s in range(s_cols - 1, -1, -1):
+                edge = new[s - 1] if s else diag
+                up = _in_int16(np.maximum(new[s] + gap_up, 0))
+                new[s] = np.maximum(_in_int16(edge + _half_sub(profile[s], qc)), up)
+            for s in range(s_cols):
+                left = np.maximum(_in_int16(left + gap), new[s])
+                new[s] = left
+            h[x] = [np.where(moves, nh, old) for old, nh in zip(h[x], new)]
+            for s in range(s_cols):
+                best[x] = np.maximum(best[x], h[x][s])
+            last[x] = h[x][-1]
+    out = np.zeros((n_q, n_t), np.int64)
+    out[qa, ti] = best["a"].max(axis=1)
+    out[qb, ti] = np.where(qb != qa, best["b"].max(axis=1), out[qb, ti])
+    if generic.any():  # those warps' units in the int32 form, read by read
+        for rows in (qa, qb):
+            out[rows[generic], ti[generic]] = _emulate_groups(
+                q[rows[generic]], r[ti[generic]], match, mismatch, gap, g_lanes, mixed)
+    return out
+
+
+def _group_choices(lr):
+    """Every G the chooser returns for references of ``lr`` codes, over
+    unit counts from 1 to 2^24."""
+    return sorted({sw_shape(lr, 2**e)[0] for e in range(25)})
+
+
+def _emulate_shared(q, r, match, mismatch, gap, mixed=False):
     """The shared-memory mode: the row in memory, walked in chunks of 32
-    columns, one a lane, with a carry between chunks."""
+    columns, one a lane, with a carry between chunks; read bytes compared
+    raw with :func:`_ref_codes`, as in the register mode."""
     n_p, lq = q.shape
     lr = r.shape[1]
     lane = np.arange(32)[None, :]
@@ -283,7 +380,7 @@ def _emulate_shared(q, r, match, mismatch, gap):
             diag = _shfl_up(up, 1)
             diag[:, :1] = edge
             edge = up[:, 31:32]
-            sub = np.where(_ref_codes(r, j, lr) == qc, match, mismatch)
+            sub = np.where(_ref_codes(r, j, lr, mixed) == qc, match, mismatch)
             u = _scan_max(_addmax_relu(up, gap, diag + sub) - j * gap, lane)
             if c > 0:
                 u = np.maximum(u, carry)
@@ -309,13 +406,23 @@ KERNEL_CASES = {
 }
 
 
+def _lanes_of(case):
+    """The register mode's G choices for a case, or 0 for the shared mode."""
+    lr = max(KERNEL_CASES[case][2])
+    return _group_choices(lr) if lr <= REGISTER_MAX_LR else [0]
+
+
 @pytest.mark.parametrize("scores", SCORES + [(2, -1, 1)],
                          ids=["2,-1,-2", "3,-2,-3", "gap0", "gap+1"])
-@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
-def test_sw_kernel_arithmetic(case, scores):
-    """Lane strips, the shuffle-scan carry, the shared-memory chunks and the
-    DPX forms written out give the plain version's integers (and grid_tpu's
-    on two score sets), also for a positive gap."""
+@pytest.mark.parametrize("case,lanes", [(c, g) for c in sorted(KERNEL_CASES)
+                                        for g in _lanes_of(c)],
+                         ids=lambda v: f"g{v}" if isinstance(v, int) else v)
+def test_sw_kernel_arithmetic(case, lanes, scores):
+    """Lane groups on the row wavefront (each G the chooser returns at the
+    case's Lr) in the int32 form and, where the scores fit it, the packed
+    form, the shared-memory chunks and the DPX forms written out give the
+    plain version's integers (and grid_tpu's on two score sets), also for a
+    positive gap."""
     n_reads, read_len, ref_lens, n_frac = KERNEL_CASES[case]
     rng = np.random.default_rng(sum(ref_lens) + read_len)
     reads, refs = _reads_and_refs(rng, n_reads, read_len, ref_lens, n_frac=n_frac)
@@ -325,23 +432,135 @@ def test_sw_kernel_arithmetic(case, scores):
     n_q, n_t = want.shape
     qp = np.repeat(q.astype(np.int64), n_t, axis=0)
     rp = np.tile(r.astype(np.int64), (n_q, 1))
-    emulate = _emulate_registers if r.shape[1] <= 512 else _emulate_shared
-    got = emulate(qp, rp, *scores).reshape(n_q, n_t)
-    np.testing.assert_array_equal(got, want)
+    if lanes:
+        np.testing.assert_array_equal(_emulate_groups(qp, rp, *scores, lanes).reshape(n_q, n_t),
+                                      want)
+        if packed_fits(q.shape[1], *scores):
+            raw = q.astype(np.int64) & 0xFF, r.astype(np.int64) & 0xFF
+            np.testing.assert_array_equal(_emulate_packed(*raw, *scores, lanes), want)
+    else:
+        np.testing.assert_array_equal(_emulate_shared(qp, rp, *scores).reshape(n_q, n_t), want)
     if r.shape[1] <= 700 and scores[:2] == (2, -1) and scores[2] in (-2, 1):
         np.testing.assert_array_equal(want, _jax_scores(q, r, *scores))
 
 
 def test_shared_mode_emulation_equals_register_mode():
     """Both modes compute the same row: at Lr=200 (a register-mode width)
-    the shared mode's chunks give the register mode's integers."""
+    the shared mode's chunks give the lane groups' integers at each G the
+    chooser returns there."""
     rng = np.random.default_rng(12)
     reads, refs = _reads_and_refs(rng, 6, 70, (200, 150), n_frac=0.05)
     q, r = align.encode_seqs(reads), align.encode_seqs(refs)
     qp = np.repeat(q.astype(np.int64), 2, axis=0)
     rp = np.tile(r.astype(np.int64), (6, 1))
-    np.testing.assert_array_equal(_emulate_shared(qp, rp, 2, -1, -2),
-                                  _emulate_registers(qp, rp, 2, -1, -2))
+    shared = _emulate_shared(qp, rp, 2, -1, -2)
+    for lanes in _group_choices(200):
+        np.testing.assert_array_equal(shared, _emulate_groups(qp, rp, 2, -1, -2, lanes))
+
+
+def test_sw_shape_stays_in_the_template_table():
+    """For every Lr of the register mode and unit counts from 1 to 2^24:
+    G divides 32, S is ceil(Lr/G) rounded up to the table's step (G*S >=
+    Lr, less than a step of columns a lane wasted) and the kernel's table
+    holds (G, S); more units never ask for more lanes."""
+    for lr in range(1, REGISTER_MAX_LR + 1):
+        before = 32
+        for n in [2**e for e in range(25)] + [3, 100, 24_576, 1_000_003]:
+            g, s = sw_shape(lr, n)
+            assert g in GROUP_LANES and 32 % g == 0
+            assert g * s >= lr > g * (s - STRIP_STEP)
+            assert s % STRIP_STEP == 0 and STRIP_STEP <= s <= MAX_STRIP[g]
+            if n == 2**int(np.log2(n)) and n > 1:
+                assert g <= before
+                before = g
+    assert max(g * s for g, s in MAX_STRIP.items()) == REGISTER_MAX_LR
+    # the WES main path: 8,192 reads of 150 on three exons, packed
+    assert packed_fits(150, 2, -1, -2) and units(8192, 3, True) == 12_288
+    assert sw_shape(182, 12_288) == (8, 24)
+
+
+@pytest.mark.parametrize("lq,scores,fits", [
+    (150, (2, -1, -2), True), (150, (3, -2, -3), True), (150, (2, -1, 0), True),
+    (150, (2, -1, 1), False),            # a positive gap: the padding must be masked
+    (150, (2, 1, -2), False),            # a positive mismatch: likewise
+    (150, (128, -1, -2), False),         # match past a byte
+    (150, (2, -129, -2), False),         # mismatch past a byte
+    (150, (2, -1, -16385), False),       # up + gap could leave int16
+    (150, (2, -1, -16384), True),
+    (16382, (2, -1, -2), True),          # (Lq + 1) * match = 32,766
+    (16383, (2, -1, -2), False),         # 32,768
+    (10**6, (0, -1, -2), True),          # no score above 0
+])
+def test_packed_fits(lq, scores, fits):
+    assert packed_fits(lq, *scores) is fits
+
+
+@pytest.mark.parametrize("lanes", GROUP_LANES)
+@pytest.mark.parametrize("mixed", [False, True], ids=["same-type", "int8-uint8"])
+def test_sw_kernel_arithmetic_raw_codes(lanes, mixed):
+    """Codes past 4 (none from encode_seqs) match themselves: in the int32
+    form, and in the packed form, whose warps holding such a read score in
+    the int32 form while the others stay packed. With int8 reads against a
+    uint8 reference, bytes of 128 or more equal no read code."""
+    rng = np.random.default_rng(lanes)
+    alphabet = np.array([0, 1, 2, 3, 4, 5, 6, -56, -6], np.int8)
+    q = alphabet[rng.integers(0, 9, (41, 30))]
+    q[:20] = np.where(q[:20] > 4, 2, q[:20])  # the first warps' reads of codes 0-4
+    q[:20][q[:20] < 0] = 1
+    r = alphabet[rng.integers(0, 9, (2, 4 * lanes - 3))]
+    refs = torch.as_tensor(r.view(np.uint8) if mixed else r)
+    want = align.sw_scores_plain(torch.as_tensor(q), refs).numpy()
+    raw = q.astype(np.int64) & 0xFF, r.astype(np.int64) & 0xFF
+    qp, rp = np.repeat(raw[0], 2, axis=0), np.tile(raw[1], (41, 1))
+    np.testing.assert_array_equal(
+        _emulate_groups(qp, rp, 2, -1, -2, lanes, mixed).reshape(41, 2), want)
+    np.testing.assert_array_equal(_emulate_packed(*raw, 2, -1, -2, lanes, mixed), want)
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["same-type", "int8-uint8"])
+def test_shared_mode_arithmetic_raw_codes(mixed):
+    """The shared mode compares raw bytes by the register mode's rule:
+    codes past 4 match themselves, and int8 reads against a uint8
+    reference match no byte of 128 or more."""
+    rng = np.random.default_rng(7)
+    alphabet = np.array([0, 1, 2, 3, 4, 5, 6, -56, -6], np.int8)
+    q, r = alphabet[rng.integers(0, 9, (9, 30))], alphabet[rng.integers(0, 9, (2, 70))]
+    refs = torch.as_tensor(r.view(np.uint8) if mixed else r)
+    want = align.sw_scores_plain(torch.as_tensor(q), refs).numpy()
+    raw = q.astype(np.int64) & 0xFF, r.astype(np.int64) & 0xFF
+    qp, rp = np.repeat(raw[0], 2, axis=0), np.tile(raw[1], (9, 1))
+    np.testing.assert_array_equal(
+        _emulate_shared(qp, rp, 2, -1, -2, mixed).reshape(9, 2), want)
+
+
+@pytest.mark.parametrize("main_q", [2048, 8192])
+def test_card_cases_reach_every_choice(main_q):
+    """tests/torch_sw_cases.py's cases (the card's: tests/test_torch_gpu.py
+    takes them with 2,048 main reads, chip_smoke.py phase 13 with 8,192)
+    launch every G of the register mode in both forms, the int32 form with
+    padding, masked (a positive gap) and not, the packed form with padding,
+    a packed launch with a read code past 4, an odd read count in the
+    packed form, and the shared mode."""
+    from torch_sw_cases import sw_cases
+
+    seen = set()
+    for _, q, r, (match, mismatch, gap) in sw_cases(main_q=main_q):
+        (n_q, lq), (n_t, lr) = q.shape, r.shape
+        if lr > REGISTER_MAX_LR:
+            seen.add("shared")
+            continue
+        packed = packed_fits(lq, match, mismatch, gap)
+        g, s = sw_shape(lr, units(n_q, n_t, packed))
+        seen.add((g, "packed" if packed else "int32"))
+        if g * s > lr:
+            seen.add("packed padding" if packed else
+                     "masked padding" if gap > 0 or mismatch > 0 else "int32 padding")
+        if packed and n_q % 2:
+            seen.add("odd Q")
+        if packed and (q.view(np.uint8) > 4).any():
+            seen.add("past 4")
+    assert seen == {*((g, f) for g in GROUP_LANES for f in ("int32", "packed")), "shared",
+                    "packed padding", "masked padding", "int32 padding", "odd Q", "past 4"}
 
 
 def test_classify_from_threads_counts_no_launch_on_cpu():

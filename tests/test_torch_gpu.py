@@ -23,6 +23,8 @@ mode bitwise. The Smith-Waterman kernel equals its plain scan exactly
 run's files byte for byte.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -541,17 +543,27 @@ def test_wgs_from_bam_on_card_matches_the_cpu_run(cuda, tmp_path, fused):
 
 # ---- the Smith-Waterman kernel (csrc/sw_scores.cu) --------------------------
 
-def _sw_case(label):
+@functools.cache
+def _sw_cases():
     from torch_sw_cases import sw_cases
 
-    return next(case for case in sw_cases(main_q=2048) if case[0] == label)
+    return {case[0]: case for case in sw_cases(main_q=2048)}
+
+
+def _sw_case(label):
+    return _sw_cases()[label]
 
 
 @pytest.mark.parametrize("label", ["main", "q1-lq1", "pad-and-n", "lr-45-97", "lr-700-shared",
-                                   "lq-gt-lr", "scores-3-2-3", "gap-0", "forced-ties"])
+                                   "lq-gt-lr", "scores-3-2-3", "gap-0", "forced-ties",
+                                   "lr-255", "lr-256", "lr-257", "lr-511", "lr-512", "lr-513",
+                                   "lr-3-lt-g", "units-ragged", "gap+1", "scores-300",
+                                   "codes-past-4"])
 def test_sw_scores_kernel_against_its_plain_version(cuda, label):
     """Exact int32 equality with the plain scan on the card, in both
-    modes, for int8 and uint8 inputs; one launch a call."""
+    modes, at every G of the register mode's lane groups in both its forms,
+    for int8, uint8 and int8 reads against uint8 references; one launch a
+    call."""
     from grid_tpu_torch.ops.align import sw_scores_plain
     from grid_tpu_torch.ops.gpu_align import sw_scores_gpu
 
@@ -565,6 +577,9 @@ def test_sw_scores_kernel_against_its_plain_version(cuda, label):
     as_u8 = sw_scores_gpu(q.view(torch.uint8), r.view(torch.uint8), match=match,
                           mismatch=mismatch, gap=gap)
     assert torch.equal(as_u8, want)
+    mixed = sw_scores_gpu(q, r.view(torch.uint8), match=match, mismatch=mismatch, gap=gap)
+    assert torch.equal(mixed, sw_scores_plain(q, r.view(torch.uint8), match=match,
+                                              mismatch=mismatch, gap=gap))
 
 
 def test_sw_scores_kernel_equals_the_host_oracle_on_acgt(cuda):

@@ -44,11 +44,25 @@ def reads_from(rng, refs: list, n: int, read_len: int, n_frac: float = 0.0,
     return reads
 
 
+# the register mode's edges: Lr = G*S at the longest strip of the lanes the
+# chooser takes for many units (G=8 to 256 columns, 16 to 512; past 512 the
+# shared mode), with reads enough for that G in either form (a packed unit
+# is two reads); the first of each three in the int32 form (a positive gap,
+# so its padded column is masked), the others packed
+EDGES = {256: 4400, 512: 2200}
+
+
 def sw_cases(seed: int = 0, main_q: int = 8192) -> list:
     """The card's cases: the main path's shape (``main_q`` reads of 150 on
     exons of 160/182/182), Q=1 with Lq=1, all-pad reads and reads with N,
     Lr not a multiple of 32, Lr=700 (the shared-memory mode), Lq > Lr,
-    scores (3, -2, -3) and gap 0, and forced ties between two references."""
+    scores (3, -2, -3) and gap 0, and forced ties between two references.
+    Then the lane groups' edges: Lr = G*S - 1, G*S and G*S + 1 where the
+    chooser changes G, Lr below G, a unit count that leaves a block and a
+    warp part empty (an odd read count in the packed form), a positive gap
+    (the int32 form keeps the padded columns out of the best), scores past
+    a byte (the int32 form) and reads with codes past 4, some int8 against
+    uint8 (the packed form's warps holding them score in the int32 form)."""
     from grid_tpu_torch.ops.align import encode_seqs
 
     rng = np.random.default_rng(seed)
@@ -75,6 +89,25 @@ def sw_cases(seed: int = 0, main_q: int = 8192) -> list:
     twins = encode_seqs([exons[1], exons[1], exons[0]])  # two identical references
     cases.append(("forced-ties", encode_seqs(reads_from(rng, [exons[1]], 256, 120)), twins,
                   (2, -1, -2)))
+    for edge, n_reads in EDGES.items():
+        for lr in (edge - 1, edge, edge + 1):
+            seqs = [random_bases(rng, lr), random_bases(rng, lr - 20)]
+            reads = encode_seqs(reads_from(rng, seqs, n_reads, 60, n_frac=0.01))
+            reads[5] = 4  # a read of all 4s
+            cases.append((f"lr-{lr}", reads, encode_seqs(seqs),
+                          (2, -1, 1) if lr == edge - 1 else (2, -1, -2)))
+    tiny = [random_bases(rng, 3), "AC", random_bases(rng, 3)]
+    cases.append(("lr-3-lt-g", encode_seqs(reads_from(rng, tiny, 3000, 8, n_frac=0.02)),
+                  encode_seqs(tiny), (2, -1, -2)))
+    cases.append(("units-ragged", encode_seqs(reads_from(rng, exons, 1001, 150, n_frac=0.01)),
+                  refs, (2, -1, -2)))
+    cases.append(("gap+1", mid, refs, (2, -1, 1)))
+    cases.append(("scores-300", mid, refs, (300, -100, -150)))
+    alphabet = np.array([0, 1, 2, 3, 4, 5, 6, 200, 250], np.uint8)
+    raw = alphabet[rng.integers(0, 9, (600, 120))]
+    raw[:300] = np.where(raw[:300] > 4, 2, raw[:300])  # the first warps' reads of codes 0-4
+    cases.append(("codes-past-4", raw.view(np.int8),
+                  alphabet[rng.integers(0, 9, (3, 170))].view(np.int8), (2, -1, -2)))
     return cases
 
 
