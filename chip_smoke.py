@@ -231,6 +231,31 @@ before the last line):
              plain scan's on the card byte for byte, and all three later
              artifacts are written; prints the spans, the host share and one
              sample's time by part.
+14. ibs    — compute_ibs: the engine, the pipeline with a phased panel (on
+             phase 9's cohort) and the alignment tools.
+15. ring   — the sharded step (``grid_tpu_torch.parallel``) on W spawned
+             ranks of the one card (``ring_phase``, run after phase 8; (d)
+             inside phase 9). (a) ``sharded_cohort_step`` at phase 8's
+             N=16,384, R=1024, k=500, n_nbr=300 over 2 and 4 ranks (gloo:
+             the ranks share the card); (b) the same over 1 rank, through
+             NCCL (one card has room for no second NCCL rank). Each must log
+             its transport, each rank must have launched the column
+             statistics twice, the split once and the Gram kernel's cross
+             mode W times, and the step is held to phase 8's flat step: z and
+             the column statistics within 1e-5 of their largest entry,
+             region_used equal, the neighbor lists and dipCN under the tie
+             rule. The cross mode at W=2 and 4 against its plain version
+             (1e-5) and bitwise against zprep_gram_panel's entries for the
+             same rows, and timed per [B, B] block beside torch.mm (TF32 off)
+             with its bound. (c) N=65,536, R=1024 over 4 ranks: the call's
+             host time, each rank's step, spans and peak device memory, and
+             the lists and dipCN held to phase 7's flat step; the cross mode
+             timed at B=16,384. (d) ``run_wgs_pipeline`` on phase 9's cohort
+             with ``device: {fused: true, mesh_shape: [4], dispatch: ring}``:
+             2 column statistics, 1 split and 4 cross launches per rank, and
+             the four artifacts held to card run 1's under phase 9's rules.
+             Times from W ranks on one card say nothing of scaling across
+             cards.
 
 The last three lines are the kernels' JSON object (the panel-mode numbers
 at N=65,536; each entry's "slice_2504" holds phase 5's, "pipeline_2504"
@@ -239,8 +264,11 @@ phase 10's, "multilocus_2504" those of phase 11's sweep and "alignments_2504"
 those of phase 12's fused call from BAMs and, under "files", its file-mode
 call; the multi-weight
 form's row has the sweep's launches and its times at L=492; the
-Smith-Waterman row phase 13's, its launches those of the ``wes`` call), the
-card's name and power limit, and {"ok": true, "device": {...}}.
+Smith-Waterman row phase 13's, its launches those of the ``wes`` call; the
+column statistics' and Gram rows' "ring" entries phase 15's launches per
+rank and of its pipeline call, and a row of its own for the Gram kernel's
+cross mode, its launches those of phase 15 (a)'s four ranks), the card's
+name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -249,6 +277,7 @@ import copy
 import ctypes
 import gzip
 import json
+import math
 import os
 import re
 import shutil
@@ -549,9 +578,10 @@ def plain_panel_route(values_np, mask_np, reads_np, reads_valid_np, params, dev)
             "nbr_sq_dists": cat[0], "nbr_idx": cat[1], "dipcn": cat[2], "dipcn_valid": cat[3]}
 
 
-def panel_phase(dev, card: str, wrappers: dict) -> dict:
+def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     """Phase 7: the row-panel branch at N=65,536. Returns, per kernel, its
-    JSON fields at the panel shapes."""
+    JSON fields at the panel shapes, the prepared z (phase 11) and the
+    cohort with the step's outputs (phase 15)."""
     from types import SimpleNamespace
 
     from grid_tpu_torch.synth import make_matrix
@@ -768,11 +798,17 @@ def panel_phase(dev, card: str, wrappers: dict) -> dict:
     zp = prepare_z(z, zmask, ZMAX, region)  # phase 11's geometry at this N
     del out, split, plain_split, inputs, z, zmask
     torch.cuda.empty_cache()
-    return rows, zp
+    # phase 15 (c) runs the ring on this cohort and holds it to this step
+    cohort = SimpleNamespace(values=values_np, mask=mask_np, reads=reads_np, flat=got)
+    return rows, zp, cohort
 
 
-def branch_phase(dev, card: str) -> None:
-    """Phase 8: the resident and the panel branch on one N=16,384 cohort."""
+def branch_phase(dev, card: str):
+    """Phase 8: the resident and the panel branch on one N=16,384 cohort.
+    Returns the cohort and the resident (flat) step's outputs, which phase
+    15 holds the ring to."""
+    from types import SimpleNamespace
+
     from grid_tpu_torch.synth import make_matrix
     from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
@@ -798,6 +834,190 @@ def branch_phase(dev, card: str) -> None:
           f"{', '.join(f'{x:.1f}' for x in t)}); {card}", flush=True)
     del inputs
     torch.cuda.empty_cache()
+    return SimpleNamespace(values=values_np, mask=mask_np, reads=reads_np,
+                           flat=outs["resident"])
+
+
+RING_WORLDS = (1, 2, 4)  # 1: NCCL (one rank per card); 2 and 4: gloo, sharing the card
+RING_BIOBANK_WORLD = 4
+RING_LAUNCHES = {"masked_column_stats": 2, "zprep_split": 1}  # per rank; W cross launches
+
+
+def ring_run(label: str, world: int, cohort, params, card: str) -> tuple:
+    """One ``sharded_cohort_step`` over ``world`` ranks of the card on
+    ``cohort``, its launches checked rank by rank. Returns the unpadded
+    outputs (numpy), the ranks' reports and the call's host seconds."""
+    from grid_tpu_torch.convert import outputs_to_numpy
+    from grid_tpu_torch.parallel import sharded_cohort_step
+    from grid_tpu_torch.parallel.mesh import COUNTED, choose_transport
+    from grid_tpu_torch.parallel.pcohort import ROW_FIELDS
+
+    n = cohort.values.shape[0]
+    hap = ring_neighbors(n)
+    for fn in COUNTED.values():
+        fn.launches = 0
+    console, reports = Recorder(), []
+    t0 = time.perf_counter()
+    out = sharded_cohort_step(world, cohort.values, cohort.mask, cohort.reads, np.ones(n, bool),
+                              *hap, params, console=console, reports=reports)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTED.items()}
+    transport = choose_transport(world, "cuda")
+    said = [msg for msg, _ in console.lines if msg.startswith("sharded step:")]
+    check(said == [f"sharded step: {world} rank(s) on 1 card(s), transport {transport}"],
+          f"ring {label}: transport line {said}")
+    want = {name: 0 for name in COUNTED} | RING_LAUNCHES | {"zprep_gram_cross": world}
+    for rank, rep in enumerate(reports):
+        got = {name: rep[name] for name in COUNTED}
+        check(got == want, f"ring {label}: rank {rank} launched {got}, expected {want}")
+    check(launches == {name: world * count for name, count in want.items()},
+          f"ring {label}: the parent's counts {launches}")
+    got = outputs_to_numpy(out)
+    got = got._replace(**{name: getattr(got, name)[:n] for name in ROW_FIELDS})
+    check(got.nbr_idx.shape == (n, params.num_neighbors), f"ring {label}: nbr_idx shape")
+    check(np.isfinite(got.dipcn[got.dipcn_valid]).all(), f"ring {label}: non-finite dipCN")
+    spans = {key: statistics.mean(rep[key] for rep in reports)
+             for key in reports[0] if key.startswith("sharded.")}
+    print(f"[ring] {label}: sharded_cohort_step over {world} rank(s), transport {transport}: "
+          f"{wall:.2f} s for the call (host clock: spawn, the ranks' start on the card, the "
+          f"step and the copies), {statistics.mean(rep['seconds'] for rep in reports):.3f} s "
+          f"for the step in the ranks (mean; "
+          + ", ".join(f"{key} {sec:.3f} s" for key, sec in spans.items())
+          + f"); the ring {spans['sharded.ring'] / world * 1e3:.1f} ms per step (host clock, "
+          f"mean of the ranks; {world} rank(s) on one card); peak device memory per "
+          f"rank {', '.join('%.3f' % (rep['peak_bytes'] / 2**30) for rep in reports)} GiB; "
+          f"launches per rank {want}; {card}", flush=True)
+    return got, reports, wall
+
+
+def ring_phase(dev, card: str, cohort_16384, cohort_65536, zp_65536) -> dict:
+    """Phase 15 (a-c): the sharded step on W ranks of the one card. (a) At
+    phase 8's N=16,384 (the crossover) over 2 and 4 gloo ranks, held to
+    phase 8's flat step: z and the column statistics within 1e-5 of their
+    largest entry, region_used equal, the neighbor lists and dipCN under
+    the tie rule; the cross mode against its plain version and bitwise
+    against zprep_gram_panel's entries, and timed per [B, B] block. (b) W=1
+    through NCCL, held to the same. (c) N=65,536 over 4 ranks, held to
+    phase 7's flat step, with each rank's peak memory. Returns the zprep_gram
+    and masked_column_stats rows' ring entries for the JSON line."""
+    from grid_tpu_torch.models.cohort import CohortParams
+    from grid_tpu_torch.ops.gpu_kernels import (
+        zprep_gram_cross, zprep_gram_cross_plain, zprep_gram_panel, zprep_split,
+        zprep_split_plain,
+    )
+    from grid_tpu_torch.ops.knn import prepare_z
+    from torch_parity import assert_close_to_max
+
+    t_phase = time.perf_counter()
+    params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
+    flat = cohort_16384.flat
+    n, r = cohort_16384.values.shape
+    usable = flat.z_mask.any(axis=1)
+    runs = {}
+    for world in RING_WORLDS:
+        label = f"N={n} R={r} k={K}, W={world}"
+        got, reports, wall = ring_run(label, world, cohort_16384, params, card)
+        z_err = assert_close_to_max(got.z, flat.z, 1e-5)
+        stat_err = max(assert_close_to_max(got.col_means, flat.col_means, 1e-5),
+                       assert_close_to_max(got.col_vars, flat.col_vars, 1e-5))
+        check(np.array_equal(got.region_used, flat.region_used), f"ring {label}: region_used")
+        summary = check_against(got, flat, usable, N_NBR, f"ring {label} vs the flat step")
+        print(f"[ring] {label} vs phase 8's flat step: z within 1e-5 of max|z| (max abs err "
+              f"{z_err:.3e}), column means and variances within 1e-5 (max abs err "
+              f"{stat_err:.3e}), region_used equal; {summary}", flush=True)
+        runs[world] = (got, reports, wall)
+
+    # ---- the cross mode at the ring's shapes, in this process ------------
+    got4 = runs[4][0]
+    zt = torch.tensor(got4.z, device=dev)
+    zp = prepare_z(zt, torch.tensor(got4.z_mask, device=dev), ZMAX,
+                   torch.tensor(got4.region_used, device=dev))
+    whole = zprep_split(zp, None, None, math.inf)
+    rows = {}
+    for world in (2, 4):
+        b = n // world
+        blocks = [zprep_split(zp[i * b:(i + 1) * b].contiguous(), None, None, math.inf)
+                  for i in range(world)]
+        plain = [zprep_split_plain(zp[i * b:(i + 1) * b], None, None, math.inf)
+                 for i in range(world)]
+        err = 0.0
+        for a in range(world):
+            panel = zprep_gram_panel(whole, a * b, b)
+            for o in range(world):
+                g = zprep_gram_cross(blocks[a], blocks[o], a * b, o * b)
+                check(torch.equal(g, panel[:, o * b:(o + 1) * b]),
+                      f"zprep_gram_cross W={world} ({a}, {o}): not bitwise the panel's entries")
+                err = max(err, assert_close_to_max(
+                    g.cpu(), zprep_gram_cross_plain(plain[a], plain[o]).cpu(), 1e-5))
+            del panel
+        rows[world] = (b, blocks, plain, err)
+        print(f"[ring] zprep_gram_cross at W={world}, B={b}: all {world * world} blocks bitwise "
+              f"equal to zprep_gram_panel's entries for the same rows (own blocks with the "
+              f"mirrored diagonal tiles), within 1e-5 of P_a P_b^T (max abs err {err:.3e}); "
+              f"{card}", flush=True)
+    del whole
+
+    def time_cross(b, blocks, plain, label):
+        """The cross mode per [B, B] block, off the diagonal and on it,
+        beside its plain version and torch.mm (TF32 off)."""
+        off = lambda: zprep_gram_cross(blocks[0], blocks[1], 0, b)  # noqa: E731
+        own = lambda: zprep_gram_cross(blocks[0], blocks[0], 0, 0)  # noqa: E731
+        pl = lambda: zprep_gram_cross_plain(plain[0], plain[1])  # noqa: E731
+        pa, pb = plain[0].p, plain[1].p
+        lib = lambda: torch.mm(pa, pb.T)  # noqa: E731  a yardstick the port never calls
+        t = {name: [] for name in ("plain", "kernel", "own", "library")}
+        for name in ("plain", "kernel", "own", "library", "library", "own", "kernel", "plain"):
+            fn = {"plain": pl, "kernel": off, "own": own, "library": lib}[name]
+            t[name].append(back_to_back_ms(fn, reps=10, warmup=2))
+        best = {name: min(v) for name, v in t.items()}
+        least, by = bound_ms(2 * b * r * 4 + b * b * 4, 2 * b * b * r)
+        print(f"[times] zprep_gram_cross [{b}, {b}] x R={r} ({label}): kernel "
+              f"{best['kernel']:.4f} ms off the diagonal, {best['own']:.4f} ms for a rank's "
+              f"own block (with the mirrored tiles), plain {best['plain']:.4f} ms, torch.mm "
+              f"(TF32 off) {best['library']:.4f} ms (10 back to back, better of two rounds in "
+              f"turns); bound {least:.4f} ms by {by}, {100 * least / best['kernel']:.1f}% of it; "
+              f"{2 * b * b * r / best['kernel'] / 1e9:.1f} TFLOP/s as 2*B^2*R; {card}",
+              flush=True)
+        return {"ms": best["kernel"], "own_block_ms": best["own"], "plain_ms": best["plain"],
+                "library_ms": best["library"], "bound_ms": least, "bound_by": by,
+                "shape": f"[{b}, {b}] x R={r}"}
+
+    b4, blocks4, plain4, err4 = rows[4]
+    cross_16384 = time_cross(b4, blocks4, plain4, f"N={n}, W=4")
+    del rows, blocks4, plain4, zp, zt
+    torch.cuda.empty_cache()
+
+    # ---- (c) the biobank width over 4 ranks ------------------------------
+    n65, r65 = cohort_65536.values.shape
+    label = f"N={n65} R={r65} k={K}, W={RING_BIOBANK_WORLD}"
+    got65, reports65, wall65 = ring_run(label, RING_BIOBANK_WORLD, cohort_65536, params, card)
+    flat65 = cohort_65536.flat
+    summary = check_against(got65, flat65, flat65.z_mask.any(axis=1), N_NBR,
+                            f"ring {label} vs phase 7")
+    print(f"[ring] {label} vs phase 7's flat (panel-branch) step: {summary}", flush=True)
+    b65 = n65 // RING_BIOBANK_WORLD
+    blocks = [zprep_split(zp_65536[i * b65:(i + 1) * b65].contiguous(), None, None, math.inf)
+              for i in range(2)]
+    plain = [zprep_split_plain(zp_65536[i * b65:(i + 1) * b65], None, None, math.inf)
+             for i in range(2)]
+    cross_65536 = time_cross(b65, blocks, plain, f"N={n65}, W={RING_BIOBANK_WORLD}")
+    del blocks, plain
+    torch.cuda.empty_cache()
+    print(f"[ring] phase 15 (a-c) took {time.perf_counter() - t_phase:.1f} s (host clock); "
+          f"times from several ranks on one card say nothing of scaling across cards, and "
+          f"RING_CROSSOVER_N is not measured again here; {card}", flush=True)
+    per_rank = lambda reports: {name: reports[0][name] for name in  # noqa: E731
+                                ("masked_column_stats", "zprep_split", "zprep_gram_cross")}
+    return {
+        "zprep_gram": {"launches_per_rank_16384_w4": per_rank(runs[4][1]),
+                       "launches_per_rank_65536_w4": per_rank(reports65),
+                       "cross_16384_w4": cross_16384 | {"max_abs_err": err4},
+                       "cross_65536_w4": cross_65536},
+        "masked_column_stats": {"launches_per_rank_65536_w4": reports65[0]["masked_column_stats"]},
+        "peak_bytes_per_rank_65536_w4": [rep["peak_bytes"] for rep in reports65],
+        "cross_launches_16384_w4": sum(rep["zprep_gram_cross"] for rep in runs[4][1]),
+        "seconds_65536_w4": wall65,
+    }
 
 
 def fabricated_reads(cohort: dict, cfg: dict, read_len: int = 100) -> int:
@@ -1835,8 +2055,8 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
                  k: int = K, n_nbr: int = N_NBR) -> dict:
     """Phase 9: the fused WGS pipeline from files (see the module docstring).
     Returns the kernels' launches during the first pipeline call, phase
-    10's, phase 11's results and phase 14's launches (its pipeline part runs
-    on this cohort). main() passes no size: the size arguments let the phase
+    10's, phase 11's results, phase 14's launches (its pipeline part runs
+    on this cohort) and phase 15 (d)'s (the ring from a config). main() passes no size: the size arguments let the phase
     be rehearsed small."""
     from types import SimpleNamespace
 
@@ -1849,7 +2069,7 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
     )
     from grid_tpu_torch.io.staging import scan_cohort_regions
     from grid_tpu_torch.models.cohort import CohortParams
-    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel, zprep_split
+    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_cross, zprep_gram_panel, zprep_split
     from grid_tpu_torch.ops.gpu_select import dipcn_select_info
     from grid_tpu_torch.pipeline import run_wgs_pipeline
     from grid_tpu_torch.synth import make_synthetic_cohort
@@ -2103,6 +2323,24 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
               f"{written_off:.2f}; {len(pan_dip_ids)} dipCN rows, within rtol 1e-5 on the "
               f"{int((~pan_sets).sum())} rows whose input sets agree; {card}", flush=True)
 
+        # ---- phase 15 (d): the ring from a config, on the same cohort -----
+        zprep_gram_cross.launches = 0
+        ring_out, ring_t, ring_launches, _ = run(
+            "card_ring", {"fused": True, "mesh_shape": [RING_BIOBANK_WORLD], "dispatch": "ring"})
+        ring_launches["zprep_gram_cross"] = zprep_gram_cross.launches
+        w = RING_BIOBANK_WORLD
+        want_ring = {"masked_column_stats": 2 * w, "zprep_gram": 0,
+                     "dipcn_from_distances_gpu": 0, "zprep_split": w, "zprep_gram_panel": 0,
+                     "zprep_gram_cross": w * w}
+        print(f"[ring] run_wgs_pipeline with device: {{fused: true, mesh_shape: [{w}], dispatch: "
+              f"ring}}: kernel launches {ring_launches} over the {w} ranks, expected "
+              f"{want_ring}", flush=True)
+        check(ring_launches == want_ring, f"ring pipeline launches {ring_launches}")
+        report(f"card run 5, the ring over {w} ranks of the card (gloo)", ring_t)
+        found = same_steps_4_7("ring pipeline", card_out, ring_out, names, n, n_nbr)
+        print(f"[ring] the ring's four artifacts vs card run 1's (the flat step): {found}; "
+              f"{card}", flush=True)
+
         # ---- phase 10: the pipeline in file mode, on the same cohort ------
         total = again_t["fused_steps_4_7"]
         fused_run = SimpleNamespace(
@@ -2118,7 +2356,7 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
                                           resident_launches, k, n_nbr)
     check(not tmp.exists(), "the temporary directory was not removed")
     return ({name: launches[name] for name in wrappers}, files_launches, multi,
-            {name: ibs_launches[name] for name in wrappers})
+            {name: ibs_launches[name] for name in wrappers}, ring_launches)
 
 
 def sm_clocks_mhz() -> tuple:
@@ -3349,11 +3587,16 @@ def main() -> int:
         print("[profile] torch.profiler saw no device activity: device time not measured")
 
     # ---- 7. panels and 8. branches ---------------------------------------
-    panel, panel_zp = panel_phase(dev, card, wrappers)
-    branch_phase(dev, card)
+    panel, panel_zp, cohort_65536 = panel_phase(dev, card, wrappers)
+    cohort_16384 = branch_phase(dev, card)
+
+    # ---- 15 (a-c). the sharded ring on W ranks of the one card ------------
+    ring = ring_phase(dev, card, cohort_16384, cohort_65536, panel_zp)
+    del cohort_16384, cohort_65536
 
     # ---- 9. the pipeline, from files, 10. in file mode, 11. multi-locus ----
-    pipeline_launches, files_launches, multi, ibs_launches = pipeline_phase(card, wrappers)
+    pipeline_launches, files_launches, multi, ibs_launches, ring_launches = pipeline_phase(
+        card, wrappers)
     multi_wide = multilocus_wide_phase(card, panel_zp)
     del panel_zp
     torch.cuda.empty_cache()
@@ -3390,6 +3633,29 @@ def main() -> int:
                      "multilocus_2504": multi_json[row["name"]],
                      "alignments_2504": align_json[row["name"]],
                      "ibs_2504": {"launches": ibs_launches[row["name"]]}})
+    # phase 15: the ring's launches per rank, its pipeline call's over all
+    # ranks, and the Gram kernel's cross mode
+    for row in rows:
+        if row["name"] in ("zprep_gram", "masked_column_stats"):
+            row["ring"] = ring[row["name"]]
+            names = (("zprep_split", "zprep_gram_cross") if row["name"] == "zprep_gram"
+                     else (row["name"],))
+            row["ring"]["pipeline_2504_w4"] = {name: ring_launches[name] for name in names}
+        if row["name"] == "zprep_gram":
+            row["ring"]["peak_bytes_per_rank_65536_w4"] = ring["peak_bytes_per_rank_65536_w4"]
+    # the cross mode as a row of its own: its main path is phase 15 (a)'s
+    # run at N=16,384 over 4 ranks (the launches of all four ranks)
+    cross = ring["zprep_gram"]["cross_16384_w4"]
+    rows.append({"name": "zprep_gram_cross", "route": "cuda",
+                 "source": "grid_tpu_torch/csrc/zprep_gram.cu",
+                 "replaces": "grid_tpu/parallel/pknn.py:74 (jnp.dot, no pallas_call)",
+                 "launches": ring["cross_launches_16384_w4"],
+                 "max_abs_err": cross["max_abs_err"], "ms": cross["ms"],
+                 "plain_ms": cross["plain_ms"], "bound_ms": cross["bound_ms"],
+                 "bound_by": cross["bound_by"], "library_ms": cross["library_ms"],
+                 "library": "torch.mm of the two prepared blocks, TF32 off",
+                 "shape": cross["shape"], "own_block_ms": cross["own_block_ms"],
+                 "at_65536_w4": ring["zprep_gram"]["cross_65536_w4"]})
     # the multi-weight form: the sweep over the catalog at N=2504 is its
     # main path, its numbers those at L=492 there
     at_l = multi["timed"][MULTI_L]

@@ -64,17 +64,24 @@ def stage_from_reference(stage) -> CohortStage:
     )
 
 
-def fused_inputs(stage: CohortStage, reads_map: dict, max_nbr: int, device, dtype):
-    """The fused steps' inputs to ``cohort_step`` as tensors on ``device``:
-    the staged depths and mask, the read counts in row order (NaN and
+def fused_host_inputs(stage: CohortStage, reads_map: dict, max_nbr: int):
+    """The fused steps' host arrays: the read counts in row order (NaN and
     ``reads_valid`` False for a sample the counts file lacks), and empty
     haplotype-neighbor placeholders [2N, max_nbr] (the fused steps phase
-    afterwards, over the dipCN-valid samples). Depths, reads and the
-    placeholder weights take ``dtype``."""
+    afterwards, over the dipCN-valid samples). Returns (reads,
+    reads_valid, hi, hw, hv)."""
     n = len(stage.sample_ids)
     reads = np.array([reads_map.get(sid, np.nan) for sid in stage.sample_ids], dtype=np.float64)
     reads_valid = np.array([sid in reads_map for sid in stage.sample_ids], dtype=bool)
     hi, hw, hv = pad_hap_neighbors([[] for _ in range(2 * n)], max_nbr, dtype=np.float64)
+    return reads, reads_valid, hi, hw, hv
+
+
+def fused_inputs(stage: CohortStage, reads_map: dict, max_nbr: int, device, dtype):
+    """The fused steps' inputs to ``cohort_step`` as tensors on ``device``:
+    the staged depths and mask and :func:`fused_host_inputs`. Depths,
+    reads and the placeholder weights take ``dtype``."""
+    reads, reads_valid, hi, hw, hv = fused_host_inputs(stage, reads_map, max_nbr)
     values, mask, reads, reads_valid, hi, hw, hv = inputs_to_torch(
         stage.values, stage.mask, reads, reads_valid, hi, hw, hv, device, dtype
     )

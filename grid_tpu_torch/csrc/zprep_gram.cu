@@ -43,7 +43,7 @@
 //   waits for its stage's wgmma before adding the stage sum, so the
 //   tensor cores idle while both warpgroups add or wait for data.
 //
-// Three modes share the split pass and the tile code; each has one C entry
+// Four modes share the split pass and the tile code; each has one C entry
 // point that returns its cudaError_t:
 //
 // - triangle (zprep_gram_launch): the split, then G [N, N] as above.
@@ -65,6 +65,20 @@
 //   17.8 ms at the 495 TFLOP/s peak. Measured on an H100 80GB HBM3 at
 //   700 W (chip_smoke.py, phase 7): 0.56 ms per 512-row panel, 123 TFLOP/s
 //   as 2*B*N*R (370 of TF32 work), 72 ms per step.
+// - cross (zprep_gram_cross_launch): G = P_a P_b^T [Ba, Bb] for two row
+//   blocks, each split by zprep_split_launch into a buffer of its own: the
+//   sharded ring's product of a rank's rows with the visiting block
+//   (grid_tpu/parallel/pknn.py computes it with jnp.dot outside Pallas).
+//   Two pairs of tensor maps, one per buffer, take the place of the panel
+//   mode's one; the tiles, the K-stage order and the accumulation are the
+//   panel mode's, so every entry is bitwise the entry zprep_gram_panel
+//   gives for the same two rows, given the blocks' global first rows a_off
+//   and b_off. The panel mode takes the lower half of a diagonal tile from
+//   its upper half (global rows i > j of one 128-row tile): a second launch
+//   recomputes the few tiles that hold such pairs with the blocks' roles
+//   swapped, one block per global tile both blocks touch, and stores those
+//   entries only (one tile per 128 rows for a rank's own block, at most
+//   two for the block just before it, none otherwise).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -86,15 +100,19 @@ constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + slack to align to
 constexpr int kSplitThreads = 256;
 constexpr int kEncodeError = 10000;  // + CUresult of a failed cuTensorMapEncodeTiled
 
-enum Mode { kTriangle = 0, kPanel = 1, kDiagonal = 2 };
+enum Mode { kTriangle = 0, kPanel = 1, kDiagonal = 2, kCross = 3, kCrossMirror = 4 };
 
 // Where a block's tile goes: G [n, n] (kTriangle), the panel G[i0:i0+rows]
-// as [rows, n] (kPanel), or the diagonal [n] (kDiagonal).
+// as [rows, n] (kPanel), the diagonal [n] (kDiagonal), or the cross block
+// G [na, nb] (kCross, and kCrossMirror's entries of it).
 struct Out {
   int mode;
   int n;
   int i0, rows;  // the panel's first row and its row count (kPanel)
   float* g;
+  int na, nb;        // the cross blocks' row counts
+  int a_off, b_off;  // their global first rows
+  int t_lo;          // kCrossMirror: the global tile of block 0
 };
 
 static_assert(kTile * (kTile + 1) * 4 <= kStages * kStageBytes, "epilogue tile must fit the ring");
@@ -273,6 +291,30 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* sm
     }
     return;
   }
+  if (out.mode == kCross) {
+    for (int idx = tid; idx < kTile * kTile; idx += kConsumers) {
+      const int r = idx / kTile, c = idx % kTile;
+      if (row0 + r < out.na && col0 + c < out.nb) {
+        g[static_cast<size_t>(row0 + r) * out.nb + col0 + c] = tile[r * kLd + c];
+      }
+    }
+    return;
+  }
+  if (out.mode == kCrossMirror) {
+    // the tile's rows are b's rows j, its columns a's rows i: entry (i, j)
+    // of G where the panel mode mirrors it, i > j in one global tile
+    const int t = out.t_lo + static_cast<int>(blockIdx.x);
+    for (int idx = tid; idx < kTile * kTile; idx += kConsumers) {
+      const int r = idx / kTile, c = idx % kTile;
+      const int jl = row0 + r, il = col0 + c;
+      const long long j = static_cast<long long>(out.b_off) + jl;
+      const long long i = static_cast<long long>(out.a_off) + il;
+      if (jl < out.nb && il < out.na && i > j && i / kTile == t && j / kTile == t) {
+        g[static_cast<size_t>(il) * out.nb + jl] = tile[r * kLd + c];
+      }
+    }
+    return;
+  }
   // the panel stores its rows i0 .. i0+rows-1 as rows 0 .. rows-1
   const int row_end = out.mode == kPanel ? out.i0 + out.rows : n;
   const int row_off = out.mode == kPanel ? out.i0 : 0;
@@ -294,10 +336,13 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* sm
   }
 }
 
+// The A operand's rows come from a_big/a_small, the B operand's from
+// b_big/b_small; every mode but the two cross modes passes one buffer's
+// maps as both.
 __global__ void __launch_bounds__(kThreads, 1)
-gram_kernel(const __grid_constant__ CUtensorMap big_map,
-            const __grid_constant__ CUtensorMap small_map, int k_tiles, int tiles,
-            int panel_row_tiles, const Out out) {
+gram_kernel(const __grid_constant__ CUtensorMap a_big, const __grid_constant__ CUtensorMap a_small,
+            const __grid_constant__ CUtensorMap b_big, const __grid_constant__ CUtensorMap b_small,
+            int k_tiles, int tiles, int panel_row_tiles, const Out out) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];   // TMA bytes of a stage have landed
   __shared__ __align__(8) uint64_t empty[kStages];  // every consumer warp is done with it
@@ -319,10 +364,21 @@ gram_kernel(const __grid_constant__ CUtensorMap big_map,
     // order, so they share that column tile's loads through L2
     row0 = out.i0 + (blockIdx.x % panel_row_tiles) * kTile;
     col0 = (blockIdx.x / panel_row_tiles) * kTile;
+  } else if (out.mode == kCross) {
+    // as in the panel mode: a's row tiles of one b tile are neighbours
+    row0 = (blockIdx.x % panel_row_tiles) * kTile;
+    col0 = (blockIdx.x / panel_row_tiles) * kTile;
+  } else if (out.mode == kCrossMirror) {
+    // A is b's rows, B is a's rows, each from where global tile t starts
+    const int t0 = (out.t_lo + static_cast<int>(blockIdx.x)) * kTile;
+    row0 = max(t0, out.b_off) - out.b_off;
+    col0 = max(t0, out.a_off) - out.a_off;
   } else {
     row0 = col0 = blockIdx.x * kTile;
   }
-  const bool diag = row0 == col0;
+  // a diagonal tile reads its rows once; the cross modes' operands are
+  // two buffers, whatever their rows
+  const bool diag = row0 == col0 && out.mode != kCross && out.mode != kCrossMirror;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -343,11 +399,11 @@ gram_kernel(const __grid_constant__ CUtensorMap big_map,
         if (round > 0) mbar_wait(smem_addr(&empty[s]), (round - 1) & 1);
         const uint32_t stage = ring + s * kStageBytes, bar = smem_addr(&full[s]);
         mbar_expect_tx(bar, bytes);
-        tma_load(stage, &big_map, bar, kt * kTileK, row0);
-        tma_load(stage + kOperandBytes, &small_map, bar, kt * kTileK, row0);
+        tma_load(stage, &a_big, bar, kt * kTileK, row0);
+        tma_load(stage + kOperandBytes, &a_small, bar, kt * kTileK, row0);
         if (!diag) {
-          tma_load(stage + 2 * kOperandBytes, &big_map, bar, kt * kTileK, col0);
-          tma_load(stage + 3 * kOperandBytes, &small_map, bar, kt * kTileK, col0);
+          tma_load(stage + 2 * kOperandBytes, &b_big, bar, kt * kTileK, col0);
+          tma_load(stage + 3 * kOperandBytes, &b_small, bar, kt * kTileK, col0);
         }
       }
     }
@@ -415,18 +471,30 @@ int split(const void* z, const void* mask, const void* region, float zmax, int n
   return static_cast<int>(cudaGetLastError());
 }
 
-// The Gram kernel over `blocks` tiles of `n` rows of the split halves.
-int gram(float* big, float* small, int n, int r_pad, int blocks, int panel_row_tiles,
-         const Out& out, cudaStream_t s) {
-  CUtensorMap big_map, small_map;
+// The Gram kernel over `blocks` tiles: A's rows from the halves of `na`
+// rows at a_big / a_small, B's from those of `nb` rows at b_big / b_small
+// (the same buffer but in the cross modes).
+int gram(float* a_big, float* a_small, int na, float* b_big, float* b_small, int nb, int r_pad,
+         int blocks, int panel_row_tiles, const Out& out, cudaStream_t s) {
+  CUtensorMap maps[4];
+  float* bases[4] = {a_big, a_small, b_big, b_small};
+  const int rows[4] = {na, na, nb, nb};
   int err;
-  if ((err = make_map(&big_map, big, n, r_pad)) != cudaSuccess) return err;
-  if ((err = make_map(&small_map, small, n, r_pad)) != cudaSuccess) return err;
+  for (int m = 0; m < 4; ++m) {
+    if ((err = make_map(&maps[m], bases[m], rows[m], r_pad)) != cudaSuccess) return err;
+  }
   err = cudaFuncSetAttribute(gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
-  gram_kernel<<<blocks, kThreads, kSmemBytes, s>>>(big_map, small_map, r_pad / kTileK,
-                                                   (n + kTile - 1) / kTile, panel_row_tiles, out);
+  gram_kernel<<<blocks, kThreads, kSmemBytes, s>>>(maps[0], maps[1], maps[2], maps[3],
+                                                   r_pad / kTileK, (na + kTile - 1) / kTile,
+                                                   panel_row_tiles, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One buffer's halves as both operands.
+int gram(float* big, float* small, int n, int r_pad, int blocks, int panel_row_tiles,
+         const Out& out, cudaStream_t s) {
+  return gram(big, small, n, big, small, n, r_pad, blocks, panel_row_tiles, out, s);
 }
 
 bool bad_shape(int n, int r, int r_pad) {
@@ -484,6 +552,40 @@ int zprep_gram_panel_launch(void* split_buf, int n, int r_pad, int i0, int rows,
   const Out out{kPanel, n, i0, rows, static_cast<float*>(g)};
   return gram(big, small, n, r_pad, static_cast<int>(blocks), static_cast<int>(row_tiles), out,
               static_cast<cudaStream_t>(stream));
+}
+
+// The ring's block product, G = P_a P_b^T into g [na, nb], from the halves
+// that zprep_split_launch wrote into `a_buf` (na rows) and `b_buf` (nb
+// rows), with the entries zprep_gram_panel_launch gives rows a_off + i and
+// b_off + j of one split of all rows: the cross tiles, then the tiles whose
+// entries the panel mode mirrors (see the header).
+int zprep_gram_cross_launch(void* a_buf, int na, void* b_buf, int nb, int r_pad, int a_off,
+                            int b_off, void* g, void* stream) {
+  if (na <= 0 || nb <= 0) return cudaSuccess;
+  if (bad_shape(na, 0, r_pad) || bad_shape(nb, 0, r_pad) || a_off < 0 || b_off < 0 ||
+      a_off > INT_MAX - na || b_off > INT_MAX - nb) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* a_big = static_cast<float*>(a_buf);
+  float* a_small = a_big + static_cast<size_t>(na) * r_pad;
+  float* b_big = static_cast<float*>(b_buf);
+  float* b_small = b_big + static_cast<size_t>(nb) * r_pad;
+  const long long row_tiles = (na + kTile - 1) / kTile;
+  const long long blocks = row_tiles * ((nb + kTile - 1) / kTile);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  Out out{kCross, nb, 0, na, static_cast<float*>(g), na, nb, a_off, b_off, 0};
+  int err = gram(a_big, a_small, na, b_big, b_small, nb, r_pad, static_cast<int>(blocks),
+                 static_cast<int>(row_tiles), out, s);
+  if (err != cudaSuccess) return err;
+  // the global tiles that hold rows of both blocks
+  const int a_last = (a_off + na - 1) / kTile, b_last = (b_off + nb - 1) / kTile;
+  const int t_lo = a_off / kTile > b_off / kTile ? a_off / kTile : b_off / kTile;
+  const int t_hi = a_last < b_last ? a_last : b_last;
+  if (t_lo > t_hi) return cudaSuccess;
+  out.mode = kCrossMirror;
+  out.t_lo = t_lo;
+  return gram(b_big, b_small, nb, a_big, a_small, na, r_pad, t_hi - t_lo + 1, 1, out, s);
 }
 
 // The Gram kernel's launch shape for n rows, for reports: out = {tile,

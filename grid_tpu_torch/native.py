@@ -137,11 +137,12 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, under a lock: workers launch from
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add one (or the ``n`` launches that spawned ranks of the sharded
+    step report) to ``wrapper.launches``, under a lock: workers launch from
     several threads."""
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        wrapper.launches += n
 
 
 def check_launch(name: str, err: int) -> None:

@@ -21,6 +21,8 @@
   source for its design. The row-panel branch runs the same kernel in two
   more modes: :func:`zprep_split` once per step (P's TF32 halves and the
   squared row norms), then :func:`zprep_gram_panel` once per row panel.
+  The sharded ring's fourth mode, :func:`zprep_gram_cross`, multiplies a
+  rank's split rows by the visiting block's.
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch version
 for CPU tensors only; it counts its calls that reached the card in
@@ -193,6 +195,31 @@ def masked_column_stats(values, mask, inv_row_means, col_means=None):
 masked_column_stats.launches = 0
 
 
+def compile_masked_column_stats(n: int, r: int, device: torch.device) -> None:
+    """Compile the column-statistics kernels for [n, r] inputs on the CUDA
+    ``device`` (both centrings, and the merge where the plan has more than
+    one chunk) without launching them, by Triton's warm-up: the kernels land
+    in Triton's cache, where the ranks of the sharded step, spawned later,
+    find them. Triton specializes on the integer arguments' values, so the
+    shape must be the one the calls will have."""
+    col_tiles, chunks, rows_per_chunk = colstats_plan(n, r, _sm_count(device))
+    f32 = torch.empty(1, dtype=torch.float32, device=device)
+    u8 = torch.empty(1, dtype=torch.uint8, device=device)
+    try:
+        triton, kernel, merge = _colstats_kernels()
+        with torch.cuda.device(device):
+            for has_mu in (False, True):
+                kernel.warmup(f32, u8, f32, f32, f32, n, r, rows_per_chunk, HAS_MU=has_mu,
+                              BLOCK_M=_COLSTATS_BLOCK_M, BLOCK_C=_COLSTATS_BLOCK_C,
+                              num_warps=_COLSTATS_WARPS, grid=(col_tiles, chunks))
+            if chunks > 1:
+                merge.warmup(f32, f32, 3 * r, N_CHUNKS=chunks, BLOCK=_COLSTATS_MERGE_BLOCK,
+                             num_warps=4, grid=(triton.cdiv(3 * r, _COLSTATS_MERGE_BLOCK),))
+    except Exception as e:
+        raise native.KernelError(f"masked_column_stats: the Triton kernels did not compile: "
+                                 f"{e}") from e
+
+
 # ---------------------------------------------------------------------------
 # zprep_gram (CUDA C++, csrc/zprep_gram.cu)
 # ---------------------------------------------------------------------------
@@ -233,6 +260,10 @@ def _zprep_lib():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p]
     lib.zprep_gram_panel_launch.restype = ctypes.c_int
+    lib.zprep_gram_cross_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.zprep_gram_cross_launch.restype = ctypes.c_int
     lib.zprep_gram_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.zprep_gram_info.restype = ctypes.c_int
     return lib
@@ -382,3 +413,43 @@ def zprep_gram_panel(split: SplitZ, i0: int, rows: int):
 
 
 zprep_gram_panel.launches = 0
+
+
+def zprep_gram_cross_plain(a: SplitZ, b: SplitZ, a_row0: int = 0, b_row0: int = 0):
+    """Plain PyTorch version of :func:`zprep_gram_cross`: ``P_a @ P_b.T``
+    (the offsets only place the kernel's entries)."""
+    return a.p @ b.p.T
+
+
+def zprep_gram_cross(a: SplitZ, b: SplitZ, a_row0: int = 0, b_row0: int = 0):
+    """G = P_a P_b^T [Ba, Bb] for two row blocks split by :func:`zprep_split`:
+    the sharded ring's product of a rank's rows with the visiting block.
+
+    On the card the Gram kernel runs over (a's row tiles) x (b's row tiles)
+    with one pair of tensor maps per block and the 3xTF32 arithmetic of
+    :func:`zprep_gram_panel`; ``a_row0`` and ``b_row0``, the blocks' first
+    rows in the cohort, make every entry bitwise the one
+    ``zprep_gram_panel`` gives those two rows of one split of the whole
+    cohort (the panel mode mirrors the lower half of its diagonal tiles,
+    and a second small launch does the same here). Needs compute capability
+    9.0.
+    """
+    if not native.on_cuda(a.p, a.norms, b.p, b.norms):
+        return zprep_gram_cross_plain(a, b, a_row0, b_row0)
+    _, na, r_pad = a.p.shape
+    nb = b.p.shape[1]
+    native.check(a.p, "a", torch.float32, (2, na, r_pad))
+    native.check(b.p, "b", torch.float32, (2, nb, r_pad))
+    if a_row0 < 0 or b_row0 < 0:
+        raise ValueError(f"block offsets must be >= 0, got {a_row0}, {b_row0}")
+    g = torch.empty((na, nb), dtype=torch.float32, device=a.p.device)
+    with torch.cuda.device(g.device):
+        err = _zprep_lib().zprep_gram_cross_launch(a.p.data_ptr(), na, b.p.data_ptr(), nb, r_pad,
+                                                   a_row0, b_row0, g.data_ptr(),
+                                                   native.stream_ptr(g.device))
+    native.check_launch("zprep_gram", err)
+    native.count_launch(zprep_gram_cross)
+    return g
+
+
+zprep_gram_cross.launches = 0

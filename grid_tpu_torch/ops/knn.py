@@ -125,19 +125,27 @@ def sorted_smallest_k(d2, k: int):
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
 
 
-def panel_d2(g, norms, i0: int, col_valid=None):
-    """The row panel's distances from its Gram rows: d2 = max(|a|^2 + |b|^2 -
-    2 G, 0) for G = ``g`` [B, N] (rows i0 .. i0+B-1 against all N), with
-    self (global column i0 + r) and the columns of invalid rows set to
-    finfo.max; the rows stay as they are. The arithmetic is
+def block_d2(g, row_norms, col_norms, col_valid=None, self_offset=None):
+    """Distances of a block of rows against a block of columns from their
+    Gram block ``g`` [B, C]: d2 = max(|a|^2 + |b|^2 - 2 G, 0), with the
+    columns of invalid rows (``col_valid`` False) and, where the blocks
+    share rows, self (the diagonal at ``self_offset``: column
+    ``self_offset + r`` for row r) set to finfo.max. The arithmetic is
     :func:`d2_matrix`'s, element by element."""
-    rows = g.shape[0]
-    d2 = (norms[i0:i0 + rows, None] + norms[None, :]).sub_(g, alpha=2).clamp_min_(0)
+    d2 = (row_norms[:, None] + col_norms[None, :]).sub_(g, alpha=2).clamp_min_(0)
     big = torch.finfo(d2.dtype).max
-    d2.diagonal(offset=i0).fill_(big)
+    if self_offset is not None:
+        d2.diagonal(offset=self_offset).fill_(big)
     if col_valid is not None:
         d2.masked_fill_(~col_valid[None, :], big)
     return d2
+
+
+def panel_d2(g, norms, i0: int, col_valid=None):
+    """The row panel's distances from its Gram rows: :func:`block_d2` of
+    G = ``g`` [B, N] (rows i0 .. i0+B-1 against all N), self being global
+    column i0 + r; the rows stay as they are."""
+    return block_d2(g, norms[i0:i0 + g.shape[0]], norms, col_valid, self_offset=i0)
 
 
 def d2_panels(split: SplitZ, row_block: int, col_valid=None):

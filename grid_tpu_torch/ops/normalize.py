@@ -54,7 +54,8 @@ class NormalizeResult(NamedTuple):
     scale: torch.Tensor
 
 
-def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None) -> NormalizeResult:
+def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None,
+                     all_reduce=None) -> NormalizeResult:
     """Normalize a [N, R] masked depth matrix. See module docstring.
 
     Args:
@@ -64,6 +65,11 @@ def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None) -> No
         n_rows: effective cohort size for the ``N - 1`` variance denominator
             (an int or a 0-d tensor). Defaults to the row count; pass the
             REAL sample count when rows are padded.
+        all_reduce: where ``values`` is one rank's rows of a sharded cohort,
+            the function that sums a tensor of partial column statistics
+            over the ranks (:meth:`grid_tpu_torch.parallel.mesh.CohortGroup.all_reduce_sum`);
+            it is called twice, on the [2, R] counts and sums and on the
+            [R] squared deviations. Row statistics need no exchange.
     """
     n_inds = values.shape[0] if n_rows is None else n_rows
 
@@ -77,12 +83,16 @@ def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None) -> No
 
     # -- step 2: column stats -------------------------------------------
     col_cnt, col_sum, _ = masked_column_stats(values, mask, inv_row)
+    if all_reduce is not None:
+        col_cnt, col_sum = all_reduce(torch.stack([col_cnt, col_sum]))
     col_ok = col_cnt > 0
     col_means = torch.where(col_ok, col_sum / col_cnt.clamp_min(1), math.nan)
     safe_mu = torch.where(col_ok, col_means, 0)
     # Denominator is total N - 1 (reference parity), not valid count; an
     # all-invalid column keeps variance 0.0, as np.nansum does.
     _, _, col_sqdev = masked_column_stats(values, mask, inv_row, safe_mu)
+    if all_reduce is not None:
+        col_sqdev = all_reduce(col_sqdev)
     col_vars = col_sqdev / (n_inds - 1)
 
     # -- step 3: variance ratios ----------------------------------------

@@ -35,11 +35,13 @@ still feeds step 7.
 
 ``device.mesh_shape`` with the fused path asks the dispatch policy
 (:mod:`grid_tpu_torch.parallel.policy`): where it chooses the single-device
-step, that step runs on one card; where it would choose the sharded ring
-(``dispatch: ring`` on more than one device, or a sample list at or above
-the crossover under ``auto``), the pipeline raises ``NotImplementedError``
-naming its ROADMAP item before anything runs, and a one-device mesh with
-``dispatch: ring`` raises the policy's ``ValueError``.
+step, that step runs on one card; where it chooses the sharded ring
+(``dispatch: ring`` on more than one device, or N at or above the
+crossover under ``auto``), the fused step runs over prod(mesh_shape) ranks
+(:mod:`grid_tpu_torch.parallel`). A one-device mesh with ``dispatch: ring``
+raises the policy's ``ValueError`` before anything runs, and a failed rank
+(:class:`grid_tpu_torch.parallel.RankFailure`) propagates on every device:
+the file-mode steps do not take over from it.
 
 :func:`run_wes_pipeline`, the exome path (realign → per-exon dipCN →
 KIV-2 estimate), has the JAX package's gating and log-and-continue
@@ -65,6 +67,7 @@ from grid_tpu_torch import native_host
 from grid_tpu_torch.config import WES_SCHEMA, apply_defaults, error_check_config, load_config
 from grid_tpu_torch.io.formats import read_samples
 from grid_tpu_torch.native import is_device_failure
+from grid_tpu_torch.parallel.mesh import RankFailure
 from grid_tpu_torch.parallel.policy import choose_cohort_execution
 from grid_tpu_torch.steps.count_reads import count_reads
 from grid_tpu_torch.steps.coverage import compute_mosdepth
@@ -72,7 +75,6 @@ from grid_tpu_torch.steps.dipcn import compute_diploid_genotypes
 from grid_tpu_torch.steps.fused import (
     FusedInputError,
     fused_steps_enabled,
-    ring_refusal,
     run_fused_steps,
 )
 from grid_tpu_torch.steps.haploid import hi_inference
@@ -194,12 +196,11 @@ class _Resume:
         self.path.write_text(json.dumps(self.state, indent=2))
 
 
-def _refuse_unported(config: dict) -> None:
-    """Raise, before any step runs, where the JAX pipeline's fused step would
-    take the sharded ring: ``dispatch: ring`` on more than one device, or,
-    under ``auto``, a sample list already at or above the crossover. The
-    policy's own ``ValueError`` (``ring`` on one device, an unknown
-    ``dispatch``) is raised here too."""
+def _check_dispatch(config: dict) -> None:
+    """Raise the dispatch policy's ``ValueError`` (``ring`` on a one-device
+    mesh, an unknown ``dispatch``) before any step runs, as the fused step
+    would raise it only after steps 1-3; the fused step asks the policy
+    again with the staged N."""
     mesh_shape = config.get("device", {}).get("mesh_shape")
     if not mesh_shape or not fused_steps_enabled(config):
         return
@@ -207,9 +208,8 @@ def _refuse_unported(config: dict) -> None:
     try:
         n = len(read_samples(config["samples_file"]))
     except (KeyError, OSError):
-        n = 0  # the fused step asks the policy again with the staged N
-    if choose_cohort_execution(n, int(math.prod(mesh_shape)), dispatch) == "ring":
-        raise NotImplementedError(ring_refusal(n, mesh_shape))
+        n = 0
+    choose_cohort_execution(n, int(math.prod(mesh_shape)), dispatch)
 
 
 def _steps_4_7(config: dict) -> list:
@@ -284,7 +284,7 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
     if validate:
         error_check_config(config_data, console)
     config_data = apply_defaults(config_data)
-    _refuse_unported(config_data)
+    _check_dispatch(config_data)
     device = None
     if any(section.get("run") is True for section, _, _ in _steps_4_7(config_data)):
         # the device and dtype are resolved before any step runs: a missing
@@ -360,7 +360,8 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
             except Exception as e:
                 # on the card only an unreadable input falls back: a kernel or
                 # device failure is not handed to the file-mode steps
-                if device.type == "cuda" and not isinstance(e, FusedInputError):
+                if isinstance(e, RankFailure) or (
+                        device.type == "cuda" and not isinstance(e, FusedInputError)):
                     raise
                 log(console, f"Fused steps 4-7 failed ({e}); falling back to sequential steps",
                     style="warning")

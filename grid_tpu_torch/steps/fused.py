@@ -22,8 +22,11 @@ haplotype weights and the dipCN values fed to phasing follow it.
 (:func:`grid_tpu_torch.parallel.policy.choose_cohort_execution`) as the JAX
 package does: where it chooses the single-device step (a one-device mesh, or
 N below the ring crossover under ``dispatch: auto``) this step runs on one
-card and logs so; where it chooses the ring, it raises
-``NotImplementedError`` (the sharded layer is not ported).
+card and logs so; where it chooses the ring, the step runs as
+:func:`grid_tpu_torch.parallel.sharded_cohort_step` over prod(mesh_shape)
+ranks (``parallel/mesh.py`` says where they run and which transport joins
+them; gloo ranks on the CPU under ``device.platform: cpu``), and the rows'
+padding is cut off its outputs before step 7 and the writers.
 ``device.use_pallas`` is accepted and has no effect. ``device.exact_phasing``
 or a run of fewer than all four steps takes the file-mode steps instead
 (:func:`fused_steps_enabled`), and so does a failure to read this step's
@@ -38,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from grid_tpu_torch.convert import fused_inputs, outputs_to_numpy
+from grid_tpu_torch.convert import fused_host_inputs, fused_inputs, outputs_to_numpy
 from grid_tpu_torch.io.bed import load_repeat_mask
 from grid_tpu_torch.io.formats import (
     neighbors_filename,
@@ -56,18 +59,12 @@ from grid_tpu_torch.io.hap_neighbors import (
 )
 from grid_tpu_torch.models.cohort import CohortParams, cohort_step
 from grid_tpu_torch.ops.phasing import compute_imputed, phase_haplotypes
+from grid_tpu_torch.parallel.pcohort import ROW_FIELDS, sharded_cohort_step
 from grid_tpu_torch.parallel.policy import choose_cohort_execution
 from grid_tpu_torch.steps.normalize import _stage
 from grid_tpu_torch.utils.device import compute_dtype, config_device
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import step_timer
-
-
-def ring_refusal(n: int, mesh_shape) -> str:
-    """The message of the refusal where the policy chooses the ring."""
-    return (f"device.mesh_shape={mesh_shape}: the dispatch policy chooses the sharded ring step "
-            f"for N={n}, and the sharded layer is not ported yet (ROADMAP.md queue 1, "
-            "'Sharded layer'); set device.dispatch: flat or unset mesh_shape to run on one card")
 
 
 class FusedInputError(Exception):
@@ -158,25 +155,34 @@ def run_fused_steps(config, console=None, timer=None):
     dtype = compute_dtype(config, device)
 
     mesh_shape = config.get("device", {}).get("mesh_shape")
+    world = 1
     if mesh_shape:
         # the ring loses 2x to the flat op below the measured crossover
         # (parallel/policy.py): a configured mesh is a capability, not a
         # commitment
         dispatch = str(config.get("device", {}).get("dispatch", "auto"))
         if choose_cohort_execution(n, int(np.prod(mesh_shape)), dispatch) == "ring":
-            raise NotImplementedError(ring_refusal(n, mesh_shape))
-        log(console,
-            f"dispatch policy: N={n} below ring crossover — running the"
-            f" single-device step despite mesh_shape={mesh_shape}",
-            style="info")
+            world = int(np.prod(mesh_shape))
+        else:
+            log(console,
+                f"dispatch policy: N={n} below ring crossover — running the"
+                f" single-device step despite mesh_shape={mesh_shape}",
+                style="info")
 
     with step_timer("fused.device", timer, None):
         # phasing neighbors are loaded AFTER dipCN validity is known (below);
         # the step runs with empty placeholders
-        inputs = fused_inputs(stage, reads_map, max_nbr, device, dtype)
-        out = outputs_to_numpy(cohort_step(*inputs, params))
-        del inputs
-        _finish(device)
+        if world > 1:
+            out = outputs_to_numpy(sharded_cohort_step(
+                world, stage.values, stage.mask, *fused_host_inputs(stage, reads_map, max_nbr),
+                params, platform=device.type, dtype=dtype, console=console))
+            # un-pad the row outputs back to the real cohort size
+            out = out._replace(**{name: getattr(out, name)[:n] for name in ROW_FIELDS})
+        else:
+            inputs = fused_inputs(stage, reads_map, max_nbr, device, dtype)
+            out = outputs_to_numpy(cohort_step(*inputs, params))
+            del inputs
+            _finish(device)
 
     # ---- step 7 over the dipCN-valid sample universe --------------------
     valid = out.dipcn_valid.astype(bool)

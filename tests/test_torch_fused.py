@@ -220,23 +220,79 @@ def test_fused_failure_raises(cohort, tmp_path):
         ARTIFACTS["normalized"], ARTIFACTS["neighbors"]]
 
 
-UNPORTED = {
-    "mesh_shape": ({}, {"device": {"fused": True, "mesh_shape": [4], "dispatch": "ring",
-                                   "platform": "cpu"}},
-                   "Sharded layer"),
-}
+RING = {"fused": True, "mesh_shape": [4], "dispatch": "ring"}
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_unported_paths_raise_naming_their_roadmap_item(cohort, tmp_path, case):
-    updates, new_sections, item = UNPORTED[case]
-    cfg = run_config(cohort, tmp_path, {"fused": True, "platform": "cpu"}, **updates)
-    cfg.update(new_sections)
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.fixture(scope="module")
+def ring_runs(cohort, tmp_path_factory):
+    """grid_tpu's pipeline on its virtual devices and the port's on four
+    gloo ranks on the CPU, with the ring config."""
+    return run_both(cohort, tmp_path_factory.mktemp("ring"), device=RING)
+
+
+@pytest.mark.parametrize("artifact", ["normalized", "neighbors", "haploid"])
+def test_ring_config_artifact_is_grid_tpu_s(ring_runs, artifact):
+    """``mesh_shape: [4]`` with ``dispatch: ring`` runs the sharded step on
+    four ranks and writes grid_tpu's ring artifacts, byte for byte."""
+    jax_out, torch_out, _, t_torch = ring_runs
+    assert "fused.device" in t_torch and "fused_steps_4_7" in t_torch
+    assert content(torch_out / ARTIFACTS[artifact]) == content(jax_out / ARTIFACTS[artifact])
+
+
+def test_ring_config_dipcn_within_1e9_of_grid_tpu_s_and_the_flat_run_s(ring_runs, f64_runs):
+    jax_out, torch_out, _, _ = ring_runs
+    flat_out = f64_runs[1]
+    j_ids, j_vals, _ = read_dipcn(jax_out / ARTIFACTS["dipcn"])
+    for out in (torch_out, flat_out):
+        t_ids, t_vals, _ = read_dipcn(out / ARTIFACTS["dipcn"])
+        assert t_ids == j_ids and len(t_ids) == 15
+        np.testing.assert_allclose(t_vals, j_vals, rtol=1e-9, atol=0)
+
+
+def test_auto_at_the_crossover_runs_the_ring_in_both_packages(cohort, f64_runs, tmp_path,
+                                                              monkeypatch):
+    """Under ``auto``, with the crossover patched down to the cohort's 15
+    samples, both packages take the ring (no flat-branch log line) on a
+    two-device mesh and write the same artifacts, which equal the flat
+    run's."""
+    import grid_tpu.parallel.policy as jax_policy
+    import grid_tpu_torch.pipeline as pipeline
+    import grid_tpu_torch.steps.fused as fused
+
+    def crossover_15(n, n_devices, dispatch="auto"):
+        return "ring" if n_devices > 1 and dispatch != "flat" and n >= 15 else "flat"
+
+    for module in (pipeline, fused, jax_policy):
+        monkeypatch.setattr(module, "choose_cohort_execution", crossover_15)
+    consoles = {"jax": Recorder(), "torch": Recorder()}
+    device = {"fused": True, "mesh_shape": [2]}
+    jax_pipeline.run_wgs_pipeline(console=consoles["jax"],
+                                  config=run_config(cohort, tmp_path / "jax", device))
+    run_wgs_pipeline(console=consoles["torch"],
+                     config=run_config(cohort, tmp_path / "torch", {**device, "platform": "cpu"}))
+    for c in consoles.values():
+        assert not [msg for msg, _ in c.lines if msg.startswith("dispatch policy:")]
+    assert "sharded step: 2 rank(s) on the CPU, transport gloo" in [
+        msg for msg, _ in consoles["torch"].lines]
+    for artifact in ("normalized", "neighbors", "haploid"):
+        name = ARTIFACTS[artifact]
+        assert content(tmp_path / "torch" / name) == content(tmp_path / "jax" / name), artifact
+        assert content(tmp_path / "torch" / name) == content(f64_runs[1] / name), artifact
+
+
+def test_a_failing_rank_raises_and_writes_no_artifact(cohort, tmp_path, monkeypatch):
+    """A rank that raises makes the parent raise RankFailure with the
+    rank's error; the pipeline does not hand the ring's failure to the
+    file-mode steps, and nothing is written."""
+    import grid_tpu_torch.parallel.pcohort as pcohort
+    import torch_ranks
+    from grid_tpu_torch.parallel import RankFailure
+
+    monkeypatch.setattr(pcohort, "_rank_step", torch_ranks.rank_step_failing_on_rank_1)
+    cfg = run_config(cohort, tmp_path, {**RING, "platform": "cpu"})
+    with pytest.raises(RankFailure, match="rank 1 fails on purpose"):
         run_wgs_pipeline(console=None, config=cfg)
     assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
-    roadmap = (Path(__file__).parent.parent / "ROADMAP.md").read_text()
-    assert item in roadmap
 
 
 POLICY_CASES = [  # tests/test_parallel.py's TestDispatchPolicy cases
@@ -299,28 +355,6 @@ def test_one_device_mesh_with_ring_raises_grid_tpu_s_value_error(cohort, tmp_pat
     with pytest.raises(ValueError, match=str(want.value)):
         run_wgs_pipeline(console=None, config=cfg)
     assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
-
-
-def test_auto_at_the_crossover_is_refused_before_any_step(cohort, tmp_path, monkeypatch):
-    """Under ``auto`` a sample list at or above the crossover would take the
-    ring in grid_tpu: the port refuses before step 1 writes anything; the
-    fused step asks the policy again with the staged N."""
-    import grid_tpu_torch.parallel.policy as policy
-    import grid_tpu_torch.pipeline as pipeline
-    import grid_tpu_torch.steps.fused as fused
-
-    def crossover_15(n, n_devices, dispatch="auto"):
-        return "ring" if n_devices > 1 and dispatch != "flat" and n >= 15 else "flat"
-
-    for module in (pipeline, fused):
-        monkeypatch.setattr(module, "choose_cohort_execution", crossover_15)
-    cfg = run_config(cohort, tmp_path, {"fused": True, "mesh_shape": [2], "platform": "cpu"})
-    with pytest.raises(NotImplementedError, match="Sharded layer"):
-        run_wgs_pipeline(console=None, config=cfg)
-    assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
-    with pytest.raises(NotImplementedError, match="N=15"):
-        fused.run_fused_steps(apply_defaults_port(cfg))
-    assert policy.choose_cohort_execution(15, 2) == "flat"
 
 
 def apply_defaults_port(cfg):

@@ -13,7 +13,8 @@ order over R), exactly symmetric, and at most twice the plain version's
 error against a float64 Gram; dipCN at rtol 1e-6 (the same take-set
 summed in another order). The Gram row panels and their norms are held to
 the same bounds; the norms must equal the diagonal of the kernel's own G
-bitwise. The wide dipCN mode is held to the plain version as the resident
+bitwise. The ring's cross mode must give bitwise the panel mode's entries
+for the same two rows. The wide dipCN mode is held to the plain version as the resident
 mode is, past column 65,535 too. The multi-weight dipCN form is held to its
 plain version at rtol 1e-5 (the plain form's [N, W] @ [W, L] product sums
 in another order), to the binary kernel per locus at rtol 1e-6 (it sums in
@@ -36,6 +37,8 @@ from grid_tpu_torch.ops.gpu_kernels import (
     masked_column_stats,
     masked_column_stats_plain,
     zprep_gram,
+    zprep_gram_cross,
+    zprep_gram_cross_plain,
     zprep_gram_panel,
     zprep_gram_panel_plain,
     zprep_gram_plain,
@@ -247,6 +250,40 @@ def test_zprep_gram_panel_kernel(cuda, n, r):
     p = plain.p.contiguous()
     bare = zprep_split(p, None, None, float("inf"))
     assert_close_to_max(zprep_gram_panel(bare, 5, 50).cpu(), (p[5:55] @ p.T).cpu(), 1e-5)
+
+
+@pytest.mark.parametrize("n,world,r", [(300, 3, 70), (1000, 4, 130), (1100, 2, 257),
+                                         (4096, 4, 64), (97, 2, 33)])
+def test_zprep_gram_cross_equals_the_panel_entries(cuda, n, world, r):
+    """The ring's block products, for every pair of blocks of B = ceil(n/W)
+    rows (ragged B and 128-aligned B), are bitwise the entries of one
+    zprep_gram_panel over all n rows, the mirrored lower halves of its
+    diagonal tiles included, and within 1e-5 of the plain P_a P_b^T."""
+    rng = np.random.default_rng(n + world)
+    z = torch.tensor(rng.normal(size=(n, r)) * 3, dtype=torch.float32, device=cuda)
+    mask = torch.tensor(rng.random((n, r)) > 0.1, device=cuda)
+    region = torch.tensor(rng.random(r) > 0.2, device=cuda)
+    zp = torch.where(mask, z.clamp(-2.0, 2.0), 0) * region[None, :].float()
+    panel = zprep_gram_panel(zprep_split(zp, None, None, float("inf")), 0, n)
+    b = -(-n // world)
+    zpad = torch.cat([zp, zp.new_zeros((b * world - n, r))])
+    blocks = [zprep_split(zpad[i * b:(i + 1) * b].contiguous(), None, None, float("inf"))
+              for i in range(world)]
+    plain = [zprep_split_plain(zpad[i * b:(i + 1) * b], None, None, float("inf"))
+             for i in range(world)]
+    before = zprep_gram_cross.launches
+    for a in range(world):
+        for o in range(world):
+            g = zprep_gram_cross(blocks[a], blocks[o], a * b, o * b)
+            assert g.shape == (b, b)
+            ra, ro = min(b, n - a * b), min(b, n - o * b)
+            if ra > 0 and ro > 0:
+                want = panel[a * b:a * b + ra, o * b:o * b + ro]
+                assert torch.equal(g[:ra, :ro], want), (a, o)
+            assert_close_to_max(g.cpu(), zprep_gram_cross_plain(plain[a], plain[o]).cpu(), 1e-5)
+    assert zprep_gram_cross.launches == before + world * world
+    with pytest.raises(ValueError):
+        zprep_gram_cross(blocks[0], blocks[1], -1, 0)
 
 
 # case: (n, w, k, n_nbr)

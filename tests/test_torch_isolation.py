@@ -70,7 +70,9 @@ def test_every_module_imports_without_jax_or_grid_tpu():
                  "grid_tpu_torch.steps.ingest", "grid_tpu_torch.ops.align",
                  "grid_tpu_torch.ops.gpu_align", "grid_tpu_torch.models.kiv",
                  "grid_tpu_torch.models.kiv_io", "grid_tpu_torch.models.realign",
-                 "grid_tpu_torch.io.fasta"):
+                 "grid_tpu_torch.io.fasta", "grid_tpu_torch.parallel.mesh",
+                 "grid_tpu_torch.parallel.pstats", "grid_tpu_torch.parallel.pknn",
+                 "grid_tpu_torch.parallel.pcohort"):
         assert name in imported
 
 
