@@ -185,7 +185,7 @@ before the last line):
              the batch route, and nothing fell back or logged a failure.
              Prints every run's step times, spans and host share and the
              one-pass ingest alone on 1 thread and on all cores (samples/s,
-             reads/s). (b) The CRAM route at N=256 (indel_frac 0.1),
+             reads/s). (b) The CRAM route at N=128 (indel_frac 0.1),
              fabricated as BAM and as CRAM from one seed: counts, coverage
              and bed.gz files from the native CRAM reader, from cramlite
              (the plain version, in spawned processes) and from the BAMs
@@ -256,6 +256,31 @@ before the last line):
              the four artifacts held to card run 1's under phase 9's rules.
              Times from W ranks on one card say nothing of scaling across
              cards.
+16. last   — the last modules (``auto_phase`` after phase 15 (a-c);
+             ``stage_phase`` and ``cache_phase`` inside phase 9). (a)
+             ``auto_sharded_cohort_step``, the gather form, at phase 8's
+             N=16,384 over 1 (NCCL), 2 and 4 (gloo) ranks: each logs its
+             transport; each rank launches the column statistics twice, the
+             split once, and ceil(B/512) panel Grams and dipCN selections,
+             no cross Gram; the step is held to phase 8's flat step as in
+             phase 15, and its lists, distances and dipCN bitwise to the
+             flat panel loop (``_panel_knn_dipcn``) run here on its own z;
+             at W=4 the gathered split is bitwise ``zprep_split`` of the
+             whole returned z. (b) N=65,536 over 4 ranks, held to phase 7's
+             flat step: the call's host time, each rank's step, spans and
+             peak memory, beside phase 15 (c)'s ring and phase 7's step.
+             (c) ``stage_cohort_sharded`` over 4 ranks on phase 9's files
+             equals the one-rank stage bitwise, and
+             ``staged_sharded_cohort_step`` over 4 ranks is held to
+             ``sharded_cohort_step`` from that stage's host arrays (indices
+             equal, dipCN rtol 1e-6); each rank's passes, host buffer and
+             peak RSS. (d) ``python -m grid_tpu_torch.cli wgs`` on phase 9's
+             fused config with ``device.compilation_cache`` a fresh
+             directory: cold (nvcc, g++ and Triton build there), warm, and
+             warm with ``GRID_TPU_PROFILE_DIR``: the libraries and Triton's
+             cache in the directory, build/grid_tpu_torch/ unchanged, a trace
+             per outermost step, the fused step's naming ``fused.device`` and
+             the hand kernels' device events, the artifacts equal.
 
 The last three lines are the kernels' JSON object (the panel-mode numbers
 at N=65,536; each entry's "slice_2504" holds phase 5's, "pipeline_2504"
@@ -267,8 +292,9 @@ form's row has the sweep's launches and its times at L=492; the
 Smith-Waterman row phase 13's, its launches those of the ``wes`` call; the
 column statistics' and Gram rows' "ring" entries phase 15's launches per
 rank and of its pipeline call, and a row of its own for the Gram kernel's
-cross mode, its launches those of phase 15 (a)'s four ranks), the card's
-name and power limit, and {"ok": true, "device": {...}}.
+cross mode, its launches those of phase 15 (a)'s four ranks; the column
+statistics', Gram and dipCN rows' "auto" entries phase 16's launches per
+rank), the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -330,13 +356,15 @@ MULTI_TIMED_L = (1, 32, MULTI_L)
 FP32_FLOP_PER_S = 67e12  # NVIDIA's data sheet, H100 SXM
 # phase 12: the alignment cohorts (the shape of scripts/bench_e2e_1000g.py)
 # and the least correlation of read counts with the fabricated truth
-ALIGN_N, ALIGN_SEED, ALIGN_DEPTH, ALIGN_CRAM_N = 2504, 9, 4.0, 256
+# (the CRAM route at 128 samples, the sequential steps at 32: cuts of 256
+# and 64 that leave room in the time limit for phase 16)
+ALIGN_N, ALIGN_SEED, ALIGN_DEPTH, ALIGN_CRAM_N = 2504, 9, 4.0, 128
 ALIGN_MIN_CORR = 0.9
 # the samples the sequential steps 2-3 run on: their step 3 parses each
 # genome-wide bed.gz (160,625 lines here) in Python, 0.36 s a file on the
 # card's host (45.968 s for 128 files on 8 threads), so the whole cohort
 # (~900 s) would not fit the time limit
-ALIGN_SEQ_N = 64
+ALIGN_SEQ_N = 32
 # phase 13: the WES path. The kernel's bound: a cell of the recurrence is 9
 # integer operations (the substitution's compare and select, three adds,
 # three maxes with the zero clamp, the running best); Hopper's DPX forms do
@@ -799,7 +827,8 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     del out, split, plain_split, inputs, z, zmask
     torch.cuda.empty_cache()
     # phase 15 (c) runs the ring on this cohort and holds it to this step
-    cohort = SimpleNamespace(values=values_np, mask=mask_np, reads=reads_np, flat=got)
+    cohort = SimpleNamespace(values=values_np, mask=mask_np, reads=reads_np, flat=got,
+                             step_ms=min(step_ms))
     return rows, zp, cohort
 
 
@@ -1017,7 +1046,399 @@ def ring_phase(dev, card: str, cohort_16384, cohort_65536, zp_65536) -> dict:
         "peak_bytes_per_rank_65536_w4": [rep["peak_bytes"] for rep in reports65],
         "cross_launches_16384_w4": sum(rep["zprep_gram_cross"] for rep in runs[4][1]),
         "seconds_65536_w4": wall65,
+        "rank_seconds_65536_w4": [rep["seconds"] for rep in reports65],
     }
+
+
+AUTO_WORLDS = (1, 2, 4)  # 1: NCCL (one rank per card); 2 and 4: gloo, sharing the card
+AUTO_BIOBANK_WORLD = 4
+STAGE_WORLD = 4
+
+
+@contextmanager
+def keeping(module, rank_fn: str, keeper, keep_dir):
+    """With ``keep_dir``, the ranks run ``keeper`` (a rank function of
+    ``tests/torch_ranks.py`` that runs ``module.<rank_fn>`` and saves what it
+    keeps to ``keep_dir``) in its place for the ``with`` block."""
+    import torch_ranks
+
+    if keep_dir is None:
+        yield
+        return
+    saved = os.environ.get(torch_ranks.KEEP_ENV)
+    os.environ[torch_ranks.KEEP_ENV] = str(keep_dir)
+    try:
+        with patched(module, {rank_fn: keeper}):
+            yield
+    finally:
+        if saved is None:
+            os.environ.pop(torch_ranks.KEEP_ENV)
+        else:
+            os.environ[torch_ranks.KEEP_ENV] = saved
+
+
+def auto_run(label: str, world: int, cohort, params, card: str, platform: str = "cuda",
+             keep_dir=None) -> tuple:
+    """One ``auto_sharded_cohort_step`` call over ``world`` ranks of the card
+    on ``cohort``, its transport and launches checked rank by rank. Returns
+    the outputs (numpy), the ranks' reports and the call's host seconds.
+    With ``keep_dir`` rank 0 saves the split it gathered there;
+    ``platform="cpu"`` rehearses it on gloo ranks of the host."""
+    import grid_tpu_torch.parallel.pcohort as pcohort
+    import torch_ranks
+    from grid_tpu_torch.convert import outputs_to_numpy
+    from grid_tpu_torch.parallel import auto_sharded_cohort_step
+    from grid_tpu_torch.parallel.mesh import COUNTED, choose_transport
+
+    n = cohort.values.shape[0]
+    b = n // world
+    panels = -(-b // params.row_block)
+    for fn in COUNTED.values():
+        fn.launches = 0
+    console, reports = Recorder(), []
+    step = auto_sharded_cohort_step(world, params, platform=platform, dtype=torch.float32,
+                                    console=console, reports=reports)
+    with keeping(pcohort, "_rank_auto_step", torch_ranks.auto_rank_keeping_split, keep_dir):
+        t0 = time.perf_counter()
+        out = step(cohort.values, cohort.mask, cohort.reads, np.ones(n, bool),
+                   *ring_neighbors(n), np.ones(n, bool))
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTED.items()}
+    transport = choose_transport(world, platform)
+    where = "the CPU" if platform == "cpu" else "1 card(s)"
+    said = [msg for msg, _ in console.lines if msg.startswith("sharded step:")]
+    check(said == [f"sharded step: {world} rank(s) on {where}, transport {transport}"],
+          f"auto {label}: transport line {said}")
+    want = {name: 0 for name in COUNTED} | {
+        "masked_column_stats": 2, "zprep_split": 1, "zprep_gram_panel": panels,
+        "dipcn_from_distances_gpu": panels}
+    for rank, rep in enumerate(reports):
+        got = {name: rep[name] for name in COUNTED}
+        check(got == want, f"auto {label}: rank {rank} launched {got}, expected {want}")
+    check(launches == {name: world * count for name, count in want.items()},
+          f"auto {label}: the parent's counts {launches}")
+    got = outputs_to_numpy(out)
+    check(got.nbr_idx.shape == (n, params.num_neighbors), f"auto {label}: nbr_idx shape")
+    check(np.isfinite(got.dipcn[got.dipcn_valid]).all(), f"auto {label}: non-finite dipCN")
+    spans = {key: statistics.mean(rep[key] for rep in reports)
+             for key in reports[0] if key.startswith(("sharded.", "auto."))}
+    print(f"[auto] {label}: auto_sharded_cohort_step over {world} rank(s), transport "
+          f"{transport}: {wall:.2f} s for the call (host clock: spawn, the ranks' start on the "
+          f"card, the step and the copies; {max(rep['start_seconds'] for rep in reports):.2f} s "
+          f"from the spawn to the last rank's start), "
+          f"{statistics.mean(rep['seconds'] for rep in reports):.3f} s for the step in the ranks "
+          f"(mean; " + ", ".join(f"{key} {sec:.3f} s" for key, sec in spans.items())
+          + f"); peak device memory per rank "
+          f"{', '.join('%.3f' % (rep['peak_bytes'] / 2**30) for rep in reports)} GiB; launches "
+          f"per rank {want}; {world} rank(s) on one card; {card}", flush=True)
+    return got, reports, wall
+
+
+def auto_phase(dev, card: str, cohort_16384, cohort_65536, ring: dict,
+               platform: str = "cuda") -> dict:
+    """Phase 16 (a, b): the gather form of the sharded step. (a) At phase
+    8's N=16,384 over 1 (NCCL), 2 and 4 (gloo) ranks, held to phase 8's
+    flat step (z and the column statistics within 1e-5 of their largest
+    entry, region_used equal, lists and dipCN under the tie rule) and,
+    bitwise, to the flat panel loop run here on the step's own z; at W=4
+    the split the step gathered is bitwise the split of the whole z. (b)
+    N=65,536 over 4 ranks, held to phase 7's flat step, with each rank's
+    spans and peak memory beside phase 15 (c)'s ring and phase 7's flat
+    step. Returns the launches per rank for the JSON line."""
+    from grid_tpu_torch.models.cohort import CohortParams, _panel_knn_dipcn
+    from grid_tpu_torch.ops.gpu_kernels import zprep_split
+    from torch_parity import assert_close_to_max
+
+    t_phase = time.perf_counter()
+    params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
+    flat = cohort_16384.flat
+    n, r = cohort_16384.values.shape
+    usable = flat.z_mask.any(axis=1)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="grid_tpu_torch_keep_") as keep_dir:
+        for world in AUTO_WORLDS:
+            label = f"N={n} R={r} k={K}, W={world}"
+            got, reports, wall = auto_run(label, world, cohort_16384, params, card, platform,
+                                          keep_dir if world == 4 else None)
+            z_err = assert_close_to_max(got.z, flat.z, 1e-5)
+            stat_err = max(assert_close_to_max(got.col_means, flat.col_means, 1e-5),
+                           assert_close_to_max(got.col_vars, flat.col_vars, 1e-5))
+            check(np.array_equal(got.region_used, flat.region_used),
+                  f"auto {label}: region_used")
+            summary = check_against(got, flat, usable, N_NBR, f"auto {label} vs the flat step")
+            # the flat panel loop, here, on the step's own z: bitwise
+            z, z_mask, region = (torch.tensor(a, device=dev) for a in (got.z, got.z_mask,
+                                                                      got.region_used))
+            sample_ok = z_mask.any(dim=1)
+            w = torch.tensor(cohort_16384.reads, dtype=torch.float32, device=dev) / torch.tensor(
+                got.scales, device=dev)
+            d, idx, dip, ok = (t.cpu().numpy() for t in _panel_knn_dipcn(
+                z, z_mask, region, sample_ok, w, sample_ok, params))
+            check(np.array_equal(got.nbr_idx, idx) and np.array_equal(got.nbr_sq_dists, d),
+                  f"auto {label}: the lists are not bitwise the flat panel loop's on the step's z")
+            check(np.array_equal(got.dipcn_valid, ok) and np.array_equal(got.dipcn[ok], dip[ok]),
+                  f"auto {label}: dipCN is not bitwise the flat panel loop's on the step's z")
+            print(f"[auto] {label} vs phase 8's flat step: z within 1e-5 of max|z| (max abs err "
+                  f"{z_err:.3e}), column means and variances within 1e-5 (max abs err "
+                  f"{stat_err:.3e}), region_used equal; {summary}. Lists, distances and dipCN "
+                  f"bitwise equal to the flat panel loop run here on the step's own z",
+                  flush=True)
+            if world == 4:  # the split the step gathered against the whole z's
+                kept = torch.load(Path(keep_dir) / "split.pt")
+                whole = zprep_split(z, z_mask, region, ZMAX)
+                check(torch.equal(kept["p"], whole.p.cpu())
+                      and torch.equal(kept["norms"], whole.norms.cpu()),
+                      f"auto {label}: the gathered split is not bitwise zprep_split of the "
+                      f"whole z")
+                print(f"[auto] {label}: the split the step gathered (the halves "
+                      f"{list(kept['p'].shape)} and the norms, saved by rank 0 after its step, "
+                      f"so rank 0's step seconds above include the save) is bitwise "
+                      f"zprep_split of the whole returned z", flush=True)
+                del kept, whole
+            del z, z_mask, region, w
+            runs[world] = (got, reports, wall)
+    torch.cuda.empty_cache()
+
+    # ---- (b) the biobank width over 4 ranks -------------------------------
+    n65, r65 = cohort_65536.values.shape
+    label = f"N={n65} R={r65} k={K}, W={AUTO_BIOBANK_WORLD}"
+    got65, reports65, wall65 = auto_run(label, AUTO_BIOBANK_WORLD, cohort_65536, params, card,
+                                        platform)
+    flat65 = cohort_65536.flat
+    summary = check_against(got65, flat65, flat65.z_mask.any(axis=1), N_NBR,
+                            f"auto {label} vs phase 7")
+    step_s = statistics.mean(rep["seconds"] for rep in reports65)
+    ring_s = statistics.mean(ring["rank_seconds_65536_w4"])
+    split_gib = 2 * n65 * r65 * 4 / 2**30
+    print(f"[auto] {label} vs phase 7's flat (panel-branch) step: {summary}", flush=True)
+    print(f"[auto] {label}: the call {wall65:.2f} s (host clock); the step in the ranks "
+          f"{step_s * 1e3:.1f} ms (mean of the ranks, host clock), beside this run's ring "
+          f"{ring_s * 1e3:.1f} ms (phase 15 (c), mean of its ranks) and the flat panel "
+          f"step's {cohort_65536.step_ms:.1f} ms (phase 7); the gathered split is "
+          f"{split_gib:.3f} GiB a rank, peak device memory per rank "
+          f"{', '.join('%.3f' % (rep['peak_bytes'] / 2**30) for rep in reports65)} GiB; "
+          f"{AUTO_BIOBANK_WORLD} ranks on one card say nothing of scaling across cards; {card}",
+          flush=True)
+    print(f"[auto] phase 16 (a, b) took {time.perf_counter() - t_phase:.1f} s (host clock)",
+          flush=True)
+    per_rank = lambda reports: {name: reports[0][name] for name in (  # noqa: E731
+        "masked_column_stats", "zprep_split", "zprep_gram_panel", "dipcn_from_distances_gpu",
+        "zprep_gram_cross")}
+    return {"launches_per_rank_16384_w4": per_rank(runs[4][1]),
+            "launches_per_rank_65536_w4": per_rank(reports65),
+            "peak_bytes_per_rank_65536_w4": [rep["peak_bytes"] for rep in reports65],
+            "step_s_65536_w4": step_s, "seconds_65536_w4": wall65}
+
+
+def load_stage(out: Path, prefix: str, world: int) -> dict:
+    """The blocks ``tests/torch_ranks.py`` saved for ``world`` ranks, in rank
+    order, with the stage's fields (checked equal on every rank)."""
+    blocks = [np.load(out / f"{prefix}.rank{rank}.npz") for rank in range(world)]
+    metas = [json.loads((out / f"{prefix}.rank{rank}.json").read_text()) for rank in range(world)]
+    check(all(m | {"row0": 0} == metas[0] | {"row0": 0} for m in metas),
+          f"{prefix}: the ranks' stage fields differ")
+    return {"values": np.concatenate([x["values"] for x in blocks]),
+            "mask": np.concatenate([x["mask"] for x in blocks]),
+            "regions": blocks[0]["regions"], "sample_rows": blocks[0]["sample_rows"],
+            "sample_ids": metas[0]["sample_ids"], "n": metas[0]["n"]}
+
+
+def stage_phase(card: str, tmp: Path, cohort: dict, base: dict, k: int, n_nbr: int,
+                platform: str = "cuda") -> None:
+    """Phase 16 (c): the sharded stager on phase 9's cohort on disk (its
+    repeat mask applied). ``staged_sharded_cohort_step`` over 4 ranks: the
+    stage its ranks made equals the one-rank stage bitwise, and the step is
+    held to ``sharded_cohort_step`` from the one-rank stage's host arrays
+    (neighbor indices equal, dipCN rtol 1e-6); each rank's passes, host
+    buffer and peak RSS are printed."""
+    import grid_tpu_torch.parallel.pcohort as pcohort
+    import torch_ranks
+    from grid_tpu_torch.convert import outputs_to_numpy
+    from grid_tpu_torch.io.bed import load_repeat_mask, map_bed_gz_to_samples
+    from grid_tpu_torch.io.formats import read_counts_tsv
+    from grid_tpu_torch.models.cohort import CohortParams
+    from grid_tpu_torch.parallel import run_ranks, sharded_cohort_step, staged_sharded_cohort_step
+    from grid_tpu_torch.parallel.mesh import RankWorkspace, block_rows
+
+    t_phase = time.perf_counter()
+    world = STAGE_WORLD
+    norm_cfg = base["mosdepth"]["normalize"]
+    lo, hi = norm_cfg["min_depth"], norm_cfg["max_depth"]
+    excluded = load_repeat_mask(norm_cfg["repeat_mask_file"])
+    work = base["mosdepth"]["work_dir"]
+    found = map_bed_gz_to_samples(work, cohort["ids"])
+    pairs = [(sid, str(found[sid])) for sid in sorted(found)]
+    ids = [sid for sid, _ in pairs]
+    n = len(pairs)
+    b = block_rows(n, world)
+
+    # ---- the one-rank stage: the reference, and the host arrays -----------
+    ref_dir = tmp / "stage16_w1"
+    ref_dir.mkdir()
+    t0 = time.perf_counter()
+    with RankWorkspace() as ws:
+        got = run_ranks(torch_ranks.stage_rank, 1,
+                        ([("files", [("files", pairs, excluded)], lo, hi, torch.float32)],
+                         str(ref_dir)), platform=platform, workspace=ws)
+    one_s = time.perf_counter() - t0
+    one = load_stage(ref_dir, "files", 1)
+    r = one["values"].shape[1]
+    check(one["sample_ids"] == ids and one["n"] == n and one["values"].shape == (n, r)
+          and np.array_equal(one["sample_rows"], np.arange(n)), "the one-rank stage's layout")
+
+    # ---- the staged step over `world` ranks, keeping each rank's stage ------
+    counts = read_counts_tsv(cohort["counts_file"])
+    params = CohortParams(num_neighbors=k, n_nbr=n_nbr, n_iters=N_ITERS, quantize=False)
+    hap = ring_neighbors(n)
+    reports = []
+    keep_dir = tmp / "stage16_kept"
+    keep_dir.mkdir()
+    with keeping(pcohort, "_rank_staged_step", torch_ranks.staged_rank_keeping_stage, keep_dir):
+        t0 = time.perf_counter()
+        stage, staged = staged_sharded_cohort_step(
+            world, work, cohort["ids"], counts, *hap, params, lo, hi, excluded=excluded,
+            platform=platform, dtype=torch.float32, reports=reports)
+        staged_s = time.perf_counter() - t0
+    staged = outputs_to_numpy(staged)
+    many = load_stage(keep_dir, "stage", world)
+    check(many["values"].shape == (b * world, r), f"the {world}-rank stage's shape")
+    check(many["sample_ids"] == stage.sample_ids == ids and stage.n == n, "stage sample_ids")
+    check(np.array_equal(many["regions"], one["regions"])
+          and np.array_equal(stage.regions, one["regions"]), "stage regions")
+    check(np.array_equal(many["sample_rows"], one["sample_rows"])
+          and np.array_equal(stage.sample_rows, one["sample_rows"]), "stage sample_rows")
+    check(np.array_equal(many["values"][:n], one["values"]) and not many["values"][n:].any(),
+          f"the {world}-rank stage's values are not bitwise the one-rank stage's")
+    check(np.array_equal(many["mask"][:n], one["mask"]) and not many["mask"][n:].any(),
+          f"the {world}-rank stage's mask differs from the one-rank stage's")
+    print(f"[stage] staged_sharded_cohort_step over {world} ranks on phase 9's {n} files: "
+          f"the stage its ranks made, [{b * world}, {r}] in blocks of {b}, equals "
+          f"stage_cohort_sharded in one rank (values bitwise, mask, regions, sample_ids, "
+          f"sample_rows; that call {one_s:.2f} s, its stage {got[0]['seconds']:.2f} s, started "
+          f"{got[0]['start_seconds']:.2f} s after the spawn); {card}", flush=True)
+
+    # ---- the staged step against the step from the stage's host arrays ------
+    reads = np.array([counts.get(sid, 0.0) for sid in ids])
+    reads_valid = np.array([sid in counts for sid in ids])
+    t0 = time.perf_counter()
+    want = outputs_to_numpy(sharded_cohort_step(world, one["values"], one["mask"], reads,
+                                                reads_valid, *hap, params, platform=platform,
+                                                dtype=torch.float32))
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(staged.nbr_idx[:n], want.nbr_idx[:n]),
+          "staged step: neighbor indices differ from the step from host arrays")
+    check(np.array_equal(staged.dipcn_valid[:n], want.dipcn_valid[:n])
+          and np.allclose(staged.dipcn[:n], want.dipcn[:n], rtol=1e-6, atol=0, equal_nan=True),
+          "staged step: dipCN beyond rtol 1e-6 of the step from host arrays")
+    nr_bytes = n * r * 4
+    for rank, rep in enumerate(reports):
+        print(f"[stage] rank {rank}: pass 1 {rep['stage.pass1']:.3f} s (with the merge), pass 2 "
+              f"{rep['stage.pass2']:.3f} s (with the copy to the card); host buffer "
+              f"[{rep['rows_per']}, {rep['r']}] float32 + mask + row_valid "
+              f"{rep['host_buffer_bytes'] / 2**20:.2f} MiB beside {nr_bytes / 2**20:.2f} MiB for "
+              f"[N, R] float32; peak RSS {rep['peak_rss_bytes'] / 2**30:.3f} GiB "
+              f"(getrusage: the process, torch and CUDA included), resident "
+              f"{rep['rss_bytes'] / 2**30:.3f} GiB at the step's end; started "
+              f"{rep['start_seconds']:.2f} s after the spawn; the step's spans "
+              + ", ".join(f"{key} {rep[key]:.3f} s" for key in rep if key.startswith("sharded."))
+              + f" (its normalize compiles Triton's column statistics: the parent cannot, "
+              f"R being known only after pass 1); {card}", flush=True)
+    print(f"[stage] staged_sharded_cohort_step over {world} ranks: {staged_s:.2f} s (host clock, "
+          f"spawn included; sharded_cohort_step from the host arrays {host_s:.2f} s): neighbor "
+          f"indices equal to the step from host arrays on all {n} rows, dipCN within rtol 1e-6; "
+          f"phase 16 (c) took {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+
+
+# the hand kernels' device functions, as torch.profiler names them
+OWN_KERNELS = ("split_kernel", "gram_kernel", "dipcn_select_kernel", "colstats")
+
+
+def cache_phase(card: str, tmp: Path, cohort: dict, base: dict, names: dict,
+                device: dict | None = None) -> None:
+    """Phase 16 (d): ``python -m grid_tpu_torch.cli wgs`` on phase 9's fused
+    config in subprocesses, with ``device.compilation_cache`` a fresh
+    directory: a cold call (nvcc, g++ and Triton build into it), a warm one,
+    and a warm one with ``GRID_TPU_PROFILE_DIR`` set. Fails unless the
+    libraries and Triton's cache are in the directory, build/grid_tpu_torch/
+    gained nothing, every outermost step wrote a trace, the fused step's
+    names ``fused.device`` and the hand kernels' device events, and the
+    profiled call's four artifacts equal the unprofiled call's. ``device``
+    adds keys to the config's device section (``{"platform": "cpu"}``
+    rehearses the calls on the host)."""
+    from grid_tpu_torch import native
+
+    repo = Path(__file__).resolve().parent
+    cache = tmp / "build_cache16"
+    listing = lambda d: sorted(str(p.relative_to(d)) for p in d.rglob("*")) if d.exists() else []  # noqa: E731
+    build_before = listing(native.BUILD_DIR)
+    env = {key: val for key, val in os.environ.items()
+           if key not in ("GRID_TPU_COMPILE_CACHE", "TRITON_CACHE_DIR", "GRID_TPU_PROFILE_DIR")}
+
+    def call(label: str, profile_dir: Path | None = None):
+        out = tmp / f"cache16_{label}"
+        out.mkdir()
+        cfg = copy.deepcopy(base)
+        cfg["output_dir"] = str(out)
+        cfg["device"] = {"fused": True, "compilation_cache": str(cache), **(device or {})}
+        (out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
+        cfg_path = out / "config.yaml"
+        cfg_path.write_text(json.dumps(cfg))  # JSON is YAML
+        call_env = dict(env, **({"GRID_TPU_PROFILE_DIR": str(profile_dir)} if profile_dir else {}))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "grid_tpu_torch.cli", "wgs", str(cfg_path)],
+                              cwd=repo, env=call_env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"cache call {label} failed:\n{proc.stdout[-2000:]}\n"
+                                    f"{proc.stderr[-4000:]}")
+        check(all((out / name).exists() for name in names.values()),
+              f"cache call {label}: an artifact is missing:\n{proc.stdout[-2000:]}")
+        timings = json.loads((out / "step_timings.json").read_text())
+        return out, timings, wall
+
+    _, cold_t, cold_s = call("cold")
+    built = listing(cache)
+    for prefix in ("libzprep_gram-", "libdipcn_select-", "libgridhost-"):
+        check(any(name.startswith(prefix) and name.endswith(".so") for name in built),
+              f"the build cache holds no {prefix}*.so: {built}")
+    triton_files = [name for name in built if name.startswith("triton/")]
+    check(len(triton_files) > 0, f"the build cache holds no Triton cache: {built}")
+    warm_out, warm_t, warm_s = call("warm")
+    check(listing(cache) == built, "the warm call built something")
+    traces = tmp / "traces16"
+    prof_out, prof_t, prof_s = call("profiled", traces)
+    check(listing(native.BUILD_DIR) == build_before,
+          "build/grid_tpu_torch/ changed during the calls with a build cache")
+    outer = sorted(name for name in prof_t if "." not in name)
+    check(sorted(p.name for p in traces.iterdir()) == outer,
+          f"traces {sorted(p.name for p in traces.iterdir())} != outermost steps {outer}")
+    for step in outer:
+        check((traces / step / "trace.json").exists(), f"no trace.json for {step}")
+    events = json.loads((traces / "fused_steps_4_7" / "trace.json").read_text())["traceEvents"]
+    found = {e.get("name", "") for e in events}
+    check("fused.device" in found, "the fused step's trace does not name fused.device")
+    device_names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    for kernel in OWN_KERNELS:
+        check(any(kernel in name for name in device_names),
+              f"the fused step's trace has no device event of {kernel}")
+    for name in names.values():
+        check(content(prof_out / name) == content(warm_out / name),
+              f"the profiled call's {name} differs from the unprofiled call's")
+    trace_mb = sum(p.stat().st_size for p in traces.rglob("*.json")) / 2**20
+    print(f"[cache] python -m grid_tpu_torch.cli wgs on phase 9's fused config, "
+          f"device.compilation_cache a fresh directory: cold call {cold_s:.2f} s "
+          f"(fused.device {cold_t['fused.device']:.3f} s; nvcc of zprep_gram and dipcn_select, "
+          f"g++ of the host library and Triton's column statistics all built into the "
+          f"directory, none seeded: {len(built)} files, {len(triton_files)} of them Triton's), "
+          f"warm call {warm_s:.2f} s (fused.device {warm_t['fused.device']:.3f} s, nothing "
+          f"built); build/grid_tpu_torch/ unchanged; host clock, each call a process of its "
+          f"own; {card}", flush=True)
+    print(f"[cache] warm call with GRID_TPU_PROFILE_DIR: {prof_s:.2f} s (fused.device "
+          f"{prof_t['fused.device']:.3f} s, fused_steps_4_7 {prof_t['fused_steps_4_7']:.3f} s "
+          f"against {warm_t['fused_steps_4_7']:.3f} s unprofiled); one trace.json for each of "
+          f"{outer} ({trace_mb:.1f} MiB in all); the fused step's names fused.device and device "
+          f"events of {', '.join(OWN_KERNELS)}; the four artifacts equal the unprofiled call's "
+          f"byte for byte (decompressed); {card}", flush=True)
 
 
 def fabricated_reads(cohort: dict, cfg: dict, read_len: int = 100) -> int:
@@ -2354,6 +2775,10 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
         # ---- phase 14 (b, c): compute_ibs in front of the fused steps -----
         ibs_launches = ibs_pipeline_phase(card, counted, tmp, cohort, base, names,
                                           resident_launches, k, n_nbr)
+
+        # ---- phase 16 (c, d): the sharded stager, the build cache, traces --
+        stage_phase(card, tmp, cohort, base, k, n_nbr)
+        cache_phase(card, tmp, cohort, base, names)
     check(not tmp.exists(), "the temporary directory was not removed")
     return ({name: launches[name] for name in wrappers}, files_launches, multi,
             {name: ibs_launches[name] for name in wrappers}, ring_launches)
@@ -3592,9 +4017,12 @@ def main() -> int:
 
     # ---- 15 (a-c). the sharded ring on W ranks of the one card ------------
     ring = ring_phase(dev, card, cohort_16384, cohort_65536, panel_zp)
+    # ---- 16 (a, b). the gather form on W ranks of the one card -----------
+    auto = auto_phase(dev, card, cohort_16384, cohort_65536, ring)
     del cohort_16384, cohort_65536
 
     # ---- 9. the pipeline, from files, 10. in file mode, 11. multi-locus ----
+    # (with 14 (b, c), 15 (d) and 16 (c, d) on the same cohort)
     pipeline_launches, files_launches, multi, ibs_launches, ring_launches = pipeline_phase(
         card, wrappers)
     multi_wide = multilocus_wide_phase(card, panel_zp)
@@ -3643,6 +4071,18 @@ def main() -> int:
             row["ring"]["pipeline_2504_w4"] = {name: ring_launches[name] for name in names}
         if row["name"] == "zprep_gram":
             row["ring"]["peak_bytes_per_rank_65536_w4"] = ring["peak_bytes_per_rank_65536_w4"]
+    # phase 16: the gather form's launches per rank
+    auto_names = {"masked_column_stats": ("masked_column_stats",),
+                  "zprep_gram": ("zprep_split", "zprep_gram_panel", "zprep_gram_cross"),
+                  "dipcn_from_distances_gpu": ("dipcn_from_distances_gpu",)}
+    for row in rows:
+        if row["name"] in auto_names:
+            row["auto"] = {key: {name: auto[key][name] for name in auto_names[row["name"]]}
+                           for key in ("launches_per_rank_16384_w4",
+                                       "launches_per_rank_65536_w4")}
+            if row["name"] == "zprep_gram":
+                row["auto"]["peak_bytes_per_rank_65536_w4"] = auto[
+                    "peak_bytes_per_rank_65536_w4"]
     # the cross mode as a row of its own: its main path is phase 15 (a)'s
     # run at N=16,384 over 4 ranks (the launches of all four ranks)
     cross = ring["zprep_gram"]["cross_16384_w4"]

@@ -106,17 +106,36 @@ def d2_resident(params: CohortParams, n: int, itemsize: int) -> bool:
 
 
 def _panel_knn_dipcn(z, z_mask, region_used, sample_ok, w, reads_valid, params: CohortParams):
-    """kNN and threshold dipCN by row panels: P's split once, then per
-    panel one Gram panel and its distances, read by the stable selection
-    and by the dipCN kernel. Never holds an [N, N] tensor."""
-    n, k = z.shape[0], params.num_neighbors
+    """kNN and threshold dipCN by row panels: P's split once, then
+    :func:`panel_knn_dipcn` of every row. Never holds an [N, N] tensor."""
     split = zprep_split(z, z_mask, region_used, params.zmax)
+    return panel_knn_dipcn(split, sample_ok, w, reads_valid, params)
+
+
+def panel_knn_dipcn(split, sample_ok, w, reads_valid, params: CohortParams, rows=None):
+    """kNN and threshold dipCN of the rows ``rows=(lo, hi)`` (default all)
+    against all N rows of ``split``, by row panels: per panel one Gram
+    panel and its distances, read by the stable selection and by the dipCN
+    kernel. The flat panel branch takes every row; the gather form of the
+    sharded step (``parallel/pcohort.py``) takes a rank's rows of the
+    gathered split.
+
+    Args:
+        split: P's split (:func:`grid_tpu_torch.ops.gpu_kernels.zprep_split`)
+            of all N rows.
+        sample_ok: [N] rows that may be neighbors.
+        w, reads_valid: [N] each row's dipCN weight and its usability.
+
+    Returns (sq_dists [hi-lo, k], nbr_idx [hi-lo, k] int32 of global rows,
+    dipcn [hi-lo], dipcn_valid [hi-lo]).
+    """
+    n, k = split.norms.shape[0], params.num_neighbors
     col_block = two_stage_width(n, k, None)
     sq, idx, dips, oks = [], [], [], []
-    for i0, d2 in d2_panels(split, params.row_block, sample_ok):
-        rows = slice(i0, i0 + d2.shape[0])
+    for i0, d2 in d2_panels(split, params.row_block, sample_ok, rows):
+        part = slice(i0, i0 + d2.shape[0])
         vals, nbr = smallest_k_two_stage(d2, k, col_block)
-        dip, ok = dipcn_from_distances_gpu(d2, w[rows], w, reads_valid, reads_valid[rows],
+        dip, ok = dipcn_from_distances_gpu(d2, w[part], w, reads_valid, reads_valid[part],
                                            k=k, n_nbr=params.n_nbr)
         del d2
         sq.append(vals)

@@ -4,7 +4,11 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``build/grid_tpu_torch/lib<name>-<key>.so``
 at the repository root) and loaded with ``ctypes``. The key is a hash of the
 source text and the nvcc flags, so a library is never reused for another
-source or other flags, whatever the files' times. Nothing is built when a
+source or other flags, whatever the files' times. The build cache that
+``utils.device.enable_compilation_cache`` names (``$GRID_TPU_COMPILE_CACHE``)
+takes the place of ``build/grid_tpu_torch/`` (:func:`build_dir`, read at each
+build, so the ranks of the sharded step, which inherit the variable, load the
+libraries the parent built there). Nothing is built when a
 module is imported: the first launch builds, and a failed build raises with
 nvcc's own messages. nvcc's report (registers, spills) is kept beside the
 library as ``lib<name>-<key>.log``.
@@ -33,6 +37,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from grid_tpu_torch.native_host import CACHE_ENV
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "grid_tpu_torch"
@@ -72,12 +78,17 @@ def _nvcc() -> str:
     raise KernelError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
 
 
+def build_dir() -> Path:
+    """Where the libraries are built: the build cache, else BUILD_DIR."""
+    return Path(os.environ.get(CACHE_ENV) or BUILD_DIR)
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` at its current text and
     ``NVCC_FLAGS`` lives (built or not)."""
     key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     key.update("\0".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
 _LOCKS_GUARD = threading.Lock()
@@ -100,7 +111,7 @@ def build(name: str) -> Path:
         lib = library_path(name)
         if lib.exists():
             return lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib.parent.mkdir(parents=True, exist_ok=True)
         # neither two processes nor two threads ever share a temporary file
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -135,6 +146,11 @@ def load(name: str) -> ctypes.CDLL:
         err_fn.restype = ctypes.c_char_p
         _LOADED[name] = lib
         return lib
+
+
+def loaded_paths() -> list:
+    """The paths of the kernel libraries this process has loaded."""
+    return [Path(lib._name) for lib in list(_LOADED.values())]
 
 
 def count_launch(wrapper, n: int = 1) -> None:

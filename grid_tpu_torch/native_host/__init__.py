@@ -9,7 +9,9 @@ Every file under ``csrc/host/`` is a byte-for-byte copy of
 sources with the flags of ``grid_tpu/native/Makefile`` (zlib and libdl
 only; libdeflate, bzip2 and lzma are opened at run time where the system has
 them) into ``build/grid_tpu_torch/libgridhost-<key>.so`` at the repository
-root, one compiler per source, all started together, then links them. The
+root (or into the build cache that ``utils.device.enable_compilation_cache``
+names, ``$GRID_TPU_COMPILE_CACHE``: :func:`build_dir`), one compiler per
+source, all started together, then links them. The
 key hashes the files and the flags, so a library is never reused for other
 text or other flags, whatever the files' times. Each build writes a file of
 its own and renames it into place, so processes that build at once leave one
@@ -55,6 +57,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc" / "host"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "grid_tpu_torch"
+CACHE_ENV = "GRID_TPU_COMPILE_CACHE"  # the build cache (utils/device.py)
 SOURCES = ("bedgz.cpp", "textgz.cpp", "bgzf.cpp", "bam.cpp", "cram.cpp", "batch.cpp",
            "ibs.cpp", "cram_write.cpp")
 FILES = ("bedwrite.h", "bgzf.h", "windows.h", *SOURCES)  # what the key hashes
@@ -78,6 +81,11 @@ def count_fallback(kind: str) -> None:
         fallbacks[kind] += 1
 
 
+def build_dir() -> Path:
+    """Where the library is built: the build cache, else BUILD_DIR."""
+    return Path(os.environ.get(CACHE_ENV) or BUILD_DIR)
+
+
 def library_path() -> Path:
     """Where the library of the current sources and flags lives (built or
     not)."""
@@ -85,7 +93,7 @@ def library_path() -> Path:
     for name in FILES:
         key.update(name.encode() + b"\0" + (CSRC / name).read_bytes() + b"\0")
     key.update("\0".join((CXX, *CXX_FLAGS, *LD_FLAGS)).encode())
-    return BUILD_DIR / f"libgridhost-{key.hexdigest()[:16]}.so"
+    return build_dir() / f"libgridhost-{key.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -95,9 +103,9 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    with tempfile.TemporaryDirectory(prefix=f"{lib.stem}.", dir=BUILD_DIR) as objdir:
+    with tempfile.TemporaryDirectory(prefix=f"{lib.stem}.", dir=lib.parent) as objdir:
         objects = [Path(objdir) / f"{Path(name).stem}.o" for name in SOURCES]
         compiles = [[CXX, *CXX_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
                     for name, obj in zip(SOURCES, objects)]
@@ -235,6 +243,12 @@ def lib() -> ctypes.CDLL | None:
         if not _LOADED:
             _LOADED.update(_load())
         return _LOADED["lib"]
+
+
+def loaded_paths() -> list:
+    """The host library's path where this process has loaded it."""
+    cdll = _LOADED.get("lib")
+    return [] if cdll is None else [Path(cdll._name)]
 
 
 def route() -> str:

@@ -148,16 +148,17 @@ def panel_d2(g, norms, i0: int, col_valid=None):
     return block_d2(g, norms[i0:i0 + g.shape[0]], norms, col_valid, self_offset=i0)
 
 
-def d2_panels(split: SplitZ, row_block: int, col_valid=None):
-    """Yield (i0, d2 [B, N]) for the row panels i0 = 0, B, 2B, ... of the
-    prepared rows in ``split`` (:func:`panel_d2` of each Gram panel; the last
-    panel has the rows that are left)."""
+def d2_panels(split: SplitZ, row_block: int, col_valid=None, rows=None):
+    """Yield (i0, d2 [B, N]) for the row panels i0 = lo, lo + B, ... of the
+    prepared rows lo .. hi-1 in ``split`` (``rows=(lo, hi)``, default all:
+    :func:`panel_d2` of each Gram panel against every row; the last panel
+    has the rows that are left)."""
     if row_block < 1:
         raise ValueError(f"row_block={row_block} must be >= 1")
-    n = split.norms.shape[0]
-    for i0 in range(0, n, row_block):
-        rows = min(row_block, n - i0)
-        yield i0, panel_d2(zprep_gram_panel(split, i0, rows), split.norms, i0, col_valid)
+    lo, hi = rows or (0, split.norms.shape[0])
+    for i0 in range(lo, hi, row_block):
+        count = min(row_block, hi - i0)
+        yield i0, panel_d2(zprep_gram_panel(split, i0, count), split.norms, i0, col_valid)
 
 
 def two_stage_width(n: int, k: int, col_block: int | None) -> int | None:

@@ -24,7 +24,8 @@ and outputs are CPU tensors that every rank maps from one file of a
 temporary directory (:class:`RankWorkspace`), so a rank writes its rows'
 outputs in place and nothing is gathered to rank 0; the directory also holds
 the process group's ``FileStore``, so runs side by side never compete for a
-port. A rank's exception reaches the parent, which raises
+port. The ranks inherit the parent's environment, the build cache's
+directory among it (``utils/device.py``), but not ``GRID_TPU_PROFILE_DIR``. A rank's exception reaches the parent, which raises
 :class:`RankFailure` after the other ranks are stopped. The parent loads the
 kernel libraries before it spawns, so the ranks do not each run nvcc.
 ``<wrapper>.launches`` counts per process: each rank reports its counts, the
@@ -49,6 +50,7 @@ from torch.multiprocessing.spawn import ProcessException
 from grid_tpu_torch import native
 from grid_tpu_torch.ops import gpu_kernels, gpu_select
 from grid_tpu_torch.utils.logging import log
+from grid_tpu_torch.utils.timing import PROFILE_ENV
 
 # the kernel wrappers whose launches a rank reports
 COUNTED = {
@@ -113,6 +115,10 @@ class CohortGroup:
             buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._pinned[slot] = buf
         return buf
+
+    def barrier(self) -> None:
+        """Wait until every rank has reached this call."""
+        dist.barrier(**({"device_ids": [self.device.index]} if self.transport == "nccl" else {}))
 
     def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """[B, ...] on every rank -> [W * B, ...], the ranks' blocks in rank
@@ -254,20 +260,23 @@ class RankWorkspace:
         return handle
 
 
-def _rank_main(rank, fn, world, platform, transport, run_dir, shapes, args):
+def _rank_main(rank, fn, world, platform, transport, run_dir, shapes, args, spawned_at):
     """A spawned rank: join the group, run ``fn(group, *args)``, write its
     report to ``rank<r>.json`` in ``run_dir``. An exception is written,
     with the time, to ``rank<r>.error`` there: the rank that failed first
     names the cause, the others' lost connections follow from it."""
     try:
-        _rank_body(rank, fn, world, platform, transport, run_dir, shapes, args)
+        _rank_body(rank, fn, world, platform, transport, run_dir, shapes, args, spawned_at)
     except BaseException:
         with open(os.path.join(run_dir, f"rank{rank}.error"), "w") as f:
             f.write(f"{time.time_ns()}\n{traceback.format_exc()}")
         raise
 
 
-def _rank_body(rank, fn, world, platform, transport, run_dir, shapes, args):
+def _rank_body(rank, fn, world, platform, transport, run_dir, shapes, args, spawned_at):
+    # a rank's spans write no trace: W ranks would write W traces of one
+    # name over each other (utils/timing.py)
+    os.environ.pop(PROFILE_ENV, None)
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     if platform == "cpu":
         device = torch.device("cpu")
@@ -285,6 +294,7 @@ def _rank_body(rank, fn, world, platform, transport, run_dir, shapes, args):
         group = CohortGroup(world, rank, device, transport)
         for wrapper in COUNTED.values():
             wrapper.launches = 0
+        started = time.time() - spawned_at
         t0 = time.perf_counter()
         extra = fn(group, *args) or {}
         peak = 0
@@ -292,7 +302,8 @@ def _rank_body(rank, fn, world, platform, transport, run_dir, shapes, args):
             torch.cuda.synchronize(device)
             peak = torch.cuda.max_memory_allocated(device)
         report = {name: wrapper.launches for name, wrapper in COUNTED.items()}
-        report.update(peak_bytes=peak, seconds=time.perf_counter() - t0, **extra)
+        report.update(peak_bytes=peak, seconds=time.perf_counter() - t0,
+                      start_seconds=started, **extra)
         with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
             json.dump(report, f)
     finally:
@@ -341,8 +352,10 @@ def run_ranks(fn, world: int, args, platform: str, workspace: RankWorkspace, con
 
     Returns one dict per rank: the launches of each counted wrapper (also
     added to this process's counts), ``peak_bytes`` of device memory,
-    ``seconds`` of ``fn`` on the rank's host clock after a device sync, and
-    what ``fn`` returned (a dict of numbers, or None). Raises
+    ``seconds`` of ``fn`` on the rank's host clock after a device sync,
+    ``start_seconds`` from the spawn to ``fn``'s start (the interpreter,
+    the imports, the group, the card's context and the kernels' loading),
+    and what ``fn`` returned (a dict of numbers, or None). Raises
     :class:`RankFailure` when a rank raises or dies.
     """
     if world < 1:
@@ -356,7 +369,8 @@ def run_ranks(fn, world: int, args, platform: str, workspace: RankWorkspace, con
         load_kernels(torch.device("cuda"), shapes)
     try:
         torch.multiprocessing.start_processes(
-            _rank_main, args=(fn, world, platform, transport, workspace.dir, shapes, args),
+            _rank_main,
+            args=(fn, world, platform, transport, workspace.dir, shapes, args, time.time()),
             nprocs=world, join=True, start_method="spawn")
     except ProcessException as e:
         raise RankFailure(_failure_message(workspace.dir, world, e)) from e

@@ -83,7 +83,7 @@ from grid_tpu_torch.steps.index import check_index, create_index
 from grid_tpu_torch.steps.ingest import fused_ingest_enabled, run_fused_ingest
 from grid_tpu_torch.steps.neighbors import find_neighbors
 from grid_tpu_torch.steps.normalize import normalize_mosdepth, stage_would_stream
-from grid_tpu_torch.utils.device import compute_dtype, config_device
+from grid_tpu_torch.utils.device import compute_dtype, config_device, enable_compilation_cache
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import StepTimer, step_timer
 
@@ -284,6 +284,7 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
     if validate:
         error_check_config(config_data, console)
     config_data = apply_defaults(config_data)
+    enable_compilation_cache(config_data.get("device", {}).get("compilation_cache"), console)
     _check_dispatch(config_data)
     device = None
     if any(section.get("run") is True for section, _, _ in _steps_4_7(config_data)):
@@ -404,6 +405,7 @@ def run_wes_pipeline(console=None, config=None, validate: bool = True):
     if validate:
         error_check_config(config_data, console, schema=WES_SCHEMA)
     config_data = apply_defaults(config_data, schema=WES_SCHEMA)
+    enable_compilation_cache(config_data.get("device", {}).get("compilation_cache"), console)
     device = None
     if config_data.get("realign", {}).get("run") is True:
         device = config_device(config_data)

@@ -43,6 +43,7 @@ from grid_tpu_torch.ops.knn import d2_matrix
 from grid_tpu_torch.pipeline import run_wgs_pipeline
 from grid_tpu_torch.steps.ingest import fused_ingest_enabled
 from grid_tpu_torch.steps.neighbors import load_neighbor_geometry
+from grid_tpu_torch.utils.device import enable_compilation_cache
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import step_timer
 
@@ -227,6 +228,7 @@ def run_multi_locus(config, genes, console=None, catalog=None, batched="auto", t
         config = load_config(config)
     error_check_config(config, console)
     config = apply_defaults(config)
+    enable_compilation_cache(config.get("device", {}).get("compilation_cache"), console)
 
     loci = {g: resolve_locus(g, catalog) for g in genes}
     cfgs = {g: locus_config(config, locus) for g, locus in loci.items()}

@@ -9,11 +9,29 @@ run on the card unless ``device.platform: cpu`` asks for the host
 (:func:`config_device`). The JAX package's ``AUTO_CPU_THRESHOLD`` policy,
 which quietly moves small cohorts to the host under ``platform: auto``, is
 not ported: here ``auto`` is the card, whatever the cohort's size.
+
+The build cache (:func:`enable_compilation_cache`, the JAX package's
+persistent compilation cache): the directory that the nvcc kernel libraries
+(``native.py``), the host library (``native_host``) and Triton's cache are
+built into, ``build/grid_tpu_torch/`` (Triton: its own default) until a
+directory is named.
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
 import torch
+
+from grid_tpu_torch.native_host import CACHE_ENV
+from grid_tpu_torch.utils.logging import log
+
+TRITON_CACHE_ENV = "TRITON_CACHE_DIR"
+
+# the first enable_compilation_cache call's directory, under "dir" (None:
+# no directory named, the default stays)
+_CACHE: dict = {}
 
 _DTYPES = {
     "float32": torch.float32,
@@ -86,3 +104,49 @@ def compute_dtype(config: dict | None, device: torch.device) -> torch.dtype:
             "float32 only; use float32 or auto on the card, or device.platform: cpu"
         )
     return torch.float32
+
+
+def enable_compilation_cache(cache_dir=None, console=None) -> Path | None:
+    """Name the build cache once per process; the first call wins, later
+    calls return its directory.
+
+    The directory is ``cache_dir`` (``device.compilation_cache``), else
+    ``$GRID_TPU_COMPILE_CACHE``, else none, and then the libraries stay in
+    ``build/grid_tpu_torch/``. A named directory is created, and written
+    to ``$GRID_TPU_COMPILE_CACHE``, which ``native.build_dir`` and
+    ``native_host.build_dir`` read at each build
+    and the ranks of the sharded step inherit (so a rank loads the libraries
+    the parent built there), and Triton's cache goes to ``<dir>/triton``
+    unless ``$TRITON_CACHE_DIR`` is set already. A library this process has
+    loaded already from another directory is logged, not loaded again.
+
+    Raises OSError naming the directory when it cannot be created: no other
+    place is the one the caller asked for.
+
+    Returns the directory, or None.
+    """
+    if "dir" in _CACHE:
+        return _CACHE["dir"]
+    chosen = cache_dir or os.environ.get(CACHE_ENV)
+    if not chosen:
+        _CACHE["dir"] = None
+        return None
+    path = Path(chosen).expanduser().absolute()
+    try:
+        path.mkdir(parents=True, exist_ok=True)
+    except OSError as e:
+        raise OSError(f"the build cache {path} cannot be created: {e}") from e
+    if not os.access(path, os.W_OK):
+        raise OSError(f"the build cache {path} is not writable")
+    os.environ[CACHE_ENV] = str(path)
+    if not os.environ.get(TRITON_CACHE_ENV):
+        os.environ[TRITON_CACHE_ENV] = str(path / "triton")
+    from grid_tpu_torch import native, native_host
+
+    for lib in (*native.loaded_paths(), *native_host.loaded_paths()):
+        if lib.parent != path:
+            log(console, f"{lib.name} stays loaded from {lib.parent}: it was built before the "
+                f"build cache {path} was named", style="info")
+    _CACHE["dir"] = path
+    return path
+

@@ -21,7 +21,9 @@ in another order), to the binary kernel per locus at rtol 1e-6 (it sums in
 float64, the binary kernel in float32), and its wide mode to its resident
 mode bitwise. The Smith-Waterman kernel equals its plain scan exactly
 (int32) in both its modes, and the WES pipeline on the card writes the CPU
-run's files byte for byte.
+run's files byte for byte. The gather form of the sharded step on one rank
+launches what its panels need and equals the flat panel loop on its own z
+bitwise; a named build cache receives the nvcc libraries.
 """
 
 import functools
@@ -703,3 +705,85 @@ def test_wes_on_card_matches_the_cpu_run(cuda, tmp_path):
                      "kiv2_estimates.tsv"):
         assert (outs["card"][0] / artifact).read_bytes() == \
             (outs["cpu"][0] / artifact).read_bytes()
+
+
+def test_gather_form_on_one_rank_equals_the_flat_panel_loop(cuda):
+    """``auto_sharded_cohort_step`` over one rank (NCCL, a group of one):
+    2 column statistics, 1 split, a panel Gram and a wide-or-resident dipCN
+    per 256-row panel, no cross Gram; its lists and dipCN bitwise those of
+    ``_panel_knn_dipcn`` on its own z, and within the tie rule of the
+    single-device step's."""
+    from grid_tpu_torch.models.cohort import _panel_knn_dipcn
+    from grid_tpu_torch.parallel import auto_sharded_cohort_step
+
+    rng = np.random.default_rng(4)
+    n, r = 700, 160
+    values = rng.uniform(20, 40, (n, r)) * rng.normal(1, 0.1, (n, r)).clip(0.5, None)
+    mask = rng.random((n, r)) > 0.02
+    reads = rng.integers(500, 3000, n).astype(np.float64)
+    reads_valid = rng.random(n) > 0.05
+    ring = [[((h + 2) % (2 * n), 1.0), ((h - 2) % (2 * n), 0.5)] for h in range(2 * n)]
+    hap = pad_hap_neighbors(ring, 2)
+    params = CohortParams(num_neighbors=60, n_nbr=30, n_iters=10, quantize=False, row_block=256)
+    reports = []
+    got = outputs_to_numpy(auto_sharded_cohort_step(1, params, reports=reports)(
+        values.astype(np.float32), mask, reads.astype(np.float32), reads_valid, *hap,
+        np.ones(n, bool)))
+    panels = -(-n // params.row_block)
+    assert {name: reports[0][name] for name in ("masked_column_stats", "zprep_split",
+                                                "zprep_gram_panel", "dipcn_from_distances_gpu",
+                                                "zprep_gram_cross", "zprep_gram")} == {
+        "masked_column_stats": 2, "zprep_split": 1, "zprep_gram_panel": panels,
+        "dipcn_from_distances_gpu": panels, "zprep_gram_cross": 0, "zprep_gram": 0}
+    z, z_mask, region = (torch.tensor(a, device=cuda) for a in (got.z, got.z_mask,
+                                                                got.region_used))
+    scales = torch.tensor(got.scales, device=cuda)
+    usable = torch.tensor(reads_valid, device=cuda) & z_mask.any(dim=1)
+    w = torch.tensor(reads, dtype=torch.float32, device=cuda) / scales
+    d, idx, dip, ok = (t.cpu().numpy() for t in _panel_knn_dipcn(
+        z, z_mask, region, z_mask.any(dim=1), w, usable, params))
+    np.testing.assert_array_equal(got.nbr_idx, idx)
+    np.testing.assert_array_equal(got.nbr_sq_dists, d)
+    np.testing.assert_array_equal(got.dipcn_valid, ok)
+    np.testing.assert_array_equal(got.dipcn[ok], dip[ok])
+    flat = outputs_to_numpy(cohort_step(*inputs_to_torch(values, mask, reads, reads_valid, *hap,
+                                                         cuda, torch.float32), params))
+    assert_close_to_max(got.z, flat.z, 1e-5)
+    np.testing.assert_array_equal(got.region_used, flat.region_used)
+    neighbor_rows_differing(got.nbr_idx, got.nbr_sq_dists, flat.nbr_idx, flat.nbr_sq_dists,
+                            tol=1e-5 * flat.nbr_sq_dists[:, -1])
+
+
+_BUILD_INTO_CACHE = r"""
+import sys
+from pathlib import Path
+from grid_tpu_torch.utils.device import enable_compilation_cache
+cache = enable_compilation_cache(sys.argv[1])
+from grid_tpu_torch import native
+native.load("dipcn_select")
+print(native.loaded_paths()[0])
+"""
+
+
+def test_a_named_build_cache_receives_the_nvcc_libraries(cuda, tmp_path):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from grid_tpu_torch import native
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("GRID_TPU_COMPILE_CACHE", "TRITON_CACHE_DIR")}
+    before = sorted(p.name for p in native.BUILD_DIR.glob("*")) if native.BUILD_DIR.exists() \
+        else []
+    proc = subprocess.run([sys.executable, "-c", _BUILD_INTO_CACHE, str(tmp_path)], env=env,
+                          cwd=Path(__file__).resolve().parent.parent, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    built = Path(proc.stdout.strip().splitlines()[-1])
+    assert built.parent == tmp_path and built.name.startswith("libdipcn_select-")
+    assert built.with_suffix(".log").exists()
+    after = sorted(p.name for p in native.BUILD_DIR.glob("*")) if native.BUILD_DIR.exists() \
+        else []
+    assert after == before

@@ -38,6 +38,10 @@ import grid_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(grid_tpu_torch.__path__, "grid_tpu_torch."))
 for name in names:
     importlib.import_module(name)
+from grid_tpu_torch.io.staging import ShardedCohortStage, bed_source, stage_cohort_sharded
+from grid_tpu_torch.parallel import auto_sharded_cohort_step, staged_sharded_cohort_step
+from grid_tpu_torch.utils.device import enable_compilation_cache
+from grid_tpu_torch.utils.timing import PROFILE_ENV
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 assert "triton" not in sys.modules, "triton is imported at launch time only"
@@ -72,7 +76,8 @@ def test_every_module_imports_without_jax_or_grid_tpu():
                  "grid_tpu_torch.models.kiv_io", "grid_tpu_torch.models.realign",
                  "grid_tpu_torch.io.fasta", "grid_tpu_torch.parallel.mesh",
                  "grid_tpu_torch.parallel.pstats", "grid_tpu_torch.parallel.pknn",
-                 "grid_tpu_torch.parallel.pcohort"):
+                 "grid_tpu_torch.parallel.pcohort", "grid_tpu_torch.parallel",
+                 "grid_tpu_torch.utils.timing"):
         assert name in imported
 
 

@@ -1,5 +1,7 @@
 """Rank functions for the sharded layer's tests (``tests/test_torch_parallel.py``,
-``tests/test_torch_fused.py``).
+``tests/test_torch_fused.py``, ``tests/test_torch_staging_sharded.py``,
+``tests/test_torch_auto_sharded.py``, ``tests/test_torch_utils.py``) and
+for ``chip_smoke.py``.
 
 ``run_ranks`` spawns its ranks, which import the function they run by its
 module's name: these live here, in a module that imports no JAX, so a
@@ -9,13 +11,26 @@ shared tensors it is handed; the test holds them to ``grid_tpu``'s.
 
 from __future__ import annotations
 
+import json
+import os
+
+import grid_tpu_torch.io.staging as staging
+import grid_tpu_torch.parallel.pcohort as pcohort
 import grid_tpu_torch.parallel.pknn as pknn
+import numpy as np
 import torch
+from grid_tpu_torch import native
+from grid_tpu_torch.io.staging import bed_files_source, stage_cohort_sharded
+from grid_tpu_torch.models.cohort import CohortParams, panel_knn_dipcn
+from grid_tpu_torch.ops.gpu_kernels import zprep_split
 from grid_tpu_torch.ops.normalize import select_high_variance_mask
 from grid_tpu_torch.parallel.mesh import shard_cohort_inputs
 from grid_tpu_torch.parallel.pcohort import _rank_step
 from grid_tpu_torch.parallel.pstats import normalize_cohort_sharded
 
+# where the keeping rank functions below save what they keep (a directory
+# the parent names before it spawns the ranks, which inherit it)
+KEEP_ENV = "GRID_TPU_TORCH_KEEP_DIR"
 NORMALIZE_ROW_FIELDS = ("z", "mask", "row_means_raw")
 NORMALIZE_COL_FIELDS = ("col_means", "col_vars", "var_ratio", "scale", "selected")
 
@@ -77,3 +92,104 @@ def both_rank(group, norm_cases, knn_cases):
     """:func:`normalize_rank`, then :func:`knn_rank`, in one spawn."""
     normalize_rank(group, norm_cases)
     knn_rank(group, knn_cases)
+
+
+def stage_rank(group, cases, out_dir):
+    """Each case: (name, per_rank, min_depth, max_depth, dtype), per_rank
+    holding each rank's source: a list of (sample, segments), or
+    ``("files", [(sample, path), ...])`` (with a repeat mask as a third
+    item where one applies) read through ``bed_files_source``.
+    The rank stages its source and saves its block and the stage's fields
+    (:func:`_save_stage`) to ``<out_dir>/<name>.rank<r>``."""
+    for name, per_rank, min_depth, max_depth, dtype in cases:
+        mine = per_rank[group.rank]
+        if isinstance(mine, tuple) and mine[0] == "files":
+            source = bed_files_source(*mine[1:])
+        else:
+            source = lambda mine=mine: iter(mine)  # noqa: E731
+        st = stage_cohort_sharded(source, group, min_depth, max_depth, dtype=dtype)
+        _save_stage(st, os.path.join(out_dir, f"{name}.rank{group.rank}"))
+
+
+def _save_stage(st, base: str) -> None:
+    """A rank's stage: its block and the arrays to ``<base>.npz``, the
+    lists to ``<base>.json``."""
+    np.savez(base + ".npz", values=st.values.cpu().numpy(), mask=st.mask.cpu().numpy(),
+             row_valid=st.row_valid.cpu().numpy(), regions=st.regions,
+             sample_rows=st.sample_rows)
+    with open(base + ".json", "w") as f:
+        json.dump({"sample_ids": st.sample_ids, "chroms": st.chroms, "n": st.n,
+                   "row0": st.row0}, f)
+
+
+def auto_knn_rank(group, cases):
+    """Each case: (z, z_mask, region, zmax, row_valid, w, usable, k, n_nbr,
+    row_block, outputs), the tensors as handles (z_mask and region may be
+    None, for z prepared already), whole on every rank, N a multiple of W.
+    The rank splits its block of z, gathers the split as the gather form
+    does (``pcohort.gather_split``) and takes its rows through
+    ``panel_knn_dipcn``; it writes its rows of the lists and dipCN, and
+    rank 0 the gathered split's halves (P itself on the CPU) and norms."""
+    for z_h, m_h, r_h, zmax, valid_h, w_h, u_h, k, n_nbr, row_block, outs in cases:
+        z, valid, w, usable = (h.open().to(group.device) for h in (z_h, valid_h, w_h, u_h))
+        mask, region = (None if h is None else h.open().to(group.device) for h in (m_h, r_h))
+        b = z.shape[0] // group.world
+        rows = slice(group.rank * b, (group.rank + 1) * b)
+        block = zprep_split(z[rows].contiguous(), None if mask is None else mask[rows].contiguous(),
+                            region, zmax)
+        whole = pcohort.gather_split(group, block)
+        params = CohortParams(num_neighbors=k, n_nbr=n_nbr, row_block=row_block)
+        found = panel_knn_dipcn(whole, valid, w, usable, params, rows=(rows.start, rows.stop))
+        for name, t in zip(("d", "idx", "dipcn", "dipcn_valid"), found):
+            outs[name].open()[rows] = t.cpu()
+        if group.rank == 0:
+            outs["p"].open().copy_(whole.p.cpu())
+            outs["norms"].open().copy_(whole.norms.cpu())
+
+
+def cache_rank(group):
+    """Report where this rank builds the kernel libraries and Triton's
+    cache."""
+    return {"build_dir": str(native.build_dir()),
+            "triton_cache": os.environ.get("TRITON_CACHE_DIR", "")}
+
+
+def auto_rank_keeping_split(group, *args):
+    """``pcohort._rank_auto_step``, which the parent replaces by this: the
+    step as it is, then rank 0 saves the split it gathered to
+    ``$GRID_TPU_TORCH_KEEP_DIR/split.pt``."""
+    real, kept = pcohort.gather_split, {}
+
+    def keep(group_, split):
+        kept["whole"] = real(group_, split)
+        return kept["whole"]
+
+    pcohort.gather_split = keep
+    try:
+        report = pcohort._rank_auto_step(group, *args)
+    finally:
+        pcohort.gather_split = real
+    if group.rank == 0:
+        whole = kept["whole"]
+        torch.save({"p": whole.p.cpu(), "norms": whole.norms.cpu()},
+                   os.path.join(os.environ[KEEP_ENV], "split.pt"))
+    return report
+
+
+def staged_rank_keeping_stage(group, *args):
+    """``pcohort._rank_staged_step``, which the parent replaces by this: the
+    step as it is, then the rank saves the block it staged, as
+    :func:`stage_rank` does, to ``$GRID_TPU_TORCH_KEEP_DIR/stage.rank<r>``."""
+    real, kept = staging.stage_cohort_sharded, {}
+
+    def keep(*a, **kw):
+        kept["stage"] = real(*a, **kw)
+        return kept["stage"]
+
+    staging.stage_cohort_sharded = keep
+    try:
+        report = pcohort._rank_staged_step(group, *args)
+    finally:
+        staging.stage_cohort_sharded = real
+    _save_stage(kept["stage"], os.path.join(os.environ[KEEP_ENV], f"stage.rank{group.rank}"))
+    return report
