@@ -24,11 +24,21 @@ before the last line):
              all-equal distances and on a wide [64, 23170] row block; the
              column statistics must be bitwise equal on two calls; the Gram
              matrix must be exactly symmetric and within 2x the plain
-             version's error against a float64 Gram.
+             version's error against a float64 Gram. The sorted k-smallest
+             selection (knn_select) must give bitwise the stable sort's
+             values and positions, in both its modes, on the slice's d2,
+             forced ties (k = 1, 20, W), all-equal distances, the wide rows
+             and the ring merge's [best | d2] layout; the phasing sweeps
+             (phase_sweeps) must agree with the plain sweeps within rtol
+             1e-5 with the same NaNs, in both modes (bitwise with each
+             other), on the ring lists and random lists of 10; on 20
+             bootstrap replicates, whose values decaying towards 0 keep no
+             1e-5 relative accuracy in float32, its relative error against
+             float64 sweeps must be at most twice the plain version's.
 4. slice   — cohort_step at N=2504, R=2048, k=500, n_nbr=300, 100 phasing
-             sweeps on the card; checks every kernel launched during it and
-             that its outputs match the same call on CPU tensors (the plain
-             route).
+             sweeps on the card; checks every kernel launched during it
+             (knn_select and phase_sweeps once each) and that its outputs
+             match the same call on CPU tensors (the plain route).
 5. times   — CUDA-event medians of 20 runs: the slice, and each kernel
              beside its plain version (the Gram product also in TFLOP/s and
              beside torch.mm as its library call); each kernel also as 20
@@ -38,7 +48,12 @@ before the last line):
              share of that bound; dipCN's resident and wide modes on the
              same rows (the slice's d2, and square distances of widths up
              to 23,170), which must agree bitwise; the column statistics also at the
-             genome-wide 100 x 3,000,000.
+             genome-wide 100 x 3,000,000. knn_select beside the stable
+             torch.sort (its library yardstick) and torch.topk; phase_sweeps
+             beside the Python loop of sweeps, also at 20 replicates, its
+             two modes on lists of 2 and of 10 slots, and the per-sweep
+             mode's floor (100 empty launches back to back); its bound
+             counts its inputs read once and its output written once.
 6. profile — the slice's device time per step under torch.profiler, by
              kernel, and its share of the step time of phase 5.
 7. panels  — the row-panel branch: cohort_step at N=65,536, R=1024, k=500,
@@ -46,12 +61,14 @@ before the last line):
              panels of 512 rows). Checks that it launched the split, the
              panel Gram, the wide-row dipCN and the column statistics, and
              prints its peak device memory; holds each kernel against its
-             plain version on the card at the panel shapes, one panel's
-             two-stage selection against a flat stable sort, and the step
-             against the plain route on the card (torch.mm with TF32 off,
-             stable sorts, plain dipCN per panel; normalize on the CPU);
-             times the step, each kernel per panel and the stable
-             selection, and profiles the step's device time by kernel.
+             plain version on the card at the panel shapes (knn_select in its
+             wide mode bitwise a flat stable sort), and the step against the
+             plain route on the card (torch.mm with TF32 off, stable sorts,
+             plain dipCN per panel; normalize on the CPU); times the step,
+             each kernel per panel beside its plain version (the selection
+             also beside the stable sort and torch.topk; the phasing's 100
+             per-sweep launches beside the Python loop), and profiles the
+             step's device time by kernel: no sort may run once per panel.
 8. branches — the resident and the panel branch on the same N=16,384
              cohort (the panel run with d2_budget_bytes lowered): they must
              agree, and both step times are printed.
@@ -227,7 +244,7 @@ before the last line):
              process (all cores as threads, no platform named). Fails unless
              the kernel launched once per sample, the counts equal the
              fabrication's truth (every background read unclassified, every
-             exon read to its label), the counts of 64 samples equal the
+             exon read to its label), the counts of 32 samples equal the
              plain scan's on the card byte for byte, and all three later
              artifacts are written; prints the spans, the host share and one
              sample's time by part.
@@ -294,7 +311,9 @@ column statistics' and Gram rows' "ring" entries phase 15's launches per
 rank and of its pipeline call, and a row of its own for the Gram kernel's
 cross mode, its launches those of phase 15 (a)'s four ranks; the column
 statistics', Gram and dipCN rows' "auto" entries phase 16's launches per
-rank), the card's name and power limit, and {"ok": true, "device": {...}}.
+rank; the knn_select and phase_sweeps rows likewise, with their "ring" and
+"auto" launches per rank), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -356,9 +375,10 @@ MULTI_TIMED_L = (1, 32, MULTI_L)
 FP32_FLOP_PER_S = 67e12  # NVIDIA's data sheet, H100 SXM
 # phase 12: the alignment cohorts (the shape of scripts/bench_e2e_1000g.py)
 # and the least correlation of read counts with the fabricated truth
-# (the CRAM route at 128 samples, the sequential steps at 32: cuts of 256
-# and 64 that leave room in the time limit for phase 16)
-ALIGN_N, ALIGN_SEED, ALIGN_DEPTH, ALIGN_CRAM_N = 2504, 9, 4.0, 128
+# (the CRAM route at 64 samples, the sequential steps at 32: cuts of 256
+# and 64 that leave room in the time limit for phase 16, and of 128 for the
+# selection and phasing kernels' checks)
+ALIGN_N, ALIGN_SEED, ALIGN_DEPTH, ALIGN_CRAM_N = 2504, 9, 4.0, 64
 ALIGN_MIN_CORR = 0.9
 # the samples the sequential steps 2-3 run on: their step 3 parses each
 # genome-wide bed.gz (160,625 lines here) in Python, 0.36 s a file on the
@@ -373,7 +393,8 @@ ALIGN_SEQ_N = 32
 # issue limit of 4 warp instructions a clock (integer work can reach it
 # split between the ALU and the FMA pipe). The cohort is the KIV-2 window
 # at ~30x (~8,000 reads of 150 bases a sample), 256 samples (a cut forced
-# by the time limit), 64 of them again on the plain scan
+# by the time limit), 32 of them again on the plain scan (64 until the
+# selection and phasing kernels' checks needed the time)
 SW_OPS_PER_CELL = 6
 # the packed form's least: a register holds two cells, which take the
 # prmt of their substitutions from the column's profile, the 16x2 max-adds
@@ -384,7 +405,7 @@ SW_LANES_PER_SM = 4 * 32
 SW_SEED = 10
 SW_TIMED_Q = (8192, 32768)
 SW_SMALL_Q = 1024  # a few reads: the chooser takes more lanes a unit
-WES_N, WES_PLAIN_N, WES_READS, WES_SEED = 256, 64, 8000, 13
+WES_N, WES_PLAIN_N, WES_READS, WES_SEED = 256, 32, 8000, 13
 WES_READ_LEN = 150
 WES_WINDOW = ("chr6", 160_605_062, 160_647_661)
 WES_CHROM_LEN = 170_805_979
@@ -404,6 +425,38 @@ IBS_CHECK = (512, 2_000, 20)
 IBS_SEED, IBS_PANEL_SITES, IBS_K, IBS_MIN_RHO = 14, 400, 20, 0.5
 TOOLS_BAM_N, TOOLS_CRAM_N = 64, 16
 TOOLS_WINDOW = ("chr6", 160_605_000, 160_615_000)  # the alignment cohorts' VNTR window
+
+
+# the wrappers of the selection and phasing kernels, which phases 4, 7, 15
+# and 16 count beside the three wrappers of the earlier kernels
+SELECTION = ("sorted_smallest_k_gpu", "phase_sweeps_gpu")
+
+
+def phasing_launches(n: int, k: int, n_iters: int) -> int:
+    """The phase_sweeps launches of one phasing of n samples with lists of k
+    slots on the card: one in its resident mode, one per sweep beyond it."""
+    from grid_tpu_torch.ops.phasing import phase_sweeps_mode
+
+    return 1 if phase_sweeps_mode(n, k, torch.device("cuda")) == "resident" else n_iters
+
+
+def hap_start(irrs, nbr_valid, min_nbr: int = 1):
+    """The sweeps' starting values [2N] of phase_haplotypes."""
+    deg = nbr_valid.sum(dim=1).reshape(-1, 2)
+    phased = (deg[:, 0] >= min_nbr) & (deg[:, 1] >= min_nbr) & torch.isfinite(irrs)
+    return torch.where(phased, irrs / 2, torch.nan).repeat_interleave(2)
+
+
+def random_hap_lists(n: int, k: int, dev, seed: int):
+    """Padded haplotype neighbor lists [2N, K] on ``dev``: degrees 0..K
+    (every 11th list empty), neighbors and weights drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, k + 1, 2 * n)
+    deg[::11] = 0
+    valid = np.arange(k)[None, :] < deg[:, None]
+    idx = np.where(valid, rng.integers(0, 2 * n, (2 * n, k)), 0).astype(np.int32)
+    w = np.where(valid, rng.uniform(0.1, 1.0, (2 * n, k)), 0).astype(np.float32)
+    return [torch.tensor(a, device=dev) for a in (idx, w, valid)]
 
 
 def check(ok, msg: str) -> None:
@@ -453,6 +506,21 @@ def bound_ms(n_bytes: float, flop: float = 0.0, flop_per_s: float = TF32_FLOP_PE
     over the HBM rate and the operations over the peak."""
     by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flop / flop_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def sweeps_bound_ms(hap, irrs, idx, w, valid, n_iters: int):
+    """phase_sweeps' bound on its inputs: each read once (the start
+    vector, irrs, the lists as given, the validity bytes) and [B, 2N]
+    float32 written once; 3 float32 operations a valid slot (a product,
+    two sums) and 9 a sample (divisions, sums and products of the update)
+    in each sweep, counted over the samples whose values are not both NaN
+    at the start (the others walk no list), at the float32 peak."""
+    reps = idx.shape[0] if idx.dim() == 3 else 1
+    n_bytes = (sum(t.numel() * t.element_size() for t in (hap, irrs, idx, w, valid))
+               + 4 * reps * hap.numel())
+    live = ~hap.isnan().reshape(-1, 2).all(dim=1)
+    slots = int(valid.reshape(live.numel(), -1)[live].sum())
+    return bound_ms(n_bytes, n_iters * reps * (3 * slots + 9 * int(live.sum())), FP32_FLOP_PER_S)
 
 
 def max_abs(a, b) -> float:
@@ -568,12 +636,12 @@ def check_against(got, want, usable, n_nbr: int, label: str) -> str:
 def plain_panel_route(values_np, mask_np, reads_np, reads_valid_np, params, dev):
     """The panel step's kNN and dipCN by the plain route: normalize by the
     plain versions (CPU tensors), then on the card per row panel torch.mm of
-    the prepared rows (TF32 off), the epilogue, stable two-stage sorts and
-    the plain dipcn_from_distances. Returns the outputs it computes, as
+    the prepared rows (TF32 off), the epilogue, stable sorts of the rows
+    and the plain dipcn_from_distances. Returns the outputs it computes, as
     numpy arrays in a dict."""
     from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel_plain, zprep_split_plain
     from grid_tpu_torch.ops.knn import (
-        panel_d2, prepare_z, region_filter_mask, smallest_k_two_stage, two_stage_width,
+        panel_d2, prepare_z, region_filter_mask, sorted_smallest_k,
     )
     from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
     from grid_tpu_torch.ops.select import dipcn_from_distances
@@ -592,12 +660,11 @@ def plain_panel_route(values_np, mask_np, reads_np, reads_valid_np, params, dev)
     split = zprep_split_plain(zp, None, None, float("inf"))
     sample_ok, reads_valid, w = sample_ok.to(dev), reads_valid.to(dev), w.to(dev)
     n, k = zp.shape[0], params.num_neighbors
-    col_block = two_stage_width(n, k, None)
     found = []
     for i0 in range(0, n, params.row_block):
         rows = min(params.row_block, n - i0)
         d2 = panel_d2(zprep_gram_panel_plain(split, i0, rows), split.norms, i0, sample_ok)
-        vals, idx = smallest_k_two_stage(d2, k, col_block)
+        vals, idx = sorted_smallest_k(d2, k)
         dip, ok = dipcn_from_distances(d2, w[i0:i0 + rows], w, reads_valid,
                                        reads_valid[i0:i0 + rows], k=k, n_nbr=params.n_nbr)
         found.append((vals, idx, dip, ok))
@@ -619,11 +686,12 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
         masked_column_stats, masked_column_stats_plain, zprep_gram_panel,
         zprep_gram_panel_plain, zprep_split, zprep_split_plain,
     )
-    from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu, dipcn_select_info
-    from grid_tpu_torch.ops.knn import (
-        panel_d2, prepare_z, smallest_k_two_stage, sorted_smallest_k, two_stage_width,
+    from grid_tpu_torch.ops.gpu_select import (
+        dipcn_from_distances_gpu, dipcn_select_info, knn_select_info, sorted_smallest_k_gpu,
     )
+    from grid_tpu_torch.ops.knn import panel_d2, prepare_z, sorted_smallest_k
     from grid_tpu_torch.ops.masked import masked_mean
+    from grid_tpu_torch.ops.phasing import phase_sweeps, phase_sweeps_gpu, phase_sweeps_info
     from grid_tpu_torch.ops.select import dipcn_from_distances
     from torch_parity import assert_close_to_max
 
@@ -642,7 +710,8 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
           f"{time.perf_counter() - t0:.1f} s (host clock)", flush=True)
 
     # ---- the step, with its launches and its peak memory -----------------
-    counted = {**wrappers, "zprep_split": zprep_split, "zprep_gram_panel": zprep_gram_panel}
+    counted = {**wrappers, "zprep_split": zprep_split, "zprep_gram_panel": zprep_gram_panel,
+               "sorted_smallest_k_gpu": sorted_smallest_k_gpu, "phase_sweeps_gpu": phase_sweeps_gpu}
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -657,7 +726,9 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     print(f"[panels] cohort_step N={n} R={r} k={K} on {torch.cuda.get_device_name(0)}: first "
           f"call {first_s:.2f} s; kernel launches {launches}", flush=True)
     want_launches = {"masked_column_stats": 2, "zprep_gram": 0, "dipcn_from_distances_gpu":
-                     n_panels, "zprep_split": 1, "zprep_gram_panel": n_panels}
+                     n_panels, "zprep_split": 1, "zprep_gram_panel": n_panels,
+                     "sorted_smallest_k_gpu": n_panels,
+                     "phase_sweeps_gpu": phasing_launches(n, hap[0].shape[1], N_ITERS)}
     check(launches == want_launches, f"panel-branch launches {launches} != {want_launches}")
     panel_bytes = b * n * 4
     print(f"[panels] peak device memory {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB of "
@@ -733,16 +804,37 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
           f"{dinfo['static_smem_bytes']} B static shared memory, {dinfo['blocks_per_sm']} blocks "
           f"per SM, {dinfo['registers']} registers, {dinfo['spill_bytes']} B spilled", flush=True)
     check(dinfo["mode"] == "wide" and dinfo["spill_bytes"] == 0, "dipcn_select wide mode shape")
-    # the two-stage block selection against one flat stable sort of the panel
-    col_block = two_stage_width(n, K, None)
-    check(col_block is not None, f"N={n} must take the two-stage selection")
-    vals2, idx2 = smallest_k_two_stage(d2, K, col_block)
+    # knn_select (wide mode) against one flat stable sort of the panel
+    vals_k, idx_k = sorted_smallest_k_gpu(d2, K)
     vals1, idx1 = sorted_smallest_k(d2, K)
-    check(torch.equal(vals2, vals1) and torch.equal(idx2, idx1),
-          "two-stage selection differs from a flat stable sort")
-    print(f"[panels] smallest_k_two_stage [{b}, {n}] (blocks of {col_block}): values and indices "
-          f"equal to a flat stable sort's; {card}", flush=True)
-    del vals1, idx1, vals2, idx2
+    check(torch.equal(vals_k, vals1) and torch.equal(idx_k, idx1),
+          "knn_select differs from a flat stable sort of the panel")
+    errs["sorted_smallest_k_gpu"] = max_abs(vals_k, vals1)
+    kinfo = knn_select_info(n, K, dev)
+    check(kinfo["mode"] == "wide" and kinfo["spill_bytes"] == 0, "knn_select wide mode shape")
+    print(f"[panels] knn_select [{b}, {n}] k={K} in its {kinfo['mode']} mode: values and "
+          f"positions bitwise a flat stable sort's; {kinfo['smem_bytes']} B dynamic + "
+          f"{kinfo['static_smem_bytes']} B static shared memory, {kinfo['blocks_per_sm']} blocks "
+          f"per SM, {kinfo['registers']} registers, {kinfo['spill_bytes']} B spilled; {card}",
+          flush=True)
+    del vals1, idx1, vals_k, idx_k
+    # phase_sweeps at N=65,536 (one launch per sweep) against the plain sweeps
+    step_irrs = torch.where(out.dipcn_valid, out.dipcn, torch.nan)
+    step_lists = inputs[4:7]
+    step_hap0 = hap_start(step_irrs, step_lists[2])
+    sweeps = phase_sweeps_gpu(step_hap0, step_irrs, *step_lists, N_ITERS)
+    plain_sweeps = phase_sweeps(step_hap0, step_irrs, *step_lists, N_ITERS)
+    nan = sweeps.isnan()
+    check(torch.equal(nan, plain_sweeps.isnan())
+          and torch.allclose(sweeps[~nan], plain_sweeps[~nan], rtol=1e-5, atol=0),
+          "phase_sweeps at the panel step: beyond rtol 1e-5 of the plain sweeps or NaNs differ")
+    errs["phase_sweeps_gpu"] = max_abs(sweeps[~nan], plain_sweeps[~nan])
+    pinfo = phase_sweeps_info(n, step_lists[0].shape[1], dev)
+    print(f"[panels] phase_sweeps N={n}, {N_ITERS} sweeps in its {pinfo['mode']} mode "
+          f"({pinfo['threads']} threads a block, {pinfo['registers']} registers): within rtol "
+          f"1e-5 of the plain sweeps (max abs err {errs['phase_sweeps_gpu']:.3e}), NaN cells "
+          f"identical; {card}", flush=True)
+    del sweeps, plain_sweeps
 
     # ---- times ------------------------------------------------------------
     step_ms = [median_ms(lambda: cohort_step(*inputs, params), reps=PANEL_REPS, warmup=1)
@@ -760,6 +852,9 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
         "dipcn_from_distances_gpu": (
             lambda: dipcn_from_distances_gpu(*dip_args, k=K, n_nbr=N_NBR),
             lambda: dipcn_from_distances(*dip_args, k=K, n_nbr=N_NBR), None),
+        "sorted_smallest_k_gpu": (
+            lambda: sorted_smallest_k_gpu(d2, K), lambda: sorted_smallest_k(d2, K),
+            lambda: torch.sort(d2, dim=1, stable=True).values[:, :K]),
     }
     r_pad = split.p.shape[2]
     bounds = {
@@ -769,10 +864,13 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
         "zprep_gram": bound_ms(n * r * 4 + b * n * 4, 2 * b * n * r),
         # one panel of d2 read once, the vectors, dipcn and ok out
         "dipcn_from_distances_gpu": bound_ms(b * n * 4 + 4 * b + 4 * n + n + b + 4 * b + b),
+        # one panel of d2 read once, k values and positions a row out
+        "sorted_smallest_k_gpu": bound_ms(b * n * 4 + 8 * b * K),
     }
     shapes = {"masked_column_stats": f"[{n}, {r}], 2 calls per step",
               "zprep_gram": f"split [{n}, {r}] once per step, then panels [{b}, {n}]",
-              "dipcn_from_distances_gpu": f"wide mode, panels [{b}, {n}]"}
+              "dipcn_from_distances_gpu": f"wide mode, panels [{b}, {n}]",
+              "sorted_smallest_k_gpu": f"wide mode, panels [{b}, {n}], k={K}"}
     rows = {}
     for name, (kernel_fn, plain_fn, lib_fn) in timed.items():
         p1, k1, k2, p2 = (back_to_back_ms(f, reps=5, warmup=1)
@@ -782,7 +880,9 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
                                                  for _ in range(2))
         least, by = bounds[name]
         calls = launches[name] if name != "zprep_gram" else launches["zprep_gram_panel"]
-        lib = "" if lib_ms is None else f", torch.mm of the panel {lib_ms:.4f} ms"
+        lib = "" if lib_ms is None else (
+            f", the stable torch.sort sliced to k {lib_ms:.4f} ms"
+            if name == "sorted_smallest_k_gpu" else f", torch.mm of the panel {lib_ms:.4f} ms")
         print(f"[times] {name} at {shapes[name]}: kernel {kernel_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms{lib} per call (5 back to back, better of two); bound "
               f"{least:.4f} ms by {by}, {100 * least / kernel_ms:.1f}% of it; {calls} calls per "
@@ -794,16 +894,36 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
                    for _ in range(2))
     split_bound, split_by = bound_ms(n * r * 5 + r + 2 * n * r_pad * 4 + 4 * n, 2 * n * 128 * r)
     rows["zprep_gram"].update(split_launches=launches["zprep_split"], split_ms=split_ms)
-    sel_ms = min(back_to_back_ms(lambda: smallest_k_two_stage(d2, K, col_block), reps=5,
-                                 warmup=1) for _ in range(2))
+    topk_ms = min(back_to_back_ms(lambda: torch.topk(d2, K, dim=1, largest=False, sorted=True),
+                                  reps=5, warmup=1) for _ in range(2))
+    rows["sorted_smallest_k_gpu"].update(
+        library="stable torch.sort of the panel's rows, sliced to k", topk_ms=topk_ms)
     epi_ms = min(back_to_back_ms(lambda: panel_d2(g0, split.norms, 0, sample_ok), reps=5,
                                  warmup=1) for _ in range(2))
+    sel_ms = rows["sorted_smallest_k_gpu"]["ms"]
     print(f"[times] zprep_split once per step (split + diagonal tiles): {split_ms:.4f} ms, bound "
           f"{split_bound:.4f} ms by {split_by}; per panel: the epilogue (norms, -2G, clamp, self "
-          f"and invalid columns) {epi_ms:.4f} ms, the stable two-stage selection (blocks of "
-          f"{col_block}) {sel_ms:.4f} ms, i.e. {n_panels * sel_ms:.1f} ms of selection and "
+          f"and invalid columns) {epi_ms:.4f} ms, knn_select {sel_ms:.4f} ms (torch.topk "
+          f"{topk_ms:.4f} ms), i.e. {n_panels * sel_ms:.1f} ms of selection and "
           f"{n_panels * epi_ms:.1f} ms of epilogue per step; {card}", flush=True)
     del d2, g0
+    # the phasing's 100 per-sweep launches beside the Python loop (kernel,
+    # plain, plain, kernel)
+    kern = lambda: phase_sweeps_gpu(step_hap0, step_irrs, *step_lists, N_ITERS)  # noqa: E731
+    loop = lambda: phase_sweeps(step_hap0, step_irrs, *step_lists, N_ITERS)  # noqa: E731
+    s1, p1, p2, s2 = (median_ms(f, reps=PANEL_REPS, warmup=1) for f in (kern, loop, loop, kern))
+    sweep_ms, sweep_plain_ms = min(s1, s2), min(p1, p2)
+    sweep_bound, sweep_by = sweeps_bound_ms(step_hap0, step_irrs, *step_lists, N_ITERS)
+    rows["phase_sweeps_gpu"] = {
+        "launches": launches["phase_sweeps_gpu"], "max_abs_err": errs["phase_sweeps_gpu"],
+        "ms": sweep_ms, "plain_ms": sweep_plain_ms, "bound_ms": sweep_bound,
+        "bound_by": sweep_by, "library_ms": None,
+        "shape": f"{pinfo['mode']} mode, N={n}, K={step_lists[0].shape[1]}, {N_ITERS} sweeps"}
+    print(f"[times] phase_sweeps N={n}, {N_ITERS} sweeps ({launches['phase_sweeps_gpu']} "
+          f"launches, {pinfo['mode']} mode): kernel {sweep_ms:.3f} ms, the Python loop "
+          f"{sweep_plain_ms:.3f} ms (medians of {PANEL_REPS}, better of two); bound "
+          f"{sweep_bound:.4f} ms by {sweep_by}, {100 * sweep_bound / sweep_ms:.1f}% of it; "
+          f"{card}", flush=True)
 
     # ---- profile -------------------------------------------------------
     from torch.autograd import DeviceType
@@ -821,6 +941,14 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
         for e in sorted(ops, key=device_us, reverse=True)[:14]:
             print(f"[profile]   {device_us(e) / 1e3:9.3f} ms/step {e.count:6d} calls/step  "
                   f"{e.key[:80]}")
+        # no sort over panel rows: what sorts is the R variance ratios, once
+        sorts = [e for e in ops if "sort" in e.key.lower()]
+        print(f"[profile] panel cohort_step: {len(sorts)} sort kernels, "
+              f"{sum(e.count for e in sorts)} calls, {sum(map(device_us, sorts)) / 1e3:.3f} ms "
+              f"in one step: " + "; ".join(f"{e.count} x {e.key[:60]}" for e in sorts),
+              flush=True)
+        check(all(e.count < n_panels for e in sorts),
+              "the panel step still runs a sort once per panel")
     else:
         print("[profile] torch.profiler saw no device activity: device time not measured")
     zp = prepare_z(z, zmask, ZMAX, region)  # phase 11's geometry at this N
@@ -880,6 +1008,7 @@ def ring_run(label: str, world: int, cohort, params, card: str) -> tuple:
     from grid_tpu_torch.parallel import sharded_cohort_step
     from grid_tpu_torch.parallel.mesh import COUNTED, choose_transport
     from grid_tpu_torch.parallel.pcohort import ROW_FIELDS
+    from grid_tpu_torch.parallel.pknn import MERGE_ROWS
 
     n = cohort.values.shape[0]
     hap = ring_neighbors(n)
@@ -895,7 +1024,9 @@ def ring_run(label: str, world: int, cohort, params, card: str) -> tuple:
     said = [msg for msg, _ in console.lines if msg.startswith("sharded step:")]
     check(said == [f"sharded step: {world} rank(s) on 1 card(s), transport {transport}"],
           f"ring {label}: transport line {said}")
-    want = {name: 0 for name in COUNTED} | RING_LAUNCHES | {"zprep_gram_cross": world}
+    want = {name: 0 for name in COUNTED} | RING_LAUNCHES | {"zprep_gram_cross": world} | {
+        "sorted_smallest_k_gpu": world * -(-(n // world) // MERGE_ROWS),
+        "phase_sweeps_gpu": phasing_launches(n, hap[0].shape[1], params.n_iters)}
     for rank, rep in enumerate(reports):
         got = {name: rep[name] for name in COUNTED}
         check(got == want, f"ring {label}: rank {rank} launched {got}, expected {want}")
@@ -1037,7 +1168,11 @@ def ring_phase(dev, card: str, cohort_16384, cohort_65536, zp_65536) -> dict:
           f"RING_CROSSOVER_N is not measured again here; {card}", flush=True)
     per_rank = lambda reports: {name: reports[0][name] for name in  # noqa: E731
                                 ("masked_column_stats", "zprep_split", "zprep_gram_cross")}
+    selection = lambda reports: {name: reports[0][name] for name in SELECTION}  # noqa: E731
     return {
+        "selection": {f"launches_per_rank_16384_w{world}": selection(runs[world][1])
+                      for world in RING_WORLDS} | {
+                          "launches_per_rank_65536_w4": selection(reports65)},
         "zprep_gram": {"launches_per_rank_16384_w4": per_rank(runs[4][1]),
                        "launches_per_rank_65536_w4": per_rank(reports65),
                        "cross_16384_w4": cross_16384 | {"max_abs_err": err4},
@@ -1111,7 +1246,9 @@ def auto_run(label: str, world: int, cohort, params, card: str, platform: str = 
           f"auto {label}: transport line {said}")
     want = {name: 0 for name in COUNTED} | {
         "masked_column_stats": 2, "zprep_split": 1, "zprep_gram_panel": panels,
-        "dipcn_from_distances_gpu": panels}
+        "dipcn_from_distances_gpu": panels, "sorted_smallest_k_gpu": panels}
+    if platform != "cpu":
+        want["phase_sweeps_gpu"] = phasing_launches(n, 2, params.n_iters)  # ring lists
     for rank, rep in enumerate(reports):
         got = {name: rep[name] for name in COUNTED}
         check(got == want, f"auto {label}: rank {rank} launched {got}, expected {want}")
@@ -1223,7 +1360,7 @@ def auto_phase(dev, card: str, cohort_16384, cohort_65536, ring: dict,
           flush=True)
     per_rank = lambda reports: {name: reports[0][name] for name in (  # noqa: E731
         "masked_column_stats", "zprep_split", "zprep_gram_panel", "dipcn_from_distances_gpu",
-        "zprep_gram_cross")}
+        "zprep_gram_cross", *SELECTION)}
     return {"launches_per_rank_16384_w4": per_rank(runs[4][1]),
             "launches_per_rank_65536_w4": per_rank(reports65),
             "peak_bytes_per_rank_65536_w4": [rep["peak_bytes"] for rep in reports65],
@@ -1350,7 +1487,8 @@ def stage_phase(card: str, tmp: Path, cohort: dict, base: dict, k: int, n_nbr: i
 
 
 # the hand kernels' device functions, as torch.profiler names them
-OWN_KERNELS = ("split_kernel", "gram_kernel", "dipcn_select_kernel", "colstats")
+OWN_KERNELS = ("split_kernel", "gram_kernel", "dipcn_select_kernel", "colstats",
+               "knn_select_kernel", "phase_resident_kernel")  # K=10 at N=2504: one launch
 
 
 def cache_phase(card: str, tmp: Path, cohort: dict, base: dict, names: dict,
@@ -1398,7 +1536,8 @@ def cache_phase(card: str, tmp: Path, cohort: dict, base: dict, names: dict,
 
     _, cold_t, cold_s = call("cold")
     built = listing(cache)
-    for prefix in ("libzprep_gram-", "libdipcn_select-", "libgridhost-"):
+    for prefix in ("libzprep_gram-", "libdipcn_select-", "libknn_select-", "libphase_sweeps-",
+                   "libgridhost-"):
         check(any(name.startswith(prefix) and name.endswith(".so") for name in built),
               f"the build cache holds no {prefix}*.so: {built}")
     triton_files = [name for name in built if name.startswith("triton/")]
@@ -1427,7 +1566,8 @@ def cache_phase(card: str, tmp: Path, cohort: dict, base: dict, names: dict,
     trace_mb = sum(p.stat().st_size for p in traces.rglob("*.json")) / 2**20
     print(f"[cache] python -m grid_tpu_torch.cli wgs on phase 9's fused config, "
           f"device.compilation_cache a fresh directory: cold call {cold_s:.2f} s "
-          f"(fused.device {cold_t['fused.device']:.3f} s; nvcc of zprep_gram and dipcn_select, "
+          f"(fused.device {cold_t['fused.device']:.3f} s; nvcc of zprep_gram, dipcn_select, "
+          f"knn_select and phase_sweeps, "
           f"g++ of the host library and Triton's column statistics all built into the "
           f"directory, none seeded: {len(built)} files, {len(triton_files)} of them Triton's), "
           f"warm call {warm_s:.2f} s (fused.device {warm_t['fused.device']:.3f} s, nothing "
@@ -3628,10 +3768,17 @@ def main() -> int:
         colstats_plan, masked_column_stats, masked_column_stats_plain, zprep_gram, zprep_gram_info,
         zprep_gram_plain,
     )
-    from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu, dipcn_select_info
-    from grid_tpu_torch.ops.knn import d2_matrix, prepare_z, region_filter_mask
+    from grid_tpu_torch.ops.gpu_select import (
+        _knn_launch, dipcn_from_distances_gpu, dipcn_select_info, knn_select_info,
+        knn_select_mode, sorted_smallest_k_gpu,
+    )
+    from grid_tpu_torch.ops.knn import d2_matrix, prepare_z, region_filter_mask, sorted_smallest_k
     from grid_tpu_torch.ops.masked import masked_mean
     from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
+    from grid_tpu_torch.ops.phasing import (
+        _sweeps_launch, phase_bootstrap_slots, phase_sweeps, phase_sweeps_gpu, phase_sweeps_info,
+        phase_sweeps_mode,
+    )
     from grid_tpu_torch.ops.select import dipcn_from_distances
     from grid_tpu_torch.utils.device import get_device
     from torch_parity import assert_close_to_max, dipcn_sets_differ, neighbor_rows_differing
@@ -3642,6 +3789,8 @@ def main() -> int:
         "zprep_gram": zprep_gram,
         "dipcn_from_distances_gpu": dipcn_from_distances_gpu,
     }
+    selectors = {"sorted_smallest_k_gpu": sorted_smallest_k_gpu,
+                 "phase_sweeps_gpu": phase_sweeps_gpu}
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -3686,6 +3835,21 @@ def main() -> int:
           f"{dinfo['registers']} registers and {dinfo['spill_bytes']} B of local memory a thread",
           flush=True)
     check(dinfo["spill_bytes"] == 0, "dipcn_select spills to local memory")
+    kinfo = knn_select_info(N, K, dev)
+    print(f"[build] knn_select at W={N}, k={K}: {kinfo['mode']} mode, one block of "
+          f"{kinfo['threads']} threads per row, {kinfo['smem_bytes']} B dynamic + "
+          f"{kinfo['static_smem_bytes']} B static shared memory per block, "
+          f"{kinfo['blocks_per_sm']} blocks per SM; {kinfo['registers']} registers and "
+          f"{kinfo['spill_bytes']} B of local memory a thread", flush=True)
+    pinfo = phase_sweeps_info(N, 2, dev)  # the slice's ring lists: 2 slots
+    print(f"[build] phase_sweeps at N={N}, K=2: {pinfo['mode']} mode, a cluster of "
+          f"{pinfo['cluster_blocks']} blocks of {pinfo['threads']} threads per replicate, "
+          f"{pinfo['smem_bytes']} B of shared memory a block (the values double-buffered and "
+          f"an eighth of the lists), {pinfo['blocks_per_sm']} block(s) per SM, "
+          f"{pinfo['clusters']} clusters at once; {pinfo['registers']} registers and "
+          f"{pinfo['spill_bytes']} B of local memory a thread", flush=True)
+    check(kinfo["mode"] == "resident" and kinfo["spill_bytes"] == 0, "knn_select launch shape")
+    check(pinfo["mode"] == "resident" and pinfo["spill_bytes"] == 0, "phase_sweeps launch shape")
     col_tiles, chunks, rows_per_chunk = colstats_plan(N, R, sms)
     col_programs = col_tiles * chunks
     print(f"[build] masked_column_stats at {N}x{R}: {chunks} row chunks of {rows_per_chunk} "
@@ -3798,6 +3962,89 @@ def main() -> int:
         print(f"[kernels] dipcn {label} {tuple(args[0].shape)} k={k} n_nbr={n_nbr}: ok exact "
               f"({int(ok.sum())} rows), dipcn within rtol 1e-6, max abs err {err:.3e}", flush=True)
 
+    # knn_select: bitwise the stable sort (its plain version), in both modes
+    tie_d2 = cases[2][1][0]
+    select_cases = [(label, args[0], k) for label, args, k, _ in cases] + [
+        ("forced-tie k=1", tie_d2, 1), ("forced-tie k=W", tie_d2, tie_d2.shape[1]),
+        ("ring merge [best | d2]", torch.cat([sorted_smallest_k(d2[:512], K)[0], d2[:512]], 1),
+         K)]
+    for label, dd, k in select_cases:
+        vals, idx = sorted_smallest_k_gpu(dd, k)
+        want_v, want_i = sorted_smallest_k(dd, k)
+        wide_v, wide_i = _knn_launch("wide", dd, k)
+        torch.cuda.synchronize()
+        check(torch.equal(idx, want_i) and torch.equal(vals, want_v),
+              f"knn_select {label}: not the stable sort's values and positions")
+        check(torch.equal(wide_i, idx) and torch.equal(wide_v, vals),
+              f"knn_select {label}: the wide mode differs from the resident mode")
+        errs["sorted_smallest_k_gpu"] = max(errs.get("sorted_smallest_k_gpu", 0.0),
+                                            max_abs(vals, want_v))
+        print(f"[kernels] knn_select {label} {tuple(dd.shape)} k={k} "
+              f"({knn_select_mode(dd.shape[1], k, dev)} mode): values and positions bitwise the "
+              f"stable sort's; the wide mode's bitwise the same", flush=True)
+
+    # phase_sweeps: the plain sweeps within rtol 1e-5 (each neighbor list
+    # summed in slot order, not in torch's reduction order), the same NaNs;
+    # its two modes bitwise equal. The bootstrap replicates' resampled lists
+    # drive some values towards 0 (to ~1e-25 in 100 sweeps), where float32
+    # keeps no 1e-5 relative accuracy: the plain sweeps themselves are
+    # ~1.5e-5 from float64 sweeps there. Those are held to float64 sweeps
+    # instead: their relative error at most twice the plain version's.
+
+    def rel_err(a, ref) -> float:
+        """Largest relative error of ``a`` against ``ref`` over its finite,
+        non-zero cells."""
+        keep = torch.isfinite(ref) & (ref != 0)
+        return float(((a.double() - ref) / ref).abs()[keep].max()) if keep.any() else 0.0
+
+    main_dip, main_ok = dipcn_from_distances_gpu(d2, w_main, w_main, sample_ok, sample_ok, k=K,
+                                                 n_nbr=N_NBR)
+    irrs_main = torch.where(main_ok, main_dip, torch.nan)
+    rand_lists = random_hap_lists(N, 10, dev, seed=3)
+    boot_slots = torch.tensor(
+        (np.random.default_rng(4).random((BOOT_REPLICATES, 2 * N, 10))
+         * rand_lists[2].sum(dim=1).clamp_min(1).cpu().numpy()[None, :, None]).astype(np.int64),
+        device=dev)
+    boot_lists = [torch.gather(rand_lists[0].long().expand(BOOT_REPLICATES, 2 * N, 10), 2,
+                               boot_slots).to(torch.int32).contiguous(),
+                  torch.gather(rand_lists[1].expand(BOOT_REPLICATES, 2 * N, 10), 2, boot_slots),
+                  rand_lists[2]]
+    ring_lists = [torch.tensor(a, device=dev) for a in ring_neighbors(N)]
+    for label, lists, strict in (
+            ("ring lists, K=2", ring_lists, True), ("random lists, K=10", rand_lists, True),
+            (f"{BOOT_REPLICATES} bootstrap replicates, K=10", boot_lists, False)):
+        hap0 = hap_start(irrs_main, lists[2])
+        got = phase_sweeps_gpu(hap0, irrs_main, *lists, N_ITERS)
+        want = phase_sweeps(hap0, irrs_main, *lists, N_ITERS)
+        want64 = phase_sweeps(hap0.double(), irrs_main.double(), lists[0], lists[1].double(),
+                              lists[2], N_ITERS)
+        other = _sweeps_launch("per_sweep", hap0, irrs_main, lists[0].to(torch.int32), lists[1],
+                               lists[2], N_ITERS, torch.empty_like(got.reshape(-1, 2 * N)))
+        torch.cuda.synchronize()
+        nan = got.isnan()
+        check(torch.equal(nan, want.isnan()), f"phase_sweeps {label}: NaN cells differ")
+        rel, plain_rel = rel_err(got, want64), rel_err(want, want64)
+        if strict:
+            check(torch.allclose(got[~nan], want[~nan], rtol=1e-5, atol=0),
+                  f"phase_sweeps {label}: beyond rtol 1e-5 of the plain sweeps")
+        else:
+            check(rel <= 2 * plain_rel, f"phase_sweeps {label}: relative error {rel:.3e} against "
+                                        f"float64 sweeps > 2x the plain version's {plain_rel:.3e}")
+        check(torch.equal(other.reshape(got.shape).nan_to_num(), got.nan_to_num())
+              and torch.equal(other.reshape(got.shape).isnan(), nan),
+              f"phase_sweeps {label}: the per-sweep mode differs from the resident mode")
+        err = max_abs(got[~nan], want[~nan])
+        errs["phase_sweeps_gpu"] = max(errs.get("phase_sweeps_gpu", 0.0), err)
+        gate = ("within rtol 1e-5 of the plain sweeps" if strict else
+                "relative error against float64 sweeps at most 2x the plain version's")
+        mode = phase_sweeps_mode(N, lists[0].shape[-1], dev)
+        print(f"[kernels] phase_sweeps {label}, N={N}, {N_ITERS} sweeps ({mode} mode): {gate} "
+              f"(max abs err "
+              f"{err:.3e} against the plain sweeps; relative error against float64 sweeps: "
+              f"kernel {rel:.3e}, plain {plain_rel:.3e}), NaN cells identical "
+              f"({int(nan.sum())} of {nan.numel()}); the per-sweep mode called directly bitwise "
+              f"the same", flush=True)
+
     # ---- 4. the slice ----------------------------------------------------
     reads_valid_np = np.ones(N, bool)
     hi, hw, hv = ring_neighbors(N)
@@ -3806,15 +4053,17 @@ def main() -> int:
     params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
     inputs = inputs_to_torch(values_np, mask_np, reads_np, reads_valid_np, hi, hw, hv, dev,
                              torch.float32)
-    for fn in wrappers.values():
+    for fn in (*wrappers.values(), *selectors.values()):
         fn.launches = 0
     out = cohort_step(*inputs, params)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {name: fn.launches for name, fn in (wrappers | selectors).items()}
     print(f"[slice] cohort_step on {torch.cuda.get_device_name(0)}: kernel launches {launches}",
           flush=True)
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched by the main path")
+    check(all(launches[name] == 1 for name in selectors),
+          f"the slice must launch knn_select and phase_sweeps once each: {launches}")
 
     got = outputs_to_numpy(out)
     t0 = time.perf_counter()
@@ -3860,6 +4109,10 @@ def main() -> int:
     mu = norm.col_means.nan_to_num()
     gram_args = (norm.z, norm.mask, region, ZMAX)
     dip_args = (d2, w_main, w_main, sample_ok, sample_ok)
+    # the slice's own phasing: its dipCN and its ring lists
+    step_irrs = torch.where(out.dipcn_valid, out.dipcn, torch.nan)
+    step_lists = inputs[4:7]
+    step_hap0 = hap_start(step_irrs, step_lists[2])
     timed = {
         "masked_column_stats": (lambda: masked_column_stats(*cs, mu),
                                 lambda: masked_column_stats_plain(*cs, mu)),
@@ -3867,6 +4120,11 @@ def main() -> int:
         "dipcn_from_distances_gpu": (
             lambda: dipcn_from_distances_gpu(*dip_args, k=K, n_nbr=N_NBR),
             lambda: dipcn_from_distances(*dip_args, k=K, n_nbr=N_NBR)),
+        "sorted_smallest_k_gpu": (lambda: sorted_smallest_k_gpu(d2, K),
+                                  lambda: sorted_smallest_k(d2, K)),
+        "phase_sweeps_gpu": (
+            lambda: phase_sweeps_gpu(step_hap0, step_irrs, *step_lists, N_ITERS),
+            lambda: phase_sweeps(step_hap0, step_irrs, *step_lists, N_ITERS)),
     }
     meta = {
         "masked_column_stats": ("triton", "grid_tpu_torch/ops/gpu_kernels.py",
@@ -3875,9 +4133,18 @@ def main() -> int:
                        "grid_tpu/ops/pallas_kernels.py:93"),
         "dipcn_from_distances_gpu": ("cuda", "grid_tpu_torch/csrc/dipcn_select.cu",
                                      "grid_tpu/ops/pallas_select.py:130"),
+        "sorted_smallest_k_gpu": ("cuda", "grid_tpu_torch/csrc/knn_select.cu",
+                                  "grid_tpu/models/cohort.py:189 (lax.approx_max_k; also "
+                                  "grid_tpu/ops/knn.py:168-199 and grid_tpu/parallel/pknn.py:84; "
+                                  "no pallas_call)"),
+        "phase_sweeps_gpu": ("cuda", "grid_tpu_torch/csrc/phase_sweeps.cu",
+                             "grid_tpu/ops/phasing.py:94 (lax.scan, no pallas_call)"),
     }
     p_main = prepare_z(norm.z, norm.mask, ZMAX, region)
-    library = {"zprep_gram": lambda: torch.mm(p_main, p_main.T)}  # a yardstick the port never calls
+    library = {  # yardsticks the port never calls
+        "zprep_gram": lambda: torch.mm(p_main, p_main.T),
+        "sorted_smallest_k_gpu": lambda: torch.sort(d2, dim=1, stable=True).values[:, :K],
+    }
     four = N * R * 4
     bounds = {
         # values, mask, 1/row mean, column means in; three [R] sums out
@@ -3886,6 +4153,10 @@ def main() -> int:
         "zprep_gram": bound_ms(four + N * R + R + 4 * N * N, 2 * N * N * R),
         # d2, rnorm, nbr_w, usable, valid in; dipcn, ok out
         "dipcn_from_distances_gpu": bound_ms(4 * N * N + 4 * N + 4 * N + N + N + 4 * N + N),
+        # d2 in, k values and k int32 positions a row out
+        "sorted_smallest_k_gpu": bound_ms(4 * N * N + 8 * N * K),
+        # the start, irrs and the lists read once, the values written once
+        "phase_sweeps_gpu": sweeps_bound_ms(step_hap0, step_irrs, *step_lists, N_ITERS),
     }
     kernels = []
     for name, (kernel_fn, plain_fn) in timed.items():
@@ -3950,6 +4221,63 @@ def main() -> int:
         del args, by_mode
     next(row for row in kernels if row["name"] == "dipcn_from_distances_gpu").update(
         mode_ms_back_to_back=mode_ms)
+
+    # knn_select beside torch.topk (the same set, no tie order) and in its
+    # wide mode; phase_sweeps on 20 bootstrap replicates
+    topk_ms = min(median_ms(lambda: torch.topk(d2, K, dim=1, largest=False, sorted=True))
+                  for _ in range(2))
+    knn_wide_ms = min(back_to_back_ms(lambda: _knn_launch("wide", d2, K)) for _ in range(2))
+    boot = (irrs_main, *rand_lists, boot_slots, 1, N_ITERS)
+    boot_ms = [median_ms(lambda: phase_bootstrap_slots(*boot), reps=5) for _ in range(2)]
+    with patched(sys.modules["grid_tpu_torch.ops.phasing"],
+                 {"phase_sweeps_gpu": lambda hap, irrs, *rest: phase_sweeps(hap, irrs, *rest)}):
+        boot_plain_ms = [median_ms(lambda: phase_bootstrap_slots(*boot), reps=5)
+                         for _ in range(2)]
+    # both modes on the slice's ring lists (K=2) and on lists of the
+    # pipeline's default max_neighbors (K=10): resident, per sweep, per
+    # sweep, resident; and the per-sweep mode's floor, N_ITERS empty
+    # launches back to back
+    out_sweep = torch.empty((1, 2 * N), device=dev)
+    rand_hap0 = hap_start(irrs_main, rand_lists[2])
+    sweep_modes = {}
+    for label, (h0, irrs_, lists) in (("K=2", (step_hap0, step_irrs, step_lists)),
+                                      ("K=10", (rand_hap0, irrs_main, rand_lists))):
+        check(phase_sweeps_mode(N, lists[0].shape[1], dev) == "resident",
+              f"phase_sweeps at N={N}, {label} must take the resident mode")
+        run = {mode: (lambda mode=mode, h0=h0, irrs_=irrs_, lists=lists: _sweeps_launch(
+            mode, h0, irrs_, lists[0].to(torch.int32), *lists[1:], N_ITERS, out_sweep))
+            for mode in ("resident", "per_sweep")}
+        rounds = [(mode, back_to_back_ms(run[mode]))
+                  for mode in ("resident", "per_sweep", "per_sweep", "resident")]
+        sweep_modes[label] = {mode: min(t for m, t in rounds if m == mode) for mode in run}
+    empty_ms = min(back_to_back_ms(lambda: torch.cuda._sleep(0), reps=10 * N_ITERS)
+                   for _ in range(2))
+    pinfo10 = phase_sweeps_info(N, 10, dev)
+    knn_row = next(row for row in kernels if row["name"] == "sorted_smallest_k_gpu")
+    knn_row.update(library="stable torch.sort of the rows, sliced to k", topk_ms=topk_ms,
+                   wide_mode_ms_back_to_back=knn_wide_ms)
+    sweep_row = next(row for row in kernels if row["name"] == "phase_sweeps_gpu")
+    sweep_row.update(bootstrap_20_ms=min(boot_ms), bootstrap_20_plain_ms=min(boot_plain_ms),
+                     modes_ms_back_to_back=sweep_modes,
+                     per_sweep_launch_floor_ms=N_ITERS * empty_ms)
+    print(f"[times] knn_select [{N}, {N}] k={K}: kernel {knn_row['ms']:.4f} ms (resident mode; "
+          f"the wide mode {knn_wide_ms:.4f} ms back to back), the stable torch.sort sliced to k "
+          f"{knn_row['library_ms']:.4f} ms, torch.topk (largest=False, sorted) {topk_ms:.4f} ms; "
+          f"{card}", flush=True)
+    modes_text = "; ".join(
+        f"{label}: resident {t['resident']:.4f} ms ({1e3 * t['resident'] / N_ITERS:.2f} us a "
+        f"sweep), per sweep {t['per_sweep']:.4f} ms" for label, t in sweep_modes.items())
+    print(f"[times] phase_sweeps N={N}, K=2, {N_ITERS} sweeps, a cluster of "
+          f"{pinfo['cluster_blocks']} blocks: kernel {sweep_row['ms']:.4f} ms for the whole "
+          f"phasing, the Python loop {sweep_row['plain_ms']:.4f} ms; bound "
+          f"{sweep_row['bound_ms']:.6f} ms by {sweep_row['bound_by']} (inputs read once, output "
+          f"written once); the modes back to back (better of two rounds) {modes_text}; the "
+          f"per-sweep mode's floor, {N_ITERS} empty launches back to back, "
+          f"{N_ITERS * empty_ms:.4f} ms; {BOOT_REPLICATES} bootstrap replicates "
+          f"(K=10, {phase_sweeps_mode(N, 10, dev)} mode, {pinfo10['smem_bytes']} B of shared "
+          f"memory a block, {pinfo10['clusters']} clusters at once): kernel {min(boot_ms):.4f} ms, "
+          f"the loop {min(boot_plain_ms):.4f} ms (medians of 5, better of two); {card}",
+          flush=True)
     torch.cuda.empty_cache()
 
     # the genome-wide normalize's column statistics, made on the card
@@ -4003,7 +4331,8 @@ def main() -> int:
         # the hand kernels' own device time (the Gram product is two kernels,
         # the split pass and the Gram kernel; the column statistics are the
         # row-chunk kernel and its merge)
-        own = ("split_kernel", "gram_kernel", "dipcn_select_kernel", "colstats")
+        own = ("split_kernel", "gram_kernel", "dipcn_select_kernel", "colstats",
+               "knn_select_kernel", "phase_resident_kernel", "phase_sweep_kernel")
         for e in ops:
             if any(name in e.key for name in own):
                 print(f"[profile]   hand kernel {device_us(e) / 1e3 / PROFILE_STEPS:.4f} ms/step "
@@ -4054,7 +4383,16 @@ def main() -> int:
     for row in kernels:
         earlier = {key: row[key] for key in row if key not in ("name", "route", "source",
                                                                 "replaces")}
-        rows.append({**{key: row[key] for key in ("name", "route", "source", "replaces")},
+        fixed = {key: row[key] for key in ("name", "route", "source", "replaces")}
+        if row["name"] in selectors:  # the ring's and the gather form's launches per rank
+            rows.append({**fixed, **panel[row["name"]], "slice_2504": earlier,
+                         "ring": {key: {row["name"]: v[row["name"]]}
+                                  for key, v in ring["selection"].items()},
+                         "auto": {key: {row["name"]: auto[key][row["name"]]}
+                                  for key in ("launches_per_rank_16384_w4",
+                                              "launches_per_rank_65536_w4")}})
+            continue
+        rows.append({**fixed,
                      **panel[row["name"]], "slice_2504": earlier,
                      "pipeline_2504": {"launches": pipeline_launches[row["name"]]},
                      "pipeline_files_2504": files_json[row["name"]],

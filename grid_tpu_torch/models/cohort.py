@@ -6,9 +6,9 @@
         -> region selection + variance filter  (masking, not gathering)
         -> d2 = |a|^2 + |b|^2 - 2 G, G from the fused z-prep Gram
            (CUDA kernel)                                        ~ O(N^2 R)
-        -> sorted k nearest neighbors (stable sort of each d2 row)
+        -> sorted k nearest neighbors (CUDA kernel, one block per row)
         -> threshold dipCN (CUDA kernel, one block per row)     ~ O(N^2)
-        -> phasing (Jacobi sweeps)                              ~ O(iters N K)
+        -> phasing (CUDA kernel, all Jacobi sweeps)             ~ O(iters N K)
 
 While the [N, N] distance matrix fits ``d2_budget_bytes`` it is resident;
 beyond that the step streams row panels of ``row_block`` rows: P's split
@@ -31,14 +31,11 @@ from typing import NamedTuple
 import torch
 
 from grid_tpu_torch.ops.gpu_kernels import zprep_split
-from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu
+from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu, sorted_smallest_k_gpu
 from grid_tpu_torch.ops.knn import (
     d2_matrix,
     d2_panels,
     region_filter_mask,
-    smallest_k_two_stage,
-    sorted_smallest_k,
-    two_stage_width,
 )
 from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
 from grid_tpu_torch.ops.phasing import PhasingResult, compute_imputed, phase_haplotypes
@@ -115,10 +112,10 @@ def _panel_knn_dipcn(z, z_mask, region_used, sample_ok, w, reads_valid, params: 
 def panel_knn_dipcn(split, sample_ok, w, reads_valid, params: CohortParams, rows=None):
     """kNN and threshold dipCN of the rows ``rows=(lo, hi)`` (default all)
     against all N rows of ``split``, by row panels: per panel one Gram
-    panel and its distances, read by the stable selection and by the dipCN
-    kernel. The flat panel branch takes every row; the gather form of the
-    sharded step (``parallel/pcohort.py``) takes a rank's rows of the
-    gathered split.
+    panel and its distances, read by the selection (the ``knn_select``
+    kernel over whole rows) and by the dipCN kernel. The flat panel branch
+    takes every row; the gather form of the sharded step
+    (``parallel/pcohort.py``) takes a rank's rows of the gathered split.
 
     Args:
         split: P's split (:func:`grid_tpu_torch.ops.gpu_kernels.zprep_split`)
@@ -129,12 +126,11 @@ def panel_knn_dipcn(split, sample_ok, w, reads_valid, params: CohortParams, rows
     Returns (sq_dists [hi-lo, k], nbr_idx [hi-lo, k] int32 of global rows,
     dipcn [hi-lo], dipcn_valid [hi-lo]).
     """
-    n, k = split.norms.shape[0], params.num_neighbors
-    col_block = two_stage_width(n, k, None)
+    k = params.num_neighbors
     sq, idx, dips, oks = [], [], [], []
     for i0, d2 in d2_panels(split, params.row_block, sample_ok, rows):
         part = slice(i0, i0 + d2.shape[0])
-        vals, nbr = smallest_k_two_stage(d2, k, col_block)
+        vals, nbr = sorted_smallest_k_gpu(d2, k)
         dip, ok = dipcn_from_distances_gpu(d2, w[part], w, reads_valid, reads_valid[part],
                                            k=k, n_nbr=params.n_nbr)
         del d2
@@ -212,7 +208,7 @@ def cohort_step(
     w = reads / scales
     if d2_resident(params, n, values.element_size()):
         d2 = d2_matrix(z, norm.mask, region_used, params.zmax, row_valid=sample_ok)
-        sq_dists, nbr_idx = sorted_smallest_k(d2, params.num_neighbors)
+        sq_dists, nbr_idx = sorted_smallest_k_gpu(d2, params.num_neighbors)
         if params.dipcn_lists:  # the JAX step's opt-in form, plain PyTorch: CPU only
             dipcn, dipcn_valid = dipcn_from_lists(
                 d2, sq_dists, nbr_idx, w, w, reads_valid, reads_valid,

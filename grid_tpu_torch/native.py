@@ -47,7 +47,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers / shared memory / spills, kept in the .log
 )
-KERNELS = ("zprep_gram", "dipcn_select", "sw_scores")
+KERNELS = ("zprep_gram", "dipcn_select", "sw_scores", "knn_select", "phase_sweeps")
 
 
 class KernelError(RuntimeError):

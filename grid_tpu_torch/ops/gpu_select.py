@@ -15,6 +15,14 @@ it. Its plain version is
 :func:`grid_tpu_torch.ops.select.dipcn_from_distances_multi`.
 :func:`dipcn_multi_panels_gpu` runs it on the row panels of the
 prepared z, beside the Gram panel kernel.
+
+:func:`sorted_smallest_k_gpu` launches ``csrc/knn_select.cu``: each row's
+k smallest entries, ascending, ties to the lower column. It replaces the
+XLA selections of ``grid_tpu``'s cohort step (``approx_max_k`` at
+``grid_tpu/models/cohort.py:189``, the two-stage ``top_k`` of
+``grid_tpu/ops/knn.py:168-199``, the ring merge's ``top_k`` at
+``grid_tpu/parallel/pknn.py:84``); its plain version is
+:func:`grid_tpu_torch.ops.knn.sorted_smallest_k`, a stable sort.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch
 
 from grid_tpu_torch import native
 from grid_tpu_torch.ops.gpu_kernels import zprep_split
-from grid_tpu_torch.ops.knn import d2_panels
+from grid_tpu_torch.ops.knn import d2_panels, sorted_smallest_k
 from grid_tpu_torch.ops.select import dipcn_from_distances, dipcn_from_distances_multi
 
 
@@ -47,6 +55,19 @@ def _lib():
     lib.dipcn_select_mode.restype = ctypes.c_int
     lib.dipcn_select_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.dipcn_select_info.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _knn_lib():
+    lib = native.load("knn_select")
+    lib.knn_select_launch.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+    lib.knn_select_launch.restype = ctypes.c_int
+    lib.knn_select_mode.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.knn_select_mode.restype = ctypes.c_int
+    lib.knn_select_info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.knn_select_info.restype = ctypes.c_int
     return lib
 
 
@@ -218,3 +239,82 @@ def dipcn_multi_panels_gpu(zp, rnorm, nbr_w, col_usable, sample_valid, k: int, n
         dips.append(dip)
         oks.append(ok)
     return torch.cat(dips), torch.cat(oks)
+
+
+def knn_select_mode(w: int, k: int, device: torch.device) -> str | None:
+    """The mode ``knn_select`` takes rows of ``w`` columns in at this ``k``
+    on the CUDA ``device``: "resident" (the row's keys in shared memory)
+    whenever that fits, else "wide" (the keys stay in device memory), or
+    None where neither fits (k above 16,384, or its list too large)."""
+    mode = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _knn_lib().knn_select_mode(_device_index(device), w, k, ctypes.byref(mode))
+    native.check_launch("knn_select", err)
+    return MODES[mode.value] if mode.value >= 0 else None
+
+
+def knn_select_info(w: int, k: int, device: torch.device) -> dict:
+    """``knn_select``'s launch shape for rows of ``w`` columns at this ``k``
+    on the CUDA ``device``: its mode, threads, dynamic and static shared
+    memory per block, resident blocks per SM, registers and local (spill)
+    bytes per thread."""
+    mode = knn_select_mode(w, k, device)
+    if mode is None:
+        raise ValueError(f"no mode of knn_select takes rows of {w} columns at k={k}")
+    out = (ctypes.c_int * len(_INFO_KEYS))()
+    with torch.cuda.device(device):
+        native.check_launch("knn_select",
+                            _knn_lib().knn_select_info(MODES.index(mode), w, k, out))
+    return {"mode": mode, **dict(zip(_INFO_KEYS, out))}
+
+
+def sorted_smallest_k_gpu(d2, k: int):
+    """The k smallest entries of each row of ``d2``, ascending, with their
+    columns, ties to the lower column; the contract of
+    :func:`grid_tpu_torch.ops.knn.sorted_smallest_k` (stable-argsort
+    order), which CPU tensors take.
+
+    On the card: float32 [B, W] rows, contiguous, non-negative (finfo.max
+    or larger for excluded columns; -0.0 is not expected), 1 <= k <= W,
+    k <= 16,384. One thread block per row: a histogram radix select of the
+    k-th value, one scan that keeps the entries below it and the first ties
+    in column order, and a bitonic sort of those k in shared memory. Rows
+    whose keys fit the block's shared memory (up to ~57,000 columns at
+    k=500 on an H100) cross device memory once; wider rows (the
+    65,536-column panels) keep their keys in device memory and re-read them
+    (:func:`knn_select_mode`). Raises where no mode fits.
+
+    Returns (vals [B, k] float32, idx [B, k] int32).
+    """
+    if not native.on_cuda(d2):
+        return sorted_smallest_k(d2, k)
+    if d2.dim() != 2:
+        raise ValueError(f"d2: expected [B, W], got {tuple(d2.shape)}")
+    n, w = d2.shape
+    native.check(d2, "d2", torch.float32, (n, w))
+    if not 1 <= k <= w:
+        raise ValueError(f"k={k} must be in [1, {w}]")
+    mode = knn_select_mode(w, k, d2.device)
+    if mode is None:
+        raise ValueError(f"d2 rows of {w} columns at k={k} fit no mode of knn_select")
+    return _knn_launch(mode, d2, k)
+
+
+def _knn_launch(mode: str, d2, k: int):
+    """Launch ``knn_select`` in ``mode`` on a checked ``d2``. The wrapper
+    picks the mode; the card tests also run the wide mode where both fit."""
+    n, w = d2.shape
+    vals = torch.empty((n, k), dtype=torch.float32, device=d2.device)
+    idx = torch.empty((n, k), dtype=torch.int32, device=d2.device)
+    if n == 0:
+        return vals, idx
+    with torch.cuda.device(d2.device):
+        err = _knn_lib().knn_select_launch(d2.data_ptr(), n, w, k, MODES.index(mode),
+                                           vals.data_ptr(), idx.data_ptr(),
+                                           native.stream_ptr(d2.device))
+    native.check_launch("knn_select", err)
+    native.count_launch(sorted_smallest_k_gpu)
+    return vals, idx
+
+
+sorted_smallest_k_gpu.launches = 0

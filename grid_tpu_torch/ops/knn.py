@@ -17,11 +17,6 @@ import torch
 
 from grid_tpu_torch.ops.gpu_kernels import SplitZ, zprep_gram, zprep_gram_panel, zprep_split
 
-# knn_squared's auto rule: two-stage selection in blocks of this many
-# columns once a row is wider than FLAT_MAX_COLS (ops/knn.py:139-142)
-AUTO_COL_BLOCK = 8192
-FLAT_MAX_COLS = 16384
-
 
 def _region_mask_at_rank(sigma2ratios, rank, sigma2_max: float):
     """The rule of both region filters (ref: grid/utils/find_neighbors.py:128-175):
@@ -117,7 +112,8 @@ def sorted_smallest_k(d2, k: int):
     This is what ``lax.approx_max_k(-d2, k, recall_target=1.0)`` gives the
     JAX package and what the written neighbor artifact depends on. A stable
     full-row sort keeps that order; ``torch.topk`` promises no order among
-    equal values, so it is not used.
+    equal values, so it is not used. This is the plain version of the
+    ``knn_select`` kernel (:func:`grid_tpu_torch.ops.gpu_select.sorted_smallest_k_gpu`).
 
     Returns (vals [N, k], idx [N, k] int32).
     """
@@ -161,48 +157,16 @@ def d2_panels(split: SplitZ, row_block: int, col_valid=None, rows=None):
         yield i0, panel_d2(zprep_gram_panel(split, i0, count), split.norms, i0, col_valid)
 
 
-def two_stage_width(n: int, k: int, col_block: int | None) -> int | None:
-    """knn_squared's column-block rule: ``col_block`` or, when None, 8192
-    above 16,384 columns; None (flat selection) when blocks have nothing
-    to gain (``col_block >= n`` or ``col_block <= k``)."""
-    if col_block is None and n > FLAT_MAX_COLS:
-        col_block = AUTO_COL_BLOCK
-    if col_block is not None and (col_block >= n or col_block <= k):
-        return None
-    return col_block
-
-
-def smallest_k_two_stage(d2, k: int, col_block: int | None):
-    """:func:`sorted_smallest_k` of each row, in two stages when
-    ``col_block`` is set: a stable sort of each block of ``col_block``
-    columns (the tail block padded with finfo.max) keeps its k smallest,
-    then a stable sort of the candidates, laid out block by block, keeps k.
-    Stable sorts in block-major order keep the contract: ascending, ties
-    to the lower column.
-
-    Returns (vals [B, k], idx [B, k] int32)."""
-    if col_block is None:
-        return sorted_smallest_k(d2, k)
-    b, n = d2.shape
-    blocks = -(-n // col_block)
-    pad = blocks * col_block - n
-    if pad:
-        d2 = torch.nn.functional.pad(d2, (0, pad), value=torch.finfo(d2.dtype).max)
-    vals, idx = torch.sort(d2.view(b, blocks, col_block), dim=2, stable=True)
-    base = torch.arange(0, blocks * col_block, col_block, device=d2.device)
-    cand_d = vals[:, :, :k].reshape(b, blocks * k)
-    cand_i = (idx[:, :, :k] + base[None, :, None]).reshape(b, blocks * k)
-    vals, pos = torch.sort(cand_d, dim=1, stable=True)
-    return vals[:, :k].contiguous(), cand_i.gather(1, pos[:, :k]).to(torch.int32)
-
-
-def knn_squared(z, k: int, row_valid=None, row_block: int = 512, col_block: int | None = None):
+def knn_squared(z, k: int, row_valid=None, row_block: int = 512):
     """Exact k nearest neighbors by row panels of the Gram product; the
     twin of ``grid_tpu.ops.knn.knn_squared``.
 
-    The JAX function's ``selector`` and ``recall_target`` are left out:
-    each of its selectors gives the same exact lists (recall 1.0), and the
-    port has one selection, the stable two-stage sort above.
+    The JAX function's ``selector``, ``recall_target`` and ``col_block``
+    are left out: each of its selectors and column blocks gives the same
+    exact lists (recall 1.0), and the port has one selection over whole
+    rows, the ``knn_select`` kernel
+    (:func:`grid_tpu_torch.ops.gpu_select.sorted_smallest_k_gpu`; on the
+    CPU its plain version :func:`sorted_smallest_k`).
 
     Args:
         z: [N, R] prepared z (clipped, zero-filled; :func:`prepare_z`).
@@ -211,16 +175,16 @@ def knn_squared(z, k: int, row_valid=None, row_block: int = 512, col_block: int 
             neighbors, and their own results are junk.
         row_block: rows per distance panel; a panel holds row_block * N
             distances.
-        col_block: two-stage selection width (:func:`two_stage_width`).
 
     Returns (sq_dists [N, k] ascending, idx [N, k] int32).
     """
     n = z.shape[0]
     if k > n - 1:
         raise ValueError(f"k={k} must be <= N-1={n - 1}")
-    col_block = two_stage_width(n, k, col_block)
+    # imported here: ops.gpu_select imports this module
+    from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
+
     split = zprep_split(z, None, None, math.inf)
     col_valid = None if row_valid is None else row_valid.to(torch.bool)
-    found = [smallest_k_two_stage(d2, k, col_block)
-             for _, d2 in d2_panels(split, row_block, col_valid)]
+    found = [sorted_smallest_k_gpu(d2, k) for _, d2 in d2_panels(split, row_block, col_valid)]
     return torch.cat([v for v, _ in found]), torch.cat([i for _, i in found])

@@ -2,10 +2,15 @@
 ``grid_tpu/ops/phasing.py``; reference ``grid/utils/hi_inference.py:175-250``).
 
 The ragged per-haplotype neighbor lists are padded ``[2N, K]``
-index/weight/valid tensors, and each of the n_iters Jacobi sweeps is a few
-vectorised gathers and row sums (the JAX package's ``lax.scan`` becomes a
-Python loop). The reference's 1e-9 weight-sum floor is kept, so padded and
-empty neighbor sets fall back exactly as there.
+index/weight/valid tensors. The n_iters Jacobi sweeps (the JAX package's
+``lax.scan``) run on the card in one CUDA kernel, ``csrc/phase_sweeps.cu``
+(:func:`phase_sweeps_gpu`: all sweeps in one launch, a cluster of 8 blocks
+a replicate, where a block's share of the values and lists fits its shared
+memory, else one launch per sweep); on the CPU they are
+:func:`phase_sweeps`, a Python loop of vectorised gathers and row sums,
+the kernel's plain version. The reference's 1e-9
+weight-sum floor is kept, so padded and empty neighbor sets fall back
+exactly as there.
 
 The reference updates in place while it walks the samples (Gauss-Seidel);
 the device sweeps are Jacobi. Both share their fixed points.
@@ -19,10 +24,14 @@ the sweeps of :func:`phase_haplotypes`.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
 import torch
+
+from grid_tpu_torch import native
 
 
 class PhasingResult(NamedTuple):
@@ -71,15 +80,38 @@ def phase_haplotypes(irrs, nbr_idx, nbr_w, nbr_valid, min_nbr: int, n_iters: int
     depend on irrs and nbr_valid only.
     """
     n = irrs.shape[0]
-    nbr_idx = nbr_idx.long()
-    lead = nbr_idx.shape[:-2]
     deg = nbr_valid.sum(dim=1).reshape(n, 2)  # per-sample [h0, h1]
     phased = (deg[:, 0] >= min_nbr) & (deg[:, 1] >= min_nbr) & torch.isfinite(irrs)
 
     hap0 = torch.where(phased, irrs / 2, math.nan)
-    hap = torch.stack([hap0, hap0], dim=1).reshape(2 * n).expand(*lead, 2 * n)
-    irr_rep = irrs.repeat_interleave(2)
+    hap = phase_sweeps_gpu(torch.stack([hap0, hap0], dim=1).reshape(2 * n), irrs, nbr_idx,
+                           nbr_w, nbr_valid, n_iters)
 
+    n_phased = phased.sum()
+    mean_irrs = torch.where(
+        n_phased > 0, torch.where(phased, irrs, 0).sum() / n_phased.clamp_min(1), 0.0
+    )
+    return PhasingResult(hap_irrs=hap, mean_irrs=mean_irrs, phased=phased)
+
+
+def phase_sweeps(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters: int):
+    """The n_iters Jacobi sweeps from the starting values ``hap`` [2N]: in
+    each, every sample i (haplotype rows 2i, 2i+1) takes per haplotype the
+    weighted mean m_h of its neighbors' values, then new_h = irr_i * m_h /
+    (m_0 + m_1); the old value stays where that denominator is <= 0 or the
+    old value is NaN. The plain version of the ``phase_sweeps`` kernel.
+
+    Args:
+        hap: [2N] starting values, shared by the replicates.
+        irrs, nbr_idx, nbr_w, nbr_valid: as :func:`phase_haplotypes`.
+
+    Returns hap [2N] ([B, 2N] for B replicates).
+    """
+    n = irrs.shape[0]
+    nbr_idx = nbr_idx.long()
+    lead = nbr_idx.shape[:-2]
+    hap = hap.expand(*lead, 2 * n)
+    irr_rep = irrs.repeat_interleave(2)
     for _ in range(n_iters):
         means, _ = _neighbor_means(hap, nbr_idx, nbr_w, nbr_valid)
         m = means.reshape(*lead, n, 2)
@@ -87,12 +119,137 @@ def phase_haplotypes(irrs, nbr_idx, nbr_w, nbr_valid, min_nbr: int, n_iters: int
         new = (irr_rep * means) / denom.repeat_interleave(2, dim=-1)
         keep_old = (denom <= 0).repeat_interleave(2, dim=-1) | torch.isnan(hap)
         hap = torch.where(keep_old, hap, new)
+    return hap
 
-    n_phased = phased.sum()
-    mean_irrs = torch.where(
-        n_phased > 0, torch.where(phased, irrs, 0).sum() / n_phased.clamp_min(1), 0.0
-    )
-    return PhasingResult(hap_irrs=hap, mean_irrs=mean_irrs, phased=phased)
+
+SWEEP_MODES = ("resident", "per_sweep")  # the kernel's modes, by the number it takes
+_SWEEP_INFO_KEYS = ("threads", "smem_bytes", "blocks_per_sm", "registers", "spill_bytes",
+                    "cluster_blocks", "clusters")
+
+
+@functools.cache
+def _sweeps_lib():
+    lib = native.load("phase_sweeps")
+    lib.phase_sweeps_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+    lib.phase_sweeps_launch.restype = ctypes.c_int
+    lib.phase_sweeps_mode.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.phase_sweeps_mode.restype = ctypes.c_int
+    lib.phase_sweeps_info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.phase_sweeps_info.restype = ctypes.c_int
+    return lib
+
+
+def phase_sweeps_mode(n: int, k: int, device: torch.device) -> str:
+    """The mode the ``phase_sweeps`` kernel takes N samples with lists of K
+    slots in on the CUDA ``device``: "resident" (all sweeps in one launch,
+    a cluster of 8 blocks a replicate, each holding the values
+    double-buffered and the lists of an eighth of the samples in shared
+    memory: 16 N + 18 ceil(N / 8) K bytes) where that fits and a cluster
+    can be scheduled, else "per_sweep" (one launch per sweep)."""
+    mode = ctypes.c_int()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(device):
+        err = _sweeps_lib().phase_sweeps_mode(index, n, k, ctypes.byref(mode))
+    native.check_launch("phase_sweeps", err)
+    return SWEEP_MODES[mode.value]
+
+
+def phase_sweeps_info(n: int, k: int, device: torch.device) -> dict:
+    """The ``phase_sweeps`` kernel's launch shape at N samples and K slots a
+    list on the CUDA ``device``: its mode, threads and dynamic shared memory
+    per block, resident blocks per SM, registers and local (spill) bytes
+    per thread, blocks per cluster and the clusters the card holds at once
+    (0 in the per-sweep mode)."""
+    mode = phase_sweeps_mode(n, k, device)
+    out = (ctypes.c_int * len(_SWEEP_INFO_KEYS))()
+    with torch.cuda.device(device):
+        native.check_launch("phase_sweeps", _sweeps_lib().phase_sweeps_info(
+            SWEEP_MODES.index(mode), n, k, out))
+    return {"mode": mode, **dict(zip(_SWEEP_INFO_KEYS, out))}
+
+
+def phase_sweeps_gpu(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters: int):
+    """:func:`phase_sweeps` on the card, whose contract it keeps (CPU
+    tensors take it): float32 ``hap`` [2N], ``irrs`` [N] and ``nbr_w``,
+    bool ``nbr_valid`` [2N, K], all contiguous; ``nbr_idx`` [2N, K] or
+    [B, 2N, K] (``nbr_w`` likewise) of any integer type, converted to
+    int32, every entry in [0, 2N) (the plain version's gather raises
+    otherwise; checked here, one synchronisation).
+
+    One launch of the resident mode runs all n_iters sweeps of every
+    replicate, a cluster of 8 blocks per replicate, where a block's share
+    of the values and lists fits its shared memory (N up to ~6,000 at K=10,
+    ~11,000 at K=2 on an H100); beyond that one launch per sweep
+    (:func:`phase_sweeps_mode`). Each launch adds one to
+    ``phase_sweeps_gpu.launches``. Zero sweeps launch nothing and return
+    the start broadcast over the replicates, as the plain version does.
+    The sums run in slot order without fused multiply-adds, so the result
+    matches the plain version to float32 rounding of its sums (rtol 1e-5
+    on the card).
+
+    Returns hap [2N] ([B, 2N] for replicates).
+    """
+    if not native.on_cuda(hap, irrs, nbr_idx, nbr_w, nbr_valid):
+        return phase_sweeps(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters)
+    n = irrs.shape[0]
+    if n_iters < 0:
+        raise ValueError(f"n_iters={n_iters} must be >= 0")
+    if n_iters == 0:  # no sweep: every value stays where it starts
+        native.check(hap, "hap", torch.float32, (2 * n,))
+        return hap.expand(*nbr_idx.shape[:-2], 2 * n)
+    if nbr_valid.dim() != 2 or nbr_valid.shape[0] != 2 * n:
+        raise ValueError(f"nbr_valid: expected [2N={2 * n}, K], got {tuple(nbr_valid.shape)}")
+    k = nbr_valid.shape[1]
+    lead = tuple(nbr_idx.shape[:-2])
+    if len(lead) > 1 or tuple(nbr_idx.shape[-2:]) != (2 * n, k):
+        raise ValueError(f"nbr_idx: expected [2N, K] or [B, 2N, K] with 2N={2 * n}, K={k}, "
+                         f"got {tuple(nbr_idx.shape)}")
+    if nbr_idx.dtype.is_floating_point or nbr_idx.dtype == torch.bool:
+        raise TypeError(f"nbr_idx: expected an integer dtype, got {nbr_idx.dtype}")
+    native.check(hap, "hap", torch.float32, (2 * n,))
+    native.check(irrs, "irrs", torch.float32, (n,))
+    native.check(nbr_w, "nbr_w", torch.float32, tuple(nbr_idx.shape))
+    native.check(nbr_valid, "nbr_valid", torch.bool, (2 * n, k))
+    reps = lead[0] if lead else 1
+    out = torch.empty((reps, 2 * n), dtype=torch.float32, device=hap.device)
+    if n == 0 or reps == 0 or k == 0:
+        # no neighbor anywhere: every value stays where it starts
+        out.copy_(hap.expand(reps, 2 * n))
+        return out.reshape(*lead, 2 * n)
+    idx = nbr_idx.to(torch.int32).contiguous()
+    lo, hi = torch.aminmax(idx)
+    if int(lo) < 0 or int(hi) >= 2 * n:
+        raise ValueError(f"nbr_idx: entries must lie in [0, {2 * n}), got [{int(lo)}, {int(hi)}]")
+    mode = phase_sweeps_mode(n, k, hap.device)
+    return _sweeps_launch(mode, hap, irrs, idx, nbr_w, nbr_valid, n_iters, out).reshape(
+        *lead, 2 * n)
+
+
+def _sweeps_launch(mode: str, hap, irrs, idx, nbr_w, nbr_valid, n_iters: int, out):
+    """Launch ``phase_sweeps`` in ``mode`` on checked inputs into ``out``
+    [B, 2N] (int32 ``idx``; the lists as the callers hold them, [.., 2N,
+    K]). The wrapper picks the mode; the card tests also run the per-sweep
+    mode where both fit."""
+    (reps, two_n), k = out.shape, nbr_valid.shape[1]
+    per_rep = idx.dim() == 3
+    scratch = torch.empty_like(out) if mode == "per_sweep" else out
+    # the kernel reads the lists slot-major, [K, 2N]: a warp's loads of one
+    # slot of 32 neighbouring haplotypes are then one coalesced line
+    idx, nbr_w = (t.transpose(-1, -2).contiguous() for t in (idx, nbr_w))
+    nbr_valid = nbr_valid.t().contiguous()
+    with torch.cuda.device(hap.device):
+        err = _sweeps_lib().phase_sweeps_launch(
+            hap.data_ptr(), irrs.data_ptr(), idx.data_ptr(), nbr_w.data_ptr(),
+            nbr_valid.data_ptr(), two_n // 2, k, reps, int(per_rep), n_iters,
+            SWEEP_MODES.index(mode), out.data_ptr(), scratch.data_ptr(),
+            native.stream_ptr(hap.device))
+    native.check_launch("phase_sweeps", err)
+    native.count_launch(phase_sweeps_gpu, 1 if mode == "resident" else n_iters)
+    return out
+
+
+phase_sweeps_gpu.launches = 0
 
 
 def compute_imputed(hap_irrs, nbr_idx, nbr_w, nbr_valid, mean_irrs):

@@ -48,7 +48,7 @@ import torch.distributed as dist
 from torch.multiprocessing.spawn import ProcessException
 
 from grid_tpu_torch import native
-from grid_tpu_torch.ops import gpu_kernels, gpu_select
+from grid_tpu_torch.ops import gpu_kernels, gpu_select, phasing
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import PROFILE_ENV
 
@@ -60,6 +60,8 @@ COUNTED = {
     "zprep_gram_panel": gpu_kernels.zprep_gram_panel,
     "zprep_gram_cross": gpu_kernels.zprep_gram_cross,
     "dipcn_from_distances_gpu": gpu_select.dipcn_from_distances_gpu,
+    "sorted_smallest_k_gpu": gpu_select.sorted_smallest_k_gpu,
+    "phase_sweeps_gpu": phasing.phase_sweeps_gpu,
 }
 
 

@@ -18,8 +18,9 @@ What a step does on the card:
   step's, entry for entry, for the same prepared z;
 - the epilogue of the flat branch (:func:`grid_tpu_torch.ops.knn.block_d2`):
   d2 = max(|a|^2 + |b|^2 - 2G, 0), self and invalid columns at finfo.max;
-- the merge: a stable sort of [best | d2] per row keeps k, and the
-  payloads follow the same positions. Equal distances keep the lower
+- the merge: the k smallest of [best | d2] per row (the ``knn_select``
+  kernel on the card, a stable sort on the CPU: the same positions), and
+  the payloads follow the same positions. Equal distances keep the lower
   position, ``lax.top_k``'s rule, and the blocks are visited in the JAX
   ring's order, so exact ties break as they do there (the visited block
   first, not the lower row).
@@ -40,6 +41,7 @@ import math
 import torch
 
 from grid_tpu_torch.ops.gpu_kernels import SplitZ, zprep_gram_cross, zprep_split
+from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
 from grid_tpu_torch.ops.knn import block_d2
 from grid_tpu_torch.parallel.mesh import CohortGroup
 
@@ -55,17 +57,18 @@ def merge_candidates(best_d, best_i, best_p, d2, cols, block_pay, k: int):
         d2: [b, B] distances to the visiting rows; cols [B] their indices.
         block_pay: tuple of [B] payloads of the visiting rows.
 
-    Returns (best_d, best_i, best_p) after a stable sort of [best | d2].
+    Returns (best_d, best_i, best_p): the k smallest of [best | d2] in
+    stable-sort order (equal distances keep the lower position).
     """
-    vals, pos = torch.sort(torch.cat([best_d, d2], dim=1), dim=1, stable=True)
-    pos = pos[:, :k]
+    vals, pos = sorted_smallest_k_gpu(torch.cat([best_d, d2], dim=1), k)
+    pos = pos.long()
     old = pos < k
     old_pos, new_pos = pos.clamp(max=k - 1), (pos - k).clamp_min(0)
 
     def pick(best, fresh):
         return torch.where(old, best.gather(1, old_pos), fresh[new_pos].to(best.dtype))
 
-    return (vals[:, :k], pick(best_i, cols),
+    return (vals, pick(best_i, cols),
             tuple(pick(bp, pb) for bp, pb in zip(best_p, block_pay)))
 
 

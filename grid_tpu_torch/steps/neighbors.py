@@ -5,9 +5,10 @@ Reads the WRITTEN normalized matrix, clips and zero-fills z on the device,
 keeps the regions the variance filter passes, and takes each sample's k
 nearest by row panels of the Gram product (``ops/knn.py:knn_squared``: one
 ``zprep_split`` and one ``zprep_gram_panel`` per 512 rows on the card, then
-the stable selection). Writes the neighbors format with squared distances
-/ (2 * R_use) (quirk Q5) through ``write_neighbors_dense``, whose bytes
-after decompression are those of grid_tpu's list writer. Spans
+one ``knn_select`` per panel; stable sorts on the CPU). Writes the
+neighbors format with squared distances / (2 * R_use) (quirk Q5) through
+``write_neighbors_dense``, whose bytes after decompression are those of
+grid_tpu's list writer. Spans
 ``neighbors.read`` (the reference's Python parser of the normalized file)
 and ``neighbors.device``.
 """

@@ -23,7 +23,13 @@ mode bitwise. The Smith-Waterman kernel equals its plain scan exactly
 (int32) in both its modes, and the WES pipeline on the card writes the CPU
 run's files byte for byte. The gather form of the sharded step on one rank
 launches what its panels need and equals the flat panel loop on its own z
-bitwise; a named build cache receives the nvcc libraries.
+bitwise; a named build cache receives the nvcc libraries. The selection
+kernel (``knn_select``) equals the stable sort exactly, values and
+positions, in both its modes, and the ring merge on it the sort merge; the
+phasing kernel (``phase_sweeps``) is held to the plain sweeps at rtol 1e-5
+with the same NaNs (each neighbor list summed in slot order there, in
+torch's reduction order in the plain version), its two modes to each other
+bitwise.
 """
 
 import functools
@@ -787,3 +793,292 @@ def test_a_named_build_cache_receives_the_nvcc_libraries(cuda, tmp_path):
     after = sorted(p.name for p in native.BUILD_DIR.glob("*")) if native.BUILD_DIR.exists() \
         else []
     assert after == before
+
+
+# ---- knn_select: exact sorted k-smallest selection -------------------------
+
+
+def _select_case(case, cuda):
+    """(d2 [B, W] on the card, k) of one named case."""
+    rng = np.random.default_rng(len(case))
+    big = torch.finfo(torch.float32).max
+    b, w, k = _SELECT_CASES[case]
+    if case.startswith("ties"):
+        valid = torch.tensor(rng.random(b) > 0.1, device=cuda)
+        d2 = _tie_d2(rng, cuda, b, 16, valid)
+    elif case == "all-equal":
+        ones = torch.ones((b, 16), dtype=torch.bool, device=cuda)
+        d2 = d2_matrix(torch.zeros((b, 16), device=cuda), ones, ones[0], 1e30)
+    elif case == "narrow-band":  # the slice's keys: ~22 low bits differ
+        d2 = torch.tensor(rng.uniform(3830, 5185, (b, w)), dtype=torch.float32, device=cuda)
+        d2[:, 7] = d2[:, 3]
+        d2.fill_diagonal_(big)
+    else:  # quantized: every value repeats ~w/400 times across the row
+        d2 = torch.tensor(rng.integers(0, 400, (b, w)) * 0.25, dtype=torch.float32, device=cuda)
+        d2[:, rng.random(w) < (0.6 if case == "past-body" else 0.05)] = big
+        d2[:, 3] = torch.inf
+        if w > 65536:  # the nearest columns and a tie group past column 65,535
+            d2[:, 65540:65560] = 0.0
+            d2[:, 65536:65540] = 0.25
+    return d2.contiguous(), k
+
+
+# case: (B, W, k)
+_SELECT_CASES = {
+    "ties-97-k1": (97, 97, 1),
+    "ties-97-k20": (97, 97, 20),
+    "ties-97-k-equals-w": (97, 97, 97),
+    "ties-300-k299": (300, 300, 299),
+    "all-equal": (300, 300, 60),
+    "narrow-band": (512, 512, 100),
+    "past-body": (64, 3000, 2000),
+    "quantized-2504": (256, 2504, 500),
+    "quantized-16884": (64, 16884, 500),
+    "w65536": (64, 65536, 500),
+    "w65600-past-uint16": (16, 65600, 777),
+    "w131072-k4096": (8, 131072, 4096),
+}
+
+
+@pytest.mark.parametrize("case", list(_SELECT_CASES))
+def test_knn_select_kernel_equals_the_stable_sort(cuda, case):
+    from grid_tpu_torch.ops.gpu_select import _knn_launch, knn_select_mode, sorted_smallest_k_gpu
+    from grid_tpu_torch.ops.knn import sorted_smallest_k
+
+    d2, k = _select_case(case, cuda)
+    mode = knn_select_mode(d2.shape[1], k, cuda)
+    assert mode == ("wide" if d2.shape[1] >= 65536 else "resident")
+    before = sorted_smallest_k_gpu.launches
+    vals, idx = sorted_smallest_k_gpu(d2, k)
+    assert sorted_smallest_k_gpu.launches == before + 1
+    want_v, want_i = sorted_smallest_k(d2, k)  # stable torch.sort on the card
+    assert torch.equal(idx, want_i) and torch.equal(vals, want_v)
+    assert idx.dtype == torch.int32 and vals.shape == (d2.shape[0], k)
+    if mode == "resident":  # the wide mode selects and orders the same entries
+        wide_v, wide_i = _knn_launch("wide", d2, k)
+        assert torch.equal(wide_i, idx) and torch.equal(wide_v, vals)
+
+
+@pytest.mark.parametrize("k", [500, 4000])
+def test_knn_select_mode_switch_at_the_shared_memory_edge(cuda, k):
+    from grid_tpu_torch.ops.gpu_select import _knn_launch, knn_select_mode
+    from grid_tpu_torch.ops.knn import sorted_smallest_k
+
+    lo, hi = k, 65536  # the widest resident row lies in [lo, hi]
+    assert knn_select_mode(lo, k, cuda) == "resident"
+    assert knn_select_mode(hi, k, cuda) == "wide"
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if knn_select_mode(mid, k, cuda) == "resident" else (lo, mid)
+    rng = np.random.default_rng(k)
+    for w, mode in ((lo, "resident"), (hi, "wide")):
+        d2 = torch.tensor(rng.integers(0, 300, (24, w)) * 0.5, dtype=torch.float32, device=cuda)
+        got = _knn_launch(mode, d2, k)
+        want = sorted_smallest_k(d2, k)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        if mode == "resident":
+            assert all(torch.equal(a, b) for a, b in zip(_knn_launch("wide", d2, k), got))
+
+
+def test_knn_select_refuses_what_it_does_not_take(cuda):
+    from grid_tpu_torch.ops.gpu_select import knn_select_mode, sorted_smallest_k_gpu
+
+    d2 = torch.zeros((8, 40), device=cuda)
+    with pytest.raises(TypeError):
+        sorted_smallest_k_gpu(d2.double(), 3)
+    with pytest.raises(ValueError):
+        sorted_smallest_k_gpu(d2.t(), 3)  # not contiguous
+    with pytest.raises(ValueError):
+        sorted_smallest_k_gpu(d2, 41)
+    with pytest.raises(ValueError):
+        sorted_smallest_k_gpu(d2, 0)
+    with pytest.raises(ValueError):
+        sorted_smallest_k_gpu(d2[0], 3)  # not [B, W]
+    with pytest.raises(ValueError):
+        sorted_smallest_k_gpu(d2[None], 3)  # not [B, W]
+    assert knn_select_mode(20000, 16385, cuda) is None  # past the 2^14-entry list
+    with pytest.raises(ValueError):
+        sorted_smallest_k_gpu(torch.zeros((2, 20000), device=cuda), 16385)
+
+
+def test_ring_merge_on_the_kernel_equals_the_sort_merge(cuda):
+    """merge_candidates on the card (knn_select of [best | d2]) equals the
+    same merge on the CPU (a stable sort), payloads included."""
+    from grid_tpu_torch.parallel.pknn import merge_candidates
+
+    rng = np.random.default_rng(15)
+    b, k, block = 300, 60, 700
+    big = np.finfo(np.float32).max
+    best_d = np.sort((rng.integers(0, 80, (b, k)) * 0.5).astype(np.float32), axis=1)
+    best_d[: b // 3, k // 2:] = big
+    best_i = rng.integers(0, 5000, (b, k)).astype(np.int32)
+    best_p = (rng.random((b, k)).astype(np.float32),)
+    d2 = (rng.integers(0, 80, (b, block)) * 0.5).astype(np.float32)
+    d2[:, ::9] = big
+    cols = np.arange(1000, 1000 + block, dtype=np.int32)
+    pay = (rng.random(block).astype(np.float32),)
+
+    def run(device):
+        t = lambda a: torch.tensor(a, device=device)  # noqa: E731
+        return merge_candidates(t(best_d), t(best_i), tuple(map(t, best_p)), t(d2), t(cols),
+                                tuple(map(t, pay)), k)
+
+    from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
+
+    before = sorted_smallest_k_gpu.launches
+    got = run(cuda)
+    assert sorted_smallest_k_gpu.launches == before + 1
+    want = run("cpu")
+    for g, w in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        assert torch.equal(g.cpu(), w)
+
+
+# ---- phase_sweeps: every Jacobi sweep in one launch ------------------------
+
+
+def _phasing_case(rng, n, k, reps=0):
+    """irrs [N] (some NaN), padded lists [2N, K] with some empty ones; with
+    ``reps``, bootstrap slots [reps, 2N, K] drawn within each degree."""
+    irrs = rng.uniform(1.0, 6.0, n).astype(np.float32)
+    irrs[rng.random(n) < 0.05] = np.nan
+    deg = rng.integers(0, k + 1, 2 * n)
+    deg[::11] = 0
+    hv = np.arange(k)[None, :] < deg[:, None]
+    hi = np.where(hv, rng.integers(0, 2 * n, (2 * n, k)), 0).astype(np.int32)
+    hw = np.where(hv, rng.uniform(0.1, 1.0, (2 * n, k)), 0).astype(np.float32)
+    slots = None
+    if reps:
+        slots = (rng.random((reps, 2 * n, k)) * np.maximum(deg, 1)[None, :, None]).astype(
+            np.int64)
+    return irrs, hi, hw, hv, slots
+
+
+# (N, K, sweeps, replicates, mode): the resident mode where
+# 16 N + 18 ceil(N / 8) K bytes fit a block's shared memory
+_SWEEP_CASES = [(97, 4, 1, 0, "resident"), (2504, 2, 100, 0, "resident"),
+                (2504, 10, 100, 0, "resident"), (1000, 8, 30, 20, "resident"),
+                (16384, 4, 20, 0, "per_sweep"), (3000, 6, 25, 3, "resident"),
+                (12000, 4, 10, 3, "per_sweep"), (5, 3, 4, 2, "resident")]
+
+
+@pytest.mark.parametrize("n,k,n_iters,reps,mode", _SWEEP_CASES)
+def test_phase_sweeps_kernel_against_its_plain_version(cuda, n, k, n_iters, reps, mode):
+    """Both modes against the plain sweeps on the card: rtol 1e-5 with the
+    NaN pattern identical (the kernel sums each neighbor list in slot
+    order, the plain version in torch's reduction order)."""
+    from grid_tpu_torch.ops.phasing import (
+        _sweeps_launch, phase_bootstrap_slots, phase_haplotypes, phase_sweeps, phase_sweeps_gpu,
+        phase_sweeps_mode,
+    )
+
+    rng = np.random.default_rng(n + k)
+    irrs, hi, hw, hv, slots = _phasing_case(rng, n, k, reps)
+    t = [torch.tensor(a, device=cuda) for a in (irrs, hi, hw, hv)]
+    assert phase_sweeps_mode(n, k, cuda) == mode
+    before = phase_sweeps_gpu.launches
+    if reps:
+        got = phase_bootstrap_slots(*t, torch.tensor(slots, device=cuda), 1, n_iters)[2]
+        bi = torch.gather(t[1].long().expand(reps, 2 * n, k), 2, torch.tensor(slots, device=cuda))
+        bw = torch.gather(t[2].expand(reps, 2 * n, k), 2, torch.tensor(slots, device=cuda))
+        lists = (bi, bw)
+    else:
+        got = phase_haplotypes(*t, 1, n_iters).hap_irrs
+        lists = (t[1], t[2])
+    assert phase_sweeps_gpu.launches == before + (1 if mode == "resident" else n_iters)
+    deg = t[3].sum(dim=1).reshape(n, 2)
+    phased = (deg[:, 0] >= 1) & (deg[:, 1] >= 1) & torch.isfinite(t[0])
+    hap0 = torch.where(phased, t[0] / 2, torch.nan).repeat_interleave(2)
+    want = phase_sweeps(hap0, t[0], *lists, t[3], n_iters)
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0, equal_nan=True)
+    if mode == "resident":  # the per-sweep mode does the same arithmetic, bitwise
+        idx = lists[0].to(torch.int32).contiguous()
+        other = _sweeps_launch("per_sweep", hap0, t[0], idx, lists[1], t[3], n_iters,
+                               torch.empty((max(reps, 1), 2 * n), device=cuda))
+        assert torch.equal(other.reshape(got.shape).isnan(), got.isnan())
+        assert torch.equal(torch.nan_to_num(other.reshape(got.shape)), torch.nan_to_num(got))
+
+
+def test_phase_sweeps_mode_switch_at_the_shared_memory_edge(cuda):
+    from grid_tpu_torch.ops.phasing import (
+        _sweeps_launch, phase_sweeps, phase_sweeps_info, phase_sweeps_mode,
+    )
+
+    lo, hi = 1, 1 << 16  # the largest resident N at K=3 lies in [lo, hi)
+    assert phase_sweeps_mode(lo, 3, cuda) == "resident"
+    assert phase_sweeps_mode(hi, 3, cuda) == "per_sweep"
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if phase_sweeps_mode(mid, 3, cuda) == "resident" else (lo, mid)
+    info = phase_sweeps_info(lo, 3, cuda)
+    assert info["smem_bytes"] == 16 * lo + 18 * -(-lo // 8) * 3
+    assert info["cluster_blocks"] == 8 and info["clusters"] >= 1
+    for n, mode in ((lo, "resident"), (hi, "per_sweep")):
+        assert phase_sweeps_mode(n, 3, cuda) == mode
+        irrs, hi_, hw, hv, _ = _phasing_case(np.random.default_rng(n), n, 3)
+        t = [torch.tensor(a, device=cuda) for a in (irrs, hi_, hw, hv)]
+        hap0 = (t[0] / 2).repeat_interleave(2)
+        got = _sweeps_launch(mode, hap0, t[0], t[1], t[2], t[3], 7,
+                             torch.empty((1, 2 * n), device=cuda))[0]
+        want = phase_sweeps(hap0, *t, 7)
+        assert torch.equal(got.isnan(), want.isnan())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0, equal_nan=True)
+
+
+def test_phase_sweeps_zero_sweeps_launch_nothing(cuda):
+    """Zero sweeps return the start broadcast over the replicates, as the
+    plain version does, without a launch (the fused steps run the cohort
+    step with empty float64 placeholder lists and no sweep)."""
+    from grid_tpu_torch.ops.phasing import phase_sweeps, phase_sweeps_gpu
+
+    irrs, hi, hw, hv, _ = _phasing_case(np.random.default_rng(1), 40, 3)
+    t = [torch.tensor(a, device=cuda) for a in (irrs, hi, hw, hv)]
+    hap0 = (t[0] / 2).repeat_interleave(2)
+    before = phase_sweeps_gpu.launches
+    for idx, w in ((t[1], t[2].double()), (t[1].expand(4, 80, 3), t[2].expand(4, 80, 3))):
+        got = phase_sweeps_gpu(hap0, t[0], idx, w, t[3], 0)
+        want = phase_sweeps(hap0.cpu(), t[0].cpu(), idx.cpu(), w.cpu(), t[3].cpu(), 0)
+        assert got.shape == want.shape and torch.equal(got.cpu().isnan(), want.isnan())
+        assert torch.equal(got.cpu().nan_to_num(), want.nan_to_num())
+    assert phase_sweeps_gpu.launches == before
+
+
+def test_phase_sweeps_refuses_what_it_does_not_take(cuda):
+    from grid_tpu_torch.ops.phasing import phase_sweeps_gpu
+
+    irrs, hi, hw, hv, _ = _phasing_case(np.random.default_rng(0), 50, 3)
+    t = [torch.tensor(a, device=cuda) for a in (irrs, hi, hw, hv)]
+    hap0 = (t[0] / 2).repeat_interleave(2)
+    with pytest.raises(TypeError):
+        phase_sweeps_gpu(hap0.double(), t[0].double(), t[1], t[2].double(), t[3], 3)
+    with pytest.raises(ValueError):
+        phase_sweeps_gpu(hap0, t[0], t[1][:, :2], t[2], t[3], 3)  # idx shape
+    bad = t[1].clone()
+    bad[5, 0] = 100  # past 2N
+    with pytest.raises(ValueError):
+        phase_sweeps_gpu(hap0, t[0], bad, t[2], t[3], 3)
+    with pytest.raises(ValueError):
+        phase_sweeps_gpu(hap0, t[0], t[1], t[2].t().contiguous().t(), t[3], 3)  # not contiguous
+
+
+def test_cohort_step_launches_each_selection_and_phasing_kernel_once(cuda):
+    """The resident step launches knn_select once and phase_sweeps once; the
+    panel branch one knn_select per panel."""
+    from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
+    from grid_tpu_torch.ops.phasing import phase_sweeps_gpu
+
+    rng = np.random.default_rng(2)
+    n, r = 700, 160
+    values = rng.uniform(20, 40, (n, r)) * rng.normal(1, 0.1, (n, r)).clip(0.5, None)
+    mask = rng.random((n, r)) > 0.02
+    reads = rng.integers(500, 3000, n).astype(np.float64)
+    ring = [[((h + 2) % (2 * n), 1.0), ((h - 2) % (2 * n), 0.5)] for h in range(2 * n)]
+    args = inputs_to_torch(values, mask, reads, np.ones(n, bool), *pad_hap_neighbors(ring, 2),
+                           cuda, torch.float32)
+    resident = CohortParams(num_neighbors=60, n_nbr=30, n_iters=10, quantize=False,
+                            row_block=256)
+    for params, selections in ((resident, 1), (resident._replace(d2_budget_bytes=0), 3)):
+        before = sorted_smallest_k_gpu.launches, phase_sweeps_gpu.launches
+        cohort_step(*args, params)
+        assert (sorted_smallest_k_gpu.launches - before[0],
+                phase_sweeps_gpu.launches - before[1]) == (selections, 1)

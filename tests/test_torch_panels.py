@@ -37,8 +37,7 @@ from grid_tpu_torch.ops.knn import (
     d2_panels,
     knn_squared,
     panel_d2,
-    smallest_k_two_stage,
-    two_stage_width,
+    sorted_smallest_k,
 )
 from grid_tpu_torch.ops.select import dipcn_from_distances, dipcn_from_distances_panels
 from torch_parity import assert_close_to_max, dipcn_sets_differ, neighbor_rows_differing
@@ -73,11 +72,13 @@ def _assert_lists(got_d, got_i, want_d, want_i, exact):
 @pytest.mark.parametrize("col_block", [None, 16, 7, 4])
 @pytest.mark.parametrize("ties", [False, True])
 def test_knn_squared_matches_grid_tpu(dt, col_block, ties):
+    """The port selects over whole rows; its lists are the JAX function's
+    with each of its column-block settings."""
     npdt, tdt = DTYPES[dt]
     rng = np.random.default_rng(11)
     n, k = 61, 5  # 61 rows in panels of 16: the last panel has 13
     z = _z(rng, n, 12, npdt, ties)
-    got_d, got_i = knn_squared(torch.from_numpy(z), k, row_block=16, col_block=col_block)
+    got_d, got_i = knn_squared(torch.from_numpy(z), k, row_block=16)
     assert got_i.dtype == torch.int32 and got_d.shape == (n, k)
     want_d, want_i = j_knn_squared(jnp.asarray(z), k, row_block=16, col_block=col_block,
                                    selector="top_k")
@@ -91,7 +92,7 @@ def test_knn_squared_padded_invalid_rows(dt):
     z = np.concatenate([rng.normal(size=(40, 6)), np.zeros((9, 6))]).astype(npdt)
     valid = np.arange(49) < 40
     got_d, got_i = knn_squared(torch.from_numpy(z), 7, row_valid=torch.from_numpy(valid),
-                               row_block=16, col_block=8)
+                               row_block=16)
     want_d, want_i = j_knn_squared(jnp.asarray(z), 7, row_valid=jnp.asarray(valid),
                                    row_block=16, col_block=8, selector="top_k")
     assert (got_i[:40] < 40).all()  # padding is never a neighbor
@@ -108,26 +109,26 @@ def test_knn_squared_distance_343_and_self():
         knn_squared(z, 3)
 
 
-@pytest.mark.parametrize("n,k,col_block,want", [
-    (20000, 500, None, 8192), (16384, 500, None, None), (16385, 500, None, 8192),
-    (64, 9, 16, 16), (30, 5, 30, None), (30, 5, 5, None), (65536, 500, 4096, 4096),
-])
-def test_two_stage_width_rule(n, k, col_block, want):
-    assert two_stage_width(n, k, col_block) == want
+@pytest.mark.parametrize("k", [1, 5, 9, 17, 40, 41])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_sorted_smallest_k_keeps_stable_ties(seed, k):
+    """The selection's plain version against a stable argsort and against
+    grid_tpu's exact sorted_smallest_k, on rows with tie clusters, a
+    repeated column and an all-equal row."""
+    from grid_tpu.ops.select import sorted_smallest_k as j_sorted_smallest_k
 
-
-@pytest.mark.parametrize("col_block", [None, 3, 8, 13])
-def test_two_stage_selection_keeps_stable_ties(col_block):
-    rng = np.random.default_rng(col_block or 0)
+    rng = np.random.default_rng(seed)
     d = rng.gamma(2.0, 1.0, (23, 41)).astype(np.float32)
-    d[d < 0.6] = 0.5  # tie clusters spread over every block
+    d[d < 0.6] = 0.5  # tie clusters over the whole row
     d[:, 30] = d[:, 2]
     d[4] = 7.0  # an all-equal row
-    k = min(9, (col_block or 99) - 1)  # two_stage_width keeps col_block > k
-    vals, idx = smallest_k_two_stage(torch.from_numpy(d), k, col_block)
+    vals, idx = sorted_smallest_k(torch.from_numpy(d), k)
     want = np.argsort(d, axis=1, kind="stable")[:, :k]
     np.testing.assert_array_equal(idx.numpy(), want)
     np.testing.assert_array_equal(vals.numpy(), np.take_along_axis(d, want, axis=1))
+    j_vals, j_idx = j_sorted_smallest_k(jnp.asarray(d), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(j_vals))
 
 
 # ---------------------------------------------------------------------------

@@ -63,3 +63,107 @@ def test_pad_hap_neighbors_copy_matches_grid_tpu():
         for got, want in zip(pad_hap_neighbors(nbrs, max_nbr), j_pad(nbrs, max_nbr)):
             np.testing.assert_array_equal(got, want)
             assert got.dtype == want.dtype
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of csrc/phase_sweeps.cu, emulated in numpy float32: per
+# haplotype the slot-order sums of w and w * val over the valid non-NaN
+# neighbors (each product and sum rounded on its own: the kernel uses no
+# fused multiply-add), m = wval / (1e-9 + wsum), new = irr * m / (m0 + m1),
+# the old value kept where m0 + m1 <= 0 or it is NaN, and samples with two
+# NaN values skipped. Held to grid_tpu's phase_haplotypes at rtol 1e-6 with
+# the NaN pattern exact.
+# ---------------------------------------------------------------------------
+
+
+def _emulate_phase_sweeps(hap0, irrs, idx, w, valid, n_iters):
+    """hap [B, 2N] after n_iters sweeps from hap0 [2N]; idx and w [B, 2N, K]
+    (one set of lists per replicate), valid [2N, K]."""
+    f32 = np.float32
+    reps, two_n, k = idx.shape
+    hap = np.broadcast_to(hap0.astype(f32), (reps, two_n)).copy()
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for _ in range(n_iters):
+            nxt = hap.copy()
+            for b in range(reps):
+                cur = hap[b]
+                wsum = np.zeros(two_n, f32)
+                wval = np.zeros(two_n, f32)
+                for s in range(k):  # slot order
+                    v = cur[idx[b, :, s]]
+                    ok = valid[:, s] & ~np.isnan(v)
+                    wsum = np.where(ok, wsum + w[b, :, s], wsum).astype(f32)
+                    wval = np.where(ok, wval + (w[b, :, s] * v).astype(f32), wval).astype(f32)
+                m = (wval / (f32(1e-9) + wsum)).astype(f32)
+                m0, m1 = m[0::2], m[1::2]
+                denom = (m0 + m1).astype(f32)
+                o0, o1 = cur[0::2], cur[1::2]
+                skip = np.isnan(o0) & np.isnan(o1)
+                hold = denom <= 0
+                new0 = ((irrs * m0).astype(f32) / denom).astype(f32)
+                new1 = ((irrs * m1).astype(f32) / denom).astype(f32)
+                nxt[b, 0::2] = np.where(skip | hold | np.isnan(o0), o0, new0)
+                nxt[b, 1::2] = np.where(skip | hold | np.isnan(o1), o1, new1)
+            hap = nxt
+    return hap
+
+
+def _start(irrs, hv, min_nbr):
+    deg = hv.sum(axis=1).reshape(-1, 2)
+    phased = (deg[:, 0] >= min_nbr) & (deg[:, 1] >= min_nbr) & np.isfinite(irrs)
+    hap0 = np.where(phased, irrs / np.float32(2), np.float32(np.nan)).astype(np.float32)
+    return np.repeat(hap0, 2)
+
+
+@pytest.mark.parametrize("min_nbr,n_iters", [(1, 0), (1, 1), (1, 10), (2, 25), (1, 100)])
+def test_phase_sweeps_kernel_arithmetic(min_nbr, n_iters):
+    irrs, (hi, hw, hv) = _inputs(np.float32)
+    want = j_phase(jnp.asarray(irrs), jnp.asarray(hi), jnp.asarray(hw), jnp.asarray(hv),
+                   min_nbr, n_iters)
+    got = _emulate_phase_sweeps(_start(irrs, hv, min_nbr), irrs, hi[None], hw[None], hv,
+                                n_iters)[0]
+    want_hap = np.asarray(want.hap_irrs)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want_hap))
+    np.testing.assert_allclose(got, want_hap, rtol=1e-6)
+    assert np.isnan(got).sum() > 0 and np.isfinite(got).sum() > 0
+
+
+@pytest.mark.parametrize("n_iters", [1, 30])
+def test_phase_sweeps_kernel_arithmetic_on_replicates(n_iters):
+    """Bootstrap replicates (each haplotype's slots drawn with numpy within
+    its degree): every replicate equals grid_tpu's phase_haplotypes on its
+    own gathered lists; the port's plain replicate batch too."""
+    from grid_tpu_torch.ops.phasing import phase_bootstrap_slots
+
+    irrs, (hi, hw, hv) = _inputs(np.float32, seed=9)
+    rng = np.random.default_rng(3)
+    deg = np.maximum(hv.sum(axis=1), 1)
+    slots = (rng.random((5, *hi.shape)) * deg[None, :, None]).astype(np.int64)
+    bi = np.take_along_axis(np.broadcast_to(hi, slots.shape), slots, axis=2)
+    bw = np.take_along_axis(np.broadcast_to(hw, slots.shape), slots, axis=2)
+    got = _emulate_phase_sweeps(_start(irrs, hv, 1), irrs, bi, bw, hv, n_iters)
+    for b in range(slots.shape[0]):
+        want = np.asarray(j_phase(jnp.asarray(irrs), jnp.asarray(bi[b]), jnp.asarray(bw[b]),
+                                  jnp.asarray(hv), 1, n_iters).hap_irrs)
+        np.testing.assert_array_equal(np.isnan(got[b]), np.isnan(want))
+        np.testing.assert_allclose(got[b], want, rtol=1e-6)
+    _, _, plain = phase_bootstrap_slots(*[torch.from_numpy(a) for a in (irrs, hi, hw, hv)],
+                                        torch.from_numpy(slots), 1, n_iters)
+    np.testing.assert_array_equal(np.isnan(plain.numpy()), np.isnan(got))
+    np.testing.assert_allclose(plain.numpy(), got, rtol=1e-6)
+
+
+def test_phase_sweeps_wrapper_takes_the_plain_route_on_cpu():
+    from grid_tpu_torch.ops.phasing import phase_sweeps, phase_sweeps_gpu
+
+    irrs, (hi, hw, hv) = _inputs(np.float32)
+    t = [torch.from_numpy(a) for a in (irrs, hi, hw, hv)]
+    hap0 = torch.from_numpy(_start(irrs, hv, 1))
+    before = phase_sweeps_gpu.launches
+    got = phase_sweeps_gpu(hap0, *t, 12)
+    assert phase_sweeps_gpu.launches == before
+    assert torch.equal(got.isnan(), phase_sweeps(hap0, *t, 12).isnan())
+    torch.testing.assert_close(got, phase_sweeps(hap0, *t, 12), rtol=0, atol=0,
+                               equal_nan=True)
+    torch.testing.assert_close(got, phase_haplotypes(*t, 1, 12).hap_irrs, rtol=0, atol=0,
+                               equal_nan=True)

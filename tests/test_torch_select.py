@@ -17,6 +17,7 @@ from grid_tpu.ops.select import dipcn_from_distances as j_dipcn
 from grid_tpu.ops.select import dipcn_from_distances_multi as j_dipcn_multi
 from grid_tpu.ops.select import smallest_k_mask as j_smallest_k_mask
 from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu
+from grid_tpu_torch.ops.knn import sorted_smallest_k
 from grid_tpu_torch.ops.select import dipcn_from_distances, smallest_k_mask
 
 
@@ -308,3 +309,212 @@ def test_dipcn_multi_kernel_arithmetic(case, k, n_nbr):
     wok = np.asarray(wok)
     np.testing.assert_array_equal(gok, wok)
     np.testing.assert_allclose(got[wok], np.asarray(want)[wok], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of csrc/knn_select.cu (exact sorted k-smallest selection),
+# emulated row by row in numpy: the radix select above, the tie cut and
+# compaction into a list of k entries key * 2^32 + column (the resident
+# mode's chunk scan, or the wide mode's warp walks with ballot ranks), and
+# the bitonic sort of that list padded to a power of two. Held exactly,
+# values and positions, to grid_tpu's sorted_smallest_k and to lax.top_k.
+# ---------------------------------------------------------------------------
+
+_WARPS = _THREADS // 32
+_WIDE_GATHER = 2048  # kWideGather
+_PAD = np.uint64(2**64 - 1)
+
+
+def _knn_segments(w, wide):
+    """The column ranges whose counts one exclusive scan orders: a thread's
+    odd-length chunk (resident) or a warp's quarter of the row, a multiple
+    of 32 columns (wide)."""
+    if not wide:
+        return _chunks(w, _THREADS)
+    q = -(-(-(-w // _WARPS)) // 32) * 32
+    return [(min(wp * q, w), min(wp * q + q, w)) for wp in range(_WARPS)]
+
+
+def _bitonic_sort(lst):
+    """The kernel's bitonic network over a power-of-two list, one
+    compare-exchange step at a time."""
+    p2 = len(lst)
+    i = np.arange(p2 // 2)
+    size = 2
+    while size <= p2:
+        stride = size // 2
+        while stride:
+            a = 2 * i - (i & (stride - 1))
+            b = a + stride
+            x, y = lst[a].copy(), lst[b].copy()
+            swap = (x > y) == ((a & size) == 0)
+            lst[a], lst[b] = np.where(swap, y, x), np.where(swap, x, y)
+            stride //= 2
+        size *= 2
+    return lst
+
+
+def _emulate_knn_select(d2, k, wide=False):
+    """(vals [N, k], pos [N, k], histogram rounds per row) as the kernel
+    computes them in its resident or wide mode."""
+    n, w = d2.shape
+    keys_all = d2.view(np.int32).astype(np.int64)
+    p2 = 1 << (k - 1).bit_length()
+    cap = max(2 * p2, _WIDE_GATHER) if wide else 2 * p2  # the list's space as a gather buffer
+    vals = np.empty((n, k), np.float32)
+    pos = np.empty((n, k), np.int32)
+    rounds = np.zeros(n, int)
+    for row in range(n):
+        keys = keys_all[row]
+        body = keys < _BIG_KEY
+        n_body = int(body.sum())
+        if k <= n_body:
+            lo = int(keys[body].min())
+            t, below, rounds[row] = _radix_select(keys, lo, int(keys[body].max()) - lo, k, cap)
+        else:
+            t, below, rounds[row] = _radix_select(keys, _BIG_KEY, _INT_MAX - _BIG_KEY,
+                                                  k - n_body, cap)
+            below += n_body
+        need = k - below
+        assert 1 <= need and below == int((keys < t).sum())
+        # one exclusive scan of (ties, below t) over the segments in column order
+        segs = _knn_segments(w, wide)
+        counts = np.array([[int((keys[a:b] == t).sum()), int((keys[a:b] < t).sum())]
+                           for a, b in segs])
+        pre = np.cumsum(counts, axis=0) - counts
+        lst = np.full(p2, _PAD, np.uint64)
+        step = 32 if wide else w  # a warp's 32 lanes a step; a thread walks its chunk alone
+        for (a, b), (ties, pos_below) in zip(segs, pre):
+            for j0 in range(a, b, step):
+                js = np.arange(j0, min(j0 + step, b))
+                kb, tie = keys[js] < t, keys[js] == t
+                rank_b = pos_below + np.cumsum(kb) - kb  # ballot rank, or the running count
+                rank_t = ties + np.cumsum(tie) - tie
+                ent = (keys[js].astype(np.uint64) << np.uint64(32)) | js.astype(np.uint64)
+                lst[rank_b[kb]] = ent[kb]
+                take = tie & (rank_t < need)
+                lst[below + rank_t[take]] = ent[take]
+                ties += int(tie.sum())
+                pos_below += int(kb.sum())
+        assert (lst[:k] != _PAD).all() and (lst[k:] == _PAD).all()
+        lst = _bitonic_sort(lst)
+        assert (np.diff(lst.astype(np.float64)) >= 0).all()
+        vals[row] = (lst[:k] >> np.uint64(32)).astype(np.uint32).view(np.float32)
+        pos[row] = (lst[:k] & np.uint64(0xFFFFFFFF)).astype(np.int32)
+    return vals, pos, rounds
+
+
+def _past_body_inputs(seed=5, n=40, w=300):
+    """Rows whose k reaches past the body: 60% of the columns at finfo.max,
+    a few at inf, quantized distances that tie."""
+    rng = np.random.default_rng(seed)
+    d2 = (rng.integers(0, 50, (n, w)) * 0.5).astype(np.float32)
+    d2[rng.random((n, w)) < 0.6] = np.finfo(np.float32).max
+    d2[:, 5] = np.inf
+    return d2
+
+
+def _wide_row_inputs(seed=6, n=3, w=70_000):
+    """Rows past column 65,535: quantized distances whose nearest columns
+    and a tie group lie past it."""
+    rng = np.random.default_rng(seed)
+    d2 = (rng.integers(4, 400, (n, w)) * 0.25).astype(np.float32)
+    d2[:, rng.random(w) < 0.05] = np.finfo(np.float32).max
+    d2[:, 65_540:65_560] = 0.0
+    d2[:, 65_536:65_540] = 0.25
+    d2[0, 10:20] = 0.25
+    return d2
+
+
+def _ring_merge_inputs(seed=8, b=50, k=40, block=120):
+    """The ring merge's [best | d2] rows: the k best so far (ascending,
+    finfo.max where the row has met fewer), then a visiting block's
+    distances, with values equal to the best's."""
+    rng = np.random.default_rng(seed)
+    best = np.sort((rng.integers(0, 60, (b, k)) * 0.5).astype(np.float32), axis=1)
+    best[: b // 3, k // 2:] = np.finfo(np.float32).max
+    d2 = (rng.integers(0, 60, (b, block)) * 0.5).astype(np.float32)
+    d2[:, ::7] = np.finfo(np.float32).max
+    return np.ascontiguousarray(np.concatenate([best, d2], axis=1))
+
+
+_SELECT_INPUTS = {
+    **{case: (lambda make=make: make()[0]) for case, make in _KERNEL_INPUTS.items()},
+    "past-body": _past_body_inputs,
+    "ring-merge": _ring_merge_inputs,
+}
+
+
+def _want_sorted_smallest(d2, k):
+    """grid_tpu's exact sorted_smallest_k and lax.top_k of -d2 (ties to the
+    lower index), which must agree."""
+    import jax
+
+    from grid_tpu.ops.select import sorted_smallest_k as j_sorted_smallest_k
+
+    want_v, want_i = (np.asarray(a) for a in j_sorted_smallest_k(jnp.asarray(d2), k))
+    top_v, top_i = (np.asarray(a) for a in jax.lax.top_k(-jnp.asarray(d2), k))
+    np.testing.assert_array_equal(top_i, want_i)
+    np.testing.assert_array_equal(-top_v, want_v)
+    return want_v, want_i
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["resident", "wide"])
+@pytest.mark.parametrize("case", sorted(_SELECT_INPUTS))
+@pytest.mark.parametrize("k", [1, 20, 60, 96, "w"])
+def test_knn_select_kernel_arithmetic(case, k, wide):
+    """knn_select's radix select, one-scan compaction and composite-key
+    bitonic sort give exactly grid_tpu's sorted_smallest_k (and lax.top_k)
+    on ties, all-equal rows and keys past the body, k = 1, k = W and k not
+    a power of two, in both modes; the port's plain version too."""
+    d2 = _SELECT_INPUTS[case]()
+    k = d2.shape[1] if k == "w" else k
+    want_v, want_i = _want_sorted_smallest(d2, k)
+    got_v, got_i, rounds = _emulate_knn_select(d2, k, wide)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_v, want_v)
+    assert rounds.max() <= 4  # at most 4 digits over a full 32-bit span
+    plain_v, plain_i = sorted_smallest_k(torch.from_numpy(d2), k)
+    np.testing.assert_array_equal(plain_i.numpy(), want_i)
+    np.testing.assert_array_equal(plain_v.numpy(), want_v)
+
+
+@pytest.mark.parametrize("k", [1, 500, 777])
+def test_knn_select_kernel_arithmetic_past_column_65535(k):
+    """The wide mode's int32 columns past 65,535 (and its gather buffer)
+    on 70,000-column rows, exactly grid_tpu's lists."""
+    d2 = _wide_row_inputs()
+    want_v, want_i = _want_sorted_smallest(d2, k)
+    got_v, got_i, _ = _emulate_knn_select(d2, k, wide=True)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_v, want_v)
+    assert (got_i >= 65_536).any()
+
+
+def test_knn_select_ring_merge_positions_keep_top_k_ties():
+    """On the ring merge's [best | d2] rows the kernel's positions are
+    lax.top_k's: an equal distance keeps the lower position, i.e. the best
+    so far before the visiting block."""
+    d2 = _ring_merge_inputs()
+    k = 40
+    _, pos, _ = _emulate_knn_select(d2, k)
+    vals = np.take_along_axis(d2, pos.astype(np.int64), axis=1)
+    for row in range(d2.shape[0]):
+        for v in np.unique(vals[row]):
+            at = pos[row][vals[row] == v]
+            assert (np.diff(at) > 0).all()  # ties in position order
+            # a tie past the best part is taken only once every equal best entry is
+            if (at >= k).any():
+                assert set(np.flatnonzero(d2[row, :k] == v)) <= set(at)
+
+
+def test_knn_select_wrapper_takes_the_plain_route_on_cpu():
+    from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
+
+    d2 = torch.from_numpy(_ring_merge_inputs())
+    before = sorted_smallest_k_gpu.launches
+    got = sorted_smallest_k_gpu(d2, 40)
+    assert sorted_smallest_k_gpu.launches == before
+    want = sorted_smallest_k(d2, 40)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[1].dtype == torch.int32
