@@ -26,9 +26,15 @@ before the last line):
              matrix must be exactly symmetric and within 2x the plain
              version's error against a float64 Gram. The sorted k-smallest
              selection (knn_select) must give bitwise the stable sort's
-             values and positions, in both its modes, on the slice's d2,
-             forced ties (k = 1, 20, W), all-equal distances, the wide rows
-             and the ring merge's [best | d2] layout; the phasing sweeps
+             values and positions, in the mode it picks, on the slice's d2,
+             forced ties (k = 1, 20, W), all-equal distances, the wide rows,
+             the ring merge's [best | d2] layout, and quantized rows at the
+             widths where the cluster size and the mode change (8,192 and
+             8,193 columns: one block a row and a cluster of 2; a panel's
+             65,536 and the biobank's 100,000: 8; 460,000: past the widest
+             row 8 blocks hold, keys in device memory), and at k = 16,384 on
+             131,072 columns; its wide mode the same at the mode edges; the
+             phasing sweeps
              (phase_sweeps) must agree with the plain sweeps within rtol
              1e-5 with the same NaNs, in both modes (bitwise with each
              other), on the ring lists and random lists of 10; on 20
@@ -49,7 +55,12 @@ before the last line):
              same rows (the slice's d2, and square distances of widths up
              to 23,170), which must agree bitwise; the column statistics also at the
              genome-wide 100 x 3,000,000. knn_select beside the stable
-             torch.sort (its library yardstick) and torch.topk; phase_sweeps
+             torch.sort (its library yardstick) and torch.topk, and its wide
+             mode; CohortParams.dipcn_lists (dipCN from knn_select's lists,
+             tensor code on the card): the same validity as dipcn_select's
+             route, dipCN within 1e-6 relative, the step with the flag
+             launching the list route once and no dipcn_select, the route
+             timed beside dipcn_select; phase_sweeps
              beside the Python loop of sweeps, also at 20 replicates, its
              two modes on lists of 2 and of 10 slots, and the per-sweep
              mode's floor (100 empty launches back to back); its bound
@@ -61,12 +72,14 @@ before the last line):
              panels of 512 rows). Checks that it launched the split, the
              panel Gram, the wide-row dipCN and the column statistics, and
              prints its peak device memory; holds each kernel against its
-             plain version on the card at the panel shapes (knn_select in its
-             wide mode bitwise a flat stable sort), and the step against the
+             plain version on the card at the panel shapes (knn_select, a
+             cluster of 8 blocks a row, and its wide mode bitwise a flat
+             stable sort), and the step against the
              plain route on the card (torch.mm with TF32 off, stable sorts,
              plain dipCN per panel; normalize on the CPU); times the step,
              each kernel per panel beside its plain version (the selection
-             also beside the stable sort and torch.topk; the phasing's 100
+             also beside the stable sort, torch.topk and its wide mode; the
+             phasing's 100
              per-sweep launches beside the Python loop), and profiles the
              step's device time by kernel: no sort may run once per panel.
 8. branches — the resident and the panel branch on the same N=16,384
@@ -350,6 +363,12 @@ GENOME = (100, 3_000_000)  # the genome-wide normalize shape
 PANEL_N, PANEL_R = 65536, 1024  # a biobank cohort, past the 2 GiB d2 budget
 PANEL_REPS = 3
 BRANCH_N = 16384  # both branches run: N*N*4 = 1 GiB
+# knn_select: the widest row one block holds (kSliceTarget), the biobank
+# width (grid_tpu's scripts/bench_biobank.py), a width past the widest row
+# 8 blocks' shared memory holds at k=500, and the largest list (2^14
+# entries) on rows too wide for the shared mode at that k
+KNN_SLICE, BIOBANK_N, KNN_WIDE_W = 8192, 100_000, 460_000
+KNN_MAX_K, KNN_MAX_K_W = 16384, 131072
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 TF32_FLOP_PER_S = 495e12  # dense TF32 tensor-core peak, the same sheet
 # two float32 Gram routes may swap neighbors this close (of the row's k-th
@@ -687,7 +706,8 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
         zprep_gram_panel_plain, zprep_split, zprep_split_plain,
     )
     from grid_tpu_torch.ops.gpu_select import (
-        dipcn_from_distances_gpu, dipcn_select_info, knn_select_info, sorted_smallest_k_gpu,
+        _knn_launch, dipcn_from_distances_gpu, dipcn_select_info, knn_select_info,
+        sorted_smallest_k_gpu,
     )
     from grid_tpu_torch.ops.knn import panel_d2, prepare_z, sorted_smallest_k
     from grid_tpu_torch.ops.masked import masked_mean
@@ -804,18 +824,24 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
           f"{dinfo['static_smem_bytes']} B static shared memory, {dinfo['blocks_per_sm']} blocks "
           f"per SM, {dinfo['registers']} registers, {dinfo['spill_bytes']} B spilled", flush=True)
     check(dinfo["mode"] == "wide" and dinfo["spill_bytes"] == 0, "dipcn_select wide mode shape")
-    # knn_select (wide mode) against one flat stable sort of the panel
+    # knn_select (a cluster of 8 blocks a row) against one flat stable sort
+    # of the panel, and its wide mode (the keys in device memory) bitwise
     vals_k, idx_k = sorted_smallest_k_gpu(d2, K)
     vals1, idx1 = sorted_smallest_k(d2, K)
     check(torch.equal(vals_k, vals1) and torch.equal(idx_k, idx1),
           "knn_select differs from a flat stable sort of the panel")
+    check(all(torch.equal(a, c) for a, c in zip(_knn_launch("wide", d2, K), (vals_k, idx_k))),
+          "knn_select's wide mode differs from its cluster mode on the panel")
     errs["sorted_smallest_k_gpu"] = max_abs(vals_k, vals1)
     kinfo = knn_select_info(n, K, dev)
-    check(kinfo["mode"] == "wide" and kinfo["spill_bytes"] == 0, "knn_select wide mode shape")
+    check(kinfo["mode"] == "cluster" and kinfo["cluster_blocks"] == 8
+          and kinfo["spill_bytes"] == 0, "knn_select cluster mode shape")
     print(f"[panels] knn_select [{b}, {n}] k={K} in its {kinfo['mode']} mode: values and "
-          f"positions bitwise a flat stable sort's; {kinfo['smem_bytes']} B dynamic + "
-          f"{kinfo['static_smem_bytes']} B static shared memory, {kinfo['blocks_per_sm']} blocks "
-          f"per SM, {kinfo['registers']} registers, {kinfo['spill_bytes']} B spilled; {card}",
+          f"positions bitwise a flat stable sort's, the wide mode's the same; a cluster of "
+          f"{kinfo['cluster_blocks']} blocks a row, {kinfo['slice']} columns a block, "
+          f"{kinfo['smem_bytes']} B dynamic + {kinfo['static_smem_bytes']} B static shared "
+          f"memory, {kinfo['blocks_per_sm']} blocks per SM, {kinfo['clusters']} clusters at "
+          f"once, {kinfo['registers']} registers, {kinfo['spill_bytes']} B spilled; {card}",
           flush=True)
     del vals1, idx1, vals_k, idx_k
     # phase_sweeps at N=65,536 (one launch per sweep) against the plain sweeps
@@ -870,7 +896,7 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     shapes = {"masked_column_stats": f"[{n}, {r}], 2 calls per step",
               "zprep_gram": f"split [{n}, {r}] once per step, then panels [{b}, {n}]",
               "dipcn_from_distances_gpu": f"wide mode, panels [{b}, {n}]",
-              "sorted_smallest_k_gpu": f"wide mode, panels [{b}, {n}], k={K}"}
+              "sorted_smallest_k_gpu": f"cluster mode (8 blocks a row), panels [{b}, {n}], k={K}"}
     rows = {}
     for name, (kernel_fn, plain_fn, lib_fn) in timed.items():
         p1, k1, k2, p2 = (back_to_back_ms(f, reps=5, warmup=1)
@@ -896,15 +922,19 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     rows["zprep_gram"].update(split_launches=launches["zprep_split"], split_ms=split_ms)
     topk_ms = min(back_to_back_ms(lambda: torch.topk(d2, K, dim=1, largest=False, sorted=True),
                                   reps=5, warmup=1) for _ in range(2))
+    knn_wide_ms = min(back_to_back_ms(lambda: _knn_launch("wide", d2, K), reps=5, warmup=1)
+                      for _ in range(2))
     rows["sorted_smallest_k_gpu"].update(
-        library="stable torch.sort of the panel's rows, sliced to k", topk_ms=topk_ms)
+        library="stable torch.sort of the panel's rows, sliced to k", topk_ms=topk_ms,
+        wide_mode_ms_back_to_back=knn_wide_ms)
     epi_ms = min(back_to_back_ms(lambda: panel_d2(g0, split.norms, 0, sample_ok), reps=5,
                                  warmup=1) for _ in range(2))
     sel_ms = rows["sorted_smallest_k_gpu"]["ms"]
     print(f"[times] zprep_split once per step (split + diagonal tiles): {split_ms:.4f} ms, bound "
           f"{split_bound:.4f} ms by {split_by}; per panel: the epilogue (norms, -2G, clamp, self "
-          f"and invalid columns) {epi_ms:.4f} ms, knn_select {sel_ms:.4f} ms (torch.topk "
-          f"{topk_ms:.4f} ms), i.e. {n_panels * sel_ms:.1f} ms of selection and "
+          f"and invalid columns) {epi_ms:.4f} ms, knn_select {sel_ms:.4f} ms (its wide mode, the "
+          f"keys in device memory, {knn_wide_ms:.4f} ms; torch.topk {topk_ms:.4f} ms), i.e. "
+          f"{n_panels * sel_ms:.1f} ms of selection and "
           f"{n_panels * epi_ms:.1f} ms of epilogue per step; {card}", flush=True)
     del d2, g0
     # the phasing's 100 per-sweep launches beside the Python loop (kernel,
@@ -3770,7 +3800,7 @@ def main() -> int:
     )
     from grid_tpu_torch.ops.gpu_select import (
         _knn_launch, dipcn_from_distances_gpu, dipcn_select_info, knn_select_info,
-        knn_select_mode, sorted_smallest_k_gpu,
+        sorted_smallest_k_gpu,
     )
     from grid_tpu_torch.ops.knn import d2_matrix, prepare_z, region_filter_mask, sorted_smallest_k
     from grid_tpu_torch.ops.masked import masked_mean
@@ -3839,8 +3869,9 @@ def main() -> int:
     print(f"[build] knn_select at W={N}, k={K}: {kinfo['mode']} mode, one block of "
           f"{kinfo['threads']} threads per row, {kinfo['smem_bytes']} B dynamic + "
           f"{kinfo['static_smem_bytes']} B static shared memory per block, "
-          f"{kinfo['blocks_per_sm']} blocks per SM; {kinfo['registers']} registers and "
-          f"{kinfo['spill_bytes']} B of local memory a thread", flush=True)
+          f"{kinfo['blocks_per_sm']} blocks per SM ({min(N, kinfo['blocks_per_sm'] * sms)} of "
+          f"{N} rows in flight); {kinfo['registers']} registers and {kinfo['spill_bytes']} B of "
+          f"local memory a thread", flush=True)
     pinfo = phase_sweeps_info(N, 2, dev)  # the slice's ring lists: 2 slots
     print(f"[build] phase_sweeps at N={N}, K=2: {pinfo['mode']} mode, a cluster of "
           f"{pinfo['cluster_blocks']} blocks of {pinfo['threads']} threads per replicate, "
@@ -3962,26 +3993,59 @@ def main() -> int:
         print(f"[kernels] dipcn {label} {tuple(args[0].shape)} k={k} n_nbr={n_nbr}: ok exact "
               f"({int(ok.sum())} rows), dipcn within rtol 1e-6, max abs err {err:.3e}", flush=True)
 
-    # knn_select: bitwise the stable sort (its plain version), in both modes
+    # knn_select: bitwise the stable sort (its plain version) in the mode the
+    # wrapper picks, over the cluster size the width picks; at the widths
+    # where the cluster size and the mode change its wide mode (the keys in
+    # device memory) too
     tie_d2 = cases[2][1][0]
-    select_cases = [(label, args[0], k) for label, args, k, _ in cases] + [
-        ("forced-tie k=1", tie_d2, 1), ("forced-tie k=W", tie_d2, tie_d2.shape[1]),
-        ("ring merge [best | d2]", torch.cat([sorted_smallest_k(d2[:512], K)[0], d2[:512]], 1),
-         K)]
-    for label, dd, k in select_cases:
+    gen_k = torch.Generator(device=dev).manual_seed(16)
+
+    def quantized(rows, width):  # each value repeats ~width / 400 times a row
+        q = torch.randint(0, 400, (rows, width), device=dev, generator=gen_k) * 0.25
+        q[:, torch.rand(width, device=dev, generator=gen_k) < 0.05] = torch.finfo(torch.float32).max
+        return q.contiguous()
+
+    select_cases = [(label, args[0], k, None) for label, args, k, _ in cases] + [
+        ("forced-tie k=1", tie_d2, 1, None), ("forced-tie k=W", tie_d2, tie_d2.shape[1], None),
+        ("ring merge [best | d2]", torch.cat([sorted_smallest_k(d2[:512], K)[0], d2[:512]], 1), K,
+         None),
+        ("the widest one-block row", quantized(64, KNN_SLICE), K, ("resident", 1)),
+        ("the narrowest two-block row", quantized(64, KNN_SLICE + 1), K, ("cluster", 2)),
+        ("a panel row", quantized(64, PANEL_N), K, ("cluster", 8)),
+        ("the biobank row", quantized(16, BIOBANK_N), K, ("cluster", 8)),
+        ("past the cluster's edge", quantized(4, KNN_WIDE_W), K, ("wide", 1)),
+        ("the largest list", quantized(4, KNN_MAX_K_W), KNN_MAX_K, ("wide", 1))]
+    edges = {"the widest one-block row", "the narrowest two-block row", "a panel row"}
+    for label, dd, k, want_mode in select_cases:
         vals, idx = sorted_smallest_k_gpu(dd, k)
         want_v, want_i = sorted_smallest_k(dd, k)
-        wide_v, wide_i = _knn_launch("wide", dd, k)
         torch.cuda.synchronize()
         check(torch.equal(idx, want_i) and torch.equal(vals, want_v),
               f"knn_select {label}: not the stable sort's values and positions")
-        check(torch.equal(wide_i, idx) and torch.equal(wide_v, vals),
-              f"knn_select {label}: the wide mode differs from the resident mode")
+        kinfo_c = knn_select_info(dd.shape[1], k, dev)
+        if want_mode is not None:
+            check((kinfo_c["mode"], kinfo_c["cluster_blocks"]) == want_mode,
+                  f"knn_select {label}: mode {kinfo_c['mode']} over {kinfo_c['cluster_blocks']} "
+                  f"block(s), not {want_mode}")
+        also = ""
+        if label in edges:
+            got_v, got_i = _knn_launch("wide", dd, k)
+            check(torch.equal(got_i, idx) and torch.equal(got_v, vals),
+                  f"knn_select {label}: its wide mode differs")
+            also = ", and so its wide mode"
         errs["sorted_smallest_k_gpu"] = max(errs.get("sorted_smallest_k_gpu", 0.0),
                                             max_abs(vals, want_v))
-        print(f"[kernels] knn_select {label} {tuple(dd.shape)} k={k} "
-              f"({knn_select_mode(dd.shape[1], k, dev)} mode): values and positions bitwise the "
-              f"stable sort's; the wide mode's bitwise the same", flush=True)
+        print(f"[kernels] knn_select {label} {tuple(dd.shape)} k={k} ({kinfo_c['mode']} mode, "
+              f"{kinfo_c['cluster_blocks']} block(s) a row): values and positions bitwise the "
+              f"stable sort's{also}", flush=True)
+    del select_cases
+    lo_w, hi_w = PANEL_N, KNN_WIDE_W  # the widest row of the cluster mode at k=K lies here
+    while hi_w - lo_w > 1:
+        mid = (lo_w + hi_w) // 2
+        lo_w, hi_w = (mid, hi_w) if knn_select_info(mid, K, dev)["mode"] == "cluster" else (lo_w, mid)
+    print(f"[kernels] knn_select at k={K}: rows up to {lo_w} columns take the cluster mode (8 "
+          f"blocks of {knn_select_info(lo_w, K, dev)['slice']} columns), wider ones the wide mode; "
+          f"{card}", flush=True)
 
     # phase_sweeps: the plain sweeps within rtol 1e-5 (each neighbor list
     # summed in slot order, not in torch's reduction order), the same NaNs;
@@ -4184,6 +4248,52 @@ def main() -> int:
                         "bound_ms": least, "bound_by": bound_by,
                         "bound_share": least / b2b_ms, "library_ms": lib_ms})
 
+    # CohortParams.dipcn_lists: dipCN from knn_select's lists in tensor code
+    # on the card, beside dipcn_select's route on the same d2: the same
+    # validity, dipCN within 1e-6 relative (the same take-set summed in
+    # another order); the step with the flag runs the list route once and
+    # no dipcn_select
+    from grid_tpu_torch.ops.select import dipcn_from_lists
+
+    sq_l, idx_l = sorted_smallest_k_gpu(d2, K)
+    lists_args = (d2, sq_l, idx_l, w_main, w_main, sample_ok, sample_ok)
+    dip_l, ok_l = dipcn_from_lists(*lists_args, k=K, n_nbr=N_NBR)
+    dip_s, ok_s = dipcn_from_distances_gpu(*dip_args, k=K, n_nbr=N_NBR)
+    torch.cuda.synchronize()
+    check(torch.equal(ok_l, ok_s), "dipcn_lists: validity differs from dipcn_select's")
+    check(torch.allclose(dip_l[ok_l], dip_s[ok_s], rtol=1e-6, atol=0),
+          "dipcn_lists: beyond 1e-6 relative of dipcn_select's dipCN")
+    lists_rel = float(((dip_l[ok_l].double() - dip_s[ok_s]) / dip_s[ok_s]).abs().max())
+    lists_counted = {"sorted_smallest_k_gpu": sorted_smallest_k_gpu,
+                     "dipcn_from_distances_gpu": dipcn_from_distances_gpu,
+                     "dipcn_from_lists": dipcn_from_lists}
+    for fn in lists_counted.values():
+        fn.launches = 0
+    out_l = cohort_step(*inputs, params._replace(dipcn_lists=True))
+    torch.cuda.synchronize()
+    lists_launches = {name: fn.launches for name, fn in lists_counted.items()}
+    check(lists_launches == {"sorted_smallest_k_gpu": 1, "dipcn_from_distances_gpu": 0,
+                             "dipcn_from_lists": 1},
+          f"the step with dipcn_lists launched {lists_launches}")
+    ok_step = out.dipcn_valid
+    check(torch.equal(out_l.dipcn_valid, ok_step)
+          and torch.allclose(out_l.dipcn[ok_step], out.dipcn[ok_step], rtol=1e-6, atol=0),
+          "the step with dipcn_lists: dipCN or its validity differs from dipcn_select's step")
+    lists_fn = lambda: dipcn_from_lists(*lists_args, k=K, n_nbr=N_NBR)  # noqa: E731
+    lists_ms = min(median_ms(lists_fn) for _ in range(2))
+    lists_b2b = min(back_to_back_ms(lists_fn) for _ in range(2))
+    dip_row = next(row for row in kernels if row["name"] == "dipcn_from_distances_gpu")
+    dip_row.update(lists_route_ms=lists_ms, lists_route_ms_back_to_back=lists_b2b,
+                   lists_route_launches=lists_launches["dipcn_from_lists"],
+                   lists_route_max_rel_err=lists_rel)
+    print(f"[times] dipcn_lists at [{N}, {N}], k={K}, n_nbr={N_NBR}: validity identical to "
+          f"dipcn_select's ({int(ok_l.sum())} rows), dipCN within 1e-6 relative (max "
+          f"{lists_rel:.3e}); the step with the flag launched {lists_launches}; the route "
+          f"{lists_ms:.4f} ms (median of {REPS}), {lists_b2b:.4f} ms back to back, beside "
+          f"dipcn_select's {dip_row['ms']:.4f} / {dip_row['ms_back_to_back']:.4f} ms; {card}",
+          flush=True)
+    del sq_l, idx_l, lists_args, dip_l, dip_s, out_l
+
     # dipcn_select's wide mode on the same rows, where the resident mode also
     # fits: the two must agree bitwise, and their times say whether the
     # resident mode earns its place (resident, wide, wide, resident)
@@ -4227,6 +4337,25 @@ def main() -> int:
     topk_ms = min(median_ms(lambda: torch.topk(d2, K, dim=1, largest=False, sorted=True))
                   for _ in range(2))
     knn_wide_ms = min(back_to_back_ms(lambda: _knn_launch("wide", d2, K)) for _ in range(2))
+    # what holds the resident launch: one row an SM (a row's latency), then
+    # the rows the card holds at once (one wave), beside all N rows; back to
+    # back, and the kernel's own device time under torch.profiler (a launch
+    # of few rows may be shorter than the wrapper's host cost)
+    from torch.profiler import ProfilerActivity, profile
+
+    def knn_device_ms(rows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                _knn_launch(kinfo["mode"], d2[:rows], K)
+            torch.cuda.synchronize()
+        own = [e for e in prof.key_averages() if "knn_select_kernel" in e.key]
+        count = sum(e.count for e in own)
+        return sum(device_us(e) for e in own) / 1e3 / count if count else None
+
+    wave_rows = (sms, min(N, kinfo["blocks_per_sm"] * sms), N)
+    knn_wave_ms = {rows: (min(back_to_back_ms(lambda rows=rows: _knn_launch(kinfo["mode"],
+                                                                            d2[:rows], K))
+                              for _ in range(2)), knn_device_ms(rows)) for rows in wave_rows}
     boot = (irrs_main, *rand_lists, boot_slots, 1, N_ITERS)
     boot_ms = [median_ms(lambda: phase_bootstrap_slots(*boot), reps=5) for _ in range(2)]
     with patched(sys.modules["grid_tpu_torch.ops.phasing"],
@@ -4255,7 +4384,9 @@ def main() -> int:
     pinfo10 = phase_sweeps_info(N, 10, dev)
     knn_row = next(row for row in kernels if row["name"] == "sorted_smallest_k_gpu")
     knn_row.update(library="stable torch.sort of the rows, sliced to k", topk_ms=topk_ms,
-                   wide_mode_ms_back_to_back=knn_wide_ms)
+                   wide_mode_ms_back_to_back=knn_wide_ms,
+                   rows_ms_back_to_back={str(r): t[0] for r, t in knn_wave_ms.items()},
+                   rows_device_ms={str(r): t[1] for r, t in knn_wave_ms.items()})
     sweep_row = next(row for row in kernels if row["name"] == "phase_sweeps_gpu")
     sweep_row.update(bootstrap_20_ms=min(boot_ms), bootstrap_20_plain_ms=min(boot_plain_ms),
                      modes_ms_back_to_back=sweep_modes,
@@ -4264,6 +4395,13 @@ def main() -> int:
           f"the wide mode {knn_wide_ms:.4f} ms back to back), the stable torch.sort sliced to k "
           f"{knn_row['library_ms']:.4f} ms, torch.topk (largest=False, sorted) {topk_ms:.4f} ms; "
           f"{card}", flush=True)
+    print(f"[times] knn_select [rows, {N}] k={K}, a launch back to back (better of two) and "
+          f"its device time (torch.profiler, mean of {REPS}): "
+          + ", ".join(f"{rows} rows {b2b:.4f} / "
+                      + ("not measured" if dev_ms is None else f"{dev_ms:.4f}") + " ms"
+                      for rows, (b2b, dev_ms) in knn_wave_ms.items())
+          + f" ({wave_rows[0]}: one a SM; {wave_rows[1]}: one wave at {kinfo['blocks_per_sm']} "
+          f"blocks per SM); {card}", flush=True)
     modes_text = "; ".join(
         f"{label}: resident {t['resident']:.4f} ms ({1e3 * t['resident'] / N_ITERS:.2f} us a "
         f"sweep), per sweep {t['per_sweep']:.4f} ms" for label, t in sweep_modes.items())

@@ -13,58 +13,76 @@
 // form is grid_tpu/ops/select.py:444 (sorted_smallest_k).
 //
 // Bound on the H100: each row is read once and k (value, position) pairs
-// are written: 35.1 MB at N=2504, k=500 (10.5 µs at 3.35 TB/s), 136.2 MB for
-// one 512 x 65,536 panel (40.7 µs). The arithmetic (compares, a sort of k)
-// is far below the card's integer rate.
+// are written: 35.1 MB at N=2504, k=500 (10.5 us at 3.35 TB/s), 136.2 MB for
+// one 512 x 65,536 panel (40.7 us). The arithmetic (compares, a sort of k)
+// is far below the card's integer rate. What a row costs beyond its bytes
+// is a chain of dependent steps (histogram rounds, a tie cut, a sort), so
+// the design keeps every step on-chip and cuts its barriers.
 //
-// What this design does about it (one 128-thread block per row; steps 1-2
-// are csrc/dipcn_select.cu's, copied so that its outputs stay bitwise as
-// they were):
+// Design (128 threads a block):
 //
-// 1. Load. The row's keys (the float32 bits as int32: non-negative floats
-//    order as their bit patterns do; -0.0 is not expected) come into shared
-//    memory once, with the block min, max and count of the "body" keys,
-//    those below finfo(float32).max. One round.
+// 1. Load. A row is split into C contiguous slices, one per block of a
+//    thread-block cluster of C = 1, 2, 4 or 8 blocks (C from W: the least
+//    that keeps a slice within kSliceTarget columns). Each block copies its
+//    slice into its shared memory with one TMA bulk copy (cp.async.bulk,
+//    completion on an mbarrier; plain loads where the slice is not 16-byte
+//    aligned), so the row crosses device memory once. The keys are the
+//    float32 bits as int32 (non-negative floats order as their bit
+//    patterns; -0.0 is not expected). Each block's body min, max and count
+//    (keys below finfo.max) are merged through distributed shared memory.
 // 2. k-th key t by histogram radix select from the row's own range, in
-//    8-bit digits, gathering the keys still in play once they fit the list
-//    buffer (3 histogram rounds and a gather at N=2504). When k reaches past
-//    the body, the same select runs over [finfo.max key, INT_MAX]. Yields t
-//    and count(keys < t).
-// 3. Tie cut and compaction in one block scan: every thread owns a
-//    contiguous chunk of columns (an odd stride: no bank conflicts); one
-//    exclusive scan of (ties, below t) per chunk gives each column its place.
-//    The columns below t, then the first k - count(< t) ties in column
-//    order, go into a list of exactly k 64-bit entries key * 2^32 + column.
-// 4. A bitonic sort of the list in shared memory, padded with ~0 to the next
-//    power of two P >= k: the composite key orders exactly by (value,
-//    column), so the sort needs no stability. log2(P) (log2(P) + 1) / 2
-//    steps of P / 2 compare-exchanges (45 at k=500), one barrier each.
-// 5. Write vals (the key's bits as float32) and positions (int32).
+//    8-bit digits: each block counts its slice into its own 256-bin
+//    histogram (a shared-memory atomic a key), a cluster barrier, then
+//    every block sums the C histograms from distributed shared memory (all
+//    C loads in flight at once) and picks the same bin. One cluster barrier
+//    a round. Once the row holds at most 2 L keys at or below the chosen
+//    bin, each block gathers the indices of its own (16-bit in shared
+//    memory; one atomic a warp step) and the later rounds count only them.
+//    When k reaches past the body, the same select runs over [finfo.max
+//    key, INT_MAX], the body's keys gathered as below t.
+// 3. The list. Where the blocks gathered and the row's keys below t and
+//    all its ties at t fit the list (the rule on real distances), each
+//    block writes its gathered keys <= t straight into the leader block's
+//    list as 64-bit entries key * 2^32 + column, at places taken from a
+//    fill count in the leader's shared memory (one remote atomic a warp
+//    step), in no order. Else (no round ran, no gather, or more ties than
+//    the list holds) two walks of each slice by warps, with the counts of
+//    the slices before it published to the cluster, place every column
+//    below t and the first k - count(< t) ties in column order, by ballot
+//    rank. A cluster barrier, and the other blocks leave.
+// 4. The leader sorts the list, padded with ~0 to L = max(next power of
+//    two >= k, 128) entries: the composite key orders exactly by (value,
+//    column), so a bitonic network needs no stability and puts the lowest
+//    columns of the ties first. A lane holds 4 consecutive entries in
+//    registers and a warp 128: strides 1 and 2 run in registers, strides
+//    4-64 by __shfl_xor_sync, and only strides of 128 or more go through
+//    shared memory with a block barrier (3 of the 45 steps at L=512).
+// 5. Write vals (the key's bits as float32) and positions (int32) from the
+//    registers of the last stage.
 //
-// Two modes, one kernel template; knn_select_mode picks one from W, k and
-// the card's shared memory:
+// Modes; knn_select_mode picks one from W, k and the card:
 //
-// - resident (above): the row's keys in shared memory, 4 W bytes beside the
-//   8 P bytes of the list (14 KB at N=2504, k=500). It takes rows up to
-//   ~57,000 columns at k=500: the resident cohort step and the ring merge's
-//   [best | d2] rows of k + B columns.
-// - wide: the keys stay in device memory and every walk re-reads the row;
-//   shared memory holds the list (at least kWideGather entries for the
-//   gather). The 65,536-column panel rows of the large-N branch. Step 3
-//   becomes two walks by warps, each warp over a contiguous quarter of the
-//   row 32 columns at a time (coalesced): it counts first, then places each
-//   column by its ballot rank among the step's lanes.
-//
-//   What bounds the wide mode: the row is read by the load, by each
-//   histogram round until the keys in play fit the gather buffer (at least
-//   one), by the gather, and twice by step 3: at least 5 walks of 4 W bytes,
-//   as dipcn_select's wide mode. A 512 x 65,536 panel is 128 MB, more than
-//   the 50 MB L2, so the walks come from device memory: >= 640 MB a panel
-//   against the 136 MB of the one-read bound.
+// - shared (mode 0): as above, a cluster of C blocks a row, C = 1
+//   ("resident": the N=2504 step, the ring merge's [best | d2] rows) up to 8
+//   ("cluster": a panel's 65,536 columns take 8 blocks of 8,192; the
+//   N=100,000 biobank row 8 of 12,500). Each block holds its slice, the
+//   list and the gather buffer: 4 ceil(W / C) + 12 L bytes.
+// - wide (mode 1): rows whose slices do not fit a block even over 8 blocks
+//   (past 448,192 columns at k=500 on an H100) keep their keys in device memory, one
+//   block a row, with the list and a gather buffer of max(L, kWideGather)
+//   int32 indices (12 L bytes at most: every k <= 16,384 fits, at any W):
+//   the load, each histogram round until the keys in play fit the buffer
+//   and the gather re-read the row (at least 3 walks; 5 where the tie cut
+//   takes the two walks).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -75,13 +93,23 @@ constexpr int kDigitBits = 8;
 constexpr int kBins = 1 << kDigitBits;   // == 2 * kThreads: two bins per thread in the scan
 constexpr int kBigKey = 0x7F7FFFFF;      // finfo(float32).max, the self and invalid-row columns
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kE = 4;                    // list entries a lane holds in the sort
+constexpr int kSpan = 32 * kE;           // entries a warp sorts in registers
+constexpr int kMaxCluster = 8;           // the portable cluster size
+constexpr int kSliceTarget = 8192;       // columns a block's slice aims at
 constexpr int kWideGather = 2048;        // least gather capacity of the wide mode
-constexpr int kMaxK = 16384;             // the list of 2^14 entries is 128 KB
+constexpr int kAhead = 4;                // keys a thread loads before it counts or votes
+constexpr int kMaxK = 16384;             // a list of 2^14 entries is 128 KB
 constexpr unsigned long long kPad = ~0ull;  // sorts after every entry
 
 static_assert(kBins == 2 * kThreads, "the bin scan gives each thread two bins");
+static_assert(kE == 4, "the in-register stages are written out for 4 entries a lane");
 
-// the row's keys: shared memory (resident mode) or device memory (wide)
+// a gathered index: a column of the block's slice (at most 65,535 of them
+// in shared memory), or of the row in the wide mode
+template <bool kWide>
+using Index = typename std::conditional<kWide, int, unsigned short>::type;
+
 template <bool kWide>
 __device__ __forceinline__ int key_at(const int* keys, int j) {
   if constexpr (kWide) {
@@ -92,103 +120,147 @@ __device__ __forceinline__ int key_at(const int* keys, int j) {
 }
 
 struct Shared {
-  int hist[2][kBins];  // one histogram counts while the other is cleared
-  int wtot[kWarps];    // int scan scratch
-  unsigned long long wtot_l[kWarps];  // packed-count scan scratch
+  int hist[2][kBins];  // one histogram counts while the other is read by the cluster
+  unsigned long long wtot_l[kWarps];
+  int wtot[kWarps];
   int rmin[kWarps], rmax[kWarps], rcnt[kWarps];
+  int stat[3];             // this slice's body min, max and count, read by the cluster
+  unsigned long long cnt;  // this slice's ties | below t << 32, read by the cluster
   int bin, bin_below, bin_count;  // the select round's digit, keys below it and in it
   int n_cand;
+  int fill;                // the leader's: entries placed in its list
+  unsigned long long bar;  // the bulk copy's mbarrier
 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// one TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into this block's shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// returns once the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
 
 // Exclusive prefix of v over the block in thread order; `total` gets the
 // block's sum. One barrier: the caller guarantees a barrier between the
 // last read of `warp_tot` by an earlier scan and this call.
-template <typename T>
-__device__ __forceinline__ T block_exclusive_scan(T v, T* warp_tot, T& total) {
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_tot, int& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T x = v;
+  int x = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const T y = __shfl_up_sync(kFull, x, o);
+    const int y = __shfl_up_sync(kFull, x, o);
     if (lane >= o) x += y;
   }
   if (lane == 31) warp_tot[warp] = x;
   __syncthreads();
-  T before = 0;
+  int before = 0;
   total = 0;
 #pragma unroll
   for (int i = 0; i < kWarps; ++i) {
-    const T s = warp_tot[i];
+    const int s = warp_tot[i];
     if (i < warp) before += s;
     total += s;
   }
   return before + x - v;
 }
 
+// The value at `p` in the shared memory of rank q of the cluster, 0 for
+// q >= csize; a caller unrolls over q so that every round trip through
+// distributed shared memory is in flight before the first is used.
+template <typename T>
+__device__ __forceinline__ T remote(cg::cluster_group& cluster, int csize, T* p, int q) {
+  return q < csize ? *cluster.map_shared_rank(p, q) : T(0);
+}
+
 struct Found {
-  int t;      // the rank-th smallest key in range
-  int below;  // keys in range that are < t
+  int t;         // the rank-th smallest key in range, over the row
+  int below;     // keys of the row below t (in range, plus `extra`)
+  int ties;      // keys of the row equal to t; -1 where no round ran
+  bool gathered; // each block's `spare` holds every key of its slice <= t
+  int n;         // this block's gathered indices
 };
 
-// The rank-th smallest (1 <= rank <= keys in range) of the keys in
-// [lo, lo + span], by radix select on key - lo in 8-bit digits from the
-// top of span. The keys are keys[list[i]], i < n, or keys[i] when list is
-// null; then, once a round leaves at most `cap` keys in play, they are
-// gathered into `spare` and the later rounds walk only them. hist[parity]
-// is all zero on entry and on return. (csrc/dipcn_select.cu's select_rank.)
+// The rank-th smallest (1 <= rank <= the row's keys in range) of the row's
+// keys in [lo, lo + span], by radix select on key - lo in 8-bit digits from
+// the top of span. This block holds keys[0, n) of the row; the cluster's C
+// blocks hold the rest, and each round's histograms are summed over them.
+// The row has `extra` keys below lo (all of them below t). Once a round
+// leaves at most `cap` keys of the row at or below its bin, each block
+// gathers the indices of its own into `spare`, and the later rounds walk
+// only them. hist[parity] is all zero on entry.
 template <bool kWide>
-__device__ Found select_rank(const int* keys, const int* list, int n, int lo, unsigned span,
-                             int rank, Shared& sh, int& parity, int* spare, int cap) {
+__device__ Found select_rank(cg::cluster_group& cluster, int csize, const int* keys, int n, int lo,
+                             unsigned span, int rank, int extra, Shared& sh, int& parity,
+                             Index<kWide>* spare, int cap) {
   const int lane = threadIdx.x & 31;
+  const Index<kWide>* list = nullptr;  // the gathered indices, once there are any
   int bits = span ? 32 - __clz(span) : 0;
   unsigned base = 0;  // key - lo of the bin chosen so far
-  int below = 0;
+  int below = 0, ties = -1;
   while (bits > 0) {
     const int d = min(kDigitBits, bits);
     const int shift = bits - d;
     int* h = sh.hist[parity];
-    // the other histogram was last read by the previous round's scan,
-    // which a barrier has closed; clear it for the next round
-    int* other = sh.hist[parity ^ 1];
-    for (int b = threadIdx.x; b < kBins; b += kThreads) other[b] = 0;
-    if (threadIdx.x == 0) sh.n_cand = 0;
-    auto count = [&](int key, bool in) {
+    // a shared-memory atomic a key in play; the lanes of a warp that hit
+    // one bin are serialised, which only rows of many equal keys see
+    auto count = [&](int key) {
       const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
       const unsigned digit = (v - base) >> shift;  // huge when v < base
-      in = in && key >= lo && v <= span && digit < (1u << d);
-      // a warp whose keys in play share one digit (a hot bin) adds them
-      // in one atomic; otherwise each key adds its own
-      const unsigned play = __ballot_sync(kFull, in);
-      if (play == 0) return;
-      const int leader = __ffs(play) - 1;
-      const unsigned lead_digit = __shfl_sync(kFull, digit, leader);
-      if (__all_sync(kFull, !in || digit == lead_digit)) {
-        if (lane == leader) atomicAdd(&h[digit], __popc(play));
-      } else if (in) {
-        atomicAdd(&h[digit], 1);
-      }
+      if (key >= lo && v <= span && digit < (1u << d)) atomicAdd(&h[digit], 1);
     };
-    if constexpr (kWide) {
-      // keys from device memory: four loads in flight before the votes
-      constexpr int kAhead = 4;
-      for (int i0 = 0; i0 < n; i0 += kAhead * kThreads) {  // uniform trip count
+    if (list != nullptr) {
+      for (int i = threadIdx.x; i < n; i += kThreads) count(key_at<kWide>(keys, list[i]));
+    } else {
+      // four keys in flight before their counts
+      for (int i0 = 0; i0 < n; i0 += kAhead * kThreads) {
         int ks[kAhead];
 #pragma unroll
         for (int a = 0; a < kAhead; ++a) {
           const int i = i0 + a * kThreads + threadIdx.x;
-          ks[a] = i < n ? key_at<kWide>(keys, list ? list[i] : i) : 0;
+          ks[a] = i < n ? key_at<kWide>(keys, i) : -1;
         }
 #pragma unroll
-        for (int a = 0; a < kAhead; ++a) count(ks[a], i0 + a * kThreads + threadIdx.x < n);
-      }
-    } else {
-      for (int i0 = 0; i0 < n; i0 += kThreads) {  // uniform trip count: whole warps in the votes
-        const int i = i0 + threadIdx.x;
-        count(i < n ? (list ? keys[list[i]] : keys[i]) : 0, i < n);
+        for (int a = 0; a < kAhead; ++a) {
+          if (ks[a] >= 0) count(ks[a]);
+        }
       }
     }
-    __syncthreads();
-    const int c0 = h[2 * threadIdx.x], c1 = h[2 * threadIdx.x + 1];
+    // every block's histogram of this round is complete and visible
+    cluster.sync();
+    // the other histogram was last read by the cluster in the previous
+    // round, before this barrier: clear it for the next round
+    int* other = sh.hist[parity ^ 1];
+    for (int b = threadIdx.x; b < kBins; b += kThreads) other[b] = 0;
+    if (threadIdx.x == 0) sh.n_cand = 0;
+    int c0 = 0, c1 = 0;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      c0 += remote(cluster, csize, h + 2 * threadIdx.x, q);
+      c1 += remote(cluster, csize, h + 2 * threadIdx.x + 1, q);
+    }
     int total;
     const int excl = block_exclusive_scan(c0 + c1, sh.wtot, total);
     const int r = rank - below;
@@ -199,34 +271,69 @@ __device__ Found select_rank(const int* keys, const int* list, int n, int lo, un
       sh.bin_count = first ? c0 : c1;
     }
     __syncthreads();
+    parity ^= 1;
     base += static_cast<unsigned>(sh.bin) << shift;
     below += sh.bin_below;
+    ties = sh.bin_count;  // keys equal to t once bits reaches 0
     bits = shift;
-    parity ^= 1;
-    if (list == nullptr && bits > 0 && sh.bin_count <= cap) {
-      // gather the keys still in play; the later rounds walk only them
-      for (int i = threadIdx.x; i < n; i += kThreads) {
-        const int key = key_at<kWide>(keys, i);
-        const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
-        if (key >= lo && v <= span && ((v - base) >> bits) == 0) {
-          spare[atomicAdd(&sh.n_cand, 1)] = i;
+    if (list == nullptr && bits > 0 && extra + below + sh.bin_count <= cap) {
+      // gather this block's keys at or below the bin (all the row's keys
+      // below t and its ties among them), one atomic a warp step; the later
+      // rounds walk only them
+      const unsigned end = base + (1u << bits);
+      const unsigned before = (1u << lane) - 1;  // the lanes below this one
+      for (int i0 = 0; i0 < n; i0 += kAhead * kThreads) {  // uniform: whole warps in the votes
+        bool take[kAhead];
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a) {  // four keys in flight before the votes
+          const int i = i0 + a * kThreads + threadIdx.x;
+          const int key = i < n ? key_at<kWide>(keys, i) : 0;
+          const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
+          take[a] = i < n && (key < lo || (v <= span && v < end));
+        }
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a) {
+          const unsigned b = __ballot_sync(kFull, take[a]);
+          if (b == 0) continue;
+          const int leader = __ffs(b) - 1;
+          int at = 0;
+          if (lane == leader) at = atomicAdd(&sh.n_cand, __popc(b));
+          at = __shfl_sync(kFull, at, leader);
+          if (take[a]) {
+            spare[at + __popc(b & before)] =
+                static_cast<Index<kWide>>(i0 + a * kThreads + threadIdx.x);
+          }
         }
       }
-      n = sh.bin_count;
-      list = spare;
       __syncthreads();
+      n = sh.n_cand;
+      list = spare;
     }
   }
-  return {static_cast<int>(static_cast<unsigned>(lo) + base), below};
+  return {static_cast<int>(static_cast<unsigned>(lo) + base), extra + below, ties,
+          list != nullptr, n};
 }
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// the list's padded length: the next power of two >= k
-__host__ __device__ inline int list_pow2(int k) {
-  int p = 1;
+// the sorted list's length: the next power of two >= k, at least a warp's span
+__host__ __device__ inline int list_len(int k) {
+  int p = kSpan;
   while (p < k) p <<= 1;
   return p;
+}
+
+// indices the gather buffer holds: in the shared mode twice the list's
+// length (16-bit indices of a slice: half the list's size); in the wide
+// mode the list's length (int32 indices: half its size, so that the list
+// and the buffer fit a block at k = 16,384), at least kWideGather (every
+// round there re-reads device memory). The buffer never holds fewer than
+// L: the gathered keys are placed only where the row's entries <= t fit
+// the list.
+template <bool kWide>
+__host__ __device__ inline int gather_cap(int k) {
+  const int l = list_len(k);
+  return kWide ? (l < kWideGather ? kWideGather : l) : 2 * l;
 }
 
 __device__ __forceinline__ unsigned long long entry(int key, int col) {
@@ -234,83 +341,206 @@ __device__ __forceinline__ unsigned long long entry(int key, int col) {
          static_cast<unsigned>(col);
 }
 
-// Step 3 of the wide mode: the columns below t, then the first `need` ties
-// in column order, into list[0, below + need), by two walks of the row by
-// warps. Warp w owns columns [w*q, (w+1)*q), q a multiple of 32, and steps
-// through them 32 at a time: the first walk counts (ties, below t) per
-// warp; the second places each column at its warp's prefix plus its ballot
-// rank among the step's lanes.
-__device__ void compact_walks(const int* keys, int w, int t, int n_below, int need,
-                              unsigned long long* list, Shared& sh) {
+// Step 3: this block's columns below t, then its share of the first `need`
+// ties in column order, into the leader's list[0, n_below + need). Warp w
+// walks its quarter [w*q, (w+1)*q) of the slice (q a multiple of 32) 32
+// columns at a time, twice: it counts (ties, below t) first; after the
+// counts of the slices before this one arrive through the cluster, it
+// places each column at the prefix plus its ballot rank among the step's
+// lanes. `j0` is the slice's first column in the row.
+template <bool kWide>
+__device__ void compact(cg::cluster_group& cluster, int rank, const int* keys, int n, int j0,
+                        int t, int n_below, int need, unsigned long long* list, Shared& sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q = round_up((w + kWarps - 1) / kWarps, 32);
-  const int j0 = min(warp * q, w), j1 = min(j0 + q, w);
+  const int q = round_up((n + kWarps - 1) / kWarps, 32);
+  const int i0 = min(warp * q, n), i1 = min(i0 + q, n);
   unsigned long long cnt = 0;  // ties | below t << 32
 #pragma unroll 4
-  for (int j = j0 + lane; j < j1; j += 32) {
-    const int key = __ldg(keys + j);
+  for (int i = i0 + lane; i < i1; i += 32) {
+    const int key = key_at<kWide>(keys, i);
     cnt += key == t ? 1ull : (key < t ? 1ull << 32 : 0ull);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(kFull, cnt, o);
   if (lane == 0) sh.wtot_l[warp] = cnt;
   __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long block = 0;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) block += sh.wtot_l[i];
+    sh.cnt = block;
+  }
+  // every slice's counts are published
+  cluster.sync();
   unsigned long long pre = 0;
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q) pre += remote(cluster, rank, &sh.cnt, q);  // slices before
 #pragma unroll
   for (int i = 0; i < kWarps; ++i) {
     if (i < warp) pre += sh.wtot_l[i];
   }
+  unsigned long long* out = cluster.map_shared_rank(list, 0);
   int ties = static_cast<int>(pre & 0xffffffffull);
   int pos_below = static_cast<int>(pre >> 32);
   const unsigned before = (1u << lane) - 1;  // the lanes below this one
 #pragma unroll 4
-  for (int jb = j0; jb < j1; jb += 32) {  // uniform trip count: whole warps in the votes
-    const int j = jb + lane;
-    const bool in = j < j1;
-    const int key = in ? __ldg(keys + j) : 0;
+  for (int ib = i0; ib < i1; ib += 32) {  // uniform trip count: whole warps in the votes
+    const int i = ib + lane;
+    const bool in = i < i1;
+    const int key = in ? key_at<kWide>(keys, i) : 0;
     const bool below = in && key < t, tie = in && key == t;
     const unsigned b_below = __ballot_sync(kFull, below);
     const unsigned b_tie = __ballot_sync(kFull, tie);
-    if (below) list[pos_below + __popc(b_below & before)] = entry(key, j);
-    const int rank = ties + __popc(b_tie & before);  // ties before this one, in column order
-    if (tie && rank < need) list[n_below + rank] = entry(key, j);
+    if (below) out[pos_below + __popc(b_below & before)] = entry(key, j0 + i);
+    const int r = ties + __popc(b_tie & before);  // ties before this one, in column order
+    if (tie && r < need) out[n_below + r] = entry(key, j0 + i);
     ties += __popc(b_tie);
     pos_below += __popc(b_below);
   }
 }
 
-// Dynamic shared memory of one resident-mode block: keys, then the list
-// (the gather buffer before it is filled: 2 P int32 entries).
-__host__ __device__ inline size_t resident_smem_bytes(int w, int k) {
-  return static_cast<size_t>(round_up(w, 4)) * 4 + static_cast<size_t>(list_pow2(k)) * 8;
+// Step 3, where every block gathered its keys at or below t and the list
+// holds all of the row's (below t and every tie): this block's gathered
+// keys <= t go into the leader's list at places taken from its fill count
+// (one remote atomic a warp step), in no order: the sort orders them, and
+// puts the lower columns of the ties first.
+template <bool kWide>
+__device__ void place_gathered(cg::cluster_group& cluster, const int* keys,
+                               const Index<kWide>* cand, int m, int j0, int t,
+                               unsigned long long* list, Shared& sh) {
+  const int lane = threadIdx.x & 31;
+  int* fill = cluster.map_shared_rank(&sh.fill, 0);
+  unsigned long long* out = cluster.map_shared_rank(list, 0);
+  const unsigned before = (1u << lane) - 1;  // the lanes below this one
+  for (int i0 = 0; i0 < m; i0 += kThreads) {  // uniform trip count: whole warps in the votes
+    const int i = i0 + threadIdx.x;
+    const int j = i < m ? cand[i] : 0;
+    const int key = i < m ? key_at<kWide>(keys, j) : 0;
+    const bool take = i < m && key <= t;
+    const unsigned b = __ballot_sync(kFull, take);
+    if (b == 0) continue;
+    const int leader = __ffs(b) - 1;
+    int at = 0;
+    if (lane == leader) at = atomicAdd(fill, __popc(b));
+    at = __shfl_sync(kFull, at, leader);
+    if (take) out[at + __popc(b & before)] = entry(key, j0 + j);
+  }
 }
 
-// Dynamic shared memory of one wide-mode block: the list, which is also the
-// gather buffer of at least kWideGather int32 entries.
-__host__ __device__ inline size_t wide_smem_bytes(int k) {
-  const size_t list = static_cast<size_t>(list_pow2(k)) * 8;
-  const size_t gather = static_cast<size_t>(kWideGather) * 4;
-  return list > gather ? list : gather;
+__device__ __forceinline__ void compare_exchange(unsigned long long& a, unsigned long long& b,
+                                                 bool ascending) {
+  const bool swap = (a > b) == ascending;
+  const unsigned long long low = swap ? b : a;
+  b = swap ? a : b;
+  a = low;
 }
 
+// The bitonic steps of stage `size` with strides `top` down to 1 (top <
+// kSpan) on a lane's entries x[e] = list[i0 + e], i0 = seg + lane * kE:
+// strides of kE or more pair this lane with lane ^ (stride / kE) by a
+// shuffle, strides 2 and 1 pair two of its own registers. Entry i goes
+// ascending where bit `size` of i is clear; for size >= kE that bit is
+// i0's for all of a lane's entries.
+__device__ __forceinline__ void warp_stages(unsigned long long (&x)[kE], int i0, int size,
+                                            int top) {
+  const int lane = threadIdx.x & 31;
+  const bool ascending = (i0 & size) == 0;
+  for (int s = top; s >= kE; s >>= 1) {
+    const int m = s / kE;
+    const bool keep_min = ((lane & m) == 0) == ascending;  // the pair's lower entry here
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const unsigned long long y = __shfl_xor_sync(kFull, x[e], m);
+      x[e] = (x[e] > y) == keep_min ? y : x[e];
+    }
+  }
+  if (top >= 2) {
+    compare_exchange(x[0], x[2], ascending);
+    compare_exchange(x[1], x[3], ascending);
+  }
+  const bool upper = size == 2 ? ((i0 + 2) & size) == 0 : ascending;  // entries 2 and 3
+  compare_exchange(x[0], x[1], ascending);
+  compare_exchange(x[2], x[3], upper);
+}
+
+// Step 4-5: sort list[0, L) (L a power of two >= kSpan) and write its first
+// k entries to vals / pos. Each warp takes segments of kSpan entries: the
+// stages up to kSpan run on them in registers; a later stage first runs
+// its strides of kSpan or more on the whole list in shared memory, one
+// block barrier each, then its smaller strides on the segments again. The
+// last stage writes from registers.
+__device__ void sort_list(unsigned long long* list, int L, int k, float* vals, int* pos) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto segment = [&](int size, int top, bool first) {
+    for (int seg = warp * kSpan; seg < L; seg += kWarps * kSpan) {
+      const int i0 = seg + lane * kE;
+      unsigned long long x[kE];
+      const ulonglong2* src = reinterpret_cast<const ulonglong2*>(list + i0);
+      const ulonglong2 a = src[0], b = src[1];
+      x[0] = a.x;
+      x[1] = a.y;
+      x[2] = b.x;
+      x[3] = b.y;
+      if (first) {
+        for (int s = 2; s <= kSpan; s <<= 1) warp_stages(x, i0, s, s / 2);
+      } else {
+        warp_stages(x, i0, size, top);
+      }
+      if (size == L) {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          if (i0 + e < k) {
+            vals[i0 + e] = __int_as_float(static_cast<int>(x[e] >> 32));
+            pos[i0 + e] = static_cast<int>(x[e] & 0xffffffffull);
+          }
+        }
+      } else {
+        ulonglong2* dst = reinterpret_cast<ulonglong2*>(list + i0);
+        dst[0] = make_ulonglong2(x[0], x[1]);
+        dst[1] = make_ulonglong2(x[2], x[3]);
+      }
+    }
+  };
+  segment(kSpan, kSpan / 2, true);
+  for (int size = 2 * kSpan; size <= L; size <<= 1) {
+    __syncthreads();
+    for (int s = size / 2; s >= kSpan; s >>= 1) {
+      for (int i = threadIdx.x; i < L / 2; i += kThreads) {
+        const int a = 2 * i - (i & (s - 1));  // i with a zero bit inserted at `s`
+        compare_exchange(list[a], list[a + s], (a & size) == 0);
+      }
+      __syncthreads();
+    }
+    segment(size, kSpan / 2, false);
+  }
+}
+
+// One row per cluster of C blocks (C = 1 in the wide mode): block `rank`
+// holds columns [rank * slice, (rank + 1) * slice) of row blockIdx.x / C.
 template <bool kWide>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-knn_select_kernel(const float* __restrict__ d2, int w, int k, float* __restrict__ vals,
+knn_select_kernel(const float* __restrict__ d2, int w, int k, int slice, float* __restrict__ vals,
                   int* __restrict__ pos) {
   extern __shared__ int4 dyn[];
-  const int* src = reinterpret_cast<const int*>(d2) + static_cast<size_t>(blockIdx.x) * w;
-  const int key_words = kWide ? 0 : round_up(w, 4);
-  const int* keys = kWide ? src : reinterpret_cast<const int*>(dyn);  // [w]
-  unsigned long long* list =
-      reinterpret_cast<unsigned long long*>(reinterpret_cast<int*>(dyn) + key_words);
   __shared__ Shared sh;
-
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const size_t row = blockIdx.x / csize;
+  const int j0 = min(rank * slice, w), n = min(slice, w - j0);
+  const int* src = reinterpret_cast<const int*>(d2) + row * w + j0;
+  int* skeys = reinterpret_cast<int*>(dyn);  // [slice] (shared mode)
+  const int* keys = kWide ? src : skeys;
+  const int L = list_len(k);
+  unsigned long long* list = reinterpret_cast<unsigned long long*>(
+      reinterpret_cast<int*>(dyn) + (kWide ? 0 : round_up(slice, 4)));  // [L]
+  // [gather_cap(k)]: the gathered indices
+  Index<kWide>* spare = reinterpret_cast<Index<kWide>*>(list + L);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int p2 = list_pow2(k);
 
-  // ---- 1. load the row's keys; body min / max / count --------------------
-  // (the wide mode leaves the keys in device memory)
+  // ---- 1. load the slice; body min / max / count over the row ------------
   for (int b = tid; b < 2 * kBins; b += kThreads) (&sh.hist[0][0])[b] = 0;
+  if (tid == 0) sh.fill = 0;
   int mn = INT_MAX, mx = INT_MIN;
   unsigned nb = 0;
   auto see = [&](int key) {
@@ -320,28 +550,37 @@ knn_select_kernel(const float* __restrict__ d2, int w, int k, float* __restrict_
       ++nb;
     }
   };
-  if ((w & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* k4 = reinterpret_cast<int4*>(dyn);
+  const bool aligned = (n & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  if constexpr (kWide) {
+    // the keys stay in device memory; the later walks read the row again
+    if (aligned) {
+      const int4* s4 = reinterpret_cast<const int4*>(src);
 #pragma unroll 4
-    for (int q = tid; q < w / 4; q += kThreads) {
-      // resident: streamed, each row is read by one block, once; wide: the
-      // later walks read the row again
-      const int4 v = kWide ? __ldg(s4 + q) : __ldcs(s4 + q);
-      if (!kWide) k4[q] = v;
-      see(v.x);
-      see(v.y);
-      see(v.z);
-      see(v.w);
+      for (int q = tid; q < n / 4; q += kThreads) {
+        const int4 v = __ldg(s4 + q);
+        see(v.x);
+        see(v.y);
+        see(v.z);
+        see(v.w);
+      }
+    } else {
+      for (int j = tid; j < n; j += kThreads) see(__ldg(src + j));
     }
   } else {
-    int* ks = reinterpret_cast<int*>(dyn);
-#pragma unroll 4
-    for (int j = tid; j < w; j += kThreads) {
-      const int v = kWide ? __ldg(src + j) : __ldcs(src + j);
-      if (!kWide) ks[j] = v;
-      see(v);
+    if (aligned && n > 0) {
+      const uint32_t bar = smem_addr(&sh.bar);
+      if (tid == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      }
+      __syncthreads();
+      if (tid == 0) bulk_load(smem_addr(skeys), src, static_cast<uint32_t>(n) * 4, bar);
+      mbar_wait(bar, 0);
+    } else {
+      for (int j = tid; j < n; j += kThreads) skeys[j] = __ldcs(src + j);
+      __syncthreads();
     }
+    for (int j = tid; j < n; j += kThreads) see(skeys[j]);
   }
   mn = __reduce_min_sync(kFull, mn);
   mx = __reduce_max_sync(kFull, mx);
@@ -352,87 +591,92 @@ knn_select_kernel(const float* __restrict__ d2, int w, int k, float* __restrict_
     sh.rcnt[warp] = static_cast<int>(nb);
   }
   __syncthreads();
-  int body_lo = INT_MAX, body_hi = INT_MIN, n_body = 0;
+  if (tid == 0) {
+    int lo = INT_MAX, hi = INT_MIN, cnt = 0;
 #pragma unroll
-  for (int i = 0; i < kWarps; ++i) {
-    body_lo = min(body_lo, sh.rmin[i]);
-    body_hi = max(body_hi, sh.rmax[i]);
-    n_body += sh.rcnt[i];
+    for (int i = 0; i < kWarps; ++i) {
+      lo = min(lo, sh.rmin[i]);
+      hi = max(hi, sh.rmax[i]);
+      cnt += sh.rcnt[i];
+    }
+    sh.stat[0] = lo;
+    sh.stat[1] = hi;
+    sh.stat[2] = cnt;
   }
+  // every slice's statistics are published (and the histograms cleared)
+  cluster.sync();
+  // lane q of each warp reads rank q's statistics; the warp reduces them
+  int body_lo = INT_MAX, body_hi = INT_MIN, n_body = 0;
+  if (lane < csize) {
+    const int* st = cluster.map_shared_rank(sh.stat, lane);
+    body_lo = st[0];
+    body_hi = st[1];
+    n_body = st[2];
+  }
+  body_lo = __reduce_min_sync(kFull, body_lo);
+  body_hi = __reduce_max_sync(kFull, body_hi);
+  n_body = __reduce_add_sync(kFull, n_body);
   int parity = 0;
-  // the list's space, free until step 3, gathers the keys still in play
-  int* spare = reinterpret_cast<int*>(list);
-  const int cap = kWide ? max(2 * p2, kWideGather) : 2 * p2;
+  const int cap = gather_cap<kWide>(k);
 
-  // ---- 2. t = the k-th smallest key, and count(keys < t) -----------------
+  // ---- 2. t = the row's k-th smallest key, and count(keys < t) -----------
   Found f;
   if (k <= n_body) {
-    f = select_rank<kWide>(keys, nullptr, w, body_lo,
-                           static_cast<unsigned>(body_hi) - static_cast<unsigned>(body_lo), k, sh,
-                           parity, spare, cap);
+    f = select_rank<kWide>(cluster, csize, keys, n, body_lo,
+                           static_cast<unsigned>(body_hi) - static_cast<unsigned>(body_lo), k, 0,
+                           sh, parity, spare, cap);
   } else {  // k reaches past the body into the finfo.max (or larger) keys
-    f = select_rank<kWide>(keys, nullptr, w, kBigKey,
+    f = select_rank<kWide>(cluster, csize, keys, n, kBigKey,
                            static_cast<unsigned>(INT_MAX) - static_cast<unsigned>(kBigKey),
-                           k - n_body, sh, parity, spare, cap);
-    f.below += n_body;
+                           k - n_body, n_body, sh, parity, spare, cap);
   }
-  const int t = f.t;
-  const int n_below = f.below;
-  const int need = k - n_below;  // ties at t to take, lowest columns first: 1 <= need
-  // the gather's last reads of `spare` ended at select_rank's last barrier
 
-  // ---- 3. tie cut and compaction into the list, one scan -----------------
-  if constexpr (kWide) {
-    compact_walks(keys, w, t, n_below, need, list, sh);
+  // ---- 3. the list: every entry below t, then the ties --------------------
+  int filled = k;
+  if (f.gathered && f.below + f.ties <= L) {
+    // all of the row's ties fit beside the entries below t: no tie cut
+    place_gathered<kWide>(cluster, keys, spare, f.n, j0, f.t, list, sh);
+    filled = f.below + f.ties;
   } else {
-    const int chunk = ((w + kThreads - 1) / kThreads) | 1;  // odd: conflict-free chunk walks
-    const int c0 = min(tid * chunk, w), c1 = min(c0 + chunk, w);
-    unsigned long long cnt = 0;  // ties | below t << 32
-    for (int j = c0; j < c1; ++j) {
-      const int key = keys[j];
-      cnt += key == t ? 1ull : (key < t ? 1ull << 32 : 0ull);
-    }
-    unsigned long long tot;
-    const unsigned long long pre = block_exclusive_scan(cnt, sh.wtot_l, tot);
-    int ties = static_cast<int>(pre & 0xffffffffull);
-    int pos_below = static_cast<int>(pre >> 32);
-    for (int j = c0; j < c1; ++j) {
-      const int key = keys[j];
-      if (key < t) {
-        list[pos_below++] = entry(key, j);
-      } else if (key == t) {
-        if (ties < need) list[n_below + ties] = entry(key, j);
-        ++ties;
-      }
-    }
+    // the first k - count(< t) ties in column order, by two walks
+    compact<kWide>(cluster, rank, keys, n, j0, f.t, f.below, k - f.below, list, sh);
   }
-  for (int i = k + tid; i < p2; i += kThreads) list[i] = kPad;
-  __syncthreads();
+  if (rank == 0) {
+    for (int i = filled + tid; i < L; i += kThreads) list[i] = kPad;
+  }
+  // every entry has landed in the leader's list; the others are done
+  cluster.sync();
+  if (rank != 0) return;
 
-  // ---- 4. bitonic sort of the p2 entries --------------------------------
-  for (int size = 2; size <= p2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < p2 / 2; i += kThreads) {
-        const int a = 2 * i - (i & (stride - 1));  // i with a zero bit inserted at `stride`
-        const int b = a + stride;
-        const unsigned long long x = list[a], y = list[b];
-        if ((x > y) == ((a & size) == 0)) {  // ascending where bit `size` of a is clear
-          list[a] = y;
-          list[b] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // ---- 5. write -----------------------------------------------------------
-  const size_t out = static_cast<size_t>(blockIdx.x) * k;
-  for (int i = tid; i < k; i += kThreads) {
-    const unsigned long long e = list[i];
-    vals[out + i] = __int_as_float(static_cast<int>(e >> 32));
-    pos[out + i] = static_cast<int>(e & 0xffffffffull);
-  }
+  // ---- 4-5. sort the list, write ---------------------------------------
+  sort_list(list, L, k, vals + row * k, pos + row * k);
 }
+
+// Dynamic shared memory of one shared-mode block: its slice's keys, the
+// list and the gather buffer.
+__host__ __device__ inline size_t shared_smem_bytes(int slice, int k) {
+  return static_cast<size_t>(round_up(slice, 4)) * 4 + static_cast<size_t>(list_len(k)) * 8 +
+         static_cast<size_t>(gather_cap<false>(k)) * sizeof(Index<false>);
+}
+
+// Dynamic shared memory of one wide-mode block: the list and the gather
+// buffer.
+__host__ __device__ inline size_t wide_smem_bytes(int k) {
+  return static_cast<size_t>(list_len(k)) * 8 +
+         static_cast<size_t>(gather_cap<true>(k)) * sizeof(Index<true>);
+}
+
+// the cluster size of rows of w columns: the least power of two that keeps
+// a slice within kSliceTarget columns, at most kMaxCluster
+int default_cluster(int w) {
+  int c = 1;
+  while (c < kMaxCluster && (w + c - 1) / c > kSliceTarget) c <<= 1;
+  return c;
+}
+
+// the columns a block holds over a cluster of c: multiples of 4 (16 bytes)
+// where c > 1, so each block's slice starts 16-byte aligned in an aligned row
+int slice_of(int w, int c) { return c == 1 ? w : round_up((w + c - 1) / c, 4); }
 
 template <bool kWide>
 cudaError_t configure(size_t smem) {
@@ -445,101 +689,182 @@ cudaError_t configure(size_t smem) {
     if (err != cudaSuccess) return err;
     carveout_set = true;
   }
-  if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(knn_select_kernel<kWide>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
+  // the dynamic shared memory a launch may take, raised (never lowered) to
+  // this launch's: the default, 48 KB less the static shared memory, is
+  // below some shapes' (a wide block at k = 4,096 takes exactly 48 KB)
+  static size_t allowed = 0;
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_select_kernel<kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    allowed = smem;
   }
   return cudaSuccess;
 }
 
-size_t mode_smem_bytes(int mode, int w, int k) {
-  return mode == 0 ? resident_smem_bytes(w, k) : wide_smem_bytes(k);
+// The launch of n rows in `mode` over clusters of c blocks (1 in the wide
+// mode), its slice and its shared memory.
+struct Plan {
+  int c, slice;
+  size_t smem;
+};
+
+Plan plan_of(int mode, int w, int k) {
+  if (mode == 1) return {1, w, wide_smem_bytes(k)};
+  const int c = default_cluster(w);
+  const int slice = slice_of(w, c);
+  return {c, slice, shared_smem_bytes(slice, k)};
 }
 
 template <bool kWide>
-int info(int w, int k, int* out) {
-  const size_t smem = mode_smem_bytes(kWide, w, k);
-  cudaError_t err = configure<kWide>(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, knn_select_kernel<kWide>);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, knn_select_kernel<kWide>, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = kThreads;
-  out[1] = static_cast<int>(smem);
-  out[2] = static_cast<int>(attr.sharedSizeBytes);
-  out[3] = blocks;
-  out[4] = attr.numRegs;
-  out[5] = static_cast<int>(attr.localSizeBytes);
-  return cudaSuccess;
+cudaLaunchConfig_t launch_config(int n, const Plan& p, cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n) * p.c);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
-// The arguments every launch checks: a mode that takes rows of w columns.
+// Clusters of this plan the card holds at once (0: none can be scheduled).
+template <bool kWide>
+cudaError_t max_clusters(const Plan& p, int* clusters) {
+  cudaError_t err = configure<kWide>(p.smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<kWide>(1, p, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(clusters, knn_select_kernel<kWide>, &cfg);
+}
+
+// The arguments every launch checks: a mode and rows of w columns it can
+// take at this k.
 bool valid_shape(int w, int k, int mode) {
   return w > 0 && k >= 1 && k <= w && k <= kMaxK && (mode == 0 || mode == 1);
+}
+
+// Whether `p` (in mode 0 or 1) fits a block's shared memory on a card that
+// lets a block opt in to `optin` bytes and can be scheduled.
+template <bool kWide>
+cudaError_t fits(const Plan& p, size_t optin, bool* ok) {
+  *ok = false;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, knn_select_kernel<kWide>);
+  if (err != cudaSuccess || p.smem + attr.sharedSizeBytes > optin) return err;
+  int clusters = 0;
+  if ((err = max_clusters<kWide>(p, &clusters)) != cudaSuccess) return err;
+  *ok = clusters > 0;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The mode that takes rows of w columns at this k on `device`: 0 (the
-// row's keys in shared memory) whenever its shared memory fits, else 1
-// (wide: the keys stay in device memory) where that fits, else -1.
-// Returns the first cudaError_t.
-int knn_select_mode(int device, int w, int k, int* mode) {
+// The mode that takes rows of w columns at this k on `device` and its
+// cluster size: 0 (shared: a cluster of `cluster` blocks a row, each block
+// its slice of the keys in shared memory) whenever that fits and can be
+// scheduled, else 1 (wide: the keys stay in device memory, cluster 1)
+// where that fits, else -1. Returns the first cudaError_t.
+int knn_select_mode(int device, int w, int k, int* mode, int* cluster) {
+  *mode = -1;
+  *cluster = 0;
+  if (!valid_shape(w, k, 0)) return cudaSuccess;
   int optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes resident, wide;
-  if ((err = cudaFuncGetAttributes(&resident, knn_select_kernel<false>)) != cudaSuccess) return err;
-  if ((err = cudaFuncGetAttributes(&wide, knn_select_kernel<true>)) != cudaSuccess) return err;
-  const size_t avail = static_cast<size_t>(optin);
-  if (!valid_shape(w, k, 0)) {
-    *mode = -1;
-  } else if (resident_smem_bytes(w, k) + resident.sharedSizeBytes <= avail) {
+  bool ok = false;
+  const Plan shared = plan_of(0, w, k);
+  if ((err = fits<false>(shared, static_cast<size_t>(optin), &ok)) != cudaSuccess) return err;
+  if (ok) {
     *mode = 0;
-  } else if (wide_smem_bytes(k) + wide.sharedSizeBytes <= avail) {
+    *cluster = shared.c;
+    return cudaSuccess;
+  }
+  if ((err = fits<true>(plan_of(1, w, k), static_cast<size_t>(optin), &ok)) != cudaSuccess) {
+    return err;
+  }
+  if (ok) {
     *mode = 1;
-  } else {
-    *mode = -1;
+    *cluster = 1;
   }
   return cudaSuccess;
 }
 
-// Launch shape of `mode` for rows of w columns at this k: threads, dynamic
-// and static shared memory per block, resident blocks per SM, registers a
-// thread and local (spill) bytes a thread. Returns the first cudaError_t.
-int knn_select_info(int mode, int w, int k, int* out) {
+// Launch shape of `mode` (0: shared, over the cluster size W picks; 1:
+// wide) for rows of w columns at this k on `device`: threads, dynamic and static
+// shared memory per block, resident blocks per SM, registers a thread,
+// local (spill) bytes a thread, blocks a cluster, clusters the card holds
+// at once (0, and no blocks per SM, where the blocks' shared memory does
+// not fit) and columns a block. Returns the first cudaError_t.
+int knn_select_info(int device, int mode, int w, int k, int* out) {
   if (!valid_shape(w, k, mode)) return cudaErrorInvalidValue;
-  return mode == 0 ? info<false>(w, k, out) : info<true>(w, k, out);
+  const Plan p = plan_of(mode, w, k);
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  int blocks = 0, clusters = 0;
+  if (mode == 0) {
+    if ((err = cudaFuncGetAttributes(&attr, knn_select_kernel<false>)) != cudaSuccess) return err;
+    if (p.smem + attr.sharedSizeBytes <= static_cast<size_t>(optin)) {
+      if ((err = max_clusters<false>(p, &clusters)) != cudaSuccess) return err;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, knn_select_kernel<false>,
+                                                          kThreads, p.smem);
+    }
+  } else {
+    if ((err = cudaFuncGetAttributes(&attr, knn_select_kernel<true>)) != cudaSuccess) return err;
+    if (p.smem + attr.sharedSizeBytes <= static_cast<size_t>(optin)) {
+      if ((err = max_clusters<true>(p, &clusters)) != cudaSuccess) return err;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, knn_select_kernel<true>,
+                                                          kThreads, p.smem);
+    }
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = kThreads;
+  out[1] = static_cast<int>(p.smem);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = blocks;
+  out[4] = attr.numRegs;
+  out[5] = static_cast<int>(attr.localSizeBytes);
+  out[6] = p.c;
+  out[7] = clusters;
+  out[8] = p.slice;
+  return cudaSuccess;
 }
 
-// Launch `mode` (from knn_select_mode) on `stream` without synchronising:
-// d2 [n, w] float32 row-major in, vals [n, k] float32 and pos [n, k] int32
-// out. Returns the first cudaError_t.
+// Launch `mode` (from knn_select_mode; the shared mode over the cluster
+// size W picks) on `stream` without synchronising: d2 [n, w] float32
+// row-major in, vals [n, k] float32 and pos [n, k] int32 out. Returns the
+// first cudaError_t.
 int knn_select_launch(const void* d2, int n, int w, int k, int mode, void* vals, void* pos,
                       void* stream) {
   if (n <= 0) return cudaSuccess;
   if (!valid_shape(w, k, mode)) return cudaErrorInvalidValue;
-  const size_t smem = mode_smem_bytes(mode, w, k);
+  const Plan p = plan_of(mode, w, k);
+  if (static_cast<long long>(n) * p.c > INT_MAX) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
   cudaError_t err;
+  const float* in = static_cast<const float*>(d2);
+  float* v = static_cast<float*>(vals);
+  int* ix = static_cast<int*>(pos);
   if (mode == 0) {
-    if ((err = configure<false>(smem)) != cudaSuccess) return err;
-    knn_select_kernel<false><<<n, kThreads, smem, s>>>(static_cast<const float*>(d2), w, k,
-                                                       static_cast<float*>(vals),
-                                                       static_cast<int*>(pos));
+    if ((err = configure<false>(p.smem)) != cudaSuccess) return err;
+    const cudaLaunchConfig_t cfg = launch_config<false>(n, p, s, &attr);
+    err = cudaLaunchKernelEx(&cfg, knn_select_kernel<false>, in, w, k, p.slice, v, ix);
   } else {
-    if ((err = configure<true>(smem)) != cudaSuccess) return err;
-    knn_select_kernel<true><<<n, kThreads, smem, s>>>(static_cast<const float*>(d2), w, k,
-                                                      static_cast<float*>(vals),
-                                                      static_cast<int*>(pos));
+    if ((err = configure<true>(p.smem)) != cudaSuccess) return err;
+    const cudaLaunchConfig_t cfg = launch_config<true>(n, p, s, &attr);
+    err = cudaLaunchKernelEx(&cfg, knn_select_kernel<true>, in, w, k, p.slice, v, ix);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,7 +56,7 @@ class CohortParams(NamedTuple):
     n_iters: int = 100  # phasing sweeps
     quantize: bool = True  # mimic %.2f file round-trip of scales/z
     row_block: int = 512  # kNN panel rows (panel branch)
-    dipcn_lists: bool = False  # resident branch: dipCN from the sorted lists, CPU only
+    dipcn_lists: bool = False  # resident branch: dipCN from the sorted lists, any device
     use_pallas: bool = False  # accepted, no effect: the hand kernels are the path on the card
     # the [N, N] distance matrix stays resident while N*N*itemsize fits
     # this budget; beyond it the step streams row panels (0: always panels)
@@ -209,7 +209,7 @@ def cohort_step(
     if d2_resident(params, n, values.element_size()):
         d2 = d2_matrix(z, norm.mask, region_used, params.zmax, row_valid=sample_ok)
         sq_dists, nbr_idx = sorted_smallest_k_gpu(d2, params.num_neighbors)
-        if params.dipcn_lists:  # the JAX step's opt-in form, plain PyTorch: CPU only
+        if params.dipcn_lists:  # the JAX step's opt-in form: tensor code on the lists
             dipcn, dipcn_valid = dipcn_from_lists(
                 d2, sq_dists, nbr_idx, w, w, reads_valid, reads_valid,
                 k=params.num_neighbors, n_nbr=params.n_nbr,

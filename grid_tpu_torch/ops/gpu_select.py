@@ -64,9 +64,9 @@ def _knn_lib():
     lib.knn_select_launch.argtypes = (
         [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
     lib.knn_select_launch.restype = ctypes.c_int
-    lib.knn_select_mode.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.knn_select_mode.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.knn_select_mode.restype = ctypes.c_int
-    lib.knn_select_info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.knn_select_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.knn_select_info.restype = ctypes.c_int
     return lib
 
@@ -241,31 +241,70 @@ def dipcn_multi_panels_gpu(zp, rnorm, nbr_w, col_usable, sample_valid, k: int, n
     return torch.cat(dips), torch.cat(oks)
 
 
+_KNN_INFO_KEYS = (*_INFO_KEYS, "cluster_blocks", "clusters", "slice")
+
+
+def _knn_mode(w: int, k: int, device: torch.device) -> tuple:
+    """(mode number, cluster size) the kernel takes rows of ``w`` columns
+    in at this ``k``; mode -1 where none fits."""
+    return _knn_mode_on(w, k, _device_index(device))
+
+
+@functools.cache
+def _knn_mode_on(w: int, k: int, index: int) -> tuple:
+    """:func:`_knn_mode` on card ``index``, asked once: the answer depends on
+    the card alone, and the occupancy queries cost the host more than the
+    resident launch they pick."""
+    mode, cluster = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(index):
+        err = _knn_lib().knn_select_mode(index, w, k, ctypes.byref(mode), ctypes.byref(cluster))
+    native.check_launch("knn_select", err)
+    return mode.value, cluster.value
+
+
 def knn_select_mode(w: int, k: int, device: torch.device) -> str | None:
     """The mode ``knn_select`` takes rows of ``w`` columns in at this ``k``
-    on the CUDA ``device``: "resident" (the row's keys in shared memory)
-    whenever that fits, else "wide" (the keys stay in device memory), or
-    None where neither fits (k above 16,384, or its list too large)."""
-    mode = ctypes.c_int()
-    with torch.cuda.device(device):
-        err = _knn_lib().knn_select_mode(_device_index(device), w, k, ctypes.byref(mode))
-    native.check_launch("knn_select", err)
-    return MODES[mode.value] if mode.value >= 0 else None
+    on the CUDA ``device``: "resident" (one block a row, the row's keys in
+    its shared memory), "cluster" (a cluster of 2-8 blocks a row, each
+    block a slice of the keys in its shared memory; the panels' 65,536
+    columns take 8) whenever the slices fit and a cluster can be scheduled,
+    else "wide" (one block a row, the keys stay in device memory; past
+    448,192 columns at k=500 on an H100; it takes every k <= 16,384 at any
+    width), or None where none fits (k above 16,384)."""
+    mode, cluster = _knn_mode(w, k, device)
+    if mode < 0:
+        return None
+    return "wide" if mode == 1 else ("resident" if cluster == 1 else "cluster")
 
 
-def knn_select_info(w: int, k: int, device: torch.device) -> dict:
+def knn_select_info(w: int, k: int, device: torch.device, mode: str | None = None) -> dict:
     """``knn_select``'s launch shape for rows of ``w`` columns at this ``k``
-    on the CUDA ``device``: its mode, threads, dynamic and static shared
-    memory per block, resident blocks per SM, registers and local (spill)
-    bytes per thread."""
-    mode = knn_select_mode(w, k, device)
+    on the CUDA ``device``, in ``mode`` (default: the one
+    :func:`knn_select_mode` picks; "resident" and "cluster" are the shared
+    mode over the cluster size ``w`` picks): its threads, dynamic and
+    static shared memory per block,
+    resident blocks per SM, registers and local (spill) bytes per thread,
+    blocks a cluster, clusters the card holds at once (0 where the blocks'
+    shared memory does not fit) and columns a block."""
+    mode = mode or knn_select_mode(w, k, device)
     if mode is None:
         raise ValueError(f"no mode of knn_select takes rows of {w} columns at k={k}")
-    out = (ctypes.c_int * len(_INFO_KEYS))()
+    out = (ctypes.c_int * len(_KNN_INFO_KEYS))()
     with torch.cuda.device(device):
         native.check_launch("knn_select",
-                            _knn_lib().knn_select_info(MODES.index(mode), w, k, out))
-    return {"mode": mode, **dict(zip(_INFO_KEYS, out))}
+                            _knn_lib().knn_select_info(_device_index(device),
+                                                       _knn_mode_number(mode), w, k, out))
+    return {"mode": mode, **dict(zip(_KNN_INFO_KEYS, out))}
+
+
+def _knn_mode_number(mode: str) -> int:
+    """The kernel's mode number of a mode's name: 0 (shared) for "resident"
+    and "cluster", 1 for "wide"."""
+    if mode == "wide":
+        return 1
+    if mode in ("resident", "cluster"):
+        return 0
+    raise ValueError(f"unknown knn_select mode {mode!r}")
 
 
 def sorted_smallest_k_gpu(d2, k: int):
@@ -276,12 +315,14 @@ def sorted_smallest_k_gpu(d2, k: int):
 
     On the card: float32 [B, W] rows, contiguous, non-negative (finfo.max
     or larger for excluded columns; -0.0 is not expected), 1 <= k <= W,
-    k <= 16,384. One thread block per row: a histogram radix select of the
-    k-th value, one scan that keeps the entries below it and the first ties
-    in column order, and a bitonic sort of those k in shared memory. Rows
-    whose keys fit the block's shared memory (up to ~57,000 columns at
-    k=500 on an H100) cross device memory once; wider rows (the
-    65,536-column panels) keep their keys in device memory and re-read them
+    k <= 16,384. A row is split over a cluster of 1-8 blocks, each holding
+    its slice of the keys in shared memory (one bulk copy: the row crosses
+    device memory once): a histogram radix select of the k-th value with
+    the blocks' histograms summed through distributed shared memory, one
+    walk that places the entries below it and the first ties in column
+    order into the leading block's list, and a bitonic sort of those k
+    there, in registers and shuffles but for its widest strides. Rows too
+    wide for 8 blocks keep their keys in device memory and re-read them
     (:func:`knn_select_mode`). Raises where no mode fits.
 
     Returns (vals [B, k] float32, idx [B, k] int32).
@@ -302,14 +343,15 @@ def sorted_smallest_k_gpu(d2, k: int):
 
 def _knn_launch(mode: str, d2, k: int):
     """Launch ``knn_select`` in ``mode`` on a checked ``d2``. The wrapper
-    picks the mode; the card tests also run the wide mode where both fit."""
+    picks the mode; the card tests also run the wide mode beside it."""
     n, w = d2.shape
+    number = _knn_mode_number(mode)
     vals = torch.empty((n, k), dtype=torch.float32, device=d2.device)
     idx = torch.empty((n, k), dtype=torch.int32, device=d2.device)
     if n == 0:
         return vals, idx
     with torch.cuda.device(d2.device):
-        err = _knn_lib().knn_select_launch(d2.data_ptr(), n, w, k, MODES.index(mode),
+        err = _knn_lib().knn_select_launch(d2.data_ptr(), n, w, k, number,
                                            vals.data_ptr(), idx.data_ptr(),
                                            native.stream_ptr(d2.device))
     native.check_launch("knn_select", err)

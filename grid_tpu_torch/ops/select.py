@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from grid_tpu_torch import native
 from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel_plain, zprep_split_plain
 from grid_tpu_torch.ops.knn import panel_d2
 
@@ -167,59 +168,44 @@ def dipcn_from_distances_multi(d2, rnorm, nbr_w, col_usable, sample_valid, k: in
 
 def dipcn_from_lists(d2, sq_dists, nbr_idx, rnorm, nbr_w, col_usable, sample_valid, k: int,
                      n_nbr: int):
-    """Threshold dipCN reusing the sorted k-nearest lists of the same d2
-    (``CohortParams.dipcn_lists``; plain PyTorch, as in the JAX package,
-    which has no Pallas kernel for it). It runs on the CPU only and raises
-    for tensors elsewhere: on the card the dipCN is ``dipcn_select``'s.
+    """Threshold dipCN from the sorted k-nearest lists of the same d2
+    (``CohortParams.dipcn_lists``): the same function as
+    :func:`dipcn_from_distances` and ``grid_tpu``'s ``dipcn_from_lists``,
+    in tensor code on any device (``grid_tpu`` runs it as XLA code on its
+    device; it has no Pallas kernel).
 
-    It selects the same neighbor prefix as :func:`dipcn_from_distances`:
-    the k-set threshold is ``(sq_dists[:, k-1], nbr_idx[:, k-1])`` in
-    (value, column) order, and the n_nbr-th usable neighbor is the list
-    position where the usable count reaches ``min(usable in k-set, n_nbr)``,
-    found by bisection over list positions, each probe one compare-and-count
-    pass over d2.
+    The lists hold each row's k-set in (value, column) order, so its
+    take-set is the first ``m_eff = min(usable in the list, n_nbr)`` usable
+    entries of the list: a gather of ``col_usable`` over [N, k], a running
+    count and a compare, where the JAX package bisects list positions with
+    passes over d2. The take-set's weights are then summed over the columns
+    of a zero [N, W] row, as :func:`dipcn_from_distances` sums them, so the
+    two give the same float wherever their take-sets agree. No value
+    crosses to the host; each call on the card counts one launch of the
+    route.
 
     PRECONDITION: the lists are the exact k smallest of each row of d2,
-    ascending, ties to the lower column (:func:`ops.knn.sorted_smallest_k`).
+    ascending, ties to the lower column (:func:`ops.knn.sorted_smallest_k`,
+    bitwise the ``knn_select`` kernel's). ``sq_dists`` is not read: the
+    positions carry the order.
 
     Args: as :func:`dipcn_from_distances`, plus the [N, k] lists.
     Returns (dipcn [N], out_valid [N]).
     """
-    if d2.device.type != "cpu":
-        raise ValueError(f"dipcn_from_lists runs on the CPU only, not on {d2.device}: on the "
-                         "card leave CohortParams.dipcn_lists False (the dipcn_select kernel)")
-    key_type = _key_type(d2.dtype)
-    n = d2.shape[0]
-    u = d2.view(key_type)
-    ul = sq_dists.to(d2.dtype).contiguous().view(key_type)
     idx = nbr_idx.long()
-    cols = torch.arange(d2.shape[1], device=d2.device)
-
-    def lex_le(t, c):
-        """[N, W] mask of the entries with (key, column) <= (t, c) per row."""
-        return (u < t[:, None]) | ((u == t[:, None]) & (cols[None, :] <= c[:, None]))
-
-    usable = lex_le(ul[:, k - 1], idx[:, k - 1]) & col_usable[None, :]
-    m_eff = usable.sum(dim=1).clamp_max(n_nbr)
-    need = m_eff.clamp_min(1)  # rows with m_eff == 0 are masked at the end
-
-    # smallest list position p with count(usable & lex <= list[p]) >= m_eff
-    lo = torch.zeros(n, dtype=torch.int64, device=d2.device)
-    hi = torch.full((n,), k - 1, dtype=torch.int64, device=d2.device)
-    for _ in range(max(int(k - 1).bit_length(), 1)):
-        mid = lo + (hi - lo) // 2
-        t_p = ul.gather(1, mid[:, None])[:, 0]
-        c_p = idx.gather(1, mid[:, None])[:, 0]
-        ge = (usable & lex_le(t_p, c_p)).sum(dim=1) >= need
-        hi = torch.where(ge, mid, hi)
-        lo = torch.where(ge, lo, mid + 1)
-    t_m = ul.gather(1, hi[:, None])[:, 0]
-    c_m = idx.gather(1, hi[:, None])[:, 0]
-
-    take = usable & lex_le(t_m, c_m) & (m_eff > 0)[:, None]
-    tot = torch.where(take, nbr_w.to(d2.dtype)[None, :], 0).sum(dim=1)
+    usable = col_usable[idx]
+    seen = usable.cumsum(dim=1)  # usable entries up to each list position
+    m_eff = seen[:, -1].clamp_max(n_nbr)
+    take = usable & (seen <= m_eff[:, None])  # empty where m_eff is 0
+    weights = torch.where(take, nbr_w.to(d2.dtype)[idx], 0)
+    tot = torch.zeros_like(d2).scatter_(1, idx, weights).sum(dim=1)
     dipcn = rnorm.to(d2.dtype) / (tot / m_eff.clamp_min(1))
+    if d2.is_cuda:
+        native.count_launch(dipcn_from_lists)
     return dipcn, sample_valid & (m_eff > 0)
+
+
+dipcn_from_lists.launches = 0
 
 
 def dipcn_from_distances_panels(zp, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int,

@@ -642,16 +642,55 @@ def test_dipcn_from_lists_on_forced_ties(dt, k, n_nbr):
     assert torch.equal(sok, ok) and torch.equal(scratch[sok], got[sok])
 
 
-def test_dipcn_from_lists_runs_on_the_cpu_only():
-    """Off the CPU it raises, so it never stands in for the dipcn_select
-    kernel on the card."""
-    from grid_tpu_torch.ops.select import dipcn_from_lists
+def _edge_lists(dt, case):
+    """_tie_d2's inputs made to reach one edge of the list form: rows whose
+    k-set holds no usable column (m_eff 0), rows with no valid sample, or
+    k equal to W."""
+    d2, rnorm, w, usable = _tie_d2(dt)
+    n = d2.shape[0]
+    valid = np.ones(n, bool)
+    k, n_nbr = 12, 5
+    if case == "m-eff-0":  # the 12 nearest of the first rows: all unusable
+        for row in range(10):
+            usable[np.argsort(d2[row], kind="stable")[:k]] = False
+    elif case == "no-valid-sample":
+        valid[::3] = False
+    else:  # k = W, n_nbr above every row's usable count
+        k, n_nbr = n, n + 5
+    return d2, rnorm, w, usable, valid, k, n_nbr
 
-    d2 = torch.zeros(4, 4, device="meta")
-    lists = torch.zeros(4, 2, device="meta"), torch.zeros(4, 2, dtype=torch.int32, device="meta")
-    rnorm, usable = torch.ones(4, device="meta"), torch.ones(4, dtype=torch.bool, device="meta")
-    with pytest.raises(ValueError, match="CPU only.*dipcn_select"):
-        dipcn_from_lists(d2, *lists, rnorm, rnorm, usable, usable, k=2, n_nbr=1)
+
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+@pytest.mark.parametrize("case", ["m-eff-0", "no-valid-sample", "k-equals-w"])
+def test_dipcn_from_lists_list_form_on_edge_rows(dt, case):
+    """The list form (a gather over [N, k], a running count, a sum over the
+    columns) gives grid_tpu's dipcn_from_lists at 2 ulp with the same
+    validity, and the port's dipcn_from_distances bitwise, where m_eff is
+    0, where the sample is not valid and at k = W. The weights are whole
+    numbers, so the two packages sum the same set to the same float."""
+    from grid_tpu.ops.select import dipcn_from_lists as j_lists
+    from grid_tpu_torch.ops.knn import sorted_smallest_k
+    from grid_tpu_torch.ops.select import dipcn_from_distances, dipcn_from_lists
+
+    d2, rnorm, w, usable, valid, k, n_nbr = _edge_lists(dt, case)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (d2, rnorm, w, usable, valid)]
+    sq, idx = sorted_smallest_k(t[0], k)
+    before = dipcn_from_lists.launches
+    got, ok = dipcn_from_lists(t[0], sq, idx, *t[1:], k=k, n_nbr=n_nbr)
+    assert dipcn_from_lists.launches == before  # counted on the card only
+    want, wok = j_lists(jnp.asarray(d2), jnp.asarray(sq.numpy()), jnp.asarray(idx.numpy()),
+                        jnp.asarray(rnorm), jnp.asarray(w), jnp.asarray(usable),
+                        jnp.asarray(valid), k=k, n_nbr=n_nbr)
+    wok = np.asarray(wok)
+    np.testing.assert_array_equal(ok.numpy(), wok)
+    if case == "m-eff-0":
+        assert not wok[:10].any() and wok[10:].sum() > 50
+    elif case == "no-valid-sample":
+        assert not wok[::3].any() and wok.sum() > 50
+    np.testing.assert_allclose(got.numpy()[wok], np.asarray(want)[wok],
+                               rtol=2 * np.finfo(dt).eps, atol=0)
+    scratch, sok = dipcn_from_distances(*t, k=k, n_nbr=n_nbr)
+    assert torch.equal(sok, ok) and torch.equal(scratch[sok], got[sok])
 
 
 @pytest.mark.parametrize("budget", [2 << 30, 0], ids=["resident", "panels"])

@@ -25,8 +25,11 @@ run's files byte for byte. The gather form of the sharded step on one rank
 launches what its panels need and equals the flat panel loop on its own z
 bitwise; a named build cache receives the nvcc libraries. The selection
 kernel (``knn_select``) equals the stable sort exactly, values and
-positions, in both its modes, and the ring merge on it the sort merge; the
-phasing kernel (``phase_sweeps``) is held to the plain sweeps at rtol 1e-5
+positions, in the mode it picks (over 1, 2, 4 and 8 blocks a row, and
+past the widest row 8 blocks hold) and in its wide mode, up to k = 16,384
+at any width, and the ring merge on it the sort merge; ``dipcn_lists``' list route on the card keeps the
+CPU route's and ``dipcn_select``'s validity exactly and their dipCN at rtol
+1e-6; the phasing kernel (``phase_sweeps``) is held to the plain sweeps at rtol 1e-5
 with the same NaNs (each neighbor list summed in slot order there, in
 torch's reduction order in the plain version), its two modes to each other
 bitwise.
@@ -802,7 +805,7 @@ def _select_case(case, cuda):
     """(d2 [B, W] on the card, k) of one named case."""
     rng = np.random.default_rng(len(case))
     big = torch.finfo(torch.float32).max
-    b, w, k = _SELECT_CASES[case]
+    b, w, k = _SELECT_CASES[case][:3]
     if case.startswith("ties"):
         valid = torch.tensor(rng.random(b) > 0.1, device=cuda)
         d2 = _tie_d2(rng, cuda, b, 16, valid)
@@ -823,60 +826,78 @@ def _select_case(case, cuda):
     return d2.contiguous(), k
 
 
-# case: (B, W, k)
+# case: (B, W, k, the mode knn_select_mode picks, its blocks a row)
 _SELECT_CASES = {
-    "ties-97-k1": (97, 97, 1),
-    "ties-97-k20": (97, 97, 20),
-    "ties-97-k-equals-w": (97, 97, 97),
-    "ties-300-k299": (300, 300, 299),
-    "all-equal": (300, 300, 60),
-    "narrow-band": (512, 512, 100),
-    "past-body": (64, 3000, 2000),
-    "quantized-2504": (256, 2504, 500),
-    "quantized-16884": (64, 16884, 500),
-    "w65536": (64, 65536, 500),
-    "w65600-past-uint16": (16, 65600, 777),
-    "w131072-k4096": (8, 131072, 4096),
+    "ties-97-k1": (97, 97, 1, "resident", 1),
+    "ties-97-k20": (97, 97, 20, "resident", 1),
+    "ties-97-k-equals-w": (97, 97, 97, "resident", 1),
+    "ties-300-k299": (300, 300, 299, "resident", 1),
+    "all-equal": (300, 300, 60, "resident", 1),
+    "narrow-band": (512, 512, 100, "resident", 1),
+    "past-body": (64, 3000, 2000, "resident", 1),
+    "quantized-2504": (256, 2504, 500, "resident", 1),
+    "w8192-one-block": (32, 8192, 500, "resident", 1),
+    "w8193-two-blocks-unaligned": (32, 8193, 500, "cluster", 2),
+    "quantized-16884": (64, 16884, 500, "cluster", 4),
+    "w65536": (64, 65536, 500, "cluster", 8),
+    "w65600-past-uint16": (16, 65600, 777, "cluster", 8),
+    "w100000-biobank": (16, 100000, 500, "cluster", 8),
+    "w131072-k4096": (8, 131072, 4096, "cluster", 8),
+    "w460000-past-the-cluster-edge": (4, 460000, 500, "wide", 1),
+    "w131072-k9000": (4, 131072, 9000, "wide", 1),
+    "w131072-k16384": (4, 131072, 16384, "wide", 1),
 }
 
 
 @pytest.mark.parametrize("case", list(_SELECT_CASES))
 def test_knn_select_kernel_equals_the_stable_sort(cuda, case):
-    from grid_tpu_torch.ops.gpu_select import _knn_launch, knn_select_mode, sorted_smallest_k_gpu
+    """The wrapper's mode, over the cluster size the width picks (widths
+    8,192, 8,193, 16,884 and 65,536 take 1, 2, 4 and 8 blocks), equals the
+    stable sort bitwise; so does the wide mode on the same rows, and at k
+    up to 16,384 on rows too wide for the shared mode."""
+    from grid_tpu_torch.ops.gpu_select import (
+        _knn_launch, knn_select_info, knn_select_mode, sorted_smallest_k_gpu,
+    )
     from grid_tpu_torch.ops.knn import sorted_smallest_k
 
     d2, k = _select_case(case, cuda)
-    mode = knn_select_mode(d2.shape[1], k, cuda)
-    assert mode == ("wide" if d2.shape[1] >= 65536 else "resident")
+    w = d2.shape[1]
+    mode, blocks = _SELECT_CASES[case][3:]
+    assert knn_select_mode(w, k, cuda) == mode
+    assert knn_select_info(w, k, cuda)["cluster_blocks"] == blocks
     before = sorted_smallest_k_gpu.launches
     vals, idx = sorted_smallest_k_gpu(d2, k)
     assert sorted_smallest_k_gpu.launches == before + 1
     want_v, want_i = sorted_smallest_k(d2, k)  # stable torch.sort on the card
     assert torch.equal(idx, want_i) and torch.equal(vals, want_v)
     assert idx.dtype == torch.int32 and vals.shape == (d2.shape[0], k)
-    if mode == "resident":  # the wide mode selects and orders the same entries
-        wide_v, wide_i = _knn_launch("wide", d2, k)
-        assert torch.equal(wide_i, idx) and torch.equal(wide_v, vals)
+    if mode != "wide":
+        assert knn_select_info(w, k, cuda, "wide")["clusters"] > 0
+        got_v, got_i = _knn_launch("wide", d2, k)
+        assert torch.equal(got_i, idx) and torch.equal(got_v, vals)
 
 
 @pytest.mark.parametrize("k", [500, 4000])
 def test_knn_select_mode_switch_at_the_shared_memory_edge(cuda, k):
-    from grid_tpu_torch.ops.gpu_select import _knn_launch, knn_select_mode
+    """Past the widest row whose slices fit 8 blocks' shared memory the
+    wide mode takes over; the rows on both sides equal the stable sort."""
+    from grid_tpu_torch.ops.gpu_select import _knn_launch, knn_select_info, knn_select_mode
     from grid_tpu_torch.ops.knn import sorted_smallest_k
 
-    lo, hi = k, 65536  # the widest resident row lies in [lo, hi]
-    assert knn_select_mode(lo, k, cuda) == "resident"
+    lo, hi = 65536, 1 << 21  # the widest row of the shared mode lies in [lo, hi]
+    assert knn_select_mode(lo, k, cuda) == "cluster"
     assert knn_select_mode(hi, k, cuda) == "wide"
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if knn_select_mode(mid, k, cuda) == "resident" else (lo, mid)
+        lo, hi = (mid, hi) if knn_select_mode(mid, k, cuda) == "cluster" else (lo, mid)
+    assert knn_select_info(lo, k, cuda)["cluster_blocks"] == 8
     rng = np.random.default_rng(k)
-    for w, mode in ((lo, "resident"), (hi, "wide")):
+    for w, mode in ((lo, "cluster"), (hi, "wide")):
         d2 = torch.tensor(rng.integers(0, 300, (24, w)) * 0.5, dtype=torch.float32, device=cuda)
         got = _knn_launch(mode, d2, k)
         want = sorted_smallest_k(d2, k)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-        if mode == "resident":
+        if mode == "cluster":
             assert all(torch.equal(a, b) for a, b in zip(_knn_launch("wide", d2, k), got))
 
 
@@ -897,6 +918,7 @@ def test_knn_select_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         sorted_smallest_k_gpu(d2[None], 3)  # not [B, W]
     assert knn_select_mode(20000, 16385, cuda) is None  # past the 2^14-entry list
+    assert knn_select_mode(1 << 21, 16384, cuda) == "wide"  # the largest list at any width
     with pytest.raises(ValueError):
         sorted_smallest_k_gpu(torch.zeros((2, 20000), device=cuda), 16385)
 
@@ -931,6 +953,36 @@ def test_ring_merge_on_the_kernel_equals_the_sort_merge(cuda):
     want = run("cpu")
     for g, w in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
         assert torch.equal(g.cpu(), w)
+
+
+def test_dipcn_from_lists_on_the_card_equals_the_cpu_route(cuda):
+    """``CohortParams.dipcn_lists``' route on the card, on the forced-tie
+    inputs and knn_select's lists: the CPU route's validity and
+    dipcn_select's exactly, dipCN within 1e-6 relative of both (the same
+    take-set summed in another order); each call counts one launch."""
+    from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
+    from grid_tpu_torch.ops.select import dipcn_from_lists
+
+    rng = np.random.default_rng(16)
+    n, k, n_nbr = 300, 60, 25
+    valid = torch.tensor(rng.random(n) > 0.1, device=cuda)
+    d2 = _tie_d2(rng, cuda, n, 16, valid)
+    rnorm = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32, device=cuda)
+    nbr_w = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32, device=cuda)
+    usable = torch.tensor(rng.random(n) > 0.2, device=cuda)
+    usable[valid.nonzero()[:40, 0]] = False  # some rows' nearest are all unusable
+    sq, idx = sorted_smallest_k_gpu(d2, k)
+    before = dipcn_from_lists.launches
+    got, ok = dipcn_from_lists(d2, sq, idx, rnorm, nbr_w, usable, valid, k=k, n_nbr=n_nbr)
+    assert dipcn_from_lists.launches == before + 1
+    cpu, cok = dipcn_from_lists(*(t.cpu() for t in (d2, sq, idx, rnorm, nbr_w, usable, valid)),
+                                k=k, n_nbr=n_nbr)
+    assert dipcn_from_lists.launches == before + 1  # the CPU route counts nothing
+    kern, kok = dipcn_from_distances_gpu(d2, rnorm, nbr_w, usable, valid, k=k, n_nbr=n_nbr)
+    assert torch.equal(ok.cpu(), cok) and torch.equal(ok, kok)
+    assert 50 < int(ok.sum()) < n
+    assert torch.allclose(got[ok].cpu(), cpu[cok], rtol=1e-6, atol=0)
+    assert torch.allclose(got[ok], kern[kok], rtol=1e-6, atol=0)
 
 
 # ---- phase_sweeps: every Jacobi sweep in one launch ------------------------

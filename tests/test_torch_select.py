@@ -313,95 +313,200 @@ def test_dipcn_multi_kernel_arithmetic(case, k, n_nbr):
 
 # ---------------------------------------------------------------------------
 # The arithmetic of csrc/knn_select.cu (exact sorted k-smallest selection),
-# emulated row by row in numpy: the radix select above, the tie cut and
-# compaction into a list of k entries key * 2^32 + column (the resident
-# mode's chunk scan, or the wide mode's warp walks with ballot ranks), and
-# the bitonic sort of that list padded to a power of two. Held exactly,
-# values and positions, to grid_tpu's sorted_smallest_k and to lax.top_k.
+# emulated row by row in numpy: the row split into the slices of a cluster's
+# blocks, the radix select over the blocks' summed histograms (each block
+# gathering its own keys once few are in play), the tie cut and compaction
+# by warp walks with ballot ranks behind the counts of the slices before,
+# into a list of entries key * 2^32 + column, and the bitonic sort of that
+# list with a lane's 4 entries in registers, the strides within a warp by
+# shuffles and only the widest through shared memory. Held exactly, values
+# and positions, to grid_tpu's sorted_smallest_k and to lax.top_k.
 # ---------------------------------------------------------------------------
 
 _WARPS = _THREADS // 32
+_E = 4  # kE: list entries a lane holds
+_SPAN = 32 * _E  # kSpan: entries a warp sorts in registers
+_SLICE_TARGET = 8192  # kSliceTarget
+_MAX_CLUSTER = 8  # kMaxCluster
 _WIDE_GATHER = 2048  # kWideGather
 _PAD = np.uint64(2**64 - 1)
 
 
-def _knn_segments(w, wide):
-    """The column ranges whose counts one exclusive scan orders: a thread's
-    odd-length chunk (resident) or a warp's quarter of the row, a multiple
-    of 32 columns (wide)."""
-    if not wide:
-        return _chunks(w, _THREADS)
-    q = -(-(-(-w // _WARPS)) // 32) * 32
-    return [(min(wp * q, w), min(wp * q + q, w)) for wp in range(_WARPS)]
+def _knn_cluster(w):
+    """default_cluster: the least power of two <= 8 that keeps a slice
+    within 8,192 columns."""
+    c = 1
+    while c < _MAX_CLUSTER and -(-w // c) > _SLICE_TARGET:
+        c *= 2
+    return c
 
 
-def _bitonic_sort(lst):
-    """The kernel's bitonic network over a power-of-two list, one
-    compare-exchange step at a time."""
-    p2 = len(lst)
-    i = np.arange(p2 // 2)
-    size = 2
-    while size <= p2:
-        stride = size // 2
-        while stride:
-            a = 2 * i - (i & (stride - 1))
-            b = a + stride
-            x, y = lst[a].copy(), lst[b].copy()
-            swap = (x > y) == ((a & size) == 0)
-            lst[a], lst[b] = np.where(swap, y, x), np.where(swap, x, y)
-            stride //= 2
+def _knn_slices(w, c):
+    """slice_of: block r of a cluster of c holds columns [r*s, (r+1)*s),
+    s a multiple of 4 where c > 1 (some trailing blocks may hold none)."""
+    s = w if c == 1 else -(-(-(-w // c)) // 4) * 4
+    return [(min(r * s, w), min(r * s + s, w)) for r in range(c)]
+
+
+def _cluster_select(slices, lo, span, rank, cap, extra=0):
+    """select_rank over a cluster: each block counts the keys of its own
+    slice, the C histograms are summed. Once the row holds at most ``cap``
+    keys at or below the chosen bin (``extra`` keys lie below lo), each
+    block keeps those of its own, and later rounds count only them.
+    Returns (t, count of the row's keys < t, count equal to t (-1 where no
+    round ran), whether the blocks gathered, histogram rounds)."""
+    bits, base, below, ties, rounds = int(span).bit_length(), 0, 0, -1, 0
+    gathered = False
+    while bits > 0:
+        d = min(_DIGIT_BITS, bits)
+        shift = bits - d
+        hist = np.zeros(1 << _DIGIT_BITS, np.int64)
+        for keys in slices:
+            v = keys - lo
+            rel = v - base
+            play = (keys >= lo) & (v <= span) & (rel >= 0) & ((rel >> shift) < (1 << d))
+            hist += np.bincount((rel[play] >> shift).astype(np.int64), minlength=1 << _DIGIT_BITS)
+        cum = np.cumsum(hist)
+        b = int(np.searchsorted(cum, rank - below))  # first bin whose prefix reaches the rank
+        below += int(cum[b] - hist[b])
+        base += b << shift
+        ties = int(hist[b])
+        bits, rounds = shift, rounds + 1
+        if bits > 0 and not gathered and extra + below + hist[b] <= cap:
+            # each block gathers its keys at or below the bin
+            end = base + (1 << bits)
+            slices = [keys[(keys < lo) | ((keys - lo <= span) & (keys - lo < end))]
+                      for keys in slices]
+            assert sum(map(len, slices)) == extra + below + hist[b]
+            gathered = True
+    return lo + base, extra + below, ties, gathered, rounds
+
+
+def _knn_compact(keys, slices, t, n_below, need, lst):
+    """compact: per block, each warp's quarter of its slice counted, the
+    counts of the slices and warps before as its prefix, then 32 columns a
+    step placed by ballot rank (below t at the running count, the first
+    ``need`` ties after the n_below entries below t)."""
+    segs = []
+    for j0, j1 in slices:
+        n = j1 - j0
+        q = -(-(-(-n // _WARPS)) // 32) * 32
+        segs += [(j0 + min(wp * q, n), j0 + min(wp * q + q, n)) for wp in range(_WARPS)]
+    counts = np.array([[int((keys[a:b] == t).sum()), int((keys[a:b] < t).sum())]
+                       for a, b in segs])
+    pre = np.cumsum(counts, axis=0) - counts
+    for (a, b), (ties, pos_below) in zip(segs, pre):
+        for j0 in range(a, b, 32):
+            js = np.arange(j0, min(j0 + 32, b))
+            kb, tie = keys[js] < t, keys[js] == t
+            rank_b = pos_below + np.cumsum(kb) - kb  # ballot rank among the step's lanes
+            rank_t = ties + np.cumsum(tie) - tie
+            ent = (keys[js].astype(np.uint64) << np.uint64(32)) | js.astype(np.uint64)
+            lst[rank_b[kb]] = ent[kb]
+            take = tie & (rank_t < need)
+            lst[n_below + rank_t[take]] = ent[take]
+            ties += int(tie.sum())
+            pos_below += int(kb.sum())
+
+
+def _knn_sort(lst):
+    """sort_list on a power-of-two list (>= 128 entries): the kernel's
+    bitonic network with its lane layout, entry seg + lane * 4 + e in
+    register e of lane `lane`. Strides of 4-64 pair lanes (shuffles),
+    strides 2 and 1 registers; strides of 128 or more run on the flat list
+    (shared memory, a block barrier each). Returns the sorted list and the
+    count of shared-memory steps."""
+    size_l = len(lst)
+    idx = np.arange(size_l).reshape(-1, 32, _E)
+    lanes = np.arange(32)[None, :, None]
+    x = lst.reshape(-1, 32, _E).copy()
+
+    def warp_stages(x, size, top):
+        s = top
+        while s >= _E:  # a shuffle with lane ^ (s / 4), the same register
+            m = s // _E
+            y = x[:, lanes[0, :, 0] ^ m, :]
+            keep_min = ((lanes & m) == 0) == ((idx & size) == 0)
+            x = np.where(keep_min, np.minimum(x, y), np.maximum(x, y))
+            s //= 2
+        for s in (2, 1):  # two of a lane's registers
+            if s > top:
+                continue
+            for e in (0, 1, 2, 3):
+                if e & s:
+                    continue
+                a, b = x[:, :, e].copy(), x[:, :, e | s].copy()
+                swap = (a > b) == ((idx[:, :, e] & size) == 0)
+                x[:, :, e], x[:, :, e | s] = np.where(swap, b, a), np.where(swap, a, b)
+        return x
+
+    for size in (2, 4, 8, 16, 32, 64, 128):
+        x = warp_stages(x, size, size // 2)
+    smem_steps = 0
+    size = 2 * _SPAN
+    while size <= size_l:
+        flat = x.reshape(-1)
+        i = np.arange(size_l // 2)
+        s = size // 2
+        while s >= _SPAN:
+            a = 2 * i - (i & (s - 1))
+            p, q = flat[a].copy(), flat[a + s].copy()
+            swap = (p > q) == ((a & size) == 0)
+            flat[a], flat[a + s] = np.where(swap, q, p), np.where(swap, p, q)
+            smem_steps += 1
+            s //= 2
+        x = warp_stages(flat.reshape(-1, 32, _E), size, _SPAN // 2)
         size *= 2
-    return lst
+    return x.reshape(-1), smem_steps
 
 
-def _emulate_knn_select(d2, k, wide=False):
-    """(vals [N, k], pos [N, k], histogram rounds per row) as the kernel
-    computes them in its resident or wide mode."""
+def _emulate_knn_select(d2, k, mode="shared", cluster=0):
+    """(vals [N, k], pos [N, k], stats) as the kernel computes them: in its
+    shared mode over a cluster of ``cluster`` blocks (0: the kernel's
+    choice from W), or in its wide mode (one block, int32 indices). stats:
+    histogram rounds per row, the sort's shared-memory steps, the rows that
+    placed their gathered keys."""
     n, w = d2.shape
     keys_all = d2.view(np.int32).astype(np.int64)
-    p2 = 1 << (k - 1).bit_length()
-    cap = max(2 * p2, _WIDE_GATHER) if wide else 2 * p2  # the list's space as a gather buffer
+    size_l = max(1 << (k - 1).bit_length(), _SPAN)
+    wide = mode == "wide"
+    c = 1 if wide else (cluster or _knn_cluster(w))
+    slices = _knn_slices(w, c)
+    cap = max(size_l, _WIDE_GATHER) if wide else 2 * size_l  # the gather buffer
     vals = np.empty((n, k), np.float32)
     pos = np.empty((n, k), np.int32)
-    rounds = np.zeros(n, int)
+    stats = {"rounds": np.zeros(n, int), "smem_steps": 0, "placed": 0}
+    rng = np.random.default_rng(n * w + k)
     for row in range(n):
         keys = keys_all[row]
         body = keys < _BIG_KEY
         n_body = int(body.sum())
+        parts = [keys[a:b] for a, b in slices]
         if k <= n_body:
             lo = int(keys[body].min())
-            t, below, rounds[row] = _radix_select(keys, lo, int(keys[body].max()) - lo, k, cap)
+            t, below, ties, gathered, stats["rounds"][row] = _cluster_select(
+                parts, lo, int(keys[body].max()) - lo, k, cap)
         else:
-            t, below, rounds[row] = _radix_select(keys, _BIG_KEY, _INT_MAX - _BIG_KEY,
-                                                  k - n_body, cap)
-            below += n_body
-        need = k - below
-        assert 1 <= need and below == int((keys < t).sum())
-        # one exclusive scan of (ties, below t) over the segments in column order
-        segs = _knn_segments(w, wide)
-        counts = np.array([[int((keys[a:b] == t).sum()), int((keys[a:b] < t).sum())]
-                           for a, b in segs])
-        pre = np.cumsum(counts, axis=0) - counts
-        lst = np.full(p2, _PAD, np.uint64)
-        step = 32 if wide else w  # a warp's 32 lanes a step; a thread walks its chunk alone
-        for (a, b), (ties, pos_below) in zip(segs, pre):
-            for j0 in range(a, b, step):
-                js = np.arange(j0, min(j0 + step, b))
-                kb, tie = keys[js] < t, keys[js] == t
-                rank_b = pos_below + np.cumsum(kb) - kb  # ballot rank, or the running count
-                rank_t = ties + np.cumsum(tie) - tie
-                ent = (keys[js].astype(np.uint64) << np.uint64(32)) | js.astype(np.uint64)
-                lst[rank_b[kb]] = ent[kb]
-                take = tie & (rank_t < need)
-                lst[below + rank_t[take]] = ent[take]
-                ties += int(tie.sum())
-                pos_below += int(kb.sum())
-        assert (lst[:k] != _PAD).all() and (lst[k:] == _PAD).all()
-        lst = _bitonic_sort(lst)
-        assert (np.diff(lst.astype(np.float64)) >= 0).all()
+            t, below, ties, gathered, stats["rounds"][row] = _cluster_select(
+                parts, _BIG_KEY, _INT_MAX - _BIG_KEY, k - n_body, cap, extra=n_body)
+        assert 1 <= k - below and below == int((keys < t).sum())
+        lst = np.full(size_l, _PAD, np.uint64)
+        if gathered and below + ties <= size_l:
+            # place_gathered: every key <= t, in whatever order the remote
+            # atomics give; the sort takes the lowest columns of the ties
+            assert ties == int((keys == t).sum())
+            js = np.flatnonzero(keys <= t)
+            js = js[rng.permutation(js.size)]
+            lst[:js.size] = (keys[js].astype(np.uint64) << np.uint64(32)) | js.astype(np.uint64)
+            stats["placed"] += 1
+        else:
+            _knn_compact(keys, slices, t, below, k - below, lst)
+            assert (lst[:k] != _PAD).all() and (lst[k:] == _PAD).all()
+        lst, stats["smem_steps"] = _knn_sort(lst)
+        assert (lst[1:] >= lst[:-1]).all()
         vals[row] = (lst[:k] >> np.uint64(32)).astype(np.uint32).view(np.float32)
         pos[row] = (lst[:k] & np.uint64(0xFFFFFFFF)).astype(np.int32)
-    return vals, pos, rounds
+    return vals, pos, stats
 
 
 def _past_body_inputs(seed=5, n=40, w=300):
@@ -459,21 +564,28 @@ def _want_sorted_smallest(d2, k):
     return want_v, want_i
 
 
-@pytest.mark.parametrize("wide", [False, True], ids=["resident", "wide"])
+_SELECT_MODES = {"resident": ("shared", 1), "cluster2": ("shared", 2), "cluster8": ("shared", 8),
+                 "wide": ("wide", 0)}
+
+
+@pytest.mark.parametrize("mode", list(_SELECT_MODES))
 @pytest.mark.parametrize("case", sorted(_SELECT_INPUTS))
 @pytest.mark.parametrize("k", [1, 20, 60, 96, "w"])
-def test_knn_select_kernel_arithmetic(case, k, wide):
-    """knn_select's radix select, one-scan compaction and composite-key
-    bitonic sort give exactly grid_tpu's sorted_smallest_k (and lax.top_k)
-    on ties, all-equal rows and keys past the body, k = 1, k = W and k not
-    a power of two, in both modes; the port's plain version too."""
+def test_knn_select_kernel_arithmetic(case, k, mode):
+    """knn_select's radix select over the summed histograms of a cluster's
+    slices, its compaction behind the slices before and its bitonic sort
+    in registers, shuffles and shared memory give exactly grid_tpu's
+    sorted_smallest_k (and lax.top_k) on ties, all-equal rows and keys past
+    the body, k = 1, k = W and k not a power of two: in one block, split
+    over 2 and 8 blocks (trailing blocks of 8 may hold no column), and in
+    the wide mode; the port's plain version too."""
     d2 = _SELECT_INPUTS[case]()
     k = d2.shape[1] if k == "w" else k
     want_v, want_i = _want_sorted_smallest(d2, k)
-    got_v, got_i, rounds = _emulate_knn_select(d2, k, wide)
+    got_v, got_i, stats = _emulate_knn_select(d2, k, *_SELECT_MODES[mode])
     np.testing.assert_array_equal(got_i, want_i)
     np.testing.assert_array_equal(got_v, want_v)
-    assert rounds.max() <= 4  # at most 4 digits over a full 32-bit span
+    assert stats["rounds"].max() <= 4  # at most 4 digits over a full 32-bit span
     plain_v, plain_i = sorted_smallest_k(torch.from_numpy(d2), k)
     np.testing.assert_array_equal(plain_i.numpy(), want_i)
     np.testing.assert_array_equal(plain_v.numpy(), want_v)
@@ -481,14 +593,57 @@ def test_knn_select_kernel_arithmetic(case, k, wide):
 
 @pytest.mark.parametrize("k", [1, 500, 777])
 def test_knn_select_kernel_arithmetic_past_column_65535(k):
-    """The wide mode's int32 columns past 65,535 (and its gather buffer)
-    on 70,000-column rows, exactly grid_tpu's lists."""
+    """The int32 columns past 65,535 on 70,000-column rows, exactly
+    grid_tpu's lists: in the cluster mode the kernel picks there (8 blocks
+    of 8,752 columns, the last of 8,736) and in the wide mode (its larger
+    gather buffer). A list of 512 entries (k=500) takes 3 shared-memory
+    steps of its 45."""
     d2 = _wide_row_inputs()
     want_v, want_i = _want_sorted_smallest(d2, k)
-    got_v, got_i, _ = _emulate_knn_select(d2, k, wide=True)
-    np.testing.assert_array_equal(got_i, want_i)
-    np.testing.assert_array_equal(got_v, want_v)
-    assert (got_i >= 65_536).any()
+    assert _knn_cluster(d2.shape[1]) == 8
+    for mode in ("shared", "wide"):
+        got_v, got_i, stats = _emulate_knn_select(d2, k, mode)
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_array_equal(got_v, want_v)
+        assert (got_i >= 65_536).any()
+        assert stats["smem_steps"] == {1: 0, 500: 3, 777: 6}[k]
+
+
+@pytest.mark.parametrize("k", [9000, 16384])
+def test_knn_select_kernel_arithmetic_at_large_k(k):
+    """Lists of 16,384 entries on 70,000-column rows, exactly grid_tpu's
+    lists: in the wide mode, whose gather buffer holds only L indices so
+    that the list and the buffer fit a block at k = 16,384 (the rows at
+    k=9000 still place their gathered keys; at k = L the ties at t leave no
+    room beside the list and the tie cut runs), and over 8 blocks."""
+    d2 = _wide_row_inputs(n=2)
+    want_v, want_i = _want_sorted_smallest(d2, k)
+    for mode in ("shared", "wide"):
+        got_v, got_i, stats = _emulate_knn_select(d2, k, mode)
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_array_equal(got_v, want_v)
+        assert stats["smem_steps"] == 28  # the shared-memory steps of a list of 2^14
+        if mode == "wide":
+            assert stats["placed"] == {9000: 2, 16384: 0}[k]
+
+
+def test_knn_select_placement_paths():
+    """Rows whose ties at t fit the list beside the entries below t place
+    their gathered keys with no tie cut (the narrow band); rows with no
+    histogram round (all distances equal) or more ties than the list holds
+    (two values a row) take the two walks and the tie cut. Both give
+    grid_tpu's lists, in one block and over 8."""
+    rng = np.random.default_rng(11)
+    two_values = (rng.integers(0, 2, (30, 300)) * 1.0).astype(np.float32)
+    for d2, k, fast_rows in ((_SELECT_INPUTS["narrow-band"](), 20, 97),
+                             (_SELECT_INPUTS["all-equal"](), 20, 0),
+                             (two_values, 20, 0)):
+        want_v, want_i = _want_sorted_smallest(d2, k)
+        for cluster in (1, 8):
+            got_v, got_i, stats = _emulate_knn_select(d2, k, cluster=cluster)
+            np.testing.assert_array_equal(got_i, want_i)
+            np.testing.assert_array_equal(got_v, want_v)
+            assert stats["placed"] == fast_rows
 
 
 def test_knn_select_ring_merge_positions_keep_top_k_ties():

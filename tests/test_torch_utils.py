@@ -145,8 +145,12 @@ def fresh_cache(monkeypatch):
     """No build cache named yet in this process; the variables restored
     after the test."""
     monkeypatch.setattr(device, "_CACHE", {})
-    monkeypatch.delenv(device.CACHE_ENV, raising=False)
-    monkeypatch.delenv(device.TRITON_CACHE_ENV, raising=False)
+    for name in (device.CACHE_ENV, device.TRITON_CACHE_ENV):
+        # set first so that the restore also removes a variable that was
+        # not set before (delenv alone records nothing then, and the
+        # cache's own os.environ writes would outlive the test)
+        monkeypatch.setenv(name, "")
+        monkeypatch.delenv(name)
 
 
 def test_the_argument_names_the_cache_and_the_first_call_wins(fresh_cache, tmp_path):
