@@ -36,8 +36,10 @@ before the last line):
              131,072 columns; its wide mode the same at the mode edges; the
              phasing sweeps
              (phase_sweeps) must agree with the plain sweeps within rtol
-             1e-5 with the same NaNs, in both modes (bitwise with each
-             other), on the ring lists and random lists of 10; on 20
+             1e-5 with the same NaNs, in every mode that takes the shape
+             (the resident and the persistent mode; bitwise with each
+             other),
+             on the ring lists and random lists of 10; on 20
              bootstrap replicates, whose values decaying towards 0 keep no
              1e-5 relative accuracy in float32, its relative error against
              float64 sweeps must be at most twice the plain version's.
@@ -61,10 +63,14 @@ before the last line):
              route, dipCN within 1e-6 relative, the step with the flag
              launching the list route once and no dipcn_select, the route
              timed beside dipcn_select; phase_sweeps
-             beside the Python loop of sweeps, also at 20 replicates, its
-             two modes on lists of 2 and of 10 slots, and the per-sweep
-             mode's floor (100 empty launches back to back); its bound
-             counts its inputs read once and its output written once.
+             beside the Python loop of sweeps (the wrapper's call, and the
+             kernel alone by torch.profiler), its modes on lists of 2 and
+             of 10 slots and on 20 bootstrap replicates, the resident
+             kernel with the list walk alone and with the exchange alone,
+             at 100 sweeps and at one,
+             and the floor of a launch a sweep (100 empty launches back
+             to back); its bound counts its inputs read once and its output
+             written once.
 6. profile — the slice's device time per step under torch.profiler, by
              kernel, and its share of the step time of phase 5.
 7. panels  — the row-panel branch: cohort_step at N=65,536, R=1024, k=500,
@@ -79,8 +85,8 @@ before the last line):
              plain dipCN per panel; normalize on the CPU); times the step,
              each kernel per panel beside its plain version (the selection
              also beside the stable sort, torch.topk and its wide mode; the
-             phasing's 100
-             per-sweep launches beside the Python loop), and profiles the
+             phasing's one persistent launch beside 100 empty launches and
+             the Python loop), and profiles the
              step's device time by kernel: no sort may run once per panel.
 8. branches — the resident and the panel branch on the same N=16,384
              cohort (the panel run with d2_budget_bytes lowered): they must
@@ -266,8 +272,9 @@ before the last line):
 15. ring   — the sharded step (``grid_tpu_torch.parallel``) on W spawned
              ranks of the one card (``ring_phase``, run after phase 8; (d)
              inside phase 9). (a) ``sharded_cohort_step`` at phase 8's
-             N=16,384, R=1024, k=500, n_nbr=300 over 2 and 4 ranks (gloo:
-             the ranks share the card); (b) the same over 1 rank, through
+             N=16,384, R=1024, k=500, n_nbr=300 over 4 ranks (gloo: the
+             ranks share the card; 2 and 3 ranks run in the CPU tests
+             only, for the time limit); (b) the same over 1 rank, through
              NCCL (one card has room for no second NCCL rank). Each must log
              its transport, each rank must have launched the column
              statistics twice, the split once and the Gram kernel's cross
@@ -289,7 +296,7 @@ before the last line):
 16. last   — the last modules (``auto_phase`` after phase 15 (a-c);
              ``stage_phase`` and ``cache_phase`` inside phase 9). (a)
              ``auto_sharded_cohort_step``, the gather form, at phase 8's
-             N=16,384 over 1 (NCCL), 2 and 4 (gloo) ranks: each logs its
+             N=16,384 over 1 (NCCL) and 4 (gloo) ranks: each logs its
              transport; each rank launches the column statistics twice, the
              split once, and ceil(B/512) panel Grams and dipCN selections,
              no cross Gram; the step is held to phase 8's flat step as in
@@ -451,12 +458,14 @@ TOOLS_WINDOW = ("chr6", 160_605_000, 160_615_000)  # the alignment cohorts' VNTR
 SELECTION = ("sorted_smallest_k_gpu", "phase_sweeps_gpu")
 
 
-def phasing_launches(n: int, k: int, n_iters: int) -> int:
-    """The phase_sweeps launches of one phasing of n samples with lists of k
-    slots on the card: one in its resident mode, one per sweep beyond it."""
-    from grid_tpu_torch.ops.phasing import phase_sweeps_mode
+def phasing_modes(n: int, k: int, dev) -> list:
+    """Every mode of phase_sweeps that takes n samples with lists of k
+    slots: the resident mode where it fits and can be scheduled, and the
+    persistent mode."""
+    from grid_tpu_torch.ops.phasing import phase_sweeps_info
 
-    return 1 if phase_sweeps_mode(n, k, torch.device("cuda")) == "resident" else n_iters
+    resident = phase_sweeps_info(n, k, dev, "resident")["clusters"] > 0
+    return ["resident"] * resident + ["persistent"]
 
 
 def hap_start(irrs, nbr_valid, min_nbr: int = 1):
@@ -711,7 +720,9 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     )
     from grid_tpu_torch.ops.knn import panel_d2, prepare_z, sorted_smallest_k
     from grid_tpu_torch.ops.masked import masked_mean
-    from grid_tpu_torch.ops.phasing import phase_sweeps, phase_sweeps_gpu, phase_sweeps_info
+    from grid_tpu_torch.ops.phasing import (
+        _sweeps_launch, phase_sweeps, phase_sweeps_gpu, phase_sweeps_info,
+    )
     from grid_tpu_torch.ops.select import dipcn_from_distances
     from torch_parity import assert_close_to_max
 
@@ -748,7 +759,7 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     want_launches = {"masked_column_stats": 2, "zprep_gram": 0, "dipcn_from_distances_gpu":
                      n_panels, "zprep_split": 1, "zprep_gram_panel": n_panels,
                      "sorted_smallest_k_gpu": n_panels,
-                     "phase_sweeps_gpu": phasing_launches(n, hap[0].shape[1], N_ITERS)}
+                     "phase_sweeps_gpu": 1}
     check(launches == want_launches, f"panel-branch launches {launches} != {want_launches}")
     panel_bytes = b * n * 4
     print(f"[panels] peak device memory {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB of "
@@ -844,7 +855,7 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
           f"once, {kinfo['registers']} registers, {kinfo['spill_bytes']} B spilled; {card}",
           flush=True)
     del vals1, idx1, vals_k, idx_k
-    # phase_sweeps at N=65,536 (one launch per sweep) against the plain sweeps
+    # phase_sweeps at N=65,536 (the persistent mode) against the plain sweeps
     step_irrs = torch.where(out.dipcn_valid, out.dipcn, torch.nan)
     step_lists = inputs[4:7]
     step_hap0 = hap_start(step_irrs, step_lists[2])
@@ -856,9 +867,13 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
           "phase_sweeps at the panel step: beyond rtol 1e-5 of the plain sweeps or NaNs differ")
     errs["phase_sweeps_gpu"] = max_abs(sweeps[~nan], plain_sweeps[~nan])
     pinfo = phase_sweeps_info(n, step_lists[0].shape[1], dev)
-    print(f"[panels] phase_sweeps N={n}, {N_ITERS} sweeps in its {pinfo['mode']} mode "
-          f"({pinfo['threads']} threads a block, {pinfo['registers']} registers): within rtol "
-          f"1e-5 of the plain sweeps (max abs err {errs['phase_sweeps_gpu']:.3e}), NaN cells "
+    check(pinfo["mode"] == "persistent" and launches["phase_sweeps_gpu"] == 1,
+          f"phase_sweeps at N={n}: {pinfo['mode']} mode, {launches['phase_sweeps_gpu']} "
+          f"launches a step; the persistent mode's one launch expected")
+    print(f"[panels] phase_sweeps N={n}, {N_ITERS} sweeps in its {pinfo['mode']} mode (one "
+          f"cooperative launch of {pinfo['grid_blocks']} blocks of {pinfo['threads']} threads, "
+          f"{pinfo['registers']} registers, {pinfo['spill_bytes']} B spilled): within rtol 1e-5 "
+          f"of the plain sweeps (max abs err {errs['phase_sweeps_gpu']:.3e}), NaN cells "
           f"identical; {card}", flush=True)
     del sweeps, plain_sweeps
 
@@ -937,22 +952,34 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
           f"{n_panels * sel_ms:.1f} ms of selection and "
           f"{n_panels * epi_ms:.1f} ms of epilogue per step; {card}", flush=True)
     del d2, g0
-    # the phasing's 100 per-sweep launches beside the Python loop (kernel,
+    # the phasing's one launch beside the Python loop (kernel,
     # plain, plain, kernel)
     kern = lambda: phase_sweeps_gpu(step_hap0, step_irrs, *step_lists, N_ITERS)  # noqa: E731
     loop = lambda: phase_sweeps(step_hap0, step_irrs, *step_lists, N_ITERS)  # noqa: E731
     s1, p1, p2, s2 = (median_ms(f, reps=PANEL_REPS, warmup=1) for f in (kern, loop, loop, kern))
     sweep_ms, sweep_plain_ms = min(s1, s2), min(p1, p2)
     sweep_bound, sweep_by = sweeps_bound_ms(step_hap0, step_irrs, *step_lists, N_ITERS)
+    # the persistent launch back to back beside the floor of a launch a
+    # sweep (N_ITERS empty launches back to back)
+    out_sweep = torch.empty((1, 2 * n), device=dev)
+    step_idx32 = step_lists[0].to(torch.int32)
+    sweep_b2b = min(back_to_back_ms(lambda: _sweeps_launch(
+        "persistent", step_hap0, step_irrs, step_idx32, *step_lists[1:], N_ITERS, out_sweep))
+        for _ in range(2))
+    floor_ms = N_ITERS * min(back_to_back_ms(lambda: torch.cuda._sleep(0), reps=10 * N_ITERS)
+                             for _ in range(2))
     rows["phase_sweeps_gpu"] = {
         "launches": launches["phase_sweeps_gpu"], "max_abs_err": errs["phase_sweeps_gpu"],
         "ms": sweep_ms, "plain_ms": sweep_plain_ms, "bound_ms": sweep_bound,
-        "bound_by": sweep_by, "library_ms": None,
+        "bound_by": sweep_by, "library_ms": None, "ms_back_to_back": sweep_b2b,
+        "launch_a_sweep_floor_ms": floor_ms,
         "shape": f"{pinfo['mode']} mode, N={n}, K={step_lists[0].shape[1]}, {N_ITERS} sweeps"}
     print(f"[times] phase_sweeps N={n}, {N_ITERS} sweeps ({launches['phase_sweeps_gpu']} "
-          f"launches, {pinfo['mode']} mode): kernel {sweep_ms:.3f} ms, the Python loop "
-          f"{sweep_plain_ms:.3f} ms (medians of {PANEL_REPS}, better of two); bound "
-          f"{sweep_bound:.4f} ms by {sweep_by}, {100 * sweep_bound / sweep_ms:.1f}% of it; "
+          f"launch(es), {pinfo['mode']} mode): the wrapper's call {sweep_ms:.4f} ms, the Python "
+          f"loop {sweep_plain_ms:.3f} ms (medians of {PANEL_REPS}, better of two); back to back "
+          f"(better of two rounds) {sweep_b2b:.4f} ms ({1e3 * sweep_b2b / N_ITERS:.2f} us a "
+          f"sweep); {N_ITERS} empty launches back to back {floor_ms:.4f} ms; bound "
+          f"{sweep_bound:.4f} ms by {sweep_by}, {100 * sweep_bound / sweep_b2b:.1f}% of it; "
           f"{card}", flush=True)
 
     # ---- profile -------------------------------------------------------
@@ -1025,7 +1052,7 @@ def branch_phase(dev, card: str):
                            flat=outs["resident"])
 
 
-RING_WORLDS = (1, 2, 4)  # 1: NCCL (one rank per card); 2 and 4: gloo, sharing the card
+RING_WORLDS = (1, 4)  # 1: NCCL (one rank per card); 4: gloo, sharing the card
 RING_BIOBANK_WORLD = 4
 RING_LAUNCHES = {"masked_column_stats": 2, "zprep_split": 1}  # per rank; W cross launches
 
@@ -1056,7 +1083,7 @@ def ring_run(label: str, world: int, cohort, params, card: str) -> tuple:
           f"ring {label}: transport line {said}")
     want = {name: 0 for name in COUNTED} | RING_LAUNCHES | {"zprep_gram_cross": world} | {
         "sorted_smallest_k_gpu": world * -(-(n // world) // MERGE_ROWS),
-        "phase_sweeps_gpu": phasing_launches(n, hap[0].shape[1], params.n_iters)}
+        "phase_sweeps_gpu": 1}
     for rank, rep in enumerate(reports):
         got = {name: rep[name] for name in COUNTED}
         check(got == want, f"ring {label}: rank {rank} launched {got}, expected {want}")
@@ -1082,7 +1109,7 @@ def ring_run(label: str, world: int, cohort, params, card: str) -> tuple:
 
 def ring_phase(dev, card: str, cohort_16384, cohort_65536, zp_65536) -> dict:
     """Phase 15 (a-c): the sharded step on W ranks of the one card. (a) At
-    phase 8's N=16,384 (the crossover) over 2 and 4 gloo ranks, held to
+    phase 8's N=16,384 (the crossover) over 4 gloo ranks, held to
     phase 8's flat step: z and the column statistics within 1e-5 of their
     largest entry, region_used equal, the neighbor lists and dipCN under
     the tie rule; the cross mode against its plain version and bitwise
@@ -1215,7 +1242,7 @@ def ring_phase(dev, card: str, cohort_16384, cohort_65536, zp_65536) -> dict:
     }
 
 
-AUTO_WORLDS = (1, 2, 4)  # 1: NCCL (one rank per card); 2 and 4: gloo, sharing the card
+AUTO_WORLDS = (1, 4)  # 1: NCCL (one rank per card); 4: gloo, sharing the card
 AUTO_BIOBANK_WORLD = 4
 STAGE_WORLD = 4
 
@@ -1278,7 +1305,7 @@ def auto_run(label: str, world: int, cohort, params, card: str, platform: str = 
         "masked_column_stats": 2, "zprep_split": 1, "zprep_gram_panel": panels,
         "dipcn_from_distances_gpu": panels, "sorted_smallest_k_gpu": panels}
     if platform != "cpu":
-        want["phase_sweeps_gpu"] = phasing_launches(n, 2, params.n_iters)  # ring lists
+        want["phase_sweeps_gpu"] = 1
     for rank, rep in enumerate(reports):
         got = {name: rep[name] for name in COUNTED}
         check(got == want, f"auto {label}: rank {rank} launched {got}, expected {want}")
@@ -1304,7 +1331,7 @@ def auto_run(label: str, world: int, cohort, params, card: str, platform: str = 
 def auto_phase(dev, card: str, cohort_16384, cohort_65536, ring: dict,
                platform: str = "cuda") -> dict:
     """Phase 16 (a, b): the gather form of the sharded step. (a) At phase
-    8's N=16,384 over 1 (NCCL), 2 and 4 (gloo) ranks, held to phase 8's
+    8's N=16,384 over 1 (NCCL) and 4 (gloo) ranks, held to phase 8's
     flat step (z and the column statistics within 1e-5 of their largest
     entry, region_used equal, lists and dipCN under the tie rule) and,
     bitwise, to the flat panel loop run here on the step's own z; at W=4
@@ -3777,7 +3804,15 @@ def ibs_phase(card: str, wrappers: dict) -> dict:
     return {name: launches[name] for name in wrappers}
 
 
+def clock(start: float, done: str) -> None:
+    """Prints the host seconds since ``start`` (the script's start) once
+    the phases ``done`` have ended, so the log shows where the script's
+    time limit goes."""
+    print(f"[clock] {done} done at {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -3806,8 +3841,8 @@ def main() -> int:
     from grid_tpu_torch.ops.masked import masked_mean
     from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
     from grid_tpu_torch.ops.phasing import (
-        _sweeps_launch, phase_bootstrap_slots, phase_sweeps, phase_sweeps_gpu, phase_sweeps_info,
-        phase_sweeps_mode,
+        _sweeps_launch, _sweeps_probe, phase_bootstrap_slots, phase_sweeps, phase_sweeps_gpu,
+        phase_sweeps_info, phase_sweeps_mode,
     )
     from grid_tpu_torch.ops.select import dipcn_from_distances
     from grid_tpu_torch.utils.device import get_device
@@ -3893,6 +3928,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[build] masked_column_stats: Triton JIT {time.perf_counter() - t0:.1f} s", flush=True)
 
+    clock(t_script, "phases 1-2 (the build)")
     # ---- 3. kernels against their plain versions -------------------------
     rng = np.random.default_rng(0)
     values_np, mask_np, reads_np = make_matrix(N, R)
@@ -4082,8 +4118,10 @@ def main() -> int:
         want = phase_sweeps(hap0, irrs_main, *lists, N_ITERS)
         want64 = phase_sweeps(hap0.double(), irrs_main.double(), lists[0], lists[1].double(),
                               lists[2], N_ITERS)
-        other = _sweeps_launch("per_sweep", hap0, irrs_main, lists[0].to(torch.int32), lists[1],
-                               lists[2], N_ITERS, torch.empty_like(got.reshape(-1, 2 * N)))
+        modes = phasing_modes(N, lists[0].shape[-1], dev)
+        others = {m: _sweeps_launch(
+            m, hap0, irrs_main, lists[0].to(torch.int32), lists[1], lists[2], N_ITERS,
+            torch.empty_like(got.reshape(-1, 2 * N))).reshape(got.shape) for m in modes}
         torch.cuda.synchronize()
         nan = got.isnan()
         check(torch.equal(nan, want.isnan()), f"phase_sweeps {label}: NaN cells differ")
@@ -4094,9 +4132,10 @@ def main() -> int:
         else:
             check(rel <= 2 * plain_rel, f"phase_sweeps {label}: relative error {rel:.3e} against "
                                         f"float64 sweeps > 2x the plain version's {plain_rel:.3e}")
-        check(torch.equal(other.reshape(got.shape).nan_to_num(), got.nan_to_num())
-              and torch.equal(other.reshape(got.shape).isnan(), nan),
-              f"phase_sweeps {label}: the per-sweep mode differs from the resident mode")
+        for name, other in others.items():
+            check(torch.equal(other.nan_to_num(), got.nan_to_num())
+                  and torch.equal(other.isnan(), nan),
+                  f"phase_sweeps {label}: the {name} mode differs from the wrapper's")
         err = max_abs(got[~nan], want[~nan])
         errs["phase_sweeps_gpu"] = max(errs.get("phase_sweeps_gpu", 0.0), err)
         gate = ("within rtol 1e-5 of the plain sweeps" if strict else
@@ -4106,8 +4145,9 @@ def main() -> int:
               f"(max abs err "
               f"{err:.3e} against the plain sweeps; relative error against float64 sweeps: "
               f"kernel {rel:.3e}, plain {plain_rel:.3e}), NaN cells identical "
-              f"({int(nan.sum())} of {nan.numel()}); the per-sweep mode called directly bitwise "
-              f"the same", flush=True)
+              f"({int(nan.sum())} of {nan.numel()}); the modes {', '.join(others)} called "
+              f"directly bitwise the same", flush=True)
+        del others
 
     # ---- 4. the slice ----------------------------------------------------
     reads_valid_np = np.ones(N, bool)
@@ -4165,6 +4205,7 @@ def main() -> int:
           f"{int(same.sum())} rows with the same input sets; dipcn_valid exact; "
           f"r_use {int(got.r_use)}; {int(got.phased.sum())} phased", flush=True)
 
+    clock(t_script, "phases 3-4")
     # ---- 5. times --------------------------------------------------------
     slice_ms = median_ms(lambda: cohort_step(*inputs, params))
     print(f"[times] cohort_step N={N} R={R} k={K} n_iters={N_ITERS}: {slice_ms:.3f} ms "
@@ -4363,22 +4404,48 @@ def main() -> int:
         boot_plain_ms = [median_ms(lambda: phase_bootstrap_slots(*boot), reps=5)
                          for _ in range(2)]
     # both modes on the slice's ring lists (K=2) and on lists of the
-    # pipeline's default max_neighbors (K=10): resident, per sweep, per
-    # sweep, resident; and the per-sweep mode's floor, N_ITERS empty
-    # launches back to back
+    # pipeline's default max_neighbors (K=10), in turns forward then
+    # backward; what a resident sweep is made of: the kernel with the list
+    # walk alone (no exchange) and with the exchange alone (no walk), at
+    # N_ITERS sweeps and at one; the 20 bootstrap replicates in each mode;
+    # the floor of a launch a sweep, N_ITERS empty launches back to back
     out_sweep = torch.empty((1, 2 * N), device=dev)
     rand_hap0 = hap_start(irrs_main, rand_lists[2])
-    sweep_modes = {}
+    sweep_modes, sweep_parts = {}, {}
     for label, (h0, irrs_, lists) in (("K=2", (step_hap0, step_irrs, step_lists)),
                                       ("K=10", (rand_hap0, irrs_main, rand_lists))):
         check(phase_sweeps_mode(N, lists[0].shape[1], dev) == "resident",
               f"phase_sweeps at N={N}, {label} must take the resident mode")
-        run = {mode: (lambda mode=mode, h0=h0, irrs_=irrs_, lists=lists: _sweeps_launch(
-            mode, h0, irrs_, lists[0].to(torch.int32), *lists[1:], N_ITERS, out_sweep))
-            for mode in ("resident", "per_sweep")}
-        rounds = [(mode, back_to_back_ms(run[mode]))
-                  for mode in ("resident", "per_sweep", "per_sweep", "resident")]
-        sweep_modes[label] = {mode: min(t for m, t in rounds if m == mode) for mode in run}
+        idx32 = lists[0].to(torch.int32)
+        modes = phasing_modes(N, lists[0].shape[1], dev)
+        run = {m: (lambda m=m, h0=h0, irrs_=irrs_, idx32=idx32, lists=lists:
+                   _sweeps_launch(m, h0, irrs_, idx32, *lists[1:], N_ITERS, out_sweep))
+               for m in modes}
+        rounds = [(name, back_to_back_ms(run[name])) for name in [*run, *reversed(run)]]
+        sweep_modes[label] = {name: min(t for m, t in rounds if m == name) for name in run}
+        sweep_parts[label] = {
+            part: tuple(min(back_to_back_ms(lambda part=part, iters=iters, h0=h0, irrs_=irrs_,
+                                            idx32=idx32, lists=lists:
+                                            _sweeps_probe(part, h0, irrs_, idx32, *lists[1:],
+                                                          iters, out_sweep))
+                            for _ in range(2)) for iters in (N_ITERS, 1))
+            for part in ("whole", "exchange", "walk")}
+    out_boot = torch.empty((BOOT_REPLICATES, 2 * N), device=dev)
+    boot_modes = {}
+    for m in phasing_modes(N, 10, dev):
+        boot_modes[m] = min(back_to_back_ms(
+            lambda m=m: _sweeps_launch(m, rand_hap0, irrs_main, *boot_lists, N_ITERS, out_boot),
+            reps=5) for _ in range(2))
+    del out_boot
+    # the wrapper's whole call (its checks, the index check's sync, the
+    # launch) beside the kernel alone, by torch.profiler
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            phase_sweeps_gpu(step_hap0, step_irrs, *step_lists, N_ITERS)
+        torch.cuda.synchronize()
+    own = [e for e in prof.key_averages() if "phase_resident_kernel" in e.key]
+    own_count = sum(e.count for e in own)
+    sweep_kernel_ms = (sum(device_us(e) for e in own) / 1e3 / own_count if own_count else None)
     empty_ms = min(back_to_back_ms(lambda: torch.cuda._sleep(0), reps=10 * N_ITERS)
                    for _ in range(2))
     pinfo10 = phase_sweeps_info(N, 10, dev)
@@ -4389,8 +4456,13 @@ def main() -> int:
                    rows_device_ms={str(r): t[1] for r, t in knn_wave_ms.items()})
     sweep_row = next(row for row in kernels if row["name"] == "phase_sweeps_gpu")
     sweep_row.update(bootstrap_20_ms=min(boot_ms), bootstrap_20_plain_ms=min(boot_plain_ms),
+                     bootstrap_20_modes_ms_back_to_back=boot_modes,
                      modes_ms_back_to_back=sweep_modes,
-                     per_sweep_launch_floor_ms=N_ITERS * empty_ms)
+                     parts_ms_back_to_back={label: {name: {"sweeps": t[0], "one_sweep": t[1]}
+                                                    for name, t in parts.items()}
+                                            for label, parts in sweep_parts.items()},
+                     kernel_device_ms=sweep_kernel_ms,
+                     launch_a_sweep_floor_ms=N_ITERS * empty_ms)
     print(f"[times] knn_select [{N}, {N}] k={K}: kernel {knn_row['ms']:.4f} ms (resident mode; "
           f"the wide mode {knn_wide_ms:.4f} ms back to back), the stable torch.sort sliced to k "
           f"{knn_row['library_ms']:.4f} ms, torch.topk (largest=False, sorted) {topk_ms:.4f} ms; "
@@ -4403,18 +4475,31 @@ def main() -> int:
           + f" ({wave_rows[0]}: one a SM; {wave_rows[1]}: one wave at {kinfo['blocks_per_sm']} "
           f"blocks per SM); {card}", flush=True)
     modes_text = "; ".join(
-        f"{label}: resident {t['resident']:.4f} ms ({1e3 * t['resident'] / N_ITERS:.2f} us a "
-        f"sweep), per sweep {t['per_sweep']:.4f} ms" for label, t in sweep_modes.items())
+        f"{label}: " + ", ".join(f"{name} {t:.4f} ms ({1e3 * t / N_ITERS:.2f} us a sweep)"
+                                 for name, t in times.items())
+        for label, times in sweep_modes.items())
     print(f"[times] phase_sweeps N={N}, K=2, {N_ITERS} sweeps, a cluster of "
-          f"{pinfo['cluster_blocks']} blocks: kernel {sweep_row['ms']:.4f} ms for the whole "
-          f"phasing, the Python loop {sweep_row['plain_ms']:.4f} ms; bound "
-          f"{sweep_row['bound_ms']:.6f} ms by {sweep_row['bound_by']} (inputs read once, output "
-          f"written once); the modes back to back (better of two rounds) {modes_text}; the "
-          f"per-sweep mode's floor, {N_ITERS} empty launches back to back, "
-          f"{N_ITERS * empty_ms:.4f} ms; {BOOT_REPLICATES} bootstrap replicates "
-          f"(K=10, {phase_sweeps_mode(N, 10, dev)} mode, {pinfo10['smem_bytes']} B of shared "
-          f"memory a block, {pinfo10['clusters']} clusters at once): kernel {min(boot_ms):.4f} ms, "
-          f"the loop {min(boot_plain_ms):.4f} ms (medians of 5, better of two); {card}",
+          f"{pinfo['cluster_blocks']} blocks: the wrapper's call {sweep_row['ms']:.4f} ms "
+          f"(median), {sweep_row['ms_back_to_back']:.4f} ms back to back, the kernel alone "
+          + ("not measured" if sweep_kernel_ms is None else f"{sweep_kernel_ms:.4f} ms")
+          + f" (torch.profiler, mean of {REPS}); the Python loop {sweep_row['plain_ms']:.4f} ms; "
+          f"bound {sweep_row['bound_ms']:.6f} ms by {sweep_row['bound_by']} (inputs read once, "
+          f"output written once); the modes back to back (better of two rounds) {modes_text}; "
+          f"the floor of a launch a sweep, {N_ITERS} empty launches back to back, "
+          f"{N_ITERS * empty_ms:.4f} ms; {card}", flush=True)
+    for label, parts in sweep_parts.items():
+        print(f"[times] phase_sweeps N={N}, {label}, what a resident sweep is made of (back to "
+              f"back, better of two; {N_ITERS} sweeps / 1 sweep, then per sweep as the "
+              f"difference over {N_ITERS - 1}): "
+              + "; ".join(f"{name} {t[0]:.4f} / {t[1]:.4f} ms, "
+                          f"{1e3 * (t[0] - t[1]) / (N_ITERS - 1):.3f} us a sweep"
+                          for name, t in parts.items()) + f"; {card}", flush=True)
+    print(f"[times] phase_sweeps {BOOT_REPLICATES} bootstrap replicates (N={N}, K=10, "
+          f"{phase_sweeps_mode(N, 10, dev)} mode, {pinfo10['smem_bytes']} B of shared memory a "
+          f"block, {pinfo10['clusters']} clusters at once): phase_bootstrap_slots "
+          f"{min(boot_ms):.4f} ms, the loop {min(boot_plain_ms):.4f} ms (medians of 5, better "
+          f"of two); the kernel alone back to back in each mode "
+          + ", ".join(f"{name} {t:.4f} ms" for name, t in boot_modes.items()) + f"; {card}",
           flush=True)
     torch.cuda.empty_cache()
 
@@ -4470,7 +4555,8 @@ def main() -> int:
         # the split pass and the Gram kernel; the column statistics are the
         # row-chunk kernel and its merge)
         own = ("split_kernel", "gram_kernel", "dipcn_select_kernel", "colstats",
-               "knn_select_kernel", "phase_resident_kernel", "phase_sweep_kernel")
+               "knn_select_kernel", "phase_resident_kernel", "phase_grid_kernel",
+               "phase_sweep_kernel")
         for e in ops:
             if any(name in e.key for name in own):
                 print(f"[profile]   hand kernel {device_us(e) / 1e3 / PROFILE_STEPS:.4f} ms/step "
@@ -4478,16 +4564,20 @@ def main() -> int:
     else:
         print("[profile] torch.profiler saw no device activity: device time not measured")
 
+    clock(t_script, "phases 5-6")
     # ---- 7. panels and 8. branches ---------------------------------------
     panel, panel_zp, cohort_65536 = panel_phase(dev, card, wrappers)
     cohort_16384 = branch_phase(dev, card)
 
+    clock(t_script, "phases 7-8")
     # ---- 15 (a-c). the sharded ring on W ranks of the one card ------------
     ring = ring_phase(dev, card, cohort_16384, cohort_65536, panel_zp)
+    clock(t_script, "phase 15 (a-c)")
     # ---- 16 (a, b). the gather form on W ranks of the one card -----------
     auto = auto_phase(dev, card, cohort_16384, cohort_65536, ring)
     del cohort_16384, cohort_65536
 
+    clock(t_script, "phase 16 (a, b)")
     # ---- 9. the pipeline, from files, 10. in file mode, 11. multi-locus ----
     # (with 14 (b, c), 15 (d) and 16 (c, d) on the same cohort)
     pipeline_launches, files_launches, multi, ibs_launches, ring_launches = pipeline_phase(
@@ -4496,6 +4586,7 @@ def main() -> int:
     del panel_zp
     torch.cuda.empty_cache()
 
+    clock(t_script, "phases 9-11 (with 14 (b, c), 15 (d), 16 (c, d))")
     # ---- 12. steps 1-3 from alignments in front of steps 4-7 --------------
     align = alignment_phase(card, wrappers)
     align_json = {name: {"launches": align["fused"][name], "files": align["files"][name]}
@@ -4591,10 +4682,12 @@ def main() -> int:
                  "launches_panel_branch": multi["launches_panels"][
                      "dipcn_from_distances_multi_gpu"],
                  "panels_65536": multi_wide})
+    clock(t_script, "phase 12")
     # ---- 13. the WES path: the Smith-Waterman kernel and the pipeline ------
     sw = sw_kernel_phase(dev, card)
     at_q = sw["timed"][SW_TIMED_Q[0]]
     sw_launches = wes_phase(card)
+    clock(t_script, "phase 13")
     # ---- 14. compute_ibs: the engine (a) and the tools (d); (b, c) ran on
     # phase 9's cohort ------------------------------------------------------
     ibs_engine_phase(card)
@@ -4617,6 +4710,7 @@ def main() -> int:
                      | {"per_cell": round(lp["per_cell"], 3)} for lp in sw["sass"]],
                  "by_q": {str(q): v for q, v in sw["timed"].items()},
                  f"by_shape_q{SW_SMALL_Q}": sw["small_q"]})
+    clock(t_script, "phase 14")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

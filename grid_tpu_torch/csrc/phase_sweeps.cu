@@ -21,37 +21,64 @@
 // 0.03 us at 3.35 TB/s; its operations (3 a slot and sweep) take less at
 // the float32 peak. That bound is not what holds this function: each
 // sweep needs all of the previous one, so n_iters rounds of dependent
-// gathers follow each other, and each round ends in a barrier across
-// every block that holds part of a replicate (or in a kernel boundary).
-// The time per sweep, against the cost of one barrier or one launch, is
-// what the design works on.
+// gathers follow each other, and each round ends in an exchange between
+// the blocks that hold a replicate (or a grid barrier). The latency of
+// one round is what the design works on.
 //
-// What the design does about it: the plain version makes ~22 small
-// launches per sweep (~2,200 for a step), which made the N=2504 step
-// launch-bound. Here:
+// A thread takes one haplotype: it walks its own list slot by slot; the
+// pair (lanes h and h ^ 1 of one warp) swaps its means with one
+// __shfl_xor_sync and both lanes add m_0 + m_1 in the same order. The lists
+// arrive as the callers hold them, idx and w [Bt or 1, 2N, K] and valid
+// [2N, K]. Two modes, by shape:
 //
-// - resident: a cluster of 8 blocks per replicate, on 8 SMs, runs all
-//   n_iters sweeps in one launch. Every block holds the whole value vector
-//   double-buffered (2 * 2N * 4 bytes) and the lists of its eighth of the
-//   samples (2 * ceil(N / 8) * K * 9 bytes) in shared memory: 96 KB at
-//   N=2504, K=10. A sweep reads only shared memory: each block updates its
-//   samples, stores their new values into all 8 blocks' next buffers
-//   (distributed shared memory), then the cluster barrier. One block alone
-//   would hold the lists only up to K=4 at N=2504 and run every sweep on
-//   one SM (4.3 us a sweep at K=2, slower than a launch a sweep); spread
-//   over 8 SMs a sweep is an eighth of the gathers and one cluster barrier.
-//   phase_sweeps_mode takes it where a block's share fits
-//   (16 N + 18 ceil(N / 8) K bytes) and a cluster can be scheduled.
-// - per sweep: beyond that (N past ~6,000 at K=10, ~11,000 at K=2), one
-//   launch per sweep over ping-pong buffers in device memory, a grid row
-//   per replicate: n_iters launches instead of ~22 * n_iters, each spread
-//   over the card.
-//
-// A thread takes one sample, both haplotypes' lists walked together slot by
-// slot without branches, so their loads are in flight together. The lists
-// arrive slot-major, idx and w [Bt or 1, K, 2N] and valid [K, 2N] (the
-// wrapper transposes the callers' [2N, K]), so a warp's loads of one slot
-// cover 64 neighbouring entries.
+// - resident: a cluster of C = 8 blocks a replicate runs all n_iters
+//   sweeps in one launch. Block r holds the whole value vector
+//   double-buffered (2 * 2 C chunk floats) and the lists of its `chunk`
+//   samples (chunk = ceil(N / C)), laid out slot-major [K, 2 chunk] in
+//   shared memory while it fills them, so a warp's loads of one slot hit 32
+//   banks: 16 C chunk + 18 chunk K bytes. A sweep reads only shared memory.
+//   The exchange: the two lanes of a sample store its pair of new values
+//   into the next buffer of every block of the cluster, its own included,
+//   with st.async, each store completing 8 bytes on the receiver's mbarrier
+//   of that buffer; a block starts the next sweep once its mbarrier has
+//   counted all 8 N bytes (a wait with acquire at cluster scope). No block
+//   barrier and no cluster barrier runs between sweeps: a cluster barrier
+//   only at the start (every block has started and set up its mbarriers
+//   before a peer stores into it) and at the end (no block exits while a
+//   store into its shared memory may be in flight). Why two buffers
+//   suffice (sweep s reads buffer s & 1 and writes (s + 1) & 1; its stores
+//   complete phase s / 2 of mbarrier (s + 1) & 1):
+//   * a store of sweep s into a block's buffer (s + 1) & 1, which that
+//     block's threads read in sweep s - 1, comes from a thread that has
+//     seen all of sweep s - 1; each of those stores follows, in its
+//     thread, that thread's reads of sweep s - 1;
+//   * bytes of sweep s + 2 reach mbarrier (s + 1) & 1 only after its phase
+//     of sweep s has completed (their senders saw sweep s + 1, which no
+//     block sent before its own wait on sweep s); bytes that arrive before
+//     the receiver's arrive.expect_tx of their phase leave the transaction
+//     count below zero and the phase open until the arrival.
+//   A thread that takes one haplotype (2 chunk <= 1024) with a list of at
+//   most kRegSlots = 10 slots loads it into registers once, so a sweep's
+//   walk reads shared memory only for the neighbors' values; else its
+//   walk reads the lists from shared memory each sweep. The choices
+//   (st.async stores rather than a bulk copy of each block's slice, lists
+//   in registers, 8 blocks rather than a non-portable 16) follow timings on
+//   an H100 that PERF.md keeps. The exchange alone takes ~1 us a sweep at
+//   N=2504, about what 20 KB into each SM costs at distributed shared
+//   memory's rate: a sweep's floor in this design (phase_sweeps_probe
+//   times the walk alone and the exchange alone).
+//   The last sweep writes the output straight from registers and exchanges
+//   nothing. phase_sweeps_mode takes it where a block's share fits and a
+//   cluster can be scheduled: N up to ~6,000 at K=10, ~11,000 at K=2.
+// - persistent: beyond that, one cooperative launch of blocks of 512
+//   threads, as many as the card holds at once or the items need
+//   (cudaLaunchAttributeCooperative), striding over (replicate, haplotype);
+//   the ping-pong values stay in device memory, which the L2 holds (1 MB
+//   at N=65,536), and cg::this_grid().sync() ends each sweep. Its fence
+//   makes the last sweep's values visible to the plain (L1-cached) loads
+//   of the next. It takes the place of a launch a sweep, which was faster
+//   by ~2% only at K=10 with replicates (PERF.md); a card without cooperative
+//   launches takes no shape past the resident mode's edge.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -62,147 +89,331 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kClusterBlocks = 8;  // the portable cluster size
+constexpr int kCluster = 8;  // the resident mode's blocks a replicate
 constexpr int kMaxThreads = 1024;
-constexpr int kSweepThreads = 256;
+constexpr int kGridThreads = 512;   // the persistent mode's block
+constexpr int kRegSlots = 10;       // lists up to this long ride in registers
+constexpr unsigned kFull = 0xffffffffu;
+// the parts of a resident sweep; the walk alone and the exchange alone are
+// launched only to measure what a sweep is made of (phase_sweeps_probe)
+constexpr int kWalk = 1, kExchange = 2, kWhole = kWalk | kExchange;
 
-// Sample i's new values from `cur`: idx, w and valid hold its lists as
-// slot-major rows of `stride` entries, the sample's h0 at entry `row`. A
-// slot that does not count leaves the sums as they are, exactly what
-// skipping it does; every index lies in [0, 2N) (the wrapper checks), so
-// the padded slots read in bounds. A sample whose two values are NaN
-// (never phased) walks no list: its values can only stay.
-__device__ __forceinline__ float2 sample_update(const float* cur, int i, const float* irrs,
-                                                const int* idx, const float* w,
-                                                const uint8_t* valid, size_t stride, size_t row,
-                                                int k) {
-  const float o0 = cur[2 * i], o1 = cur[2 * i + 1];
-  if (isnan(o0) && isnan(o1)) return make_float2(o0, o1);
-  float wsum0 = 0.f, wval0 = 0.f, wsum1 = 0.f, wval1 = 0.f;
+__device__ __forceinline__ float nan_value() { return __int_as_float(0x7fc00000); }
+
+// The mean m = sum(w * val) / (1e-9 + sum(w)) of one haplotype over its K
+// slots, slot s at offset s * stride of idx, w and valid, summed in slot
+// order. A slot that does not count leaves the sums as they are, exactly
+// what skipping it does; every index lies in [0, 2N) (the wrapper checks),
+// so padded slots read in bounds.
+__device__ __forceinline__ float hap_mean(const float* cur, const int* idx, const float* w,
+                                          const uint8_t* valid, int stride, int k) {
+  float wsum = 0.f, wval = 0.f;
 #pragma unroll 4
   for (int s = 0; s < k; ++s) {
-    const size_t o = s * stride + row;
-    const float w0 = w[o], w1 = w[o + 1];
-    const float v0 = cur[idx[o]], v1 = cur[idx[o + 1]];
-    const bool t0 = valid[o] && !isnan(v0), t1 = valid[o + 1] && !isnan(v1);
-    wsum0 = t0 ? __fadd_rn(wsum0, w0) : wsum0;
-    wval0 = t0 ? __fadd_rn(wval0, __fmul_rn(w0, v0)) : wval0;
-    wsum1 = t1 ? __fadd_rn(wsum1, w1) : wsum1;
-    wval1 = t1 ? __fadd_rn(wval1, __fmul_rn(w1, v1)) : wval1;
+    const int o = s * stride;
+    const float ws = w[o];
+    const int j = idx[o];
+    const float v = cur[j];
+    const bool t = valid[o] && !isnan(v);
+    wsum = t ? __fadd_rn(wsum, ws) : wsum;
+    wval = t ? __fadd_rn(wval, __fmul_rn(ws, v)) : wval;
   }
   // the reference's 1e-9 floor keeps an empty set's mean at 0
-  const float m0 = __fdiv_rn(wval0, __fadd_rn(1e-9f, wsum0));
-  const float m1 = __fdiv_rn(wval1, __fadd_rn(1e-9f, wsum1));
-  const float denom = __fadd_rn(m0, m1);
-  const float irr = irrs[i];
-  const bool hold = denom <= 0.f;
-  return make_float2(hold || isnan(o0) ? o0 : __fdiv_rn(__fmul_rn(irr, m0), denom),
-                     hold || isnan(o1) ? o1 : __fdiv_rn(__fmul_rn(irr, m1), denom));
+  return __fdiv_rn(wval, __fadd_rn(1e-9f, wsum));
 }
 
-// All sweeps of replicate blockIdx.x / 8 in one cluster of 8 blocks: block
-// r of the cluster updates samples [r * chunk, (r + 1) * chunk) and keeps
-// their lists, copied in first ([K, 2 * chunk] slot-major), beside its
-// copy of the whole value vector. init [2N] is every replicate's starting
-// vector; idx and w advance by `lists` elements a replicate (0: one set of
-// lists for all); out [Bt, 2N].
+// hap_mean over a list held in registers: slot s's index idx[s] (-1 where
+// the slot does not count) and weight w[s], for s < k <= kRegs.
+template <int kRegs>
+__device__ __forceinline__ float hap_mean_regs(const float* cur, const int (&idx)[kRegs],
+                                               const float (&w)[kRegs], int k) {
+  float wsum = 0.f, wval = 0.f;
+#pragma unroll
+  for (int s = 0; s < kRegs; ++s) {
+    if (s == k) break;
+    const float v = cur[max(idx[s], 0)];
+    const bool t = idx[s] >= 0 && !isnan(v);
+    wsum = t ? __fadd_rn(wsum, w[s]) : wsum;
+    wval = t ? __fadd_rn(wval, __fmul_rn(w[s], v)) : wval;
+  }
+  return __fdiv_rn(wval, __fadd_rn(1e-9f, wsum));
+}
+
+// Haplotype h's new value from its old value o, its mean m and its
+// sample's irr. Every lane of the warp calls it (the shuffle): the pair's
+// mean comes from lane ^ 1, which holds haplotype h ^ 1, and both lanes add
+// m_0 + m_1 in that order.
+__device__ __forceinline__ float hap_update(float o, float m, int h, float irr) {
+  const float mp = __shfl_xor_sync(kFull, m, 1);
+  const float denom = (h & 1) ? __fadd_rn(mp, m) : __fadd_rn(m, mp);
+  return denom <= 0.f || isnan(o) ? o : __fdiv_rn(__fmul_rn(irr, m), denom);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the address of this block's shared-memory address `addr` in the shared
+// memory of block `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// one asynchronous store of a sample's two values into a block of the
+// cluster (`dst`, 8-byte aligned), completing 8 bytes on its mbarrier `bar`
+__device__ __forceinline__ void store_pair(uint32_t dst, float v0, float v1, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];" ::"r"(
+          dst),
+      "f"(v0), "f"(v1), "r"(bar)
+      : "memory");
+}
+
+// returns once the phase of parity `parity` of this block's mbarrier has
+// completed, with acquire at cluster scope: the peers' stores are visible.
+// The blocks of a cluster run together, so a phase that stays open for
+// ~10 s (2e10 clocks) means a fault: the kernel traps, and the launch
+// fails instead of holding the card.
+__device__ __forceinline__ void wait_slices(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 20000000000LL) __trap();
+  }
+}
+
+// All sweeps of replicate blockIdx.x / C in one cluster of C blocks: block
+// r updates samples [r * chunk, (r + 1) * chunk) (fewer or none at the end)
+// and keeps their lists beside its copy of the whole value vector. init
+// [2N] is every replicate's starting vector; idx and w advance by `lists`
+// elements a replicate (0: one set of lists for all); out [Bt, 2N].
+// kParts is kWhole but for the measurement of a sweep's parts. kRegs:
+// where a thread takes one haplotype (2 chunk <= the block's threads) and
+// K <= kRegSlots, it loads its list from shared memory into registers
+// once, and a sweep's walk reads shared memory only for the neighbors'
+// values (kRegs = kRegSlots; else 0, the list read from shared memory each
+// sweep).
+template <int kParts, int kRegs>
 __global__ void __launch_bounds__(kMaxThreads)
 phase_resident_kernel(const float* __restrict__ init, const float* __restrict__ irrs,
                       const int* __restrict__ idx, const float* __restrict__ w,
                       const uint8_t* __restrict__ valid, int n, int k, size_t lists, int n_iters,
                       int chunk, float* __restrict__ out) {
-  extern __shared__ float buf[];  // [2][2N], then idx, w [K * 2 chunk] and valid [K * 2 chunk]
+  // [2][C * 2 chunk] values, then idx and w [K][2 chunk], then valid [K][2 chunk]
+  extern __shared__ __align__(16) float buf[];
+  __shared__ __align__(8) unsigned long long bars[2];  // a buffer's slices have landed
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int two_n = 2 * n, rows = 2 * chunk;
-  const int lo = min(n, rank * chunk), hi = min(n, lo + chunk), mine = 2 * (hi - lo);
-  const size_t rep = blockIdx.x / kClusterBlocks;
-  int* s_idx = reinterpret_cast<int*>(buf + 2 * two_n);
+  const int two_n = 2 * n, rows = 2 * chunk, span = rows * kCluster;
+  const int h0 = rank * rows;  // this block's slice of a value buffer
+  const int mine = 2 * max(0, min(n - rank * chunk, chunk));  // its haplotypes
+  const size_t rep = blockIdx.x / kCluster;
+  int* s_idx = reinterpret_cast<int*>(buf + 2 * span);
   float* s_w = reinterpret_cast<float*>(s_idx + rows * k);
   uint8_t* s_valid = reinterpret_cast<uint8_t*>(s_w + rows * k);
   for (int h = threadIdx.x; h < two_n; h += blockDim.x) buf[h] = init[h];
+  // the block's lists, read as the callers hold them ([2 chunk, K]
+  // contiguous), stored slot-major
+  const size_t first = static_cast<size_t>(h0) * k;
   for (int j = threadIdx.x; j < mine * k; j += blockDim.x) {
-    const int s = j / mine, r = j - s * mine;
-    const size_t src = static_cast<size_t>(s) * two_n + 2 * lo + r;
-    s_idx[s * rows + r] = idx[rep * lists + src];
-    s_w[s * rows + r] = w[rep * lists + src];
-    s_valid[s * rows + r] = valid[src];
+    const int r = j / k, s = j - r * k;
+    s_idx[s * rows + r] = idx[rep * lists + first + j];
+    s_w[s * rows + r] = w[rep * lists + first + j];
+    s_valid[s * rows + r] = valid[first + j];
   }
-  // every block of the cluster has started (and filled its buffer) before
-  // any block stores into another's shared memory
+  const uint32_t bar0 = smem_addr(&bars[0]);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0 + 8) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // every block has started, filled its buffer and set up its mbarriers
+  // before any peer stores into it
   cluster.sync();
-  for (int s = 0; s < n_iters; ++s) {
-    const float* cur = buf + (s & 1) * two_n;
-    float2* nxt = reinterpret_cast<float2*>(buf + ((s + 1) & 1) * two_n);
-    for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-      const float2 v = sample_update(cur, i, irrs, s_idx, s_w, s_valid, rows, 2 * (i - lo), k);
+  int r_idx[kRegs > 0 ? kRegs : 1];
+  float r_w[kRegs > 0 ? kRegs : 1];
+  if (kRegs > 0) {
+    const int t = threadIdx.x;
 #pragma unroll
-      for (int c = 0; c < kClusterBlocks; ++c) cluster.map_shared_rank(nxt, c)[i] = v;
+    for (int s = 0; s < kRegs; ++s) {
+      const bool on = s < k && t < mine && s_valid[s * rows + t];
+      r_idx[s] = on ? s_idx[s * rows + t] : -1;
+      r_w[s] = on ? s_w[s * rows + t] : 0.f;
     }
-    // every store of this sweep lands before any block reads the buffer in
-    // the next; nobody writes a buffer while it is read (Jacobi ping-pong)
-    cluster.sync();
   }
-  const float* last = buf + (n_iters & 1) * two_n;
-  for (int h = 2 * lo + threadIdx.x; h < 2 * hi; h += blockDim.x) out[rep * two_n + h] = last[h];
+  const int passes = (rows + 31) / 32 * 32;  // whole warps: every lane reaches the shuffle
+  for (int s = 0; s < n_iters; ++s) {
+    const float* cur = buf + (s & 1) * span;
+    float* nxt = buf + ((s + 1) & 1) * span;
+    const bool last = s + 1 == n_iters;
+    const uint32_t bar = bar0 + 8 * ((s + 1) & 1);
+    if ((kParts & kExchange) && !last && threadIdx.x == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                   "r"(8 * n)
+                   : "memory");
+    }
+    for (int t = threadIdx.x; t < passes; t += blockDim.x) {
+      const int h = h0 + t;
+      const bool active = t < mine;
+      const float o = active ? cur[h] : nan_value();
+      float m = 0.f;
+      if (kParts & kWalk) {
+        // a sample whose two values are NaN (never phased) walks no list:
+        // its values can only stay
+        if (active && !(isnan(o) && isnan(cur[h ^ 1]))) {
+          if constexpr (kRegs > 0)
+            m = hap_mean_regs<kRegs>(cur, r_idx, r_w, k);
+          else
+            m = hap_mean(cur, s_idx + t, s_w + t, s_valid + t, rows, k);
+        }
+      } else {
+        m = o;  // the exchange alone: a value that depends on the last sweep
+      }
+      const float v = hap_update(o, m, h, active ? __ldg(irrs + (h >> 1)) : 0.f);
+      if ((kParts & kExchange) && !last) {
+        // the even lane stores the pair into the even ranks, the odd lane
+        // into the odd ones
+        const float vp = __shfl_xor_sync(kFull, v, 1);
+        if (active) {
+          const int odd = h & 1;
+          const uint32_t dst = smem_addr(nxt + (h - odd));
+          for (int q = odd; q < kCluster; q += 2)
+            store_pair(peer_addr(dst, q), odd ? vp : v, odd ? v : vp, peer_addr(bar, q));
+        }
+      } else if (active) {
+        if (last)
+          out[rep * two_n + h] = v;
+        else
+          nxt[h] = v;
+      }
+    }
+    if (last) break;
+    if (kParts & kExchange)
+      wait_slices(bar, (s >> 1) & 1);
+    else
+      __syncthreads();  // the walk alone: each block sweeps its own slice
+  }
+  // no block leaves while a store into its shared memory may be in flight
+  cluster.sync();
 }
 
-// One sweep: cur [Bt, 2N] (advancing by `cur_rep` a replicate: 0 for the
-// shared starting vector) into nxt [Bt, 2N]; a thread per sample, a grid
-// row per replicate.
-__global__ void __launch_bounds__(kSweepThreads)
-phase_sweep_kernel(const float* __restrict__ cur, size_t cur_rep, const float* __restrict__ irrs,
-                   const int* __restrict__ idx, const float* __restrict__ w,
-                   const uint8_t* __restrict__ valid, int n, int k, size_t lists,
-                   float* __restrict__ nxt) {
-  const int i = blockIdx.x * kSweepThreads + threadIdx.x;
-  if (i >= n) return;
-  const size_t rep = blockIdx.y;
-  reinterpret_cast<float2*>(nxt + rep * 2 * static_cast<size_t>(n))[i] =
-      sample_update(cur + rep * cur_rep, i, irrs, idx + rep * lists, w + rep * lists, valid,
-                    2 * static_cast<size_t>(n), 2 * static_cast<size_t>(i), k);
+// All sweeps in one cooperative launch: the blocks stride over the
+// (replicate, haplotype) items of [Bt, 2N]; cur [2N] (init, shared by the
+// replicates) then the ping-pong buffers out and scratch [Bt, 2N], whose
+// last sweep lands in out. A grid barrier between sweeps.
+__global__ void __launch_bounds__(kGridThreads)
+phase_grid_kernel(const float* init, const float* __restrict__ irrs, const int* __restrict__ idx,
+                  const float* __restrict__ w, const uint8_t* __restrict__ valid, int n, int k,
+                  size_t lists, int reps, int n_iters, float* out, float* scratch) {
+  cg::grid_group grid = cg::this_grid();
+  const size_t two_n = 2 * static_cast<size_t>(n), total = two_n * reps;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const float* cur = init;
+  size_t cur_rep = 0;
+  for (int it = 0; it < n_iters; ++it) {
+    float* nxt = ((n_iters - 1 - it) & 1) ? scratch : out;
+    for (size_t base = static_cast<size_t>(blockIdx.x) * blockDim.x; base < total;
+         base += stride) {
+      const size_t item = base + threadIdx.x;
+      const bool active = item < total;
+      const size_t b = active ? item / two_n : 0;
+      const int h = static_cast<int>(active ? item - b * two_n : 0);
+      const float* c = cur + b * cur_rep;
+      const float o = active ? c[h] : nan_value();
+      float m = 0.f;
+      if (active && !(isnan(o) && isnan(c[h ^ 1])))
+        m = hap_mean(c, idx + b * lists + static_cast<size_t>(h) * k,
+                           w + b * lists + static_cast<size_t>(h) * k,
+                           valid + static_cast<size_t>(h) * k, 1, k);
+      const float v = hap_update(o, m, h, active ? __ldg(irrs + (h >> 1)) : 0.f);
+      if (active) nxt[item] = v;
+    }
+    if (it + 1 < n_iters) grid.sync();
+    cur = nxt;
+    cur_rep = two_n;
+  }
 }
 
-int resident_chunk(int n) { return (n + kClusterBlocks - 1) / kClusterBlocks; }
+using ResidentKernel = void (*)(const float*, const float*, const int*, const float*,
+                                const uint8_t*, int, int, size_t, int, int, float*);
+
+template <int kRegs>
+ResidentKernel resident_kernel_of(int parts) {
+  if (parts == kWalk) return phase_resident_kernel<kWalk, kRegs>;
+  if (parts == kExchange) return phase_resident_kernel<kExchange, kRegs>;
+  return phase_resident_kernel<kWhole, kRegs>;
+}
+
+// samples a block: ceil(N / C)
+int resident_chunk(int n) { return (n + kCluster - 1) / kCluster; }
 
 int resident_threads(int n) {
-  return min(kMaxThreads, max(32, (resident_chunk(n) + 31) / 32 * 32));
+  return min(kMaxThreads, (2 * resident_chunk(n) + 31) / 32 * 32);
 }
 
-// Dynamic shared memory of one resident block: the two value buffers and
-// its share of the lists (int32 index, float32 weight, one validity byte
-// a slot).
+// The resident kernel that runs `parts` of each sweep at N samples and K
+// slots: its lists in registers where a thread takes one haplotype and a
+// list has at most kRegSlots slots, else read from shared memory.
+ResidentKernel resident_kernel(int parts, int n, int k) {
+  return k <= kRegSlots && 2 * resident_chunk(n) <= kMaxThreads ? resident_kernel_of<kRegSlots>(parts)
+                                                                : resident_kernel_of<0>(parts);
+}
+
+// Dynamic shared memory of one resident block: the two value buffers of
+// C slices and its share of the lists (int32 index, float32 weight, one
+// validity byte a slot).
 size_t resident_smem_bytes(int n, int k) {
-  return static_cast<size_t>(16) * n + static_cast<size_t>(18) * resident_chunk(n) * k;
+  const size_t chunk = resident_chunk(n);
+  return 16 * kCluster * chunk + 18 * chunk * k;
 }
 
-cudaError_t configure_resident(size_t smem) {
-  static bool carveout_set = false;
-  if (!carveout_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        phase_resident_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-        cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    carveout_set = true;
+// Sets a resident kernel's attributes: shared memory before L1 once, and
+// its dynamic shared-memory limit raised (never lowered) to `smem`, so a
+// launch makes no host call for a kernel and size already taken. One entry
+// for each of the kernel's six instances.
+cudaError_t configure_resident(ResidentKernel kernel, size_t smem) {
+  constexpr int kInstances = 6;
+  static ResidentKernel seen[kInstances] = {};
+  static size_t allowed[kInstances] = {};
+  int i = 0;
+  while (i < kInstances && seen[i] != nullptr && seen[i] != kernel) ++i;
+  if (i == kInstances) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (seen[i] == nullptr) {
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+      return err;
+    seen[i] = kernel;
   }
-  if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(phase_resident_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
+  if (smem > allowed[i]) {
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem))) != cudaSuccess)
+      return err;
+    allowed[i] = smem;
   }
   return cudaSuccess;
 }
 
-// The resident launch of `reps` replicates: a cluster of 8 blocks each.
+// The resident launch of `reps` replicates: a cluster of C blocks each.
 cudaLaunchConfig_t resident_config(int n, int k, int reps, cudaStream_t s,
                                    cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(reps) * kClusterBlocks);
+  cfg.gridDim = dim3(static_cast<unsigned>(reps) * kCluster);
   cfg.blockDim = dim3(resident_threads(n));
   cfg.dynamicSmemBytes = resident_smem_bytes(n, k);
   cfg.stream = s;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kClusterBlocks;
+  attr->val.clusterDim.x = kCluster;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -210,13 +421,57 @@ cudaLaunchConfig_t resident_config(int n, int k, int reps, cudaStream_t s,
   return cfg;
 }
 
-// Clusters of the resident mode the card can hold at once (0: none fits).
-cudaError_t resident_clusters(int n, int k, int* clusters) {
+// Clusters of the resident mode the card can hold at once (0: none fits or
+// can be scheduled).
+cudaError_t resident_clusters(int device, int n, int k, int* clusters) {
+  *clusters = 0;
+  const ResidentKernel kernel = resident_kernel(kWhole, n, k);
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  if ((err = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess) return err;
+  if (resident_smem_bytes(n, k) + fa.sharedSizeBytes > static_cast<size_t>(optin))
+    return cudaSuccess;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = resident_config(n, k, 1, nullptr, &attr);
-  const cudaError_t err = configure_resident(cfg.dynamicSmemBytes);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(clusters, phase_resident_kernel, &cfg);
+  if ((err = configure_resident(kernel, cfg.dynamicSmemBytes)) != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// The persistent grid: as many blocks as the card holds at once, no more
+// than the items need; 0 where the card takes no cooperative launch.
+cudaError_t grid_blocks(int device, size_t items, int* blocks) {
+  *blocks = 0;
+  int coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, phase_grid_kernel,
+                                                           kGridThreads, 0)) != cudaSuccess)
+    return err;
+  if (!coop) return cudaSuccess;
+  const size_t need = (items + kGridThreads - 1) / kGridThreads;
+  *blocks = static_cast<int>(need < static_cast<size_t>(per_sm) * sms
+                                 ? need
+                                 : static_cast<size_t>(per_sm) * sms);
+  return cudaSuccess;
+}
+
+// The resident launch of the kernel that runs `parts` of each sweep.
+int launch_resident(int parts, const float* init, const float* irrs, const int* idx,
+                    const float* w, const uint8_t* valid, int n, int k, int reps, size_t lists,
+                    int n_iters, float* out, cudaStream_t s) {
+  if (reps > (1 << 26)) return cudaErrorInvalidValue;
+  const ResidentKernel kernel = resident_kernel(parts, n, k);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = resident_config(n, k, reps, s, &attr);
+  cudaError_t err = configure_resident(kernel, cfg.dynamicSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, kernel, init, irrs, idx, w, valid, n, k, lists, n_iters,
+                           resident_chunk(n), out);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -224,48 +479,55 @@ cudaError_t resident_clusters(int n, int k, int* clusters) {
 extern "C" {
 
 // The mode that takes N samples with K slots a list on `device`: 0
-// (resident: a cluster of 8 blocks a replicate, each holding the value
-// buffers and its share of the lists in shared memory) where that fits and
-// can be scheduled, else 1 (one launch per sweep). Returns the first
-// cudaError_t.
+// (resident: a cluster of kCluster blocks a replicate, each holding the
+// value buffers and its share of the lists in shared memory) where that
+// fits and can be scheduled, else 1 (persistent: one cooperative launch)
+// where the card takes it; cudaErrorNotSupported where neither does.
+// Returns the first cudaError_t.
 int phase_sweeps_mode(int device, int n, int k, int* mode) {
-  int optin = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, phase_resident_kernel)) != cudaSuccess) return err;
-  *mode = 1;
-  if (n > 0 && k > 0 &&
-      resident_smem_bytes(n, k) + attr.sharedSizeBytes <= static_cast<size_t>(optin)) {
-    int clusters = 0;
-    if ((err = resident_clusters(n, k, &clusters)) != cudaSuccess) return err;
-    if (clusters > 0) *mode = 0;
+  *mode = -1;
+  if (n <= 0 || k <= 0) return cudaErrorInvalidValue;
+  int clusters = 0, blocks = 0;
+  cudaError_t err = resident_clusters(device, n, k, &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters > 0) {
+    *mode = 0;
+    return cudaSuccess;
   }
+  if ((err = grid_blocks(device, 2 * static_cast<size_t>(n), &blocks)) != cudaSuccess) return err;
+  if (blocks == 0) return cudaErrorNotSupported;
+  *mode = 1;
   return cudaSuccess;
 }
 
-// Launch shape of `mode` at N samples and K slots: threads a block,
-// dynamic shared memory a block, resident blocks per SM, registers a
-// thread, local (spill) bytes a thread, blocks a cluster and clusters the
-// card holds at once (0 in mode 1). Returns the first cudaError_t.
+// Launch shape of `mode` at N samples and K slots (one replicate): threads
+// a block, dynamic shared memory a block, resident blocks per SM,
+// registers a thread, local (spill) bytes a thread, blocks a cluster,
+// clusters the card holds at once (0 in mode 1) and blocks a launch (mode
+// 0: one cluster). Returns the first cudaError_t.
 int phase_sweeps_info(int mode, int n, int k, int* out) {
-  if (n <= 0 || k < 1 || (mode != 0 && mode != 1)) return cudaErrorInvalidValue;
+  if (n <= 0 || k < 1 || mode < 0 || mode > 1) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t err;
-  int blocks = 0, clusters = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int blocks = 0, clusters = 0, grid = 0;
   size_t smem = 0;
   int threads;
   if (mode == 0) {
+    const ResidentKernel kernel = resident_kernel(kWhole, n, k);
     smem = resident_smem_bytes(n, k);
     threads = resident_threads(n);
-    if ((err = resident_clusters(n, k, &clusters)) != cudaSuccess) return err;
-    if ((err = cudaFuncGetAttributes(&attr, phase_resident_kernel)) != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, phase_resident_kernel, threads,
-                                                        smem);
+    grid = kCluster;
+    if ((err = resident_clusters(device, n, k, &clusters)) != cudaSuccess) return err;
+    if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+    if (clusters > 0)  // else the block's share does not fit: no block, no occupancy query
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   } else {
-    threads = kSweepThreads;
-    if ((err = cudaFuncGetAttributes(&attr, phase_sweep_kernel)) != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, phase_sweep_kernel, threads, 0);
+    threads = kGridThreads;
+    if ((err = grid_blocks(device, 2 * static_cast<size_t>(n), &grid)) != cudaSuccess) return err;
+    if ((err = cudaFuncGetAttributes(&attr, phase_grid_kernel)) != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, phase_grid_kernel, threads, 0);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = threads;
@@ -273,25 +535,23 @@ int phase_sweeps_info(int mode, int n, int k, int* out) {
   out[2] = blocks;
   out[3] = attr.numRegs;
   out[4] = static_cast<int>(attr.localSizeBytes);
-  out[5] = mode == 0 ? kClusterBlocks : 1;
+  out[5] = mode == 0 ? kCluster : 1;
   out[6] = clusters;
+  out[7] = grid;
   return cudaSuccess;
 }
 
 // Run n_iters >= 1 sweeps of `reps` replicates on `stream` without
-// synchronising. init [2n] float32; irrs [n] float32; idx [*, k, 2n] int32
-// and w [*, k, 2n] float32 (slot-major), advancing by 2n * k a replicate
-// when `per_rep` is non-zero (else one set for all); valid [k, 2n] bytes;
-// out [reps, 2n] float32; scratch [reps, 2n] float32 (the per-sweep mode's
-// second buffer; unused in mode 0). Mode 0 is one launch, mode 1 n_iters.
-// Returns the first cudaError_t.
+// synchronising. init [2n] float32; irrs [n] float32; idx [*, 2n, k] int32
+// and w [*, 2n, k] float32, advancing by 2n * k a replicate when `per_rep`
+// is non-zero (else one set for all); valid [2n, k] bytes; out [reps, 2n]
+// float32; scratch [reps, 2n] float32 (mode 1's second buffer; unused in
+// mode 0). One launch either way. Returns the first cudaError_t.
 int phase_sweeps_launch(const void* init, const void* irrs, const void* idx, const void* w,
                         const void* valid, int n, int k, int reps, int per_rep, int n_iters,
                         int mode, void* out, void* scratch, void* stream) {
   if (n <= 0 || reps <= 0) return cudaSuccess;
-  if (k < 1 || n_iters < 1 || (mode != 0 && mode != 1)) return cudaErrorInvalidValue;
-  if (mode == 1 && reps > 65535) return cudaErrorInvalidValue;  // a grid row per replicate
-  if (mode == 0 && reps > (1 << 27)) return cudaErrorInvalidValue;  // 8 blocks a replicate
+  if (k < 1 || n_iters < 1 || mode < 0 || mode > 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t lists = per_rep ? static_cast<size_t>(2) * n * k : 0;
   const float* f_init = static_cast<const float*>(init);
@@ -299,31 +559,47 @@ int phase_sweeps_launch(const void* init, const void* irrs, const void* idx, con
   const int* i_idx = static_cast<const int*>(idx);
   const float* f_w = static_cast<const float*>(w);
   const uint8_t* u_valid = static_cast<const uint8_t*>(valid);
+  float* f_out = static_cast<float*>(out);
   if (mode == 0) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = resident_config(n, k, reps, s, &attr);
-    cudaError_t err = configure_resident(cfg.dynamicSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaLaunchKernelEx(&cfg, phase_resident_kernel, f_init, f_irrs, i_idx, f_w, u_valid, n,
-                             k, lists, n_iters, resident_chunk(n), static_cast<float*>(out));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
+    return launch_resident(kWhole, f_init, f_irrs, i_idx, f_w, u_valid, n, k, reps, lists,
+                           n_iters, f_out, s);
   }
-  // the last sweep writes `out`: sweep it writes bufs[(n_iters - 1 - it) & 1]
-  float* bufs[2] = {static_cast<float*>(out), static_cast<float*>(scratch)};
-  const dim3 grid((n + kSweepThreads - 1) / kSweepThreads, reps);
-  const float* cur = f_init;
-  size_t cur_rep = 0;
-  for (int it = 0; it < n_iters; ++it) {
-    float* nxt = bufs[(n_iters - 1 - it) & 1];
-    phase_sweep_kernel<<<grid, kSweepThreads, 0, s>>>(cur, cur_rep, f_irrs, i_idx, f_w, u_valid,
-                                                      n, k, lists, nxt);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cur = nxt;
-    cur_rep = static_cast<size_t>(2) * n;
-  }
-  return cudaSuccess;
+  int device = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = grid_blocks(device, static_cast<size_t>(2) * n * reps, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks == 0) return cudaErrorNotSupported;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kGridThreads);
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, phase_grid_kernel, f_init, f_irrs, i_idx, f_w, u_valid, n, k,
+                           lists, reps, n_iters, f_out, static_cast<float*>(scratch));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The resident launch with only the list walk (parts 1: each block sweeps
+// its own samples, a block barrier between sweeps, no exchange) or only the
+// exchange (parts 2: no list walk), or both (3, the kernel
+// phase_sweeps_launch runs), to measure what a sweep is made of; arguments
+// as phase_sweeps_launch's. The values of parts 1 and 2 are not the
+// sweeps'.
+int phase_sweeps_probe(int parts, const void* init, const void* irrs, const void* idx,
+                       const void* w, const void* valid, int n, int k, int reps, int per_rep,
+                       int n_iters, void* out, void* stream) {
+  if (n <= 0 || reps <= 0) return cudaSuccess;
+  if (k < 1 || n_iters < 1 || parts < kWalk || parts > kWhole) return cudaErrorInvalidValue;
+  return launch_resident(parts, static_cast<const float*>(init), static_cast<const float*>(irrs),
+                         static_cast<const int*>(idx), static_cast<const float*>(w),
+                         static_cast<const uint8_t*>(valid), n, k, reps,
+                         per_rep ? static_cast<size_t>(2) * n * k : 0, n_iters,
+                         static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }
 
 const char* phase_sweeps_error_string(int err) {

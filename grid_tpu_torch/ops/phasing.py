@@ -4,9 +4,11 @@
 The ragged per-haplotype neighbor lists are padded ``[2N, K]``
 index/weight/valid tensors. The n_iters Jacobi sweeps (the JAX package's
 ``lax.scan``) run on the card in one CUDA kernel, ``csrc/phase_sweeps.cu``
-(:func:`phase_sweeps_gpu`: all sweeps in one launch, a cluster of 8 blocks
-a replicate, where a block's share of the values and lists fits its shared
-memory, else one launch per sweep); on the CPU they are
+(:func:`phase_sweeps_gpu`: all sweeps in one launch, a thread a haplotype:
+a cluster of 8 blocks a replicate, storing each sweep's values into each
+other's shared memory, where a block's share of the values and lists fits
+it, else one cooperative launch over the card with a grid barrier a
+sweep); on the CPU they are
 :func:`phase_sweeps`, a Python loop of vectorised gathers and row sums,
 the kernel's plain version. The reference's 1e-9
 weight-sum floor is kept, so padded and empty neighbor sets fall back
@@ -122,9 +124,11 @@ def phase_sweeps(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters: int):
     return hap
 
 
-SWEEP_MODES = ("resident", "per_sweep")  # the kernel's modes, by the number it takes
+SWEEP_MODES = ("resident", "persistent")  # the kernel's modes, by the number it takes
 _SWEEP_INFO_KEYS = ("threads", "smem_bytes", "blocks_per_sm", "registers", "spill_bytes",
-                    "cluster_blocks", "clusters")
+                    "cluster_blocks", "clusters", "grid_blocks")
+# the parts of a resident sweep that phase_sweeps_probe runs
+SWEEP_PARTS = {"walk": 1, "exchange": 2, "whole": 3}
 
 
 @functools.cache
@@ -133,6 +137,9 @@ def _sweeps_lib():
     lib.phase_sweeps_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
     lib.phase_sweeps_launch.restype = ctypes.c_int
+    lib.phase_sweeps_probe.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+    lib.phase_sweeps_probe.restype = ctypes.c_int
     lib.phase_sweeps_mode.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.phase_sweeps_mode.restype = ctypes.c_int
     lib.phase_sweeps_info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
@@ -145,23 +152,33 @@ def phase_sweeps_mode(n: int, k: int, device: torch.device) -> str:
     slots in on the CUDA ``device``: "resident" (all sweeps in one launch,
     a cluster of 8 blocks a replicate, each holding the values
     double-buffered and the lists of an eighth of the samples in shared
-    memory: 16 N + 18 ceil(N / 8) K bytes) where that fits and a cluster
-    can be scheduled, else "per_sweep" (one launch per sweep)."""
-    mode = ctypes.c_int()
+    memory: 16 C chunk + 18 chunk K bytes, chunk = ceil(N / C), C = 8)
+    where that fits and a cluster can be scheduled, else "persistent" (all sweeps in one cooperative launch, the values in
+    device memory, a grid barrier a sweep); a card that takes no
+    cooperative launch raises ``native.KernelError`` past the resident
+    mode's edge. Cached by (device index, N, K)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    with torch.cuda.device(device):
+    return _sweeps_mode(index, n, k)
+
+
+@functools.cache
+def _sweeps_mode(index: int, n: int, k: int) -> str:
+    mode = ctypes.c_int()
+    with torch.cuda.device(index):
         err = _sweeps_lib().phase_sweeps_mode(index, n, k, ctypes.byref(mode))
     native.check_launch("phase_sweeps", err)
     return SWEEP_MODES[mode.value]
 
 
-def phase_sweeps_info(n: int, k: int, device: torch.device) -> dict:
+def phase_sweeps_info(n: int, k: int, device: torch.device, mode: str | None = None) -> dict:
     """The ``phase_sweeps`` kernel's launch shape at N samples and K slots a
-    list on the CUDA ``device``: its mode, threads and dynamic shared memory
-    per block, resident blocks per SM, registers and local (spill) bytes
-    per thread, blocks per cluster and the clusters the card holds at once
-    (0 in the per-sweep mode)."""
-    mode = phase_sweeps_mode(n, k, device)
+    list on the CUDA ``device``, in ``mode`` (default: the one
+    :func:`phase_sweeps_mode` picks): its mode, threads and dynamic
+    shared memory per block, resident blocks per SM, registers and local
+    (spill) bytes per thread, blocks per cluster, the clusters the card
+    holds at once (0 in the persistent mode) and the blocks of one
+    replicate's launch (the cluster, or the persistent grid)."""
+    mode = mode or phase_sweeps_mode(n, k, device)
     out = (ctypes.c_int * len(_SWEEP_INFO_KEYS))()
     with torch.cuda.device(device):
         native.check_launch("phase_sweeps", _sweeps_lib().phase_sweeps_info(
@@ -175,18 +192,20 @@ def phase_sweeps_gpu(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters: int):
     bool ``nbr_valid`` [2N, K], all contiguous; ``nbr_idx`` [2N, K] or
     [B, 2N, K] (``nbr_w`` likewise) of any integer type, converted to
     int32, every entry in [0, 2N) (the plain version's gather raises
-    otherwise; checked here, one synchronisation).
+    otherwise; checked here, one synchronisation). The kernel reads the
+    lists as they are: no copy into another layout.
 
-    One launch of the resident mode runs all n_iters sweeps of every
-    replicate, a cluster of 8 blocks per replicate, where a block's share
-    of the values and lists fits its shared memory (N up to ~6,000 at K=10,
-    ~11,000 at K=2 on an H100); beyond that one launch per sweep
+    One launch runs all n_iters sweeps of every replicate: in the resident
+    mode, a cluster of 8 blocks per replicate, where a block's share of the
+    values and lists fits its shared memory (N up to ~6,000 at K=10,
+    ~11,000 at K=2 on an H100); beyond that in the persistent mode, one
+    cooperative launch with a grid barrier a sweep
     (:func:`phase_sweeps_mode`). Each launch adds one to
     ``phase_sweeps_gpu.launches``. Zero sweeps launch nothing and return
     the start broadcast over the replicates, as the plain version does.
     The sums run in slot order without fused multiply-adds, so the result
     matches the plain version to float32 rounding of its sums (rtol 1e-5
-    on the card).
+    on the card), and the modes match each other bitwise.
 
     Returns hap [2N] ([B, 2N] for replicates).
     """
@@ -229,23 +248,36 @@ def phase_sweeps_gpu(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters: int):
 def _sweeps_launch(mode: str, hap, irrs, idx, nbr_w, nbr_valid, n_iters: int, out):
     """Launch ``phase_sweeps`` in ``mode`` on checked inputs into ``out``
     [B, 2N] (int32 ``idx``; the lists as the callers hold them, [.., 2N,
-    K]). The wrapper picks the mode; the card tests also run the per-sweep
-    mode where both fit."""
+    K], read in place). The wrapper picks the mode; the card tests also run
+    the other mode where it takes the shape."""
     (reps, two_n), k = out.shape, nbr_valid.shape[1]
-    per_rep = idx.dim() == 3
-    scratch = torch.empty_like(out) if mode == "per_sweep" else out
-    # the kernel reads the lists slot-major, [K, 2N]: a warp's loads of one
-    # slot of 32 neighbouring haplotypes are then one coalesced line
-    idx, nbr_w = (t.transpose(-1, -2).contiguous() for t in (idx, nbr_w))
-    nbr_valid = nbr_valid.t().contiguous()
+    scratch = out if mode == "resident" else torch.empty_like(out)  # the persistent ping-pong
     with torch.cuda.device(hap.device):
         err = _sweeps_lib().phase_sweeps_launch(
             hap.data_ptr(), irrs.data_ptr(), idx.data_ptr(), nbr_w.data_ptr(),
-            nbr_valid.data_ptr(), two_n // 2, k, reps, int(per_rep), n_iters,
+            nbr_valid.data_ptr(), two_n // 2, k, reps, int(idx.dim() == 3), n_iters,
             SWEEP_MODES.index(mode), out.data_ptr(), scratch.data_ptr(),
             native.stream_ptr(hap.device))
     native.check_launch("phase_sweeps", err)
-    native.count_launch(phase_sweeps_gpu, 1 if mode == "resident" else n_iters)
+    native.count_launch(phase_sweeps_gpu)
+    return out
+
+
+def _sweeps_probe(part: str, hap, irrs, idx, nbr_w, nbr_valid, n_iters: int, out):
+    """The resident kernel with only one part of each sweep ("walk": every
+    block sweeps its own samples with no exchange; "exchange": the
+    exchange with no list walk; "whole": both, the kernel the resident mode
+    launches), to measure what a sweep is made of. Arguments as
+    :func:`_sweeps_launch`'s; the values of the parts alone are not the
+    sweeps'. Not counted in ``phase_sweeps_gpu.launches``: no caller of the
+    port runs it."""
+    (reps, two_n), k = out.shape, nbr_valid.shape[1]
+    with torch.cuda.device(hap.device):
+        err = _sweeps_lib().phase_sweeps_probe(
+            SWEEP_PARTS[part], hap.data_ptr(), irrs.data_ptr(), idx.data_ptr(),
+            nbr_w.data_ptr(), nbr_valid.data_ptr(), two_n // 2, k, reps, int(idx.dim() == 3),
+            n_iters, out.data_ptr(), native.stream_ptr(hap.device))
+    native.check_launch("phase_sweeps", err)
     return out
 
 

@@ -31,8 +31,8 @@ at any width, and the ring merge on it the sort merge; ``dipcn_lists``' list rou
 CPU route's and ``dipcn_select``'s validity exactly and their dipCN at rtol
 1e-6; the phasing kernel (``phase_sweeps``) is held to the plain sweeps at rtol 1e-5
 with the same NaNs (each neighbor list summed in slot order there, in
-torch's reduction order in the plain version), its two modes to each other
-bitwise.
+torch's reduction order in the plain version), its two modes to each
+other bitwise.
 """
 
 import functools
@@ -1006,18 +1006,36 @@ def _phasing_case(rng, n, k, reps=0):
 
 
 # (N, K, sweeps, replicates, mode): the resident mode where
-# 16 N + 18 ceil(N / 8) K bytes fit a block's shared memory
+# 16 C chunk + 18 chunk K bytes fit a block's shared memory (chunk =
+# ceil(N / C), C = 8), else the persistent mode; N from
+# 1 to 9 leaves blocks empty or with one pair, odd and even sweep counts;
+# K=12 and N=6000 (a thread two or more haplotypes) keep the lists in
+# shared memory, the others in registers
 _SWEEP_CASES = [(97, 4, 1, 0, "resident"), (2504, 2, 100, 0, "resident"),
                 (2504, 10, 100, 0, "resident"), (1000, 8, 30, 20, "resident"),
-                (16384, 4, 20, 0, "per_sweep"), (3000, 6, 25, 3, "resident"),
-                (12000, 4, 10, 3, "per_sweep"), (5, 3, 4, 2, "resident")]
+                (16384, 4, 20, 0, "persistent"), (3000, 6, 25, 3, "resident"),
+                (12000, 4, 10, 3, "persistent"), (5, 3, 4, 2, "resident"),
+                (16384, 2, 100, 0, "persistent"), (65536, 2, 100, 0, "persistent"),
+                (65536, 10, 21, 2, "persistent"), (2504, 12, 30, 0, "resident"),
+                (6000, 2, 15, 0, "resident"),
+                *((n, 3, 3 + n % 2, n % 3, "resident") for n in range(1, 10))]
+
+
+def _modes(n, k, cuda):
+    """The modes that take N and K."""
+    from grid_tpu_torch.ops.phasing import phase_sweeps_info
+
+    resident = phase_sweeps_info(n, k, cuda, "resident")["clusters"] > 0
+    return ["persistent"] + ["resident"] * resident
 
 
 @pytest.mark.parametrize("n,k,n_iters,reps,mode", _SWEEP_CASES)
 def test_phase_sweeps_kernel_against_its_plain_version(cuda, n, k, n_iters, reps, mode):
-    """Both modes against the plain sweeps on the card: rtol 1e-5 with the
+    """Every mode against the plain sweeps on the card: rtol 1e-5 with the
     NaN pattern identical (the kernel sums each neighbor list in slot
-    order, the plain version in torch's reduction order)."""
+    order, the plain version in torch's reduction order); the wrapper's
+    pick launches once (one launch for all sweeps), and every mode that
+    takes the shape, launched directly, gives bitwise its values."""
     from grid_tpu_torch.ops.phasing import (
         _sweeps_launch, phase_bootstrap_slots, phase_haplotypes, phase_sweeps, phase_sweeps_gpu,
         phase_sweeps_mode,
@@ -1036,19 +1054,78 @@ def test_phase_sweeps_kernel_against_its_plain_version(cuda, n, k, n_iters, reps
     else:
         got = phase_haplotypes(*t, 1, n_iters).hap_irrs
         lists = (t[1], t[2])
-    assert phase_sweeps_gpu.launches == before + (1 if mode == "resident" else n_iters)
+    assert phase_sweeps_gpu.launches == before + 1
     deg = t[3].sum(dim=1).reshape(n, 2)
     phased = (deg[:, 0] >= 1) & (deg[:, 1] >= 1) & torch.isfinite(t[0])
     hap0 = torch.where(phased, t[0] / 2, torch.nan).repeat_interleave(2)
     want = phase_sweeps(hap0, t[0], *lists, t[3], n_iters)
     assert torch.equal(got.isnan(), want.isnan())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0, equal_nan=True)
-    if mode == "resident":  # the per-sweep mode does the same arithmetic, bitwise
-        idx = lists[0].to(torch.int32).contiguous()
-        other = _sweeps_launch("per_sweep", hap0, t[0], idx, lists[1], t[3], n_iters,
+    idx = lists[0].to(torch.int32).contiguous()
+    for other in _modes(n, k, cuda):
+        before = phase_sweeps_gpu.launches
+        again = _sweeps_launch(other, hap0, t[0], idx, lists[1], t[3], n_iters,
                                torch.empty((max(reps, 1), 2 * n), device=cuda))
-        assert torch.equal(other.reshape(got.shape).isnan(), got.isnan())
-        assert torch.equal(torch.nan_to_num(other.reshape(got.shape)), torch.nan_to_num(got))
+        assert phase_sweeps_gpu.launches == before + 1
+        again = again.reshape(got.shape)
+        assert torch.equal(again.isnan(), got.isnan()), other
+        assert torch.equal(torch.nan_to_num(again), torch.nan_to_num(got)), other
+
+
+def test_phase_sweeps_more_replicates_than_clusters_at_once(cuda):
+    """At N=2504, K=10, more bootstrap replicates than the card holds
+    clusters at once: the later clusters run after the first have left,
+    and every replicate equals the plain sweeps (rtol 1e-5, the same NaNs)
+    and the persistent mode bitwise."""
+    from grid_tpu_torch.ops.phasing import (
+        _sweeps_launch, phase_bootstrap_slots, phase_sweeps, phase_sweeps_info,
+    )
+
+    n, k = 2504, 10
+    info = phase_sweeps_info(n, k, cuda)
+    assert info["mode"] == "resident" and info["clusters"] >= 1
+    reps = info["clusters"] + 9
+    irrs, hi, hw, hv, slots = _phasing_case(np.random.default_rng(40), n, k, reps)
+    t = [torch.tensor(a, device=cuda) for a in (irrs, hi, hw, hv)]
+    s = torch.tensor(slots, device=cuda)
+    got = phase_bootstrap_slots(*t, s, 1, 31)[2]
+    bi = torch.gather(t[1].long().expand(reps, 2 * n, k), 2, s)
+    bw = torch.gather(t[2].expand(reps, 2 * n, k), 2, s)
+    deg = t[3].sum(dim=1).reshape(n, 2)
+    hap0 = torch.where((deg[:, 0] >= 1) & (deg[:, 1] >= 1) & torch.isfinite(t[0]), t[0] / 2,
+                       torch.nan).repeat_interleave(2)
+    want = phase_sweeps(hap0, t[0], bi, bw, t[3], 31)
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0, equal_nan=True)
+    again = _sweeps_launch("persistent", hap0, t[0], bi.to(torch.int32), bw, t[3], 31,
+                           torch.empty((reps, 2 * n), device=cuda))
+    assert torch.equal(again.nan_to_num(), got.nan_to_num())
+
+
+def test_phase_sweeps_takes_the_callers_lists_as_they_are(cuda):
+    """The wrapper fed [2N, K] and [B, 2N, K] lists in the callers' layout
+    (int64 indices, a haplotype's slots contiguous), in both modes: the
+    plain sweeps' values within rtol 1e-5, the same NaNs."""
+    from grid_tpu_torch.ops.phasing import _sweeps_launch, phase_sweeps, phase_sweeps_gpu
+
+    n, k, reps = 2504, 10, 5
+    rng = np.random.default_rng(17)
+    irrs, hi, hw, hv, slots = _phasing_case(rng, n, k, reps)
+    t = [torch.tensor(a, device=cuda) for a in (irrs, hi, hw, hv)]
+    s = torch.tensor(slots, device=cuda)
+    hap0 = (t[0] / 2).repeat_interleave(2)
+    bi = torch.gather(t[1].long().expand(reps, 2 * n, k), 2, s)
+    bw = torch.gather(t[2].expand(reps, 2 * n, k), 2, s)
+    for idx, w in ((t[1].long(), t[2]), (bi, bw)):
+        assert idx.stride()[-1] == 1 and w.is_contiguous()
+        want = phase_sweeps(hap0, t[0], idx, w, t[3], 12)
+        got = phase_sweeps_gpu(hap0, t[0], idx, w, t[3], 12)
+        assert got.shape == want.shape and torch.equal(got.isnan(), want.isnan())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0, equal_nan=True)
+        lead = idx.shape[0] if idx.dim() == 3 else 1
+        again = _sweeps_launch("persistent", hap0, t[0], idx.to(torch.int32), w, t[3], 12,
+                               torch.empty((lead, 2 * n), device=cuda)).reshape(got.shape)
+        assert torch.equal(again.nan_to_num(), got.nan_to_num())
 
 
 def test_phase_sweeps_mode_switch_at_the_shared_memory_edge(cuda):
@@ -1058,14 +1135,20 @@ def test_phase_sweeps_mode_switch_at_the_shared_memory_edge(cuda):
 
     lo, hi = 1, 1 << 16  # the largest resident N at K=3 lies in [lo, hi)
     assert phase_sweeps_mode(lo, 3, cuda) == "resident"
-    assert phase_sweeps_mode(hi, 3, cuda) == "per_sweep"
+    assert phase_sweeps_mode(hi, 3, cuda) == "persistent"
     while hi - lo > 1:
         mid = (lo + hi) // 2
         lo, hi = (mid, hi) if phase_sweeps_mode(mid, 3, cuda) == "resident" else (lo, mid)
     info = phase_sweeps_info(lo, 3, cuda)
-    assert info["smem_bytes"] == 16 * lo + 18 * -(-lo // 8) * 3
+    chunk = -(-lo // 8)
+    assert info["smem_bytes"] == 16 * 8 * chunk + 18 * chunk * 3
     assert info["cluster_blocks"] == 8 and info["clusters"] >= 1
-    for n, mode in ((lo, "resident"), (hi, "per_sweep")):
+    assert info["threads"] == min(1024, -(-2 * chunk // 32) * 32)
+    grid = phase_sweeps_info(hi, 3, cuda)
+    assert grid["mode"] == "persistent" and grid["clusters"] == 0
+    assert 1 <= grid["grid_blocks"] <= grid["blocks_per_sm"] * torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    for n, mode in ((lo, "resident"), (hi, "persistent")):
         assert phase_sweeps_mode(n, 3, cuda) == mode
         irrs, hi_, hw, hv, _ = _phasing_case(np.random.default_rng(n), n, 3)
         t = [torch.tensor(a, device=cuda) for a in (irrs, hi_, hw, hv)]

@@ -115,9 +115,36 @@ def _start(irrs, hv, min_nbr):
     return np.repeat(hap0, 2)
 
 
-@pytest.mark.parametrize("min_nbr,n_iters", [(1, 0), (1, 1), (1, 10), (2, 25), (1, 100)])
-def test_phase_sweeps_kernel_arithmetic(min_nbr, n_iters):
-    irrs, (hi, hw, hv) = _inputs(np.float32)
+def _ring_inputs(n, seed=5):
+    """The slice's ring lists at N samples: haplotype h's neighbors h + 2
+    (weight 1.0) and h - 2 (0.5), every 11th list empty, some NaN samples."""
+    rng = np.random.default_rng(seed)
+    irrs = rng.uniform(1.0, 6.0, n).astype(np.float32)
+    irrs[rng.random(n) < 0.02] = np.nan
+    hap_nbrs = [[] if h % 11 == 0 else [((h + 2) % (2 * n), 1.0), ((h - 2) % (2 * n), 0.5)]
+                for h in range(2 * n)]
+    return irrs, pad_hap_neighbors(hap_nbrs, 2)
+
+
+# (min_nbr, n_iters, lists): the small random lists of _inputs, and the
+# slice's full width, N=2504, with its ring lists (K=2) and with random
+# lists of the pipeline's default max_neighbors (K=10), 100 sweeps
+_ARITHMETIC_CASES = [
+    *(pytest.param(m, i, None, id=f"{m}-{i}") for m, i in
+      ((1, 0), (1, 1), (1, 10), (2, 25), (1, 100))),
+    pytest.param(1, 100, "ring", id="1-100-N2504-ring-K2"),
+    pytest.param(1, 100, "random", id="1-100-N2504-random-K10"),
+]
+
+
+@pytest.mark.parametrize("min_nbr,n_iters,lists", _ARITHMETIC_CASES)
+def test_phase_sweeps_kernel_arithmetic(min_nbr, n_iters, lists):
+    if lists == "ring":
+        irrs, (hi, hw, hv) = _ring_inputs(2504)
+    elif lists == "random":
+        irrs, (hi, hw, hv) = _inputs(np.float32, n=2504, max_nbr=10, seed=11)
+    else:
+        irrs, (hi, hw, hv) = _inputs(np.float32)
     want = j_phase(jnp.asarray(irrs), jnp.asarray(hi), jnp.asarray(hw), jnp.asarray(hv),
                    min_nbr, n_iters)
     got = _emulate_phase_sweeps(_start(irrs, hv, min_nbr), irrs, hi[None], hw[None], hv,
