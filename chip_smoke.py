@@ -195,7 +195,8 @@ before the last line):
 12. alignments — host steps 1-3 from BAM/CRAM in front of steps 4-7
              (``alignment_phase``). (a) A 1000 Genomes-shaped BAM cohort
              from the port's ``make_synthetic_cohort_with_alignments`` in the
-             shape of scripts/bench_e2e_1000g.py (N=2504, seed 9, mean_depth
+             shape of scripts/bench_e2e_1000g.py (N=1024, a cut of its 2504
+             for the time limit, seed 9, mean_depth
              4.0, 100 bp reads, the window chr6:160,605,000-160,615,000 and
              10 flank bins of 1 kb each side; ~3,000 reads a sample), its
              fabrication timed apart (it stands in for the download); k=500,
@@ -204,7 +205,7 @@ before the last line):
              off); run 2 is the whole ``wgs`` with the index check and
              ``device: {fused: true}``: the one-pass ingest (batch route)
              feeds the fused step on the card (launches 2 / 1 / 1); run 3 the
-             same in file mode (2 column statistics, 1 split, 5 panel Grams);
+             same in file mode (2 column statistics, 1 split, 2 panel Grams);
              run 4 the sequential steps 2-3 (``fused_ingest: false``, steps
              4-7 off) on the first ALIGN_SEQ_N samples (their step 3 parses
              each genome-wide bed.gz in Python: the whole cohort would not
@@ -221,7 +222,7 @@ before the last line):
              the batch route, and nothing fell back or logged a failure.
              Prints every run's step times, spans and host share and the
              one-pass ingest alone on 1 thread and on all cores (samples/s,
-             reads/s). (b) The CRAM route at N=128 (indel_frac 0.1),
+             reads/s). (b) The CRAM route at N=32 (indel_frac 0.1),
              fabricated as BAM and as CRAM from one seed: counts, coverage
              and bed.gz files from the native CRAM reader, from cramlite
              (the plain version, in spawned processes) and from the BAMs
@@ -263,7 +264,7 @@ before the last line):
              process (all cores as threads, no platform named). Fails unless
              the kernel launched once per sample, the counts equal the
              fabrication's truth (every background read unclassified, every
-             exon read to its label), the counts of 32 samples equal the
+             exon read to its label), the counts of 16 samples equal the
              plain scan's on the card byte for byte, and all three later
              artifacts are written; prints the spans, the host share and one
              sample's time by part.
@@ -318,11 +319,42 @@ before the last line):
              cache in the directory, build/grid_tpu_torch/ unchanged, a trace
              per outermost step, the fused step's naming ``fused.device`` and
              the hand kernels' device events, the artifacts equal.
+17. float64 — ``device.dtype: float64`` on the card (``float64_phase``
+             after phases 7-8; (d) ``float64_pipeline_runs`` inside phase
+             9). (f) bfloat16, the float64 multi-locus sweep, float64 with
+             ``device.mesh_shape`` and float64 past 8,192 neighbors are
+             refused up front. Then phases 3-7 run again in float64 (the
+             same functions, ``kernels_phase`` and ``panel_phase``, at the
+             float64 bounds of ``TOL``): (a) each float64 kernel against its
+             float64 plain version on the card at N=2504 (the column
+             statistics at rtol 1e-12, the FP64 Gram within 1e-12 of max|G|
+             and exactly symmetric, knn_select bitwise the stable sort in
+             every case of phase 3, its shared mode one block a row and
+             wider rows in the wide mode, dipcn_select at rtol 1e-12, the
+             sweeps at rtol 1e-12 and the bootstrap replicates at 1e-10,
+             every mode bitwise) and at the panel shapes, each timed beside
+             its plain version with its bound at the FP64 peaks (67 TFLOP/s
+             tensor for the Gram, 34 otherwise) and its library call (DGEMM,
+             stable torch.sort and torch.topk in float64); (b) the float64
+             N=2504 step against the port's float64 CPU route: z within
+             1e-12 of max|z|, neighbor lists equal but for ties within 1e-12
+             of the row's k-th distance (counted), dipCN within 1e-9 where
+             the input sets agree, its time and device busy share; (c) the
+             float64 panel step at N=65,536 against the float64 plain route
+             on the card under (b)'s rules, its launches, peak memory and
+             time. (d) ``run_wgs_pipeline`` fused and in file mode with
+             ``device.dtype: float64`` on phase 9's cohort, held to phase
+             9's float64 CPU run: normalized byte-identical, neighbors under
+             the tie rule (counted), dipCN within 1e-9 where the input sets
+             agree, haploid byte-identical where none differs. (e) No card
+             run of either dtype reaches a plain version (a count on each
+             plain version the wrappers would take), and every kernel
+             launched.
 
 The last three lines are the kernels' JSON object (the panel-mode numbers
 at N=65,536; each entry's "slice_2504" holds phase 5's, "pipeline_2504"
 the launches of phase 9's pipeline call, "pipeline_files_2504" those of
-phase 10's, "multilocus_2504" those of phase 11's sweep and "alignments_2504"
+phase 10's, "multilocus_2504" those of phase 11's sweep and "alignments_1024"
 those of phase 12's fused call from BAMs and, under "files", its file-mode
 call; the multi-weight
 form's row has the sweep's launches and its times at L=492; the
@@ -332,7 +364,11 @@ rank and of its pipeline call, and a row of its own for the Gram kernel's
 cross mode, its launches those of phase 15 (a)'s four ranks; the column
 statistics', Gram and dipCN rows' "auto" entries phase 16's launches per
 rank; the knn_select and phase_sweeps rows likewise, with their "ring" and
-"auto" launches per rank), the card's name and power limit, and
+"auto" launches per rank; the five float64 forms a row each, named
+"<kernel>[float64]", their launches those of phase 17 (b)'s step, with
+the panel numbers under "panel_65536", phase 17 (d)'s launches and, under
+"step", the float64 steps' times and tie counts), the card's name and
+power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -356,6 +392,7 @@ from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -401,16 +438,17 @@ MULTI_TIMED_L = (1, 32, MULTI_L)
 FP32_FLOP_PER_S = 67e12  # NVIDIA's data sheet, H100 SXM
 # phase 12: the alignment cohorts (the shape of scripts/bench_e2e_1000g.py)
 # and the least correlation of read counts with the fabricated truth
-# (the CRAM route at 64 samples, the sequential steps at 32: cuts of 256
-# and 64 that leave room in the time limit for phase 16, and of 128 for the
-# selection and phasing kernels' checks)
-ALIGN_N, ALIGN_SEED, ALIGN_DEPTH, ALIGN_CRAM_N = 2504, 9, 4.0, 64
+# (1,024 samples, the CRAM route at 32, the sequential steps at 16: cuts
+# of 256 and 64 that leave room in the time limit for phase 16, of 128 for
+# the selection and phasing kernels' checks, and of 2,504, 64 and 32 for
+# phase 17)
+ALIGN_N, ALIGN_SEED, ALIGN_DEPTH, ALIGN_CRAM_N = 1024, 9, 4.0, 32
 ALIGN_MIN_CORR = 0.9
 # the samples the sequential steps 2-3 run on: their step 3 parses each
 # genome-wide bed.gz (160,625 lines here) in Python, 0.36 s a file on the
 # card's host (45.968 s for 128 files on 8 threads), so the whole cohort
 # (~900 s) would not fit the time limit
-ALIGN_SEQ_N = 32
+ALIGN_SEQ_N = 16
 # phase 13: the WES path. The kernel's bound: a cell of the recurrence is 9
 # integer operations (the substitution's compare and select, three adds,
 # three maxes with the zero clamp, the running best); Hopper's DPX forms do
@@ -419,8 +457,8 @@ ALIGN_SEQ_N = 32
 # issue limit of 4 warp instructions a clock (integer work can reach it
 # split between the ALU and the FMA pipe). The cohort is the KIV-2 window
 # at ~30x (~8,000 reads of 150 bases a sample), 256 samples (a cut forced
-# by the time limit), 32 of them again on the plain scan (64 until the
-# selection and phasing kernels' checks needed the time)
+# by the time limit), 16 of them again on the plain scan (64 until the
+# selection and phasing kernels' checks needed the time, 32 until phase 17)
 SW_OPS_PER_CELL = 6
 # the packed form's least: a register holds two cells, which take the
 # prmt of their substitutions from the column's profile, the 16x2 max-adds
@@ -431,7 +469,7 @@ SW_LANES_PER_SM = 4 * 32
 SW_SEED = 10
 SW_TIMED_Q = (8192, 32768)
 SW_SMALL_Q = 1024  # a few reads: the chooser takes more lanes a unit
-WES_N, WES_PLAIN_N, WES_READS, WES_SEED = 256, 32, 8000, 13
+WES_N, WES_PLAIN_N, WES_READS, WES_SEED = 256, 16, 8000, 13
 WES_READ_LEN = 150
 WES_WINDOW = ("chr6", 160_605_062, 160_647_661)
 WES_CHROM_LEN = 170_805_979
@@ -453,18 +491,67 @@ TOOLS_BAM_N, TOOLS_CRAM_N = 64, 16
 TOOLS_WINDOW = ("chr6", 160_605_000, 160_615_000)  # the alignment cohorts' VNTR window
 
 
+# phase 17: device.dtype float64 on the card. The FP64 peaks (NVIDIA's H100
+# SXM data sheet) and the float64 bounds: sums of the same terms in another
+# order, bootstrap replicates decaying over 100 sweeps, and how close two
+# float64 Gram routes may put two neighbors that they order differently
+FP64_TENSOR_FLOP_PER_S = 67e12  # dense FP64 tensor-core peak
+FP64_FLOP_PER_S = 34e12  # FP64 outside the tensor cores
+F64_RTOL = 1e-12
+F64_BOOT_RTOL = 1e-10
+F64_TIE_RTOL = 1e-12
+# each dtype's bounds, which phases 3-7 and 17 hold the card to: the kernels
+# against their plain versions (sums: the column statistics, elementwise;
+# gram: of max|G|; dipcn; sweeps; boot: the bootstrap replicates, None for
+# float32's rule against float64 sweeps), a step against another route (z
+# of max|z|, ties of the row's k-th distance, dipCN where the input sets
+# agree), and the peaks of the bounds (the Gram's, the other kernels')
+TOL = {
+    torch.float32: SimpleNamespace(
+        sums=1e-5, gram=1e-5, dipcn=1e-6, sweeps=1e-5, boot=None, z=1e-5, ties=TIE_RTOL,
+        step_dipcn=1e-5, gram_peak=TF32_FLOP_PER_S, peak=FP32_FLOP_PER_S),
+    torch.float64: SimpleNamespace(
+        sums=F64_RTOL, gram=F64_RTOL, dipcn=F64_RTOL, sweeps=F64_RTOL, boot=F64_BOOT_RTOL,
+        z=F64_RTOL, ties=F64_TIE_RTOL, step_dipcn=1e-9, gram_peak=FP64_TENSOR_FLOP_PER_S,
+        peak=FP64_FLOP_PER_S),
+}
+# the five kernels of the cohort step: (route, source, the TPU kernel or XLA
+# loop it replaces), for float32 and float64
+SOURCES = {
+    "masked_column_stats": ("triton", "grid_tpu_torch/ops/gpu_kernels.py",
+                            "grid_tpu/ops/pallas_kernels.py:168"),
+    "zprep_gram": ("cuda", "grid_tpu_torch/csrc/zprep_gram.cu",
+                   "grid_tpu/ops/pallas_kernels.py:93"),
+    "dipcn_from_distances_gpu": ("cuda", "grid_tpu_torch/csrc/dipcn_select.cu",
+                                 "grid_tpu/ops/pallas_select.py:130"),
+    "sorted_smallest_k_gpu": ("cuda", "grid_tpu_torch/csrc/knn_select.cu",
+                              "grid_tpu/models/cohort.py:189 (lax.approx_max_k; also "
+                              "grid_tpu/ops/knn.py:168-199 and grid_tpu/parallel/pknn.py:84; "
+                              "no pallas_call)"),
+    "phase_sweeps_gpu": ("cuda", "grid_tpu_torch/csrc/phase_sweeps.cu",
+                         "grid_tpu/ops/phasing.py:94 (lax.scan, no pallas_call)"),
+}
+F64_SOURCES = {
+    **SOURCES,
+    "zprep_gram": ("cuda", "grid_tpu_torch/csrc/zprep_gram64.cu",
+                   "grid_tpu/ops/pallas_kernels.py:93"),
+    "sorted_smallest_k_gpu": ("cuda", "grid_tpu_torch/csrc/knn_select.cu",
+                              "grid_tpu/models/cohort.py:189 (lax.approx_max_k; also "
+                              "grid_tpu/ops/knn.py:168-199; no pallas_call)"),
+}
+
 # the wrappers of the selection and phasing kernels, which phases 4, 7, 15
 # and 16 count beside the three wrappers of the earlier kernels
 SELECTION = ("sorted_smallest_k_gpu", "phase_sweeps_gpu")
 
 
-def phasing_modes(n: int, k: int, dev) -> list:
+def phasing_modes(n: int, k: int, dev, dtype=torch.float32) -> list:
     """Every mode of phase_sweeps that takes n samples with lists of k
-    slots: the resident mode where it fits and can be scheduled, and the
-    persistent mode."""
+    slots of ``dtype`` values: the resident mode where it fits and can be
+    scheduled, and the persistent mode."""
     from grid_tpu_torch.ops.phasing import phase_sweeps_info
 
-    resident = phase_sweeps_info(n, k, dev, "resident")["clusters"] > 0
+    resident = phase_sweeps_info(n, k, dev, "resident", dtype=dtype)["clusters"] > 0
     return ["resident"] * resident + ["persistent"]
 
 
@@ -536,19 +623,21 @@ def bound_ms(n_bytes: float, flop: float = 0.0, flop_per_s: float = TF32_FLOP_PE
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def sweeps_bound_ms(hap, irrs, idx, w, valid, n_iters: int):
+def sweeps_bound_ms(hap, irrs, idx, w, valid, n_iters: int,
+                    flop_per_s: float = FP32_FLOP_PER_S):
     """phase_sweeps' bound on its inputs: each read once (the start
     vector, irrs, the lists as given, the validity bytes) and [B, 2N]
-    float32 written once; 3 float32 operations a valid slot (a product,
-    two sums) and 9 a sample (divisions, sums and products of the update)
-    in each sweep, counted over the samples whose values are not both NaN
-    at the start (the others walk no list), at the float32 peak."""
+    values written once; 3 operations a valid slot (a product, two sums)
+    and 9 a sample (divisions, sums and products of the update) in each
+    sweep, counted over the samples whose values are not both NaN at the
+    start (the others walk no list), at ``flop_per_s`` (the float32 peak
+    unless told)."""
     reps = idx.shape[0] if idx.dim() == 3 else 1
     n_bytes = (sum(t.numel() * t.element_size() for t in (hap, irrs, idx, w, valid))
-               + 4 * reps * hap.numel())
+               + hap.element_size() * reps * hap.numel())
     live = ~hap.isnan().reshape(-1, 2).all(dim=1)
     slots = int(valid.reshape(live.numel(), -1)[live].sum())
-    return bound_ms(n_bytes, n_iters * reps * (3 * slots + 9 * int(live.sum())), FP32_FLOP_PER_S)
+    return bound_ms(n_bytes, n_iters * reps * (3 * slots + 9 * int(live.sum())), flop_per_s)
 
 
 def max_abs(a, b) -> float:
@@ -622,6 +711,32 @@ def host_phase(build_s: float) -> None:
         print(f"[host] the compiler said:\n{compiler_out}", flush=True)
 
 
+def ptxas_functions(log: str) -> list:
+    """Each kernel function of an ``nvcc -Xptxas -v`` log, demangled where
+    c++filt is on the PATH: its registers a thread, the rest of ptxas'
+    usage line (barriers, static shared memory) and its spill bytes."""
+    found, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers,? ?(.*)", line)
+        if m and name:
+            found.append({"function": name, "registers": int(m.group(1)),
+                          "usage": m.group(2).strip(), "spill_bytes": spill})
+            name = None
+    if found and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(f["function"] for f in found),
+                               text=True, capture_output=True).stdout.splitlines()
+        if len(names) == len(found):
+            for f, demangled in zip(found, names):
+                f["function"] = demangled
+    return found
+
+
 def device_us(evt) -> float:
     """A profiler entry's own device time in µs (``self_cuda_time_total``
     in older PyTorch)."""
@@ -637,36 +752,47 @@ def ring_neighbors(n: int):
     return pad_hap_neighbors(ring, 2)
 
 
-def check_against(got, want, usable, n_nbr: int, label: str) -> str:
+def check_against(got, want, usable, n_nbr: int, label: str, dtype=torch.float32,
+                  counts: dict | None = None) -> str:
     """Hold a cohort step's neighbor lists and dipCN to another route's
-    under the rule of tests/torch_parity.py; returns a summary."""
+    under the rule of tests/torch_parity.py, at ``dtype``'s bounds (TOL):
+    distances within the tie bound of the row's k-th distance, lists equal
+    but for ties within it, dipcn_valid exact, dipCN within its rtol where
+    the input sets agree. Puts the rows differing by ties and the rows
+    whose dipCN input sets differ into ``counts``; returns a summary."""
     from torch_parity import dipcn_sets_differ, neighbor_rows_differing
 
-    tol = TIE_RTOL * want.nbr_sq_dists[:, -1].astype(np.float64)
+    tol = TOL[dtype]
+    ties = tol.ties * want.nbr_sq_dists[:, -1].astype(np.float64)
     row_err = np.max(np.abs(got.nbr_sq_dists.astype(np.float64) - want.nbr_sq_dists), axis=1)
-    ratio = float(np.max(row_err / tol))
+    ratio = float(np.max(row_err / ties))
     check(ratio <= 1, f"{label}: neighbor distances, worst row at {ratio:.3f} of its tolerance")
     differ = neighbor_rows_differing(got.nbr_idx, got.nbr_sq_dists, want.nbr_idx,
-                                     want.nbr_sq_dists, tol=tol)
+                                     want.nbr_sq_dists, tol=ties)
     sets_differ = dipcn_sets_differ(got.nbr_idx, want.nbr_idx, usable, n_nbr)
+    at_k = int((np.sort(got.nbr_idx, axis=1) != np.sort(want.nbr_idx, axis=1)).any(axis=1).sum())
     check(np.array_equal(got.dipcn_valid, want.dipcn_valid), f"{label}: dipcn_valid differs")
     same = got.dipcn_valid & ~sets_differ
-    check(np.allclose(got.dipcn[same], want.dipcn[same], rtol=1e-5, atol=0),
-          f"{label}: dipCN differs beyond rtol 1e-5")
+    check(np.allclose(got.dipcn[same], want.dipcn[same], rtol=tol.step_dipcn, atol=0),
+          f"{label}: dipCN differs beyond rtol {tol.step_dipcn:g}")
+    if counts is not None:
+        counts.update(ties=int(differ.size), sets=int(sets_differ.sum()))
     n = got.nbr_idx.shape[0]
     return (f"neighbor distances: max |diff| {float(row_err.max()):.3e}, worst row at "
-            f"{ratio:.3f} of its tolerance; nbr_idx identical on {n - differ.size} of {n} rows, "
-            f"the others differ only by ties within tol; {int(sets_differ.sum())} rows change a "
-            f"dipCN input set; dipcn_valid exact; dipCN within rtol 1e-5 on {int(same.sum())} "
-            f"rows")
+            f"{ratio:.3f} of its tolerance ({tol.ties:g} of the row's k-th distance); nbr_idx "
+            f"identical on {n - differ.size} of {n} rows, the other {differ.size} differ only by "
+            f"ties within tol ({at_k} of them at the k-th neighbor); {int(sets_differ.sum())} "
+            f"rows change a dipCN input set; dipcn_valid exact; dipCN within rtol "
+            f"{tol.step_dipcn:g} on {int(same.sum())} rows")
 
 
-def plain_panel_route(values_np, mask_np, reads_np, reads_valid_np, params, dev):
-    """The panel step's kNN and dipCN by the plain route: normalize by the
-    plain versions (CPU tensors), then on the card per row panel torch.mm of
-    the prepared rows (TF32 off), the epilogue, stable sorts of the rows
-    and the plain dipcn_from_distances. Returns the outputs it computes, as
-    numpy arrays in a dict."""
+def plain_panel_route(values_np, mask_np, reads_np, reads_valid_np, params, dev,
+                      dtype=torch.float32):
+    """The panel step's kNN and dipCN by the plain route in ``dtype``:
+    normalize by the plain versions (CPU tensors), then on the card per row
+    panel torch.mm of the prepared rows (TF32 off), the epilogue, stable
+    sorts of the rows and the plain dipcn_from_distances. Returns the
+    outputs it computes, as numpy arrays in a dict."""
     from grid_tpu_torch.ops.gpu_kernels import zprep_gram_panel_plain, zprep_split_plain
     from grid_tpu_torch.ops.knn import (
         panel_d2, prepare_z, region_filter_mask, sorted_smallest_k,
@@ -674,7 +800,7 @@ def plain_panel_route(values_np, mask_np, reads_np, reads_valid_np, params, dev)
     from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
     from grid_tpu_torch.ops.select import dipcn_from_distances
 
-    values = torch.tensor(values_np, dtype=torch.float32)
+    values = torch.tensor(values_np, dtype=dtype)
     mask = torch.tensor(mask_np)
     norm = normalize_cohort(values, mask)
     selected = select_high_variance_mask(norm.var_ratio, params.top_frac)
@@ -683,7 +809,7 @@ def plain_panel_route(values_np, mask_np, reads_np, reads_valid_np, params, dev)
                                            n_written=selected.sum())
     sample_ok = norm.mask.any(dim=1)
     reads_valid = torch.tensor(reads_valid_np) & sample_ok
-    w = torch.tensor(reads_np, dtype=torch.float32) / norm.row_means_raw
+    w = torch.tensor(reads_np, dtype=dtype) / norm.row_means_raw
     zp = prepare_z(norm.z.to(dev), norm.mask.to(dev), params.zmax, region.to(dev))
     split = zprep_split_plain(zp, None, None, float("inf"))
     sample_ok, reads_valid, w = sample_ok.to(dev), reads_valid.to(dev), w.to(dev)
@@ -701,12 +827,13 @@ def plain_panel_route(values_np, mask_np, reads_np, reads_valid_np, params, dev)
             "nbr_sq_dists": cat[0], "nbr_idx": cat[1], "dipcn": cat[2], "dipcn_valid": cat[3]}
 
 
-def panel_phase(dev, card: str, wrappers: dict) -> tuple:
-    """Phase 7: the row-panel branch at N=65,536. Returns, per kernel, its
-    JSON fields at the panel shapes, the prepared z (phase 11) and the
-    cohort with the step's outputs (phase 15)."""
-    from types import SimpleNamespace
-
+def panel_phase(dev, card: str, dtype=torch.float32) -> tuple:
+    """Phase 7 in ``dtype`` (float64: phase 17 (a, c)): the row-panel
+    branch at N=65,536, each kernel at its shapes against its plain version
+    at TOL[dtype], the step against the plain route on the card. Returns,
+    per kernel, its JSON fields at the panel shapes, the prepared z (phase
+    11; float32 only) and the cohort with the step's outputs, time and tie
+    counts (phase 15)."""
     from grid_tpu_torch.synth import make_matrix
     from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
@@ -726,63 +853,70 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     from grid_tpu_torch.ops.select import dipcn_from_distances
     from torch_parity import assert_close_to_max
 
+    f32, tol, e = dtype == torch.float32, TOL[dtype], torch.finfo(dtype).bits // 8
+    tag = "" if f32 else " f64"
+    kind = str(dtype).removeprefix("torch.")
     n, r = PANEL_N, PANEL_R
     params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
-    check(not d2_resident(params, n, 4), "N=65,536 must take the panel branch")
+    check(not d2_resident(params, n, e), f"N=65,536 must take the panel branch in {kind}")
     b = params.row_block
     n_panels = -(-n // b)
     t0 = time.perf_counter()
     values_np, mask_np, reads_np = make_matrix(n, r)
     reads_valid_np = np.ones(n, bool)
     hap = ring_neighbors(n)
-    inputs = inputs_to_torch(values_np, mask_np, reads_np, reads_valid_np, *hap, dev,
-                             torch.float32)
-    print(f"[panels] set-up: {n}x{r} cohort made and copied to the card in "
+    inputs = inputs_to_torch(values_np, mask_np, reads_np, reads_valid_np, *hap, dev, dtype)
+    print(f"[panels{tag}] set-up: {n}x{r} cohort made and copied to the card in "
           f"{time.perf_counter() - t0:.1f} s (host clock)", flush=True)
 
     # ---- the step, with its launches and its peak memory -----------------
-    counted = {**wrappers, "zprep_split": zprep_split, "zprep_gram_panel": zprep_gram_panel,
-               "sorted_smallest_k_gpu": sorted_smallest_k_gpu, "phase_sweeps_gpu": phase_sweeps_gpu}
+    counted = step_wrappers()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for fn in counted.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    out = cohort_step(*inputs, params)
-    torch.cuda.synchronize()
+    with plain_calls_counted() as plains:
+        out = cohort_step(*inputs, params)
+        torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
     peak = torch.cuda.max_memory_allocated() - base
-    print(f"[panels] cohort_step N={n} R={r} k={K} on {torch.cuda.get_device_name(0)}: first "
-          f"call {first_s:.2f} s; kernel launches {launches}", flush=True)
-    want_launches = {"masked_column_stats": 2, "zprep_gram": 0, "dipcn_from_distances_gpu":
-                     n_panels, "zprep_split": 1, "zprep_gram_panel": n_panels,
-                     "sorted_smallest_k_gpu": n_panels,
-                     "phase_sweeps_gpu": 1}
+    print(f"[panels{tag}] cohort_step {kind} N={n} R={r} k={K} on "
+          f"{torch.cuda.get_device_name(0)}: first call {first_s:.2f} s; kernel launches "
+          f"{launches}; plain versions reached {dict(plains)}", flush=True)
+    want_launches = {"masked_column_stats": 2, "zprep_gram": 0, "zprep_split": 1,
+                     "zprep_gram_panel": n_panels, "dipcn_from_distances_gpu": n_panels,
+                     "sorted_smallest_k_gpu": n_panels, "phase_sweeps_gpu": 1}
     check(launches == want_launches, f"panel-branch launches {launches} != {want_launches}")
-    panel_bytes = b * n * 4
-    print(f"[panels] peak device memory {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB of "
-          f"inputs ({peak / panel_bytes:.1f}x one {b}x{n} float32 panel of "
-          f"{panel_bytes / 2**20:.0f} MiB; an [N, N] float32 matrix would be "
-          f"{n * n * 4 / 2**30:.0f} GiB)", flush=True)
+    check(not plains, f"the {kind} panel step reached a plain version: {dict(plains)}")
+    panel_bytes = b * n * e
+    print(f"[panels{tag}] peak device memory {peak / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB of inputs ({peak / panel_bytes:.1f}x one {b}x{n} {kind} panel "
+          f"of {panel_bytes / 2**20:.0f} MiB; an [N, N] {kind} matrix would be "
+          f"{n * n * e / 2**30:.0f} GiB)", flush=True)
     check(peak < 32 * panel_bytes, "the panel branch's peak memory is not O(row_block * N)")
     got = outputs_to_numpy(out)
     check(got.nbr_idx.shape == (n, K) and got.nbr_idx.dtype == np.int32, "nbr_idx shape, dtype")
+    check(got.z.dtype.itemsize == e and got.dipcn.dtype.itemsize == e, f"{kind} outputs")
     check(np.isfinite(got.dipcn[got.dipcn_valid]).all(), "non-finite dipCN on a valid row")
     check(np.isfinite(got.hap_irrs[np.repeat(got.phased, 2)]).all(), "non-finite phased hap")
 
     # ---- the plain route on the card ------------------------------------
     t0 = time.perf_counter()
     want = SimpleNamespace(**plain_panel_route(values_np, mask_np, reads_np, reads_valid_np,
-                                               params, dev))
+                                               params, dev, dtype))
     plain_s = time.perf_counter() - t0
     check(np.array_equal(got.region_used, want.region_used), "panel step: region_used differs")
-    z_err = assert_close_to_max(got.z, want.z, 1e-5)
+    z_err = assert_close_to_max(got.z, want.z, tol.z)
     usable = reads_valid_np & want.z_mask.any(axis=1)
-    summary = check_against(got, want, usable, N_NBR, "panel step vs plain route")
-    print(f"[panels] vs the plain route on the card ({plain_s:.1f} s): z within 1e-5 of max|z| "
-          f"(max abs err {z_err:.3e}); {summary}; {int(got.phased.sum())} phased", flush=True)
+    ties_found = {}
+    summary = check_against(got, want, usable, N_NBR, f"{kind} panel step vs plain route", dtype,
+                            ties_found)
+    print(f"[panels{tag}] vs the plain route on the card ({plain_s:.1f} s): z within {tol.z:g} "
+          f"of max|z| (max abs err {z_err:.3e}); {summary}; {int(got.phased.sum())} phased",
+          flush=True)
     del want
 
     # ---- each kernel at the panel shapes, against its plain version ------
@@ -796,60 +930,70 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     mu = out.col_means.nan_to_num()
     cnt, s_, sq = masked_column_stats(*cs, mu)
     pcnt, ps, psq = masked_column_stats_plain(*cs, mu)
-    check(torch.equal(cnt, pcnt), "masked_column_stats panel shape: counts differ")
-    check(torch.allclose(s_, ps, rtol=1e-5, atol=0) and torch.allclose(sq, psq, rtol=1e-5, atol=0),
-          "masked_column_stats panel shape: sums")
+    check(torch.equal(cnt, pcnt), f"masked_column_stats {kind} panel shape: counts differ")
+    check(torch.allclose(s_, ps, rtol=tol.sums, atol=0)
+          and torch.allclose(sq, psq, rtol=tol.sums, atol=0),
+          f"masked_column_stats {kind} panel shape: sums")
     errs = {"masked_column_stats": max(max_abs(s_, ps), max_abs(sq, psq))}
 
     split = zprep_split(z, zmask, region, ZMAX)
     plain_split = zprep_split_plain(z, zmask, region, ZMAX)
-    norm_err = assert_close_to_max(split.norms.cpu(), plain_split.norms.cpu(), 1e-5)
-    p64 = plain_split.p.double()
+    if not f32:
+        check(split.p.dtype == dtype and split.p.shape[0] == 1, "f64 split: P itself, [1, N, R_pad]")
+    norm_err = assert_close_to_max(split.norms.cpu(), plain_split.norms.cpu(), tol.gram)
+    p64 = plain_split.p.double() if f32 else None
     last = n - (n - 1) % b - 1
     gram_err = 0.0
     for i0 in (0, last):
         rows = min(b, n - i0)
         g, pg = zprep_gram_panel(split, i0, rows), zprep_gram_panel_plain(plain_split, i0, rows)
-        gram_err = max(gram_err, assert_close_to_max(g.cpu(), pg.cpu(), 1e-5))
-        g64 = p64[i0:i0 + rows] @ p64.T
-        err64, plain64 = max_abs(g, g64), max_abs(pg, g64)
-        check(err64 <= 2 * plain64, f"zprep_gram panel {i0}: error vs float64 {err64:.3e} > 2x "
-                                    f"the plain version's {plain64:.3e}")
-        print(f"[panels] zprep_gram panel rows [{i0}, {i0 + rows}): within 1e-5 of max|G|, vs a "
-              f"float64 Gram: kernel {err64:.3e}, plain {plain64:.3e} ({err64 / plain64:.3f}x, "
-              f"gate 2x); norms within 1e-5 of max (max abs err {norm_err:.3e})", flush=True)
-    del p64, g64
+        gram_err = max(gram_err, assert_close_to_max(g.cpu(), pg.cpu(), tol.gram))
+        gate = ""
+        if f32:
+            g64 = p64[i0:i0 + rows] @ p64.T
+            err64, plain64 = max_abs(g, g64), max_abs(pg, g64)
+            check(err64 <= 2 * plain64, f"zprep_gram panel {i0}: error vs float64 {err64:.3e} > "
+                                        f"2x the plain version's {plain64:.3e}")
+            gate = (f", vs a float64 Gram: kernel {err64:.3e}, plain {plain64:.3e} "
+                    f"({err64 / plain64:.3f}x, gate 2x)")
+            del g64
+        print(f"[panels{tag}] zprep_gram panel rows [{i0}, {i0 + rows}): within {tol.gram:g} of "
+              f"max|G|{gate}; norms within {tol.gram:g} of max (max abs err {norm_err:.3e})",
+              flush=True)
+    del p64
     errs["zprep_gram"] = max(gram_err, norm_err)
     g0 = zprep_gram_panel(split, 0, b)
     d2 = panel_d2(g0, split.norms, 0, sample_ok)
     dip_args = (d2, w[:b].contiguous(), w, reads_valid, reads_valid[:b].contiguous())
     dip, ok = dipcn_from_distances_gpu(*dip_args, k=K, n_nbr=N_NBR)
     pdip, pok = dipcn_from_distances(*dip_args, k=K, n_nbr=N_NBR)
-    check(torch.equal(ok, pok), "dipcn wide panel: ok differs")
-    check(torch.allclose(dip[ok], pdip[ok], rtol=1e-6, atol=0), "dipcn wide panel: values")
+    check(torch.equal(ok, pok), f"dipcn {kind} wide panel: ok differs")
+    check(torch.allclose(dip[ok], pdip[ok], rtol=tol.dipcn, atol=0),
+          f"dipcn {kind} wide panel: values")
     errs["dipcn_from_distances_gpu"] = max_abs(dip[ok], pdip[ok])
-    dinfo = dipcn_select_info(n, K, dev)
-    print(f"[panels] dipcn_select [{b}, {n}] in its {dinfo['mode']} mode: ok exact "
-          f"({int(ok.sum())} rows), within rtol 1e-6 (max abs err "
+    dinfo = dipcn_select_info(n, K, dev, dtype=dtype)
+    print(f"[panels{tag}] dipcn_select [{b}, {n}] in its {dinfo['mode']} mode: ok exact "
+          f"({int(ok.sum())} rows), within rtol {tol.dipcn:g} (max abs err "
           f"{errs['dipcn_from_distances_gpu']:.3e}); {dinfo['smem_bytes']} B dynamic + "
           f"{dinfo['static_smem_bytes']} B static shared memory, {dinfo['blocks_per_sm']} blocks "
           f"per SM, {dinfo['registers']} registers, {dinfo['spill_bytes']} B spilled", flush=True)
     check(dinfo["mode"] == "wide" and dinfo["spill_bytes"] == 0, "dipcn_select wide mode shape")
-    # knn_select (a cluster of 8 blocks a row) against one flat stable sort
-    # of the panel, and its wide mode (the keys in device memory) bitwise
+    # knn_select (float32: a cluster of 8 blocks a row; float64: the wide
+    # mode) against one flat stable sort of the panel, and its wide mode
+    # (the keys in device memory) bitwise
     vals_k, idx_k = sorted_smallest_k_gpu(d2, K)
     vals1, idx1 = sorted_smallest_k(d2, K)
     check(torch.equal(vals_k, vals1) and torch.equal(idx_k, idx1),
-          "knn_select differs from a flat stable sort of the panel")
+          f"knn_select {kind} differs from a flat stable sort of the panel")
     check(all(torch.equal(a, c) for a, c in zip(_knn_launch("wide", d2, K), (vals_k, idx_k))),
-          "knn_select's wide mode differs from its cluster mode on the panel")
+          f"knn_select {kind}: its wide mode differs from its mode on the panel")
     errs["sorted_smallest_k_gpu"] = max_abs(vals_k, vals1)
-    kinfo = knn_select_info(n, K, dev)
-    check(kinfo["mode"] == "cluster" and kinfo["cluster_blocks"] == 8
-          and kinfo["spill_bytes"] == 0, "knn_select cluster mode shape")
-    print(f"[panels] knn_select [{b}, {n}] k={K} in its {kinfo['mode']} mode: values and "
-          f"positions bitwise a flat stable sort's, the wide mode's the same; a cluster of "
-          f"{kinfo['cluster_blocks']} blocks a row, {kinfo['slice']} columns a block, "
+    kinfo = knn_select_info(n, K, dev, dtype=dtype)
+    check((kinfo["mode"], kinfo["cluster_blocks"]) == (("cluster", 8) if f32 else ("wide", 1))
+          and kinfo["spill_bytes"] == 0, f"knn_select {kind} panel mode {kinfo}")
+    print(f"[panels{tag}] knn_select [{b}, {n}] k={K} in its {kinfo['mode']} mode: values and "
+          f"positions bitwise a flat stable sort's, the wide mode's the same; "
+          f"{kinfo['cluster_blocks']} block(s) a row, {kinfo['slice']} columns a block, "
           f"{kinfo['smem_bytes']} B dynamic + {kinfo['static_smem_bytes']} B static shared "
           f"memory, {kinfo['blocks_per_sm']} blocks per SM, {kinfo['clusters']} clusters at "
           f"once, {kinfo['registers']} registers, {kinfo['spill_bytes']} B spilled; {card}",
@@ -863,24 +1007,25 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     plain_sweeps = phase_sweeps(step_hap0, step_irrs, *step_lists, N_ITERS)
     nan = sweeps.isnan()
     check(torch.equal(nan, plain_sweeps.isnan())
-          and torch.allclose(sweeps[~nan], plain_sweeps[~nan], rtol=1e-5, atol=0),
-          "phase_sweeps at the panel step: beyond rtol 1e-5 of the plain sweeps or NaNs differ")
+          and torch.allclose(sweeps[~nan], plain_sweeps[~nan], rtol=tol.sweeps, atol=0),
+          f"phase_sweeps {kind} at the panel step: beyond rtol {tol.sweeps:g} of the plain "
+          f"sweeps or NaNs differ")
     errs["phase_sweeps_gpu"] = max_abs(sweeps[~nan], plain_sweeps[~nan])
-    pinfo = phase_sweeps_info(n, step_lists[0].shape[1], dev)
+    pinfo = phase_sweeps_info(n, step_lists[0].shape[1], dev, dtype=dtype)
     check(pinfo["mode"] == "persistent" and launches["phase_sweeps_gpu"] == 1,
           f"phase_sweeps at N={n}: {pinfo['mode']} mode, {launches['phase_sweeps_gpu']} "
           f"launches a step; the persistent mode's one launch expected")
-    print(f"[panels] phase_sweeps N={n}, {N_ITERS} sweeps in its {pinfo['mode']} mode (one "
+    print(f"[panels{tag}] phase_sweeps N={n}, {N_ITERS} sweeps in its {pinfo['mode']} mode (one "
           f"cooperative launch of {pinfo['grid_blocks']} blocks of {pinfo['threads']} threads, "
-          f"{pinfo['registers']} registers, {pinfo['spill_bytes']} B spilled): within rtol 1e-5 "
-          f"of the plain sweeps (max abs err {errs['phase_sweeps_gpu']:.3e}), NaN cells "
-          f"identical; {card}", flush=True)
+          f"{pinfo['registers']} registers, {pinfo['spill_bytes']} B spilled): within rtol "
+          f"{tol.sweeps:g} of the plain sweeps (max abs err {errs['phase_sweeps_gpu']:.3e}), "
+          f"NaN cells identical; {card}", flush=True)
     del sweeps, plain_sweeps
 
     # ---- times ------------------------------------------------------------
     step_ms = [median_ms(lambda: cohort_step(*inputs, params), reps=PANEL_REPS, warmup=1)
                for _ in range(2)]
-    print(f"[times] panel cohort_step N={n} R={r} k={K} n_iters={N_ITERS}: "
+    print(f"[times{tag}] panel cohort_step {kind} N={n} R={r} k={K} n_iters={N_ITERS}: "
           f"{min(step_ms):.1f} ms (better of two medians of {PANEL_REPS}: "
           f"{step_ms[0]:.1f}, {step_ms[1]:.1f}); {card}", flush=True)
     p_panel = plain_split.p[:b]
@@ -897,21 +1042,23 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
             lambda: sorted_smallest_k_gpu(d2, K), lambda: sorted_smallest_k(d2, K),
             lambda: torch.sort(d2, dim=1, stable=True).values[:, :K]),
     }
-    r_pad = split.p.shape[2]
+    r_pad = split.p.shape[-1]
     bounds = {
-        "masked_column_stats": bound_ms(n * r * 5 + 4 * n + 4 * r + 12 * r),
-        # P [N, R] in, read once, the panel out; 2*B*N*R operations at the
-        # TF32 peak (the kernel's split halves are its design, not the work's)
-        "zprep_gram": bound_ms(n * r * 4 + b * n * 4, 2 * b * n * r),
+        "masked_column_stats": bound_ms(n * r * (e + 1) + e * n + e * r + 3 * e * r),
+        # P [N, R] in, read once, the panel out; 2*B*N*R operations (a panel
+        # needs every product) at the Gram's peak (TF32: the kernel's split
+        # halves are its design, not the work's)
+        "zprep_gram": bound_ms(n * r * e + b * n * e, 2 * b * n * r, tol.gram_peak),
         # one panel of d2 read once, the vectors, dipcn and ok out
-        "dipcn_from_distances_gpu": bound_ms(b * n * 4 + 4 * b + 4 * n + n + b + 4 * b + b),
+        "dipcn_from_distances_gpu": bound_ms(b * n * e + 2 * e * b + e * n + n + 2 * b),
         # one panel of d2 read once, k values and positions a row out
-        "sorted_smallest_k_gpu": bound_ms(b * n * 4 + 8 * b * K),
+        "sorted_smallest_k_gpu": bound_ms(b * n * e + (e + 4) * b * K),
     }
     shapes = {"masked_column_stats": f"[{n}, {r}], 2 calls per step",
               "zprep_gram": f"split [{n}, {r}] once per step, then panels [{b}, {n}]",
               "dipcn_from_distances_gpu": f"wide mode, panels [{b}, {n}]",
-              "sorted_smallest_k_gpu": f"cluster mode (8 blocks a row), panels [{b}, {n}], k={K}"}
+              "sorted_smallest_k_gpu": f"{kinfo['mode']} mode ({kinfo['cluster_blocks']} block(s) "
+                                       f"a row), panels [{b}, {n}], k={K}"}
     rows = {}
     for name, (kernel_fn, plain_fn, lib_fn) in timed.items():
         p1, k1, k2, p2 = (back_to_back_ms(f, reps=5, warmup=1)
@@ -924,7 +1071,7 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
         lib = "" if lib_ms is None else (
             f", the stable torch.sort sliced to k {lib_ms:.4f} ms"
             if name == "sorted_smallest_k_gpu" else f", torch.mm of the panel {lib_ms:.4f} ms")
-        print(f"[times] {name} at {shapes[name]}: kernel {kernel_ms:.4f} ms, plain "
+        print(f"[times{tag}] {name} {kind} at {shapes[name]}: kernel {kernel_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms{lib} per call (5 back to back, better of two); bound "
               f"{least:.4f} ms by {by}, {100 * least / kernel_ms:.1f}% of it; {calls} calls per "
               f"step: {calls * kernel_ms:.1f} ms; {card}", flush=True)
@@ -933,22 +1080,29 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
                       "library_ms": lib_ms, "shape": shapes[name]}
     split_ms = min(back_to_back_ms(lambda: zprep_split(z, zmask, region, ZMAX), reps=5, warmup=1)
                    for _ in range(2))
-    split_bound, split_by = bound_ms(n * r * 5 + r + 2 * n * r_pad * 4 + 4 * n, 2 * n * 128 * r)
+    if f32:  # the split writes both halves and computes the 128-row diagonal tiles
+        split_bound, split_by = bound_ms(n * r * 5 + r + 2 * n * r_pad * 4 + 4 * n,
+                                         2 * n * 128 * r)
+    else:  # the prep writes P, the diagonal tiles give the norms
+        split_bound, split_by = bound_ms(n * r * 9 + r + n * r_pad * 8 + 8 * n, 2 * n * r,
+                                         tol.gram_peak)
     rows["zprep_gram"].update(split_launches=launches["zprep_split"], split_ms=split_ms)
     topk_ms = min(back_to_back_ms(lambda: torch.topk(d2, K, dim=1, largest=False, sorted=True),
                                   reps=5, warmup=1) for _ in range(2))
     knn_wide_ms = min(back_to_back_ms(lambda: _knn_launch("wide", d2, K), reps=5, warmup=1)
                       for _ in range(2))
     rows["sorted_smallest_k_gpu"].update(
-        library="stable torch.sort of the panel's rows, sliced to k", topk_ms=topk_ms,
+        library=f"stable torch.sort of the panel's {kind} rows, sliced to k", topk_ms=topk_ms,
         wide_mode_ms_back_to_back=knn_wide_ms)
+    rows["zprep_gram"]["library"] = f"torch.mm of the {kind} panel" + (
+        ", TF32 off" if f32 else " (cuBLAS DGEMM)")
     epi_ms = min(back_to_back_ms(lambda: panel_d2(g0, split.norms, 0, sample_ok), reps=5,
                                  warmup=1) for _ in range(2))
     sel_ms = rows["sorted_smallest_k_gpu"]["ms"]
-    print(f"[times] zprep_split once per step (split + diagonal tiles): {split_ms:.4f} ms, bound "
-          f"{split_bound:.4f} ms by {split_by}; per panel: the epilogue (norms, -2G, clamp, self "
-          f"and invalid columns) {epi_ms:.4f} ms, knn_select {sel_ms:.4f} ms (its wide mode, the "
-          f"keys in device memory, {knn_wide_ms:.4f} ms; torch.topk {topk_ms:.4f} ms), i.e. "
+    print(f"[times{tag}] zprep_split once per step: {split_ms:.4f} ms, bound {split_bound:.4f} "
+          f"ms by {split_by}; per panel: the epilogue (norms, -2G, clamp, self and invalid "
+          f"columns) {epi_ms:.4f} ms, knn_select {sel_ms:.4f} ms (its wide mode, the keys in "
+          f"device memory, {knn_wide_ms:.4f} ms; torch.topk {topk_ms:.4f} ms), i.e. "
           f"{n_panels * sel_ms:.1f} ms of selection and "
           f"{n_panels * epi_ms:.1f} ms of epilogue per step; {card}", flush=True)
     del d2, g0
@@ -958,10 +1112,11 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     loop = lambda: phase_sweeps(step_hap0, step_irrs, *step_lists, N_ITERS)  # noqa: E731
     s1, p1, p2, s2 = (median_ms(f, reps=PANEL_REPS, warmup=1) for f in (kern, loop, loop, kern))
     sweep_ms, sweep_plain_ms = min(s1, s2), min(p1, p2)
-    sweep_bound, sweep_by = sweeps_bound_ms(step_hap0, step_irrs, *step_lists, N_ITERS)
+    sweep_bound, sweep_by = sweeps_bound_ms(step_hap0, step_irrs, *step_lists, N_ITERS,
+                                            flop_per_s=tol.peak)
     # the persistent launch back to back beside the floor of a launch a
     # sweep (N_ITERS empty launches back to back)
-    out_sweep = torch.empty((1, 2 * n), device=dev)
+    out_sweep = torch.empty((1, 2 * n), dtype=dtype, device=dev)
     step_idx32 = step_lists[0].to(torch.int32)
     sweep_b2b = min(back_to_back_ms(lambda: _sweeps_launch(
         "persistent", step_hap0, step_irrs, step_idx32, *step_lists[1:], N_ITERS, out_sweep))
@@ -974,13 +1129,13 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
         "bound_by": sweep_by, "library_ms": None, "ms_back_to_back": sweep_b2b,
         "launch_a_sweep_floor_ms": floor_ms,
         "shape": f"{pinfo['mode']} mode, N={n}, K={step_lists[0].shape[1]}, {N_ITERS} sweeps"}
-    print(f"[times] phase_sweeps N={n}, {N_ITERS} sweeps ({launches['phase_sweeps_gpu']} "
-          f"launch(es), {pinfo['mode']} mode): the wrapper's call {sweep_ms:.4f} ms, the Python "
-          f"loop {sweep_plain_ms:.3f} ms (medians of {PANEL_REPS}, better of two); back to back "
-          f"(better of two rounds) {sweep_b2b:.4f} ms ({1e3 * sweep_b2b / N_ITERS:.2f} us a "
-          f"sweep); {N_ITERS} empty launches back to back {floor_ms:.4f} ms; bound "
-          f"{sweep_bound:.4f} ms by {sweep_by}, {100 * sweep_bound / sweep_b2b:.1f}% of it; "
-          f"{card}", flush=True)
+    print(f"[times{tag}] phase_sweeps {kind} N={n}, {N_ITERS} sweeps "
+          f"({launches['phase_sweeps_gpu']} launch(es), {pinfo['mode']} mode): the wrapper's call "
+          f"{sweep_ms:.4f} ms, the Python loop {sweep_plain_ms:.3f} ms (medians of {PANEL_REPS}, "
+          f"better of two); back to back (better of two rounds) {sweep_b2b:.4f} ms "
+          f"({1e3 * sweep_b2b / N_ITERS:.2f} us a sweep); {N_ITERS} empty launches back to back "
+          f"{floor_ms:.4f} ms; bound {sweep_bound:.4f} ms by {sweep_by}, "
+          f"{100 * sweep_bound / sweep_b2b:.1f}% of it; {card}", flush=True)
 
     # ---- profile -------------------------------------------------------
     from torch.autograd import DeviceType
@@ -989,31 +1144,32 @@ def panel_phase(dev, card: str, wrappers: dict) -> tuple:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         cohort_step(*inputs, params)
         torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
     if ops:
-        dev_ms = sum(device_us(e) for e in ops) / 1e3
-        print(f"[profile] panel cohort_step: device time {dev_ms:.1f} ms in one step "
+        dev_ms = sum(map(device_us, ops)) / 1e3
+        print(f"[profile{tag}] panel cohort_step {kind}: device time {dev_ms:.1f} ms in one step "
               f"({100 * dev_ms / min(step_ms):.1f}% of the {min(step_ms):.1f} ms step), "
-              f"{sum(e.count for e in ops)} device ops; {card}", flush=True)
-        for e in sorted(ops, key=device_us, reverse=True)[:14]:
-            print(f"[profile]   {device_us(e) / 1e3:9.3f} ms/step {e.count:6d} calls/step  "
-                  f"{e.key[:80]}")
+              f"{sum(ev.count for ev in ops)} device ops; {card}", flush=True)
+        for ev in sorted(ops, key=device_us, reverse=True)[:14]:
+            print(f"[profile{tag}]   {device_us(ev) / 1e3:9.3f} ms/step {ev.count:6d} calls/step  "
+                  f"{ev.key[:80]}")
         # no sort over panel rows: what sorts is the R variance ratios, once
-        sorts = [e for e in ops if "sort" in e.key.lower()]
-        print(f"[profile] panel cohort_step: {len(sorts)} sort kernels, "
-              f"{sum(e.count for e in sorts)} calls, {sum(map(device_us, sorts)) / 1e3:.3f} ms "
-              f"in one step: " + "; ".join(f"{e.count} x {e.key[:60]}" for e in sorts),
+        sorts = [ev for ev in ops if "sort" in ev.key.lower()]
+        print(f"[profile{tag}] panel cohort_step: {len(sorts)} sort kernels, "
+              f"{sum(ev.count for ev in sorts)} calls, {sum(map(device_us, sorts)) / 1e3:.3f} ms "
+              f"in one step: " + "; ".join(f"{ev.count} x {ev.key[:60]}" for ev in sorts),
               flush=True)
-        check(all(e.count < n_panels for e in sorts),
+        check(all(ev.count < n_panels for ev in sorts),
               "the panel step still runs a sort once per panel")
     else:
-        print("[profile] torch.profiler saw no device activity: device time not measured")
-    zp = prepare_z(z, zmask, ZMAX, region)  # phase 11's geometry at this N
+        print(f"[profile{tag}] torch.profiler saw no device activity: device time not measured")
+    zp = prepare_z(z, zmask, ZMAX, region) if f32 else None  # phase 11's geometry at this N
     del out, split, plain_split, inputs, z, zmask
     torch.cuda.empty_cache()
     # phase 15 (c) runs the ring on this cohort and holds it to this step
     cohort = SimpleNamespace(values=values_np, mask=mask_np, reads=reads_np, flat=got,
-                             step_ms=min(step_ms))
+                             step_ms=min(step_ms), ties=ties_found["ties"],
+                             sets=ties_found["sets"])
     return rows, zp, cohort
 
 
@@ -1021,8 +1177,6 @@ def branch_phase(dev, card: str):
     """Phase 8: the resident and the panel branch on one N=16,384 cohort.
     Returns the cohort and the resident (flat) step's outputs, which phase
     15 holds the ring to."""
-    from types import SimpleNamespace
-
     from grid_tpu_torch.synth import make_matrix
     from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
@@ -2033,8 +2187,6 @@ def rebuild_from_files(tag: str, out, names: dict, ids, ratios, z, scales: dict,
     without a valid cell out of every list and their reads out of every
     mean; the file-mode step (``steps/neighbors.py``) sees every written row.
     Returns the rebuilt and the read arrays in a namespace."""
-    from types import SimpleNamespace
-
     from grid_tpu_torch.io.formats import read_counts_tsv, read_dipcn, read_neighbors
     from grid_tpu_torch.io.hap_neighbors import load_ibs_neighbors, pad_hap_neighbors
     from grid_tpu_torch.ops.knn import d2_matrix, region_filter_mask, sorted_smallest_k
@@ -2674,10 +2826,9 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
     """Phase 9: the fused WGS pipeline from files (see the module docstring).
     Returns the kernels' launches during the first pipeline call, phase
     10's, phase 11's results, phase 14's launches (its pipeline part runs
-    on this cohort) and phase 15 (d)'s (the ring from a config). main() passes no size: the size arguments let the phase
+    on this cohort), phase 15 (d)'s (the ring from a config) and phase 17
+    (d)'s float64 runs. main() passes no size: the size arguments let the phase
     be rehearsed small."""
-    from types import SimpleNamespace
-
     import grid_tpu_torch.io.bed as port_bed
     import grid_tpu_torch.steps.fused as fused
     from grid_tpu_torch import native_host
@@ -2870,6 +3021,9 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
         print(f"[pipeline] second card run: fused.device {again_t['fused.device']:.3f} s vs "
               f"{card_t['fused.device']:.3f} s in the first; {card}", flush=True)
 
+        # ---- phase 17 (d): float64 on the card, fused and in file mode ----
+        f64_runs = float64_pipeline_runs(card, tmp, cohort, base, names, cpu_out, k, n_nbr)
+
         # ---- (c) the Python host route on the card -----------------------
         py_out, py_t, py_launches, py_stage = run("card_python_host", {"fused": True},
                                                   python_host=True)
@@ -2978,7 +3132,7 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
         cache_phase(card, tmp, cohort, base, names)
     check(not tmp.exists(), "the temporary directory was not removed")
     return ({name: launches[name] for name in wrappers}, files_launches, multi,
-            {name: ibs_launches[name] for name in wrappers}, ring_launches)
+            {name: ibs_launches[name] for name in wrappers}, ring_launches, f64_runs)
 
 
 def sm_clocks_mhz() -> tuple:
@@ -3804,6 +3958,634 @@ def ibs_phase(card: str, wrappers: dict) -> dict:
     return {name: launches[name] for name in wrappers}
 
 
+@contextmanager
+def plain_calls_counted():
+    """Count the calls of the plain versions that the kernels' wrappers
+    would take (their module attributes) for the ``with`` block: on a card
+    run every count must stay 0. Yields the counts."""
+    import grid_tpu_torch.ops.gpu_kernels as gk
+    import grid_tpu_torch.ops.gpu_select as gs
+    import grid_tpu_torch.ops.phasing as ph
+
+    counts = Counter()
+    targets = {gk: ("masked_column_stats_plain", "zprep_gram_plain", "zprep_split_plain",
+                    "zprep_gram_panel_plain"),
+               gs: ("dipcn_from_distances", "sorted_smallest_k"), ph: ("phase_sweeps",)}
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    saved = [(m, name, getattr(m, name)) for m, names in targets.items() for name in names]
+    for m, name, fn in saved:
+        setattr(m, name, counting(name, fn))
+    try:
+        yield counts
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def step_wrappers() -> dict:
+    """The cohort step's kernel wrappers by name, whose launch counts the
+    card runs read: the three of the earlier kernels, the split and the
+    panel Gram, and the selection and phasing kernels."""
+    from grid_tpu_torch.ops.gpu_kernels import (
+        masked_column_stats, zprep_gram, zprep_gram_panel, zprep_split,
+    )
+    from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_gpu, sorted_smallest_k_gpu
+    from grid_tpu_torch.ops.phasing import phase_sweeps_gpu
+
+    return {"masked_column_stats": masked_column_stats, "zprep_gram": zprep_gram,
+            "zprep_split": zprep_split, "zprep_gram_panel": zprep_gram_panel,
+            "dipcn_from_distances_gpu": dipcn_from_distances_gpu,
+            "sorted_smallest_k_gpu": sorted_smallest_k_gpu, "phase_sweeps_gpu": phase_sweeps_gpu}
+
+
+def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int):
+    """Phases 3-6 at N=2504 in ``dtype`` (float64: phase 17 (a, b, e)):
+    the kernels' launch shapes; each kernel against its plain version on
+    the card at TOL[dtype] (3); the step against the port's CPU route in
+    the same dtype, every kernel launched and no plain version reached (4);
+    the step and each kernel timed, with its bound and library call (5);
+    the step's device time by kernel (6). Returns a namespace: the kernels'
+    rows, the step's tie counts, and what phase 5's float32 timings go on
+    with."""
+    from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
+    from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
+    from grid_tpu_torch.ops.gpu_kernels import (
+        masked_column_stats, masked_column_stats_plain, zprep_gram, zprep_gram_info,
+        zprep_gram_plain,
+    )
+    from grid_tpu_torch.ops.gpu_select import (
+        KNN_MAX_K, _knn_launch, dipcn_from_distances_gpu, dipcn_select_info, knn_select_info,
+        sorted_smallest_k_gpu,
+    )
+    from grid_tpu_torch.ops.knn import d2_matrix, prepare_z, region_filter_mask, sorted_smallest_k
+    from grid_tpu_torch.ops.masked import masked_mean
+    from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
+    from grid_tpu_torch.ops.phasing import (
+        _sweeps_launch, phase_sweeps, phase_sweeps_gpu, phase_sweeps_info, phase_sweeps_mode,
+    )
+    from grid_tpu_torch.ops.select import dipcn_from_distances
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch_parity import assert_close_to_max
+
+    f32, tol, e = dtype == torch.float32, TOL[dtype], torch.finfo(dtype).bits // 8
+    big = torch.finfo(dtype).max
+    tag = "" if f32 else " f64"
+    kind = str(dtype).removeprefix("torch.")
+
+    # ---- launch shapes ---------------------------------------------------
+    info = zprep_gram_info(N, dev, dtype)
+    print(f"[build{tag}] zprep_gram {kind} at N={N}: {info['blocks']} blocks (upper-triangle "
+          f"tiles of {info['tile']}x{info['tile']}) on {sms} SMs at {info['blocks_per_sm']} "
+          f"block(s) per SM; {info['threads']} threads and {info['smem_bytes']} B of dynamic "
+          f"shared memory per block, a {info['stages']}-stage ring of {info['k_tile']}-column "
+          f"stages", flush=True)
+    dinfo = dipcn_select_info(N, K, dev, dtype=dtype)
+    print(f"[build{tag}] dipcn_select {kind} at W={N}, k={K}: one block of {dinfo['threads']} "
+          f"threads per row, {dinfo['smem_bytes']} B dynamic + {dinfo['static_smem_bytes']} B "
+          f"static shared memory per block, {dinfo['blocks_per_sm']} blocks per SM "
+          f"({min(N, dinfo['blocks_per_sm'] * sms)} of {N} rows in flight); "
+          f"{dinfo['registers']} registers and {dinfo['spill_bytes']} B of local memory a thread",
+          flush=True)
+    check(dinfo["spill_bytes"] == 0, f"dipcn_select {kind} spills to local memory")
+    kinfo = knn_select_info(N, K, dev, dtype=dtype)
+    print(f"[build{tag}] knn_select {kind} at W={N}, k={K}: {kinfo['mode']} mode, one block of "
+          f"{kinfo['threads']} threads per row, {kinfo['smem_bytes']} B dynamic + "
+          f"{kinfo['static_smem_bytes']} B static shared memory per block, "
+          f"{kinfo['blocks_per_sm']} blocks per SM ({min(N, kinfo['blocks_per_sm'] * sms)} of "
+          f"{N} rows in flight); {kinfo['registers']} registers and {kinfo['spill_bytes']} B of "
+          f"local memory a thread", flush=True)
+    pinfo = phase_sweeps_info(N, 2, dev, dtype=dtype)  # the slice's ring lists: 2 slots
+    print(f"[build{tag}] phase_sweeps {kind} at N={N}, K=2: {pinfo['mode']} mode, a cluster of "
+          f"{pinfo['cluster_blocks']} blocks of {pinfo['threads']} threads per replicate, "
+          f"{pinfo['smem_bytes']} B of shared memory a block (the values double-buffered and "
+          f"an eighth of the lists), {pinfo['blocks_per_sm']} block(s) per SM, "
+          f"{pinfo['clusters']} clusters at once; {pinfo['registers']} registers and "
+          f"{pinfo['spill_bytes']} B of local memory a thread", flush=True)
+    check(kinfo["mode"] == "resident" and kinfo["spill_bytes"] == 0, "knn_select launch shape")
+    check(pinfo["mode"] == "resident" and pinfo["spill_bytes"] == 0, "phase_sweeps launch shape")
+
+    # ---- 3. kernels against their plain versions -------------------------
+    rng = np.random.default_rng(0)
+    values = torch.tensor(values_np, dtype=dtype, device=dev)
+    mask = torch.tensor(mask_np, device=dev)
+    # the cohort step's own inputs to each kernel (its d2-resident prefix)
+    norm = normalize_cohort(values, mask)
+    selected = select_high_variance_mask(norm.var_ratio)
+    ratios_seen = torch.where(selected, norm.var_ratio, torch.nan)
+    region = selected & region_filter_mask(ratios_seen, n_written=selected.sum())
+    sample_ok = norm.mask.any(dim=1)
+    d2 = d2_matrix(norm.z, norm.mask, region, ZMAX, row_valid=sample_ok)
+    w_main = torch.tensor(reads_np, dtype=dtype, device=dev) / norm.row_means_raw
+
+    def colstats_case(vals, msk):
+        rm = masked_mean(vals, msk, axis=1)
+        ok = torch.isfinite(rm) & (rm != 0)
+        inv = torch.where(ok, 1 / torch.where(ok, rm, 1), 0)
+        return vals, msk & ok[:, None], inv
+
+    ragged_vals = torch.tensor(rng.uniform(10, 60, RAGGED), dtype=dtype, device=dev)
+    ragged_mask = torch.tensor(rng.random(RAGGED) > 0.15, device=dev)
+    errs = {}
+
+    for label, (vals, msk, inv) in [("main", colstats_case(values, mask)),
+                                    ("ragged", colstats_case(ragged_vals, ragged_mask))]:
+        cnt, s, _ = masked_column_stats(vals, msk, inv)
+        pcnt, ps, _ = masked_column_stats_plain(vals, msk, inv)
+        mu = ps / pcnt.clamp_min(1)
+        _, _, sq = masked_column_stats(vals, msk, inv, mu)
+        _, _, psq = masked_column_stats_plain(vals, msk, inv, mu)
+        torch.cuda.synchronize()
+        check(torch.equal(cnt, pcnt), f"masked_column_stats {kind} {label}: counts differ")
+        check(torch.allclose(s, ps, rtol=tol.sums, atol=0),
+              f"masked_column_stats {kind} {label}: sums")
+        check(torch.allclose(sq, psq, rtol=tol.sums, atol=0),
+              f"masked_column_stats {kind} {label}: sqdev")
+        once, twice = (masked_column_stats(vals, msk, inv, mu) for _ in range(2))
+        check(all(torch.equal(a, b) for a, b in zip(once, twice)),
+              f"masked_column_stats {kind} {label}: two calls differ")
+        err = max(max_abs(s, ps), max_abs(sq, psq))
+        errs.setdefault("masked_column_stats", err)
+        print(f"[kernels{tag}] masked_column_stats {label} {tuple(vals.shape)}: counts exact, "
+              f"sum/sqdev within rtol {tol.sums:g}, max abs err {err:.3e}; two calls bitwise "
+              f"equal", flush=True)
+
+    rz = torch.tensor(rng.normal(size=RAGGED) * 3, dtype=dtype, device=dev)
+    rmask = torch.tensor(rng.random(RAGGED) > 0.1, device=dev)
+    rregion = torch.tensor(rng.random(RAGGED[1]) > 0.2, device=dev)
+    for label, args in [("main", (norm.z, norm.mask, region, ZMAX)),
+                        ("ragged", (rz, rmask, rregion, ZMAX))]:
+        g, pg = zprep_gram(*args), zprep_gram_plain(*args)
+        err = assert_close_to_max(g.cpu(), pg.cpu(), tol.gram)
+        errs.setdefault("zprep_gram", err)
+        check(torch.equal(g, g.T), f"zprep_gram {kind} {label}: G is not exactly symmetric")
+        z, msk, reg, zmax = args
+        gate = ""
+        if f32:  # both routes against a float64 Gram of the same P, on the card
+            p64 = torch.where(msk, z.double().clamp(-zmax, zmax), 0) * reg[None, :].double()
+            g64 = p64 @ p64.T
+            err64, plain_err64 = max_abs(g, g64), max_abs(pg, g64)
+            check(err64 <= 2 * plain_err64, f"zprep_gram {label}: error vs float64 {err64:.3e} "
+                                            f"> 2x the plain version's {plain_err64:.3e}")
+            ratio = err64 / plain_err64 if plain_err64 else float("inf")
+            gate = (f"; vs a float64 Gram: kernel {err64:.3e}, plain {plain_err64:.3e} "
+                    f"({ratio:.3f}x, gate 2x)")
+        print(f"[kernels{tag}] zprep_gram {label} {tuple(z.shape)}: within {tol.gram:g} of "
+              f"max|G|, max abs err {err:.3e}; exactly symmetric{gate}", flush=True)
+
+    def dipcn_case(zp, k, n_nbr):
+        n = zp.shape[0]
+        ones = torch.ones_like(zp, dtype=torch.bool)
+        valid = torch.tensor(rng.random(n) > 0.1, device=dev)
+        dd = d2_matrix(zp, ones, ones[0], 1e30, row_valid=valid)
+        rnorm = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=dtype, device=dev)
+        usable = torch.tensor(rng.random(n) > 0.2, device=dev)
+        return (dd, rnorm, rnorm, usable, usable), k, n_nbr
+
+    ties = torch.tensor(np.round(rng.normal(size=(97, 16)) * 4) / 4, dtype=dtype, device=dev)
+    # quantized random distances, with the finfo.max of self / invalid columns
+    wide_d2 = torch.tensor(rng.integers(0, 400, WIDE) * 0.25, dtype=dtype, device=dev)
+    wide_d2[:, rng.random(WIDE[1]) < 0.05] = big
+    wide_w = torch.tensor(rng.uniform(0.5, 2.0, WIDE[1]), dtype=dtype, device=dev)
+    wide_rnorm = torch.tensor(rng.uniform(0.5, 2.0, WIDE[0]), dtype=dtype, device=dev)
+    wide_usable = torch.tensor(rng.random(WIDE[1]) > 0.2, device=dev)
+    cases = [
+        ("main", (d2, w_main, w_main, sample_ok, sample_ok), K, N_NBR),
+        ("ragged", *dipcn_case(rz, 20, 7)),
+        ("forced-tie", *dipcn_case(ties, 20, 7)),
+        ("all-equal", *dipcn_case(torch.zeros((N, 16), dtype=dtype, device=dev), K, N_NBR)),
+        ("wide", (wide_d2, wide_rnorm, wide_w, wide_usable, wide_rnorm > 0.6), K, N_NBR),
+    ]
+    for label, args, k, n_nbr in cases:
+        dip, ok = dipcn_from_distances_gpu(*args, k=k, n_nbr=n_nbr)
+        pdip, pok = dipcn_from_distances(*args, k=k, n_nbr=n_nbr)
+        torch.cuda.synchronize()
+        check(torch.equal(ok, pok), f"dipcn {kind} {label}: ok differs")
+        check(torch.allclose(dip[ok], pdip[ok], rtol=tol.dipcn, atol=0),
+              f"dipcn {kind} {label}: values")
+        err = max_abs(dip[ok], pdip[ok])
+        errs.setdefault("dipcn_from_distances_gpu", err)
+        print(f"[kernels{tag}] dipcn {label} {tuple(args[0].shape)} k={k} n_nbr={n_nbr}: ok exact "
+              f"({int(ok.sum())} rows), dipcn within rtol {tol.dipcn:g}, max abs err {err:.3e}",
+              flush=True)
+
+    # knn_select: bitwise the stable sort (its plain version) in the mode the
+    # wrapper picks, over the cluster size the width picks (float64: one
+    # block a row, wider rows the wide mode); at the widths where the mode
+    # changes its wide mode (the keys in device memory) too
+    tie_d2 = cases[2][1][0]
+    gen_k = torch.Generator(device=dev).manual_seed(16)
+
+    def quantized(rows, width):  # each value repeats ~width / 400 times a row
+        q = (torch.randint(0, 400, (rows, width), device=dev, generator=gen_k) * 0.25).to(dtype)
+        q[:, torch.rand(width, device=dev, generator=gen_k) < 0.05] = big
+        return q.contiguous()
+
+    def shared(blocks):  # the mode of rows a cluster of `blocks` would take
+        return ("cluster", blocks) if f32 else ("wide", 1)
+
+    select_cases = [(label, args[0], k, None) for label, args, k, _ in cases] + [
+        ("forced-tie k=1", tie_d2, 1, None), ("forced-tie k=W", tie_d2, tie_d2.shape[1], None),
+        ("ring merge [best | d2]", torch.cat([sorted_smallest_k(d2[:512], K)[0], d2[:512]], 1), K,
+         None),
+        ("the widest one-block row", quantized(64, KNN_SLICE), K, ("resident", 1)),
+        ("the narrowest two-block row", quantized(64, KNN_SLICE + 1), K, shared(2)),
+        ("a panel row", quantized(64, PANEL_N), K, shared(8)),
+        ("the biobank row", quantized(16, BIOBANK_N), K, shared(8)),
+        ("past the cluster's edge", quantized(4, KNN_WIDE_W), K, ("wide", 1)),
+        ("the largest list", quantized(4, KNN_MAX_K_W), KNN_MAX_K[dtype], ("wide", 1))]
+    edges = {"the widest one-block row", "the narrowest two-block row", "a panel row"}
+    for label, dd, k, want_mode in select_cases:
+        vals, idx = sorted_smallest_k_gpu(dd, k)
+        want_v, want_i = sorted_smallest_k(dd, k)
+        torch.cuda.synchronize()
+        check(torch.equal(idx, want_i) and torch.equal(vals, want_v),
+              f"knn_select {kind} {label}: not the stable sort's values and positions")
+        kinfo_c = knn_select_info(dd.shape[1], k, dev, dtype=dtype)
+        if want_mode is not None:
+            check((kinfo_c["mode"], kinfo_c["cluster_blocks"]) == want_mode,
+                  f"knn_select {kind} {label}: mode {kinfo_c['mode']} over "
+                  f"{kinfo_c['cluster_blocks']} block(s), not {want_mode}")
+        also = ""
+        if label in edges and kinfo_c["mode"] != "wide":
+            got_v, got_i = _knn_launch("wide", dd, k)
+            check(torch.equal(got_i, idx) and torch.equal(got_v, vals),
+                  f"knn_select {kind} {label}: its wide mode differs")
+            also = ", and so its wide mode"
+        errs["sorted_smallest_k_gpu"] = max(errs.get("sorted_smallest_k_gpu", 0.0),
+                                            max_abs(vals, want_v))
+        print(f"[kernels{tag}] knn_select {label} {tuple(dd.shape)} k={k} ({kinfo_c['mode']} "
+              f"mode, {kinfo_c['cluster_blocks']} block(s) a row): values and positions bitwise "
+              f"the stable sort's{also}", flush=True)
+    del select_cases
+    if f32:
+        lo_w, hi_w = PANEL_N, KNN_WIDE_W  # the widest row of the cluster mode at k=K lies here
+        while hi_w - lo_w > 1:
+            mid = (lo_w + hi_w) // 2
+            lo_w, hi_w = ((mid, hi_w) if knn_select_info(mid, K, dev)["mode"] == "cluster"
+                          else (lo_w, mid))
+        print(f"[kernels] knn_select at k={K}: rows up to {lo_w} columns take the cluster mode "
+              f"(8 blocks of {knn_select_info(lo_w, K, dev)['slice']} columns), wider ones the "
+              f"wide mode; {card}", flush=True)
+
+    # phase_sweeps: the plain sweeps within TOL's rtol (each neighbor list
+    # summed in slot order, not in torch's reduction order), the same NaNs;
+    # its modes bitwise equal. The bootstrap replicates' resampled lists
+    # drive some values towards 0 (to ~1e-25 in 100 sweeps), where float32
+    # keeps no 1e-5 relative accuracy: the plain sweeps themselves are
+    # ~1.5e-5 from float64 sweeps there. In float32 those are held to
+    # float64 sweeps instead: their relative error at most twice the plain
+    # version's; in float64 to the plain sweeps at TOL's boot rtol.
+
+    def rel_err(a, ref) -> float:
+        """Largest relative error of ``a`` against ``ref`` over its finite,
+        non-zero cells."""
+        keep = torch.isfinite(ref) & (ref != 0)
+        return float(((a.double() - ref) / ref).abs()[keep].max()) if keep.any() else 0.0
+
+    main_dip, main_ok = dipcn_from_distances_gpu(d2, w_main, w_main, sample_ok, sample_ok, k=K,
+                                                 n_nbr=N_NBR)
+    irrs_main = torch.where(main_ok, main_dip, torch.nan)
+    rand_lists = random_hap_lists(N, 10, dev, seed=3)
+    rand_lists[1] = rand_lists[1].to(dtype)
+    boot_slots = torch.tensor(
+        (np.random.default_rng(4).random((BOOT_REPLICATES, 2 * N, 10))
+         * rand_lists[2].sum(dim=1).clamp_min(1).cpu().numpy()[None, :, None]).astype(np.int64),
+        device=dev)
+    boot_lists = [torch.gather(rand_lists[0].long().expand(BOOT_REPLICATES, 2 * N, 10), 2,
+                               boot_slots).to(torch.int32).contiguous(),
+                  torch.gather(rand_lists[1].expand(BOOT_REPLICATES, 2 * N, 10), 2, boot_slots),
+                  rand_lists[2]]
+    ring_lists = [torch.tensor(a, device=dev) for a in ring_neighbors(N)]
+    ring_lists[1] = ring_lists[1].to(dtype)
+    for label, lists, strict in (
+            ("ring lists, K=2", ring_lists, True), ("random lists, K=10", rand_lists, True),
+            (f"{BOOT_REPLICATES} bootstrap replicates, K=10", boot_lists, False)):
+        hap0 = hap_start(irrs_main, lists[2])
+        got = phase_sweeps_gpu(hap0, irrs_main, *lists, N_ITERS)
+        want = phase_sweeps(hap0, irrs_main, *lists, N_ITERS)
+        want64 = phase_sweeps(hap0.double(), irrs_main.double(), lists[0], lists[1].double(),
+                              lists[2], N_ITERS)
+        modes = phasing_modes(N, lists[0].shape[-1], dev, dtype)
+        others = {m: _sweeps_launch(
+            m, hap0, irrs_main, lists[0].to(torch.int32), lists[1], lists[2], N_ITERS,
+            torch.empty_like(got.reshape(-1, 2 * N))).reshape(got.shape) for m in modes}
+        torch.cuda.synchronize()
+        nan = got.isnan()
+        check(torch.equal(nan, want.isnan()), f"phase_sweeps {kind} {label}: NaN cells differ")
+        rel, plain_rel = rel_err(got, want64), rel_err(want, want64)
+        rtol = tol.sweeps if strict else tol.boot
+        if rtol is not None:
+            check(torch.allclose(got[~nan], want[~nan], rtol=rtol, atol=0),
+                  f"phase_sweeps {kind} {label}: beyond rtol {rtol:g} of the plain sweeps")
+            gate = f"within rtol {rtol:g} of the plain sweeps"
+        else:
+            check(rel <= 2 * plain_rel, f"phase_sweeps {label}: relative error {rel:.3e} against "
+                                        f"float64 sweeps > 2x the plain version's {plain_rel:.3e}")
+            gate = "relative error against float64 sweeps at most 2x the plain version's"
+        for name, other in others.items():
+            check(torch.equal(other.nan_to_num(), got.nan_to_num())
+                  and torch.equal(other.isnan(), nan),
+                  f"phase_sweeps {kind} {label}: the {name} mode differs from the wrapper's")
+        err = max_abs(got[~nan], want[~nan])
+        errs["phase_sweeps_gpu"] = max(errs.get("phase_sweeps_gpu", 0.0), err)
+        mode = phase_sweeps_mode(N, lists[0].shape[-1], dev, dtype)
+        print(f"[kernels{tag}] phase_sweeps {label}, N={N}, {N_ITERS} sweeps ({mode} mode): "
+              f"{gate} (max abs err {err:.3e} against the plain sweeps; relative error against "
+              f"float64 sweeps: kernel {rel:.3e}, plain {plain_rel:.3e}), NaN cells identical "
+              f"({int(nan.sum())} of {nan.numel()}); the modes {', '.join(others)} called "
+              f"directly bitwise the same", flush=True)
+        del others
+
+    # ---- 4. the slice: the step against the port's CPU route -------------
+    reads_valid_np = np.ones(N, bool)
+    hi, hw, hv = ring_neighbors(N)
+    # bench.py's setting: unquantized z, so the two routes' z differ by
+    # rounding only, never by a %.2f flip
+    params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
+    check(d2_resident(params, N, e), f"the {kind} N={N} step must keep d2 resident")
+    inputs = inputs_to_torch(values_np, mask_np, reads_np, reads_valid_np, hi, hw, hv, dev, dtype)
+    counted = step_wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    with plain_calls_counted() as plains:
+        out = cohort_step(*inputs, params)
+        torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    print(f"[slice{tag}] cohort_step {kind} on {torch.cuda.get_device_name(0)}: kernel launches "
+          f"{launches}; plain versions reached {dict(plains)}", flush=True)
+    check(not plains, f"the {kind} card step reached a plain version: {dict(plains)}")
+    for name in SOURCES:
+        check(launches[name] > 0, f"{name} was not launched by the {kind} step")
+    check(all(launches[name] == 1 for name in SELECTION),
+          f"the slice must launch knn_select and phase_sweeps once each: {launches}")
+
+    got = outputs_to_numpy(out)
+    t0 = time.perf_counter()
+    want = outputs_to_numpy(cohort_step(*inputs_to_torch(
+        values_np, mask_np, reads_np, reads_valid_np, hi, hw, hv, "cpu", dtype), params))
+    cpu_s = time.perf_counter() - t0
+    check(got.nbr_idx.shape == (N, K) and got.dipcn.shape == (N,), "output shapes")
+    check(got.z.dtype == want.z.dtype and got.nbr_sq_dists.dtype == want.nbr_sq_dists.dtype
+          and got.dipcn.dtype == want.dipcn.dtype and got.z.dtype.itemsize == e,
+          f"the {kind} step's output dtypes differ from the CPU route's")
+    check(np.isfinite(got.dipcn[got.dipcn_valid]).all(), "non-finite dipCN on a valid row")
+    check(np.isfinite(got.hap_irrs[np.repeat(got.phased, 2)]).all(), "non-finite phased hap")
+    z_err = assert_close_to_max(got.z, want.z, tol.z)
+    if not f32:
+        check(np.array_equal(got.region_used, want.region_used), "f64 step: region_used differs")
+    usable = reads_valid_np & want.z_mask.any(axis=1)
+    ties_found = {}
+    summary = check_against(got, want, usable, N_NBR, f"the {kind} step", dtype, ties_found)
+    print(f"[slice{tag}] vs the port's CPU route in {kind} ({cpu_s:.1f} s, host clock): z within "
+          f"{tol.z:g} of max|z| (max abs err {z_err:.3e}); {summary}; r_use {int(got.r_use)}; "
+          f"{int(got.phased.sum())} phased", flush=True)
+
+    # ---- 5. times --------------------------------------------------------
+    slice_ms = median_ms(lambda: cohort_step(*inputs, params))
+    print(f"[times{tag}] cohort_step {kind} N={N} R={R} k={K} n_iters={N_ITERS}: {slice_ms:.3f} "
+          f"ms (median of {REPS}; {card})", flush=True)
+    cs = colstats_case(values, mask)
+    mu = norm.col_means.nan_to_num()
+    gram_args = (norm.z, norm.mask, region, ZMAX)
+    dip_args = (d2, w_main, w_main, sample_ok, sample_ok)
+    # the slice's own phasing: its dipCN and its ring lists
+    step_irrs = torch.where(out.dipcn_valid, out.dipcn, torch.nan)
+    step_lists = inputs[4:7]
+    step_hap0 = hap_start(step_irrs, step_lists[2])
+    p_main = prepare_z(norm.z, norm.mask, ZMAX, region)
+    timed = {  # (kernel, plain version, library call: a yardstick the port never calls)
+        "masked_column_stats": (lambda: masked_column_stats(*cs, mu),
+                                lambda: masked_column_stats_plain(*cs, mu), None),
+        "zprep_gram": (lambda: zprep_gram(*gram_args), lambda: zprep_gram_plain(*gram_args),
+                       lambda: torch.mm(p_main, p_main.T)),
+        "dipcn_from_distances_gpu": (
+            lambda: dipcn_from_distances_gpu(*dip_args, k=K, n_nbr=N_NBR),
+            lambda: dipcn_from_distances(*dip_args, k=K, n_nbr=N_NBR), None),
+        "sorted_smallest_k_gpu": (lambda: sorted_smallest_k_gpu(d2, K),
+                                  lambda: sorted_smallest_k(d2, K),
+                                  lambda: torch.sort(d2, dim=1, stable=True).values[:, :K]),
+        "phase_sweeps_gpu": (
+            lambda: phase_sweeps_gpu(step_hap0, step_irrs, *step_lists, N_ITERS),
+            lambda: phase_sweeps(step_hap0, step_irrs, *step_lists, N_ITERS), None),
+    }
+    library = {"zprep_gram": f"torch.mm of the prepared P, {kind}" + (
+                   ", TF32 off" if f32 else " (cuBLAS DGEMM)"),
+               "sorted_smallest_k_gpu": f"stable torch.sort of the {kind} rows, sliced to k"}
+    bounds = {
+        # values, mask, 1/row mean, column means in; three [R] sums out
+        "masked_column_stats": bound_ms(N * R * (e + 1) + e * N + e * R + 3 * e * R),
+        # z, mask, region in, G out; the symmetric product's N(N+1)R
+        # operations at the Gram's peak (TF32, or the FP64 tensor cores)
+        "zprep_gram": bound_ms(N * R * (e + 1) + R + e * N * N, N * (N + 1) * R, tol.gram_peak),
+        # d2, rnorm, nbr_w, usable, valid in; dipcn, ok out
+        "dipcn_from_distances_gpu": bound_ms(e * N * N + 3 * e * N + 3 * N),
+        # d2 in, k values and k int32 positions a row out
+        "sorted_smallest_k_gpu": bound_ms(e * N * N + (e + 4) * N * K),
+        # the start, irrs and the lists read once, the values written once
+        "phase_sweeps_gpu": sweeps_bound_ms(step_hap0, step_irrs, *step_lists, N_ITERS,
+                                            flop_per_s=tol.peak),
+    }
+    sources = SOURCES if f32 else F64_SOURCES
+    rows = []
+    for name, (kernel_fn, plain_fn, lib_fn) in timed.items():
+        # plain, kernel, kernel, plain: neither side gets the warmer card
+        p1, k1, k2, p2 = (median_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+        kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+        b2b_ms = min(back_to_back_ms(kernel_fn), back_to_back_ms(kernel_fn))
+        lib_ms = None if lib_fn is None else min(median_ms(lib_fn), median_ms(lib_fn))
+        least, bound_by = bounds[name]
+        route, source, replaces = sources[name]
+        row = {"name": name, "route": route, "source": source, "replaces": replaces,
+               "launches": launches[name], "max_abs_err": errs[name], "ms": kernel_ms,
+               "ms_back_to_back": b2b_ms, "plain_ms": plain_ms, "bound_ms": least,
+               "bound_by": bound_by, "bound_share": least / b2b_ms, "library_ms": lib_ms,
+               "shape": f"N={N}, R={R}, k={K}, {kind}"}
+        extra = ""
+        if name in library:
+            row["library"] = library[name]
+            extra = f"; {library[name]} {lib_ms:.4f} ms"
+        if name == "zprep_gram":
+            flop = N * (N + 1) * R
+            extra += (f"; {flop / kernel_ms / 1e9:.1f} vs {flop / plain_ms / 1e9:.1f} TFLOP/s as "
+                      f"N(N+1)R")
+        if name == "sorted_smallest_k_gpu":
+            row["topk_ms"] = min(median_ms(lambda: torch.topk(d2, K, dim=1, largest=False,
+                                                             sorted=True)) for _ in range(2))
+            extra += f"; torch.topk (largest=False, sorted) {row['topk_ms']:.4f} ms"
+        print(f"[times{tag}] {name} {kind}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(medians of {REPS}, better of two rounds{extra}); {REPS} back to back "
+              f"{b2b_ms:.4f} ms per call; bound {least:.4f} ms by {bound_by}, "
+              f"{100 * least / b2b_ms:.1f}% of it back to back; {card}", flush=True)
+        rows.append(row)
+    del p_main
+
+    # ---- 6. profile ------------------------------------------------------
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            cohort_step(*inputs, params)
+        torch.cuda.synchronize()
+    ops = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    busy = None
+    if ops:
+        # one stream, so device ops do not overlap and their times add up;
+        # the share is taken against the step timed without the profiler
+        dev_ms = sum(map(device_us, ops)) / 1e3 / PROFILE_STEPS
+        n_ops = sum(ev.count for ev in ops) / PROFILE_STEPS
+        busy = dev_ms / slice_ms
+        print(f"[profile{tag}] cohort_step {kind}: device time {dev_ms:.3f} ms per step in "
+              f"{n_ops:.0f} device ops (torch.profiler, {PROFILE_STEPS} steps), "
+              f"{100 * busy:.1f}% of the {slice_ms:.3f} ms step of phase 5; {card}", flush=True)
+        for ev in sorted(ops, key=device_us, reverse=True)[:12]:
+            print(f"[profile{tag}]   {device_us(ev) / 1e3 / PROFILE_STEPS:8.4f} ms/step "
+                  f"{ev.count / PROFILE_STEPS:6.1f} calls/step  {ev.key[:80]}")
+        # the hand kernels' own device time (the Gram product is two kernels,
+        # the split or prep pass and the Gram kernel; the column statistics
+        # are the row-chunk kernel and its merge)
+        own = ("split_kernel", "gram_kernel", "prep_kernel", "gram64_kernel",
+               "dipcn_select_kernel", "colstats", "knn_select_kernel", "phase_resident_kernel",
+               "phase_grid_kernel", "phase_sweep_kernel")
+        for ev in ops:
+            if any(name in ev.key for name in own):
+                print(f"[profile{tag}]   hand kernel {device_us(ev) / 1e3 / PROFILE_STEPS:.4f} "
+                      f"ms/step {ev.count / PROFILE_STEPS:.1f} calls/step  {ev.key[:80]}")
+    else:
+        print(f"[profile{tag}] torch.profiler saw no device activity: device time not measured")
+    return SimpleNamespace(
+        rows=rows, launches=launches, ties=ties_found["ties"], sets=ties_found["sets"],
+        slice_ms=slice_ms, busy=busy, kinfo=kinfo, pinfo=pinfo, d2=d2, w_main=w_main,
+        sample_ok=sample_ok, dip_args=dip_args, inputs=inputs, params=params, out=out,
+        step=(step_hap0, step_irrs, step_lists), irrs_main=irrs_main, rand_lists=rand_lists,
+        boot_slots=boot_slots, boot_lists=boot_lists)
+
+
+def float64_phase(dev, card: str, values_np, mask_np, reads_np, sms: int) -> tuple:
+    """Phase 17 (a-c, e, f): ``device.dtype: float64`` on the card. The
+    up-front refusals (f), then phases 3-6 (:func:`kernels_phase`) and phase
+    7 (:func:`panel_phase`) in float64: each kernel against its float64
+    plain version at N=2504 and at the panel shapes (a), the N=2504 step
+    against the port's float64 CPU route (b), the panel step at N=65,536
+    against the plain route on the card (c), no plain version reached (e).
+    Returns the float64 rows of the kernels line and the steps' times and
+    tie counts."""
+    from grid_tpu_torch.utils.device import compute_dtype
+
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    refusals = (({"device": {"dtype": "bfloat16"}}, False, "bfloat16"),
+                ({"device": {"dtype": "float64"}}, True, "multi-locus sweep"),
+                ({"device": {"dtype": "float64", "mesh_shape": [4]}}, False, "mesh_shape"),
+                ({"device": {"dtype": "float64"}, "mosdepth": {"neighbors": {
+                    "num_neighbors": 8193}}}, False, "8192"))
+    for config, multi, names in refusals:
+        try:
+            compute_dtype(config, dev, multi_locus=multi)
+        except ValueError as e:
+            check(names in str(e), f"the refusal of {config} does not name {names!r}: {e}")
+        else:
+            raise RuntimeError(f"check failed: {config} (multi-locus {multi}) was not refused")
+    check(compute_dtype({"device": {"dtype": "float64"}}, dev) is f64, "float64 refused")
+    print("[f64] (f) compute_dtype on the card: float64 taken; bfloat16, the float64 multi-locus "
+          "sweep, float64 with device.mesh_shape and float64 past 8,192 neighbors refused up "
+          "front, each naming its path or the limit", flush=True)
+    res = kernels_phase(dev, card, f64, values_np, mask_np, reads_np, sms)
+    panel, _, panel_run = panel_phase(dev, card, f64)
+    rows = {}
+    for row in res.rows:
+        name = row["name"]
+        rows[name] = {**row, "name": f"{name}[float64]", "panel_65536": panel[name]}
+    torch.cuda.empty_cache()
+    print(f"[f64] phase 17 (a-c, e, f) took {time.perf_counter() - t_phase:.1f} s (host clock); "
+          f"{card}", flush=True)
+    return rows, {"ms_2504": res.slice_ms, "busy_share_2504": res.busy,
+                  "ms_65536": panel_run.step_ms, "ties_2504": res.ties, "sets_2504": res.sets,
+                  "ties_65536": panel_run.ties, "sets_65536": panel_run.sets}
+
+
+def float64_pipeline_runs(card: str, tmp: Path, cohort: dict, base: dict, names: dict,
+                          cpu_out: Path, k: int, n_nbr: int) -> dict:
+    """Phase 17 (d): ``run_wgs_pipeline`` with ``device.dtype: float64`` on
+    the card, fused and in file mode, on phase 9's cohort on disk; each
+    run's artifacts held to phase 9's float64 CPU run (``cpu_out``):
+    normalized byte-identical (decompressed), neighbor lists identical but
+    for ties within F64_TIE_RTOL of the row's k-th written distance, dipCN
+    within 1e-9 where the input sets agree, haploid byte-identical where no
+    dipCN input set differs (else its differing lines counted). No plain
+    version is reached (e). Returns each run's launches and tie counts."""
+    from grid_tpu_torch.io.formats import read_dipcn, read_neighbors, read_normalized_data
+    from grid_tpu_torch.pipeline import run_wgs_pipeline
+    from torch_parity import dipcn_sets_differ, neighbor_rows_differing
+
+    counted = step_wrappers()
+    ids, ratios, _, _ = read_normalized_data(cpu_out / names["normalized"])
+    row = {s: i for i, s in enumerate(ids)}
+    n = len(ids)
+
+    def lists(out):
+        nbrs, _ = read_neighbors(out / names["neighbors"])
+        return (np.array([[row[m] for m, _, _ in nbrs[s]] for s in ids]),
+                np.array([[dist for _, _, dist in nbrs[s]] for s in ids], np.float64))
+
+    want_idx, want_d = lists(cpu_out)
+    want_dip_ids, want_dip, _ = read_dipcn(cpu_out / names["dipcn"])
+    found = {}
+    for label, device in (("fused", {"fused": True, "dtype": "float64"}),
+                          ("files", {"dtype": "float64"})):
+        cfg = copy.deepcopy(base)
+        out = tmp / f"card_f64_{label}"
+        out.mkdir()
+        cfg["output_dir"] = str(out)
+        cfg["device"] = device
+        (out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with plain_calls_counted() as plains:
+            run_wgs_pipeline(config=cfg)
+        run_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        check(not plains, f"(e) the float64 {label} run reached a plain version: {dict(plains)}")
+        check(launches["masked_column_stats"] == 2 and launches["phase_sweeps_gpu"] == 1
+              and launches["sorted_smallest_k_gpu"] > 0
+              and launches["zprep_gram"] + launches["zprep_gram_panel"] > 0,
+              f"(e) the float64 {label} run's launches {launches}")
+        check(content(out / names["normalized"]) == content(cpu_out / names["normalized"]),
+              f"f64 {label}: the normalized artifact differs from the float64 CPU run's")
+        got_idx, got_d = lists(out)
+        differ = neighbor_rows_differing(got_idx, got_d, want_idx, want_d,
+                                         tol=F64_TIE_RTOL * want_d[:, -1])
+        dip_ids, dip, _ = read_dipcn(out / names["dipcn"])
+        check(dip_ids == want_dip_ids, f"f64 {label}: dipCN rows differ from the CPU run's")
+        usable = np.array([s in set(dip_ids) for s in ids])
+        sets = dipcn_sets_differ(got_idx, want_idx, usable, n_nbr)[[row[s] for s in dip_ids]]
+        check(np.allclose(np.asarray(dip)[~sets], np.asarray(want_dip)[~sets], rtol=1e-9, atol=0),
+              f"f64 {label}: dipCN beyond rtol 1e-9 where the input sets agree")
+        hap_same = content(out / names["haploid"]) == content(cpu_out / names["haploid"])
+        hap_lines = sum(a != b for a, b in zip(content(out / names["haploid"]).splitlines(),
+                                               content(cpu_out / names["haploid"]).splitlines()))
+        check(hap_same or sets.any(), f"f64 {label}: the haploid artifact differs although no "
+                                      f"dipCN input set does ({hap_lines} lines)")
+        found[label] = {"launches": launches, "rows_differing_by_ties": int(differ.size),
+                        "dipcn_sets_differ": int(sets.sum()), "haploid_lines_differ": hap_lines,
+                        "seconds": run_s}
+        print(f"[f64] (d) run_wgs_pipeline, device {device}, on phase 9's {n} x "
+              f"{len(ratios)} cohort: {run_s:.1f} s "
+              f"(host clock); launches {launches}, no plain version reached; vs phase 9's float64 "
+              f"CPU run: normalized byte-identical; neighbor rows identical on {n - differ.size} "
+              f"of {n}, the other {differ.size} differ only by ties within {F64_TIE_RTOL:g} of "
+              f"the k-th written distance; {int(sets.sum())} rows change a dipCN input set, "
+              f"dipCN within rtol 1e-9 on the other {int((~sets).sum())}; haploid "
+              f"{'byte-identical' if hap_same else f'{hap_lines} lines differ'}; {card}",
+              flush=True)
+    return found
+
+
 def clock(start: float, done: str) -> None:
     """Prints the host seconds since ``start`` (the script's start) once
     the phases ``done`` have ended, so the log shows where the script's
@@ -3827,26 +4609,18 @@ def main() -> int:
 
     from grid_tpu_torch.synth import make_matrix
     from grid_tpu_torch import native, native_host
-    from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
-    from grid_tpu_torch.models.cohort import CohortParams, cohort_step
+    from grid_tpu_torch.models.cohort import cohort_step
     from grid_tpu_torch.ops.gpu_kernels import (
-        colstats_plan, masked_column_stats, masked_column_stats_plain, zprep_gram, zprep_gram_info,
-        zprep_gram_plain,
+        colstats_plan, masked_column_stats, masked_column_stats_plain, zprep_gram,
     )
     from grid_tpu_torch.ops.gpu_select import (
-        _knn_launch, dipcn_from_distances_gpu, dipcn_select_info, knn_select_info,
-        sorted_smallest_k_gpu,
+        _knn_launch, dipcn_from_distances_gpu, dipcn_select_info, sorted_smallest_k_gpu,
     )
-    from grid_tpu_torch.ops.knn import d2_matrix, prepare_z, region_filter_mask, sorted_smallest_k
-    from grid_tpu_torch.ops.masked import masked_mean
-    from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
     from grid_tpu_torch.ops.phasing import (
         _sweeps_launch, _sweeps_probe, phase_bootstrap_slots, phase_sweeps, phase_sweeps_gpu,
         phase_sweeps_info, phase_sweeps_mode,
     )
-    from grid_tpu_torch.ops.select import dipcn_from_distances
     from grid_tpu_torch.utils.device import get_device
-    from torch_parity import assert_close_to_max, dipcn_sets_differ, neighbor_rows_differing
 
     dev = get_device("cuda")
     wrappers = {
@@ -3875,47 +4649,18 @@ def main() -> int:
     host_phase(host_build_s)
     for name in native.KERNELS:
         native.load(name)
-        lines = [line.strip() for line in
-                 native.build(name).with_suffix(".log").read_text().splitlines()
-                 if "registers" in line or "spill" in line]
+        found = ptxas_functions(native.build(name).with_suffix(".log").read_text())
         if name == "sw_scores":  # one function per instance of its table: phase 13 lists them
-            regs = [int(m) for m in re.findall(r"Used (\d+) registers", "\n".join(lines))]
-            spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", "\n".join(lines)))
+            regs = [f["registers"] for f in found]
             lines = [f"sw_scores: {len(regs)} functions, {min(regs)}-{max(regs)} registers, "
-                     f"{spills} bytes of spill stores and loads in all"]
+                     f"{sum(f['spill_bytes'] for f in found)} bytes of spill stores and loads "
+                     f"in all"]
+        else:
+            lines = [f"{f['function']}: {f['registers']} registers, {f['usage']}, "
+                     f"{f['spill_bytes']} bytes spilled" for f in found]
         for line in lines:
             print(f"[build]   ptxas: {line}")
-    info = zprep_gram_info(N, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    print(f"[build] zprep_gram at N={N}: {info['blocks']} blocks (upper-triangle tiles of "
-          f"{info['tile']}x{info['tile']}) on {sms} SMs at {info['blocks_per_sm']} block(s) "
-          f"per SM; {info['threads']} threads and "
-          f"{info['smem_bytes']} B of dynamic shared memory per block, a {info['stages']}-stage "
-          f"ring of {info['k_tile']}-column stages", flush=True)
-    dinfo = dipcn_select_info(N, K, dev)
-    print(f"[build] dipcn_select at W={N}, k={K}: one block of {dinfo['threads']} threads per "
-          f"row, {dinfo['smem_bytes']} B dynamic + {dinfo['static_smem_bytes']} B static shared "
-          f"memory per block, {dinfo['blocks_per_sm']} blocks per SM "
-          f"({min(N, dinfo['blocks_per_sm'] * sms)} of {N} rows in flight); "
-          f"{dinfo['registers']} registers and {dinfo['spill_bytes']} B of local memory a thread",
-          flush=True)
-    check(dinfo["spill_bytes"] == 0, "dipcn_select spills to local memory")
-    kinfo = knn_select_info(N, K, dev)
-    print(f"[build] knn_select at W={N}, k={K}: {kinfo['mode']} mode, one block of "
-          f"{kinfo['threads']} threads per row, {kinfo['smem_bytes']} B dynamic + "
-          f"{kinfo['static_smem_bytes']} B static shared memory per block, "
-          f"{kinfo['blocks_per_sm']} blocks per SM ({min(N, kinfo['blocks_per_sm'] * sms)} of "
-          f"{N} rows in flight); {kinfo['registers']} registers and {kinfo['spill_bytes']} B of "
-          f"local memory a thread", flush=True)
-    pinfo = phase_sweeps_info(N, 2, dev)  # the slice's ring lists: 2 slots
-    print(f"[build] phase_sweeps at N={N}, K=2: {pinfo['mode']} mode, a cluster of "
-          f"{pinfo['cluster_blocks']} blocks of {pinfo['threads']} threads per replicate, "
-          f"{pinfo['smem_bytes']} B of shared memory a block (the values double-buffered and "
-          f"an eighth of the lists), {pinfo['blocks_per_sm']} block(s) per SM, "
-          f"{pinfo['clusters']} clusters at once; {pinfo['registers']} registers and "
-          f"{pinfo['spill_bytes']} B of local memory a thread", flush=True)
-    check(kinfo["mode"] == "resident" and kinfo["spill_bytes"] == 0, "knn_select launch shape")
-    check(pinfo["mode"] == "resident" and pinfo["spill_bytes"] == 0, "phase_sweeps launch shape")
     col_tiles, chunks, rows_per_chunk = colstats_plan(N, R, sms)
     col_programs = col_tiles * chunks
     print(f"[build] masked_column_stats at {N}x{R}: {chunks} row chunks of {rows_per_chunk} "
@@ -3929,366 +4674,17 @@ def main() -> int:
     print(f"[build] masked_column_stats: Triton JIT {time.perf_counter() - t0:.1f} s", flush=True)
 
     clock(t_script, "phases 1-2 (the build)")
-    # ---- 3. kernels against their plain versions -------------------------
-    rng = np.random.default_rng(0)
+    # ---- 3-6. kernels, the slice, times, profile --------------------------
     values_np, mask_np, reads_np = make_matrix(N, R)
-    values = torch.tensor(values_np, dtype=torch.float32, device=dev)
-    mask = torch.tensor(mask_np, device=dev)
-    # the cohort step's own inputs to each kernel (its d2-resident prefix)
-    norm = normalize_cohort(values, mask)
-    selected = select_high_variance_mask(norm.var_ratio)
-    ratios_seen = torch.where(selected, norm.var_ratio, torch.nan)
-    region = selected & region_filter_mask(ratios_seen, n_written=selected.sum())
-    sample_ok = norm.mask.any(dim=1)
-    d2 = d2_matrix(norm.z, norm.mask, region, ZMAX, row_valid=sample_ok)
-    w_main = torch.tensor(reads_np, dtype=torch.float32, device=dev) / norm.row_means_raw
-
-    def colstats_case(vals, msk):
-        rm = masked_mean(vals, msk, axis=1)
-        ok = torch.isfinite(rm) & (rm != 0)
-        inv = torch.where(ok, 1 / torch.where(ok, rm, 1), 0)
-        return vals, msk & ok[:, None], inv
-
-    ragged_vals = torch.tensor(rng.uniform(10, 60, RAGGED), dtype=torch.float32, device=dev)
-    ragged_mask = torch.tensor(rng.random(RAGGED) > 0.15, device=dev)
-    errs = {}
-
-    for label, (vals, msk, inv) in [("main", colstats_case(values, mask)),
-                                    ("ragged", colstats_case(ragged_vals, ragged_mask))]:
-        cnt, s, _ = masked_column_stats(vals, msk, inv)
-        pcnt, ps, _ = masked_column_stats_plain(vals, msk, inv)
-        mu = ps / pcnt.clamp_min(1)
-        _, _, sq = masked_column_stats(vals, msk, inv, mu)
-        _, _, psq = masked_column_stats_plain(vals, msk, inv, mu)
-        torch.cuda.synchronize()
-        check(torch.equal(cnt, pcnt), f"masked_column_stats {label}: counts differ")
-        check(torch.allclose(s, ps, rtol=1e-5, atol=0), f"masked_column_stats {label}: sums")
-        check(torch.allclose(sq, psq, rtol=1e-5, atol=0), f"masked_column_stats {label}: sqdev")
-        once, twice = (masked_column_stats(vals, msk, inv, mu) for _ in range(2))
-        check(all(torch.equal(a, b) for a, b in zip(once, twice)),
-              f"masked_column_stats {label}: two calls differ")
-        err = max(max_abs(s, ps), max_abs(sq, psq))
-        errs.setdefault("masked_column_stats", err)
-        print(f"[kernels] masked_column_stats {label} {tuple(vals.shape)}: counts exact, "
-              f"sum/sqdev within rtol 1e-5, max abs err {err:.3e}; two calls bitwise equal",
-              flush=True)
-
-    rz = torch.tensor(rng.normal(size=RAGGED) * 3, dtype=torch.float32, device=dev)
-    rmask = torch.tensor(rng.random(RAGGED) > 0.1, device=dev)
-    rregion = torch.tensor(rng.random(RAGGED[1]) > 0.2, device=dev)
-    for label, args in [("main", (norm.z, norm.mask, region, ZMAX)),
-                        ("ragged", (rz, rmask, rregion, ZMAX))]:
-        g, pg = zprep_gram(*args), zprep_gram_plain(*args)
-        err = assert_close_to_max(g.cpu(), pg.cpu(), 1e-5)
-        errs.setdefault("zprep_gram", err)
-        check(torch.equal(g, g.T), f"zprep_gram {label}: G is not exactly symmetric")
-        # both routes against a float64 Gram of the same P, on the card
-        z, msk, reg, zmax = args
-        p64 = torch.where(msk, z.double().clamp(-zmax, zmax), 0) * reg[None, :].double()
-        g64 = p64 @ p64.T
-        err64, plain_err64 = max_abs(g, g64), max_abs(pg, g64)
-        check(err64 <= 2 * plain_err64, f"zprep_gram {label}: error vs float64 {err64:.3e} > 2x "
-                                        f"the plain version's {plain_err64:.3e}")
-        ratio = err64 / plain_err64 if plain_err64 else float("inf")
-        print(f"[kernels] zprep_gram {label} {tuple(z.shape)}: within 1e-5 of max|G|, max abs "
-              f"err {err:.3e}; exactly symmetric; vs a float64 Gram: kernel {err64:.3e}, plain "
-              f"{plain_err64:.3e} ({ratio:.3f}x, gate 2x)", flush=True)
-
-    def dipcn_case(zp, k, n_nbr):
-        n = zp.shape[0]
-        ones = torch.ones_like(zp, dtype=torch.bool)
-        valid = torch.tensor(rng.random(n) > 0.1, device=dev)
-        dd = d2_matrix(zp, ones, ones[0], 1e30, row_valid=valid)
-        rnorm = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32, device=dev)
-        usable = torch.tensor(rng.random(n) > 0.2, device=dev)
-        return (dd, rnorm, rnorm, usable, usable), k, n_nbr
-
-    ties = torch.tensor(np.round(rng.normal(size=(97, 16)) * 4) / 4, dtype=torch.float32,
-                        device=dev)
-    # quantized random distances, with the finfo.max of self / invalid columns
-    wide_d2 = torch.tensor(rng.integers(0, 400, WIDE) * 0.25, dtype=torch.float32, device=dev)
-    wide_d2[:, rng.random(WIDE[1]) < 0.05] = torch.finfo(torch.float32).max
-    wide_w = torch.tensor(rng.uniform(0.5, 2.0, WIDE[1]), dtype=torch.float32, device=dev)
-    wide_rnorm = torch.tensor(rng.uniform(0.5, 2.0, WIDE[0]), dtype=torch.float32, device=dev)
-    wide_usable = torch.tensor(rng.random(WIDE[1]) > 0.2, device=dev)
-    cases = [
-        ("main", (d2, w_main, w_main, sample_ok, sample_ok), K, N_NBR),
-        ("ragged", *dipcn_case(rz, 20, 7)),
-        ("forced-tie", *dipcn_case(ties, 20, 7)),
-        ("all-equal", *dipcn_case(torch.zeros((N, 16), device=dev), K, N_NBR)),
-        ("wide", (wide_d2, wide_rnorm, wide_w, wide_usable, wide_rnorm > 0.6), K, N_NBR),
-    ]
-    for label, args, k, n_nbr in cases:
-        dip, ok = dipcn_from_distances_gpu(*args, k=k, n_nbr=n_nbr)
-        pdip, pok = dipcn_from_distances(*args, k=k, n_nbr=n_nbr)
-        torch.cuda.synchronize()
-        check(torch.equal(ok, pok), f"dipcn {label}: ok differs")
-        check(torch.allclose(dip[ok], pdip[ok], rtol=1e-6, atol=0), f"dipcn {label}: values")
-        err = max_abs(dip[ok], pdip[ok])
-        errs.setdefault("dipcn_from_distances_gpu", err)
-        print(f"[kernels] dipcn {label} {tuple(args[0].shape)} k={k} n_nbr={n_nbr}: ok exact "
-              f"({int(ok.sum())} rows), dipcn within rtol 1e-6, max abs err {err:.3e}", flush=True)
-
-    # knn_select: bitwise the stable sort (its plain version) in the mode the
-    # wrapper picks, over the cluster size the width picks; at the widths
-    # where the cluster size and the mode change its wide mode (the keys in
-    # device memory) too
-    tie_d2 = cases[2][1][0]
-    gen_k = torch.Generator(device=dev).manual_seed(16)
-
-    def quantized(rows, width):  # each value repeats ~width / 400 times a row
-        q = torch.randint(0, 400, (rows, width), device=dev, generator=gen_k) * 0.25
-        q[:, torch.rand(width, device=dev, generator=gen_k) < 0.05] = torch.finfo(torch.float32).max
-        return q.contiguous()
-
-    select_cases = [(label, args[0], k, None) for label, args, k, _ in cases] + [
-        ("forced-tie k=1", tie_d2, 1, None), ("forced-tie k=W", tie_d2, tie_d2.shape[1], None),
-        ("ring merge [best | d2]", torch.cat([sorted_smallest_k(d2[:512], K)[0], d2[:512]], 1), K,
-         None),
-        ("the widest one-block row", quantized(64, KNN_SLICE), K, ("resident", 1)),
-        ("the narrowest two-block row", quantized(64, KNN_SLICE + 1), K, ("cluster", 2)),
-        ("a panel row", quantized(64, PANEL_N), K, ("cluster", 8)),
-        ("the biobank row", quantized(16, BIOBANK_N), K, ("cluster", 8)),
-        ("past the cluster's edge", quantized(4, KNN_WIDE_W), K, ("wide", 1)),
-        ("the largest list", quantized(4, KNN_MAX_K_W), KNN_MAX_K, ("wide", 1))]
-    edges = {"the widest one-block row", "the narrowest two-block row", "a panel row"}
-    for label, dd, k, want_mode in select_cases:
-        vals, idx = sorted_smallest_k_gpu(dd, k)
-        want_v, want_i = sorted_smallest_k(dd, k)
-        torch.cuda.synchronize()
-        check(torch.equal(idx, want_i) and torch.equal(vals, want_v),
-              f"knn_select {label}: not the stable sort's values and positions")
-        kinfo_c = knn_select_info(dd.shape[1], k, dev)
-        if want_mode is not None:
-            check((kinfo_c["mode"], kinfo_c["cluster_blocks"]) == want_mode,
-                  f"knn_select {label}: mode {kinfo_c['mode']} over {kinfo_c['cluster_blocks']} "
-                  f"block(s), not {want_mode}")
-        also = ""
-        if label in edges:
-            got_v, got_i = _knn_launch("wide", dd, k)
-            check(torch.equal(got_i, idx) and torch.equal(got_v, vals),
-                  f"knn_select {label}: its wide mode differs")
-            also = ", and so its wide mode"
-        errs["sorted_smallest_k_gpu"] = max(errs.get("sorted_smallest_k_gpu", 0.0),
-                                            max_abs(vals, want_v))
-        print(f"[kernels] knn_select {label} {tuple(dd.shape)} k={k} ({kinfo_c['mode']} mode, "
-              f"{kinfo_c['cluster_blocks']} block(s) a row): values and positions bitwise the "
-              f"stable sort's{also}", flush=True)
-    del select_cases
-    lo_w, hi_w = PANEL_N, KNN_WIDE_W  # the widest row of the cluster mode at k=K lies here
-    while hi_w - lo_w > 1:
-        mid = (lo_w + hi_w) // 2
-        lo_w, hi_w = (mid, hi_w) if knn_select_info(mid, K, dev)["mode"] == "cluster" else (lo_w, mid)
-    print(f"[kernels] knn_select at k={K}: rows up to {lo_w} columns take the cluster mode (8 "
-          f"blocks of {knn_select_info(lo_w, K, dev)['slice']} columns), wider ones the wide mode; "
-          f"{card}", flush=True)
-
-    # phase_sweeps: the plain sweeps within rtol 1e-5 (each neighbor list
-    # summed in slot order, not in torch's reduction order), the same NaNs;
-    # its two modes bitwise equal. The bootstrap replicates' resampled lists
-    # drive some values towards 0 (to ~1e-25 in 100 sweeps), where float32
-    # keeps no 1e-5 relative accuracy: the plain sweeps themselves are
-    # ~1.5e-5 from float64 sweeps there. Those are held to float64 sweeps
-    # instead: their relative error at most twice the plain version's.
-
-    def rel_err(a, ref) -> float:
-        """Largest relative error of ``a`` against ``ref`` over its finite,
-        non-zero cells."""
-        keep = torch.isfinite(ref) & (ref != 0)
-        return float(((a.double() - ref) / ref).abs()[keep].max()) if keep.any() else 0.0
-
-    main_dip, main_ok = dipcn_from_distances_gpu(d2, w_main, w_main, sample_ok, sample_ok, k=K,
-                                                 n_nbr=N_NBR)
-    irrs_main = torch.where(main_ok, main_dip, torch.nan)
-    rand_lists = random_hap_lists(N, 10, dev, seed=3)
-    boot_slots = torch.tensor(
-        (np.random.default_rng(4).random((BOOT_REPLICATES, 2 * N, 10))
-         * rand_lists[2].sum(dim=1).clamp_min(1).cpu().numpy()[None, :, None]).astype(np.int64),
-        device=dev)
-    boot_lists = [torch.gather(rand_lists[0].long().expand(BOOT_REPLICATES, 2 * N, 10), 2,
-                               boot_slots).to(torch.int32).contiguous(),
-                  torch.gather(rand_lists[1].expand(BOOT_REPLICATES, 2 * N, 10), 2, boot_slots),
-                  rand_lists[2]]
-    ring_lists = [torch.tensor(a, device=dev) for a in ring_neighbors(N)]
-    for label, lists, strict in (
-            ("ring lists, K=2", ring_lists, True), ("random lists, K=10", rand_lists, True),
-            (f"{BOOT_REPLICATES} bootstrap replicates, K=10", boot_lists, False)):
-        hap0 = hap_start(irrs_main, lists[2])
-        got = phase_sweeps_gpu(hap0, irrs_main, *lists, N_ITERS)
-        want = phase_sweeps(hap0, irrs_main, *lists, N_ITERS)
-        want64 = phase_sweeps(hap0.double(), irrs_main.double(), lists[0], lists[1].double(),
-                              lists[2], N_ITERS)
-        modes = phasing_modes(N, lists[0].shape[-1], dev)
-        others = {m: _sweeps_launch(
-            m, hap0, irrs_main, lists[0].to(torch.int32), lists[1], lists[2], N_ITERS,
-            torch.empty_like(got.reshape(-1, 2 * N))).reshape(got.shape) for m in modes}
-        torch.cuda.synchronize()
-        nan = got.isnan()
-        check(torch.equal(nan, want.isnan()), f"phase_sweeps {label}: NaN cells differ")
-        rel, plain_rel = rel_err(got, want64), rel_err(want, want64)
-        if strict:
-            check(torch.allclose(got[~nan], want[~nan], rtol=1e-5, atol=0),
-                  f"phase_sweeps {label}: beyond rtol 1e-5 of the plain sweeps")
-        else:
-            check(rel <= 2 * plain_rel, f"phase_sweeps {label}: relative error {rel:.3e} against "
-                                        f"float64 sweeps > 2x the plain version's {plain_rel:.3e}")
-        for name, other in others.items():
-            check(torch.equal(other.nan_to_num(), got.nan_to_num())
-                  and torch.equal(other.isnan(), nan),
-                  f"phase_sweeps {label}: the {name} mode differs from the wrapper's")
-        err = max_abs(got[~nan], want[~nan])
-        errs["phase_sweeps_gpu"] = max(errs.get("phase_sweeps_gpu", 0.0), err)
-        gate = ("within rtol 1e-5 of the plain sweeps" if strict else
-                "relative error against float64 sweeps at most 2x the plain version's")
-        mode = phase_sweeps_mode(N, lists[0].shape[-1], dev)
-        print(f"[kernels] phase_sweeps {label}, N={N}, {N_ITERS} sweeps ({mode} mode): {gate} "
-              f"(max abs err "
-              f"{err:.3e} against the plain sweeps; relative error against float64 sweeps: "
-              f"kernel {rel:.3e}, plain {plain_rel:.3e}), NaN cells identical "
-              f"({int(nan.sum())} of {nan.numel()}); the modes {', '.join(others)} called "
-              f"directly bitwise the same", flush=True)
-        del others
-
-    # ---- 4. the slice ----------------------------------------------------
-    reads_valid_np = np.ones(N, bool)
-    hi, hw, hv = ring_neighbors(N)
-    # bench.py's setting: unquantized z, so the two routes' z differ by
-    # rounding only, never by a %.2f flip
-    params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
-    inputs = inputs_to_torch(values_np, mask_np, reads_np, reads_valid_np, hi, hw, hv, dev,
-                             torch.float32)
-    for fn in (*wrappers.values(), *selectors.values()):
-        fn.launches = 0
-    out = cohort_step(*inputs, params)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in (wrappers | selectors).items()}
-    print(f"[slice] cohort_step on {torch.cuda.get_device_name(0)}: kernel launches {launches}",
-          flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched by the main path")
-    check(all(launches[name] == 1 for name in selectors),
-          f"the slice must launch knn_select and phase_sweeps once each: {launches}")
-
-    got = outputs_to_numpy(out)
-    t0 = time.perf_counter()
-    want = outputs_to_numpy(cohort_step(*inputs_to_torch(
-        values_np, mask_np, reads_np, reads_valid_np, hi, hw, hv, "cpu", torch.float32), params))
-    print(f"[slice] plain route on CPU tensors: {time.perf_counter() - t0:.1f} s (host clock)")
-    check(got.nbr_idx.shape == (N, K) and got.dipcn.shape == (N,), "output shapes")
-    check(np.isfinite(got.dipcn[got.dipcn_valid]).all(), "non-finite dipCN on a valid row")
-    check(np.isfinite(got.hap_irrs[np.repeat(got.phased, 2)]).all(), "non-finite phased hap")
-    z_err = assert_close_to_max(got.z, want.z, 1e-5)
-    # the Gram product sums R=2048 float32 products in another order on each
-    # route, and d2 = |a|^2 + |b|^2 - 2G cancels most of their magnitude, so
-    # near-equal distances may swap: each row's list must agree up to ties
-    # within TIE_RTOL of that row's k-th distance
-    tol = TIE_RTOL * want.nbr_sq_dists[:, -1].astype(np.float64)
-    row_err = np.max(np.abs(got.nbr_sq_dists.astype(np.float64) - want.nbr_sq_dists), axis=1)
-    ratio = float(np.max(row_err / tol))
-    check(ratio <= 1, f"neighbor distances: worst row at {ratio:.3f} of its tolerance")
-    differ = neighbor_rows_differing(got.nbr_idx, got.nbr_sq_dists, want.nbr_idx,
-                                     want.nbr_sq_dists, tol=tol)
-    usable = reads_valid_np & want.z_mask.any(axis=1)
-    sets_differ = dipcn_sets_differ(got.nbr_idx, want.nbr_idx, usable, N_NBR)
-    k_set_differ = (np.sort(got.nbr_idx, axis=1) != np.sort(want.nbr_idx, axis=1)).any(axis=1)
-    print(f"[slice] neighbor distances: max |diff| {float(row_err.max()):.3e}, worst row at "
-          f"{ratio:.3f} of its tolerance ({TIE_RTOL:g} of the row's k-th distance, "
-          f"{float(tol.min()):.3e} to {float(tol.max()):.3e}); nbr_idx identical on "
-          f"{N - differ.size} rows, the other {differ.size} differ only by ties within tol "
-          f"({int(k_set_differ.sum())} of them at the k-th neighbor); "
-          f"{int(sets_differ.sum())} rows change a dipCN input set", flush=True)
-    check(np.array_equal(got.dipcn_valid, want.dipcn_valid), "dipcn_valid differs")
-    same = got.dipcn_valid & ~sets_differ
-    dip_ok = np.allclose(got.dipcn[same], want.dipcn[same], rtol=1e-5, atol=0)
-    check(dip_ok, "dipCN differs beyond rtol 1e-5")
-    print(f"[slice] z within 1e-5 of max|z| (max abs err {z_err:.3e}); dipCN within rtol 1e-5 on "
-          f"{int(same.sum())} rows with the same input sets; dipcn_valid exact; "
-          f"r_use {int(got.r_use)}; {int(got.phased.sum())} phased", flush=True)
-
-    clock(t_script, "phases 3-4")
-    # ---- 5. times --------------------------------------------------------
-    slice_ms = median_ms(lambda: cohort_step(*inputs, params))
-    print(f"[times] cohort_step N={N} R={R} k={K} n_iters={N_ITERS}: {slice_ms:.3f} ms "
-          f"(median of {REPS}; {card})", flush=True)
-    cs = colstats_case(values, mask)
-    mu = norm.col_means.nan_to_num()
-    gram_args = (norm.z, norm.mask, region, ZMAX)
-    dip_args = (d2, w_main, w_main, sample_ok, sample_ok)
-    # the slice's own phasing: its dipCN and its ring lists
-    step_irrs = torch.where(out.dipcn_valid, out.dipcn, torch.nan)
-    step_lists = inputs[4:7]
-    step_hap0 = hap_start(step_irrs, step_lists[2])
-    timed = {
-        "masked_column_stats": (lambda: masked_column_stats(*cs, mu),
-                                lambda: masked_column_stats_plain(*cs, mu)),
-        "zprep_gram": (lambda: zprep_gram(*gram_args), lambda: zprep_gram_plain(*gram_args)),
-        "dipcn_from_distances_gpu": (
-            lambda: dipcn_from_distances_gpu(*dip_args, k=K, n_nbr=N_NBR),
-            lambda: dipcn_from_distances(*dip_args, k=K, n_nbr=N_NBR)),
-        "sorted_smallest_k_gpu": (lambda: sorted_smallest_k_gpu(d2, K),
-                                  lambda: sorted_smallest_k(d2, K)),
-        "phase_sweeps_gpu": (
-            lambda: phase_sweeps_gpu(step_hap0, step_irrs, *step_lists, N_ITERS),
-            lambda: phase_sweeps(step_hap0, step_irrs, *step_lists, N_ITERS)),
-    }
-    meta = {
-        "masked_column_stats": ("triton", "grid_tpu_torch/ops/gpu_kernels.py",
-                                "grid_tpu/ops/pallas_kernels.py:168"),
-        "zprep_gram": ("cuda", "grid_tpu_torch/csrc/zprep_gram.cu",
-                       "grid_tpu/ops/pallas_kernels.py:93"),
-        "dipcn_from_distances_gpu": ("cuda", "grid_tpu_torch/csrc/dipcn_select.cu",
-                                     "grid_tpu/ops/pallas_select.py:130"),
-        "sorted_smallest_k_gpu": ("cuda", "grid_tpu_torch/csrc/knn_select.cu",
-                                  "grid_tpu/models/cohort.py:189 (lax.approx_max_k; also "
-                                  "grid_tpu/ops/knn.py:168-199 and grid_tpu/parallel/pknn.py:84; "
-                                  "no pallas_call)"),
-        "phase_sweeps_gpu": ("cuda", "grid_tpu_torch/csrc/phase_sweeps.cu",
-                             "grid_tpu/ops/phasing.py:94 (lax.scan, no pallas_call)"),
-    }
-    p_main = prepare_z(norm.z, norm.mask, ZMAX, region)
-    library = {  # yardsticks the port never calls
-        "zprep_gram": lambda: torch.mm(p_main, p_main.T),
-        "sorted_smallest_k_gpu": lambda: torch.sort(d2, dim=1, stable=True).values[:, :K],
-    }
-    four = N * R * 4
-    bounds = {
-        # values, mask, 1/row mean, column means in; three [R] sums out
-        "masked_column_stats": bound_ms(four + N * R + 4 * N + 4 * R + 12 * R),
-        # z, mask, region in, G out; 2·N²·R operations at the TF32 peak
-        "zprep_gram": bound_ms(four + N * R + R + 4 * N * N, 2 * N * N * R),
-        # d2, rnorm, nbr_w, usable, valid in; dipcn, ok out
-        "dipcn_from_distances_gpu": bound_ms(4 * N * N + 4 * N + 4 * N + N + N + 4 * N + N),
-        # d2 in, k values and k int32 positions a row out
-        "sorted_smallest_k_gpu": bound_ms(4 * N * N + 8 * N * K),
-        # the start, irrs and the lists read once, the values written once
-        "phase_sweeps_gpu": sweeps_bound_ms(step_hap0, step_irrs, *step_lists, N_ITERS),
-    }
-    kernels = []
-    for name, (kernel_fn, plain_fn) in timed.items():
-        # plain, kernel, kernel, plain: neither side gets the warmer card
-        p1, k1, k2, p2 = (median_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
-        kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
-        b2b_ms = min(back_to_back_ms(kernel_fn), back_to_back_ms(kernel_fn))
-        lib_ms = None
-        if name in library:
-            lib_ms = min(median_ms(library[name]), median_ms(library[name]))
-        least, bound_by = bounds[name]
-        rate = ""
-        if name == "zprep_gram":
-            flop = 2 * N * N * R
-            rate = (f"; {flop / kernel_ms / 1e9:.1f} vs {flop / plain_ms / 1e9:.1f} TFLOP/s "
-                    f"as 2*N^2*R; torch.mm of the prepared P {lib_ms:.4f} ms")
-        print(f"[times] {name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(medians of {REPS}, better of two rounds{rate}); {REPS} back to back "
-              f"{b2b_ms:.4f} ms per call; bound {least:.4f} ms by {bound_by}, "
-              f"{100 * least / b2b_ms:.1f}% of it back to back; {card}", flush=True)
-        route, source, replaces = meta[name]
-        kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": errs[name],
-                        "ms": kernel_ms, "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
-                        "bound_ms": least, "bound_by": bound_by,
-                        "bound_share": least / b2b_ms, "library_ms": lib_ms})
-
+    res = kernels_phase(dev, card, torch.float32, values_np, mask_np, reads_np, sms)
+    kernels, kinfo, pinfo = res.rows, res.kinfo, res.pinfo
+    d2, w_main, sample_ok, dip_args = res.d2, res.w_main, res.sample_ok, res.dip_args
+    inputs, params, out = res.inputs, res.params, res.out
+    step_hap0, step_irrs, step_lists = res.step
+    irrs_main, rand_lists, boot_slots, boot_lists = (res.irrs_main, res.rand_lists,
+                                                     res.boot_slots, res.boot_lists)
+    clock(t_script, "phases 3-6")
+    # ---- 5 (continued). float32 times beyond each kernel's own -----------
     # CohortParams.dipcn_lists: dipCN from knn_select's lists in tensor code
     # on the card, beside dipcn_select's route on the same d2: the same
     # validity, dipCN within 1e-6 relative (the same take-set summed in
@@ -4338,7 +4734,7 @@ def main() -> int:
     # dipcn_select's wide mode on the same rows, where the resident mode also
     # fits: the two must agree bitwise, and their times say whether the
     # resident mode earns its place (resident, wide, wide, resident)
-    from grid_tpu_torch.ops.gpu_select import _launch, dipcn_select_mode
+    from grid_tpu_torch.ops.gpu_select import _launch
 
     # on the slice's own d2 (N=2504: 25 MB, it stays in the 50 MB L2), then
     # on square [W, W] distances of resident-branch cohorts up to the widest
@@ -4375,8 +4771,6 @@ def main() -> int:
 
     # knn_select beside torch.topk (the same set, no tie order) and in its
     # wide mode; phase_sweeps on 20 bootstrap replicates
-    topk_ms = min(median_ms(lambda: torch.topk(d2, K, dim=1, largest=False, sorted=True))
-                  for _ in range(2))
     knn_wide_ms = min(back_to_back_ms(lambda: _knn_launch("wide", d2, K)) for _ in range(2))
     # what holds the resident launch: one row an SM (a row's latency), then
     # the rows the card holds at once (one wave), beside all N rows; back to
@@ -4450,8 +4844,8 @@ def main() -> int:
                    for _ in range(2))
     pinfo10 = phase_sweeps_info(N, 10, dev)
     knn_row = next(row for row in kernels if row["name"] == "sorted_smallest_k_gpu")
-    knn_row.update(library="stable torch.sort of the rows, sliced to k", topk_ms=topk_ms,
-                   wide_mode_ms_back_to_back=knn_wide_ms,
+    topk_ms = knn_row["topk_ms"]
+    knn_row.update(wide_mode_ms_back_to_back=knn_wide_ms,
                    rows_ms_back_to_back={str(r): t[0] for r, t in knn_wave_ms.items()},
                    rows_device_ms={str(r): t[1] for r, t in knn_wave_ms.items()})
     sweep_row = next(row for row in kernels if row["name"] == "phase_sweeps_gpu")
@@ -4531,45 +4925,15 @@ def main() -> int:
     del g_vals, g_mask
     torch.cuda.empty_cache()
 
-    # ---- 6. profile ------------------------------------------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_STEPS):
-            cohort_step(*inputs, params)
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    if ops:
-        # one stream, so device ops do not overlap and their times add up;
-        # the share is taken against the step timed without the profiler
-        dev_ms = sum(device_us(e) for e in ops) / 1e3 / PROFILE_STEPS
-        n_ops = sum(e.count for e in ops) / PROFILE_STEPS
-        print(f"[profile] cohort_step: device time {dev_ms:.3f} ms per step in {n_ops:.0f} device "
-              f"ops (torch.profiler, {PROFILE_STEPS} steps), {100 * dev_ms / slice_ms:.1f}% of the "
-              f"{slice_ms:.3f} ms step of phase 5; {card}", flush=True)
-        for e in sorted(ops, key=device_us, reverse=True)[:12]:
-            print(f"[profile]   {device_us(e) / 1e3 / PROFILE_STEPS:8.4f} ms/step "
-                  f"{e.count / PROFILE_STEPS:6.1f} calls/step  {e.key[:80]}")
-        # the hand kernels' own device time (the Gram product is two kernels,
-        # the split pass and the Gram kernel; the column statistics are the
-        # row-chunk kernel and its merge)
-        own = ("split_kernel", "gram_kernel", "dipcn_select_kernel", "colstats",
-               "knn_select_kernel", "phase_resident_kernel", "phase_grid_kernel",
-               "phase_sweep_kernel")
-        for e in ops:
-            if any(name in e.key for name in own):
-                print(f"[profile]   hand kernel {device_us(e) / 1e3 / PROFILE_STEPS:.4f} ms/step "
-                      f"{e.count / PROFILE_STEPS:.1f} calls/step  {e.key[:80]}")
-    else:
-        print("[profile] torch.profiler saw no device activity: device time not measured")
-
-    clock(t_script, "phases 5-6")
+    clock(t_script, "phase 5's float32 times")
     # ---- 7. panels and 8. branches ---------------------------------------
-    panel, panel_zp, cohort_65536 = panel_phase(dev, card, wrappers)
+    panel, panel_zp, cohort_65536 = panel_phase(dev, card)
     cohort_16384 = branch_phase(dev, card)
 
     clock(t_script, "phases 7-8")
+    # ---- 17 (a-c, e, f). device.dtype float64 on the card -----------------
+    f64_rows, f64_step = float64_phase(dev, card, values_np, mask_np, reads_np, sms)
+    clock(t_script, "phase 17 (a-c, e, f)")
     # ---- 15 (a-c). the sharded ring on W ranks of the one card ------------
     ring = ring_phase(dev, card, cohort_16384, cohort_65536, panel_zp)
     clock(t_script, "phase 15 (a-c)")
@@ -4580,8 +4944,8 @@ def main() -> int:
     clock(t_script, "phase 16 (a, b)")
     # ---- 9. the pipeline, from files, 10. in file mode, 11. multi-locus ----
     # (with 14 (b, c), 15 (d) and 16 (c, d) on the same cohort)
-    pipeline_launches, files_launches, multi, ibs_launches, ring_launches = pipeline_phase(
-        card, wrappers)
+    (pipeline_launches, files_launches, multi, ibs_launches, ring_launches,
+     f64_runs) = pipeline_phase(card, wrappers)
     multi_wide = multilocus_wide_phase(card, panel_zp)
     del panel_zp
     torch.cuda.empty_cache()
@@ -4626,7 +4990,7 @@ def main() -> int:
                      "pipeline_2504": {"launches": pipeline_launches[row["name"]]},
                      "pipeline_files_2504": files_json[row["name"]],
                      "multilocus_2504": multi_json[row["name"]],
-                     "alignments_2504": align_json[row["name"]],
+                     f"alignments_{ALIGN_N}": align_json[row["name"]],
                      "ibs_2504": {"launches": ibs_launches[row["name"]]}})
     # phase 15: the ring's launches per rank, its pipeline call's over all
     # ranks, and the Gram kernel's cross mode
@@ -4711,6 +5075,19 @@ def main() -> int:
                  "by_q": {str(q): v for q, v in sw["timed"].items()},
                  f"by_shape_q{SW_SMALL_Q}": sw["small_q"]})
     clock(t_script, "phase 14")
+    # phase 17: the float64 forms, each a row of its own; its launches those
+    # of the float64 N=2504 step (b), the panel step's and the pipeline
+    # runs' (d) beside them
+    for name, row in f64_rows.items():
+        row["step"] = f64_step
+        for label, run in f64_runs.items():
+            names64 = (("zprep_gram", "zprep_split", "zprep_gram_panel") if name == "zprep_gram"
+                       else (name,))
+            row[f"pipeline_2504_{label}"] = {key: run["launches"][key] for key in names64}
+        row["pipeline_2504_ties"] = {label: {key: run[key] for key in (
+            "rows_differing_by_ties", "dipcn_sets_differ", "haploid_lines_differ")}
+            for label, run in f64_runs.items()}
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -119,6 +119,16 @@
 //    the [N, N] @ [N, L] product of the take mask (2 N^2 L operations, in
 //    FP32 because the weights need float32 accuracy). The binary form's
 //    code is not shared, so its outputs stay bitwise as they were.
+//
+// The float64 form (the *_f64 entry points; binary form only, both modes)
+// runs the same kernel on float64 d2, rnorm and nbr_w: its keys are the
+// doubles' bits as int64 (grid_tpu/ops/select.py:35-40 takes int64 keys
+// for float64), finfo(float64).max marks self and invalid rows, the radix
+// selections take up to 8 digits, and step 5 sums in float64. The resident
+// mode holds 8 W bytes of keys, so its edge falls to ~26,000 columns at
+// k=500 (20 KB a row at N=2504); the 65,536-column panels take the wide
+// mode, as in float32. The float32 form's code is the same text
+// instantiated at int keys, so its results are those it gave before.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -130,10 +140,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMinBlocks = 12;           // launch bounds: <= 40 registers a thread
 constexpr int kDigitBits = 8;
 constexpr int kBins = 1 << kDigitBits;   // == 2 * kThreads: two bins per thread in the scan
-constexpr int kBigKey = 0x7F7FFFFF;      // finfo(float32).max, the self and invalid-row columns
 constexpr int kField = 21;               // bit width of one count in the packed k-set scan
 constexpr unsigned long long kFieldMask = (1ull << kField) - 1;
 constexpr unsigned kFull = 0xffffffffu;
@@ -141,9 +149,33 @@ constexpr int kResidentMaxCols = 65536;  // uint16 list entries
 constexpr int kWideGather = 2048;        // least gather capacity of the wide mode
 constexpr int kWideMaxCols = 1 << kField;  // packed counts hold up to 2^21 - 1
 
+// The keys of a value type: non-negative floats order as their bit
+// patterns read as signed integers of the same width; kBig is finfo.max,
+// the self and invalid-row columns.
+template <typename T>
+struct Keys;
+
+template <>
+struct Keys<float> {
+  using K = int;
+  using U = unsigned;
+  static constexpr K kBig = 0x7F7FFFFF;
+  static constexpr K kMin = INT_MIN, kMax = INT_MAX;
+  static constexpr int kMinBlocks = 12;  // launch bounds: <= 40 registers a thread
+};
+
+template <>
+struct Keys<double> {
+  using K = long long;
+  using U = unsigned long long;
+  static constexpr K kBig = 0x7FEFFFFFFFFFFFFFLL;
+  static constexpr K kMin = LLONG_MIN, kMax = LLONG_MAX;
+  static constexpr int kMinBlocks = 8;  // <= 64 registers a thread: 64-bit keys take two
+};
+
 // the row's keys: shared memory (resident mode) or device memory (wide)
-template <bool kWide>
-__device__ __forceinline__ int key_at(const int* keys, int j) {
+template <bool kWide, typename K>
+__device__ __forceinline__ K key_at(const K* keys, int j) {
   if constexpr (kWide) {
     return __ldg(keys + j);
   } else {
@@ -151,14 +183,39 @@ __device__ __forceinline__ int key_at(const int* keys, int j) {
   }
 }
 
+__device__ __forceinline__ int bit_width(unsigned v) { return 32 - __clz(v); }
+__device__ __forceinline__ int bit_width(unsigned long long v) { return 64 - __clzll(v); }
+
+__device__ __forceinline__ int warp_min(int v) { return __reduce_min_sync(kFull, v); }
+__device__ __forceinline__ int warp_max(int v) { return __reduce_max_sync(kFull, v); }
+__device__ __forceinline__ long long warp_min(long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const long long y = __shfl_xor_sync(kFull, v, o);
+    v = y < v ? y : v;
+  }
+  return v;
+}
+__device__ __forceinline__ long long warp_max(long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const long long y = __shfl_xor_sync(kFull, v, o);
+    v = y > v ? y : v;
+  }
+  return v;
+}
+
 static_assert(kBins == 2 * kThreads, "the bin scan gives each thread two bins");
 
+template <typename T>
 struct Shared {
+  using K = typename Keys<T>::K;
   int hist[2][kBins];  // one histogram counts while the other is cleared
   int wtot[kWarps];    // int scan scratch
   unsigned long long wtot_l[kWarps];  // packed-count scan scratch
-  int rmin[kWarps], rmax[kWarps], rcnt[kWarps];
-  float fsum[kWarps];
+  K rmin[kWarps], rmax[kWarps];
+  int rcnt[kWarps];
+  T fsum[kWarps];
   int bin, bin_below, bin_count;  // the select round's digit, keys below it and in it
   int n_cand;
   int list_len;
@@ -189,8 +246,9 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T* warp_tot, T& total) {
   return before + x - v;
 }
 
+template <typename K>
 struct Found {
-  int t;      // the rank-th smallest key in range
+  K t;        // the rank-th smallest key in range
   int below;  // keys in range that are < t
 };
 
@@ -200,12 +258,17 @@ struct Found {
 // null; then, once a round leaves at most `cap` keys in play, they are
 // gathered into `spare` and the later rounds walk only them. hist[parity]
 // is all zero on entry and on return.
-template <bool kWide, typename ListT>
-__device__ Found select_rank(const int* keys, const ListT* list, int n, int lo, unsigned span,
-                             int rank, Shared& sh, int& parity, ListT* spare, int cap) {
+template <typename T, bool kWide, typename ListT>
+__device__ Found<typename Keys<T>::K> select_rank(const typename Keys<T>::K* keys,
+                                                  const ListT* list, int n,
+                                                  typename Keys<T>::K lo, typename Keys<T>::U span,
+                                                  int rank, Shared<T>& sh, int& parity,
+                                                  ListT* spare, int cap) {
+  using K = typename Keys<T>::K;
+  using U = typename Keys<T>::U;
   const int lane = threadIdx.x & 31;
-  int bits = span ? 32 - __clz(span) : 0;
-  unsigned base = 0;  // key - lo of the bin chosen so far
+  int bits = span ? bit_width(span) : 0;
+  U base = 0;  // key - lo of the bin chosen so far
   int below = 0;
   while (bits > 0) {
     const int d = min(kDigitBits, bits);
@@ -217,14 +280,14 @@ __device__ Found select_rank(const int* keys, const ListT* list, int n, int lo, 
     for (int b = threadIdx.x; b < kBins; b += kThreads) other[b] = 0;
     if (threadIdx.x == 0) sh.n_cand = 0;
     if constexpr (kWide) {
-      auto count = [&](int key, bool in) {  // the resident loop's body, below
-        const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
-        const unsigned digit = (v - base) >> shift;
+      auto count = [&](K key, bool in) {  // the resident loop's body, below
+        const U v = static_cast<U>(key) - static_cast<U>(lo);
+        const U digit = (v - base) >> shift;
         in = in && key >= lo && v <= span && digit < (1u << d);
         const unsigned play = __ballot_sync(kFull, in);
         if (play == 0) return;
         const int leader = __ffs(play) - 1;
-        const unsigned lead_digit = __shfl_sync(kFull, digit, leader);
+        const U lead_digit = __shfl_sync(kFull, digit, leader);
         if (__all_sync(kFull, !in || digit == lead_digit)) {
           if (lane == leader) atomicAdd(&h[digit], __popc(play));
         } else if (in) {
@@ -234,11 +297,11 @@ __device__ Found select_rank(const int* keys, const ListT* list, int n, int lo, 
       // keys from device memory: four loads in flight before the votes
       constexpr int kAhead = 4;
       for (int i0 = 0; i0 < n; i0 += kAhead * kThreads) {  // uniform trip count
-        int ks[kAhead];
+        K ks[kAhead];
 #pragma unroll
         for (int a = 0; a < kAhead; ++a) {
           const int i = i0 + a * kThreads + threadIdx.x;
-          ks[a] = i < n ? key_at<kWide>(keys, list ? list[i] : i) : 0;
+          ks[a] = i < n ? key_at<kWide>(keys, list ? list[i] : i) : K(0);
         }
 #pragma unroll
         for (int a = 0; a < kAhead; ++a) count(ks[a], i0 + a * kThreads + threadIdx.x < n);
@@ -249,16 +312,16 @@ __device__ Found select_rank(const int* keys, const ListT* list, int n, int lo, 
       for (int i0 = 0; i0 < n; i0 += kThreads) {  // uniform trip count: whole warps in the votes
         const int i = i0 + threadIdx.x;
         bool in = i < n;
-        const int key = in ? (list ? keys[list[i]] : keys[i]) : 0;
-        const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
-        const unsigned digit = (v - base) >> shift;  // huge when v < base
+        const K key = in ? (list ? keys[list[i]] : keys[i]) : K(0);
+        const U v = static_cast<U>(key) - static_cast<U>(lo);
+        const U digit = (v - base) >> shift;  // huge when v < base
         in = in && key >= lo && v <= span && digit < (1u << d);
         // a warp whose keys in play share one digit (a hot bin) adds them
         // in one atomic; otherwise each key adds its own
         const unsigned play = __ballot_sync(kFull, in);
         if (play == 0) continue;
         const int leader = __ffs(play) - 1;
-        const unsigned lead_digit = __shfl_sync(kFull, digit, leader);
+        const U lead_digit = __shfl_sync(kFull, digit, leader);
         if (__all_sync(kFull, !in || digit == lead_digit)) {
           if (lane == leader) atomicAdd(&h[digit], __popc(play));
         } else if (in) {
@@ -278,15 +341,15 @@ __device__ Found select_rank(const int* keys, const ListT* list, int n, int lo, 
       sh.bin_count = first ? c0 : c1;
     }
     __syncthreads();
-    base += static_cast<unsigned>(sh.bin) << shift;
+    base += static_cast<U>(sh.bin) << shift;
     below += sh.bin_below;
     bits = shift;
     parity ^= 1;
     if (list == nullptr && bits > 0 && sh.bin_count <= cap) {
       // gather the keys still in play; the later rounds walk only them
       for (int i = threadIdx.x; i < n; i += kThreads) {
-        const int key = key_at<kWide>(keys, i);
-        const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
+        const K key = key_at<kWide>(keys, i);
+        const U v = static_cast<U>(key) - static_cast<U>(lo);
         if (key >= lo && v <= span && ((v - base) >> bits) == 0) {
           spare[atomicAdd(&sh.n_cand, 1)] = static_cast<ListT>(i);
         }
@@ -296,7 +359,7 @@ __device__ Found select_rank(const int* keys, const ListT* list, int n, int lo, 
       __syncthreads();
     }
   }
-  return {static_cast<int>(static_cast<unsigned>(lo) + base), below};
+  return {static_cast<K>(static_cast<U>(lo) + base), below};
 }
 
 __device__ __forceinline__ bool usable_at(const unsigned* ubits, int j) {
@@ -311,15 +374,16 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 // 32, and steps through them 32 at a time: the first walk counts (ties,
 // usable below t, usable ties) per warp; the second places each column at
 // its warp's prefix plus its ballot rank among the step's lanes.
-__device__ void tie_cut_walks(const int* keys, const unsigned* ubits, int w, int t, int need,
-                              int* list, Shared& sh) {
+template <typename T, typename K>
+__device__ void tie_cut_walks(const K* keys, const unsigned* ubits, int w, K t, int need,
+                              int* list, Shared<T>& sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = round_up((w + kWarps - 1) / kWarps, 32);
   const int j0 = min(warp * q, w), j1 = min(j0 + q, w);
   unsigned long long cnt = 0;  // ties | usable below t << 21 | usable ties << 42
 #pragma unroll 4
   for (int j = j0 + lane; j < j1; j += 32) {
-    const int key = __ldg(keys + j);
+    const K key = __ldg(keys + j);
     const unsigned long long u = usable_at(ubits, j);
     cnt += key == t ? 1ull + (u << (2 * kField)) : (key < t ? u << kField : 0ull);
   }
@@ -343,7 +407,7 @@ __device__ void tie_cut_walks(const int* keys, const unsigned* ubits, int w, int
   for (int jb = j0; jb < j1; jb += 32) {  // uniform trip count: whole warps in the votes
     const int j = jb + lane;
     const bool in = j < j1;
-    const int key = in ? __ldg(keys + j) : 0;
+    const K key = in ? __ldg(keys + j) : K(0);
     const bool u = in && usable_at(ubits, j);
     const bool tie = in && key == t;
     const unsigned b_tie = __ballot_sync(kFull, tie);
@@ -364,8 +428,9 @@ __device__ void tie_cut_walks(const int* keys, const unsigned* ubits, int w, int
 
 // Dynamic shared memory of one resident-mode block: keys, usable bits,
 // column list.
+template <typename T>
 __host__ __device__ inline size_t dyn_smem_bytes(int w, int k) {
-  return static_cast<size_t>(round_up(w, 4)) * 4 + static_cast<size_t>((w + 31) / 32) * 4 +
+  return static_cast<size_t>(round_up(w, 4)) * sizeof(T) + static_cast<size_t>((w + 31) / 32) * 4 +
          static_cast<size_t>(round_up(k < w ? k : w, 8)) * 2;
 }
 
@@ -384,21 +449,25 @@ __host__ __device__ inline size_t wide_smem_bytes(int w, int k) {
 
 // kMulti: n_loci weights per column (see 5m above); the binary form
 // ignores n_loci
-template <bool kWide, bool kMulti>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnorm,
-                    const float* __restrict__ nbr_w, const uint8_t* __restrict__ usable,
+template <typename T, bool kWide, bool kMulti>
+__global__ void __launch_bounds__(kThreads, Keys<T>::kMinBlocks)
+dipcn_select_kernel(const T* __restrict__ d2, const T* __restrict__ rnorm,
+                    const T* __restrict__ nbr_w, const uint8_t* __restrict__ usable,
                     const uint8_t* __restrict__ valid, int w, int n_loci, int k, int n_nbr,
-                    float* __restrict__ dipcn, uint8_t* __restrict__ ok) {
+                    T* __restrict__ dipcn, uint8_t* __restrict__ ok) {
+  using K = typename Keys<T>::K;
+  using U = typename Keys<T>::U;
+  constexpr K kBigKey = Keys<T>::kBig;
   using ListT = typename std::conditional<kWide, int, uint16_t>::type;
   extern __shared__ int4 dyn[];
-  // d2 >= 0, so its float32 bit pattern read as int32 keeps the order
-  const int* src = reinterpret_cast<const int*>(d2) + static_cast<size_t>(blockIdx.x) * w;
-  const int key_words = kWide ? 0 : round_up(w, 4);
-  const int* keys = kWide ? src : reinterpret_cast<const int*>(dyn);        // [w]
-  unsigned* ubits = reinterpret_cast<unsigned*>(dyn) + key_words;           // [ceil(w / 32)]
+  // d2 >= 0, so its bit pattern read as a signed integer keeps the order
+  const K* src = reinterpret_cast<const K*>(d2) + static_cast<size_t>(blockIdx.x) * w;
+  const int key_bytes = kWide ? 0 : round_up(w, 4) * static_cast<int>(sizeof(K));
+  const K* keys = kWide ? src : reinterpret_cast<const K*>(dyn);            // [w]
+  unsigned* ubits = reinterpret_cast<unsigned*>(
+      reinterpret_cast<uint8_t*>(dyn) + key_bytes);                         // [ceil(w / 32)]
   ListT* list = reinterpret_cast<ListT*>(ubits + (w + 31) / 32);            // see *_smem_bytes
-  __shared__ Shared sh;
+  __shared__ Shared<T> sh;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row = blockIdx.x;
@@ -407,9 +476,9 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
   // (the wide mode leaves the keys in device memory)
   for (int b = tid; b < 2 * kBins; b += kThreads) (&sh.hist[0][0])[b] = 0;
   if (tid == 0) sh.list_len = 0;
-  int mn = INT_MAX, mx = INT_MIN;
+  K mn = Keys<T>::kMax, mx = Keys<T>::kMin;
   unsigned nb = 0;
-  auto see = [&](int key) {
+  auto see = [&](K key) {
     if (key < kBigKey) {
       mn = min(mn, key);
       mx = max(mx, key);
@@ -417,24 +486,36 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
     }
   };
   if ((w & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* k4 = reinterpret_cast<int4*>(dyn);
+    // resident: streamed, each row is read by one block, once; wide: the
+    // later walks read the row again
+    if constexpr (sizeof(K) == 4) {
+      const int4* s4 = reinterpret_cast<const int4*>(src);
+      int4* k4 = reinterpret_cast<int4*>(dyn);
 #pragma unroll 4
-    for (int q = tid; q < w / 4; q += kThreads) {
-      // resident: streamed, each row is read by one block, once; wide: the
-      // later walks read the row again
-      const int4 v = kWide ? __ldg(s4 + q) : __ldcs(s4 + q);
-      if (!kWide) k4[q] = v;
-      see(v.x);
-      see(v.y);
-      see(v.z);
-      see(v.w);
+      for (int q = tid; q < w / 4; q += kThreads) {
+        const int4 v = kWide ? __ldg(s4 + q) : __ldcs(s4 + q);
+        if (!kWide) k4[q] = v;
+        see(v.x);
+        see(v.y);
+        see(v.z);
+        see(v.w);
+      }
+    } else {
+      const longlong2* s2 = reinterpret_cast<const longlong2*>(src);
+      longlong2* k2 = reinterpret_cast<longlong2*>(dyn);
+#pragma unroll 4
+      for (int q = tid; q < w / 2; q += kThreads) {
+        const longlong2 v = kWide ? __ldg(s2 + q) : __ldcs(s2 + q);
+        if (!kWide) k2[q] = v;
+        see(v.x);
+        see(v.y);
+      }
     }
   } else {
-    int* ks = reinterpret_cast<int*>(dyn);
+    K* ks = reinterpret_cast<K*>(dyn);
 #pragma unroll 4
     for (int j = tid; j < w; j += kThreads) {
-      const int v = kWide ? __ldg(src + j) : __ldcs(src + j);
+      const K v = kWide ? __ldg(src + j) : __ldcs(src + j);
       if (!kWide) ks[j] = v;
       see(v);
     }
@@ -444,8 +525,8 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
     const unsigned bal = __ballot_sync(kFull, j < w && usable[j]);
     if (lane == 0 && j < w) ubits[j >> 5] = bal;
   }
-  mn = __reduce_min_sync(kFull, mn);
-  mx = __reduce_max_sync(kFull, mx);
+  mn = warp_min(mn);
+  mx = warp_max(mx);
   nb = __reduce_add_sync(kFull, nb);
   if (lane == 0) {
     sh.rmin[warp] = mn;
@@ -453,7 +534,8 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
     sh.rcnt[warp] = static_cast<int>(nb);
   }
   __syncthreads();
-  int body_lo = INT_MAX, body_hi = INT_MIN, n_body = 0;
+  K body_lo = Keys<T>::kMax, body_hi = Keys<T>::kMin;
+  int n_body = 0;
 #pragma unroll
   for (int i = 0; i < kWarps; ++i) {
     body_lo = min(body_lo, sh.rmin[i]);
@@ -465,18 +547,17 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
   const int cap = kWide ? wide_list_len(w, k) : min(k, w);
 
   // ---- 2. t = the k-th smallest key, and count(keys < t) -----------------
-  Found f;
+  Found<K> f;
   if (k <= n_body) {
-    f = select_rank<kWide, ListT>(keys, nullptr, w, body_lo,
-                    static_cast<unsigned>(body_hi) - static_cast<unsigned>(body_lo), k, sh, parity,
-                    list, cap);
+    f = select_rank<T, kWide, ListT>(keys, nullptr, w, body_lo,
+                    static_cast<U>(body_hi) - static_cast<U>(body_lo), k, sh, parity, list, cap);
   } else {  // k reaches past the body into the finfo.max (or larger) keys
-    f = select_rank<kWide, ListT>(keys, nullptr, w, kBigKey,
-                    static_cast<unsigned>(INT_MAX) - static_cast<unsigned>(kBigKey), k - n_body,
-                    sh, parity, list, cap);
+    f = select_rank<T, kWide, ListT>(keys, nullptr, w, kBigKey,
+                    static_cast<U>(Keys<T>::kMax) - static_cast<U>(kBigKey), k - n_body, sh,
+                    parity, list, cap);
     f.below += n_body;
   }
-  const int t = f.t;
+  const K t = f.t;
   const int need = k - f.below;  // ties at t to take, lowest columns first: 1 <= need
 
   // ---- 3. tie cut and compaction of the usable k-set, one scan ----------
@@ -487,7 +568,7 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
     const int c0 = min(tid * chunk, w), c1 = min(c0 + chunk, w);
     unsigned long long cnt = 0;  // ties | usable below t << 21 | usable ties << 42
     for (int j = c0; j < c1; ++j) {
-      const int key = keys[j];
+      const K key = keys[j];
       const unsigned long long u = usable_at(ubits, j);
       cnt += key == t ? 1ull + (u << (2 * kField)) : (key < t ? u << kField : 0ull);
     }
@@ -498,7 +579,7 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
     int pos_below = static_cast<int>((pre >> kField) & kFieldMask);
     int pos_tie = n_below_usable + static_cast<int>((pre >> (2 * kField)) & kFieldMask);
     for (int j = c0; j < c1; ++j) {
-      const int key = keys[j];
+      const K key = keys[j];
       if (key < t) {
         if (usable_at(ubits, j)) list[pos_below++] = static_cast<uint16_t>(j);
       } else if (key == t && ++ties <= need) {
@@ -513,11 +594,12 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
 
   // ---- 4. the m_eff nearest usable members, on the list only ------------
   const bool take_all = m_eff == len;  // also m_eff == 0
-  int t2 = t, need2 = 0;
+  K t2 = t;
+  int need2 = 0;
   if (!take_all) {
-    const int lo2 = n_body > 0 ? body_lo : kBigKey;  // the row's min key
-    const Found f2 = select_rank<kWide, ListT>(keys, list, len, lo2,
-                                 static_cast<unsigned>(t) - static_cast<unsigned>(lo2), m_eff, sh,
+    const K lo2 = n_body > 0 ? body_lo : kBigKey;  // the row's min key
+    const Found<K> f2 = select_rank<T, kWide, ListT>(keys, list, len, lo2,
+                                 static_cast<U>(t) - static_cast<U>(lo2), m_eff, sh,
                                  parity, static_cast<ListT*>(nullptr), 0);
     t2 = f2.t;
     need2 = m_eff - f2.below;
@@ -529,7 +611,8 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
       int ties_before = 0, below_before = 0;  // in the rounds before this one
       for (int i0 = 0; i0 < len; i0 += kThreads) {  // uniform trip count: whole block in the scan
         const int i = i0 + tid;
-        int col = 0, key = 0;
+        int col = 0;
+        K key = 0;
         if (i < len) {
           col = list[i];
           key = key_at<kWide>(keys, col);
@@ -550,7 +633,7 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
     }
     const float denom = static_cast<float>(max(m_eff, 1));
     for (int l = tid; l < n_loci; l += kThreads) {
-      const float* wl = nbr_w + l;
+      const T* wl = nbr_w + l;
       double s = 0.0;  // a serial sum of up to n_nbr terms, in float64 (see 5m)
 #pragma unroll 4
       for (int i = 0; i < m_eff; ++i) s += wl[static_cast<size_t>(list[i]) * n_loci];
@@ -571,12 +654,12 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
     int unused;
     ties2 = block_exclusive_scan(c, sh.wtot, unused);
   }
-  float s = 0.f;
+  T s = 0;
   for (int i = l0; i < l1; ++i) {
     const int col = list[i];
     bool take = take_all;
     if (!take) {
-      const int key = key_at<kWide>(keys, col);
+      const K key = key_at<kWide>(keys, col);
       take = key < t2 || (key == t2 && ++ties2 <= need2);
     }
     if (take) s += nbr_w[col];
@@ -586,61 +669,66 @@ dipcn_select_kernel(const float* __restrict__ d2, const float* __restrict__ rnor
   if (lane == 0) sh.fsum[warp] = s;
   __syncthreads();
   if (tid == 0) {
-    float total = 0.f;
+    T total = 0;
 #pragma unroll
     for (int i = 0; i < kWarps; ++i) total += sh.fsum[i];
-    const float nbr_mean = total / static_cast<float>(max(m_eff, 1));
+    const T nbr_mean = total / static_cast<T>(max(m_eff, 1));
     dipcn[row] = rnorm[row] / nbr_mean;
     ok[row] = valid[row] && m_eff > 0;
   }
 }
 
-// The larger static shared memory of the mode's binary and multi forms.
-template <bool kWide>
+// The larger static shared memory of the mode's forms: binary and multi in
+// float32, binary only in float64.
+template <typename T, bool kWide>
 cudaError_t static_smem_bytes(size_t* bytes) {
   cudaFuncAttributes binary, multi;
-  cudaError_t err = cudaFuncGetAttributes(&binary, dipcn_select_kernel<kWide, false>);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&multi, dipcn_select_kernel<kWide, true>);
+  cudaError_t err = cudaFuncGetAttributes(&binary, dipcn_select_kernel<T, kWide, false>);
   if (err != cudaSuccess) return err;
-  *bytes = binary.sharedSizeBytes > multi.sharedSizeBytes ? binary.sharedSizeBytes
-                                                          : multi.sharedSizeBytes;
+  *bytes = binary.sharedSizeBytes;
+  if constexpr (std::is_same<T, float>::value) {
+    if ((err = cudaFuncGetAttributes(&multi, dipcn_select_kernel<T, kWide, true>)) != cudaSuccess)
+      return err;
+    if (multi.sharedSizeBytes > *bytes) *bytes = multi.sharedSizeBytes;
+  }
   return cudaSuccess;
 }
 
-template <bool kWide, bool kMulti>
+template <typename T, bool kWide, bool kMulti>
 cudaError_t configure(size_t smem) {
   static bool carveout_set = false;
   if (!carveout_set) {
     // shared memory before L1: the blocks per SM are bound by shared memory
     const cudaError_t err = cudaFuncSetAttribute(
-        dipcn_select_kernel<kWide, kMulti>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        dipcn_select_kernel<T, kWide, kMulti>, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     carveout_set = true;
   }
   if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(dipcn_select_kernel<kWide, kMulti>,
+    return cudaFuncSetAttribute(dipcn_select_kernel<T, kWide, kMulti>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem));
   }
   return cudaSuccess;
 }
 
+template <typename T>
 size_t mode_smem_bytes(int mode, int w, int k) {
-  return mode == 0 ? dyn_smem_bytes(w, k) : wide_smem_bytes(w, k);
+  return mode == 0 ? dyn_smem_bytes<T>(w, k) : wide_smem_bytes(w, k);
 }
 
-template <bool kWide, bool kMulti>
+template <typename T, bool kWide, bool kMulti>
 int info(int w, int k, int* out) {
-  const size_t smem = mode_smem_bytes(kWide, w, k);
-  cudaError_t err = configure<kWide, kMulti>(smem);
+  const size_t smem = mode_smem_bytes<T>(kWide, w, k);
+  cudaError_t err = configure<T, kWide, kMulti>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, dipcn_select_kernel<kWide, kMulti>);
+  err = cudaFuncGetAttributes(&attr, dipcn_select_kernel<T, kWide, kMulti>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dipcn_select_kernel<kWide, kMulti>,
-                                                      kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, dipcn_select_kernel<T, kWide, kMulti>, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = kThreads;
   out[1] = static_cast<int>(smem);
@@ -651,18 +739,17 @@ int info(int w, int k, int* out) {
   return cudaSuccess;
 }
 
-template <bool kWide, bool kMulti>
+template <typename T, bool kWide, bool kMulti>
 int launch(const void* d2, const void* rnorm, const void* nbr_w, const void* usable,
            const void* valid, int n, int w, int n_loci, int k, int n_nbr, void* dipcn, void* ok,
            cudaStream_t stream) {
-  const size_t smem = mode_smem_bytes(kWide, w, k);
-  const cudaError_t err = configure<kWide, kMulti>(smem);
+  const size_t smem = mode_smem_bytes<T>(kWide, w, k);
+  const cudaError_t err = configure<T, kWide, kMulti>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dipcn_select_kernel<kWide, kMulti><<<n, kThreads, smem, stream>>>(
-      static_cast<const float*>(d2), static_cast<const float*>(rnorm),
-      static_cast<const float*>(nbr_w), static_cast<const uint8_t*>(usable),
-      static_cast<const uint8_t*>(valid), w, n_loci, k, n_nbr, static_cast<float*>(dipcn),
-      static_cast<uint8_t*>(ok));
+  dipcn_select_kernel<T, kWide, kMulti><<<n, kThreads, smem, stream>>>(
+      static_cast<const T*>(d2), static_cast<const T*>(rnorm), static_cast<const T*>(nbr_w),
+      static_cast<const uint8_t*>(usable), static_cast<const uint8_t*>(valid), w, n_loci, k,
+      n_nbr, static_cast<T*>(dipcn), static_cast<uint8_t*>(ok));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -670,6 +757,38 @@ int launch(const void* d2, const void* rnorm, const void* nbr_w, const void* usa
 bool valid_shape(int w, int k, int mode) {
   return w > 0 && k >= 1 && k <= w && (mode == 0 || mode == 1) &&
          !(mode == 0 && w > kResidentMaxCols) && !(mode == 1 && w >= kWideMaxCols);
+}
+
+template <typename T>
+int select_mode(int device, int w, int k, int* mode) {
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  size_t stat_resident = 0, stat_wide = 0;
+  if ((err = static_smem_bytes<T, false>(&stat_resident)) != cudaSuccess) return err;
+  if ((err = static_smem_bytes<T, true>(&stat_wide)) != cudaSuccess) return err;
+  const size_t avail = static_cast<size_t>(optin);
+  if (w <= kResidentMaxCols && dyn_smem_bytes<T>(w, k) + stat_resident <= avail) {
+    *mode = 0;
+  } else if (w < kWideMaxCols && wide_smem_bytes(w, k) + stat_wide <= avail) {
+    *mode = 1;
+  } else {
+    *mode = -1;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+int binary_launch(const void* d2, const void* rnorm, const void* nbr_w, const void* usable,
+                  const void* valid, int n, int w, int k, int n_nbr, int mode, void* dipcn,
+                  void* ok, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  if (!valid_shape(w, k, mode)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return mode == 0 ? launch<T, false, false>(d2, rnorm, nbr_w, usable, valid, n, w, 1, k, n_nbr,
+                                             dipcn, ok, s)
+                   : launch<T, true, false>(d2, rnorm, nbr_w, usable, valid, n, w, 1, k, n_nbr,
+                                            dipcn, ok, s);
 }
 
 }  // namespace
@@ -681,21 +800,7 @@ extern "C" {
 // and w <= 65,536, else 1 (wide: the keys stay in device memory) where
 // that fits, else -1. Returns the first cudaError_t.
 int dipcn_select_mode(int device, int w, int k, int* mode) {
-  int optin = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  size_t stat_resident = 0, stat_wide = 0;
-  if ((err = static_smem_bytes<false>(&stat_resident)) != cudaSuccess) return err;
-  if ((err = static_smem_bytes<true>(&stat_wide)) != cudaSuccess) return err;
-  const size_t avail = static_cast<size_t>(optin);
-  if (w <= kResidentMaxCols && dyn_smem_bytes(w, k) + stat_resident <= avail) {
-    *mode = 0;
-  } else if (w < kWideMaxCols && wide_smem_bytes(w, k) + stat_wide <= avail) {
-    *mode = 1;
-  } else {
-    *mode = -1;
-  }
-  return cudaSuccess;
+  return select_mode<float>(device, w, k, mode);
 }
 
 // Launch shape of `mode` (of the multi-weight form when `multi` is
@@ -704,8 +809,10 @@ int dipcn_select_mode(int device, int w, int k, int* mode) {
 // local (spill) bytes a thread. Returns the first cudaError_t.
 int dipcn_select_info(int mode, int multi, int w, int k, int* out) {
   if (mode != 0 && mode != 1) return cudaErrorInvalidValue;
-  if (multi) return mode == 0 ? info<false, true>(w, k, out) : info<true, true>(w, k, out);
-  return mode == 0 ? info<false, false>(w, k, out) : info<true, false>(w, k, out);
+  if (multi) {
+    return mode == 0 ? info<float, false, true>(w, k, out) : info<float, true, true>(w, k, out);
+  }
+  return mode == 0 ? info<float, false, false>(w, k, out) : info<float, true, false>(w, k, out);
 }
 
 // Launch the binary form in `mode` (from dipcn_select_mode) on `stream`
@@ -713,13 +820,8 @@ int dipcn_select_info(int mode, int multi, int w, int k, int* out) {
 int dipcn_select_launch(const void* d2, const void* rnorm, const void* nbr_w, const void* usable,
                         const void* valid, int n, int w, int k, int n_nbr, int mode, void* dipcn,
                         void* ok, void* stream) {
-  if (n <= 0) return cudaSuccess;
-  if (!valid_shape(w, k, mode)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mode == 0 ? launch<false, false>(d2, rnorm, nbr_w, usable, valid, n, w, 1, k, n_nbr,
-                                          dipcn, ok, s)
-                   : launch<true, false>(d2, rnorm, nbr_w, usable, valid, n, w, 1, k, n_nbr,
-                                         dipcn, ok, s);
+  return binary_launch<float>(d2, rnorm, nbr_w, usable, valid, n, w, k, n_nbr, mode, dipcn, ok,
+                              stream);
 }
 
 // Launch the multi-weight form in `mode`: rnorm and valid [n, n_loci],
@@ -731,10 +833,28 @@ int dipcn_select_multi_launch(const void* d2, const void* rnorm, const void* nbr
   if (n <= 0) return cudaSuccess;
   if (n_loci < 1 || !valid_shape(w, k, mode)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mode == 0 ? launch<false, true>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k, n_nbr,
-                                         dipcn, ok, s)
-                   : launch<true, true>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k, n_nbr,
-                                        dipcn, ok, s);
+  return mode == 0 ? launch<float, false, true>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k,
+                                                n_nbr, dipcn, ok, s)
+                   : launch<float, true, true>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k,
+                                               n_nbr, dipcn, ok, s);
+}
+
+// The float64 binary form: the mode, launch shape and launch above with
+// d2, rnorm, nbr_w and dipcn float64.
+int dipcn_select_mode_f64(int device, int w, int k, int* mode) {
+  return select_mode<double>(device, w, k, mode);
+}
+
+int dipcn_select_info_f64(int mode, int w, int k, int* out) {
+  if (mode != 0 && mode != 1) return cudaErrorInvalidValue;
+  return mode == 0 ? info<double, false, false>(w, k, out) : info<double, true, false>(w, k, out);
+}
+
+int dipcn_select_launch_f64(const void* d2, const void* rnorm, const void* nbr_w,
+                            const void* usable, const void* valid, int n, int w, int k, int n_nbr,
+                            int mode, void* dipcn, void* ok, void* stream) {
+  return binary_launch<double>(d2, rnorm, nbr_w, usable, valid, n, w, k, n_nbr, mode, dipcn, ok,
+                               stream);
 }
 
 const char* dipcn_select_error_string(int err) {

@@ -74,6 +74,21 @@
 //   the load, each histogram round until the keys in play fit the buffer
 //   and the gather re-read the row (at least 3 walks; 5 where the tie cut
 //   takes the two walks).
+//
+// The float64 form (the *_f64 entry points; Keys<double>) runs the same
+// kernel on [N, W] float64 rows, as grid_tpu's exact selection does for
+// float64 with int64 keys (grid_tpu/ops/select.py:35-40). Its keys are the
+// doubles' bits as int64, finfo(float64).max marks the excluded columns,
+// and the radix select takes up to 8 digits where float32 takes 4. A key
+// fills 64 bits alone, so a list entry is a (key, column) pair of 16 bytes
+// that the bitonic network compares as a pair: (value, column) order, as
+// the composite orders float32. Its shared mode runs one block a row only
+// (C = 1, up to kSliceTarget columns: 8 W + 20 L bytes, 30,272 B for a
+// resident N=2504 row at k=500); wider rows take the wide mode, which beat the
+// 8-block cluster on a 65,536-column float64 panel on the H100. Lists hold
+// up to 2^13 entries (k <= 8,192) so that the wide mode's list and buffer
+// fit a block. The float32 form's code is the same text instantiated at
+// int keys, so its results are those it gave before.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -88,10 +103,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMinBlocks = 12;           // launch bounds: <= 40 registers a thread
 constexpr int kDigitBits = 8;
 constexpr int kBins = 1 << kDigitBits;   // == 2 * kThreads: two bins per thread in the scan
-constexpr int kBigKey = 0x7F7FFFFF;      // finfo(float32).max, the self and invalid-row columns
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kE = 4;                    // list entries a lane holds in the sort
 constexpr int kSpan = 32 * kE;           // entries a warp sorts in registers
@@ -99,19 +112,56 @@ constexpr int kMaxCluster = 8;           // the portable cluster size
 constexpr int kSliceTarget = 8192;       // columns a block's slice aims at
 constexpr int kWideGather = 2048;        // least gather capacity of the wide mode
 constexpr int kAhead = 4;                // keys a thread loads before it counts or votes
-constexpr int kMaxK = 16384;             // a list of 2^14 entries is 128 KB
-constexpr unsigned long long kPad = ~0ull;  // sorts after every entry
 
 static_assert(kBins == 2 * kThreads, "the bin scan gives each thread two bins");
 static_assert(kE == 4, "the in-register stages are written out for 4 entries a lane");
+
+// A float64 list entry: the key's bits and the column, compared as a pair.
+struct __align__(16) Pair {
+  unsigned long long key;
+  unsigned long long col;
+};
+
+// The keys of a value type: non-negative floats order as their bit
+// patterns read as signed integers of the same width (-0.0 is not
+// expected); kBig is finfo.max, the self and invalid-row columns; E is a
+// list entry, ordered by (value, column).
+template <typename T>
+struct Keys;
+
+template <>
+struct Keys<float> {
+  using K = int;
+  using U = unsigned;
+  using E = unsigned long long;  // key * 2^32 + column
+  static constexpr K kBig = 0x7F7FFFFF;
+  static constexpr K kMin = INT_MIN, kMax = INT_MAX;
+  static constexpr int kMaxK = 16384;    // a list of 2^14 entries is 128 KB
+  static constexpr int kMinBlocks = 12;  // launch bounds: <= 40 registers a thread
+  static constexpr int kMaxShared = kMaxCluster;  // the shared mode's largest cluster
+};
+
+template <>
+struct Keys<double> {
+  using K = long long;
+  using U = unsigned long long;
+  using E = Pair;
+  static constexpr K kBig = 0x7FEFFFFFFFFFFFFFLL;
+  static constexpr K kMin = LLONG_MIN, kMax = LLONG_MAX;
+  static constexpr int kMaxK = 8192;     // a list of 2^13 pairs is 128 KB
+  static constexpr int kMinBlocks = 8;   // the pairs take twice the sort's registers
+  // one block a row: over a cluster the float64 panel row (8 blocks of 64 KB)
+  // lost to the wide mode on the H100 (0.634 against 0.379 ms a 512-row panel)
+  static constexpr int kMaxShared = 1;
+};
 
 // a gathered index: a column of the block's slice (at most 65,535 of them
 // in shared memory), or of the row in the wide mode
 template <bool kWide>
 using Index = typename std::conditional<kWide, int, unsigned short>::type;
 
-template <bool kWide>
-__device__ __forceinline__ int key_at(const int* keys, int j) {
+template <bool kWide, typename K>
+__device__ __forceinline__ K key_at(const K* keys, int j) {
   if constexpr (kWide) {
     return __ldg(keys + j);
   } else {
@@ -119,12 +169,36 @@ __device__ __forceinline__ int key_at(const int* keys, int j) {
   }
 }
 
+__device__ __forceinline__ int bit_width(unsigned v) { return 32 - __clz(v); }
+__device__ __forceinline__ int bit_width(unsigned long long v) { return 64 - __clzll(v); }
+
+__device__ __forceinline__ int warp_min(int v) { return __reduce_min_sync(kFull, v); }
+__device__ __forceinline__ int warp_max(int v) { return __reduce_max_sync(kFull, v); }
+__device__ __forceinline__ long long warp_min(long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const long long y = __shfl_xor_sync(kFull, v, o);
+    v = y < v ? y : v;
+  }
+  return v;
+}
+__device__ __forceinline__ long long warp_max(long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const long long y = __shfl_xor_sync(kFull, v, o);
+    v = y > v ? y : v;
+  }
+  return v;
+}
+
+template <typename K>
 struct Shared {
   int hist[2][kBins];  // one histogram counts while the other is read by the cluster
   unsigned long long wtot_l[kWarps];
   int wtot[kWarps];
-  int rmin[kWarps], rmax[kWarps], rcnt[kWarps];
-  int stat[3];             // this slice's body min, max and count, read by the cluster
+  K rmin[kWarps], rmax[kWarps];
+  int rcnt[kWarps];
+  K stat[3];               // this slice's body min, max and count, read by the cluster
   unsigned long long cnt;  // this slice's ties | below t << 32, read by the cluster
   int bin, bin_below, bin_count;  // the select round's digit, keys below it and in it
   int n_cand;
@@ -195,8 +269,9 @@ __device__ __forceinline__ T remote(cg::cluster_group& cluster, int csize, T* p,
   return q < csize ? *cluster.map_shared_rank(p, q) : T(0);
 }
 
+template <typename K>
 struct Found {
-  int t;         // the rank-th smallest key in range, over the row
+  K t;           // the rank-th smallest key in range, over the row
   int below;     // keys of the row below t (in range, plus `extra`)
   int ties;      // keys of the row equal to t; -1 where no round ran
   bool gathered; // each block's `spare` holds every key of its slice <= t
@@ -211,14 +286,17 @@ struct Found {
 // leaves at most `cap` keys of the row at or below its bin, each block
 // gathers the indices of its own into `spare`, and the later rounds walk
 // only them. hist[parity] is all zero on entry.
-template <bool kWide>
-__device__ Found select_rank(cg::cluster_group& cluster, int csize, const int* keys, int n, int lo,
-                             unsigned span, int rank, int extra, Shared& sh, int& parity,
-                             Index<kWide>* spare, int cap) {
+template <typename T, bool kWide>
+__device__ Found<typename Keys<T>::K> select_rank(
+    cg::cluster_group& cluster, int csize, const typename Keys<T>::K* keys, int n,
+    typename Keys<T>::K lo, typename Keys<T>::U span, int rank, int extra,
+    Shared<typename Keys<T>::K>& sh, int& parity, Index<kWide>* spare, int cap) {
+  using K = typename Keys<T>::K;
+  using U = typename Keys<T>::U;
   const int lane = threadIdx.x & 31;
   const Index<kWide>* list = nullptr;  // the gathered indices, once there are any
-  int bits = span ? 32 - __clz(span) : 0;
-  unsigned base = 0;  // key - lo of the bin chosen so far
+  int bits = span ? bit_width(span) : 0;
+  U base = 0;  // key - lo of the bin chosen so far
   int below = 0, ties = -1;
   while (bits > 0) {
     const int d = min(kDigitBits, bits);
@@ -226,9 +304,9 @@ __device__ Found select_rank(cg::cluster_group& cluster, int csize, const int* k
     int* h = sh.hist[parity];
     // a shared-memory atomic a key in play; the lanes of a warp that hit
     // one bin are serialised, which only rows of many equal keys see
-    auto count = [&](int key) {
-      const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
-      const unsigned digit = (v - base) >> shift;  // huge when v < base
+    auto count = [&](K key) {
+      const U v = static_cast<U>(key) - static_cast<U>(lo);
+      const U digit = (v - base) >> shift;  // huge when v < base
       if (key >= lo && v <= span && digit < (1u << d)) atomicAdd(&h[digit], 1);
     };
     if (list != nullptr) {
@@ -236,11 +314,11 @@ __device__ Found select_rank(cg::cluster_group& cluster, int csize, const int* k
     } else {
       // four keys in flight before their counts
       for (int i0 = 0; i0 < n; i0 += kAhead * kThreads) {
-        int ks[kAhead];
+        K ks[kAhead];
 #pragma unroll
         for (int a = 0; a < kAhead; ++a) {
           const int i = i0 + a * kThreads + threadIdx.x;
-          ks[a] = i < n ? key_at<kWide>(keys, i) : -1;
+          ks[a] = i < n ? key_at<kWide>(keys, i) : K(-1);
         }
 #pragma unroll
         for (int a = 0; a < kAhead; ++a) {
@@ -272,7 +350,7 @@ __device__ Found select_rank(cg::cluster_group& cluster, int csize, const int* k
     }
     __syncthreads();
     parity ^= 1;
-    base += static_cast<unsigned>(sh.bin) << shift;
+    base += static_cast<U>(sh.bin) << shift;
     below += sh.bin_below;
     ties = sh.bin_count;  // keys equal to t once bits reaches 0
     bits = shift;
@@ -280,15 +358,15 @@ __device__ Found select_rank(cg::cluster_group& cluster, int csize, const int* k
       // gather this block's keys at or below the bin (all the row's keys
       // below t and its ties among them), one atomic a warp step; the later
       // rounds walk only them
-      const unsigned end = base + (1u << bits);
+      const U end = base + (static_cast<U>(1) << bits);
       const unsigned before = (1u << lane) - 1;  // the lanes below this one
       for (int i0 = 0; i0 < n; i0 += kAhead * kThreads) {  // uniform: whole warps in the votes
         bool take[kAhead];
 #pragma unroll
         for (int a = 0; a < kAhead; ++a) {  // four keys in flight before the votes
           const int i = i0 + a * kThreads + threadIdx.x;
-          const int key = i < n ? key_at<kWide>(keys, i) : 0;
-          const unsigned v = static_cast<unsigned>(key) - static_cast<unsigned>(lo);
+          const K key = i < n ? key_at<kWide>(keys, i) : K(0);
+          const U v = static_cast<U>(key) - static_cast<U>(lo);
           take[a] = i < n && (key < lo || (v <= span && v < end));
         }
 #pragma unroll
@@ -310,8 +388,7 @@ __device__ Found select_rank(cg::cluster_group& cluster, int csize, const int* k
       list = spare;
     }
   }
-  return {static_cast<int>(static_cast<unsigned>(lo) + base), extra + below, ties,
-          list != nullptr, n};
+  return {static_cast<K>(static_cast<U>(lo) + base), extra + below, ties, list != nullptr, n};
 }
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -341,6 +418,38 @@ __device__ __forceinline__ unsigned long long entry(int key, int col) {
          static_cast<unsigned>(col);
 }
 
+__device__ __forceinline__ Pair entry(long long key, int col) {
+  return {static_cast<unsigned long long>(key),
+          static_cast<unsigned long long>(static_cast<unsigned>(col))};
+}
+
+// the list's padding: sorts after every entry
+__device__ __forceinline__ void set_pad(unsigned long long& e) { e = ~0ull; }
+__device__ __forceinline__ void set_pad(Pair& e) { e = {~0ull, ~0ull}; }
+
+// (value, column) order of two entries
+__device__ __forceinline__ bool gt(unsigned long long a, unsigned long long b) { return a > b; }
+__device__ __forceinline__ bool gt(const Pair& a, const Pair& b) {
+  return a.key > b.key || (a.key == b.key && a.col > b.col);
+}
+
+__device__ __forceinline__ unsigned long long shfl_xor(unsigned long long v, int m) {
+  return __shfl_xor_sync(kFull, v, m);
+}
+__device__ __forceinline__ Pair shfl_xor(const Pair& v, int m) {
+  return {__shfl_xor_sync(kFull, v.key, m), __shfl_xor_sync(kFull, v.col, m)};
+}
+
+// an entry's value (the key's bits) and column, for the output
+__device__ __forceinline__ void write_entry(unsigned long long e, float* val, int* pos) {
+  *val = __int_as_float(static_cast<int>(e >> 32));
+  *pos = static_cast<int>(e & 0xffffffffull);
+}
+__device__ __forceinline__ void write_entry(const Pair& e, double* val, int* pos) {
+  *val = __longlong_as_double(static_cast<long long>(e.key));
+  *pos = static_cast<int>(e.col);
+}
+
 // Step 3: this block's columns below t, then its share of the first `need`
 // ties in column order, into the leader's list[0, n_below + need). Warp w
 // walks its quarter [w*q, (w+1)*q) of the slice (q a multiple of 32) 32
@@ -348,16 +457,16 @@ __device__ __forceinline__ unsigned long long entry(int key, int col) {
 // counts of the slices before this one arrive through the cluster, it
 // places each column at the prefix plus its ballot rank among the step's
 // lanes. `j0` is the slice's first column in the row.
-template <bool kWide>
-__device__ void compact(cg::cluster_group& cluster, int rank, const int* keys, int n, int j0,
-                        int t, int n_below, int need, unsigned long long* list, Shared& sh) {
+template <bool kWide, typename K, typename E>
+__device__ void compact(cg::cluster_group& cluster, int rank, const K* keys, int n, int j0,
+                        K t, int n_below, int need, E* list, Shared<K>& sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = round_up((n + kWarps - 1) / kWarps, 32);
   const int i0 = min(warp * q, n), i1 = min(i0 + q, n);
   unsigned long long cnt = 0;  // ties | below t << 32
 #pragma unroll 4
   for (int i = i0 + lane; i < i1; i += 32) {
-    const int key = key_at<kWide>(keys, i);
+    const K key = key_at<kWide>(keys, i);
     cnt += key == t ? 1ull : (key < t ? 1ull << 32 : 0ull);
   }
 #pragma unroll
@@ -379,7 +488,7 @@ __device__ void compact(cg::cluster_group& cluster, int rank, const int* keys, i
   for (int i = 0; i < kWarps; ++i) {
     if (i < warp) pre += sh.wtot_l[i];
   }
-  unsigned long long* out = cluster.map_shared_rank(list, 0);
+  E* out = cluster.map_shared_rank(list, 0);
   int ties = static_cast<int>(pre & 0xffffffffull);
   int pos_below = static_cast<int>(pre >> 32);
   const unsigned before = (1u << lane) - 1;  // the lanes below this one
@@ -387,7 +496,7 @@ __device__ void compact(cg::cluster_group& cluster, int rank, const int* keys, i
   for (int ib = i0; ib < i1; ib += 32) {  // uniform trip count: whole warps in the votes
     const int i = ib + lane;
     const bool in = i < i1;
-    const int key = in ? key_at<kWide>(keys, i) : 0;
+    const K key = in ? key_at<kWide>(keys, i) : K(0);
     const bool below = in && key < t, tie = in && key == t;
     const unsigned b_below = __ballot_sync(kFull, below);
     const unsigned b_tie = __ballot_sync(kFull, tie);
@@ -404,18 +513,18 @@ __device__ void compact(cg::cluster_group& cluster, int rank, const int* keys, i
 // keys <= t go into the leader's list at places taken from its fill count
 // (one remote atomic a warp step), in no order: the sort orders them, and
 // puts the lower columns of the ties first.
-template <bool kWide>
-__device__ void place_gathered(cg::cluster_group& cluster, const int* keys,
-                               const Index<kWide>* cand, int m, int j0, int t,
-                               unsigned long long* list, Shared& sh) {
+template <bool kWide, typename K, typename E>
+__device__ void place_gathered(cg::cluster_group& cluster, const K* keys,
+                               const Index<kWide>* cand, int m, int j0, K t, E* list,
+                               Shared<K>& sh) {
   const int lane = threadIdx.x & 31;
   int* fill = cluster.map_shared_rank(&sh.fill, 0);
-  unsigned long long* out = cluster.map_shared_rank(list, 0);
+  E* out = cluster.map_shared_rank(list, 0);
   const unsigned before = (1u << lane) - 1;  // the lanes below this one
   for (int i0 = 0; i0 < m; i0 += kThreads) {  // uniform trip count: whole warps in the votes
     const int i = i0 + threadIdx.x;
     const int j = i < m ? cand[i] : 0;
-    const int key = i < m ? key_at<kWide>(keys, j) : 0;
+    const K key = i < m ? key_at<kWide>(keys, j) : K(0);
     const bool take = i < m && key <= t;
     const unsigned b = __ballot_sync(kFull, take);
     if (b == 0) continue;
@@ -427,10 +536,10 @@ __device__ void place_gathered(cg::cluster_group& cluster, const int* keys,
   }
 }
 
-__device__ __forceinline__ void compare_exchange(unsigned long long& a, unsigned long long& b,
-                                                 bool ascending) {
-  const bool swap = (a > b) == ascending;
-  const unsigned long long low = swap ? b : a;
+template <typename E>
+__device__ __forceinline__ void compare_exchange(E& a, E& b, bool ascending) {
+  const bool swap = gt(a, b) == ascending;
+  const E low = swap ? b : a;
   b = swap ? a : b;
   a = low;
 }
@@ -441,8 +550,8 @@ __device__ __forceinline__ void compare_exchange(unsigned long long& a, unsigned
 // shuffle, strides 2 and 1 pair two of its own registers. Entry i goes
 // ascending where bit `size` of i is clear; for size >= kE that bit is
 // i0's for all of a lane's entries.
-__device__ __forceinline__ void warp_stages(unsigned long long (&x)[kE], int i0, int size,
-                                            int top) {
+template <typename E>
+__device__ __forceinline__ void warp_stages(E (&x)[kE], int i0, int size, int top) {
   const int lane = threadIdx.x & 31;
   const bool ascending = (i0 & size) == 0;
   for (int s = top; s >= kE; s >>= 1) {
@@ -450,8 +559,8 @@ __device__ __forceinline__ void warp_stages(unsigned long long (&x)[kE], int i0,
     const bool keep_min = ((lane & m) == 0) == ascending;  // the pair's lower entry here
 #pragma unroll
     for (int e = 0; e < kE; ++e) {
-      const unsigned long long y = __shfl_xor_sync(kFull, x[e], m);
-      x[e] = (x[e] > y) == keep_min ? y : x[e];
+      const E y = shfl_xor(x[e], m);
+      x[e] = gt(x[e], y) == keep_min ? y : x[e];
     }
   }
   if (top >= 2) {
@@ -469,18 +578,25 @@ __device__ __forceinline__ void warp_stages(unsigned long long (&x)[kE], int i0,
 // its strides of kSpan or more on the whole list in shared memory, one
 // block barrier each, then its smaller strides on the segments again. The
 // last stage writes from registers.
-__device__ void sort_list(unsigned long long* list, int L, int k, float* vals, int* pos) {
+template <typename T, typename E>
+__device__ void sort_list(E* list, int L, int k, T* vals, int* pos) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr bool kPacked = std::is_same<E, unsigned long long>::value;  // two entries in 16 bytes
   auto segment = [&](int size, int top, bool first) {
     for (int seg = warp * kSpan; seg < L; seg += kWarps * kSpan) {
       const int i0 = seg + lane * kE;
-      unsigned long long x[kE];
-      const ulonglong2* src = reinterpret_cast<const ulonglong2*>(list + i0);
-      const ulonglong2 a = src[0], b = src[1];
-      x[0] = a.x;
-      x[1] = a.y;
-      x[2] = b.x;
-      x[3] = b.y;
+      E x[kE];
+      if constexpr (kPacked) {
+        const ulonglong2* src = reinterpret_cast<const ulonglong2*>(list + i0);
+        const ulonglong2 a = src[0], b = src[1];
+        x[0] = a.x;
+        x[1] = a.y;
+        x[2] = b.x;
+        x[3] = b.y;
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) x[e] = list[i0 + e];
+      }
       if (first) {
         for (int s = 2; s <= kSpan; s <<= 1) warp_stages(x, i0, s, s / 2);
       } else {
@@ -489,15 +605,15 @@ __device__ void sort_list(unsigned long long* list, int L, int k, float* vals, i
       if (size == L) {
 #pragma unroll
         for (int e = 0; e < kE; ++e) {
-          if (i0 + e < k) {
-            vals[i0 + e] = __int_as_float(static_cast<int>(x[e] >> 32));
-            pos[i0 + e] = static_cast<int>(x[e] & 0xffffffffull);
-          }
+          if (i0 + e < k) write_entry(x[e], vals + i0 + e, pos + i0 + e);
         }
-      } else {
+      } else if constexpr (kPacked) {
         ulonglong2* dst = reinterpret_cast<ulonglong2*>(list + i0);
         dst[0] = make_ulonglong2(x[0], x[1]);
         dst[1] = make_ulonglong2(x[2], x[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) list[i0 + e] = x[e];
       }
     }
   };
@@ -517,23 +633,26 @@ __device__ void sort_list(unsigned long long* list, int L, int k, float* vals, i
 
 // One row per cluster of C blocks (C = 1 in the wide mode): block `rank`
 // holds columns [rank * slice, (rank + 1) * slice) of row blockIdx.x / C.
-template <bool kWide>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-knn_select_kernel(const float* __restrict__ d2, int w, int k, int slice, float* __restrict__ vals,
+template <typename T, bool kWide>
+__global__ void __launch_bounds__(kThreads, Keys<T>::kMinBlocks)
+knn_select_kernel(const T* __restrict__ d2, int w, int k, int slice, T* __restrict__ vals,
                   int* __restrict__ pos) {
+  using K = typename Keys<T>::K;
+  using U = typename Keys<T>::U;
+  using E = typename Keys<T>::E;
+  constexpr K kBigKey = Keys<T>::kBig;
   extern __shared__ int4 dyn[];
-  __shared__ Shared sh;
+  __shared__ Shared<K> sh;
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const size_t row = blockIdx.x / csize;
   const int j0 = min(rank * slice, w), n = min(slice, w - j0);
-  const int* src = reinterpret_cast<const int*>(d2) + row * w + j0;
-  int* skeys = reinterpret_cast<int*>(dyn);  // [slice] (shared mode)
-  const int* keys = kWide ? src : skeys;
+  const K* src = reinterpret_cast<const K*>(d2) + row * w + j0;
+  K* skeys = reinterpret_cast<K*>(dyn);  // [slice] (shared mode)
+  const K* keys = kWide ? src : skeys;
   const int L = list_len(k);
-  unsigned long long* list = reinterpret_cast<unsigned long long*>(
-      reinterpret_cast<int*>(dyn) + (kWide ? 0 : round_up(slice, 4)));  // [L]
+  E* list = reinterpret_cast<E*>(skeys + (kWide ? 0 : round_up(slice, 4)));  // [L]
   // [gather_cap(k)]: the gathered indices
   Index<kWide>* spare = reinterpret_cast<Index<kWide>*>(list + L);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -541,9 +660,9 @@ knn_select_kernel(const float* __restrict__ d2, int w, int k, int slice, float* 
   // ---- 1. load the slice; body min / max / count over the row ------------
   for (int b = tid; b < 2 * kBins; b += kThreads) (&sh.hist[0][0])[b] = 0;
   if (tid == 0) sh.fill = 0;
-  int mn = INT_MAX, mx = INT_MIN;
+  K mn = Keys<T>::kMax, mx = Keys<T>::kMin;
   unsigned nb = 0;
-  auto see = [&](int key) {
+  auto see = [&](K key) {
     if (key < kBigKey) {
       mn = min(mn, key);
       mx = max(mx, key);
@@ -554,14 +673,24 @@ knn_select_kernel(const float* __restrict__ d2, int w, int k, int slice, float* 
   if constexpr (kWide) {
     // the keys stay in device memory; the later walks read the row again
     if (aligned) {
-      const int4* s4 = reinterpret_cast<const int4*>(src);
+      if constexpr (sizeof(K) == 4) {
+        const int4* s4 = reinterpret_cast<const int4*>(src);
 #pragma unroll 4
-      for (int q = tid; q < n / 4; q += kThreads) {
-        const int4 v = __ldg(s4 + q);
-        see(v.x);
-        see(v.y);
-        see(v.z);
-        see(v.w);
+        for (int q = tid; q < n / 4; q += kThreads) {
+          const int4 v = __ldg(s4 + q);
+          see(v.x);
+          see(v.y);
+          see(v.z);
+          see(v.w);
+        }
+      } else {
+        const longlong2* s2 = reinterpret_cast<const longlong2*>(src);
+#pragma unroll 4
+        for (int q = tid; q < n / 2; q += kThreads) {
+          const longlong2 v = __ldg(s2 + q);
+          see(v.x);
+          see(v.y);
+        }
       }
     } else {
       for (int j = tid; j < n; j += kThreads) see(__ldg(src + j));
@@ -574,7 +703,9 @@ knn_select_kernel(const float* __restrict__ d2, int w, int k, int slice, float* 
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
       }
       __syncthreads();
-      if (tid == 0) bulk_load(smem_addr(skeys), src, static_cast<uint32_t>(n) * 4, bar);
+      if (tid == 0) {
+        bulk_load(smem_addr(skeys), src, static_cast<uint32_t>(n) * sizeof(K), bar);
+      }
       mbar_wait(bar, 0);
     } else {
       for (int j = tid; j < n; j += kThreads) skeys[j] = __ldcs(src + j);
@@ -582,8 +713,8 @@ knn_select_kernel(const float* __restrict__ d2, int w, int k, int slice, float* 
     }
     for (int j = tid; j < n; j += kThreads) see(skeys[j]);
   }
-  mn = __reduce_min_sync(kFull, mn);
-  mx = __reduce_max_sync(kFull, mx);
+  mn = warp_min(mn);
+  mx = warp_max(mx);
   nb = __reduce_add_sync(kFull, nb);
   if (lane == 0) {
     sh.rmin[warp] = mn;
@@ -592,7 +723,8 @@ knn_select_kernel(const float* __restrict__ d2, int w, int k, int slice, float* 
   }
   __syncthreads();
   if (tid == 0) {
-    int lo = INT_MAX, hi = INT_MIN, cnt = 0;
+    K lo = Keys<T>::kMax, hi = Keys<T>::kMin;
+    int cnt = 0;
 #pragma unroll
     for (int i = 0; i < kWarps; ++i) {
       lo = min(lo, sh.rmin[i]);
@@ -606,29 +738,30 @@ knn_select_kernel(const float* __restrict__ d2, int w, int k, int slice, float* 
   // every slice's statistics are published (and the histograms cleared)
   cluster.sync();
   // lane q of each warp reads rank q's statistics; the warp reduces them
-  int body_lo = INT_MAX, body_hi = INT_MIN, n_body = 0;
+  K body_lo = Keys<T>::kMax, body_hi = Keys<T>::kMin;
+  int n_body = 0;
   if (lane < csize) {
-    const int* st = cluster.map_shared_rank(sh.stat, lane);
+    const K* st = cluster.map_shared_rank(sh.stat, lane);
     body_lo = st[0];
     body_hi = st[1];
-    n_body = st[2];
+    n_body = static_cast<int>(st[2]);
   }
-  body_lo = __reduce_min_sync(kFull, body_lo);
-  body_hi = __reduce_max_sync(kFull, body_hi);
+  body_lo = warp_min(body_lo);
+  body_hi = warp_max(body_hi);
   n_body = __reduce_add_sync(kFull, n_body);
   int parity = 0;
   const int cap = gather_cap<kWide>(k);
 
   // ---- 2. t = the row's k-th smallest key, and count(keys < t) -----------
-  Found f;
+  Found<K> f;
   if (k <= n_body) {
-    f = select_rank<kWide>(cluster, csize, keys, n, body_lo,
-                           static_cast<unsigned>(body_hi) - static_cast<unsigned>(body_lo), k, 0,
-                           sh, parity, spare, cap);
+    f = select_rank<T, kWide>(cluster, csize, keys, n, body_lo,
+                              static_cast<U>(body_hi) - static_cast<U>(body_lo), k, 0, sh, parity,
+                              spare, cap);
   } else {  // k reaches past the body into the finfo.max (or larger) keys
-    f = select_rank<kWide>(cluster, csize, keys, n, kBigKey,
-                           static_cast<unsigned>(INT_MAX) - static_cast<unsigned>(kBigKey),
-                           k - n_body, n_body, sh, parity, spare, cap);
+    f = select_rank<T, kWide>(cluster, csize, keys, n, kBigKey,
+                              static_cast<U>(Keys<T>::kMax) - static_cast<U>(kBigKey), k - n_body,
+                              n_body, sh, parity, spare, cap);
   }
 
   // ---- 3. the list: every entry below t, then the ties --------------------
@@ -642,7 +775,7 @@ knn_select_kernel(const float* __restrict__ d2, int w, int k, int slice, float* 
     compact<kWide>(cluster, rank, keys, n, j0, f.t, f.below, k - f.below, list, sh);
   }
   if (rank == 0) {
-    for (int i = filled + tid; i < L; i += kThreads) list[i] = kPad;
+    for (int i = filled + tid; i < L; i += kThreads) set_pad(list[i]);
   }
   // every entry has landed in the leader's list; the others are done
   cluster.sync();
@@ -654,15 +787,18 @@ knn_select_kernel(const float* __restrict__ d2, int w, int k, int slice, float* 
 
 // Dynamic shared memory of one shared-mode block: its slice's keys, the
 // list and the gather buffer.
-__host__ __device__ inline size_t shared_smem_bytes(int slice, int k) {
-  return static_cast<size_t>(round_up(slice, 4)) * 4 + static_cast<size_t>(list_len(k)) * 8 +
+template <typename T>
+size_t shared_smem_bytes(int slice, int k) {
+  return static_cast<size_t>(round_up(slice, 4)) * sizeof(typename Keys<T>::K) +
+         static_cast<size_t>(list_len(k)) * sizeof(typename Keys<T>::E) +
          static_cast<size_t>(gather_cap<false>(k)) * sizeof(Index<false>);
 }
 
 // Dynamic shared memory of one wide-mode block: the list and the gather
 // buffer.
-__host__ __device__ inline size_t wide_smem_bytes(int k) {
-  return static_cast<size_t>(list_len(k)) * 8 +
+template <typename T>
+size_t wide_smem_bytes(int k) {
+  return static_cast<size_t>(list_len(k)) * sizeof(typename Keys<T>::E) +
          static_cast<size_t>(gather_cap<true>(k)) * sizeof(Index<true>);
 }
 
@@ -674,17 +810,18 @@ int default_cluster(int w) {
   return c;
 }
 
-// the columns a block holds over a cluster of c: multiples of 4 (16 bytes)
-// where c > 1, so each block's slice starts 16-byte aligned in an aligned row
+// the columns a block holds over a cluster of c: multiples of 4 (16 bytes
+// of float32) where c > 1, so each block's slice starts 16-byte aligned in
+// an aligned row
 int slice_of(int w, int c) { return c == 1 ? w : round_up((w + c - 1) / c, 4); }
 
-template <bool kWide>
+template <typename T, bool kWide>
 cudaError_t configure(size_t smem) {
   static bool carveout_set = false;
   if (!carveout_set) {
     // shared memory before L1: the blocks per SM are bound by shared memory
     const cudaError_t err = cudaFuncSetAttribute(
-        knn_select_kernel<kWide>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        knn_select_kernel<T, kWide>, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     carveout_set = true;
@@ -695,7 +832,7 @@ cudaError_t configure(size_t smem) {
   static size_t allowed = 0;
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        knn_select_kernel<kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        knn_select_kernel<T, kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     allowed = smem;
@@ -710,14 +847,14 @@ struct Plan {
   size_t smem;
 };
 
+template <typename T>
 Plan plan_of(int mode, int w, int k) {
-  if (mode == 1) return {1, w, wide_smem_bytes(k)};
+  if (mode == 1) return {1, w, wide_smem_bytes<T>(k)};
   const int c = default_cluster(w);
   const int slice = slice_of(w, c);
-  return {c, slice, shared_smem_bytes(slice, k)};
+  return {c, slice, shared_smem_bytes<T>(slice, k)};
 }
 
-template <bool kWide>
 cudaLaunchConfig_t launch_config(int n, const Plan& p, cudaStream_t s, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(n) * p.c);
@@ -734,60 +871,58 @@ cudaLaunchConfig_t launch_config(int n, const Plan& p, cudaStream_t s, cudaLaunc
 }
 
 // Clusters of this plan the card holds at once (0: none can be scheduled).
-template <bool kWide>
+template <typename T, bool kWide>
 cudaError_t max_clusters(const Plan& p, int* clusters) {
-  cudaError_t err = configure<kWide>(p.smem);
+  cudaError_t err = configure<T, kWide>(p.smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config<kWide>(1, p, nullptr, &attr);
-  return cudaOccupancyMaxActiveClusters(clusters, knn_select_kernel<kWide>, &cfg);
+  const cudaLaunchConfig_t cfg = launch_config(1, p, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(clusters, knn_select_kernel<T, kWide>, &cfg);
 }
 
 // The arguments every launch checks: a mode and rows of w columns it can
-// take at this k.
+// take at this k (the shared mode only over clusters of up to kMaxShared
+// blocks).
+template <typename T>
 bool valid_shape(int w, int k, int mode) {
-  return w > 0 && k >= 1 && k <= w && k <= kMaxK && (mode == 0 || mode == 1);
+  return w > 0 && k >= 1 && k <= w && k <= Keys<T>::kMaxK &&
+         (mode == 1 || (mode == 0 && default_cluster(w) <= Keys<T>::kMaxShared));
 }
 
 // Whether `p` (in mode 0 or 1) fits a block's shared memory on a card that
 // lets a block opt in to `optin` bytes and can be scheduled.
-template <bool kWide>
+template <typename T, bool kWide>
 cudaError_t fits(const Plan& p, size_t optin, bool* ok) {
   *ok = false;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, knn_select_kernel<kWide>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, knn_select_kernel<T, kWide>);
   if (err != cudaSuccess || p.smem + attr.sharedSizeBytes > optin) return err;
   int clusters = 0;
-  if ((err = max_clusters<kWide>(p, &clusters)) != cudaSuccess) return err;
+  if ((err = max_clusters<T, kWide>(p, &clusters)) != cudaSuccess) return err;
   *ok = clusters > 0;
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" {
-
-// The mode that takes rows of w columns at this k on `device` and its
-// cluster size: 0 (shared: a cluster of `cluster` blocks a row, each block
-// its slice of the keys in shared memory) whenever that fits and can be
-// scheduled, else 1 (wide: the keys stay in device memory, cluster 1)
-// where that fits, else -1. Returns the first cudaError_t.
-int knn_select_mode(int device, int w, int k, int* mode, int* cluster) {
+template <typename T>
+int select_mode(int device, int w, int k, int* mode, int* cluster) {
   *mode = -1;
   *cluster = 0;
-  if (!valid_shape(w, k, 0)) return cudaSuccess;
+  if (!valid_shape<T>(w, k, 1)) return cudaSuccess;
   int optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   bool ok = false;
-  const Plan shared = plan_of(0, w, k);
-  if ((err = fits<false>(shared, static_cast<size_t>(optin), &ok)) != cudaSuccess) return err;
+  const Plan shared = plan_of<T>(0, w, k);
+  if (valid_shape<T>(w, k, 0) &&
+      (err = fits<T, false>(shared, static_cast<size_t>(optin), &ok)) != cudaSuccess) {
+    return err;
+  }
   if (ok) {
     *mode = 0;
     *cluster = shared.c;
     return cudaSuccess;
   }
-  if ((err = fits<true>(plan_of(1, w, k), static_cast<size_t>(optin), &ok)) != cudaSuccess) {
+  if ((err = fits<T, true>(plan_of<T>(1, w, k), static_cast<size_t>(optin), &ok)) != cudaSuccess) {
     return err;
   }
   if (ok) {
@@ -797,32 +932,27 @@ int knn_select_mode(int device, int w, int k, int* mode, int* cluster) {
   return cudaSuccess;
 }
 
-// Launch shape of `mode` (0: shared, over the cluster size W picks; 1:
-// wide) for rows of w columns at this k on `device`: threads, dynamic and static
-// shared memory per block, resident blocks per SM, registers a thread,
-// local (spill) bytes a thread, blocks a cluster, clusters the card holds
-// at once (0, and no blocks per SM, where the blocks' shared memory does
-// not fit) and columns a block. Returns the first cudaError_t.
-int knn_select_info(int device, int mode, int w, int k, int* out) {
-  if (!valid_shape(w, k, mode)) return cudaErrorInvalidValue;
-  const Plan p = plan_of(mode, w, k);
+template <typename T>
+int select_info(int device, int mode, int w, int k, int* out) {
+  if (!valid_shape<T>(w, k, mode)) return cudaErrorInvalidValue;
+  const Plan p = plan_of<T>(mode, w, k);
   int optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
   int blocks = 0, clusters = 0;
   if (mode == 0) {
-    if ((err = cudaFuncGetAttributes(&attr, knn_select_kernel<false>)) != cudaSuccess) return err;
+    if ((err = cudaFuncGetAttributes(&attr, knn_select_kernel<T, false>)) != cudaSuccess) return err;
     if (p.smem + attr.sharedSizeBytes <= static_cast<size_t>(optin)) {
-      if ((err = max_clusters<false>(p, &clusters)) != cudaSuccess) return err;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, knn_select_kernel<false>,
+      if ((err = max_clusters<T, false>(p, &clusters)) != cudaSuccess) return err;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, knn_select_kernel<T, false>,
                                                           kThreads, p.smem);
     }
   } else {
-    if ((err = cudaFuncGetAttributes(&attr, knn_select_kernel<true>)) != cudaSuccess) return err;
+    if ((err = cudaFuncGetAttributes(&attr, knn_select_kernel<T, true>)) != cudaSuccess) return err;
     if (p.smem + attr.sharedSizeBytes <= static_cast<size_t>(optin)) {
-      if ((err = max_clusters<true>(p, &clusters)) != cudaSuccess) return err;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, knn_select_kernel<true>,
+      if ((err = max_clusters<T, true>(p, &clusters)) != cudaSuccess) return err;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, knn_select_kernel<T, true>,
                                                           kThreads, p.smem);
     }
   }
@@ -839,33 +969,77 @@ int knn_select_info(int device, int mode, int w, int k, int* out) {
   return cudaSuccess;
 }
 
+template <typename T>
+int select_launch(const void* d2, int n, int w, int k, int mode, void* vals, void* pos,
+                  void* stream) {
+  if (n <= 0) return cudaSuccess;
+  if (!valid_shape<T>(w, k, mode)) return cudaErrorInvalidValue;
+  const Plan p = plan_of<T>(mode, w, k);
+  if (static_cast<long long>(n) * p.c > INT_MAX) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  cudaError_t err;
+  const T* in = static_cast<const T*>(d2);
+  T* v = static_cast<T*>(vals);
+  int* ix = static_cast<int*>(pos);
+  if (mode == 0) {
+    if ((err = configure<T, false>(p.smem)) != cudaSuccess) return err;
+    const cudaLaunchConfig_t cfg = launch_config(n, p, s, &attr);
+    err = cudaLaunchKernelEx(&cfg, knn_select_kernel<T, false>, in, w, k, p.slice, v, ix);
+  } else {
+    if ((err = configure<T, true>(p.smem)) != cudaSuccess) return err;
+    const cudaLaunchConfig_t cfg = launch_config(n, p, s, &attr);
+    err = cudaLaunchKernelEx(&cfg, knn_select_kernel<T, true>, in, w, k, p.slice, v, ix);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// The mode that takes rows of w columns at this k on `device` and its
+// cluster size: 0 (shared: a cluster of `cluster` blocks a row, each block
+// its slice of the keys in shared memory) whenever that fits and can be
+// scheduled, else 1 (wide: the keys stay in device memory, cluster 1)
+// where that fits, else -1. Returns the first cudaError_t.
+int knn_select_mode(int device, int w, int k, int* mode, int* cluster) {
+  return select_mode<float>(device, w, k, mode, cluster);
+}
+
+// Launch shape of `mode` (0: shared, over the cluster size W picks; 1:
+// wide) for rows of w columns at this k on `device`: threads, dynamic and static
+// shared memory per block, resident blocks per SM, registers a thread,
+// local (spill) bytes a thread, blocks a cluster, clusters the card holds
+// at once (0, and no blocks per SM, where the blocks' shared memory does
+// not fit) and columns a block. Returns the first cudaError_t.
+int knn_select_info(int device, int mode, int w, int k, int* out) {
+  return select_info<float>(device, mode, w, k, out);
+}
+
 // Launch `mode` (from knn_select_mode; the shared mode over the cluster
 // size W picks) on `stream` without synchronising: d2 [n, w] float32
 // row-major in, vals [n, k] float32 and pos [n, k] int32 out. Returns the
 // first cudaError_t.
 int knn_select_launch(const void* d2, int n, int w, int k, int mode, void* vals, void* pos,
                       void* stream) {
-  if (n <= 0) return cudaSuccess;
-  if (!valid_shape(w, k, mode)) return cudaErrorInvalidValue;
-  const Plan p = plan_of(mode, w, k);
-  if (static_cast<long long>(n) * p.c > INT_MAX) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr;
-  cudaError_t err;
-  const float* in = static_cast<const float*>(d2);
-  float* v = static_cast<float*>(vals);
-  int* ix = static_cast<int*>(pos);
-  if (mode == 0) {
-    if ((err = configure<false>(p.smem)) != cudaSuccess) return err;
-    const cudaLaunchConfig_t cfg = launch_config<false>(n, p, s, &attr);
-    err = cudaLaunchKernelEx(&cfg, knn_select_kernel<false>, in, w, k, p.slice, v, ix);
-  } else {
-    if ((err = configure<true>(p.smem)) != cudaSuccess) return err;
-    const cudaLaunchConfig_t cfg = launch_config<true>(n, p, s, &attr);
-    err = cudaLaunchKernelEx(&cfg, knn_select_kernel<true>, in, w, k, p.slice, v, ix);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return select_launch<float>(d2, n, w, k, mode, vals, pos, stream);
+}
+
+// The float64 form of the three above: d2 [n, w] and vals [n, k] float64,
+// k <= 8,192, the shared mode at w <= 8,192 only (one block a row).
+int knn_select_mode_f64(int device, int w, int k, int* mode, int* cluster) {
+  return select_mode<double>(device, w, k, mode, cluster);
+}
+
+int knn_select_info_f64(int device, int mode, int w, int k, int* out) {
+  return select_info<double>(device, mode, w, k, out);
+}
+
+int knn_select_launch_f64(const void* d2, int n, int w, int k, int mode, void* vals, void* pos,
+                          void* stream) {
+  return select_launch<double>(d2, n, w, k, mode, vals, pos, stream);
 }
 
 const char* knn_select_error_string(int err) {

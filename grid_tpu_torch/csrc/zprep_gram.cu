@@ -5,8 +5,9 @@
 // Replaces grid_tpu/ops/pallas_kernels.py:zprep_gram (_zprep_tile and
 // _gram_kernel; pallas_call at line 93).
 //
-// What bounds it on the H100: 2*N*N*R flops (25.7 GFLOP at N=2504,
-// R=2048) against N*R*5 bytes of input, so it is compute-bound. The
+// What bounds it on the H100: the symmetric product's N*(N+1)*R flops
+// (12.8 GFLOP at N=2504, R=2048) against N*R*5 bytes of input, so it is
+// compute-bound. The
 // neighbor lists must agree with a float32 Gram product up to ties, and
 // plain TF32 (10 mantissa bits) misses that by far, while the float32 FMA
 // units peak at ~67 TFLOP/s against the TF32 tensor cores' 495.

@@ -47,7 +47,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers / shared memory / spills, kept in the .log
 )
-KERNELS = ("zprep_gram", "dipcn_select", "sw_scores", "knn_select", "phase_sweeps")
+KERNELS = ("zprep_gram", "zprep_gram64", "dipcn_select", "sw_scores", "knn_select",
+           "phase_sweeps")
 
 
 class KernelError(RuntimeError):
@@ -185,6 +186,17 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if device.type == "cuda":
         return True
     raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def dtype_suffix(dtype: torch.dtype) -> str:
+    """The C entry points' suffix of a value type the cohort step's kernels
+    take: "" for float32, "_f64" for float64 (their float64 forms); raises
+    TypeError for any other."""
+    if dtype == torch.float32:
+        return ""
+    if dtype == torch.float64:
+        return "_f64"
+    raise TypeError(f"expected torch.float32 or torch.float64, got {dtype}")
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:

@@ -15,14 +15,19 @@
   float32 scratch; a second small kernel adds the S partials in chunk
   order. No float atomics, so two calls on the same inputs give
   bitwise-equal outputs. With S=1 the scratch is the output and the
-  second kernel is not launched.
+  second kernel is not launched. Its float64 form is the same two kernels
+  with float64 inputs, accumulators and partials (8 B a value: 46 MB, 14 µs
+  at 3.35 TB/s, at N=2504, R=2048).
 - :func:`zprep_gram` — CUDA C++ in ``csrc/zprep_gram.cu``. Replaces
   ``pallas_kernels.py:zprep_gram`` (``pallas_call`` at line 93). See the
   source for its design. The row-panel branch runs the same kernel in two
   more modes: :func:`zprep_split` once per step (P's TF32 halves and the
   squared row norms), then :func:`zprep_gram_panel` once per row panel.
   The sharded ring's fourth mode, :func:`zprep_gram_cross`, multiplies a
-  rank's split rows by the visiting block's.
+  rank's split rows by the visiting block's. Float64 inputs take
+  ``csrc/zprep_gram64.cu`` instead (the triangle, split and panel modes, on
+  the FP64 tensor cores; no split: P itself stands in ``SplitZ.p``); the
+  cross mode is float32 only.
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch version
 for CPU tensors only; it counts its calls that reached the card in
@@ -53,7 +58,7 @@ _COLSTATS_MERGE_BLOCK = 256  # partial entries per program of the merge kernel
 
 def masked_column_stats_plain(values, mask, inv_row_means, col_means=None):
     """Plain PyTorch version of :func:`masked_column_stats`, in the input's
-    dtype (the kernel is float32 only).
+    dtype.
 
     The sums run along contiguous rows of the transposed matrix: summed
     across the rows in place, a column's sum depended on its position (the
@@ -90,19 +95,22 @@ def _colstats_kernels():
     import triton
     import triton.language as tl
 
+    # the sums, the partials and the output keep the values' type (float32
+    # or float64)
     @triton.jit
     def colstats(v_ptr, m_ptr, irm_ptr, mu_ptr, part_ptr, n_rows, n_cols, rows_per_chunk,
                  HAS_MU: tl.constexpr, BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr):
+        ACC = v_ptr.dtype.element_ty
         cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
         chunk = tl.program_id(1)
         col_in = cols < n_cols
         if HAS_MU:
             mu = tl.load(mu_ptr + cols, mask=col_in, other=0.0)
         else:
-            mu = tl.zeros((BLOCK_C,), tl.float32)
-        acc_cnt = tl.zeros((BLOCK_M, BLOCK_C), tl.float32)
-        acc_sum = tl.zeros((BLOCK_M, BLOCK_C), tl.float32)
-        acc_sq = tl.zeros((BLOCK_M, BLOCK_C), tl.float32)
+            mu = tl.zeros((BLOCK_C,), ACC)
+        acc_cnt = tl.zeros((BLOCK_M, BLOCK_C), ACC)
+        acc_sum = tl.zeros((BLOCK_M, BLOCK_C), ACC)
+        acc_sq = tl.zeros((BLOCK_M, BLOCK_C), ACC)
         row0 = chunk * rows_per_chunk
         for r0 in range(0, rows_per_chunk, BLOCK_M):
             rows = row0 + r0 + tl.arange(0, BLOCK_M)
@@ -114,7 +122,7 @@ def _colstats_kernels():
             irm = tl.load(irm_ptr + rows, mask=row_in, other=0.0)
             x = tl.where(m, v * irm[:, None], 0.0)
             c = tl.where(m, x - mu[None, :], 0.0)
-            acc_cnt += m.to(tl.float32)
+            acc_cnt += m.to(ACC)
             acc_sum += x
             acc_sq += c * c
         # partials [S, 3, R]: this chunk's count, sum and sqdev rows
@@ -127,9 +135,10 @@ def _colstats_kernels():
     def colstats_merge(part_ptr, out_ptr, width, N_CHUNKS: tl.constexpr, BLOCK: tl.constexpr):
         # out[j] = sum over s of part[s, j], s in order: deterministic; the
         # loop is unrolled, so all S loads are in flight together
+        ACC = part_ptr.dtype.element_ty
         offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
         inb = offs < width
-        acc = tl.zeros((BLOCK,), tl.float32)
+        acc = tl.zeros((BLOCK,), ACC)
         for s in tl.static_range(N_CHUNKS):
             acc += tl.load(part_ptr + s * width + offs, mask=inb, other=0.0)
         tl.store(out_ptr + offs, acc, mask=inb)
@@ -154,22 +163,24 @@ def masked_column_stats(values, mask, inv_row_means, col_means=None):
         inv_row_means: [N] 1/row_mean (0 for invalid rows).
         col_means: optional [R]; sqdev is centered on it (zeros when None).
 
-    Returns (cnt [R], sum [R], sqdev [R]): float32 from the kernel, the
-    input dtype from the plain version.
+    Returns (cnt [R], sum [R], sqdev [R]) in the input dtype: float32 or
+    float64 from the kernel (the sums kept in that type), any float type
+    from the plain version.
     """
     tensors = (values, mask, inv_row_means) + (() if col_means is None else (col_means,))
     if not native.on_cuda(*tensors):
         return masked_column_stats_plain(values, mask, inv_row_means, col_means)
     n, r = values.shape
-    native.check(values, "values", torch.float32, (n, r))
+    dtype = values.dtype
+    native.dtype_suffix(dtype)  # float32 or float64
+    native.check(values, "values", dtype, (n, r))
     native.check(mask, "mask", torch.bool, (n, r))
-    native.check(inv_row_means, "inv_row_means", torch.float32, (n,))
+    native.check(inv_row_means, "inv_row_means", dtype, (n,))
     if col_means is not None:
-        native.check(col_means, "col_means", torch.float32, (r,))
+        native.check(col_means, "col_means", dtype, (r,))
     col_tiles, chunks, rows_per_chunk = colstats_plan(n, r, _sm_count(values.device))
-    part = torch.empty((chunks, 3, r), dtype=torch.float32, device=values.device)
-    out = part[0] if chunks == 1 else torch.empty((3, r), dtype=torch.float32,
-                                                  device=values.device)
+    part = torch.empty((chunks, 3, r), dtype=dtype, device=values.device)
+    out = part[0] if chunks == 1 else torch.empty((3, r), dtype=dtype, device=values.device)
     try:
         triton, kernel, merge = _colstats_kernels()
         with torch.cuda.device(values.device):
@@ -243,8 +254,10 @@ def zprep_gram_plain(z, mask, region_mask, zmax: float):
 
 
 _GRAM_K_TILE = 32  # R columns per stage of csrc/zprep_gram.cu (kTileK); R is padded to it
+_GRAM64_K_TILE = 16  # the same of csrc/zprep_gram64.cu
 _GRAM_INFO_KEYS = ("tile", "k_tile", "stages", "threads", "smem_bytes", "blocks",
                    "blocks_per_sm")
+_GRAM64_INFO_KEYS = (*_GRAM_INFO_KEYS, "registers", "spill_bytes")
 
 
 @functools.cache
@@ -269,6 +282,30 @@ def _zprep_lib():
     return lib
 
 
+@functools.cache
+def _zprep64_lib():
+    lib = native.load("zprep_gram64")
+    lib.zprep_gram64_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.zprep_gram64_launch.restype = ctypes.c_int
+    lib.zprep_split64_launch.argtypes = lib.zprep_gram64_launch.argtypes
+    lib.zprep_split64_launch.restype = ctypes.c_int
+    lib.zprep_gram64_panel_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.zprep_gram64_panel_launch.restype = ctypes.c_int
+    lib.zprep_gram64_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.zprep_gram64_info.restype = ctypes.c_int
+    return lib
+
+
+def _r_pad(r: int, dtype: torch.dtype) -> int:
+    """R rounded up to the K-stage of the dtype's Gram kernel (at least one)."""
+    k_tile = _GRAM64_K_TILE if dtype == torch.float64 else _GRAM_K_TILE
+    return max(1, -(-r // k_tile)) * k_tile
+
+
 def _require_hopper(device: torch.device) -> None:
     cap = torch.cuda.get_device_capability(device)
     if cap != (9, 0):
@@ -276,11 +313,18 @@ def _require_hopper(device: torch.device) -> None:
                            f"capability {cap[0]}.{cap[1]}")
 
 
-def zprep_gram_info(n: int, device: torch.device) -> dict:
+def zprep_gram_info(n: int, device: torch.device, dtype: torch.dtype = torch.float32) -> dict:
     """The Gram kernel's launch shape for ``n`` rows: tile, k_tile, stages,
     threads and dynamic shared memory per block, blocks (upper-triangle
-    tiles) and resident blocks per SM on the CUDA ``device``."""
+    tiles) and resident blocks per SM on the CUDA ``device``; for float64,
+    the FP64 kernel's (static shared memory) with its registers and spill
+    bytes a thread."""
     _require_hopper(device)
+    if dtype == torch.float64:
+        out = (ctypes.c_int * len(_GRAM64_INFO_KEYS))()
+        with torch.cuda.device(device):
+            native.check_launch("zprep_gram64", _zprep64_lib().zprep_gram64_info(n, out))
+        return dict(zip(_GRAM64_INFO_KEYS, out))
     out = (ctypes.c_int * len(_GRAM_INFO_KEYS))()
     with torch.cuda.device(device):
         native.check_launch("zprep_gram", _zprep_lib().zprep_gram_info(n, out))
@@ -290,36 +334,43 @@ def zprep_gram_info(n: int, device: torch.device) -> dict:
 def zprep_gram(z, mask, region_mask, zmax: float):
     """G = P P^T with P = where(mask, clip(z, ±zmax), 0) * region_mask.
 
-    On the card: a split pass writes P's TF32 halves (scratch of 2·N·R_pad
-    float32, R_pad = R rounded up to 32), then the upper-triangle tiles of G
-    run as three TF32 tensor-core products (big·small + small·big + big·big)
-    at float32 accuracy; G comes out exactly symmetric. Needs compute
-    capability 9.0.
+    On the card, float32: a split pass writes P's TF32 halves (scratch of
+    2·N·R_pad float32, R_pad = R rounded up to 32), then the upper-triangle
+    tiles of G run as three TF32 tensor-core products (big·small +
+    small·big + big·big) at float32 accuracy. Float64: a prep pass writes P
+    (N·R_pad float64, R_pad a multiple of 16), then the upper-triangle tiles
+    run on the FP64 tensor cores (``mma.sync`` m8n8k4, IEEE float64). G
+    comes out exactly symmetric either way. Needs compute capability 9.0.
 
     Args:
-        z: [N, R] float32 z matrix.
+        z: [N, R] float32 or float64 z matrix.
         mask: [N, R] bool validity.
         region_mask: [R] bool selected regions.
         zmax: clip bound.
 
-    Returns [N, N] Gram matrix (float32 from the kernel; the input dtype
-    from the plain version).
+    Returns [N, N] Gram matrix in z's dtype.
     """
     if not native.on_cuda(z, mask, region_mask):
         return zprep_gram_plain(z, mask, region_mask, zmax)
     n, r = z.shape
-    native.check(z, "z", torch.float32, (n, r))
+    dtype = z.dtype
+    native.dtype_suffix(dtype)  # float32: csrc/zprep_gram.cu; float64: csrc/zprep_gram64.cu
+    native.check(z, "z", dtype, (n, r))
     native.check(mask, "mask", torch.bool, (n, r))
     native.check(region_mask, "region_mask", torch.bool, (r,))
     _require_hopper(z.device)
-    r_pad = max(1, -(-r // _GRAM_K_TILE)) * _GRAM_K_TILE
-    split = torch.empty((2, n, r_pad), dtype=torch.float32, device=z.device)
-    g = torch.empty((n, n), dtype=torch.float32, device=z.device)
-    launch = _zprep_lib().zprep_gram_launch
+    r_pad = _r_pad(r, dtype)
+    g = torch.empty((n, n), dtype=dtype, device=z.device)
+    if dtype == torch.float64:
+        name, launch = "zprep_gram64", _zprep64_lib().zprep_gram64_launch
+        scratch = torch.empty((n, r_pad), dtype=dtype, device=z.device)
+    else:
+        name, launch = "zprep_gram", _zprep_lib().zprep_gram_launch
+        scratch = torch.empty((2, n, r_pad), dtype=dtype, device=z.device)
     with torch.cuda.device(z.device):
         err = launch(z.data_ptr(), mask.data_ptr(), region_mask.data_ptr(), float(zmax), n, r,
-                     r_pad, split.data_ptr(), g.data_ptr(), native.stream_ptr(z.device))
-    native.check_launch("zprep_gram", err)
+                     r_pad, scratch.data_ptr(), g.data_ptr(), native.stream_ptr(z.device))
+    native.check_launch(name, err)
     native.count_launch(zprep_gram)
     return g
 
@@ -331,7 +382,9 @@ class SplitZ(NamedTuple):
     """P = where(mask, clip(z, ±zmax), 0) * region, prepared once per step
     for the Gram row panels (:func:`zprep_split`)."""
 
-    p: torch.Tensor  # [2, N, R_pad] TF32 halves of P on the card; P [N, R] itself on the CPU
+    # on the card [2, N, R_pad] TF32 halves of P (float32) or [1, N, R_pad]
+    # P itself (float64); P [N, R] itself on the CPU
+    p: torch.Tensor
     norms: torch.Tensor  # [N] squared norms of P's rows
 
 
@@ -349,10 +402,13 @@ def zprep_split(z, mask, region_mask, zmax: float) -> SplitZ:
     512 MB at N=65,536, R=1024) and the Gram kernel's diagonal tiles give
     the squared row norms as the diagonal of the same 3×TF32 product that
     :func:`zprep_gram` and :func:`zprep_gram_panel` compute, bitwise equal
-    to the diagonal of :func:`zprep_gram`'s G. Needs compute capability 9.0.
+    to the diagonal of :func:`zprep_gram`'s G. Float64: the prep pass writes
+    P as [1, N, R_pad] float64 (512 MB at N=65,536, R=1024) and the FP64
+    kernel's diagonal tiles give the norms, computed as each panel computes
+    G[i, i]. Needs compute capability 9.0.
 
     Args:
-        z: [N, R] float32 z matrix.
+        z: [N, R] float32 or float64 z matrix.
         mask: [N, R] bool validity, or None for z prepared already.
         region_mask: [R] bool selected regions, or None for all.
         zmax: clip bound (``math.inf`` for z prepared already).
@@ -361,21 +417,26 @@ def zprep_split(z, mask, region_mask, zmax: float) -> SplitZ:
     if not native.on_cuda(*tensors):
         return zprep_split_plain(z, mask, region_mask, zmax)
     n, r = z.shape
-    native.check(z, "z", torch.float32, (n, r))
+    dtype = z.dtype
+    native.dtype_suffix(dtype)  # float32: csrc/zprep_gram.cu; float64: csrc/zprep_gram64.cu
+    native.check(z, "z", dtype, (n, r))
     if mask is not None:
         native.check(mask, "mask", torch.bool, (n, r))
     if region_mask is not None:
         native.check(region_mask, "region_mask", torch.bool, (r,))
     _require_hopper(z.device)
-    r_pad = max(1, -(-r // _GRAM_K_TILE)) * _GRAM_K_TILE
-    split = torch.empty((2, n, r_pad), dtype=torch.float32, device=z.device)
-    norms = torch.empty(n, dtype=torch.float32, device=z.device)
+    r_pad = _r_pad(r, dtype)
+    wide = dtype == torch.float64
+    split = torch.empty((1 if wide else 2, n, r_pad), dtype=dtype, device=z.device)
+    norms = torch.empty(n, dtype=dtype, device=z.device)
+    name = "zprep_gram64" if wide else "zprep_gram"
+    launch = _zprep64_lib().zprep_split64_launch if wide else _zprep_lib().zprep_split_launch
     with torch.cuda.device(z.device):
-        err = _zprep_lib().zprep_split_launch(
+        err = launch(
             z.data_ptr(), 0 if mask is None else mask.data_ptr(),
             0 if region_mask is None else region_mask.data_ptr(), float(zmax), n, r, r_pad,
             split.data_ptr(), norms.data_ptr(), native.stream_ptr(z.device))
-    native.check_launch("zprep_gram", err)
+    native.check_launch(name, err)
     native.count_launch(zprep_split)
     return SplitZ(split, norms)
 
@@ -395,19 +456,26 @@ def zprep_gram_panel(split: SplitZ, i0: int, rows: int):
 
     On the card the Gram kernel runs over (the panel's row tiles) × (all
     column tiles) of the halves in ``split``, with the 3×TF32 arithmetic of
-    :func:`zprep_gram`, and stores the panel once (no triangle, no mirror).
+    :func:`zprep_gram`, and stores the panel once (no triangle, no mirror);
+    a float64 split takes the FP64 kernel over its P.
     """
     if not native.on_cuda(split.p, split.norms):
         return zprep_gram_panel_plain(split, i0, rows)
     _, n, r_pad = split.p.shape
-    native.check(split.p, "split", torch.float32, (2, n, r_pad))
+    dtype = split.p.dtype
+    native.dtype_suffix(dtype)
+    wide = dtype == torch.float64
+    native.check(split.p, "split", dtype, (1 if wide else 2, n, r_pad))
     if not (0 <= i0 and 0 < rows <= n - i0):
         raise ValueError(f"panel rows [{i0}, {i0 + rows}) outside [0, {n})")
-    g = torch.empty((rows, n), dtype=torch.float32, device=split.p.device)
+    g = torch.empty((rows, n), dtype=dtype, device=split.p.device)
+    name = "zprep_gram64" if wide else "zprep_gram"
+    launch = (_zprep64_lib().zprep_gram64_panel_launch if wide
+              else _zprep_lib().zprep_gram_panel_launch)
     with torch.cuda.device(g.device):
-        err = _zprep_lib().zprep_gram_panel_launch(split.p.data_ptr(), n, r_pad, i0, rows,
-                                                   g.data_ptr(), native.stream_ptr(g.device))
-    native.check_launch("zprep_gram", err)
+        err = launch(split.p.data_ptr(), n, r_pad, i0, rows, g.data_ptr(),
+                     native.stream_ptr(g.device))
+    native.check_launch(name, err)
     native.count_launch(zprep_gram_panel)
     return g
 
@@ -432,7 +500,7 @@ def zprep_gram_cross(a: SplitZ, b: SplitZ, a_row0: int = 0, b_row0: int = 0):
     ``zprep_gram_panel`` gives those two rows of one split of the whole
     cohort (the panel mode mirrors the lower half of its diagonal tiles,
     and a second small launch does the same here). Needs compute capability
-    9.0.
+    9.0. Float32 only: the sharded steps do not take float64 yet.
     """
     if not native.on_cuda(a.p, a.norms, b.p, b.norms):
         return zprep_gram_cross_plain(a, b, a_row0, b_row0)

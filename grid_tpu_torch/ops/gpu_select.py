@@ -23,6 +23,11 @@ XLA selections of ``grid_tpu``'s cohort step (``approx_max_k`` at
 ``grid_tpu/ops/knn.py:168-199``, the ring merge's ``top_k`` at
 ``grid_tpu/parallel/pknn.py:84``); its plain version is
 :func:`grid_tpu_torch.ops.knn.sorted_smallest_k`, a stable sort.
+
+Both kernels take float32 or float64 rows (``device.dtype``): the float64
+forms are the same kernels at int64 keys (the ``*_f64`` entry points of
+their sources), chosen by the dtype of ``d2``; the multi-weight form is
+float32 only.
 """
 
 from __future__ import annotations
@@ -55,6 +60,12 @@ def _lib():
     lib.dipcn_select_mode.restype = ctypes.c_int
     lib.dipcn_select_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.dipcn_select_info.restype = ctypes.c_int
+    lib.dipcn_select_launch_f64.argtypes = lib.dipcn_select_launch.argtypes
+    lib.dipcn_select_launch_f64.restype = ctypes.c_int
+    lib.dipcn_select_mode_f64.argtypes = lib.dipcn_select_mode.argtypes
+    lib.dipcn_select_mode_f64.restype = ctypes.c_int
+    lib.dipcn_select_info_f64.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.dipcn_select_info_f64.restype = ctypes.c_int
     return lib
 
 
@@ -68,6 +79,10 @@ def _knn_lib():
     lib.knn_select_mode.restype = ctypes.c_int
     lib.knn_select_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.knn_select_info.restype = ctypes.c_int
+    for name in ("launch", "mode", "info"):
+        f64 = getattr(lib, f"knn_select_{name}_f64")
+        f64.argtypes = getattr(lib, f"knn_select_{name}").argtypes
+        f64.restype = ctypes.c_int
     return lib
 
 
@@ -75,41 +90,58 @@ _INFO_KEYS = ("threads", "smem_bytes", "static_smem_bytes", "blocks_per_sm", "re
               "spill_bytes")
 
 
+# the largest k each form of knn_select takes (its list of 8-byte entries in
+# float32, of 16-byte pairs in float64, fills 128 KB of a block)
+KNN_MAX_K = {torch.float32: 16384, torch.float64: 8192}
+
+
 def _device_index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
-def dipcn_select_mode(w: int, k: int, device: torch.device) -> str | None:
-    """The mode the kernel (either form) takes rows of ``w`` columns in at
-    this ``k`` on the CUDA ``device``: "resident" (the row's keys in shared
-    memory) whenever that fits, else "wide" (the keys stay in device
-    memory), or None where neither fits."""
+def dipcn_select_mode(w: int, k: int, device: torch.device,
+                      dtype: torch.dtype = torch.float32) -> str | None:
+    """The mode the kernel (either form; float64: the binary form) takes
+    rows of ``w`` columns of ``dtype`` in at this ``k`` on the CUDA
+    ``device``: "resident" (the row's keys in shared memory) whenever that
+    fits, else "wide" (the keys stay in device memory), or None where
+    neither fits. The keys' size moves the edge: ~55,000 float32 columns at
+    k=500 on an H100, about half that in float64."""
     mode = ctypes.c_int()
+    fn = getattr(_lib(), f"dipcn_select_mode{native.dtype_suffix(dtype)}")
     with torch.cuda.device(device):
-        err = _lib().dipcn_select_mode(_device_index(device), w, k, ctypes.byref(mode))
+        err = fn(_device_index(device), w, k, ctypes.byref(mode))
     native.check_launch("dipcn_select", err)
     return MODES[mode.value] if mode.value >= 0 else None
 
 
-def dipcn_select_info(w: int, k: int, device: torch.device, multi: bool = False) -> dict:
-    """The kernel's launch shape (of its multi-weight form when ``multi``)
-    for rows of ``w`` columns at this ``k`` on the CUDA ``device``: its
-    mode, threads, dynamic and static shared memory per block, resident
-    blocks per SM, registers and local (spill) bytes per thread."""
-    mode = dipcn_select_mode(w, k, device)
+def dipcn_select_info(w: int, k: int, device: torch.device, multi: bool = False,
+                      dtype: torch.dtype = torch.float32) -> dict:
+    """The kernel's launch shape (of its multi-weight form when ``multi``;
+    of its float64 form for ``dtype`` float64) for rows of ``w`` columns at
+    this ``k`` on the CUDA ``device``: its mode, threads, dynamic and static
+    shared memory per block, resident blocks per SM, registers and local
+    (spill) bytes per thread."""
+    mode = dipcn_select_mode(w, k, device, dtype)
     if mode is None:
         raise ValueError(f"no mode of dipcn_select takes rows of {w} columns at k={k}")
     out = (ctypes.c_int * len(_INFO_KEYS))()
     with torch.cuda.device(device):
-        native.check_launch("dipcn_select",
-                            _lib().dipcn_select_info(MODES.index(mode), int(multi), w, k, out))
+        if dtype == torch.float64:
+            if multi:
+                raise ValueError("the multi-weight form of dipcn_select is float32 only")
+            err = _lib().dipcn_select_info_f64(MODES.index(mode), w, k, out)
+        else:
+            err = _lib().dipcn_select_info(MODES.index(mode), int(multi), w, k, out)
+        native.check_launch("dipcn_select", err)
     return {"mode": mode, **dict(zip(_INFO_KEYS, out))}
 
 
 def dipcn_from_distances_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int):
     """dipCN from the [N, W] distance matrix; same contract as
     :func:`grid_tpu_torch.ops.select.dipcn_from_distances` and as the Pallas
-    kernel (float32 only on the card).
+    kernel (float32 or float64 on the card: d2, rnorm and nbr_w of one
+    dtype; float64 sums and keys in the float64 form).
 
     One thread block per row. Where the row's keys, its usable bits and its
     compacted usable k-set fit in the block's shared memory (up to ~55,000
@@ -119,34 +151,37 @@ def dipcn_from_distances_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k: int,
     in device memory and re-read them (:func:`dipcn_select_mode`). Raises
     where neither mode fits.
 
-    Returns (dipcn [N] float32, out_valid [N] bool).
+    Returns (dipcn [N] in d2's dtype, out_valid [N] bool).
     """
     if not native.on_cuda(d2, rnorm, nbr_w, col_usable, sample_valid):
         return dipcn_from_distances(d2, rnorm, nbr_w, col_usable, sample_valid, k=k, n_nbr=n_nbr)
     n, w = d2.shape
-    native.check(d2, "d2", torch.float32, (n, w))
-    native.check(rnorm, "rnorm", torch.float32, (n,))
-    native.check(nbr_w, "nbr_w", torch.float32, (w,))
+    native.dtype_suffix(d2.dtype)
+    native.check(d2, "d2", d2.dtype, (n, w))
+    native.check(rnorm, "rnorm", d2.dtype, (n,))
+    native.check(nbr_w, "nbr_w", d2.dtype, (w,))
     native.check(col_usable, "col_usable", torch.bool, (w,))
     native.check(sample_valid, "sample_valid", torch.bool, (n,))
     if not 1 <= k <= w:
         raise ValueError(f"k={k} must be in [1, {w}]")
     if n_nbr < 1:
         raise ValueError(f"n_nbr={n_nbr} must be >= 1")
-    mode = dipcn_select_mode(w, k, d2.device)
+    mode = dipcn_select_mode(w, k, d2.device, d2.dtype)
     if mode is None:
         raise ValueError(f"d2 rows of {w} columns at k={k} fit no mode of the kernel")
     return _launch(mode, d2, rnorm, nbr_w, col_usable, sample_valid, k, n_nbr)
 
 
 def _launch(mode: str, d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int):
-    """Launch the kernel in ``mode`` on checked inputs. The wrapper picks
-    the mode; the card tests also run the wide mode where both fit."""
+    """Launch the kernel in ``mode`` on checked inputs (its float64 form for
+    float64 d2). The wrapper picks the mode; the card tests also run the
+    wide mode where both fit."""
     n, w = d2.shape
-    dipcn = torch.empty(n, dtype=torch.float32, device=d2.device)
+    dipcn = torch.empty(n, dtype=d2.dtype, device=d2.device)
     ok = torch.empty(n, dtype=torch.bool, device=d2.device)
+    launch = getattr(_lib(), f"dipcn_select_launch{native.dtype_suffix(d2.dtype)}")
     with torch.cuda.device(d2.device):
-        err = _lib().dipcn_select_launch(
+        err = launch(
             d2.data_ptr(), rnorm.data_ptr(), nbr_w.data_ptr(), col_usable.data_ptr(),
             sample_valid.data_ptr(), n, w, k, n_nbr, MODES.index(mode), dipcn.data_ptr(),
             ok.data_ptr(), native.stream_ptr(d2.device))
@@ -244,56 +279,61 @@ def dipcn_multi_panels_gpu(zp, rnorm, nbr_w, col_usable, sample_valid, k: int, n
 _KNN_INFO_KEYS = (*_INFO_KEYS, "cluster_blocks", "clusters", "slice")
 
 
-def _knn_mode(w: int, k: int, device: torch.device) -> tuple:
+def _knn_mode(w: int, k: int, device: torch.device, dtype: torch.dtype) -> tuple:
     """(mode number, cluster size) the kernel takes rows of ``w`` columns
-    in at this ``k``; mode -1 where none fits."""
-    return _knn_mode_on(w, k, _device_index(device))
+    of ``dtype`` in at this ``k``; mode -1 where none fits."""
+    return _knn_mode_on(w, k, _device_index(device), native.dtype_suffix(dtype))
 
 
 @functools.cache
-def _knn_mode_on(w: int, k: int, index: int) -> tuple:
-    """:func:`_knn_mode` on card ``index``, asked once: the answer depends on
-    the card alone, and the occupancy queries cost the host more than the
-    resident launch they pick."""
+def _knn_mode_on(w: int, k: int, index: int, suffix: str) -> tuple:
+    """:func:`_knn_mode` on card ``index`` (``suffix`` "_f64" for the
+    float64 form), asked once: the answer depends on the card alone, and
+    the occupancy queries cost the host more than the resident launch they
+    pick."""
     mode, cluster = ctypes.c_int(), ctypes.c_int()
+    fn = getattr(_knn_lib(), f"knn_select_mode{suffix}")
     with torch.cuda.device(index):
-        err = _knn_lib().knn_select_mode(index, w, k, ctypes.byref(mode), ctypes.byref(cluster))
+        err = fn(index, w, k, ctypes.byref(mode), ctypes.byref(cluster))
     native.check_launch("knn_select", err)
     return mode.value, cluster.value
 
 
-def knn_select_mode(w: int, k: int, device: torch.device) -> str | None:
-    """The mode ``knn_select`` takes rows of ``w`` columns in at this ``k``
-    on the CUDA ``device``: "resident" (one block a row, the row's keys in
-    its shared memory), "cluster" (a cluster of 2-8 blocks a row, each
-    block a slice of the keys in its shared memory; the panels' 65,536
-    columns take 8) whenever the slices fit and a cluster can be scheduled,
-    else "wide" (one block a row, the keys stay in device memory; past
-    448,192 columns at k=500 on an H100; it takes every k <= 16,384 at any
-    width), or None where none fits (k above 16,384)."""
-    mode, cluster = _knn_mode(w, k, device)
+def knn_select_mode(w: int, k: int, device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> str | None:
+    """The mode ``knn_select`` takes rows of ``w`` columns of ``dtype`` in at
+    this ``k`` on the CUDA ``device``: "resident" (one block a row, the
+    row's keys in its shared memory), "cluster" (a cluster of 2-8 blocks a
+    row, each block a slice of the keys in its shared memory; the panels'
+    65,536 columns take 8; float32 only) whenever the slices fit and a
+    cluster can be scheduled, else "wide" (one block a row, the keys stay
+    in device memory; past 448,192 float32 columns at k=500 on an H100, past
+    8,192 float64 ones; it takes every k up to ``KNN_MAX_K``, at any width),
+    or None where none fits."""
+    mode, cluster = _knn_mode(w, k, device, dtype)
     if mode < 0:
         return None
     return "wide" if mode == 1 else ("resident" if cluster == 1 else "cluster")
 
 
-def knn_select_info(w: int, k: int, device: torch.device, mode: str | None = None) -> dict:
-    """``knn_select``'s launch shape for rows of ``w`` columns at this ``k``
-    on the CUDA ``device``, in ``mode`` (default: the one
+def knn_select_info(w: int, k: int, device: torch.device, mode: str | None = None,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """``knn_select``'s launch shape for rows of ``w`` columns of ``dtype``
+    at this ``k`` on the CUDA ``device``, in ``mode`` (default: the one
     :func:`knn_select_mode` picks; "resident" and "cluster" are the shared
     mode over the cluster size ``w`` picks): its threads, dynamic and
     static shared memory per block,
     resident blocks per SM, registers and local (spill) bytes per thread,
     blocks a cluster, clusters the card holds at once (0 where the blocks'
     shared memory does not fit) and columns a block."""
-    mode = mode or knn_select_mode(w, k, device)
+    mode = mode or knn_select_mode(w, k, device, dtype)
     if mode is None:
         raise ValueError(f"no mode of knn_select takes rows of {w} columns at k={k}")
     out = (ctypes.c_int * len(_KNN_INFO_KEYS))()
+    fn = getattr(_knn_lib(), f"knn_select_info{native.dtype_suffix(dtype)}")
     with torch.cuda.device(device):
         native.check_launch("knn_select",
-                            _knn_lib().knn_select_info(_device_index(device),
-                                                       _knn_mode_number(mode), w, k, out))
+                            fn(_device_index(device), _knn_mode_number(mode), w, k, out))
     return {"mode": mode, **dict(zip(_KNN_INFO_KEYS, out))}
 
 
@@ -313,29 +353,33 @@ def sorted_smallest_k_gpu(d2, k: int):
     :func:`grid_tpu_torch.ops.knn.sorted_smallest_k` (stable-argsort
     order), which CPU tensors take.
 
-    On the card: float32 [B, W] rows, contiguous, non-negative (finfo.max
-    or larger for excluded columns; -0.0 is not expected), 1 <= k <= W,
-    k <= 16,384. A row is split over a cluster of 1-8 blocks, each holding
+    On the card: float32 or float64 [B, W] rows, contiguous, non-negative
+    (finfo.max or larger for excluded columns; -0.0 is not expected),
+    1 <= k <= W, k <= ``KNN_MAX_K`` (16,384 in float32, 8,192 in float64).
+    A row is split over a cluster of 1-8 blocks (float64: 1), each holding
     its slice of the keys in shared memory (one bulk copy: the row crosses
     device memory once): a histogram radix select of the k-th value with
     the blocks' histograms summed through distributed shared memory, one
     walk that places the entries below it and the first ties in column
     order into the leading block's list, and a bitonic sort of those k
     there, in registers and shuffles but for its widest strides. Rows too
-    wide for 8 blocks keep their keys in device memory and re-read them
-    (:func:`knn_select_mode`). Raises where no mode fits.
+    wide for 8 blocks (float64: for one) keep their keys in device memory
+    and re-read them (:func:`knn_select_mode`). Raises where no mode fits.
 
-    Returns (vals [B, k] float32, idx [B, k] int32).
+    Returns (vals [B, k] in d2's dtype, idx [B, k] int32).
     """
     if not native.on_cuda(d2):
         return sorted_smallest_k(d2, k)
     if d2.dim() != 2:
         raise ValueError(f"d2: expected [B, W], got {tuple(d2.shape)}")
     n, w = d2.shape
-    native.check(d2, "d2", torch.float32, (n, w))
+    native.dtype_suffix(d2.dtype)
+    native.check(d2, "d2", d2.dtype, (n, w))
     if not 1 <= k <= w:
         raise ValueError(f"k={k} must be in [1, {w}]")
-    mode = knn_select_mode(w, k, d2.device)
+    if k > KNN_MAX_K[d2.dtype]:
+        raise ValueError(f"k={k}: knn_select takes k <= {KNN_MAX_K[d2.dtype]} in {d2.dtype}")
+    mode = knn_select_mode(w, k, d2.device, d2.dtype)
     if mode is None:
         raise ValueError(f"d2 rows of {w} columns at k={k} fit no mode of knn_select")
     return _knn_launch(mode, d2, k)
@@ -346,14 +390,14 @@ def _knn_launch(mode: str, d2, k: int):
     picks the mode; the card tests also run the wide mode beside it."""
     n, w = d2.shape
     number = _knn_mode_number(mode)
-    vals = torch.empty((n, k), dtype=torch.float32, device=d2.device)
+    vals = torch.empty((n, k), dtype=d2.dtype, device=d2.device)
     idx = torch.empty((n, k), dtype=torch.int32, device=d2.device)
     if n == 0:
         return vals, idx
+    launch = getattr(_knn_lib(), f"knn_select_launch{native.dtype_suffix(d2.dtype)}")
     with torch.cuda.device(d2.device):
-        err = _knn_lib().knn_select_launch(d2.data_ptr(), n, w, k, number,
-                                           vals.data_ptr(), idx.data_ptr(),
-                                           native.stream_ptr(d2.device))
+        err = launch(d2.data_ptr(), n, w, k, number, vals.data_ptr(), idx.data_ptr(),
+                     native.stream_ptr(d2.device))
     native.check_launch("knn_select", err)
     native.count_launch(sorted_smallest_k_gpu)
     return vals, idx

@@ -144,52 +144,64 @@ def _sweeps_lib():
     lib.phase_sweeps_mode.restype = ctypes.c_int
     lib.phase_sweeps_info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.phase_sweeps_info.restype = ctypes.c_int
+    for name in ("launch", "mode", "info"):
+        f64 = getattr(lib, f"phase_sweeps_{name}_f64")
+        f64.argtypes = getattr(lib, f"phase_sweeps_{name}").argtypes
+        f64.restype = ctypes.c_int
     return lib
 
 
-def phase_sweeps_mode(n: int, k: int, device: torch.device) -> str:
+def phase_sweeps_mode(n: int, k: int, device: torch.device,
+                      dtype: torch.dtype = torch.float32) -> str:
     """The mode the ``phase_sweeps`` kernel takes N samples with lists of K
-    slots in on the CUDA ``device``: "resident" (all sweeps in one launch,
-    a cluster of 8 blocks a replicate, each holding the values
-    double-buffered and the lists of an eighth of the samples in shared
-    memory: 16 C chunk + 18 chunk K bytes, chunk = ceil(N / C), C = 8)
-    where that fits and a cluster can be scheduled, else "persistent" (all sweeps in one cooperative launch, the values in
-    device memory, a grid barrier a sweep); a card that takes no
-    cooperative launch raises ``native.KernelError`` past the resident
-    mode's edge. Cached by (device index, N, K)."""
+    slots of ``dtype`` values in on the CUDA ``device``: "resident" (all
+    sweeps in one launch, a cluster of 8 blocks a replicate, each holding
+    the values double-buffered and the lists of an eighth of the samples in
+    shared memory: 16 C chunk + 18 chunk K bytes in float32, 32 C chunk +
+    26 chunk K in float64, chunk = ceil(N / C), C = 8) where that fits and
+    a cluster can be scheduled, else "persistent" (all sweeps in one
+    cooperative launch, the values in device memory, a grid barrier a
+    sweep); a card that takes no cooperative launch raises
+    ``native.KernelError`` past the resident mode's edge. Cached by
+    (device index, N, K, dtype)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _sweeps_mode(index, n, k)
+    return _sweeps_mode(index, n, k, native.dtype_suffix(dtype))
 
 
 @functools.cache
-def _sweeps_mode(index: int, n: int, k: int) -> str:
+def _sweeps_mode(index: int, n: int, k: int, suffix: str) -> str:
     mode = ctypes.c_int()
+    fn = getattr(_sweeps_lib(), f"phase_sweeps_mode{suffix}")
     with torch.cuda.device(index):
-        err = _sweeps_lib().phase_sweeps_mode(index, n, k, ctypes.byref(mode))
+        err = fn(index, n, k, ctypes.byref(mode))
     native.check_launch("phase_sweeps", err)
     return SWEEP_MODES[mode.value]
 
 
-def phase_sweeps_info(n: int, k: int, device: torch.device, mode: str | None = None) -> dict:
+def phase_sweeps_info(n: int, k: int, device: torch.device, mode: str | None = None,
+                      dtype: torch.dtype = torch.float32) -> dict:
     """The ``phase_sweeps`` kernel's launch shape at N samples and K slots a
     list on the CUDA ``device``, in ``mode`` (default: the one
     :func:`phase_sweeps_mode` picks): its mode, threads and dynamic
     shared memory per block, resident blocks per SM, registers and local
     (spill) bytes per thread, blocks per cluster, the clusters the card
     holds at once (0 in the persistent mode) and the blocks of one
-    replicate's launch (the cluster, or the persistent grid)."""
-    mode = mode or phase_sweeps_mode(n, k, device)
+    replicate's launch (the cluster, or the persistent grid); of the
+    float64 form for ``dtype`` float64."""
+    mode = mode or phase_sweeps_mode(n, k, device, dtype)
     out = (ctypes.c_int * len(_SWEEP_INFO_KEYS))()
+    fn = getattr(_sweeps_lib(), f"phase_sweeps_info{native.dtype_suffix(dtype)}")
     with torch.cuda.device(device):
-        native.check_launch("phase_sweeps", _sweeps_lib().phase_sweeps_info(
-            SWEEP_MODES.index(mode), n, k, out))
+        native.check_launch("phase_sweeps", fn(SWEEP_MODES.index(mode), n, k, out))
     return {"mode": mode, **dict(zip(_SWEEP_INFO_KEYS, out))}
 
 
 def phase_sweeps_gpu(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters: int):
     """:func:`phase_sweeps` on the card, whose contract it keeps (CPU
-    tensors take it): float32 ``hap`` [2N], ``irrs`` [N] and ``nbr_w``,
-    bool ``nbr_valid`` [2N, K], all contiguous; ``nbr_idx`` [2N, K] or
+    tensors take it): ``hap`` [2N], ``irrs`` [N] and ``nbr_w`` of one dtype,
+    float32 or float64 (the kernel's float64 form; float32 weights beside
+    float64 values are widened, exactly: the JAX package keeps the weights'
+    own dtype), bool ``nbr_valid`` [2N, K], all contiguous; ``nbr_idx`` [2N, K] or
     [B, 2N, K] (``nbr_w`` likewise) of any integer type, converted to
     int32, every entry in [0, 2N) (the plain version's gather raises
     otherwise; checked here, one synchronisation). The kernel reads the
@@ -204,8 +216,9 @@ def phase_sweeps_gpu(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters: int):
     ``phase_sweeps_gpu.launches``. Zero sweeps launch nothing and return
     the start broadcast over the replicates, as the plain version does.
     The sums run in slot order without fused multiply-adds, so the result
-    matches the plain version to float32 rounding of its sums (rtol 1e-5
-    on the card), and the modes match each other bitwise.
+    matches the plain version to the rounding of its sums (rtol 1e-5 on
+    the card in float32, 1e-12 in float64), and the modes match each other
+    bitwise.
 
     Returns hap [2N] ([B, 2N] for replicates).
     """
@@ -214,8 +227,10 @@ def phase_sweeps_gpu(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters: int):
     n = irrs.shape[0]
     if n_iters < 0:
         raise ValueError(f"n_iters={n_iters} must be >= 0")
+    dtype = hap.dtype
+    native.dtype_suffix(dtype)
     if n_iters == 0:  # no sweep: every value stays where it starts
-        native.check(hap, "hap", torch.float32, (2 * n,))
+        native.check(hap, "hap", dtype, (2 * n,))
         return hap.expand(*nbr_idx.shape[:-2], 2 * n)
     if nbr_valid.dim() != 2 or nbr_valid.shape[0] != 2 * n:
         raise ValueError(f"nbr_valid: expected [2N={2 * n}, K], got {tuple(nbr_valid.shape)}")
@@ -226,12 +241,14 @@ def phase_sweeps_gpu(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters: int):
                          f"got {tuple(nbr_idx.shape)}")
     if nbr_idx.dtype.is_floating_point or nbr_idx.dtype == torch.bool:
         raise TypeError(f"nbr_idx: expected an integer dtype, got {nbr_idx.dtype}")
-    native.check(hap, "hap", torch.float32, (2 * n,))
-    native.check(irrs, "irrs", torch.float32, (n,))
-    native.check(nbr_w, "nbr_w", torch.float32, tuple(nbr_idx.shape))
+    native.check(hap, "hap", dtype, (2 * n,))
+    native.check(irrs, "irrs", dtype, (n,))
+    if nbr_w.dtype == torch.float32 and dtype == torch.float64:
+        nbr_w = nbr_w.to(dtype)  # exact, as the plain version's promotion
+    native.check(nbr_w, "nbr_w", dtype, tuple(nbr_idx.shape))
     native.check(nbr_valid, "nbr_valid", torch.bool, (2 * n, k))
     reps = lead[0] if lead else 1
-    out = torch.empty((reps, 2 * n), dtype=torch.float32, device=hap.device)
+    out = torch.empty((reps, 2 * n), dtype=dtype, device=hap.device)
     if n == 0 or reps == 0 or k == 0:
         # no neighbor anywhere: every value stays where it starts
         out.copy_(hap.expand(reps, 2 * n))
@@ -240,7 +257,7 @@ def phase_sweeps_gpu(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters: int):
     lo, hi = torch.aminmax(idx)
     if int(lo) < 0 or int(hi) >= 2 * n:
         raise ValueError(f"nbr_idx: entries must lie in [0, {2 * n}), got [{int(lo)}, {int(hi)}]")
-    mode = phase_sweeps_mode(n, k, hap.device)
+    mode = phase_sweeps_mode(n, k, hap.device, dtype)
     return _sweeps_launch(mode, hap, irrs, idx, nbr_w, nbr_valid, n_iters, out).reshape(
         *lead, 2 * n)
 
@@ -248,12 +265,14 @@ def phase_sweeps_gpu(hap, irrs, nbr_idx, nbr_w, nbr_valid, n_iters: int):
 def _sweeps_launch(mode: str, hap, irrs, idx, nbr_w, nbr_valid, n_iters: int, out):
     """Launch ``phase_sweeps`` in ``mode`` on checked inputs into ``out``
     [B, 2N] (int32 ``idx``; the lists as the callers hold them, [.., 2N,
-    K], read in place). The wrapper picks the mode; the card tests also run
-    the other mode where it takes the shape."""
+    K], read in place; the float64 form for float64 values). The wrapper
+    picks the mode; the card tests also run the other mode where it takes
+    the shape."""
     (reps, two_n), k = out.shape, nbr_valid.shape[1]
     scratch = out if mode == "resident" else torch.empty_like(out)  # the persistent ping-pong
+    launch = getattr(_sweeps_lib(), f"phase_sweeps_launch{native.dtype_suffix(out.dtype)}")
     with torch.cuda.device(hap.device):
-        err = _sweeps_lib().phase_sweeps_launch(
+        err = launch(
             hap.data_ptr(), irrs.data_ptr(), idx.data_ptr(), nbr_w.data_ptr(),
             nbr_valid.data_ptr(), two_n // 2, k, reps, int(idx.dim() == 3), n_iters,
             SWEEP_MODES.index(mode), out.data_ptr(), scratch.data_ptr(),

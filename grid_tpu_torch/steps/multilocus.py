@@ -40,10 +40,10 @@ from grid_tpu_torch.data.loci import Locus, resolve_locus
 from grid_tpu_torch.io.formats import read_counts_tsv, write_dipcn
 from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_multi_gpu, dipcn_multi_panels_gpu
 from grid_tpu_torch.ops.knn import d2_matrix
-from grid_tpu_torch.pipeline import run_wgs_pipeline
+from grid_tpu_torch.pipeline import _steps_4_7, run_wgs_pipeline
 from grid_tpu_torch.steps.ingest import fused_ingest_enabled
 from grid_tpu_torch.steps.neighbors import load_neighbor_geometry
-from grid_tpu_torch.utils.device import enable_compilation_cache
+from grid_tpu_torch.utils.device import compute_dtype, config_device, enable_compilation_cache
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import step_timer
 
@@ -230,6 +230,10 @@ def run_multi_locus(config, genes, console=None, catalog=None, batched="auto", t
     config = apply_defaults(config)
     enable_compilation_cache(config.get("device", {}).get("compilation_cache"), console)
 
+    if any(section.get("run") is True for section, _, _ in _steps_4_7(config)):
+        # the dtype is resolved before any step runs: a float64 sweep on the
+        # card raises here, not inside a step
+        compute_dtype(config, config_device(config), multi_locus=True)
     loci = {g: resolve_locus(g, catalog) for g in genes}
     cfgs = {g: locus_config(config, locus) for g, locus in loci.items()}
 

@@ -233,14 +233,20 @@ def test_no_platform_in_file_mode_wants_the_card(cohort, tmp_path):
 
 
 def test_float64_on_the_card_is_refused_before_any_step(cohort, tmp_path, monkeypatch):
-    """A dtype the card's kernels cannot take raises before any step, as
-    the fused path did, rather than as four logged failures."""
+    """What the card's kernels do not carry raises before any step, as the
+    fused path did, rather than as four logged failures: bfloat16, and
+    float64 on the paths whose kernels are float32 only on the card (the
+    sharded steps of ``device.mesh_shape``, in both forms; the multi-locus
+    sweep is ``tests/test_torch_float64.py``'s)."""
     import grid_tpu_torch.pipeline as pipeline
 
     monkeypatch.setattr(pipeline, "config_device", lambda config: torch.device("cuda"))
-    cfg = run_config(cohort, tmp_path, {"dtype": "float64"})
-    with pytest.raises(ValueError, match="float32 only"):
-        run_wgs_pipeline(console=None, config=cfg)
+    for device, names in (({"dtype": "bfloat16"}, "float32 and float64 only"),
+                          ({"dtype": "float64", "mesh_shape": [4]}, "mesh_shape"),
+                          ({"dtype": "float64", "mesh_shape": [4], "fused": True}, "mesh_shape")):
+        cfg = run_config(cohort, tmp_path, device)
+        with pytest.raises(ValueError, match=names):
+            run_wgs_pipeline(console=None, config=cfg)
     assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
 
 

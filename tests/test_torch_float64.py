@@ -1,0 +1,296 @@
+"""``device.dtype: float64`` on the card: what the CPU can check of it.
+
+The float64 forms of the cohort step's kernels run only on the card
+(``tests/test_torch_gpu.py`` holds each to its plain version there). Here:
+
+- the launch plans by element size, as the pure functions of
+  ``tests/torch_plans.py`` compute them (the card tests hold the kernels'
+  own plans to them): where ``knn_select``, ``dipcn_select`` and
+  ``phase_sweeps`` leave their shared-memory modes in float64, and the
+  resident edge of the d2 matrix;
+- the key order the float64 selections rely on: non-negative doubles read
+  as int64 order as the doubles, finfo.max and exact ties included, as a
+  stable sort orders them;
+- the port's float64 ``cohort_step`` against ``grid_tpu``'s under x64 on
+  the panel branch, with the d2 budget one byte short of N * N * 8 in both
+  packages (float64 contract: neighbor indices identical, dipCN at 1e-9);
+- the up-front refusals: bfloat16 on the card, the float64 paths whose
+  kernels are float32 only on the card (the multi-locus sweep,
+  ``device.mesh_shape``) and float64 past the float64 ``knn_select``'s
+  largest k, each before any step and naming the path or the limit.
+"""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bench import make_matrix
+from grid_tpu.models.cohort import CohortParams as JCohortParams
+from grid_tpu.models.cohort import cohort_step as j_cohort_step
+from grid_tpu.ops.select import sorted_smallest_k as j_sorted_smallest_k
+from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy, params_from_reference
+from grid_tpu_torch.io.hap_neighbors import pad_hap_neighbors
+from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
+from grid_tpu_torch.ops.knn import sorted_smallest_k
+from grid_tpu_torch.ops.select import _key_type, _kth_smallest_key
+from grid_tpu_torch.synth import make_synthetic_cohort
+from grid_tpu_torch.utils.device import compute_dtype
+from torch_parity import assert_close_to_max
+from torch_plans import (
+    dipcn_select_smem_bytes, knn_select_mode_of, knn_select_plan, phase_sweeps_smem_bytes,
+)
+
+# an H100's shared memory a block may opt in to, less a few KB of the
+# kernels' static shared memory
+SMEM = 232_448 - 4_096
+CUDA = torch.device("cuda")
+
+
+# ------------------------------------------------------------ plans by size ---
+
+
+def _widest(fits, lo: int, hi: int) -> int:
+    """The largest x in [lo, hi) with fits(x), fits being monotone."""
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("k", [1, 300, 500, 4000])
+def test_knn_select_plan_by_element_size(k):
+    """A float64 row holds twice the key bytes and 16-byte list entries: a
+    resident N=2504 row takes 8 * 2504 + 20 L bytes. Its shared mode runs
+    one block a row only, up to 8,192 columns; wider float64 rows, the
+    65,536-column panels among them, take the wide mode, where float32
+    rows take a cluster of up to 8 blocks."""
+    length = max(128, 1 << (k - 1).bit_length())
+    f32, f64 = knn_select_plan(65536, k, 4), knn_select_plan(65536, k, 8)
+    assert f32["cluster_blocks"] == f64["cluster_blocks"] == 8
+    assert f32["shared_smem_bytes"] == 8192 * 4 + 8 * length + 4 * length
+    assert (f32["max_shared_cluster"], f64["max_shared_cluster"]) == (8, 1)
+    assert knn_select_mode_of(65536, k, 4, SMEM) == "cluster"
+    assert knn_select_mode_of(65536, k, 8, SMEM) == "wide"
+    resident = knn_select_plan(2504, k, 8)
+    assert resident["cluster_blocks"] == 1 and resident["slice"] == 2504
+    assert resident["shared_smem_bytes"] == 2504 * 8 + 20 * length
+    for w in (max(2504, k), 8192):
+        assert knn_select_mode_of(w, k, 8, SMEM) == "resident"
+    assert knn_select_mode_of(8193, k, 8, SMEM) == "wide"
+    assert knn_select_mode_of(8193, k, 4, SMEM) == "cluster"
+
+
+def test_knn_select_plan_largest_list():
+    """The wide mode's list and gather buffer fit a block up to k = 16,384
+    in float32 and k = 8,192 in float64 (16-byte pairs): the forms' max k."""
+    for itemsize, max_k in ((4, 16384), (8, 8192)):
+        plan = knn_select_plan(1 << 20, max_k, itemsize)
+        assert plan["max_k"] == max_k and plan["wide_smem_bytes"] <= SMEM
+        assert knn_select_plan(1 << 20, 2 * max_k, itemsize)["wide_smem_bytes"] > SMEM
+
+
+def test_dipcn_select_resident_edge_by_element_size():
+    """The resident mode holds the row's keys: 8 W bytes in float64, so its
+    widest row at k=500 is about half float32's (still past N=2504)."""
+    assert dipcn_select_smem_bytes(2504, 500, 8) - dipcn_select_smem_bytes(2504, 500, 4) == \
+        2504 * 4
+    e32 = _widest(lambda w: dipcn_select_smem_bytes(w, 500, 4) <= SMEM, 2504, 65536)
+    e64 = _widest(lambda w: dipcn_select_smem_bytes(w, 500, 8) <= SMEM, 2504, 65536)
+    assert 0.45 < e64 / e32 < 0.55 and e64 > 2504
+
+
+@pytest.mark.parametrize("k", [2, 10])
+def test_phase_sweeps_resident_edge_by_element_size(k):
+    """Two value buffers of 2N values in every block: 80 KB at N=2504 in
+    float64, twice float32's, so the resident mode's largest N falls to
+    about half."""
+    assert phase_sweeps_smem_bytes(2504, k, 8) - phase_sweeps_smem_bytes(2504, k, 4) == \
+        313 * (4 * 4 * 8 + 2 * 4 * k)
+    assert 4 * 8 * 8 * 313 == 80_128  # the f64 value buffers at N=2504
+    e32 = _widest(lambda n: phase_sweeps_smem_bytes(n, k, 4) <= SMEM, 1, 1 << 16)
+    e64 = _widest(lambda n: phase_sweeps_smem_bytes(n, k, 8) <= SMEM, 1, 1 << 16)
+    assert 0.45 < e64 / e32 < 0.65 and e64 > 2504
+
+
+def test_d2_resident_edge_by_element_size():
+    """N * N * itemsize against the 2 GiB budget, as grid_tpu's step: the
+    resident edge is N = 23,170 in float32 and 16,384 in float64."""
+    params = CohortParams()
+    assert d2_resident(params, 23170, 4) and not d2_resident(params, 23171, 4)
+    assert d2_resident(params, 16384, 8) and not d2_resident(params, 16385, 8)
+
+
+# ----------------------------------------------------------------- keys ---
+
+
+def _doubles(rng, subnormal=True):
+    """Non-negative doubles with exact ties, zero, the least normal double
+    (and a subnormal one), finfo.max and inf: what a float64 d2 row holds.
+    XLA on the CPU flushes subnormals to zero, so rows for grid_tpu take
+    none."""
+    tiny = [5e-324] if subnormal else []
+    x = np.concatenate([rng.uniform(0, 5000, 300), np.round(rng.uniform(0, 40, 300)) * 0.25,
+                        [0.0, 2.2250738585072014e-308, np.finfo(np.float64).max,
+                         np.finfo(np.float64).max, np.inf, 1e300, 1.0, 1.0, *tiny]])
+    return rng.permutation(x)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_int64_keys_order_non_negative_doubles_as_a_stable_sort(seed):
+    x = _doubles(np.random.default_rng(seed))
+    keys = x.view(np.int64)
+    assert (keys >= 0).all()
+    np.testing.assert_array_equal(np.argsort(keys, kind="stable"), np.argsort(x, kind="stable"))
+    assert _key_type(torch.float64) is torch.int64
+    # the k-th smallest key is the k-th smallest value, ties and finfo.max too
+    t = torch.from_numpy(x)[None, :]
+    for k in (1, 7, 300, 599, 603, x.size):
+        key = _kth_smallest_key(t.view(torch.int64), k)
+        assert float(key.view(torch.float64)[0]) == np.sort(x)[k - 1]
+
+
+@pytest.mark.parametrize("k", [1, 13, 300, 608])
+def test_float64_selection_is_the_stable_sort_sliced(k):
+    """The port's plain selection (the float64 kernel's contract) and
+    grid_tpu's exact selection under x64 give the stable sort's first k,
+    ties to the lower column."""
+    rng = np.random.default_rng(k)
+    d2 = np.stack([_doubles(rng, subnormal=False) for _ in range(4)])
+    order = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    vals, idx = sorted_smallest_k(torch.from_numpy(d2), k)
+    assert vals.dtype == torch.float64
+    np.testing.assert_array_equal(idx.numpy(), order)
+    np.testing.assert_array_equal(vals.numpy(), np.take_along_axis(d2, order, axis=1))
+    j_vals, j_idx = j_sorted_smallest_k(jnp.asarray(d2), k)
+    np.testing.assert_array_equal(np.asarray(j_idx), order)
+    np.testing.assert_array_equal(np.asarray(j_vals), vals.numpy())
+
+
+# ------------------------------------------------- the step on the panels ---
+
+N, R = 203, 96
+
+
+@pytest.fixture(scope="module")
+def cohort():
+    values, mask, reads = make_matrix(N, R)
+    reads_valid = np.ones(N, bool)
+    reads_valid[::11] = False
+    ring = [[((h + 2) % (2 * N), 1.0), ((h - 2) % (2 * N), 0.5)] for h in range(2 * N)]
+    return (values, mask, reads, reads_valid, *pad_hap_neighbors(ring, 2, dtype=np.float64))
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_float64_panel_branch_one_byte_short_matches_grid_tpu(cohort, quantize):
+    """At a d2 budget of N * N * 8 - 1 both packages stream row panels in
+    float64 (and at N * N * 8 both keep d2 resident): the port's step equals
+    grid_tpu's under x64, neighbor indices identical, dipCN within 1e-9."""
+    assert jax.config.jax_enable_x64
+    values, mask, reads, reads_valid, hi, hw, hv = cohort
+    budget = N * N * 8 - 1
+    assert not d2_resident(CohortParams(d2_budget_bytes=budget), N, 8)
+    assert d2_resident(CohortParams(d2_budget_bytes=budget + 1), N, 8)
+    assert d2_resident(CohortParams(d2_budget_bytes=budget), N, 4)  # float32 would stay
+    jparams = JCohortParams(num_neighbors=30, n_nbr=12, n_iters=8, quantize=quantize,
+                            row_block=64, d2_budget_bytes=budget)
+    want = j_cohort_step(jnp.asarray(values), jnp.asarray(mask), jnp.asarray(reads),
+                         jnp.asarray(reads_valid), jnp.asarray(hi), jnp.asarray(hw),
+                         jnp.asarray(hv), jparams)
+    want = jax.tree.map(np.asarray, want)
+    assert want.z.dtype == np.float64
+    inputs = inputs_to_torch(values, mask, reads, reads_valid, hi, hw, hv, "cpu", torch.float64)
+    params = params_from_reference(jparams._asdict())
+    assert params.d2_budget_bytes == budget
+    got = outputs_to_numpy(cohort_step(*inputs, params))
+    assert got.z.dtype == np.float64 and got.nbr_sq_dists.dtype == np.float64
+    assert_close_to_max(got.z, want.z, 1e-9)
+    np.testing.assert_array_equal(got.nbr_idx, want.nbr_idx)
+    assert_close_to_max(got.nbr_sq_dists, want.nbr_sq_dists, 1e-9)
+    np.testing.assert_array_equal(got.dipcn_valid, want.dipcn_valid)
+    np.testing.assert_allclose(got.dipcn[got.dipcn_valid], want.dipcn[want.dipcn_valid],
+                               rtol=1e-9)
+    np.testing.assert_array_equal(got.phased, want.phased)
+    resident = outputs_to_numpy(cohort_step(*inputs, params._replace(d2_budget_bytes=budget + 1)))
+    np.testing.assert_array_equal(resident.nbr_idx, got.nbr_idx)
+
+
+# ------------------------------------------------------- up-front refusals ---
+
+
+def test_compute_dtype_takes_float64_on_the_card():
+    assert compute_dtype({"device": {"dtype": "float64"}}, CUDA) is torch.float64
+    assert compute_dtype({"device": {"dtype": "f64"}}, CUDA) is torch.float64
+    assert compute_dtype({"device": {"dtype": "float32"}}, CUDA) is torch.float32
+    assert compute_dtype({"device": {"dtype": "float64"}}, torch.device("cpu"),
+                         multi_locus=True) is torch.float64
+
+
+@pytest.mark.parametrize("config,multi_locus,names", [
+    ({"device": {"dtype": "bfloat16"}}, False, "bfloat16"),
+    ({"device": {"dtype": "bf16", "mesh_shape": [4]}}, False, "bfloat16"),
+    ({"device": {"dtype": "float64"}}, True, "multi-locus sweep"),
+    ({"device": {"dtype": "float64", "mesh_shape": [4]}}, False, "mesh_shape"),
+    ({"device": {"dtype": "float64", "mesh_shape": [2, 2], "fused": True}}, False, "mesh_shape"),
+])
+def test_compute_dtype_refuses_what_the_card_does_not_carry(config, multi_locus, names):
+    with pytest.raises(ValueError, match=names):
+        compute_dtype(config, CUDA, multi_locus=multi_locus)
+
+
+def test_compute_dtype_refuses_float64_past_the_largest_k():
+    """The float64 knn_select takes k <= 8,192 (float32: 16,384); a float64
+    config that asks for more neighbors is refused before any step, naming
+    the limit, where the wrapper would raise inside the step."""
+    def config(dtype, k):
+        return {"device": {"dtype": dtype}, "mosdepth": {"neighbors": {"num_neighbors": k}}}
+
+    assert compute_dtype(config("float64", 8192), CUDA) is torch.float64
+    assert compute_dtype(config("float32", 10000), CUDA) is torch.float32
+    assert compute_dtype(config("float64", 10000), torch.device("cpu")) is torch.float64
+    with pytest.raises(ValueError, match="8192"):
+        compute_dtype(config("float64", 8193), CUDA)
+
+
+@pytest.fixture(scope="module")
+def disk_cohort(tmp_path_factory):
+    return make_synthetic_cohort(tmp_path_factory.mktemp("cohort"), n_samples=12, seed=18)
+
+
+def _config(disk_cohort, out, **device):
+    cfg = copy.deepcopy(disk_cohort["config"])
+    out.mkdir(parents=True, exist_ok=True)
+    cfg["output_dir"] = str(out)
+    cfg["device"] = device
+    (out / "read_counts.tsv").write_bytes(disk_cohort["counts_file"].read_bytes())
+    return cfg
+
+
+def test_float64_multi_locus_sweep_is_refused_before_any_step(disk_cohort, tmp_path,
+                                                              monkeypatch):
+    import grid_tpu_torch.pipeline as pipeline
+    import grid_tpu_torch.steps.multilocus as multilocus
+
+    monkeypatch.setattr(multilocus, "config_device", lambda config: CUDA)
+    monkeypatch.setattr(pipeline, "config_device", lambda config: CUDA)
+    cfg = _config(disk_cohort, tmp_path / "out", dtype="float64")
+    before = sorted(p.name for p in (tmp_path / "out").iterdir())
+    with pytest.raises(ValueError, match="multi-locus sweep"):
+        multilocus.run_multi_locus(cfg, ["LPA", "APOE"])
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == before
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "files"])
+def test_float64_with_a_mesh_is_refused_before_any_step(disk_cohort, tmp_path, monkeypatch,
+                                                        fused):
+    import grid_tpu_torch.pipeline as pipeline
+
+    monkeypatch.setattr(pipeline, "config_device", lambda config: CUDA)
+    cfg = _config(disk_cohort, tmp_path / "out", dtype="float64", mesh_shape=[4], fused=fused)
+    before = sorted(p.name for p in (tmp_path / "out").iterdir())
+    with pytest.raises(ValueError, match="mesh_shape"):
+        pipeline.run_wgs_pipeline(console=None, config=cfg)
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == before

@@ -442,9 +442,10 @@ def test_device_and_dtype_policy():
     assert compute_dtype({"device": {"dtype": "float32"}}, cpu) is torch.float32
     assert compute_dtype({"device": {"dtype": "auto"}}, cuda) is torch.float32
     assert compute_dtype({"device": {"dtype": "f32"}}, cuda) is torch.float32
-    for name in ("float64", "bfloat16"):
-        with pytest.raises(ValueError, match="float32 only"):
-            compute_dtype({"device": {"dtype": name}}, cuda)
+    # float64 runs on the card; bfloat16 does not
+    assert compute_dtype({"device": {"dtype": "float64"}}, cuda) is torch.float64
+    with pytest.raises(ValueError, match="float32 and float64 only"):
+        compute_dtype({"device": {"dtype": "bfloat16"}}, cuda)
 
 
 @pytest.mark.parametrize("platform", [None, "auto", "default", "cuda"])

@@ -196,7 +196,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     z = torch.zeros((8, 4), dtype=torch.float64, device=cuda)
     mask = torch.ones((8, 4), dtype=torch.bool, device=cuda)
     with pytest.raises(TypeError):
-        zprep_gram(z, mask, mask[0], 2.0)
+        zprep_gram(z.half(), mask, mask[0], 2.0)  # float32 and float64 only
     with pytest.raises(ValueError):
         zprep_gram(z.float().t(), mask.t(), mask[:, 0], 2.0)  # not contiguous
     with pytest.raises(ValueError):
@@ -906,7 +906,7 @@ def test_knn_select_refuses_what_it_does_not_take(cuda):
 
     d2 = torch.zeros((8, 40), device=cuda)
     with pytest.raises(TypeError):
-        sorted_smallest_k_gpu(d2.double(), 3)
+        sorted_smallest_k_gpu(d2.half(), 3)  # float32 and float64 only
     with pytest.raises(ValueError):
         sorted_smallest_k_gpu(d2.t(), 3)  # not contiguous
     with pytest.raises(ValueError):
@@ -1185,7 +1185,9 @@ def test_phase_sweeps_refuses_what_it_does_not_take(cuda):
     t = [torch.tensor(a, device=cuda) for a in (irrs, hi, hw, hv)]
     hap0 = (t[0] / 2).repeat_interleave(2)
     with pytest.raises(TypeError):
-        phase_sweeps_gpu(hap0.double(), t[0].double(), t[1], t[2].double(), t[3], 3)
+        phase_sweeps_gpu(hap0.half(), t[0].half(), t[1], t[2].half(), t[3], 3)
+    with pytest.raises(TypeError):  # one value type throughout
+        phase_sweeps_gpu(hap0.double(), t[0], t[1], t[2], t[3], 3)
     with pytest.raises(ValueError):
         phase_sweeps_gpu(hap0, t[0], t[1][:, :2], t[2], t[3], 3)  # idx shape
     bad = t[1].clone()
@@ -1217,3 +1219,374 @@ def test_cohort_step_launches_each_selection_and_phasing_kernel_once(cuda):
         cohort_step(*args, params)
         assert (sorted_smallest_k_gpu.launches - before[0],
                 phase_sweeps_gpu.launches - before[1]) == (selections, 1)
+
+
+# ---- float64: every kernel of the cohort step in its float64 form ----------
+#
+# Bounds (the float64 contract, docs/parity.md, and PERF.md): counts, ok,
+# the selections' values and positions and the dipCN take-sets exact; the
+# column sums and the Gram matrix within 1e-12 of the plain version's
+# largest entry (another summation order of float64 terms: ~1e-15); dipCN at
+# rtol 1e-12; the phasing sweeps at rtol 1e-12 with the same NaNs, the
+# bootstrap replicates at rtol 1e-10 (their values decay towards 0 and
+# carry the rounding of 100 sweeps, ~250 roundings in float32's case).
+
+F64_RTOL = 1e-12
+
+
+@pytest.mark.parametrize("n,r", [(1, 1), (3, 5), (9, 33), (97, 70), (300, 257), (2504, 2048)])
+def test_float64_masked_column_stats_kernel(cuda, n, r):
+    rng = np.random.default_rng(n + 64)
+    values = torch.tensor(rng.uniform(10, 60, (n, r)), dtype=torch.float64, device=cuda)
+    values[:, r // 2] = values[:, 0]  # an exactly tied column stays tied
+    mask = torch.tensor(rng.random((n, r)) > 0.15, device=cuda)
+    mask[:, r // 2] = mask[:, 0]
+    inv = torch.tensor(rng.uniform(0.01, 0.1, n), dtype=torch.float64, device=cuda)
+    mu = torch.tensor(rng.uniform(0.5, 2.0, r), dtype=torch.float64, device=cuda)
+    mu[r // 2] = mu[0]
+    for col_means in (None, mu):
+        before = masked_column_stats.launches
+        got = masked_column_stats(values, mask, inv, col_means)
+        assert masked_column_stats.launches == before + 1
+        assert all(g.dtype == torch.float64 for g in got)
+        want = masked_column_stats_plain(values, mask, inv, col_means)
+        assert torch.equal(got[0], want[0])
+        for g, w in zip(got[1:], want[1:]):
+            assert_close_to_max(g.cpu(), w.cpu(), F64_RTOL)
+            assert g[r // 2] == g[0]
+        again = masked_column_stats(values, mask, inv, col_means)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("n,r", [(1, 3), (2, 1), (5, 17), (9, 33), (97, 70), (300, 257),
+                                 (515, 130)])
+def test_float64_zprep_gram_kernel(cuda, n, r):
+    """The FP64 tensor-core Gram against the plain float64 product: within
+    1e-12 of its largest entry, exactly symmetric, masked rows and columns
+    zero; the split's norms are the diagonal of the triangle's G bitwise,
+    and each row panel equals the plain panel to the same bound."""
+    rng = np.random.default_rng(n + 7)
+    z = torch.tensor(rng.normal(size=(n, r)) * 3, dtype=torch.float64, device=cuda)
+    mask = torch.tensor(rng.random((n, r)) > 0.1, device=cuda)
+    mask[n // 2] = False  # a row with no valid cell
+    region = torch.tensor(rng.random(r) > 0.2, device=cuda)
+    before = zprep_gram.launches
+    got = zprep_gram(z, mask, region, 2.0)
+    assert zprep_gram.launches == before + 1 and got.dtype == torch.float64
+    want = zprep_gram_plain(z, mask, region, 2.0)
+    assert_close_to_max(got.cpu(), want.cpu(), F64_RTOL)
+    assert torch.equal(got, got.T)
+    assert not got[n // 2].any()
+    split = zprep_split(z, mask, region, 2.0)
+    assert split.p.shape[:2] == (1, n) and split.p.dtype == torch.float64
+    assert torch.equal(split.norms, torch.diagonal(got))
+    plain_split = zprep_split_plain(z, mask, region, 2.0)
+    for i0, rows in ((0, n), (n // 3, max(1, n // 2))):
+        rows = min(rows, n - i0)
+        g = zprep_gram_panel(split, i0, rows)
+        assert g.shape == (rows, n)
+        assert_close_to_max(g.cpu(), zprep_gram_panel_plain(plain_split, i0, rows).cpu(),
+                            F64_RTOL)
+
+
+def _f64_dipcn_case(rng, cuda, n, w, k, ties):
+    """(d2 [n, w], rnorm, nbr_w, usable, valid) in float64: quantized
+    distances (many exact ties) or spread ones, finfo.max columns."""
+    big = torch.finfo(torch.float64).max
+    if ties:
+        d2 = rng.integers(0, 40, (n, w)) * 0.25
+    else:
+        d2 = rng.uniform(1000.0, 5000.0, (n, w))
+    d2 = torch.tensor(d2, dtype=torch.float64, device=cuda)
+    d2[:, rng.random(w) < 0.05] = big
+    if n == w:
+        d2.fill_diagonal_(big)
+    rnorm = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float64, device=cuda)
+    nbr_w = torch.tensor(rng.uniform(0.5, 2.0, w), dtype=torch.float64, device=cuda)
+    usable = torch.tensor(rng.random(w) > 0.2, device=cuda)
+    valid = torch.tensor(rng.random(n) > 0.1, device=cuda)
+    return d2.contiguous(), rnorm, nbr_w, usable, valid
+
+
+# case: (rows, width, k, n_nbr, quantized)
+_F64_DIPCN_CASES = {
+    "one-row": (1, 3, 2, 1, True), "n9-k-equals-w": (9, 9, 9, 4, True),
+    "ties-300": (300, 300, 60, 20, True), "spread-2504": (256, 2504, 500, 300, False),
+    "all-equal": (64, 16, 16, 7, None), "panel-65536": (8, 65536, 500, 300, True),
+}
+
+
+@pytest.mark.parametrize("case", list(_F64_DIPCN_CASES))
+def test_float64_dipcn_kernel(cuda, case):
+    """The float64 form against the plain float64 dipCN: ok exact, dipCN at
+    rtol 1e-12; its wide mode, where the resident mode also takes the row,
+    gives bitwise the same values."""
+    n, w, k, n_nbr, ties = _F64_DIPCN_CASES[case]
+    rng = np.random.default_rng(w + k)
+    args = _f64_dipcn_case(rng, cuda, n, w, k, bool(ties))
+    if ties is None:
+        args = (torch.zeros_like(args[0]),) + args[1:]
+    before = dipcn_from_distances_gpu.launches
+    dip, ok = dipcn_from_distances_gpu(*args, k=k, n_nbr=n_nbr)
+    assert dipcn_from_distances_gpu.launches == before + 1 and dip.dtype == torch.float64
+    pdip, pok = dipcn_from_distances(*args, k=k, n_nbr=n_nbr)
+    assert torch.equal(ok, pok)
+    torch.testing.assert_close(dip[ok], pdip[ok], rtol=F64_RTOL, atol=0)
+    mode = dipcn_select_mode(w, k, cuda, torch.float64)
+    assert mode == ("wide" if w > 20000 else "resident")
+    if mode == "resident":  # the kernel's plan is the pure function's
+        from torch_plans import dipcn_select_smem_bytes
+
+        info = dipcn_select_info(w, k, cuda, dtype=torch.float64)
+        assert info["smem_bytes"] == dipcn_select_smem_bytes(w, k, 8)
+    if mode == "resident":
+        wdip, wok = _launch("wide", *args, k, n_nbr)
+        assert torch.equal(wok, ok) and torch.equal(wdip[ok], dip[ok])
+
+
+def test_float64_dipcn_mode_edge_is_half_the_float32_edge(cuda):
+    """The resident mode holds 8 W bytes of keys in float64: its widest row
+    at k=500 lies below float32's and above a third of it."""
+    def edge(dtype):
+        lo, hi = 1000, 65536
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if dipcn_select_mode(mid, 500, cuda, dtype) == "resident" else (
+                lo, mid)
+        return lo
+
+    e32, e64 = edge(torch.float32), edge(torch.float64)
+    assert e32 / 3 < e64 < e32 * 0.6
+
+
+# case: (B, W, k, the mode knn_select_mode picks in float64, its blocks a row)
+_F64_SELECT_CASES = {
+    "n1-w1-k1": (1, 1, 1, "resident", 1),
+    "n9-ties-k-equals-w": (9, 9, 9, "resident", 1),
+    "ties-300-k299": (300, 300, 299, "resident", 1),
+    "all-equal": (64, 16, 16, "resident", 1),
+    "past-body": (32, 3000, 2000, "resident", 1),
+    "quantized-2504": (256, 2504, 500, "resident", 1),
+    "spread-2504": (256, 2504, 500, "resident", 1),
+    "w8192-one-block": (16, 8192, 500, "resident", 1),
+    "w8193-wide-unaligned": (16, 8193, 500, "wide", 1),
+    "w65536-wide": (32, 65536, 500, "wide", 1),
+    "w65600-wide-past-uint16": (8, 65600, 777, "wide", 1),
+    "w230000-past-the-cluster-edge": (4, 230000, 500, "wide", 1),
+    "w131072-k8192": (4, 131072, 8192, "wide", 1),
+}
+
+
+def _f64_select_case(case, cuda):
+    b, w, k = _F64_SELECT_CASES[case][:3]
+    rng = np.random.default_rng(len(case) + 100)
+    big = torch.finfo(torch.float64).max
+    if case == "all-equal":
+        d2 = torch.zeros((b, w), dtype=torch.float64, device=cuda)
+    elif case.startswith("spread"):
+        d2 = torch.tensor(rng.uniform(3830, 5185, (b, w)), dtype=torch.float64, device=cuda)
+        d2[:, 7] = d2[:, 3]
+    else:  # quantized: exact ties across the row
+        d2 = torch.tensor(rng.integers(0, 400, (b, w)) * 0.01, dtype=torch.float64, device=cuda)
+        d2[:, rng.random(w) < (0.6 if case == "past-body" else 0.05)] = big
+        if w > 3:
+            d2[:, 3] = torch.inf
+        if w > 65536:
+            d2[:, 65540:65560] = 0.0
+            d2[:, 65536:65540] = 0.01
+    return d2.contiguous(), k
+
+
+@pytest.mark.parametrize("case", list(_F64_SELECT_CASES))
+def test_float64_knn_select_kernel_equals_the_stable_sort(cuda, case):
+    """The float64 form, in the mode it picks over the cluster size the
+    width picks, equals the stable float64 sort bitwise (values and
+    positions); so does its wide mode on the same rows."""
+    from grid_tpu_torch.ops.gpu_select import (
+        _knn_launch, knn_select_info, knn_select_mode, sorted_smallest_k_gpu,
+    )
+    from grid_tpu_torch.ops.knn import sorted_smallest_k
+
+    d2, k = _f64_select_case(case, cuda)
+    w = d2.shape[1]
+    mode, blocks = _F64_SELECT_CASES[case][3:]
+    assert knn_select_mode(w, k, cuda, torch.float64) == mode
+    from torch_plans import knn_select_plan
+
+    info, plan = knn_select_info(w, k, cuda, dtype=torch.float64), knn_select_plan(w, k, 8)
+    assert info["cluster_blocks"] == blocks
+    if mode == "wide":
+        assert info["smem_bytes"] == plan["wide_smem_bytes"]
+    else:
+        assert (info["smem_bytes"], info["slice"]) == (plan["shared_smem_bytes"], plan["slice"])
+    before = sorted_smallest_k_gpu.launches
+    vals, idx = sorted_smallest_k_gpu(d2, k)
+    assert sorted_smallest_k_gpu.launches == before + 1 and vals.dtype == torch.float64
+    want_v, want_i = sorted_smallest_k(d2, k)
+    assert torch.equal(idx, want_i) and torch.equal(vals, want_v)
+    if mode != "wide":
+        got_v, got_i = _knn_launch("wide", d2, k)
+        assert torch.equal(got_i, idx) and torch.equal(got_v, vals)
+
+
+def test_float64_knn_select_takes_k_up_to_8192(cuda):
+    from grid_tpu_torch.ops.gpu_select import knn_select_mode, sorted_smallest_k_gpu
+
+    assert knn_select_mode(1 << 20, 8192, cuda, torch.float64) == "wide"
+    assert knn_select_mode(20000, 8193, cuda, torch.float64) is None
+    with pytest.raises(ValueError):
+        sorted_smallest_k_gpu(torch.zeros((2, 20000), dtype=torch.float64, device=cuda), 8193)
+
+
+def test_float64_knn_select_runs_no_cluster(cuda):
+    """The float64 shared mode takes one block a row: rows past 8,192
+    columns go to the wide mode, and the kernel refuses the shared mode's
+    launch shape over a cluster."""
+    from grid_tpu_torch import native
+    from grid_tpu_torch.ops.gpu_select import knn_select_info, knn_select_mode
+
+    assert knn_select_mode(8192, 500, cuda, torch.float64) == "resident"
+    assert knn_select_mode(8193, 500, cuda, torch.float64) == "wide"
+    assert knn_select_mode(8193, 500, cuda, torch.float32) == "cluster"
+    with pytest.raises(native.KernelError):
+        knn_select_info(65536, 500, cuda, mode="cluster", dtype=torch.float64)
+
+
+# (N, K, sweeps, replicates, the float64 mode)
+_F64_SWEEP_CASES = [*((n, 3, 3 + n % 2, n % 3, "resident") for n in range(1, 10)),
+                    (2504, 2, 100, 0, "resident"), (2504, 10, 100, 0, "resident"),
+                    (1000, 8, 30, 20, "resident"), (65536, 2, 100, 0, "persistent"),
+                    (12000, 4, 10, 3, "persistent")]
+
+
+@pytest.mark.parametrize("n,k,n_iters,reps,mode", _F64_SWEEP_CASES)
+def test_float64_phase_sweeps_kernel_against_its_plain_version(cuda, n, k, n_iters, reps, mode):
+    """The float64 form against the plain float64 sweeps: rtol 1e-12 (1e-10
+    for bootstrap replicates), the same NaNs; every mode that takes the
+    shape gives bitwise the wrapper's values."""
+    from grid_tpu_torch.ops.phasing import (
+        _sweeps_launch, phase_sweeps, phase_sweeps_gpu, phase_sweeps_info, phase_sweeps_mode,
+    )
+
+    rng = np.random.default_rng(n + k + 64)
+    irrs, hi, hw, hv, slots = _phasing_case(rng, n, k, reps)
+    irrs_t = torch.tensor(irrs, dtype=torch.float64, device=cuda)
+    idx = torch.tensor(hi, device=cuda)
+    w = torch.tensor(hw, dtype=torch.float64, device=cuda)
+    valid = torch.tensor(hv, device=cuda)
+    if reps:
+        s = torch.tensor(slots, device=cuda)
+        idx = torch.gather(idx.long().expand(reps, 2 * n, k), 2, s).to(torch.int32).contiguous()
+        w = torch.gather(w.expand(reps, 2 * n, k), 2, s).contiguous()
+    assert phase_sweeps_mode(n, k, cuda, torch.float64) == mode
+    info = phase_sweeps_info(n, k, cuda, dtype=torch.float64)
+    if mode == "resident":
+        from torch_plans import phase_sweeps_smem_bytes
+
+        assert info["smem_bytes"] == phase_sweeps_smem_bytes(n, k, 8)
+    deg = valid.sum(dim=1).reshape(n, 2)
+    hap0 = torch.where((deg[:, 0] >= 1) & (deg[:, 1] >= 1) & torch.isfinite(irrs_t), irrs_t / 2,
+                       torch.nan).repeat_interleave(2)
+    before = phase_sweeps_gpu.launches
+    got = phase_sweeps_gpu(hap0, irrs_t, idx, w, valid, n_iters)
+    assert phase_sweeps_gpu.launches == before + 1 and got.dtype == torch.float64
+    want = phase_sweeps(hap0, irrs_t, idx, w, valid, n_iters)
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got, want, rtol=1e-10 if reps else F64_RTOL, atol=0,
+                               equal_nan=True)
+    for other in ["persistent"] + ["resident"] * (mode == "resident"):
+        again = _sweeps_launch(other, hap0, irrs_t, idx, w, valid, n_iters,
+                               torch.empty((max(reps, 1), 2 * n), dtype=torch.float64,
+                                           device=cuda)).reshape(got.shape)
+        assert torch.equal(again.nan_to_num(), got.nan_to_num()), other
+
+
+def test_float64_phase_sweeps_more_replicates_than_clusters_at_once(cuda):
+    from grid_tpu_torch.ops.phasing import phase_sweeps, phase_sweeps_gpu, phase_sweeps_info
+
+    n, k = 2504, 10
+    info = phase_sweeps_info(n, k, cuda, dtype=torch.float64)
+    assert info["mode"] == "resident" and info["clusters"] >= 1
+    reps = info["clusters"] + 5
+    irrs, hi, hw, hv, slots = _phasing_case(np.random.default_rng(41), n, k, reps)
+    irrs_t = torch.tensor(irrs, dtype=torch.float64, device=cuda)
+    s = torch.tensor(slots, device=cuda)
+    idx = torch.gather(torch.tensor(hi, device=cuda).long().expand(reps, 2 * n, k), 2, s)
+    w = torch.gather(torch.tensor(hw, dtype=torch.float64, device=cuda).expand(reps, 2 * n, k),
+                     2, s)
+    valid = torch.tensor(hv, device=cuda)
+    hap0 = (irrs_t / 2).repeat_interleave(2)
+    got = phase_sweeps_gpu(hap0, irrs_t, idx, w, valid, 31)
+    want = phase_sweeps(hap0, irrs_t, idx, w, valid, 31)
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=0, equal_nan=True)
+
+
+def test_float64_kernels_refuse_what_they_do_not_take(cuda):
+    """bfloat16 reaches no kernel; the multi-weight form stays float32."""
+    from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
+
+    bf = torch.zeros((8, 8), dtype=torch.bfloat16, device=cuda)
+    mask = torch.ones((8, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        zprep_gram(bf, mask, mask[0], 2.0)
+    with pytest.raises(TypeError):
+        masked_column_stats(bf, mask, bf[0])
+    with pytest.raises(TypeError):
+        sorted_smallest_k_gpu(bf, 3)
+    v = torch.ones(8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        dipcn_from_distances_gpu(bf, v, v, mask[0], mask[0], k=3, n_nbr=2)
+    d64 = torch.zeros((8, 8), dtype=torch.float64, device=cuda)
+    v64 = torch.ones((8, 2), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        dipcn_from_distances_multi_gpu(d64, v64, v64, mask[0], mask[:, :2], k=3, n_nbr=2)
+    with pytest.raises(TypeError):  # mixed dtypes
+        dipcn_from_distances_gpu(d64, v64[:, 0].float(), v64[:, 0], mask[0], mask[0], k=3,
+                                 n_nbr=2)
+
+
+@pytest.mark.parametrize("branch", ["resident", "panels"])
+def test_float64_cohort_step_on_card_matches_the_cpu_route(cuda, branch):
+    """The float64 step on the card against the port's float64 CPU route:
+    z bitwise (the column statistics' sums in float64 on both sides may
+    differ in the last bit: within 1e-12 of max|z|), neighbor lists
+    identical but for ties within 1e-12 of the row's k-th distance, dipCN
+    at 1e-9 where the input sets agree, dipcn_valid exact; every kernel
+    launched."""
+    from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
+    from grid_tpu_torch.ops.phasing import phase_sweeps_gpu
+
+    rng = np.random.default_rng(5)
+    n, r = 400, 192
+    values = rng.uniform(20, 40, (n, r)) * rng.normal(1, 0.1, (n, r)).clip(0.5, None)
+    mask = rng.random((n, r)) > 0.02
+    reads = rng.integers(500, 3000, n).astype(np.float64)
+    reads_valid = rng.random(n) > 0.05
+    ring = [[((h + 2) % (2 * n), 1.0), ((h - 2) % (2 * n), 0.5)] for h in range(2 * n)]
+    hap = pad_hap_neighbors(ring, 2, dtype=np.float64)
+    params = CohortParams(num_neighbors=50, n_nbr=30, n_iters=10, quantize=True, row_block=128)
+    if branch == "panels":
+        params = params._replace(d2_budget_bytes=0)
+    args = (values, mask, reads, reads_valid, *hap)
+    wrappers = (masked_column_stats, zprep_gram, zprep_split, zprep_gram_panel,
+                dipcn_from_distances_gpu, sorted_smallest_k_gpu, phase_sweeps_gpu)
+    before = [f.launches for f in wrappers]
+    got = outputs_to_numpy(cohort_step(*inputs_to_torch(*args, cuda, torch.float64), params))
+    launched = dict(zip((f.__name__ for f in wrappers),
+                        (f.launches - b for f, b in zip(wrappers, before))))
+    want = outputs_to_numpy(cohort_step(*inputs_to_torch(*args, "cpu", torch.float64), params))
+    assert launched["masked_column_stats"] == 2 and launched["phase_sweeps_gpu"] == 1
+    if branch == "resident":
+        assert launched["zprep_gram"] == launched["sorted_smallest_k_gpu"] == 1
+    else:
+        assert launched["zprep_split"] == 1 and launched["zprep_gram_panel"] == 4
+        assert launched["sorted_smallest_k_gpu"] == launched["dipcn_from_distances_gpu"] == 4
+    assert got.z.dtype == np.float64
+    assert_close_to_max(got.z, want.z, F64_RTOL)
+    neighbor_rows_differing(got.nbr_idx, got.nbr_sq_dists, want.nbr_idx, want.nbr_sq_dists,
+                            tol=F64_RTOL * want.nbr_sq_dists[:, -1])
+    np.testing.assert_array_equal(got.dipcn_valid, want.dipcn_valid)
+    same = got.dipcn_valid & ~dipcn_sets_differ(got.nbr_idx, want.nbr_idx,
+                                                reads_valid & want.z_mask.any(axis=1), 30)
+    np.testing.assert_allclose(got.dipcn[same], want.dipcn[same], rtol=1e-9)

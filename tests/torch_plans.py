@@ -1,0 +1,69 @@
+"""The launch plans of the cohort step's kernels by element size, as pure
+functions: what ``csrc/knn_select.cu`` (``plan_of``, ``select_mode``),
+``csrc/dipcn_select.cu`` (``dyn_smem_bytes``) and ``csrc/phase_sweeps.cu``
+(``resident_smem_bytes``) compute. ``tests/test_torch_float64.py`` checks
+them on the CPU; ``tests/test_torch_gpu.py`` holds the kernels' own
+``*_info`` answers to them on the card.
+"""
+
+from __future__ import annotations
+
+
+def _list_len(k: int) -> int:
+    """knn_select's sorted list: the next power of two >= k, at least 128."""
+    length = 128
+    while length < k:
+        length <<= 1
+    return length
+
+
+def knn_select_plan(w: int, k: int, itemsize: int) -> dict:
+    """``knn_select``'s plan for rows of ``w`` columns of ``itemsize`` bytes
+    (4: float32, 8: float64) at this ``k``: the shared mode's blocks a row
+    (the least power of two up to 8 that keeps a slice within 8,192
+    columns) and columns a block, its dynamic shared memory a block (the
+    slice's keys, the list of 8-byte composite entries or 16-byte float64
+    pairs, the 16-bit gather buffer), the wide mode's (the list and an
+    int32 gather buffer), the largest cluster the shared mode takes (8 in
+    float32, 1 in float64) and the largest k."""
+    length = _list_len(k)
+    entry = 8 if itemsize == 4 else 16
+    blocks = 1
+    while blocks < 8 and -(-w // blocks) > 8192:
+        blocks <<= 1
+    cols = w if blocks == 1 else -(-(-(-w // blocks)) // 4) * 4
+    return {"cluster_blocks": blocks, "slice": cols,
+            "shared_smem_bytes": -(-cols // 4) * 4 * itemsize + length * entry + 2 * length * 2,
+            "wide_smem_bytes": length * entry + max(length, 2048) * 4,
+            "max_shared_cluster": 8 if itemsize == 4 else 1,
+            "max_k": 16384 if itemsize == 4 else 8192}
+
+
+def knn_select_mode_of(w: int, k: int, itemsize: int, smem: int) -> str | None:
+    """The mode ``select_mode`` picks where a block may take ``smem`` bytes
+    of dynamic shared memory (and every cluster that fits can be
+    scheduled): "resident" or "cluster" where the shared mode's cluster is
+    one it takes and its slice fits, else "wide" where the list fits, else
+    None."""
+    plan = knn_select_plan(w, k, itemsize)
+    if not 1 <= k <= min(w, plan["max_k"]):
+        return None
+    if plan["cluster_blocks"] <= plan["max_shared_cluster"] and plan["shared_smem_bytes"] <= smem:
+        return "resident" if plan["cluster_blocks"] == 1 else "cluster"
+    return "wide" if plan["wide_smem_bytes"] <= smem else None
+
+
+def dipcn_select_smem_bytes(w: int, k: int, itemsize: int) -> int:
+    """The resident mode's dynamic shared memory a block: the row's keys of
+    ``itemsize`` bytes, its usable bits and a 16-bit list of min(k, w)
+    columns."""
+    return (-(-w // 4) * 4 * itemsize + -(-w // 32) * 4 + -(-min(k, w) // 8) * 8 * 2)
+
+
+def phase_sweeps_smem_bytes(n: int, k: int, itemsize: int) -> int:
+    """The resident mode's dynamic shared memory a block at N samples and K
+    slots of ``itemsize``-byte values: the two value buffers of C = 8
+    slices of 2 chunk values, chunk = ceil(N / C), and the block's lists
+    (an int32 index, a weight and a validity byte a slot)."""
+    chunk = -(-n // 8)
+    return 4 * itemsize * 8 * chunk + 2 * (5 + itemsize) * chunk * k
