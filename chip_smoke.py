@@ -17,7 +17,11 @@ before the last line):
              libdeflate, and fails unless the port takes the native host
              route; prints ptxas' registers and spills and the launch shapes
              of the Gram and dipCN kernels and the column-statistics grid,
-             and JIT-compiles the Triton kernels.
+             and JIT-compiles the Triton kernels. The FP64 Gram's launch in
+             its three modes at the step's shapes (the N=2504 triangle, the
+             N=65,536 split and a 512-row panel: its mma shape, tiles and
+             waves, stages, shared memory, registers) is held to
+             ``tests/torch_plans.py``'s plan and fails on any spill.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the cohort step gives it at 1000G scale (N=2504,
              R=2048) and at a ragged shape; dipCN also on forced ties, on
@@ -335,7 +339,10 @@ before the last line):
              every mode bitwise) and at the panel shapes, each timed beside
              its plain version with its bound at the FP64 peaks (67 TFLOP/s
              tensor for the Gram, 34 otherwise) and its library call (DGEMM,
-             stable torch.sort and torch.topk in float64); (b) the float64
+             stable torch.sort and torch.topk in float64), the Gram with the
+             bytes its tiles read from L2 a call, estimated from the tile
+             count (not measured, and printed only), and the rate they imply
+             at its time (the N=2504 triangle and one panel); (b) the float64
              N=2504 step against the port's float64 CPU route: z within
              1e-12 of max|z|, neighbor lists equal but for ties within 1e-12
              of the row's k-th distance (counted), dipCN within 1e-9 where
@@ -852,6 +859,7 @@ def panel_phase(dev, card: str, dtype=torch.float32) -> tuple:
     )
     from grid_tpu_torch.ops.select import dipcn_from_distances
     from torch_parity import assert_close_to_max
+    from torch_plans import zprep_gram64_l2_bytes
 
     f32, tol, e = dtype == torch.float32, TOL[dtype], torch.finfo(dtype).bits // 8
     tag = "" if f32 else " f64"
@@ -1071,6 +1079,10 @@ def panel_phase(dev, card: str, dtype=torch.float32) -> tuple:
         lib = "" if lib_ms is None else (
             f", the stable torch.sort sliced to k {lib_ms:.4f} ms"
             if name == "sorted_smallest_k_gpu" else f", torch.mm of the panel {lib_ms:.4f} ms")
+        if name == "zprep_gram" and not f32:  # reckoned from the tiles, not measured
+            l2_bytes = zprep_gram64_l2_bytes(n, b, "panel", r_pad)
+            lib += (f"; the tiles read {l2_bytes / 1e9:.3f} GB from L2 a panel (estimated from "
+                    f"the tile count), {l2_bytes / kernel_ms / 1e9:.2f} TB/s at this time")
         print(f"[times{tag}] {name} {kind} at {shapes[name]}: kernel {kernel_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms{lib} per call (5 back to back, better of two); bound "
               f"{least:.4f} ms by {by}, {100 * least / kernel_ms:.1f}% of it; {calls} calls per "
@@ -4016,7 +4028,7 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
     from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
     from grid_tpu_torch.ops.gpu_kernels import (
-        masked_column_stats, masked_column_stats_plain, zprep_gram, zprep_gram_info,
+        _r_pad, masked_column_stats, masked_column_stats_plain, zprep_gram, zprep_gram_info,
         zprep_gram_plain,
     )
     from grid_tpu_torch.ops.gpu_select import (
@@ -4033,6 +4045,7 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from torch_parity import assert_close_to_max
+    from torch_plans import zprep_gram64_l2_bytes
 
     f32, tol, e = dtype == torch.float32, TOL[dtype], torch.finfo(dtype).bits // 8
     big = torch.finfo(dtype).max
@@ -4415,6 +4428,11 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
             flop = N * (N + 1) * R
             extra += (f"; {flop / kernel_ms / 1e9:.1f} vs {flop / plain_ms / 1e9:.1f} TFLOP/s as "
                       f"N(N+1)R")
+            if not f32:  # reckoned from the tiles, not measured; at the b2b time (prep included)
+                l2_bytes = zprep_gram64_l2_bytes(N, N, "triangle", _r_pad(R, dtype))
+                extra += (f"; the tiles read {l2_bytes / 1e9:.3f} GB from L2 a call (estimated "
+                          f"from the tile count), {l2_bytes / b2b_ms / 1e9:.2f} TB/s at the b2b "
+                          f"time")
         if name == "sorted_smallest_k_gpu":
             row["topk_ms"] = min(median_ms(lambda: torch.topk(d2, K, dim=1, largest=False,
                                                              sorted=True)) for _ in range(2))
@@ -4463,6 +4481,33 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
         sample_ok=sample_ok, dip_args=dip_args, inputs=inputs, params=params, out=out,
         step=(step_hap0, step_irrs, step_lists), irrs_main=irrs_main, rand_lists=rand_lists,
         boot_slots=boot_slots, boot_lists=boot_lists)
+
+
+def gram64_shapes(dev, sms: int) -> None:
+    """Phase 2: the FP64 Gram's launch in its three modes at the cohort
+    step's shapes (the N=2504 triangle, the N=65,536 split and one of its
+    512-row panels), held to ``tests/torch_plans.py``'s plan, with no spill."""
+    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_info
+    from torch_plans import zprep_gram64_plan
+
+    keys = ("tile", "k_tile", "stages", "threads", "smem_bytes", "blocks", "blocks_per_sm")
+    for n, rows, mode in ((N, N, "triangle"), (PANEL_N, PANEL_N, "split"),
+                          (PANEL_N, 512, "panel")):
+        info = zprep_gram_info(n, dev, torch.float64, mode, rows)
+        plan = zprep_gram64_plan(n, rows, mode)
+        label = f"{mode} of {rows} rows" if mode == "panel" else mode
+        print(f"[build] zprep_gram float64 {label} at N={n}"
+              f": m16n8k16 mma.sync, {info['blocks']} tiles of {info['tile']}x"
+              f"{info['tile']} ({info['blocks'] / sms:.2f} waves at {info['blocks_per_sm']} "
+              f"block an SM on {sms} SMs), {info['threads']} threads a block (8 consumer warps, "
+              f"a producer warpgroup), a {info['stages']}-stage TMA ring of {info['k_tile']}-"
+              f"column stages in {info['smem_bytes']} B of dynamic shared memory "
+              f"(+{info['static_smem_bytes']} B static); {info['registers']} registers a thread "
+              f"at entry (the consumers take 232 by setmaxnreg), {info['spill_bytes']} B of "
+              f"local memory; {plan['flops_per_l2_byte']:.0f} flops a byte from L2", flush=True)
+        check(info["spill_bytes"] == 0, f"zprep_gram float64 {label}: spills to local memory")
+        check(all(info[key] == plan[key] for key in keys),
+              f"zprep_gram float64 {label}: launch {info} is not the plan {plan}")
 
 
 def float64_phase(dev, card: str, values_np, mask_np, reads_np, sms: int) -> tuple:
@@ -4672,6 +4717,7 @@ def main() -> int:
     masked_column_stats(tiny, tiny > 0, torch.ones(4, device=dev))
     torch.cuda.synchronize()
     print(f"[build] masked_column_stats: Triton JIT {time.perf_counter() - t0:.1f} s", flush=True)
+    gram64_shapes(dev, sms)
 
     clock(t_script, "phases 1-2 (the build)")
     # ---- 3-6. kernels, the slice, times, profile --------------------------

@@ -87,9 +87,13 @@ def build_dir() -> Path:
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` at its current text and
     ``NVCC_FLAGS`` lives (built or not)."""
-    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    return _library_of(CSRC / f"{name}.cu")
+
+
+def _library_of(src: Path) -> Path:
+    key = hashlib.sha256(src.read_bytes())
     key.update("\0".join(NVCC_FLAGS).encode())
-    return build_dir() / f"lib{name}-{key.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{src.stem}-{key.hexdigest()[:16]}.so"
 
 
 _LOCKS_GUARD = threading.Lock()
@@ -99,7 +103,8 @@ _COUNT_LOCK = threading.Lock()
 
 
 def _lock(name: str) -> threading.RLock:
-    """The lock of one kernel's build and load."""
+    """The lock of one kernel's load (by name) or one source's build (by
+    path)."""
     with _LOCKS_GUARD:
         return _LOCKS.setdefault(name, threading.RLock())
 
@@ -107,9 +112,17 @@ def _lock(name: str) -> threading.RLock:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library exists; return the
     library's path. Raises KernelError with nvcc's stderr on failure."""
-    with _lock(name):
-        src = CSRC / f"{name}.cu"
-        lib = library_path(name)
+    return build_file(CSRC / f"{name}.cu")
+
+
+def build_file(src: Path) -> Path:
+    """:func:`build` for any CUDA source file with a plain C interface (a
+    measurement script's, another version of a kernel): compiled with
+    ``NVCC_FLAGS`` into :func:`build_dir`, keyed by its text and the
+    flags."""
+    src = Path(src)
+    with _lock(str(src.resolve())):
+        lib = _library_of(src)
         if lib.exists():
             return lib
         lib.parent.mkdir(parents=True, exist_ok=True)

@@ -25,9 +25,10 @@
   squared row norms), then :func:`zprep_gram_panel` once per row panel.
   The sharded ring's fourth mode, :func:`zprep_gram_cross`, multiplies a
   rank's split rows by the visiting block's. Float64 inputs take
-  ``csrc/zprep_gram64.cu`` instead (the triangle, split and panel modes, on
-  the FP64 tensor cores; no split: P itself stands in ``SplitZ.p``); the
-  cross mode is float32 only.
+  ``csrc/zprep_gram64.cu`` instead (the triangle, split and panel modes:
+  128x128 tiles of FP64 tensor-core ``mma.sync`` m16n8k16 fed by a 4-stage
+  TMA ring, one tile an SM; no split: P itself stands in ``SplitZ.p``);
+  the cross mode is float32 only.
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch version
 for CPU tensors only; it counts its calls that reached the card in
@@ -257,7 +258,9 @@ _GRAM_K_TILE = 32  # R columns per stage of csrc/zprep_gram.cu (kTileK); R is pa
 _GRAM64_K_TILE = 16  # the same of csrc/zprep_gram64.cu
 _GRAM_INFO_KEYS = ("tile", "k_tile", "stages", "threads", "smem_bytes", "blocks",
                    "blocks_per_sm")
-_GRAM64_INFO_KEYS = (*_GRAM_INFO_KEYS, "registers", "spill_bytes")
+# float64: smem_bytes is the dynamic shared memory (the ring)
+_GRAM64_INFO_KEYS = (*_GRAM_INFO_KEYS, "registers", "spill_bytes", "static_smem_bytes")
+_GRAM64_MODES = {"triangle": 0, "panel": 1, "split": 2}
 
 
 @functools.cache
@@ -295,7 +298,8 @@ def _zprep64_lib():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p]
     lib.zprep_gram64_panel_launch.restype = ctypes.c_int
-    lib.zprep_gram64_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.zprep_gram64_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                      ctypes.POINTER(ctypes.c_int)]
     lib.zprep_gram64_info.restype = ctypes.c_int
     return lib
 
@@ -313,17 +317,20 @@ def _require_hopper(device: torch.device) -> None:
                            f"capability {cap[0]}.{cap[1]}")
 
 
-def zprep_gram_info(n: int, device: torch.device, dtype: torch.dtype = torch.float32) -> dict:
+def zprep_gram_info(n: int, device: torch.device, dtype: torch.dtype = torch.float32,
+                    mode: str = "triangle", rows: int | None = None) -> dict:
     """The Gram kernel's launch shape for ``n`` rows: tile, k_tile, stages,
     threads and dynamic shared memory per block, blocks (upper-triangle
     tiles) and resident blocks per SM on the CUDA ``device``; for float64,
-    the FP64 kernel's (static shared memory) with its registers and spill
-    bytes a thread."""
+    the FP64 kernel's in ``mode`` ("triangle", "split": the diagonal tiles,
+    or "panel" of ``rows`` rows: its row tiles times the column tiles), with
+    its registers and spill bytes a thread and its static shared memory."""
     _require_hopper(device)
     if dtype == torch.float64:
         out = (ctypes.c_int * len(_GRAM64_INFO_KEYS))()
         with torch.cuda.device(device):
-            native.check_launch("zprep_gram64", _zprep64_lib().zprep_gram64_info(n, out))
+            native.check_launch("zprep_gram64", _zprep64_lib().zprep_gram64_info(
+                n, n if rows is None else rows, _GRAM64_MODES[mode], out))
         return dict(zip(_GRAM64_INFO_KEYS, out))
     out = (ctypes.c_int * len(_GRAM_INFO_KEYS))()
     with torch.cuda.device(device):
@@ -338,9 +345,10 @@ def zprep_gram(z, mask, region_mask, zmax: float):
     2·N·R_pad float32, R_pad = R rounded up to 32), then the upper-triangle
     tiles of G run as three TF32 tensor-core products (big·small +
     small·big + big·big) at float32 accuracy. Float64: a prep pass writes P
-    (N·R_pad float64, R_pad a multiple of 16), then the upper-triangle tiles
-    run on the FP64 tensor cores (``mma.sync`` m8n8k4, IEEE float64). G
-    comes out exactly symmetric either way. Needs compute capability 9.0.
+    (N·R_pad float64, R_pad a multiple of 16), then the upper-triangle
+    128x128 tiles run on the FP64 tensor cores (``mma.sync`` m16n8k16, IEEE
+    float64). G comes out exactly symmetric either way. Needs compute
+    capability 9.0.
 
     Args:
         z: [N, R] float32 or float64 z matrix.

@@ -1,7 +1,8 @@
-"""Time the float32 cohort step and its five hand kernels of two or more
-checkouts of the port on one CUDA card, in the order given.
+"""Time the cohort step and its five hand kernels of two or more checkouts
+of the port on one CUDA card, in the order given, in float32 or (with
+``--float64``) in float64.
 
-    python3 scripts/torch_kernel_ab.py PARENT_TREE THIS_TREE THIS_TREE PARENT_TREE
+    python3 scripts/torch_kernel_ab.py [--float64] PARENT_TREE THIS_TREE THIS_TREE PARENT_TREE
 
 Each tree runs in a process of its own with that tree's ``grid_tpu_torch``
 on ``sys.path`` first: it builds the kernels from that tree's sources
@@ -13,23 +14,30 @@ events, better of two rounds), its device time (``torch.profiler``, mean of
 5 steps), each kernel 20 times back to back (better of two rounds) and
 the host's side of a step (cProfile over 20 steps: the wrappers'
 cumulative time and the functions with the most own time, per step).
+With ``--float64`` each tree also runs ``run_wgs_pipeline`` in file mode
+with ``device.dtype: float64`` twice on a synthetic cohort of 2,504 samples
+(``chip_smoke.py`` phase 9's: 1,003 flank bins, seed 2504), timed by the
+host's clock.
 One JSON line a tree, prefixed ``[ab]``; give the trees as parent, change,
 change, parent so that neither side gets the warmer card. Needs a card.
 """
 
+import copy
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 N, R, K, N_NBR, N_ITERS, ZMAX, REPS = 2504, 2048, 500, 300, 100, 2.0, 20
-KERNELS = ("zprep_gram", "dipcn_select", "knn_select", "phase_sweeps")
+KERNELS = ("dipcn_select", "knn_select", "phase_sweeps")
 
 
-def one(tree: Path) -> dict:
+def one(tree: Path, f64: bool) -> dict:
     sys.path[:0] = [str(tree), str(REPO)]
     import numpy as np
     import torch
@@ -45,7 +53,8 @@ def one(tree: Path) -> dict:
     from grid_tpu_torch.ops.masked import masked_mean
     from grid_tpu_torch.ops.normalize import normalize_cohort, select_high_variance_mask
     from grid_tpu_torch.ops.phasing import phase_sweeps_gpu
-    from grid_tpu_torch.synth import make_matrix
+    from grid_tpu_torch.pipeline import run_wgs_pipeline
+    from grid_tpu_torch.synth import make_matrix, make_synthetic_cohort
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -53,8 +62,10 @@ def one(tree: Path) -> dict:
 
     assert Path(grid_tpu_torch.__file__).resolve().is_relative_to(tree.resolve())
     torch.backends.cuda.matmul.allow_tf32 = False
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = dict(zip(KERNELS, pool.map(native.build, KERNELS)))
+    dtype = torch.float64 if f64 else torch.float32
+    built = ("zprep_gram64" if f64 else "zprep_gram", *KERNELS)
+    with ThreadPoolExecutor(len(built)) as pool:
+        libs = dict(zip(built, pool.map(native.build, built)))
     regs = {name: ptxas_functions(lib.with_suffix(".log").read_text())
             for name, lib in libs.items()}
 
@@ -87,8 +98,7 @@ def one(tree: Path) -> dict:
     ring = [[((h + 2) % (2 * N), 1.0), ((h - 2) % (2 * N), 0.5)] for h in range(2 * N)]
     hap = pad_hap_neighbors(ring, 2)
     params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
-    inputs = inputs_to_torch(values_np, mask_np, reads_np, np.ones(N, bool), *hap, dev,
-                             torch.float32)
+    inputs = inputs_to_torch(values_np, mask_np, reads_np, np.ones(N, bool), *hap, dev, dtype)
     out = cohort_step(*inputs, params)
     values, mask = inputs[0], inputs[1]
     norm = normalize_cohort(values, mask)
@@ -148,20 +158,42 @@ def one(tree: Path) -> dict:
         return e.self_cuda_time_total if us is None else us
 
     device_ms = sum(map(device_us, ops)) / 1e3 / 5 if ops else None
-    return {"tree": str(tree), "step_ms": min(step), "step_rounds_ms": step,
+    files_s = []
+    if f64:  # the pipeline in file mode, float64 on the card
+        with tempfile.TemporaryDirectory(prefix="grid_tpu_torch_ab_") as tmp:
+            cohort = make_synthetic_cohort(Path(tmp) / "cohort", n_samples=N, flank_bins=1003,
+                                           missing_frac=0.02, seed=2504)
+            base = cohort["config"]
+            base["mosdepth"]["neighbors"]["num_neighbors"] = K
+            base["compute_diploid_genotypes"]["n_nbr"] = N_NBR
+            base["compute_haploid_genotypes"].update(max_neighbors=10, n_iters=N_ITERS)
+            for i in range(2):
+                cfg = copy.deepcopy(base)
+                out = Path(tmp) / f"files_{i}"
+                out.mkdir()
+                cfg["output_dir"] = str(out)
+                cfg["device"] = {"dtype": "float64"}
+                (out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
+                t0 = time.perf_counter()
+                run_wgs_pipeline(config=cfg)
+                files_s.append(time.perf_counter() - t0)
+    return {"tree": str(tree), "dtype": str(dtype), "step_ms": min(step), "step_rounds_ms": step,
             "step_device_ms": device_ms, "kernels_ms_back_to_back": kernels,
-            "host_cumulative_ms_per_step": host, "host_own_ms_per_step_top": own,
+            "file_mode_s": files_s, "host_cumulative_ms_per_step": host, "host_own_ms_per_step_top": own,
             "ptxas": {name: [f"{f['function']}: {f['registers']} registers, {f['usage']}, "
                              f"{f['spill_bytes']} bytes spilled" for f in found]
                       for name, found in regs.items()}}
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--one"]:
-        print("[ab] " + json.dumps(one(Path(sys.argv[2]))), flush=True)
+    args = sys.argv[1:]
+    if args[:1] == ["--one"]:
+        print("[ab] " + json.dumps(one(Path(args[1]), args[2] == "float64")), flush=True)
         return 0
-    for tree in sys.argv[1:]:
-        subprocess.run([sys.executable, __file__, "--one", tree], check=True)
+    f64 = args[:1] == ["--float64"]
+    for tree in args[f64:]:
+        subprocess.run([sys.executable, __file__, "--one", tree,
+                        "float64" if f64 else "float32"], check=True)
     return 0
 
 

@@ -6,8 +6,9 @@ The float64 forms of the cohort step's kernels run only on the card
 - the launch plans by element size, as the pure functions of
   ``tests/torch_plans.py`` compute them (the card tests hold the kernels'
   own plans to them): where ``knn_select``, ``dipcn_select`` and
-  ``phase_sweeps`` leave their shared-memory modes in float64, and the
-  resident edge of the d2 matrix;
+  ``phase_sweeps`` leave their shared-memory modes in float64, the
+  resident edge of the d2 matrix, and the FP64 Gram's tiles, waves and
+  ring in its three modes;
 - the key order the float64 selections rely on: non-negative doubles read
   as int64 order as the doubles, finfo.max and exact ties included, as a
   stable sort orders them;
@@ -35,13 +36,15 @@ from grid_tpu.ops.select import sorted_smallest_k as j_sorted_smallest_k
 from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy, params_from_reference
 from grid_tpu_torch.io.hap_neighbors import pad_hap_neighbors
 from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
+from grid_tpu_torch.ops.gpu_kernels import _GRAM64_K_TILE, _r_pad
 from grid_tpu_torch.ops.knn import sorted_smallest_k
 from grid_tpu_torch.ops.select import _key_type, _kth_smallest_key
 from grid_tpu_torch.synth import make_synthetic_cohort
 from grid_tpu_torch.utils.device import compute_dtype
 from torch_parity import assert_close_to_max
 from torch_plans import (
-    dipcn_select_smem_bytes, knn_select_mode_of, knn_select_plan, phase_sweeps_smem_bytes,
+    H100_SMEM, dipcn_select_smem_bytes, knn_select_mode_of, knn_select_plan,
+    phase_sweeps_smem_bytes, zprep_gram64_l2_bytes, zprep_gram64_plan,
 )
 
 # an H100's shared memory a block may opt in to, less a few KB of the
@@ -122,6 +125,46 @@ def test_d2_resident_edge_by_element_size():
     params = CohortParams()
     assert d2_resident(params, 23170, 4) and not d2_resident(params, 23171, 4)
     assert d2_resident(params, 16384, 8) and not d2_resident(params, 16385, 8)
+
+
+@pytest.mark.parametrize("mode", ["triangle", "split", "panel"])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 2504, 16384, 65536])
+def test_zprep_gram64_plan(n, mode):
+    """The FP64 Gram's launch: one 128x128 tile a block, counted here tile
+    by tile (the upper triangle, the diagonal, or a 512-row panel's row
+    tiles times every column tile); 8 consumer warps and a producer warpgroup,
+    64 float64 accumulators a consumer thread, one block an SM, so the
+    waves on 132 SMs are the blocks over 132; a ring of at least 3 stages
+    whose dynamic shared memory also holds the epilogue's tile and fits a
+    block; 16 flops a byte from L2 at least; R_pad a multiple of the
+    K-stage, which is the wrapper's."""
+    rows = min(n, 512) if mode == "panel" else n
+    plan = zprep_gram64_plan(n, rows, mode)
+    t = plan["tile"]
+    assert (t, plan["threads"], plan["accumulators"]) == (128, 384, 64)
+    tiles = range(-(-n // t))
+    want = {"triangle": sum(1 for i in tiles for j in tiles if i <= j),
+            "split": sum(1 for i in tiles for j in tiles if i == j),
+            "panel": sum(1 for i in range(-(-rows // t)) for j in tiles)}[mode]
+    assert plan["blocks"] == want and 0 < plan["blocks"] < 2**31
+    assert plan["waves"] == plan["blocks"] / 132 and plan["blocks_per_sm"] == 1
+    assert plan["stages"] >= 3
+    assert plan["ring_bytes"] == plan["stages"] * 2 * t * 16 * 8
+    assert plan["smem_bytes"] == max(plan["ring_bytes"], t * (t + 1) * 8) + 1024 <= H100_SMEM
+    assert plan["epilogue_bytes"] < plan["smem_bytes"] and plan["smem_bytes"] > 48 * 1024
+    assert plan["flops_per_l2_byte"] >= 16
+    assert plan["k_tile"] == _GRAM64_K_TILE == 16
+    for r in (1, 15, 16, 17, 1000, 1024, 2047, 2048):
+        r_pad = _r_pad(r, torch.float64)
+        assert r_pad % plan["k_tile"] == 0 and r <= r_pad < r + plan["k_tile"]
+    if (n, mode) == (2504, "triangle"):
+        assert plan["blocks"] == 210 and round(plan["waves"], 2) == 1.59
+    if (n, mode) == (65536, "panel"):
+        assert plan["blocks"] == 2048 and round(plan["waves"], 1) == 15.5
+        # 128x128 tiles read half the 8.6 GB of L2 that 64x64 tiles read
+        assert zprep_gram64_l2_bytes(n, rows, mode, 1024) == (2 * 2048 - 4) * 128 * 1024 * 8
+    if mode == "split":  # a diagonal tile reads its rows once
+        assert zprep_gram64_l2_bytes(n, rows, mode, 16) == plan["blocks"] * t * 16 * 8
 
 
 # ----------------------------------------------------------------- keys ---

@@ -50,6 +50,7 @@ from grid_tpu_torch.ops.gpu_kernels import (
     zprep_gram,
     zprep_gram_cross,
     zprep_gram_cross_plain,
+    zprep_gram_info,
     zprep_gram_panel,
     zprep_gram_panel_plain,
     zprep_gram_plain,
@@ -1259,12 +1260,16 @@ def test_float64_masked_column_stats_kernel(cuda, n, r):
 
 
 @pytest.mark.parametrize("n,r", [(1, 3), (2, 1), (5, 17), (9, 33), (97, 70), (300, 257),
-                                 (515, 130)])
+                                 (515, 130), (127, 70), (128, 33), (129, 257), (257, 130)])
 def test_float64_zprep_gram_kernel(cuda, n, r):
     """The FP64 tensor-core Gram against the plain float64 product: within
     1e-12 of its largest entry, exactly symmetric, masked rows and columns
     zero; the split's norms are the diagonal of the triangle's G bitwise,
-    and each row panel equals the plain panel to the same bound."""
+    and each row panel (the whole, one from a third, one that straddles a
+    128-row tile, one that ends at row N) equals the plain panel to the
+    same bound and holds the norms bitwise as its G[i, i]. The sizes sit
+    on and beside the 128-row tiles; R is not a multiple of the 16-column
+    K-stage."""
     rng = np.random.default_rng(n + 7)
     z = torch.tensor(rng.normal(size=(n, r)) * 3, dtype=torch.float64, device=cuda)
     mask = torch.tensor(rng.random((n, r)) > 0.1, device=cuda)
@@ -1281,12 +1286,32 @@ def test_float64_zprep_gram_kernel(cuda, n, r):
     assert split.p.shape[:2] == (1, n) and split.p.dtype == torch.float64
     assert torch.equal(split.norms, torch.diagonal(got))
     plain_split = zprep_split_plain(z, mask, region, 2.0)
-    for i0, rows in ((0, n), (n // 3, max(1, n // 2))):
+    for i0, rows in ((0, n), (n // 3, max(1, n // 2)), (100, 60),
+                     (max(0, n - 37), 37)):
+        i0 = min(i0, n - 1)
         rows = min(rows, n - i0)
         g = zprep_gram_panel(split, i0, rows)
         assert g.shape == (rows, n)
         assert_close_to_max(g.cpu(), zprep_gram_panel_plain(plain_split, i0, rows).cpu(),
                             F64_RTOL)
+        own = torch.arange(rows, device=cuda)
+        assert torch.equal(g[own, i0 + own], split.norms[i0:i0 + rows])
+
+
+@pytest.mark.parametrize("mode", ["triangle", "split", "panel"])
+@pytest.mark.parametrize("n", [1, 129, 2504, 65536])
+def test_float64_zprep_gram_info_is_the_plan(cuda, n, mode):
+    """The FP64 Gram's own launch shape (``zprep_gram64_info``) is
+    ``tests/torch_plans.py``'s plan, in registers with no spill and one
+    block an SM."""
+    from torch_plans import zprep_gram64_plan
+
+    rows = min(n, 512) if mode == "panel" else n
+    info = zprep_gram_info(n, cuda, torch.float64, mode, rows)
+    plan = zprep_gram64_plan(n, rows, mode)
+    keys = ("tile", "k_tile", "stages", "threads", "smem_bytes", "blocks", "blocks_per_sm")
+    assert {key: info[key] for key in keys} == {key: plan[key] for key in keys}
+    assert info["spill_bytes"] == 0 and info["registers"] <= 255
 
 
 def _f64_dipcn_case(rng, cuda, n, w, k, ties):

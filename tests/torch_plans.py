@@ -1,7 +1,8 @@
 """The launch plans of the cohort step's kernels by element size, as pure
 functions: what ``csrc/knn_select.cu`` (``plan_of``, ``select_mode``),
-``csrc/dipcn_select.cu`` (``dyn_smem_bytes``) and ``csrc/phase_sweeps.cu``
-(``resident_smem_bytes``) compute. ``tests/test_torch_float64.py`` checks
+``csrc/dipcn_select.cu`` (``dyn_smem_bytes``), ``csrc/phase_sweeps.cu``
+(``resident_smem_bytes``) and ``csrc/zprep_gram64.cu`` (``mode_blocks``,
+``kSmemBytes``) compute. ``tests/test_torch_float64.py`` checks
 them on the CPU; ``tests/test_torch_gpu.py`` holds the kernels' own
 ``*_info`` answers to them on the card.
 """
@@ -67,3 +68,45 @@ def phase_sweeps_smem_bytes(n: int, k: int, itemsize: int) -> int:
     (an int32 index, a weight and a validity byte a slot)."""
     chunk = -(-n // 8)
     return 4 * itemsize * 8 * chunk + 2 * (5 + itemsize) * chunk * k
+
+
+# csrc/zprep_gram64.cu: 128x128 tiles, 16 R columns a stage, a ring of 4
+# stages of both operands (dense 128-byte rows), 8 consumer warps and a
+# producer warpgroup
+GRAM64_TILE, GRAM64_K_TILE, GRAM64_STAGES, GRAM64_CONSUMERS = 128, 16, 4, 256
+H100_SMS, H100_SMEM = 132, 232_448
+
+
+def zprep_gram64_plan(n: int, rows: int, mode: str) -> dict:
+    """The FP64 Gram's launch at ``n`` rows in ``mode``: "triangle" (the
+    upper-triangle tiles), "split" (the diagonal tiles) or "panel" (``rows``
+    rows: its row tiles times the column tiles, the row tiles of one column
+    tile neighbours). One block a tile and one block an SM (64 float64
+    accumulators a consumer thread), so ``waves`` is blocks over 132 SMs;
+    the dynamic shared memory holds the ring and, after it, the epilogue's
+    [128][129] float64 tile, with 1 KB to align the ring for the 128-byte
+    swizzle. ``flops_per_l2_byte`` is what a tile multiplies per operand
+    byte it reads from L2 (a diagonal tile reads one operand: twice that)."""
+    t = GRAM64_TILE
+    tiles = -(-n // t)
+    blocks = {"triangle": tiles * (tiles + 1) // 2, "split": tiles,
+              "panel": -(-rows // t) * tiles}[mode]
+    ring, epilogue = GRAM64_STAGES * 2 * t * GRAM64_K_TILE * 8, t * (t + 1) * 8
+    return {"tile": t, "k_tile": GRAM64_K_TILE, "stages": GRAM64_STAGES,
+            "threads": GRAM64_CONSUMERS + 128, "smem_bytes": max(ring, epilogue) + 1024,
+            "ring_bytes": ring, "epilogue_bytes": epilogue,
+            "blocks": blocks, "blocks_per_sm": 1, "waves": blocks / H100_SMS,
+            "accumulators": t * t // GRAM64_CONSUMERS,
+            "flops_per_l2_byte": 2 * t * t / ((t + t) * 8)}
+
+
+def zprep_gram64_l2_bytes(n: int, rows: int, mode: str, r_pad: int) -> int:
+    """The bytes the FP64 Gram's tiles read from L2 in one call: R_pad
+    float64 of both operands' 128 rows a tile, one operand a diagonal tile
+    (every tile of the split; in the triangle and in a panel that starts on
+    a tile, the tiles whose row and column tiles coincide)."""
+    plan = zprep_gram64_plan(n, rows, mode)
+    operand = plan["tile"] * r_pad * 8
+    tiles = -(-n // plan["tile"])
+    diag = {"triangle": tiles, "split": tiles, "panel": -(-rows // plan["tile"])}[mode]
+    return (2 * (plan["blocks"] - diag) + diag) * operand
