@@ -324,10 +324,11 @@ before the last line):
              per outermost step, the fused step's naming ``fused.device`` and
              the hand kernels' device events, the artifacts equal.
 17. float64 — ``device.dtype: float64`` on the card (``float64_phase``
-             after phases 7-8; (d) ``float64_pipeline_runs`` inside phase
-             9). (f) bfloat16, the float64 multi-locus sweep, float64 with
-             ``device.mesh_shape`` and float64 past 8,192 neighbors are
-             refused up front. Then phases 3-7 run again in float64 (the
+             and ``float64_slice_phase`` after phases 7-8; (d), (h) and
+             (i)'s pipeline and stager inside phase 9). (f) Float64 is
+             taken with ``device.mesh_shape`` and for the multi-locus sweep;
+             bfloat16 and float64 past 8,192 neighbors are refused up
+             front. Then phases 3-7 run again in float64 (the
              same functions, ``kernels_phase`` and ``panel_phase``, at the
              float64 bounds of ``TOL``): (a) each float64 kernel against its
              float64 plain version on the card at N=2504 (the column
@@ -356,7 +357,41 @@ before the last line):
              agree, haploid byte-identical where none differs. (e) No card
              run of either dtype reaches a plain version (a count on each
              plain version the wrappers would take), and every kernel
-             launched.
+             launched. (g) The float64 multi-weight dipcn_select against
+             its float64 plain version (ok exact, rtol 1e-9) on the (h)
+             sweep's float64 d2 at N=2504 for all 492 loci's weights (per
+             usability group; three loci a group against the float64
+             binary kernel at 1e-12), timed at L = 1, 32 and 492, and on 2
+             panels at N=65,536 with 492 loci (its wide mode), timed, each
+             beside torch.mm of the float64 take mask by W and its bound by
+             bytes; the FP64 Gram's cross mode on x R=1024 blocks of phase
+             7's z in float64: (i)'s ring blocks, [8192, 8192] at offsets
+             (0, 8192) and a rank's own (0, 0), whose diagonal tiles the
+             panel mode mirrors; the fused ring's [1252, 1252] at (0, 0)
+             and (1252, 0); [4096, 4096] at (12288, 100). Each bitwise
+             zprep_gram_panel's entries for the same rows (one launch: the
+             FP64 products are symmetric bit for bit), within 1e-12 of its
+             plain version, its launch the plan's,
+             timed beside torch.mm float64 with its bound by operations
+             (2*Ba*Bb*R at 67 TFLOP/s). (h) ``run_multi_locus`` with
+             ``device.dtype: float64`` over 16 catalog loci, LPA among
+             them, step 7 on, on phase 9's cohort with phase 11's counts:
+             its launches (the multi form once per usability group, no
+             plain version reached), its normalized file byte for byte
+             (d)'s file mode's, its dipCN and haploid tables held to the
+             port's float64 CPU sweep on the same loci from that file (ties
+             within 1e-12 counted, dipCN at 1e-9 where the input sets
+             agree, haploid byte-identical where none differs). (i) The
+             ring and the gather form in float64 over 2 gloo ranks at
+             phase 8's N=16,384, R=1024, each held to the flat
+             float64 step on the card (z at 1e-12 of max|z|, lists under
+             the tie rule at 1e-12, dipCN at 1e-9); ``run_wgs_pipeline``
+             fused with ``mesh_shape: [2], dispatch: ring`` in float64 on
+             phase 9's files, held to phase 9's float64 CPU run as (d);
+             ``staged_sharded_cohort_step`` in float64 over 2 ranks on
+             phase 9's files (the sharded stager's float64 buffers), held
+             to the flat float64 step from the stage its ranks made; every
+             rank's launches checked.
 
 The last three lines are the kernels' JSON object (the panel-mode numbers
 at N=65,536; each entry's "slice_2504" holds phase 5's, "pipeline_2504"
@@ -374,8 +409,12 @@ rank; the knn_select and phase_sweeps rows likewise, with their "ring" and
 "auto" launches per rank; the five float64 forms a row each, named
 "<kernel>[float64]", their launches those of phase 17 (b)'s step, with
 the panel numbers under "panel_65536", phase 17 (d)'s launches and, under
-"step", the float64 steps' times and tie counts), the card's name and
-power limit, and
+"step", the float64 steps' times and tie counts; the float64 multi-weight
+form's row, its launches those of phase 17 (h)'s sweep and its numbers at
+L=492 on that sweep's d2, the panels' under "panels_65536"; the FP64 cross
+mode's row, its launches those of phase 17 (i)'s ring at N=16,384 over 2
+ranks and its numbers at that ring's visiting block, [8192, 8192], the
+other blocks' under "other_blocks"), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -1223,10 +1262,12 @@ RING_BIOBANK_WORLD = 4
 RING_LAUNCHES = {"masked_column_stats": 2, "zprep_split": 1}  # per rank; W cross launches
 
 
-def ring_run(label: str, world: int, cohort, params, card: str) -> tuple:
+def ring_run(label: str, world: int, cohort, params, card: str,
+             dtype=torch.float32) -> tuple:
     """One ``sharded_cohort_step`` over ``world`` ranks of the card on
-    ``cohort``, its launches checked rank by rank. Returns the unpadded
-    outputs (numpy), the ranks' reports and the call's host seconds."""
+    ``cohort`` in ``dtype``, its launches checked rank by rank. Returns the
+    unpadded outputs (numpy), the ranks' reports and the call's host
+    seconds."""
     from grid_tpu_torch.convert import outputs_to_numpy
     from grid_tpu_torch.parallel import sharded_cohort_step
     from grid_tpu_torch.parallel.mesh import COUNTED, choose_transport
@@ -1240,7 +1281,7 @@ def ring_run(label: str, world: int, cohort, params, card: str) -> tuple:
     console, reports = Recorder(), []
     t0 = time.perf_counter()
     out = sharded_cohort_step(world, cohort.values, cohort.mask, cohort.reads, np.ones(n, bool),
-                              *hap, params, console=console, reports=reports)
+                              *hap, params, dtype=dtype, console=console, reports=reports)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in COUNTED.items()}
     transport = choose_transport(world, "cuda")
@@ -1259,9 +1300,12 @@ def ring_run(label: str, world: int, cohort, params, card: str) -> tuple:
     got = got._replace(**{name: getattr(got, name)[:n] for name in ROW_FIELDS})
     check(got.nbr_idx.shape == (n, params.num_neighbors), f"ring {label}: nbr_idx shape")
     check(np.isfinite(got.dipcn[got.dipcn_valid]).all(), f"ring {label}: non-finite dipCN")
+    check(got.z.dtype == got.nbr_sq_dists.dtype == torch.empty((), dtype=dtype).numpy().dtype,
+          f"ring {label}: outputs not in {dtype}")
     spans = {key: statistics.mean(rep[key] for rep in reports)
              for key in reports[0] if key.startswith("sharded.")}
-    print(f"[ring] {label}: sharded_cohort_step over {world} rank(s), transport {transport}: "
+    print(f"[ring] {label}: sharded_cohort_step over {world} rank(s) in {dtype}, transport "
+          f"{transport}: "
           f"{wall:.2f} s for the call (host clock: spawn, the ranks' start on the card, the "
           f"step and the copies), {statistics.mean(rep['seconds'] for rep in reports):.3f} s "
           f"for the step in the ranks (mean; "
@@ -1436,7 +1480,7 @@ def keeping(module, rank_fn: str, keeper, keep_dir):
 
 
 def auto_run(label: str, world: int, cohort, params, card: str, platform: str = "cuda",
-             keep_dir=None) -> tuple:
+             keep_dir=None, dtype=torch.float32) -> tuple:
     """One ``auto_sharded_cohort_step`` call over ``world`` ranks of the card
     on ``cohort``, its transport and launches checked rank by rank. Returns
     the outputs (numpy), the ranks' reports and the call's host seconds.
@@ -1454,7 +1498,7 @@ def auto_run(label: str, world: int, cohort, params, card: str, platform: str = 
     for fn in COUNTED.values():
         fn.launches = 0
     console, reports = Recorder(), []
-    step = auto_sharded_cohort_step(world, params, platform=platform, dtype=torch.float32,
+    step = auto_sharded_cohort_step(world, params, platform=platform, dtype=dtype,
                                     console=console, reports=reports)
     with keeping(pcohort, "_rank_auto_step", torch_ranks.auto_rank_keeping_split, keep_dir):
         t0 = time.perf_counter()
@@ -1480,9 +1524,11 @@ def auto_run(label: str, world: int, cohort, params, card: str, platform: str = 
     got = outputs_to_numpy(out)
     check(got.nbr_idx.shape == (n, params.num_neighbors), f"auto {label}: nbr_idx shape")
     check(np.isfinite(got.dipcn[got.dipcn_valid]).all(), f"auto {label}: non-finite dipCN")
+    check(got.z.dtype == got.nbr_sq_dists.dtype == torch.empty((), dtype=dtype).numpy().dtype,
+          f"auto {label}: outputs not in {dtype}")
     spans = {key: statistics.mean(rep[key] for rep in reports)
              for key in reports[0] if key.startswith(("sharded.", "auto."))}
-    print(f"[auto] {label}: auto_sharded_cohort_step over {world} rank(s), transport "
+    print(f"[auto] {label}: auto_sharded_cohort_step over {world} rank(s) in {dtype}, transport "
           f"{transport}: {wall:.2f} s for the call (host clock: spawn, the ranks' start on the "
           f"card, the step and the copies; {max(rep['start_seconds'] for rep in reports):.2f} s "
           f"from the spawn to the last rank's start), "
@@ -2460,7 +2506,7 @@ def multilocus_phase(card: str, counted: dict, tmp: Path, cohort: dict, base: di
         dipcn_from_distances_gpu, dipcn_from_distances_multi_gpu, dipcn_select_info,
     )
     from grid_tpu_torch.ops.knn import d2_matrix, panel_d2, sorted_smallest_k
-    from grid_tpu_torch.ops.select import _take_set, dipcn_from_distances_multi
+    from grid_tpu_torch.ops.select import dipcn_from_distances_multi
     from grid_tpu_torch.steps import multilocus
     from grid_tpu_torch.steps.neighbors import load_neighbor_geometry
     from grid_tpu_torch.utils.timing import StepTimer
@@ -2706,38 +2752,11 @@ def multilocus_phase(card: str, counted: dict, tmp: Path, cohort: dict, base: di
     # all loci's weights on the larger group's usable columns
     usable_all = max((u for u, _, _ in groups), key=lambda u: int(u.sum()))
     w_all = np.concatenate([w for _, _, w in groups], axis=1)
-    take, m_eff = _take_set(d2, torch.tensor(usable_all, device=dev), k, n_nbr)
-    take_f = take.to(d2.dtype)  # float32 on the card
-    timed = {}
-    for n_loci in MULTI_TIMED_L:
-        args = multi_inputs(w_all[:, :n_loci], usable_all, dev, d2.dtype)
-
-        def kern(args=args):
-            return dipcn_from_distances_multi_gpu(d2, *args, k=k, n_nbr=n_nbr)
-
-        def plain(args=args):
-            return dipcn_from_distances_multi(d2, *args, k=k, n_nbr=n_nbr)
-
-        def lib(args=args):  # the sum part alone, a yardstick the port never calls
-            return torch.mm(take_f, args[1])
-
-        p1, k1, k2, p2 = (median_ms(f) for f in (plain, kern, kern, plain))
-        b2b = min(back_to_back_ms(kern), back_to_back_ms(kern))
-        lib_ms = min(median_ms(lib), median_ms(lib))
-        n_bytes = 4 * n * n + n + n_loci * n * (4 + 4 + 1 + 4 + 1)
-        adds = float(m_eff.sum()) * n_loci
-        least, by = bound_ms(n_bytes, adds, FP32_FLOP_PER_S)
-        timed[n_loci] = {"ms": min(k1, k2), "ms_back_to_back": b2b, "plain_ms": min(p1, p2),
-                         "bound_ms": least, "bound_by": by, "bound_share": least / b2b,
-                         "library_ms": lib_ms}
-        print(f"[times] multi dipcn_select at N={n}, L={n_loci}: kernel {min(k1, k2):.4f} ms "
-              f"(median of {REPS}), {REPS} back to back {b2b:.4f} ms per call, plain "
-              f"{min(p1, p2):.4f} ms; bound {least:.4f} ms by {by} ({n_bytes / 1e6:.1f} MB at "
-              f"3.35 TB/s against {adds / 1e6:.1f} M adds at the 67 TFLOP/s FP32 peak outside the "
-              f"tensor cores; the kernel adds in FP64), {100 * least / b2b:.1f}% of it back to "
-              f"back; the sum part alone as torch.mm of the [N, N] float32 take mask by W (TF32 "
-              f"off) {lib_ms:.4f} ms; {card}", flush=True)
-    del take, take_f, d2, zp
+    timed = {n_loci: time_multi(f"at N={n}, L={n_loci}", card, d2,
+                                multi_inputs(w_all[:, :n_loci], usable_all, dev, d2.dtype), k,
+                                n_nbr)
+             for n_loci in MULTI_TIMED_L}
+    del d2, zp
     torch.cuda.empty_cache()
     return {"launches": launches, "launches_call2": launches2, "launches_panels": launches3,
             "max_abs_err": err, "max_abs_err_binary": bin_err, "timed": timed,
@@ -2838,9 +2857,10 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
     """Phase 9: the fused WGS pipeline from files (see the module docstring).
     Returns the kernels' launches during the first pipeline call, phase
     10's, phase 11's results, phase 14's launches (its pipeline part runs
-    on this cohort), phase 15 (d)'s (the ring from a config) and phase 17
-    (d)'s float64 runs. main() passes no size: the size arguments let the phase
-    be rehearsed small."""
+    on this cohort), phase 15 (d)'s (the ring from a config), phase 17
+    (d)'s and (i)'s float64 pipeline runs, and phase 17 (h)'s sweep and
+    (i)'s stager ({"sweep": ..., "stage": ...}). main() passes no size:
+    the size arguments let the phase be rehearsed small."""
     import grid_tpu_torch.io.bed as port_bed
     import grid_tpu_torch.steps.fused as fused
     from grid_tpu_torch import native_host
@@ -3135,16 +3155,21 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
         # ---- phase 11: the multi-locus sweep, on the same cohort ----------
         multi = multilocus_phase(card, counted, tmp, cohort, base, k, n_nbr)
 
+        # ---- phase 17 (h), (g) at N=2504: the float64 sweep ---------------
+        f64_files = {"sweep": float64_sweep_phase(card, tmp, base, names, k, n_nbr)}
+
         # ---- phase 14 (b, c): compute_ibs in front of the fused steps -----
         ibs_launches = ibs_pipeline_phase(card, counted, tmp, cohort, base, names,
                                           resident_launches, k, n_nbr)
 
         # ---- phase 16 (c, d): the sharded stager, the build cache, traces --
         stage_phase(card, tmp, cohort, base, k, n_nbr)
+        # ---- phase 17 (i): the sharded stager in float64 ------------------
+        f64_files["stage"] = float64_stage_run(card, tmp, cohort, base, k, n_nbr)
         cache_phase(card, tmp, cohort, base, names)
     check(not tmp.exists(), "the temporary directory was not removed")
     return ({name: launches[name] for name in wrappers}, files_launches, multi,
-            {name: ibs_launches[name] for name in wrappers}, ring_launches, f64_runs)
+            {name: ibs_launches[name] for name in wrappers}, ring_launches, f64_runs, f64_files)
 
 
 def sm_clocks_mhz() -> tuple:
@@ -3981,8 +4006,9 @@ def plain_calls_counted():
 
     counts = Counter()
     targets = {gk: ("masked_column_stats_plain", "zprep_gram_plain", "zprep_split_plain",
-                    "zprep_gram_panel_plain"),
-               gs: ("dipcn_from_distances", "sorted_smallest_k"), ph: ("phase_sweeps",)}
+                    "zprep_gram_panel_plain", "zprep_gram_cross_plain"),
+               gs: ("dipcn_from_distances", "dipcn_from_distances_multi", "sorted_smallest_k"),
+               ph: ("phase_sweeps",)}
 
     def counting(name, fn):
         def call(*args, **kwargs):
@@ -4523,22 +4549,23 @@ def float64_phase(dev, card: str, values_np, mask_np, reads_np, sms: int) -> tup
 
     t_phase = time.perf_counter()
     f64 = torch.float64
-    refusals = (({"device": {"dtype": "bfloat16"}}, False, "bfloat16"),
-                ({"device": {"dtype": "float64"}}, True, "multi-locus sweep"),
-                ({"device": {"dtype": "float64", "mesh_shape": [4]}}, False, "mesh_shape"),
+    refusals = (({"device": {"dtype": "bfloat16"}}, "bfloat16"),
                 ({"device": {"dtype": "float64"}, "mosdepth": {"neighbors": {
-                    "num_neighbors": 8193}}}, False, "8192"))
-    for config, multi, names in refusals:
+                    "num_neighbors": 8193}}}, "8192"))
+    for config, names in refusals:
         try:
-            compute_dtype(config, dev, multi_locus=multi)
+            compute_dtype(config, dev)
         except ValueError as e:
             check(names in str(e), f"the refusal of {config} does not name {names!r}: {e}")
         else:
-            raise RuntimeError(f"check failed: {config} (multi-locus {multi}) was not refused")
-    check(compute_dtype({"device": {"dtype": "float64"}}, dev) is f64, "float64 refused")
-    print("[f64] (f) compute_dtype on the card: float64 taken; bfloat16, the float64 multi-locus "
-          "sweep, float64 with device.mesh_shape and float64 past 8,192 neighbors refused up "
-          "front, each naming its path or the limit", flush=True)
+            raise RuntimeError(f"check failed: {config} was not refused")
+    for config in ({"device": {"dtype": "float64"}},
+                   {"device": {"dtype": "float64", "mesh_shape": [2], "dispatch": "ring"}},
+                   {"device": {"dtype": "float64", "mesh_shape": [2], "fused": True}}):
+        check(compute_dtype(config, dev) is f64, f"float64 refused for {config}")
+    print("[f64] (f) compute_dtype on the card: float64 taken, with device.mesh_shape and for "
+          "the multi-locus sweep too; bfloat16 and float64 past 8,192 neighbors refused up "
+          "front, each naming the cause", flush=True)
     res = kernels_phase(dev, card, f64, values_np, mask_np, reads_np, sms)
     panel, _, panel_run = panel_phase(dev, card, f64)
     rows = {}
@@ -4553,11 +4580,17 @@ def float64_phase(dev, card: str, values_np, mask_np, reads_np, sms: int) -> tup
                   "ties_65536": panel_run.ties, "sets_65536": panel_run.sets}
 
 
+F64_RING_WORLD = 2  # the float64 sharded steps' ranks on the one card (gloo)
+
+
 def float64_pipeline_runs(card: str, tmp: Path, cohort: dict, base: dict, names: dict,
                           cpu_out: Path, k: int, n_nbr: int) -> dict:
-    """Phase 17 (d): ``run_wgs_pipeline`` with ``device.dtype: float64`` on
-    the card, fused and in file mode, on phase 9's cohort on disk; each
-    run's artifacts held to phase 9's float64 CPU run (``cpu_out``):
+    """Phase 17 (d), and the fused ring of (i): ``run_wgs_pipeline`` with
+    ``device.dtype: float64`` on the card, fused, in file mode and fused
+    with ``mesh_shape: [2], dispatch: ring`` (the sharded step over 2 gloo
+    ranks of the card: the FP64 cross mode, float64 ring shifts), on phase
+    9's cohort on disk; each run's artifacts held to phase 9's float64 CPU
+    run (``cpu_out``):
     normalized byte-identical (decompressed), neighbor lists identical but
     for ties within F64_TIE_RTOL of the row's k-th written distance, dipCN
     within 1e-9 where the input sets agree, haploid byte-identical where no
@@ -4567,7 +4600,9 @@ def float64_pipeline_runs(card: str, tmp: Path, cohort: dict, base: dict, names:
     from grid_tpu_torch.pipeline import run_wgs_pipeline
     from torch_parity import dipcn_sets_differ, neighbor_rows_differing
 
-    counted = step_wrappers()
+    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_cross
+
+    counted = {**step_wrappers(), "zprep_gram_cross": zprep_gram_cross}
     ids, ratios, _, _ = read_normalized_data(cpu_out / names["normalized"])
     row = {s: i for i, s in enumerate(ids)}
     n = len(ids)
@@ -4580,8 +4615,11 @@ def float64_pipeline_runs(card: str, tmp: Path, cohort: dict, base: dict, names:
     want_idx, want_d = lists(cpu_out)
     want_dip_ids, want_dip, _ = read_dipcn(cpu_out / names["dipcn"])
     found = {}
+    w = F64_RING_WORLD
     for label, device in (("fused", {"fused": True, "dtype": "float64"}),
-                          ("files", {"dtype": "float64"})):
+                          ("files", {"dtype": "float64"}),
+                          ("ring", {"fused": True, "dtype": "float64", "mesh_shape": [w],
+                                    "dispatch": "ring"})):
         cfg = copy.deepcopy(base)
         out = tmp / f"card_f64_{label}"
         out.mkdir()
@@ -4596,10 +4634,18 @@ def float64_pipeline_runs(card: str, tmp: Path, cohort: dict, base: dict, names:
         run_s = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counted.items()}
         check(not plains, f"(e) the float64 {label} run reached a plain version: {dict(plains)}")
-        check(launches["masked_column_stats"] == 2 and launches["phase_sweeps_gpu"] == 1
-              and launches["sorted_smallest_k_gpu"] > 0
-              and launches["zprep_gram"] + launches["zprep_gram_panel"] > 0,
-              f"(e) the float64 {label} run's launches {launches}")
+        if label == "ring":  # the ranks' launches, summed; phasing in this process
+            check(launches["masked_column_stats"] == 2 * w and launches["zprep_split"] == w
+                  and launches["zprep_gram_cross"] == w * w and launches["phase_sweeps_gpu"] == 1
+                  and launches["sorted_smallest_k_gpu"] > 0
+                  and launches["zprep_gram"] + launches["zprep_gram_panel"] == 0,
+                  f"(i) the float64 ring run's launches {launches}")
+        else:
+            check(launches["masked_column_stats"] == 2 and launches["phase_sweeps_gpu"] == 1
+                  and launches["sorted_smallest_k_gpu"] > 0
+                  and launches["zprep_gram"] + launches["zprep_gram_panel"] > 0
+                  and launches["zprep_gram_cross"] == 0,
+                  f"(e) the float64 {label} run's launches {launches}")
         check(content(out / names["normalized"]) == content(cpu_out / names["normalized"]),
               f"f64 {label}: the normalized artifact differs from the float64 CPU run's")
         got_idx, got_d = lists(out)
@@ -4619,7 +4665,8 @@ def float64_pipeline_runs(card: str, tmp: Path, cohort: dict, base: dict, names:
         found[label] = {"launches": launches, "rows_differing_by_ties": int(differ.size),
                         "dipcn_sets_differ": int(sets.sum()), "haploid_lines_differ": hap_lines,
                         "seconds": run_s}
-        print(f"[f64] (d) run_wgs_pipeline, device {device}, on phase 9's {n} x "
+        print(f"[f64] ({'i' if label == 'ring' else 'd'}) run_wgs_pipeline, device {device}, "
+              f"on phase 9's {n} x "
               f"{len(ratios)} cohort: {run_s:.1f} s "
               f"(host clock); launches {launches}, no plain version reached; vs phase 9's float64 "
               f"CPU run: normalized byte-identical; neighbor rows identical on {n - differ.size} "
@@ -4629,6 +4676,500 @@ def float64_pipeline_runs(card: str, tmp: Path, cohort: dict, base: dict, names:
               f"{'byte-identical' if hap_same else f'{hap_lines} lines differ'}; {card}",
               flush=True)
     return found
+
+
+F64_SWEEP_LOCI = 16  # the float64 sweep's loci: LPA and 15 drawn from the seed
+F64_DIPCN_RTOL = 1e-9  # dipCN where the input sets agree (docs/parity.md, float64)
+F64_MULTI_PANELS = 2  # the float64 multi kernel's panels at N=65,536
+# The cross mode's blocks (B, a's first row, b's first row): first the
+# ring's at N=16,384 over 2 ranks, the visiting block (the kernels line's
+# row) and a rank's own block, whose diagonal tiles the panel mode mirrors;
+# then the fused ring's at N=2504 over 2 ranks (1252 rows, off a tile);
+# then a [4096] block at offsets on and off a tile.
+F64_CROSS = ((8192, 0, 8192), (8192, 0, 0), (1252, 0, 0), (1252, 1252, 0), (4096, 12288, 100))
+F64_TIME_REPS = 10  # the float64 multi kernel's timed calls at N=2504
+
+
+def time_multi(label: str, card: str, d2, args, k: int, n_nbr: int, reps: int = REPS) -> dict:
+    """The multi-weight dipCN on ``d2`` and ``args`` (rnorm, nbr_w, usable,
+    valid): the kernel (the median of ``reps`` calls by CUDA events, and
+    ``reps`` back to back) beside its plain version and, as the library
+    yardstick, torch.mm of the take mask by W in d2's dtype (the sum part
+    alone; the port never calls it); its bound by bytes and by the adds its
+    take-sets need, in the dtype's FP peak."""
+    from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_multi_gpu
+    from grid_tpu_torch.ops.select import _take_set, dipcn_from_distances_multi
+
+    rows, w = d2.shape
+    n_loci = args[0].shape[1]
+    take, m_eff = _take_set(d2, args[2], k, n_nbr)
+    take = take.to(d2.dtype)
+    kern = lambda: dipcn_from_distances_multi_gpu(d2, *args, k=k, n_nbr=n_nbr)  # noqa: E731
+    plain = lambda: dipcn_from_distances_multi(d2, *args, k=k, n_nbr=n_nbr)  # noqa: E731
+    lib = lambda: torch.mm(take, args[1])  # noqa: E731
+    p1, k1, k2, p2 = (median_ms(f, reps=reps) for f in (plain, kern, kern, plain))
+    b2b = min(back_to_back_ms(kern, reps=reps), back_to_back_ms(kern, reps=reps))
+    lib_ms = min(median_ms(lib, reps=reps), median_ms(lib, reps=reps))
+    # d2 [rows, W], nbr_w [W, L] and rnorm [rows, L] of the dtype, usable
+    # [W] and valid [rows, L] bytes read once; dipcn [rows, L] of the dtype
+    # and ok [rows, L] bytes written once
+    itemsize = d2.element_size()
+    n_bytes = (itemsize * rows * w + itemsize * w * n_loci + w
+               + rows * n_loci * (itemsize + 1 + itemsize + 1))
+    adds = float(m_eff.sum()) * n_loci
+    least, by = bound_ms(n_bytes, adds, TOL[d2.dtype].peak)
+    print(f"[times] multi dipcn_select {label} in {d2.dtype}: kernel {min(k1, k2):.4f} ms "
+          f"(median of {reps}), {reps} back to back {b2b:.4f} ms per call, plain "
+          f"{min(p1, p2):.4f} ms; bound {least:.4f} ms by {by} ({n_bytes / 1e6:.1f} MB at "
+          f"3.35 TB/s against {adds / 1e6:.1f} M adds at the FP peak "
+          f"{TOL[d2.dtype].peak / 1e12:.0f} TFLOP/s), {100 * least / b2b:.1f}% of it back to "
+          f"back; the sum part alone as torch.mm of the take mask by W in {d2.dtype} "
+          f"{lib_ms:.4f} ms; {card}", flush=True)
+    return {"ms": min(k1, k2), "ms_back_to_back": b2b, "plain_ms": min(p1, p2),
+            "bound_ms": least, "bound_by": by, "bound_share": least / b2b, "library_ms": lib_ms}
+
+
+def float64_sweep_phase(card: str, tmp: Path, base: dict, names: dict, k: int,
+                        n_nbr: int) -> dict:
+    """Phase 17 (h), and the N=2504 part of (g): ``run_multi_locus`` with
+    ``device.dtype: float64`` on phase 9's cohort on disk over
+    F64_SWEEP_LOCI catalog loci (LPA among them; phase 11's per-locus
+    counts, step 7 on), its normalized file byte for byte (d)'s file
+    mode's (which (d) holds to the CPU), held to the port's float64 sweep
+    on the CPU (``device.platform: cpu``) over the same loci from that
+    file: neighbor lists equal but for ties within 1e-12 of the
+    k-th distance (counted), every locus's dipCN rows equal and within rtol
+    1e-9 where the input sets agree, its haploid table byte-identical where
+    none differs; no plain version reached on the card. Then (g) the
+    float64 multi kernel on the sweep's float64 d2 (the geometry read again
+    in float64 on the card) for all loci's weights, per usability group,
+    against its float64 plain version (ok exact, rtol 1e-9) and, for three
+    loci, the float64 binary kernel; timed at L = 1, 32 and 492. Returns
+    the sweep's launches and seconds and the kernel's checks and times."""
+    import math
+
+    from grid_tpu_torch.data.loci import load_vntr_catalog
+    from grid_tpu_torch.io.formats import (
+        read_counts_tsv, read_dipcn, read_neighbors, read_normalized_data,
+    )
+    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_cross
+    from grid_tpu_torch.ops.gpu_select import (
+        dipcn_from_distances_gpu, dipcn_from_distances_multi_gpu, dipcn_select_info,
+    )
+    from grid_tpu_torch.ops.knn import d2_matrix
+    from grid_tpu_torch.ops.select import dipcn_from_distances_multi
+    from grid_tpu_torch.steps import multilocus
+    from grid_tpu_torch.steps.neighbors import load_neighbor_geometry
+    from torch_parity import dipcn_sets_differ, neighbor_rows_differing
+
+    t_phase = time.perf_counter()
+    counts_dir = tmp / "multilocus"  # phase 11's per-locus counts
+    first = {}  # an artifact name's first catalog gene
+    for gene in dict.fromkeys(locus.gene for locus in load_vntr_catalog()):
+        first.setdefault(gene.split(",")[0], gene)
+    tag = {gene: t for t, gene in first.items()}
+    others = [gene for gene in first.values() if gene != "LPA"]
+    rng = np.random.default_rng(MULTI_SEED + 17)
+    genes = ["LPA", *rng.choice(others, F64_SWEEP_LOCI - 1, replace=False).tolist()]
+    counted = {**step_wrappers(), "zprep_gram_cross": zprep_gram_cross,
+               "dipcn_from_distances_multi_gpu": dipcn_from_distances_multi_gpu}
+
+    def sweep(label: str, device: dict, normalized=None):
+        """The sweep into its own directory; with ``normalized``, step 4
+        is off and the run starts from that file."""
+        out = tmp / f"multilocus_f64_{label}"
+        out.mkdir()
+        for gene in genes:
+            shutil.copy(counts_dir / f"read_counts.{tag[gene]}.tsv", out)
+        cfg = copy.deepcopy(base)
+        cfg["output_dir"] = str(out)
+        cfg["device"] = device
+        cfg["compute_haploid_genotypes"]["run"] = True
+        if normalized is not None:
+            shutil.copy(normalized, out / names["normalized"])
+            cfg["mosdepth"]["normalize"]["run"] = False
+        console = Recorder()
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with plain_calls_counted() as plains:
+            multilocus.run_multi_locus(cfg, genes, console)
+        wall = time.perf_counter() - t0
+        failed = [msg for msg, style in console.lines
+                  if style == "danger" or "Failed to run" in msg]
+        check(not failed, f"(h) the float64 sweep on {label}: logged {failed[:3]}")
+        batched = [msg for msg, _ in console.lines if msg.startswith("Batched dipCN")]
+        return (out, cfg, wall, {name: fn.launches for name, fn in counted.items()},
+                dict(plains), batched)
+
+    card_out, card_cfg, card_s, launches, plains, batched = sweep("card", {"dtype": "float64"})
+    check(not plains, f"(h) the float64 sweep on the card reached a plain version: {plains}")
+    groups_said = re.fullmatch(rf"Batched dipCN: {len(genes)} loci in (\d+) device call\(s\) "
+                               rf"\(N=\d+, k={k}, resident d2\)", batched[0] if batched else "")
+    check(len(batched) == 1 and groups_said, f"(h) the float64 sweep's batched step: {batched}")
+    n_groups = int(groups_said.group(1))
+    ids, ratios, _, _ = read_normalized_data(card_out / names["normalized"])
+    n = len(ids)
+    n_panels = -(-n // 512)
+    want = {"masked_column_stats": 2, "zprep_gram": n_groups, "zprep_split": 1,
+            "zprep_gram_panel": n_panels, "dipcn_from_distances_gpu": 0,
+            "sorted_smallest_k_gpu": n_panels, "phase_sweeps_gpu": len(genes),
+            "zprep_gram_cross": 0, "dipcn_from_distances_multi_gpu": n_groups}
+    check(launches == want, f"(h) the float64 sweep's launches {launches} != {want}")
+    # step 4 is (d)'s: the card's float64 file mode, held there to the CPU
+    # run. A CPU normalize of its own may put a written cell one %.2f
+    # quantum apart (summation order at a rounding boundary), and a scale
+    # one quantum apart moves that sample's dipCN and its neighbors' means
+    # far past 1e-9. So the CPU sweep starts from the card's normalized
+    # file and holds steps 5-7, the sweep's own.
+    check(content(card_out / names["normalized"]) ==
+          content(tmp / "card_f64_files" / names["normalized"]),
+          "(h) the float64 sweep's normalized artifact differs from phase 17 (d)'s file mode's")
+    cpu_out, _, cpu_s, cpu_launches, _, _ = sweep("cpu", {"platform": "cpu"},
+                                                  card_out / names["normalized"])
+    check(not any(cpu_launches.values()), f"(h) the CPU sweep launched {cpu_launches}")
+    row = {sid: i for i, sid in enumerate(ids)}
+    # the lists' float64 distances on the CPU from the shared normalized
+    # file: the written ones are %.2f of distances that the quantized z
+    # puts on rounding boundaries, where the two routes' last bits round
+    # them a quantum apart
+    cpu_ids, cpu_zp, _, _, _ = load_neighbor_geometry({**card_cfg,
+                                                       "device": {"platform": "cpu"}})
+    check(cpu_ids == ids, "(h) the CPU geometry's samples")
+    ones = torch.ones(cpu_zp.shape, dtype=torch.bool)
+    d2_cpu = d2_matrix(cpu_zp, ones, ones[0], math.inf).numpy()
+    del cpu_zp, ones
+
+    def lists(out):
+        nbrs, _ = read_neighbors(out / names["neighbors"])
+        idx = np.array([[row[m] for m, _, _ in nbrs[sid]] for sid in ids])
+        return idx, np.take_along_axis(d2_cpu, idx, axis=1)
+
+    got_idx, got_d = lists(card_out)
+    want_idx, want_d = lists(cpu_out)
+    differ = neighbor_rows_differing(got_idx, got_d, want_idx, want_d,
+                                     tol=F64_TIE_RTOL * want_d[:, -1])
+    del d2_cpu
+    sets_total, hap_differ, compared = 0, 0, 0
+    for gene in genes:
+        dip_name, hap_name = (f"{prefix}.{tag[gene]}.tsv" for prefix in (
+            "diploid_genotypes", "haploid_genotypes"))
+        dip_ids, dip, _ = read_dipcn(card_out / dip_name)
+        want_ids, want_dip, _ = read_dipcn(cpu_out / dip_name)
+        check(dip_ids == want_ids and len(dip_ids) > 0,
+              f"(h) {gene}: the dipCN rows differ from the CPU sweep's")
+        usable = np.array([sid in set(dip_ids) for sid in ids])
+        sets = dipcn_sets_differ(got_idx, want_idx, usable, n_nbr)[[row[s] for s in dip_ids]]
+        check(np.allclose(np.asarray(dip)[~sets], np.asarray(want_dip)[~sets],
+                          rtol=F64_DIPCN_RTOL, atol=0),
+              f"(h) {gene}: dipCN beyond rtol {F64_DIPCN_RTOL:g} where the input sets agree")
+        same_hap = content(card_out / hap_name) == content(cpu_out / hap_name)
+        check(same_hap or sets.any(), f"(h) {gene}: the haploid table differs although no "
+                                      f"dipCN input set does")
+        sets_total += int(sets.sum())
+        hap_differ += int(not same_hap)
+        compared += int((~sets).sum())
+    print(f"[f64] (h) run_multi_locus, device.dtype float64, over {len(genes)} loci "
+          f"({', '.join(genes[:4])}, ...) on phase 9's {n} x {len(ratios)} cohort, step 7 on: "
+          f"{card_s:.1f} s on the card (host clock), launches {launches}, no plain version "
+          f"reached; the port's float64 sweep on the CPU from the card's normalized file "
+          f"{cpu_s:.1f} s. Normalized byte-identical to (d)'s file mode's; neighbor rows "
+          f"identical on {n - differ.size} of {n}, the other {differ.size} differ only by ties "
+          f"within {F64_TIE_RTOL:g} of the k-th distance (the file's float64 distances, on "
+          f"the CPU); "
+          f"{sets_total} (row, locus) pairs change a dipCN input set, dipCN within rtol "
+          f"{F64_DIPCN_RTOL:g} on the other {compared}; {len(genes) - hap_differ} of "
+          f"{len(genes)} haploid tables byte-identical; {card}", flush=True)
+
+    # ---- (g) the float64 multi kernel at N=2504, every locus's weights ----
+    sample_ids, zp, scales, _, _ = load_neighbor_geometry(card_cfg)
+    dev = zp.device
+    check(zp.dtype == torch.float64 and dev.type == "cuda" and sample_ids == ids,
+          "(g) the float64 geometry on the card")
+    reads = {t: read_counts_tsv(counts_dir / f"read_counts.{t}.tsv") for t in first}
+    groups = multilocus.usability_groups(sample_ids, scales,
+                                         {first[t]: reads[t] for t in first})
+    zp = zp.contiguous()
+    ones = torch.ones(zp.shape, dtype=torch.bool, device=dev)
+    d2 = d2_matrix(zp, ones, ones[0], math.inf)
+    err, bin_err = 0.0, 0.0
+    for usable, gnames, w in groups:
+        args = multi_inputs(w, usable, dev, torch.float64)
+        dip, ok = dipcn_from_distances_multi_gpu(d2, *args, k=k, n_nbr=n_nbr)
+        pdip, pok = dipcn_from_distances_multi(d2, *args, k=k, n_nbr=n_nbr)
+        check(dip.dtype == torch.float64 and torch.equal(ok, pok),
+              "(g) the float64 multi kernel's ok differs from its plain version's")
+        check(torch.allclose(dip[ok], pdip[ok], rtol=F64_DIPCN_RTOL, atol=0),
+              f"(g) the float64 multi kernel beyond rtol {F64_DIPCN_RTOL:g} of its plain version")
+        err = max(err, max_abs(dip[ok], pdip[ok]))
+        for j in (0, len(gnames) // 2, len(gnames) - 1):
+            col = args[0][:, j].contiguous()
+            bdip, bok = dipcn_from_distances_gpu(d2, col, col, args[2], args[3][:, j].contiguous(),
+                                                 k=k, n_nbr=n_nbr)
+            check(torch.equal(bok, ok[:, j]) and torch.allclose(
+                dip[bok, j], bdip[bok], rtol=F64_RTOL, atol=0),
+                f"(g) locus {gnames[j]}: the float64 multi kernel against the binary kernel")
+            bin_err = max(bin_err, max_abs(dip[bok, j], bdip[bok]))
+    info = dipcn_select_info(n, k, dev, multi=True, dtype=torch.float64)
+    check(info["mode"] == "resident" and info["spill_bytes"] == 0,
+          f"(g) the float64 multi form's launch at N={n}: {info}")
+    print(f"[f64] (g) the float64 multi kernel on the sweep's float64 d2 ({len(groups)} groups "
+          f"of {', '.join(str(len(g)) for _, g, _ in groups)} loci): ok equal to its float64 "
+          f"plain version's, within rtol {F64_DIPCN_RTOL:g} (max abs err {err:.3e}); three loci "
+          f"a group against the float64 binary kernel: ok equal, within rtol {F64_RTOL:g} (max "
+          f"abs err {bin_err:.3e}); {info['mode']} mode, {info['smem_bytes']} B dynamic + "
+          f"{info['static_smem_bytes']} B static shared memory, {info['blocks_per_sm']} blocks "
+          f"an SM, {info['registers']} registers, {info['spill_bytes']} B spilled", flush=True)
+    usable_all = max((u for u, _, _ in groups), key=lambda u: int(u.sum()))
+    w_all = np.concatenate([w for _, _, w in groups], axis=1)
+    timed = {n_loci: time_multi(f"at N={n}, L={n_loci}", card, d2,
+                                multi_inputs(w_all[:, :n_loci], usable_all, dev, torch.float64),
+                                k, n_nbr, reps=F64_TIME_REPS)
+             for n_loci in MULTI_TIMED_L}
+    del d2, zp, ones
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[f64] phase 17 (h) and (g) at N={n} took {seconds:.1f} s (host clock); {card}",
+          flush=True)
+    return {"launches": launches, "seconds_card": card_s, "seconds_cpu": cpu_s,
+            "rows_differing_by_ties": int(differ.size), "dipcn_sets_differ": sets_total,
+            "haploid_tables_differ": hap_differ, "max_abs_err": err,
+            "max_abs_err_binary": bin_err, "timed": timed, "phase_seconds": seconds}
+
+
+def float64_stage_run(card: str, tmp: Path, cohort: dict, base: dict, k: int,
+                      n_nbr: int) -> dict:
+    """Phase 17 (i), the sharded stager: ``staged_sharded_cohort_step`` in
+    float64 over F64_RING_WORLD ranks on phase 9's files (each rank stages
+    its share into a float64 [rows_per, R] buffer and runs the float64 ring
+    step on it), held to the flat float64 step on the card from the stage
+    the ranks made (kept by each rank): z within 1e-12 of max|z|, lists
+    under the tie rule at 1e-12, dipCN within 1e-9 where the input sets
+    agree; each rank's launches checked."""
+    import grid_tpu_torch.parallel.pcohort as pcohort
+    import torch_ranks
+    from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
+    from grid_tpu_torch.io.bed import load_repeat_mask
+    from grid_tpu_torch.io.formats import read_counts_tsv
+    from grid_tpu_torch.models.cohort import CohortParams, cohort_step
+    from grid_tpu_torch.parallel import staged_sharded_cohort_step
+    from grid_tpu_torch.parallel.mesh import block_rows
+    from grid_tpu_torch.parallel.pknn import MERGE_ROWS
+    from grid_tpu_torch.utils.device import get_device
+    from torch_parity import assert_close_to_max
+
+    t0 = time.perf_counter()
+    world = F64_RING_WORLD
+    norm_cfg = base["mosdepth"]["normalize"]
+    lo, hi = norm_cfg["min_depth"], norm_cfg["max_depth"]
+    excluded = load_repeat_mask(norm_cfg["repeat_mask_file"])
+    counts = read_counts_tsv(cohort["counts_file"])
+    params = CohortParams(num_neighbors=k, n_nbr=n_nbr, n_iters=N_ITERS, quantize=False)
+    n = len(cohort["ids"])
+    hap = ring_neighbors(n)
+    reports = []
+    keep_dir = tmp / "stage17_kept"
+    keep_dir.mkdir()
+    with keeping(pcohort, "_rank_staged_step", torch_ranks.staged_rank_keeping_stage, keep_dir):
+        stage, staged = staged_sharded_cohort_step(
+            world, base["mosdepth"]["work_dir"], cohort["ids"], counts, *hap, params, lo, hi,
+            excluded=excluded, dtype=torch.float64, reports=reports)
+    call_s = time.perf_counter() - t0
+    b = block_rows(n, world)
+    want_rank = {"masked_column_stats": 2, "zprep_split": 1, "zprep_gram_cross": world,
+                 "sorted_smallest_k_gpu": world * -(-b // MERGE_ROWS), "phase_sweeps_gpu": 1,
+                 "zprep_gram": 0, "zprep_gram_panel": 0, "dipcn_from_distances_gpu": 0}
+    for rank, rep in enumerate(reports):
+        got = {name: rep[name] for name in want_rank}
+        check(got == want_rank, f"(i) the float64 staged step: rank {rank} launched {got}")
+    staged = outputs_to_numpy(staged)
+    many = load_stage(keep_dir, "stage", world)
+    check(many["values"].dtype == np.float64 and staged.z.dtype == np.float64,
+          "(i) the float64 stage is not float64")
+    check(stage.n == n, "(i) the float64 stage's sample count")
+    ids = stage.sample_ids
+    reads = np.array([counts.get(sid, 0.0) for sid in ids])
+    reads_valid = np.array([sid in counts for sid in ids])
+    dev = get_device("cuda")
+    flat = outputs_to_numpy(cohort_step(*inputs_to_torch(
+        many["values"][:n], many["mask"][:n], reads, reads_valid, *hap, dev, torch.float64),
+        params))
+    got = staged._replace(**{name: getattr(staged, name)[:n] for name in (
+        "z", "z_mask", "scales", "nbr_idx", "nbr_sq_dists", "dipcn", "dipcn_valid")})
+    z_err = assert_close_to_max(got.z, flat.z, F64_RTOL)
+    found = {}
+    summary = check_against(got, flat, reads_valid & flat.z_mask.any(axis=1), n_nbr,
+                            "(i) the float64 staged step vs the flat step", torch.float64, found)
+    print(f"[f64] (i) staged_sharded_cohort_step in float64 over {world} ranks on phase 9's "
+          f"{n} files ({call_s:.2f} s for the call, host clock, spawn included; the ranks' "
+          f"stage.pass2 {', '.join('%.3f' % rep['stage.pass2'] for rep in reports)} s, host "
+          f"buffers {', '.join('%.2f' % (rep['host_buffer_bytes'] / 2**20) for rep in reports)} "
+          f"MiB of float64), launches per rank {want_rank}; vs the flat float64 step on the card "
+          f"from the ranks' own stage: z within {F64_RTOL:g} of max|z| (max abs err "
+          f"{z_err:.3e}); {summary}; {card}", flush=True)
+    return {"seconds": call_s, "launches_per_rank": want_rank, **found}
+
+
+def float64_slice_phase(dev, card: str, zp_65536, cohort_16384) -> dict:
+    """Phase 17 (g) at the panel and ring shapes, and (i)'s ring and gather
+    form. (g) The FP64 Gram's cross mode on blocks of phase 7's prepared z
+    in float64 (F64_CROSS: the blocks of (i)'s ring, a rank's own among
+    them, and of the fused ring at N=2504, and a [4096] block at offsets
+    on and off a tile; R=1024), bitwise zprep_gram_panel's entries for the
+    same rows of one split of all rows, within 1e-12 of its plain version,
+    timed beside torch.mm float64 (DGEMM) with its bound by operations; its
+    launch the plan's. The float64 multi kernel on the first F64_MULTI_PANELS 512-row
+    panels at N=65,536 with MULTI_L loci (its wide mode) against its
+    float64 plain version, timed. (i) The ring (``sharded_cohort_step``)
+    and the gather form (``auto_sharded_cohort_step``) in float64 over
+    F64_RING_WORLD ranks at phase 8's N=16,384, R=1024, each held to the
+    flat float64 step on the card: z within 1e-12 of max|z|, lists under
+    the tie rule at 1e-12 (counted), dipCN within 1e-9 where the input
+    sets agree. Returns the cross mode's and the panels' numbers and the
+    sharded runs' launches, seconds and tie counts."""
+    import math
+
+    from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
+    from grid_tpu_torch.models.cohort import CohortParams, cohort_step
+    from grid_tpu_torch.ops.gpu_kernels import (
+        zprep_gram_cross, zprep_gram_cross_plain, zprep_gram_info, zprep_gram_panel,
+        zprep_split, zprep_split_plain,
+    )
+    from grid_tpu_torch.ops.gpu_select import (
+        dipcn_from_distances_multi_gpu, dipcn_select_info,
+    )
+    from grid_tpu_torch.ops.knn import panel_d2
+    from grid_tpu_torch.ops.select import dipcn_from_distances_multi
+    from torch_parity import assert_close_to_max
+    from torch_plans import zprep_gram64_plan
+
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    # ---- (g) the cross mode ------------------------------------------------
+    rows = max(max(a_off, b_off) + b for b, a_off, b_off in F64_CROSS)
+    cohort = zp_65536[:rows].to(f64).contiguous()
+    r = cohort.shape[1]
+    whole = zprep_split(cohort, None, None, math.inf)
+    cross = {}
+    for b, a_off, b_off in F64_CROSS:
+        a_rows, b_rows = cohort[a_off:a_off + b].contiguous(), cohort[b_off:b_off + b].contiguous()
+        sa, sb = (zprep_split(t, None, None, math.inf) for t in (a_rows, b_rows))
+        pa, pb = (zprep_split_plain(t, None, None, math.inf) for t in (a_rows, b_rows))
+        before = zprep_gram_cross.launches
+        g = zprep_gram_cross(sa, sb, a_off, b_off)
+        check(zprep_gram_cross.launches == before + 1 and g.dtype == f64, "(g) the cross launch")
+        panel = zprep_gram_panel(whole, a_off, b)
+        check(torch.equal(g, panel[:, b_off:b_off + b]),
+              f"(g) zprep_gram_cross float64 [{b}, {b}] at offsets ({a_off}, {b_off}): not "
+              f"bitwise the panel's entries")
+        del panel
+        want = zprep_gram_cross_plain(pa, pb)
+        err = max_abs(g, want)
+        check(err <= F64_RTOL * float(want.abs().max()),
+              f"(g) zprep_gram_cross float64 [{b}, {b}]: {err:.3e} from P_a P_b^T, beyond "
+              f"{F64_RTOL:g} of its largest entry")
+        del want
+        info = zprep_gram_info(b, dev, f64, "cross", b)
+        plan = zprep_gram64_plan(b, b, "cross")
+        check(info["spill_bytes"] == 0 and all(info[key] == plan[key] for key in (
+            "tile", "k_tile", "stages", "threads", "smem_bytes", "blocks", "blocks_per_sm")),
+            f"(g) the cross mode's launch {info} is not the plan {plan}")
+        del g
+        kern = lambda: zprep_gram_cross(sa, sb, a_off, b_off)  # noqa: E731
+        plain = lambda: zprep_gram_cross_plain(pa, pb)  # noqa: E731
+        lib = lambda: torch.mm(pa.p, pb.p.T)  # noqa: E731  a yardstick the port never calls
+        t = {name: [] for name in ("plain", "kernel", "library")}
+        for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
+            fn = {"plain": plain, "kernel": kern, "library": lib}[name]
+            t[name].append(back_to_back_ms(fn, reps=10, warmup=2))
+        best = {name: min(v) for name, v in t.items()}
+        device_ms = median_ms(kern, reps=10, warmup=1)
+        r_pad = sa.p.shape[-1]
+        least, by = bound_ms(2 * b * r_pad * 8 + b * b * 8, 2 * b * b * r,
+                             FP64_TENSOR_FLOP_PER_S)
+        print(f"[f64] (g) zprep_gram_cross float64 [{b}, {b}] x R={r} at offsets ({a_off}, "
+              f"{b_off}): one launch of {info['blocks']} tiles ({info['blocks'] / 132:.2f} waves; "
+              f"{info['registers']} registers, no spill), bitwise zprep_gram_panel's entries for "
+              f"the same rows of one split of {rows} rows, within {F64_RTOL:g} of P_a P_b^T (max "
+              f"abs err {err:.3e}); kernel {best['kernel']:.4f} ms (10 back to back; device "
+              f"{device_ms:.4f} ms, median of 10), plain {best['plain']:.4f} ms, torch.mm "
+              f"float64 (DGEMM) {best['library']:.4f} ms (better of two rounds in turns); bound "
+              f"{least:.4f} ms by {by} (2*Ba*Bb*R at 67 TFLOP/s), "
+              f"{100 * least / best['kernel']:.1f}% of it; "
+              f"{2 * b * b * r / best['kernel'] / 1e9:.1f} TFLOP/s; {card}", flush=True)
+        cross[(b, a_off, b_off)] = {"ms": best["kernel"], "device_ms": device_ms, "plain_ms": best["plain"],
+                    "library_ms": best["library"], "bound_ms": least, "bound_by": by,
+                    "max_abs_err": err, "shape": f"[{b}, {b}] x R={r}",
+                    "offsets": [a_off, b_off]}
+        del sa, sb, pa, pb
+    del whole, cohort
+    torch.cuda.empty_cache()
+
+    # ---- (g) the float64 multi kernel on panels at N=65,536 ----------------
+    zp = zp_65536.to(f64)
+    n, b = zp.shape[0], 512
+    rng = np.random.default_rng(MULTI_SEED)
+    usable = rng.random(n) > 0.02
+    w = np.where(usable[:, None], rng.uniform(0.5, 2.0, (n, MULTI_L)), 0.0)
+    w_t, _, u_t, v_t = multi_inputs(w, usable, dev, f64)
+    row_valid = torch.ones(n, dtype=torch.bool, device=dev)
+    split = zprep_split(zp, None, None, math.inf)
+    del zp
+    info = dipcn_select_info(n, K, dev, multi=True, dtype=f64)
+    check(info["mode"] == "wide" and info["spill_bytes"] == 0,
+          f"(g) the float64 multi form's launch at W={n}: {info}")
+    err = 0.0
+    for i0 in range(0, F64_MULTI_PANELS * b, b):
+        d2 = panel_d2(zprep_gram_panel(split, i0, b), split.norms, i0, row_valid)
+        check(d2.dtype == f64, "(g) the panel's d2 is not float64")
+        args = (w_t[i0:i0 + b].contiguous(), w_t, u_t, v_t[i0:i0 + b].contiguous())
+        dip, ok = dipcn_from_distances_multi_gpu(d2, *args, k=K, n_nbr=N_NBR)
+        pdip, pok = dipcn_from_distances_multi(d2, *args, k=K, n_nbr=N_NBR)
+        check(torch.equal(ok, pok) and torch.allclose(dip[ok], pdip[ok], rtol=F64_DIPCN_RTOL,
+                                                      atol=0),
+              f"(g) the float64 multi kernel on panel {i0 // b}: beyond its plain version")
+        err = max(err, max_abs(dip[ok], pdip[ok]))
+    panels = time_multi(f"on a [{b}, {n}] panel (the last checked), L={MULTI_L}", card, d2,
+                        args, K, N_NBR, reps=5)
+    print(f"[f64] (g) the float64 multi kernel on {F64_MULTI_PANELS} panels at N={n}, "
+          f"L={MULTI_L} ({info['mode']} mode, {info['registers']} registers, no spill): ok equal "
+          f"to its float64 plain version's, within rtol {F64_DIPCN_RTOL:g} (max abs err "
+          f"{err:.3e}); {card}", flush=True)
+    del d2, split, args, w_t, u_t, v_t
+    torch.cuda.empty_cache()
+
+    # ---- (i) the ring and the gather form in float64 -----------------------
+    params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
+    n16, r16 = cohort_16384.values.shape
+    t0 = time.perf_counter()
+    flat = outputs_to_numpy(cohort_step(*inputs_to_torch(
+        cohort_16384.values, cohort_16384.mask, cohort_16384.reads, np.ones(n16, bool),
+        *ring_neighbors(n16), dev, f64), params))
+    flat_s = time.perf_counter() - t0
+    usable16 = flat.z_mask.any(axis=1)
+    sharded = {}
+    for form, run in (("ring", ring_run), ("gather", auto_run)):
+        label = f"N={n16} R={r16} k={K}, W={F64_RING_WORLD}, float64"
+        got, reports, wall = run(label, F64_RING_WORLD, cohort_16384, params, card, dtype=f64)
+        z_err = assert_close_to_max(got.z, flat.z, F64_RTOL)
+        found = {}
+        summary = check_against(got, flat, usable16, N_NBR, f"(i) the float64 {form} vs the "
+                                f"flat step", f64, found)
+        print(f"[f64] (i) the {form} in float64 over {F64_RING_WORLD} ranks vs the flat float64 "
+              f"step on the card ({flat_s:.1f} s with its first launches at N={n16}, host "
+              f"clock): z within {F64_RTOL:g} of max|z| (max abs err {z_err:.3e}); {summary}",
+              flush=True)
+        sharded[form] = {"seconds": wall, "step_seconds": statistics.mean(
+            rep["seconds"] for rep in reports),
+            "launches_per_rank": {name: reports[0][name] for name in (
+                "masked_column_stats", "zprep_split", "zprep_gram_cross", "zprep_gram_panel",
+                "dipcn_from_distances_gpu", *SELECTION)},
+            "cross_launches": sum(rep["zprep_gram_cross"] for rep in reports), **found}
+    seconds = time.perf_counter() - t_phase
+    print(f"[f64] phase 17 (g) at the panel and ring shapes and (i)'s ring and gather form took "
+          f"{seconds:.1f} s (host clock); {card}", flush=True)
+    return {"cross": cross, "multi_panels": panels | {"max_abs_err": err},
+            "sharded": sharded, "phase_seconds": seconds}
 
 
 def clock(start: float, done: str) -> None:
@@ -4980,6 +5521,8 @@ def main() -> int:
     # ---- 17 (a-c, e, f). device.dtype float64 on the card -----------------
     f64_rows, f64_step = float64_phase(dev, card, values_np, mask_np, reads_np, sms)
     clock(t_script, "phase 17 (a-c, e, f)")
+    f64_slice = float64_slice_phase(dev, card, panel_zp, cohort_16384)
+    clock(t_script, "phase 17 (g) at the panel and ring shapes, (i) the ring and gather form")
     # ---- 15 (a-c). the sharded ring on W ranks of the one card ------------
     ring = ring_phase(dev, card, cohort_16384, cohort_65536, panel_zp)
     clock(t_script, "phase 15 (a-c)")
@@ -4991,7 +5534,7 @@ def main() -> int:
     # ---- 9. the pipeline, from files, 10. in file mode, 11. multi-locus ----
     # (with 14 (b, c), 15 (d) and 16 (c, d) on the same cohort)
     (pipeline_launches, files_launches, multi, ibs_launches, ring_launches,
-     f64_runs) = pipeline_phase(card, wrappers)
+     f64_runs, f64_files) = pipeline_phase(card, wrappers)
     multi_wide = multilocus_wide_phase(card, panel_zp)
     del panel_zp
     torch.cuda.empty_cache()
@@ -5127,13 +5670,52 @@ def main() -> int:
     for name, row in f64_rows.items():
         row["step"] = f64_step
         for label, run in f64_runs.items():
-            names64 = (("zprep_gram", "zprep_split", "zprep_gram_panel") if name == "zprep_gram"
-                       else (name,))
+            names64 = (("zprep_gram", "zprep_split", "zprep_gram_panel", "zprep_gram_cross")
+                       if name == "zprep_gram" else (name,))
             row[f"pipeline_2504_{label}"] = {key: run["launches"][key] for key in names64}
         row["pipeline_2504_ties"] = {label: {key: run[key] for key in (
             "rows_differing_by_ties", "dipcn_sets_differ", "haploid_lines_differ")}
             for label, run in f64_runs.items()}
         rows.append(row)
+    # phase 17 (g-i): the float64 multi-weight form, its main path the
+    # float64 sweep (h), its numbers those at L=492 on the sweep's d2
+    sweep64 = f64_files["sweep"]
+    at_l = sweep64["timed"][MULTI_L]
+    rows.append({"name": "dipcn_from_distances_multi_gpu[float64]", "route": "cuda",
+                 "source": "grid_tpu_torch/csrc/dipcn_select.cu",
+                 "replaces": "grid_tpu/ops/pallas_select.py:130",
+                 "launches": sweep64["launches"]["dipcn_from_distances_multi_gpu"],
+                 "max_abs_err": sweep64["max_abs_err"], "ms": at_l["ms"],
+                 "ms_back_to_back": at_l["ms_back_to_back"], "plain_ms": at_l["plain_ms"],
+                 "bound_ms": at_l["bound_ms"], "bound_by": at_l["bound_by"],
+                 "bound_share": at_l["bound_share"], "library_ms": at_l["library_ms"],
+                 "library": "torch.mm of the [N, N] float64 take mask by W (DGEMM): the sum "
+                            "part alone",
+                 "shape": f"resident mode, d2 [{N}, {N}] float64, L={MULTI_L}",
+                 "by_l_2504": {str(l): v for l, v in sweep64["timed"].items()},
+                 "max_abs_err_vs_binary": sweep64["max_abs_err_binary"],
+                 "panels_65536": f64_slice["multi_panels"],
+                 "sweep_2504": {key: sweep64[key] for key in (
+                     "launches", "seconds_card", "seconds_cpu", "rows_differing_by_ties",
+                     "dipcn_sets_differ", "haploid_tables_differ")}})
+    # the FP64 cross mode: its main path (i)'s float64 ring at N=16,384 over
+    # 2 ranks (the launches of both ranks), its numbers at that ring's
+    # visiting block, [8192, 8192]
+    cross64 = f64_slice["cross"][F64_CROSS[0]]
+    rows.append({"name": "zprep_gram_cross[float64]", "route": "cuda",
+                 "source": "grid_tpu_torch/csrc/zprep_gram64.cu",
+                 "replaces": "grid_tpu/parallel/pknn.py:74 (jnp.dot, no pallas_call)",
+                 "launches": f64_slice["sharded"]["ring"]["cross_launches"],
+                 "max_abs_err": cross64["max_abs_err"], "ms": cross64["ms"],
+                 "device_ms": cross64["device_ms"], "plain_ms": cross64["plain_ms"],
+                 "bound_ms": cross64["bound_ms"], "bound_by": cross64["bound_by"],
+                 "library_ms": cross64["library_ms"],
+                 "library": "torch.mm of the two prepared float64 blocks (DGEMM)",
+                 "shape": cross64["shape"], "offsets": cross64["offsets"],
+                 "other_blocks": [f64_slice["cross"][key] for key in F64_CROSS[1:]],
+                 "sharded_16384_w2": f64_slice["sharded"],
+                 "pipeline_2504_ring_w2": f64_runs["ring"]["launches"]["zprep_gram_cross"],
+                 "staged_2504_w2": f64_files["stage"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

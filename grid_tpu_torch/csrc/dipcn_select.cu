@@ -120,15 +120,22 @@
 //    FP32 because the weights need float32 accuracy). The binary form's
 //    code is not shared, so its outputs stay bitwise as they were.
 //
-// The float64 form (the *_f64 entry points; binary form only, both modes)
-// runs the same kernel on float64 d2, rnorm and nbr_w: its keys are the
-// doubles' bits as int64 (grid_tpu/ops/select.py:35-40 takes int64 keys
-// for float64), finfo(float64).max marks self and invalid rows, the radix
-// selections take up to 8 digits, and step 5 sums in float64. The resident
-// mode holds 8 W bytes of keys, so its edge falls to ~26,000 columns at
-// k=500 (20 KB a row at N=2504); the 65,536-column panels take the wide
-// mode, as in float32. The float32 form's code is the same text
-// instantiated at int keys, so its results are those it gave before.
+// The float64 forms (the *_f64 entry points; binary and multi-weight, both
+// modes) run the same kernel on float64 d2, rnorm and nbr_w: its keys are
+// the doubles' bits as int64 (grid_tpu/ops/select.py:35-40 takes int64
+// keys for float64), finfo(float64).max marks self and invalid rows, the
+// radix selections take up to 8 digits, and step 5 sums in float64. In the
+// multi-weight form steps 1-4 are the float64 binary form's, and step 5m
+// compacts the same uint16 or int32 lists and reads float64 rows of W [W, L]:
+// its float64 sum is the float32 form's, and the quotient is taken in
+// float64 (the multi-locus sweep at device.dtype float64; its JAX twin,
+// grid_tpu/ops/select.py:291 dipcn_from_distances_multi, computes in the
+// distances' dtype). Bound by bytes as the float32 form, at 8 bytes a
+// value: d2, rnorm, nbr_w and dipcn twice the bytes. The resident mode
+// holds 8 W bytes of keys, so its edge falls to ~26,000 columns at k=500
+// (20 KB a row at N=2504) in both forms; the 65,536-column panels take the
+// wide mode, as in float32. The float32 forms' code is the same text
+// instantiated at int keys, so their results are those they gave before.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -631,14 +638,14 @@ dipcn_select_kernel(const T* __restrict__ d2, const T* __restrict__ rnorm,
         __syncthreads();  // this round's places are written and its scan scratch is free
       }
     }
-    const float denom = static_cast<float>(max(m_eff, 1));
+    const T denom = static_cast<T>(max(m_eff, 1));
     for (int l = tid; l < n_loci; l += kThreads) {
       const T* wl = nbr_w + l;
       double s = 0.0;  // a serial sum of up to n_nbr terms, in float64 (see 5m)
 #pragma unroll 4
       for (int i = 0; i < m_eff; ++i) s += wl[static_cast<size_t>(list[i]) * n_loci];
       const size_t o = static_cast<size_t>(row) * n_loci + l;
-      dipcn[o] = rnorm[o] / (static_cast<float>(s) / denom);
+      dipcn[o] = rnorm[o] / (static_cast<T>(s) / denom);
       ok[o] = valid[o] && m_eff > 0;
     }
     return;
@@ -678,19 +685,17 @@ dipcn_select_kernel(const T* __restrict__ d2, const T* __restrict__ rnorm,
   }
 }
 
-// The larger static shared memory of the mode's forms: binary and multi in
-// float32, binary only in float64.
+// The larger static shared memory of the mode's two forms, binary and
+// multi, in either value type.
 template <typename T, bool kWide>
 cudaError_t static_smem_bytes(size_t* bytes) {
   cudaFuncAttributes binary, multi;
   cudaError_t err = cudaFuncGetAttributes(&binary, dipcn_select_kernel<T, kWide, false>);
   if (err != cudaSuccess) return err;
-  *bytes = binary.sharedSizeBytes;
-  if constexpr (std::is_same<T, float>::value) {
-    if ((err = cudaFuncGetAttributes(&multi, dipcn_select_kernel<T, kWide, true>)) != cudaSuccess)
-      return err;
-    if (multi.sharedSizeBytes > *bytes) *bytes = multi.sharedSizeBytes;
-  }
+  if ((err = cudaFuncGetAttributes(&multi, dipcn_select_kernel<T, kWide, true>)) != cudaSuccess)
+    return err;
+  *bytes = binary.sharedSizeBytes > multi.sharedSizeBytes ? binary.sharedSizeBytes
+                                                          : multi.sharedSizeBytes;
   return cudaSuccess;
 }
 
@@ -791,6 +796,26 @@ int binary_launch(const void* d2, const void* rnorm, const void* nbr_w, const vo
                                             dipcn, ok, s);
 }
 
+template <typename T>
+int multi_launch(const void* d2, const void* rnorm, const void* nbr_w, const void* usable,
+                 const void* valid, int n, int w, int n_loci, int k, int n_nbr, int mode,
+                 void* dipcn, void* ok, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  if (n_loci < 1 || !valid_shape(w, k, mode)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return mode == 0 ? launch<T, false, true>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k,
+                                            n_nbr, dipcn, ok, s)
+                   : launch<T, true, true>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k,
+                                           n_nbr, dipcn, ok, s);
+}
+
+template <typename T>
+int info_of(int mode, int multi, int w, int k, int* out) {
+  if (mode != 0 && mode != 1) return cudaErrorInvalidValue;
+  if (multi) return mode == 0 ? info<T, false, true>(w, k, out) : info<T, true, true>(w, k, out);
+  return mode == 0 ? info<T, false, false>(w, k, out) : info<T, true, false>(w, k, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -808,11 +833,7 @@ int dipcn_select_mode(int device, int w, int k, int* mode) {
 // shared memory per block, resident blocks per SM, registers a thread and
 // local (spill) bytes a thread. Returns the first cudaError_t.
 int dipcn_select_info(int mode, int multi, int w, int k, int* out) {
-  if (mode != 0 && mode != 1) return cudaErrorInvalidValue;
-  if (multi) {
-    return mode == 0 ? info<float, false, true>(w, k, out) : info<float, true, true>(w, k, out);
-  }
-  return mode == 0 ? info<float, false, false>(w, k, out) : info<float, true, false>(w, k, out);
+  return info_of<float>(mode, multi, w, k, out);
 }
 
 // Launch the binary form in `mode` (from dipcn_select_mode) on `stream`
@@ -830,24 +851,18 @@ int dipcn_select_launch(const void* d2, const void* rnorm, const void* nbr_w, co
 int dipcn_select_multi_launch(const void* d2, const void* rnorm, const void* nbr_w,
                               const void* usable, const void* valid, int n, int w, int n_loci,
                               int k, int n_nbr, int mode, void* dipcn, void* ok, void* stream) {
-  if (n <= 0) return cudaSuccess;
-  if (n_loci < 1 || !valid_shape(w, k, mode)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mode == 0 ? launch<float, false, true>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k,
-                                                n_nbr, dipcn, ok, s)
-                   : launch<float, true, true>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k,
-                                               n_nbr, dipcn, ok, s);
+  return multi_launch<float>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k, n_nbr, mode,
+                             dipcn, ok, stream);
 }
 
-// The float64 binary form: the mode, launch shape and launch above with
-// d2, rnorm, nbr_w and dipcn float64.
+// The float64 forms: the mode, launch shapes and launches above with d2,
+// rnorm, nbr_w and dipcn float64.
 int dipcn_select_mode_f64(int device, int w, int k, int* mode) {
   return select_mode<double>(device, w, k, mode);
 }
 
-int dipcn_select_info_f64(int mode, int w, int k, int* out) {
-  if (mode != 0 && mode != 1) return cudaErrorInvalidValue;
-  return mode == 0 ? info<double, false, false>(w, k, out) : info<double, true, false>(w, k, out);
+int dipcn_select_info_f64(int mode, int multi, int w, int k, int* out) {
+  return info_of<double>(mode, multi, w, k, out);
 }
 
 int dipcn_select_launch_f64(const void* d2, const void* rnorm, const void* nbr_w,
@@ -855,6 +870,14 @@ int dipcn_select_launch_f64(const void* d2, const void* rnorm, const void* nbr_w
                             int mode, void* dipcn, void* ok, void* stream) {
   return binary_launch<double>(d2, rnorm, nbr_w, usable, valid, n, w, k, n_nbr, mode, dipcn, ok,
                                stream);
+}
+
+int dipcn_select_multi_launch_f64(const void* d2, const void* rnorm, const void* nbr_w,
+                                  const void* usable, const void* valid, int n, int w,
+                                  int n_loci, int k, int n_nbr, int mode, void* dipcn, void* ok,
+                                  void* stream) {
+  return multi_launch<double>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k, n_nbr, mode,
+                              dipcn, ok, stream);
 }
 
 const char* dipcn_select_error_string(int err) {

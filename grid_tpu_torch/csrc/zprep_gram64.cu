@@ -83,9 +83,9 @@
 //   upper half (in the triangle and the panels, as the float32 kernel
 //   does), so G is exactly symmetric.
 //
-// Three modes share the prep pass and the tile code; each has one C entry
-// point that returns its cudaError_t, or 10000 + the CUresult of a failed
-// tensor-map encoding:
+// Four modes share the tile code (the first three the prep pass too); each
+// has one C entry point that returns its cudaError_t, or 10000 + the
+// CUresult of a failed tensor-map encoding:
 //
 // - triangle (zprep_gram64_launch): the prep, then the upper-triangle tiles
 //   (i <= j) of G [N, N], each with its mirror.
@@ -95,6 +95,25 @@
 //   |P_i|^2 [N].
 // - panel (zprep_gram64_panel_launch): G[i0:i0+B, 0:N] [B, N] from P, one
 //   block per (row tile of the panel) x (column tile).
+// - cross (zprep_gram64_cross_launch): G = P_a P_b^T [Ba, Bb] for two row
+//   blocks, each prepared by zprep_split64_launch into a P of its own: the
+//   sharded ring's product of a rank's rows with the visiting block at
+//   device.dtype float64 (grid_tpu/parallel/pknn.py:74 computes it with
+//   jnp.dot in z's dtype, outside Pallas). B's rows come through a second
+//   tensor map; the tiles, the K order and the stores from registers are
+//   the panel mode's (a's row tiles of one b tile neighbours in the launch
+//   order), so every entry is bitwise the entry zprep_gram64_panel_launch
+//   gives rows a_off + i and b_off + j of one P of all rows. The panel mode
+//   takes the lower half of a diagonal tile from its upper half; in float64
+//   that changes no bit, because the products are symmetric: an FP64 mma
+//   adds each entry's K products as fused multiply-adds in one K order for
+//   every entry, and a * b + c rounds as b * a + c, so G[j, i] computed
+//   with the operands swapped is G[i, j] bit for bit (held on the card by
+//   tests/test_torch_gpu.py against a panel that starts off a tile, whose
+//   tiles are all computed, none mirrored). So one launch does it, where
+//   the float32 kernel's 3xTF32 cross terms meet in another order and need
+//   a second launch for the mirrored tiles; a_off and b_off are checked
+//   and place no entry.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -126,14 +145,15 @@ constexpr int kEncodeError = 10000;            // + CUresult of a failed cuTenso
 
 static_assert(kSmemBytes <= 232448, "an H100 block takes at most 227 KB of shared memory");
 
-enum Mode { kTriangle = 0, kPanel = 1, kDiagonal = 2 };
+enum Mode { kTriangle = 0, kPanel = 1, kDiagonal = 2, kCross = 3 };
 
 // Where a block's tile goes: G [n, n] (kTriangle), the panel G[i0:i0+rows]
-// as [rows, n] (kPanel), or the diagonal [n] (kDiagonal).
+// as [rows, n] (kPanel), the diagonal [n] (kDiagonal), or the cross block
+// G [rows, n] (kCross: rows = Ba, n = Bb, i0 = 0).
 struct Out {
   int mode;
   int n;
-  int i0, rows;  // the panel's first row and its row count (kPanel)
+  int i0, rows;  // the panel's first row and its row count (kPanel, kCross)
   double* g;
 };
 
@@ -207,9 +227,12 @@ __device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8], const
         "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
+// The A operand's rows (the tile's rows) come through map_a, the B
+// operand's (its columns) through map_b; every mode but kCross passes one
+// P's map as both.
 __global__ void __launch_bounds__(kThreads, 1)
-gram64_kernel(const __grid_constant__ CUtensorMap map, int k_tiles, int tiles,
-              int panel_row_tiles, const Out out) {
+gram64_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+              int k_tiles, int tiles, int panel_row_tiles, const Out out) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];   // TMA bytes of a stage have landed
   __shared__ __align__(8) uint64_t empty[kStages];  // every consumer warp is done with it
@@ -226,15 +249,18 @@ gram64_kernel(const __grid_constant__ CUtensorMap map, int k_tiles, int tiles,
     }
     row0 = ti * kTile;
     col0 = (ti + rem) * kTile;
-  } else if (out.mode == kPanel) {
+  } else if (out.mode == kPanel || out.mode == kCross) {
     // the panel's row tiles of one column tile are neighbours in the launch
-    // order, so they share that column tile's loads through L2
+    // order, so they share that column tile's loads through L2 (kCross: a's
+    // row tiles of one b tile)
     row0 = out.i0 + (blockIdx.x % panel_row_tiles) * kTile;
     col0 = (blockIdx.x / panel_row_tiles) * kTile;
   } else {
     row0 = col0 = blockIdx.x * kTile;
   }
-  const bool diag = row0 == col0;  // one operand, read once
+  // one operand, read once; the cross mode's operands are two P's, whatever
+  // their rows
+  const bool diag = row0 == col0 && out.mode != kCross;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   if (tid == 0) {
@@ -254,8 +280,8 @@ gram64_kernel(const __grid_constant__ CUtensorMap map, int k_tiles, int tiles,
         if (round > 0) mbar_wait(smem_addr(&empty[s]), (round - 1) & 1);
         const uint32_t stage = ring + s * kStageBytes, bar = smem_addr(&full[s]);
         mbar_expect_tx(bar, diag ? kOperandBytes : kStageBytes);
-        tma_load(stage, &map, bar, kt * kTileK, row0);
-        if (!diag) tma_load(stage + kOperandBytes, &map, bar, kt * kTileK, col0);
+        tma_load(stage, &map_a, bar, kt * kTileK, row0);
+        if (!diag) tma_load(stage + kOperandBytes, &map_b, bar, kt * kTileK, col0);
       }
     }
     return;
@@ -305,10 +331,10 @@ gram64_kernel(const __grid_constant__ CUtensorMap map, int k_tiles, int tiles,
 
   const int n_out = out.n;
   double* __restrict__ gout = out.g;
-  if (out.mode == kPanel && !diag) {
-    // a panel's tile has no mirror: each lane stores its pairs G[i, j],
-    // G[i, j + 1] from its registers, 16-byte aligned where n is even (the
-    // 4 lanes of a row 64 contiguous bytes)
+  if ((out.mode == kPanel || out.mode == kCross) && !diag) {
+    // a panel's (or a cross block's) tile has no mirror: each lane stores
+    // its pairs G[i, j], G[i, j + 1] from its registers, 16-byte aligned
+    // where n is even (the 4 lanes of a row 64 contiguous bytes)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -421,11 +447,11 @@ bool bad_shape(int n, int r, int r_pad) {
   return r_pad < r || r_pad <= 0 || r_pad % kTileK != 0 || upper_tiles(n) > INT_MAX;
 }
 
-// blocks of a mode at n rows (rows: the panel's)
+// blocks of a mode at n rows (rows: the panel's; kCross: n = Bb, rows = Ba)
 long long mode_blocks(int mode, int n, int rows) {
   const long long tiles = (n + kTile - 1) / kTile;
   if (mode == kTriangle) return upper_tiles(n);
-  if (mode == kPanel) return (rows + kTile - 1) / kTile * tiles;
+  if (mode == kPanel || mode == kCross) return (rows + kTile - 1) / kTile * tiles;
   return tiles;
 }
 
@@ -447,14 +473,17 @@ int configure() {
   return err;
 }
 
-int gram(const double* p, int n, int r_pad, int blocks, int panel_row_tiles, const Out& out,
-         cudaStream_t s) {
-  CUtensorMap map;
-  int err = make_map(&map, p, n, r_pad);
+// A's rows from pa [na, r_pad], B's from pb [nb, r_pad]; one P but in the
+// cross mode
+int gram(const double* pa, int na, const double* pb, int nb, int r_pad, int blocks,
+         int panel_row_tiles, const Out& out, cudaStream_t s) {
+  CUtensorMap map_a, map_b;
+  int err = make_map(&map_a, pa, na, r_pad);
   if (err != cudaSuccess) return err;
+  if ((err = make_map(&map_b, pb, nb, r_pad)) != cudaSuccess) return err;
   if ((err = configure()) != cudaSuccess) return err;
-  gram64_kernel<<<blocks, kThreads, kSmemBytes, s>>>(map, r_pad / kTileK,
-                                                     (n + kTile - 1) / kTile, panel_row_tiles,
+  gram64_kernel<<<blocks, kThreads, kSmemBytes, s>>>(map_a, map_b, r_pad / kTileK,
+                                                     (nb + kTile - 1) / kTile, panel_row_tiles,
                                                      out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -476,7 +505,7 @@ int zprep_gram64_launch(const void* z, const void* mask, const void* region, dou
   int err = prep(z, mask, region, zmax, n, r, r_pad, p, s);
   if (err != cudaSuccess) return err;
   const Out out{kTriangle, n, 0, n, static_cast<double*>(g)};
-  return gram(p, n, r_pad, static_cast<int>(upper_tiles(n)), 1, out, s);
+  return gram(p, n, p, n, r_pad, static_cast<int>(upper_tiles(n)), 1, out, s);
 }
 
 // The row-panel branch's pass once per step: the prep into `p_buf` (as
@@ -491,7 +520,7 @@ int zprep_split64_launch(const void* z, const void* mask, const void* region, do
   int err = prep(z, mask, region, zmax, n, r, r_pad, p, s);
   if (err != cudaSuccess) return err;
   const Out out{kDiagonal, n, 0, n, static_cast<double*>(norms)};
-  return gram(p, n, r_pad, static_cast<int>(mode_blocks(kDiagonal, n, n)), 1, out, s);
+  return gram(p, n, p, n, r_pad, static_cast<int>(mode_blocks(kDiagonal, n, n)), 1, out, s);
 }
 
 // One row panel, G[i0:i0+rows, 0:n] into g [rows, n], from the P that
@@ -503,18 +532,40 @@ int zprep_gram64_panel_launch(const void* p_buf, int n, int r_pad, int i0, int r
   const long long blocks = mode_blocks(kPanel, n, rows);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const Out out{kPanel, n, i0, rows, static_cast<double*>(g)};
-  return gram(static_cast<const double*>(p_buf), n, r_pad, static_cast<int>(blocks),
+  const double* p = static_cast<const double*>(p_buf);
+  return gram(p, n, p, n, r_pad, static_cast<int>(blocks),
               static_cast<int>((rows + kTile - 1) / kTile), out,
               static_cast<cudaStream_t>(stream));
 }
 
+// The ring's block product, G = P_a P_b^T into g [na, nb], from the P's
+// that zprep_split64_launch wrote into `a_buf` (na rows) and `b_buf` (nb
+// rows): the entries zprep_gram64_panel_launch gives rows a_off + i and
+// b_off + j of one P of all rows (see the header: one launch, no mirror).
+int zprep_gram64_cross_launch(const void* a_buf, int na, const void* b_buf, int nb, int r_pad,
+                              int a_off, int b_off, void* g, void* stream) {
+  if (na <= 0 || nb <= 0) return cudaSuccess;
+  if (bad_shape(na, 0, r_pad) || bad_shape(nb, 0, r_pad) || a_off < 0 || b_off < 0 ||
+      a_off > INT_MAX - na || b_off > INT_MAX - nb) {
+    return cudaErrorInvalidValue;
+  }
+  const long long blocks = mode_blocks(kCross, nb, na);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const Out out{kCross, nb, 0, na, static_cast<double*>(g)};
+  return gram(static_cast<const double*>(a_buf), na, static_cast<const double*>(b_buf), nb, r_pad,
+              static_cast<int>(blocks), static_cast<int>((na + kTile - 1) / kTile), out,
+              static_cast<cudaStream_t>(stream));
+}
+
 // The Gram kernel's launch shape for n rows in `mode` (0 triangle, 1 panel
-// of `rows` rows, 2 split), for reports: out = {tile, k_tile, stages,
+// of `rows` rows, 2 split, 3 cross of `rows` rows of a by n rows of b), for
+// reports: out = {tile, k_tile, stages,
 // threads per block, dynamic shared memory per block, blocks, resident
 // blocks per SM, registers a thread, local (spill) bytes a thread, static
 // shared memory per block}. Returns a cudaError_t.
 int zprep_gram64_info(int n, int rows, int mode, int* out) {
-  if (n <= 0 || mode < kTriangle || mode > kDiagonal || (mode == kPanel && rows <= 0)) {
+  if (n <= 0 || mode < kTriangle || mode > kCross ||
+      ((mode == kPanel || mode == kCross) && rows <= 0)) {
     return cudaErrorInvalidValue;
   }
   int err = configure();

@@ -25,10 +25,10 @@
   squared row norms), then :func:`zprep_gram_panel` once per row panel.
   The sharded ring's fourth mode, :func:`zprep_gram_cross`, multiplies a
   rank's split rows by the visiting block's. Float64 inputs take
-  ``csrc/zprep_gram64.cu`` instead (the triangle, split and panel modes:
-  128x128 tiles of FP64 tensor-core ``mma.sync`` m16n8k16 fed by a 4-stage
-  TMA ring, one tile an SM; no split: P itself stands in ``SplitZ.p``);
-  the cross mode is float32 only.
+  ``csrc/zprep_gram64.cu`` instead (the triangle, split, panel and cross
+  modes: 128x128 tiles of FP64 tensor-core ``mma.sync`` m16n8k16 fed by a
+  4-stage TMA ring, one tile an SM; no split: P itself stands in
+  ``SplitZ.p``).
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch version
 for CPU tensors only; it counts its calls that reached the card in
@@ -260,7 +260,7 @@ _GRAM_INFO_KEYS = ("tile", "k_tile", "stages", "threads", "smem_bytes", "blocks"
                    "blocks_per_sm")
 # float64: smem_bytes is the dynamic shared memory (the ring)
 _GRAM64_INFO_KEYS = (*_GRAM_INFO_KEYS, "registers", "spill_bytes", "static_smem_bytes")
-_GRAM64_MODES = {"triangle": 0, "panel": 1, "split": 2}
+_GRAM64_MODES = {"triangle": 0, "panel": 1, "split": 2, "cross": 3}
 
 
 @functools.cache
@@ -298,6 +298,10 @@ def _zprep64_lib():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p]
     lib.zprep_gram64_panel_launch.restype = ctypes.c_int
+    lib.zprep_gram64_cross_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.zprep_gram64_cross_launch.restype = ctypes.c_int
     lib.zprep_gram64_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                       ctypes.POINTER(ctypes.c_int)]
     lib.zprep_gram64_info.restype = ctypes.c_int
@@ -323,8 +327,10 @@ def zprep_gram_info(n: int, device: torch.device, dtype: torch.dtype = torch.flo
     threads and dynamic shared memory per block, blocks (upper-triangle
     tiles) and resident blocks per SM on the CUDA ``device``; for float64,
     the FP64 kernel's in ``mode`` ("triangle", "split": the diagonal tiles,
-    or "panel" of ``rows`` rows: its row tiles times the column tiles), with
-    its registers and spill bytes a thread and its static shared memory."""
+    "panel" of ``rows`` rows: its row tiles times the column tiles, or
+    "cross" of a block of ``rows`` rows by one of ``n``: the same tiles),
+    with its registers and spill bytes a thread and its static shared
+    memory."""
     _require_hopper(device)
     if dtype == torch.float64:
         out = (ctypes.c_int * len(_GRAM64_INFO_KEYS))()
@@ -492,8 +498,9 @@ zprep_gram_panel.launches = 0
 
 
 def zprep_gram_cross_plain(a: SplitZ, b: SplitZ, a_row0: int = 0, b_row0: int = 0):
-    """Plain PyTorch version of :func:`zprep_gram_cross`: ``P_a @ P_b.T``
-    (the offsets only place the kernel's entries)."""
+    """Plain PyTorch version of :func:`zprep_gram_cross`, in either dtype:
+    ``P_a @ P_b.T`` of the plain splits' P (the offsets only place the
+    kernel's entries)."""
     return a.p @ b.p.T
 
 
@@ -502,28 +509,36 @@ def zprep_gram_cross(a: SplitZ, b: SplitZ, a_row0: int = 0, b_row0: int = 0):
     the sharded ring's product of a rank's rows with the visiting block.
 
     On the card the Gram kernel runs over (a's row tiles) x (b's row tiles)
-    with one pair of tensor maps per block and the 3xTF32 arithmetic of
+    with one pair of tensor maps per block and the arithmetic of
     :func:`zprep_gram_panel`; ``a_row0`` and ``b_row0``, the blocks' first
     rows in the cohort, make every entry bitwise the one
     ``zprep_gram_panel`` gives those two rows of one split of the whole
-    cohort (the panel mode mirrors the lower half of its diagonal tiles,
-    and a second small launch does the same here). Needs compute capability
-    9.0. Float32 only: the sharded steps do not take float64 yet.
+    cohort. Float32 (3xTF32): the panel mode mirrors the lower half of its
+    diagonal tiles, and a second small launch does the same here. Float64
+    splits ([1, B, R_pad], P itself) take the FP64 kernel's cross mode in
+    one launch: its products are symmetric bit for bit, so the mirror
+    changes nothing there (``csrc/zprep_gram64.cu``). Needs compute
+    capability 9.0.
     """
     if not native.on_cuda(a.p, a.norms, b.p, b.norms):
         return zprep_gram_cross_plain(a, b, a_row0, b_row0)
     _, na, r_pad = a.p.shape
     nb = b.p.shape[1]
-    native.check(a.p, "a", torch.float32, (2, na, r_pad))
-    native.check(b.p, "b", torch.float32, (2, nb, r_pad))
+    dtype = a.p.dtype
+    native.dtype_suffix(dtype)
+    halves = 1 if dtype == torch.float64 else 2
+    native.check(a.p, "a", dtype, (halves, na, r_pad))
+    native.check(b.p, "b", dtype, (halves, nb, r_pad))
     if a_row0 < 0 or b_row0 < 0:
         raise ValueError(f"block offsets must be >= 0, got {a_row0}, {b_row0}")
-    g = torch.empty((na, nb), dtype=torch.float32, device=a.p.device)
+    g = torch.empty((na, nb), dtype=dtype, device=a.p.device)
+    name = "zprep_gram64" if dtype == torch.float64 else "zprep_gram"
+    launch = (_zprep64_lib().zprep_gram64_cross_launch if dtype == torch.float64
+              else _zprep_lib().zprep_gram_cross_launch)
     with torch.cuda.device(g.device):
-        err = _zprep_lib().zprep_gram_cross_launch(a.p.data_ptr(), na, b.p.data_ptr(), nb, r_pad,
-                                                   a_row0, b_row0, g.data_ptr(),
-                                                   native.stream_ptr(g.device))
-    native.check_launch("zprep_gram", err)
+        err = launch(a.p.data_ptr(), na, b.p.data_ptr(), nb, r_pad, a_row0, b_row0, g.data_ptr(),
+                     native.stream_ptr(g.device))
+    native.check_launch(name, err)
     native.count_launch(zprep_gram_cross)
     return g
 

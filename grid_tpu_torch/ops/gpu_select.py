@@ -24,10 +24,9 @@ XLA selections of ``grid_tpu``'s cohort step (``approx_max_k`` at
 ``grid_tpu/parallel/pknn.py:84``); its plain version is
 :func:`grid_tpu_torch.ops.knn.sorted_smallest_k`, a stable sort.
 
-Both kernels take float32 or float64 rows (``device.dtype``): the float64
-forms are the same kernels at int64 keys (the ``*_f64`` entry points of
-their sources), chosen by the dtype of ``d2``; the multi-weight form is
-float32 only.
+Both kernels take float32 or float64 rows (``device.dtype``), in every
+form: the float64 forms are the same kernels at int64 keys (the ``*_f64``
+entry points of their sources), chosen by the dtype of ``d2``.
 """
 
 from __future__ import annotations
@@ -60,12 +59,10 @@ def _lib():
     lib.dipcn_select_mode.restype = ctypes.c_int
     lib.dipcn_select_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.dipcn_select_info.restype = ctypes.c_int
-    lib.dipcn_select_launch_f64.argtypes = lib.dipcn_select_launch.argtypes
-    lib.dipcn_select_launch_f64.restype = ctypes.c_int
-    lib.dipcn_select_mode_f64.argtypes = lib.dipcn_select_mode.argtypes
-    lib.dipcn_select_mode_f64.restype = ctypes.c_int
-    lib.dipcn_select_info_f64.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    lib.dipcn_select_info_f64.restype = ctypes.c_int
+    for name in ("launch", "multi_launch", "mode", "info"):
+        f64 = getattr(lib, f"dipcn_select_{name}_f64")
+        f64.argtypes = getattr(lib, f"dipcn_select_{name}").argtypes
+        f64.restype = ctypes.c_int
     return lib
 
 
@@ -101,11 +98,10 @@ def _device_index(device: torch.device) -> int:
 
 def dipcn_select_mode(w: int, k: int, device: torch.device,
                       dtype: torch.dtype = torch.float32) -> str | None:
-    """The mode the kernel (either form; float64: the binary form) takes
-    rows of ``w`` columns of ``dtype`` in at this ``k`` on the CUDA
-    ``device``: "resident" (the row's keys in shared memory) whenever that
-    fits, else "wide" (the keys stay in device memory), or None where
-    neither fits. The keys' size moves the edge: ~55,000 float32 columns at
+    """The mode the kernel (either form) takes rows of ``w`` columns of
+    ``dtype`` in at this ``k`` on the CUDA ``device``: "resident" (the
+    row's keys in shared memory) whenever that fits, else "wide" (the keys
+    stay in device memory), or None where neither fits. The keys' size moves the edge: ~55,000 float32 columns at
     k=500 on an H100, about half that in float64."""
     mode = ctypes.c_int()
     fn = getattr(_lib(), f"dipcn_select_mode{native.dtype_suffix(dtype)}")
@@ -126,14 +122,9 @@ def dipcn_select_info(w: int, k: int, device: torch.device, multi: bool = False,
     if mode is None:
         raise ValueError(f"no mode of dipcn_select takes rows of {w} columns at k={k}")
     out = (ctypes.c_int * len(_INFO_KEYS))()
+    fn = getattr(_lib(), f"dipcn_select_info{native.dtype_suffix(dtype)}")
     with torch.cuda.device(device):
-        if dtype == torch.float64:
-            if multi:
-                raise ValueError("the multi-weight form of dipcn_select is float32 only")
-            err = _lib().dipcn_select_info_f64(MODES.index(mode), w, k, out)
-        else:
-            err = _lib().dipcn_select_info(MODES.index(mode), int(multi), w, k, out)
-        native.check_launch("dipcn_select", err)
+        native.check_launch("dipcn_select", fn(MODES.index(mode), int(multi), w, k, out))
     return {"mode": mode, **dict(zip(_INFO_KEYS, out))}
 
 
@@ -197,18 +188,18 @@ def dipcn_from_distances_multi_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k
                                    n_nbr: int):
     """dipCN of L loci from one [N, W] distance matrix; same contract as
     :func:`grid_tpu_torch.ops.select.dipcn_from_distances_multi` (float32
-    only on the card).
+    or float64 on the card: d2, rnorm and nbr_w of one dtype).
 
     The kernel's multi-weight form: each row's take-set is found once, as
     in :func:`dipcn_from_distances_gpu` and in the same mode, then its
     threads stride over the L loci and sum ``nbr_w`` [W, L] over the
-    take-set's columns in a fixed order.
+    take-set's columns in a fixed order, in float64 in both dtypes.
 
     Args:
-        d2: [N, W] float32 distances; rnorm, sample_valid: [N, L];
+        d2: [N, W] distances; rnorm, sample_valid: [N, L];
         nbr_w: [W, L]; col_usable: [W], shared by the L loci.
 
-    Returns (dipcn [N, L] float32, out_valid [N, L] bool).
+    Returns (dipcn [N, L] in d2's dtype, out_valid [N, L] bool).
     """
     if not native.on_cuda(d2, rnorm, nbr_w, col_usable, sample_valid):
         return dipcn_from_distances_multi(d2, rnorm, nbr_w, col_usable, sample_valid, k=k,
@@ -217,28 +208,31 @@ def dipcn_from_distances_multi_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k
     if rnorm.dim() != 2 or rnorm.shape[1] < 1:
         raise ValueError(f"rnorm: expected [N, L] with L >= 1, got {tuple(rnorm.shape)}")
     n_loci = rnorm.shape[1]
-    native.check(d2, "d2", torch.float32, (n, w))
-    native.check(rnorm, "rnorm", torch.float32, (n, n_loci))
-    native.check(nbr_w, "nbr_w", torch.float32, (w, n_loci))
+    native.dtype_suffix(d2.dtype)
+    native.check(d2, "d2", d2.dtype, (n, w))
+    native.check(rnorm, "rnorm", d2.dtype, (n, n_loci))
+    native.check(nbr_w, "nbr_w", d2.dtype, (w, n_loci))
     native.check(col_usable, "col_usable", torch.bool, (w,))
     native.check(sample_valid, "sample_valid", torch.bool, (n, n_loci))
     if not 1 <= k <= w:
         raise ValueError(f"k={k} must be in [1, {w}]")
     if n_nbr < 1:
         raise ValueError(f"n_nbr={n_nbr} must be >= 1")
-    mode = dipcn_select_mode(w, k, d2.device)
+    mode = dipcn_select_mode(w, k, d2.device, d2.dtype)
     if mode is None:
         raise ValueError(f"d2 rows of {w} columns at k={k} fit no mode of the kernel")
     return _launch_multi(mode, d2, rnorm, nbr_w, col_usable, sample_valid, k, n_nbr)
 
 
 def _launch_multi(mode: str, d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int):
-    """Launch the multi-weight form in ``mode`` on checked inputs."""
+    """Launch the multi-weight form in ``mode`` on checked inputs (its
+    float64 form for float64 d2)."""
     (n, w), n_loci = d2.shape, rnorm.shape[1]
-    dipcn = torch.empty((n, n_loci), dtype=torch.float32, device=d2.device)
+    dipcn = torch.empty((n, n_loci), dtype=d2.dtype, device=d2.device)
     ok = torch.empty((n, n_loci), dtype=torch.bool, device=d2.device)
+    launch = getattr(_lib(), f"dipcn_select_multi_launch{native.dtype_suffix(d2.dtype)}")
     with torch.cuda.device(d2.device):
-        err = _lib().dipcn_select_multi_launch(
+        err = launch(
             d2.data_ptr(), rnorm.data_ptr(), nbr_w.data_ptr(), col_usable.data_ptr(),
             sample_valid.data_ptr(), n, w, n_loci, k, n_nbr, MODES.index(mode),
             dipcn.data_ptr(), ok.data_ptr(), native.stream_ptr(d2.device))
@@ -256,10 +250,11 @@ def dipcn_multi_panels_gpu(zp, rnorm, nbr_w, col_usable, sample_valid, k: int, n
     :func:`grid_tpu_torch.ops.select.dipcn_from_distances_panels` through
     the kernels: one ``zprep_split`` of the prepared z (no mask, no clip),
     then per row panel ``zprep_gram_panel`` and its distances
-    (``ops.knn.d2_panels``) and one :func:`dipcn_from_distances_multi_gpu`.
-    Never holds an [N, N] tensor: O(row_block * N + N * L) memory. The
-    arguments are the plain form's; CPU tensors take the wrappers' plain
-    versions.
+    (``ops.knn.d2_panels``) and one :func:`dipcn_from_distances_multi_gpu`,
+    all in zp's dtype (float64 zp: the FP64 split and panels, the distances
+    and the multi kernel in float64). Never holds an [N, N] tensor:
+    O(row_block * N + N * L) memory. The arguments are the plain form's;
+    CPU tensors take the wrappers' plain versions.
 
     Returns (dipcn [N, L], out_valid [N, L]).
     """

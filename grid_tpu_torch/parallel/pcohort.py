@@ -18,9 +18,14 @@ Three host-side entries, each running its part on W spawned ranks
   block, splits it (``zprep_split``), all-gathers the split's rows, and
   takes its own rows through the flat panel loop against the whole
   (:func:`grid_tpu_torch.models.cohort.panel_knn_dipcn`). A rank holds the
-  gathered split, 2 * N * R_pad float32 (512 MiB at N=65,536, R=1024), and
-  one [row_block, N] panel at a time, never an [N, N] tensor and no ring:
-  the form for cohorts whose gathered split fits a card.
+  gathered split, 2 * N * R_pad float32 or N * R_pad float64 (512 MiB
+  either way at N=65,536, R=1024), and one [row_block, N] panel at a time,
+  never an [N, N] tensor and no ring: the form for cohorts whose gathered
+  split fits a card.
+
+All three take ``dtype`` float32 or float64 on the card (the float64
+forms of the kernels, ``device.dtype: float64``), float64 by default on
+the CPU.
 
 Phasing works on [2N] haplotype vectors, a few thousand floats, so it runs
 on every rank after an all-gather of dipCN.
@@ -177,12 +182,13 @@ def rank_cohort_step(group: CohortGroup, values, mask, reads, reads_valid, hap_n
 
 def gather_split(group: CohortGroup, split: SplitZ) -> SplitZ:
     """The split of the whole cohort from each rank's split of its block:
-    the rows of P's two TF32 halves (on the CPU, of P itself) and the
-    squared norms, all-gathered in rank order. ``zprep_split`` works row by
-    row, so this is bitwise the split of the whole z."""
-    if split.p.dim() == 3:  # the card's [2, B, R_pad] halves, gathered one at a time
-        _, b, r_pad = split.p.shape
-        p = split.p.new_empty((2, group.world * b, r_pad))
+    the rows of P's two TF32 halves (float64: of P itself, [1, B, R_pad];
+    on the CPU, of the 2-D P) and the squared norms, all-gathered in rank
+    order. ``zprep_split`` works row by row, so this is bitwise the split
+    of the whole z."""
+    if split.p.dim() == 3:  # the card's [2 or 1, B, R_pad], gathered one half at a time
+        halves, b, r_pad = split.p.shape
+        p = split.p.new_empty((halves, group.world * b, r_pad))
         for out, half in zip(p, split.p):
             out.copy_(group.all_gather_rows(half))
     else:

@@ -12,8 +12,9 @@ What a step does on the card:
 
 - the Gram block G = P_a P_b^T by the Gram kernel's cross mode
   (:func:`grid_tpu_torch.ops.gpu_kernels.zprep_gram_cross`), from the split
-  halves that :func:`~grid_tpu_torch.ops.gpu_kernels.zprep_split` made once
-  of each rank's rows. Its entries are bitwise those of the flat panel
+  that :func:`~grid_tpu_torch.ops.gpu_kernels.zprep_split` made once of
+  each rank's rows (float32: P's TF32 halves; float64: P itself, the FP64
+  kernel's cross mode). Its entries are bitwise those of the flat panel
   branch for the same two rows, so the ring's distances are the flat
   step's, entry for entry, for the same prepared z;
 - the epilogue of the flat branch (:func:`grid_tpu_torch.ops.knn.block_d2`):
@@ -25,10 +26,14 @@ What a step does on the card:
   ring's order, so exact ties break as they do there (the visited block
   first, not the lower row).
 
-The visiting block carries its split halves and squared norms (on the card
-2 * B * R_pad float32 and B float32; on the CPU the prepared rows), its row
-validity and the payloads: the split runs once per rank, and a step moves
-8 * B * R_pad + 5 * B bytes plus the payloads'. The merge runs in row panels
+The visiting block carries its split and squared norms (on the card
+2 * B * R_pad float32 and B float32, or B * R_pad float64 and B float64;
+on the CPU the prepared rows), its row validity and the payloads: the
+split runs once per rank, and a step moves 8 * B * R_pad bytes (in either
+dtype) + 5 * B bytes in float32, 9 * B in float64, plus the payloads'. In
+float64 the merge's ``knn_select`` takes [best | d2] rows of k + B columns
+one block a row up to 8,192 columns and in its wide mode past that. The
+merge runs in row panels
 of ``MERGE_ROWS`` rows, so besides the [B, B] Gram block no tensor is wider
 than k + B: at N = 65,536 and W = 4 (B = 16,384) a whole-block merge would
 hold ~3.3 GB of keys and indices per rank.

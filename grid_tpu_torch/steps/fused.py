@@ -16,8 +16,8 @@ Where it runs: on the card, unless ``device.platform: cpu``
 on that device once, the step and the phasing run there, and one transfer
 brings the outputs back for the writers. ``device.dtype: auto`` is float32 on
 the card and the staged float64 on the CPU; ``float64`` runs on the card too
-(the hand kernels' float64 forms); reads, haplotype weights and the dipCN
-values fed to phasing follow it.
+(the hand kernels' float64 forms), with ``device.mesh_shape`` as well;
+reads, haplotype weights and the dipCN values fed to phasing follow it.
 
 ``device.mesh_shape`` asks the dispatch policy
 (:func:`grid_tpu_torch.parallel.policy.choose_cohort_execution`) as the JAX

@@ -231,9 +231,10 @@ def run_multi_locus(config, genes, console=None, catalog=None, batched="auto", t
     enable_compilation_cache(config.get("device", {}).get("compilation_cache"), console)
 
     if any(section.get("run") is True for section, _, _ in _steps_4_7(config)):
-        # the dtype is resolved before any step runs: a float64 sweep on the
-        # card raises here, not inside a step
-        compute_dtype(config, config_device(config), multi_locus=True)
+        # the dtype is resolved before any step runs: what the card does not
+        # take (bfloat16, float64 past the float64 knn_select's k) raises
+        # here, not inside a step
+        compute_dtype(config, config_device(config))
     loci = {g: resolve_locus(g, catalog) for g in genes}
     cfgs = {g: locus_config(config, locus) for g, locus in loci.items()}
 

@@ -90,18 +90,18 @@ def config_device(config: dict | None) -> torch.device:
     return get_device(name)
 
 
-def compute_dtype(config: dict | None, device: torch.device,
-                  multi_locus: bool = False) -> torch.dtype:
+def compute_dtype(config: dict | None, device: torch.device) -> torch.dtype:
     """The dtype the cohort steps compute in. ``device.dtype: auto`` is
     float32 on a CUDA device and float64, the staged arrays' dtype, on the
-    CPU. The hand kernels of the cohort step take float32 and float64 on the
-    card; bfloat16 named for a CUDA device raises rather than run their
-    plain versions there. So do the float64 paths whose kernels are float32
-    only on the card: the multi-locus sweep (``multi_locus``: the
-    multi-weight ``dipcn_select``), ``device.mesh_shape`` (the ring's
-    cross-mode Gram, the gather form and the sharded stager) and
-    ``mosdepth.neighbors.num_neighbors`` past the float64 ``knn_select``'s
-    8,192. Callers resolve the dtype before any step runs."""
+    CPU. The hand kernels take float32 and float64 on the card on every
+    path ``grid_tpu`` takes float64 on its device: the cohort step on both
+    branches, the file-mode steps, the multi-locus sweep (the multi-weight
+    ``dipcn_select``) and ``device.mesh_shape`` (the ring's cross-mode Gram,
+    the gather form and the sharded stager). bfloat16 named for a CUDA
+    device raises rather than run the kernels' plain versions there, and so
+    does float64 with ``mosdepth.neighbors.num_neighbors`` past the float64
+    ``knn_select``'s 8,192. Callers resolve the dtype before any step
+    runs."""
     dtype = resolve_dtype(config)
     if device.type != "cuda":
         return torch.float64 if dtype is None else dtype
@@ -112,17 +112,6 @@ def compute_dtype(config: dict | None, device: torch.device,
         raise ValueError(
             f"device.dtype {dtype} on {device}: the Hopper kernels of the cohort step take "
             f"float32 and float64 only; {advice}"
-        )
-    if multi_locus:
-        raise ValueError(
-            f"device.dtype float64 on {device}: the multi-locus sweep needs the multi-weight "
-            f"dipcn_select kernel, which is float32 only on the card; {advice}"
-        )
-    if (config or {}).get("device", {}).get("mesh_shape"):
-        raise ValueError(
-            f"device.dtype float64 on {device} with device.mesh_shape: the sharded steps need "
-            "the ring's cross-mode Gram, the gather form and the sharded stager, which are "
-            f"float32 only on the card; {advice}"
         )
     from grid_tpu_torch.ops.gpu_select import KNN_MAX_K
 

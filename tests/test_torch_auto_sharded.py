@@ -188,3 +188,37 @@ def test_rank_rows_equal_the_flat_panel_branch_ties_included(knn_run):
     np.testing.assert_array_equal(got["dipcn_valid"], ok)
     np.testing.assert_array_equal(got["dipcn"][ok], dipcn[ok])
     assert valid[got["idx"]].all()
+
+
+# the split layouts gather_split takes: the card's float64 P as [1, N, R],
+# its float32 TF32 halves as [2, N, R], and the CPU's P as [N, R]
+SPLIT_LAYOUTS = {"f64-card": (torch.float64, (1,)), "f32-card": (torch.float32, (2,)),
+                 "f64-cpu": (torch.float64, ())}
+
+
+@pytest.fixture(scope="module")
+def gathered_splits():
+    """One spawn of 2 gloo ranks gathering a split of each layout."""
+    rng = np.random.default_rng(11)
+    n, r = 12, 5
+    with RankWorkspace() as ws:
+        cases, want = [], {}
+        for name, (dtype, halves) in SPLIT_LAYOUTS.items():
+            p = torch.tensor(rng.normal(size=(*halves, n, r)), dtype=dtype)
+            norms = torch.tensor(rng.uniform(size=n), dtype=dtype)
+            outs = (ws.empty(p.shape, dtype), ws.empty((n,), dtype))
+            cases.append((ws.put(p), ws.put(norms), *outs))
+            want[name] = (p, norms, outs)
+        run_ranks(torch_ranks.gather_split_rank, 2, (cases,), platform="cpu", workspace=ws)
+        return {name: (p, norms, outs[0].open().clone(), outs[1].open().clone())
+                for name, (p, norms, outs) in want.items()}
+
+
+@pytest.mark.parametrize("layout", list(SPLIT_LAYOUTS))
+def test_gather_split_keeps_each_layout(gathered_splits, layout):
+    """The ranks' splits gathered in rank order are the whole split, in its
+    own layout and dtype: the float64 P of the card ([1, N, R]) is one half,
+    not two (the gather form at ``device.dtype: float64``)."""
+    p, norms, got_p, got_norms = gathered_splits[layout]
+    assert got_p.dtype == p.dtype and got_p.shape == p.shape
+    assert torch.equal(got_p, p) and torch.equal(got_norms, norms)

@@ -234,19 +234,34 @@ def test_no_platform_in_file_mode_wants_the_card(cohort, tmp_path):
 
 def test_float64_on_the_card_is_refused_before_any_step(cohort, tmp_path, monkeypatch):
     """What the card's kernels do not carry raises before any step, as the
-    fused path did, rather than as four logged failures: bfloat16, and
-    float64 on the paths whose kernels are float32 only on the card (the
-    sharded steps of ``device.mesh_shape``, in both forms; the multi-locus
-    sweep is ``tests/test_torch_float64.py``'s)."""
+    fused path did, rather than as four logged failures: bfloat16. Float64
+    with ``device.mesh_shape``, in both forms, is carried now (the
+    cross-mode Gram's and the multi-weight dipcn_select's float64 forms):
+    it resolves float64 before any step (the multi-locus sweep is
+    ``tests/test_torch_float64.py``'s)."""
     import grid_tpu_torch.pipeline as pipeline
 
-    monkeypatch.setattr(pipeline, "config_device", lambda config: torch.device("cuda"))
-    for device, names in (({"dtype": "bfloat16"}, "float32 and float64 only"),
-                          ({"dtype": "float64", "mesh_shape": [4]}, "mesh_shape"),
-                          ({"dtype": "float64", "mesh_shape": [4], "fused": True}, "mesh_shape")):
+    cuda = torch.device("cuda")
+    monkeypatch.setattr(pipeline, "config_device", lambda config: cuda)
+    cfg = run_config(cohort, tmp_path, {"dtype": "bfloat16"})
+    with pytest.raises(ValueError, match="float32 and float64 only"):
+        run_wgs_pipeline(console=None, config=cfg)
+    class Resolved(Exception):
+        pass
+
+    real, seen = pipeline.compute_dtype, []
+
+    def resolve(config, device):  # records the dtype, then stops before any step
+        seen.append(real(config, device))
+        raise Resolved
+
+    monkeypatch.setattr(pipeline, "compute_dtype", resolve)
+    for device in ({"dtype": "float64", "mesh_shape": [4]},
+                   {"dtype": "float64", "mesh_shape": [4], "fused": True}):
         cfg = run_config(cohort, tmp_path, device)
-        with pytest.raises(ValueError, match=names):
+        with pytest.raises(Resolved):
             run_wgs_pipeline(console=None, config=cfg)
+    assert seen == [torch.float64, torch.float64]
     assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
 
 

@@ -15,10 +15,16 @@ The float64 forms of the cohort step's kernels run only on the card
 - the port's float64 ``cohort_step`` against ``grid_tpu``'s under x64 on
   the panel branch, with the d2 budget one byte short of N * N * 8 in both
   packages (float64 contract: neighbor indices identical, dipCN at 1e-9);
-- the up-front refusals: bfloat16 on the card, the float64 paths whose
-  kernels are float32 only on the card (the multi-locus sweep,
-  ``device.mesh_shape``) and float64 past the float64 ``knn_select``'s
-  largest k, each before any step and naming the path or the limit.
+- the dtype each entry point resolves before any step: float64 on the
+  card for the multi-locus sweep and for ``device.mesh_shape`` (the ring,
+  the gather form), whose kernels now have float64 forms; the up-front
+  refusals of bfloat16 on the card and of float64 past the float64
+  ``knn_select``'s largest k, each naming the cause;
+- the FP64 Gram's cross mode: its plan at the ring's block sizes and
+  offsets, and its plain version on float64 splits against the plain
+  panel entries of the whole cohort's split;
+- the multi-weight ``dipcn_select`` in float64: the resident mode's
+  shared memory and edge are the binary form's.
 """
 
 import copy
@@ -36,7 +42,9 @@ from grid_tpu.ops.select import sorted_smallest_k as j_sorted_smallest_k
 from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy, params_from_reference
 from grid_tpu_torch.io.hap_neighbors import pad_hap_neighbors
 from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
-from grid_tpu_torch.ops.gpu_kernels import _GRAM64_K_TILE, _r_pad
+from grid_tpu_torch.ops.gpu_kernels import (
+    _GRAM64_K_TILE, _r_pad, zprep_gram_cross_plain, zprep_gram_panel_plain, zprep_split_plain,
+)
 from grid_tpu_torch.ops.knn import sorted_smallest_k
 from grid_tpu_torch.ops.select import _key_type, _kth_smallest_key
 from grid_tpu_torch.synth import make_synthetic_cohort
@@ -106,6 +114,20 @@ def test_dipcn_select_resident_edge_by_element_size():
     assert 0.45 < e64 / e32 < 0.55 and e64 > 2504
 
 
+def test_dipcn_select_float64_multi_form_keeps_the_binary_form_s_plan():
+    """The multi-weight form's resident block holds what the binary form's
+    does (step 5m compacts the list in place): in float64 21,356 B at
+    N=2504, k=500, so the sweep's N=2504 rows stay resident; its edge at
+    k=500 falls to ~28,000 columns (float32: ~55,000), and a panel's 65,536
+    columns, like any row past the float64 resident edge, take the wide
+    mode."""
+    assert dipcn_select_smem_bytes(2504, 500, 8) == 2504 * 8 + 79 * 4 + 504 * 2 == 21_356
+    e64 = _widest(lambda w: dipcn_select_smem_bytes(w, 500, 8) <= SMEM, 2504, 65536)
+    e32 = _widest(lambda w: dipcn_select_smem_bytes(w, 500, 4) <= SMEM, 2504, 65536)
+    assert 26_000 < e64 < 28_500 < 54_000 < e32
+    assert dipcn_select_smem_bytes(65536, 500, 8) > SMEM
+
+
 @pytest.mark.parametrize("k", [2, 10])
 def test_phase_sweeps_resident_edge_by_element_size(k):
     """Two value buffers of 2N values in every block: 80 KB at N=2504 in
@@ -165,6 +187,64 @@ def test_zprep_gram64_plan(n, mode):
         assert zprep_gram64_l2_bytes(n, rows, mode, 1024) == (2 * 2048 - 4) * 128 * 1024 * 8
     if mode == "split":  # a diagonal tile reads its rows once
         assert zprep_gram64_l2_bytes(n, rows, mode, 16) == plan["blocks"] * t * 16 * 8
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (4096, 256), (64, 200)],
+                         ids=["own-block", "on-tiles", "off-tiles"])
+@pytest.mark.parametrize("nb", [1, 127, 128, 129, 4096])
+@pytest.mark.parametrize("na", [1, 127, 128, 129, 4096])
+def test_zprep_gram64_cross_plan(na, nb, offsets):
+    """The FP64 Gram's cross mode (the ring's [Ba, Bb] block product at
+    float64): a block a tile over (a's row tiles) x (b's row tiles), a's
+    row tiles of one b tile neighbours in the launch order, every tile once,
+    the panel mode's count for a panel of Ba rows over Bb columns; both
+    operands read from L2 (no diagonal tile). At the blocks' offsets in a
+    cohort, the plain cross product of the blocks' own splits is bitwise
+    the plain panel entries of one split of the cohort for the same rows
+    (values on a grid of 1/4, so every sum is exact)."""
+    a_off, b_off = offsets
+    plan = zprep_gram64_plan(nb, na, "cross")
+    t = plan["tile"]
+    row_tiles, col_tiles = -(-na // t), -(-nb // t)
+    assert plan["blocks"] == row_tiles * col_tiles == zprep_gram64_plan(nb, na, "panel")["blocks"]
+    assert {(b % row_tiles, b // row_tiles) for b in range(plan["blocks"])} == {
+        (i, j) for i in range(row_tiles) for j in range(col_tiles)}
+    assert plan["waves"] == plan["blocks"] / 132 and plan["smem_bytes"] <= H100_SMEM
+    assert zprep_gram64_l2_bytes(nb, na, "cross", 1024) == 2 * plan["blocks"] * t * 1024 * 8
+    rng = np.random.default_rng(na * 7 + nb + a_off)
+    z = torch.tensor(rng.integers(-12, 13, (max(a_off + na, b_off + nb), 3)) / 4.0)
+    whole = zprep_split_plain(z, None, None, 2.0)
+    a, b = (zprep_split_plain(z[o:o + m], None, None, 2.0) for o, m in ((a_off, na), (b_off, nb)))
+    g = zprep_gram_cross_plain(a, b, a_off, b_off)
+    assert g.dtype == torch.float64 and g.shape == (na, nb)
+    assert torch.equal(g, zprep_gram_panel_plain(whole, a_off, na)[:, b_off:b_off + nb])
+    if (na, nb) == (4096, 4096):  # the ring's block at N=16,384 over 4 ranks
+        assert plan["blocks"] == 1024 and round(plan["waves"], 2) == 7.76
+
+
+@pytest.mark.parametrize("n,world", [(301, 2), (300, 3), (97, 4)])
+def test_zprep_gram_cross_plain_float64_equals_the_panel_entries(n, world):
+    """The cross mode's plain version on float64 splits of the ring's
+    blocks (ragged last block padded with zero rows, as the ranks pad it)
+    gives the plain panel entries of the whole cohort's split for the same
+    two rows, in float64: the ring's CPU route is the flat route's Gram."""
+    rng = np.random.default_rng(n + world)
+    r = 40
+    z = torch.tensor(rng.normal(size=(n, r)) * 3)
+    mask = torch.tensor(rng.random((n, r)) > 0.1)
+    region = torch.tensor(rng.random(r) > 0.2)
+    zp = torch.where(mask, z.clamp(-2.0, 2.0), 0) * region[None, :].double()
+    b = -(-n // world)
+    zpad = torch.cat([zp, zp.new_zeros((b * world - n, r))])
+    whole = zprep_split_plain(zpad, None, None, float("inf"))
+    blocks = [zprep_split_plain(zpad[i * b:(i + 1) * b], None, None, float("inf"))
+              for i in range(world)]
+    for a in range(world):
+        panel = zprep_gram_panel_plain(whole, a * b, b)
+        for o in range(world):
+            g = zprep_gram_cross_plain(blocks[a], blocks[o], a * b, o * b)
+            assert g.dtype == torch.float64 and g.shape == (b, b)
+            assert_close_to_max(g.numpy(), panel[:, o * b:(o + 1) * b].numpy(), 1e-15)
 
 
 # ----------------------------------------------------------------- keys ---
@@ -268,20 +348,31 @@ def test_compute_dtype_takes_float64_on_the_card():
     assert compute_dtype({"device": {"dtype": "float64"}}, CUDA) is torch.float64
     assert compute_dtype({"device": {"dtype": "f64"}}, CUDA) is torch.float64
     assert compute_dtype({"device": {"dtype": "float32"}}, CUDA) is torch.float32
-    assert compute_dtype({"device": {"dtype": "float64"}}, torch.device("cpu"),
-                         multi_locus=True) is torch.float64
+    assert compute_dtype({"device": {"dtype": "float64"}}, torch.device("cpu")) is torch.float64
 
 
-@pytest.mark.parametrize("config,multi_locus,names", [
-    ({"device": {"dtype": "bfloat16"}}, False, "bfloat16"),
-    ({"device": {"dtype": "bf16", "mesh_shape": [4]}}, False, "bfloat16"),
-    ({"device": {"dtype": "float64"}}, True, "multi-locus sweep"),
-    ({"device": {"dtype": "float64", "mesh_shape": [4]}}, False, "mesh_shape"),
-    ({"device": {"dtype": "float64", "mesh_shape": [2, 2], "fused": True}}, False, "mesh_shape"),
+@pytest.mark.parametrize("config,names", [
+    ({"device": {"dtype": "bfloat16"}}, "bfloat16"),
+    ({"device": {"dtype": "bf16", "mesh_shape": [4]}}, "bfloat16"),
 ])
-def test_compute_dtype_refuses_what_the_card_does_not_carry(config, multi_locus, names):
+def test_compute_dtype_refuses_what_the_card_does_not_carry(config, names):
     with pytest.raises(ValueError, match=names):
-        compute_dtype(config, CUDA, multi_locus=multi_locus)
+        compute_dtype(config, CUDA)
+
+
+@pytest.mark.parametrize("config", [
+    {"device": {"dtype": "float64"}, "mosdepth": {"neighbors": {"num_neighbors": 500}}},
+    {"device": {"dtype": "float64", "mesh_shape": [4]}},
+    {"device": {"dtype": "float64", "mesh_shape": [2, 2], "fused": True}},
+], ids=["multi-locus-sweep", "mesh-4", "mesh-2x2-fused"])
+def test_compute_dtype_takes_float64_where_the_card_now_carries_it(config):
+    """The configs compute_dtype refused on the card while the multi-weight
+    dipcn_select and the cross-mode Gram were float32 only: the sweep's
+    (it resolves the dtype as every entry point does) and the sharded
+    steps' (``mesh_shape``, ring and gather form) now compute in float64
+    there, as on the CPU."""
+    assert compute_dtype(config, CUDA) is torch.float64
+    assert compute_dtype(config, torch.device("cpu")) is torch.float64
 
 
 def test_compute_dtype_refuses_float64_past_the_largest_k():
@@ -312,28 +403,54 @@ def _config(disk_cohort, out, **device):
     return cfg
 
 
-def test_float64_multi_locus_sweep_is_refused_before_any_step(disk_cohort, tmp_path,
-                                                              monkeypatch):
-    import grid_tpu_torch.pipeline as pipeline
+class _Resolved(Exception):
+    """Raised in place of the steps once the entry point has resolved its
+    dtype."""
+
+
+def _stop_after_dtype(module, monkeypatch) -> list:
+    """Patch ``module.compute_dtype`` to record what it resolves and then
+    stop the entry point before any step; returns the record."""
+    real, seen = module.compute_dtype, []
+
+    def resolve(config, device):
+        seen.append((real(config, device), device))
+        raise _Resolved
+
+    monkeypatch.setattr(module, "compute_dtype", resolve)
+    return seen
+
+
+def test_float64_multi_locus_sweep_resolves_float64_before_any_step(disk_cohort, tmp_path,
+                                                                    monkeypatch):
+    """``run_multi_locus`` with ``device.dtype: float64`` on the card (the
+    multi-weight dipcn_select's float64 form) resolves float64 up front,
+    before any step has written a file."""
     import grid_tpu_torch.steps.multilocus as multilocus
 
     monkeypatch.setattr(multilocus, "config_device", lambda config: CUDA)
-    monkeypatch.setattr(pipeline, "config_device", lambda config: CUDA)
+    seen = _stop_after_dtype(multilocus, monkeypatch)
     cfg = _config(disk_cohort, tmp_path / "out", dtype="float64")
     before = sorted(p.name for p in (tmp_path / "out").iterdir())
-    with pytest.raises(ValueError, match="multi-locus sweep"):
+    with pytest.raises(_Resolved):
         multilocus.run_multi_locus(cfg, ["LPA", "APOE"])
+    assert seen == [(torch.float64, CUDA)]
     assert sorted(p.name for p in (tmp_path / "out").iterdir()) == before
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "files"])
-def test_float64_with_a_mesh_is_refused_before_any_step(disk_cohort, tmp_path, monkeypatch,
-                                                        fused):
+def test_float64_with_a_mesh_resolves_float64_before_any_step(disk_cohort, tmp_path, monkeypatch,
+                                                              fused):
+    """``run_wgs_pipeline`` with ``device.dtype: float64`` and
+    ``mesh_shape`` on the card (the cross-mode Gram's float64 form)
+    resolves float64 up front, before any step has written a file."""
     import grid_tpu_torch.pipeline as pipeline
 
     monkeypatch.setattr(pipeline, "config_device", lambda config: CUDA)
+    seen = _stop_after_dtype(pipeline, monkeypatch)
     cfg = _config(disk_cohort, tmp_path / "out", dtype="float64", mesh_shape=[4], fused=fused)
     before = sorted(p.name for p in (tmp_path / "out").iterdir())
-    with pytest.raises(ValueError, match="mesh_shape"):
+    with pytest.raises(_Resolved):
         pipeline.run_wgs_pipeline(console=None, config=cfg)
+    assert seen == [(torch.float64, CUDA)]
     assert sorted(p.name for p in (tmp_path / "out").iterdir()) == before

@@ -32,7 +32,10 @@ CPU route's and ``dipcn_select``'s validity exactly and their dipCN at rtol
 1e-6; the phasing kernel (``phase_sweeps``) is held to the plain sweeps at rtol 1e-5
 with the same NaNs (each neighbor list summed in slot order there, in
 torch's reduction order in the plain version), its two modes to each
-other bitwise.
+other bitwise. In float64 every kernel is held to its float64 plain
+version at 1e-12 of the value (the multi-weight dipCN form too, and the
+FP64 Gram's cross mode bitwise to its panel mode, whose products are
+symmetric bit for bit), and the ring step at W=2 to the flat step.
 """
 
 import functools
@@ -1548,7 +1551,8 @@ def test_float64_phase_sweeps_more_replicates_than_clusters_at_once(cuda):
 
 
 def test_float64_kernels_refuse_what_they_do_not_take(cuda):
-    """bfloat16 reaches no kernel; the multi-weight form stays float32."""
+    """bfloat16 reaches no kernel; mixed float32 and float64 inputs are
+    refused by both dipCN forms."""
     from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
 
     bf = torch.zeros((8, 8), dtype=torch.bfloat16, device=cuda)
@@ -1564,8 +1568,8 @@ def test_float64_kernels_refuse_what_they_do_not_take(cuda):
         dipcn_from_distances_gpu(bf, v, v, mask[0], mask[0], k=3, n_nbr=2)
     d64 = torch.zeros((8, 8), dtype=torch.float64, device=cuda)
     v64 = torch.ones((8, 2), dtype=torch.float64, device=cuda)
-    with pytest.raises(TypeError):
-        dipcn_from_distances_multi_gpu(d64, v64, v64, mask[0], mask[:, :2], k=3, n_nbr=2)
+    with pytest.raises(TypeError):  # mixed dtypes
+        dipcn_from_distances_multi_gpu(d64, v64.float(), v64, mask[0], mask[:, :2], k=3, n_nbr=2)
     with pytest.raises(TypeError):  # mixed dtypes
         dipcn_from_distances_gpu(d64, v64[:, 0].float(), v64[:, 0], mask[0], mask[0], k=3,
                                  n_nbr=2)
@@ -1615,3 +1619,229 @@ def test_float64_cohort_step_on_card_matches_the_cpu_route(cuda, branch):
     same = got.dipcn_valid & ~dipcn_sets_differ(got.nbr_idx, want.nbr_idx,
                                                 reads_valid & want.z_mask.any(axis=1), 30)
     np.testing.assert_allclose(got.dipcn[same], want.dipcn[same], rtol=1e-9)
+
+
+# ---------------- float64: the multi-weight dipCN and the cross-mode Gram ---
+
+
+def _as_float64(d2):
+    """A float32 case's distances in float64, finfo(float32).max (self and
+    invalid rows) as finfo(float64).max."""
+    big32 = torch.finfo(torch.float32).max
+    return torch.where(d2 == big32, torch.finfo(torch.float64).max, d2.double()).contiguous()
+
+
+def _f64_multi_args(case, cuda, n_loci):
+    """(d2, rnorm, nbr_w, usable, valid), k, n_nbr: a binary case's
+    distances in float64 with ``n_loci`` loci's float64 weights."""
+    (d2, _, _, usable, _), k, n_nbr = _dipcn_case(case, cuda)
+    n, w = d2.shape
+    rnorm, nbr_w, valid = _multi_weights(np.random.default_rng(w + n_loci), cuda, n, w, n_loci)
+    return (_as_float64(d2), rnorm.double(), nbr_w.double(), usable, valid), k, n_nbr
+
+
+@pytest.mark.parametrize("case", list(_MULTI_CASES))
+def test_float64_dipcn_multi_kernel_against_its_plain_version(cuda, case):
+    """The multi-weight form's float64 entry point against the float64
+    plain form ([N, W] @ [W, L] of the take mask): ok exact, dipCN at rtol
+    1e-12; its wide mode bitwise its resident mode; its launch the plan's,
+    with no spill."""
+    from torch_plans import dipcn_select_smem_bytes
+
+    args, k, n_nbr = _f64_multi_args(case, cuda, _MULTI_CASES[case])
+    w = args[0].shape[1]
+    before = dipcn_from_distances_multi_gpu.launches
+    got, gok = dipcn_from_distances_multi_gpu(*args, k=k, n_nbr=n_nbr)
+    assert dipcn_from_distances_multi_gpu.launches == before + 1 and got.dtype == torch.float64
+    want, wok = dipcn_from_distances_multi(*args, k=k, n_nbr=n_nbr)
+    assert torch.equal(gok, wok)
+    torch.testing.assert_close(got[gok], want[gok], rtol=F64_RTOL, atol=0)
+    if case == "no-usable-row":
+        assert not gok[0].any()
+    wide, wide_ok = _launch_multi("wide", *args, k, n_nbr)
+    assert torch.equal(wide_ok, gok) and torch.equal(wide, got)
+    info = dipcn_select_info(w, k, cuda, multi=True, dtype=torch.float64)
+    assert info["spill_bytes"] == 0
+    assert info["mode"] == dipcn_select_mode(w, k, cuda, torch.float64) == "resident"
+    assert info["smem_bytes"] == dipcn_select_smem_bytes(w, k, 8)
+
+
+@pytest.mark.parametrize("case", ["ties-300", "all-equal", "narrow-band", "wide"])
+def test_float64_dipcn_multi_kernel_per_locus_equals_the_binary_kernel(cuda, case):
+    """L=1, and each column of L=6, against the float64 binary kernel on
+    the same weights: the same sets (``ok`` equal), values within rtol
+    1e-12 (both sum in float64, in other orders)."""
+    (d2, rnorm, nbr_w, usable, valid), k, n_nbr = _f64_multi_args(case, cuda, 6)
+    for loci in (slice(0, 1), slice(0, 6)):
+        got, gok = dipcn_from_distances_multi_gpu(
+            d2, rnorm[:, loci].contiguous(), nbr_w[:, loci].contiguous(), usable,
+            valid[:, loci].contiguous(), k=k, n_nbr=n_nbr)
+        for j in range(got.shape[1]):
+            want, wok = dipcn_from_distances_gpu(
+                d2, rnorm[:, j].contiguous(), nbr_w[:, j].contiguous(), usable,
+                valid[:, j].contiguous(), k=k, n_nbr=n_nbr)
+            assert want.dtype == torch.float64 and torch.equal(gok[:, j], wok)
+            torch.testing.assert_close(got[wok, j], want[wok], rtol=F64_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("w", [30000, 65600])
+def test_float64_dipcn_multi_kernel_wide_rows_past_the_resident_edge(cuda, w):
+    """Rows past the float64 resident edge (~28,000 columns at k=500) take
+    the wide mode; 65,600 columns also need its int32 lists. 40 loci."""
+    n, k, n_nbr = 24, 500, 300
+    rng = np.random.default_rng(w)
+    d2 = torch.tensor(rng.integers(0, 400, (n, w)) * 0.25, dtype=torch.float64, device=cuda)
+    d2[:, rng.random(w) < 0.05] = torch.finfo(torch.float64).max
+    d2[:, w - 60:] = 0.0  # the nearest columns and a tie group at the row's end
+    d2[:, w - 64:w - 60] = 0.25
+    usable = torch.tensor(rng.random(w) > 0.2, device=cuda)
+    rnorm, nbr_w, valid = _multi_weights(rng, cuda, n, w, 40)
+    rnorm, nbr_w = rnorm.double(), nbr_w.double()
+    assert dipcn_select_mode(w, k, cuda, torch.float64) == "wide"
+    if w < 65536:  # float32 keeps such a row in shared memory
+        assert dipcn_select_mode(w, k, cuda) == "resident"
+    got, gok = dipcn_from_distances_multi_gpu(d2, rnorm, nbr_w, usable, valid, k=k, n_nbr=n_nbr)
+    want, wok = dipcn_from_distances_multi(d2, rnorm, nbr_w, usable, valid, k=k, n_nbr=n_nbr)
+    assert torch.equal(gok, wok)
+    torch.testing.assert_close(got[gok], want[gok], rtol=F64_RTOL, atol=0)
+    assert dipcn_select_info(w, k, cuda, multi=True, dtype=torch.float64)["spill_bytes"] == 0
+
+
+def test_float64_dipcn_multi_kernel_refuses_mixed_dtypes(cuda):
+    """d2, rnorm and nbr_w of one dtype: float64 distances with float32
+    weights (or the other way round) reach no kernel."""
+    d2 = torch.zeros((8, 8), dtype=torch.float64, device=cuda)
+    w2 = torch.ones((8, 3), dtype=torch.float64, device=cuda)
+    usable = torch.ones(8, dtype=torch.bool, device=cuda)
+    before = dipcn_from_distances_multi_gpu.launches
+    for args in ((d2, w2.float(), w2), (d2, w2, w2.float()), (d2.float(), w2, w2)):
+        with pytest.raises(TypeError):
+            dipcn_from_distances_multi_gpu(*args, usable, w2 > 0, k=4, n_nbr=3)
+    assert dipcn_from_distances_multi_gpu.launches == before
+
+
+def test_float64_dipcn_multi_panels_on_card_match_the_plain_panels(cuda):
+    """The sweep's panel route in float64 (the FP64 split and panel Grams,
+    the distances and the multi kernel in float64, no float32 copy) on a
+    ragged last panel, against the plain float64 panel form on the card."""
+    rng = np.random.default_rng(6)
+    n, r, n_loci = 1100, 40, 12
+    zp = torch.tensor(np.round(rng.normal(size=(n, r)) * 4) / 4, dtype=torch.float64, device=cuda)
+    usable = torch.tensor(rng.random(n) > 0.2, device=cuda)
+    rnorm, nbr_w, _ = _multi_weights(rng, cuda, n, n, n_loci)
+    rnorm, nbr_w = rnorm.double(), nbr_w.double()
+    valid = usable[:, None].expand(n, n_loci).contiguous()
+    row_valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    before = (zprep_split.launches, zprep_gram_panel.launches,
+              dipcn_from_distances_multi_gpu.launches)
+    got, gok = dipcn_multi_panels_gpu(zp, rnorm, nbr_w, usable, valid, k=60, n_nbr=30,
+                                      row_block=512, row_valid=row_valid)
+    assert (zprep_split.launches, zprep_gram_panel.launches,
+            dipcn_from_distances_multi_gpu.launches) == (before[0] + 1, before[1] + 3,
+                                                         before[2] + 3)
+    assert got.dtype == torch.float64
+    want, wok = dipcn_from_distances_panels(zp, rnorm, nbr_w, usable, valid, k=60, n_nbr=30,
+                                            row_block=512, row_valid=row_valid)
+    assert torch.equal(gok, wok)
+    torch.testing.assert_close(got[gok], want[gok], rtol=F64_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("n,r", [(300, 70), (700, 130)])
+def test_float64_gram_products_are_symmetric_bitwise(cuda, n, r):
+    """What lets the float64 cross mode skip the mirror launch: a panel
+    that starts off a tile (no tile of it is diagonal, so every entry is
+    computed, none mirrored) equals the tile-aligned panel (whose diagonal
+    tiles take their lower halves from their upper halves) bitwise, and
+    its own computed entries G[i, j] and G[j, i] are equal bitwise."""
+    rng = np.random.default_rng(n)
+    zp = torch.tensor(rng.normal(size=(n, r)).clip(-2, 2), dtype=torch.float64, device=cuda)
+    split = zprep_split(zp, None, None, float("inf"))
+    aligned = zprep_gram_panel(split, 0, n)
+    off = zprep_gram_panel(split, 64, n - 64)  # row tiles at 64, 192, ...: never diagonal
+    assert torch.equal(off, aligned[64:])
+    block = off[:, 64:]  # rows and columns 64 .. n-1, all computed
+    assert torch.equal(block, block.T)
+
+
+@pytest.mark.parametrize("n,world,r", [(300, 3, 70), (1000, 4, 130), (1100, 2, 257),
+                                         (4096, 4, 64), (97, 2, 33)])
+def test_float64_zprep_gram_cross_equals_the_panel_entries(cuda, n, world, r):
+    """The ring's float64 block products ([1, B, R_pad] splits, one launch
+    each), for every pair of blocks of B = ceil(n/W) rows, are bitwise the
+    entries of one float64 zprep_gram_panel over all n rows, and within
+    1e-12 of the plain P_a P_b^T."""
+    rng = np.random.default_rng(n + world)
+    z = torch.tensor(rng.normal(size=(n, r)) * 3, dtype=torch.float64, device=cuda)
+    mask = torch.tensor(rng.random((n, r)) > 0.1, device=cuda)
+    region = torch.tensor(rng.random(r) > 0.2, device=cuda)
+    zp = torch.where(mask, z.clamp(-2.0, 2.0), 0) * region[None, :].double()
+    panel = zprep_gram_panel(zprep_split(zp, None, None, float("inf")), 0, n)
+    b = -(-n // world)
+    zpad = torch.cat([zp, zp.new_zeros((b * world - n, r))])
+    blocks = [zprep_split(zpad[i * b:(i + 1) * b].contiguous(), None, None, float("inf"))
+              for i in range(world)]
+    assert blocks[0].p.shape[0] == 1 and blocks[0].p.dtype == torch.float64
+    plain = [zprep_split_plain(zpad[i * b:(i + 1) * b], None, None, float("inf"))
+             for i in range(world)]
+    before = zprep_gram_cross.launches
+    for a in range(world):
+        for o in range(world):
+            g = zprep_gram_cross(blocks[a], blocks[o], a * b, o * b)
+            assert g.shape == (b, b) and g.dtype == torch.float64
+            ra, ro = min(b, n - a * b), min(b, n - o * b)
+            if ra > 0 and ro > 0:
+                assert torch.equal(g[:ra, :ro], panel[a * b:a * b + ra, o * b:o * b + ro]), (a, o)
+            assert_close_to_max(g.cpu(), zprep_gram_cross_plain(plain[a], plain[o]).cpu(),
+                                F64_RTOL)
+    assert zprep_gram_cross.launches == before + world * world
+    with pytest.raises(ValueError):
+        zprep_gram_cross(blocks[0], blocks[1], -1, 0)
+    with pytest.raises(TypeError):  # a float32 split beside a float64 one
+        zprep_gram_cross(blocks[0], zprep_split(zpad[:b].float(), None, None, float("inf")))
+
+
+@pytest.mark.parametrize("na,nb", [(1, 1), (127, 129), (4096, 4096), (8192, 8192), (129, 4096)])
+def test_float64_zprep_gram_cross_info_is_the_plan(cuda, na, nb):
+    """The cross mode's own launch shape (``zprep_gram64_info`` mode 3) is
+    ``tests/torch_plans.py``'s plan, in registers with no spill."""
+    from torch_plans import zprep_gram64_plan
+
+    info = zprep_gram_info(nb, cuda, torch.float64, "cross", na)
+    plan = zprep_gram64_plan(nb, na, "cross")
+    keys = ("tile", "k_tile", "stages", "threads", "smem_bytes", "blocks", "blocks_per_sm")
+    assert {key: info[key] for key in keys} == {key: plan[key] for key in keys}
+    assert info["spill_bytes"] == 0 and info["registers"] <= 255
+
+
+def test_float64_ring_step_at_w2_equals_the_flat_step(cuda):
+    """``sharded_cohort_step`` over 2 ranks of the card in float64 (the
+    cross mode, float64 ring shifts, the float64 knn_select merges) against
+    the flat float64 step on the card: z within 1e-12 of max|z|, neighbor
+    lists identical but for ties within 1e-12 of the k-th distance, dipCN
+    at 1e-9 where the input sets agree; each rank launched the float64
+    cross mode twice."""
+    from grid_tpu_torch.parallel import sharded_cohort_step
+
+    rng = np.random.default_rng(9)
+    n, r = 600, 96
+    values = rng.uniform(20, 40, (n, r)) * rng.normal(1, 0.1, (n, r)).clip(0.5, None)
+    mask = rng.random((n, r)) > 0.02
+    reads = rng.integers(500, 3000, n).astype(np.float64)
+    reads_valid = rng.random(n) > 0.05
+    ring = [[((h + 2) % (2 * n), 1.0), ((h - 2) % (2 * n), 0.5)] for h in range(2 * n)]
+    hap = pad_hap_neighbors(ring, 2, dtype=np.float64)
+    params = CohortParams(num_neighbors=50, n_nbr=30, n_iters=10, quantize=False)
+    reports = []
+    got = outputs_to_numpy(sharded_cohort_step(2, values, mask, reads, reads_valid, *hap, params,
+                                               dtype=torch.float64, reports=reports))
+    assert [rep["zprep_gram_cross"] for rep in reports] == [2, 2]
+    want = outputs_to_numpy(cohort_step(*inputs_to_torch(values, mask, reads, reads_valid, *hap,
+                                                         cuda, torch.float64), params))
+    assert got.z.dtype == np.float64 and got.nbr_sq_dists.dtype == np.float64
+    assert_close_to_max(got.z[:n], want.z, F64_RTOL)
+    neighbor_rows_differing(got.nbr_idx[:n], got.nbr_sq_dists[:n], want.nbr_idx,
+                            want.nbr_sq_dists, tol=F64_RTOL * want.nbr_sq_dists[:, -1])
+    np.testing.assert_array_equal(got.dipcn_valid[:n], want.dipcn_valid)
+    same = want.dipcn_valid & ~dipcn_sets_differ(got.nbr_idx[:n], want.nbr_idx,
+                                                 reads_valid & want.z_mask.any(axis=1), 30)
+    np.testing.assert_allclose(got.dipcn[:n][same], want.dipcn[same], rtol=1e-9)

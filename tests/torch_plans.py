@@ -2,7 +2,8 @@
 functions: what ``csrc/knn_select.cu`` (``plan_of``, ``select_mode``),
 ``csrc/dipcn_select.cu`` (``dyn_smem_bytes``), ``csrc/phase_sweeps.cu``
 (``resident_smem_bytes``) and ``csrc/zprep_gram64.cu`` (``mode_blocks``,
-``kSmemBytes``) compute. ``tests/test_torch_float64.py`` checks
+``kSmemBytes``; with ``csrc/zprep_gram.cu``, the cross mode's launches)
+compute. ``tests/test_torch_float64.py`` checks
 them on the CPU; ``tests/test_torch_gpu.py`` holds the kernels' own
 ``*_info`` answers to them on the card.
 """
@@ -55,9 +56,10 @@ def knn_select_mode_of(w: int, k: int, itemsize: int, smem: int) -> str | None:
 
 
 def dipcn_select_smem_bytes(w: int, k: int, itemsize: int) -> int:
-    """The resident mode's dynamic shared memory a block: the row's keys of
-    ``itemsize`` bytes, its usable bits and a 16-bit list of min(k, w)
-    columns."""
+    """The resident mode's dynamic shared memory a block, in either form
+    (binary, or multi-weight, whose step 5m compacts the same list in
+    place) and value type: the row's keys of ``itemsize`` bytes, its
+    usable bits and a 16-bit list of min(k, w) columns."""
     return (-(-w // 4) * 4 * itemsize + -(-w // 32) * 4 + -(-min(k, w) // 8) * 8 * 2)
 
 
@@ -79,10 +81,13 @@ H100_SMS, H100_SMEM = 132, 232_448
 
 def zprep_gram64_plan(n: int, rows: int, mode: str) -> dict:
     """The FP64 Gram's launch at ``n`` rows in ``mode``: "triangle" (the
-    upper-triangle tiles), "split" (the diagonal tiles) or "panel" (``rows``
+    upper-triangle tiles), "split" (the diagonal tiles), "panel" (``rows``
     rows: its row tiles times the column tiles, the row tiles of one column
-    tile neighbours). One block a tile and one block an SM (64 float64
-    accumulators a consumer thread), so ``waves`` is blocks over 132 SMs;
+    tile neighbours) or "cross" (a block of ``rows`` rows by a block of
+    ``n``: the same tiles, one launch whatever the blocks' offsets, no
+    mirror). One block a tile and one block an
+    SM (64 float64 accumulators a consumer thread), so ``waves`` is blocks
+    over 132 SMs;
     the dynamic shared memory holds the ring and, after it, the epilogue's
     [128][129] float64 tile, with 1 KB to align the ring for the 128-byte
     swizzle. ``flops_per_l2_byte`` is what a tile multiplies per operand
@@ -90,7 +95,7 @@ def zprep_gram64_plan(n: int, rows: int, mode: str) -> dict:
     t = GRAM64_TILE
     tiles = -(-n // t)
     blocks = {"triangle": tiles * (tiles + 1) // 2, "split": tiles,
-              "panel": -(-rows // t) * tiles}[mode]
+              "panel": -(-rows // t) * tiles, "cross": -(-rows // t) * tiles}[mode]
     ring, epilogue = GRAM64_STAGES * 2 * t * GRAM64_K_TILE * 8, t * (t + 1) * 8
     return {"tile": t, "k_tile": GRAM64_K_TILE, "stages": GRAM64_STAGES,
             "threads": GRAM64_CONSUMERS + 128, "smem_bytes": max(ring, epilogue) + 1024,
@@ -108,5 +113,6 @@ def zprep_gram64_l2_bytes(n: int, rows: int, mode: str, r_pad: int) -> int:
     plan = zprep_gram64_plan(n, rows, mode)
     operand = plan["tile"] * r_pad * 8
     tiles = -(-n // plan["tile"])
-    diag = {"triangle": tiles, "split": tiles, "panel": -(-rows // plan["tile"])}[mode]
+    diag = {"triangle": tiles, "split": tiles, "panel": -(-rows // plan["tile"]),
+            "cross": 0}[mode]
     return (2 * (plan["blocks"] - diag) + diag) * operand

@@ -22,7 +22,7 @@ import torch
 from grid_tpu_torch import native
 from grid_tpu_torch.io.staging import bed_files_source, stage_cohort_sharded
 from grid_tpu_torch.models.cohort import CohortParams, panel_knn_dipcn
-from grid_tpu_torch.ops.gpu_kernels import zprep_split
+from grid_tpu_torch.ops.gpu_kernels import SplitZ, zprep_split
 from grid_tpu_torch.ops.normalize import select_high_variance_mask
 from grid_tpu_torch.parallel.mesh import shard_cohort_inputs
 from grid_tpu_torch.parallel.pcohort import _rank_step
@@ -145,6 +145,23 @@ def auto_knn_rank(group, cases):
         if group.rank == 0:
             outs["p"].open().copy_(whole.p.cpu())
             outs["norms"].open().copy_(whole.norms.cpu())
+
+
+def gather_split_rank(group, cases):
+    """Each case: (p, norms, out_p, out_norms) handles, whole on every rank:
+    p [H, N, R] (the card's layouts: P's two TF32 halves, or the float64 P
+    itself as [1, N, R]) or [N, R] (the CPU's P), norms [N], N a multiple
+    of W. The rank hands ``pcohort.gather_split`` its rows as a split of
+    its own; rank 0 writes what it gathered."""
+    for p_h, norms_h, out_p, out_norms in cases:
+        p, norms = p_h.open(), norms_h.open()
+        b = norms.shape[0] // group.world
+        rows = slice(group.rank * b, (group.rank + 1) * b)
+        whole = pcohort.gather_split(group, SplitZ(p[..., rows, :].contiguous(),
+                                                   norms[rows].contiguous()))
+        if group.rank == 0:
+            out_p.open().copy_(whole.p)
+            out_norms.open().copy_(whole.norms)
 
 
 def cache_rank(group):
