@@ -125,11 +125,13 @@ before the last line):
              within rtol 1e-5 on rows whose input sets agree, and the haploid
              table within one quantum of 100 plain sweeps over the card's
              dipCN. A shuffled row, a wrong column or a wrong distance fails.
-             (c) a card run on the Python host route (the host library
-             hidden from the port by a patch of its module attribute): its
-             staged arrays must equal the native route's bitwise, and its
-             four artifacts the native run's after decompression where the
-             card step is bitwise repeatable (card runs 1 and 2 agree);
+             (c) card runs on the first 256 samples (a cut for the time
+             limit), on the native and on the Python host route (the host
+             library hidden from the port by a patch of its module
+             attribute): the Python route's staged arrays must equal the
+             native route's bitwise, and its four artifacts the native
+             run's after decompression where the card step is bitwise
+             repeatable (card runs 1 and 2 agree);
              where it is not, the native run's outputs rewritten by the
              Python writers must equal its native files instead. (d) a card
              run of the row-panel branch (d2_budget_bytes lowered below the
@@ -199,7 +201,7 @@ before the last line):
 12. alignments — host steps 1-3 from BAM/CRAM in front of steps 4-7
              (``alignment_phase``). (a) A 1000 Genomes-shaped BAM cohort
              from the port's ``make_synthetic_cohort_with_alignments`` in the
-             shape of scripts/bench_e2e_1000g.py (N=1024, a cut of its 2504
+             shape of scripts/bench_e2e_1000g.py (N=256, a cut of its 2504
              for the time limit, seed 9, mean_depth
              4.0, 100 bp reads, the window chr6:160,605,000-160,615,000 and
              10 flank bins of 1 kb each side; ~3,000 reads a sample), its
@@ -311,15 +313,15 @@ before the last line):
              whole returned z. (b) N=65,536 over 4 ranks, held to phase 7's
              flat step: the call's host time, each rank's step, spans and
              peak memory, beside phase 15 (c)'s ring and phase 7's step.
-             (c) ``stage_cohort_sharded`` over 4 ranks on phase 9's files
+             (c) ``stage_cohort_sharded`` over 2 ranks on phase 9's files
              equals the one-rank stage bitwise, and
-             ``staged_sharded_cohort_step`` over 4 ranks is held to
+             ``staged_sharded_cohort_step`` over 2 ranks is held to
              ``sharded_cohort_step`` from that stage's host arrays (indices
              equal, dipCN rtol 1e-6); each rank's passes, host buffer and
              peak RSS. (d) ``python -m grid_tpu_torch.cli wgs`` on phase 9's
              fused config with ``device.compilation_cache`` a fresh
-             directory: cold (nvcc, g++ and Triton build there), warm, and
-             warm with ``GRID_TPU_PROFILE_DIR``: the libraries and Triton's
+             directory: cold (nvcc, g++ and Triton build there) and warm
+             with ``GRID_TPU_PROFILE_DIR``: the libraries and Triton's
              cache in the directory, build/grid_tpu_torch/ unchanged, a trace
              per outermost step, the fused step's naming ``fused.device`` and
              the hand kernels' device events, the artifacts equal.
@@ -327,7 +329,7 @@ before the last line):
              and ``float64_slice_phase`` after phases 7-8; (d), (h) and
              (i)'s pipeline and stager inside phase 9). (f) Float64 is
              taken with ``device.mesh_shape`` and for the multi-locus sweep;
-             bfloat16 and float64 past 8,192 neighbors are refused up
+             float64 past 8,192 neighbors is refused up
              front. Then phases 3-7 run again in float64 (the
              same functions, ``kernels_phase`` and ``panel_phase``, at the
              float64 bounds of ``TOL``): (a) each float64 kernel against its
@@ -374,7 +376,7 @@ before the last line):
              plain version, its launch the plan's,
              timed beside torch.mm float64 with its bound by operations
              (2*Ba*Bb*R at 67 TFLOP/s). (h) ``run_multi_locus`` with
-             ``device.dtype: float64`` over 16 catalog loci, LPA among
+             ``device.dtype: float64`` over 4 catalog loci, LPA among
              them, step 7 on, on phase 9's cohort with phase 11's counts:
              its launches (the multi form once per usability group, no
              plain version reached), its normalized file byte for byte
@@ -392,11 +394,39 @@ before the last line):
              phase 9's files (the sharded stager's float64 buffers), held
              to the flat float64 step from the stage its ranks made; every
              rank's launches checked.
+18. bfloat16 — ``device.dtype: bfloat16`` on the card (``bfloat16_phase``
+             after phase 17 (g, i); (c) inside phase 9). bfloat16 is taken
+             without ``device.mesh_shape`` (steps 4-6 in bf16, the steps
+             grid_tpu runs without a dtype in float32) and refused up front
+             with it, in both forms. (a) Phases 3-6 in bf16 at N=2504
+             (``kernels_phase``): the bf16 forms of the column statistics
+             (Triton) within one bf16 ulp of their plain versions, the Gram
+             (wgmma bf16) within one ulp of each entry or 2^-16 of max|G|
+             (its split pass's norms within one ulp), knn_select bitwise
+             the stable sort of the int16 keys in every case of phase 3 (its
+             widest bf16 row 131,072 columns), dipcn_select bitwise its plain
+             version; the N=2504 step against the port's bf16 CPU route
+             (z within 2^-7 of max|z|, lists under the tie rule at 2^-7 of
+             the k-th distance, dipCN within rtol 2^-7 where the input sets
+             agree), every kernel launched (the sweeps in float32) and no
+             plain version reached; each bf16 kernel timed beside its plain
+             version, its bound at 3.35 TB/s and 989 TFLOP/s (dense bf16)
+             and its library call (torch.mm in bf16, the stable torch.sort
+             and torch.topk); the step's device time by kernel. (b) The bf16
+             panel step at N=65,536, R=1024 on phase 7's cohort (8 GiB of
+             bf16 d2: the panel branch): launches, 3 panels held against the
+             plain route on the card, the step timed once, each kernel at
+             the panel shapes. (c) ``run_wgs_pipeline`` fused and in file
+             mode with ``device.dtype: bfloat16`` on phase 9's cohort, each
+             held to the port's bf16 CPU route of the same form under (a)'s
+             rules, and ``run_multi_locus`` in bf16 over 2 loci (step 4 in
+             bf16, its normalized file the file mode's; the batched dipCN
+             in float32).
 
 The last three lines are the kernels' JSON object (the panel-mode numbers
 at N=65,536; each entry's "slice_2504" holds phase 5's, "pipeline_2504"
 the launches of phase 9's pipeline call, "pipeline_files_2504" those of
-phase 10's, "multilocus_2504" those of phase 11's sweep and "alignments_1024"
+phase 10's, "multilocus_2504" those of phase 11's sweep and "alignments_256"
 those of phase 12's fused call from BAMs and, under "files", its file-mode
 call; the multi-weight
 form's row has the sweep's launches and its times at L=492; the
@@ -414,7 +444,10 @@ form's row, its launches those of phase 17 (h)'s sweep and its numbers at
 L=492 on that sweep's d2, the panels' under "panels_65536"; the FP64 cross
 mode's row, its launches those of phase 17 (i)'s ring at N=16,384 over 2
 ranks and its numbers at that ring's visiting block, [8192, 8192], the
-other blocks' under "other_blocks"), the card's name and power limit, and
+other blocks' under "other_blocks"; the four bf16 forms a row each, named
+"<kernel>[bfloat16]", their launches those of phase 18 (a)'s step, the
+panel numbers under "panel_65536", (c)'s launches and tie counts and the
+sweep's launches beside them), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -467,6 +500,7 @@ TIE_RTOL = 1e-5
 # phase 9: the 1000 Genomes cohort on disk, 43 window bins + 2 x 1003 flank
 # bins = 2049 bins of 1 kb, and what one pipeline call must launch
 PIPELINE_N, PIPELINE_FLANK, PIPELINE_SEED = 2504, 1003, 2504
+PY_HOST_N = 256  # phase 9 (c)'s samples: the Python host route, cut for the time limit
 PIPELINE_LAUNCHES = {"masked_column_stats": 2, "zprep_gram": 1, "dipcn_from_distances_gpu": 1}
 QUANTUM = 0.01001  # one %.2f step, with room for the last digit of a float
 # phase 10: the file-mode steps, their spans, and the split's and panels'
@@ -484,11 +518,11 @@ MULTI_TIMED_L = (1, 32, MULTI_L)
 FP32_FLOP_PER_S = 67e12  # NVIDIA's data sheet, H100 SXM
 # phase 12: the alignment cohorts (the shape of scripts/bench_e2e_1000g.py)
 # and the least correlation of read counts with the fabricated truth
-# (1,024 samples, the CRAM route at 32, the sequential steps at 16: cuts
+# (256 samples, the CRAM route at 32, the sequential steps at 16: cuts
 # of 256 and 64 that leave room in the time limit for phase 16, of 128 for
-# the selection and phasing kernels' checks, and of 2,504, 64 and 32 for
-# phase 17)
-ALIGN_N, ALIGN_SEED, ALIGN_DEPTH, ALIGN_CRAM_N = 1024, 9, 4.0, 32
+# the selection and phasing kernels' checks, of 2,504, 64 and 32 for
+# phase 17, and of 1,024 and 512 for phase 18; k is cut to N - 1 there)
+ALIGN_N, ALIGN_SEED, ALIGN_DEPTH, ALIGN_CRAM_N = 256, 9, 4.0, 32
 ALIGN_MIN_CORR = 0.9
 # the samples the sequential steps 2-3 run on: their step 3 parses each
 # genome-wide bed.gz (160,625 lines here) in Python, 0.36 s a file on the
@@ -542,6 +576,8 @@ TOOLS_WINDOW = ("chr6", 160_605_000, 160_615_000)  # the alignment cohorts' VNTR
 # order, bootstrap replicates decaying over 100 sweeps, and how close two
 # float64 Gram routes may put two neighbors that they order differently
 FP64_TENSOR_FLOP_PER_S = 67e12  # dense FP64 tensor-core peak
+BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak, the same sheet
+BF16_RTOL, BF16_ULPS = 2.0 ** -7, 1  # tests/torch_parity.py's bf16 contract
 FP64_FLOP_PER_S = 34e12  # FP64 outside the tensor cores
 F64_RTOL = 1e-12
 F64_BOOT_RTOL = 1e-10
@@ -560,6 +596,12 @@ TOL = {
         sums=F64_RTOL, gram=F64_RTOL, dipcn=F64_RTOL, sweeps=F64_RTOL, boot=F64_BOOT_RTOL,
         z=F64_RTOL, ties=F64_TIE_RTOL, step_dipcn=1e-9, gram_peak=FP64_TENSOR_FLOP_PER_S,
         peak=FP64_FLOP_PER_S),
+    # phase 18: the kernels against their plain versions within BF16_ULPS
+    # (the column statistics and the Gram) or bitwise (dipcn: 0), a step
+    # against another route at the bf16 contract (tests/torch_parity.py)
+    torch.bfloat16: SimpleNamespace(
+        sums=None, gram=None, dipcn=0.0, sweeps=1e-5, boot=None, z=BF16_RTOL, ties=BF16_RTOL,
+        step_dipcn=BF16_RTOL, gram_peak=BF16_FLOP_PER_S, peak=FP32_FLOP_PER_S),
 }
 # the five kernels of the cohort step: (route, source, the TPU kernel or XLA
 # loop it replaces), for float32 and float64
@@ -577,6 +619,9 @@ SOURCES = {
     "phase_sweeps_gpu": ("cuda", "grid_tpu_torch/csrc/phase_sweeps.cu",
                          "grid_tpu/ops/phasing.py:94 (lax.scan, no pallas_call)"),
 }
+BF16_SOURCES = {  # the bf16 forms live in the float32 forms' sources
+    name: SOURCES[name] for name in ("masked_column_stats", "zprep_gram",
+                                     "dipcn_from_distances_gpu", "sorted_smallest_k_gpu")}
 F64_SOURCES = {
     **SOURCES,
     "zprep_gram": ("cuda", "grid_tpu_torch/csrc/zprep_gram64.cu",
@@ -1454,7 +1499,7 @@ def ring_phase(dev, card: str, cohort_16384, cohort_65536, zp_65536) -> dict:
 
 AUTO_WORLDS = (1, 4)  # 1: NCCL (one rank per card); 4: gloo, sharing the card
 AUTO_BIOBANK_WORLD = 4
-STAGE_WORLD = 4
+STAGE_WORLD = 2  # a cut from 4 for the time limit
 
 
 @contextmanager
@@ -1652,7 +1697,8 @@ def load_stage(out: Path, prefix: str, world: int) -> dict:
 def stage_phase(card: str, tmp: Path, cohort: dict, base: dict, k: int, n_nbr: int,
                 platform: str = "cuda") -> None:
     """Phase 16 (c): the sharded stager on phase 9's cohort on disk (its
-    repeat mask applied). ``staged_sharded_cohort_step`` over 4 ranks: the
+    repeat mask applied). ``staged_sharded_cohort_step`` over STAGE_WORLD
+    ranks: the
     stage its ranks made equals the one-rank stage bitwise, and the step is
     held to ``sharded_cohort_step`` from the one-rank stage's host arrays
     (neighbor indices equal, dipCN rtol 1e-6); each rank's passes, host
@@ -1761,17 +1807,19 @@ OWN_KERNELS = ("split_kernel", "gram_kernel", "dipcn_select_kernel", "colstats",
 
 
 def cache_phase(card: str, tmp: Path, cohort: dict, base: dict, names: dict,
-                device: dict | None = None) -> None:
+                warm_t: dict, device: dict | None = None) -> None:
     """Phase 16 (d): ``python -m grid_tpu_torch.cli wgs`` on phase 9's fused
     config in subprocesses, with ``device.compilation_cache`` a fresh
-    directory: a cold call (nvcc, g++ and Triton build into it), a warm one,
-    and a warm one with ``GRID_TPU_PROFILE_DIR`` set. Fails unless the
-    libraries and Triton's cache are in the directory, build/grid_tpu_torch/
-    gained nothing, every outermost step wrote a trace, the fused step's
-    names ``fused.device`` and the hand kernels' device events, and the
-    profiled call's four artifacts equal the unprofiled call's. ``device``
-    adds keys to the config's device section (``{"platform": "cpu"}``
-    rehearses the calls on the host)."""
+    directory: a cold call (nvcc, g++ and Triton build into it) and a warm
+    one with ``GRID_TPU_PROFILE_DIR`` set (no unprofiled warm call, a cut
+    for the time limit: ``warm_t``, phase 9's in-process card run 2 on the
+    same config, is its unprofiled twin). Fails unless the
+    libraries and Triton's cache are in the directory, the warm call built
+    nothing, build/grid_tpu_torch/ gained nothing, every outermost step
+    wrote a trace, the fused step's names ``fused.device`` and the hand
+    kernels' device events, and the profiled call's four artifacts equal
+    the cold call's. ``device`` adds keys to the config's device section
+    (``{"platform": "cpu"}`` rehearses the calls on the host)."""
     from grid_tpu_torch import native
 
     repo = Path(__file__).resolve().parent
@@ -1811,10 +1859,9 @@ def cache_phase(card: str, tmp: Path, cohort: dict, base: dict, names: dict,
               f"the build cache holds no {prefix}*.so: {built}")
     triton_files = [name for name in built if name.startswith("triton/")]
     check(len(triton_files) > 0, f"the build cache holds no Triton cache: {built}")
-    warm_out, warm_t, warm_s = call("warm")
-    check(listing(cache) == built, "the warm call built something")
     traces = tmp / "traces16"
     prof_out, prof_t, prof_s = call("profiled", traces)
+    check(listing(cache) == built, "the warm call built something")
     check(listing(native.BUILD_DIR) == build_before,
           "build/grid_tpu_torch/ changed during the calls with a build cache")
     outer = sorted(name for name in prof_t if "." not in name)
@@ -1829,25 +1876,26 @@ def cache_phase(card: str, tmp: Path, cohort: dict, base: dict, names: dict,
     for kernel in OWN_KERNELS:
         check(any(kernel in name for name in device_names),
               f"the fused step's trace has no device event of {kernel}")
+    cold_out = tmp / "cache16_cold"
     for name in names.values():
-        check(content(prof_out / name) == content(warm_out / name),
-              f"the profiled call's {name} differs from the unprofiled call's")
+        check(content(prof_out / name) == content(cold_out / name),
+              f"the profiled call's {name} differs from the cold call's")
     trace_mb = sum(p.stat().st_size for p in traces.rglob("*.json")) / 2**20
     print(f"[cache] python -m grid_tpu_torch.cli wgs on phase 9's fused config, "
           f"device.compilation_cache a fresh directory: cold call {cold_s:.2f} s "
           f"(fused.device {cold_t['fused.device']:.3f} s; nvcc of zprep_gram, dipcn_select, "
           f"knn_select and phase_sweeps, "
           f"g++ of the host library and Triton's column statistics all built into the "
-          f"directory, none seeded: {len(built)} files, {len(triton_files)} of them Triton's), "
-          f"warm call {warm_s:.2f} s (fused.device {warm_t['fused.device']:.3f} s, nothing "
-          f"built); build/grid_tpu_torch/ unchanged; host clock, each call a process of its "
-          f"own; {card}", flush=True)
-    print(f"[cache] warm call with GRID_TPU_PROFILE_DIR: {prof_s:.2f} s (fused.device "
-          f"{prof_t['fused.device']:.3f} s, fused_steps_4_7 {prof_t['fused_steps_4_7']:.3f} s "
-          f"against {warm_t['fused_steps_4_7']:.3f} s unprofiled); one trace.json for each of "
-          f"{outer} ({trace_mb:.1f} MiB in all); the fused step's names fused.device and device "
-          f"events of {', '.join(OWN_KERNELS)}; the four artifacts equal the unprofiled call's "
-          f"byte for byte (decompressed); {card}", flush=True)
+          f"directory, none seeded: {len(built)} files, {len(triton_files)} of them Triton's); "
+          f"build/grid_tpu_torch/ unchanged; host clock, each call a process of its own; {card}",
+          flush=True)
+    print(f"[cache] warm call with GRID_TPU_PROFILE_DIR: {prof_s:.2f} s, nothing built "
+          f"(fused.device {prof_t['fused.device']:.3f} s, fused_steps_4_7 "
+          f"{prof_t['fused_steps_4_7']:.3f} s against {warm_t['fused_steps_4_7']:.3f} s "
+          f"unprofiled in phase 9's card run 2); one trace.json for each of {outer} "
+          f"({trace_mb:.1f} MiB in all); the fused step's names fused.device and device events of "
+          f"{', '.join(OWN_KERNELS)}; the four artifacts equal the cold call's byte for byte "
+          f"(decompressed); {card}", flush=True)
 
 
 def fabricated_reads(cohort: dict, cfg: dict, read_len: int = 100) -> int:
@@ -1974,7 +2022,7 @@ def alignment_phase(card: str, wrappers: dict, n: int = ALIGN_N, cram_n: int = A
         fab_s = time.perf_counter() - t0
         base = copy.deepcopy(cohort["config"])
         base["threads"] = threads
-        base["mosdepth"]["neighbors"]["num_neighbors"] = k
+        base["mosdepth"]["neighbors"]["num_neighbors"] = min(k, n - 1)
         base["compute_diploid_genotypes"]["n_nbr"] = n_nbr
         base["compute_haploid_genotypes"].update(max_neighbors=10, n_iters=N_ITERS)
         n_reads = fabricated_reads(cohort, base)
@@ -2858,8 +2906,9 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
     Returns the kernels' launches during the first pipeline call, phase
     10's, phase 11's results, phase 14's launches (its pipeline part runs
     on this cohort), phase 15 (d)'s (the ring from a config), phase 17
-    (d)'s and (i)'s float64 pipeline runs, and phase 17 (h)'s sweep and
-    (i)'s stager ({"sweep": ..., "stage": ...}). main() passes no size:
+    (d)'s and (i)'s float64 pipeline runs, phase 17 (h)'s sweep and
+    (i)'s stager ({"sweep": ..., "stage": ...}), and phase 18 (c)'s bf16
+    runs and sweep ({"runs": ..., "sweep": ...}). main() passes no size:
     the size arguments let the phase be rehearsed small."""
     import grid_tpu_torch.io.bed as port_bed
     import grid_tpu_torch.steps.fused as fused
@@ -2904,18 +2953,22 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
         print(f"[pipeline] cohort on disk: {n} samples x {n_bins} bins of 1 kb, made in "
               f"{time.perf_counter() - t0:.1f} s (host clock)", flush=True)
 
-        def run(label: str, device: dict, python_host: bool = False, panels: bool = False):
+        def run(label: str, device: dict, python_host: bool = False, panels: bool = False,
+                samples: Path | None = None):
             """One run_wgs_pipeline call. ``python_host`` hides the host
             library from the port (its Python reader and writers run),
             ``panels`` lowers the d2 budget below the [N, N] matrix, each by
-            a patch of the port's module attributes for this call only.
-            Returns the output directory, the timings, the launches and the
-            staged cohort."""
+            a patch of the port's module attributes for this call only;
+            ``samples`` names another samples file (a subset of the
+            cohort's). Returns the output directory, the timings, the
+            launches and the staged cohort."""
             cfg = copy.deepcopy(base)
             out = tmp / label
             out.mkdir()
             cfg["output_dir"] = str(out)
             cfg["device"] = device
+            if samples is not None:
+                cfg["samples_file"] = str(samples)
             (out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
             seen = {}
 
@@ -2965,7 +3018,7 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
                   f"(all but device and phase) {100 * host:.2f}%; {card}", flush=True)
 
         # ---- the card runs: no platform named, the native host route -----
-        card_out, card_t, launches, card_stage = run("card", {"fused": True})
+        card_out, card_t, launches, _ = run("card", {"fused": True})
         print(f"[pipeline] run_wgs_pipeline with no platform named, native host route: kernel "
               f"launches {launches}; 0 bed.gz files fell back to the Python reader", flush=True)
         check(launches == resident_launches, f"pipeline launches {launches} != {resident_launches}")
@@ -3055,25 +3108,34 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
 
         # ---- phase 17 (d): float64 on the card, fused and in file mode ----
         f64_runs = float64_pipeline_runs(card, tmp, cohort, base, names, cpu_out, k, n_nbr)
+        # ---- phase 18 (c): bfloat16 on the card, fused and in file mode ---
+        bf16_files = {"runs": bfloat16_pipeline_runs(card, tmp, cohort, base, names, k, n_nbr)}
 
-        # ---- (c) the Python host route on the card -----------------------
+        # ---- (c) the Python host route on the card, on a subset ----------
+        subset = tmp / "samples_python_host.txt"
+        subset.write_text("".join(f"{sid}\n"
+                                  for sid in read_samples(base["samples_file"])[:PY_HOST_N]))
+        sub_out, _, sub_launches, sub_stage = run("card_subset", {"fused": True}, samples=subset)
         py_out, py_t, py_launches, py_stage = run("card_python_host", {"fused": True},
-                                                  python_host=True)
-        check(py_launches == resident_launches, f"pipeline launches, Python host route: "
-                                                f"{py_launches}")
-        report("card run 3, Python host route (the port's Python reader and writers)", py_t)
-        check(py_stage.sample_ids == card_stage.sample_ids, "staged sample IDs differ by route")
+                                                  python_host=True, samples=subset)
+        check(py_launches == sub_launches == resident_launches,
+              f"pipeline launches on {PY_HOST_N} samples, native {sub_launches}, Python host "
+              f"route {py_launches}")
+        report(f"card run 3, Python host route (the port's Python reader and writers) on the "
+               f"first {PY_HOST_N} samples", py_t)
+        check(py_stage.sample_ids == sub_stage.sample_ids, "staged sample IDs differ by route")
         for field in ("regions", "values", "mask"):
-            a, b = getattr(card_stage, field), getattr(py_stage, field)
+            a, b = getattr(sub_stage, field), getattr(py_stage, field)
             check(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
                   f"staged {field} differ between the native and the Python host route")
-        print(f"[pipeline] _stage's arrays from the two host routes: bitwise equal (regions "
-              f"{card_stage.regions.shape}, values and mask {card_stage.values.shape})", flush=True)
+        print(f"[pipeline] _stage's arrays from the two host routes on {PY_HOST_N} samples: "
+              f"bitwise equal (regions {sub_stage.regions.shape}, values and mask "
+              f"{sub_stage.values.shape})", flush=True)
         repeat_differs = [a for a, name in names.items()
                           if content(card_out / name) != content(card2_out / name)]
         if not repeat_differs:
             for artifact, name in names.items():
-                check(content(py_out / name) == content(card_out / name),
+                check(content(py_out / name) == content(sub_out / name),
                       f"the {artifact} artifact differs between the host routes (decompressed)")
             print("[pipeline] the card step is bitwise repeatable (card runs 1 and 2 wrote the "
                   "same four artifacts, decompressed); the Python host route's four artifacts "
@@ -3157,6 +3219,8 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
 
         # ---- phase 17 (h), (g) at N=2504: the float64 sweep ---------------
         f64_files = {"sweep": float64_sweep_phase(card, tmp, base, names, k, n_nbr)}
+        # ---- phase 18 (c): the sweep in bfloat16 --------------------------
+        bf16_files["sweep"] = bfloat16_sweep_run(card, tmp, base, names, k)
 
         # ---- phase 14 (b, c): compute_ibs in front of the fused steps -----
         ibs_launches = ibs_pipeline_phase(card, counted, tmp, cohort, base, names,
@@ -3166,10 +3230,11 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
         stage_phase(card, tmp, cohort, base, k, n_nbr)
         # ---- phase 17 (i): the sharded stager in float64 ------------------
         f64_files["stage"] = float64_stage_run(card, tmp, cohort, base, k, n_nbr)
-        cache_phase(card, tmp, cohort, base, names)
+        cache_phase(card, tmp, cohort, base, names, again_t)
     check(not tmp.exists(), "the temporary directory was not removed")
     return ({name: launches[name] for name in wrappers}, files_launches, multi,
-            {name: ibs_launches[name] for name in wrappers}, ring_launches, f64_runs, f64_files)
+            {name: ibs_launches[name] for name in wrappers}, ring_launches, f64_runs, f64_files,
+            bf16_files)
 
 
 def sm_clocks_mhz() -> tuple:
@@ -4043,14 +4108,18 @@ def step_wrappers() -> dict:
 
 
 def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int):
-    """Phases 3-6 at N=2504 in ``dtype`` (float64: phase 17 (a, b, e)):
-    the kernels' launch shapes; each kernel against its plain version on
-    the card at TOL[dtype] (3); the step against the port's CPU route in
-    the same dtype, every kernel launched and no plain version reached (4);
-    the step and each kernel timed, with its bound and library call (5);
-    the step's device time by kernel (6). Returns a namespace: the kernels'
-    rows, the step's tie counts, and what phase 5's float32 timings go on
-    with."""
+    """Phases 3-6 at N=2504 in ``dtype`` (float64: phase 17 (a, b, e);
+    bfloat16: phase 18 (a)): the kernels' launch shapes; each kernel against
+    its plain version on the card at TOL[dtype] (3); the step against the
+    port's CPU route in the same dtype, every kernel launched and no plain
+    version reached (4); the step and each kernel timed, with its bound and
+    library call (5); the step's device time by kernel (6). In bfloat16 the
+    four kernels of steps 4-6 run their bf16 forms, held within BF16_ULPS
+    (the column statistics, the Gram) or bitwise (the selections); the
+    sweeps run in float32 (step 7 computes as under auto) and are phase 3's
+    float32 kernel, so they are neither held nor timed again. Returns a
+    namespace: the kernels' rows, the step's tie counts, and what phase 5's
+    float32 timings go on with."""
     from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
     from grid_tpu_torch.ops.gpu_kernels import (
@@ -4058,8 +4127,8 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
         zprep_gram_plain,
     )
     from grid_tpu_torch.ops.gpu_select import (
-        KNN_MAX_K, _knn_launch, dipcn_from_distances_gpu, dipcn_select_info, knn_select_info,
-        sorted_smallest_k_gpu,
+        KNN_BF16_MAX_W, KNN_MAX_K, _knn_launch, dipcn_from_distances_gpu, dipcn_select_info,
+        knn_select_info, sorted_smallest_k_gpu,
     )
     from grid_tpu_torch.ops.knn import d2_matrix, prepare_z, region_filter_mask, sorted_smallest_k
     from grid_tpu_torch.ops.masked import masked_mean
@@ -4070,13 +4139,21 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
     from grid_tpu_torch.ops.select import dipcn_from_distances
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from torch_parity import assert_close_to_max
+    from torch_parity import assert_close_to_max, bf16_gram_ratio, bf16_ulps
     from torch_plans import zprep_gram64_l2_bytes
 
     f32, tol, e = dtype == torch.float32, TOL[dtype], torch.finfo(dtype).bits // 8
+    half = dtype == torch.bfloat16
+    wide = torch.float32 if half else dtype  # the reads' and the sweeps' dtype
     big = torch.finfo(dtype).max
-    tag = "" if f32 else " f64"
+    tag = {torch.float32: "", torch.float64: " f64", torch.bfloat16: " bf16"}[dtype]
     kind = str(dtype).removeprefix("torch.")
+
+    def close(got, want, rtol) -> bool:
+        """Within rtol, or within BF16_ULPS in bfloat16 (rtol None)."""
+        if half and rtol is None:
+            return bf16_ulps(got.float().cpu().numpy(), want.float().cpu().numpy()) <= BF16_ULPS
+        return torch.allclose(got, want, rtol=rtol, atol=0)
 
     # ---- launch shapes ---------------------------------------------------
     info = zprep_gram_info(N, dev, dtype)
@@ -4100,8 +4177,9 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
           f"{kinfo['blocks_per_sm']} blocks per SM ({min(N, kinfo['blocks_per_sm'] * sms)} of "
           f"{N} rows in flight); {kinfo['registers']} registers and {kinfo['spill_bytes']} B of "
           f"local memory a thread", flush=True)
-    pinfo = phase_sweeps_info(N, 2, dev, dtype=dtype)  # the slice's ring lists: 2 slots
-    print(f"[build{tag}] phase_sweeps {kind} at N={N}, K=2: {pinfo['mode']} mode, a cluster of "
+    pinfo = phase_sweeps_info(N, 2, dev, dtype=wide)  # the slice's ring lists: 2 slots
+    print(f"[build{tag}] phase_sweeps {str(wide).removeprefix('torch.')} at N={N}, K=2: "
+          f"{pinfo['mode']} mode, a cluster of "
           f"{pinfo['cluster_blocks']} blocks of {pinfo['threads']} threads per replicate, "
           f"{pinfo['smem_bytes']} B of shared memory a block (the values double-buffered and "
           f"an eighth of the lists), {pinfo['blocks_per_sm']} block(s) per SM, "
@@ -4115,19 +4193,21 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
     values = torch.tensor(values_np, dtype=dtype, device=dev)
     mask = torch.tensor(mask_np, device=dev)
     # the cohort step's own inputs to each kernel (its d2-resident prefix)
-    norm = normalize_cohort(values, mask)
+    norm = normalize_cohort(values, mask, round_squares=False)  # bf16: as the step takes it
     selected = select_high_variance_mask(norm.var_ratio)
     ratios_seen = torch.where(selected, norm.var_ratio, torch.nan)
     region = selected & region_filter_mask(ratios_seen, n_written=selected.sum())
     sample_ok = norm.mask.any(dim=1)
     d2 = d2_matrix(norm.z, norm.mask, region, ZMAX, row_valid=sample_ok)
-    w_main = torch.tensor(reads_np, dtype=dtype, device=dev) / norm.row_means_raw
+    w_main = (torch.tensor(reads_np, dtype=wide, device=dev) / norm.row_means_raw).to(dtype)
+    cs_kw = {"round_squares": False} if half else {}
 
     def colstats_case(vals, msk):
         rm = masked_mean(vals, msk, axis=1)
         ok = torch.isfinite(rm) & (rm != 0)
-        inv = torch.where(ok, 1 / torch.where(ok, rm, 1), 0)
-        return vals, msk & ok[:, None], inv
+        # bf16 divides by the row means, float32 and float64 scale by 1 / them
+        row = torch.where(ok, rm, 1) if half else torch.where(ok, 1 / torch.where(ok, rm, 1), 0)
+        return vals, msk & ok[:, None], row
 
     ragged_vals = torch.tensor(rng.uniform(10, 60, RAGGED), dtype=dtype, device=dev)
     ragged_mask = torch.tensor(rng.random(RAGGED) > 0.15, device=dev)
@@ -4135,25 +4215,24 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
 
     for label, (vals, msk, inv) in [("main", colstats_case(values, mask)),
                                     ("ragged", colstats_case(ragged_vals, ragged_mask))]:
-        cnt, s, _ = masked_column_stats(vals, msk, inv)
-        pcnt, ps, _ = masked_column_stats_plain(vals, msk, inv)
+        cnt, s, _ = masked_column_stats(vals, msk, inv, **cs_kw)
+        pcnt, ps, _ = masked_column_stats_plain(vals, msk, inv, **cs_kw)
         mu = ps / pcnt.clamp_min(1)
-        _, _, sq = masked_column_stats(vals, msk, inv, mu)
-        _, _, psq = masked_column_stats_plain(vals, msk, inv, mu)
+        _, _, sq = masked_column_stats(vals, msk, inv, mu, **cs_kw)
+        _, _, psq = masked_column_stats_plain(vals, msk, inv, mu, **cs_kw)
         torch.cuda.synchronize()
         check(torch.equal(cnt, pcnt), f"masked_column_stats {kind} {label}: counts differ")
-        check(torch.allclose(s, ps, rtol=tol.sums, atol=0),
-              f"masked_column_stats {kind} {label}: sums")
-        check(torch.allclose(sq, psq, rtol=tol.sums, atol=0),
-              f"masked_column_stats {kind} {label}: sqdev")
-        once, twice = (masked_column_stats(vals, msk, inv, mu) for _ in range(2))
+        check(close(s, ps, tol.sums), f"masked_column_stats {kind} {label}: sums")
+        check(close(sq, psq, tol.sums), f"masked_column_stats {kind} {label}: sqdev")
+        once, twice = (masked_column_stats(vals, msk, inv, mu, **cs_kw) for _ in range(2))
         check(all(torch.equal(a, b) for a, b in zip(once, twice)),
               f"masked_column_stats {kind} {label}: two calls differ")
         err = max(max_abs(s, ps), max_abs(sq, psq))
         errs.setdefault("masked_column_stats", err)
+        bound = f"{BF16_ULPS} bf16 ulp" if half else f"rtol {tol.sums:g}"
         print(f"[kernels{tag}] masked_column_stats {label} {tuple(vals.shape)}: counts exact, "
-              f"sum/sqdev within rtol {tol.sums:g}, max abs err {err:.3e}; two calls bitwise "
-              f"equal", flush=True)
+              f"sum/sqdev within {bound}, max abs err {err:.3e}; two calls bitwise equal",
+              flush=True)
 
     rz = torch.tensor(rng.normal(size=RAGGED) * 3, dtype=dtype, device=dev)
     rmask = torch.tensor(rng.random(RAGGED) > 0.1, device=dev)
@@ -4161,7 +4240,14 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
     for label, args in [("main", (norm.z, norm.mask, region, ZMAX)),
                         ("ragged", (rz, rmask, rregion, ZMAX))]:
         g, pg = zprep_gram(*args), zprep_gram_plain(*args)
-        err = assert_close_to_max(g.cpu(), pg.cpu(), tol.gram)
+        if half:  # and the norms of the split pass, grid_tpu's sum(P * P)
+            ratio = bf16_gram_ratio(g.float().cpu().numpy(), pg.float().cpu().numpy())
+            check(ratio <= 1, f"zprep_gram bf16 {label}: at {ratio:.3f} of the Gram rule")
+            sq16, psq16 = zprep_gram(*args, norms=True)[1], zprep_gram_plain(*args, norms=True)[1]
+            check(close(sq16, psq16, None), f"zprep_gram bf16 {label}: norms")
+            err = max(max_abs(g, pg), max_abs(sq16, psq16))
+        else:
+            err = assert_close_to_max(g.cpu(), pg.cpu(), tol.gram)
         errs.setdefault("zprep_gram", err)
         check(torch.equal(g, g.T), f"zprep_gram {kind} {label}: G is not exactly symmetric")
         z, msk, reg, zmax = args
@@ -4175,8 +4261,10 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
             ratio = err64 / plain_err64 if plain_err64 else float("inf")
             gate = (f"; vs a float64 Gram: kernel {err64:.3e}, plain {plain_err64:.3e} "
                     f"({ratio:.3f}x, gate 2x)")
-        print(f"[kernels{tag}] zprep_gram {label} {tuple(z.shape)}: within {tol.gram:g} of "
-              f"max|G|, max abs err {err:.3e}; exactly symmetric{gate}", flush=True)
+        bound = (f"{BF16_ULPS} bf16 ulp of each entry or 2^-16 of max|G| (the split pass's "
+                 f"norms within {BF16_ULPS} ulp)" if half else f"{tol.gram:g} of max|G|")
+        print(f"[kernels{tag}] zprep_gram {label} {tuple(z.shape)}: within {bound}, max abs err "
+              f"{err:.3e}; exactly symmetric{gate}", flush=True)
 
     def dipcn_case(zp, k, n_nbr):
         n = zp.shape[0]
@@ -4206,7 +4294,8 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
         pdip, pok = dipcn_from_distances(*args, k=k, n_nbr=n_nbr)
         torch.cuda.synchronize()
         check(torch.equal(ok, pok), f"dipcn {kind} {label}: ok differs")
-        check(torch.allclose(dip[ok], pdip[ok], rtol=tol.dipcn, atol=0),
+        check(torch.equal(dip[ok], pdip[ok]) if half else
+              torch.allclose(dip[ok], pdip[ok], rtol=tol.dipcn, atol=0),
               f"dipcn {kind} {label}: values")
         err = max_abs(dip[ok], pdip[ok])
         errs.setdefault("dipcn_from_distances_gpu", err)
@@ -4227,7 +4316,7 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
         return q.contiguous()
 
     def shared(blocks):  # the mode of rows a cluster of `blocks` would take
-        return ("cluster", blocks) if f32 else ("wide", 1)
+        return ("wide", 1) if dtype == torch.float64 else ("cluster", blocks)
 
     select_cases = [(label, args[0], k, None) for label, args, k, _ in cases] + [
         ("forced-tie k=1", tie_d2, 1, None), ("forced-tie k=W", tie_d2, tie_d2.shape[1], None),
@@ -4236,16 +4325,22 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
         ("the widest one-block row", quantized(64, KNN_SLICE), K, ("resident", 1)),
         ("the narrowest two-block row", quantized(64, KNN_SLICE + 1), K, shared(2)),
         ("a panel row", quantized(64, PANEL_N), K, shared(8)),
-        ("the biobank row", quantized(16, BIOBANK_N), K, shared(8)),
-        ("past the cluster's edge", quantized(4, KNN_WIDE_W), K, ("wide", 1)),
-        ("the largest list", quantized(4, KNN_MAX_K_W), KNN_MAX_K[dtype], ("wide", 1))]
+        ("the biobank row", quantized(16, BIOBANK_N), K, shared(8))]
+    if half:  # a bf16 list entry's column has 17 bits: 131,072 columns at most
+        select_cases += [("the widest row", quantized(4, KNN_BF16_MAX_W), K, shared(8)),
+                         ("the largest list", quantized(4, KNN_BF16_MAX_W), KNN_MAX_K[dtype],
+                          shared(8))]
+    else:
+        select_cases += [("past the cluster's edge", quantized(4, KNN_WIDE_W), K, ("wide", 1)),
+                         ("the largest list", quantized(4, KNN_MAX_K_W), KNN_MAX_K[dtype],
+                          ("wide", 1))]
     edges = {"the widest one-block row", "the narrowest two-block row", "a panel row"}
     for label, dd, k, want_mode in select_cases:
         vals, idx = sorted_smallest_k_gpu(dd, k)
         want_v, want_i = sorted_smallest_k(dd, k)
         torch.cuda.synchronize()
         check(torch.equal(idx, want_i) and torch.equal(vals, want_v),
-              f"knn_select {kind} {label}: not the stable sort's values and positions")
+              f"knn_select {kind} {label}: not the plain version's values and positions")
         kinfo_c = knn_select_info(dd.shape[1], k, dev, dtype=dtype)
         if want_mode is not None:
             check((kinfo_c["mode"], kinfo_c["cluster_blocks"]) == want_mode,
@@ -4261,7 +4356,7 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
                                             max_abs(vals, want_v))
         print(f"[kernels{tag}] knn_select {label} {tuple(dd.shape)} k={k} ({kinfo_c['mode']} "
               f"mode, {kinfo_c['cluster_blocks']} block(s) a row): values and positions bitwise "
-              f"the stable sort's{also}", flush=True)
+              f"the {'int16 keys' if half else 'values'}' stable sort's{also}", flush=True)
     del select_cases
     if f32:
         lo_w, hi_w = PANEL_N, KNN_WIDE_W  # the widest row of the cluster mode at k=K lies here
@@ -4273,74 +4368,77 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
               f"(8 blocks of {knn_select_info(lo_w, K, dev)['slice']} columns), wider ones the "
               f"wide mode; {card}", flush=True)
 
-    # phase_sweeps: the plain sweeps within TOL's rtol (each neighbor list
-    # summed in slot order, not in torch's reduction order), the same NaNs;
-    # its modes bitwise equal. The bootstrap replicates' resampled lists
-    # drive some values towards 0 (to ~1e-25 in 100 sweeps), where float32
-    # keeps no 1e-5 relative accuracy: the plain sweeps themselves are
-    # ~1.5e-5 from float64 sweeps there. In float32 those are held to
-    # float64 sweeps instead: their relative error at most twice the plain
-    # version's; in float64 to the plain sweeps at TOL's boot rtol.
+    irrs_main = rand_lists = boot_slots = boot_lists = None
+    if not half:  # bfloat16 runs the float32 sweeps, held in phase 3
+        # phase_sweeps: the plain sweeps within TOL's rtol (each neighbor list
+        # summed in slot order, not in torch's reduction order), the same NaNs;
+        # its modes bitwise equal. The bootstrap replicates' resampled lists
+        # drive some values towards 0 (to ~1e-25 in 100 sweeps), where float32
+        # keeps no 1e-5 relative accuracy: the plain sweeps themselves are
+        # ~1.5e-5 from float64 sweeps there. In float32 those are held to
+        # float64 sweeps instead: their relative error at most twice the plain
+        # version's; in float64 to the plain sweeps at TOL's boot rtol.
 
-    def rel_err(a, ref) -> float:
-        """Largest relative error of ``a`` against ``ref`` over its finite,
-        non-zero cells."""
-        keep = torch.isfinite(ref) & (ref != 0)
-        return float(((a.double() - ref) / ref).abs()[keep].max()) if keep.any() else 0.0
+        def rel_err(a, ref) -> float:
+            """Largest relative error of ``a`` against ``ref`` over its finite,
+            non-zero cells."""
+            keep = torch.isfinite(ref) & (ref != 0)
+            return float(((a.double() - ref) / ref).abs()[keep].max()) if keep.any() else 0.0
 
-    main_dip, main_ok = dipcn_from_distances_gpu(d2, w_main, w_main, sample_ok, sample_ok, k=K,
-                                                 n_nbr=N_NBR)
-    irrs_main = torch.where(main_ok, main_dip, torch.nan)
-    rand_lists = random_hap_lists(N, 10, dev, seed=3)
-    rand_lists[1] = rand_lists[1].to(dtype)
-    boot_slots = torch.tensor(
-        (np.random.default_rng(4).random((BOOT_REPLICATES, 2 * N, 10))
-         * rand_lists[2].sum(dim=1).clamp_min(1).cpu().numpy()[None, :, None]).astype(np.int64),
-        device=dev)
-    boot_lists = [torch.gather(rand_lists[0].long().expand(BOOT_REPLICATES, 2 * N, 10), 2,
-                               boot_slots).to(torch.int32).contiguous(),
-                  torch.gather(rand_lists[1].expand(BOOT_REPLICATES, 2 * N, 10), 2, boot_slots),
-                  rand_lists[2]]
-    ring_lists = [torch.tensor(a, device=dev) for a in ring_neighbors(N)]
-    ring_lists[1] = ring_lists[1].to(dtype)
-    for label, lists, strict in (
-            ("ring lists, K=2", ring_lists, True), ("random lists, K=10", rand_lists, True),
-            (f"{BOOT_REPLICATES} bootstrap replicates, K=10", boot_lists, False)):
-        hap0 = hap_start(irrs_main, lists[2])
-        got = phase_sweeps_gpu(hap0, irrs_main, *lists, N_ITERS)
-        want = phase_sweeps(hap0, irrs_main, *lists, N_ITERS)
-        want64 = phase_sweeps(hap0.double(), irrs_main.double(), lists[0], lists[1].double(),
-                              lists[2], N_ITERS)
-        modes = phasing_modes(N, lists[0].shape[-1], dev, dtype)
-        others = {m: _sweeps_launch(
-            m, hap0, irrs_main, lists[0].to(torch.int32), lists[1], lists[2], N_ITERS,
-            torch.empty_like(got.reshape(-1, 2 * N))).reshape(got.shape) for m in modes}
-        torch.cuda.synchronize()
-        nan = got.isnan()
-        check(torch.equal(nan, want.isnan()), f"phase_sweeps {kind} {label}: NaN cells differ")
-        rel, plain_rel = rel_err(got, want64), rel_err(want, want64)
-        rtol = tol.sweeps if strict else tol.boot
-        if rtol is not None:
-            check(torch.allclose(got[~nan], want[~nan], rtol=rtol, atol=0),
-                  f"phase_sweeps {kind} {label}: beyond rtol {rtol:g} of the plain sweeps")
-            gate = f"within rtol {rtol:g} of the plain sweeps"
-        else:
-            check(rel <= 2 * plain_rel, f"phase_sweeps {label}: relative error {rel:.3e} against "
-                                        f"float64 sweeps > 2x the plain version's {plain_rel:.3e}")
-            gate = "relative error against float64 sweeps at most 2x the plain version's"
-        for name, other in others.items():
-            check(torch.equal(other.nan_to_num(), got.nan_to_num())
-                  and torch.equal(other.isnan(), nan),
-                  f"phase_sweeps {kind} {label}: the {name} mode differs from the wrapper's")
-        err = max_abs(got[~nan], want[~nan])
-        errs["phase_sweeps_gpu"] = max(errs.get("phase_sweeps_gpu", 0.0), err)
-        mode = phase_sweeps_mode(N, lists[0].shape[-1], dev, dtype)
-        print(f"[kernels{tag}] phase_sweeps {label}, N={N}, {N_ITERS} sweeps ({mode} mode): "
-              f"{gate} (max abs err {err:.3e} against the plain sweeps; relative error against "
-              f"float64 sweeps: kernel {rel:.3e}, plain {plain_rel:.3e}), NaN cells identical "
-              f"({int(nan.sum())} of {nan.numel()}); the modes {', '.join(others)} called "
-              f"directly bitwise the same", flush=True)
-        del others
+        main_dip, main_ok = dipcn_from_distances_gpu(d2, w_main, w_main, sample_ok, sample_ok, k=K,
+                                                     n_nbr=N_NBR)
+        irrs_main = torch.where(main_ok, main_dip, torch.nan)
+        rand_lists = random_hap_lists(N, 10, dev, seed=3)
+        rand_lists[1] = rand_lists[1].to(dtype)
+        boot_slots = torch.tensor(
+            (np.random.default_rng(4).random((BOOT_REPLICATES, 2 * N, 10))
+             * rand_lists[2].sum(dim=1).clamp_min(1).cpu().numpy()[None, :, None]).astype(np.int64),
+            device=dev)
+        boot_lists = [torch.gather(rand_lists[0].long().expand(BOOT_REPLICATES, 2 * N, 10), 2,
+                                   boot_slots).to(torch.int32).contiguous(),
+                      torch.gather(rand_lists[1].expand(BOOT_REPLICATES, 2 * N, 10), 2, boot_slots),
+                      rand_lists[2]]
+        ring_lists = [torch.tensor(a, device=dev) for a in ring_neighbors(N)]
+        ring_lists[1] = ring_lists[1].to(dtype)
+        for label, lists, strict in (
+                ("ring lists, K=2", ring_lists, True), ("random lists, K=10", rand_lists, True),
+                (f"{BOOT_REPLICATES} bootstrap replicates, K=10", boot_lists, False)):
+            hap0 = hap_start(irrs_main, lists[2])
+            got = phase_sweeps_gpu(hap0, irrs_main, *lists, N_ITERS)
+            want = phase_sweeps(hap0, irrs_main, *lists, N_ITERS)
+            want64 = phase_sweeps(hap0.double(), irrs_main.double(), lists[0], lists[1].double(),
+                                  lists[2], N_ITERS)
+            modes = phasing_modes(N, lists[0].shape[-1], dev, dtype)
+            others = {m: _sweeps_launch(
+                m, hap0, irrs_main, lists[0].to(torch.int32), lists[1], lists[2], N_ITERS,
+                torch.empty_like(got.reshape(-1, 2 * N))).reshape(got.shape) for m in modes}
+            torch.cuda.synchronize()
+            nan = got.isnan()
+            check(torch.equal(nan, want.isnan()), f"phase_sweeps {kind} {label}: NaN cells differ")
+            rel, plain_rel = rel_err(got, want64), rel_err(want, want64)
+            rtol = tol.sweeps if strict else tol.boot
+            if rtol is not None:
+                check(torch.allclose(got[~nan], want[~nan], rtol=rtol, atol=0),
+                      f"phase_sweeps {kind} {label}: beyond rtol {rtol:g} of the plain sweeps")
+                gate = f"within rtol {rtol:g} of the plain sweeps"
+            else:
+                check(rel <= 2 * plain_rel,
+                      f"phase_sweeps {label}: relative error {rel:.3e} against float64 sweeps > "
+                      f"2x the plain version's {plain_rel:.3e}")
+                gate = "relative error against float64 sweeps at most 2x the plain version's"
+            for name, other in others.items():
+                check(torch.equal(other.nan_to_num(), got.nan_to_num())
+                      and torch.equal(other.isnan(), nan),
+                      f"phase_sweeps {kind} {label}: the {name} mode differs from the wrapper's")
+            err = max_abs(got[~nan], want[~nan])
+            errs["phase_sweeps_gpu"] = max(errs.get("phase_sweeps_gpu", 0.0), err)
+            mode = phase_sweeps_mode(N, lists[0].shape[-1], dev, dtype)
+            print(f"[kernels{tag}] phase_sweeps {label}, N={N}, {N_ITERS} sweeps ({mode} mode): "
+                  f"{gate} (max abs err {err:.3e} against the plain sweeps; relative error against "
+                  f"float64 sweeps: kernel {rel:.3e}, plain {plain_rel:.3e}), NaN cells identical "
+                  f"({int(nan.sum())} of {nan.numel()}); the modes {', '.join(others)} called "
+                  f"directly bitwise the same", flush=True)
+            del others
 
     # ---- 4. the slice: the step against the port's CPU route -------------
     reads_valid_np = np.ones(N, bool)
@@ -4349,7 +4447,8 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
     # rounding only, never by a %.2f flip
     params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
     check(d2_resident(params, N, e), f"the {kind} N={N} step must keep d2 resident")
-    inputs = inputs_to_torch(values_np, mask_np, reads_np, reads_valid_np, hi, hw, hv, dev, dtype)
+    inputs = inputs_to_torch(values_np, mask_np, reads_np, reads_valid_np, hi, hw, hv, dev, dtype,
+                             wide)
     counted = step_wrappers()
     for fn in counted.values():
         fn.launches = 0
@@ -4365,26 +4464,33 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
     check(all(launches[name] == 1 for name in SELECTION),
           f"the slice must launch knn_select and phase_sweeps once each: {launches}")
 
+    check(out.z.dtype == out.nbr_sq_dists.dtype == out.dipcn.dtype == dtype,
+          f"the {kind} step's outputs are not {kind}")
     got = outputs_to_numpy(out)
     t0 = time.perf_counter()
+    cpu_wide = torch.float64 if half else dtype  # bf16's reads on the CPU, as under auto
     want = outputs_to_numpy(cohort_step(*inputs_to_torch(
-        values_np, mask_np, reads_np, reads_valid_np, hi, hw, hv, "cpu", dtype), params))
+        values_np, mask_np, reads_np, reads_valid_np, hi, hw, hv, "cpu", dtype, cpu_wide),
+        params))
     cpu_s = time.perf_counter() - t0
     check(got.nbr_idx.shape == (N, K) and got.dipcn.shape == (N,), "output shapes")
     check(got.z.dtype == want.z.dtype and got.nbr_sq_dists.dtype == want.nbr_sq_dists.dtype
-          and got.dipcn.dtype == want.dipcn.dtype and got.z.dtype.itemsize == e,
+          and got.dipcn.dtype == want.dipcn.dtype and got.z.dtype.itemsize == max(e, 4),
           f"the {kind} step's output dtypes differ from the CPU route's")
     check(np.isfinite(got.dipcn[got.dipcn_valid]).all(), "non-finite dipCN on a valid row")
     check(np.isfinite(got.hap_irrs[np.repeat(got.phased, 2)]).all(), "non-finite phased hap")
     z_err = assert_close_to_max(got.z, want.z, tol.z)
-    if not f32:
+    if dtype == torch.float64:
         check(np.array_equal(got.region_used, want.region_used), "f64 step: region_used differs")
+    regions_apart = int((got.region_used != want.region_used).sum())
     usable = reads_valid_np & want.z_mask.any(axis=1)
     ties_found = {}
     summary = check_against(got, want, usable, N_NBR, f"the {kind} step", dtype, ties_found)
+    z_same = float(np.mean(got.z == want.z))
     print(f"[slice{tag}] vs the port's CPU route in {kind} ({cpu_s:.1f} s, host clock): z within "
-          f"{tol.z:g} of max|z| (max abs err {z_err:.3e}); {summary}; r_use {int(got.r_use)}; "
-          f"{int(got.phased.sum())} phased", flush=True)
+          f"{tol.z:g} of max|z| (max abs err {z_err:.3e}; {100 * z_same:.3f}% of the entries "
+          f"equal); {summary}; r_use {int(got.r_use)} ({regions_apart} regions used on one side "
+          f"only); {int(got.phased.sum())} phased", flush=True)
 
     # ---- 5. times --------------------------------------------------------
     slice_ms = median_ms(lambda: cohort_step(*inputs, params))
@@ -4392,6 +4498,11 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
           f"ms (median of {REPS}; {card})", flush=True)
     cs = colstats_case(values, mask)
     mu = norm.col_means.nan_to_num()
+    sw = {}  # the sweeps' timing: float32 and float64 only (bf16 runs the float32 sweeps)
+    if not half:
+        sw["phase_sweeps_gpu"] = (
+            lambda: phase_sweeps_gpu(step_hap0, step_irrs, *step_lists, N_ITERS),
+            lambda: phase_sweeps(step_hap0, step_irrs, *step_lists, N_ITERS), None)
     gram_args = (norm.z, norm.mask, region, ZMAX)
     dip_args = (d2, w_main, w_main, sample_ok, sample_ok)
     # the slice's own phasing: its dipCN and its ring lists
@@ -4400,8 +4511,8 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
     step_hap0 = hap_start(step_irrs, step_lists[2])
     p_main = prepare_z(norm.z, norm.mask, ZMAX, region)
     timed = {  # (kernel, plain version, library call: a yardstick the port never calls)
-        "masked_column_stats": (lambda: masked_column_stats(*cs, mu),
-                                lambda: masked_column_stats_plain(*cs, mu), None),
+        "masked_column_stats": (lambda: masked_column_stats(*cs, mu, **cs_kw),
+                                lambda: masked_column_stats_plain(*cs, mu, **cs_kw), None),
         "zprep_gram": (lambda: zprep_gram(*gram_args), lambda: zprep_gram_plain(*gram_args),
                        lambda: torch.mm(p_main, p_main.T)),
         "dipcn_from_distances_gpu": (
@@ -4410,12 +4521,10 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
         "sorted_smallest_k_gpu": (lambda: sorted_smallest_k_gpu(d2, K),
                                   lambda: sorted_smallest_k(d2, K),
                                   lambda: torch.sort(d2, dim=1, stable=True).values[:, :K]),
-        "phase_sweeps_gpu": (
-            lambda: phase_sweeps_gpu(step_hap0, step_irrs, *step_lists, N_ITERS),
-            lambda: phase_sweeps(step_hap0, step_irrs, *step_lists, N_ITERS), None),
+        **sw,
     }
     library = {"zprep_gram": f"torch.mm of the prepared P, {kind}" + (
-                   ", TF32 off" if f32 else " (cuBLAS DGEMM)"),
+                   ", TF32 off" if f32 else " (cuBLAS bf16 GEMM)" if half else " (cuBLAS DGEMM)"),
                "sorted_smallest_k_gpu": f"stable torch.sort of the {kind} rows, sliced to k"}
     bounds = {
         # values, mask, 1/row mean, column means in; three [R] sums out
@@ -4427,11 +4536,12 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
         "dipcn_from_distances_gpu": bound_ms(e * N * N + 3 * e * N + 3 * N),
         # d2 in, k values and k int32 positions a row out
         "sorted_smallest_k_gpu": bound_ms(e * N * N + (e + 4) * N * K),
-        # the start, irrs and the lists read once, the values written once
-        "phase_sweeps_gpu": sweeps_bound_ms(step_hap0, step_irrs, *step_lists, N_ITERS,
-                                            flop_per_s=tol.peak),
     }
-    sources = SOURCES if f32 else F64_SOURCES
+    if not half:  # the start, irrs and the lists read once, the values written once
+        bounds["phase_sweeps_gpu"] = sweeps_bound_ms(step_hap0, step_irrs, *step_lists, N_ITERS,
+                                                     flop_per_s=tol.peak)
+    sources = {torch.float32: SOURCES, torch.float64: F64_SOURCES,
+               torch.bfloat16: BF16_SOURCES}[dtype]
     rows = []
     for name, (kernel_fn, plain_fn, lib_fn) in timed.items():
         # plain, kernel, kernel, plain: neither side gets the warmer card
@@ -4454,7 +4564,7 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
             flop = N * (N + 1) * R
             extra += (f"; {flop / kernel_ms / 1e9:.1f} vs {flop / plain_ms / 1e9:.1f} TFLOP/s as "
                       f"N(N+1)R")
-            if not f32:  # reckoned from the tiles, not measured; at the b2b time (prep included)
+            if dtype == torch.float64:  # reckoned from the tiles, not measured; at the b2b time
                 l2_bytes = zprep_gram64_l2_bytes(N, N, "triangle", _r_pad(R, dtype))
                 extra += (f"; the tiles read {l2_bytes / 1e9:.3f} GB from L2 a call (estimated "
                           f"from the tile count), {l2_bytes / b2b_ms / 1e9:.2f} TB/s at the b2b "
@@ -4492,7 +4602,7 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
         # the hand kernels' own device time (the Gram product is two kernels,
         # the split or prep pass and the Gram kernel; the column statistics
         # are the row-chunk kernel and its merge)
-        own = ("split_kernel", "gram_kernel", "prep_kernel", "gram64_kernel",
+        own = ("split_kernel", "split16_kernel", "gram_kernel", "prep_kernel", "gram64_kernel",
                "dipcn_select_kernel", "colstats", "knn_select_kernel", "phase_resident_kernel",
                "phase_grid_kernel", "phase_sweep_kernel")
         for ev in ops:
@@ -4549,9 +4659,8 @@ def float64_phase(dev, card: str, values_np, mask_np, reads_np, sms: int) -> tup
 
     t_phase = time.perf_counter()
     f64 = torch.float64
-    refusals = (({"device": {"dtype": "bfloat16"}}, "bfloat16"),
-                ({"device": {"dtype": "float64"}, "mosdepth": {"neighbors": {
-                    "num_neighbors": 8193}}}, "8192"))
+    refusals = (({"device": {"dtype": "float64"}, "mosdepth": {"neighbors": {
+                    "num_neighbors": 8193}}}, "8192"),)
     for config, names in refusals:
         try:
             compute_dtype(config, dev)
@@ -4564,8 +4673,8 @@ def float64_phase(dev, card: str, values_np, mask_np, reads_np, sms: int) -> tup
                    {"device": {"dtype": "float64", "mesh_shape": [2], "fused": True}}):
         check(compute_dtype(config, dev) is f64, f"float64 refused for {config}")
     print("[f64] (f) compute_dtype on the card: float64 taken, with device.mesh_shape and for "
-          "the multi-locus sweep too; bfloat16 and float64 past 8,192 neighbors refused up "
-          "front, each naming the cause", flush=True)
+          "the multi-locus sweep too; float64 past 8,192 neighbors refused up front, naming "
+          "the cause (bfloat16's rules: phase 18)", flush=True)
     res = kernels_phase(dev, card, f64, values_np, mask_np, reads_np, sms)
     panel, _, panel_run = panel_phase(dev, card, f64)
     rows = {}
@@ -4678,7 +4787,7 @@ def float64_pipeline_runs(card: str, tmp: Path, cohort: dict, base: dict, names:
     return found
 
 
-F64_SWEEP_LOCI = 16  # the float64 sweep's loci: LPA and 15 drawn from the seed
+F64_SWEEP_LOCI = 4  # the float64 sweep's loci: LPA and 3 drawn from the seed
 F64_DIPCN_RTOL = 1e-9  # dipCN where the input sets agree (docs/parity.md, float64)
 F64_MULTI_PANELS = 2  # the float64 multi kernel's panels at N=65,536
 # The cross mode's blocks (B, a's first row, b's first row): first the
@@ -5172,6 +5281,379 @@ def float64_slice_phase(dev, card: str, zp_65536, cohort_16384) -> dict:
             "sharded": sharded, "phase_seconds": seconds}
 
 
+# phase 18: device.dtype bfloat16 on the card (the flat step, file-mode step
+# 4 and the sweep; with mesh_shape it is refused up front)
+BF16_PANELS = 3  # (b): the first, a middle and the last panel against the plain route
+BF16_SWEEP_LOCI = 2  # (c): the bf16 sweep's loci (LPA and one drawn from the seed)
+
+
+def bfloat16_phase(dev, card: str, values_np, mask_np, reads_np, sms: int, cohort_65536) -> tuple:
+    """Phase 18 (a, b): ``device.dtype: bfloat16`` on the card. The dtype
+    rules first (bf16 taken without ``mesh_shape`` and refused with it, in
+    both forms; the steps grid_tpu runs without a dtype in float32), then
+    (a) phases 3-6 in bf16 at N=2504 (:func:`kernels_phase`: each bf16
+    kernel against its plain version, the step against the port's bf16 CPU
+    route with every kernel launched and no plain version reached, each
+    kernel timed beside its bound and library call) and (b) the panel step
+    at N=65,536 (:func:`bfloat16_panel_run`). Returns the bf16 rows of the
+    kernels line and the steps' numbers."""
+    from grid_tpu_torch.utils.device import compute_dtype, step_dtype
+
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    cfg = {"device": {"dtype": "bfloat16"}}
+    check(compute_dtype(cfg, dev) is bf and step_dtype(cfg, dev) is torch.float32,
+          "bfloat16 on the card: compute_dtype must take it, step_dtype give float32")
+    for config in ({"device": {"dtype": "bf16", "mesh_shape": [2]}},
+                   {"device": {"dtype": "bfloat16", "mesh_shape": [2], "fused": True}}):
+        try:
+            compute_dtype(config, dev)
+        except ValueError as e:
+            check("mesh_shape" in str(e), f"the refusal of {config} does not name mesh_shape")
+        else:
+            raise RuntimeError(f"check failed: {config} was not refused")
+    print("[bf16] compute_dtype on the card: bfloat16 taken without device.mesh_shape (steps "
+          "4-6 in bf16, step_dtype float32 for the steps grid_tpu runs without a dtype) and "
+          "refused up front with it, in both forms", flush=True)
+    res = kernels_phase(dev, card, bf, values_np, mask_np, reads_np, sms)
+    a_s = time.perf_counter() - t_phase
+    panel = bfloat16_panel_run(dev, card, cohort_65536)
+    rows = {}
+    for row in res.rows:
+        name = row["name"]
+        rows[name] = {**row, "name": f"{name}[bfloat16]", "panel_65536": panel["kernels"][name]}
+    torch.cuda.empty_cache()
+    print(f"[bf16] phase 18 (a) took {a_s:.1f} s, (b) {time.perf_counter() - t_phase - a_s:.1f} "
+          f"s (host clock); {card}", flush=True)
+    return rows, {"ms_2504": res.slice_ms, "busy_share_2504": res.busy, "ties_2504": res.ties,
+                  "sets_2504": res.sets, **panel["step"]}
+
+
+def bfloat16_panel_run(dev, card: str, cohort) -> dict:
+    """Phase 18 (b): the bf16 step at N=65,536, R=1,024 on phase 7's cohort
+    (8 GiB of bf16 distances, past the 2 GiB budget: the panel branch): its
+    launches, no plain version reached; BF16_PANELS of its panels held
+    against the plain route on the card (the plain split's Gram panel within
+    BF16_ULPS of the kernel's; on the kernel's distances the plain
+    selection and dipCN bitwise the kernels'; the step's rows of the panel
+    against the plain route's at the bf16 contract, its ties counted); the
+    step timed once; each kernel at the panel shapes beside its bound,
+    plain version and library call. Returns the kernels' fields and the
+    step's numbers."""
+    from grid_tpu_torch.convert import inputs_to_torch, to_numpy
+    from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
+    from grid_tpu_torch.ops.gpu_kernels import (
+        masked_column_stats, masked_column_stats_plain, zprep_gram_panel,
+        zprep_gram_panel_plain, zprep_split, zprep_split_plain,
+    )
+    from grid_tpu_torch.ops.gpu_select import (
+        _launch, dipcn_from_distances_gpu, dipcn_select_info, knn_select_info,
+        sorted_smallest_k_gpu,
+    )
+    from grid_tpu_torch.ops.knn import panel_d2, sorted_smallest_k
+    from grid_tpu_torch.ops.masked import masked_mean
+    from grid_tpu_torch.ops.select import dipcn_from_distances
+    from torch_parity import bf16_gram_ratio, bf16_ulps
+
+    bf, e = torch.bfloat16, 2
+    n, r = PANEL_N, PANEL_R
+    params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
+    check(not d2_resident(params, n, e) and n * n * e == 8 << 30,
+          "N=65,536 in bf16 (8 GiB of d2) must take the panel branch")
+    b = params.row_block
+    n_panels = -(-n // b)
+    inputs = inputs_to_torch(cohort.values, cohort.mask, cohort.reads, np.ones(n, bool),
+                             *ring_neighbors(n), dev, bf, torch.float32)
+    counted = step_wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with plain_calls_counted() as plains:
+        out = cohort_step(*inputs, params)
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    want_launches = {"masked_column_stats": 2, "zprep_gram": 0, "zprep_split": 1,
+                     "zprep_gram_panel": n_panels, "dipcn_from_distances_gpu": n_panels,
+                     "sorted_smallest_k_gpu": n_panels, "phase_sweeps_gpu": 1}
+    check(launches == want_launches, f"(b) bf16 panel launches {launches} != {want_launches}")
+    check(not plains, f"(b) the bf16 panel step reached a plain version: {dict(plains)}")
+    check(out.z.dtype == out.nbr_sq_dists.dtype == out.dipcn.dtype == bf, "(b) bf16 outputs")
+    t0 = time.perf_counter()
+    cohort_step(*inputs, params)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    print(f"[bf16] (b) cohort_step bfloat16 N={n} R={r} k={K}: first call {first_s:.2f} s, the "
+          f"step timed once {1e3 * step_s:.1f} ms (host clock around a synchronized call); "
+          f"launches {launches}, no plain version reached; {card}", flush=True)
+
+    # ---- BF16_PANELS panels against the plain route on the card ----------
+    z, zmask, region = out.z, out.z_mask, out.region_used
+    sample_ok = zmask.any(dim=1)
+    reads_valid = inputs[3] & sample_ok
+    w = (inputs[2] / out.scales).to(bf)
+    split, plain = zprep_split(z, zmask, region, ZMAX), zprep_split_plain(z, zmask, region, ZMAX)
+    split_p = split.p[0, :, :r] if split.p.dim() == 3 else split.p  # [1, N, R_pad] on the card
+    check(torch.equal(split_p, plain.p), "(b) the bf16 split's P is not the plain P")
+    check(bf16_ulps(to_numpy(split.norms), to_numpy(plain.norms)) <= BF16_ULPS,
+          "(b) the bf16 split's norms")
+    nbr_idx, nbr_d = to_numpy(out.nbr_idx), to_numpy(out.nbr_sq_dists)
+    dipcn, dipcn_ok = to_numpy(out.dipcn), to_numpy(out.dipcn_valid)
+    usable = to_numpy(reads_valid)
+    last = n - (n - 1) % b - 1
+    ties = sets = 0
+    errs = {"zprep_gram": 0.0, "sorted_smallest_k_gpu": 0.0, "dipcn_from_distances_gpu": 0.0}
+    for i0 in (0, (n // 2 // b) * b, last)[:BF16_PANELS]:
+        rows = slice(i0, i0 + min(b, n - i0))
+        g = zprep_gram_panel(split, i0, rows.stop - i0)
+        pg = zprep_gram_panel_plain(plain, i0, rows.stop - i0)
+        check(bf16_gram_ratio(to_numpy(g), to_numpy(pg)) <= 1,
+              f"(b) zprep_gram bf16 panel {i0}: beyond the Gram rule")
+        errs["zprep_gram"] = max(errs["zprep_gram"], max_abs(g, pg))
+        d2 = panel_d2(g, split.norms, i0, sample_ok)
+        vals, idx = sorted_smallest_k_gpu(d2, K)
+        pvals, pidx = sorted_smallest_k(d2, K)
+        check(torch.equal(idx, pidx) and torch.equal(vals, pvals),
+              f"(b) knn_select bf16 panel {i0}: not the plain selection's")
+        dip_args = (d2, w[rows].contiguous(), w, reads_valid, reads_valid[rows].contiguous())
+        dip, ok = dipcn_from_distances_gpu(*dip_args, k=K, n_nbr=N_NBR)
+        pdip, pok = dipcn_from_distances(*dip_args, k=K, n_nbr=N_NBR)
+        check(torch.equal(ok, pok) and torch.equal(dip[ok], pdip[ok]),
+              f"(b) dipcn_select bf16 panel {i0}: not the plain dipCN bitwise")
+        # the step's rows against the plain route: plain Gram, epilogue,
+        # selection and dipCN
+        pd2 = panel_d2(pg, plain.norms, i0, sample_ok)
+        wv, wi = sorted_smallest_k(pd2, K)
+        wdip, wok = dipcn_from_distances(pd2, *dip_args[1:], k=K, n_nbr=N_NBR)
+        got = SimpleNamespace(nbr_idx=nbr_idx[rows], nbr_sq_dists=nbr_d[rows],
+                              dipcn=dipcn[rows], dipcn_valid=dipcn_ok[rows])
+        want = SimpleNamespace(nbr_idx=to_numpy(wi), nbr_sq_dists=to_numpy(wv),
+                               dipcn=to_numpy(wdip), dipcn_valid=to_numpy(wok))
+        found = {}
+        summary = check_against(got, want, usable, N_NBR, f"(b) bf16 panel {i0}", bf, found)
+        ties, sets = ties + found["ties"], sets + found["sets"]
+        print(f"[bf16] (b) panel rows [{i0}, {rows.stop}): the Gram panel under the Gram rule "
+              f"against the plain one, knn_select and dipcn_select bitwise their plain versions "
+              f"on its distances; the step's rows vs the plain route: {summary}", flush=True)
+        del d2, pd2, g, pg
+
+    # ---- the kernels at the panel shapes --------------------------------
+    rm = masked_mean(inputs[0], inputs[1], axis=1)
+    good = torch.isfinite(rm) & (rm != 0)
+    cs = (inputs[0], inputs[1] & good[:, None], torch.where(good, rm, 1))
+    kw = {"round_squares": False}
+    mu = out.col_means.nan_to_num()
+    cnt, s_, sq = masked_column_stats(*cs, mu, **kw)
+    pcnt, ps, psq = masked_column_stats_plain(*cs, mu, **kw)
+    check(torch.equal(cnt, pcnt) and bf16_ulps(to_numpy(s_), to_numpy(ps)) <= BF16_ULPS
+          and bf16_ulps(to_numpy(sq), to_numpy(psq)) <= BF16_ULPS,
+          "(b) masked_column_stats bf16 at the panel shape")
+    errs["masked_column_stats"] = max(max_abs(s_, ps), max_abs(sq, psq))
+    g0 = zprep_gram_panel(split, 0, b)
+    d2 = panel_d2(g0, split.norms, 0, sample_ok)
+    dip_args = (d2, w[:b].contiguous(), w, reads_valid, reads_valid[:b].contiguous())
+    p_panel = plain.p[:b]
+    timed = {
+        "masked_column_stats": (lambda: masked_column_stats(*cs, mu, **kw),
+                                lambda: masked_column_stats_plain(*cs, mu, **kw), None),
+        "zprep_gram": (lambda: zprep_gram_panel(split, 0, b),
+                       lambda: zprep_gram_panel_plain(plain, 0, b),
+                       lambda: torch.mm(p_panel, plain.p.T)),
+        "dipcn_from_distances_gpu": (
+            lambda: dipcn_from_distances_gpu(*dip_args, k=K, n_nbr=N_NBR),
+            lambda: dipcn_from_distances(*dip_args, k=K, n_nbr=N_NBR), None),
+        "sorted_smallest_k_gpu": (
+            lambda: sorted_smallest_k_gpu(d2, K), lambda: sorted_smallest_k(d2, K),
+            lambda: torch.sort(d2, dim=1, stable=True).values[:, :K]),
+    }
+    bounds = {
+        "masked_column_stats": bound_ms(n * r * (e + 1) + e * n + e * r + 3 * e * r),
+        "zprep_gram": bound_ms(n * r * e + b * n * e, 2 * b * n * r, BF16_FLOP_PER_S),
+        "dipcn_from_distances_gpu": bound_ms(b * n * e + 2 * e * b + e * n + n + 2 * b),
+        "sorted_smallest_k_gpu": bound_ms(b * n * e + (e + 4) * b * K),
+    }
+    dinfo, kinfo = dipcn_select_info(n, K, dev, dtype=bf), knn_select_info(n, K, dev, dtype=bf)
+    shapes = {"masked_column_stats": f"[{n}, {r}], 2 calls per step",
+              "zprep_gram": f"split [{n}, {r}] once per step, then panels [{b}, {n}]",
+              "dipcn_from_distances_gpu": f"{dinfo['mode']} mode, panels [{b}, {n}]",
+              "sorted_smallest_k_gpu": f"{kinfo['mode']} mode ({kinfo['cluster_blocks']} block(s) "
+                                       f"a row), panels [{b}, {n}], k={K}"}
+    found = {}
+    for name, (kernel_fn, plain_fn, lib_fn) in timed.items():
+        p1, k1, k2, p2 = (back_to_back_ms(f, reps=5, warmup=1)
+                          for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+        kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+        lib_ms = None if lib_fn is None else back_to_back_ms(lib_fn, reps=5, warmup=1)
+        least, by = bounds[name]
+        calls = launches["zprep_gram_panel" if name == "zprep_gram" else name]
+        found[name] = {"launches": calls, "max_abs_err": errs[name], "ms": kernel_ms,
+                       "plain_ms": plain_ms, "bound_ms": least, "bound_by": by,
+                       "library_ms": lib_ms, "shape": shapes[name]}
+        lib = "" if lib_ms is None else f", the library call {lib_ms:.4f} ms"
+        print(f"[times bf16] {name} bfloat16 at {shapes[name]}: kernel {kernel_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms{lib} per call (5 back to back, better of two); bound "
+              f"{least:.4f} ms by {by}, {100 * least / kernel_ms:.1f}% of it; {calls} calls per "
+              f"step: {calls * kernel_ms:.1f} ms; {card}", flush=True)
+    wide_ms = back_to_back_ms(lambda: _launch("wide", *dip_args, K, N_NBR), reps=5, warmup=1)
+    found["dipcn_from_distances_gpu"]["wide_mode_ms_back_to_back"] = wide_ms
+    found["zprep_gram"]["library"] = "torch.mm of the bf16 panel (cuBLAS)"
+    found["sorted_smallest_k_gpu"]["library"] = "stable torch.sort of the panel's bf16 rows"
+    print(f"[times bf16] dipcn_select at [{b}, {n}]: its {dinfo['mode']} mode "
+          f"({dinfo['blocks_per_sm']} block(s) per SM, {dinfo['smem_bytes']} B of dynamic shared "
+          f"memory) {found['dipcn_from_distances_gpu']['ms']:.4f} ms, the wide mode "
+          f"{wide_ms:.4f} ms back to back; {card}", flush=True)
+    del out, inputs, split, plain, d2, g0, z, zmask
+    torch.cuda.empty_cache()
+    return {"kernels": found, "step": {"ms_65536": 1e3 * step_s, "first_call_s_65536": first_s,
+                                       "ties_65536_panels": ties, "sets_65536_panels": sets}}
+
+
+def bfloat16_pipeline_runs(card: str, tmp: Path, cohort: dict, base: dict, names: dict,
+                           k: int, n_nbr: int) -> dict:
+    """Phase 18 (c): ``run_wgs_pipeline`` with ``device.dtype: bfloat16`` on
+    the card, fused and in file mode, on phase 9's cohort on disk, each held
+    to the port's bf16 CPU route of the same form (``device.platform:
+    cpu``): the normalized matrix's z within 2^-7 of max|z| (cells apart
+    counted), the scales within a %.2f quantum, the variance-ratio header
+    within rtol 2^-7; neighbor lists equal but for ties within 2^-7 of the
+    row's k-th written distance; dipCN within rtol 2^-7 where the input sets
+    agree; the four artifacts written; no plain version reached on the
+    card. Returns each card run's launches, tie counts and seconds."""
+    from grid_tpu_torch.io.formats import read_dipcn, read_neighbors, read_normalized_data
+    from grid_tpu_torch.pipeline import run_wgs_pipeline
+    from torch_parity import dipcn_sets_differ, neighbor_rows_differing
+
+    found = {}
+    for label, device in (("fused", {"fused": True, "dtype": "bfloat16"}),
+                          ("files", {"dtype": "bfloat16"})):
+        outs, seconds = {}, {}
+        for where in ("card", "cpu"):
+            cfg = copy.deepcopy(base)
+            out = tmp / f"{where}_bf16_{label}"
+            out.mkdir()
+            cfg["output_dir"] = str(out)
+            cfg["device"] = {**device, **({"platform": "cpu"} if where == "cpu" else {})}
+            (out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
+            counted = step_wrappers()
+            for fn in counted.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with plain_calls_counted() as plains:
+                timings = run_wgs_pipeline(config=cfg)
+            seconds[where] = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counted.items()}
+            for name in names.values():
+                check((out / name).exists(), f"(c) bf16 {label} on the {where}: {name} missing")
+            if where == "card":
+                check(not plains, f"(c) the bf16 {label} run reached a plain version: "
+                                  f"{dict(plains)}")
+                check(launches["masked_column_stats"] == 2 and launches["phase_sweeps_gpu"] == 1
+                      and launches["sorted_smallest_k_gpu"] > 0,
+                      f"(c) the bf16 {label} run's launches {launches}")
+                check(("fused_steps_4_7" in timings) == (label == "fused"),
+                      f"(c) the bf16 {label} run took the other form: {sorted(timings)}")
+                card_launches = launches
+            outs[where] = out
+        ids, ratios, z, scales = read_normalized_data(outs["card"] / names["normalized"])
+        c_ids, c_ratios, c_z, c_scales = read_normalized_data(outs["cpu"] / names["normalized"])
+        check(ids == c_ids and np.array_equal(np.isnan(z), np.isnan(c_z)),
+              f"(c) bf16 {label}: the normalized rows or NA cells differ")
+        z_err = float(np.nanmax(np.abs(z - c_z)))
+        check(z_err <= BF16_RTOL * float(np.nanmax(np.abs(c_z))),
+              f"(c) bf16 {label}: z differs by {z_err}")
+        check(max(abs(scales[s] - c_scales[s]) for s in ids) <= QUANTUM
+              and np.allclose(ratios, c_ratios, rtol=BF16_RTOL, equal_nan=True),
+              f"(c) bf16 {label}: scales or variance ratios")
+        z_apart = int(np.nansum(np.abs(z - c_z) > 1e-9))
+        row = {s: i for i, s in enumerate(ids)}
+
+        def lists(out):
+            nbrs, _ = read_neighbors(out / names["neighbors"])
+            return (np.array([[row[m] for m, _, _ in nbrs[s]] for s in ids]),
+                    np.array([[dist for _, _, dist in nbrs[s]] for s in ids], np.float64))
+
+        (got_idx, got_d), (want_idx, want_d) = lists(outs["card"]), lists(outs["cpu"])
+        differ = neighbor_rows_differing(got_idx, got_d, want_idx, want_d,
+                                         tol=BF16_RTOL * want_d[:, -1] + QUANTUM)
+        dip_ids, dip, _ = read_dipcn(outs["card"] / names["dipcn"])
+        want_ids, want_dip, _ = read_dipcn(outs["cpu"] / names["dipcn"])
+        check(dip_ids == want_ids, f"(c) bf16 {label}: dipCN rows differ from the CPU run's")
+        usable = np.array([s in set(dip_ids) for s in ids])
+        sets = dipcn_sets_differ(got_idx, want_idx, usable, n_nbr)[[row[s] for s in dip_ids]]
+        check(np.allclose(np.asarray(dip)[~sets], np.asarray(want_dip)[~sets], rtol=BF16_RTOL,
+                          atol=0), f"(c) bf16 {label}: dipCN beyond rtol 2^-7 where the input "
+                                   f"sets agree")
+        found[label] = {"launches": card_launches, "rows_differing_by_ties": int(differ.size),
+                        "dipcn_sets_differ": int(sets.sum()), "z_cells_apart": z_apart,
+                        "seconds": seconds["card"], "seconds_cpu": seconds["cpu"]}
+        print(f"[bf16] (c) run_wgs_pipeline, device {device}, on phase 9's {len(ids)} x "
+              f"{len(ratios)} cohort: {seconds['card']:.1f} s on the card, launches "
+              f"{card_launches}, no plain version reached; the port's bf16 CPU route "
+              f"{seconds['cpu']:.1f} s (host clock). Normalized: z within 2^-7 of max|z| "
+              f"({z_apart} of {int((~np.isnan(z)).sum())} cells apart, max {z_err:.3g}); "
+              f"neighbor rows identical on {len(ids) - differ.size} of {len(ids)}, the others "
+              f"differ only by ties within 2^-7 of the k-th written distance; "
+              f"{int(sets.sum())} rows change a dipCN input set, dipCN within rtol 2^-7 on the "
+              f"other {int((~sets).sum())}; {card}", flush=True)
+    return found
+
+
+def bfloat16_sweep_run(card: str, tmp: Path, base: dict, names: dict, k: int) -> dict:
+    """Phase 18 (c), the sweep: ``run_multi_locus`` with ``device.dtype:
+    bfloat16`` on the card over BF16_SWEEP_LOCI catalog loci (phase 11's
+    per-locus counts): step 4 in bf16 (its normalized file byte for byte the
+    bf16 file mode's of (c)), the batched dipCN and step 7 in float32 (the
+    multi-weight kernel's float32 form), every artifact written, no plain
+    version reached. Returns its launches and seconds."""
+    from grid_tpu_torch.data.loci import load_vntr_catalog
+    from grid_tpu_torch.ops.gpu_select import dipcn_from_distances_multi_gpu
+    from grid_tpu_torch.steps import multilocus
+
+    counts_dir = tmp / "multilocus"  # phase 11's per-locus counts
+    first = {}
+    for gene in dict.fromkeys(locus.gene for locus in load_vntr_catalog()):
+        first.setdefault(gene.split(",")[0], gene)
+    tag = {gene: t for t, gene in first.items()}
+    others = [gene for gene in first.values() if gene != "LPA"]
+    rng = np.random.default_rng(MULTI_SEED + 18)
+    genes = ["LPA", *rng.choice(others, BF16_SWEEP_LOCI - 1, replace=False).tolist()]
+    out = tmp / "multilocus_bf16_card"
+    out.mkdir()
+    for gene in genes:
+        shutil.copy(counts_dir / f"read_counts.{tag[gene]}.tsv", out)
+    cfg = copy.deepcopy(base)
+    cfg["output_dir"] = str(out)
+    cfg["device"] = {"dtype": "bfloat16"}
+    cfg["compute_haploid_genotypes"]["run"] = True
+    counted = {**step_wrappers(), "dipcn_from_distances_multi_gpu": dipcn_from_distances_multi_gpu}
+    for fn in counted.values():
+        fn.launches = 0
+    console = Recorder()
+    t0 = time.perf_counter()
+    with plain_calls_counted() as plains:
+        multilocus.run_multi_locus(cfg, genes, console)
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    failed = [msg for msg, style in console.lines if style == "danger" or "Failed to run" in msg]
+    check(not failed, f"(c) the bf16 sweep: logged {failed[:3]}")
+    check(not plains, f"(c) the bf16 sweep reached a plain version: {dict(plains)}")
+    check(launches["masked_column_stats"] == 2 and launches["dipcn_from_distances_multi_gpu"] > 0
+          and launches["phase_sweeps_gpu"] == len(genes),
+          f"(c) the bf16 sweep's launches {launches}")
+    for gene in genes:
+        for prefix in ("diploid_genotypes", "haploid_genotypes"):
+            check((out / f"{prefix}.{tag[gene]}.tsv").exists(), f"(c) bf16 sweep {gene}: {prefix}")
+    check(content(out / names["normalized"])
+          == content(tmp / "card_bf16_files" / names["normalized"]),
+          "(c) the bf16 sweep's normalized file differs from the bf16 file mode's")
+    print(f"[bf16] (c) run_multi_locus, device.dtype bfloat16, over {len(genes)} loci "
+          f"({', '.join(genes)}) on phase 9's cohort, step 7 on: {seconds:.1f} s on the card "
+          f"(host clock), launches {launches}, no plain version reached; step 4 in bf16, its "
+          f"normalized file byte for byte the bf16 file mode's; the batched dipCN in float32; "
+          f"{card}", flush=True)
+    return {"launches": launches, "seconds": seconds}
+
+
 def clock(start: float, done: str) -> None:
     """Prints the host seconds since ``start`` (the script's start) once
     the phases ``done`` have ended, so the log shows where the script's
@@ -5523,6 +6005,10 @@ def main() -> int:
     clock(t_script, "phase 17 (a-c, e, f)")
     f64_slice = float64_slice_phase(dev, card, panel_zp, cohort_16384)
     clock(t_script, "phase 17 (g) at the panel and ring shapes, (i) the ring and gather form")
+    # ---- 18 (a, b). device.dtype bfloat16 on the card ---------------------
+    bf16_rows, bf16_step = bfloat16_phase(dev, card, values_np, mask_np, reads_np, sms,
+                                          cohort_65536)
+    clock(t_script, "phase 18 (a, b)")
     # ---- 15 (a-c). the sharded ring on W ranks of the one card ------------
     ring = ring_phase(dev, card, cohort_16384, cohort_65536, panel_zp)
     clock(t_script, "phase 15 (a-c)")
@@ -5534,7 +6020,7 @@ def main() -> int:
     # ---- 9. the pipeline, from files, 10. in file mode, 11. multi-locus ----
     # (with 14 (b, c), 15 (d) and 16 (c, d) on the same cohort)
     (pipeline_launches, files_launches, multi, ibs_launches, ring_launches,
-     f64_runs, f64_files) = pipeline_phase(card, wrappers)
+     f64_runs, f64_files, bf16_files) = pipeline_phase(card, wrappers)
     multi_wide = multilocus_wide_phase(card, panel_zp)
     del panel_zp
     torch.cuda.empty_cache()
@@ -5716,6 +6202,20 @@ def main() -> int:
                  "sharded_16384_w2": f64_slice["sharded"],
                  "pipeline_2504_ring_w2": f64_runs["ring"]["launches"]["zprep_gram_cross"],
                  "staged_2504_w2": f64_files["stage"]})
+    # phase 18: the bf16 forms, each a row of its own; its launches those of
+    # the bf16 N=2504 step (a), the panel step's (b) and the pipeline runs'
+    # and the sweep's (c) beside them
+    for name, row in bf16_rows.items():
+        row["step"] = bf16_step
+        names16 = ("zprep_gram", "zprep_split", "zprep_gram_panel") if name == "zprep_gram" \
+            else (name,)
+        for label, run in bf16_files["runs"].items():
+            row[f"pipeline_2504_{label}"] = {key: run["launches"][key] for key in names16}
+        row["pipeline_2504_ties"] = {label: {key: run[key] for key in (
+            "rows_differing_by_ties", "dipcn_sets_differ", "z_cells_apart")}
+            for label, run in bf16_files["runs"].items()}
+        row["sweep_2504"] = {key: bf16_files["sweep"]["launches"][key] for key in names16}
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

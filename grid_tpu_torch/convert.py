@@ -25,22 +25,34 @@ def params_from_reference(d: dict) -> CohortParams:
     return CohortParams(**d)
 
 
-def inputs_to_torch(values, mask, reads, reads_valid, hi, hw, hv, device, dtype):
+def _host(a):
+    """An array as numpy takes it: ``grid_tpu``'s bfloat16 arrays (numpy's
+    ml_dtypes bfloat16, which torch does not read) through float32, which
+    holds every bfloat16 value exactly."""
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def inputs_to_torch(values, mask, reads, reads_valid, hi, hw, hv, device, dtype,
+                    reads_dtype=None):
     """numpy inputs of ``cohort_step`` -> tensors on ``device``.
 
-    ``values`` and ``reads`` take ``dtype``; masks become bool, the
-    neighbor indices stay int32, and the neighbor weights keep their own
-    float dtype, as the JAX package keeps them.
+    ``values`` take ``dtype``, ``reads`` ``reads_dtype`` (default
+    ``dtype``; the bfloat16 step takes its reads as ``grid_tpu``'s fused
+    step does, in the host's float type); masks become bool, the neighbor
+    indices stay int32, and the neighbor weights keep their own float
+    dtype, as the JAX package keeps them. bfloat16 arrays of ``grid_tpu``
+    come in through float32.
     """
     device = torch.device(device)
 
     def as_tensor(a, dt=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+        return torch.as_tensor(np.ascontiguousarray(_host(a)), dtype=dt, device=device)
 
     return (
         as_tensor(values, dtype),
         as_tensor(mask, torch.bool),
-        as_tensor(reads, dtype),
+        as_tensor(reads, reads_dtype or dtype),
         as_tensor(reads_valid, torch.bool),
         as_tensor(hi, torch.int32),
         as_tensor(hw),
@@ -48,9 +60,17 @@ def inputs_to_torch(values, mask, reads, reads_valid, hi, hw, hv, device, dtype)
     )
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bfloat16, which numpy lacks,
+    as float32 arrays that hold its values exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def outputs_to_numpy(out: CohortOutputs) -> CohortOutputs:
-    """CohortOutputs of tensors -> CohortOutputs of numpy arrays."""
-    return CohortOutputs._make(t.detach().cpu().numpy() for t in out)
+    """CohortOutputs of tensors -> CohortOutputs of numpy arrays (bfloat16
+    fields as float32 arrays of the same values)."""
+    return CohortOutputs._make(to_numpy(t) for t in out)
 
 
 def stage_from_reference(stage) -> CohortStage:
@@ -77,12 +97,16 @@ def fused_host_inputs(stage: CohortStage, reads_map: dict, max_nbr: int):
     return reads, reads_valid, hi, hw, hv
 
 
-def fused_inputs(stage: CohortStage, reads_map: dict, max_nbr: int, device, dtype):
+def fused_inputs(stage: CohortStage, reads_map: dict, max_nbr: int, device, dtype,
+                 wide_dtype=None):
     """The fused steps' inputs to ``cohort_step`` as tensors on ``device``:
-    the staged depths and mask and :func:`fused_host_inputs`. Depths,
-    reads and the placeholder weights take ``dtype``."""
+    the staged depths and mask and :func:`fused_host_inputs`. Depths take
+    ``dtype``; reads and the placeholder weights ``wide_dtype`` (default
+    ``dtype``: the steps that do not read ``device.dtype``'s type,
+    ``utils.device.step_dtype``)."""
+    wide = wide_dtype or dtype
     reads, reads_valid, hi, hw, hv = fused_host_inputs(stage, reads_map, max_nbr)
     values, mask, reads, reads_valid, hi, hw, hv = inputs_to_torch(
-        stage.values, stage.mask, reads, reads_valid, hi, hw, hv, device, dtype
+        stage.values, stage.mask, reads, reads_valid, hi, hw, hv, device, dtype, wide
     )
-    return values, mask, reads, reads_valid, hi, hw.to(dtype), hv
+    return values, mask, reads, reads_valid, hi, hw.to(wide), hv

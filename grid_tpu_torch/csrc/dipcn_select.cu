@@ -136,7 +136,23 @@
 // (20 KB a row at N=2504) in both forms; the 65,536-column panels take the
 // wide mode, as in float32. The float32 forms' code is the same text
 // instantiated at int keys, so their results are those they gave before.
+//
+// The bfloat16 binary form (the *_bf16 entry points, both modes) takes bf16
+// d2, rnorm and nbr_w, as grid_tpu's step under device.dtype: bfloat16 does
+// (grid_tpu/ops/select.py:dipcn_from_distances, int16 keys at :39). The row
+// is stored as its 16-bit patterns (the resident mode's keys take 2 W
+// bytes) and each key is widened to int as it is read, so steps 1-5 run the
+// float32 form's code on 15-bit keys: finfo(bf16).max (0x7F7F) marks self
+// and invalid rows, and each radix selection takes two 8-bit digits. The
+// sum rounds where grid_tpu's does (select.py:203-206): the weights are
+// bf16, the sum is kept in float32 and rounded to bf16 once, m_eff is
+// rounded to bf16, and the mean and the quotient are each rounded. Bound
+// at N=2504: 2 N^2 bytes of d2 and the vectors, 12.6 MB, 3.8 us at 3.35
+// TB/s. The multi-weight form has no bf16 form: the multi-locus sweep's
+// batched dipCN reads the written matrix in float32 (grid_tpu's reads it in
+// float64), whatever device.dtype says.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -164,7 +180,9 @@ struct Keys;
 
 template <>
 struct Keys<float> {
-  using K = int;
+  using S = int;    // a key as the row stores it
+  using K = int;    // as the kernel computes with it
+  using A = float;  // the binary form's sum
   using U = unsigned;
   static constexpr K kBig = 0x7F7FFFFF;
   static constexpr K kMin = INT_MIN, kMax = INT_MAX;
@@ -173,16 +191,66 @@ struct Keys<float> {
 
 template <>
 struct Keys<double> {
+  using S = long long;
   using K = long long;
+  using A = double;
   using U = unsigned long long;
   static constexpr K kBig = 0x7FEFFFFFFFFFFFFFLL;
   static constexpr K kMin = LLONG_MIN, kMax = LLONG_MAX;
   static constexpr int kMinBlocks = 8;  // <= 64 registers a thread: 64-bit keys take two
 };
 
+template <>
+struct Keys<__nv_bfloat16> {
+  using S = short;  // the 16-bit pattern; non-negative bf16 read 0 .. 0x7FFF
+  using K = int;
+  using A = float;
+  using U = unsigned;
+  static constexpr K kBig = 0x7F7F;
+  static constexpr K kMin = INT_MIN, kMax = 0x7FFF;
+  static constexpr int kMinBlocks = 12;
+};
+
+template <typename T>
+constexpr bool kHasMulti = !std::is_same<T, __nv_bfloat16>::value;
+
+// keys a 16-byte line holds, at least 4: the resident keys end 16-byte
+// aligned after round_up(w, key_align) keys, and a row of a multiple of it
+// takes the 16-byte loads
+template <typename S>
+__host__ __device__ constexpr int key_align() {
+  return 16 / static_cast<int>(sizeof(S)) > 4 ? 16 / static_cast<int>(sizeof(S)) : 4;
+}
+
+// a weight as the binary form sums it
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ double to_acc(double v) { return v; }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// dipcn = rnorm / (total / max(m_eff, 1)), in T; in bf16 as grid_tpu rounds
+// it: the float32 total rounded once, m_eff rounded, the mean and the
+// quotient each rounded
+template <typename T>
+__device__ __forceinline__ T finish(typename Keys<T>::A total, int m_eff, T rnorm) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const float tot = __bfloat162float(__float2bfloat16_rn(total));
+    const float denom = __bfloat162float(__int2bfloat16_rn(max(m_eff, 1)));
+    const float mean = __bfloat162float(__float2bfloat16_rn(tot / denom));
+    return __float2bfloat16_rn(__bfloat162float(rnorm) / mean);
+  } else {
+    const T nbr_mean = total / static_cast<T>(max(m_eff, 1));
+    return rnorm / nbr_mean;
+  }
+}
+
+// a stored key, widened to the type the kernel computes in (int for the
+// 16-bit keys of bf16)
+template <typename S>
+using Wide = typename std::conditional<sizeof(S) == 2, int, S>::type;
+
 // the row's keys: shared memory (resident mode) or device memory (wide)
-template <bool kWide, typename K>
-__device__ __forceinline__ K key_at(const K* keys, int j) {
+template <bool kWide, typename S>
+__device__ __forceinline__ Wide<S> key_at(const S* keys, int j) {
   if constexpr (kWide) {
     return __ldg(keys + j);
   } else {
@@ -222,7 +290,7 @@ struct Shared {
   unsigned long long wtot_l[kWarps];  // packed-count scan scratch
   K rmin[kWarps], rmax[kWarps];
   int rcnt[kWarps];
-  T fsum[kWarps];
+  typename Keys<T>::A fsum[kWarps];
   int bin, bin_below, bin_count;  // the select round's digit, keys below it and in it
   int n_cand;
   int list_len;
@@ -266,7 +334,7 @@ struct Found {
 // gathered into `spare` and the later rounds walk only them. hist[parity]
 // is all zero on entry and on return.
 template <typename T, bool kWide, typename ListT>
-__device__ Found<typename Keys<T>::K> select_rank(const typename Keys<T>::K* keys,
+__device__ Found<typename Keys<T>::K> select_rank(const typename Keys<T>::S* keys,
                                                   const ListT* list, int n,
                                                   typename Keys<T>::K lo, typename Keys<T>::U span,
                                                   int rank, Shared<T>& sh, int& parity,
@@ -381,8 +449,8 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 // 32, and steps through them 32 at a time: the first walk counts (ties,
 // usable below t, usable ties) per warp; the second places each column at
 // its warp's prefix plus its ballot rank among the step's lanes.
-template <typename T, typename K>
-__device__ void tie_cut_walks(const K* keys, const unsigned* ubits, int w, K t, int need,
+template <typename T, typename S, typename K>
+__device__ void tie_cut_walks(const S* keys, const unsigned* ubits, int w, K t, int need,
                               int* list, Shared<T>& sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = round_up((w + kWarps - 1) / kWarps, 32);
@@ -437,7 +505,9 @@ __device__ void tie_cut_walks(const K* keys, const unsigned* ubits, int w, K t, 
 // column list.
 template <typename T>
 __host__ __device__ inline size_t dyn_smem_bytes(int w, int k) {
-  return static_cast<size_t>(round_up(w, 4)) * sizeof(T) + static_cast<size_t>((w + 31) / 32) * 4 +
+  using S = typename Keys<T>::S;
+  return static_cast<size_t>(round_up(w, key_align<S>())) * sizeof(S) +
+         static_cast<size_t>((w + 31) / 32) * 4 +
          static_cast<size_t>(round_up(k < w ? k : w, 8)) * 2;
 }
 
@@ -462,15 +532,16 @@ dipcn_select_kernel(const T* __restrict__ d2, const T* __restrict__ rnorm,
                     const T* __restrict__ nbr_w, const uint8_t* __restrict__ usable,
                     const uint8_t* __restrict__ valid, int w, int n_loci, int k, int n_nbr,
                     T* __restrict__ dipcn, uint8_t* __restrict__ ok) {
+  using S = typename Keys<T>::S;
   using K = typename Keys<T>::K;
   using U = typename Keys<T>::U;
   constexpr K kBigKey = Keys<T>::kBig;
   using ListT = typename std::conditional<kWide, int, uint16_t>::type;
   extern __shared__ int4 dyn[];
   // d2 >= 0, so its bit pattern read as a signed integer keeps the order
-  const K* src = reinterpret_cast<const K*>(d2) + static_cast<size_t>(blockIdx.x) * w;
-  const int key_bytes = kWide ? 0 : round_up(w, 4) * static_cast<int>(sizeof(K));
-  const K* keys = kWide ? src : reinterpret_cast<const K*>(dyn);            // [w]
+  const S* src = reinterpret_cast<const S*>(d2) + static_cast<size_t>(blockIdx.x) * w;
+  const int key_bytes = kWide ? 0 : round_up(w, key_align<S>()) * static_cast<int>(sizeof(S));
+  const S* keys = kWide ? src : reinterpret_cast<const S*>(dyn);            // [w]
   unsigned* ubits = reinterpret_cast<unsigned*>(
       reinterpret_cast<uint8_t*>(dyn) + key_bytes);                         // [ceil(w / 32)]
   ListT* list = reinterpret_cast<ListT*>(ubits + (w + 31) / 32);            // see *_smem_bytes
@@ -492,10 +563,24 @@ dipcn_select_kernel(const T* __restrict__ d2, const T* __restrict__ rnorm,
       ++nb;
     }
   };
-  if ((w & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+  if (w % key_align<S>() == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
     // resident: streamed, each row is read by one block, once; wide: the
     // later walks read the row again
-    if constexpr (sizeof(K) == 4) {
+    if constexpr (sizeof(S) == 2) {  // eight 16-bit keys a load
+      const int4* s4 = reinterpret_cast<const int4*>(src);
+      int4* k4 = reinterpret_cast<int4*>(dyn);
+#pragma unroll 4
+      for (int q = tid; q < w / 8; q += kThreads) {
+        const int4 v = kWide ? __ldg(s4 + q) : __ldcs(s4 + q);
+        if (!kWide) k4[q] = v;
+        const int words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          see(static_cast<short>(words[h] & 0xffff));
+          see(static_cast<short>(words[h] >> 16));
+        }
+      }
+    } else if constexpr (sizeof(S) == 4) {
       const int4* s4 = reinterpret_cast<const int4*>(src);
       int4* k4 = reinterpret_cast<int4*>(dyn);
 #pragma unroll 4
@@ -519,10 +604,10 @@ dipcn_select_kernel(const T* __restrict__ d2, const T* __restrict__ rnorm,
       }
     }
   } else {
-    K* ks = reinterpret_cast<K*>(dyn);
+    S* ks = reinterpret_cast<S*>(dyn);
 #pragma unroll 4
     for (int j = tid; j < w; j += kThreads) {
-      const K v = kWide ? __ldg(src + j) : __ldcs(src + j);
+      const S v = kWide ? __ldg(src + j) : __ldcs(src + j);
       if (!kWide) ks[j] = v;
       see(v);
     }
@@ -661,7 +746,7 @@ dipcn_select_kernel(const T* __restrict__ d2, const T* __restrict__ rnorm,
     int unused;
     ties2 = block_exclusive_scan(c, sh.wtot, unused);
   }
-  T s = 0;
+  typename Keys<T>::A s = 0;
   for (int i = l0; i < l1; ++i) {
     const int col = list[i];
     bool take = take_all;
@@ -669,18 +754,17 @@ dipcn_select_kernel(const T* __restrict__ d2, const T* __restrict__ rnorm,
       const K key = key_at<kWide>(keys, col);
       take = key < t2 || (key == t2 && ++ties2 <= need2);
     }
-    if (take) s += nbr_w[col];
+    if (take) s += to_acc(nbr_w[col]);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
   if (lane == 0) sh.fsum[warp] = s;
   __syncthreads();
   if (tid == 0) {
-    T total = 0;
+    typename Keys<T>::A total = 0;
 #pragma unroll
     for (int i = 0; i < kWarps; ++i) total += sh.fsum[i];
-    const T nbr_mean = total / static_cast<T>(max(m_eff, 1));
-    dipcn[row] = rnorm[row] / nbr_mean;
+    dipcn[row] = finish<T>(total, m_eff, rnorm[row]);
     ok[row] = valid[row] && m_eff > 0;
   }
 }
@@ -692,10 +776,12 @@ cudaError_t static_smem_bytes(size_t* bytes) {
   cudaFuncAttributes binary, multi;
   cudaError_t err = cudaFuncGetAttributes(&binary, dipcn_select_kernel<T, kWide, false>);
   if (err != cudaSuccess) return err;
-  if ((err = cudaFuncGetAttributes(&multi, dipcn_select_kernel<T, kWide, true>)) != cudaSuccess)
-    return err;
-  *bytes = binary.sharedSizeBytes > multi.sharedSizeBytes ? binary.sharedSizeBytes
-                                                          : multi.sharedSizeBytes;
+  *bytes = binary.sharedSizeBytes;
+  if constexpr (kHasMulti<T>) {
+    if ((err = cudaFuncGetAttributes(&multi, dipcn_select_kernel<T, kWide, true>)) != cudaSuccess)
+      return err;
+    if (multi.sharedSizeBytes > *bytes) *bytes = multi.sharedSizeBytes;
+  }
   return cudaSuccess;
 }
 
@@ -812,7 +898,12 @@ int multi_launch(const void* d2, const void* rnorm, const void* nbr_w, const voi
 template <typename T>
 int info_of(int mode, int multi, int w, int k, int* out) {
   if (mode != 0 && mode != 1) return cudaErrorInvalidValue;
-  if (multi) return mode == 0 ? info<T, false, true>(w, k, out) : info<T, true, true>(w, k, out);
+  if (multi) {
+    if constexpr (kHasMulti<T>) {
+      return mode == 0 ? info<T, false, true>(w, k, out) : info<T, true, true>(w, k, out);
+    }
+    return cudaErrorInvalidValue;  // no multi-weight form in bf16
+  }
   return mode == 0 ? info<T, false, false>(w, k, out) : info<T, true, false>(w, k, out);
 }
 
@@ -878,6 +969,23 @@ int dipcn_select_multi_launch_f64(const void* d2, const void* rnorm, const void*
                                   void* stream) {
   return multi_launch<double>(d2, rnorm, nbr_w, usable, valid, n, w, n_loci, k, n_nbr, mode,
                               dipcn, ok, stream);
+}
+
+// The bfloat16 binary form: the mode, launch shape (multi must be 0) and
+// launch above with d2, rnorm, nbr_w and dipcn bf16.
+int dipcn_select_mode_bf16(int device, int w, int k, int* mode) {
+  return select_mode<__nv_bfloat16>(device, w, k, mode);
+}
+
+int dipcn_select_info_bf16(int mode, int multi, int w, int k, int* out) {
+  return info_of<__nv_bfloat16>(mode, multi, w, k, out);
+}
+
+int dipcn_select_launch_bf16(const void* d2, const void* rnorm, const void* nbr_w,
+                             const void* usable, const void* valid, int n, int w, int k,
+                             int n_nbr, int mode, void* dipcn, void* ok, void* stream) {
+  return binary_launch<__nv_bfloat16>(d2, rnorm, nbr_w, usable, valid, n, w, k, n_nbr, mode,
+                                      dipcn, ok, stream);
 }
 
 const char* dipcn_select_error_string(int err) {

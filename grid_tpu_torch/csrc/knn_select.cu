@@ -89,8 +89,22 @@
 // up to 2^13 entries (k <= 8,192) so that the wide mode's list and buffer
 // fit a block. The float32 form's code is the same text instantiated at
 // int keys, so its results are those it gave before.
+//
+// The bfloat16 form (the *_bf16 entry points; Keys<__nv_bfloat16>) takes
+// [N, W] bf16 rows, as grid_tpu's selection takes bf16 with int16 keys
+// (grid_tpu/ops/select.py:39). The row is stored and copied as its 16-bit
+// patterns (half the bytes of float32: a slice of 8,192 columns is 16 KB)
+// and each key is widened to int as it is read, so the select, the
+// compaction and the tie order run the float32 form's code on 15-bit keys;
+// finfo(bf16).max (0x7F7F) marks the excluded columns, and the radix select
+// takes two 8-bit digits. A list entry is key * 2^17 + column in 32 bits
+// (W <= 131,072 columns), so the bitonic network moves 4-byte words where
+// float32 moves 8-byte ones and compares them as one integer: (value,
+// column) order. Modes and cluster sizes are float32's, k <= 16,384. Bound
+// at N=2504, k=500: 2 N^2 + 6 N k bytes = 20.1 MB, 6.0 us at 3.35 TB/s.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -124,13 +138,15 @@ struct __align__(16) Pair {
 
 // The keys of a value type: non-negative floats order as their bit
 // patterns read as signed integers of the same width (-0.0 is not
-// expected); kBig is finfo.max, the self and invalid-row columns; E is a
-// list entry, ordered by (value, column).
+// expected); kBig is finfo.max, the self and invalid-row columns; S is a
+// key as the row stores it, K as the kernel computes with it; E is a list
+// entry, ordered by (value, column).
 template <typename T>
 struct Keys;
 
 template <>
 struct Keys<float> {
+  using S = int;
   using K = int;
   using U = unsigned;
   using E = unsigned long long;  // key * 2^32 + column
@@ -143,6 +159,7 @@ struct Keys<float> {
 
 template <>
 struct Keys<double> {
+  using S = long long;
   using K = long long;
   using U = unsigned long long;
   using E = Pair;
@@ -155,13 +172,42 @@ struct Keys<double> {
   static constexpr int kMaxShared = 1;
 };
 
+template <>
+struct Keys<__nv_bfloat16> {
+  using S = short;  // the 16-bit pattern; non-negative bf16 read 0 .. 0x7FFF
+  using K = int;
+  using U = unsigned;
+  using E = unsigned;  // key * 2^17 + column
+  static constexpr K kBig = 0x7F7F;
+  static constexpr K kMin = INT_MIN, kMax = 0x7FFF;
+  static constexpr int kMaxK = 16384;    // a list of 2^14 entries is 64 KB
+  static constexpr int kMinBlocks = 12;
+  static constexpr int kMaxShared = kMaxCluster;
+  static constexpr int kMaxCols = 1 << 17;  // the entry's column field
+};
+
+// the columns a row may hold: the bf16 entry's column field bounds them
+template <typename T>
+constexpr long long max_cols() {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return Keys<T>::kMaxCols;
+  } else {
+    return LLONG_MAX;
+  }
+}
+
 // a gathered index: a column of the block's slice (at most 65,535 of them
 // in shared memory), or of the row in the wide mode
 template <bool kWide>
 using Index = typename std::conditional<kWide, int, unsigned short>::type;
 
-template <bool kWide, typename K>
-__device__ __forceinline__ K key_at(const K* keys, int j) {
+// a stored key, widened to the type the kernel computes in (int for the
+// 16-bit keys of bf16)
+template <typename S>
+using Wide = typename std::conditional<sizeof(S) == 2, int, S>::type;
+
+template <bool kWide, typename S>
+__device__ __forceinline__ Wide<S> key_at(const S* keys, int j) {
   if constexpr (kWide) {
     return __ldg(keys + j);
   } else {
@@ -288,7 +334,7 @@ struct Found {
 // only them. hist[parity] is all zero on entry.
 template <typename T, bool kWide>
 __device__ Found<typename Keys<T>::K> select_rank(
-    cg::cluster_group& cluster, int csize, const typename Keys<T>::K* keys, int n,
+    cg::cluster_group& cluster, int csize, const typename Keys<T>::S* keys, int n,
     typename Keys<T>::K lo, typename Keys<T>::U span, int rank, int extra,
     Shared<typename Keys<T>::K>& sh, int& parity, Index<kWide>* spare, int cap) {
   using K = typename Keys<T>::K;
@@ -393,6 +439,14 @@ __device__ Found<typename Keys<T>::K> select_rank(
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+// keys a row's 16-byte line holds, at least 4: the shared slice's list
+// starts 16-byte aligned after round_up(slice, key_align) keys, and a row
+// of a multiple of it takes the 16-byte loads
+template <typename S>
+__host__ __device__ constexpr int key_align() {
+  return 16 / static_cast<int>(sizeof(S)) > 4 ? 16 / static_cast<int>(sizeof(S)) : 4;
+}
+
 // the sorted list's length: the next power of two >= k, at least a warp's span
 __host__ __device__ inline int list_len(int k) {
   int p = kSpan;
@@ -418,22 +472,41 @@ __device__ __forceinline__ unsigned long long entry(int key, int col) {
          static_cast<unsigned>(col);
 }
 
+__device__ __forceinline__ unsigned entry16(int key, int col) {
+  return (static_cast<unsigned>(key) << 17) | static_cast<unsigned>(col);
+}
+
 __device__ __forceinline__ Pair entry(long long key, int col) {
   return {static_cast<unsigned long long>(key),
           static_cast<unsigned long long>(static_cast<unsigned>(col))};
 }
 
+// the list entry of type E of a key and its column
+template <typename E, typename K>
+__device__ __forceinline__ E make_entry(K key, int col) {
+  if constexpr (std::is_same<E, unsigned>::value) {
+    return entry16(key, col);
+  } else {
+    return entry(key, col);
+  }
+}
+
 // the list's padding: sorts after every entry
 __device__ __forceinline__ void set_pad(unsigned long long& e) { e = ~0ull; }
+__device__ __forceinline__ void set_pad(unsigned& e) { e = ~0u; }
 __device__ __forceinline__ void set_pad(Pair& e) { e = {~0ull, ~0ull}; }
 
 // (value, column) order of two entries
 __device__ __forceinline__ bool gt(unsigned long long a, unsigned long long b) { return a > b; }
+__device__ __forceinline__ bool gt(unsigned a, unsigned b) { return a > b; }
 __device__ __forceinline__ bool gt(const Pair& a, const Pair& b) {
   return a.key > b.key || (a.key == b.key && a.col > b.col);
 }
 
 __device__ __forceinline__ unsigned long long shfl_xor(unsigned long long v, int m) {
+  return __shfl_xor_sync(kFull, v, m);
+}
+__device__ __forceinline__ unsigned shfl_xor(unsigned v, int m) {
   return __shfl_xor_sync(kFull, v, m);
 }
 __device__ __forceinline__ Pair shfl_xor(const Pair& v, int m) {
@@ -444,6 +517,10 @@ __device__ __forceinline__ Pair shfl_xor(const Pair& v, int m) {
 __device__ __forceinline__ void write_entry(unsigned long long e, float* val, int* pos) {
   *val = __int_as_float(static_cast<int>(e >> 32));
   *pos = static_cast<int>(e & 0xffffffffull);
+}
+__device__ __forceinline__ void write_entry(unsigned e, __nv_bfloat16* val, int* pos) {
+  *val = __ushort_as_bfloat16(static_cast<unsigned short>(e >> 17));
+  *pos = static_cast<int>(e & 0x1ffffu);
 }
 __device__ __forceinline__ void write_entry(const Pair& e, double* val, int* pos) {
   *val = __longlong_as_double(static_cast<long long>(e.key));
@@ -457,8 +534,8 @@ __device__ __forceinline__ void write_entry(const Pair& e, double* val, int* pos
 // counts of the slices before this one arrive through the cluster, it
 // places each column at the prefix plus its ballot rank among the step's
 // lanes. `j0` is the slice's first column in the row.
-template <bool kWide, typename K, typename E>
-__device__ void compact(cg::cluster_group& cluster, int rank, const K* keys, int n, int j0,
+template <bool kWide, typename S, typename K, typename E>
+__device__ void compact(cg::cluster_group& cluster, int rank, const S* keys, int n, int j0,
                         K t, int n_below, int need, E* list, Shared<K>& sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = round_up((n + kWarps - 1) / kWarps, 32);
@@ -500,9 +577,9 @@ __device__ void compact(cg::cluster_group& cluster, int rank, const K* keys, int
     const bool below = in && key < t, tie = in && key == t;
     const unsigned b_below = __ballot_sync(kFull, below);
     const unsigned b_tie = __ballot_sync(kFull, tie);
-    if (below) out[pos_below + __popc(b_below & before)] = entry(key, j0 + i);
+    if (below) out[pos_below + __popc(b_below & before)] = make_entry<E>(key, j0 + i);
     const int r = ties + __popc(b_tie & before);  // ties before this one, in column order
-    if (tie && r < need) out[n_below + r] = entry(key, j0 + i);
+    if (tie && r < need) out[n_below + r] = make_entry<E>(key, j0 + i);
     ties += __popc(b_tie);
     pos_below += __popc(b_below);
   }
@@ -513,8 +590,8 @@ __device__ void compact(cg::cluster_group& cluster, int rank, const K* keys, int
 // keys <= t go into the leader's list at places taken from its fill count
 // (one remote atomic a warp step), in no order: the sort orders them, and
 // puts the lower columns of the ties first.
-template <bool kWide, typename K, typename E>
-__device__ void place_gathered(cg::cluster_group& cluster, const K* keys,
+template <bool kWide, typename S, typename K, typename E>
+__device__ void place_gathered(cg::cluster_group& cluster, const S* keys,
                                const Index<kWide>* cand, int m, int j0, K t, E* list,
                                Shared<K>& sh) {
   const int lane = threadIdx.x & 31;
@@ -532,7 +609,7 @@ __device__ void place_gathered(cg::cluster_group& cluster, const K* keys,
     int at = 0;
     if (lane == leader) at = atomicAdd(fill, __popc(b));
     at = __shfl_sync(kFull, at, leader);
-    if (take) out[at + __popc(b & before)] = entry(key, j0 + j);
+    if (take) out[at + __popc(b & before)] = make_entry<E>(key, j0 + j);
   }
 }
 
@@ -637,6 +714,7 @@ template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads, Keys<T>::kMinBlocks)
 knn_select_kernel(const T* __restrict__ d2, int w, int k, int slice, T* __restrict__ vals,
                   int* __restrict__ pos) {
+  using S = typename Keys<T>::S;
   using K = typename Keys<T>::K;
   using U = typename Keys<T>::U;
   using E = typename Keys<T>::E;
@@ -648,11 +726,11 @@ knn_select_kernel(const T* __restrict__ d2, int w, int k, int slice, T* __restri
   const int rank = static_cast<int>(cluster.block_rank());
   const size_t row = blockIdx.x / csize;
   const int j0 = min(rank * slice, w), n = min(slice, w - j0);
-  const K* src = reinterpret_cast<const K*>(d2) + row * w + j0;
-  K* skeys = reinterpret_cast<K*>(dyn);  // [slice] (shared mode)
-  const K* keys = kWide ? src : skeys;
+  const S* src = reinterpret_cast<const S*>(d2) + row * w + j0;
+  S* skeys = reinterpret_cast<S*>(dyn);  // [slice] (shared mode)
+  const S* keys = kWide ? src : skeys;
   const int L = list_len(k);
-  E* list = reinterpret_cast<E*>(skeys + (kWide ? 0 : round_up(slice, 4)));  // [L]
+  E* list = reinterpret_cast<E*>(skeys + (kWide ? 0 : round_up(slice, key_align<S>())));  // [L]
   // [gather_cap(k)]: the gathered indices
   Index<kWide>* spare = reinterpret_cast<Index<kWide>*>(list + L);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -669,11 +747,24 @@ knn_select_kernel(const T* __restrict__ d2, int w, int k, int slice, T* __restri
       ++nb;
     }
   };
-  const bool aligned = (n & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  const bool aligned =
+      n % key_align<S>() == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
   if constexpr (kWide) {
     // the keys stay in device memory; the later walks read the row again
     if (aligned) {
-      if constexpr (sizeof(K) == 4) {
+      if constexpr (sizeof(S) == 2) {  // eight 16-bit keys a load
+        const int4* s4 = reinterpret_cast<const int4*>(src);
+#pragma unroll 4
+        for (int q = tid; q < n / 8; q += kThreads) {
+          const int4 v = __ldg(s4 + q);
+          const int words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            see(static_cast<short>(words[h] & 0xffff));
+            see(static_cast<short>(words[h] >> 16));
+          }
+        }
+      } else if constexpr (sizeof(S) == 4) {
         const int4* s4 = reinterpret_cast<const int4*>(src);
 #pragma unroll 4
         for (int q = tid; q < n / 4; q += kThreads) {
@@ -704,7 +795,7 @@ knn_select_kernel(const T* __restrict__ d2, int w, int k, int slice, T* __restri
       }
       __syncthreads();
       if (tid == 0) {
-        bulk_load(smem_addr(skeys), src, static_cast<uint32_t>(n) * sizeof(K), bar);
+        bulk_load(smem_addr(skeys), src, static_cast<uint32_t>(n) * sizeof(S), bar);
       }
       mbar_wait(bar, 0);
     } else {
@@ -789,7 +880,8 @@ knn_select_kernel(const T* __restrict__ d2, int w, int k, int slice, T* __restri
 // list and the gather buffer.
 template <typename T>
 size_t shared_smem_bytes(int slice, int k) {
-  return static_cast<size_t>(round_up(slice, 4)) * sizeof(typename Keys<T>::K) +
+  using S = typename Keys<T>::S;
+  return static_cast<size_t>(round_up(slice, key_align<S>())) * sizeof(S) +
          static_cast<size_t>(list_len(k)) * sizeof(typename Keys<T>::E) +
          static_cast<size_t>(gather_cap<false>(k)) * sizeof(Index<false>);
 }
@@ -811,9 +903,12 @@ int default_cluster(int w) {
 }
 
 // the columns a block holds over a cluster of c: multiples of 4 (16 bytes
-// of float32) where c > 1, so each block's slice starts 16-byte aligned in
-// an aligned row
-int slice_of(int w, int c) { return c == 1 ? w : round_up((w + c - 1) / c, 4); }
+// of float32; 8 of bf16) where c > 1, so each block's slice starts 16-byte
+// aligned in an aligned row
+template <typename T>
+int slice_of(int w, int c) {
+  return c == 1 ? w : round_up((w + c - 1) / c, key_align<typename Keys<T>::S>());
+}
 
 template <typename T, bool kWide>
 cudaError_t configure(size_t smem) {
@@ -851,7 +946,7 @@ template <typename T>
 Plan plan_of(int mode, int w, int k) {
   if (mode == 1) return {1, w, wide_smem_bytes<T>(k)};
   const int c = default_cluster(w);
-  const int slice = slice_of(w, c);
+  const int slice = slice_of<T>(w, c);
   return {c, slice, shared_smem_bytes<T>(slice, k)};
 }
 
@@ -885,7 +980,7 @@ cudaError_t max_clusters(const Plan& p, int* clusters) {
 // blocks).
 template <typename T>
 bool valid_shape(int w, int k, int mode) {
-  return w > 0 && k >= 1 && k <= w && k <= Keys<T>::kMaxK &&
+  return w > 0 && w <= max_cols<T>() && k >= 1 && k <= w && k <= Keys<T>::kMaxK &&
          (mode == 1 || (mode == 0 && default_cluster(w) <= Keys<T>::kMaxShared));
 }
 
@@ -1040,6 +1135,21 @@ int knn_select_info_f64(int device, int mode, int w, int k, int* out) {
 int knn_select_launch_f64(const void* d2, int n, int w, int k, int mode, void* vals, void* pos,
                           void* stream) {
   return select_launch<double>(d2, n, w, k, mode, vals, pos, stream);
+}
+
+// The bfloat16 form of the three above: d2 [n, w] and vals [n, k] bf16,
+// w <= 131,072, k <= 16,384; modes and cluster sizes as float32's.
+int knn_select_mode_bf16(int device, int w, int k, int* mode, int* cluster) {
+  return select_mode<__nv_bfloat16>(device, w, k, mode, cluster);
+}
+
+int knn_select_info_bf16(int device, int mode, int w, int k, int* out) {
+  return select_info<__nv_bfloat16>(device, mode, w, k, out);
+}
+
+int knn_select_launch_bf16(const void* d2, int n, int w, int k, int mode, void* vals, void* pos,
+                           void* stream) {
+  return select_launch<__nv_bfloat16>(d2, n, w, k, mode, vals, pos, stream);
 }
 
 const char* knn_select_error_string(int err) {

@@ -22,6 +22,14 @@ nothing to any distance, so every shape stays fixed.
 
 The step runs on the device its inputs lie on: the hand kernels on a CUDA
 device, their plain PyTorch versions on the CPU.
+
+bfloat16 values (``device.dtype: bfloat16``) run steps 4-6 in bfloat16,
+each op rounded where ``grid_tpu``'s step rounds it, through the kernels'
+bf16 forms; the d2 budget counts 2 bytes an entry. The dipCN weights
+``reads / scales`` are taken in the reads' dtype and rounded to bfloat16
+once, as ``grid_tpu`` under x64 takes them in float64. Step 7 computes as
+under ``auto`` (``utils.device.step_dtype``): in float32 on the card, in
+float64 on the CPU.
 """
 
 from __future__ import annotations
@@ -86,7 +94,12 @@ class CohortOutputs(NamedTuple):
 
 
 def _q2(x):
-    """Quantize to 2 decimals (round-half-even), matching %.2f file writes."""
+    """Quantize to 2 decimals (round-half-even), matching %.2f file writes.
+    In bfloat16 the divisor is a bf16 tensor: on the card a Python scalar
+    divisor becomes a product with its reciprocal, which rounds otherwise
+    than ``grid_tpu``'s division."""
+    if x.dtype == torch.bfloat16:
+        return torch.round(x * 100) / torch.tensor(100.0, dtype=x.dtype, device=x.device)
     return torch.round(x * 100) / 100
 
 
@@ -176,7 +189,8 @@ def cohort_step(
         n_rows = row_valid.sum()  # padding must not inflate the N-1 denom
 
     # ---- step 4: normalize + select ------------------------------------
-    norm = normalize_cohort(values, mask, n_rows=n_rows)
+    # bfloat16: the variance sums as grid_tpu's jitted step takes them
+    norm = normalize_cohort(values, mask, n_rows=n_rows, round_squares=False)
     selected = select_high_variance_mask(norm.var_ratio, params.top_frac)
 
     scales = norm.row_means_raw
@@ -205,7 +219,7 @@ def cohort_step(
     # A sample without a read count still fills k-slots (the geometry is
     # sample_ok) but adds nothing to a mean (usable is reads_valid).
     reads_valid = reads_valid & sample_ok
-    w = reads / scales
+    w = (reads / scales).to(values.dtype)
     if d2_resident(params, n, values.element_size()):
         d2 = d2_matrix(z, norm.mask, region_used, params.zmax, row_valid=sample_ok)
         sq_dists, nbr_idx = sorted_smallest_k_gpu(d2, params.num_neighbors)
@@ -227,6 +241,9 @@ def cohort_step(
     # ---- step 7: phasing ----------------------------------------------
     # Samples without a dipCN estimate never enter phasing; NaN marks them.
     irrs = torch.where(dipcn_valid, dipcn, torch.nan)
+    if irrs.dtype == torch.bfloat16:  # as under auto: float32 on the card, float64 on the CPU
+        wide = torch.float32 if irrs.is_cuda else torch.float64
+        irrs, hap_nbr_w = irrs.to(wide), hap_nbr_w.to(wide)
     phasing: PhasingResult = phase_haplotypes(
         irrs, hap_nbr_idx, hap_nbr_w, hap_nbr_valid, params.min_nbr, params.n_iters
     )

@@ -201,15 +201,19 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {device}")
 
 
-def dtype_suffix(dtype: torch.dtype) -> str:
+def dtype_suffix(dtype: torch.dtype, bf16: bool = False) -> str:
     """The C entry points' suffix of a value type the cohort step's kernels
-    take: "" for float32, "_f64" for float64 (their float64 forms); raises
-    TypeError for any other."""
+    take: "" for float32, "_f64" for float64 (their float64 forms) and,
+    where the kernel has a bfloat16 form (``bf16``), "_bf16" for bfloat16;
+    raises TypeError for any other."""
     if dtype == torch.float32:
         return ""
     if dtype == torch.float64:
         return "_f64"
-    raise TypeError(f"expected torch.float32 or torch.float64, got {dtype}")
+    if bf16 and dtype == torch.bfloat16:
+        return "_bf16"
+    also = ", torch.bfloat16" if bf16 else ""
+    raise TypeError(f"expected torch.float32, torch.float64{also}, got {dtype}")
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:

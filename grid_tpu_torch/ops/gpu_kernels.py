@@ -28,7 +28,11 @@
   ``csrc/zprep_gram64.cu`` instead (the triangle, split, panel and cross
   modes: 128x128 tiles of FP64 tensor-core ``mma.sync`` m16n8k16 fed by a
   4-stage TMA ring, one tile an SM; no split: P itself stands in
-  ``SplitZ.p``).
+  ``SplitZ.p``). bfloat16 inputs take the same source's bf16 form (its
+  ``*16`` entry points: one bf16 wgmma product of P, which is bf16 already,
+  in the triangle, split and panel modes; the split pass gives the norms
+  as ``grid_tpu`` sums them, ``sum(P * P)`` in float32 rounded once, not
+  G's diagonal).
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch version
 for CPU tensors only; it counts its calls that reached the card in
@@ -57,20 +61,27 @@ _COLSTATS_MERGE_BLOCK = 256  # partial entries per program of the merge kernel
 # ---------------------------------------------------------------------------
 
 
-def masked_column_stats_plain(values, mask, inv_row_means, col_means=None):
+def masked_column_stats_plain(values, mask, row_scale, col_means=None, round_squares=True):
     """Plain PyTorch version of :func:`masked_column_stats`, in the input's
-    dtype.
+    dtype (bfloat16: x = values / row_scale, and with ``round_squares``
+    False its squares summed exactly, in float32).
 
     The sums run along contiguous rows of the transposed matrix: summed
     across the rows in place, a column's sum depended on its position (the
     CPU reduction takes the last columns of a row by another order), so two
     equal columns could differ in the last bit, and the high-variance
-    selection's strict ``>`` then split columns that tie exactly."""
-    x = torch.where(mask, values * inv_row_means[:, None], 0)
+    selection's strict ``>`` then split columns that tie exactly. In
+    bfloat16 every elementwise step rounds to bfloat16 and the sums
+    accumulate in float32 and round once, as ``grid_tpu``'s do."""
+    half = values.dtype == torch.bfloat16
+    row = row_scale[:, None]
+    x = torch.where(mask, values / row if half else values * row, 0)
     mu = 0 if col_means is None else col_means[None, :]
     centered = torch.where(mask, x - mu, 0)
+    wide = centered.float() if half and not round_squares else centered
+    sqdev = (wide * wide).t().contiguous().sum(dim=1)
     return (mask.sum(dim=0).to(values.dtype), x.t().contiguous().sum(dim=1),
-            (centered * centered).t().contiguous().sum(dim=1))
+            sqdev.to(values.dtype))
 
 
 def colstats_plan(n: int, r: int, n_sm: int) -> tuple[int, int, int]:
@@ -97,16 +108,18 @@ def _colstats_kernels():
     import triton.language as tl
 
     # the sums, the partials and the output keep the values' type (float32
-    # or float64)
+    # or float64); bfloat16 values are summed into float32 partials
     @triton.jit
     def colstats(v_ptr, m_ptr, irm_ptr, mu_ptr, part_ptr, n_rows, n_cols, rows_per_chunk,
-                 HAS_MU: tl.constexpr, BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr):
-        ACC = v_ptr.dtype.element_ty
+                 HAS_MU: tl.constexpr, BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr,
+                 HALF: tl.constexpr = False, ROUND_SQ: tl.constexpr = True):
+        ACC = part_ptr.dtype.element_ty
+        VT = v_ptr.dtype.element_ty
         cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
         chunk = tl.program_id(1)
         col_in = cols < n_cols
         if HAS_MU:
-            mu = tl.load(mu_ptr + cols, mask=col_in, other=0.0)
+            mu = tl.load(mu_ptr + cols, mask=col_in, other=0.0).to(ACC)
         else:
             mu = tl.zeros((BLOCK_C,), ACC)
         acc_cnt = tl.zeros((BLOCK_M, BLOCK_C), ACC)
@@ -118,14 +131,26 @@ def _colstats_kernels():
             row_in = rows < n_rows
             inb = row_in[:, None] & col_in[None, :]
             offs = rows[:, None].to(tl.int64) * n_cols + cols[None, :]
-            v = tl.load(v_ptr + offs, mask=inb, other=0.0)
+            v = tl.load(v_ptr + offs, mask=inb, other=0.0).to(ACC)
             m = tl.load(m_ptr + offs, mask=inb, other=0) != 0
-            irm = tl.load(irm_ptr + rows, mask=row_in, other=0.0)
-            x = tl.where(m, v * irm[:, None], 0.0)
-            c = tl.where(m, x - mu[None, :], 0.0)
+            irm = tl.load(irm_ptr + rows, mask=row_in, other=0.0).to(ACC)
+            if HALF:
+                # bfloat16: x = values / row mean and x - mu each rounded to
+                # bfloat16 (the division correctly rounded), and the square
+                # too where ROUND_SQ, as grid_tpu rounds them; the sums stay
+                # in float32
+                x = tl.where(m, tl.math.div_rn(v, irm[:, None]).to(VT).to(ACC), 0.0)
+                c = tl.where(m, (x - mu[None, :]).to(VT).to(ACC), 0.0)
+                if ROUND_SQ:
+                    acc_sq += (c * c).to(VT).to(ACC)
+                else:
+                    acc_sq += c * c
+            else:
+                x = tl.where(m, v * irm[:, None], 0.0)
+                c = tl.where(m, x - mu[None, :], 0.0)
+                acc_sq += c * c
             acc_cnt += m.to(ACC)
             acc_sum += x
-            acc_sq += c * c
         # partials [S, 3, R]: this chunk's count, sum and sqdev rows
         out = part_ptr + chunk.to(tl.int64) * 3 * n_cols + cols
         tl.store(out, tl.sum(acc_cnt, axis=0), mask=col_in)
@@ -135,7 +160,8 @@ def _colstats_kernels():
     @triton.jit
     def colstats_merge(part_ptr, out_ptr, width, N_CHUNKS: tl.constexpr, BLOCK: tl.constexpr):
         # out[j] = sum over s of part[s, j], s in order: deterministic; the
-        # loop is unrolled, so all S loads are in flight together
+        # loop is unrolled, so all S loads are in flight together. The store
+        # rounds float32 partials once into a bfloat16 output
         ACC = part_ptr.dtype.element_ty
         offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
         inb = offs < width
@@ -147,9 +173,10 @@ def _colstats_kernels():
     return triton, colstats, colstats_merge
 
 
-def masked_column_stats(values, mask, inv_row_means, col_means=None):
-    """Per-column (count, sum, sqdev_sum) of x = values * inv_row_means under
-    ``mask``, in one pass over the matrix.
+def masked_column_stats(values, mask, row_scale, col_means=None, round_squares=True):
+    """Per-column (count, sum, sqdev_sum) of x = values * row_scale under
+    ``mask`` (bfloat16: x = values / row_scale), in one pass over the
+    matrix.
 
     Same contract as the Pallas kernel (whose tile sizes and ``interpret``
     flag are TPU knobs with no counterpart here). On the card a call
@@ -157,44 +184,60 @@ def masked_column_stats(values, mask, inv_row_means, col_means=None):
     chunk, the merge kernel; ``masked_column_stats.launches`` counts calls
     that reached the card, not kernels.
 
+    bfloat16: ``row_scale`` holds the row means and x = values / row mean,
+    as ``grid_tpu`` divides (a product with the reciprocal would round
+    twice); x and x - mu each round to
+    bfloat16, and so does the square (``round_squares``, as ``grid_tpu``'s
+    op-by-op file step 4 rounds it; its jitted fused step sums the exact
+    squares), the sums accumulate in float32 partials, and the merge
+    kernel, launched whatever the number of chunks, rounds each output
+    once. Its bound at N=2504, R=2048 is 15.4 MB, 4.6 us at 3.35 TB/s.
+
     Args:
         values: [N, R] raw depths.
         mask: [N, R] bool validity; counted as given, so pass it with bad
             rows already cleared.
-        inv_row_means: [N] 1/row_mean (0 for invalid rows).
+        row_scale: [N] 1/row_mean (0 for invalid rows); in bfloat16 the
+            row means (1 for invalid rows).
         col_means: optional [R]; sqdev is centered on it (zeros when None).
+        round_squares: bfloat16 only: round each (x - mu)^2 to bfloat16
+            before it is summed.
 
-    Returns (cnt [R], sum [R], sqdev [R]) in the input dtype: float32 or
-    float64 from the kernel (the sums kept in that type), any float type
-    from the plain version.
+    Returns (cnt [R], sum [R], sqdev [R]) in the input dtype: float32,
+    float64 or bfloat16 from the kernel (the sums kept in that type, in
+    float32 for bfloat16), any float type from the plain version.
     """
-    tensors = (values, mask, inv_row_means) + (() if col_means is None else (col_means,))
+    tensors = (values, mask, row_scale) + (() if col_means is None else (col_means,))
     if not native.on_cuda(*tensors):
-        return masked_column_stats_plain(values, mask, inv_row_means, col_means)
+        return masked_column_stats_plain(values, mask, row_scale, col_means, round_squares)
     n, r = values.shape
     dtype = values.dtype
-    native.dtype_suffix(dtype)  # float32 or float64
+    native.dtype_suffix(dtype, bf16=True)  # float32, float64 or bfloat16
+    half = dtype == torch.bfloat16
     native.check(values, "values", dtype, (n, r))
     native.check(mask, "mask", torch.bool, (n, r))
-    native.check(inv_row_means, "inv_row_means", dtype, (n,))
+    native.check(row_scale, "row_scale", dtype, (n,))
     if col_means is not None:
         native.check(col_means, "col_means", dtype, (r,))
     col_tiles, chunks, rows_per_chunk = colstats_plan(n, r, _sm_count(values.device))
-    part = torch.empty((chunks, 3, r), dtype=dtype, device=values.device)
-    out = part[0] if chunks == 1 else torch.empty((3, r), dtype=dtype, device=values.device)
+    part = torch.empty((chunks, 3, r), dtype=torch.float32 if half else dtype,
+                       device=values.device)
+    merged = chunks > 1 or half
+    out = torch.empty((3, r), dtype=dtype, device=values.device) if merged else part[0]
     try:
         triton, kernel, merge = _colstats_kernels()
         with torch.cuda.device(values.device):
             # Triton launches on PyTorch's current stream and raises itself
             # when it cannot compile a kernel or CUDA refuses a launch.
             kernel[(col_tiles, chunks)](
-                values, mask.view(torch.uint8), inv_row_means,
+                values, mask.view(torch.uint8), row_scale,
                 values if col_means is None else col_means,  # unread when HAS_MU is False
                 part, n, r, rows_per_chunk,
                 HAS_MU=col_means is not None,
-                BLOCK_M=_COLSTATS_BLOCK_M, BLOCK_C=_COLSTATS_BLOCK_C, num_warps=_COLSTATS_WARPS,
+                BLOCK_M=_COLSTATS_BLOCK_M, BLOCK_C=_COLSTATS_BLOCK_C, HALF=half,
+                ROUND_SQ=round_squares, num_warps=_COLSTATS_WARPS,
             )
-            if chunks > 1:
+            if merged:
                 merge[(triton.cdiv(3 * r, _COLSTATS_MERGE_BLOCK),)](
                     part, out, 3 * r, N_CHUNKS=chunks, BLOCK=_COLSTATS_MERGE_BLOCK, num_warps=4)
     except Exception as e:
@@ -248,14 +291,28 @@ def _prepare(z, mask, region_mask, zmax: float):
     return p
 
 
-def zprep_gram_plain(z, mask, region_mask, zmax: float):
-    """Plain PyTorch version of :func:`zprep_gram`: prepare, then P @ P^T."""
+def _norms(p, g=None):
+    """The squared norms of P's rows: G's diagonal in float32 and float64
+    (``g``), else ``sum(P * P)``; in bfloat16 as ``grid_tpu``'s jitted step
+    sums them, the squares exact and the sum kept in float32 and rounded
+    once (XLA does not round the products it feeds a reduction)."""
+    if p.dtype == torch.bfloat16:
+        wide = p.float()
+        return (wide * wide).sum(dim=1).to(p.dtype)
+    return (p * p).sum(dim=1) if g is None else torch.diagonal(g)
+
+
+def zprep_gram_plain(z, mask, region_mask, zmax: float, norms: bool = False):
+    """Plain PyTorch version of :func:`zprep_gram`: prepare, then P @ P^T
+    (and the norms)."""
     p = _prepare(z, mask, region_mask, zmax)
-    return p @ p.T
+    g = p @ p.T
+    return (g, _norms(p, g)) if norms else g
 
 
-_GRAM_K_TILE = 32  # R columns per stage of csrc/zprep_gram.cu (kTileK); R is padded to it
+_GRAM_K_TILE = 32  # R columns per stage of csrc/zprep_gram.cu in float32; R is padded to it
 _GRAM64_K_TILE = 16  # the same of csrc/zprep_gram64.cu
+_GRAM16_K_STEP = 16  # the bf16 form's R_pad multiple (its stages are 64 columns)
 _GRAM_INFO_KEYS = ("tile", "k_tile", "stages", "threads", "smem_bytes", "blocks",
                    "blocks_per_sm")
 # float64: smem_bytes is the dynamic shared memory (the ring)
@@ -282,6 +339,15 @@ def _zprep_lib():
     lib.zprep_gram_cross_launch.restype = ctypes.c_int
     lib.zprep_gram_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.zprep_gram_info.restype = ctypes.c_int
+    # the bf16 form: its triangle also writes the norms
+    lib.zprep_gram16_launch.argtypes = [*lib.zprep_gram_launch.argtypes[:8], ctypes.c_void_p,
+                                        *lib.zprep_gram_launch.argtypes[8:]]
+    lib.zprep_split16_launch.argtypes = lib.zprep_split_launch.argtypes
+    lib.zprep_gram16_panel_launch.argtypes = lib.zprep_gram_panel_launch.argtypes
+    lib.zprep_gram16_info.argtypes = lib.zprep_gram_info.argtypes
+    for fn in (lib.zprep_gram16_launch, lib.zprep_split16_launch, lib.zprep_gram16_panel_launch,
+               lib.zprep_gram16_info):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -309,8 +375,10 @@ def _zprep64_lib():
 
 
 def _r_pad(r: int, dtype: torch.dtype) -> int:
-    """R rounded up to the K-stage of the dtype's Gram kernel (at least one)."""
-    k_tile = _GRAM64_K_TILE if dtype == torch.float64 else _GRAM_K_TILE
+    """R rounded up to the K-stage of the dtype's Gram kernel (at least one;
+    bfloat16: one k16 step, the TMA box's columns past it read as zeros)."""
+    k_tile = {torch.float64: _GRAM64_K_TILE, torch.bfloat16: _GRAM16_K_STEP}.get(dtype,
+                                                                              _GRAM_K_TILE)
     return max(1, -(-r // k_tile)) * k_tile
 
 
@@ -330,8 +398,13 @@ def zprep_gram_info(n: int, device: torch.device, dtype: torch.dtype = torch.flo
     "panel" of ``rows`` rows: its row tiles times the column tiles, or
     "cross" of a block of ``rows`` rows by one of ``n``: the same tiles),
     with its registers and spill bytes a thread and its static shared
-    memory."""
+    memory; for bfloat16, the bf16 form's triangle."""
     _require_hopper(device)
+    if dtype == torch.bfloat16:
+        out = (ctypes.c_int * len(_GRAM_INFO_KEYS))()
+        with torch.cuda.device(device):
+            native.check_launch("zprep_gram", _zprep_lib().zprep_gram16_info(n, out))
+        return dict(zip(_GRAM_INFO_KEYS, out))
     if dtype == torch.float64:
         out = (ctypes.c_int * len(_GRAM64_INFO_KEYS))()
         with torch.cuda.device(device):
@@ -344,7 +417,7 @@ def zprep_gram_info(n: int, device: torch.device, dtype: torch.dtype = torch.flo
     return dict(zip(_GRAM_INFO_KEYS, out))
 
 
-def zprep_gram(z, mask, region_mask, zmax: float):
+def zprep_gram(z, mask, region_mask, zmax: float, norms: bool = False):
     """G = P P^T with P = where(mask, clip(z, ±zmax), 0) * region_mask.
 
     On the card, float32: a split pass writes P's TF32 halves (scratch of
@@ -353,28 +426,44 @@ def zprep_gram(z, mask, region_mask, zmax: float):
     small·big + big·big) at float32 accuracy. Float64: a prep pass writes P
     (N·R_pad float64, R_pad a multiple of 16), then the upper-triangle
     128x128 tiles run on the FP64 tensor cores (``mma.sync`` m16n8k16, IEEE
-    float64). G comes out exactly symmetric either way. Needs compute
-    capability 9.0.
+    float64). bfloat16: the split pass writes P (N·R_pad bf16, R_pad a
+    multiple of 16) and the norms, then the tiles run as one bf16 wgmma
+    product each k-step, G rounded to bf16 once. G comes out exactly
+    symmetric either way. Needs compute capability 9.0.
 
     Args:
-        z: [N, R] float32 or float64 z matrix.
+        z: [N, R] float32, float64 or bfloat16 z matrix.
         mask: [N, R] bool validity.
         region_mask: [R] bool selected regions.
         zmax: clip bound.
+        norms: also return the squared norms of P's rows (G's diagonal in
+            float32 and float64; in bfloat16 ``sum(P * P)`` as ``grid_tpu``
+            sums it, from the split pass: :func:`_norms`).
 
-    Returns [N, N] Gram matrix in z's dtype.
+    Returns [N, N] Gram matrix in z's dtype, or (G, norms [N]).
     """
     if not native.on_cuda(z, mask, region_mask):
-        return zprep_gram_plain(z, mask, region_mask, zmax)
+        return zprep_gram_plain(z, mask, region_mask, zmax, norms)
     n, r = z.shape
     dtype = z.dtype
-    native.dtype_suffix(dtype)  # float32: csrc/zprep_gram.cu; float64: csrc/zprep_gram64.cu
+    # float32 and bfloat16: csrc/zprep_gram.cu; float64: csrc/zprep_gram64.cu
+    native.dtype_suffix(dtype, bf16=True)
     native.check(z, "z", dtype, (n, r))
     native.check(mask, "mask", torch.bool, (n, r))
     native.check(region_mask, "region_mask", torch.bool, (r,))
     _require_hopper(z.device)
     r_pad = _r_pad(r, dtype)
     g = torch.empty((n, n), dtype=dtype, device=z.device)
+    if dtype == torch.bfloat16:
+        sq = torch.empty(n, dtype=dtype, device=z.device)
+        scratch = torch.empty((n, r_pad), dtype=dtype, device=z.device)
+        with torch.cuda.device(z.device):
+            err = _zprep_lib().zprep_gram16_launch(
+                z.data_ptr(), mask.data_ptr(), region_mask.data_ptr(), float(zmax), n, r, r_pad,
+                scratch.data_ptr(), sq.data_ptr(), g.data_ptr(), native.stream_ptr(z.device))
+        native.check_launch("zprep_gram", err)
+        native.count_launch(zprep_gram)
+        return (g, sq) if norms else g
     if dtype == torch.float64:
         name, launch = "zprep_gram64", _zprep64_lib().zprep_gram64_launch
         scratch = torch.empty((n, r_pad), dtype=dtype, device=z.device)
@@ -386,7 +475,7 @@ def zprep_gram(z, mask, region_mask, zmax: float):
                      r_pad, scratch.data_ptr(), g.data_ptr(), native.stream_ptr(z.device))
     native.check_launch(name, err)
     native.count_launch(zprep_gram)
-    return g
+    return (g, torch.diagonal(g)) if norms else g
 
 
 zprep_gram.launches = 0
@@ -397,16 +486,16 @@ class SplitZ(NamedTuple):
     for the Gram row panels (:func:`zprep_split`)."""
 
     # on the card [2, N, R_pad] TF32 halves of P (float32) or [1, N, R_pad]
-    # P itself (float64); P [N, R] itself on the CPU
+    # P itself (float64, bfloat16); P [N, R] itself on the CPU
     p: torch.Tensor
-    norms: torch.Tensor  # [N] squared norms of P's rows
+    norms: torch.Tensor  # [N] squared norms of P's rows (bfloat16: grid_tpu's sum(P * P))
 
 
 def zprep_split_plain(z, mask, region_mask, zmax: float) -> SplitZ:
     """Plain PyTorch version of :func:`zprep_split`: P itself and
-    sum(P * P) per row."""
+    sum(P * P) per row (:func:`_norms`)."""
     p = _prepare(z, mask, region_mask, zmax)
-    return SplitZ(p, (p * p).sum(dim=1))
+    return SplitZ(p, _norms(p))
 
 
 def zprep_split(z, mask, region_mask, zmax: float) -> SplitZ:
@@ -419,10 +508,12 @@ def zprep_split(z, mask, region_mask, zmax: float) -> SplitZ:
     to the diagonal of :func:`zprep_gram`'s G. Float64: the prep pass writes
     P as [1, N, R_pad] float64 (512 MB at N=65,536, R=1024) and the FP64
     kernel's diagonal tiles give the norms, computed as each panel computes
-    G[i, i]. Needs compute capability 9.0.
+    G[i, i]. bfloat16: the split pass alone writes P as [1, N, R_pad] bf16
+    and the norms as ``grid_tpu`` sums them (:func:`_norms`). Needs compute
+    capability 9.0.
 
     Args:
-        z: [N, R] float32 or float64 z matrix.
+        z: [N, R] float32, float64 or bfloat16 z matrix.
         mask: [N, R] bool validity, or None for z prepared already.
         region_mask: [R] bool selected regions, or None for all.
         zmax: clip bound (``math.inf`` for z prepared already).
@@ -432,7 +523,8 @@ def zprep_split(z, mask, region_mask, zmax: float) -> SplitZ:
         return zprep_split_plain(z, mask, region_mask, zmax)
     n, r = z.shape
     dtype = z.dtype
-    native.dtype_suffix(dtype)  # float32: csrc/zprep_gram.cu; float64: csrc/zprep_gram64.cu
+    # float32 and bfloat16: csrc/zprep_gram.cu; float64: csrc/zprep_gram64.cu
+    native.dtype_suffix(dtype, bf16=True)
     native.check(z, "z", dtype, (n, r))
     if mask is not None:
         native.check(mask, "mask", torch.bool, (n, r))
@@ -441,10 +533,13 @@ def zprep_split(z, mask, region_mask, zmax: float) -> SplitZ:
     _require_hopper(z.device)
     r_pad = _r_pad(r, dtype)
     wide = dtype == torch.float64
-    split = torch.empty((1 if wide else 2, n, r_pad), dtype=dtype, device=z.device)
+    split = torch.empty((2 if dtype == torch.float32 else 1, n, r_pad), dtype=dtype,
+                        device=z.device)
     norms = torch.empty(n, dtype=dtype, device=z.device)
     name = "zprep_gram64" if wide else "zprep_gram"
-    launch = _zprep64_lib().zprep_split64_launch if wide else _zprep_lib().zprep_split_launch
+    launch = (_zprep64_lib().zprep_split64_launch if wide else
+              _zprep_lib().zprep_split16_launch if dtype == torch.bfloat16 else
+              _zprep_lib().zprep_split_launch)
     with torch.cuda.device(z.device):
         err = launch(
             z.data_ptr(), 0 if mask is None else mask.data_ptr(),
@@ -471,21 +566,23 @@ def zprep_gram_panel(split: SplitZ, i0: int, rows: int):
     On the card the Gram kernel runs over (the panel's row tiles) × (all
     column tiles) of the halves in ``split``, with the 3×TF32 arithmetic of
     :func:`zprep_gram`, and stores the panel once (no triangle, no mirror);
-    a float64 split takes the FP64 kernel over its P.
+    a float64 split takes the FP64 kernel over its P, a bfloat16 one the
+    bf16 form (one bf16 product, the panel rounded to bf16 once).
     """
     if not native.on_cuda(split.p, split.norms):
         return zprep_gram_panel_plain(split, i0, rows)
     _, n, r_pad = split.p.shape
     dtype = split.p.dtype
-    native.dtype_suffix(dtype)
+    native.dtype_suffix(dtype, bf16=True)
     wide = dtype == torch.float64
-    native.check(split.p, "split", dtype, (1 if wide else 2, n, r_pad))
+    native.check(split.p, "split", dtype, (2 if dtype == torch.float32 else 1, n, r_pad))
     if not (0 <= i0 and 0 < rows <= n - i0):
         raise ValueError(f"panel rows [{i0}, {i0 + rows}) outside [0, {n})")
     g = torch.empty((rows, n), dtype=dtype, device=split.p.device)
     name = "zprep_gram64" if wide else "zprep_gram"
-    launch = (_zprep64_lib().zprep_gram64_panel_launch if wide
-              else _zprep_lib().zprep_gram_panel_launch)
+    launch = (_zprep64_lib().zprep_gram64_panel_launch if wide else
+              _zprep_lib().zprep_gram16_panel_launch if dtype == torch.bfloat16 else
+              _zprep_lib().zprep_gram_panel_launch)
     with torch.cuda.device(g.device):
         err = launch(split.p.data_ptr(), n, r_pad, i0, rows, g.data_ptr(),
                      native.stream_ptr(g.device))

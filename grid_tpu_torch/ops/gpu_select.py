@@ -26,7 +26,11 @@ XLA selections of ``grid_tpu``'s cohort step (``approx_max_k`` at
 
 Both kernels take float32 or float64 rows (``device.dtype``), in every
 form: the float64 forms are the same kernels at int64 keys (the ``*_f64``
-entry points of their sources), chosen by the dtype of ``d2``.
+entry points of their sources), chosen by the dtype of ``d2``. bfloat16
+rows take the bf16 forms (the ``*_bf16`` entry points) of ``knn_select``
+and of ``dipcn_select``'s binary form: the rows stored as their 16-bit
+patterns, the keys int16 as ``grid_tpu`` takes them; the multi-weight form
+has none (the multi-locus sweep computes in float32 under bfloat16).
 """
 
 from __future__ import annotations
@@ -59,10 +63,12 @@ def _lib():
     lib.dipcn_select_mode.restype = ctypes.c_int
     lib.dipcn_select_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.dipcn_select_info.restype = ctypes.c_int
-    for name in ("launch", "multi_launch", "mode", "info"):
-        f64 = getattr(lib, f"dipcn_select_{name}_f64")
-        f64.argtypes = getattr(lib, f"dipcn_select_{name}").argtypes
-        f64.restype = ctypes.c_int
+    for name, suffixes in (("launch", ("_f64", "_bf16")), ("multi_launch", ("_f64",)),
+                           ("mode", ("_f64", "_bf16")), ("info", ("_f64", "_bf16"))):
+        for suffix in suffixes:
+            form = getattr(lib, f"dipcn_select_{name}{suffix}")
+            form.argtypes = getattr(lib, f"dipcn_select_{name}").argtypes
+            form.restype = ctypes.c_int
     return lib
 
 
@@ -77,9 +83,10 @@ def _knn_lib():
     lib.knn_select_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.knn_select_info.restype = ctypes.c_int
     for name in ("launch", "mode", "info"):
-        f64 = getattr(lib, f"knn_select_{name}_f64")
-        f64.argtypes = getattr(lib, f"knn_select_{name}").argtypes
-        f64.restype = ctypes.c_int
+        for suffix in ("_f64", "_bf16"):
+            form = getattr(lib, f"knn_select_{name}{suffix}")
+            form.argtypes = getattr(lib, f"knn_select_{name}").argtypes
+            form.restype = ctypes.c_int
     return lib
 
 
@@ -88,8 +95,11 @@ _INFO_KEYS = ("threads", "smem_bytes", "static_smem_bytes", "blocks_per_sm", "re
 
 
 # the largest k each form of knn_select takes (its list of 8-byte entries in
-# float32, of 16-byte pairs in float64, fills 128 KB of a block)
-KNN_MAX_K = {torch.float32: 16384, torch.float64: 8192}
+# float32, of 16-byte pairs in float64, fills 128 KB of a block; bfloat16's
+# 4-byte entries are float32's limit)
+KNN_MAX_K = {torch.float32: 16384, torch.float64: 8192, torch.bfloat16: 16384}
+# the widest bfloat16 row knn_select takes: a list entry's 17-bit column
+KNN_BF16_MAX_W = 1 << 17
 
 
 def _device_index(device: torch.device) -> int:
@@ -104,7 +114,7 @@ def dipcn_select_mode(w: int, k: int, device: torch.device,
     stay in device memory), or None where neither fits. The keys' size moves the edge: ~55,000 float32 columns at
     k=500 on an H100, about half that in float64."""
     mode = ctypes.c_int()
-    fn = getattr(_lib(), f"dipcn_select_mode{native.dtype_suffix(dtype)}")
+    fn = getattr(_lib(), f"dipcn_select_mode{native.dtype_suffix(dtype, bf16=True)}")
     with torch.cuda.device(device):
         err = fn(_device_index(device), w, k, ctypes.byref(mode))
     native.check_launch("dipcn_select", err)
@@ -114,15 +124,18 @@ def dipcn_select_mode(w: int, k: int, device: torch.device,
 def dipcn_select_info(w: int, k: int, device: torch.device, multi: bool = False,
                       dtype: torch.dtype = torch.float32) -> dict:
     """The kernel's launch shape (of its multi-weight form when ``multi``;
-    of its float64 form for ``dtype`` float64) for rows of ``w`` columns at
+    of its float64 or bfloat16 form for that ``dtype``; bfloat16 has no
+    multi-weight form) for rows of ``w`` columns at
     this ``k`` on the CUDA ``device``: its mode, threads, dynamic and static
     shared memory per block, resident blocks per SM, registers and local
     (spill) bytes per thread."""
+    if multi:
+        native.dtype_suffix(dtype)  # the multi-weight form: float32 or float64
     mode = dipcn_select_mode(w, k, device, dtype)
     if mode is None:
         raise ValueError(f"no mode of dipcn_select takes rows of {w} columns at k={k}")
     out = (ctypes.c_int * len(_INFO_KEYS))()
-    fn = getattr(_lib(), f"dipcn_select_info{native.dtype_suffix(dtype)}")
+    fn = getattr(_lib(), f"dipcn_select_info{native.dtype_suffix(dtype, bf16=True)}")
     with torch.cuda.device(device):
         native.check_launch("dipcn_select", fn(MODES.index(mode), int(multi), w, k, out))
     return {"mode": mode, **dict(zip(_INFO_KEYS, out))}
@@ -131,8 +144,9 @@ def dipcn_select_info(w: int, k: int, device: torch.device, multi: bool = False,
 def dipcn_from_distances_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr: int):
     """dipCN from the [N, W] distance matrix; same contract as
     :func:`grid_tpu_torch.ops.select.dipcn_from_distances` and as the Pallas
-    kernel (float32 or float64 on the card: d2, rnorm and nbr_w of one
-    dtype; float64 sums and keys in the float64 form).
+    kernel (float32, float64 or bfloat16 on the card: d2, rnorm and nbr_w
+    of one dtype; float64 sums and keys in the float64 form; in bfloat16
+    int16 keys and a float32 sum rounded as ``grid_tpu`` rounds it).
 
     One thread block per row. Where the row's keys, its usable bits and its
     compacted usable k-set fit in the block's shared memory (up to ~55,000
@@ -147,7 +161,7 @@ def dipcn_from_distances_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k: int,
     if not native.on_cuda(d2, rnorm, nbr_w, col_usable, sample_valid):
         return dipcn_from_distances(d2, rnorm, nbr_w, col_usable, sample_valid, k=k, n_nbr=n_nbr)
     n, w = d2.shape
-    native.dtype_suffix(d2.dtype)
+    native.dtype_suffix(d2.dtype, bf16=True)
     native.check(d2, "d2", d2.dtype, (n, w))
     native.check(rnorm, "rnorm", d2.dtype, (n,))
     native.check(nbr_w, "nbr_w", d2.dtype, (w,))
@@ -170,7 +184,7 @@ def _launch(mode: str, d2, rnorm, nbr_w, col_usable, sample_valid, k: int, n_nbr
     n, w = d2.shape
     dipcn = torch.empty(n, dtype=d2.dtype, device=d2.device)
     ok = torch.empty(n, dtype=torch.bool, device=d2.device)
-    launch = getattr(_lib(), f"dipcn_select_launch{native.dtype_suffix(d2.dtype)}")
+    launch = getattr(_lib(), f"dipcn_select_launch{native.dtype_suffix(d2.dtype, bf16=True)}")
     with torch.cuda.device(d2.device):
         err = launch(
             d2.data_ptr(), rnorm.data_ptr(), nbr_w.data_ptr(), col_usable.data_ptr(),
@@ -277,7 +291,7 @@ _KNN_INFO_KEYS = (*_INFO_KEYS, "cluster_blocks", "clusters", "slice")
 def _knn_mode(w: int, k: int, device: torch.device, dtype: torch.dtype) -> tuple:
     """(mode number, cluster size) the kernel takes rows of ``w`` columns
     of ``dtype`` in at this ``k``; mode -1 where none fits."""
-    return _knn_mode_on(w, k, _device_index(device), native.dtype_suffix(dtype))
+    return _knn_mode_on(w, k, _device_index(device), native.dtype_suffix(dtype, bf16=True))
 
 
 @functools.cache
@@ -325,7 +339,7 @@ def knn_select_info(w: int, k: int, device: torch.device, mode: str | None = Non
     if mode is None:
         raise ValueError(f"no mode of knn_select takes rows of {w} columns at k={k}")
     out = (ctypes.c_int * len(_KNN_INFO_KEYS))()
-    fn = getattr(_knn_lib(), f"knn_select_info{native.dtype_suffix(dtype)}")
+    fn = getattr(_knn_lib(), f"knn_select_info{native.dtype_suffix(dtype, bf16=True)}")
     with torch.cuda.device(device):
         native.check_launch("knn_select",
                             fn(_device_index(device), _knn_mode_number(mode), w, k, out))
@@ -348,9 +362,10 @@ def sorted_smallest_k_gpu(d2, k: int):
     :func:`grid_tpu_torch.ops.knn.sorted_smallest_k` (stable-argsort
     order), which CPU tensors take.
 
-    On the card: float32 or float64 [B, W] rows, contiguous, non-negative
-    (finfo.max or larger for excluded columns; -0.0 is not expected),
-    1 <= k <= W, k <= ``KNN_MAX_K`` (16,384 in float32, 8,192 in float64).
+    On the card: float32, float64 or bfloat16 [B, W] rows, contiguous,
+    non-negative (finfo.max or larger for excluded columns; -0.0 is not
+    expected), 1 <= k <= W, k <= ``KNN_MAX_K`` (16,384 in float32 and
+    bfloat16, 8,192 in float64; bfloat16 rows of at most 131,072 columns).
     A row is split over a cluster of 1-8 blocks (float64: 1), each holding
     its slice of the keys in shared memory (one bulk copy: the row crosses
     device memory once): a histogram radix select of the k-th value with
@@ -368,10 +383,13 @@ def sorted_smallest_k_gpu(d2, k: int):
     if d2.dim() != 2:
         raise ValueError(f"d2: expected [B, W], got {tuple(d2.shape)}")
     n, w = d2.shape
-    native.dtype_suffix(d2.dtype)
+    native.dtype_suffix(d2.dtype, bf16=True)
     native.check(d2, "d2", d2.dtype, (n, w))
     if not 1 <= k <= w:
         raise ValueError(f"k={k} must be in [1, {w}]")
+    if d2.dtype == torch.bfloat16 and w > KNN_BF16_MAX_W:
+        raise ValueError(f"knn_select takes bfloat16 rows of at most {KNN_BF16_MAX_W} columns, "
+                         f"got {w}")
     if k > KNN_MAX_K[d2.dtype]:
         raise ValueError(f"k={k}: knn_select takes k <= {KNN_MAX_K[d2.dtype]} in {d2.dtype}")
     mode = knn_select_mode(w, k, d2.device, d2.dtype)
@@ -389,7 +407,7 @@ def _knn_launch(mode: str, d2, k: int):
     idx = torch.empty((n, k), dtype=torch.int32, device=d2.device)
     if n == 0:
         return vals, idx
-    launch = getattr(_knn_lib(), f"knn_select_launch{native.dtype_suffix(d2.dtype)}")
+    launch = getattr(_knn_lib(), f"knn_select_launch{native.dtype_suffix(d2.dtype, bf16=True)}")
     with torch.cuda.device(d2.device):
         err = launch(d2.data_ptr(), n, w, k, number, vals.data_ptr(), idx.data_ptr(),
                      native.stream_ptr(d2.device))

@@ -92,11 +92,13 @@ def d2_matrix(z, mask, region_mask, zmax: float, row_valid=None):
     Equals ``grid_tpu.ops.knn.d2_matrix(prepare_z(z, mask, zmax,
     region_mask), row_valid)``, but takes the raw z: the Gram matrix G comes
     from :func:`grid_tpu_torch.ops.gpu_kernels.zprep_gram`, which prepares z
-    inside the product, and the squared norms are its diagonal. The epilogue
-    d2 = max(|a|^2 + |b|^2 - 2 G, 0) is plain elementwise code.
+    inside the product, and the squared norms are its diagonal (in bfloat16
+    ``sum(P * P)`` as ``grid_tpu`` sums them, from the same call: they
+    decide the order of the distances). The epilogue d2 = max(|a|^2 + |b|^2
+    - 2 G, 0) is plain elementwise code, each op rounded in bfloat16 as
+    ``grid_tpu``'s.
     """
-    g = zprep_gram(z, mask, region_mask, zmax)
-    sq = torch.diagonal(g)
+    g, sq = zprep_gram(z, mask, region_mask, zmax, norms=True)
     d2 = (sq[:, None] + sq[None, :] - 2 * g).clamp_min_(0)
     big = torch.finfo(d2.dtype).max
     d2.fill_diagonal_(big)
@@ -115,8 +117,15 @@ def sorted_smallest_k(d2, k: int):
     equal values, so it is not used. This is the plain version of the
     ``knn_select`` kernel (:func:`grid_tpu_torch.ops.gpu_select.sorted_smallest_k_gpu`).
 
+    bfloat16 rows sort by their int16 keys, the order ``grid_tpu`` and the
+    kernel take (a sort of the values flushes subnormals to zero on the
+    CPU).
+
     Returns (vals [N, k], idx [N, k] int32).
     """
+    if d2.dtype == torch.bfloat16:
+        idx = torch.sort(d2.view(torch.int16), dim=1, stable=True).indices[:, :k]
+        return torch.gather(d2, 1, idx), idx.to(torch.int32)
     vals, idx = torch.sort(d2, dim=1, stable=True)
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
 

@@ -17,6 +17,16 @@ on the card): counts and sums first, then the sum of squared deviations
 centered on the means. Like that kernel, the port scales rows by the
 reciprocal row mean where the JAX package divides by it; the two differ by
 at most one rounding of x.
+
+In bfloat16 every step rounds where ``grid_tpu``'s does (XLA rounds each
+bfloat16 op once and sums in float32): x = values / row mean is a division
+(a product with the reciprocal would round twice), and the divisors
+``grid_tpu`` takes as weakly typed scalars (N - 1, ``ratio_mult``) are
+rounded to bfloat16 first, where a Python scalar would keep them exact.
+``grid_tpu`` rounds the squares of the variance sum in its op-by-op file
+step 4 and sums them exactly in its jitted fused step (XLA keeps a product
+that feeds a reduction in float32): ``round_squares`` picks the one to
+follow.
 """
 
 from __future__ import annotations
@@ -55,7 +65,7 @@ class NormalizeResult(NamedTuple):
 
 
 def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None,
-                     all_reduce=None) -> NormalizeResult:
+                     all_reduce=None, round_squares: bool = True) -> NormalizeResult:
     """Normalize a [N, R] masked depth matrix. See module docstring.
 
     Args:
@@ -70,8 +80,15 @@ def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None,
             over the ranks (:meth:`grid_tpu_torch.parallel.mesh.CohortGroup.all_reduce_sum`);
             it is called twice, on the [2, R] counts and sums and on the
             [R] squared deviations. Row statistics need no exchange.
+        round_squares: bfloat16 only: round each squared deviation before
+            it is summed, as ``grid_tpu``'s file-mode step 4 does (True), or
+            sum them exactly, as its jitted cohort step does (False).
     """
     n_inds = values.shape[0] if n_rows is None else n_rows
+    half = values.dtype == torch.bfloat16
+
+    def rounded(c):  # a divisor as grid_tpu takes it: in the values' dtype
+        return torch.as_tensor(c, device=values.device).to(values.dtype) if half else c
 
     # -- step 1: row normalization --------------------------------------
     row_means_raw = masked_mean(values, mask, axis=1)  # NaN for empty rows
@@ -79,10 +96,13 @@ def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None,
     # Invalid rows become all-invalid (reference: row_mean 0 -> NaN row);
     # the kernel counts the mask as given, so it gets the cleared one.
     mask = mask & row_ok[:, None]
-    inv_row = torch.where(row_ok, 1 / torch.where(row_ok, row_means_raw, 1), 0)
+    if half:  # x = values / row mean, as grid_tpu divides
+        row = torch.where(row_ok, row_means_raw, 1)
+    else:
+        row = torch.where(row_ok, 1 / torch.where(row_ok, row_means_raw, 1), 0)
 
     # -- step 2: column stats -------------------------------------------
-    col_cnt, col_sum, _ = masked_column_stats(values, mask, inv_row)
+    col_cnt, col_sum, _ = masked_column_stats(values, mask, row)
     if all_reduce is not None:
         col_cnt, col_sum = all_reduce(torch.stack([col_cnt, col_sum]))
     col_ok = col_cnt > 0
@@ -90,10 +110,10 @@ def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None,
     safe_mu = torch.where(col_ok, col_means, 0)
     # Denominator is total N - 1 (reference parity), not valid count; an
     # all-invalid column keeps variance 0.0, as np.nansum does.
-    _, _, col_sqdev = masked_column_stats(values, mask, inv_row, safe_mu)
+    _, _, col_sqdev = masked_column_stats(values, mask, row, safe_mu, round_squares)
     if all_reduce is not None:
         col_sqdev = all_reduce(col_sqdev)
-    col_vars = col_sqdev / (n_inds - 1)
+    col_vars = col_sqdev / rounded(n_inds - 1)
 
     # -- step 3: variance ratios ----------------------------------------
     mu_pos = col_ok & (safe_mu > 0)
@@ -102,7 +122,7 @@ def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None,
     )
 
     # -- step 4: z-transform (only mu > 0 columns are transformed) ------
-    x = torch.where(mask, values * inv_row[:, None], 0)
+    x = torch.where(mask, values / row[:, None] if half else values * row[:, None], 0)
     sqrt_mu = torch.sqrt(torch.where(mu_pos, safe_mu, 1))
     z = torch.where(mu_pos[None, :], (x - safe_mu[None, :]) / sqrt_mu[None, :], x)
     z = torch.where(mask, z, 0)
@@ -112,7 +132,7 @@ def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None,
     med = masked_median(var_ratio, ratio_valid)
     scale = torch.where(
         ratio_valid.any() & (med > 0),
-        1.0 / torch.sqrt(med / ratio_mult),
+        1.0 / torch.sqrt(med / rounded(ratio_mult)),
         torch.ones((), dtype=values.dtype, device=values.device),
     )
     return NormalizeResult(

@@ -5,8 +5,11 @@ panels, for one locus or for L loci's weights on the same distances
 (:func:`dipcn_from_lists`).
 
 Non-negative floats bitcast to signed integers of the same width keep their
-order, so the k-th smallest distance of a row is found by bisection on the
-integer key space: each round is one compare-and-count pass. Ties at the
+order (int16 keys for bfloat16, as ``grid_tpu`` takes them), so the k-th
+smallest distance of a row is found by bisection on the integer key space:
+each round is one compare-and-count pass. In bfloat16 the sums round where
+``grid_tpu``'s do: the weights cast to bfloat16, each row's sum accumulated
+in float32 and rounded once, the mean and the quotient each rounded. Ties at the
 threshold go to the lower column (stable-argsort parity) through a second
 bisection on the column index.
 
@@ -30,6 +33,7 @@ from grid_tpu_torch.ops.knn import panel_d2
 _KEY_TYPES = {
     torch.float32: torch.int32,
     torch.float64: torch.int64,
+    torch.bfloat16: torch.int16,
 }
 
 

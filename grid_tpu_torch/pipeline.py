@@ -39,7 +39,8 @@ step, that step runs on one card; where it chooses the sharded ring
 (``dispatch: ring`` on more than one device, or N at or above the
 crossover under ``auto``), the fused step runs over prod(mesh_shape) ranks
 (:mod:`grid_tpu_torch.parallel`), in ``device.dtype`` (float32 or float64
-on the card, as the single-device step). A one-device mesh with ``dispatch: ring``
+on the card, as the single-device step; bfloat16 with ``mesh_shape`` is
+refused before any step, on either device). A one-device mesh with ``dispatch: ring``
 raises the policy's ``ValueError`` before anything runs, and a failed rank
 (:class:`grid_tpu_torch.parallel.RankFailure`) propagates on every device:
 the file-mode steps do not take over from it.

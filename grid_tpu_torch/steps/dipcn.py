@@ -18,7 +18,7 @@ import torch
 
 from grid_tpu_torch.io.formats import neighbors_filename, read_counts_tsv, read_neighbors, write_dipcn
 from grid_tpu_torch.ops.dipcn import compute_dipcn
-from grid_tpu_torch.utils.device import compute_dtype, config_device
+from grid_tpu_torch.utils.device import config_device, step_dtype
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import step_timer
 
@@ -80,7 +80,7 @@ def compute_diploid_genotypes(config, console=None, timer=None):
         return output_file
 
     with step_timer("dipcn.device", timer, None):
-        dtype = compute_dtype(config, device)
+        dtype = step_dtype(config, device)
         dip, valid = compute_dipcn(
             torch.as_tensor(rnorm, dtype=dtype, device=device),
             torch.as_tensor(sample_valid, device=device),

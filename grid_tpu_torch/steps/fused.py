@@ -18,6 +18,9 @@ brings the outputs back for the writers. ``device.dtype: auto`` is float32 on
 the card and the staged float64 on the CPU; ``float64`` runs on the card too
 (the hand kernels' float64 forms), with ``device.mesh_shape`` as well;
 reads, haplotype weights and the dipCN values fed to phasing follow it.
+``bfloat16`` (no ``mesh_shape``) runs steps 4-6 in bfloat16, as
+``grid_tpu`` casts the staged depths alone; the reads and step 7 take
+``utils.device.step_dtype``, float32 on the card and float64 on the CPU.
 
 ``device.mesh_shape`` asks the dispatch policy
 (:func:`grid_tpu_torch.parallel.policy.choose_cohort_execution`) as the JAX
@@ -63,7 +66,7 @@ from grid_tpu_torch.ops.phasing import compute_imputed, phase_haplotypes
 from grid_tpu_torch.parallel.pcohort import ROW_FIELDS, sharded_cohort_step
 from grid_tpu_torch.parallel.policy import choose_cohort_execution
 from grid_tpu_torch.steps.normalize import _stage
-from grid_tpu_torch.utils.device import compute_dtype, config_device
+from grid_tpu_torch.utils.device import compute_dtype, config_device, step_dtype
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import step_timer
 
@@ -154,6 +157,7 @@ def run_fused_steps(config, console=None, timer=None):
         quantize=True,
     )
     dtype = compute_dtype(config, device)
+    wide = step_dtype(config, device)  # reads and step 7: bfloat16 computes them as auto
 
     mesh_shape = config.get("device", {}).get("mesh_shape")
     world = 1
@@ -180,7 +184,7 @@ def run_fused_steps(config, console=None, timer=None):
             # un-pad the row outputs back to the real cohort size
             out = out._replace(**{name: getattr(out, name)[:n] for name in ROW_FIELDS})
         else:
-            inputs = fused_inputs(stage, reads_map, max_nbr, device, dtype)
+            inputs = fused_inputs(stage, reads_map, max_nbr, device, dtype, wide)
             out = outputs_to_numpy(cohort_step(*inputs, params))
             del inputs
             _finish(device)
@@ -205,10 +209,10 @@ def run_fused_steps(config, console=None, timer=None):
         hvi, hvw, hvv = pad_hap_neighbors(hap_nbrs, max_nbr, dtype=np.float64)
 
     with step_timer("fused.phase", timer, None):
-        irrs_t = torch.as_tensor(irrs_v, dtype=dtype, device=device)
+        irrs_t = torch.as_tensor(irrs_v, dtype=wide, device=device)
         nbr_t = (
             torch.as_tensor(hvi, device=device),
-            torch.as_tensor(hvw, dtype=dtype, device=device),
+            torch.as_tensor(hvw, dtype=wide, device=device),
             torch.as_tensor(hvv, device=device),
         )
         res7 = phase_haplotypes(

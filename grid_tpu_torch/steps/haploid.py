@@ -7,7 +7,7 @@ hap2imp``. Two modes:
 
 - device (default): padded tensors and Jacobi sweeps
   (:func:`grid_tpu_torch.ops.phasing.phase_haplotypes`) on
-  ``config_device(config)`` in ``compute_dtype``;
+  ``config_device(config)`` in ``step_dtype``;
 - exact (``device.exact_phasing: true``): the host Gauss-Seidel in the
   reference's in-place order, bit for bit.
 
@@ -37,7 +37,7 @@ from grid_tpu_torch.ops.phasing import (
     phase_gauss_seidel_host,
     phase_haplotypes,
 )
-from grid_tpu_torch.utils.device import compute_dtype, config_device
+from grid_tpu_torch.utils.device import config_device, step_dtype
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import step_timer
 
@@ -67,7 +67,7 @@ def hi_inference(config, console=None, timer=None):
     n_iters = hi_cfg.get("n_iters", 100)
     exact = bool(config.get("device", {}).get("exact_phasing", False))
     device = config_device(config)
-    dtype = compute_dtype(config, device)
+    dtype = step_dtype(config, device)
 
     ids, irrs, id_to_ind = read_dipcn(dip_cn_file)
     n = len(irrs)

@@ -20,7 +20,7 @@ import torch
 
 from grid_tpu_torch.io.formats import neighbors_filename, read_normalized_data, write_neighbors_dense
 from grid_tpu_torch.ops.knn import filter_regions_by_variance, knn_squared, prepare_z
-from grid_tpu_torch.utils.device import compute_dtype, config_device
+from grid_tpu_torch.utils.device import config_device, step_dtype
 from grid_tpu_torch.utils.logging import log
 from grid_tpu_torch.utils.timing import step_timer
 
@@ -30,7 +30,8 @@ def load_neighbor_geometry(config, console=None, timer=None):
     written normalized matrix: (sample_ids, zp, scales, r_use, k).
 
     ``zp`` is the [N, R_use] prepared z (clip, zero fill, variance filter)
-    on ``config_device(config)`` in ``compute_dtype``; ``scales`` is
+    on ``config_device(config)`` in ``step_dtype`` (bfloat16 runs this step
+    as ``auto`` does, as ``grid_tpu``'s step reads no dtype); ``scales`` is
     {sample_id: scale} as written."""
     ncfg = config["mosdepth"]["neighbors"]
     zmax = ncfg.get("zmax", 2.0)
@@ -51,7 +52,7 @@ def load_neighbor_geometry(config, console=None, timer=None):
         log(console, f"Removed {extreme} / {len(sigma2ratios)} regions with sigma2ratio > "
                      f"{sigma2_max}", style="warning")
 
-    dtype = compute_dtype(config, device)
+    dtype = step_dtype(config, device)
     z = torch.as_tensor(np.nan_to_num(data_matrix), dtype=dtype, device=device)
     mask = torch.as_tensor(~np.isnan(data_matrix), device=device)
     zp = prepare_z(z, mask, zmax)[:, torch.as_tensor(valid_indices, device=device)]

@@ -16,6 +16,7 @@ from pathlib import Path
 
 import torch
 
+from grid_tpu_torch.convert import to_numpy
 from grid_tpu_torch.io.bed import load_repeat_mask
 from grid_tpu_torch.io.formats import read_samples, write_normalized_output
 from grid_tpu_torch.io.staging import stage_cohort, stage_cohort_streaming
@@ -28,7 +29,9 @@ from grid_tpu_torch.utils.timing import step_timer
 def normalize_mosdepth(config, console=None, timer=None):
     """Normalize the cohort's mosdepth coverage and write the normalized
     matrix (``<output_dir>/<prefix>.<type>.gz``); returns its path. On the
-    card unless ``device.platform: cpu``, in ``compute_dtype``."""
+    card unless ``device.platform: cpu``, in ``compute_dtype`` (bfloat16
+    too: the kernel's bf16 form, each step rounded as ``grid_tpu``'s file
+    step 4 rounds it)."""
     device = config_device(config)
     samples = read_samples(config["samples_file"])
     ncfg = config.get("mosdepth", {}).get("normalize", {})
@@ -47,7 +50,7 @@ def normalize_mosdepth(config, console=None, timer=None):
     with step_timer("normalize.device", timer, None):
         values = torch.as_tensor(stage.values, dtype=compute_dtype(config, device), device=device)
         res = normalize_cohort(values, torch.as_tensor(stage.mask, device=device))
-        res = type(res)(*(t.cpu().numpy() for t in res))  # waits for the device
+        res = type(res)(*map(to_numpy, res))  # waits for the device
         selected = select_high_variance_indices(res.var_ratio, ncfg.get("top_frac", 0.1))
 
     write_normalized_output(

@@ -34,6 +34,9 @@ import numpy as np
 # alignment files a writer process takes (encoding ~3,000 reads in Python
 # costs ~0.1 s a file; a spawned process ~1 s to start)
 SAMPLES_PER_WRITER = 64
+# bed.gz files a writer process takes (formatting and compressing 2,049
+# bins costs ~25 ms a file)
+BEDS_PER_WRITER = 256
 
 
 def make_matrix(n, r, seed=0):
@@ -257,6 +260,14 @@ def _indel_cigars(read_len):
     ]
 
 
+def _write_bed(path, chrom, bins, depths):
+    """One sample's binned depths as the JAX package writes them: a line a
+    bin, depth at %.2f."""
+    with gzip.open(path, "wt") as f:
+        for (bs, be), depth in zip(bins.tolist(), depths.tolist()):
+            f.write(f"{chrom}\t{bs}\t{be}\t{depth:.2f}\n")
+
+
 def _write_alignments(aln_dir, file_type, chrom, chrom_len, sid, positions, cigs, read_len):
     """Encode one sample's reads and write its BAM or CRAM (no index)."""
     if file_type == "cram":
@@ -324,17 +335,31 @@ def _make_cohort(
     samples_file = out / "samples.txt"
     samples_file.write_text("".join(f"{s}\n" for s in ids))
 
-    for i, sid in enumerate(ids):
-        bed = work / f"{sid}_SYN.regions.bed.gz"
-        with gzip.open(bed, "wt") as f:
-            for (bs, be) in all_bins:
+    # the draws stay in this process, in the JAX package's order; from 2 x
+    # BEDS_PER_WRITER samples on, spawned processes format and compress the
+    # files (the same bytes, the same calls to the writer)
+    bins = np.array(all_bins, dtype=np.int64)
+    workers = min(os.cpu_count() or 1, n_samples // BEDS_PER_WRITER)
+    with (ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+          if workers > 1 else nullcontext()) as pool:
+        written = []
+        for i, sid in enumerate(ids):
+            depths = np.empty(len(all_bins))
+            kept = np.ones(len(all_bins), dtype=bool)
+            for b, (bs, be) in enumerate(all_bins):
                 in_window = bs >= window_start and be <= window_end
                 dose = dip_cn[i] / 2 if in_window else 1.0
                 noise = rng.normal(1.0, 0.02)
-                depth = max(base_depth[i] * dose * noise, 0.01)
+                depths[b] = max(base_depth[i] * dose * noise, 0.01)
                 if missing_frac and rng.random() < missing_frac:
-                    continue
-                f.write(f"{chrom}\t{bs}\t{be}\t{depth:.2f}\n")
+                    kept[b] = False
+            args = (work / f"{sid}_SYN.regions.bed.gz", chrom, bins[kept], depths[kept])
+            if pool is None:
+                _write_bed(*args)
+            else:
+                written.append(pool.submit(_write_bed, *args))
+        for done in written:
+            done.result()
 
     # read counts: proportional to depth * CN dose over the window
     counts_file = results / "read_counts.tsv"

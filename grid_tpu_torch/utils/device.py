@@ -97,22 +97,25 @@ def compute_dtype(config: dict | None, device: torch.device) -> torch.dtype:
     path ``grid_tpu`` takes float64 on its device: the cohort step on both
     branches, the file-mode steps, the multi-locus sweep (the multi-weight
     ``dipcn_select``) and ``device.mesh_shape`` (the ring's cross-mode Gram,
-    the gather form and the sharded stager). bfloat16 named for a CUDA
-    device raises rather than run the kernels' plain versions there, and so
-    does float64 with ``mosdepth.neighbors.num_neighbors`` past the float64
-    ``knn_select``'s 8,192. Callers resolve the dtype before any step
-    runs."""
+    the gather form and the sharded stager). bfloat16 runs on the card
+    where ``grid_tpu`` applies it (:func:`step_dtype` says which steps):
+    the flat cohort step and file-mode step 4, through the bf16 forms of
+    the kernels; with ``device.mesh_shape`` it raises, on either device.
+    So does float64 on the card with
+    ``mosdepth.neighbors.num_neighbors`` past the float64 ``knn_select``'s
+    8,192. Callers resolve the dtype before any step runs."""
     dtype = resolve_dtype(config)
+    if dtype == torch.bfloat16 and (config or {}).get("device", {}).get("mesh_shape"):
+        raise ValueError(
+            f"device.dtype bfloat16 on {device} with device.mesh_shape: the sharded step (the "
+            f"cross-mode Gram, the ring merge, the gather form, the sharded stager) takes "
+            f"float32 and float64 only; leave mesh_shape out, or use float32 or float64"
+        )
     if device.type != "cuda":
         return torch.float64 if dtype is None else dtype
-    if dtype in (None, torch.float32):
-        return torch.float32
+    if dtype in (None, torch.float32, torch.bfloat16):
+        return dtype or torch.float32
     advice = "use float32 or auto on the card, or device.platform: cpu"
-    if dtype != torch.float64:
-        raise ValueError(
-            f"device.dtype {dtype} on {device}: the Hopper kernels of the cohort step take "
-            f"float32 and float64 only; {advice}"
-        )
     from grid_tpu_torch.ops.gpu_select import KNN_MAX_K
 
     k = ((config or {}).get("mosdepth") or {}).get("neighbors", {}).get("num_neighbors")
@@ -123,6 +126,21 @@ def compute_dtype(config: dict | None, device: torch.device) -> torch.dtype:
             f"(float32 {KNN_MAX_K[torch.float32]}); {advice}"
         )
     return torch.float64
+
+
+def step_dtype(config: dict | None, device: torch.device) -> torch.dtype:
+    """The dtype of the steps that ``grid_tpu`` runs without reading
+    ``device.dtype``: file-mode steps 5 and 6 (which read the written
+    normalized matrix), step 7 in both forms and the multi-locus sweep's
+    batched dipCN. It is :func:`compute_dtype`'s, but for bfloat16, which
+    ``grid_tpu`` applies to the fused steps 4-6 and file-mode step 4 only
+    (``grid_tpu/steps/fused.py``, ``grid_tpu/steps/normalize.py``): there
+    these steps compute as under ``auto``, in float32 on the card and in
+    float64 on the CPU."""
+    dtype = compute_dtype(config, device)
+    if dtype == torch.bfloat16:
+        return torch.float32 if device.type == "cuda" else torch.float64
+    return dtype
 
 
 def enable_compilation_cache(cache_dir=None, console=None) -> Path | None:

@@ -149,6 +149,50 @@ def test_d2_resident_edge_by_element_size():
     assert d2_resident(params, 16384, 8) and not d2_resident(params, 16385, 8)
 
 
+@pytest.mark.parametrize("k", [1, 300, 500, 4000, 16384])
+def test_knn_select_plan_bfloat16(k):
+    """A bf16 row holds 2-byte keys and 4-byte list entries (key * 2^17 +
+    column): a resident N=2504 row takes 2 * 2504 + 8 L bytes, a panel's
+    65,536 columns 8 blocks of 8,192 (16 KB of keys each), slices round to
+    8 keys (16 bytes); every row up to 131,072 columns takes the shared
+    mode (at k = 16,384: a 64 KB list and a 64 KB gather buffer), wider
+    rows none: the entry's column field is 17 bits."""
+    length = max(128, 1 << (k - 1).bit_length())
+    panel = knn_select_plan(65536, k, 2)
+    assert (panel["cluster_blocks"], panel["slice"]) == (8, 8192)
+    assert panel["shared_smem_bytes"] == 8192 * 2 + 4 * length + 4 * length
+    assert knn_select_plan(8193, k, 2)["slice"] == 4104 and knn_select_plan(8193, k, 4)["slice"] \
+        == 4100
+    if k <= 2504:
+        resident = knn_select_plan(2504, k, 2)
+        assert resident["cluster_blocks"] == 1
+        assert resident["shared_smem_bytes"] == 2504 * 2 + 8 * length
+        assert knn_select_mode_of(2504, k, 2, SMEM) == "resident"
+    assert knn_select_mode_of(65536, k, 2, SMEM) == "cluster"
+    assert knn_select_mode_of(1 << 17, k, 2, SMEM) == "cluster"
+    assert knn_select_mode_of((1 << 17) + 1, k, 2, SMEM) is None
+    assert knn_select_plan(1 << 17, 16384, 2)["shared_smem_bytes"] <= SMEM
+
+
+def test_dipcn_select_resident_edge_bfloat16():
+    """The resident mode holds 2 W bytes of bf16 keys: 6,332 B at N=2504,
+    k=500, and every row up to its 65,536-column limit (the uint16 list),
+    the N=65,536 panels included, stays resident at k=500."""
+    assert dipcn_select_smem_bytes(2504, 500, 2) == 2504 * 2 + 79 * 4 + 504 * 2 == 6_332
+    assert dipcn_select_smem_bytes(65536, 500, 2) <= SMEM < dipcn_select_smem_bytes(65536, 500, 4)
+    e16 = _widest(lambda w: dipcn_select_smem_bytes(w, w, 2) <= SMEM, 2504, 65536)
+    e32 = _widest(lambda w: dipcn_select_smem_bytes(w, w, 4) <= SMEM, 2504, 65536)
+    assert 1.4 < e16 / e32 < 1.6  # at k = W: 4 W against 6 W bytes of keys and list
+
+
+def test_d2_resident_edge_bfloat16():
+    """N * N * 2 against the 2 GiB budget, grid_tpu's rule at
+    models/cohort.py:173: resident up to N = 32,768 in bf16."""
+    params = CohortParams()
+    assert d2_resident(params, 32768, 2) and not d2_resident(params, 32769, 2)
+    assert not d2_resident(params, 32768, 4)
+
+
 @pytest.mark.parametrize("mode", ["triangle", "split", "panel"])
 @pytest.mark.parametrize("n", [1, 127, 128, 129, 2504, 16384, 65536])
 def test_zprep_gram64_plan(n, mode):
@@ -352,10 +396,14 @@ def test_compute_dtype_takes_float64_on_the_card():
 
 
 @pytest.mark.parametrize("config,names", [
-    ({"device": {"dtype": "bfloat16"}}, "bfloat16"),
+    ({"device": {"dtype": "bfloat16", "mesh_shape": [2], "fused": True}}, "mesh_shape"),
     ({"device": {"dtype": "bf16", "mesh_shape": [4]}}, "bfloat16"),
 ])
 def test_compute_dtype_refuses_what_the_card_does_not_carry(config, names):
+    """bfloat16 runs on the card without device.mesh_shape
+    (``tests/test_torch_bfloat16.py``); with it, in either form, it is
+    refused up front."""
+    assert compute_dtype({"device": {"dtype": "bfloat16"}}, CUDA) is torch.bfloat16
     with pytest.raises(ValueError, match=names):
         compute_dtype(config, CUDA)
 

@@ -1551,21 +1551,32 @@ def test_float64_phase_sweeps_more_replicates_than_clusters_at_once(cuda):
 
 
 def test_float64_kernels_refuse_what_they_do_not_take(cuda):
-    """bfloat16 reaches no kernel; mixed float32 and float64 inputs are
-    refused by both dipCN forms."""
+    """bfloat16 reaches the four kernels of steps 4-6 (their bf16 forms),
+    and no other: the multi-weight dipCN, the cross-mode Gram and the
+    sweeps refuse it; mixed float32 and float64 inputs are refused by both
+    dipCN forms."""
+    from grid_tpu_torch.ops.gpu_kernels import SplitZ, zprep_gram_cross
     from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
+    from grid_tpu_torch.ops.phasing import phase_sweeps_gpu
 
     bf = torch.zeros((8, 8), dtype=torch.bfloat16, device=cuda)
     mask = torch.ones((8, 8), dtype=torch.bool, device=cuda)
-    with pytest.raises(TypeError):
-        zprep_gram(bf, mask, mask[0], 2.0)
-    with pytest.raises(TypeError):
-        masked_column_stats(bf, mask, bf[0])
-    with pytest.raises(TypeError):
-        sorted_smallest_k_gpu(bf, 3)
     v = torch.ones(8, dtype=torch.bfloat16, device=cuda)
+    assert zprep_gram(bf, mask, mask[0], 2.0).dtype == torch.bfloat16
+    assert masked_column_stats(bf, mask, v)[1].dtype == torch.bfloat16
+    assert sorted_smallest_k_gpu(bf, 3)[0].dtype == torch.bfloat16
+    assert dipcn_from_distances_gpu(bf, v, v, mask[0], mask[0], k=3, n_nbr=2)[0].dtype == \
+        torch.bfloat16
     with pytest.raises(TypeError):
-        dipcn_from_distances_gpu(bf, v, v, mask[0], mask[0], k=3, n_nbr=2)
+        dipcn_from_distances_multi_gpu(bf, bf[:, :2], bf[:, :2], mask[0], mask[:, :2], k=3,
+                                       n_nbr=2)
+    split = SplitZ(torch.zeros((1, 8, 16), dtype=torch.bfloat16, device=cuda), v)
+    with pytest.raises(TypeError):
+        zprep_gram_cross(split, split)
+    idx = torch.zeros((16, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        phase_sweeps_gpu(v.repeat(2), v, idx, bf[:2].T.repeat(2, 1)[:16],
+                         torch.ones((16, 2), dtype=torch.bool, device=cuda), 1)
     d64 = torch.zeros((8, 8), dtype=torch.float64, device=cuda)
     v64 = torch.ones((8, 2), dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):  # mixed dtypes
@@ -1845,3 +1856,249 @@ def test_float64_ring_step_at_w2_equals_the_flat_step(cuda):
     same = want.dipcn_valid & ~dipcn_sets_differ(got.nbr_idx[:n], want.nbr_idx,
                                                  reads_valid & want.z_mask.any(axis=1), 30)
     np.testing.assert_allclose(got.dipcn[:n][same], want.dipcn[same], rtol=1e-9)
+
+
+# --------------------------- bfloat16: the bf16 forms of steps 4-6's kernels ---
+
+BF16 = torch.bfloat16
+
+
+def _bf16_ulps(got, want) -> int:
+    from torch_parity import bf16_ulps
+
+    return bf16_ulps(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+@pytest.mark.parametrize("n,r", [(1, 1), (97, 70), (300, 257), (2504, 2048), (1000, 130)])
+@pytest.mark.parametrize("round_squares", [True, False])
+def test_bfloat16_masked_column_stats_kernel(cuda, n, r, round_squares):
+    """The Triton kernel's bf16 form against its plain version: counts
+    exact, sums and squared deviations within one bf16 ulp (float32 sums in
+    another order, rounded once), two calls bitwise equal."""
+    from torch_parity import BF16_ULPS
+
+    rng = np.random.default_rng(n + r)
+    values = torch.tensor(rng.uniform(10, 60, (n, r)), dtype=BF16, device=cuda)
+    mask = torch.tensor(rng.random((n, r)) > 0.15, device=cuda)
+    rm = torch.tensor(rng.uniform(20, 40, n), dtype=BF16, device=cuda)
+    mu = torch.tensor(rng.uniform(0.5, 2.0, r), dtype=BF16, device=cuda)
+    for col_means in (None, mu):
+        before = masked_column_stats.launches
+        got = masked_column_stats(values, mask, rm, col_means, round_squares)
+        assert masked_column_stats.launches == before + 1 and got[1].dtype == BF16
+        want = masked_column_stats_plain(values, mask, rm, col_means, round_squares)
+        assert torch.equal(got[0], want[0])
+        assert _bf16_ulps(got[1], want[1]) <= BF16_ULPS
+        assert _bf16_ulps(got[2], want[2]) <= BF16_ULPS
+        again = masked_column_stats(values, mask, rm, col_means, round_squares)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("n,r", [(1, 3), (97, 70), (300, 257), (515, 130), (2504, 2048)])
+def test_bfloat16_zprep_gram_kernel(cuda, n, r):
+    """The bf16 wgmma Gram against its plain version under the Gram rule of
+    the bf16 contract (one bf16 ulp of the entry, or 2^-16 of max|G| where
+    an entry cancels towards 0), exactly symmetric; the norms of the split
+    pass (grid_tpu's sum(P * P)) within one ulp of the plain norms; the
+    split's P is the plain P bitwise, its norms the triangle's, and its row
+    panels the triangle's rows under the same rule (the same products, A
+    and B swapped)."""
+    from torch_parity import BF16_ULPS, bf16_gram_ratio
+
+    def gram_ratio(got, want):
+        return bf16_gram_ratio(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+    rng = np.random.default_rng(n)
+    z = torch.tensor(rng.normal(size=(n, r)) * 3, dtype=BF16, device=cuda)
+    mask = torch.tensor(rng.random((n, r)) > 0.1, device=cuda)
+    region = torch.tensor(rng.random(r) > 0.2, device=cuda)
+    before = zprep_gram.launches
+    g, sq = zprep_gram(z, mask, region, 2.0, norms=True)
+    assert zprep_gram.launches == before + 1 and g.dtype == sq.dtype == BF16
+    pg, psq = zprep_gram_plain(z, mask, region, 2.0, norms=True)
+    assert gram_ratio(g, pg) <= 1 and _bf16_ulps(sq, psq) <= BF16_ULPS
+    assert torch.equal(g, g.T)
+    split = zprep_split(z, mask, region, 2.0)
+    plain = zprep_split_plain(z, mask, region, 2.0)
+    assert split.p.shape[0] == 1 and torch.equal(split.p[0, :, :r], plain.p)
+    assert torch.equal(split.norms, sq)
+    for i0 in range(0, n, 256):
+        rows = min(256, n - i0)
+        panel = zprep_gram_panel(split, i0, rows)
+        assert panel.dtype == BF16 and gram_ratio(panel, g[i0:i0 + rows]) <= 1
+
+
+@pytest.mark.parametrize("n", [1, 129, 2504])
+def test_bfloat16_zprep_gram_info(cuda, n):
+    """The bf16 form's launch: 128x128 upper-triangle tiles, 64-column
+    stages (one 128-byte swizzle row of bf16) in a ring of 6, the float32
+    form's 384 threads and shared memory, one block an SM."""
+    t = -(-n // 128)
+    info = zprep_gram_info(n, cuda, BF16)
+    assert info == {"tile": 128, "k_tile": 64, "stages": 6, "threads": 384,
+                    "smem_bytes": 6 * 2 * 128 * 128 + 1024, "blocks": t * (t + 1) // 2,
+                    "blocks_per_sm": 1}
+
+
+# case: (rows, width, k, mode, cluster blocks)
+_BF16_SELECT_CASES = {
+    "k1": (8, 300, 1, "resident", 1),
+    "k-equals-w": (8, 97, 97, "resident", 1),
+    "all-equal": (64, 16, 16, "resident", 1),
+    "past-body": (32, 3000, 2000, "resident", 1),
+    "quantized-2504": (256, 2504, 500, "resident", 1),
+    "w8193-two-blocks-unaligned": (16, 8193, 500, "cluster", 2),
+    "w65536-cluster": (32, 65536, 500, "cluster", 8),
+    "w131072-the-widest": (4, 131072, 500, "cluster", 8),
+    "largest-list": (4, 20000, 16384, "cluster", 4),
+}
+
+
+def _bf16_select_case(case, cuda):
+    b, w, k = _BF16_SELECT_CASES[case][:3]
+    rng = np.random.default_rng(len(case) + 200)
+    big = torch.finfo(BF16).max
+    if case == "all-equal":
+        d2 = torch.zeros((b, w), dtype=BF16, device=cuda)
+    else:  # quantized: exact ties across the row
+        d2 = torch.tensor(rng.integers(0, 400, (b, w)) * 0.25, dtype=BF16, device=cuda)
+        d2[:, rng.random(w) < (0.6 if case == "past-body" else 0.05)] = big
+    return d2.contiguous(), k
+
+
+@pytest.mark.parametrize("case", list(_BF16_SELECT_CASES))
+def test_bfloat16_knn_select_kernel_equals_the_plain_sort(cuda, case):
+    """The bf16 form, in the mode and cluster size the width picks, equals
+    its plain version (the stable sort of the int16 keys) bitwise, values
+    and positions; so does its wide mode; its plan is the pure function's."""
+    from grid_tpu_torch.ops.gpu_select import (
+        _knn_launch, knn_select_info, knn_select_mode, sorted_smallest_k_gpu,
+    )
+    from grid_tpu_torch.ops.knn import sorted_smallest_k
+    from torch_plans import knn_select_plan
+
+    d2, k = _bf16_select_case(case, cuda)
+    w = d2.shape[1]
+    mode, blocks = _BF16_SELECT_CASES[case][3:]
+    assert knn_select_mode(w, k, cuda, BF16) == mode
+    info, plan = knn_select_info(w, k, cuda, dtype=BF16), knn_select_plan(w, k, 2)
+    assert info["cluster_blocks"] == blocks and info["spill_bytes"] == 0
+    if mode == "wide":
+        assert info["smem_bytes"] == plan["wide_smem_bytes"]
+    else:
+        assert (info["smem_bytes"], info["slice"]) == (plan["shared_smem_bytes"], plan["slice"])
+    before = sorted_smallest_k_gpu.launches
+    vals, idx = sorted_smallest_k_gpu(d2, k)
+    assert sorted_smallest_k_gpu.launches == before + 1 and vals.dtype == BF16
+    want_v, want_i = sorted_smallest_k(d2, k)
+    assert torch.equal(idx, want_i) and torch.equal(vals.view(torch.int16),
+                                                   want_v.view(torch.int16))
+    if mode != "wide":
+        got_v, got_i = _knn_launch("wide", d2, k)
+        assert torch.equal(got_i, idx) and torch.equal(got_v.view(torch.int16),
+                                                       vals.view(torch.int16))
+
+
+def test_bfloat16_knn_select_refuses_rows_past_131072(cuda):
+    from grid_tpu_torch.ops.gpu_select import knn_select_mode, sorted_smallest_k_gpu
+
+    assert knn_select_mode((1 << 17) + 1, 500, cuda, BF16) is None
+    with pytest.raises(ValueError):
+        sorted_smallest_k_gpu(torch.zeros((1, (1 << 17) + 1), dtype=BF16, device=cuda), 5)
+
+
+# case: (rows, width, k, n_nbr, quantized)
+_BF16_DIPCN_CASES = {
+    "one-row": (1, 3, 2, 1, True), "n9-k-equals-w": (9, 9, 9, 4, True),
+    "ties-300": (300, 300, 60, 20, True), "quantized-2504": (256, 2504, 500, 300, True),
+    "spread-2504": (256, 2504, 500, 300, False), "all-equal": (64, 16, 16, 7, None),
+    "panel-65536": (8, 65536, 500, 300, True), "w70000-wide": (4, 70000, 500, 300, True),
+}
+
+
+@pytest.mark.parametrize("case", list(_BF16_DIPCN_CASES))
+def test_bfloat16_dipcn_kernel(cuda, case):
+    """The bf16 binary form against the plain bf16 dipCN bitwise (the same
+    take-sets, float32 sums of bf16 weights rounded as the plain version
+    rounds them); both modes where both take the row; its resident plan is
+    the pure function's."""
+    from torch_plans import dipcn_select_smem_bytes
+
+    n, w, k, n_nbr, ties = _BF16_DIPCN_CASES[case]
+    rng = np.random.default_rng(w + k + 1)
+    big = torch.finfo(BF16).max
+    d2 = rng.integers(0, 40, (n, w)) * 0.25 if ties else rng.uniform(1000.0, 5000.0, (n, w))
+    d2 = torch.tensor(d2, dtype=BF16, device=cuda)
+    if ties is None:
+        d2.zero_()
+    d2[:, rng.random(w) < 0.05] = big
+    if n == w:
+        d2.fill_diagonal_(big)
+    args = (d2.contiguous(), torch.tensor(rng.uniform(0.5, 2.0, n), dtype=BF16, device=cuda),
+            torch.tensor(rng.uniform(0.5, 2.0, w), dtype=BF16, device=cuda),
+            torch.tensor(rng.random(w) > 0.2, device=cuda),
+            torch.tensor(rng.random(n) > 0.1, device=cuda))
+    before = dipcn_from_distances_gpu.launches
+    dip, ok = dipcn_from_distances_gpu(*args, k=k, n_nbr=n_nbr)
+    assert dipcn_from_distances_gpu.launches == before + 1 and dip.dtype == BF16
+    pdip, pok = dipcn_from_distances(*args, k=k, n_nbr=n_nbr)
+    assert torch.equal(ok, pok)
+    assert torch.equal(dip[ok].view(torch.int16), pdip[ok].view(torch.int16))
+    mode = dipcn_select_mode(w, k, cuda, BF16)
+    assert mode == ("wide" if w > 65536 else "resident")
+    if mode == "resident":
+        info = dipcn_select_info(w, k, cuda, dtype=BF16)
+        assert info["smem_bytes"] == dipcn_select_smem_bytes(w, k, 2) and info["spill_bytes"] == 0
+        wdip, wok = _launch("wide", *args, k, n_nbr)
+        assert torch.equal(wok, ok) and torch.equal(wdip[ok].view(torch.int16),
+                                                    dip[ok].view(torch.int16))
+    with pytest.raises(TypeError):  # no multi-weight form in bf16
+        dipcn_select_info(w, k, cuda, multi=True, dtype=BF16)
+
+
+@pytest.mark.parametrize("branch", ["resident", "panels"])
+def test_bfloat16_cohort_step_on_card_matches_the_cpu_route(cuda, branch):
+    """The bf16 step on the card against the port's bf16 CPU route at the
+    bf16 contract: values within 2^-7 of max|want|, neighbor lists equal but
+    for ties within 2^-7 of the row's k-th distance, dipCN within rtol 2^-7
+    where the input sets agree, dipcn_valid exact; every kernel launched, in
+    its bf16 form, and the sweeps in float32."""
+    from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
+    from grid_tpu_torch.ops.phasing import phase_sweeps_gpu
+    from torch_parity import BF16_RTOL
+
+    rng = np.random.default_rng(5)
+    n, r = 400, 192
+    values = rng.uniform(20, 40, (n, r)) * rng.normal(1, 0.1, (n, r)).clip(0.5, None)
+    mask = rng.random((n, r)) > 0.02
+    reads = rng.integers(500, 3000, n).astype(np.float64)
+    reads_valid = rng.random(n) > 0.05
+    ring = [[((h + 2) % (2 * n), 1.0), ((h - 2) % (2 * n), 0.5)] for h in range(2 * n)]
+    hap = pad_hap_neighbors(ring, 2, dtype=np.float64)
+    params = CohortParams(num_neighbors=50, n_nbr=30, n_iters=10, quantize=True, row_block=128)
+    if branch == "panels":
+        params = params._replace(d2_budget_bytes=0)
+    args = (values, mask, reads, reads_valid, *hap)
+    wrappers = (masked_column_stats, zprep_gram, zprep_split, zprep_gram_panel,
+                dipcn_from_distances_gpu, sorted_smallest_k_gpu, phase_sweeps_gpu)
+    before = [f.launches for f in wrappers]
+    out = cohort_step(*inputs_to_torch(*args, cuda, BF16, torch.float32), params)
+    assert out.z.dtype == out.dipcn.dtype == BF16 and out.hap_irrs.dtype == torch.float32
+    got = outputs_to_numpy(out)
+    launched = dict(zip((f.__name__ for f in wrappers),
+                        (f.launches - b for f, b in zip(wrappers, before))))
+    want = outputs_to_numpy(cohort_step(*inputs_to_torch(*args, "cpu", BF16, torch.float64),
+                                        params))
+    assert launched["masked_column_stats"] == 2 and launched["phase_sweeps_gpu"] == 1
+    if branch == "resident":
+        assert launched["zprep_gram"] == launched["sorted_smallest_k_gpu"] == 1
+    else:
+        assert launched["zprep_split"] == 1 and launched["zprep_gram_panel"] == 4
+        assert launched["sorted_smallest_k_gpu"] == launched["dipcn_from_distances_gpu"] == 4
+    assert_close_to_max(got.z, want.z, BF16_RTOL)
+    neighbor_rows_differing(got.nbr_idx, got.nbr_sq_dists, want.nbr_idx, want.nbr_sq_dists,
+                            tol=BF16_RTOL * want.nbr_sq_dists[:, -1])
+    np.testing.assert_array_equal(got.dipcn_valid, want.dipcn_valid)
+    same = got.dipcn_valid & ~dipcn_sets_differ(got.nbr_idx, want.nbr_idx,
+                                                reads_valid & want.z_mask.any(axis=1), 30)
+    np.testing.assert_allclose(got.dipcn[same], want.dipcn[same], rtol=BF16_RTOL)

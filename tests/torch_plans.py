@@ -19,26 +19,37 @@ def _list_len(k: int) -> int:
     return length
 
 
+def _key_align(itemsize: int) -> int:
+    """Keys a 16-byte line holds, at least 4 (``key_align`` of both
+    selection kernels): the slices' and the shared keys' rounding."""
+    return max(4, 16 // itemsize)
+
+
 def knn_select_plan(w: int, k: int, itemsize: int) -> dict:
     """``knn_select``'s plan for rows of ``w`` columns of ``itemsize`` bytes
-    (4: float32, 8: float64) at this ``k``: the shared mode's blocks a row
-    (the least power of two up to 8 that keeps a slice within 8,192
-    columns) and columns a block, its dynamic shared memory a block (the
-    slice's keys, the list of 8-byte composite entries or 16-byte float64
+    (2: bfloat16, 4: float32, 8: float64) at this ``k``: the shared mode's
+    blocks a row (the least power of two up to 8 that keeps a slice within
+    8,192 columns) and columns a block (a multiple of 8 in bfloat16, of 4
+    else), its dynamic shared memory a block (the slice's keys, the list of
+    4-byte bfloat16 or 8-byte float32 composite entries or 16-byte float64
     pairs, the 16-bit gather buffer), the wide mode's (the list and an
     int32 gather buffer), the largest cluster the shared mode takes (8 in
-    float32, 1 in float64) and the largest k."""
+    bfloat16 and float32, 1 in float64), the largest k and the widest row
+    (bfloat16's 17-bit column field)."""
     length = _list_len(k)
-    entry = 8 if itemsize == 4 else 16
+    entry = {2: 4, 4: 8, 8: 16}[itemsize]
+    align = _key_align(itemsize)
     blocks = 1
     while blocks < 8 and -(-w // blocks) > 8192:
         blocks <<= 1
-    cols = w if blocks == 1 else -(-(-(-w // blocks)) // 4) * 4
+    cols = w if blocks == 1 else -(-(-(-w // blocks)) // align) * align
     return {"cluster_blocks": blocks, "slice": cols,
-            "shared_smem_bytes": -(-cols // 4) * 4 * itemsize + length * entry + 2 * length * 2,
+            "shared_smem_bytes": -(-cols // align) * align * itemsize + length * entry
+            + 2 * length * 2,
             "wide_smem_bytes": length * entry + max(length, 2048) * 4,
-            "max_shared_cluster": 8 if itemsize == 4 else 1,
-            "max_k": 16384 if itemsize == 4 else 8192}
+            "max_shared_cluster": 1 if itemsize == 8 else 8,
+            "max_k": 8192 if itemsize == 8 else 16384,
+            "max_w": 1 << 17 if itemsize == 2 else None}
 
 
 def knn_select_mode_of(w: int, k: int, itemsize: int, smem: int) -> str | None:
@@ -48,7 +59,7 @@ def knn_select_mode_of(w: int, k: int, itemsize: int, smem: int) -> str | None:
     one it takes and its slice fits, else "wide" where the list fits, else
     None."""
     plan = knn_select_plan(w, k, itemsize)
-    if not 1 <= k <= min(w, plan["max_k"]):
+    if not 1 <= k <= min(w, plan["max_k"]) or w > (plan["max_w"] or w):
         return None
     if plan["cluster_blocks"] <= plan["max_shared_cluster"] and plan["shared_smem_bytes"] <= smem:
         return "resident" if plan["cluster_blocks"] == 1 else "cluster"
@@ -58,9 +69,11 @@ def knn_select_mode_of(w: int, k: int, itemsize: int, smem: int) -> str | None:
 def dipcn_select_smem_bytes(w: int, k: int, itemsize: int) -> int:
     """The resident mode's dynamic shared memory a block, in either form
     (binary, or multi-weight, whose step 5m compacts the same list in
-    place) and value type: the row's keys of ``itemsize`` bytes, its
-    usable bits and a 16-bit list of min(k, w) columns."""
-    return (-(-w // 4) * 4 * itemsize + -(-w // 32) * 4 + -(-min(k, w) // 8) * 8 * 2)
+    place) and value type: the row's keys of ``itemsize`` bytes (2:
+    bfloat16, rounded to 8 keys; 4, 8: to 4), its usable bits and a 16-bit
+    list of min(k, w) columns."""
+    align = _key_align(itemsize)
+    return (-(-w // align) * align * itemsize + -(-w // 32) * 4 + -(-min(k, w) // 8) * 8 * 2)
 
 
 def phase_sweeps_smem_bytes(n: int, k: int, itemsize: int) -> int:
