@@ -57,9 +57,12 @@ before the last line):
              back-to-back launches between two events, so the host's launch
              cost stops hiding a short kernel, with its bound (the larger of
              bytes over 3.35 TB/s and operations over the peak) and its
-             share of that bound; dipCN's resident and wide modes on the
-             same rows (the slice's d2, and square distances of widths up
-             to 23,170), which must agree bitwise; the column statistics also at the
+             share of that bound; dipCN's mode table: its resident and wide
+             modes on the same 2,048 rows at widths 2,504 to 65,536 in
+             float32, float64 and bfloat16, which must agree bitwise, with
+             the resident mode's blocks an SM and the mode the rule picks
+             (N=2504 resident in every dtype, 65,536 bf16 columns wide);
+             the column statistics also at the
              genome-wide 100 x 3,000,000. knn_select beside the stable
              torch.sort (its library yardstick) and torch.topk, and its wide
              mode; CohortParams.dipcn_lists (dipCN from knn_select's lists,
@@ -201,7 +204,7 @@ before the last line):
 12. alignments — host steps 1-3 from BAM/CRAM in front of steps 4-7
              (``alignment_phase``). (a) A 1000 Genomes-shaped BAM cohort
              from the port's ``make_synthetic_cohort_with_alignments`` in the
-             shape of scripts/bench_e2e_1000g.py (N=256, a cut of its 2504
+             shape of scripts/bench_e2e_1000g.py (N=128, a cut of its 2504
              for the time limit, seed 9, mean_depth
              4.0, 100 bp reads, the window chr6:160,605,000-160,615,000 and
              10 flank bins of 1 kb each side; ~3,000 reads a sample), its
@@ -228,7 +231,7 @@ before the last line):
              the batch route, and nothing fell back or logged a failure.
              Prints every run's step times, spans and host share and the
              one-pass ingest alone on 1 thread and on all cores (samples/s,
-             reads/s). (b) The CRAM route at N=32 (indel_frac 0.1),
+             reads/s). (b) The CRAM route at N=16 (indel_frac 0.1),
              fabricated as BAM and as CRAM from one seed: counts, coverage
              and bed.gz files from the native CRAM reader, from cramlite
              (the plain version, in spawned processes) and from the BAMs
@@ -262,7 +265,7 @@ before the last line):
              operations in Hopper's fused DPX forms), also stated for the
              packed form; and at Q = 1,024 the packed form at G = 8, 16
              and 32.
-             (c) A WES-shaped cohort of 256 BAMs (a cut forced by the time
+             (c) A WES-shaped cohort of 128 BAMs (a cut forced by the time
              limit) of ~8,000 reads of 150 bases in the KIV-2 window, drawn
              from the three exons at seeded per-sample proportions beside
              random background reads, an exon FASTA and 200 neighbors a
@@ -376,7 +379,7 @@ before the last line):
              plain version, its launch the plan's,
              timed beside torch.mm float64 with its bound by operations
              (2*Ba*Bb*R at 67 TFLOP/s). (h) ``run_multi_locus`` with
-             ``device.dtype: float64`` over 4 catalog loci, LPA among
+             ``device.dtype: float64`` over 2 catalog loci, LPA among
              them, step 7 on, on phase 9's cohort with phase 11's counts:
              its launches (the multi form once per usability group, no
              plain version reached), its normalized file byte for byte
@@ -401,8 +404,13 @@ before the last line):
              with it, in both forms. (a) Phases 3-6 in bf16 at N=2504
              (``kernels_phase``): the bf16 forms of the column statistics
              (Triton) within one bf16 ulp of their plain versions, the Gram
-             (wgmma bf16) within one ulp of each entry or 2^-16 of max|G|
-             (its split pass's norms within one ulp), knn_select bitwise
+             (csrc/zprep_gram16.cu) within one ulp of each entry or 2^-16 of
+             max|G| (its split pass's norms within one ulp) and its panels
+             bitwise the triangle's rows, its launch shape, and under the
+             same rule against float32 sums on the CPU at N=2504 and on a
+             panel, R=1024 and 2048 (beside torch.mm bf16 and an IEEE
+             float32 product on the card, the share of G's entries apart
+             from the CPU's); knn_select bitwise
              the stable sort of the int16 keys in every case of phase 3 (its
              widest bf16 row 131,072 columns), dipcn_select bitwise its plain
              version; the N=2504 step against the port's bf16 CPU route
@@ -416,7 +424,9 @@ before the last line):
              panel step at N=65,536, R=1024 on phase 7's cohort (8 GiB of
              bf16 d2: the panel branch): launches, 3 panels held against the
              plain route on the card, the step timed once, each kernel at
-             the panel shapes. (c) ``run_wgs_pipeline`` fused and in file
+             the panel shapes (the Gram's b2b and device time beside
+             torch.mm bf16, with its launch; dipcn_select's two modes and
+             the one the rule picks). (c) ``run_wgs_pipeline`` fused and in file
              mode with ``device.dtype: bfloat16`` on phase 9's cohort, each
              held to the port's bf16 CPU route of the same form under (a)'s
              rules, and ``run_multi_locus`` in bf16 over 2 loci (step 4 in
@@ -426,7 +436,7 @@ before the last line):
 The last three lines are the kernels' JSON object (the panel-mode numbers
 at N=65,536; each entry's "slice_2504" holds phase 5's, "pipeline_2504"
 the launches of phase 9's pipeline call, "pipeline_files_2504" those of
-phase 10's, "multilocus_2504" those of phase 11's sweep and "alignments_256"
+phase 10's, "multilocus_2504" those of phase 11's sweep and "alignments_128"
 those of phase 12's fused call from BAMs and, under "files", its file-mode
 call; the multi-weight
 form's row has the sweep's launches and its times at L=492; the
@@ -484,6 +494,11 @@ ZMAX = 2.0
 WIDE = (64, 23170)  # the widest rows the default 2 GB d2 budget admits
 GENOME = (100, 3_000_000)  # the genome-wide normalize shape
 PANEL_N, PANEL_R = 65536, 1024  # a biobank cohort, past the 2 GiB d2 budget
+# phase 5: the widths and rows of dipcn_select's mode table (the slice's
+# N, the resident branch's widths up to the widest d2 budget row, and the
+# panels' 65,536), in float32, float64 and bfloat16
+MODE_TABLE_W = (2504, 8192, 12288, 16384, 23170, 32768, 65536)
+MODE_TABLE_ROWS = 2048
 PANEL_REPS = 3
 BRANCH_N = 16384  # both branches run: N*N*4 = 1 GiB
 # knn_select: the widest row one block holds (kSliceTarget), the biobank
@@ -518,11 +533,12 @@ MULTI_TIMED_L = (1, 32, MULTI_L)
 FP32_FLOP_PER_S = 67e12  # NVIDIA's data sheet, H100 SXM
 # phase 12: the alignment cohorts (the shape of scripts/bench_e2e_1000g.py)
 # and the least correlation of read counts with the fabricated truth
-# (256 samples, the CRAM route at 32, the sequential steps at 16: cuts
+# (128 samples, the CRAM route at 16, the sequential steps at 16: cuts
 # of 256 and 64 that leave room in the time limit for phase 16, of 128 for
 # the selection and phasing kernels' checks, of 2,504, 64 and 32 for
-# phase 17, and of 1,024 and 512 for phase 18; k is cut to N - 1 there)
-ALIGN_N, ALIGN_SEED, ALIGN_DEPTH, ALIGN_CRAM_N = 256, 9, 4.0, 32
+# phase 17, of 1,024 and 512 for phase 18, and of 128 and 16 for the
+# margin a slower host needs; k is cut to N - 1 there)
+ALIGN_N, ALIGN_SEED, ALIGN_DEPTH, ALIGN_CRAM_N = 128, 9, 4.0, 16
 ALIGN_MIN_CORR = 0.9
 # the samples the sequential steps 2-3 run on: their step 3 parses each
 # genome-wide bed.gz (160,625 lines here) in Python, 0.36 s a file on the
@@ -536,9 +552,10 @@ ALIGN_SEQ_N = 16
 # left + gap with its max in another, so 6 instructions a cell, at the SM's
 # issue limit of 4 warp instructions a clock (integer work can reach it
 # split between the ALU and the FMA pipe). The cohort is the KIV-2 window
-# at ~30x (~8,000 reads of 150 bases a sample), 256 samples (a cut forced
-# by the time limit), 16 of them again on the plain scan (64 until the
-# selection and phasing kernels' checks needed the time, 32 until phase 17)
+# at ~30x (~8,000 reads of 150 bases a sample), 128 samples (a cut forced
+# by the time limit: 256 until a slower host needed the margin), 16 of them
+# again on the plain scan (64 until the selection and phasing kernels'
+# checks needed the time, 32 until phase 17)
 SW_OPS_PER_CELL = 6
 # the packed form's least: a register holds two cells, which take the
 # prmt of their substitutions from the column's profile, the 16x2 max-adds
@@ -549,7 +566,7 @@ SW_LANES_PER_SM = 4 * 32
 SW_SEED = 10
 SW_TIMED_Q = (8192, 32768)
 SW_SMALL_Q = 1024  # a few reads: the chooser takes more lanes a unit
-WES_N, WES_PLAIN_N, WES_READS, WES_SEED = 256, 16, 8000, 13
+WES_N, WES_PLAIN_N, WES_READS, WES_SEED = 128, 16, 8000, 13
 WES_READ_LEN = 150
 WES_WINDOW = ("chr6", 160_605_062, 160_647_661)
 WES_CHROM_LEN = 170_805_979
@@ -619,9 +636,12 @@ SOURCES = {
     "phase_sweeps_gpu": ("cuda", "grid_tpu_torch/csrc/phase_sweeps.cu",
                          "grid_tpu/ops/phasing.py:94 (lax.scan, no pallas_call)"),
 }
-BF16_SOURCES = {  # the bf16 forms live in the float32 forms' sources
-    name: SOURCES[name] for name in ("masked_column_stats", "zprep_gram",
-                                     "dipcn_from_distances_gpu", "sorted_smallest_k_gpu")}
+BF16_SOURCES = {  # the bf16 forms live in the float32 forms' sources, but the Gram's
+    **{name: SOURCES[name] for name in ("masked_column_stats", "dipcn_from_distances_gpu",
+                                        "sorted_smallest_k_gpu")},
+    "zprep_gram": ("cuda", "grid_tpu_torch/csrc/zprep_gram16.cu",
+                   "grid_tpu/ops/pallas_kernels.py:93"),
+}
 F64_SOURCES = {
     **SOURCES,
     "zprep_gram": ("cuda", "grid_tpu_torch/csrc/zprep_gram64.cu",
@@ -4060,6 +4080,60 @@ def ibs_phase(card: str, wrappers: dict) -> dict:
     return {name: launches[name] for name in wrappers}
 
 
+def dipcn_mode_table(dev, card: str, rows: int = MODE_TABLE_ROWS, reps: int = 5) -> dict:
+    """Phase 5: ``dipcn_select``'s binary form in both modes on the same
+    [rows, W] rows (quantized distances with the finfo.max of self and
+    invalid columns, as a cohort's), at each width of MODE_TABLE_W and k=K,
+    in float32, float64 and bfloat16: the outputs bitwise equal, each mode
+    back to back (resident, wide, wide, resident; the better of its two),
+    the resident mode's blocks an SM (0 where its shared memory does not
+    fit: the wide mode alone), and the mode the rule picks; N=2504 must
+    stay resident in every dtype and a 65,536-column bf16 row go wide.
+    Returns {dtype: {W: the row}}."""
+    from grid_tpu_torch.ops.gpu_select import _launch, dipcn_select_info, dipcn_select_mode
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    table = {}
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        kind = str(dtype).removeprefix("torch.")
+        table[kind] = {}
+        for w in MODE_TABLE_W:
+            d2 = (torch.randint(0, 400, (rows, w), device=dev, generator=gen) * 0.25).to(dtype)
+            d2[:, torch.rand(w, device=dev, generator=gen) < 0.05] = torch.finfo(dtype).max
+            vec = (torch.rand(w, device=dev, generator=gen) + 0.5).to(dtype)
+            usable = torch.rand(w, device=dev, generator=gen) > 0.2
+            args = (d2, vec[:rows].contiguous(), vec, usable, usable[:rows].contiguous())
+            blocks = dipcn_select_info(w, K, dev, dtype=dtype, mode="resident")["blocks_per_sm"]
+            wide_blocks = dipcn_select_info(w, K, dev, dtype=dtype, mode="wide")["blocks_per_sm"]
+            run = {mode: (lambda mode=mode: _launch(mode, *args, K, N_NBR))
+                   for mode in (("resident", "wide") if blocks else ("wide",))}
+            outs = {mode: fn() for mode, fn in run.items()}
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(outs["wide"], outs.get("resident",
+                                                                                outs["wide"]))),
+                  f"dipcn_select {kind} W={w}: the wide mode differs from the resident mode")
+            order = [*run, *reversed(run)]
+            rounds = [(mode, back_to_back_ms(run[mode], reps=reps, warmup=1)) for mode in order]
+            times = {mode: min(t for m, t in rounds if m == mode) for mode in run}
+            picked = dipcn_select_mode(w, K, dev, dtype)
+            table[kind][str(w)] = {"resident_blocks_per_sm": blocks,
+                                   "wide_blocks_per_sm": wide_blocks, "picked": picked,
+                                   **{f"{mode}_ms": t for mode, t in times.items()}}
+            faster = min(times, key=times.get)
+            print(f"[times] dipcn_select {kind} modes at [{rows}, {w}], k={K}: "
+                  + ", ".join(f"{mode} {t:.4f} ms" for mode, t in times.items())
+                  + f" ({reps} back to back, better of two; resident {blocks} blocks an SM, wide "
+                  f"{wide_blocks}); outputs bitwise equal; the rule picks {picked}, the faster is "
+                  f"{faster}; {card}", flush=True)
+            del d2, args, outs, run
+    check(all(table[kind][str(N)]["picked"] == "resident" for kind in table),
+          f"dipcn_select at W={N} must stay resident in every dtype")
+    check(table["bfloat16"][str(PANEL_N)]["picked"] == "wide",
+          f"dipcn_select on {PANEL_N}-column bf16 rows must take the wide mode")
+    torch.cuda.empty_cache()
+    return table
+
+
 @contextmanager
 def plain_calls_counted():
     """Count the calls of the plain versions that the kernels' wrappers
@@ -4124,7 +4198,7 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
     from grid_tpu_torch.ops.gpu_kernels import (
         _r_pad, masked_column_stats, masked_column_stats_plain, zprep_gram, zprep_gram_info,
-        zprep_gram_plain,
+        zprep_gram_panel, zprep_gram_plain, zprep_split,
     )
     from grid_tpu_torch.ops.gpu_select import (
         KNN_BF16_MAX_W, KNN_MAX_K, _knn_launch, dipcn_from_distances_gpu, dipcn_select_info,
@@ -4157,11 +4231,15 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
 
     # ---- launch shapes ---------------------------------------------------
     info = zprep_gram_info(N, dev, dtype)
-    print(f"[build{tag}] zprep_gram {kind} at N={N}: {info['blocks']} blocks (upper-triangle "
-          f"tiles of {info['tile']}x{info['tile']}) on {sms} SMs at {info['blocks_per_sm']} "
-          f"block(s) per SM; {info['threads']} threads and {info['smem_bytes']} B of dynamic "
-          f"shared memory per block, a {info['stages']}-stage ring of {info['k_tile']}-column "
-          f"stages", flush=True)
+    if half:
+        print(f"[build{tag}] zprep_gram {kind} at N={N}: {gram16_shape(info, sms)}", flush=True)
+        check(info["spill_bytes"] == 0, "zprep_gram bf16 spills to local memory")
+    else:
+        print(f"[build{tag}] zprep_gram {kind} at N={N}: {info['blocks']} blocks (upper-triangle "
+              f"tiles of {info['tile']}x{info['tile']}) on {sms} SMs at {info['blocks_per_sm']} "
+              f"block(s) per SM; {info['threads']} threads and {info['smem_bytes']} B of dynamic "
+              f"shared memory per block, a {info['stages']}-stage ring of {info['k_tile']}-column "
+              f"stages", flush=True)
     dinfo = dipcn_select_info(N, K, dev, dtype=dtype)
     print(f"[build{tag}] dipcn_select {kind} at W={N}, k={K}: one block of {dinfo['threads']} "
           f"threads per row, {dinfo['smem_bytes']} B dynamic + {dinfo['static_smem_bytes']} B "
@@ -4246,6 +4324,17 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
             sq16, psq16 = zprep_gram(*args, norms=True)[1], zprep_gram_plain(*args, norms=True)[1]
             check(close(sq16, psq16, None), f"zprep_gram bf16 {label}: norms")
             err = max(max_abs(g, pg), max_abs(sq16, psq16))
+            # one sum order: the panel mode's entries are the triangle's,
+            # at a tile-aligned row and off the tiles
+            split16 = zprep_split(*args)
+            n16 = args[0].shape[0]
+            for i0 in (0, n16 // 3):
+                rows16 = min(512, n16 - i0)
+                check(torch.equal(zprep_gram_panel(split16, i0, rows16), g[i0:i0 + rows16]),
+                      f"zprep_gram bf16 {label}: the panel at row {i0} is not the triangle's rows")
+            print(f"[kernels{tag}] zprep_gram {label}: at {ratio:.3f} of the bf16 Gram rule; its "
+                  f"panels at rows 0 and {n16 // 3} bitwise the triangle's rows", flush=True)
+            del split16
         else:
             err = assert_close_to_max(g.cpu(), pg.cpu(), tol.gram)
         errs.setdefault("zprep_gram", err)
@@ -4562,8 +4651,10 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
             extra = f"; {library[name]} {lib_ms:.4f} ms"
         if name == "zprep_gram":
             flop = N * (N + 1) * R
+            row["library_ms_back_to_back"] = min(back_to_back_ms(lib_fn) for _ in range(2))
             extra += (f"; {flop / kernel_ms / 1e9:.1f} vs {flop / plain_ms / 1e9:.1f} TFLOP/s as "
-                      f"N(N+1)R")
+                      f"N(N+1)R; {REPS} back to back: {library[name].split(',')[0]} "
+                      f"{row['library_ms_back_to_back']:.4f} ms")
             if dtype == torch.float64:  # reckoned from the tiles, not measured; at the b2b time
                 l2_bytes = zprep_gram64_l2_bytes(N, N, "triangle", _r_pad(R, dtype))
                 extra += (f"; the tiles read {l2_bytes / 1e9:.3f} GB from L2 a call (estimated "
@@ -4603,12 +4694,18 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
         # the split or prep pass and the Gram kernel; the column statistics
         # are the row-chunk kernel and its merge)
         own = ("split_kernel", "split16_kernel", "gram_kernel", "prep_kernel", "gram64_kernel",
-               "dipcn_select_kernel", "colstats", "knn_select_kernel", "phase_resident_kernel",
-               "phase_grid_kernel", "phase_sweep_kernel")
+               "gram16_kernel", "dipcn_select_kernel", "colstats", "knn_select_kernel",
+               "phase_resident_kernel", "phase_grid_kernel", "phase_sweep_kernel")
         for ev in ops:
             if any(name in ev.key for name in own):
                 print(f"[profile{tag}]   hand kernel {device_us(ev) / 1e3 / PROFILE_STEPS:.4f} "
                       f"ms/step {ev.count / PROFILE_STEPS:.1f} calls/step  {ev.key[:80]}")
+        if half:  # the bf16 Gram's device time a call: its split pass and its kernel
+            gram_row = next(row for row in rows if row["name"] == "zprep_gram")
+            parts = {name: sum(device_us(ev) for ev in ops if name in ev.key) / 1e3
+                     / PROFILE_STEPS for name in ("split16_kernel", "gram16_kernel")}
+            gram_row.update(device_ms=sum(parts.values()), split_device_ms=parts["split16_kernel"],
+                            launch=info)
     else:
         print(f"[profile{tag}] torch.profiler saw no device activity: device time not measured")
     return SimpleNamespace(
@@ -4617,6 +4714,18 @@ def kernels_phase(dev, card: str, dtype, values_np, mask_np, reads_np, sms: int)
         sample_ok=sample_ok, dip_args=dip_args, inputs=inputs, params=params, out=out,
         step=(step_hap0, step_irrs, step_lists), irrs_main=irrs_main, rand_lists=rand_lists,
         boot_slots=boot_slots, boot_lists=boot_lists)
+
+
+def gram16_shape(info: dict, sms: int) -> str:
+    """The bf16 Gram's launch (``zprep_gram_info`` in bf16) in words."""
+    return (f"{info['tiles']} tiles of {info['tile_rows']}x{info['tile_cols']} walked by "
+            f"{info['grid']} block(s) ({info['blocks_per_sm']} an SM on {sms} SMs; "
+            f"{info['tiles'] / info['grid']:.2f} tiles a block), {info['threads']} threads (two "
+            f"m64n256k16 consumer warpgroups, a producer warpgroup), a {info['stages']}-stage TMA "
+            f"ring of {info['k_tile']}-column stages and {info['epilogue_boxes']} staged boxes of "
+            f"G in {info['smem_bytes']} B of dynamic shared memory (+{info['static_smem_bytes']} "
+            f"B static); {info['registers']} registers a thread at entry, "
+            f"{info['spill_bytes']} B of local memory")
 
 
 def gram64_shapes(dev, sms: int) -> None:
@@ -4787,7 +4896,7 @@ def float64_pipeline_runs(card: str, tmp: Path, cohort: dict, base: dict, names:
     return found
 
 
-F64_SWEEP_LOCI = 4  # the float64 sweep's loci: LPA and 3 drawn from the seed
+F64_SWEEP_LOCI = 2  # the float64 sweep's loci: LPA and 1 drawn from the seed
 F64_DIPCN_RTOL = 1e-9  # dipCN where the input sets agree (docs/parity.md, float64)
 F64_MULTI_PANELS = 2  # the float64 multi kernel's panels at N=65,536
 # The cross mode's blocks (B, a's first row, b's first row): first the
@@ -5285,6 +5394,65 @@ def float64_slice_phase(dev, card: str, zp_65536, cohort_16384) -> dict:
 # 4 and the sweep; with mesh_shape it is refused up front)
 BF16_PANELS = 3  # (b): the first, a middle and the last panel against the plain route
 BF16_SWEEP_LOCI = 2  # (c): the bf16 sweep's loci (LPA and one drawn from the seed)
+GRAM16_CPU_R = (1024, 2048)  # (a): the panels' R and the slice's
+
+
+def gram16_cpu_sums(dev, card: str) -> dict:
+    """Phase 18 (a): the bf16 Gram kernel against its plain version run on
+    the CPU in float32 (each bf16 product exact, the sum in the CPU's
+    float32, G rounded to bf16 once) under the bf16 Gram rule, at N=2504
+    (the triangle, with the split pass) and on a [512, 65,536] panel, each
+    at R = GRAM16_CPU_R. Beside the kernel: torch.mm bf16 (cuBLAS, also
+    summing in the tensor cores' accumulator) and an IEEE float32 product
+    on the card (TF32 off), rounded once; for each the share of G's entries
+    that are not the CPU's (a sum by a bf16 rounding edge lands one ulp
+    away). At N=2504 also the CPU route's own bf16 product, which phase
+    4 holds the step to. Returns {cell: its numbers}."""
+    from grid_tpu_torch.ops.gpu_kernels import _prepare, zprep_gram, zprep_gram_panel, zprep_split
+    from torch_parity import bf16_gram_ratio
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for r in GRAM16_CPU_R:
+        for cell in ("triangle", "panel"):
+            if cell == "triangle":
+                n, rows = N, N
+                z = (torch.randn((n, r), device=dev, generator=gen) * 3).to(torch.bfloat16)
+                mask = torch.rand((n, r), device=dev, generator=gen) > 0.1
+                region = torch.rand(r, device=dev, generator=gen) > 0.2
+                g = zprep_gram(z, mask, region, ZMAX)
+                p = _prepare(z, mask, region, ZMAX)
+            else:
+                n, rows = PANEL_N, 512
+                z = torch.randn((n, r), device=dev, generator=gen).to(torch.bfloat16)
+                g = zprep_gram_panel(zprep_split(z, None, None, float("inf")), 0, rows)
+                p = z  # unclipped, unmasked: P is z
+            routes = {"kernel": g, "torch.mm bf16": p[:rows] @ p.T,
+                      "float32 on the card": (p[:rows].float() @ p.float().T).to(torch.bfloat16)}
+            pc = p.cpu()
+            t0 = time.perf_counter()
+            want = (pc[:rows].float() @ pc.float().T).to(torch.bfloat16)
+            cpu_s = time.perf_counter() - t0
+            if cell == "triangle":
+                routes["the CPU route (bf16)"] = pc @ pc.T
+            want_np = want.float().numpy()
+            row = {}
+            for name, got in routes.items():
+                got = got.cpu()
+                row[name] = {"ratio": bf16_gram_ratio(got.float().numpy(), want_np),
+                             "share_apart": float((got != want).float().mean())}
+            check(row["kernel"]["ratio"] <= 1,
+                  f"zprep_gram bf16 {cell} R={r}: at {row['kernel']['ratio']:.3f} of the Gram "
+                  f"rule against the float32 sum on the CPU")
+            out[f"{cell}_{r}"] = row
+            print(f"[kernels bf16] zprep_gram {cell} [{rows}, {n}] x R={r} against the float32 "
+                  f"sum on the CPU ({cpu_s:.1f} s, host clock), at a ratio of the bf16 Gram rule "
+                  f"(entries not the CPU's): " + "; ".join(
+                      f"{name} {v['ratio']:.3f} ({100 * v['share_apart']:.4f}%)"
+                      for name, v in row.items()) + f"; {card}", flush=True)
+            del z, g, p, pc, want, want_np, routes
+    torch.cuda.empty_cache()
+    return out
 
 
 def bfloat16_phase(dev, card: str, values_np, mask_np, reads_np, sms: int, cohort_65536) -> tuple:
@@ -5316,6 +5484,7 @@ def bfloat16_phase(dev, card: str, values_np, mask_np, reads_np, sms: int, cohor
           "4-6 in bf16, step_dtype float32 for the steps grid_tpu runs without a dtype) and "
           "refused up front with it, in both forms", flush=True)
     res = kernels_phase(dev, card, bf, values_np, mask_np, reads_np, sms)
+    cpu_sums = gram16_cpu_sums(dev, card)
     a_s = time.perf_counter() - t_phase
     panel = bfloat16_panel_run(dev, card, cohort_65536)
     rows = {}
@@ -5326,7 +5495,7 @@ def bfloat16_phase(dev, card: str, values_np, mask_np, reads_np, sms: int, cohor
     print(f"[bf16] phase 18 (a) took {a_s:.1f} s, (b) {time.perf_counter() - t_phase - a_s:.1f} "
           f"s (host clock); {card}", flush=True)
     return rows, {"ms_2504": res.slice_ms, "busy_share_2504": res.busy, "ties_2504": res.ties,
-                  "sets_2504": res.sets, **panel["step"]}
+                  "sets_2504": res.sets, "gram_cpu_sums": cpu_sums, **panel["step"]}
 
 
 def bfloat16_panel_run(dev, card: str, cohort) -> dict:
@@ -5343,13 +5512,14 @@ def bfloat16_panel_run(dev, card: str, cohort) -> dict:
     from grid_tpu_torch.convert import inputs_to_torch, to_numpy
     from grid_tpu_torch.models.cohort import CohortParams, cohort_step, d2_resident
     from grid_tpu_torch.ops.gpu_kernels import (
-        masked_column_stats, masked_column_stats_plain, zprep_gram_panel,
+        masked_column_stats, masked_column_stats_plain, zprep_gram_info, zprep_gram_panel,
         zprep_gram_panel_plain, zprep_split, zprep_split_plain,
     )
     from grid_tpu_torch.ops.gpu_select import (
         _launch, dipcn_from_distances_gpu, dipcn_select_info, knn_select_info,
         sorted_smallest_k_gpu,
     )
+    from torch.profiler import ProfilerActivity, profile
     from grid_tpu_torch.ops.knn import panel_d2, sorted_smallest_k
     from grid_tpu_torch.ops.masked import masked_mean
     from grid_tpu_torch.ops.select import dipcn_from_distances
@@ -5473,8 +5643,13 @@ def bfloat16_panel_run(dev, card: str, cohort) -> dict:
         "sorted_smallest_k_gpu": bound_ms(b * n * e + (e + 4) * b * K),
     }
     dinfo, kinfo = dipcn_select_info(n, K, dev, dtype=bf), knn_select_info(n, K, dev, dtype=bf)
+    ginfo = zprep_gram_info(n, dev, bf, "panel", b)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(ginfo["spill_bytes"] == 0 and ginfo["grid"] == min(ginfo["tiles"], sms),
+          f"(b) the bf16 Gram's panel launch: {ginfo}")
     shapes = {"masked_column_stats": f"[{n}, {r}], 2 calls per step",
-              "zprep_gram": f"split [{n}, {r}] once per step, then panels [{b}, {n}]",
+              "zprep_gram": f"split [{n}, {r}] once per step, then panels [{b}, {n}]: "
+                            f"{gram16_shape(ginfo, sms)}",
               "dipcn_from_distances_gpu": f"{dinfo['mode']} mode, panels [{b}, {n}]",
               "sorted_smallest_k_gpu": f"{kinfo['mode']} mode ({kinfo['cluster_blocks']} block(s) "
                                        f"a row), panels [{b}, {n}], k={K}"}
@@ -5483,7 +5658,8 @@ def bfloat16_panel_run(dev, card: str, cohort) -> dict:
         p1, k1, k2, p2 = (back_to_back_ms(f, reps=5, warmup=1)
                           for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
         kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
-        lib_ms = None if lib_fn is None else back_to_back_ms(lib_fn, reps=5, warmup=1)
+        lib_ms = None if lib_fn is None else min(back_to_back_ms(lib_fn, reps=5, warmup=1)
+                                                 for _ in range(2))
         least, by = bounds[name]
         calls = launches["zprep_gram_panel" if name == "zprep_gram" else name]
         found[name] = {"launches": calls, "max_abs_err": errs[name], "ms": kernel_ms,
@@ -5494,14 +5670,41 @@ def bfloat16_panel_run(dev, card: str, cohort) -> dict:
               f"{plain_ms:.4f} ms{lib} per call (5 back to back, better of two); bound "
               f"{least:.4f} ms by {by}, {100 * least / kernel_ms:.1f}% of it; {calls} calls per "
               f"step: {calls * kernel_ms:.1f} ms; {card}", flush=True)
-    wide_ms = back_to_back_ms(lambda: _launch("wide", *dip_args, K, N_NBR), reps=5, warmup=1)
-    found["dipcn_from_distances_gpu"]["wide_mode_ms_back_to_back"] = wide_ms
-    found["zprep_gram"]["library"] = "torch.mm of the bf16 panel (cuBLAS)"
+    # dipcn_select's two modes on the panel (resident, wide, wide, resident),
+    # and the mode the rule picks
+    check(dinfo["mode"] == "wide", f"(b) dipcn_select bf16 on [{b}, {n}] must go wide")
+    rinfo = dipcn_select_info(n, K, dev, dtype=bf, mode="resident")
+    by_mode = {mode: (lambda mode=mode: _launch(mode, *dip_args, K, N_NBR))
+               for mode in ("resident", "wide")}
+    rounds = [(mode, back_to_back_ms(by_mode[mode], reps=5, warmup=1))
+              for mode in ("resident", "wide", "wide", "resident")]
+    mode_ms = {mode: min(t for m, t in rounds if m == mode) for mode in by_mode}
+    found["dipcn_from_distances_gpu"].update(
+        mode=dinfo["mode"], resident_mode_ms_back_to_back=mode_ms["resident"],
+        wide_mode_ms_back_to_back=mode_ms["wide"],
+        resident_blocks_per_sm=rinfo["blocks_per_sm"], wide_blocks_per_sm=dinfo["blocks_per_sm"])
+    # the Gram panel's own device time (torch.profiler), beside its b2b time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            zprep_gram_panel(split, 0, b)
+        torch.cuda.synchronize()
+    own = [e for e in prof.key_averages() if "gram16_kernel" in e.key]
+    count = sum(e.count for e in own)
+    gram_dev = sum(device_us(e) for e in own) / 1e3 / count if count else None
+    found["zprep_gram"].update(device_ms=gram_dev, launch=ginfo,
+                               library="torch.mm of the bf16 panel (cuBLAS)")
     found["sorted_smallest_k_gpu"]["library"] = "stable torch.sort of the panel's bf16 rows"
-    print(f"[times bf16] dipcn_select at [{b}, {n}]: its {dinfo['mode']} mode "
-          f"({dinfo['blocks_per_sm']} block(s) per SM, {dinfo['smem_bytes']} B of dynamic shared "
-          f"memory) {found['dipcn_from_distances_gpu']['ms']:.4f} ms, the wide mode "
-          f"{wide_ms:.4f} ms back to back; {card}", flush=True)
+    gram = found["zprep_gram"]
+    print(f"[times bf16] zprep_gram bf16 panel [{b}, {n}] x {r}: b2b {gram['ms']:.4f} ms, device "
+          + ("not measured" if gram_dev is None else f"{gram_dev:.4f} ms")
+          + f" (torch.profiler, mean of 5), {100 * gram['bound_ms'] / gram['ms']:.1f}% of its "
+          f"{gram['bound_ms']:.4f} ms bound; torch.mm bf16 {gram['library_ms']:.4f} ms b2b "
+          f"({gram['ms'] / gram['library_ms']:.3f}x); {card}", flush=True)
+    print(f"[times bf16] dipcn_select at [{b}, {n}]: the rule picks the {dinfo['mode']} mode; "
+          f"resident {mode_ms['resident']:.4f} ms ({rinfo['blocks_per_sm']} block(s) an SM, "
+          f"{rinfo['smem_bytes']} B of dynamic shared memory), wide {mode_ms['wide']:.4f} ms "
+          f"({dinfo['blocks_per_sm']} blocks an SM) back to back (better of two); {card}",
+          flush=True)
     del out, inputs, split, plain, d2, g0, z, zmask
     torch.cuda.empty_cache()
     return {"kernels": found, "step": {"ms_65536": 1e3 * step_s, "first_call_s_65536": first_s,
@@ -5800,43 +6003,10 @@ def main() -> int:
           flush=True)
     del sq_l, idx_l, lists_args, dip_l, dip_s, out_l
 
-    # dipcn_select's wide mode on the same rows, where the resident mode also
-    # fits: the two must agree bitwise, and their times say whether the
-    # resident mode earns its place (resident, wide, wide, resident)
-    from grid_tpu_torch.ops.gpu_select import _launch
-
-    # on the slice's own d2 (N=2504: 25 MB, it stays in the 50 MB L2), then
-    # on square [W, W] distances of resident-branch cohorts up to the widest
-    # (23,170: 2 GiB), where the wide mode's re-reads come from device memory
-    gen = torch.Generator(device=dev).manual_seed(1)
-
-    def square_case(width):
-        sq = torch.randint(0, 400, (width, width), device=dev, generator=gen) * 0.25
-        sq[:, torch.rand(width, device=dev, generator=gen) < 0.05] = torch.finfo(torch.float32).max
-        vec = torch.rand(width, device=dev, generator=gen) + 0.5
-        usable_sq = torch.rand(width, device=dev, generator=gen) > 0.2
-        return sq, vec, vec, usable_sq, usable_sq
-
-    mode_ms = {}
-    for width in (N, 4096, 8192, 12288, 16384, WIDE[1]):
-        args = dip_args if width == N else square_case(width)
-        sinfo = dipcn_select_info(width, K, dev)
-        check(sinfo["mode"] == "resident", f"W={width} must take the resident mode")
-        by_mode = {mode: (lambda mode=mode, args=args: _launch(mode, *args, K, N_NBR))
-                   for mode in ("resident", "wide")}
-        check(all(torch.equal(a, b) for a, b in zip(by_mode["resident"](), by_mode["wide"]())),
-              f"dipcn_select W={width}: the wide mode differs from the resident mode")
-        rounds = [(mode, back_to_back_ms(by_mode[mode], reps=10))
-                  for mode in ("resident", "wide", "wide", "resident")]
-        mode_ms[width] = {mode: min(t for m, t in rounds if m == mode) for mode in by_mode}
-        print(f"[times] dipcn_select modes at [{width}, {width}], k={K}: resident "
-              f"{mode_ms[width]['resident']:.4f} ms ({sinfo['blocks_per_sm']} blocks per SM), "
-              f"wide {mode_ms[width]['wide']:.4f} ms per call (10 back to back, better of two; "
-              f"rounds {', '.join(f'{m} {t:.4f}' for m, t in rounds)}); outputs bitwise equal; "
-              f"{card}", flush=True)
-        del args, by_mode
+    # dipcn_select's two modes on the same rows in each dtype: the table the
+    # mode rule's least resident blocks an SM comes from
     next(row for row in kernels if row["name"] == "dipcn_from_distances_gpu").update(
-        mode_ms_back_to_back=mode_ms)
+        mode_table_back_to_back=dipcn_mode_table(dev, card))
 
     # knn_select beside torch.topk (the same set, no tie order) and in its
     # wide mode; phase_sweeps on 20 bootstrap replicates

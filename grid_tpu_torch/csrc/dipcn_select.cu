@@ -65,11 +65,17 @@
 // it, not its waves. dipcn_select_info reports the count the card grants.
 //
 // Two modes, one kernel template; dipcn_select_mode picks one from W, k
-// and the card's shared memory:
+// and the blocks an SM the card grants the resident mode:
 //
 // - resident (above): the row's keys in shared memory, a uint16 list. It
-//   runs whenever dyn_smem_bytes(W, k) fits and W <= 65,536: up to
-//   ~37,000 columns at k = W, ~55,000 at k = 500.
+//   fits whenever dyn_smem_bytes(W, k) fits and W <= 65,536 (up to
+//   ~37,000 float32 columns at k = W, ~55,000 at k = 500), and runs where
+//   at least kResidentMinBlocks of its blocks fit an SM: a block walks its
+//   row in serial rounds, and with fewer blocks an SM too few rows are in
+//   flight to hide them, so the wide mode, at 11-12 blocks an SM, is the
+//   faster (both modes timed on the same rows in float32, float64 and
+//   bfloat16 by chip_smoke.py; PERF.md). Float32 keeps the resident mode
+//   up to ~12,000 columns at k=500, float64 to ~6,000, bf16 to ~24,000.
 // - wide: for the row panels of the large-N branch (65,536 columns at
 //   N=65,536) and up to ~1.7 M columns. The keys stay in device memory and
 //   every walk re-reads the row; shared memory holds the usable bits (W/8
@@ -171,6 +177,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kResidentMaxCols = 65536;  // uint16 list entries
 constexpr int kWideGather = 2048;        // least gather capacity of the wide mode
 constexpr int kWideMaxCols = 1 << kField;  // packed counts hold up to 2^21 - 1
+constexpr int kResidentMinBlocks = 4;      // the resident mode's least blocks an SM
 
 // The keys of a value type: non-negative floats order as their bit
 // patterns read as signed integers of the same width; kBig is finfo.max,
@@ -809,18 +816,41 @@ size_t mode_smem_bytes(int mode, int w, int k) {
   return mode == 0 ? dyn_smem_bytes<T>(w, k) : wide_smem_bytes(w, k);
 }
 
+// The largest shared memory a block of this card may take.
+cudaError_t optin_smem_bytes(size_t* bytes) {
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  *bytes = static_cast<size_t>(optin);
+  return err;
+}
+
+// Blocks of one form an SM at `smem` bytes of dynamic shared memory.
+template <typename T, bool kWide, bool kMulti>
+cudaError_t blocks_per_sm(size_t smem, int* blocks) {
+  const cudaError_t err = configure<T, kWide, kMulti>(smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, dipcn_select_kernel<T, kWide, kMulti>, kThreads, smem);
+}
+
+// The launch shape; a mode that does not take rows of w columns, or whose
+// shared memory does not fit the card, reports 0 blocks an SM.
 template <typename T, bool kWide, bool kMulti>
 int info(int w, int k, int* out) {
   const size_t smem = mode_smem_bytes<T>(kWide, w, k);
-  cudaError_t err = configure<T, kWide, kMulti>(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, dipcn_select_kernel<T, kWide, kMulti>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, dipcn_select_kernel<T, kWide, kMulti>);
   if (err != cudaSuccess) return static_cast<int>(err);
+  size_t avail = 0;
+  if ((err = optin_smem_bytes(&avail)) != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, dipcn_select_kernel<T, kWide, kMulti>, kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool takes = kWide ? w < kWideMaxCols : w <= kResidentMaxCols;
+  if (takes && smem + attr.sharedSizeBytes <= avail &&
+      (err = blocks_per_sm<T, kWide, kMulti>(smem, &blocks)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
   out[0] = kThreads;
   out[1] = static_cast<int>(smem);
   out[2] = static_cast<int>(attr.sharedSizeBytes);
@@ -850,6 +880,10 @@ bool valid_shape(int w, int k, int mode) {
          !(mode == 0 && w > kResidentMaxCols) && !(mode == 1 && w >= kWideMaxCols);
 }
 
+// The resident mode where its shared memory fits and at least
+// kResidentMinBlocks of its blocks (of the fewer of its two forms) fit an
+// SM, else the wide mode where that fits, else the resident mode where
+// only it fits, else -1.
 template <typename T>
 int select_mode(int device, int w, int k, int* mode) {
   int optin = 0;
@@ -858,14 +892,19 @@ int select_mode(int device, int w, int k, int* mode) {
   size_t stat_resident = 0, stat_wide = 0;
   if ((err = static_smem_bytes<T, false>(&stat_resident)) != cudaSuccess) return err;
   if ((err = static_smem_bytes<T, true>(&stat_wide)) != cudaSuccess) return err;
-  const size_t avail = static_cast<size_t>(optin);
-  if (w <= kResidentMaxCols && dyn_smem_bytes<T>(w, k) + stat_resident <= avail) {
-    *mode = 0;
-  } else if (w < kWideMaxCols && wide_smem_bytes(w, k) + stat_wide <= avail) {
-    *mode = 1;
-  } else {
-    *mode = -1;
+  const size_t avail = static_cast<size_t>(optin), smem = dyn_smem_bytes<T>(w, k);
+  const bool resident = w <= kResidentMaxCols && smem + stat_resident <= avail;
+  const bool wide = w < kWideMaxCols && wide_smem_bytes(w, k) + stat_wide <= avail;
+  int blocks = 0;
+  if (resident) {
+    if ((err = blocks_per_sm<T, false, false>(smem, &blocks)) != cudaSuccess) return err;
+    if constexpr (kHasMulti<T>) {
+      int multi = 0;
+      if ((err = blocks_per_sm<T, false, true>(smem, &multi)) != cudaSuccess) return err;
+      if (multi < blocks) blocks = multi;
+    }
   }
+  *mode = resident && (blocks >= kResidentMinBlocks || !wide) ? 0 : wide ? 1 : -1;
   return cudaSuccess;
 }
 
@@ -912,16 +951,18 @@ int info_of(int mode, int multi, int w, int k, int* out) {
 extern "C" {
 
 // The mode that takes rows of w columns at this k on `device`, in either
-// form: 0 (the row's keys in shared memory) whenever its shared memory fits
-// and w <= 65,536, else 1 (wide: the keys stay in device memory) where
-// that fits, else -1. Returns the first cudaError_t.
+// form: 0 (the row's keys in shared memory) where its shared memory fits,
+// w <= 65,536 and at least kResidentMinBlocks of its blocks fit an SM, else
+// 1 (wide: the keys stay in device memory) where that fits, else 0 where
+// only it fits, else -1. Returns the first cudaError_t.
 int dipcn_select_mode(int device, int w, int k, int* mode) {
   return select_mode<float>(device, w, k, mode);
 }
 
 // Launch shape of `mode` (of the multi-weight form when `multi` is
-// non-zero) for rows of w columns at this k: threads, dynamic and static
-// shared memory per block, resident blocks per SM, registers a thread and
+// non-zero) for rows of w columns at this k on the current device: threads,
+// dynamic and static shared memory per block, resident blocks per SM (0
+// where the mode's shared memory does not fit), registers a thread and
 // local (spill) bytes a thread. Returns the first cudaError_t.
 int dipcn_select_info(int mode, int multi, int w, int k, int* out) {
   return info_of<float>(mode, multi, w, k, out);

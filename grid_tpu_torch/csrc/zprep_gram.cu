@@ -81,26 +81,10 @@
 //   entries only (one tile per 128 rows for a rank's own block, at most
 //   two for the block just before it, none otherwise).
 //
-// The bfloat16 form (the *16 entry points; Form<__nv_bfloat16>) takes z
-// [N, R] bfloat16, as grid_tpu's step under device.dtype: bfloat16 does
-// (grid_tpu/ops/knn.py:d2_matrix, z @ z.T in bf16). P is bf16 already, so it
-// has one half, and every product of two bf16 values is exact in float32:
-// one m64n128k16 bf16 wgmma a k-step (4 a stage of 64 columns, one 128-byte
-// swizzle row) in place of the three TF32 products, on the same tiles,
-// accumulation and epilogue, with G rounded to bf16 once at the store.
-// R_pad is a multiple of 16 (the TMA box's columns past it read as
-// zeros). The split pass writes P [N, R_pad] bf16 and the squared norms
-// as grid_tpu's jitted step sums them, sum(P * P) with the squares exact
-// and the sum kept in float32 and rounded once, in the split pass (G's
-// diagonal is the same sum in another order, and d2's order follows the
-// norms: one definition for both branches). Modes: triangle,
-// split (the split pass alone) and panel. Bound at N=2504, R=2048:
-// N(N+1)R = 12.85 GFLOP, 13.0 us at the 989 TFLOP/s of dense bf16; a
-// [512, 65,536] panel at R=1024, 68.7 GFLOP, 69.5 us. Twice the ring's
-// stages of the float32 form fill the same shared memory.
+// The bfloat16 form is csrc/zprep_gram16.cu, the float64 form
+// csrc/zprep_gram64.cu.
 
 #include <cuda.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -109,36 +93,16 @@
 namespace {
 
 constexpr int kTile = 128;        // rows and columns of G per block
+constexpr int kTileK = 32;        // R columns per stage: one 128-byte swizzle row
+constexpr int kStages = 3;        // depth of the shared-memory ring
 constexpr int kMidStages = 8;     // stage sums added into acc in groups of this many
 constexpr int kConsumers = 256;   // two warpgroups of wgmma
 constexpr int kThreads = kConsumers + 128;  // + one producer warpgroup
-constexpr int kOperandBytes = kTile * 128;  // one tile of 128 rows of a 128-byte swizzle row
+constexpr int kOperandBytes = kTile * kTileK * 4;         // one 128 x 32 float32 tile
+constexpr int kStageBytes = 4 * kOperandBytes;            // A big, A small, B big, B small
+constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + slack to align to 1024
 constexpr int kSplitThreads = 256;
 constexpr int kEncodeError = 10000;  // + CUresult of a failed cuTensorMapEncodeTiled
-
-// The operand type's form: R columns per stage (one 128-byte swizzle row),
-// halves of P (big and small in float32, P itself in bf16), ring depth.
-template <typename T>
-struct Form;
-
-template <>
-struct Form<float> {
-  static constexpr int kTileK = 32;
-  static constexpr int kHalves = 2;
-  static constexpr int kStages = 3;
-};
-
-template <>
-struct Form<__nv_bfloat16> {
-  static constexpr int kTileK = 64;
-  static constexpr int kHalves = 1;
-  static constexpr int kStages = 6;
-};
-
-template <typename T>
-constexpr int kStageBytes = 2 * Form<T>::kHalves * kOperandBytes;  // A's halves, then B's
-template <typename T>
-constexpr int kSmemBytes = Form<T>::kStages * kStageBytes<T> + 1024;  // + slack to align to 1024
 
 enum Mode { kTriangle = 0, kPanel = 1, kDiagonal = 2, kCross = 3, kCrossMirror = 4 };
 
@@ -149,24 +113,13 @@ struct Out {
   int mode;
   int n;
   int i0, rows;  // the panel's first row and its row count (kPanel)
-  void* g;       // float, or bf16 in the bf16 form
+  float* g;
   int na, nb;        // the cross blocks' row counts
   int a_off, b_off;  // their global first rows
   int t_lo;          // kCrossMirror: the global tile of block 0
 };
 
-static_assert(kTile * (kTile + 1) * 4 <= kSmemBytes<float> - 1024,
-              "epilogue tile must fit the ring");
-static_assert(kTile * (kTile + 1) * 4 <= kSmemBytes<__nv_bfloat16> - 1024,
-              "epilogue tile must fit the ring");
-
-// one entry of G in the output's type: float, or bf16 rounded to nearest
-__device__ __forceinline__ void put(void* g, size_t i, float v, float) {
-  static_cast<float*>(g)[i] = v;
-}
-__device__ __forceinline__ void put(void* g, size_t i, float v, __nv_bfloat16) {
-  static_cast<__nv_bfloat16*>(g)[i] = __float2bfloat16_rn(v);
-}
+static_assert(kTile * (kTile + 1) * 4 <= kStages * kStageBytes, "epilogue tile must fit the ring");
 
 // nearest TF32 value, ties away from zero (cvt.rna.tf32.f32): the low 13
 // mantissa bits are zero, so the tensor cores read it exactly
@@ -192,42 +145,6 @@ split_kernel(const float* __restrict__ z, const uint8_t* __restrict__ mask,
     const float b = tf32_round(p);
     big[out + c] = b;
     small[out + c] = tf32_round(p - b);  // p - b is exact
-  }
-}
-
-// The bf16 form's split pass: one block per row writes P [N, R_pad] bf16
-// (clip, mask and region as the float32 pass; zero past R) and the row's
-// squared norm as grid_tpu sums it: the squares exact in float32, their sum
-// in float32 (a tree over the block) rounded once.
-__global__ void __launch_bounds__(kSplitThreads)
-split16_kernel(const __nv_bfloat16* __restrict__ z, const uint8_t* __restrict__ mask,
-               const uint8_t* __restrict__ region, float zmax, int r, int r_pad,
-               __nv_bfloat16* __restrict__ p_out, __nv_bfloat16* __restrict__ norms) {
-  __shared__ float warp_sums[kSplitThreads / 32];
-  const size_t in = static_cast<size_t>(blockIdx.x) * r;
-  const size_t out = static_cast<size_t>(blockIdx.x) * r_pad;
-  float sq = 0.f;
-  for (int c = threadIdx.x; c < r_pad; c += kSplitThreads) {
-    float p = 0.f;
-    if (c < r) {
-      const float v = __bfloat162float(z[in + c]);
-      const float clipped = isnan(v) ? v : fminf(fmaxf(v, -zmax), zmax);
-      p = (!mask || mask[in + c] ? clipped : 0.f) * (!region || region[c] ? 1.f : 0.f);
-    }
-    const __nv_bfloat16 pb = __float2bfloat16_rn(p);
-    p_out[out + c] = pb;
-    const float pf = __bfloat162float(pb);
-    sq = fmaf(pf, pf, sq);  // pf * pf is exact: the fma rounds as the add alone
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x / 32] = sq;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-#pragma unroll
-    for (int w = 0; w < kSplitThreads / 32; ++w) total += warp_sums[w];
-    norms[blockIdx.x] = __float2bfloat16_rn(total);
   }
 }
 
@@ -304,32 +221,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d (+)= A[64 x 16] * B[128 x 16]^T in bf16, float32 accumulators (both
-// operands K-major: no transpose); d is overwritten when scale_d is 0
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma
 __device__ __forceinline__ void fence_operands(float (&d)[64]) {
@@ -338,11 +229,9 @@ __device__ __forceinline__ void fence_operands(float (&d)[64]) {
 }
 
 // The two consumer warpgroups: the mainloop and the epilogue.
-template <typename T>
 __device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* smem_raw,
                                         uint64_t* full, uint64_t* empty, bool diag, int k_tiles,
                                         int row0, int col0, const Out out) {
-  constexpr int kStages = Form<T>::kStages;
   const int tid = threadIdx.x;
   const int wg = tid / 128;  // this warpgroup's rows: wg*64 .. wg*64+63 of the tile
   const int warp = (tid % 128) / 32, lane = tid % 32;
@@ -353,36 +242,22 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* sm
   for (int kt = 0; kt < k_tiles; ++kt) {
     const int s = kt % kStages;
     mbar_wait(smem_addr(&full[s]), (kt / kStages) & 1);
-    const uint32_t stage = ring + s * kStageBytes<T>;
-    const int b_off = Form<T>::kHalves * kOperandBytes;  // B's first half after A's halves
-    const uint32_t b_big = diag ? stage : stage + b_off;
-    const uint64_t a_big_d = sw128_desc(stage + wg * 64 * 128);
+    const uint32_t stage = ring + s * kStageBytes;
+    const uint32_t b_big = diag ? stage : stage + 2 * kOperandBytes;
+    const uint64_t a_big_d = sw128_desc(stage + wg * 64 * kTileK * 4);
+    const uint64_t a_small_d = sw128_desc(stage + kOperandBytes + wg * 64 * kTileK * 4);
     const uint64_t b_big_d = sw128_desc(b_big);
+    const uint64_t b_small_d = sw128_desc(b_big + kOperandBytes);
     fence_operands(part);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-    // each k-step is 32 bytes further along the swizzled row, i.e. +2 in
-    // the descriptor's 16-byte address units
-    if constexpr (Form<T>::kHalves == 1) {  // bf16: one product, k16 steps
+    // small terms first; each k-step of 8 columns is 32 bytes further along
+    // the swizzled row, i.e. +2 in the descriptor's 16-byte address units
 #pragma unroll
-      for (int j = 0; j < Form<T>::kTileK / 16; ++j) {
-        wgmma_bf16(part, a_big_d + 2 * j, b_big_d + 2 * j, j);
-      }
-    } else {  // float32: small terms first, k8 steps
-      const uint64_t a_small_d = sw128_desc(stage + kOperandBytes + wg * 64 * 128);
-      const uint64_t b_small_d = sw128_desc(b_big + kOperandBytes);
+    for (int j = 0; j < kTileK / 8; ++j) wgmma_tf32(part, a_big_d + 2 * j, b_small_d + 2 * j, j);
 #pragma unroll
-      for (int j = 0; j < Form<T>::kTileK / 8; ++j) {
-        wgmma_tf32(part, a_big_d + 2 * j, b_small_d + 2 * j, j);
-      }
+    for (int j = 0; j < kTileK / 8; ++j) wgmma_tf32(part, a_small_d + 2 * j, b_big_d + 2 * j, 1);
 #pragma unroll
-      for (int j = 0; j < Form<T>::kTileK / 8; ++j) {
-        wgmma_tf32(part, a_small_d + 2 * j, b_big_d + 2 * j, 1);
-      }
-#pragma unroll
-      for (int j = 0; j < Form<T>::kTileK / 8; ++j) {
-        wgmma_tf32(part, a_big_d + 2 * j, b_big_d + 2 * j, 1);
-      }
-    }
+    for (int j = 0; j < kTileK / 8; ++j) wgmma_tf32(part, a_big_d + 2 * j, b_big_d + 2 * j, 1);
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_operands(part);
@@ -413,11 +288,10 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* sm
   }
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
   const int n = out.n;
-  void* g = out.g;
-  const T type{};  // the output's type, for put()
+  float* __restrict__ g = out.g;
   if (out.mode == kDiagonal) {
     for (int r = tid; r < kTile; r += kConsumers) {
-      if (row0 + r < n) put(g, row0 + r, tile[r * kLd + r], type);
+      if (row0 + r < n) g[row0 + r] = tile[r * kLd + r];
     }
     return;
   }
@@ -425,7 +299,7 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* sm
     for (int idx = tid; idx < kTile * kTile; idx += kConsumers) {
       const int r = idx / kTile, c = idx % kTile;
       if (row0 + r < out.na && col0 + c < out.nb) {
-        put(g, static_cast<size_t>(row0 + r) * out.nb + col0 + c, tile[r * kLd + c], type);
+        g[static_cast<size_t>(row0 + r) * out.nb + col0 + c] = tile[r * kLd + c];
       }
     }
     return;
@@ -440,7 +314,7 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* sm
       const long long j = static_cast<long long>(out.b_off) + jl;
       const long long i = static_cast<long long>(out.a_off) + il;
       if (jl < out.nb && il < out.na && i > j && i / kTile == t && j / kTile == t) {
-        put(g, static_cast<size_t>(il) * out.nb + jl, tile[r * kLd + c], type);
+        g[static_cast<size_t>(il) * out.nb + jl] = tile[r * kLd + c];
       }
     }
     return;
@@ -454,29 +328,25 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t raw, uint8_t* sm
     // cross terms meet in another order there
     const float v = diag && r > c ? tile[c * kLd + r] : tile[r * kLd + c];
     if (row0 + r < row_end && col0 + c < n) {
-      put(g, static_cast<size_t>(row0 + r - row_off) * n + col0 + c, v, type);
+      g[static_cast<size_t>(row0 + r - row_off) * n + col0 + c] = v;
     }
   }
   if (out.mode == kTriangle && !diag) {  // G[j,i] = G[i,j]^T: the tile's columns become rows of G
     for (int idx = tid; idx < kTile * kTile; idx += kConsumers) {
       const int c = idx / kTile, r = idx % kTile;
       const float v = tile[r * kLd + c];
-      if (row0 + r < n && col0 + c < n) {
-        put(g, static_cast<size_t>(col0 + c) * n + row0 + r, v, type);
-      }
+      if (row0 + r < n && col0 + c < n) g[static_cast<size_t>(col0 + c) * n + row0 + r] = v;
     }
   }
 }
 
 // The A operand's rows come from a_big/a_small, the B operand's from
-// b_big/b_small (the small maps unread in bf16); every mode but the two
-// cross modes passes one buffer's maps as both.
-template <typename T>
+// b_big/b_small; every mode but the two cross modes passes one buffer's
+// maps as both.
 __global__ void __launch_bounds__(kThreads, 1)
 gram_kernel(const __grid_constant__ CUtensorMap a_big, const __grid_constant__ CUtensorMap a_small,
             const __grid_constant__ CUtensorMap b_big, const __grid_constant__ CUtensorMap b_small,
             int k_tiles, int tiles, int panel_row_tiles, const Out out) {
-  constexpr int kStages = Form<T>::kStages, kTileK = Form<T>::kTileK;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];   // TMA bytes of a stage have landed
   __shared__ __align__(8) uint64_t empty[kStages];  // every consumer warp is done with it
@@ -527,24 +397,23 @@ gram_kernel(const __grid_constant__ CUtensorMap a_big, const __grid_constant__ C
   if (tid >= kConsumers) {  // the producer warpgroup; one thread issues every copy
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (tid == kConsumers) {
-      constexpr int halves = Form<T>::kHalves;
-      const uint32_t bytes = (diag ? 1 : 2) * halves * kOperandBytes;
+      const uint32_t bytes = (diag ? 2 : 4) * kOperandBytes;
       for (int kt = 0; kt < k_tiles; ++kt) {
         const int s = kt % kStages, round = kt / kStages;
         if (round > 0) mbar_wait(smem_addr(&empty[s]), (round - 1) & 1);
-        const uint32_t stage = ring + s * kStageBytes<T>, bar = smem_addr(&full[s]);
+        const uint32_t stage = ring + s * kStageBytes, bar = smem_addr(&full[s]);
         mbar_expect_tx(bar, bytes);
         tma_load(stage, &a_big, bar, kt * kTileK, row0);
-        if (halves == 2) tma_load(stage + kOperandBytes, &a_small, bar, kt * kTileK, row0);
+        tma_load(stage + kOperandBytes, &a_small, bar, kt * kTileK, row0);
         if (!diag) {
-          tma_load(stage + halves * kOperandBytes, &b_big, bar, kt * kTileK, col0);
-          if (halves == 2) tma_load(stage + 3 * kOperandBytes, &b_small, bar, kt * kTileK, col0);
+          tma_load(stage + 2 * kOperandBytes, &b_big, bar, kt * kTileK, col0);
+          tma_load(stage + 3 * kOperandBytes, &b_small, bar, kt * kTileK, col0);
         }
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    consume<T>(ring, raw, smem_raw, full, empty, diag, k_tiles, row0, col0, out);
+    consume(ring, raw, smem_raw, full, empty, diag, k_tiles, row0, col0, out);
   }
 }
 
@@ -575,20 +444,17 @@ int encode_tiled(EncodeTiled* out) {
   return cudaSuccess;
 }
 
-// [n, r_pad] rows of T, read as 128 x kTileK boxes (128 bytes a row) with
-// 128-byte swizzle; rows past n, and bf16 columns past r_pad, read as zeros
-template <typename T>
-int make_map(CUtensorMap* map, T* base, int n, int r_pad) {
+// [n, r_pad] float32 rows, read as 128 x 32 boxes with 128-byte swizzle;
+// rows past n read as zeros
+int make_map(CUtensorMap* map, float* base, int n, int r_pad) {
   EncodeTiled encode;
   const int err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(r_pad), static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(r_pad) * sizeof(T)};
-  const cuuint32_t box[2] = {Form<T>::kTileK, kTile};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(r_pad) * sizeof(float)};
+  const cuuint32_t box[2] = {kTileK, kTile};
   const cuuint32_t elem_strides[2] = {1, 1};
-  const CUtensorMapDataType type = sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUresult res = encode(map, type, 2, base, dims, strides, box,
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box,
                               elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -609,65 +475,34 @@ int split(const void* z, const void* mask, const void* region, float zmax, int n
   return static_cast<int>(cudaGetLastError());
 }
 
-int split16(const void* z, const void* mask, const void* region, float zmax, int n, int r,
-            int r_pad, __nv_bfloat16* p, void* norms, cudaStream_t s) {
-  split16_kernel<<<n, kSplitThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(z), static_cast<const uint8_t*>(mask),
-      static_cast<const uint8_t*>(region), zmax, r, r_pad, p, static_cast<__nv_bfloat16*>(norms));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The Gram kernel over `blocks` tiles: A's rows from the halves of `na`
 // rows at a_big / a_small, B's from those of `nb` rows at b_big / b_small
-// (the same buffer but in the cross modes; no small halves in bf16).
-template <typename T>
-int gram(T* a_big, T* a_small, int na, T* b_big, T* b_small, int nb, int r_pad,
+// (the same buffer but in the cross modes).
+int gram(float* a_big, float* a_small, int na, float* b_big, float* b_small, int nb, int r_pad,
          int blocks, int panel_row_tiles, const Out& out, cudaStream_t s) {
-  CUtensorMap maps[4] = {};
-  T* bases[4] = {a_big, a_small, b_big, b_small};
+  CUtensorMap maps[4];
+  float* bases[4] = {a_big, a_small, b_big, b_small};
   const int rows[4] = {na, na, nb, nb};
   int err;
   for (int m = 0; m < 4; ++m) {
-    if (bases[m] == nullptr) continue;
     if ((err = make_map(&maps[m], bases[m], rows[m], r_pad)) != cudaSuccess) return err;
   }
-  err = cudaFuncSetAttribute(gram_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes<T>);
+  err = cudaFuncSetAttribute(gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
-  constexpr int kTileK = Form<T>::kTileK;
-  gram_kernel<T><<<blocks, kThreads, kSmemBytes<T>, s>>>(
-      maps[0], maps[1], maps[2], maps[3], (r_pad + kTileK - 1) / kTileK,
-      (na + kTile - 1) / kTile, panel_row_tiles, out);
+  gram_kernel<<<blocks, kThreads, kSmemBytes, s>>>(maps[0], maps[1], maps[2], maps[3],
+                                                   r_pad / kTileK, (na + kTile - 1) / kTile,
+                                                   panel_row_tiles, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One buffer's halves as both operands.
-template <typename T>
-int gram(T* big, T* small, int n, int r_pad, int blocks, int panel_row_tiles, const Out& out,
-         cudaStream_t s) {
-  return gram<T>(big, small, n, big, small, n, r_pad, blocks, panel_row_tiles, out, s);
+int gram(float* big, float* small, int n, int r_pad, int blocks, int panel_row_tiles,
+         const Out& out, cudaStream_t s) {
+  return gram(big, small, n, big, small, n, r_pad, blocks, panel_row_tiles, out, s);
 }
 
-// R_pad: a multiple of the float32 form's K-stage (32), of 16 in bf16
-bool bad_shape(int n, int r, int r_pad, int multiple = Form<float>::kTileK) {
-  return r_pad < r || r_pad <= 0 || r_pad % multiple != 0 || upper_tiles(n) > INT_MAX;
-}
-
-constexpr int kPad16 = 16;  // the bf16 form's R_pad multiple: one k16 step
-
-template <typename T>
-int info_of(int n, int* out) {
-  int err = cudaFuncSetAttribute(gram_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSmemBytes<T>);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_kernel<T>, kThreads,
-                                                      kSmemBytes<T>);
-  if (err != cudaSuccess) return err;
-  const int info[7] = {kTile, Form<T>::kTileK, Form<T>::kStages, kThreads, kSmemBytes<T>,
-                       static_cast<int>(upper_tiles(n)), per_sm};
-  for (int i = 0; i < 7; ++i) out[i] = info[i];
-  return cudaSuccess;
+bool bad_shape(int n, int r, int r_pad) {
+  return r_pad < r || r_pad <= 0 || r_pad % kTileK != 0 || upper_tiles(n) > INT_MAX;
 }
 
 }  // namespace
@@ -760,51 +595,18 @@ int zprep_gram_cross_launch(void* a_buf, int na, void* b_buf, int nb, int r_pad,
 // The Gram kernel's launch shape for n rows, for reports: out = {tile,
 // k_tile, stages, threads per block, dynamic shared memory per block,
 // blocks (upper tiles), resident blocks per SM}. Returns a cudaError_t.
-int zprep_gram_info(int n, int* out) { return info_of<float>(n, out); }
-
-// The bf16 form's triangle: the split pass writes P [n, r_pad] bf16 into
-// `p_buf` (r_pad >= r, a multiple of 16) and the squared norms grid_tpu
-// sums into `norms` [n] bf16, then the Gram kernel G [n, n] bf16.
-int zprep_gram16_launch(const void* z, const void* mask, const void* region, float zmax, int n,
-                        int r, int r_pad, void* p_buf, void* norms, void* g, void* stream) {
-  if (n <= 0) return cudaSuccess;
-  if (bad_shape(n, r, r_pad, kPad16)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  __nv_bfloat16* p = static_cast<__nv_bfloat16*>(p_buf);
-  int err = split16(z, mask, region, zmax, n, r, r_pad, p, norms, s);
+int zprep_gram_info(int n, int* out) {
+  int err = cudaFuncSetAttribute(gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemBytes);
   if (err != cudaSuccess) return err;
-  const Out out{kTriangle, n, 0, n, g};
-  return gram<__nv_bfloat16>(p, nullptr, n, r_pad, static_cast<int>(upper_tiles(n)), 1, out, s);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_kernel, kThreads, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int info[7] = {kTile, kTileK, kStages, kThreads, kSmemBytes,
+                       static_cast<int>(upper_tiles(n)), per_sm};
+  for (int i = 0; i < 7; ++i) out[i] = info[i];
+  return cudaSuccess;
 }
-
-// The bf16 form's pass once per step of the row-panel branch: the split
-// pass alone, P into `p_buf` and the norms (as above; a null mask or region
-// keeps every entry).
-int zprep_split16_launch(const void* z, const void* mask, const void* region, float zmax, int n,
-                         int r, int r_pad, void* p_buf, void* norms, void* stream) {
-  if (n <= 0) return cudaSuccess;
-  if (bad_shape(n, r, r_pad, kPad16)) return cudaErrorInvalidValue;
-  return split16(z, mask, region, zmax, n, r, r_pad, static_cast<__nv_bfloat16*>(p_buf), norms,
-                 static_cast<cudaStream_t>(stream));
-}
-
-// The bf16 form's row panel, G[i0:i0+rows, 0:n] into g [rows, n] bf16, from
-// the P that zprep_split16_launch wrote into `p_buf`.
-int zprep_gram16_panel_launch(void* p_buf, int n, int r_pad, int i0, int rows, void* g,
-                              void* stream) {
-  if (rows <= 0) return cudaSuccess;
-  if (bad_shape(n, 0, r_pad, kPad16) || i0 < 0 || rows > n - i0) return cudaErrorInvalidValue;
-  const long long row_tiles = (rows + kTile - 1) / kTile;
-  const long long blocks = row_tiles * ((n + kTile - 1) / kTile);
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const Out out{kPanel, n, i0, rows, g};
-  return gram<__nv_bfloat16>(static_cast<__nv_bfloat16*>(p_buf), nullptr, n, r_pad,
-                             static_cast<int>(blocks), static_cast<int>(row_tiles), out,
-                             static_cast<cudaStream_t>(stream));
-}
-
-// The bf16 form's launch shape, as zprep_gram_info.
-int zprep_gram16_info(int n, int* out) { return info_of<__nv_bfloat16>(n, out); }
 
 const char* zprep_gram_error_string(int err) {
   if (err >= kEncodeError) {

@@ -47,8 +47,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers / shared memory / spills, kept in the .log
 )
-KERNELS = ("zprep_gram", "zprep_gram64", "dipcn_select", "sw_scores", "knn_select",
-           "phase_sweeps")
+KERNELS = ("zprep_gram", "zprep_gram64", "zprep_gram16", "dipcn_select", "sw_scores",
+           "knn_select", "phase_sweeps")
 
 
 class KernelError(RuntimeError):

@@ -28,11 +28,12 @@
   ``csrc/zprep_gram64.cu`` instead (the triangle, split, panel and cross
   modes: 128x128 tiles of FP64 tensor-core ``mma.sync`` m16n8k16 fed by a
   4-stage TMA ring, one tile an SM; no split: P itself stands in
-  ``SplitZ.p``). bfloat16 inputs take the same source's bf16 form (its
-  ``*16`` entry points: one bf16 wgmma product of P, which is bf16 already,
-  in the triangle, split and panel modes; the split pass gives the norms
-  as ``grid_tpu`` sums them, ``sum(P * P)`` in float32 rounded once, not
-  G's diagonal).
+  ``SplitZ.p``). bfloat16 inputs take ``csrc/zprep_gram16.cu`` (the
+  triangle, split and panel modes: 128x256 tiles of bf16 ``wgmma``
+  m64n256k16 into one float32 accumulator over R, a persistent walk of one
+  block an SM, G rounded to bf16 in registers and stored by TMA; the split
+  pass gives the norms as ``grid_tpu`` sums them, ``sum(P * P)`` in
+  float32 rounded once, not G's diagonal).
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch version
 for CPU tensors only; it counts its calls that reached the card in
@@ -318,6 +319,13 @@ _GRAM_INFO_KEYS = ("tile", "k_tile", "stages", "threads", "smem_bytes", "blocks"
 # float64: smem_bytes is the dynamic shared memory (the ring)
 _GRAM64_INFO_KEYS = (*_GRAM_INFO_KEYS, "registers", "spill_bytes", "static_smem_bytes")
 _GRAM64_MODES = {"triangle": 0, "panel": 1, "split": 2, "cross": 3}
+# bfloat16: smem_bytes is the dynamic shared memory (the ring and the
+# staged boxes of G); "grid" the blocks launched, one an SM, which walk
+# the "tiles"
+_GRAM16_INFO_KEYS = ("tile_rows", "tile_cols", "k_tile", "stages", "threads", "smem_bytes",
+                     "epilogue_boxes", "tiles", "blocks_per_sm", "grid", "registers",
+                     "spill_bytes", "static_smem_bytes")
+_GRAM16_MODES = {"triangle": 0, "panel": 1}
 
 
 @functools.cache
@@ -339,12 +347,24 @@ def _zprep_lib():
     lib.zprep_gram_cross_launch.restype = ctypes.c_int
     lib.zprep_gram_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.zprep_gram_info.restype = ctypes.c_int
-    # the bf16 form: its triangle also writes the norms
-    lib.zprep_gram16_launch.argtypes = [*lib.zprep_gram_launch.argtypes[:8], ctypes.c_void_p,
-                                        *lib.zprep_gram_launch.argtypes[8:]]
-    lib.zprep_split16_launch.argtypes = lib.zprep_split_launch.argtypes
-    lib.zprep_gram16_panel_launch.argtypes = lib.zprep_gram_panel_launch.argtypes
-    lib.zprep_gram16_info.argtypes = lib.zprep_gram_info.argtypes
+    return lib
+
+
+@functools.cache
+def _zprep16_lib():
+    lib = native.load("zprep_gram16")
+    # the triangle also writes the norms
+    lib.zprep_gram16_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.zprep_split16_launch.argtypes = [*lib.zprep_gram16_launch.argtypes[:9],
+                                         ctypes.c_void_p]
+    lib.zprep_gram16_panel_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.zprep_gram16_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                      ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.zprep_gram16_launch, lib.zprep_split16_launch, lib.zprep_gram16_panel_launch,
                lib.zprep_gram16_info):
         fn.restype = ctypes.c_int
@@ -374,6 +394,17 @@ def _zprep64_lib():
     return lib
 
 
+def _gram_lib(dtype: torch.dtype) -> tuple:
+    """(library name, library, entry-point suffix) of the Gram kernel for
+    ``dtype``: csrc/zprep_gram.cu for float32, zprep_gram64.cu for float64,
+    zprep_gram16.cu for bfloat16."""
+    if dtype == torch.float64:
+        return "zprep_gram64", _zprep64_lib(), "64"
+    if dtype == torch.bfloat16:
+        return "zprep_gram16", _zprep16_lib(), "16"
+    return "zprep_gram", _zprep_lib(), ""
+
+
 def _r_pad(r: int, dtype: torch.dtype) -> int:
     """R rounded up to the K-stage of the dtype's Gram kernel (at least one;
     bfloat16: one k16 step, the TMA box's columns past it read as zeros)."""
@@ -398,13 +429,19 @@ def zprep_gram_info(n: int, device: torch.device, dtype: torch.dtype = torch.flo
     "panel" of ``rows`` rows: its row tiles times the column tiles, or
     "cross" of a block of ``rows`` rows by one of ``n``: the same tiles),
     with its registers and spill bytes a thread and its static shared
-    memory; for bfloat16, the bf16 form's triangle."""
+    memory; for bfloat16, the bf16 kernel's in ``mode`` ("triangle" or
+    "panel" of ``rows`` rows): its tile's rows and columns, k-stage,
+    stages, threads, dynamic shared memory and staged boxes of G a block,
+    tiles, resident blocks an SM, the blocks of its persistent walk
+    ("grid", one an SM), registers, spill bytes and static shared
+    memory."""
     _require_hopper(device)
     if dtype == torch.bfloat16:
-        out = (ctypes.c_int * len(_GRAM_INFO_KEYS))()
+        out = (ctypes.c_int * len(_GRAM16_INFO_KEYS))()
         with torch.cuda.device(device):
-            native.check_launch("zprep_gram", _zprep_lib().zprep_gram16_info(n, out))
-        return dict(zip(_GRAM_INFO_KEYS, out))
+            native.check_launch("zprep_gram16", _zprep16_lib().zprep_gram16_info(
+                n, n if rows is None else rows, _GRAM16_MODES[mode], out))
+        return dict(zip(_GRAM16_INFO_KEYS, out))
     if dtype == torch.float64:
         out = (ctypes.c_int * len(_GRAM64_INFO_KEYS))()
         with torch.cuda.device(device):
@@ -427,8 +464,9 @@ def zprep_gram(z, mask, region_mask, zmax: float, norms: bool = False):
     (N·R_pad float64, R_pad a multiple of 16), then the upper-triangle
     128x128 tiles run on the FP64 tensor cores (``mma.sync`` m16n8k16, IEEE
     float64). bfloat16: the split pass writes P (N·R_pad bf16, R_pad a
-    multiple of 16) and the norms, then the tiles run as one bf16 wgmma
-    product each k-step, G rounded to bf16 once. G comes out exactly
+    multiple of 16) and the norms, then one block an SM walks the
+    triangle's 128x256 tiles of bf16 wgmma products, each entry summed in
+    float32 over R and rounded to bf16 once (``csrc/zprep_gram16.cu``). G comes out exactly
     symmetric either way. Needs compute capability 9.0.
 
     Args:
@@ -446,7 +484,8 @@ def zprep_gram(z, mask, region_mask, zmax: float, norms: bool = False):
         return zprep_gram_plain(z, mask, region_mask, zmax, norms)
     n, r = z.shape
     dtype = z.dtype
-    # float32 and bfloat16: csrc/zprep_gram.cu; float64: csrc/zprep_gram64.cu
+    # float32: csrc/zprep_gram.cu; float64: csrc/zprep_gram64.cu; bfloat16:
+    # csrc/zprep_gram16.cu
     native.dtype_suffix(dtype, bf16=True)
     native.check(z, "z", dtype, (n, r))
     native.check(mask, "mask", torch.bool, (n, r))
@@ -458,10 +497,10 @@ def zprep_gram(z, mask, region_mask, zmax: float, norms: bool = False):
         sq = torch.empty(n, dtype=dtype, device=z.device)
         scratch = torch.empty((n, r_pad), dtype=dtype, device=z.device)
         with torch.cuda.device(z.device):
-            err = _zprep_lib().zprep_gram16_launch(
+            err = _zprep16_lib().zprep_gram16_launch(
                 z.data_ptr(), mask.data_ptr(), region_mask.data_ptr(), float(zmax), n, r, r_pad,
                 scratch.data_ptr(), sq.data_ptr(), g.data_ptr(), native.stream_ptr(z.device))
-        native.check_launch("zprep_gram", err)
+        native.check_launch("zprep_gram16", err)
         native.count_launch(zprep_gram)
         return (g, sq) if norms else g
     if dtype == torch.float64:
@@ -523,7 +562,8 @@ def zprep_split(z, mask, region_mask, zmax: float) -> SplitZ:
         return zprep_split_plain(z, mask, region_mask, zmax)
     n, r = z.shape
     dtype = z.dtype
-    # float32 and bfloat16: csrc/zprep_gram.cu; float64: csrc/zprep_gram64.cu
+    # float32: csrc/zprep_gram.cu; float64: csrc/zprep_gram64.cu; bfloat16:
+    # csrc/zprep_gram16.cu
     native.dtype_suffix(dtype, bf16=True)
     native.check(z, "z", dtype, (n, r))
     if mask is not None:
@@ -532,14 +572,11 @@ def zprep_split(z, mask, region_mask, zmax: float) -> SplitZ:
         native.check(region_mask, "region_mask", torch.bool, (r,))
     _require_hopper(z.device)
     r_pad = _r_pad(r, dtype)
-    wide = dtype == torch.float64
     split = torch.empty((2 if dtype == torch.float32 else 1, n, r_pad), dtype=dtype,
                         device=z.device)
     norms = torch.empty(n, dtype=dtype, device=z.device)
-    name = "zprep_gram64" if wide else "zprep_gram"
-    launch = (_zprep64_lib().zprep_split64_launch if wide else
-              _zprep_lib().zprep_split16_launch if dtype == torch.bfloat16 else
-              _zprep_lib().zprep_split_launch)
+    name, lib, suffix = _gram_lib(dtype)
+    launch = getattr(lib, f"zprep_split{suffix}_launch")
     with torch.cuda.device(z.device):
         err = launch(
             z.data_ptr(), 0 if mask is None else mask.data_ptr(),
@@ -567,22 +604,21 @@ def zprep_gram_panel(split: SplitZ, i0: int, rows: int):
     column tiles) of the halves in ``split``, with the 3×TF32 arithmetic of
     :func:`zprep_gram`, and stores the panel once (no triangle, no mirror);
     a float64 split takes the FP64 kernel over its P, a bfloat16 one the
-    bf16 form (one bf16 product, the panel rounded to bf16 once).
+    bf16 kernel (its 128x256 tiles over the panel's row tiles and 256-column
+    tiles, the panel rounded to bf16 once; each entry bitwise the bf16
+    triangle's).
     """
     if not native.on_cuda(split.p, split.norms):
         return zprep_gram_panel_plain(split, i0, rows)
     _, n, r_pad = split.p.shape
     dtype = split.p.dtype
     native.dtype_suffix(dtype, bf16=True)
-    wide = dtype == torch.float64
     native.check(split.p, "split", dtype, (2 if dtype == torch.float32 else 1, n, r_pad))
     if not (0 <= i0 and 0 < rows <= n - i0):
         raise ValueError(f"panel rows [{i0}, {i0 + rows}) outside [0, {n})")
     g = torch.empty((rows, n), dtype=dtype, device=split.p.device)
-    name = "zprep_gram64" if wide else "zprep_gram"
-    launch = (_zprep64_lib().zprep_gram64_panel_launch if wide else
-              _zprep_lib().zprep_gram16_panel_launch if dtype == torch.bfloat16 else
-              _zprep_lib().zprep_gram_panel_launch)
+    name, lib, suffix = _gram_lib(dtype)
+    launch = getattr(lib, f"zprep_gram{suffix}_panel_launch")
     with torch.cuda.device(g.device):
         err = launch(split.p.data_ptr(), n, r_pad, i0, rows, g.data_ptr(),
                      native.stream_ptr(g.device))

@@ -110,28 +110,42 @@ def dipcn_select_mode(w: int, k: int, device: torch.device,
                       dtype: torch.dtype = torch.float32) -> str | None:
     """The mode the kernel (either form) takes rows of ``w`` columns of
     ``dtype`` in at this ``k`` on the CUDA ``device``: "resident" (the
-    row's keys in shared memory) whenever that fits, else "wide" (the keys
-    stay in device memory), or None where neither fits. The keys' size moves the edge: ~55,000 float32 columns at
-    k=500 on an H100, about half that in float64."""
+    row's keys in shared memory) where that fits and at least 4 of its
+    blocks fit an SM, else "wide" (the keys stay in device memory), or None
+    where neither fits. The keys' size moves the edge: ~12,000 float32
+    columns at k=500 on an H100, about half that in float64, twice that in
+    bfloat16."""
+    mode = _dipcn_mode_on(w, k, _device_index(device), native.dtype_suffix(dtype, bf16=True))
+    return MODES[mode] if mode >= 0 else None
+
+
+@functools.cache
+def _dipcn_mode_on(w: int, k: int, index: int, suffix: str) -> int:
+    """:func:`dipcn_select_mode`'s number on card ``index`` (``suffix``
+    the form's), asked once, as :func:`_knn_mode_on`: the answer depends on
+    the card alone, and its occupancy queries cost the host more than a
+    resident launch."""
     mode = ctypes.c_int()
-    fn = getattr(_lib(), f"dipcn_select_mode{native.dtype_suffix(dtype, bf16=True)}")
-    with torch.cuda.device(device):
-        err = fn(_device_index(device), w, k, ctypes.byref(mode))
+    fn = getattr(_lib(), f"dipcn_select_mode{suffix}")
+    with torch.cuda.device(index):
+        err = fn(index, w, k, ctypes.byref(mode))
     native.check_launch("dipcn_select", err)
-    return MODES[mode.value] if mode.value >= 0 else None
+    return mode.value
 
 
 def dipcn_select_info(w: int, k: int, device: torch.device, multi: bool = False,
-                      dtype: torch.dtype = torch.float32) -> dict:
+                      dtype: torch.dtype = torch.float32, mode: str | None = None) -> dict:
     """The kernel's launch shape (of its multi-weight form when ``multi``;
     of its float64 or bfloat16 form for that ``dtype``; bfloat16 has no
     multi-weight form) for rows of ``w`` columns at
-    this ``k`` on the CUDA ``device``: its mode, threads, dynamic and static
-    shared memory per block, resident blocks per SM, registers and local
-    (spill) bytes per thread."""
+    this ``k`` on the CUDA ``device``, in ``mode`` (default: the one
+    :func:`dipcn_select_mode` picks): its mode, threads, dynamic and static
+    shared memory per block, resident blocks per SM (0 where the mode does
+    not take rows of ``w`` columns or its shared memory does not fit),
+    registers and local (spill) bytes per thread."""
     if multi:
         native.dtype_suffix(dtype)  # the multi-weight form: float32 or float64
-    mode = dipcn_select_mode(w, k, device, dtype)
+    mode = mode or dipcn_select_mode(w, k, device, dtype)
     if mode is None:
         raise ValueError(f"no mode of dipcn_select takes rows of {w} columns at k={k}")
     out = (ctypes.c_int * len(_INFO_KEYS))()
@@ -149,12 +163,12 @@ def dipcn_from_distances_gpu(d2, rnorm, nbr_w, col_usable, sample_valid, k: int,
     int16 keys and a float32 sum rounded as ``grid_tpu`` rounds it).
 
     One thread block per row. Where the row's keys, its usable bits and its
-    compacted usable k-set fit in the block's shared memory (up to ~55,000
-    float32 columns at k=500 on an H100, ~37,000 at k = W), the distance
-    matrix crosses device memory once; wider rows (the 65,536-column panels
-    of the large-N branch, up to ~1.7 M columns at k=500) keep their keys
-    in device memory and re-read them (:func:`dipcn_select_mode`). Raises
-    where neither mode fits.
+    compacted usable k-set fit in the block's shared memory with at least 4
+    blocks an SM (up to ~12,000 float32 columns at k=500 on an H100), the
+    distance matrix crosses device memory once; wider rows (the
+    65,536-column panels of the large-N branch, up to ~1.7 M columns at
+    k=500) keep their keys in device memory and re-read them
+    (:func:`dipcn_select_mode`). Raises where neither mode fits.
 
     Returns (dipcn [N] in d2's dtype, out_valid [N] bool).
     """

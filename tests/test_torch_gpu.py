@@ -35,7 +35,11 @@ torch's reduction order in the plain version), its two modes to each
 other bitwise. In float64 every kernel is held to its float64 plain
 version at 1e-12 of the value (the multi-weight dipCN form too, and the
 FP64 Gram's cross mode bitwise to its panel mode, whose products are
-symmetric bit for bit), and the ring step at W=2 to the flat step.
+symmetric bit for bit), and the ring step at W=2 to the flat step. The
+bf16 Gram's panels equal its triangle's rows bitwise (one sum order in
+every mode), its launch the plan of ``tests/torch_plans.py``; dipCN's two
+modes agree bitwise at the mode table's widths in every dtype, and the
+resident mode runs where at least 4 of its blocks fit an SM.
 """
 
 import functools
@@ -335,7 +339,7 @@ def test_dipcn_kernel_wide_rows(cuda, case):
     valid = rnorm > 0.6
     args = (d2, rnorm, nbr_w, usable, valid)
     mode = dipcn_select_mode(w, k, cuda)
-    assert mode == ("resident" if case == "w40000-ties" else "wide")
+    assert mode == "wide"  # past the columns 4 resident blocks an SM hold
     before = dipcn_from_distances_gpu.launches
     got, gok = dipcn_from_distances_gpu(*args, k=k, n_nbr=n_nbr)
     assert dipcn_from_distances_gpu.launches == before + 1
@@ -344,9 +348,11 @@ def test_dipcn_kernel_wide_rows(cuda, case):
     torch.testing.assert_close(got[gok], want[gok], rtol=1e-6, atol=0)
     if case == "w65536-no-usable-row":
         assert not gok[0]
-    if mode == "resident":  # the wide mode lists and sums the same columns in the same order
-        wide, wide_ok = _launch("wide", *args, k, n_nbr)
-        assert torch.equal(wide_ok, gok) and torch.equal(wide, got)
+    if dipcn_select_info(w, k, cuda, mode="resident")["blocks_per_sm"]:
+        # the resident mode, where it fits, lists and sums the same columns
+        # in the same order
+        res, res_ok = _launch("resident", *args, k, n_nbr)
+        assert torch.equal(res_ok, gok) and torch.equal(res, got)
 
 
 def test_dipcn_kernel_refuses_rows_no_mode_takes(cuda):
@@ -360,12 +366,17 @@ def test_dipcn_kernel_refuses_rows_no_mode_takes(cuda):
 
 @pytest.mark.parametrize("k", [500, 4000])
 def test_dipcn_mode_switch_at_the_shared_memory_edge(cuda, k):
+    """The resident mode runs while 4 of its blocks fit an SM's shared
+    memory: at the widest such row, and the wide mode one column past it
+    (where the resident mode still fits, at 3 blocks an SM)."""
     lo, hi = k, 65536  # the widest resident row lies in [lo, hi]
     assert dipcn_select_mode(lo, k, cuda) == "resident"
     assert dipcn_select_mode(hi, k, cuda) == "wide"
     while hi - lo > 1:
         mid = (lo + hi) // 2
         lo, hi = (mid, hi) if dipcn_select_mode(mid, k, cuda) == "resident" else (lo, mid)
+    assert dipcn_select_info(lo, k, cuda, mode="resident")["blocks_per_sm"] >= 4
+    assert 0 < dipcn_select_info(hi, k, cuda, mode="resident")["blocks_per_sm"] < 4
     rng = np.random.default_rng(k)
     for w, mode in ((lo, "resident"), (hi, "wide")):
         assert dipcn_select_mode(w, k, cuda) == mode
@@ -378,9 +389,45 @@ def test_dipcn_mode_switch_at_the_shared_memory_edge(cuda, k):
         want, wok = dipcn_from_distances(*args, k=k, n_nbr=300)
         assert torch.equal(gok, wok)
         torch.testing.assert_close(got[gok], want[gok], rtol=1e-6, atol=0)
-        if mode == "resident":
-            wide, wide_ok = _launch("wide", *args, k, 300)
-            assert torch.equal(wide_ok, gok) and torch.equal(wide, got)
+        other = "wide" if mode == "resident" else "resident"
+        res, res_ok = _launch(other, *args, k, 300)
+        assert torch.equal(res_ok, gok) and torch.equal(res, got)
+
+
+# dipcn_select's mode table (chip_smoke.py phase 5): its widths at k=500
+_MODE_TABLE_W = (2504, 8192, 12288, 16384, 23170, 32768, 65536)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+def test_dipcn_modes_bitwise_at_the_mode_table_widths(cuda, dtype):
+    """Both modes of the binary form give the same dipCN and validity
+    bitwise at every width of the mode table where the resident mode fits;
+    the rule picks the resident mode where at least 4 of its blocks fit an
+    SM, else the wide one: N=2504 is resident in every dtype, a
+    65,536-column bf16 panel wide."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    big = torch.finfo(dtype).max
+    for w in _MODE_TABLE_W:
+        rows = 64
+        d2 = (torch.randint(0, 400, (rows, w), device=cuda, generator=gen) * 0.25).to(dtype)
+        d2[:, torch.rand(w, device=cuda, generator=gen) < 0.05] = big
+        vec = (torch.rand(w, device=cuda, generator=gen) + 0.5).to(dtype)
+        usable = torch.rand(w, device=cuda, generator=gen) > 0.2
+        args = (d2, vec[:rows].contiguous(), vec, usable, usable[:rows].contiguous())
+        blocks = dipcn_select_info(w, 500, cuda, dtype=dtype, mode="resident")["blocks_per_sm"]
+        mode = dipcn_select_mode(w, 500, cuda, dtype)
+        assert mode == ("resident" if blocks >= 4 else "wide")
+        wide, wide_ok = _launch("wide", *args, 500, 300)
+        if blocks:
+            res, res_ok = _launch("resident", *args, 500, 300)
+            assert torch.equal(res_ok, wide_ok) and torch.equal(res.view(torch.uint8),
+                                                                wide.view(torch.uint8))
+        got, ok = dipcn_from_distances_gpu(*args, k=500, n_nbr=300)
+        assert torch.equal(ok, wide_ok) and torch.equal(got.view(torch.uint8),
+                                                        wide.view(torch.uint8))
+    assert dipcn_select_mode(2504, 500, cuda, dtype) == "resident"
+    if dtype == torch.bfloat16:
+        assert dipcn_select_mode(65536, 500, cuda, dtype) == "wide"
 
 
 def test_cohort_panel_branch_on_card_matches_plain_route_and_resident(cuda):
@@ -1655,8 +1702,9 @@ def _f64_multi_args(case, cuda, n_loci):
 def test_float64_dipcn_multi_kernel_against_its_plain_version(cuda, case):
     """The multi-weight form's float64 entry point against the float64
     plain form ([N, W] @ [W, L] of the take mask): ok exact, dipCN at rtol
-    1e-12; its wide mode bitwise its resident mode; its launch the plan's,
-    with no spill."""
+    1e-12; its two modes bitwise equal; its resident launch the plan's, and
+    the mode the rule's (resident where 4 blocks fit an SM), with no
+    spill."""
     from torch_plans import dipcn_select_smem_bytes
 
     args, k, n_nbr = _f64_multi_args(case, cuda, _MULTI_CASES[case])
@@ -1669,12 +1717,14 @@ def test_float64_dipcn_multi_kernel_against_its_plain_version(cuda, case):
     torch.testing.assert_close(got[gok], want[gok], rtol=F64_RTOL, atol=0)
     if case == "no-usable-row":
         assert not gok[0].any()
-    wide, wide_ok = _launch_multi("wide", *args, k, n_nbr)
-    assert torch.equal(wide_ok, gok) and torch.equal(wide, got)
+    mode = dipcn_select_mode(w, k, cuda, torch.float64)
+    other, other_ok = _launch_multi("wide" if mode == "resident" else "resident", *args, k, n_nbr)
+    assert torch.equal(other_ok, gok) and torch.equal(other, got)
     info = dipcn_select_info(w, k, cuda, multi=True, dtype=torch.float64)
-    assert info["spill_bytes"] == 0
-    assert info["mode"] == dipcn_select_mode(w, k, cuda, torch.float64) == "resident"
-    assert info["smem_bytes"] == dipcn_select_smem_bytes(w, k, 8)
+    assert info["spill_bytes"] == 0 and info["mode"] == mode
+    resident = dipcn_select_info(w, k, cuda, multi=True, dtype=torch.float64, mode="resident")
+    assert resident["smem_bytes"] == dipcn_select_smem_bytes(w, k, 8)
+    assert mode == ("resident" if resident["blocks_per_sm"] >= 4 else "wide")
 
 
 @pytest.mark.parametrize("case", ["ties-300", "all-equal", "narrow-band", "wide"])
@@ -1697,8 +1747,10 @@ def test_float64_dipcn_multi_kernel_per_locus_equals_the_binary_kernel(cuda, cas
 
 @pytest.mark.parametrize("w", [30000, 65600])
 def test_float64_dipcn_multi_kernel_wide_rows_past_the_resident_edge(cuda, w):
-    """Rows past the float64 resident edge (~28,000 columns at k=500) take
-    the wide mode; 65,600 columns also need its int32 lists. 40 loci."""
+    """Rows past the float64 resident mode's shared memory (~28,000 columns
+    at k=500) take the wide mode; 65,600 columns also need its int32 lists.
+    40 loci. Float32's resident mode still holds 30,000 columns, at fewer
+    than 4 blocks an SM, so float32 takes the wide mode there too."""
     n, k, n_nbr = 24, 500, 300
     rng = np.random.default_rng(w)
     d2 = torch.tensor(rng.integers(0, 400, (n, w)) * 0.25, dtype=torch.float64, device=cuda)
@@ -1709,8 +1761,11 @@ def test_float64_dipcn_multi_kernel_wide_rows_past_the_resident_edge(cuda, w):
     rnorm, nbr_w, valid = _multi_weights(rng, cuda, n, w, 40)
     rnorm, nbr_w = rnorm.double(), nbr_w.double()
     assert dipcn_select_mode(w, k, cuda, torch.float64) == "wide"
-    if w < 65536:  # float32 keeps such a row in shared memory
-        assert dipcn_select_mode(w, k, cuda) == "resident"
+    assert dipcn_select_info(w, k, cuda, multi=True, dtype=torch.float64,
+                             mode="resident")["blocks_per_sm"] == 0
+    if w < 65536:  # float32 still fits such a row in shared memory
+        assert 0 < dipcn_select_info(w, k, cuda, mode="resident")["blocks_per_sm"] < 4
+        assert dipcn_select_mode(w, k, cuda) == "wide"
     got, gok = dipcn_from_distances_multi_gpu(d2, rnorm, nbr_w, usable, valid, k=k, n_nbr=n_nbr)
     want, wok = dipcn_from_distances_multi(d2, rnorm, nbr_w, usable, valid, k=k, n_nbr=n_nbr)
     assert torch.equal(gok, wok)
@@ -1894,15 +1949,21 @@ def test_bfloat16_masked_column_stats_kernel(cuda, n, r, round_squares):
         assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("n,r", [(1, 3), (97, 70), (300, 257), (515, 130), (2504, 2048)])
+@pytest.mark.parametrize("n,r", [(1, 3), (97, 70), (129, 64), (256, 130), (300, 257),
+                                 (515, 130), (2504, 2048), (1000, 1000), (4097, 200)])
 def test_bfloat16_zprep_gram_kernel(cuda, n, r):
     """The bf16 wgmma Gram against its plain version under the Gram rule of
     the bf16 contract (one bf16 ulp of the entry, or 2^-16 of max|G| where
     an entry cancels towards 0), exactly symmetric; the norms of the split
     pass (grid_tpu's sum(P * P)) within one ulp of the plain norms; the
     split's P is the plain P bitwise, its norms the triangle's, and its row
-    panels the triangle's rows under the same rule (the same products, A
-    and B swapped)."""
+    panels the triangle's rows bitwise (one sum order in every mode: the
+    same products, A and B swapped), at tile-aligned rows and at rows off
+    the tiles, fewer rows than a tile too, and the last row alone. N off
+    the 128- and 256-row tiles (129, 1000, 4097; 129, 4097 and 515 also
+    off the TMA store's 16-byte rows), on them (256: the last row tile's
+    one tile holds a diagonal block and the mirror of another), R off the
+    64-column stages (1000, 200, 130)."""
     from torch_parity import BF16_ULPS, bf16_gram_ratio
 
     def gram_ratio(got, want):
@@ -1922,22 +1983,84 @@ def test_bfloat16_zprep_gram_kernel(cuda, n, r):
     plain = zprep_split_plain(z, mask, region, 2.0)
     assert split.p.shape[0] == 1 and torch.equal(split.p[0, :, :r], plain.p)
     assert torch.equal(split.norms, sq)
-    for i0 in range(0, n, 256):
-        rows = min(256, n - i0)
+    panels = [(i0, min(256, n - i0)) for i0 in range(0, n, 256)]
+    panels += [(n // 3, min(100, n - n // 3)), (max(0, n - 77), min(77, n)),  # off the tiles
+               (n - 1, 1)]
+    for i0, rows in panels:
         panel = zprep_gram_panel(split, i0, rows)
-        assert panel.dtype == BF16 and gram_ratio(panel, g[i0:i0 + rows]) <= 1
+        assert panel.dtype == BF16 and torch.equal(panel, g[i0:i0 + rows])
 
 
-@pytest.mark.parametrize("n", [1, 129, 2504])
-def test_bfloat16_zprep_gram_info(cuda, n):
-    """The bf16 form's launch: 128x128 upper-triangle tiles, 64-column
-    stages (one 128-byte swizzle row of bf16) in a ring of 6, the float32
-    form's 384 threads and shared memory, one block an SM."""
-    t = -(-n // 128)
-    info = zprep_gram_info(n, cuda, BF16)
-    assert info == {"tile": 128, "k_tile": 64, "stages": 6, "threads": 384,
-                    "smem_bytes": 6 * 2 * 128 * 128 + 1024, "blocks": t * (t + 1) // 2,
-                    "blocks_per_sm": 1}
+@pytest.mark.parametrize("r", [1024, 2048])
+@pytest.mark.parametrize("cell", ["triangle", "panel"])
+def test_bfloat16_zprep_gram_holds_the_float32_sum_on_the_cpu(cuda, cell, r):
+    """The kernel sums an entry over all of R in the wgmma accumulator. Held
+    here to the plain version run on the CPU in float32 (each bf16 product
+    exact, a float32 sum in the CPU's order, G rounded to bf16 once) under
+    the Gram rule, not to cuBLAS, which sums in the same tensor cores: at
+    N=2504 (the triangle) and on a [512, 65,536] panel, at the panels' R
+    (1024) and the slice's (2048)."""
+    from torch_parity import bf16_gram_ratio
+
+    gen = torch.Generator(device=cuda).manual_seed(r + len(cell))
+    if cell == "triangle":
+        n, rows = 2504, 2504
+        z = (torch.randn((n, r), device=cuda, generator=gen) * 3).to(BF16)
+        mask = torch.rand((n, r), device=cuda, generator=gen) > 0.1
+        region = torch.rand(r, device=cuda, generator=gen) > 0.2
+        got = zprep_gram(z, mask, region, 2.0)
+        p = zprep_split_plain(z.cpu(), mask.cpu(), region.cpu(), 2.0).p
+    else:
+        n, rows = 65536, 512
+        z = torch.randn((n, r), device=cuda, generator=gen).to(BF16)
+        got = zprep_gram_panel(zprep_split(z, None, None, float("inf")), 0, rows)
+        p = z.cpu()
+    want = (p[:rows].float() @ p.float().T).to(BF16)
+    assert got.shape == want.shape
+    assert bf16_gram_ratio(got.float().cpu().numpy(), want.float().numpy()) <= 1
+
+
+def test_bfloat16_zprep_gram_panel_walk_wraps(cuda):
+    """A [512, 65,536] panel is 1,024 tiles for one block an SM: the
+    persistent walk wraps ~8 times around the card. At R=64 (one stage a
+    tile) against the plain panel under the Gram rule, and its rows of the
+    panel at 65,024 bitwise those of the panel at 65,280 (the same entries
+    from other tiles)."""
+    from torch_parity import bf16_gram_ratio
+
+    n, r = 65536, 64
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    z = (torch.randn((n, r), device=cuda, generator=gen) * 3).to(BF16)
+    split = zprep_split(z, None, None, float("inf"))
+    plain = zprep_split_plain(z, None, None, float("inf"))
+    info = zprep_gram_info(n, cuda, BF16, "panel", 512)
+    assert info["tiles"] == 1024 and info["grid"] < info["tiles"] // 7
+    for i0 in (0, n - 512):
+        got = zprep_gram_panel(split, i0, 512)
+        want = zprep_gram_panel_plain(plain, i0, 512)
+        assert bf16_gram_ratio(got.float().cpu().numpy(), want.float().cpu().numpy()) <= 1
+    tail = zprep_gram_panel(split, n - 256, 256)
+    assert torch.equal(tail, got[256:])
+
+
+@pytest.mark.parametrize("n,mode", [(n, "triangle") for n in (1, 129, 1000, 2504)]
+                         + [(n, "panel") for n in (1, 129, 1000, 2504, 65536)])
+def test_bfloat16_zprep_gram_info(cuda, n, mode):
+    """The bf16 kernel's launch is the plan (tests/torch_plans.py): 128x256
+    tiles (the triangle's from column 128 i of row tile i, a panel's row
+    tiles times 256-column tiles), 64-column stages (one 128-byte swizzle
+    row of bf16) in a ring of 4, two staged boxes of G, 384 threads, one
+    block an SM walking the tiles (the grid one block an SM, or one a tile
+    where there are fewer); no spill."""
+    from torch_plans import zprep_gram16_plan
+
+    rows = min(n, 512) if mode == "panel" else n
+    info = zprep_gram_info(n, cuda, BF16, mode, rows)
+    plan = zprep_gram16_plan(n, rows, mode, torch.cuda.get_device_properties(cuda)
+                             .multi_processor_count)
+    assert {key: info[key] for key in plan if key in info} == {
+        key: plan[key] for key in plan if key in info}
+    assert info["spill_bytes"] == 0 and info["registers"] > 0
 
 
 # case: (rows, width, k, mode, cluster blocks)
@@ -2045,12 +2168,13 @@ def test_bfloat16_dipcn_kernel(cuda, case):
     assert torch.equal(ok, pok)
     assert torch.equal(dip[ok].view(torch.int16), pdip[ok].view(torch.int16))
     mode = dipcn_select_mode(w, k, cuda, BF16)
-    assert mode == ("wide" if w > 65536 else "resident")
-    if mode == "resident":
-        info = dipcn_select_info(w, k, cuda, dtype=BF16)
+    assert mode == ("wide" if w >= 65536 else "resident")  # the panel: 1 resident block an SM
+    info = dipcn_select_info(w, k, cuda, dtype=BF16, mode="resident")
+    if info["blocks_per_sm"]:  # both modes where the resident mode fits
         assert info["smem_bytes"] == dipcn_select_smem_bytes(w, k, 2) and info["spill_bytes"] == 0
-        wdip, wok = _launch("wide", *args, k, n_nbr)
-        assert torch.equal(wok, ok) and torch.equal(wdip[ok].view(torch.int16),
+        other = "wide" if mode == "resident" else "resident"
+        odip, ook = _launch(other, *args, k, n_nbr)
+        assert torch.equal(ook, ok) and torch.equal(odip[ok].view(torch.int16),
                                                     dip[ok].view(torch.int16))
     with pytest.raises(TypeError):  # no multi-weight form in bf16
         dipcn_select_info(w, k, cuda, multi=True, dtype=BF16)

@@ -1,11 +1,12 @@
 """The launch plans of the cohort step's kernels by element size, as pure
 functions: what ``csrc/knn_select.cu`` (``plan_of``, ``select_mode``),
 ``csrc/dipcn_select.cu`` (``dyn_smem_bytes``), ``csrc/phase_sweeps.cu``
-(``resident_smem_bytes``) and ``csrc/zprep_gram64.cu`` (``mode_blocks``,
+(``resident_smem_bytes``), ``csrc/zprep_gram64.cu`` (``mode_blocks``,
 ``kSmemBytes``; with ``csrc/zprep_gram.cu``, the cross mode's launches)
-compute. ``tests/test_torch_float64.py`` checks
-them on the CPU; ``tests/test_torch_gpu.py`` holds the kernels' own
-``*_info`` answers to them on the card.
+and ``csrc/zprep_gram16.cu`` (``mode_tiles``, ``kSmemBytes``) compute.
+``tests/test_torch_float64.py`` checks them on the CPU;
+``tests/test_torch_gpu.py`` holds the kernels' own ``*_info`` answers to
+them on the card.
 """
 
 from __future__ import annotations
@@ -129,3 +130,28 @@ def zprep_gram64_l2_bytes(n: int, rows: int, mode: str, r_pad: int) -> int:
     diag = {"triangle": tiles, "split": tiles, "panel": -(-rows // plan["tile"]),
             "cross": 0}[mode]
     return (2 * (plan["blocks"] - diag) + diag) * operand
+
+
+# csrc/zprep_gram16.cu: tiles of 128 rows by 256 columns, 64-column stages
+# in a ring of 4, two staged 64-column boxes of G, two consumer warpgroups
+# and a producer warpgroup, one block an SM walking the tiles
+GRAM16_ROWS, GRAM16_COLS, GRAM16_K_TILE, GRAM16_STAGES, GRAM16_EPI_BOXES = 128, 256, 64, 4, 2
+
+
+def zprep_gram16_plan(n: int, rows: int, mode: str, sms: int = H100_SMS) -> dict:
+    """The bf16 Gram's launch at ``n`` rows in ``mode`` (``mode_tiles``):
+    the triangle's row tile i takes the tiles from column 128 i in steps of
+    256, a panel of ``rows`` rows its row tiles times the 256-column tiles.
+    Its dynamic shared memory holds the ring (48 KB a stage: 128 rows of A,
+    256 of B) and the staged boxes of G (16 KB each), with 1 KB to align
+    the ring; one block an SM, and the grid is one block an SM or one a
+    tile where there are fewer."""
+    if mode == "panel":
+        tiles = -(-rows // GRAM16_ROWS) * -(-n // GRAM16_COLS)
+    else:
+        tiles = sum(-(-(n - row0) // GRAM16_COLS) for row0 in range(0, n, GRAM16_ROWS))
+    stage = (GRAM16_ROWS + GRAM16_COLS) * GRAM16_K_TILE * 2
+    return {"tile_rows": GRAM16_ROWS, "tile_cols": GRAM16_COLS, "k_tile": GRAM16_K_TILE,
+            "stages": GRAM16_STAGES, "threads": 384, "epilogue_boxes": GRAM16_EPI_BOXES,
+            "smem_bytes": GRAM16_STAGES * stage + GRAM16_EPI_BOXES * GRAM16_ROWS * 64 * 2 + 1024,
+            "tiles": tiles, "blocks_per_sm": 1, "grid": min(tiles, sms)}
