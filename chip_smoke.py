@@ -398,10 +398,10 @@ before the last line):
              to the flat float64 step from the stage its ranks made; every
              rank's launches checked.
 18. bfloat16 — ``device.dtype: bfloat16`` on the card (``bfloat16_phase``
-             after phase 17 (g, i); (c) inside phase 9). bfloat16 is taken
-             without ``device.mesh_shape`` (steps 4-6 in bf16, the steps
-             grid_tpu runs without a dtype in float32) and refused up front
-             with it, in both forms. (a) Phases 3-6 in bf16 at N=2504
+             after phase 17 (g, i); (c) and (f) inside phase 9). bfloat16
+             is taken without ``device.mesh_shape`` and with it, in both
+             forms (steps 4-6 in bf16, the reads and the steps grid_tpu
+             runs without a dtype in float32). (a) Phases 3-6 in bf16 at N=2504
              (``kernels_phase``): the bf16 forms of the column statistics
              (Triton) within one bf16 ulp of their plain versions, the Gram
              (csrc/zprep_gram16.cu) within one ulp of each entry or 2^-16 of
@@ -431,7 +431,22 @@ before the last line):
              held to the port's bf16 CPU route of the same form under (a)'s
              rules, and ``run_multi_locus`` in bf16 over 2 loci (step 4 in
              bf16, its normalized file the file mode's; the batched dipCN
-             in float32).
+             in float32). (d) The bf16 Gram's cross mode on phase 7's z
+             rounded to bf16 (R=1024) at the blocks the runs use: the
+             ring's [8192] at offsets (0, 8192) and (0, 0), the fused
+             ring's [1252] and a [4096] off a tile, each bitwise
+             zprep_gram_panel's entries, within the bf16 Gram rule of its
+             plain version, its launch the plan's, timed beside torch.mm
+             bf16 with its bound at 989 TFLOP/s. (e) The ring and the
+             gather form in bf16 over 2 gloo ranks at phase 8's N=16,384:
+             the ring's lists held to a whole-row knn_select on the
+             panel-mode Gram of its own prepared z under the tie rule at
+             tol 0, its dipCN float32; the gather form held to the flat
+             bf16 panel step on the card at the bf16 contract. (f)
+             ``run_wgs_pipeline`` with ``mesh_shape: [2], dispatch: ring``
+             in bf16 on phase 9's files against the port's CPU ring of the
+             same config, and ``staged_sharded_cohort_step`` in bf16 over
+             2 ranks there, bitwise the ring from the stage its ranks made.
 
 The last three lines are the kernels' JSON object (the panel-mode numbers
 at N=65,536; each entry's "slice_2504" holds phase 5's, "pipeline_2504"
@@ -457,7 +472,10 @@ ranks and its numbers at that ring's visiting block, [8192, 8192], the
 other blocks' under "other_blocks"; the four bf16 forms a row each, named
 "<kernel>[bfloat16]", their launches those of phase 18 (a)'s step, the
 panel numbers under "panel_65536", (c)'s launches and tie counts and the
-sweep's launches beside them), the card's name and power limit, and
+sweep's launches beside them, and (e)'s and (f)'s launches per rank, the
+Gram's row with the cross mode under "cross"; the bf16 cross mode's row,
+its launches those of (e)'s ring over 2 ranks and its numbers at that
+ring's visiting block, [8192, 8192]), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -495,9 +513,11 @@ WIDE = (64, 23170)  # the widest rows the default 2 GB d2 budget admits
 GENOME = (100, 3_000_000)  # the genome-wide normalize shape
 PANEL_N, PANEL_R = 65536, 1024  # a biobank cohort, past the 2 GiB d2 budget
 # phase 5: the widths and rows of dipcn_select's mode table (the slice's
-# N, the resident branch's widths up to the widest d2 budget row, and the
-# panels' 65,536), in float32, float64 and bfloat16
-MODE_TABLE_W = (2504, 8192, 12288, 16384, 23170, 32768, 65536)
+# N, the sharded forms' 16,384 and the panels' 65,536: the widths the paths
+# run; PR 22's table, recorded in PERF.md, also timed 8,192, 12,288, 23,170
+# and 32,768, a cut that leaves time for phase 18 (d)-(f)), in float32,
+# float64 and bfloat16
+MODE_TABLE_W = (2504, 16384, 65536)
 MODE_TABLE_ROWS = 2048
 PANEL_REPS = 3
 BRANCH_N = 16384  # both branches run: N*N*4 = 1 GiB
@@ -1327,6 +1347,13 @@ RING_BIOBANK_WORLD = 4
 RING_LAUNCHES = {"masked_column_stats": 2, "zprep_split": 1}  # per rank; W cross launches
 
 
+def host_dtype(dtype) -> np.dtype:
+    """The numpy dtype of ``dtype``'s outputs on the host: bfloat16 comes
+    back as float32, which holds each of its values (``convert.to_numpy``)."""
+    return np.dtype(np.float32) if dtype == torch.bfloat16 else torch.empty(
+        (), dtype=dtype).numpy().dtype
+
+
 def ring_run(label: str, world: int, cohort, params, card: str,
              dtype=torch.float32) -> tuple:
     """One ``sharded_cohort_step`` over ``world`` ranks of the card on
@@ -1365,7 +1392,7 @@ def ring_run(label: str, world: int, cohort, params, card: str,
     got = got._replace(**{name: getattr(got, name)[:n] for name in ROW_FIELDS})
     check(got.nbr_idx.shape == (n, params.num_neighbors), f"ring {label}: nbr_idx shape")
     check(np.isfinite(got.dipcn[got.dipcn_valid]).all(), f"ring {label}: non-finite dipCN")
-    check(got.z.dtype == got.nbr_sq_dists.dtype == torch.empty((), dtype=dtype).numpy().dtype,
+    check(got.z.dtype == got.nbr_sq_dists.dtype == host_dtype(dtype),
           f"ring {label}: outputs not in {dtype}")
     spans = {key: statistics.mean(rep[key] for rep in reports)
              for key in reports[0] if key.startswith("sharded.")}
@@ -1589,7 +1616,7 @@ def auto_run(label: str, world: int, cohort, params, card: str, platform: str = 
     got = outputs_to_numpy(out)
     check(got.nbr_idx.shape == (n, params.num_neighbors), f"auto {label}: nbr_idx shape")
     check(np.isfinite(got.dipcn[got.dipcn_valid]).all(), f"auto {label}: non-finite dipCN")
-    check(got.z.dtype == got.nbr_sq_dists.dtype == torch.empty((), dtype=dtype).numpy().dtype,
+    check(got.z.dtype == got.nbr_sq_dists.dtype == host_dtype(dtype),
           f"auto {label}: outputs not in {dtype}")
     spans = {key: statistics.mean(rep[key] for rep in reports)
              for key in reports[0] if key.startswith(("sharded.", "auto."))}
@@ -3250,6 +3277,9 @@ def pipeline_phase(card: str, wrappers: dict, n: int = PIPELINE_N, flank: int = 
         stage_phase(card, tmp, cohort, base, k, n_nbr)
         # ---- phase 17 (i): the sharded stager in float64 ------------------
         f64_files["stage"] = float64_stage_run(card, tmp, cohort, base, k, n_nbr)
+        # ---- phase 18 (f): bf16 with mesh_shape, the ring from a config and
+        # the sharded stager ----------------------------------------------
+        bf16_files["sharded"] = bfloat16_sharded_runs(card, tmp, cohort, base, names, k, n_nbr)
         cache_phase(card, tmp, cohort, base, names, again_t)
     check(not tmp.exists(), "the temporary directory was not removed")
     return ({name: launches[name] for name in wrappers}, files_launches, multi,
@@ -5391,7 +5421,7 @@ def float64_slice_phase(dev, card: str, zp_65536, cohort_16384) -> dict:
 
 
 # phase 18: device.dtype bfloat16 on the card (the flat step, file-mode step
-# 4 and the sweep; with mesh_shape it is refused up front)
+# 4 and the sweep; with mesh_shape the sharded forms: (d)-(f))
 BF16_PANELS = 3  # (b): the first, a middle and the last panel against the plain route
 BF16_SWEEP_LOCI = 2  # (c): the bf16 sweep's loci (LPA and one drawn from the seed)
 GRAM16_CPU_R = (1024, 2048)  # (a): the panels' R and the slice's
@@ -5457,8 +5487,8 @@ def gram16_cpu_sums(dev, card: str) -> dict:
 
 def bfloat16_phase(dev, card: str, values_np, mask_np, reads_np, sms: int, cohort_65536) -> tuple:
     """Phase 18 (a, b): ``device.dtype: bfloat16`` on the card. The dtype
-    rules first (bf16 taken without ``mesh_shape`` and refused with it, in
-    both forms; the steps grid_tpu runs without a dtype in float32), then
+    rules first (bf16 taken without ``mesh_shape`` and with it, in both
+    forms; the steps grid_tpu runs without a dtype in float32), then
     (a) phases 3-6 in bf16 at N=2504 (:func:`kernels_phase`: each bf16
     kernel against its plain version, the step against the port's bf16 CPU
     route with every kernel launched and no plain version reached, each
@@ -5469,20 +5499,15 @@ def bfloat16_phase(dev, card: str, values_np, mask_np, reads_np, sms: int, cohor
 
     t_phase = time.perf_counter()
     bf = torch.bfloat16
-    cfg = {"device": {"dtype": "bfloat16"}}
-    check(compute_dtype(cfg, dev) is bf and step_dtype(cfg, dev) is torch.float32,
-          "bfloat16 on the card: compute_dtype must take it, step_dtype give float32")
-    for config in ({"device": {"dtype": "bf16", "mesh_shape": [2]}},
-                   {"device": {"dtype": "bfloat16", "mesh_shape": [2], "fused": True}}):
-        try:
-            compute_dtype(config, dev)
-        except ValueError as e:
-            check("mesh_shape" in str(e), f"the refusal of {config} does not name mesh_shape")
-        else:
-            raise RuntimeError(f"check failed: {config} was not refused")
-    print("[bf16] compute_dtype on the card: bfloat16 taken without device.mesh_shape (steps "
-          "4-6 in bf16, step_dtype float32 for the steps grid_tpu runs without a dtype) and "
-          "refused up front with it, in both forms", flush=True)
+    for cfg in ({"device": {"dtype": "bfloat16"}},
+                {"device": {"dtype": "bf16", "mesh_shape": [2]}},
+                {"device": {"dtype": "bfloat16", "mesh_shape": [2], "fused": True}}):
+        check(compute_dtype(cfg, dev) is bf and step_dtype(cfg, dev) is torch.float32,
+              f"bfloat16 on the card ({cfg}): compute_dtype must take it, step_dtype give "
+              f"float32")
+    print("[bf16] compute_dtype on the card: bfloat16 taken without device.mesh_shape and with "
+          "it, in both forms (steps 4-6 in bf16, step_dtype float32 for the reads and the steps "
+          "grid_tpu runs without a dtype)", flush=True)
     res = kernels_phase(dev, card, bf, values_np, mask_np, reads_np, sms)
     cpu_sums = gram16_cpu_sums(dev, card)
     a_s = time.perf_counter() - t_phase
@@ -5857,6 +5882,346 @@ def bfloat16_sweep_run(card: str, tmp: Path, base: dict, names: dict, k: int) ->
     return {"launches": launches, "seconds": seconds}
 
 
+# phase 18 (d)-(f): bfloat16 with device.mesh_shape
+BF16_RING_WORLD = 2  # the bf16 sharded steps' ranks on the one card (gloo)
+# (d): [B, B] blocks at (a's, b's) first rows: the ring's visiting block at
+# N=16,384 over 2 ranks and a rank's own, the fused ring's at N=2504, and a
+# block off the 128- and 256-row tiles
+BF16_CROSS = ((8192, 0, 8192), (8192, 0, 0), (1252, 0, 0), (4096, 12288, 100))
+
+
+def bfloat16_slice_phase(dev, card: str, zp_65536, cohort_16384) -> dict:
+    """Phase 18 (d, e): bfloat16 with ``device.mesh_shape``. (d) The bf16
+    Gram's cross mode in-process on blocks of phase 7's prepared z rounded
+    to bf16 (BF16_CROSS, R=1024): each block bitwise zprep_gram_panel's
+    entries for the same rows of one split of all rows, within the bf16
+    Gram rule of its plain version (P_a P_b^T in bf16), its launch the
+    plan's, timed back to back beside torch.mm bf16 with its bound by
+    operations at 989 TFLOP/s. (e) The ring (``sharded_cohort_step``) and
+    the gather form (``auto_sharded_cohort_step``) in bf16 over
+    BF16_RING_WORLD ranks at phase 8's N=16,384, R=1024: the ring's lists
+    held to a whole-row selection (``knn_select``) on the panel-mode Gram
+    of the ring's own prepared z under the tie rule at tol 0 (the cross
+    mode is the panel mode's entries), its dipCN float32 (the reads'
+    dtype, never rounded to bf16); the gather form held to the card's flat
+    bf16 panel step at the bf16 contract (rows apart by ties and dipCN
+    sets counted). Returns the cross mode's numbers and the sharded runs'
+    launches, seconds and counts."""
+    from grid_tpu_torch.convert import inputs_to_torch, outputs_to_numpy
+    from grid_tpu_torch.models.cohort import CohortParams, cohort_step
+    from grid_tpu_torch.ops.gpu_kernels import (
+        zprep_gram_cross, zprep_gram_cross_plain, zprep_gram_info, zprep_gram_panel,
+        zprep_split, zprep_split_plain,
+    )
+    from grid_tpu_torch.ops.gpu_select import sorted_smallest_k_gpu
+    from grid_tpu_torch.ops.knn import d2_panels, prepare_z
+    from torch_parity import assert_close_to_max, bf16_gram_ratio, neighbor_rows_differing
+    from torch_plans import zprep_gram16_plan
+
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # ---- (d) the cross mode ------------------------------------------------
+    rows = max(max(a_off, b_off) + b for b, a_off, b_off in BF16_CROSS)
+    cohort = zp_65536[:rows].to(bf).contiguous()
+    r = cohort.shape[1]
+    whole = zprep_split(cohort, None, None, math.inf)
+    cross = {}
+    for b, a_off, b_off in BF16_CROSS:
+        a_rows, b_rows = cohort[a_off:a_off + b].contiguous(), cohort[b_off:b_off + b].contiguous()
+        sa, sb = (zprep_split(t, None, None, math.inf) for t in (a_rows, b_rows))
+        pa, pb = (zprep_split_plain(t, None, None, math.inf) for t in (a_rows, b_rows))
+        before = zprep_gram_cross.launches
+        g = zprep_gram_cross(sa, sb, a_off, b_off)
+        check(zprep_gram_cross.launches == before + 1 and g.dtype == bf, "(d) the cross launch")
+        panel = zprep_gram_panel(whole, a_off, b)
+        check(torch.equal(g, panel[:, b_off:b_off + b]),
+              f"(d) zprep_gram_cross bf16 [{b}, {b}] at offsets ({a_off}, {b_off}): not bitwise "
+              f"the panel's entries")
+        del panel
+        want = zprep_gram_cross_plain(pa, pb)
+        ratio = bf16_gram_ratio(g.float().cpu().numpy(), want.float().cpu().numpy())
+        check(ratio <= 1, f"(d) zprep_gram_cross bf16 [{b}, {b}]: at {ratio:.3f} of the bf16 "
+                          f"Gram rule against P_a P_b^T")
+        err = max_abs(g.float(), want.float())
+        del want
+        info = zprep_gram_info(b, dev, bf, "cross", b)
+        plan = zprep_gram16_plan(b, b, "cross", sms)
+        check(info["spill_bytes"] == 0 and all(info[key] == plan[key] for key in plan),
+              f"(d) the bf16 cross mode's launch {info} is not the plan {plan}")
+        del g
+        kern = lambda: zprep_gram_cross(sa, sb, a_off, b_off)  # noqa: E731
+        plain = lambda: zprep_gram_cross_plain(pa, pb)  # noqa: E731
+        lib = lambda: torch.mm(pa.p, pb.p.T)  # noqa: E731  a yardstick the port never calls
+        t = {name: [] for name in ("plain", "kernel", "library")}
+        for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
+            fn = {"plain": plain, "kernel": kern, "library": lib}[name]
+            t[name].append(back_to_back_ms(fn, reps=10, warmup=2))
+        best = {name: min(v) for name, v in t.items()}
+        device_ms = median_ms(kern, reps=10, warmup=1)
+        r_pad = sa.p.shape[-1]
+        least, by = bound_ms(2 * b * r_pad * 2 + b * b * 2, 2 * b * b * r, BF16_FLOP_PER_S)
+        print(f"[bf16] (d) zprep_gram_cross bf16 [{b}, {b}] x R={r} at offsets ({a_off}, "
+              f"{b_off}): one launch of {info['tiles']} tiles on {info['grid']} blocks "
+              f"({info['registers']} registers, no spill), bitwise zprep_gram_panel's entries for "
+              f"the same rows of one split of {rows} rows, within the bf16 Gram rule of P_a P_b^T "
+              f"(ratio {ratio:.3f}, max abs err {err:.3e}); kernel {best['kernel']:.4f} ms (10 "
+              f"back to back; device {device_ms:.4f} ms, median of 10), plain {best['plain']:.4f} "
+              f"ms, torch.mm bf16 {best['library']:.4f} ms (better of two rounds in turns); bound "
+              f"{least:.4f} ms by {by} (2*Ba*Bb*R at 989 TFLOP/s), "
+              f"{100 * least / best['kernel']:.1f}% of it; "
+              f"{2 * b * b * r / best['kernel'] / 1e9:.1f} TFLOP/s; {card}", flush=True)
+        cross[(b, a_off, b_off)] = {
+            "ms": best["kernel"], "device_ms": device_ms, "plain_ms": best["plain"],
+            "library_ms": best["library"], "bound_ms": least, "bound_by": by,
+            "max_abs_err": err, "gram_rule_ratio": ratio, "shape": f"[{b}, {b}] x R={r}",
+            "offsets": [a_off, b_off]}
+        del sa, sb, pa, pb
+    del whole, cohort
+    torch.cuda.empty_cache()
+    d_s = time.perf_counter() - t_phase
+
+    # ---- (e) the ring and the gather form in bf16 --------------------------
+    params = CohortParams(num_neighbors=K, n_nbr=N_NBR, n_iters=N_ITERS, quantize=False)
+    n16, r16 = cohort_16384.values.shape
+    w = BF16_RING_WORLD
+    label = f"N={n16} R={r16} k={K}, W={w}, bfloat16"
+    sharded = {}
+    got, reports, wall = ring_run(label, w, cohort_16384, params, card, dtype=bf)
+    check(got.dipcn.dtype == np.float32 and got.hap_irrs.dtype == np.float32,
+          "(e) the bf16 ring's dipCN and step 7 must stay float32 (the reads' dtype)")
+    dip = got.dipcn[got.dipcn_valid]
+    off_grid = float(np.mean(dip != torch.from_numpy(dip).to(bf).float().numpy()))
+    check(off_grid > 0.9, f"(e) the bf16 ring's dipCN sits on the bf16 grid ({off_grid:.3f})")
+    # the ring's lists against one whole-row selection on the panel-mode
+    # Gram of the ring's own prepared z
+    z = torch.from_numpy(got.z).to(dev).to(bf)
+    z_mask = torch.from_numpy(got.z_mask).to(dev)
+    region = torch.from_numpy(got.region_used).to(dev)
+    zp = prepare_z(z, z_mask, params.zmax, region_mask=region)
+    split = zprep_split(zp, None, None, math.inf)
+    sample_ok = z_mask.any(dim=1)
+    sq, idx = [], []
+    for _, d2 in d2_panels(split, 512, sample_ok):
+        vals, nbr = sorted_smallest_k_gpu(d2, K)
+        sq.append(vals.float().cpu())
+        idx.append(nbr.cpu())
+        del d2
+    want_d, want_idx = torch.cat(sq).numpy(), torch.cat(idx).numpy()
+    del z, z_mask, zp, split
+    differ = neighbor_rows_differing(got.nbr_idx, got.nbr_sq_dists.astype(np.float64),
+                                     want_idx, want_d.astype(np.float64), tol=0)
+    same = np.ones(n16, bool)
+    same[differ] = False
+    check(np.array_equal(got.nbr_sq_dists[same], want_d[same]),
+          "(e) the bf16 ring's distances are not the panel selection's where the lists agree")
+    print(f"[bf16] (e) the ring's lists in bf16 over {w} ranks vs a whole-row knn_select on the "
+          f"panel-mode Gram of its own prepared z: identical on {n16 - differ.size} of {n16} rows, "
+          f"the other {differ.size} differ only by the order of exact ties (tol 0), the distances "
+          f"bitwise where the lists agree; dipCN float32, {100 * off_grid:.1f}% of it off the bf16 "
+          f"grid; {card}", flush=True)
+    sharded["ring"] = {"seconds": wall, "step_seconds": statistics.mean(
+        rep["seconds"] for rep in reports), "start_seconds": statistics.mean(
+        rep["start_seconds"] for rep in reports),
+        "spans": {key: statistics.mean(rep[key] for rep in reports)
+                  for key in reports[0] if key.startswith("sharded.")},
+        "launches_per_rank": {name: reports[0][name] for name in (
+            "masked_column_stats", "zprep_split", "zprep_gram_cross", *SELECTION)},
+        "cross_launches": sum(rep["zprep_gram_cross"] for rep in reports),
+        "rows_differing_by_ties_vs_panel_selection": int(differ.size)}
+    t0 = time.perf_counter()
+    flat = outputs_to_numpy(cohort_step(*inputs_to_torch(
+        cohort_16384.values, cohort_16384.mask, cohort_16384.reads, np.ones(n16, bool),
+        *ring_neighbors(n16), dev, bf, torch.float32), params._replace(d2_budget_bytes=0)))
+    flat_s = time.perf_counter() - t0
+    got, reports, wall = auto_run(label, w, cohort_16384, params, card, dtype=bf)
+    z_err = assert_close_to_max(got.z, flat.z, BF16_RTOL)
+    z_apart = int((got.z != flat.z).sum())
+    found = {}
+    summary = check_against(got, flat, flat.z_mask.any(axis=1), N_NBR,
+                            "(e) the bf16 gather form vs the flat bf16 panel step", bf, found)
+    print(f"[bf16] (e) the gather form in bf16 over {w} ranks vs the flat bf16 panel step on the "
+          f"card ({flat_s:.1f} s with its first launches, host clock): z within 2^-7 of max|z| "
+          f"({z_apart} of {got.z.size} entries apart, max {z_err:.3e}); {summary}; {card}",
+          flush=True)
+    sharded["gather"] = {"seconds": wall, "step_seconds": statistics.mean(
+        rep["seconds"] for rep in reports), "start_seconds": statistics.mean(
+        rep["start_seconds"] for rep in reports),
+        "spans": {key: statistics.mean(rep[key] for rep in reports)
+                  for key in reports[0] if key.startswith(("sharded.", "auto."))},
+        "launches_per_rank": {name: reports[0][name] for name in (
+            "masked_column_stats", "zprep_split", "zprep_gram_panel", "dipcn_from_distances_gpu",
+            *SELECTION)}, "z_entries_apart": z_apart, **found}
+    seconds = time.perf_counter() - t_phase
+    print(f"[bf16] phase 18 (d) took {d_s:.1f} s, (e) {seconds - d_s:.1f} s (host clock); {card}",
+          flush=True)
+    return {"cross": cross, "sharded": sharded, "phase_seconds": seconds}
+
+
+def bfloat16_sharded_runs(card: str, tmp: Path, cohort: dict, base: dict, names: dict,
+                          k: int, n_nbr: int) -> dict:
+    """Phase 18 (f): ``run_wgs_pipeline`` fused with ``mesh_shape: [2],
+    dispatch: ring`` in bf16 on phase 9's cohort (the sharded step over
+    BF16_RING_WORLD gloo ranks of the card: the bf16 cross mode, bf16 ring
+    shifts), its four artifacts written, no plain version reached, held to
+    the port's bf16 CPU route of the same config (``platform: cpu``: the
+    ring on gloo ranks of the host, which rounds where grid_tpu's ring
+    rounds) under (c)'s rules: z within 2^-7 of max|z| (cells apart
+    counted), the scales within a %.2f quantum, the variance-ratio header
+    within rtol 2^-7, lists under the tie rule at 2^-7 of the k-th written
+    distance, dipCN within rtol 2^-7 where the input sets agree. Then
+    ``staged_sharded_cohort_step`` in bf16 over BF16_RING_WORLD ranks on
+    phase 9's files (phase 16 (c)'s size: each rank stages its share into
+    a bf16 buffer): its buffers hold bf16 values, and the step is bitwise
+    ``sharded_cohort_step`` in bf16 on the card from the stage its ranks
+    made; every rank's launches checked. Returns the runs' launches,
+    seconds and counts."""
+    import grid_tpu_torch.parallel.pcohort as pcohort
+    import torch_ranks
+    from grid_tpu_torch.io.bed import load_repeat_mask
+    from grid_tpu_torch.io.formats import (
+        read_counts_tsv, read_dipcn, read_neighbors, read_normalized_data,
+    )
+    from grid_tpu_torch.models.cohort import CohortOutputs, CohortParams
+    from grid_tpu_torch.ops.gpu_kernels import zprep_gram_cross
+    from grid_tpu_torch.parallel import sharded_cohort_step, staged_sharded_cohort_step
+    from grid_tpu_torch.parallel.mesh import block_rows
+    from grid_tpu_torch.parallel.pknn import MERGE_ROWS
+    from grid_tpu_torch.pipeline import run_wgs_pipeline
+    from torch_parity import dipcn_sets_differ, neighbor_rows_differing
+
+    w = BF16_RING_WORLD
+    device = {"fused": True, "dtype": "bfloat16", "mesh_shape": [w], "dispatch": "ring"}
+    outs, seconds = {}, {}
+    for where in ("card", "cpu"):
+        out = tmp / f"{where}_bf16_ring"
+        out.mkdir()
+        cfg = copy.deepcopy(base)
+        cfg["output_dir"] = str(out)
+        cfg["device"] = {**device, **({"platform": "cpu"} if where == "cpu" else {})}
+        (out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
+        counted = {**step_wrappers(), "zprep_gram_cross": zprep_gram_cross}
+        for fn in counted.values():
+            fn.launches = 0
+        console = Recorder()
+        t0 = time.perf_counter()
+        with plain_calls_counted() as plains:
+            timings = run_wgs_pipeline(config=cfg, console=console)
+        seconds[where] = time.perf_counter() - t0
+        check("fused_steps_4_7" in timings and [msg for msg, _ in console.lines
+                                                if msg.startswith("sharded step:")],
+              f"(f) the bf16 ring run on the {where} did not take the sharded step")
+        for name in names.values():
+            check((out / name).exists(), f"(f) the bf16 ring run on the {where}: {name} missing")
+        if where == "card":
+            launches = {name: fn.launches for name, fn in counted.items()}
+            check(not plains, f"(f) the bf16 ring run reached a plain version: {dict(plains)}")
+            check(launches["masked_column_stats"] == 2 * w and launches["zprep_split"] == w
+                  and launches["zprep_gram_cross"] == w * w and launches["phase_sweeps_gpu"] == 1
+                  and launches["sorted_smallest_k_gpu"] > 0
+                  and launches["zprep_gram"] + launches["zprep_gram_panel"] == 0,
+                  f"(f) the bf16 ring run's launches {launches}")
+            device_s = timings["fused.device"]
+        outs[where] = out
+    ids, ratios, z, scales = read_normalized_data(outs["card"] / names["normalized"])
+    c_ids, c_ratios, c_z, c_scales = read_normalized_data(outs["cpu"] / names["normalized"])
+    check(ids == c_ids and np.array_equal(np.isnan(z), np.isnan(c_z)),
+          "(f) the bf16 ring run's normalized rows or NA cells differ from the CPU's")
+    z_err = float(np.nanmax(np.abs(z - c_z)))
+    check(z_err <= BF16_RTOL * float(np.nanmax(np.abs(c_z))), f"(f) z differs by {z_err}")
+    check(max(abs(scales[s] - c_scales[s]) for s in ids) <= QUANTUM
+          and np.allclose(ratios, c_ratios, rtol=BF16_RTOL, equal_nan=True),
+          "(f) the bf16 ring run's scales or variance ratios")
+    z_apart = int(np.nansum(np.abs(z - c_z) > 1e-9))
+    row = {s: i for i, s in enumerate(ids)}
+
+    def lists(where):
+        nbrs, _ = read_neighbors(where / names["neighbors"])
+        return (np.array([[row[m] for m, _, _ in nbrs[s]] for s in ids]),
+                np.array([[dist for _, _, dist in nbrs[s]] for s in ids], np.float64))
+
+    (got_idx, got_d), (want_idx, want_d) = lists(outs["card"]), lists(outs["cpu"])
+    differ = neighbor_rows_differing(got_idx, got_d, want_idx, want_d,
+                                     tol=BF16_RTOL * want_d[:, -1] + QUANTUM)
+    dip_ids, dip, _ = read_dipcn(outs["card"] / names["dipcn"])
+    want_ids, want_dip, _ = read_dipcn(outs["cpu"] / names["dipcn"])
+    check(dip_ids == want_ids, "(f) the bf16 ring run's dipCN rows differ from the CPU's")
+    usable = np.array([s in set(dip_ids) for s in ids])
+    sets = dipcn_sets_differ(got_idx, want_idx, usable, n_nbr)[[row[s] for s in dip_ids]]
+    check(np.allclose(np.asarray(dip)[~sets], np.asarray(want_dip)[~sets], rtol=BF16_RTOL,
+                      atol=0), "(f) the bf16 ring run's dipCN beyond rtol 2^-7")
+    found = {"pipeline_ring": {"launches": launches, "seconds": seconds["card"],
+                               "fused_device_seconds": device_s, "seconds_cpu": seconds["cpu"],
+                               "z_cells_apart": z_apart, "rows_differing_by_ties": int(differ.size),
+                               "dipcn_sets_differ": int(sets.sum())}}
+    print(f"[bf16] (f) run_wgs_pipeline, device {device}, on phase 9's {len(ids)} x "
+          f"{len(ratios)} cohort: {seconds['card']:.1f} s on the card (host clock; fused.device "
+          f"{device_s:.1f} s, spawn included), launches {launches}, no plain version reached; "
+          f"the port's bf16 CPU ring {seconds['cpu']:.1f} s. Normalized: z within 2^-7 of "
+          f"max|z| ({z_apart} of {int((~np.isnan(z)).sum())} cells apart, max {z_err:.3g}); "
+          f"neighbor rows identical on {len(ids) - differ.size} of {len(ids)}, the others "
+          f"differ only by ties within 2^-7 of the k-th written distance; {int(sets.sum())} rows "
+          f"change a dipCN input set, dipCN within rtol 2^-7 on the other "
+          f"{int((~sets).sum())}; {card}", flush=True)
+
+    # ---- the sharded stager in bf16 ----------------------------------------
+    t0 = time.perf_counter()
+    norm_cfg = base["mosdepth"]["normalize"]
+    lo, hi = norm_cfg["min_depth"], norm_cfg["max_depth"]
+    excluded = load_repeat_mask(norm_cfg["repeat_mask_file"])
+    counts = read_counts_tsv(cohort["counts_file"])
+    params = CohortParams(num_neighbors=k, n_nbr=n_nbr, n_iters=N_ITERS, quantize=False)
+    n = len(cohort["ids"])
+    hap = ring_neighbors(n)
+    reports = []
+    keep_dir = tmp / "stage18_kept"
+    keep_dir.mkdir()
+    with keeping(pcohort, "_rank_staged_step", torch_ranks.staged_rank_keeping_stage, keep_dir):
+        stage, staged = staged_sharded_cohort_step(
+            w, base["mosdepth"]["work_dir"], cohort["ids"], counts, *hap, params, lo, hi,
+            excluded=excluded, dtype=torch.bfloat16, reports=reports)
+    call_s = time.perf_counter() - t0
+    b = block_rows(n, w)
+    want_rank = {"masked_column_stats": 2, "zprep_split": 1, "zprep_gram_cross": w,
+                 "sorted_smallest_k_gpu": w * -(-b // MERGE_ROWS), "phase_sweeps_gpu": 1,
+                 "zprep_gram": 0, "zprep_gram_panel": 0, "dipcn_from_distances_gpu": 0}
+    for rank, rep in enumerate(reports):
+        got_rank = {name: rep[name] for name in want_rank}
+        check(got_rank == want_rank, f"(f) the bf16 staged step: rank {rank} launched {got_rank}")
+    check(staged.z.dtype == torch.bfloat16 and staged.dipcn.dtype == torch.float32,
+          "(f) the bf16 staged step's outputs: z bf16, dipCN float32")
+    many = load_stage(keep_dir, "stage", w)
+    values = torch.from_numpy(many["values"])
+    check(torch.equal(values, values.to(torch.bfloat16).float()),
+          "(f) the bf16 stage's buffers hold values off the bf16 grid")
+    check(stage.n == n, "(f) the bf16 stage's sample count")
+    ids = stage.sample_ids
+    reads = np.array([counts.get(sid, 0.0) for sid in ids])
+    reads_valid = np.array([sid in counts for sid in ids])
+    t0 = time.perf_counter()
+    ring = sharded_cohort_step(w, many["values"][:n], many["mask"][:n], reads, reads_valid, *hap,
+                               params, dtype=torch.bfloat16)
+    ring_s = time.perf_counter() - t0
+    for name in CohortOutputs._fields:
+        got, want = getattr(staged, name), getattr(ring, name)
+        if name in pcohort.ROW_FIELDS:
+            got, want = got[:n], want[:n]
+        check(got.dtype == want.dtype and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+              and torch.equal(got.isnan() if got.is_floating_point() else got,
+                              want.isnan() if want.is_floating_point() else want),
+              f"(f) the bf16 staged step's {name} is not the ring's from the host arrays")
+    print(f"[bf16] (f) staged_sharded_cohort_step in bf16 over {w} ranks on phase 9's {n} files "
+          f"({call_s:.2f} s for the call, host clock, spawn included; the ranks' stage.pass2 "
+          f"{', '.join('%.3f' % rep['stage.pass2'] for rep in reports)} s, host buffers "
+          f"{', '.join('%.2f' % (rep['host_buffer_bytes'] / 2**20) for rep in reports)} MiB with "
+          f"bf16 values), launches per rank {want_rank}; every output bitwise "
+          f"sharded_cohort_step's in bf16 on the card from the stage its ranks made ({ring_s:.2f} "
+          f"s); {card}", flush=True)
+    found["stage"] = {"seconds": call_s, "launches_per_rank": want_rank,
+                      "ring_from_host_seconds": ring_s}
+    return found
+
+
 def clock(start: float, done: str) -> None:
     """Prints the host seconds since ``start`` (the script's start) once
     the phases ``done`` have ended, so the log shows where the script's
@@ -6179,6 +6544,10 @@ def main() -> int:
     bf16_rows, bf16_step = bfloat16_phase(dev, card, values_np, mask_np, reads_np, sms,
                                           cohort_65536)
     clock(t_script, "phase 18 (a, b)")
+    # ---- 18 (d, e). bfloat16 with mesh_shape: the cross mode, the ring and
+    # the gather form ------------------------------------------------------
+    bf16_slice = bfloat16_slice_phase(dev, card, panel_zp, cohort_16384)
+    clock(t_script, "phase 18 (d, e)")
     # ---- 15 (a-c). the sharded ring on W ranks of the one card ------------
     ring = ring_phase(dev, card, cohort_16384, cohort_65536, panel_zp)
     clock(t_script, "phase 15 (a-c)")
@@ -6385,7 +6754,43 @@ def main() -> int:
             "rows_differing_by_ties", "dipcn_sets_differ", "z_cells_apart")}
             for label, run in bf16_files["runs"].items()}
         row["sweep_2504"] = {key: bf16_files["sweep"]["launches"][key] for key in names16}
+        # (d)-(f): bf16 with mesh_shape, the launches per rank of the ring
+        # and the gather form at N=16,384 over 2 ranks and of the staged step
+        # at N=2504, and the pipeline ring's over both ranks
+        keys16 = names16 + (("zprep_gram_cross",) if name == "zprep_gram" else ())
+        runs = {f"{form}_16384_w{BF16_RING_WORLD}": run["launches_per_rank"]
+                for form, run in bf16_slice["sharded"].items()}
+        runs[f"staged_2504_w{BF16_RING_WORLD}"] = bf16_files["sharded"]["stage"][
+            "launches_per_rank"]
+        runs[f"pipeline_2504_ring_w{BF16_RING_WORLD}"] = bf16_files["sharded"][
+            "pipeline_ring"]["launches"]
+        for key, launched in runs.items():
+            row[key] = {kn: v for kn, v in launched.items() if kn in keys16}
+        if name == "zprep_gram":
+            row["cross"] = {"launches_per_rank_16384_w2": bf16_slice["sharded"]["ring"][
+                "launches_per_rank"]["zprep_gram_cross"],
+                **bf16_slice["cross"][BF16_CROSS[0]]}
         rows.append(row)
+    # the bf16 cross mode: its main path (e)'s bf16 ring at N=16,384 over 2
+    # ranks (the launches of both ranks), its numbers at that ring's
+    # visiting block, [8192, 8192]
+    cross16 = bf16_slice["cross"][BF16_CROSS[0]]
+    rows.append({"name": "zprep_gram_cross[bfloat16]", "route": "cuda",
+                 "source": "grid_tpu_torch/csrc/zprep_gram16.cu",
+                 "replaces": "grid_tpu/ops/pallas_kernels.py:93 (the ring's jnp.dot, "
+                             "grid_tpu/parallel/pknn.py:74)",
+                 "launches": bf16_slice["sharded"]["ring"]["cross_launches"],
+                 "max_abs_err": cross16["max_abs_err"], "ms": cross16["ms"],
+                 "device_ms": cross16["device_ms"], "plain_ms": cross16["plain_ms"],
+                 "bound_ms": cross16["bound_ms"], "bound_by": cross16["bound_by"],
+                 "library_ms": cross16["library_ms"],
+                 "library": "torch.mm of the two prepared bf16 blocks",
+                 "shape": cross16["shape"], "offsets": cross16["offsets"],
+                 "other_blocks": [bf16_slice["cross"][key] for key in BF16_CROSS[1:]],
+                 "sharded_16384_w2": bf16_slice["sharded"],
+                 "pipeline_2504_ring_w2": bf16_files["sharded"]["pipeline_ring"]["launches"][
+                     "zprep_gram_cross"],
+                 "staged_2504_w2": bf16_files["sharded"]["stage"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -64,11 +64,18 @@
 // - panel (zprep_gram16_panel_launch): G[i0:i0+B, 0:N] [B, N] from the
 //   split's P, tiles of (the panel's row tiles) x (256-column tiles), no
 //   mirror.
+// - cross (zprep_gram16_cross_launch): G = P_a P_b^T [Ba, Bb] for two row
+//   blocks of split rows, the sharded ring's product of a rank's rows with
+//   the visiting block: the panel mode's walk and epilogue over (a's row
+//   tiles) x (b's 256-column tiles), with a's rows through the A map and
+//   b's through the B map, in one launch with no mirror.
 //
 // One sum order: an entry's R columns are added k-step by k-step in R
 // order into one accumulator, in every mode and every position of a tile,
 // and its two products a*b and b*a are the same float32 value, so a
-// panel's entry is bitwise the triangle's same entry (held on the card).
+// panel's entry is bitwise the triangle's same entry, and a cross block's
+// entry the panel's for the same two rows of one split of the whole
+// cohort, whatever the blocks' offsets there (held on the card).
 //
 // The split pass (one block a row) writes P [N, R_pad] bf16 (R_pad a
 // multiple of 16; the TMA box's columns past it read as zeros) and the
@@ -111,10 +118,13 @@ static_assert(kSmemBytes + 256 <= 232448, "an H100 block takes at most 227 KB of
 static_assert(kEpiBoxes >= 2 && 4 % kEpiBoxes == 0,
               "the staged boxes hold the diagonal block and divide the tile");
 
-enum Mode { kTriangle = 0, kPanel = 1 };
+// the cross mode runs the panel mode's walk (kPanel) on two maps; its
+// number is the one the reports and the other dtypes' kernels give it
+enum Mode { kTriangle = 0, kPanel = 1, kCross = 3 };
 
 // The walk's geometry: G [n, n] (kTriangle) or the panel G[i0:i0+rows] as
-// [rows, n] (kPanel); `g` for the stores entry by entry when tma_store is 0.
+// [rows, n] (kPanel; a cross block [rows, n] with i0 = 0, n the B rows); `g`
+// for the stores entry by entry when tma_store is 0.
 struct Geo {
   int mode;
   int n;
@@ -550,9 +560,9 @@ int make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_row
   return res == CUDA_SUCCESS ? cudaSuccess : kEncodeError + static_cast<int>(res);
 }
 
-// tiles of a mode at n columns (and the panel's rows)
+// tiles of a mode at n columns (and the panel's or the cross block's rows)
 long long mode_tiles(int mode, int n, int rows) {
-  if (mode == kPanel) {
+  if (mode == kPanel || mode == kCross) {
     return static_cast<long long>((rows + kRows - 1) / kRows) * ((n + kCols - 1) / kCols);
   }
   if (mode != kTriangle) return 0;
@@ -594,22 +604,25 @@ int split16(const void* z, const void* mask, const void* region, float zmax, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// The Gram kernel over the tiles of `mode`: P [n, r_pad] at p, G [out_rows,
-// n] at g; one block an SM, or one a tile where there are fewer.
-int gram(const void* p, int n, int r_pad, int mode, int i0, int rows, void* g, cudaStream_t s) {
-  const long long tiles = mode_tiles(mode, n, rows);
+// The Gram kernel over the tiles of `mode`: the A operand's rows from P_a
+// [na, r_pad] at pa, the B operand's from P_b [nb, r_pad] at pb (one P in
+// the triangle and panel modes), G [out_rows, nb] at g; one block an SM, or
+// one a tile where there are fewer.
+int gram(const void* pa, int na, const void* pb, int nb, int r_pad, int mode, int i0, int rows,
+         void* g, cudaStream_t s) {
+  const long long tiles = mode_tiles(mode, nb, rows);
   if (tiles > INT_MAX) return cudaErrorInvalidValue;
   CUtensorMap map_a, map_b, map_g = {};
-  int err = make_map(&map_a, p, n, r_pad, kRows);
+  int err = make_map(&map_a, pa, na, r_pad, kRows);
   if (err != cudaSuccess) return err;
-  if ((err = make_map(&map_b, p, n, r_pad, kCols)) != cudaSuccess) return err;
-  const int out_rows = mode == kPanel ? rows : n;
-  const bool tma_store = n % 8 == 0;  // G's row stride a multiple of 16 bytes
-  if (tma_store && (err = make_map(&map_g, g, out_rows, n, kRows)) != cudaSuccess) return err;
+  if ((err = make_map(&map_b, pb, nb, r_pad, kCols)) != cudaSuccess) return err;
+  const int out_rows = mode == kTriangle ? nb : rows;
+  const bool tma_store = nb % 8 == 0;  // G's row stride a multiple of 16 bytes
+  if (tma_store && (err = make_map(&map_g, g, out_rows, nb, kRows)) != cudaSuccess) return err;
   int sms = 0;
   if ((err = device_sms(&sms)) != cudaSuccess) return err;
-  const Geo geo{mode, n, i0, rows, static_cast<int>(tiles), (rows + kRows - 1) / kRows,
-                (r_pad + kTileK - 1) / kTileK, tma_store ? 1 : 0,
+  const Geo geo{mode == kCross ? kPanel : mode, nb, i0, rows, static_cast<int>(tiles),
+                (rows + kRows - 1) / kRows, (r_pad + kTileK - 1) / kTileK, tma_store ? 1 : 0,
                 static_cast<__nv_bfloat16*>(g)};
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
   gram16_kernel<<<grid, kThreads, kSmemBytes, s>>>(map_a, map_b, map_g, geo);
@@ -631,7 +644,7 @@ int zprep_gram16_launch(const void* z, const void* mask, const void* region, flo
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = split16(z, mask, region, zmax, n, r, r_pad, p_buf, norms, s);
   if (err != cudaSuccess) return err;
-  return gram(p_buf, n, r_pad, kTriangle, 0, n, g, s);
+  return gram(p_buf, n, p_buf, n, r_pad, kTriangle, 0, n, g, s);
 }
 
 // The row-panel branch's pass once per step: the split pass alone, P into
@@ -650,17 +663,34 @@ int zprep_gram16_panel_launch(const void* p_buf, int n, int r_pad, int i0, int r
                               void* stream) {
   if (rows <= 0) return cudaSuccess;
   if (bad_shape(n, 0, r_pad) || i0 < 0 || rows > n - i0) return cudaErrorInvalidValue;
-  return gram(p_buf, n, r_pad, kPanel, i0, rows, g, static_cast<cudaStream_t>(stream));
+  return gram(p_buf, n, p_buf, n, r_pad, kPanel, i0, rows, g, static_cast<cudaStream_t>(stream));
+}
+
+// The cross mode: G = P_a P_b^T into g [na, nb] bf16, from two blocks of
+// split rows, P_a [na, r_pad] at `pa` and P_b [nb, r_pad] at `pb` (each as
+// zprep_split16_launch wrote it). a_row0 and b_row0, the blocks' first rows
+// in the cohort, place no entry: every entry is summed in one order whatever
+// its place in a tile, so G is bitwise the panel mode's entries for those
+// rows of one split of the whole cohort at any offsets.
+int zprep_gram16_cross_launch(const void* pa, int na, const void* pb, int nb, int r_pad,
+                              int a_row0, int b_row0, void* g, void* stream) {
+  if (na <= 0 || nb <= 0) return cudaSuccess;
+  if (bad_shape(na, 0, r_pad) || bad_shape(nb, 0, r_pad) || a_row0 < 0 || b_row0 < 0) {
+    return cudaErrorInvalidValue;
+  }
+  return gram(pa, na, pb, nb, r_pad, kCross, 0, na, g, static_cast<cudaStream_t>(stream));
 }
 
 // The Gram kernel's launch in `mode` (0 triangle of n rows, 1 panel of
-// `rows` rows by n), for reports: out = {tile rows, tile columns, k-stage
+// `rows` rows by n, 3 cross of a block of `rows` rows by one of n), for
+// reports: out = {tile rows, tile columns, k-stage
 // columns, stages, threads a block, dynamic shared memory a block, staged
 // boxes of G, tiles, resident blocks an SM, blocks launched (one an SM:
 // the persistent walk), registers a thread, local (spill) bytes a thread,
 // static shared memory a block}. Returns a cudaError_t.
 int zprep_gram16_info(int n, int rows, int mode, int* out) {
-  if (n <= 0 || (mode != kTriangle && mode != kPanel) || (mode == kPanel && rows <= 0)) {
+  if (n <= 0 || (mode != kTriangle && mode != kPanel && mode != kCross) ||
+      (mode != kTriangle && rows <= 0)) {
     return cudaErrorInvalidValue;
   }
   int sms = 0;

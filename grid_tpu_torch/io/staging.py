@@ -664,7 +664,10 @@ def stage_cohort_sharded(source, group, min_depth: float, max_depth: float, thre
         group: this rank's ``CohortGroup``.
         threads: accepted as in the JAX package, which scans pass 2 in
             order whatever its value.
-        dtype: the values' torch dtype (default float32).
+        dtype: the values' torch dtype (default float32); the buffer holds
+            the depths in it, rounded once (bfloat16 as the JAX package's
+            ``np.zeros(..., bfloat16)`` buffer rounds them: by way of
+            float32, as ``ml_dtypes`` and PyTorch both convert float64).
         timer: an optional ``StepTimer`` for the spans ``stage.pass1``
             (with the merge) and ``stage.pass2`` (with the copy to the
             device).
@@ -723,7 +726,7 @@ def stage_cohort_sharded(source, group, min_depth: float, max_depth: float, thre
 
     # ---- pass 2: fill this rank's block ------------------------------------
     with step_timer("stage.pass2", timer):
-        vbuf = np.zeros((rows_per, r), dtype=torch.empty((), dtype=dtype).numpy().dtype)
+        vbuf = torch.zeros((rows_per, r), dtype=dtype)
         mbuf = np.zeros((rows_per, r), dtype=bool)
         rvbuf = np.zeros(rows_per, bool)
         for local, (sid, segments) in enumerate(source()):
@@ -734,10 +737,10 @@ def stage_cohort_sharded(source, group, min_depth: float, max_depth: float, thre
                 pos = np.searchsorted(kept_keys, keys)
                 pc = pos.clip(max=r - 1)
                 hit = (pos < r) & (kept_keys[pc] == keys)
-                vbuf[local, pc[hit]] = depths[hit]
+                vbuf[local, torch.from_numpy(pc[hit])] = torch.from_numpy(depths[hit]).to(dtype)
                 mbuf[local, pc[hit]] = True
             rvbuf[local] = bool(mbuf[local].any())
-        values = torch.from_numpy(vbuf).to(group.device)
+        values = vbuf.to(group.device)
         mask = torch.from_numpy(mbuf).to(group.device)
         row_valid = torch.from_numpy(rvbuf).to(group.device)
 

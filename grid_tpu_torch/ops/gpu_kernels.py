@@ -29,7 +29,7 @@
   modes: 128x128 tiles of FP64 tensor-core ``mma.sync`` m16n8k16 fed by a
   4-stage TMA ring, one tile an SM; no split: P itself stands in
   ``SplitZ.p``). bfloat16 inputs take ``csrc/zprep_gram16.cu`` (the
-  triangle, split and panel modes: 128x256 tiles of bf16 ``wgmma``
+  triangle, split, panel and cross modes: 128x256 tiles of bf16 ``wgmma``
   m64n256k16 into one float32 accumulator over R, a persistent walk of one
   block an SM, G rounded to bf16 in registers and stored by TMA; the split
   pass gives the norms as ``grid_tpu`` sums them, ``sum(P * P)`` in
@@ -62,10 +62,12 @@ _COLSTATS_MERGE_BLOCK = 256  # partial entries per program of the merge kernel
 # ---------------------------------------------------------------------------
 
 
-def masked_column_stats_plain(values, mask, row_scale, col_means=None, round_squares=True):
+def masked_column_stats_plain(values, mask, row_scale, col_means=None, round_squares=True,
+                              wide=False):
     """Plain PyTorch version of :func:`masked_column_stats`, in the input's
     dtype (bfloat16: x = values / row_scale, and with ``round_squares``
-    False its squares summed exactly, in float32).
+    False its squares summed exactly, in float32; with ``wide`` the three
+    float32 sums, not rounded).
 
     The sums run along contiguous rows of the transposed matrix: summed
     across the rows in place, a column's sum depended on its position (the
@@ -79,8 +81,14 @@ def masked_column_stats_plain(values, mask, row_scale, col_means=None, round_squ
     x = torch.where(mask, values / row if half else values * row, 0)
     mu = 0 if col_means is None else col_means[None, :]
     centered = torch.where(mask, x - mu, 0)
-    wide = centered.float() if half and not round_squares else centered
-    sqdev = (wide * wide).t().contiguous().sum(dim=1)
+    if half and wide:
+        squares = centered.float() * centered.float()
+        if round_squares:
+            squares = squares.to(values.dtype).float()
+        return (mask.sum(dim=0).float(), x.float().t().contiguous().sum(dim=1),
+                squares.t().contiguous().sum(dim=1))
+    exact = centered.float() if half and not round_squares else centered
+    sqdev = (exact * exact).t().contiguous().sum(dim=1)
     return (mask.sum(dim=0).to(values.dtype), x.t().contiguous().sum(dim=1),
             sqdev.to(values.dtype))
 
@@ -174,7 +182,8 @@ def _colstats_kernels():
     return triton, colstats, colstats_merge
 
 
-def masked_column_stats(values, mask, row_scale, col_means=None, round_squares=True):
+def masked_column_stats(values, mask, row_scale, col_means=None, round_squares=True,
+                        wide=False):
     """Per-column (count, sum, sqdev_sum) of x = values * row_scale under
     ``mask`` (bfloat16: x = values / row_scale), in one pass over the
     matrix.
@@ -192,7 +201,10 @@ def masked_column_stats(values, mask, row_scale, col_means=None, round_squares=T
     op-by-op file step 4 rounds it; its jitted fused step sums the exact
     squares), the sums accumulate in float32 partials, and the merge
     kernel, launched whatever the number of chunks, rounds each output
-    once. Its bound at N=2504, R=2048 is 15.4 MB, 4.6 us at 3.35 TB/s.
+    once, or, with ``wide``, writes the float32 sums as they are (the
+    sharded normalize's partials, which the ranks add before they round:
+    ``parallel/pstats.py``). Its bound at N=2504, R=2048 is 15.4 MB, 4.6 us
+    at 3.35 TB/s.
 
     Args:
         values: [N, R] raw depths.
@@ -203,14 +215,16 @@ def masked_column_stats(values, mask, row_scale, col_means=None, round_squares=T
         col_means: optional [R]; sqdev is centered on it (zeros when None).
         round_squares: bfloat16 only: round each (x - mu)^2 to bfloat16
             before it is summed.
+        wide: bfloat16 only: return the float32 sums, not rounded.
 
     Returns (cnt [R], sum [R], sqdev [R]) in the input dtype: float32,
     float64 or bfloat16 from the kernel (the sums kept in that type, in
-    float32 for bfloat16), any float type from the plain version.
+    float32 for bfloat16; float32 with ``wide``), any float type from the
+    plain version.
     """
     tensors = (values, mask, row_scale) + (() if col_means is None else (col_means,))
     if not native.on_cuda(*tensors):
-        return masked_column_stats_plain(values, mask, row_scale, col_means, round_squares)
+        return masked_column_stats_plain(values, mask, row_scale, col_means, round_squares, wide)
     n, r = values.shape
     dtype = values.dtype
     native.dtype_suffix(dtype, bf16=True)  # float32, float64 or bfloat16
@@ -224,7 +238,8 @@ def masked_column_stats(values, mask, row_scale, col_means=None, round_squares=T
     part = torch.empty((chunks, 3, r), dtype=torch.float32 if half else dtype,
                        device=values.device)
     merged = chunks > 1 or half
-    out = torch.empty((3, r), dtype=dtype, device=values.device) if merged else part[0]
+    out_dtype = torch.float32 if half and wide else dtype
+    out = torch.empty((3, r), dtype=out_dtype, device=values.device) if merged else part[0]
     try:
         triton, kernel, merge = _colstats_kernels()
         with torch.cuda.device(values.device):
@@ -251,25 +266,31 @@ def masked_column_stats(values, mask, row_scale, col_means=None, round_squares=T
 masked_column_stats.launches = 0
 
 
-def compile_masked_column_stats(n: int, r: int, device: torch.device) -> None:
-    """Compile the column-statistics kernels for [n, r] inputs on the CUDA
-    ``device`` (both centrings, and the merge where the plan has more than
-    one chunk) without launching them, by Triton's warm-up: the kernels land
-    in Triton's cache, where the ranks of the sharded step, spawned later,
-    find them. Triton specializes on the integer arguments' values, so the
-    shape must be the one the calls will have."""
+def compile_masked_column_stats(n: int, r: int, device: torch.device,
+                                dtype: torch.dtype = torch.float32) -> None:
+    """Compile the column-statistics kernels for [n, r] inputs of ``dtype``
+    on the CUDA ``device`` (both centrings, and the merge where the plan has
+    more than one chunk, or, for bfloat16, always: its float32 sums as the
+    sharded step takes them) without launching them, by Triton's warm-up:
+    the kernels land in Triton's cache, where the ranks of the sharded step,
+    spawned later, find them. Triton specializes on the integer arguments'
+    values, so the shape must be the one the calls will have."""
     col_tiles, chunks, rows_per_chunk = colstats_plan(n, r, _sm_count(device))
-    f32 = torch.empty(1, dtype=torch.float32, device=device)
+    half = dtype == torch.bfloat16
+    vals = torch.empty(1, dtype=dtype, device=device)
+    acc = torch.empty(1, dtype=torch.float32 if half else dtype, device=device)
     u8 = torch.empty(1, dtype=torch.uint8, device=device)
+    # bfloat16: as the cohort step calls it, the squares summed exactly
+    extra = {"HALF": True, "ROUND_SQ": False} if half else {}
     try:
         triton, kernel, merge = _colstats_kernels()
         with torch.cuda.device(device):
             for has_mu in (False, True):
-                kernel.warmup(f32, u8, f32, f32, f32, n, r, rows_per_chunk, HAS_MU=has_mu,
+                kernel.warmup(vals, u8, vals, vals, acc, n, r, rows_per_chunk, HAS_MU=has_mu,
                               BLOCK_M=_COLSTATS_BLOCK_M, BLOCK_C=_COLSTATS_BLOCK_C,
-                              num_warps=_COLSTATS_WARPS, grid=(col_tiles, chunks))
-            if chunks > 1:
-                merge.warmup(f32, f32, 3 * r, N_CHUNKS=chunks, BLOCK=_COLSTATS_MERGE_BLOCK,
+                              num_warps=_COLSTATS_WARPS, grid=(col_tiles, chunks), **extra)
+            if chunks > 1 or half:
+                merge.warmup(acc, acc, 3 * r, N_CHUNKS=chunks, BLOCK=_COLSTATS_MERGE_BLOCK,
                              num_warps=4, grid=(triton.cdiv(3 * r, _COLSTATS_MERGE_BLOCK),))
     except Exception as e:
         raise native.KernelError(f"masked_column_stats: the Triton kernels did not compile: "
@@ -325,7 +346,7 @@ _GRAM64_MODES = {"triangle": 0, "panel": 1, "split": 2, "cross": 3}
 _GRAM16_INFO_KEYS = ("tile_rows", "tile_cols", "k_tile", "stages", "threads", "smem_bytes",
                      "epilogue_boxes", "tiles", "blocks_per_sm", "grid", "registers",
                      "spill_bytes", "static_smem_bytes")
-_GRAM16_MODES = {"triangle": 0, "panel": 1}
+_GRAM16_MODES = {"triangle": 0, "panel": 1, "cross": 3}
 
 
 @functools.cache
@@ -363,10 +384,13 @@ def _zprep16_lib():
     lib.zprep_gram16_panel_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p]
+    lib.zprep_gram16_cross_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.zprep_gram16_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                       ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.zprep_gram16_launch, lib.zprep_split16_launch, lib.zprep_gram16_panel_launch,
-               lib.zprep_gram16_info):
+               lib.zprep_gram16_cross_launch, lib.zprep_gram16_info):
         fn.restype = ctypes.c_int
     return lib
 
@@ -429,8 +453,9 @@ def zprep_gram_info(n: int, device: torch.device, dtype: torch.dtype = torch.flo
     "panel" of ``rows`` rows: its row tiles times the column tiles, or
     "cross" of a block of ``rows`` rows by one of ``n``: the same tiles),
     with its registers and spill bytes a thread and its static shared
-    memory; for bfloat16, the bf16 kernel's in ``mode`` ("triangle" or
-    "panel" of ``rows`` rows): its tile's rows and columns, k-stage,
+    memory; for bfloat16, the bf16 kernel's in ``mode`` ("triangle",
+    "panel" of ``rows`` rows, or "cross" of a block of ``rows`` rows by one
+    of ``n``): its tile's rows and columns, k-stage,
     stages, threads, dynamic shared memory and staged boxes of G a block,
     tiles, resident blocks an SM, the blocks of its persistent walk
     ("grid", one an SM), registers, spill bytes and static shared
@@ -631,9 +656,9 @@ zprep_gram_panel.launches = 0
 
 
 def zprep_gram_cross_plain(a: SplitZ, b: SplitZ, a_row0: int = 0, b_row0: int = 0):
-    """Plain PyTorch version of :func:`zprep_gram_cross`, in either dtype:
-    ``P_a @ P_b.T`` of the plain splits' P (the offsets only place the
-    kernel's entries)."""
+    """Plain PyTorch version of :func:`zprep_gram_cross`, in any of the
+    three dtypes: ``P_a @ P_b.T`` of the plain splits' P (bfloat16 in
+    bfloat16; the offsets only place the kernel's entries)."""
     return a.p @ b.p.T
 
 
@@ -650,24 +675,28 @@ def zprep_gram_cross(a: SplitZ, b: SplitZ, a_row0: int = 0, b_row0: int = 0):
     diagonal tiles, and a second small launch does the same here. Float64
     splits ([1, B, R_pad], P itself) take the FP64 kernel's cross mode in
     one launch: its products are symmetric bit for bit, so the mirror
-    changes nothing there (``csrc/zprep_gram64.cu``). Needs compute
-    capability 9.0.
+    changes nothing there (``csrc/zprep_gram64.cu``). bfloat16 splits
+    ([1, B, R_pad], P itself) take the bf16 kernel's cross mode, one launch
+    of the panel mode's 128x256 tiles over (a's row tiles) x (b's 256-column
+    tiles), G rounded to bf16 once (``csrc/zprep_gram16.cu``); its entries
+    are summed in one order wherever they sit in a tile, so the offsets
+    place none of them. Needs compute capability 9.0.
     """
     if not native.on_cuda(a.p, a.norms, b.p, b.norms):
         return zprep_gram_cross_plain(a, b, a_row0, b_row0)
     _, na, r_pad = a.p.shape
     nb = b.p.shape[1]
     dtype = a.p.dtype
-    native.dtype_suffix(dtype)
-    halves = 1 if dtype == torch.float64 else 2
+    native.dtype_suffix(dtype, bf16=True)
+    halves = 2 if dtype == torch.float32 else 1
     native.check(a.p, "a", dtype, (halves, na, r_pad))
     native.check(b.p, "b", dtype, (halves, nb, r_pad))
     if a_row0 < 0 or b_row0 < 0:
         raise ValueError(f"block offsets must be >= 0, got {a_row0}, {b_row0}")
+    _require_hopper(a.p.device)
     g = torch.empty((na, nb), dtype=dtype, device=a.p.device)
-    name = "zprep_gram64" if dtype == torch.float64 else "zprep_gram"
-    launch = (_zprep64_lib().zprep_gram64_cross_launch if dtype == torch.float64
-              else _zprep_lib().zprep_gram_cross_launch)
+    name, lib, suffix = _gram_lib(dtype)
+    launch = getattr(lib, f"zprep_gram{suffix}_cross_launch")
     with torch.cuda.device(g.device):
         err = launch(a.p.data_ptr(), na, b.p.data_ptr(), nb, r_pad, a_row0, b_row0, g.data_ptr(),
                      native.stream_ptr(g.device))

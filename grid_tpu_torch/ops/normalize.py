@@ -27,6 +27,13 @@ rounded to bfloat16 first, where a Python scalar would keep them exact.
 step 4 and sums them exactly in its jitted fused step (XLA keeps a product
 that feeds a reduction in float32): ``round_squares`` picks the one to
 follow.
+
+Sharded over ranks in bfloat16 (``all_reduce``), each rank's kernel hands
+its float32 sums to the all-reduce, the counts exact, and the two forms of
+the sharded step reduce them as ``grid_tpu``'s two forms do
+(``parallel/pstats.py``): ``round_partials`` rounds each rank's sums to
+bfloat16 first, as a shard's ``jnp.sum`` in ``grid_tpu``'s ring rounds them.
+The ranks' sums are added in float32 and rounded once.
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ class NormalizeResult(NamedTuple):
 
 
 def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None,
-                     all_reduce=None, round_squares: bool = True) -> NormalizeResult:
+                     all_reduce=None, round_squares: bool = True,
+                     round_partials: bool = False) -> NormalizeResult:
     """Normalize a [N, R] masked depth matrix. See module docstring.
 
     Args:
@@ -79,16 +87,26 @@ def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None,
             the function that sums a tensor of partial column statistics
             over the ranks (:meth:`grid_tpu_torch.parallel.mesh.CohortGroup.all_reduce_sum`);
             it is called twice, on the [2, R] counts and sums and on the
-            [R] squared deviations. Row statistics need no exchange.
+            [R] squared deviations (in bfloat16 on the float32 partials,
+            the totals rounded once after it). Row statistics need no
+            exchange.
         round_squares: bfloat16 only: round each squared deviation before
             it is summed, as ``grid_tpu``'s file-mode step 4 does (True), or
             sum them exactly, as its jitted cohort step does (False).
+        round_partials: bfloat16 with ``all_reduce`` only: round this
+            rank's sums (not its counts) to bfloat16 before they are
+            reduced.
     """
     n_inds = values.shape[0] if n_rows is None else n_rows
     half = values.dtype == torch.bfloat16
 
     def rounded(c):  # a divisor as grid_tpu takes it: in the values' dtype
         return torch.as_tensor(c, device=values.device).to(values.dtype) if half else c
+
+    wide = half and all_reduce is not None  # float32 partials, reduced, then rounded
+
+    def partial(t):  # a bfloat16 rank's sums as its form hands them on
+        return t.to(values.dtype).float() if wide and round_partials else t
 
     # -- step 1: row normalization --------------------------------------
     row_means_raw = masked_mean(values, mask, axis=1)  # NaN for empty rows
@@ -102,17 +120,18 @@ def normalize_cohort(values, mask, ratio_mult: float = 100.0, n_rows=None,
         row = torch.where(row_ok, 1 / torch.where(row_ok, row_means_raw, 1), 0)
 
     # -- step 2: column stats -------------------------------------------
-    col_cnt, col_sum, _ = masked_column_stats(values, mask, row)
+    col_cnt, col_sum, _ = masked_column_stats(values, mask, row, wide=wide)
     if all_reduce is not None:
-        col_cnt, col_sum = all_reduce(torch.stack([col_cnt, col_sum]))
+        totals = all_reduce(torch.stack([col_cnt, partial(col_sum)]))
+        col_cnt, col_sum = totals.to(values.dtype)
     col_ok = col_cnt > 0
     col_means = torch.where(col_ok, col_sum / col_cnt.clamp_min(1), math.nan)
     safe_mu = torch.where(col_ok, col_means, 0)
     # Denominator is total N - 1 (reference parity), not valid count; an
     # all-invalid column keeps variance 0.0, as np.nansum does.
-    _, _, col_sqdev = masked_column_stats(values, mask, row, safe_mu, round_squares)
+    _, _, col_sqdev = masked_column_stats(values, mask, row, safe_mu, round_squares, wide)
     if all_reduce is not None:
-        col_sqdev = all_reduce(col_sqdev)
+        col_sqdev = all_reduce(partial(col_sqdev)).to(values.dtype)
     col_vars = col_sqdev / rounded(n_inds - 1)
 
     # -- step 3: variance ratios ----------------------------------------

@@ -143,12 +143,15 @@ class CohortGroup:
         the ranks' tensors added in rank order. A ring all-reduce adds each
         chunk of a buffer in another rank order, so two columns with equal
         partial sums could come out a rounding apart; here every entry is
-        added in one order, and every rank gets the same bits."""
+        added in one order, and every rank gets the same bits. bfloat16 is
+        added in float32 and rounded once, as XLA's ``psum`` sums it (added
+        in bfloat16 rank by rank, a sum rounds at every add)."""
         parts = self.all_gather_rows(t.reshape(1, -1))
-        total = parts[0].clone()
+        half = t.dtype == torch.bfloat16
+        total = parts[0].float() if half else parts[0].clone()
         for part in parts[1:]:
             total += part
-        return total.view(t.shape)
+        return total.to(t.dtype).view(t.shape)
 
     def ring_shift(self, tensors) -> list:
         """Send each tensor to rank (rank + 1) % W and receive its like from
@@ -188,14 +191,17 @@ def block_rows(n: int, world: int) -> int:
     return -(-n // world)
 
 
-def shard_cohort_inputs(group: CohortGroup, values, mask, reads, reads_valid, dtype=None):
+def shard_cohort_inputs(group: CohortGroup, values, mask, reads, reads_valid, dtype=None,
+                        reads_dtype=None):
     """This rank's block of the host arrays, padded and on its device.
 
     Args:
         values, mask: [N, R] host tensors or arrays (every rank's view).
         reads, reads_valid: [N].
-        dtype: the float type of values and reads on the device (default:
-            as given).
+        dtype: the float type of values (and of reads, unless
+            ``reads_dtype`` names theirs) on the device (default: as given).
+        reads_dtype: the float type of reads (bfloat16 values take the
+            step dtype's reads: ``parallel/pcohort.py``).
 
     Returns (values [B, R], mask [B, R] bool, reads [B], reads_valid [B]
     bool, row_valid [B] bool, row0): padding rows are masked out, and row0
@@ -211,7 +217,8 @@ def shard_cohort_inputs(group: CohortGroup, values, mask, reads, reads_valid, dt
         return t.to(device=group.device, dtype=dt)
 
     row_valid = (torch.arange(row0, row0 + b) < n).to(group.device)
-    return (block(values, 0, dtype), block(mask, False, torch.bool), block(reads, 0, dtype),
+    return (block(values, 0, dtype), block(mask, False, torch.bool),
+            block(reads, 0, reads_dtype or dtype),
             block(reads_valid, False, torch.bool), row_valid, row0)
 
 
@@ -262,20 +269,20 @@ class RankWorkspace:
         return handle
 
 
-def _rank_main(rank, fn, world, platform, transport, run_dir, shapes, args, spawned_at):
+def _rank_main(rank, fn, world, platform, transport, run_dir, shapes, dtype, args, spawned_at):
     """A spawned rank: join the group, run ``fn(group, *args)``, write its
     report to ``rank<r>.json`` in ``run_dir``. An exception is written,
     with the time, to ``rank<r>.error`` there: the rank that failed first
     names the cause, the others' lost connections follow from it."""
     try:
-        _rank_body(rank, fn, world, platform, transport, run_dir, shapes, args, spawned_at)
+        _rank_body(rank, fn, world, platform, transport, run_dir, shapes, dtype, args, spawned_at)
     except BaseException:
         with open(os.path.join(run_dir, f"rank{rank}.error"), "w") as f:
             f.write(f"{time.time_ns()}\n{traceback.format_exc()}")
         raise
 
 
-def _rank_body(rank, fn, world, platform, transport, run_dir, shapes, args, spawned_at):
+def _rank_body(rank, fn, world, platform, transport, run_dir, shapes, dtype, args, spawned_at):
     # a rank's spans write no trace: W ranks would write W traces of one
     # name over each other (utils/timing.py)
     os.environ.pop(PROFILE_ENV, None)
@@ -292,7 +299,7 @@ def _rank_body(rank, fn, world, platform, transport, run_dir, shapes, args, spaw
         # kernels the parent built are loaded, outside the time of fn
         dist.barrier(**({"device_ids": [device.index]} if transport == "nccl" else {}))
         if device.type == "cuda":
-            load_kernels(device, shapes)
+            load_kernels(device, shapes, dtype)
         group = CohortGroup(world, rank, device, transport)
         for wrapper in COUNTED.values():
             wrapper.launches = 0
@@ -332,25 +339,28 @@ def _failure_message(run_dir: str, world: int, exc: ProcessException) -> str:
     return msg
 
 
-def load_kernels(device: torch.device, shapes=()) -> None:
-    """Build and load the Gram kernel's library (the sharded step's one
-    CUDA library), and compile the Triton kernels for the ``(rows,
-    columns)`` of each rank's column statistics: in the parent so that the
-    ranks find them built, in each rank (from the caches) so that its
-    first launch times no loading."""
+def load_kernels(device: torch.device, shapes=(), dtype: torch.dtype = torch.float32) -> None:
+    """Build and load the Gram kernel's library of ``dtype`` (float32's, and
+    float64's or bfloat16's where the step runs in them), and compile the
+    Triton kernels in ``dtype`` for the ``(rows, columns)`` of each rank's
+    column statistics: in the parent so that the ranks find them built, in
+    each rank (from the caches) so that its first launch times no
+    loading."""
     native.load("zprep_gram")
+    native.load(gpu_kernels._gram_lib(dtype)[0])
     for rows, cols in shapes:
-        gpu_kernels.compile_masked_column_stats(rows, cols, device)
+        gpu_kernels.compile_masked_column_stats(rows, cols, device, dtype)
 
 
 def run_ranks(fn, world: int, args, platform: str, workspace: RankWorkspace, console=None,
-              shapes=()) -> list:
+              shapes=(), dtype: torch.dtype = torch.float32) -> list:
     """Run ``fn(group, *args)`` on ``world`` spawned ranks and wait for all.
 
     ``fn`` must be importable (a module-level function) and its ``args``
     picklable: :class:`SharedTensor` handles of ``workspace`` for the data;
     ``platform`` is ``"cuda"`` or ``"cpu"``. On the card the parent first
-    loads the kernels (:func:`load_kernels`, with ``shapes``).
+    loads the kernels (:func:`load_kernels`, with ``shapes`` and the step's
+    ``dtype``).
 
     Returns one dict per rank: the launches of each counted wrapper (also
     added to this process's counts), ``peak_bytes`` of device memory,
@@ -368,11 +378,11 @@ def run_ranks(fn, world: int, args, platform: str, workspace: RankWorkspace, con
     log(console, f"sharded step: {world} rank(s) on {where}, transport {transport}",
         style="info")
     if platform != "cpu":
-        load_kernels(torch.device("cuda"), shapes)
+        load_kernels(torch.device("cuda"), shapes, dtype)
     try:
         torch.multiprocessing.start_processes(
             _rank_main,
-            args=(fn, world, platform, transport, workspace.dir, shapes, args, time.time()),
+            args=(fn, world, platform, transport, workspace.dir, shapes, dtype, args, time.time()),
             nprocs=world, join=True, start_method="spawn")
     except ProcessException as e:
         raise RankFailure(_failure_message(workspace.dir, world, e)) from e

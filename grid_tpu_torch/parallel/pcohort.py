@@ -23,9 +23,16 @@ Three host-side entries, each running its part on W spawned ranks
   never an [N, N] tensor and no ring: the form for cohorts whose gathered
   split fits a card.
 
-All three take ``dtype`` float32 or float64 on the card (the float64
-forms of the kernels, ``device.dtype: float64``), float64 by default on
-the CPU.
+All three take ``dtype`` float32, float64 or bfloat16 on the card (the
+float64 and bf16 forms of the kernels, ``device.dtype``), float64 by
+default on the CPU. In bfloat16 the depths are rounded once, and each form
+rounds where ``grid_tpu``'s own form rounds (``parallel/pstats.py``): the
+reads stay in the step dtype (``utils.device.step_dtype``: float32 on the
+card, float64 on the CPU) and are never rounded. The ring computes the
+dipCN weights and dipCN in the reads' dtype, as ``grid_tpu``'s ring does;
+the gather form rounds the weights to bfloat16 as the flat step does, and
+its dipCN is bfloat16. z, the column statistics, the scales and the
+distances are bfloat16 in both, and step 7 runs in the reads' dtype.
 
 Phasing works on [2N] haplotype vectors, a few thousand floats, so it runs
 on every rank after an all-gather of dipCN.
@@ -80,12 +87,14 @@ def _span(name: str, timer: StepTimer | None, device: torch.device):
             torch.cuda.synchronize(device)
 
 
-def _normalize_block(group: CohortGroup, values, mask, params: CohortParams, n_rows: int):
+def _normalize_block(group: CohortGroup, values, mask, params: CohortParams, n_rows: int,
+                     ring: bool):
     """Step 4 on this rank's block and the region filter of step 5: the
-    sharded normalize, the quantize and the cohort's region mask.
+    sharded normalize (reduced as the ring or the gather form reduces), the
+    quantize and the cohort's region mask.
 
     Returns (norm, selected, scales, z, region_used)."""
-    norm = normalize_cohort_sharded(values, mask, group, n_rows=n_rows)
+    norm = normalize_cohort_sharded(values, mask, group, n_rows=n_rows, ring=ring)
     selected = select_high_variance_mask(norm.var_ratio, params.top_frac)
     scales = norm.row_means_raw
     z = norm.z
@@ -99,16 +108,25 @@ def _normalize_block(group: CohortGroup, values, mask, params: CohortParams, n_r
 
 
 def _phase(group: CohortGroup, dipcn, dipcn_valid, hap_nbr_idx, hap_nbr_w, hap_nbr_valid,
-           params: CohortParams):
+           params: CohortParams, wide=None):
     """Step 7, replicated: dipCN all-gathered, then every rank phases the
-    cohort. Returns (phasing, imputed)."""
+    cohort; a bfloat16 step phases in ``wide``, the reads' dtype, as the
+    flat step does. Returns (phasing, imputed)."""
     irrs = torch.where(dipcn_valid, dipcn, torch.nan)
+    if wide is not None:
+        irrs, hap_nbr_w = irrs.to(wide), hap_nbr_w.to(wide)
     irrs_all = group.all_gather_rows(irrs)[:hap_nbr_idx.shape[0] // 2]
     phasing = phase_haplotypes(irrs_all, hap_nbr_idx, hap_nbr_w, hap_nbr_valid,
                                params.min_nbr, params.n_iters)
     imp = compute_imputed(phasing.hap_irrs, hap_nbr_idx, hap_nbr_w, hap_nbr_valid,
                           phasing.mean_irrs)
     return phasing, imp
+
+
+def _wide(values, reads):
+    """Step 7's dtype where the step runs in bfloat16 (the reads'), else
+    None: float32 and float64 steps phase as they always have."""
+    return reads.dtype if values.dtype == torch.bfloat16 else None
 
 
 def _outputs(norm, selected, region_used, scales, z, found, phased) -> CohortOutputs:
@@ -130,7 +148,8 @@ def rank_cohort_step(group: CohortGroup, values, mask, reads, reads_valid, hap_n
 
     Args:
         values, mask, reads, reads_valid, row_valid: this rank's block
-            (:func:`grid_tpu_torch.parallel.mesh.shard_cohort_inputs`).
+            (:func:`grid_tpu_torch.parallel.mesh.shard_cohort_inputs`);
+            bfloat16 values take reads in the step dtype.
         hap_nbr_*: [2N, K] padded haplotype neighbors, whole on every rank.
         n_rows: the cohort's valid row count N.
         payload_ring: False takes the JAX package's gather form: the plain
@@ -151,7 +170,7 @@ def rank_cohort_step(group: CohortGroup, values, mask, reads, reads_valid, hap_n
     # ---- step 4: sharded normalize, and the region filter ---------------
     with _span("sharded.normalize", timer, values.device):
         norm, selected, scales, z, region_used = _normalize_block(group, values, mask, params,
-                                                                  n_rows)
+                                                                  n_rows, ring=True)
 
     # ---- step 5: the ring kNN, each row's dipCN input riding the ring with
     # the row --------------------------------------------------------------
@@ -175,17 +194,18 @@ def rank_cohort_step(group: CohortGroup, values, mask, reads, reads_valid, hap_n
 
     # ---- step 7: replicated phasing --------------------------------------
     with _span("sharded.phase", timer, values.device):
-        phased = _phase(group, dipcn, dipcn_valid, hap_nbr_idx, hap_nbr_w, hap_nbr_valid, params)
+        phased = _phase(group, dipcn, dipcn_valid, hap_nbr_idx, hap_nbr_w, hap_nbr_valid, params,
+                        _wide(values, reads))
     return _outputs(norm, selected, region_used, scales, z,
                     (sq_dists, nbr_idx, dipcn, dipcn_valid), phased)
 
 
 def gather_split(group: CohortGroup, split: SplitZ) -> SplitZ:
     """The split of the whole cohort from each rank's split of its block:
-    the rows of P's two TF32 halves (float64: of P itself, [1, B, R_pad];
-    on the CPU, of the 2-D P) and the squared norms, all-gathered in rank
-    order. ``zprep_split`` works row by row, so this is bitwise the split
-    of the whole z."""
+    the rows of P's two TF32 halves (float64 and bfloat16: of P itself,
+    [1, B, R_pad]; on the CPU, of the 2-D P) and the squared norms,
+    all-gathered in rank order. ``zprep_split`` works row by row, so this is
+    bitwise the split of the whole z."""
     if split.p.dim() == 3:  # the card's [2 or 1, B, R_pad], gathered one half at a time
         halves, b, r_pad = split.p.shape
         p = split.p.new_empty((halves, group.world * b, r_pad))
@@ -215,7 +235,9 @@ def rank_auto_cohort_step(group: CohortGroup, values, mask, reads, reads_valid, 
 
     Returns CohortOutputs whose row fields are the block's rows and whose
     other fields are the cohort's; equal to ``cohort_step(...,
-    row_valid=...)``'s on the panel branch.
+    row_valid=...)``'s on the panel branch (in bfloat16 but for a column
+    statistic that the ranks' float32 partials, added in another order
+    than the flat kernel's, may round one bfloat16 ulp apart).
     """
     _check_branch(params, n_rows)
     mask = mask.bool() & row_valid[:, None]
@@ -223,37 +245,43 @@ def rank_auto_cohort_step(group: CohortGroup, values, mask, reads, reads_valid, 
     dev = values.device
     with _span("sharded.normalize", timer, dev):
         norm, selected, scales, z, region_used = _normalize_block(group, values, mask, params,
-                                                                  n_rows)
+                                                                  n_rows, ring=False)
     with _span("auto.gather", timer, dev):
         whole = gather_split(group, zprep_split(z, norm.mask, region_used, params.zmax))
         # the flat step's geometry and dipCN inputs (models/cohort.py), row
         # by row, then gathered
         sample_ok = norm.mask.any(dim=1) & row_valid
         usable = reads_valid & sample_ok
-        ok_all, w_all, usable_all = (group.all_gather_rows(t)
-                                     for t in (sample_ok, reads / scales, usable))
+        ok_all, w_all, usable_all = (group.all_gather_rows(t) for t in (
+            sample_ok, (reads / scales).to(values.dtype), usable))
     with _span("auto.knn", timer, dev):
         found = panel_knn_dipcn(whole, ok_all, w_all, usable_all, params,
                                 rows=(row0, row0 + values.shape[0]))
         del whole
     with _span("sharded.phase", timer, dev):
-        phased = _phase(group, found[2], found[3], hap_nbr_idx, hap_nbr_w, hap_nbr_valid, params)
+        phased = _phase(group, found[2], found[3], hap_nbr_idx, hap_nbr_w, hap_nbr_valid, params,
+                        _wide(values, reads))
     return _outputs(norm, selected, region_used, scales, z, found, phased)
 
 
-def _output_handles(where, n_pad: int, r: int, k: int, n_samples: int, dtype) -> tuple:
+def _output_handles(where, n_pad: int, r: int, k: int, n_samples: int, dtype, wide,
+                    ring: bool) -> tuple:
     """The shared output tensors of a step, in CohortOutputs' order:
     created in the workspace ``where`` (a RankWorkspace), or named by path
-    in the directory ``where`` (a str; see :func:`_rank_staged_step`)."""
+    in the directory ``where`` (a str; see :func:`_rank_staged_step`).
+    The values' fields take ``dtype``; dipCN takes the reads' dtype
+    ``wide`` in the ring and ``dtype`` in the gather form, and step 7's
+    fields ``wide`` (the two differ in bfloat16 only)."""
+    dip = wide if ring else dtype
     shapes = {
         "z": ((n_pad, r), dtype), "z_mask": ((n_pad, r), torch.bool), "col_means": ((r,), dtype),
         "col_vars": ((r,), dtype), "var_ratio": ((r,), dtype),
         "region_selected": ((r,), torch.bool), "region_used": ((r,), torch.bool),
         "r_use": ((), torch.int64), "scales": ((n_pad,), dtype),
         "nbr_idx": ((n_pad, k), torch.int32), "nbr_sq_dists": ((n_pad, k), dtype),
-        "dipcn": ((n_pad,), dtype), "dipcn_valid": ((n_pad,), torch.bool),
-        "hap_irrs": ((2 * n_samples,), dtype), "hap_imp": ((2 * n_samples,), dtype),
-        "phased": ((n_samples,), torch.bool), "mean_irrs": ((), dtype),
+        "dipcn": ((n_pad,), dip), "dipcn_valid": ((n_pad,), torch.bool),
+        "hap_irrs": ((2 * n_samples,), wide), "hap_imp": ((2 * n_samples,), wide),
+        "phased": ((n_samples,), torch.bool), "mean_irrs": ((), wide),
     }
     if isinstance(where, RankWorkspace):
         return tuple(where.empty(*shapes[name]) for name in CohortOutputs._fields)
@@ -272,14 +300,14 @@ def _write_outputs(group: CohortGroup, out: CohortOutputs, outputs, row0: int) -
             handle.open().copy_(getattr(out, name).cpu())
 
 
-def _rank_step(group: CohortGroup, inputs, outputs, params, payload_ring, dtype):
+def _rank_step(group: CohortGroup, inputs, outputs, params, payload_ring, dtype, wide):
     """A spawned rank: shard the shared inputs, run the step on the block,
     write its rows (and, on rank 0, the cohort-wide fields) in place.
     Returns the step's spans, for the rank's report."""
     values, mask, reads, reads_valid, *hap = (h.open() for h in inputs)
     n = values.shape[0]
     *block, row_valid, row0 = shard_cohort_inputs(group, values, mask, reads, reads_valid,
-                                                  dtype)
+                                                  dtype, wide)
     hap = [t.to(group.device) for t in hap]
     timer = StepTimer()
     out = rank_cohort_step(group, *block, *hap, params, row_valid, n, payload_ring, timer)
@@ -290,6 +318,14 @@ def _rank_step(group: CohortGroup, inputs, outputs, params, payload_ring, dtype)
 def _default_dtype(platform: str, dtype):
     if dtype is None:
         return torch.float64 if platform == "cpu" else torch.float32
+    return dtype
+
+
+def _reads_dtype(platform: str, dtype):
+    """The reads' dtype: the step's, but for bfloat16, whose reads (and
+    step 7) compute as under auto (``utils.device.step_dtype``)."""
+    if dtype == torch.bfloat16:
+        return _default_dtype(platform, None)
     return dtype
 
 
@@ -312,7 +348,8 @@ def sharded_cohort_step(world: int, values, mask, reads, reads_valid, hap_nbr_id
         platform: ``"cuda"`` (the card, with the hand kernels) or ``"cpu"``
             (gloo ranks on the host, with the plain versions).
         dtype: float type of the depths and reads on the ranks (default
-            float32 on the card, float64 on the CPU).
+            float32 on the card, float64 on the CPU); bfloat16 rounds the
+            depths alone, the reads keep the step dtype (module docstring).
         console: where the transport is logged.
         reports: a list that receives one dict per rank: its kernel
             launches, peak device memory and seconds (``run_ranks``), and
@@ -322,23 +359,24 @@ def sharded_cohort_step(world: int, values, mask, reads, reads_valid, hap_nbr_id
     the padding last, as the JAX package returns them.
     """
     dtype = _default_dtype(platform, dtype)
+    wide = _reads_dtype(platform, dtype)
     n, r = values.shape
     n_pad = block_rows(n, world) * world
     with RankWorkspace() as ws:
-        inputs = (ws.put(values, dtype), ws.put(mask, torch.bool), ws.put(reads, dtype),
+        inputs = (ws.put(values, dtype), ws.put(mask, torch.bool), ws.put(reads, wide),
                   ws.put(reads_valid, torch.bool), ws.put(hap_nbr_idx, torch.int32),
                   ws.put(hap_nbr_w), ws.put(hap_nbr_valid, torch.bool))
         outputs = _output_handles(ws, n_pad, r, params.num_neighbors,
-                                  hap_nbr_idx.shape[0] // 2, dtype)
-        got = run_ranks(_rank_step, world, (inputs, outputs, params, payload_ring, dtype),
-                        platform, ws, console, shapes=[(n_pad // world, r)])
+                                  hap_nbr_idx.shape[0] // 2, dtype, wide, ring=True)
+        got = run_ranks(_rank_step, world, (inputs, outputs, params, payload_ring, dtype, wide),
+                        platform, ws, console, shapes=[(n_pad // world, r)], dtype=dtype)
         result = CohortOutputs._make(h.open() for h in outputs)
     if reports is not None:
         reports.extend(got)
     return result
 
 
-def _rank_auto_step(group: CohortGroup, inputs, outputs, params, dtype):
+def _rank_auto_step(group: CohortGroup, inputs, outputs, params, dtype, wide):
     """A spawned rank of the gather form: its block of the shared (already
     padded) inputs, the step, its rows written in place. Returns the
     step's spans."""
@@ -351,7 +389,7 @@ def _rank_auto_step(group: CohortGroup, inputs, outputs, params, dtype):
 
     timer = StepTimer()
     out = rank_auto_cohort_step(
-        group, block(values, dtype), block(mask, torch.bool), block(reads, dtype),
+        group, block(values, dtype), block(mask, torch.bool), block(reads, wide),
         block(reads_valid, torch.bool), *(t.to(group.device) for t in hap), params,
         block(row_valid, torch.bool), int(row_valid.sum()), row0, timer)
     _write_outputs(group, out, outputs, row0)
@@ -378,6 +416,7 @@ def auto_sharded_cohort_step(world: int, params: CohortParams = CohortParams(),
     row_valid=row_valid)``'s.
     """
     dtype = _default_dtype(platform, dtype)
+    wide = _reads_dtype(platform, dtype)
 
     def step(values, mask, reads, reads_valid, hap_idx, hap_w, hap_valid, row_valid):
         n_pad, r = values.shape
@@ -385,13 +424,13 @@ def auto_sharded_cohort_step(world: int, params: CohortParams = CohortParams(),
             raise ValueError(f"the gather form takes N_pad rows, a multiple of world={world}; "
                              f"got {n_pad}")
         with RankWorkspace() as ws:
-            inputs = (ws.put(values, dtype), ws.put(mask, torch.bool), ws.put(reads, dtype),
+            inputs = (ws.put(values, dtype), ws.put(mask, torch.bool), ws.put(reads, wide),
                       ws.put(reads_valid, torch.bool), ws.put(row_valid, torch.bool),
                       ws.put(hap_idx, torch.int32), ws.put(hap_w), ws.put(hap_valid, torch.bool))
             outputs = _output_handles(ws, n_pad, r, params.num_neighbors, hap_idx.shape[0] // 2,
-                                      dtype)
-            got = run_ranks(_rank_auto_step, world, (inputs, outputs, params, dtype), platform,
-                            ws, console, shapes=[(n_pad // world, r)])
+                                      dtype, wide, ring=False)
+            got = run_ranks(_rank_auto_step, world, (inputs, outputs, params, dtype, wide),
+                            platform, ws, console, shapes=[(n_pad // world, r)], dtype=dtype)
             result = CohortOutputs._make(h.open() for h in outputs)
         if reports is not None:
             reports.extend(got)
@@ -401,7 +440,7 @@ def auto_sharded_cohort_step(world: int, params: CohortParams = CohortParams(),
 
 
 def _rank_staged_step(group: CohortGroup, shares, excluded, min_depth, max_depth, inputs,
-                      run_dir, params, dtype):
+                      run_dir, params, dtype, wide):
     """A spawned rank of the staged step: stage its share of the samples
     (``shares[rank]``, (sample, bed.gz path) pairs), run the ring step on
     the staged block, write its rows in place. Rank 0 creates the output
@@ -418,11 +457,11 @@ def _rank_staged_step(group: CohortGroup, shares, excluded, min_depth, max_depth
     row_valid_all = group.all_gather_rows(stage.row_valid)
     rows = slice(stage.row0, stage.row0 + b)
     out = rank_cohort_step(group, stage.values, stage.mask,
-                           reads[rows].to(device=group.device, dtype=dtype),
+                           reads[rows].to(device=group.device, dtype=wide),
                            reads_valid[rows].to(group.device), *(t.to(group.device) for t in hap),
                            params, stage.row_valid, int(row_valid_all.sum()), timer=timer)
     outputs = _output_handles(run_dir, b * group.world, r, params.num_neighbors,
-                              hap[0].shape[0] // 2, dtype)
+                              hap[0].shape[0] // 2, dtype, wide, ring=True)
     if group.rank == 0:
         for handle in outputs:
             handle.open()  # the file exists, at its size, before any rank maps it
@@ -490,6 +529,7 @@ def staged_sharded_cohort_step(world: int, mosdepth_dir, samples, reads_map, hap
     from grid_tpu_torch.io.staging import ShardedCohortStage
 
     dtype = _default_dtype(platform, dtype)
+    wide = _reads_dtype(platform, dtype)
     sample_to_bed = map_bed_gz_to_samples(mosdepth_dir, samples)
     if not sample_to_bed:
         raise FileNotFoundError(f"No mosdepth files found in {mosdepth_dir}")
@@ -503,14 +543,15 @@ def staged_sharded_cohort_step(world: int, mosdepth_dir, samples, reads_map, hap
         if sid in reads_map:
             reads[i], reads_valid[i] = reads_map[sid], True
     with RankWorkspace() as ws:
-        inputs = (ws.put(reads, dtype), ws.put(reads_valid, torch.bool),
+        inputs = (ws.put(reads, wide), ws.put(reads_valid, torch.bool),
                   ws.put(hap_nbr_idx, torch.int32), ws.put(hap_nbr_w),
                   ws.put(hap_nbr_valid, torch.bool))
         got = run_ranks(_rank_staged_step, world,
-                        (shares, excluded, min_depth, max_depth, inputs, ws.dir, params, dtype),
-                        platform, ws, console)
+                        (shares, excluded, min_depth, max_depth, inputs, ws.dir, params, dtype,
+                         wide),
+                        platform, ws, console, dtype=dtype)
         outputs = _output_handles(ws.dir, b * world, got[0]["r"], params.num_neighbors,
-                                  hap_nbr_idx.shape[0] // 2, dtype)
+                                  hap_nbr_idx.shape[0] // 2, dtype, wide, ring=True)
         result = CohortOutputs._make(h.open() for h in outputs)
         with open(os.path.join(ws.dir, "stage.json")) as f:
             fields = json.load(f)

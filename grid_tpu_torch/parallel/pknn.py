@@ -14,6 +14,8 @@ What a step does on the card:
   (:func:`grid_tpu_torch.ops.gpu_kernels.zprep_gram_cross`), from the split
   that :func:`~grid_tpu_torch.ops.gpu_kernels.zprep_split` made once of
   each rank's rows (float32: P's TF32 halves; float64: P itself, the FP64
+  kernel's cross mode; bfloat16: P itself and the norms as ``grid_tpu``'s
+  jitted ring sums them, ``sum(z * z)`` with exact squares, the bf16
   kernel's cross mode). Its entries are bitwise those of the flat panel
   branch for the same two rows, so the ring's distances are the flat
   step's, entry for entry, for the same prepared z;
@@ -27,12 +29,15 @@ What a step does on the card:
   first, not the lower row).
 
 The visiting block carries its split and squared norms (on the card
-2 * B * R_pad float32 and B float32, or B * R_pad float64 and B float64;
-on the CPU the prepared rows), its row validity and the payloads: the
-split runs once per rank, and a step moves 8 * B * R_pad bytes (in either
-dtype) + 5 * B bytes in float32, 9 * B in float64, plus the payloads'. In
-float64 the merge's ``knn_select`` takes [best | d2] rows of k + B columns
-one block a row up to 8,192 columns and in its wide mode past that. The
+2 * B * R_pad float32 and B float32, B * R_pad float64 and B float64, or
+B * R_pad bfloat16 and B bfloat16; on the CPU the prepared rows), its row
+validity and the payloads: the split runs once per rank, and a step moves
+8 * B * R_pad bytes (in float32 or float64; 2 * B * R_pad in bfloat16) +
+5 * B bytes in float32, 9 * B in float64, 3 * B in bfloat16, plus the
+payloads', which keep the reads' dtype. In float64 the merge's
+``knn_select`` takes [best | d2] rows of k + B columns one block a row up
+to 8,192 columns and in its wide mode past that; in bfloat16 on 16-bit
+keys, ``big`` being bfloat16's finfo.max as in ``grid_tpu``'s ring. The
 merge runs in row panels
 of ``MERGE_ROWS`` rows, so besides the [B, B] Gram block no tensor is wider
 than k + B: at N = 65,536 and W = 4 (B = 16,384) a whole-block merge would

@@ -38,9 +38,11 @@ still feeds step 7.
 step, that step runs on one card; where it chooses the sharded ring
 (``dispatch: ring`` on more than one device, or N at or above the
 crossover under ``auto``), the fused step runs over prod(mesh_shape) ranks
-(:mod:`grid_tpu_torch.parallel`), in ``device.dtype`` (float32 or float64
-on the card, as the single-device step; bfloat16 with ``mesh_shape`` is
-refused before any step, on either device). A one-device mesh with ``dispatch: ring``
+(:mod:`grid_tpu_torch.parallel`), in ``device.dtype`` (float32, float64
+or bfloat16 on the card, as the single-device step; in bfloat16 the depths
+alone, the reads and step 7 in ``step_dtype``). In file mode
+``mesh_shape`` changes nothing, as in the JAX package, whose file steps do
+not read it. A one-device mesh with ``dispatch: ring``
 raises the policy's ``ValueError`` before anything runs, and a failed rank
 (:class:`grid_tpu_torch.parallel.RankFailure`) propagates on every device:
 the file-mode steps do not take over from it.

@@ -18,9 +18,11 @@ brings the outputs back for the writers. ``device.dtype: auto`` is float32 on
 the card and the staged float64 on the CPU; ``float64`` runs on the card too
 (the hand kernels' float64 forms), with ``device.mesh_shape`` as well;
 reads, haplotype weights and the dipCN values fed to phasing follow it.
-``bfloat16`` (no ``mesh_shape``) runs steps 4-6 in bfloat16, as
+``bfloat16`` runs steps 4-6 in bfloat16, with ``device.mesh_shape`` too, as
 ``grid_tpu`` casts the staged depths alone; the reads and step 7 take
-``utils.device.step_dtype``, float32 on the card and float64 on the CPU.
+``utils.device.step_dtype``, float32 on the card and float64 on the CPU
+(in the sharded ring the dipCN weights and dipCN as well, as in
+``grid_tpu``'s ring: ``parallel/pcohort.py``).
 
 ``device.mesh_shape`` asks the dispatch policy
 (:func:`grid_tpu_torch.parallel.policy.choose_cohort_execution`) as the JAX

@@ -232,8 +232,7 @@ def run_multi_locus(config, genes, console=None, catalog=None, batched="auto", t
 
     if any(section.get("run") is True for section, _, _ in _steps_4_7(config)):
         # the dtype is resolved before any step runs: what the card does not
-        # take (bfloat16 with mesh_shape, float64 past the float64
-        # knn_select's k) raises here, not inside a step. Under bfloat16 the
+        # take (float64 past the float64 knn_select's k) raises here, not inside a step. Under bfloat16 the
         # shared normalize runs in bf16 and the batched dipCN, like
         # grid_tpu's, reads the written matrix in step_dtype
         compute_dtype(config, config_device(config))

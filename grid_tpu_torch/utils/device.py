@@ -99,18 +99,13 @@ def compute_dtype(config: dict | None, device: torch.device) -> torch.dtype:
     ``dipcn_select``) and ``device.mesh_shape`` (the ring's cross-mode Gram,
     the gather form and the sharded stager). bfloat16 runs on the card
     where ``grid_tpu`` applies it (:func:`step_dtype` says which steps):
-    the flat cohort step and file-mode step 4, through the bf16 forms of
-    the kernels; with ``device.mesh_shape`` it raises, on either device.
-    So does float64 on the card with
+    the flat cohort step, file-mode step 4 and, with ``device.mesh_shape``,
+    the sharded step (the bf16 Gram's cross mode, the ring merge on bf16
+    rows, the gather form, the sharded stager), through the bf16 forms of
+    the kernels, on either device. float64 on the card with
     ``mosdepth.neighbors.num_neighbors`` past the float64 ``knn_select``'s
-    8,192. Callers resolve the dtype before any step runs."""
+    8,192 raises. Callers resolve the dtype before any step runs."""
     dtype = resolve_dtype(config)
-    if dtype == torch.bfloat16 and (config or {}).get("device", {}).get("mesh_shape"):
-        raise ValueError(
-            f"device.dtype bfloat16 on {device} with device.mesh_shape: the sharded step (the "
-            f"cross-mode Gram, the ring merge, the gather form, the sharded stager) takes "
-            f"float32 and float64 only; leave mesh_shape out, or use float32 or float64"
-        )
     if device.type != "cuda":
         return torch.float64 if dtype is None else dtype
     if dtype in (None, torch.float32, torch.bfloat16):
@@ -132,11 +127,13 @@ def step_dtype(config: dict | None, device: torch.device) -> torch.dtype:
     """The dtype of the steps that ``grid_tpu`` runs without reading
     ``device.dtype``: file-mode steps 5 and 6 (which read the written
     normalized matrix), step 7 in both forms and the multi-locus sweep's
-    batched dipCN. It is :func:`compute_dtype`'s, but for bfloat16, which
-    ``grid_tpu`` applies to the fused steps 4-6 and file-mode step 4 only
-    (``grid_tpu/steps/fused.py``, ``grid_tpu/steps/normalize.py``): there
-    these steps compute as under ``auto``, in float32 on the card and in
-    float64 on the CPU."""
+    batched dipCN, and the dtype of the read counts (the fused step's
+    reads; in the sharded ring also its dipCN weights and dipCN). It is
+    :func:`compute_dtype`'s, but for bfloat16, which ``grid_tpu`` applies to
+    the fused steps 4-6 (the depths alone, with ``device.mesh_shape`` too)
+    and file-mode step 4 only (``grid_tpu/steps/fused.py``,
+    ``grid_tpu/steps/normalize.py``): there these compute as under
+    ``auto``, in float32 on the card and in float64 on the CPU."""
     dtype = compute_dtype(config, device)
     if dtype == torch.bfloat16:
         return torch.float32 if device.type == "cuda" else torch.float64

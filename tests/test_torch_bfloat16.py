@@ -389,11 +389,15 @@ def test_step_dtype_rule():
 @pytest.mark.parametrize("device", [CPU, CUDA])
 @pytest.mark.parametrize("fused", [False, True])
 def test_bfloat16_with_mesh_shape_is_refused(device, fused):
+    """Once a refusal, now the dtype rule with ``device.mesh_shape``: it
+    resolves to bfloat16 on either device and in either form (the sharded
+    step's bf16 forms, ``tests/test_torch_bf16_sharded.py``), and the
+    steps grid_tpu runs without reading it, the reads and step 7 to
+    ``step_dtype``, as without ``mesh_shape``."""
     cfg = {"device": {"dtype": "bf16", "mesh_shape": [2], "fused": fused}}
-    with pytest.raises(ValueError, match="mesh_shape"):
-        compute_dtype(cfg, device)
-    with pytest.raises(ValueError, match="mesh_shape"):
-        step_dtype(cfg, device)
+    assert compute_dtype(cfg, device) is BF
+    wide = torch.float32 if device.type == "cuda" else torch.float64
+    assert step_dtype(cfg, device) is wide
 
 
 # ---------------------------------------------------------- the pipeline ---
@@ -429,11 +433,17 @@ def wgs(tmp_path_factory):
 
 
 def test_bfloat16_with_mesh_shape_writes_nothing(wgs, tmp_path):
-    cfg = run_config(wgs, tmp_path, {"dtype": "bfloat16", "mesh_shape": [2], "fused": True,
-                                     "platform": "cpu"})
-    with pytest.raises(ValueError, match="mesh_shape"):
-        run_wgs_pipeline(console=None, config=cfg)
-    assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
+    """Once a refusal that wrote nothing, now the run: the fused form in
+    bf16 with ``mesh_shape: [2]`` writes the four artifacts; 15 samples sit
+    below the ring's crossover, so the dispatch policy runs the flat step,
+    and the artifacts are bf16's without ``mesh_shape``, byte for byte
+    (the ring in bf16: ``tests/test_torch_bf16_sharded.py``)."""
+    for name, device in (("mesh", {"mesh_shape": [2]}), ("flat", {})):
+        cfg = run_config(wgs, tmp_path / name, {"dtype": "bfloat16", "fused": True,
+                                                "platform": "cpu", **device})
+        assert "fused_steps_4_7" in run_wgs_pipeline(console=None, config=cfg)
+    for name in ARTIFACTS.values():
+        assert content(tmp_path / "mesh" / name) == content(tmp_path / "flat" / name), name
 
 
 def test_file_mode_bfloat16_matches_grid_tpu(wgs, tmp_path):

@@ -233,20 +233,19 @@ def test_no_platform_in_file_mode_wants_the_card(cohort, tmp_path):
 
 
 def test_float64_on_the_card_is_refused_before_any_step(cohort, tmp_path, monkeypatch):
-    """What the card's kernels do not carry raises before any step, as the
-    fused path did, rather than as four logged failures: bfloat16 with
-    ``device.mesh_shape``. bfloat16 alone is carried now (the bf16 forms of
-    the step's kernels), and so is float64 with ``device.mesh_shape``, in
-    both forms (the cross-mode Gram's and the multi-weight dipcn_select's
-    float64 forms): each resolves its dtype before any step (the
-    multi-locus sweep is ``tests/test_torch_float64.py``'s)."""
+    """The dtype is resolved on the card before any step, as the fused
+    path resolves it, rather than inside a step whose failure is only
+    logged. Every dtype is carried now: bfloat16 alone and with
+    ``device.mesh_shape`` (the bf16 forms of the step's kernels and of the
+    sharded step), and float64 with ``device.mesh_shape``, in both forms
+    (the cross-mode Gram's and the multi-weight dipcn_select's float64
+    forms): each resolves its dtype before any step (the multi-locus sweep
+    is ``tests/test_torch_float64.py``'s)."""
     import grid_tpu_torch.pipeline as pipeline
 
     cuda = torch.device("cuda")
     monkeypatch.setattr(pipeline, "config_device", lambda config: cuda)
-    cfg = run_config(cohort, tmp_path, {"dtype": "bfloat16", "mesh_shape": [2]})
-    with pytest.raises(ValueError, match="mesh_shape"):
-        run_wgs_pipeline(console=None, config=cfg)
+
     class Resolved(Exception):
         pass
 
@@ -259,11 +258,13 @@ def test_float64_on_the_card_is_refused_before_any_step(cohort, tmp_path, monkey
     monkeypatch.setattr(pipeline, "compute_dtype", resolve)
     for device in ({"dtype": "float64", "mesh_shape": [4]},
                    {"dtype": "float64", "mesh_shape": [4], "fused": True},
-                   {"dtype": "bfloat16"}, {"dtype": "bfloat16", "fused": True}):
+                   {"dtype": "bfloat16"}, {"dtype": "bfloat16", "fused": True},
+                   {"dtype": "bfloat16", "mesh_shape": [2]},
+                   {"dtype": "bfloat16", "mesh_shape": [2], "fused": True}):
         cfg = run_config(cohort, tmp_path, device)
         with pytest.raises(Resolved):
             run_wgs_pipeline(console=None, config=cfg)
-    assert seen == [torch.float64, torch.float64, torch.bfloat16, torch.bfloat16]
+    assert seen == [torch.float64, torch.float64] + [torch.bfloat16] * 4
     assert not any((tmp_path / name).exists() for name in ARTIFACTS.values())
 
 

@@ -400,12 +400,13 @@ def test_compute_dtype_takes_float64_on_the_card():
     ({"device": {"dtype": "bf16", "mesh_shape": [4]}}, "bfloat16"),
 ])
 def test_compute_dtype_refuses_what_the_card_does_not_carry(config, names):
-    """bfloat16 runs on the card without device.mesh_shape
-    (``tests/test_torch_bfloat16.py``); with it, in either form, it is
-    refused up front."""
+    """Once a refusal (its message named ``names``), now the rule: bfloat16
+    runs on the card without device.mesh_shape
+    (``tests/test_torch_bfloat16.py``) and with it, in either form
+    (``tests/test_torch_bf16_sharded.py``), and resolves to bfloat16 up
+    front."""
     assert compute_dtype({"device": {"dtype": "bfloat16"}}, CUDA) is torch.bfloat16
-    with pytest.raises(ValueError, match=names):
-        compute_dtype(config, CUDA)
+    assert compute_dtype(config, CUDA) is torch.bfloat16
 
 
 @pytest.mark.parametrize("config", [

@@ -442,11 +442,11 @@ def test_device_and_dtype_policy():
     assert compute_dtype({"device": {"dtype": "float32"}}, cpu) is torch.float32
     assert compute_dtype({"device": {"dtype": "auto"}}, cuda) is torch.float32
     assert compute_dtype({"device": {"dtype": "f32"}}, cuda) is torch.float32
-    # float64 and bfloat16 run on the card; bfloat16 with mesh_shape does not
+    # float64 and bfloat16 run on the card, bfloat16 with mesh_shape as well
     assert compute_dtype({"device": {"dtype": "float64"}}, cuda) is torch.float64
     assert compute_dtype({"device": {"dtype": "bfloat16"}}, cuda) is torch.bfloat16
-    with pytest.raises(ValueError, match="mesh_shape"):
-        compute_dtype({"device": {"dtype": "bfloat16", "mesh_shape": [2]}}, cuda)
+    assert compute_dtype({"device": {"dtype": "bfloat16", "mesh_shape": [2]}},
+                         cuda) is torch.bfloat16
 
 
 @pytest.mark.parametrize("platform", [None, "auto", "default", "cuda"])

@@ -1598,8 +1598,9 @@ def test_float64_phase_sweeps_more_replicates_than_clusters_at_once(cuda):
 
 
 def test_float64_kernels_refuse_what_they_do_not_take(cuda):
-    """bfloat16 reaches the four kernels of steps 4-6 (their bf16 forms),
-    and no other: the multi-weight dipCN, the cross-mode Gram and the
+    """bfloat16 reaches the four kernels of steps 4-6 (their bf16 forms)
+    and the cross-mode Gram (the sharded ring's, since bf16 runs with
+    ``device.mesh_shape``), and no other: the multi-weight dipCN and the
     sweeps refuse it; mixed float32 and float64 inputs are refused by both
     dipCN forms."""
     from grid_tpu_torch.ops.gpu_kernels import SplitZ, zprep_gram_cross
@@ -1618,8 +1619,7 @@ def test_float64_kernels_refuse_what_they_do_not_take(cuda):
         dipcn_from_distances_multi_gpu(bf, bf[:, :2], bf[:, :2], mask[0], mask[:, :2], k=3,
                                        n_nbr=2)
     split = SplitZ(torch.zeros((1, 8, 16), dtype=torch.bfloat16, device=cuda), v)
-    with pytest.raises(TypeError):
-        zprep_gram_cross(split, split)
+    assert zprep_gram_cross(split, split).dtype == torch.bfloat16
     idx = torch.zeros((16, 2), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         phase_sweeps_gpu(v.repeat(2), v, idx, bf[:2].T.repeat(2, 1)[:16],
@@ -2226,3 +2226,151 @@ def test_bfloat16_cohort_step_on_card_matches_the_cpu_route(cuda, branch):
     same = got.dipcn_valid & ~dipcn_sets_differ(got.nbr_idx, want.nbr_idx,
                                                 reads_valid & want.z_mask.any(axis=1), 30)
     np.testing.assert_allclose(got.dipcn[same], want.dipcn[same], rtol=BF16_RTOL)
+
+
+# ------------- bfloat16 with device.mesh_shape: the sharded step's bf16 forms ---
+
+
+def _bf16_prepared(rng, cuda, n, r):
+    """A prepared bf16 z [n, r] on the card (clipped, masked, region-filtered)."""
+    z = torch.tensor(rng.normal(size=(n, r)) * 3, dtype=BF16, device=cuda)
+    mask = torch.tensor(rng.random((n, r)) > 0.1, device=cuda)
+    region = torch.tensor(rng.random(r) > 0.2, device=cuda)
+    return torch.where(mask, z.clamp(-2.0, 2.0), 0) * region[None, :].to(BF16)
+
+
+@pytest.mark.parametrize("n,world,r", [(300, 2, 130), (1000, 3, 200), (4096, 2, 64),
+                                       (515, 4, 1000)])
+def test_bfloat16_zprep_gram_cross_equals_the_panel_entries(cuda, n, world, r):
+    """The ring's bf16 block products ([1, B, R_pad] splits, one launch
+    each), for every pair of blocks of B = ceil(n/W) rows, are bitwise the
+    entries of one bf16 zprep_gram_panel over all n rows (blocks at offsets
+    off the 128- and 256-row tiles where B is), and within the bf16 Gram
+    rule of the plain P_a P_b^T."""
+    from torch_parity import bf16_gram_ratio
+
+    zp = _bf16_prepared(np.random.default_rng(n + world), cuda, n, r)
+    panel = zprep_gram_panel(zprep_split(zp, None, None, float("inf")), 0, n)
+    b = -(-n // world)
+    zpad = torch.cat([zp, zp.new_zeros((b * world - n, r))])
+    blocks = [zprep_split(zpad[i * b:(i + 1) * b].contiguous(), None, None, float("inf"))
+              for i in range(world)]
+    assert blocks[0].p.shape[0] == 1 and blocks[0].p.dtype == BF16
+    plain = [zprep_split_plain(zpad[i * b:(i + 1) * b].cpu(), None, None, float("inf"))
+             for i in range(world)]
+    before = zprep_gram_cross.launches
+    for a in range(world):
+        for o in range(world):
+            g = zprep_gram_cross(blocks[a], blocks[o], a * b, o * b)
+            assert g.shape == (b, b) and g.dtype == BF16
+            ra, ro = min(b, n - a * b), min(b, n - o * b)
+            if ra > 0 and ro > 0:
+                assert torch.equal(g[:ra, :ro], panel[a * b:a * b + ra, o * b:o * b + ro]), (a, o)
+            want = zprep_gram_cross_plain(plain[a], plain[o])
+            assert bf16_gram_ratio(g.float().cpu().numpy(), want.float().numpy()) <= 1
+    assert zprep_gram_cross.launches == before + world * world
+
+
+@pytest.mark.parametrize("a0,na,b0,nb", [(0, 256, 256, 256), (128, 384, 0, 512),
+                                         (77, 300, 1001, 129), (1, 1, 2047, 1),
+                                         (5, 1500, 700, 1111), (0, 2048, 0, 2048)])
+def test_bfloat16_zprep_gram_cross_at_offsets_and_unequal_blocks(cuda, a0, na, b0, nb):
+    """Any two blocks of rows of one prepared z, at offsets on a tile and
+    off it, of unequal rows (Ba != Bb, B off the tiles and off the 16-byte
+    rows of the TMA store): the cross block is bitwise those rows of the
+    whole cohort's panel (every entry summed in one order wherever it sits
+    in a tile)."""
+    n, r = 2048, 192
+    zp = _bf16_prepared(np.random.default_rng(a0 + nb), cuda, n, r)
+    panel = zprep_gram_panel(zprep_split(zp, None, None, float("inf")), 0, n)
+    pa = zprep_split(zp[a0:a0 + na].contiguous(), None, None, float("inf"))
+    pb = zprep_split(zp[b0:b0 + nb].contiguous(), None, None, float("inf"))
+    g = zprep_gram_cross(pa, pb, a0, b0)
+    assert g.shape == (na, nb)
+    assert torch.equal(g, panel[a0:a0 + na, b0:b0 + nb])
+    assert torch.equal(pa.norms, zprep_split(zp, None, None, float("inf")).norms[a0:a0 + na])
+
+
+@pytest.mark.parametrize("na,nb", [(1, 1), (127, 129), (1252, 1252), (4096, 4096),
+                                   (8192, 8192), (129, 4096)])
+def test_bfloat16_zprep_gram_cross_info_is_the_plan(cuda, na, nb):
+    """The cross mode's launch (``zprep_gram16_info`` mode 3) is
+    ``tests/torch_plans.py``'s plan: the panel mode's tiles over a's row
+    tiles and b's 256-column tiles, one block an SM; no spill."""
+    from torch_plans import zprep_gram16_plan
+
+    info = zprep_gram_info(nb, cuda, BF16, "cross", na)
+    plan = zprep_gram16_plan(nb, na, "cross", torch.cuda.get_device_properties(cuda)
+                             .multi_processor_count)
+    assert {key: info[key] for key in plan if key in info} == {
+        key: plan[key] for key in plan if key in info}
+    assert info["spill_bytes"] == 0 and info["registers"] > 0
+
+
+def test_bfloat16_zprep_gram_cross_refuses_what_it_does_not_take(cuda):
+    zp = _bf16_prepared(np.random.default_rng(1), cuda, 64, 32)
+    split = zprep_split(zp, None, None, float("inf"))
+    with pytest.raises(ValueError):
+        zprep_gram_cross(split, split, -1, 0)
+    with pytest.raises(TypeError):  # a float32 split beside a bf16 one
+        zprep_gram_cross(split, zprep_split(zp.float(), None, None, float("inf")))
+
+
+@pytest.mark.parametrize("n,r", [(2504, 1024), (300, 130)])
+def test_bfloat16_masked_column_stats_wide_sums(cuda, n, r):
+    """``wide``: the kernel's float32 sums as they are, counts exact past
+    256 rows; rounded to bf16 they are the rounded kernel's outputs
+    bitwise, and they hold the plain float32 sums within float32 rounding
+    of another order."""
+    rng = np.random.default_rng(n)
+    v = torch.tensor(rng.uniform(10, 60, (n, r)), dtype=BF16, device=cuda)
+    m = torch.tensor(rng.random((n, r)) > 0.1, device=cuda)
+    rm = torch.tensor(rng.uniform(20, 40, n), dtype=BF16, device=cuda)
+    mu = torch.tensor(rng.uniform(0.8, 1.2, r), dtype=BF16, device=cuda)
+    for col_means in (None, mu):
+        wide = masked_column_stats(v, m, rm, col_means, round_squares=False, wide=True)
+        rounded = masked_column_stats(v, m, rm, col_means, round_squares=False)
+        plain = masked_column_stats_plain(v.cpu(), m.cpu(), rm.cpu(),
+                                          None if col_means is None else mu.cpu(),
+                                          round_squares=False, wide=True)
+        for w, rd, p in zip(wide, rounded, plain):
+            assert w.dtype == torch.float32
+            assert torch.equal(w.to(BF16), rd)
+            np.testing.assert_allclose(w.cpu().numpy(), p.numpy(), rtol=1e-6)
+        assert torch.equal(wide[0].cpu(), m.sum(0).float().cpu())
+
+
+def test_bfloat16_ring_step_at_w2_equals_the_cpu_ring(cuda):
+    """``sharded_cohort_step`` over 2 ranks of the card in bf16 (the bf16
+    cross mode, bf16 ring shifts, the bf16 knn_select merges; the reads and
+    the ring's dipCN in float32) against the same ring on gloo ranks on the
+    CPU in bf16 at the bf16 contract; each rank launched the bf16 cross mode
+    twice, and dipCN and step 7 stay float32."""
+    from grid_tpu_torch.parallel import sharded_cohort_step
+    from torch_parity import BF16_RTOL
+
+    rng = np.random.default_rng(9)
+    n, r = 600, 96
+    values = rng.uniform(20, 40, (n, r)) * rng.normal(1, 0.1, (n, r)).clip(0.5, None)
+    mask = rng.random((n, r)) > 0.02
+    reads = rng.integers(500, 3000, n).astype(np.float64)
+    reads_valid = rng.random(n) > 0.05
+    ring = [[((h + 2) % (2 * n), 1.0), ((h - 2) % (2 * n), 0.5)] for h in range(2 * n)]
+    hap = pad_hap_neighbors(ring, 2, dtype=np.float64)
+    params = CohortParams(num_neighbors=50, n_nbr=30, n_iters=10, quantize=True)
+    args = (values, mask, reads, reads_valid, *hap, params)
+    reports = []
+    out = sharded_cohort_step(2, *args, dtype=BF16, reports=reports)
+    assert [rep["zprep_gram_cross"] for rep in reports] == [2, 2]
+    assert out.z.dtype == out.nbr_sq_dists.dtype == BF16
+    assert out.dipcn.dtype == out.hap_irrs.dtype == torch.float32
+    got = outputs_to_numpy(out)
+    want = outputs_to_numpy(sharded_cohort_step(2, *args, platform="cpu", dtype=BF16))
+    assert_close_to_max(got.z, want.z, BF16_RTOL)
+    neighbor_rows_differing(got.nbr_idx[:n], got.nbr_sq_dists[:n], want.nbr_idx[:n],
+                            want.nbr_sq_dists[:n], tol=BF16_RTOL * want.nbr_sq_dists[:n, -1])
+    np.testing.assert_array_equal(got.dipcn_valid, want.dipcn_valid)
+    same = want.dipcn_valid[:n] & ~dipcn_sets_differ(got.nbr_idx[:n], want.nbr_idx[:n],
+                                                     reads_valid & want.z_mask[:n].any(axis=1),
+                                                     30)
+    np.testing.assert_allclose(got.dipcn[:n][same], want.dipcn[:n][same], rtol=BF16_RTOL)

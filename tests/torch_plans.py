@@ -141,12 +141,13 @@ GRAM16_ROWS, GRAM16_COLS, GRAM16_K_TILE, GRAM16_STAGES, GRAM16_EPI_BOXES = 128, 
 def zprep_gram16_plan(n: int, rows: int, mode: str, sms: int = H100_SMS) -> dict:
     """The bf16 Gram's launch at ``n`` rows in ``mode`` (``mode_tiles``):
     the triangle's row tile i takes the tiles from column 128 i in steps of
-    256, a panel of ``rows`` rows its row tiles times the 256-column tiles.
+    256, a panel of ``rows`` rows its row tiles times the 256-column tiles,
+    and so does a cross block of ``rows`` rows by one of ``n``.
     Its dynamic shared memory holds the ring (48 KB a stage: 128 rows of A,
     256 of B) and the staged boxes of G (16 KB each), with 1 KB to align
     the ring; one block an SM, and the grid is one block an SM or one a
     tile where there are fewer."""
-    if mode == "panel":
+    if mode in ("panel", "cross"):
         tiles = -(-rows // GRAM16_ROWS) * -(-n // GRAM16_COLS)
     else:
         tiles = sum(-(-(n - row0) // GRAM16_COLS) for row0 in range(0, n, GRAM16_ROWS))

@@ -114,7 +114,10 @@ def stage_rank(group, cases, out_dir):
 def _save_stage(st, base: str) -> None:
     """A rank's stage: its block and the arrays to ``<base>.npz``, the
     lists to ``<base>.json``."""
-    np.savez(base + ".npz", values=st.values.cpu().numpy(), mask=st.mask.cpu().numpy(),
+    values = st.values.cpu()
+    if values.dtype == torch.bfloat16:  # numpy has no bf16: float32 holds each value exactly
+        values = values.float()
+    np.savez(base + ".npz", values=values.numpy(), mask=st.mask.cpu().numpy(),
              row_valid=st.row_valid.cpu().numpy(), regions=st.regions,
              sample_rows=st.sample_rows)
     with open(base + ".json", "w") as f:
@@ -162,6 +165,25 @@ def gather_split_rank(group, cases):
         if group.rank == 0:
             out_p.open().copy_(whole.p)
             out_norms.open().copy_(whole.norms)
+
+
+def bf16_sharded_rank(group, reduce_cases, ring_cases, auto_cases, split_cases, knn_cases):
+    """The bfloat16 cases of ``tests/test_torch_bf16_sharded.py`` in one
+    spawn: each reduce case ([W, ...] handle, output handle) all-reduces
+    this rank's row and rank 0 writes the sum; each ring case runs
+    ``pcohort._rank_step`` on its arguments and each auto case
+    ``pcohort._rank_auto_step`` (the entries' rank functions, writing their
+    rows in place); then :func:`gather_split_rank` and :func:`knn_rank`."""
+    for t_h, out_h in reduce_cases:
+        got = group.all_reduce_sum(t_h.open()[group.rank])
+        if group.rank == 0:
+            out_h.open().copy_(got)
+    for args in ring_cases:
+        pcohort._rank_step(group, *args)
+    for args in auto_cases:
+        pcohort._rank_auto_step(group, *args)
+    gather_split_rank(group, split_cases)
+    knn_rank(group, knn_cases)
 
 
 def cache_rank(group):
